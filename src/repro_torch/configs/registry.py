@@ -1,0 +1,35 @@
+"""Architecture registry: ``--arch <id>`` resolution for the ported archs.
+
+Only the dense decoders of the first port slice are here; every other arch
+of the reference registry raises until its slice lands.
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+}
+
+
+def list_archs() -> list[str]:
+    """The arch ids this package can build."""
+    return list(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported yet; ported: "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(_MODULES[arch])
+
+
+def get_config(arch: str):
+    """The full-size config of ``arch``."""
+    return _module(arch).CONFIG
+
+
+def smoke_config(arch: str):
+    """The small test config of ``arch``."""
+    return _module(arch).SMOKE

@@ -1,0 +1,103 @@
+"""Paged multi-query attention: the CUDA kernel's launcher and its plain
+PyTorch version.
+
+A window of W queries per sequence attends to a KV prefix held in
+fixed-size pages (:mod:`repro_torch.serve.pages`) through a ``(B, P)``
+page table.  Window position w reads KV positions ``< lengths[b] + w``:
+``lengths`` counts the valid entries including window position 0's token,
+and every window token's K/V is in its page before the call.  Decode is
+the W = 1 window; a page-aligned prefill chunk is a W = chunk window of
+one sequence.
+
+The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
+``repro/kernels/paged_attention.py:paged_attention_mq`` without its int8
+page variant; its source note says what bounds it on Hopper and how the
+design answers that.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths):
+    """Paged attention by explicit gather: the CPU path and the kernel's
+    oracle.
+
+    q: (B, W, Hq, D); k_pages/v_pages: (N, page_size, Hkv, D); tables:
+    (B, P) int page ids; lengths: (B,) valid-KV counts for window position
+    0.  Returns (B, W, Hq, D); rows with no valid key (dead slots) are zero.
+    """
+    B, W, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    P = tables.shape[1]
+    G = Hq // Hkv
+    t = tables.long()
+    k = k_pages[t].reshape(B, P * ps, Hkv, D).to(torch.float32)
+    v = v_pages[t].reshape(B, P * ps, Hkv, D).to(torch.float32)
+    qg = q.reshape(B, W, Hkv, G, D).to(torch.float32) * D ** -0.5
+    s = torch.einsum("bwhgd,bkhd->bhgwk", qg, k)
+    limit = (lengths.long()[:, None]
+             + torch.arange(W, device=q.device)[None, :])            # (B, W)
+    ok = (torch.arange(P * ps, device=q.device)[None, None, :]
+          < limit[..., None])                                        # (B, W, Sk)
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgwk,bkhd->bwhgd", p, v)
+    o = torch.where((limit > 0)[:, :, None, None, None], o, 0.0)
+    return o.reshape(B, W, Hq, D).to(q.dtype)
+
+
+def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths):
+    """Launch the paged-attention kernel on ``q``'s card (current stream).
+    Shapes as in :func:`paged_attention_mq_plain`; q and the pages share one
+    dtype (float32 or bfloat16), D is a multiple of 8 up to 256.  Raises on
+    anything else; never falls back."""
+    B, W, Hq, D = q.shape
+    N, ps, Hkv, Dk = k_pages.shape
+    P = tables.shape[-1]
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("tables", tables), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"paged_attention_mq_cuda: {name} on {t.device}, "
+                             f"q on {dev}")
+    if not q.is_cuda:
+        raise ValueError("paged_attention_mq_cuda: q must lie on a card")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention_mq_cuda: dtypes q={q.dtype} "
+                        f"k={k_pages.dtype} v={v_pages.dtype}; want one of "
+                        "float32/bfloat16 for all three")
+    if v_pages.shape != k_pages.shape or Dk != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"paged_attention_mq_cuda: q {tuple(q.shape)} vs "
+                         f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    if D % 8 or D > 256:
+        raise ValueError(f"paged_attention_mq_cuda: head dim {D} must be a "
+                         "multiple of 8 up to 256")
+    if tables.shape != (B, P) or lengths.shape != (B,):
+        raise ValueError(f"paged_attention_mq_cuda: tables "
+                         f"{tuple(tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match B={B}")
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention_mq_cuda: {name} is not "
+                             "16-byte aligned")
+    out = torch.empty_like(q)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.paged_attention_mq_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, W, Hq, Hkv, D, ps, P, float(D ** -0.5), _DTYPE_CODES[q.dtype],
+            stream), "paged_attention_mq")
+    return out

@@ -1,0 +1,83 @@
+"""Model API of the port: :class:`DecoderLM` and :func:`build_model`.
+
+Counterpart of ``repro.models.api`` for the dense paged serving path.  The
+members are plain functions over dict-of-tensor params, which is all the
+serving engine calls.
+"""
+from __future__ import annotations
+
+__all__ = ["DecoderLM", "build_model"]
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.module import (init_params, resolve_device,
+                                       torch_dtype)
+
+
+class DecoderLM:
+    """Dense decoder-only transformer LM: paged prefill chunks, single-token
+    paged decode, and the logits head."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def param_defs(self) -> dict:
+        """Tree of :class:`repro_torch.models.module.Param` for every weight."""
+        return T.transformer_defs(self.cfg)
+
+    def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
+             device=None, dtype: Optional[torch.dtype] = None) -> dict:
+        """Random weights on ``device`` (``cuda`` unless named) in ``dtype``
+        (the config's compute dtype unless named).  A seed builds a
+        ``torch.Generator`` on the device; a generator must live there."""
+        dev = resolve_device(device)
+        if isinstance(generator_or_seed, torch.Generator):
+            gen = generator_or_seed
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(generator_or_seed))
+        dt = torch_dtype(self.cfg.dtype) if dtype is None else dtype
+        return init_params(self.param_defs(), gen, device=dev, dtype=dt)
+
+    def supports_paged_decode(self) -> bool:
+        """Whether the family has a per-token KV cache that can page."""
+        return not (self.cfg.local_window and self.cfg.global_every)
+
+    def paged_leaf_specs(self):
+        """``{"k", "v"}`` :class:`repro_torch.serve.pages.PagedLeafSpec`:
+        (L, num_pages, page_size, Hkv, D) in the compute dtype."""
+        from repro_torch.serve.pages import PagedLeafSpec
+        cfg = self.cfg
+        leaf = PagedLeafSpec((cfg.n_layers,),
+                             (cfg.padded_kv_heads, cfg.head_dim),
+                             torch_dtype(cfg.dtype))
+        return {"k": leaf, "v": leaf}
+
+    def paged_prefill_chunk(self, params, storage, table_row, pages_chunk,
+                            start, tokens):
+        """Prefill tokens (1, C) at positions [start, start + C) into pages
+        (in place); returns the final hidden states (1, C, d)."""
+        return T.paged_prefill_chunk(params, self.cfg, storage, table_row,
+                                     pages_chunk, start, tokens)
+
+    def paged_decode_step(self, params, storage, tables, lengths, tokens,
+                          write_pages, write_offs):
+        """tokens (B, 1) -> float32 logits (B, 1, V); K/V written in place."""
+        return T.paged_decode_step(params, self.cfg, storage, tables, lengths,
+                                   tokens, write_pages, write_offs)
+
+    def lm_head(self, params, hidden):
+        """Project final hidden states to float32 vocab logits."""
+        return T.lm_logits(params, hidden)
+
+
+def build_model(cfg: ModelConfig) -> DecoderLM:
+    """The :class:`DecoderLM` bound to ``cfg`` (dense family only)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)")
+    return DecoderLM(cfg)

@@ -1,0 +1,81 @@
+"""Parameter declarations and seeded initialization for the port.
+
+Models declare parameters as nested dicts of :class:`Param` (shape plus
+initializer), the same trees as the reference's ``repro.models.module``
+without the logical partition specs: the port serves on one card, so there
+is nothing to shard.  :func:`init_params` materializes a declaration tree
+into tensors on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    """Declaration of one parameter tensor."""
+
+    shape: tuple
+    init: str = "normal"          # normal | zeros | ones | small
+
+    def stddev(self) -> float:
+        """The normal initializer's standard deviation (1/sqrt(fan_in))."""
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in key-insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Raises when ``cuda`` is asked for (or implied) and no card is
+    visible, so a missing card never turns into a silent CPU run."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass device='cpu' to run the port "
+            "on the CPU")
+    return dev
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (a config's dtype field) -> torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, str(name))
+
+
+def init_params(defs, generator: torch.Generator, *, device: torch.device,
+                dtype: torch.dtype):
+    """Materialize a declaration tree on ``device``.
+
+    Each leaf is drawn in float32 from ``generator`` (which must live on
+    ``device``) and cast before the next is drawn, so a full-width model
+    never holds a float32 copy of more than one leaf."""
+    def make(p: Param):
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=device)
+        std = 0.02 if p.init == "small" else p.stddev()
+        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.mul_(std).to(dtype)
+
+    return tree_map(make, defs)

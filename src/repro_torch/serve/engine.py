@@ -1,0 +1,307 @@
+"""Continuous-batching serving engine over a paged KV cache, on one device.
+
+Counterpart of the paged single-device path of ``repro.serve.engine``:
+``submit()`` requests, ``tick()`` the loop (admission with a radix prefix
+match -> page-aligned chunked prefill -> copy-on-write -> one batched
+decode step for every live slot -> greedy commit -> retire), collect
+:attr:`ServeEngine.finished`.  The policy lives in
+:mod:`repro_torch.serve.scheduler` (a copy of the reference's); this module
+runs the scheduler's plan on the device.
+
+The reference donates the storage to each jitted call and, when a call
+raises, checks whether the donated buffers were consumed.  Here every call
+writes the pool's storage in place, so a raise can leave some writes done.
+The contract stays the same, by two routes:
+
+* a failing **prefill chunk** writes only into the pages of that chunk,
+  which its request holds alone and which are not registered in the prefix
+  index until the chunk commits (or into the trash page, for a replayed
+  chunk); releasing the request returns them to the free list, so the
+  partial writes are harmless and the other residents keep their caches;
+* a failing **decode tick** may have run copy-on-write copies and written
+  into every live slot's pages, so the engine evicts every resident
+  (recompute style: each resumes from prompt plus generated tokens and its
+  greedy stream is unchanged), rebuilds zeroed storage with
+  :meth:`repro_torch.serve.pages.PagePool.reset_storage`, then raises.
+
+Features of the reference engine that later port slices bring (seeded and
+custom sampling, encoder inputs, speculative decode, KV and weight
+quantization, the device mesh, the dense per-slot path, prefill-only
+disaggregation) raise ``NotImplementedError`` here instead of being ignored.
+"""
+
+from __future__ import annotations
+
+__all__ = ["Request", "ServeEngine"]
+
+import dataclasses
+import itertools
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.module import resolve_device, tree_leaves
+from repro_torch.serve import pages as PG
+from repro_torch.serve.pages import PagePool
+from repro_torch.serve.sampling import greedy
+from repro_torch.serve.scheduler import Scheduler
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request and the engine's record of its progress."""
+    rid: int
+    prompt: np.ndarray                     # (prompt_len,) int32
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    output: list = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    done_at: Optional[float] = None
+    error: Optional[BaseException] = None  # set if prefill failed
+
+
+def _not_ported(what: str, slice_name: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the {slice_name} slice")
+
+
+class ServeEngine:
+    """Paged continuous-batching engine on one device (``cuda`` unless
+    ``device`` names another); see the module docstring."""
+
+    def __init__(self, model, params, *, max_slots: int = 8,
+                 max_len: int = 512, page_size: int = 16,
+                 num_pages: Optional[int] = None, prefill_chunk: int = 64,
+                 prefix_cache: bool = True, device=None, sampler=None,
+                 paged: Optional[bool] = None, spec_decode=None,
+                 kv_quant=None, weight_quant=None, mesh=None,
+                 prefill_only: bool = False):
+        refused = [(sampler is not None, "an engine-wide sampler",
+                    "seeded sampling"),
+                   (paged is False, "paged=False (the dense per-slot path)",
+                    "non-paged families"),
+                   (spec_decode not in (None, "off", False), "spec_decode",
+                    "speculative decode"),
+                   (kv_quant not in (None, "off", False), "kv_quant",
+                    "int8 KV and weight quant"),
+                   (weight_quant not in (None, "off", False), "weight_quant",
+                    "int8 KV and weight quant"),
+                   (mesh is not None, "a device mesh", "MoE with TP/EP"),
+                   (bool(prefill_only), "prefill_only",
+                    "traffic, metrics and disagg")]
+        for bad, what, slice_name in refused:
+            if bad:
+                raise _not_ported(what, slice_name)
+        if not model.supports_paged_decode():
+            raise _not_ported(f"{model.cfg.name} without a paged KV cache",
+                              "non-paged families")
+        self.device = resolve_device(device)
+        for leaf in tree_leaves(params):
+            if leaf.device.type != self.device.type:
+                raise ValueError(f"params lie on {leaf.device}, the engine "
+                                 f"runs on {self.device}")
+        self.model, self.params = model, params
+        self.max_slots, self.max_len = max_slots, max_len
+        self.prefix_cache = bool(prefix_cache)
+        if num_pages is None:           # dense-equivalent budget by default
+            num_pages = -(-max_slots * max_len // page_size)
+        self.pool = PagePool(model.paged_leaf_specs(), num_pages=num_pages,
+                             page_size=page_size, device=self.device,
+                             prefix_cache=self.prefix_cache)
+        self.sched = Scheduler(max_slots=max_slots, max_len=max_len,
+                               pool=self.pool, prefill_chunk=prefill_chunk)
+        self.last_token = np.zeros(max_slots, np.int32)
+        self.finished: list[Request] = []
+        self._rid = itertools.count()
+        self.stats = {"ticks": 0, "tokens": 0, "prefills": 0,
+                      "chunk_prefills": 0, "preemptions": 0,
+                      "prefix_hits": 0, "prefix_hit_tokens": 0,
+                      "cow_copies": 0, "evictions": 0, "pages_high_water": 0}
+
+    def _dev(self, a) -> torch.Tensor:
+        """A host array as a fresh tensor on the engine's device."""
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    # -- request lifecycle ---------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int = 32,
+               eos_id: Optional[int] = None, sampler=None,
+               seed: Optional[int] = None, encoder_input=None) -> int:
+        """Enqueue one greedy request; returns its rid."""
+        if sampler is not None:
+            raise _not_ported("a per-request sampler", "seeded sampling")
+        if seed is not None:
+            raise _not_ported("a per-request seed", "seeded sampling")
+        if encoder_input is not None:
+            raise _not_ported("encoder_input", "multimodal")
+        prompt = np.asarray(prompt, np.int32)
+        if len(prompt) >= self.max_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} >= max_len {self.max_len}")
+        req = Request(next(self._rid), prompt, max_new_tokens, eos_id)
+        req.submitted_at = time.perf_counter()
+        self.sched.submit(req)
+        return req.rid
+
+    def _greedy(self, logits) -> np.ndarray:
+        return greedy(logits, true_vocab=self.model.cfg.vocab).cpu().numpy()
+
+    # -- retirement ----------------------------------------------------------
+
+    def _retire(self, slot: int):
+        req = self.sched.slot_req[slot]
+        req.done_at = time.perf_counter()
+        self.finished.append(req)
+        self.sched.release(slot)
+
+    def _check_retire(self, slot: int, tok: int) -> bool:
+        req = self.sched.slot_req[slot]
+        hit_eos = req.eos_id is not None and tok == req.eos_id
+        if (hit_eos or len(req.output) >= req.max_new_tokens
+                or self.sched.lengths[slot] >= self.max_len - 1):
+            self._retire(slot)
+            return True
+        return False
+
+    def _emit_first_token(self, slot: int, tok: int):
+        req = self.sched.slot_req[slot]
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+        req.output.append(tok)
+        self.last_token[slot] = tok
+        self.stats["tokens"] += 1
+        self.stats["prefills"] += 1
+        self._check_retire(slot, tok)
+
+    def _retire_error(self, req: Request, err: BaseException):
+        req.error = err
+        req.done_at = time.perf_counter()
+        self.finished.append(req)
+
+    def _reject_errors(self, rejects) -> list:
+        def why(r):
+            if len(r.prompt) == 0:
+                return "empty prompt has nothing to prefill"
+            return f"prompt length {len(r.prompt)} >= max_len {self.max_len}"
+        return [(r, ValueError(why(r))) for r in rejects]
+
+    def _commit_decode(self, live, logits) -> None:
+        self.stats["ticks"] += 1
+        nxt = self._greedy(logits[:, -1])
+        for slot in live:
+            req = self.sched.slot_req[slot]
+            tok = int(nxt[slot])
+            req.output.append(tok)
+            self.last_token[slot] = tok
+            self.sched.lengths[slot] += 1
+            self.stats["tokens"] += 1
+            self._check_retire(slot, tok)
+
+    def _evict_residents(self):
+        """Preempt every resident — youngest first, so the OLDEST lands back
+        at the queue head and FIFO order resumes intact."""
+        resident = [s for s in range(self.max_slots)
+                    if self.sched.slot_req[s] is not None]
+        for slot in sorted(resident,
+                           key=lambda s: -int(self.sched.admitted_at[s])):
+            self.sched.preempt(slot)
+
+    # -- the tick ------------------------------------------------------------
+
+    def _prefill_job(self, job) -> Optional[int]:
+        """Run one prefill chunk; the first token when it was the last."""
+        hidden = self.model.paged_prefill_chunk(
+            self.params, self.pool.storage,
+            self._dev(self.sched.table[job.slot]), self._dev(job.pages),
+            job.start, self._dev(job.tokens[None]))
+        self.sched.chunk_done(job)
+        self.stats["chunk_prefills"] += 1
+        if not job.is_last:
+            return None
+        i = job.n_valid - 1
+        logits = self.model.lm_head(self.params, hidden[:, i:i + 1])
+        return int(self._greedy(logits[0, -1]))
+
+    def tick(self) -> bool:
+        """One serving step; True while the engine still has work."""
+        _, rejects = self.sched.admit()
+        errors = self._reject_errors(rejects)
+
+        failed = set()
+        for job in self.sched.next_chunks():
+            if job.slot in failed or self.sched.slot_req[job.slot] is not job.req:
+                continue
+            # error isolation: a request that dies mid-prefill hands every
+            # page back (its partial writes are harmless: module docstring)
+            try:
+                tok = self._prefill_job(job)
+            except Exception as e:                      # noqa: BLE001
+                failed.add(job.slot)
+                self.sched.release(job.slot)
+                errors.append((job.req, e))
+                continue
+            if tok is not None:
+                self._emit_first_token(job.slot, tok)
+
+        live = self.sched.live_slots()
+        cow = []
+        if live:
+            # may preempt the youngest and/or schedule copy-on-write moves
+            _, cow, _ = self.sched.ensure_decode_pages()
+            live = self.sched.live_slots()
+            cow = [(s, a, b) for s, a, b in cow
+                   if self.sched.slot_req[s] is not None]
+        self.stats["preemptions"] = self.sched.preemptions
+        if live:
+            ps = self.pool.page_size
+            B = self.max_slots
+            wpages = np.full(B, self.pool.trash_page, np.int32)
+            woffs = np.zeros(B, np.int32)
+            lens = np.zeros(B, np.int32)
+            toks = np.zeros((B, 1), np.int32)
+            for slot in live:
+                ln = int(self.sched.lengths[slot])
+                lens[slot] = ln
+                toks[slot, 0] = self.last_token[slot]
+                wpages[slot] = self.sched.table[slot, ln // ps]
+                woffs[slot] = ln % ps
+            try:
+                if cow:         # copies strictly before this tick's writes
+                    PG.copy_pages(self.pool.storage, self.pool.leaf_specs,
+                                  self._dev([a for _, a, _ in cow]),
+                                  self._dev([b for _, _, b in cow]))
+                logits = self.model.paged_decode_step(
+                    self.params, self.pool.storage,
+                    self._dev(self.sched.table), self._dev(lens),
+                    self._dev(toks), self._dev(wpages), self._dev(woffs))
+                self._commit_decode(live, logits)
+            except BaseException:
+                # engine-level failure: the in-place writes may have touched
+                # every live slot, so evict and rebuild before raising, and
+                # retire this tick's prefill failures with their errors
+                self._evict_residents()
+                self.pool.reset_storage()
+                for req, err in errors:
+                    self._retire_error(req, err)
+                raise
+
+        self.stats.update(
+            prefix_hits=self.sched.prefix_hits,
+            prefix_hit_tokens=self.sched.prefix_hit_tokens,
+            cow_copies=self.sched.cow_copies,
+            evictions=self.pool.evictions,
+            pages_high_water=self.pool.high_water)
+        for req, err in errors:
+            self._retire_error(req, err)
+        return bool(live) or self.sched.has_work()
+
+    def run_until_drained(self, max_ticks: int = 10_000):
+        """Tick until idle; returns the finished requests."""
+        for _ in range(max_ticks):
+            busy = self.tick()
+            if not busy and not self.sched.has_work():
+                break
+        return self.finished

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels on a card: each against its plain PyTorch version
+at the dense archs' shapes, and the serving engine on the card through the
+kernels against the same engine on the CPU.  Every test here needs a card
+and skips with a reason where none is visible; the file imports no JAX, so
+it runs on a card's host that has none:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models.api import build_model
+from repro_torch.models.module import tree_map
+from repro_torch.serve.engine import ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# f32: summation order only; bf16: one rounding of the output (rmsnorm's
+# outputs are O(1), attention's ~0.1, so its bf16 limit is tighter)
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _paged_case(rng, B, W, Hq, Hkv, D, ps, N, P, dead_slot):
+    """Ragged lengths whose deepest row stays in the table; tables avoid
+    the last page (the trash page); slot 0 full, the last slot dead."""
+    q = rng.normal(size=(B, W, Hq, D)).astype(np.float32)
+    kp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    tables = rng.integers(0, N - 1, size=(B, P)).astype(np.int32)
+    lens = rng.integers(1, P * ps - W + 2, size=B).astype(np.int32)
+    lens[0] = P * ps - W + 1
+    if dead_slot:
+        lens[-1] = 0
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_matches_plain(card, dtype):
+    rng = np.random.default_rng(6)
+    for rows, d in ((1, 3584), (4097, 2048), (5, 128), (3, 100)):
+        x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+        s = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32))
+        x, s = x.to(card, DTYPES[dtype]), s.to(card)
+        got = ops.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.rmsnorm(x, s).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,W,B", [(28, 4, 1, 8), (28, 4, 64, 1),
+                                        (16, 8, 5, 8), (4, 2, 3, 2)])
+def test_paged_attention_kernel_matches_plain(card, dtype, Hq, Hkv, W, B):
+    rng = np.random.default_rng(Hq + W + B)
+    case = _paged_case(rng, B, W, Hq, Hkv, 128, 16, 40, 8, dead_slot=B > 1)
+    q, kp, vp, tb, ln = (torch.from_numpy(a).to(card) for a in case)
+    q, kp, vp = (t.to(DTYPES[dtype]) for t in (q, kp, vp))
+    got = ops.paged_attention_mq(q, kp, vp, tb, ln)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_mq(q, kp, vp, tb, ln)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    if B > 1:
+        assert not got[-1, 0].any()                # dead slot: zero row 0
+
+
+def test_engine_on_card_matches_cpu(card):
+    """SMOKE qwen2-7b in float32: the engine on the card, through both
+    kernels and never their plain versions, emits the CPU engine's greedy
+    streams."""
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40))]
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        eng = ServeEngine(model, params, max_slots=3, max_len=128,
+                          page_size=16, prefill_chunk=16, device=device)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        return {r.rid: r.output for r in eng.run_until_drained()}
+
+    want = serve("cpu")
+    ops.reset_counts()
+    got = serve(card)
+    assert all(ops.COUNTS[k].kernel > 0 for k in ops.COUNTS)
+    assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
+    assert got == want

@@ -1,0 +1,48 @@
+"""Import guard of the port: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the reference package, by source (an
+``ast`` walk) and at run time (a fresh interpreter's ``sys.modules``)."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax  # noqa: F401  (both frameworks load in this process, as in the others)
+import pytest
+import torch  # noqa: F401
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_imports_no_jax_or_reference(path):
+    bad = sorted(n for n in _imported(path)
+                 if n.split(".")[0] in FORBIDDEN)
+    assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_port_runs_without_loading_jax():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.bridge, repro_torch.launch.serve\n"
+            "import repro_torch.serve.engine, repro_torch.kernels.ref\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr

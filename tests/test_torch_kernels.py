@@ -1,0 +1,136 @@
+"""The port's kernels against the reference package's: the plain PyTorch
+versions (what a CPU tensor runs) against ``repro.kernels.ref`` and the
+Pallas kernels in interpret mode, on the same numpy-seeded inputs; the
+CPU route of the counted wrappers.  The CUDA kernels against their plain
+versions on a card are in ``test_torch_gpu.py``, which imports no JAX, so
+that it runs on a card's host without it."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# f32: summation order only; bf16: one rounding of the output
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One numpy array as (jax array, torch tensor) of the same values."""
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 37, 128), (1, 256), (257, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_reference(shape, dtype):
+    rng = np.random.default_rng(1)
+    xj, xt = _pair(rng.normal(size=shape).astype(np.float32), dtype)
+    sj, st = _pair(rng.normal(size=shape[-1:]).astype(np.float32), "float32")
+    got = _np(ref.rmsnorm(xt, st))
+    tol = TOL[dtype]
+    for want in (jref.rmsnorm(xj, sj), jops.rmsnorm(xj, sj)):
+        np.testing.assert_allclose(got, _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# paged multi-query attention
+# ---------------------------------------------------------------------------
+
+def _paged_case(rng, B, W, Hq, Hkv, D, ps, N, P, dtype, dead_slot=False):
+    """Inputs as numpy: ragged lengths whose deepest row stays in the table;
+    tables avoid page N - 1 (the trash page); slot 0 full, optionally the
+    last slot dead (length 0)."""
+    q = rng.normal(size=(B, W, Hq, D)).astype(np.float32)
+    kp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    tables = rng.integers(0, N - 1, size=(B, P)).astype(np.int32)
+    lens = rng.integers(1, P * ps - W + 2, size=B).astype(np.int32)
+    lens[0] = P * ps - W + 1
+    if dead_slot:
+        lens[-1] = 0
+    return q, kp, vp, tables, lens
+
+
+def _plain(q, kp, vp, tables, lens, dtype):
+    q, kp, vp = (_pair(a, dtype)[1] for a in (q, kp, vp))
+    return ref.paged_attention_mq(q, kp, vp, torch.from_numpy(tables),
+                                  torch.from_numpy(lens))
+
+
+def _run_both(q, kp, vp, tables, lens, dtype):
+    """The port's plain version, and the reference's oracle and kernel."""
+    qj, kj, vj = (_pair(a, dtype)[0] for a in (q, kp, vp))
+    tj, lj = jnp.asarray(tables), jnp.asarray(lens)
+    return _plain(q, kp, vp, tables, lens, dtype), (
+        jref.paged_attention_mq(qj, kj, vj, tj, lj),
+        jops.paged_attention_mq(qj, kj, vj, tj, lj))
+
+
+@pytest.mark.parametrize("W", [1, 3, 8])
+@pytest.mark.parametrize("G", [1, 2, 7])
+def test_paged_attention_plain_matches_reference(W, G):
+    rng = np.random.default_rng(10 * W + G)
+    Hkv, D, ps, N, P, B = 2, 16, 8, 10, 3, 2
+    case = _paged_case(rng, B, W, G * Hkv, Hkv, D, ps, N, P, "float32",
+                       dead_slot=True)
+    got, wants = _run_both(*case, "float32")
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+    assert np.all(_np(got)[-1, 0] == 0.0)          # dead slot: zero row 0
+
+
+def test_paged_attention_plain_bf16_matches_reference():
+    rng = np.random.default_rng(3)
+    case = _paged_case(rng, 2, 3, 4, 2, 16, 8, 8, 3, "bfloat16")
+    got, wants = _run_both(*case, "bfloat16")
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def test_paged_attention_plain_trash_page_isolated():
+    """What lands in the trash page (the last page id, which no live table
+    row names) never perturbs a live row."""
+    rng = np.random.default_rng(4)
+    q, kp, vp, tables, lens = _paged_case(rng, 2, 4, 4, 2, 16, 8, 7, 3,
+                                          "float32")
+    base = _plain(q, kp, vp, tables, lens, "float32")
+    kp[-1], vp[-1] = 1e4, -1e4
+    got = _plain(q, kp, vp, tables, lens, "float32")
+    np.testing.assert_array_equal(_np(base), _np(got))
+
+
+# ---------------------------------------------------------------------------
+# wrapper routes and counters
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_route_and_count_it():
+    rng = np.random.default_rng(5)
+    q, kp, vp, tables, lens = _paged_case(rng, 2, 1, 4, 2, 16, 8, 6, 3,
+                                          "float32")
+    x = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    ops.reset_counts()
+    ops.rmsnorm(x, torch.ones(16))
+    ops.rmsnorm(x, torch.ones(16))
+    ops.paged_attention_mq(*(torch.from_numpy(a)
+                             for a in (q, kp, vp, tables, lens)))
+    assert ops.COUNTS["rmsnorm"].plain == 2
+    assert ops.COUNTS["paged_attention_mq"].plain == 1
+    assert all(c.kernel == 0 for c in ops.COUNTS.values())
+    ops.reset_counts()
+    assert all(c.kernel == c.plain == 0 for c in ops.COUNTS.values())

@@ -1,0 +1,203 @@
+"""The port's paged serving engine against the reference's: greedy token
+streams on bridged weights (prefix cache on and off, forced preemption, a
+shared-prefix set), page conservation, error isolation and recovery, and
+the device and feature guards of the entry points."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.models.api import build_model as jax_build_model
+from repro.serve import ServeEngine as JaxServeEngine
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import smoke_config
+from repro_torch.models.api import build_model
+from repro_torch.serve import pages as PG
+from repro_torch.serve.engine import ServeEngine
+
+PROMPTS = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11]
+PREEMPT_PROMPTS = [[5, 17, 33, 2, 9, 1, 2, 3], [100, 200, 300, 4, 5, 6, 7, 8]]
+SHARED = list(range(1, 25))
+WAVES = [[SHARED], [SHARED, SHARED[:20] + [77, 78]], [list(range(50, 71))],
+         [SHARED]]
+
+
+@pytest.fixture(scope="module", params=["qwen2-7b", "qwen3-1.7b"])
+def pair(request):
+    """(reference model, its params, port model, bridged params)."""
+    jmodel = jax_build_model(
+        jax_smoke_config(request.param).replace(remat="none"))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    model = build_model(smoke_config(request.param))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    return jmodel, jparams, model, params
+
+
+def _conserved(eng):
+    pool = eng.pool
+    assert pool.pages_free + pool.pages_cached + pool.pages_in_use \
+        == pool.num_pages
+    refs = sum(pool.ref(p) for p in range(pool.num_pages))
+    assert eng.sched.held_pages() == refs
+
+
+def _serve(engine_cls, model, params, waves, *, max_new=6, check=None, **kw):
+    eng = engine_cls(model, params, page_size=16, prefill_chunk=16, **kw)
+    for wave in waves:
+        for p in wave:
+            eng.submit(p, max_new_tokens=max_new)
+        while eng.tick() or eng.sched.has_work():
+            if check is not None:
+                check(eng)
+    assert all(r.error is None for r in eng.finished)
+    return {r.rid: r.output for r in eng.finished}, dict(eng.stats)
+
+
+def _both(pair, waves, **kw):
+    jmodel, jparams, model, params = pair
+    want, s_want = _serve(JaxServeEngine, jmodel, jparams, waves, **kw)
+    got, s_got = _serve(ServeEngine, model, params, waves, device="cpu",
+                        check=_conserved, **kw)
+    return got, want, s_got, s_want
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_streams_match_reference(pair, prefix_cache):
+    got, want, s_got, s_want = _both(pair, [PROMPTS], max_slots=3,
+                                     max_len=128, prefix_cache=prefix_cache)
+    assert got == want
+    for k in ("ticks", "chunk_prefills", "prefix_hits", "pages_high_water"):
+        assert s_got[k] == s_want[k], k
+
+
+def test_streams_match_reference_under_forced_preemption(pair):
+    """A pool at the single-request minimum (4 pages of 16 for max_len 64)
+    forces preemption; recompute keeps the streams equal to the reference."""
+    got, want, s_got, _ = _both(pair, [PREEMPT_PROMPTS], max_new=30,
+                                max_slots=2, max_len=64, num_pages=4)
+    assert got == want
+    assert s_got["preemptions"] >= 1
+
+
+def test_streams_match_reference_on_shared_prefix(pair):
+    """Waves sharing a 24-token prefix (full-prompt replay included) hit the
+    radix cache, and the streams still equal the reference's."""
+    got, want, s_got, s_want = _both(pair, WAVES, max_new=12, max_slots=2,
+                                     max_len=128, prefix_cache=True)
+    assert got == want
+    assert s_got["prefix_hits"] > 0
+    assert s_got["prefix_hits"] == s_want["prefix_hits"]
+    assert s_got["cow_copies"] == s_want["cow_copies"]
+
+
+def test_failed_prefill_returns_its_pages(pair, monkeypatch):
+    """A request whose prefill raises is retired with ``.error`` set and its
+    pages go back to the pool; the other requests finish unharmed."""
+    _, _, model, params = pair
+    real = model.paged_prefill_chunk
+
+    def flaky(params, storage, table_row, pages_chunk, start, tokens):
+        if bool((tokens == 999).any()):
+            raise ValueError("injected prefill failure")
+        return real(params, storage, table_row, pages_chunk, start, tokens)
+
+    want, _ = _serve(ServeEngine, model, params, [PROMPTS], max_slots=3,
+                     max_len=128, device="cpu")
+    monkeypatch.setattr(model, "paged_prefill_chunk", flaky)
+    eng = ServeEngine(model, params, max_slots=3, max_len=128, page_size=16,
+                      prefill_chunk=16, device="cpu")
+    rids = [eng.submit(p, max_new_tokens=6) for p in PROMPTS[:2]]
+    bad = eng.submit([1, 2, 999, 4] * 5, max_new_tokens=6)
+    rids.append(eng.submit(PROMPTS[2], max_new_tokens=6))
+    eng.run_until_drained()
+    _conserved(eng)
+    assert eng.pool.pages_in_use == 0
+    by_rid = {r.rid: r for r in eng.finished}
+    assert isinstance(by_rid[bad].error, ValueError)
+    assert [by_rid[r].output for r in rids] == [want[i] for i in range(3)]
+
+
+def test_failed_decode_raises_after_recovery(pair, monkeypatch):
+    """A decode step that raises evicts every resident and rebuilds zeroed
+    storage before the error propagates; the residents then resume by
+    recompute and their greedy streams are unchanged."""
+    _, _, model, params = pair
+    want, _ = _serve(ServeEngine, model, params, [PROMPTS], max_slots=3,
+                     max_len=128, device="cpu")
+    real = model.paged_decode_step
+    calls = []
+
+    def flaky(*args):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("injected decode failure")
+        return real(*args)
+
+    monkeypatch.setattr(model, "paged_decode_step", flaky)
+    eng = ServeEngine(model, params, max_slots=3, max_len=128, page_size=16,
+                      prefill_chunk=16, device="cpu")
+    for p in PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    with pytest.raises(RuntimeError, match="injected decode failure"):
+        eng.run_until_drained()
+    assert eng.sched.live_slots() == [] and len(eng.sched.queue) == 3
+    assert all(not t.any() for t in eng.pool.storage.values())
+    eng.run_until_drained()
+    _conserved(eng)
+    assert {r.rid: r.output for r in eng.finished} == want
+
+
+def test_page_ops_write_in_place():
+    storage = torch.zeros(5, 4, 2, 3)
+    rng = np.random.default_rng(0)
+    chunk = torch.from_numpy(rng.normal(size=(8, 2, 3)).astype(np.float32))
+    view = storage[:]
+    PG.scatter_chunk(view, torch.tensor([3, 1]), chunk, page_size=4)
+    tok = torch.from_numpy(rng.normal(size=(1, 2, 3)).astype(np.float32))
+    PG.scatter_token(view, torch.tensor([1]), torch.tensor([2]), tok)
+    got = PG.gather_pages(storage, torch.tensor([[3, 1]]))
+    want = chunk.clone()
+    want[4 + 2] = tok[0]
+    torch.testing.assert_close(got[0], want, rtol=0, atol=0)
+    spec = {"k": PG.PagedLeafSpec((), (2, 3), torch.float32)}
+    PG.copy_pages({"k": storage}, spec, torch.tensor([3, 3]),
+                  torch.tensor([0, 2]))
+    assert torch.equal(storage[0], storage[3])
+    assert torch.equal(storage[2], storage[3])
+    with pytest.raises(TypeError, match="storage dtype"):
+        PG.scatter_token(storage, torch.tensor([1]), torch.tensor([0]),
+                         tok.double())
+
+
+def test_entry_points_need_a_card_unless_told_cpu(pair):
+    _, _, model, params = pair
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(ValueError, match="params lie on"):
+        ServeEngine(model, params, device="meta")
+
+
+@pytest.mark.parametrize("kw", [dict(sampler=lambda k, l: 0), dict(paged=False),
+                                dict(spec_decode="ngram"),
+                                dict(kv_quant="int8"),
+                                dict(weight_quant="int8"), dict(mesh=object()),
+                                dict(prefill_only=True)])
+def test_unported_engine_features_raise(pair, kw):
+    _, _, model, params = pair
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ServeEngine(model, params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(seed=1), dict(sampler=lambda k, l: 0),
+                                dict(encoder_input=np.zeros((2, 64)))])
+def test_unported_request_features_raise(pair, kw):
+    _, _, model, params = pair
+    eng = ServeEngine(model, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        eng.submit([1, 2, 3], **kw)
