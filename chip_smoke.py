@@ -4,30 +4,50 @@
 
 Phases (any failure exits non-zero before the result lines):
 
-1. device   — a CUDA card must be visible; prints its name and power limit.
-2. build    — compiles the CUDA kernels from ``src/repro_torch/csrc``.
-3. parity   — each kernel against its plain PyTorch version at the main
-              path's shapes, with the tolerances printed beside them.
-4. small    — the SMOKE qwen2-7b engine (float32) on the card emits the same
-              greedy streams as on the CPU: the output agrees with a
-              reference on a small input.
-5. main     — full-width, full-depth qwen2-7b (28 layers, bf16, seeded
-              random weights) through the serving launcher: 8 requests
-              sharing a 256-token prefix, 32 new tokens each; every request
-              must finish, both kernels must launch, their plain versions
-              must not, and the prefix cache must hit.
-6. timing   — each kernel, its plain version and one PyTorch yardstick call
-              timed at the main path's decode shapes (device time from a
-              replayed CUDA graph; the host-issued time printed beside),
-              beside the bytes/operations bound.
-7. step     — one decode step and one prefill chunk of the main path's
-              model, host-issued and as device time.
+1. device      — a CUDA card must be visible; prints its name and power
+                 limit.
+2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
+                 (one nvcc per source, all at once) and prints what ptxas
+                 reports of the flash-attention kernels' registers and
+                 spills.
+3. parity      — each kernel against its plain PyTorch version at the main
+                 paths' shapes, with the tolerances printed beside them.
+4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
+                 same greedy streams as on the CPU, paged and then dense.
+5. main        — full-width, full-depth qwen2-7b (28 layers, bf16, seeded
+                 random weights) through the serving launcher, paged: 8
+                 requests sharing a 256-token prefix, 32 new tokens each;
+                 every request must finish, the paged path's kernels must
+                 launch, no plain version may run, and the prefix cache
+                 must hit.
+6. timing      — each kernel, its plain version and one PyTorch yardstick
+                 call timed at the main paths' shapes (device time from a
+                 replayed CUDA graph; the host-issued time printed beside),
+                 beside the bytes/operations bound.
+7. step        — one paged decode step and one prefill chunk, host-issued
+                 and as device time.
+8. main-dense  — the same model through the launcher's ``--dense`` path:
+                 8 requests of 964-1007 tokens (a 960-token shared prefix),
+                 so every whole-prompt prefill runs at bucket 1024, farmed
+                 over the prefill farm; every request must finish,
+                 flash attention must launch 28 times a prefill, RMSNorm
+                 must launch, and no plain version may run.  Then, in
+                 float32 on the same weights, one prompt's prefill through
+                 the kernel and through its plain version must give the
+                 same layer-1 K cache (the gap of every layer printed).
+                 Prints the peak device memory, how far the dense greedy
+                 streams agree with the paged engine's on the same prompts,
+                 and the wall time and mean TTFT of the same requests with
+                 1 and 4 prefill-farm workers.
+9. step-dense  — one dense decode step (4 slots, max_len 2048) and one
+                 bucket-1024 prefill, host-issued and as device time.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -49,15 +69,37 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # rtol = atol per kernel and dtype.  bf16 rmsnorm outputs are O(1), where
-# one bf16 ulp is 2**-7 ~ 8e-3; bf16 attention outputs are ~0.1, and the
-# limit sits near twice the largest error seen on the card.
+# one bf16 ulp is 2**-7 ~ 8e-3; bf16 paged-attention outputs are ~0.1; the
+# bf16 attention limits sit near twice the largest error seen on the card
+# (flash attention: 0.00195, one bf16 ulp in [0.25, 0.5)).
 TOL = {"rmsnorm": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
-       "paged_attention_mq": {torch.float32: 2e-4, torch.bfloat16: 1e-2}}
+       "paged_attention_mq": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
+       "flash_attention": {torch.float32: 2e-4, torch.bfloat16: 4e-3}}
+# main-dense, float32: the layer-1 K cache of a prefill through the flash
+# kernel against one through its plain version, max |dK| over max |K|
+# (layer 0's K precedes any attention)
+K_GAP_TOL = 1e-3
+FARM_WORKERS = (1, 4, 1, 4)        # main-dense's farm sizes, alternated
 PS = 16                            # the main path's page size
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
              "--slots", "4", "--max-len", "512", "--page-size", str(PS),
              "--prefill-chunk", "64", "--prefix-cache", "on",
              "--shared-prefix", "256", "--device", "cuda"]
+PAGED_KERNELS = ("rmsnorm", "paged_attention_mq")   # the paged path runs
+DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
+              "--max-new", "32", "--slots", "4", "--max-len", "2048",
+              "--shared-prefix", "960", "--device", "cuda"]
+# (B, Sq, Sk, Hq, Hkv, D, causal, window): the reference's five kernel
+# cases, a ragged length, D = 64 and 256, and the dense prefill's shape
+FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
+               (1, 512, 512, 2, 2, 16, True, 100),
+               (2, 256, 256, 4, 1, 32, False, None),
+               (1, 128, 128, 8, 8, 64, True, None),
+               (1, 384, 384, 2, 1, 32, True, 64),
+               (1, 200, 200, 4, 2, 128, True, None),
+               (1, 200, 200, 8, 2, 64, True, 48),
+               (1, 300, 300, 8, 2, 256, True, None),
+               (1, 1024, 1024, 28, 4, 128, True, None)]
 
 
 def log(msg: str) -> None:
@@ -207,10 +249,28 @@ def phase_parity(dev) -> dict:
                               f"Hq={Hq} Hkv={Hkv} W={W} B={B} {dtype}", got,
                               ref.paged_attention_mq(q, kp, vp, tb, ln),
                               dtype))
+    flash_errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Sq, Sk, Hq, Hkv, D, causal, window in FLASH_CASES:
+            q = torch.randn(B, Sq, Hq, D, device=dev).to(dtype)
+            k = torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
+            v = torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = check("flash_attention",
+                        f"B={B} S={Sq}/{Sk} Hq={Hq} Hkv={Hkv} D={D} "
+                        f"causal={causal} window={window} {dtype}", got,
+                        ref.flash_attention(q, k, v, causal=causal,
+                                            window=window), dtype)
+            key = str(dtype).split(".")[-1]
+            flash_errs[key] = max(flash_errs.get(key, 0.0), err)
+    errs["flash_attention"] = max(flash_errs.values())
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
-    log(f"parity ok: 16 rmsnorm + 24 paged_attention_mq cases, tol "
-        f"(rtol=atol) {tols}; max abs err {errs}")
+    log(f"parity ok: 16 rmsnorm + 24 paged_attention_mq + "
+        f"{2 * len(FLASH_CASES)} flash_attention cases, tol (rtol=atol) "
+        f"{tols}; max abs err {errs}; flash_attention by dtype "
+        f"{flash_errs}")
     return errs
 
 
@@ -219,18 +279,22 @@ def phase_small(dev) -> None:
     cpu_params = model.init(0, device="cpu")
     prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40))]
 
-    def serve(device):
+    def serve(device, **kw):
         params = tree_map(lambda t: t.to(device), cpu_params)
-        eng = ServeEngine(model, params, max_slots=3, max_len=128,
-                          page_size=PS, prefill_chunk=16, device=device)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=8)
-        return {r.rid: r.output for r in eng.run_until_drained()}
+        with ServeEngine(model, params, max_slots=3, max_len=128,
+                         page_size=PS, prefill_chunk=16, device=device,
+                         **kw) as eng:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            return {r.rid: r.output for r in eng.run_until_drained()}
 
-    want, got = serve("cpu"), serve(dev)
-    if got != want:
-        raise AssertionError(f"SMOKE engine on the card {got} != CPU {want}")
-    log("small input: card streams == CPU streams (SMOKE qwen2-7b, float32)")
+    for label, kw in (("paged", {}), ("dense", {"paged": False})):
+        want, got = serve("cpu", **kw), serve(dev, **kw)
+        if got != want:
+            raise AssertionError(f"SMOKE {label} engine on the card {got} "
+                                 f"!= CPU {want}")
+        log(f"small input, {label}: card streams == CPU streams (SMOKE "
+            f"qwen2-7b, float32)")
 
 
 def phase_main():
@@ -250,7 +314,7 @@ def phase_main():
         if len(r.output) != 32 or not all(0 <= t < cfg.vocab for t in r.output):
             raise AssertionError(f"request {r.rid}: bad output {r.output}")
     for name, (kernel, plain) in counts.items():
-        if kernel <= 0 or plain != 0:
+        if (name in PAGED_KERNELS and kernel <= 0) or plain != 0:
             raise AssertionError(f"main path: {name} launched {kernel} times, "
                                  f"plain version ran {plain} times")
     if eng.stats["prefix_hits"] <= 0:
@@ -333,6 +397,23 @@ def phase_timing(dev) -> dict:
         f"decode B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} ps={PS} "
         f"lengths={lens.tolist()} bf16", nbytes, nops)
 
+    # flash attention at the dense prefill's shapes: one whole prompt of a
+    # bucket, every query head of every layer in one call, causal
+    for S in (1024, 2048):
+        fq = torch.randn(1, S, Hq, D, device=dev).to(dtype)
+        fk = torch.randn(1, S, Hkv, D, device=dev).to(dtype)
+        fv = torch.randn(1, S, Hkv, D, device=dev).to(dtype)
+        nbytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
+        nops = 4 * D * Hq * S * (S + 1) // 2          # visible pairs only
+        measure("flash_attention" if S == 1024 else f"flash_attention S={S}", {
+            "kernel": [lambda: ops.flash_attention(fq, fk, fv)] * 4,
+            "plain": [lambda: ref.flash_attention(fq, fk, fv)] * 4,
+            "library": [lambda: F.scaled_dot_product_attention(
+                fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
+                is_causal=True, enable_gqa=True)] * 4},
+            f"prefill B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
+            nbytes, nops)
+
     # the prefill-chunk shapes (one window of 64 at position 192), printed
     W2, start = 64, 192
     q2 = torch.randn(1, W2, Hq, D, device=dev).to(dtype)
@@ -398,12 +479,175 @@ def phase_step(eng, times) -> None:
         f"{kernels:.3f} ms")
 
 
+def phase_main_dense():
+    """The dense per-slot path through the launcher, counts from 0; then
+    the paged engine on the same weights and prompts, for the streams'
+    agreement (printed, not gated: bf16 near-ties may flip a token)."""
+    args = launch_serve.parse_args(DENSE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng = launch_serve.main(DENSE_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = eng.model.cfg
+    done = eng.finished
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+    if not all(964 <= len(p) <= 1007 for p in prompts):
+        raise AssertionError(f"main-dense: prompt lengths "
+                             f"{[len(p) for p in prompts]} leave bucket 1024")
+    if len(done) != 8 or any(r.error is not None for r in done):
+        raise AssertionError(f"main-dense: {len(done)} finished, errors "
+                             f"{[r.error for r in done if r.error]}")
+    for r in done:
+        if len(r.output) != 32 or not all(0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"main-dense request {r.rid}: bad output "
+                                 f"{r.output}")
+    prefills = eng.stats["prefills"]
+    if prefills != 8 or counts["flash_attention"] != (cfg.n_layers * 8, 0):
+        raise AssertionError(f"main-dense: {prefills} prefills, "
+                             f"flash_attention (launches, plain) "
+                             f"{counts['flash_attention']}, want "
+                             f"({cfg.n_layers * 8}, 0)")
+    if counts["rmsnorm"][0] <= 0 or any(p for _, p in counts.values()):
+        raise AssertionError(f"main-dense: launches {counts}")
+    with ServeEngine(eng.model, eng.params, max_slots=args.slots,
+                     max_len=args.max_len, page_size=PS, prefill_chunk=64,
+                     device=args.device) as paged:
+        for p in prompts:
+            paged.submit(p, max_new_tokens=args.max_new)
+        want = {r.rid: r.output for r in paged.run_until_drained()}
+    k_gaps = prefill_k_gaps(eng, prompts[0])
+    farm = farm_runs(eng, args, prompts)
+    got = {r.rid: r.output for r in done}
+    same = sum(a == b for rid in got for a, b in zip(got[rid], want[rid]))
+    prefix = [next((i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                    if a != b), 32) for rid in sorted(got)]
+    toks = sum(len(r.output) for r in done)
+    log(f"main-dense: qwen2-7b {cfg.n_layers} layers {cfg.dtype}, "
+        f"{len(done)} requests of {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} prompt tokens (bucket 1024), {toks} "
+        f"tokens, {toks / wall:.1f} tok/s wall (init included: "
+        f"{wall:.2f}s), ticks={eng.stats['ticks']} prefills={prefills}, "
+        f"max_memory_allocated={peak} B; launches {counts} "
+        f"({counts['flash_attention'][0] // prefills} flash_attention a "
+        f"prefill); dense vs paged greedy streams on the same prompts: "
+        f"{same}/{toks} tokens equal, first difference at token {prefix}")
+    log("main-dense, float32, one prompt of "
+        f"{len(prompts[0])} tokens: flash kernel vs plain version, max|dK| "
+        "/ max|K| by layer: " + " ".join(f"{g:.2e}" for g in k_gaps)
+        + f" (layer 1 gated at {K_GAP_TOL})")
+    for workers, wall_s, ttft_s in farm:
+        log(f"main-dense prefill farm, {workers} worker(s): 8 requests in "
+            f"{wall_s:.4f} s wall, mean TTFT {ttft_s * 1e3:.2f} ms")
+    return {k: v[0] for k, v in counts.items()}, eng
+
+
+def prefill_k_gaps(eng, prompt) -> list[float]:
+    """Per-layer max|dK| / max|K| between a float32 prefill of ``prompt``
+    (bucket-padded) through the flash kernel and one through its plain
+    version, on ``eng``'s weights; raises if layer 1 exceeds K_GAP_TOL."""
+    cfg = eng.model.cfg.replace(dtype="float32")
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.float(), eng.params)
+    n = len(prompt)
+    toks = np.zeros((1, 1024), np.int32)
+    toks[0, :n] = prompt
+    toks = torch.tensor(toks, device=eng.device)
+    kernel_k = model.prefill(params, toks)[0]["k"][:, 0, :n]
+    launch = ops.flash_attention
+    ops.flash_attention = ref.flash_attention      # the same call, plain
+    try:
+        plain_k = model.prefill(params, toks)[0]["k"][:, 0, :n]
+    finally:
+        ops.flash_attention = launch
+    gaps = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(kernel_k, plain_k)]
+    del params, kernel_k, plain_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not gaps[1] <= K_GAP_TOL:
+        raise AssertionError(f"main-dense: layer-1 K of the flash kernel's "
+                             f"prefill is {gaps[1]} (relative) from the "
+                             f"plain version's, limit {K_GAP_TOL}")
+    return gaps
+
+
+def farm_runs(eng, args, prompts) -> list[tuple[int, float, float]]:
+    """(workers, wall seconds, mean TTFT seconds) of the main-dense requests
+    served on ``eng``'s weights with each of FARM_WORKERS prefill workers."""
+    runs = []
+    for workers in FARM_WORKERS:
+        with ServeEngine(eng.model, eng.params, max_slots=args.slots,
+                         max_len=args.max_len, paged=False,
+                         prefill_workers=workers,
+                         device=args.device) as dense:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in prompts:
+                dense.submit(p, max_new_tokens=args.max_new)
+            done = dense.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if len(done) != len(prompts) or any(r.error for r in done):
+            raise AssertionError(f"main-dense, {workers} workers: "
+                                 f"{len(done)} finished")
+        runs.append((workers, wall, float(np.mean(
+            [r.first_token_at - r.submitted_at for r in done]))))
+    return runs
+
+
+def phase_step_dense(eng, times) -> None:
+    """One dense decode step over 4 slots of max_len 2048 and one
+    whole-prompt prefill at bucket 1024, host-issued and as device time,
+    with the flash-attention kernel's share of the prefill."""
+    model, params, state = eng.model, eng.params, eng.state
+    cfg, dev = model.cfg, eng.device
+    rng = np.random.default_rng(3)
+    B = eng.max_slots
+    pos = torch.tensor([1000, 990, 1010, 980][:B], dtype=torch.int32,
+                       device=dev)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+                        device=dev)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 1024))
+                          .astype(np.int32), device=dev)
+    for name, fn in (
+            (f"dense decode step ({B} slots, max_len {eng.max_len})",
+             lambda: model.decode_step(params, state, toks, pos)),
+            ("dense prefill (bucket 1024)",
+             lambda: model.prefill(params, prompt))):
+        host = time_ms(fn, iters=10, warmup=2)
+        devt = device_ms([fn], reps=10)
+        log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
+            f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
+            f"time)")
+    log(f"dense prefill: {cfg.n_layers} flash_attention launches at their "
+        f"device time = {cfg.n_layers * times['flash_attention']['ms']:.3f} "
+        f"ms")
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
     "paged_attention_mq": ("src/repro_torch/csrc/paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:171"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:113"),
 }
+
+
+def ptxas_report(name: str) -> list[str]:
+    """ptxas's register, spill and shared-memory lines for the kernels
+    whose mangled name holds ``name``."""
+    lines, cur = [], ""
+    for line in build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "'" in line else line
+        elif name in cur and ("registers" in line or "spill" in line):
+            lines.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def main() -> int:
@@ -413,11 +657,20 @@ def main() -> int:
     build.library()
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in build.sources())})")
+    for line in ptxas_report("flash_attention_kernel"):
+        log(f"ptxas {line}")
     errs = phase_parity(dev)
     phase_small(dev)
     launches, eng = phase_main()
     times = phase_timing(dev)
     phase_step(eng, times)
+    del eng                             # free the paged model's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_launches, eng = phase_main_dense()
+    phase_step_dense(eng, times)
+    # each kernel's launches from the run of the path that carries it
+    launches["flash_attention"] = dense_launches["flash_attention"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         t = times[name]

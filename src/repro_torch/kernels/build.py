@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded through ``ctypes``.  The build runs at the first CUDA
+The sources compile with ``nvcc``, one process per source, all started
+together, and link into one shared library with a plain C interface,
+loaded through ``ctypes``.  The build runs at the first CUDA
 launch, never at import, into ``build/`` at the repository root, under a
 name keyed by a hash of the sources: an edited source builds anew, an
 unchanged one loads the library already there.  A failed build raises.
+ptxas reports each kernel's registers, spills and shared memory
+(``-Xptxas -v``) into a ``.log`` file beside the library
+(:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -34,6 +38,11 @@ _SIGNATURES = {
     # B, W, Hq, Hkv, D, page_size, P, scale, dtype, stream
     "paged_attention_mq_launch": [_vp, _vp, _vp, _vp, _vp, _vp,
                                   _i, _i, _i, _i, _i, _i, _i, _f, _i, _vp],
+    # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q/k/v (batch, seq, head) strides,
+    # causal, window, scale, dtype, stream
+    "flash_attention_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                               _i64, _i64, _i64, _i64, _i64, _i64,
+                               _i64, _i64, _i64, _i, _i, _f, _i, _vp],
 }
 
 
@@ -54,19 +63,48 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; their joined output, or a raise
+    naming every one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}"
+              for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def _build(target: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)     # atomic: a concurrent loader sees old or new
+    nvcc = _nvcc()
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{p.stem}.o") for p in cu]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p),
+                     "-o", o] for p, o in zip(cu, objs)])
+        lib = str(pathlib.Path(tmp) / "lib.so")
+        log += _run([[nvcc, "-shared", "-o", lib, *objs]])
+        target.with_suffix(".log").write_text(log)
+        os.replace(lib, target)  # atomic: a concurrent loader sees old or new
+
+
+def _target() -> pathlib.Path:
+    """The library's path, named by a hash of the sources and flags."""
+    digest = hashlib.sha256()
+    for p in sources():
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What nvcc and ptxas printed when the current library was built."""
+    log = _target().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library() -> ctypes.CDLL:
@@ -74,12 +112,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            digest = hashlib.sha256()
-            for p in sources():
-                digest.update(p.name.encode())
-                digest.update(p.read_bytes())
-            digest.update(" ".join(NVCC_FLAGS).encode())
-            target = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+            target = _target()
             if not target.exists():
                 _build(target)
             lib = ctypes.CDLL(str(target))

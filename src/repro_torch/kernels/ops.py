@@ -5,11 +5,15 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
+The counts are bumped under a lock: the dense path's prefills run on the
+prefill farm's worker threads.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rmsnorm as _rn
 
@@ -21,13 +25,24 @@ class LaunchCount:
     plain: int = 0
 
 
-COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount()}
+COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
+          "flash_attention": LaunchCount()}
+_count_lock = threading.Lock()
 
 
 def reset_counts() -> None:
     """Zero every wrapper's counters."""
-    for c in COUNTS.values():
-        c.kernel = c.plain = 0
+    with _count_lock:
+        for c in COUNTS.values():
+            c.kernel = c.plain = 0
+
+
+def _count(name: str, kernel: bool) -> None:
+    with _count_lock:
+        if kernel:
+            COUNTS[name].kernel += 1
+        else:
+            COUNTS[name].plain += 1
 
 
 def _route(x, name: str) -> bool:
@@ -43,9 +58,9 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` with a ``(d,)`` scale."""
     if _route(x, "rmsnorm"):
         out = _rn.rmsnorm_cuda(x, scale, eps=eps)
-        COUNTS["rmsnorm"].kernel += 1
+        _count("rmsnorm", kernel=True)
         return out
-    COUNTS["rmsnorm"].plain += 1
+    _count("rmsnorm", kernel=False)
     return _rn.rmsnorm_plain(x, scale, eps=eps)
 
 
@@ -54,7 +69,19 @@ def paged_attention_mq(q, k_pages, v_pages, tables, lengths):
     :mod:`repro_torch.kernels.paged_attention`."""
     if _route(q, "paged_attention_mq"):
         out = _pa.paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths)
-        COUNTS["paged_attention_mq"].kernel += 1
+        _count("paged_attention_mq", kernel=True)
         return out
-    COUNTS["paged_attention_mq"].plain += 1
+    _count("paged_attention_mq", kernel=False)
     return _pa.paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Whole-sequence GQA, (B, Sq, Hq, D) x (B, Sk, Hkv, D) -> (B, Sq, Hq, D);
+    ``window`` None for global attention; see
+    :mod:`repro_torch.kernels.flash_attention`."""
+    if _route(q, "flash_attention"):
+        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _count("flash_attention", kernel=True)
+        return out
+    _count("flash_attention", kernel=False)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -1,8 +1,10 @@
 """The plain PyTorch versions of the port's kernels, under the reference
 oracle names (``repro.kernels.ref``), so tests can name both side by side.
 Each lives beside its kernel's launcher; this module only re-exports."""
+from repro_torch.kernels.flash_attention import \
+    flash_attention_plain as flash_attention
 from repro_torch.kernels.paged_attention import \
     paged_attention_mq_plain as paged_attention_mq
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as rmsnorm
 
-__all__ = ["paged_attention_mq", "rmsnorm"]
+__all__ = ["flash_attention", "paged_attention_mq", "rmsnorm"]

@@ -3,7 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --requests 8 --max-new 32
 
-runs the full-size model with random weights on the card;
+runs the full-size model with random weights on the card through the
+paged engine; ``--dense`` serves through the dense per-slot path instead
+(whole-prompt prefills farmed over ``--prefill-workers`` threads);
 ``--smoke --device cpu`` runs the small config on the CPU through the
 kernels' plain versions.  Prints the reference launcher's summary lines
 plus each kernel's launch count.
@@ -31,6 +33,10 @@ def parse_args(argv=None):
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--dense", action="store_true",
+                    help="force the dense per-slot cache path")
+    ap.add_argument("--prefill-workers", type=int, default=4,
+                    help="threads of the dense path's prefill farm")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool size (default: dense-equivalent budget)")
@@ -45,6 +51,16 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def make_prompts(args, vocab: int) -> list:
+    """The seeded prompts: ``--shared-prefix`` common tokens, then 4-47 own
+    tokens each."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, args.shared_prefix)
+    return [np.concatenate([shared,
+                            rng.integers(0, vocab, int(rng.integers(4, 48)))])
+            for _ in range(args.requests)]
+
+
 def main(argv=None):
     """Build the model, serve seeded random prompts, print the summary."""
     args = parse_args(argv)
@@ -56,17 +72,15 @@ def main(argv=None):
                       num_pages=args.num_pages,
                       prefill_chunk=args.prefill_chunk,
                       prefix_cache=args.prefix_cache == "on",
+                      prefill_workers=args.prefill_workers,
+                      paged=False if args.dense else None,
                       device=args.device)
 
-    rng = np.random.default_rng(0)
-    shared = rng.integers(0, cfg.vocab, args.shared_prefix)
     ops.reset_counts()
     if eng.device.type == "cuda":   # the seeded init runs asynchronously
         torch.cuda.synchronize(eng.device)
     t0 = time.perf_counter()
-    for _ in range(args.requests):
-        plen = int(rng.integers(4, 48))
-        prompt = np.concatenate([shared, rng.integers(0, cfg.vocab, plen)])
+    for prompt in make_prompts(args, cfg.vocab):
         eng.submit(prompt, max_new_tokens=args.max_new)
     done = eng.run_until_drained()
     dt = time.perf_counter() - t0
@@ -74,21 +88,24 @@ def main(argv=None):
     ttfts = [r.first_token_at - r.submitted_at for r in done
              if r.first_token_at is not None]
     s = eng.stats
-    mode = (f"paged(ps={eng.pool.page_size}, "
-            f"hw={s['pages_high_water']}/{eng.pool.num_pages} pages, "
-            f"prefix-cache {'on' if eng.prefix_cache else 'off'})")
+    mode = "dense" if not eng.paged else (
+        f"paged(ps={eng.pool.page_size}, "
+        f"hw={s['pages_high_water']}/{eng.pool.num_pages} pages, "
+        f"prefix-cache {'on' if eng.prefix_cache else 'off'})")
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s); ticks={s['ticks']} "
           f"chunks={s['chunk_prefills']} "
           f"preempt={s['preemptions']} [{mode}] "
           f"mean TTFT {np.mean(ttfts)*1e3:.0f}ms")
-    print(f"[serve] prefix cache: hits={s['prefix_hits']} "
-          f"hit_tokens={s['prefix_hit_tokens']} "
-          f"cow_copies={s['cow_copies']} evictions={s['evictions']} "
-          f"cached_now={eng.pool.pages_cached} pages")
+    if eng.paged:
+        print(f"[serve] prefix cache: hits={s['prefix_hits']} "
+              f"hit_tokens={s['prefix_hit_tokens']} "
+              f"cow_copies={s['cow_copies']} evictions={s['evictions']} "
+              f"cached_now={eng.pool.pages_cached} pages")
     print("[serve] kernels: " + " ".join(
         f"{name}: launches={c.kernel} plain={c.plain}"
         for name, c in ops.COUNTS.items()))
+    eng.close()
     return eng
 
 

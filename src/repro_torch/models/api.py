@@ -1,8 +1,10 @@
 """Model API of the port: :class:`DecoderLM` and :func:`build_model`.
 
-Counterpart of ``repro.models.api`` for the dense paged serving path.  The
-members are plain functions over dict-of-tensor params, which is all the
-serving engine calls.
+Counterpart of ``repro.models.api`` for the dense decoders' serving paths:
+paged (chunked prefill and decode against a page pool) and dense per-slot
+(whole-prompt prefill and decode against a per-slot cache).  The members
+are plain functions over dict-of-tensor params, which is all the serving
+engine calls.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from repro_torch.models.module import (init_params, resolve_device,
 
 
 class DecoderLM:
-    """Dense decoder-only transformer LM: paged prefill chunks, single-token
-    paged decode, and the logits head."""
+    """Dense decoder-only transformer LM: paged prefill chunks and decode,
+    whole-prompt prefill and decode on a per-slot cache, the logits head."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -45,7 +47,7 @@ class DecoderLM:
 
     def supports_paged_decode(self) -> bool:
         """Whether the family has a per-token KV cache that can page."""
-        return not (self.cfg.local_window and self.cfg.global_every)
+        return not T.uses_window_cache(self.cfg)
 
     def paged_leaf_specs(self):
         """``{"k", "v"}`` :class:`repro_torch.serve.pages.PagedLeafSpec`:
@@ -69,6 +71,23 @@ class DecoderLM:
         """tokens (B, 1) -> float32 logits (B, 1, V); K/V written in place."""
         return T.paged_decode_step(params, self.cfg, storage, tables, lengths,
                                    tokens, write_pages, write_offs)
+
+    def prefill(self, params, tokens, max_len: Optional[int] = None):
+        """Whole prompts (B, S) -> (cache, final hidden (B, S, d)); the
+        cache's sequence axis is ``max_len`` (S unless named)."""
+        return T.prefill(params, self.cfg, tokens, max_len)
+
+    def init_decode_state(self, batch: int, max_len: int, *, device=None):
+        """Zeroed per-slot cache ``{"k", "v"}`` of (L, batch, max_len, Hkv, D)
+        in the compute dtype on ``device`` (``cuda`` unless named)."""
+        return T.init_cache(self.cfg, batch, max_len,
+                            dtype=torch_dtype(self.cfg.dtype),
+                            device=resolve_device(device))
+
+    def decode_step(self, params, state, tokens, pos):
+        """tokens (B, 1) at positions ``pos`` ((B,) or an int) -> float32
+        logits (B, 1, V); the K/V are written into ``state`` in place."""
+        return T.decode_step(params, self.cfg, state, tokens, pos)
 
     def lm_head(self, params, hidden):
         """Project final hidden states to float32 vocab logits."""

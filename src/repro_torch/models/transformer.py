@@ -1,16 +1,23 @@
-"""Dense decoder-only LM on paged KV storage (serving path).
+"""Dense decoder-only LM for serving: on paged KV storage, and on the
+dense per-slot cache.
 
-Counterpart of the paged serving half of ``repro.models.transformer``,
-without the mesh transport, MoE, KV quantization or precomputed embeds.
-Params keep the reference's keys and shapes, with ``params["blocks"]``
-stacked on a leading layer axis.
+Counterpart of the serving half of ``repro.models.transformer``, without
+the mesh transport, MoE, KV quantization or precomputed embeds.  Params
+keep the reference's keys and shapes, with ``params["blocks"]`` stacked on
+a leading layer axis.
 
-The reference scans ``(params["blocks"], storage)`` with ``jax.lax.scan``
-and returns updated storage; here a Python loop walks the layers, and each
-step writes its fresh K/V **in place** into that layer's view of the
-storage tensors, so the pool's single copy is the result.
+The reference scans the layers with ``jax.lax.scan`` and returns updated
+storage or caches; here a Python loop walks the layers, and each decode or
+paged-prefill step writes its fresh K/V **in place** into that layer's view
+of the storage or cache tensors, so the caller's single copy is the result.
+
+The dense path (:func:`prefill`, :func:`decode_step`) serves global-
+attention families; the window/ring caches of gemma3 come with the
+non-paged families' slice and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -74,6 +81,24 @@ def lm_logits(params, hidden):
     return out.reshape(*hidden.shape[:-1], w.shape[-1])
 
 
+def layer_windows(cfg) -> list:
+    """Per-layer attention window: an int for a sliding-window layer, None
+    for a global one (where the reference holds ``BIG_WINDOW``)."""
+    return [cfg.window_for_layer(i) for i in range(cfg.n_layers)]
+
+
+def uses_window_cache(cfg) -> bool:
+    """gemma3's mixed cache: ring buffers for its sliding-window layers."""
+    return bool(cfg.local_window and cfg.global_every)
+
+
+def _check_dense(cfg):
+    if uses_window_cache(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: window/ring caches are not ported yet: they come "
+            "with the non-paged families slice (ROADMAP A11)")
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s view of a stacked (params or storage) tree."""
     return tree_map(lambda a: a[i], tree)
@@ -101,7 +126,7 @@ def _paged_block(p, x, cfg, *, positions, kv, write, attend):
 
 
 def _check_paged(cfg):
-    if cfg.local_window and cfg.global_every:
+    if uses_window_cache(cfg):
         raise NotImplementedError("paged decode is global-attention only")
 
 
@@ -163,5 +188,91 @@ def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
         x = _paged_block(_layer(params["blocks"], i), x, cfg,
                          positions=positions, kv=_layer(storage, i),
                          write=write, attend=attend)
+    x = L.rmsnorm(params["final_norm"], x)
+    return lm_logits(params, x)
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot cache (the engine's paged=False path)
+# ---------------------------------------------------------------------------
+
+def block_apply(p, x, cfg, *, positions, window, cache_k=None, cache_v=None,
+                cache_pos=None):
+    """Pre-norm block.  Returns ``(x, k, v)``: the fresh K/V of this layer
+    without a cache (whole-prompt prefill), the cache itself with one.
+
+    With a cache (decode), ``cache_k``/``cache_v`` are this layer's
+    (B, max_len, Hkv, D) views of the stacked cache: the new K/V are written
+    at each slot's ``cache_pos`` (an int, or (B,) for ragged slots) **in
+    place** with ``index_put_`` on those views, then the queries attend over
+    the whole cache, masked by ``cache_pos + S``.  As the reference's
+    ``dynamic_update_slice`` does, a start past ``max_len - S`` is clamped.
+    """
+    h = L.rmsnorm(p["ln1"], x)
+    q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
+    if cache_k is None:
+        o = A.gqa_attention(q, k, v, causal=True, window=window,
+                            kv_chunk=cfg.kv_chunk)
+    else:
+        B, S = q.shape[:2]
+        max_len = cache_k.shape[1]
+        start = torch.as_tensor(cache_pos, device=x.device).long()
+        start = start.clamp(0, max_len - S).expand(B)
+        rows = torch.arange(B, device=x.device)[:, None]
+        cols = start[:, None] + torch.arange(S, device=x.device)
+        cache_k.index_put_((rows, cols), k)
+        cache_v.index_put_((rows, cols), v)
+        k, v = cache_k, cache_v
+        o = A.gqa_attention(q, k, v, causal=True, window=window,
+                            q_offset=cache_pos, kv_valid_len=cache_pos + S,
+                            kv_chunk=max(max_len, 1))
+    x = x + A.out_project(p["attn"], o)
+    h = L.rmsnorm(p["ln2"], x)
+    return x + L.mlp(p["mlp"], h), k, v
+
+
+def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
+    """Zeroed per-slot cache ``{"k", "v"}`` of (L, batch, max_len, Hkv, D)."""
+    _check_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.padded_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill(params, cfg, tokens, max_len: Optional[int] = None):
+    """Run whole prompts (B, S) and build their cache.  Returns
+    ``(cache, hidden)``: the cache ``{"k", "v"}`` of (L, B, max_len, Hkv, D)
+    holds the prompt's K/V in its first S positions and zeros after, and
+    hidden is the final (B, S, d) sequence, so a caller with right-padded
+    prompts reads each at its own valid length."""
+    _check_dense(cfg)
+    x = embed_tokens(params, tokens)
+    B, S = x.shape[:2]
+    max_len = max_len or S
+    positions = torch.arange(S, device=x.device)
+    cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        x, k, v = block_apply(_layer(params["blocks"], i), x, cfg,
+                              positions=positions, window=window)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    return cache, L.rmsnorm(params["final_norm"], x)
+
+
+def decode_step(params, cfg, cache, tokens, pos):
+    """One token for every slot against the per-slot cache, in place.
+
+    tokens: (B, 1);  pos: an int (aligned) or (B,) int tensor (ragged
+    slots): each slot's current length, where its new K/V lands.  Returns
+    float32 logits (B, 1, V)."""
+    _check_dense(cfg)
+    x = embed_tokens(params, tokens)
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[..., None] + torch.arange(1, device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
+                              positions=positions, window=window,
+                              cache_k=cache["k"][i], cache_v=cache["v"][i],
+                              cache_pos=pos)
     x = L.rmsnorm(params["final_norm"], x)
     return lm_logits(params, x)

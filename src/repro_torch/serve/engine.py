@@ -1,12 +1,23 @@
-"""Continuous-batching serving engine over a paged KV cache, on one device.
+"""Continuous-batching serving engine on one device: over a paged KV
+cache, or over a dense per-slot cache.
 
-Counterpart of the paged single-device path of ``repro.serve.engine``:
-``submit()`` requests, ``tick()`` the loop (admission with a radix prefix
-match -> page-aligned chunked prefill -> copy-on-write -> one batched
-decode step for every live slot -> greedy commit -> retire), collect
+Counterpart of the single-device paths of ``repro.serve.engine``:
+``submit()`` requests, ``tick()`` the loop, collect
 :attr:`ServeEngine.finished`.  The policy lives in
 :mod:`repro_torch.serve.scheduler` (a copy of the reference's); this module
 runs the scheduler's plan on the device.
+
+* **paged** (the default): admission with a radix prefix match ->
+  page-aligned chunked prefill -> copy-on-write -> one batched decode step
+  for every live slot -> greedy commit -> retire.
+* **dense per-slot** (``paged=False``): admission -> one whole-prompt
+  prefill per admitted request, right-padded to a length bucket and farmed
+  over the paper's thread farm (:class:`repro_torch.core.runtime.
+  ThreadFarmExecutor`; each task launches its kernels from its worker
+  thread) -> :func:`repro_torch.serve.pages.write_slot` splices each
+  prefilled cache into its slot -> one batched decode step over every
+  slot's whole cache -> greedy commit -> retire.  The prefix cache is off,
+  as in the reference.
 
 The reference donates the storage to each jitted call and, when a call
 raises, checks whether the donated buffers were consumed.  Here every call
@@ -24,10 +35,15 @@ The contract stays the same, by two routes:
   greedy stream is unchanged), rebuilds zeroed storage with
   :meth:`repro_torch.serve.pages.PagePool.reset_storage`, then raises.
 
+The dense path keeps the same contract: a failing **prefill** raised
+before its cache reached the state, so only its request is retired (with
+``error``); a failing **decode** may have written into every slot's cache,
+so the engine evicts every resident, rebuilds a zeroed state and raises.
+
 Features of the reference engine that later port slices bring (seeded and
 custom sampling, encoder inputs, speculative decode, KV and weight
-quantization, the device mesh, the dense per-slot path, prefill-only
-disaggregation) raise ``NotImplementedError`` here instead of being ignored.
+quantization, the device mesh, prefill-only disaggregation) raise
+``NotImplementedError`` here instead of being ignored.
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ from __future__ import annotations
 __all__ = ["Request", "ServeEngine"]
 
 import dataclasses
+import functools
 import itertools
 import time
 from typing import Optional
@@ -42,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.runtime import ThreadFarmExecutor
 from repro_torch.models.module import resolve_device, tree_leaves
 from repro_torch.serve import pages as PG
 from repro_torch.serve.pages import PagePool
@@ -63,26 +81,34 @@ class Request:
     error: Optional[BaseException] = None  # set if prefill failed
 
 
+def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
+    """The padded length a whole-prompt prefill of ``n`` tokens runs at."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + 4095) // 4096) * 4096
+
+
 def _not_ported(what: str, slice_name: str):
     return NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice")
 
 
 class ServeEngine:
-    """Paged continuous-batching engine on one device (``cuda`` unless
-    ``device`` names another); see the module docstring."""
+    """Continuous-batching engine on one device (``cuda`` unless ``device``
+    names another): paged unless ``paged=False``; see the module
+    docstring.  ``prefill_workers`` sizes the dense path's prefill farm
+    (a paged engine has none)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill_chunk: int = 64,
                  prefix_cache: bool = True, device=None, sampler=None,
-                 paged: Optional[bool] = None, spec_decode=None,
-                 kv_quant=None, weight_quant=None, mesh=None,
-                 prefill_only: bool = False):
+                 prefill_workers: int = 4, paged: Optional[bool] = None,
+                 spec_decode=None, kv_quant=None, weight_quant=None,
+                 mesh=None, prefill_only: bool = False):
         refused = [(sampler is not None, "an engine-wide sampler",
                     "seeded sampling"),
-                   (paged is False, "paged=False (the dense per-slot path)",
-                    "non-paged families"),
                    (spec_decode not in (None, "off", False), "spec_decode",
                     "speculative decode"),
                    (kv_quant not in (None, "off", False), "kv_quant",
@@ -95,7 +121,9 @@ class ServeEngine:
         for bad, what, slice_name in refused:
             if bad:
                 raise _not_ported(what, slice_name)
-        if not model.supports_paged_decode():
+        self.paged = model.supports_paged_decode() if paged is None \
+            else bool(paged)
+        if self.paged and not model.supports_paged_decode():
             raise _not_ported(f"{model.cfg.name} without a paged KV cache",
                               "non-paged families")
         self.device = resolve_device(device)
@@ -105,14 +133,25 @@ class ServeEngine:
                                  f"runs on {self.device}")
         self.model, self.params = model, params
         self.max_slots, self.max_len = max_slots, max_len
-        self.prefix_cache = bool(prefix_cache)
-        if num_pages is None:           # dense-equivalent budget by default
-            num_pages = -(-max_slots * max_len // page_size)
-        self.pool = PagePool(model.paged_leaf_specs(), num_pages=num_pages,
-                             page_size=page_size, device=self.device,
-                             prefix_cache=self.prefix_cache)
-        self.sched = Scheduler(max_slots=max_slots, max_len=max_len,
-                               pool=self.pool, prefill_chunk=prefill_chunk)
+        self.prefix_cache = bool(prefix_cache) and self.paged
+        if self.paged:
+            if num_pages is None:       # dense-equivalent budget by default
+                num_pages = -(-max_slots * max_len // page_size)
+            self.pool = PagePool(model.paged_leaf_specs(),
+                                 num_pages=num_pages, page_size=page_size,
+                                 device=self.device,
+                                 prefix_cache=self.prefix_cache)
+            self.sched = Scheduler(max_slots=max_slots, max_len=max_len,
+                                   pool=self.pool,
+                                   prefill_chunk=prefill_chunk)
+        else:
+            self.pool = None
+            self.sched = Scheduler(max_slots=max_slots, max_len=max_len)
+            self._fresh_state = lambda: model.init_decode_state(
+                max_slots, max_len, device=self.device)
+            self.state = self._fresh_state()
+            self._prefill_farm = ThreadFarmExecutor(
+                num_workers=max(1, prefill_workers))
         self.last_token = np.zeros(max_slots, np.int32)
         self.finished: list[Request] = []
         self._rid = itertools.count()
@@ -225,8 +264,7 @@ class ServeEngine:
         logits = self.model.lm_head(self.params, hidden[:, i:i + 1])
         return int(self._greedy(logits[0, -1]))
 
-    def tick(self) -> bool:
-        """One serving step; True while the engine still has work."""
+    def _tick_paged(self) -> bool:
         _, rejects = self.sched.admit()
         errors = self._reject_errors(rejects)
 
@@ -298,6 +336,74 @@ class ServeEngine:
             self._retire_error(req, err)
         return bool(live) or self.sched.has_work()
 
+    # -- dense tick ------------------------------------------------------------
+
+    def _prefill_one(self, job):
+        """One request's whole-prompt prefill and first token: a
+        self-contained farm task (it writes nothing the engine holds)."""
+        n = job.n_valid
+        bucket = min(_bucket(n), self.max_len)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = job.tokens[:n]                 # right-pad into bucket
+        cache, hidden = self.model.prefill(self.params, self._dev(toks))
+        # right-padding: cache rows beyond n hold pad garbage, but
+        # lengths[slot] = n masks them out (kv_valid_len) and later decode
+        # tokens overwrite them in order
+        logits = self.model.lm_head(self.params, hidden[:, n - 1:n])
+        return cache, int(self._greedy(logits[0, -1]))
+
+    def _tick_dense(self) -> bool:
+        _, rejects = self.sched.admit()
+        errors = self._reject_errors(rejects)
+
+        jobs = self.sched.next_chunks()          # dense: whole-prompt jobs
+        if jobs:
+            def guarded(job):
+                # isolate failures so one bad request cannot drop the
+                # other concurrently admitted requests
+                try:
+                    return self._prefill_one(job)
+                except Exception as e:                      # noqa: BLE001
+                    return e
+
+            results, _ = self._prefill_farm.map_callables(
+                [functools.partial(guarded, job) for job in jobs])
+            for job, res in zip(jobs, results):
+                if isinstance(res, Exception):
+                    self.sched.release(job.slot)
+                    errors.append((job.req, res))
+                    continue
+                cache, tok = res
+                PG.write_slot(self.state, cache, job.slot)
+                self.sched.chunk_done(job)
+                self._emit_first_token(job.slot, tok)
+
+        live = self.sched.live_slots()
+        if live:
+            toks = self._dev(self.last_token.reshape(-1, 1))
+            pos = self._dev(self.sched.lengths.astype(np.int32))
+            try:
+                logits = self.model.decode_step(self.params, self.state,
+                                                toks, pos)
+                self._commit_decode(live, logits)
+            except BaseException:
+                # the in-place writes may have touched every slot's cache:
+                # evict and rebuild before raising
+                self._evict_residents()
+                self.state = None              # let the old buffers go first
+                self.state = self._fresh_state()
+                for req, err in errors:
+                    self._retire_error(req, err)
+                raise
+
+        for req, err in errors:
+            self._retire_error(req, err)
+        return bool(live) or self.sched.has_work()
+
+    def tick(self) -> bool:
+        """One serving step; True while the engine still has work."""
+        return self._tick_paged() if self.paged else self._tick_dense()
+
     def run_until_drained(self, max_ticks: int = 10_000):
         """Tick until idle; returns the finished requests."""
         for _ in range(max_ticks):
@@ -305,3 +411,24 @@ class ServeEngine:
             if not busy and not self.sched.has_work():
                 break
         return self.finished
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def close(self):
+        """Release the dense path's prefill-farm threads.  The engine stays
+        usable: the farm makes a new pool at its next call."""
+        farm = getattr(self, "_prefill_farm", None)
+        if farm is not None:
+            farm.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # interpreter teardown: best effort only
+            pass

@@ -10,12 +10,15 @@ The device ops differ in one way: the reference's are pure (storage in,
 storage out, with buffer donation making the update in place), while these
 write into the storage tensors **in place** and return nothing.  The pool
 holds the only copy of the storage; callers pass views of it.
+:func:`write_slot` is the dense per-slot path's one store op, in place on
+the engine's per-slot state in the same way.
 """
 
 from __future__ import annotations
 
 __all__ = ["N_TRASH", "PagePool", "PagedLeafSpec", "PrefixCache",
-           "copy_pages", "gather_pages", "scatter_chunk", "scatter_token"]
+           "copy_pages", "gather_pages", "scatter_chunk", "scatter_token",
+           "write_slot"]
 
 import dataclasses
 import heapq
@@ -405,3 +408,26 @@ def copy_pages(storage, leaf_specs, src, dst) -> None:
         pfx = (slice(None),) * len(leaf_specs[name].prefix)
         vals = st[pfx + (src,)]              # advanced indexing: a copy
         st[pfx + (dst,)] = vals
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot state store (the degenerate "one page per slot" layout)
+# ---------------------------------------------------------------------------
+
+def write_slot(state, slot_state, slot: int) -> None:
+    """Write a (B = 1) prefill state into slot ``slot`` of the batched
+    state, in place.
+
+    Every leaf has batch on axis 1.  A leaf whose sequence axis (axis 2) is
+    shorter than the slot's gets the prefill's rows and zeros after them,
+    as the reference's zero-pad gives (the validity length masks the tail
+    either way).  Values are cast to the state's dtype, as in the reference.
+    """
+    for name, dst in state.items():
+        src = slot_state[name][:, 0]
+        if dst.ndim >= 3 and src.shape[1] < dst.shape[2]:
+            n = src.shape[1]
+            dst[:, slot, :n] = src
+            dst[:, slot, n:] = 0
+        else:
+            dst[:, slot] = src

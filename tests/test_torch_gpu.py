@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch version
-at the dense archs' shapes, and the serving engine on the card through the
-kernels against the same engine on the CPU.  Every test here needs a card
+at the dense archs' shapes, and the serving engine (paged and dense
+per-slot) on the card through the kernels against the same engine on the
+CPU.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -76,6 +77,75 @@ def test_paged_attention_kernel_matches_plain(card, dtype, Hq, Hkv, W, B):
         assert not got[-1, 0].any()                # dead slot: zero row 0
 
 
+# (B, Sq, Sk, Hq, Hkv, D, causal, window): causal, window, MQA/GQA/MHA,
+# ragged lengths, every head width the kernel instantiates
+FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
+               (1, 512, 512, 2, 2, 16, True, 100),
+               (2, 256, 256, 4, 1, 32, False, None),
+               (1, 128, 128, 8, 8, 64, True, None),
+               (1, 200, 200, 28, 4, 128, True, None),
+               (2, 77, 77, 4, 1, 128, False, 19),
+               (1, 300, 300, 4, 2, 256, True, 64),
+               (1, 1, 1, 4, 2, 128, True, None),
+               (1, 130, 90, 4, 2, 64, False, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, Hq,
+                                              Hkv, D, causal, window):
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, D))
+                                .astype(np.float32)).to(card, DTYPES[dtype])
+               for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+def test_flash_attention_kernel_reads_strided_inputs(card):
+    """q, k, v sliced out of one fused (B, S, H, D) buffer are read through
+    their strides, with the same result as contiguous copies."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.normal(size=(2, 96, 12, 64))
+                           .astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_dense_engine_on_card_matches_cpu(card):
+    """SMOKE qwen2-7b in float32 on the dense per-slot path: the card's
+    prefills run the flash-attention kernel (one launch a layer a prefill,
+    from the farm's worker threads) and the streams equal the CPU's."""
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40))]
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        with ServeEngine(model, params, max_slots=3, max_len=128,
+                         paged=False, prefill_workers=3,
+                         device=device) as eng:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            eng.run_until_drained()
+        return {r.rid: r.output for r in eng.finished}, eng.stats
+
+    want, _ = serve("cpu")
+    ops.reset_counts()
+    got, stats = serve(card)
+    assert ops.COUNTS["flash_attention"].kernel \
+        == model.cfg.n_layers * stats["prefills"]
+    assert ops.COUNTS["rmsnorm"].kernel > 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    assert got == want
+
+
 def test_engine_on_card_matches_cpu(card):
     """SMOKE qwen2-7b in float32: the engine on the card, through both
     kernels and never their plain versions, emits the CPU engine's greedy
@@ -95,6 +165,7 @@ def test_engine_on_card_matches_cpu(card):
     want = serve("cpu")
     ops.reset_counts()
     got = serve(card)
-    assert all(ops.COUNTS[k].kernel > 0 for k in ops.COUNTS)
+    paged_kernels = ("rmsnorm", "paged_attention_mq")
+    assert all(ops.COUNTS[k].kernel > 0 for k in paged_kernels)
     assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
     assert got == want

@@ -116,6 +116,77 @@ def test_paged_attention_plain_trash_page_isolated():
 
 
 # ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# the reference's kernel cases (tests/test_kernels.py)
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 32, True, None),     # GQA causal
+    (1, 512, 512, 2, 2, 16, True, 100),      # sliding window
+    (2, 256, 256, 4, 1, 32, False, None),    # bidirectional, MQA
+    (1, 128, 128, 8, 8, 64, True, None),     # MHA
+    (1, 384, 384, 2, 1, 32, True, 64),       # window + GQA, 3 tiles
+]
+# f32: summation order only; bf16: the reference's kernel-test limit
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _flash_inputs(rng, B, Sq, Sk, Hq, Hkv, D):
+    return (rng.normal(size=(B, Sq, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", FLASH_CASES)
+def test_flash_attention_plain_matches_reference(B, Sq, Sk, Hq, Hkv, D,
+                                                 causal, window, dtype):
+    rng = np.random.default_rng(Sq + Hq + D)
+    arrays = _flash_inputs(rng, B, Sq, Sk, Hq, Hkv, D)
+    jq, jk, jv = (_pair(a, dtype)[0] for a in arrays)
+    tq, tk, tv = (_pair(a, dtype)[1] for a in arrays)
+    got = ref.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, Sq, Hq, D)
+    want = jref.flash_attention(jq, jk, jv, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_plain_matches_interpret_kernel():
+    """Against the Pallas kernel itself (interpret mode), GQA causal."""
+    rng = np.random.default_rng(8)
+    q, k, v = _flash_inputs(rng, 2, 256, 256, 4, 2, 32)
+    got = ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                q_blk=128, kv_blk=128)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_plain_ragged_length_and_keyless_rows():
+    """A length that is no tile multiple matches the reference oracle; a
+    row that sees no key (more queries than keys, with a window) is zeros,
+    as in the kernel, where the oracle would average every key."""
+    rng = np.random.default_rng(9)
+    q, k, v = _flash_inputs(rng, 1, 200, 200, 4, 2, 16)
+    got = ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              window=37)
+    want = jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                window=37)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+    q, k, v = _flash_inputs(rng, 1, 12, 4, 2, 1, 16)
+    got = _np(ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal=False, window=3))
+    want = _np(jref.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                    causal=False, window=3))
+    # row i sees keys j > i - 3, j < 4: rows 0..5 see some, 6.. none
+    np.testing.assert_allclose(got[:, :6], want[:, :6], rtol=2e-4, atol=2e-4)
+    assert not got[:, 6:].any()
+    with pytest.raises(ValueError, match="window"):
+        ref.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            window=0)
+
+
+# ---------------------------------------------------------------------------
 # wrapper routes and counters
 # ---------------------------------------------------------------------------
 
@@ -129,8 +200,30 @@ def test_cpu_tensors_take_the_plain_route_and_count_it():
     ops.rmsnorm(x, torch.ones(16))
     ops.paged_attention_mq(*(torch.from_numpy(a)
                              for a in (q, kp, vp, tables, lens)))
+    fq, fk, fv = _flash_inputs(rng, 1, 5, 5, 4, 2, 16)
+    ops.flash_attention(*(torch.from_numpy(a) for a in (fq, fk, fv)))
     assert ops.COUNTS["rmsnorm"].plain == 2
     assert ops.COUNTS["paged_attention_mq"].plain == 1
+    assert ops.COUNTS["flash_attention"].plain == 1
     assert all(c.kernel == 0 for c in ops.COUNTS.values())
     ops.reset_counts()
     assert all(c.kernel == c.plain == 0 for c in ops.COUNTS.values())
+
+
+def test_counts_are_exact_under_threads():
+    """The farm's worker threads bump the counters concurrently."""
+    import threading
+    x = torch.ones(2, 16)
+    ops.reset_counts()
+
+    def work():
+        for _ in range(200):
+            ops.rmsnorm(x, torch.ones(16))
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert ops.COUNTS["rmsnorm"].plain == 1600
+    ops.reset_counts()

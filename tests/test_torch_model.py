@@ -1,8 +1,10 @@
 """The port's dense decoder against the reference's, call by call: bridged
 weights, the same numpy-seeded tokens and page tables, and after each
 paged prefill chunk and each paged decode step the logits and every page
-storage leaf compared (qwen2-7b with QKV bias, qwen3-1.7b with QK-norm,
-SMOKE configs in float32)."""
+storage leaf compared; the dense per-slot path's whole-prompt prefill
+(hidden states and cache) and ragged decode steps (logits and cache)
+likewise, against the reference with ``use_pallas=False`` (qwen2-7b with
+QKV bias, qwen3-1.7b with QK-norm, SMOKE configs in float32)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,11 +14,13 @@ import torch
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import attention as JA
 from repro.models import layers as JL
+from repro.models import transformer as JT
 from repro.models.api import build_model as jax_build_model
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
 
 ATOL = 1e-4          # float32 on both sides; only summation order differs
@@ -142,6 +146,113 @@ def test_paged_attention_calls_match_reference(use_pallas):
         torch.from_numpy(q), *tkv, torch.from_numpy(tables),
         A.window_lengths(torch.from_numpy(lens) - 1, 3, "cpu"))
     _close(got, want, "paged_decode_attention")
+
+
+# (B, Sq, Sk, Hq, Hkv, kwargs): numpy arrays in kwargs become (B,) inputs
+GQA_CASES = {
+    "causal": (2, 24, 24, 6, 2, dict()),
+    "window": (1, 40, 40, 4, 2, dict(window=9)),
+    "bidirectional-mqa": (2, 16, 16, 4, 1, dict(causal=False)),
+    "ragged-decode": (3, 1, 32, 6, 2,
+                      dict(q_offset=np.array([0, 13, 31], np.int32),
+                           kv_valid_len=np.array([1, 14, 32], np.int32),
+                           kv_chunk=32)),
+    "ragged-window": (3, 2, 32, 6, 2,
+                      dict(q_offset=np.array([3, 17, 30], np.int32),
+                           kv_valid_len=np.array([5, 19, 32], np.int32),
+                           window=6, kv_chunk=32)),
+    "chunked-kv": (2, 3, 64, 4, 2,
+                   dict(q_offset=40, kv_valid_len=43, kv_chunk=16)),
+    "chunked-prefill": (1, 64, 64, 4, 2, dict(kv_chunk=16, q_offset=0,
+                                              kv_valid_len=64)),
+    "ring-k-start": (2, 1, 8, 4, 2, dict(window=8, q_offset=20,
+                                         k_start=13, kv_chunk=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(GQA_CASES))
+def test_gqa_attention_matches_reference(case):
+    """The plain online-softmax path (and, for whole sequences, the
+    flash route) against the reference's jnp path."""
+    B, Sq, Sk, Hq, Hkv, kw = GQA_CASES[case]
+    rng = np.random.default_rng(len(case))
+    D = 16
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    jkw = {n: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+           for n, a in kw.items()}
+    tkw = {n: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+           for n, a in kw.items()}
+    want = JA.gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            **jkw)
+    got = A.gqa_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), **tkw)
+    _close(got, want, case)
+
+
+def _dense_pair(models):
+    jcfg, np_params, model, params = models
+    return (jax_build_model(jcfg.replace(use_pallas=False)),
+            jax.tree.map(jnp.asarray, np_params), model, params)
+
+
+def test_dense_prefill_then_ragged_decode_match_reference(models):
+    """Whole-prompt prefill of two right-padded prompts (hidden states and
+    the cache padded to max_len), then three decode steps with the two
+    slots at different lengths, writing into the cache in place: logits
+    and both cache leaves match after every call."""
+    jmodel, jparams, model, params = _dense_pair(models)
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    S, max_len = 24, 40
+    toks = rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)
+    lens = np.array([17, 24], np.int32)
+    toks[0, lens[0]:] = 0                           # right-padding
+    jcache, jh = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                None, max_len)
+    cache, h = model.prefill(params, torch.from_numpy(toks), max_len)
+    _close(h, jh, "prefill hidden")
+    for leaf in ("k", "v"):
+        _close(cache[leaf], jcache[leaf], f"prefill cache {leaf}")
+
+    pos = lens.copy()
+    tok = np.array([[3], [7]], np.int32)
+    for step in range(3):
+        jcache, jlog = jmodel.decode_step(jparams, jcache, jnp.asarray(tok),
+                                          jnp.asarray(pos), None)
+        tlog = model.decode_step(params, cache, torch.from_numpy(tok),
+                                 torch.from_numpy(pos))
+        assert tlog.dtype == torch.float32 and tlog.shape == jlog.shape
+        _close(tlog, jlog, f"decode logits step {step}")
+        for leaf in ("k", "v"):
+            _close(cache[leaf], jcache[leaf], f"decode {leaf} step {step}")
+        tok = np.argmax(np.asarray(jlog)[:, 0], -1)[:, None].astype(np.int32)
+        pos = pos + 1
+
+
+def test_dense_path_routes_only_prefill_to_flash(models):
+    """Whole-prompt prefill runs flash attention once a layer; decode
+    (Sq == 1, masked by kv_valid_len) never does, not even at Sk == 1."""
+    from repro_torch.kernels import ops
+    _, _, model, params = models
+    n = model.cfg.n_layers
+    ops.reset_counts()
+    cache, _ = model.prefill(params, torch.tensor([[5, 6, 7]]), 8)
+    assert ops.COUNTS["flash_attention"].plain == n
+    model.decode_step(params, cache, torch.tensor([[1]]), torch.tensor([3]))
+    one = model.init_decode_state(1, 1, device="cpu")
+    model.decode_step(params, one, torch.tensor([[1]]), 0)
+    assert ops.COUNTS["flash_attention"].plain == n
+    assert T.layer_windows(model.cfg) == [None] * n
+    ops.reset_counts()
+
+
+def test_window_caches_wait_for_their_slice(models):
+    _, _, model, _ = models
+    gemma_like = model.cfg.replace(local_window=4, global_every=2)
+    with pytest.raises(NotImplementedError, match="A11"):
+        T.init_cache(gemma_like, 1, 8, dtype=torch.float32, device="cpu")
 
 
 def test_layers_match_reference():

@@ -1,7 +1,9 @@
-"""The port's paged serving engine against the reference's: greedy token
-streams on bridged weights (prefix cache on and off, forced preemption, a
-shared-prefix set), page conservation, error isolation and recovery, and
-the device and feature guards of the entry points."""
+"""The port's serving engine against the reference's: greedy token
+streams on bridged weights (paged: prefix cache on and off, forced
+preemption, a shared-prefix set; dense per-slot: waves of prompts in two
+length buckets), page conservation, error isolation and recovery on both
+paths, the prefill farm's lifecycle, and the device and feature guards of
+the entry points."""
 import jax
 import numpy as np
 import pytest
@@ -183,7 +185,7 @@ def test_entry_points_need_a_card_unless_told_cpu(pair):
         ServeEngine(model, params, device="meta")
 
 
-@pytest.mark.parametrize("kw", [dict(sampler=lambda k, l: 0), dict(paged=False),
+@pytest.mark.parametrize("kw", [dict(sampler=lambda k, l: 0),
                                 dict(spec_decode="ngram"),
                                 dict(kv_quant="int8"),
                                 dict(weight_quant="int8"), dict(mesh=object()),
@@ -201,3 +203,153 @@ def test_unported_request_features_raise(pair, kw):
     eng = ServeEngine(model, params, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         eng.submit([1, 2, 3], **kw)
+
+
+# ---------------------------------------------------------------------------
+# dense per-slot path
+# ---------------------------------------------------------------------------
+
+# prompts of 3-11 tokens run at bucket 32, of 40-45 at bucket 64
+DENSE_WAVES = [[[5, 17, 33, 2, 9], list(range(1, 41)), [100, 200, 300]],
+               [[7] * 11, list(range(60, 105))],
+               [list(range(3, 45)), [9, 8, 7, 6]]]
+
+
+def _serve_dense(engine_cls, model, params, waves, *, max_new=6, **kw):
+    eng = engine_cls(model, params, max_slots=3, max_len=96, paged=False,
+                     **kw)
+    for wave in waves:
+        for p in wave:
+            eng.submit(p, max_new_tokens=max_new)
+        eng.run_until_drained()
+    assert all(r.error is None for r in eng.finished)
+    return {r.rid: r.output for r in eng.finished}, dict(eng.stats), eng
+
+
+@pytest.mark.parametrize("prefill_workers", [1, 3])
+def test_dense_streams_match_reference(pair, prefill_workers):
+    """Three waves over two buckets, three slots: the port's dense streams
+    and tick counts equal the reference's dense engine's."""
+    jmodel, jparams, model, params = pair
+    want, s_want, _ = _serve_dense(JaxServeEngine, jmodel, jparams,
+                                   DENSE_WAVES, prefill_workers=2)
+    got, s_got, eng = _serve_dense(ServeEngine, model, params, DENSE_WAVES,
+                                   device="cpu",
+                                   prefill_workers=prefill_workers)
+    assert got == want
+    for k in ("ticks", "tokens", "prefills"):
+        assert s_got[k] == s_want[k], k
+    assert eng.pool is None and not eng.prefix_cache
+    eng.close()
+
+
+def test_dense_streams_match_paged_streams(pair):
+    """The port's two paths agree with each other on the same requests."""
+    _, _, model, params = pair
+    dense, _, eng = _serve_dense(ServeEngine, model, params, DENSE_WAVES,
+                                 device="cpu")
+    eng.close()
+    paged = ServeEngine(model, params, max_slots=3, max_len=96,
+                        page_size=16, prefill_chunk=16, device="cpu")
+    for wave in DENSE_WAVES:
+        for p in wave:
+            paged.submit(p, max_new_tokens=6)
+        paged.run_until_drained()
+    assert {r.rid: r.output for r in paged.finished} == dense
+
+
+def test_dense_write_slot_zeroes_the_tail(pair):
+    """After a long request retires and a short one takes its slot, the
+    state equals the reference's (the zero-pad past the bucket)."""
+    jmodel, jparams, model, params = pair
+    waves = [[list(range(1, 41))], [[5, 17, 33]]]
+    eng = ServeEngine(model, params, max_slots=1, max_len=96, paged=False,
+                      device="cpu")
+    jeng = JaxServeEngine(jmodel, jparams, max_slots=1, max_len=96,
+                          paged=False)
+    for wave in waves:
+        for e in (eng, jeng):
+            for p in wave:
+                e.submit(p, max_new_tokens=3)
+            e.run_until_drained()
+    for leaf in ("k", "v"):
+        np.testing.assert_allclose(eng.state[leaf].numpy(),
+                                   np.asarray(jeng.state[leaf]), rtol=0,
+                                   atol=1e-4)
+    eng.close()
+
+
+def test_dense_failed_prefill_is_isolated(pair, monkeypatch):
+    """A prefill that raises on a farm worker retires only its request
+    (with ``.error``); the requests prefilled beside it finish unharmed."""
+    _, _, model, params = pair
+    want, _, eng = _serve_dense(ServeEngine, model, params, [PROMPTS],
+                                device="cpu")
+    eng.close()
+    real = model.prefill
+
+    def flaky(params, tokens, max_len=None):
+        if bool((tokens == 999).any()):
+            raise ValueError("injected prefill failure")
+        return real(params, tokens, max_len)
+
+    monkeypatch.setattr(model, "prefill", flaky)
+    eng = ServeEngine(model, params, max_slots=3, max_len=96, paged=False,
+                      device="cpu")
+    rids = [eng.submit(p, max_new_tokens=6) for p in PROMPTS[:2]]
+    bad = eng.submit([1, 2, 999, 4], max_new_tokens=6)
+    rids.append(eng.submit(PROMPTS[2], max_new_tokens=6))
+    eng.run_until_drained()
+    by_rid = {r.rid: r for r in eng.finished}
+    assert isinstance(by_rid[bad].error, ValueError)
+    assert not by_rid[bad].output
+    assert [by_rid[r].output for r in rids] == [want[i] for i in range(3)]
+    eng.close()
+
+
+def test_dense_failed_decode_evicts_and_rebuilds(pair, monkeypatch):
+    """A decode step that raises evicts every resident and rebuilds a
+    zeroed state before the error propagates; the residents then resume
+    by recompute and their greedy streams are unchanged."""
+    _, _, model, params = pair
+    want, _, eng = _serve_dense(ServeEngine, model, params, [PROMPTS],
+                                device="cpu")
+    eng.close()
+    real = model.decode_step
+    calls = []
+
+    def flaky(*args):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("injected decode failure")
+        return real(*args)
+
+    monkeypatch.setattr(model, "decode_step", flaky)
+    eng = ServeEngine(model, params, max_slots=3, max_len=96, paged=False,
+                      device="cpu")
+    for p in PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    with pytest.raises(RuntimeError, match="injected decode failure"):
+        eng.run_until_drained()
+    assert eng.sched.live_slots() == [] and len(eng.sched.queue) == 3
+    assert all(not t.any() for t in eng.state.values())
+    eng.run_until_drained()
+    assert {r.rid: r.output for r in eng.finished} == want
+    eng.close()
+
+
+def test_close_releases_the_farm_and_the_engine_still_serves(pair):
+    _, _, model, params = pair
+    with ServeEngine(model, params, max_slots=2, max_len=96, paged=False,
+                     device="cpu", prefill_workers=2) as eng:
+        eng.submit(PROMPTS[0], max_new_tokens=3)
+        eng.submit(PROMPTS[1], max_new_tokens=3)
+        eng.run_until_drained()
+        assert eng._prefill_farm._pool is not None
+    assert eng._prefill_farm._pool is None          # __exit__ closed it
+    eng.submit(PROMPTS[2], max_new_tokens=3)        # pool made anew
+    eng.run_until_drained()
+    assert len(eng.finished) == 3 and all(len(r.output) == 3
+                                          for r in eng.finished)
+    eng.close()
+    assert eng._prefill_farm._pool is None
