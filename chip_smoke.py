@@ -8,8 +8,8 @@ Phases (any failure exits non-zero before the result lines):
                  limit.
 2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all at once) and prints what ptxas
-                 reports of the flash-attention kernels' registers and
-                 spills.
+                 reports of the flash-attention kernels' and the D-128
+                 paged-attention kernels' registers and spills.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them.
 4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
@@ -23,10 +23,27 @@ Phases (any failure exits non-zero before the result lines):
 6. timing      — each kernel, its plain version and one PyTorch yardstick
                  call timed at the main paths' shapes (device time from a
                  replayed CUDA graph; the host-issued time printed beside),
-                 beside the bytes/operations bound.
+                 beside the bytes/operations bound.  The int8 paged
+                 attention's yardstick is a composite (gather, dequant
+                 multiply, ``scaled_dot_product_attention``): no one
+                 PyTorch call takes int8 pages.
 7. step        — one paged decode step and one prefill chunk, host-issued
                  and as device time.
-8. main-dense  — the same model through the launcher's ``--dense`` path:
+8. main-int8   — the main run with ``--kv-quant int8``: every request must
+                 finish, the int8 paged attention must launch (the float
+                 one and every plain version not at all), the prefix cache
+                 must hit, KV bytes a token must be 29568, and one prompt's
+                 dequantized layer-0 K and V must lie within half a
+                 quantization step of the bf16 run's (layer 0's inputs are
+                 the same on both).  Prints the greedy streams' agreement
+                 with the bf16 run, the peak device memory, ticks and the
+                 pages' high water.  Then its decode step and prefill chunk
+                 timed as in 7.
+9. main-int8w  — the same with ``--weight-quant int8`` as well: every
+                 request must finish and the peak device memory (the
+                 weights quantized as they are drawn) must stay below the
+                 bf16 run's.  Then its decode step and prefill chunk.
+10. main-dense — the same model through the launcher's ``--dense`` path:
                  8 requests of 964-1007 tokens (a 960-token shared prefix),
                  so every whole-prompt prefill runs at bucket 1024, farmed
                  over the prefill farm; every request must finish,
@@ -39,7 +56,7 @@ Phases (any failure exits non-zero before the result lines):
                  streams agree with the paged engine's on the same prompts,
                  and the wall time and mean TTFT of the same requests with
                  1 and 4 prefill-farm workers.
-9. step-dense  — one dense decode step (4 slots, max_len 2048) and one
+11. step-dense — one dense decode step (4 slots, max_len 2048) and one
                  bucket-1024 prefill, host-issued and as device time.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
@@ -63,17 +80,20 @@ from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
-from repro_torch.models.module import tree_map  # noqa: E402
+from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
+from repro_torch.serve import quant as QZ  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # rtol = atol per kernel and dtype.  bf16 rmsnorm outputs are O(1), where
 # one bf16 ulp is 2**-7 ~ 8e-3; bf16 paged-attention outputs are ~0.1; the
-# bf16 attention limits sit near twice the largest error seen on the card
-# (flash attention: 0.00195, one bf16 ulp in [0.25, 0.5)).
+# bf16 attention limits of flash attention and the int8 paged attention sit
+# near twice the largest error seen on the card (0.00195 for both, one bf16
+# ulp in [0.25, 0.5)).  float32 differs by summation order only.
 TOL = {"rmsnorm": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
        "paged_attention_mq": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
+       "paged_attention_mq_int8": {torch.float32: 2e-4, torch.bfloat16: 4e-3},
        "flash_attention": {torch.float32: 2e-4, torch.bfloat16: 4e-3}}
 # main-dense, float32: the layer-1 K cache of a prefill through the flash
 # kernel against one through its plain version, max |dK| over max |K|
@@ -86,6 +106,10 @@ MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
              "--prefill-chunk", "64", "--prefix-cache", "on",
              "--shared-prefix", "256", "--device", "cuda"]
 PAGED_KERNELS = ("rmsnorm", "paged_attention_mq")   # the paged path runs
+INT8_KERNELS = ("rmsnorm", "paged_attention_mq_int8")  # ... with int8 pages
+INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
+# (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
+INT8_HEADS = ((28, 4, 128), (4, 2, 16))
 DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
               "--max-new", "32", "--slots", "4", "--max-len", "2048",
               "--shared-prefix", "960", "--device", "cuda"]
@@ -151,11 +175,11 @@ def device_ms(fns, reps: int = 20) -> float:
 
 # -- kernel inputs at the main path's shapes ----------------------------------
 
-def attention_case(rng, dev, dtype, *, B, W, Hq, Hkv, n_pages=64, P=24):
+def attention_case(rng, dev, dtype, *, B, W, Hq, Hkv, D=128, n_pages=64,
+                   P=24):
     """q, pages, tables, lengths: ragged lengths crossing page edges, one dead
     slot (B > 1) whose table row is all trash page, trash-page entries past
     each live row's pages, and a trash page full of large values."""
-    D = 128
     trash = n_pages
     q = torch.randn(B, W, Hq, D, device=dev).to(dtype)
     kp = torch.randn(n_pages + 1, PS, Hkv, D, device=dev)
@@ -178,17 +202,26 @@ def attention_case(rng, dev, dtype, *, B, W, Hq, Hkv, n_pages=64, P=24):
             torch.tensor(lens.astype(np.int32), device=dev))
 
 
-def attention_cost(q, kp, tables, lengths):
+def quantize_pages(kp, vp):
+    """(k codes, v codes, k scales, v scales) of float pages, per (row,
+    head), as the int8 pool stores them."""
+    (kq, ks), (vq, vs) = (QZ.Int8KVQuant().quantize(t) for t in (kp, vp))
+    return kq, vq, ks, vs
+
+
+def attention_cost(q, kp, tables, lengths, scaled=False):
     """(bytes, operations) one paged-attention call needs on these inputs:
     each query and output element once, the K and V rows of the keys each
-    slot's deepest row reads, the table entries that name them."""
+    slot's deepest row reads (with their 4-byte scales a row and head for
+    int8 pages), the table entries that name them."""
     B, W, Hq, D = q.shape
     Hkv = kp.shape[2]
     elt = q.element_size()
     lens = lengths.cpu().numpy().astype(np.int64)
     keys = np.minimum(np.where(lens > 0, lens + W - 1, 0),
                       tables.shape[1] * PS)
-    nbytes = (2 * q.numel() * elt + int(keys.sum()) * Hkv * D * 2 * elt
+    row = D * kp.element_size() + (4 if scaled else 0)
+    nbytes = (2 * q.numel() * elt + int(keys.sum()) * Hkv * 2 * row
               + int(np.ceil(keys / PS).sum()) * 4 + B * 4)
     rows_keys = sum(max(int(lens[b]) + w, 0) if lens[b] > 0 else 0
                     for b in range(B) for w in range(W)) * Hq
@@ -265,12 +298,44 @@ def phase_parity(dev) -> dict:
             key = str(dtype).split(".")[-1]
             flash_errs[key] = max(flash_errs.get(key, 0.0), err)
     errs["flash_attention"] = max(flash_errs.values())
+    int8_errs = phase_parity_int8(rng, dev)
+    errs["paged_attention_mq_int8"] = max(int8_errs.values())
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
     log(f"parity ok: 16 rmsnorm + 24 paged_attention_mq + "
-        f"{2 * len(FLASH_CASES)} flash_attention cases, tol (rtol=atol) "
-        f"{tols}; max abs err {errs}; flash_attention by dtype "
-        f"{flash_errs}")
+        f"{2 * len(FLASH_CASES)} flash_attention + 24 "
+        f"paged_attention_mq_int8 cases, tol (rtol=atol) {tols}; max abs "
+        f"err {errs}; flash_attention by dtype {flash_errs}; "
+        f"paged_attention_mq_int8 by dtype {int8_errs}")
+    return errs
+
+
+def phase_parity_int8(rng, dev) -> dict:
+    """The int8 paged attention against its plain version: decode (W 1), a
+    verify width (W 4) and a prefill chunk (W 64), qwen2-7b's and SMOKE's
+    heads, q in bf16 and f32, pages quantized per (row, head) from the
+    float case (its trash page of large values included), ragged lengths
+    and a dead slot whose window position 0 (length 0) must be zero.  Max abs error by q dtype."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for Hq, Hkv, D in INT8_HEADS:
+            for W in (1, 4, 64):
+                for B in (1, 4):
+                    q, kp, vp, tb, ln = attention_case(
+                        rng, dev, dtype, B=B, W=W, Hq=Hq, Hkv=Hkv, D=D)
+                    pages = quantize_pages(kp.float(), vp.float())
+                    got = ops.paged_attention_mq(q, pages[0], pages[1], tb,
+                                                 ln, *pages[2:])
+                    torch.cuda.synchronize()
+                    if B > 1 and got[-1, 0].any():   # length 0: no key
+                        raise AssertionError(f"paged_attention_mq_int8 Hq={Hq} "
+                                             f"W={W}: dead slot not zero")
+                    key = str(dtype).split(".")[-1]
+                    errs[key] = max(errs.get(key, 0.0), check(
+                        "paged_attention_mq_int8",
+                        f"Hq={Hq} Hkv={Hkv} D={D} W={W} B={B} {dtype}", got,
+                        ref.paged_attention_mq(q, pages[0], pages[1], tb, ln,
+                                               *pages[2:]), dtype))
     return errs
 
 
@@ -297,28 +362,46 @@ def phase_small(dev) -> None:
             f"qwen2-7b, float32)")
 
 
-def phase_main():
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_counts()
-    t0 = time.perf_counter()
-    eng = launch_serve.main(MAIN_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
-    cfg = eng.model.cfg
-    done = eng.finished
+def check_served(eng, label: str, counts: dict, kernels) -> None:
+    """The launcher's 8 requests finished with 32 valid tokens each, the
+    path's ``kernels`` launched, no other counted kernel and no plain
+    version ran, and the prefix cache hit."""
+    cfg, done = eng.model.cfg, eng.finished
     if len(done) != 8 or any(r.error is not None for r in done):
-        raise AssertionError(f"main path: {len(done)} finished, errors "
+        raise AssertionError(f"{label}: {len(done)} finished, errors "
                              f"{[r.error for r in done if r.error]}")
     for r in done:
         if len(r.output) != 32 or not all(0 <= t < cfg.vocab for t in r.output):
-            raise AssertionError(f"request {r.rid}: bad output {r.output}")
+            raise AssertionError(f"{label} request {r.rid}: bad output "
+                                 f"{r.output}")
     for name, (kernel, plain) in counts.items():
-        if (name in PAGED_KERNELS and kernel <= 0) or plain != 0:
-            raise AssertionError(f"main path: {name} launched {kernel} times, "
+        if (kernel <= 0) == (name in kernels) or plain != 0:
+            raise AssertionError(f"{label}: {name} launched {kernel} times, "
                                  f"plain version ran {plain} times")
     if eng.stats["prefix_hits"] <= 0:
-        raise AssertionError("main path: no prefix-cache hit")
+        raise AssertionError(f"{label}: no prefix-cache hit")
+
+
+def serve_main(extra=()):
+    """The launcher on MAIN_ARGS (plus ``extra``) with the counts and the
+    peak-memory mark zeroed first: (engine, launch counts, wall seconds,
+    peak device bytes)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng = launch_serve.main(MAIN_ARGS + list(extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    return eng, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def phase_main():
+    eng, counts, wall, peak = serve_main()
+    check_served(eng, "main path", counts, PAGED_KERNELS)
+    cfg, done = eng.model.cfg, eng.finished
     toks = sum(len(r.output) for r in done)
     s = eng.stats
     log(f"main path: qwen2-7b {cfg.n_layers} layers {cfg.dtype}, {len(done)} "
@@ -326,9 +409,103 @@ def phase_main():
         f"(init included: {wall:.2f}s), ticks={s['ticks']} "
         f"chunks={s['chunk_prefills']} pages_high_water="
         f"{s['pages_high_water']} prefix_hits={s['prefix_hits']} "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
-        f"launches {counts}")
+        f"max_memory_allocated={peak} B; launches {counts}")
+    return {k: v[0] for k, v in counts.items()}, eng, peak
+
+
+def layer0_kv(eng, prompt) -> dict:
+    """Layer 0's K and V rows of ``prompt`` from the pages ``eng``'s prefix
+    cache holds for it (dequantized when int8), float32 on the host, with
+    the int8 scales (None for float pages): {name: (rows, scales)}."""
+    pool = eng.pool
+    pages, n = pool.prefix.match(np.asarray(prompt, np.int32))
+    n = min(n, len(prompt))
+    idx = torch.tensor(pages, dtype=torch.long, device=eng.device)
+    out = {}
+    for name in ("k", "v"):
+        rows = pool.storage[name][0, idx].flatten(0, 1)[:n]
+        scale = None
+        if eng.kv_quant is not None:
+            scale = pool.storage[name + "_scale"][0, idx].flatten(0, 1)[:n]
+            rows = eng.kv_quant.dequantize(rows, scale)
+            scale = scale.cpu()
+        out[name] = (rows.float().cpu(), scale)
+    return out
+
+
+def streams_agree(eng, want) -> str:
+    """How far ``eng``'s greedy streams agree with ``want`` (rid -> tokens),
+    as printed text."""
+    got = {r.rid: r.output for r in eng.finished}
+    same = sum(a == b for rid in got for a, b in zip(got[rid], want[rid]))
+    first = [next((i for i, (a, b) in enumerate(zip(got[rid], want[rid]))
+                   if a != b), len(got[rid])) for rid in sorted(got)]
+    return (f"{same}/{sum(map(len, got.values()))} tokens equal, first "
+            f"difference at token {first}")
+
+
+def phase_main_int8(ref_kv, ref_streams, prompt):
+    """The main run with int8 KV pages: served, through the int8 kernel
+    only, 29568 KV bytes a token, and layer 0's dequantized K/V of
+    ``prompt`` within half a step of the bf16 run's (``ref_kv``)."""
+    eng, counts, wall, peak = serve_main(["--kv-quant", "int8"])
+    check_served(eng, "main-int8", counts, INT8_KERNELS)
+    s, cfg = eng.stats, eng.model.cfg
+    if s["kv_bytes_per_token"] != INT8_KV_BYTES:
+        raise AssertionError(f"main-int8: {s['kv_bytes_per_token']} KV bytes "
+                             f"a token, want {INT8_KV_BYTES}")
+    launches = counts["paged_attention_mq_int8"][0]
+    if launches != cfg.n_layers * (s["ticks"] + s["chunk_prefills"]):
+        raise AssertionError(f"main-int8: {launches} int8 attention launches "
+                             f"for {s['ticks']} decode steps and "
+                             f"{s['chunk_prefills']} chunks")
+    got_kv, gaps = layer0_kv(eng, prompt), []
+    for name in ("k", "v"):
+        rows, scale = got_kv[name]
+        want = ref_kv[name][0]
+        n = min(len(rows), len(want))
+        if n < PS:
+            raise AssertionError(f"main-int8: only {n} cached layer-0 rows "
+                                 "to compare")
+        err = (rows[:n] - want[:n]).abs()
+        limit = scale[:n, :, None] / 2 + 1e-6 * want[:n].abs()
+        if not bool((err <= limit).all()):
+            raise AssertionError(f"main-int8: layer-0 {name} beyond half a "
+                                 f"step of bf16 ({(err - limit).max()})")
+        gaps.append(f"{name}: {n} rows, max|d| {err.max().item():.3e}, max "
+                    f"|d|/step {(err / scale[:n, :, None]).max().item():.4f}")
+    toks = sum(len(r.output) for r in eng.finished)
+    log(f"main-int8: qwen2-7b {cfg.n_layers} layers, int8 KV pages "
+        f"({s['kv_bytes_per_token']} B a token), {len(eng.finished)} "
+        f"requests, {toks} tokens, {toks / wall:.1f} tok/s wall (init "
+        f"included: {wall:.2f}s), ticks={s['ticks']} "
+        f"chunks={s['chunk_prefills']} pages_high_water="
+        f"{s['pages_high_water']} prefix_hits={s['prefix_hits']} "
+        f"max_memory_allocated={peak} B; launches {counts}; layer-0 K/V of "
+        f"one prompt against the bf16 run's: {'; '.join(gaps)}; greedy "
+        f"streams against the bf16 run: {streams_agree(eng, ref_streams)}")
     return {k: v[0] for k, v in counts.items()}, eng
+
+
+def phase_main_int8w(bf16_peak, ref_streams):
+    """The main run with int8 KV pages and int8 weights: served through the
+    int8 kernel, at a lower peak device memory than the bf16 run."""
+    eng, counts, wall, peak = serve_main(["--kv-quant", "int8",
+                                          "--weight-quant", "int8"])
+    check_served(eng, "main-int8w", counts, INT8_KERNELS)
+    if peak >= bf16_peak:
+        raise AssertionError(f"main-int8w: peak {peak} B, not below the bf16 "
+                             f"run's {bf16_peak} B")
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(eng.params))
+    s = eng.stats
+    toks = sum(len(r.output) for r in eng.finished)
+    log(f"main-int8w: int8 KV and int8 weights ({weights} B of weights), "
+        f"{toks} tokens, {toks / wall:.1f} tok/s wall (init included: "
+        f"{wall:.2f}s), ticks={s['ticks']} chunks={s['chunk_prefills']}, "
+        f"max_memory_allocated={peak} B (bf16 run {bf16_peak} B); launches "
+        f"{counts}; greedy streams against the bf16 run: "
+        f"{streams_agree(eng, ref_streams)}")
+    return eng
 
 
 def phase_timing(dev) -> dict:
@@ -387,6 +564,18 @@ def phase_timing(dev) -> dict:
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
 
+    def library_int8(q, kq, vq, ks, vs, tb, mask=mask):
+        """Composite yardstick: gather, dequantize (float32 multiply, cast
+        to q's dtype) and scaled_dot_product_attention."""
+        b, t = tb.shape[0], tb.long()
+        k, v = ((c[t].float() * sc[t][..., None]).to(q.dtype)
+                .reshape(b, -1, Hkv, D).transpose(1, 2)
+                for c, sc in ((kq, ks), (vq, vs)))
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
+
+    int8_layers = [quantize_pages(kp.float(), vp.float())
+                   for kp, vp in layers]
     nbytes, nops = attention_cost(q, layers[0][0], tb, ln)
     measure("paged_attention_mq", {
         "kernel": [lambda kv=kv: ops.paged_attention_mq(q, *kv, tb, ln)
@@ -396,6 +585,18 @@ def phase_timing(dev) -> dict:
         "library": [lambda kv=kv: library(q, *kv, tb) for kv in layers]},
         f"decode B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} ps={PS} "
         f"lengths={lens.tolist()} bf16", nbytes, nops)
+    nbytes, nops = attention_cost(q, int8_layers[0][0], tb, ln, scaled=True)
+    measure("paged_attention_mq_int8", {
+        "kernel": [lambda kv=kv: ops.paged_attention_mq(q, kv[0], kv[1], tb,
+                                                        ln, *kv[2:])
+                   for kv in int8_layers],
+        "plain": [lambda kv=kv: ref.paged_attention_mq(q, kv[0], kv[1], tb,
+                                                       ln, *kv[2:])
+                  for kv in int8_layers],
+        "library": [lambda kv=kv: library_int8(q, *kv, tb)
+                    for kv in int8_layers]},
+        f"decode B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} ps={PS} "
+        f"lengths={lens.tolist()} q bf16, int8 pages", nbytes, nops)
 
     # flash attention at the dense prefill's shapes: one whole prompt of a
     # bucket, every query head of every layer in one call, causal
@@ -430,14 +631,34 @@ def phase_timing(dev) -> dict:
         f"{b2:.6f} ms by {by2}); rmsnorm (64, {d}): "
         f"{device_ms([lambda: ops.rmsnorm(x2, scale)]):.5f} ms (plain "
         f"{device_ms([lambda: ref.rmsnorm(x2, scale)]):.5f} ms)")
+    b8, by8 = bound(*attention_cost(q2, int8_layers[0][0], tb2, ln2,
+                                    scaled=True), dtype)
+    mask2 = (torch.arange(P * PS, device=dev)[None, :]             # causal
+             < start + 1 + torch.arange(W2, device=dev)[:, None])[None, None]
+    t8 = {name: device_ms([lambda kv=kv: fn(kv) for kv in int8_layers])
+          for name, fn in (
+              ("kernel", lambda kv: ops.paged_attention_mq(
+                  q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
+              ("plain", lambda kv: ref.paged_attention_mq(
+                  q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
+              ("composite", lambda kv: library_int8(q2, *kv, tb2,
+                                                    mask=mask2)))}
+    log(f"prefill-chunk shapes (device): paged_attention_mq_int8 W={W2} "
+        f"start={start}: {t8['kernel']:.5f} ms (plain {t8['plain']:.5f} ms, "
+        f"composite library {t8['composite']:.5f} ms, bound {b8:.6f} ms by "
+        f"{by8})")
     return out
 
 
-def phase_step(eng, times) -> None:
-    """One decode step and one prefill chunk of the main path's model, timed
-    as the host issues them and as a replayed CUDA graph (device time), with
-    the two kernels' share of the device time."""
+def phase_step(eng, times, label: str = "") -> None:
+    """One decode step and one prefill chunk of ``eng``'s model (its KV
+    quantization and weights), timed as the host issues them and as a
+    replayed CUDA graph (device time), with the two kernels' share of the
+    device time."""
     model, params, storage = eng.model, eng.params, eng.pool.storage
+    kw = {} if eng.kv_quant is None else {"quant": eng.kv_quant}
+    attn = "paged_attention_mq" if eng.kv_quant is None \
+        else "paged_attention_mq_int8"
     cfg, dev = model.cfg, eng.device
     rng = np.random.default_rng(2)
     B, P = eng.max_slots, eng.sched.pages_per_slot
@@ -453,7 +674,7 @@ def phase_step(eng, times) -> None:
 
     def decode():
         return model.paged_decode_step(params, storage, tables, lens, toks,
-                                       wp, wo)
+                                       wp, wo, **kw)
 
     start, C = 192, 64
     row = tables[0]
@@ -463,18 +684,18 @@ def phase_step(eng, times) -> None:
 
     def prefill():
         return model.paged_prefill_chunk(params, storage, row, pages, start,
-                                         chunk)
+                                         chunk, **kw)
 
-    kernels = (cfg.n_layers * times["paged_attention_mq"]["ms"]
+    kernels = (cfg.n_layers * times[attn]["ms"]
                + (2 * cfg.n_layers + 1) * times["rmsnorm"]["ms"])
     for name, fn in (("decode step (4 slots)", decode),
                      ("prefill chunk (64 at 192)", prefill)):
         host = time_ms(fn, iters=10, warmup=2)
         devt = device_ms([fn], reps=10)
-        log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
+        log(f"{label}{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
             f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
             f"time)")
-    log(f"decode step: {cfg.n_layers} paged_attention_mq + "
+    log(f"{label}decode step: {cfg.n_layers} {attn} + "
         f"{2 * cfg.n_layers + 1} rmsnorm launches at their device times = "
         f"{kernels:.3f} ms")
 
@@ -633,19 +854,23 @@ SOURCES = {
                 "src/repro/kernels/rmsnorm.py:38"),
     "paged_attention_mq": ("src/repro_torch/csrc/paged_attention.cu",
                            "src/repro/kernels/paged_attention.py:171"),
+    "paged_attention_mq_int8": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:171 (k_scale/v_scale)"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113"),
 }
 
 
-def ptxas_report(name: str) -> list[str]:
+def ptxas_report(*names: str) -> list[str]:
     """ptxas's register, spill and shared-memory lines for the kernels
-    whose mangled name holds ``name``."""
+    whose mangled name holds every one of ``names``."""
     lines, cur = [], ""
     for line in build.build_log().splitlines():
         if "Compiling entry function" in line:
             cur = line.split("'")[1] if "'" in line else line
-        elif name in cur and ("registers" in line or "spill" in line):
+        elif all(n in cur for n in names) and ("registers" in line
+                                               or "spill" in line):
             lines.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
     return lines
 
@@ -657,20 +882,36 @@ def main() -> int:
     build.library()
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in build.sources())})")
-    for line in ptxas_report("flash_attention_kernel"):
+    # flash attention at every D; paged attention (float and int8 pages)
+    # at 4 accumulator columns a lane, D 97-128
+    for line in (ptxas_report("flash_attention_kernel")
+                 + ptxas_report("paged_attention_mq_kernel", "Li4E")):
         log(f"ptxas {line}")
     errs = phase_parity(dev)
     phase_small(dev)
-    launches, eng = phase_main()
+    launches, eng, bf16_peak = phase_main()
+    # read before the step phase writes into the pool's pages
+    prompt = launch_serve.make_prompts(launch_serve.parse_args(MAIN_ARGS),
+                                       eng.model.cfg.vocab)[0]
+    ref_kv = layer0_kv(eng, prompt)
+    ref_streams = {r.rid: r.output for r in eng.finished}
     times = phase_timing(dev)
     phase_step(eng, times)
     del eng                             # free the paged model's weights
+    int8_launches, eng = phase_main_int8(ref_kv, ref_streams, prompt)
+    phase_step(eng, times, "int8 KV: ")
+    del eng
+    eng = phase_main_int8w(bf16_peak, ref_streams)
+    phase_step(eng, times, "int8 KV and weights: ")
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     dense_launches, eng = phase_main_dense()
     phase_step_dense(eng, times)
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
+    launches["paged_attention_mq_int8"] = \
+        int8_launches["paged_attention_mq_int8"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         t = times[name]

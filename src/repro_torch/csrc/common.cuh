@@ -6,13 +6,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes passed from Python (kernels/build.py)
-enum DtypeCode { kFloat32 = 0, kBFloat16 = 1 };
+#include <type_traits>
+
+// dtype codes passed from Python (kernels/*.py)
+enum DtypeCode { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);   // exact: int8 codes of quantized pages
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);

@@ -6,6 +6,14 @@
 // pages in order on one core and carries the online-softmax state in VMEM
 // scratch from one grid step to the next.
 //
+// With int8 pages (the TPU kernel's k_scale/v_scale variant) every cached
+// row of every KV head carries one float32 scale; the TPU kernel multiplies
+// its VMEM page tile by them right after the DMA, and this one does the same
+// where it stages a tile in shared memory: a lane loads 16 codes as one
+// 16-byte vector, converts them and multiplies by the row's scale before
+// writing the float32 tile.  The inner loops are the float pages' own, and
+// full-precision K/V never exists in device memory.
+//
 // Semantics kept from the TPU kernel: GQA rows are stacked head-major
 // (row r = w * G + g serves window position w and query head h * G + g);
 // row r may read KV positions < lengths[b] + w; the softmax is online in
@@ -17,7 +25,8 @@
 // Bound on this card: bytes.  Decode reads every cached K/V byte once for a
 // handful of query rows (about 2 * G flops a KV element), and the chunked
 // prefill window reads the same pages for W * G rows; both are far under
-// the ~295 flops a byte at which H100 becomes compute-bound.
+// the ~295 flops a byte at which H100 becomes compute-bound.  int8 pages
+// halve the bytes of bf16 ones (plus 4 B of scale a row and head).
 //
 // Design, a first simple one (no wgmma, no TMA):
 // * Grid (B, Hkv, ceil(W*G / 16)): each block owns a tile of 16 query rows
@@ -30,7 +39,8 @@
 //   ITS tile (the TPU kernel stops at the window's last row), so the work is
 //   O(length + W), not O(table capacity).
 // * K and V tiles (32 x D) are staged in shared memory as float32 with
-//   16-byte vector loads; K rows are padded by one float so that lane j
+//   16-byte vector loads (the page type KV is float, bf16 or int8,
+//   dequantized on the way in); K rows are padded by one float so that lane j
 //   reading key j's row is free of bank conflicts.
 // * 4 warps x 4 rows.  For scores, lane j computes key j against all four
 //   of the warp's rows at once (four independent sums, each K element read
@@ -56,10 +66,15 @@ size_t smem_bytes(int D) {
                           static_cast<size_t>(kKeys) * D);
 }
 
-template <typename T, int kCols>
+// T: q's and out's type; KV: the pages' type (T, or int8_t with a float32
+// scale a row and head in k_scale/v_scale, which are null otherwise).
+template <typename T, typename KV, int kCols>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_attention_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                          const T* __restrict__ v_pages,
+paged_attention_mq_kernel(const T* __restrict__ q,
+                          const KV* __restrict__ k_pages,
+                          const KV* __restrict__ v_pages,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
                           const int* __restrict__ tables,
                           const int* __restrict__ lengths, T* __restrict__ out,
                           int W, int Hq, int Hkv, int D, int ps, int P,
@@ -79,6 +94,9 @@ paged_attention_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pages
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int N = Vec16<T>::N;
   const int vecs = D / N;
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int NK = Vec16<KV>::N;
+  const int kv_vecs = D / NK;
 
   // keys the deepest row of this tile may read, within the table's capacity
   const int limit_max = min(max(length + r_last / G, 0), P * ps);
@@ -117,20 +135,29 @@ paged_attention_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pages
   for (int k0 = 0; k0 < limit_max; k0 += kKeys) {
     __syncthreads();  // q_s written / previous tile fully read
 #pragma unroll 4
-    for (int i = threadIdx.x; i < kKeys * vecs; i += blockDim.x) {
-      const int j = i / vecs, c = (i % vecs) * N, pos = k0 + j;
-      float fk[N], fv[N];
+    for (int i = threadIdx.x; i < kKeys * kv_vecs; i += blockDim.x) {
+      const int j = i / kv_vecs, c = (i % kv_vecs) * NK, pos = k0 + j;
+      float fk[NK], fv[NK];
       if (pos < limit_max) {
         const size_t page = static_cast<size_t>(table[pos / ps]);
-        const size_t off = ((page * ps + pos % ps) * Hkv + h) * D + c;
-        unpack16<T>(*reinterpret_cast<const uint4*>(k_pages + off), fk);
-        unpack16<T>(*reinterpret_cast<const uint4*>(v_pages + off), fv);
+        const size_t row = (page * ps + pos % ps) * Hkv + h;
+        const size_t off = row * D + c;
+        unpack16<KV>(*reinterpret_cast<const uint4*>(k_pages + off), fk);
+        unpack16<KV>(*reinterpret_cast<const uint4*>(v_pages + off), fv);
+        if constexpr (kQuant) {   // the TPU kernel's in-VMEM dequant
+          const float sk = k_scale[row], sv = v_scale[row];
+#pragma unroll
+          for (int e = 0; e < NK; ++e) {
+            fk[e] *= sk;
+            fv[e] *= sv;
+          }
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < N; ++e) fk[e] = fv[e] = 0.f;
+        for (int e = 0; e < NK; ++e) fk[e] = fv[e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
+      for (int e = 0; e < NK; ++e) {
         k_s[j * (D + 1) + c + e] = fk[e];
         v_s[j * D + c + e] = fv[e];
       }
@@ -215,13 +242,14 @@ paged_attention_mq_kernel(const T* __restrict__ q, const T* __restrict__ k_pages
   }
 }
 
-template <typename T, int kCols>
+template <typename T, typename KV, int kCols>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const int* tables, const int* lengths, void* out, int B,
                    int W, int Hq, int Hkv, int D, int ps, int P, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
-  auto kernel = paged_attention_mq_kernel<T, kCols>;
+  auto kernel = paged_attention_mq_kernel<T, KV, kCols>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -230,23 +258,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const dim3 grid(B, Hkv, (W * (Hq / Hkv) + kRows - 1) / kRows);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), W, Hq,
-      Hkv, D, ps, P, scale);
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, tables, lengths,
+      static_cast<T*>(out), W, Hq, Hkv, D, ps, P, scale);
   return cudaGetLastError();
 }
 
 // The accumulator columns a lane owns (ceil(D / 32)) as a compile-time
 // constant, so the column loops unroll without dead iterations.
-template <typename T>
+template <typename T, typename KV>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const float* k_scale, const float* v_scale,
                      const int* tables, const int* lengths, void* out, int B,
                      int W, int Hq, int Hkv, int D, int ps, int P, float scale,
                      cudaStream_t stream) {
 #define REPRO_PA_CASE(C)                                                      \
   case C:                                                                     \
-    return launch<T, C>(q, k, v, tables, lengths, out, B, W, Hq, Hkv, D, ps, \
-                        P, scale, stream);
+    return launch<T, KV, C>(q, k, v, k_scale, v_scale, tables, lengths, out, \
+                            B, W, Hq, Hkv, D, ps, P, scale, stream);
   switch ((D + 31) / 32) {
     REPRO_PA_CASE(1) REPRO_PA_CASE(2) REPRO_PA_CASE(3) REPRO_PA_CASE(4)
     REPRO_PA_CASE(5) REPRO_PA_CASE(6) REPRO_PA_CASE(7) REPRO_PA_CASE(8)
@@ -257,23 +286,43 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// k_scale/v_scale: null for float pages (kv_dtype == dtype); for int8 pages
+// (kv_dtype == kInt8, D a multiple of 16) the (N, page_size, Hkv) float32
+// scales.
 extern "C" int paged_attention_mq_launch(const void* q, const void* k_pages,
-                                         const void* v_pages, const void* tables,
+                                         const void* v_pages,
+                                         const void* k_scale,
+                                         const void* v_scale,
+                                         const void* tables,
                                          const void* lengths, void* out, int B,
                                          int W, int Hq, int Hkv, int D, int ps,
                                          int P, float scale, int dtype,
-                                         void* stream) {
+                                         int kv_dtype, void* stream) {
   if (B <= 0 || W <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D % 8 != 0 ||
       D > 32 * kMaxCols || ps <= 0 || P <= 0)
     return cudaErrorInvalidValue;
+  const bool quant = kv_dtype == kInt8;
+  if (quant != (k_scale != nullptr) || quant != (v_scale != nullptr) ||
+      (quant && D % Vec16<int8_t>::N != 0) || (!quant && kv_dtype != dtype))
+    return cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return dispatch<float>(q, k_pages, v_pages, tb, ln, out, B, W, Hq, Hkv, D,
-                           ps, P, scale, s);
+    return quant ? dispatch<float, int8_t>(q, k_pages, v_pages, ks, vs, tb, ln,
+                                           out, B, W, Hq, Hkv, D, ps, P,
+                                           scale, s)
+                 : dispatch<float, float>(q, k_pages, v_pages, ks, vs, tb, ln,
+                                          out, B, W, Hq, Hkv, D, ps, P, scale,
+                                          s);
   if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k_pages, v_pages, tb, ln, out, B, W, Hq,
-                                   Hkv, D, ps, P, scale, s);
+    return quant ? dispatch<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs,
+                                                   tb, ln, out, B, W, Hq, Hkv,
+                                                   D, ps, P, scale, s)
+                 : dispatch<__nv_bfloat16, __nv_bfloat16>(
+                       q, k_pages, v_pages, ks, vs, tb, ln, out, B, W, Hq, Hkv,
+                       D, ps, P, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -34,10 +34,12 @@ _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_floa
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_launch": [_vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
-    # q, k_pages, v_pages, tables, lengths, out,
-    # B, W, Hq, Hkv, D, page_size, P, scale, dtype, stream
-    "paged_attention_mq_launch": [_vp, _vp, _vp, _vp, _vp, _vp,
-                                  _i, _i, _i, _i, _i, _i, _i, _f, _i, _vp],
+    # q, k_pages, v_pages, k_scale, v_scale (null unless int8 pages),
+    # tables, lengths, out, B, W, Hq, Hkv, D, page_size, P, scale,
+    # q dtype, page dtype, stream
+    "paged_attention_mq_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                  _i, _i, _i, _i, _i, _i, _i, _f, _i, _i,
+                                  _vp],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q/k/v (batch, seq, head) strides,
     # causal, window, scale, dtype, stream
     "flash_attention_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,

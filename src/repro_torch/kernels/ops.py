@@ -26,6 +26,7 @@ class LaunchCount:
 
 
 COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
+          "paged_attention_mq_int8": LaunchCount(),
           "flash_attention": LaunchCount()}
 _count_lock = threading.Lock()
 
@@ -64,15 +65,25 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     return _rn.rmsnorm_plain(x, scale, eps=eps)
 
 
-def paged_attention_mq(q, k_pages, v_pages, tables, lengths):
+def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,
+                       v_scale=None):
     """Paged multi-query attention, (B, W, Hq, D) -> (B, W, Hq, D); see
-    :mod:`repro_torch.kernels.paged_attention`."""
-    if _route(q, "paged_attention_mq"):
-        out = _pa.paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths)
-        _count("paged_attention_mq", kernel=True)
+    :mod:`repro_torch.kernels.paged_attention`.  With ``k_scale`` and
+    ``v_scale`` the pages are int8, and the calls count under
+    ``paged_attention_mq_int8``."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention_mq: pass both k_scale and v_scale "
+                         "or neither")
+    name = "paged_attention_mq" if k_scale is None \
+        else "paged_attention_mq_int8"
+    if _route(q, name):
+        out = _pa.paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
+                                          k_scale, v_scale)
+        _count(name, kernel=True)
         return out
-    _count("paged_attention_mq", kernel=False)
-    return _pa.paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths)
+    _count(name, kernel=False)
+    return _pa.paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths,
+                                        k_scale, v_scale)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):

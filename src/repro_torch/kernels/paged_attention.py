@@ -9,9 +9,13 @@ and every window token's K/V is in its page before the call.  Decode is
 the W = 1 window; a page-aligned prefill chunk is a W = chunk window of
 one sequence.
 
+With int8 pages (``serve/quant.py``), ``k_scale``/``v_scale`` of shape
+(N, page_size, Hkv) hold one float32 scale per cached row and KV head, and
+attention reads each key and value as ``float(code) * scale``.
+
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
-``repro/kernels/paged_attention.py:paged_attention_mq`` without its int8
-page variant; its source note says what bounds it on Hopper and how the
+``repro/kernels/paged_attention.py:paged_attention_mq``, float and int8
+pages alike; its source note says what bounds it on Hopper and how the
 design answers that.
 """
 from __future__ import annotations
@@ -21,16 +25,19 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths):
+def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths,
+                             k_scale=None, v_scale=None):
     """Paged attention by explicit gather: the CPU path and the kernel's
     oracle.
 
     q: (B, W, Hq, D); k_pages/v_pages: (N, page_size, Hkv, D); tables:
     (B, P) int page ids; lengths: (B,) valid-KV counts for window position
-    0.  Returns (B, W, Hq, D); rows with no valid key (dead slots) are zero.
+    0; k_scale/v_scale: None, or (N, page_size, Hkv) float32 scales of int8
+    pages, applied in float32 after the gather.  Returns (B, W, Hq, D);
+    rows with no valid key (dead slots) are zero.
     """
     B, W, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
@@ -39,6 +46,9 @@ def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths):
     t = tables.long()
     k = k_pages[t].reshape(B, P * ps, Hkv, D).to(torch.float32)
     v = v_pages[t].reshape(B, P * ps, Hkv, D).to(torch.float32)
+    if k_scale is not None:
+        k = k * k_scale[t].reshape(B, P * ps, Hkv, 1).to(torch.float32)
+        v = v * v_scale[t].reshape(B, P * ps, Hkv, 1).to(torch.float32)
     qg = q.reshape(B, W, Hkv, G, D).to(torch.float32) * D ** -0.5
     s = torch.einsum("bwhgd,bkhd->bhgwk", qg, k)
     limit = (lengths.long()[:, None]
@@ -52,37 +62,57 @@ def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths):
     return o.reshape(B, W, Hq, D).to(q.dtype)
 
 
-def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths):
+def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
+                            k_scale=None, v_scale=None):
     """Launch the paged-attention kernel on ``q``'s card (current stream).
-    Shapes as in :func:`paged_attention_mq_plain`; q and the pages share one
-    dtype (float32 or bfloat16), D is a multiple of 8 up to 256.  Raises on
-    anything else; never falls back."""
+    Shapes as in :func:`paged_attention_mq_plain`.  q is float32 or
+    bfloat16; the pages share its dtype, or are int8 with both scales
+    (float32, (N, page_size, Hkv), contiguous).  D is a multiple of 8 up to
+    256, of 16 for int8 pages.  Raises on anything else; never falls
+    back."""
     B, W, Hq, D = q.shape
     N, ps, Hkv, Dk = k_pages.shape
     P = tables.shape[-1]
     dev = q.device
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention_mq_cuda: int8 pages need both "
+                         "k_scale and v_scale")
+    quantized = k_scale is not None
+    scales = (("k_scale", k_scale), ("v_scale", v_scale)) if quantized else ()
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("tables", tables), ("lengths", lengths)):
+                    ("tables", tables), ("lengths", lengths)) + scales:
         if t.device != dev:
             raise ValueError(f"paged_attention_mq_cuda: {name} on {t.device}, "
                              f"q on {dev}")
     if not q.is_cuda:
         raise ValueError("paged_attention_mq_cuda: q must lie on a card")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    kv_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k_pages.dtype != kv_dtype or v_pages.dtype != kv_dtype:
         raise TypeError(f"paged_attention_mq_cuda: dtypes q={q.dtype} "
-                        f"k={k_pages.dtype} v={v_pages.dtype}; want one of "
-                        "float32/bfloat16 for all three")
+                        f"k={k_pages.dtype} v={v_pages.dtype}; want q in "
+                        "float32/bfloat16 and pages of q's dtype, or int8 "
+                        "pages with k_scale and v_scale")
     if v_pages.shape != k_pages.shape or Dk != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"paged_attention_mq_cuda: q {tuple(q.shape)} vs "
                          f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if D % 8 or D > 256:
+    if D % 8 or D > 256 or (quantized and D % 16):
         raise ValueError(f"paged_attention_mq_cuda: head dim {D} must be a "
-                         "multiple of 8 up to 256")
+                         f"multiple of {16 if quantized else 8} up to 256"
+                         + (" for int8 pages (16 codes a 16-byte load)"
+                            if quantized else ""))
     if tables.shape != (B, P) or lengths.shape != (B,):
         raise ValueError(f"paged_attention_mq_cuda: tables "
                          f"{tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match B={B}")
+    for name, t in scales:
+        if t.dtype != torch.float32:
+            raise TypeError(f"paged_attention_mq_cuda: {name} is {t.dtype}, "
+                            "want float32")
+        if tuple(t.shape) != (N, ps, Hkv) or not t.is_contiguous():
+            raise ValueError(f"paged_attention_mq_cuda: {name} "
+                             f"{tuple(t.shape)} must be a contiguous "
+                             f"{(N, ps, Hkv)} (one scale a row and head)")
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     tables = tables.to(torch.int32).contiguous()
@@ -97,7 +127,9 @@ def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.paged_attention_mq_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, W, Hq, Hkv, D, ps, P, float(D ** -0.5), _DTYPE_CODES[q.dtype],
-            stream), "paged_attention_mq")
+            _DTYPE_CODES[kv_dtype], stream), "paged_attention_mq")
     return out

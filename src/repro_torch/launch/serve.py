@@ -4,8 +4,10 @@
         --requests 8 --max-new 32
 
 runs the full-size model with random weights on the card through the
-paged engine; ``--dense`` serves through the dense per-slot path instead
-(whole-prompt prefills farmed over ``--prefill-workers`` threads);
+paged engine (``--kv-quant int8`` with int8 KV pages, ``--weight-quant
+int8`` with int8 weights, quantized as they are drawn); ``--dense`` serves
+through the dense per-slot path instead (whole-prompt prefills farmed over
+``--prefill-workers`` threads);
 ``--smoke --device cpu`` runs the small config on the CPU through the
 kernels' plain versions.  Prints the reference launcher's summary lines
 plus each kernel's launch count.
@@ -47,6 +49,12 @@ def parse_args(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=24, metavar="L",
                     help="prepend an L-token common prefix to every prompt "
                     "(a shared system prompt; 0 disables)")
+    ap.add_argument("--kv-quant", choices=("int8", "off"), default="off",
+                    help="store KV pages as int8 with per-(token, head) "
+                    "scale leaves, dequantized inside attention")
+    ap.add_argument("--weight-quant", choices=("int8", "off"), default="off",
+                    help="store the weights as per-tensor int8, dequantized "
+                    "where each is used (a layer's inside the layer loop)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
 
@@ -66,7 +74,7 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
-    params = model.init(0, device=args.device)
+    params = model.init(0, device=args.device, weight_quant=args.weight_quant)
     eng = ServeEngine(model, params, max_slots=args.slots,
                       max_len=args.max_len, page_size=args.page_size,
                       num_pages=args.num_pages,
@@ -74,6 +82,7 @@ def main(argv=None):
                       prefix_cache=args.prefix_cache == "on",
                       prefill_workers=args.prefill_workers,
                       paged=False if args.dense else None,
+                      kv_quant=args.kv_quant, weight_quant=args.weight_quant,
                       device=args.device)
 
     ops.reset_counts()
@@ -92,12 +101,16 @@ def main(argv=None):
         f"paged(ps={eng.pool.page_size}, "
         f"hw={s['pages_high_water']}/{eng.pool.num_pages} pages, "
         f"prefix-cache {'on' if eng.prefix_cache else 'off'})")
+    if eng.kv_quant is not None or eng.weight_quant:
+        mode += (f" quant(kv={s['kv_quant']}, w={s['weight_quant']}, "
+                 f"{s['kv_bytes_per_token']} KV B/tok)")
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s); ticks={s['ticks']} "
           f"chunks={s['chunk_prefills']} "
           f"preempt={s['preemptions']} [{mode}] "
           f"mean TTFT {np.mean(ttfts)*1e3:.0f}ms")
     if eng.paged:
+        print(f"[serve] kv_bytes_per_token={s['kv_bytes_per_token']}")
         print(f"[serve] prefix cache: hits={s['prefix_hits']} "
               f"hit_tokens={s['prefix_hit_tokens']} "
               f"cow_copies={s['cow_copies']} evictions={s['evictions']} "

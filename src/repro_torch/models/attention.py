@@ -82,7 +82,8 @@ def window_lengths(n_cached, batch: int, device):
                       device=device)
 
 
-def paged_window_attention(q, k_pages, v_pages, tables, lengths):
+def paged_window_attention(q, k_pages, v_pages, tables, lengths, *,
+                           k_scale=None, v_scale=None):
     """Attention for a window of queries against paged KV storage — chunked
     prefill, and decode through :func:`paged_decode_attention`.
 
@@ -91,15 +92,19 @@ def paged_window_attention(q, k_pages, v_pages, tables, lengths):
     :func:`window_lengths` (the reference takes ``n_cached`` here and adds
     the 1 itself, once per layer).  Window position w attends to the cached
     positions and to window positions <= w; every window token's K/V must
-    already be in its page.  Returns (B, W, Hq, D).
+    already be in its page.  ``k_scale``/``v_scale``: None, or the
+    (N, page_size, Hkv) float32 scales of int8 pages (dequantized in
+    float32 where the keys are read).  Returns (B, W, Hq, D).
     """
     Hq, Hkv = q.shape[2], k_pages.shape[2]
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a positive multiple of Hkv={Hkv}")
-    return ops.paged_attention_mq(q, k_pages, v_pages, tables, lengths)
+    return ops.paged_attention_mq(q, k_pages, v_pages, tables, lengths,
+                                  k_scale, v_scale)
 
 
-def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
+def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
+                           k_scale=None, v_scale=None):
     """Decode attention (one query per sequence): the W = 1 window of
     :func:`paged_window_attention`.  ``lengths``: (B,) int32 valid-KV counts
     including the current token (already written to its page) — which is
@@ -107,7 +112,8 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths):
     if q.shape[1] != 1:
         raise ValueError(f"decode attention takes one query per sequence, "
                          f"got a window of {q.shape[1]}")
-    return paged_window_attention(q, k_pages, v_pages, tables, lengths)
+    return paged_window_attention(q, k_pages, v_pages, tables, lengths,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],

@@ -62,20 +62,24 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def init_params(defs, generator: torch.Generator, *, device: torch.device,
-                dtype: torch.dtype):
+                dtype: torch.dtype, finish: Callable | None = None):
     """Materialize a declaration tree on ``device``.
 
     Each leaf is drawn in float32 from ``generator`` (which must live on
     ``device``) and cast before the next is drawn, so a full-width model
-    never holds a float32 copy of more than one leaf."""
+    never holds a float32 copy of more than one leaf.  ``finish``, if
+    given, maps each cast leaf to what the tree keeps (the int8 weight
+    quantizer), before the next leaf is drawn."""
     def make(p: Param):
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dtype, device=device)
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dtype, device=device)
-        std = 0.02 if p.init == "small" else p.stddev()
-        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(std).to(dtype)
+            w = torch.zeros(p.shape, dtype=dtype, device=device)
+        elif p.init == "ones":
+            w = torch.ones(p.shape, dtype=dtype, device=device)
+        else:
+            std = 0.02 if p.init == "small" else p.stddev()
+            w = torch.randn(p.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            w = w.mul_(std).to(dtype)
+        return w if finish is None else finish(w)
 
     return tree_map(make, defs)

@@ -2,9 +2,19 @@
 dense per-slot cache.
 
 Counterpart of the serving half of ``repro.models.transformer``, without
-the mesh transport, MoE, KV quantization or precomputed embeds.  Params
-keep the reference's keys and shapes, with ``params["blocks"]`` stacked on
-a leading layer axis.
+the mesh transport, MoE or precomputed embeds.  Params keep the
+reference's keys and shapes, with ``params["blocks"]`` stacked on a
+leading layer axis.
+
+The paged path also serves int8 KV pages (a ``quant`` policy from
+:mod:`repro_torch.serve.quant`: K/V are quantized on write, their scales
+ride sibling storage leaves, attention dequantizes) and int8 weights: a
+``{"q8", "s8"}`` pair anywhere in the params is dequantized where it is
+used, to the compute dtype — a block's inside the layer loop, so the
+full-precision copy exists for one layer at a time, the embedding after
+its rows are gathered, the unembedding in :func:`lm_logits`.  The scales
+are per tensor, so these give the numbers of the reference's whole-tree
+dequantization followed by its cast to the compute dtype at use.
 
 The reference scans the layers with ``jax.lax.scan`` and returns updated
 storage or caches; here a Python loop walks the layers, and each decode or
@@ -23,8 +33,9 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.module import Param, tree_map
+from repro_torch.models.module import Param, torch_dtype, tree_map
 from repro_torch.serve import pages as PG
+from repro_torch.serve import quant as QZ
 
 
 def stack_defs(defs, n: int):
@@ -56,8 +67,13 @@ def transformer_defs(cfg) -> dict:
     }
 
 
-def embed_tokens(params, tokens):
-    """(B, S) tokens -> (B, S, d) in the params' (compute) dtype."""
+def embed_tokens(params, tokens, dtype=None):
+    """(B, S) tokens -> (B, S, d) in the params' (compute) dtype; the rows
+    of an int8 table are gathered, then dequantized to ``dtype``."""
+    table = params["embed"]["table"]
+    if QZ.is_q8(table):
+        rows = {"q8": table["q8"][tokens.long()], "s8": table["s8"]}
+        return QZ.dequantize_params(rows, dtype)
     return L.embed(params["embed"], tokens)
 
 
@@ -69,8 +85,11 @@ def lm_logits(params, hidden):
     multiplies in float32; a bf16 model on a card asks cuBLAS for a float32
     output of the bf16 product (``torch.mm(..., out_dtype=float32)``), and
     on the CPU, which has no such product, both bf16 operands are widened
-    to float32 first (their values are exact in float32)."""
+    to float32 first (their values are exact in float32).  An int8
+    unembedding is dequantized to the hidden states' dtype first."""
     w = params["unembed"]["w"]
+    if QZ.is_q8(w):
+        w = QZ.dequantize_params(w, hidden.dtype)
     h = hidden.reshape(-1, hidden.shape[-1])
     if h.dtype == torch.float32:
         out = h @ w
@@ -100,14 +119,30 @@ def _check_dense(cfg):
 
 
 def _layer(tree, i: int):
-    """Layer ``i``'s view of a stacked (params or storage) tree."""
-    return tree_map(lambda a: a[i], tree)
+    """Layer ``i``'s view of a stacked (params or storage) tree.  An int8
+    weight ``{"q8", "s8"}`` is one leaf: its codes are sliced, its one
+    0-dim scale is shared by every layer."""
+    if QZ.is_q8(tree):
+        return {"q8": tree["q8"][i], "s8": tree["s8"]}
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
-def _write_kv(kv, k, v, scatter) -> None:
-    """Commit fresh K/V into one layer's page storage, in place."""
-    scatter(kv["k"], k)
-    scatter(kv["v"], v)
+def _write_kv(kv, k, v, quant, scatter) -> None:
+    """Commit fresh K/V into one layer's page storage, in place.  With a
+    ``quant`` policy the values are quantized first and their per-row
+    scales go through the same ``scatter`` into ``k_scale``/``v_scale``."""
+    if quant is None:
+        scatter(kv["k"], k)
+        scatter(kv["v"], v)
+        return
+    qk, sk = quant.quantize(k)
+    qv, sv = quant.quantize(v)
+    scatter(kv["k"], qk)
+    scatter(kv["v"], qv)
+    scatter(kv["k_scale"], sk)
+    scatter(kv["v_scale"], sv)
 
 
 def _paged_block(p, x, cfg, *, positions, kv, write, attend):
@@ -130,64 +165,76 @@ def _check_paged(cfg):
         raise NotImplementedError("paged decode is global-attention only")
 
 
+def _blocks(params, cfg):
+    """Each layer's params in turn, int8 weights dequantized to the
+    compute dtype one layer at a time."""
+    dtype = torch_dtype(cfg.dtype)
+    for i in range(cfg.n_layers):
+        yield QZ.dequantize_params(_layer(params["blocks"], i), dtype)
+
+
 def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
-                        tokens):
+                        tokens, quant=None):
     """Prefill one page-aligned prompt chunk into paged storage, in place.
 
-    storage: {"k", "v"} of (L, N, page_size, Hkv, D);  table_row: (P,) the
-    slot's page table;  pages_chunk: (C // page_size,) pages covering
-    positions [start, start + C);  start: int;  tokens: (1, C), right-padded
-    (the validity length masks pad garbage).  Returns the final hidden
-    states (1, C, d)."""
+    storage: {"k", "v"} of (L, N, page_size, Hkv, D), plus
+    {"k_scale", "v_scale"} of (L, N, page_size, Hkv) with a ``quant``
+    policy;  table_row: (P,) the slot's page table;  pages_chunk:
+    (C // page_size,) pages covering positions [start, start + C);  start:
+    int;  tokens: (1, C), right-padded (the validity length masks pad
+    garbage).  Returns the final hidden states (1, C, d)."""
     _check_paged(cfg)
     page_size = storage["k"].shape[2]
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     tables = table_row[None]
     lengths = A.window_lengths(start, 1, x.device)     # shared by all layers
 
     def write(kv, k, v):
-        _write_kv(kv, k[0], v[0],
+        _write_kv(kv, k[0], v[0], quant,
                   lambda st, val: PG.scatter_chunk(st, pages_chunk, val,
                                                    page_size=page_size))
 
     def attend(q, kv):
-        return A.paged_window_attention(q, kv["k"], kv["v"], tables, lengths)
+        return A.paged_window_attention(q, kv["k"], kv["v"], tables, lengths,
+                                        k_scale=kv.get("k_scale"),
+                                        v_scale=kv.get("v_scale"))
 
-    for i in range(cfg.n_layers):
-        x = _paged_block(_layer(params["blocks"], i), x, cfg,
-                         positions=positions, kv=_layer(storage, i),
-                         write=write, attend=attend)
+    for i, p in enumerate(_blocks(params, cfg)):
+        x = _paged_block(p, x, cfg, positions=positions,
+                         kv=_layer(storage, i), write=write, attend=attend)
     return L.rmsnorm(params["final_norm"], x)
 
 
 def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
-                      write_pages, write_offs):
+                      write_pages, write_offs, quant=None):
     """One token for every slot against paged storage, in place.
 
     tokens: (B, 1);  tables: (B, P);  lengths: (B,) tokens already cached
     (= the current token's position);  write_pages/write_offs: (B,) where
-    each slot's new K/V lands (dead slots point at the pool's trash page).
-    Returns float32 logits (B, 1, V)."""
+    each slot's new K/V lands (dead slots point at the pool's trash page);
+    quant as in :func:`paged_prefill_chunk`.  Returns float32 logits
+    (B, 1, V)."""
     _check_paged(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     positions = lengths[:, None]
     # valid keys including the current token; one tensor for all layers
     valid = A.window_lengths(lengths, lengths.shape[0], x.device)
 
     def write(kv, k, v):
-        _write_kv(kv, k[:, 0], v[:, 0],
+        _write_kv(kv, k[:, 0], v[:, 0], quant,
                   lambda st, val: PG.scatter_token(st, write_pages,
                                                    write_offs, val))
 
     def attend(q, kv):
-        return A.paged_decode_attention(q, kv["k"], kv["v"], tables, valid)
+        return A.paged_decode_attention(q, kv["k"], kv["v"], tables, valid,
+                                        k_scale=kv.get("k_scale"),
+                                        v_scale=kv.get("v_scale"))
 
-    for i in range(cfg.n_layers):
-        x = _paged_block(_layer(params["blocks"], i), x, cfg,
-                         positions=positions, kv=_layer(storage, i),
-                         write=write, attend=attend)
+    for i, p in enumerate(_blocks(params, cfg)):
+        x = _paged_block(p, x, cfg, positions=positions,
+                         kv=_layer(storage, i), write=write, attend=attend)
     x = L.rmsnorm(params["final_norm"], x)
     return lm_logits(params, x)
 

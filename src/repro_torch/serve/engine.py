@@ -9,7 +9,10 @@ runs the scheduler's plan on the device.
 
 * **paged** (the default): admission with a radix prefix match ->
   page-aligned chunked prefill -> copy-on-write -> one batched decode step
-  for every live slot -> greedy commit -> retire.
+  for every live slot -> greedy commit -> retire.  ``kv_quant="int8"``
+  stores the pages as int8 with per-(row, head) scale leaves;
+  ``weight_quant="int8"`` keeps the weights as per-tensor int8, dequantized
+  where each is used (:mod:`repro_torch.serve.quant`).
 * **dense per-slot** (``paged=False``): admission -> one whole-prompt
   prefill per admitted request, right-padded to a length bucket and farmed
   over the paper's thread farm (:class:`repro_torch.core.runtime.
@@ -41,9 +44,9 @@ before its cache reached the state, so only its request is retired (with
 so the engine evicts every resident, rebuilds a zeroed state and raises.
 
 Features of the reference engine that later port slices bring (seeded and
-custom sampling, encoder inputs, speculative decode, KV and weight
-quantization, the device mesh, prefill-only disaggregation) raise
-``NotImplementedError`` here instead of being ignored.
+custom sampling, encoder inputs, speculative decode, the device mesh,
+prefill-only disaggregation) raise ``NotImplementedError`` here instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ import torch
 from repro_torch.core.runtime import ThreadFarmExecutor
 from repro_torch.models.module import resolve_device, tree_leaves
 from repro_torch.serve import pages as PG
+from repro_torch.serve import quant as QZ
 from repro_torch.serve.pages import PagePool
 from repro_torch.serve.sampling import greedy
 from repro_torch.serve.scheduler import Scheduler
@@ -98,7 +102,8 @@ class ServeEngine:
     """Continuous-batching engine on one device (``cuda`` unless ``device``
     names another): paged unless ``paged=False``; see the module
     docstring.  ``prefill_workers`` sizes the dense path's prefill farm
-    (a paged engine has none)."""
+    (a paged engine has none).  ``kv_quant`` / ``weight_quant``: "int8" or
+    "off" (paged only)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -111,10 +116,6 @@ class ServeEngine:
                     "seeded sampling"),
                    (spec_decode not in (None, "off", False), "spec_decode",
                     "speculative decode"),
-                   (kv_quant not in (None, "off", False), "kv_quant",
-                    "int8 KV and weight quant"),
-                   (weight_quant not in (None, "off", False), "weight_quant",
-                    "int8 KV and weight quant"),
                    (mesh is not None, "a device mesh", "MoE with TP/EP"),
                    (bool(prefill_only), "prefill_only",
                     "traffic, metrics and disagg")]
@@ -126,18 +127,48 @@ class ServeEngine:
         if self.paged and not model.supports_paged_decode():
             raise _not_ported(f"{model.cfg.name} without a paged KV cache",
                               "non-paged families")
+        # int8 KV pages live in the pool, as scale leaves beside the pages;
+        # int8 weights are wired through the paged calls only
+        self.kv_quant = QZ.make_kv_quant(kv_quant)
+        if self.kv_quant is not None and not self.paged:
+            raise ValueError(
+                f"kv_quant={getattr(self.kv_quant, 'name', kv_quant)!r} "
+                f"requires the paged KV engine: {model.cfg.name} "
+                f"({model.cfg.family}) "
+                + ("was constructed with paged=False"
+                   if model.supports_paged_decode() else
+                   "has no paged KV cache to quantize")
+                + "; drop the flag or use a paged family")
+        if weight_quant in (None, "off", False):
+            self.weight_quant = None
+        elif weight_quant == "int8":
+            if not self.paged:
+                raise ValueError(
+                    "weight_quant='int8' is wired through the paged serving "
+                    "path only; drop the flag or use a paged family")
+            self.weight_quant = "int8"
+        else:
+            raise ValueError(
+                f"unknown weight_quant {weight_quant!r}; want 'int8' or "
+                "'off'")
         self.device = resolve_device(device)
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params lie on {leaf.device}, the engine "
                                  f"runs on {self.device}")
+        # the model calls get the KV policy only when one is on, so an
+        # engine without it makes the calls it always made
+        self._paged_kw = {} if self.kv_quant is None \
+            else {"quant": self.kv_quant}
+        if self.weight_quant:       # a tree quantized at init stays as it is
+            params = QZ.quantize_params(params)
         self.model, self.params = model, params
         self.max_slots, self.max_len = max_slots, max_len
         self.prefix_cache = bool(prefix_cache) and self.paged
         if self.paged:
             if num_pages is None:       # dense-equivalent budget by default
                 num_pages = -(-max_slots * max_len // page_size)
-            self.pool = PagePool(model.paged_leaf_specs(),
+            self.pool = PagePool(model.paged_leaf_specs(self.kv_quant),
                                  num_pages=num_pages, page_size=page_size,
                                  device=self.device,
                                  prefix_cache=self.prefix_cache)
@@ -158,7 +189,12 @@ class ServeEngine:
         self.stats = {"ticks": 0, "tokens": 0, "prefills": 0,
                       "chunk_prefills": 0, "preemptions": 0,
                       "prefix_hits": 0, "prefix_hit_tokens": 0,
-                      "cow_copies": 0, "evictions": 0, "pages_high_water": 0}
+                      "cow_copies": 0, "evictions": 0, "pages_high_water": 0,
+                      "kv_quant": self.kv_quant.name if self.kv_quant
+                      else "off",
+                      "weight_quant": self.weight_quant or "off",
+                      "kv_bytes_per_token": QZ.kv_bytes_per_token(
+                          self.pool.leaf_specs) if self.paged else 0}
 
     def _dev(self, a) -> torch.Tensor:
         """A host array as a fresh tensor on the engine's device."""
@@ -255,7 +291,7 @@ class ServeEngine:
         hidden = self.model.paged_prefill_chunk(
             self.params, self.pool.storage,
             self._dev(self.sched.table[job.slot]), self._dev(job.pages),
-            job.start, self._dev(job.tokens[None]))
+            job.start, self._dev(job.tokens[None]), **self._paged_kw)
         self.sched.chunk_done(job)
         self.stats["chunk_prefills"] += 1
         if not job.is_last:
@@ -314,7 +350,8 @@ class ServeEngine:
                 logits = self.model.paged_decode_step(
                     self.params, self.pool.storage,
                     self._dev(self.sched.table), self._dev(lens),
-                    self._dev(toks), self._dev(wpages), self._dev(woffs))
+                    self._dev(toks), self._dev(wpages), self._dev(woffs),
+                    **self._paged_kw)
                 self._commit_decode(live, logits)
             except BaseException:
                 # engine-level failure: the in-place writes may have touched

@@ -15,6 +15,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops, ref
 from repro_torch.models.api import build_model
 from repro_torch.models.module import tree_map
+from repro_torch.serve import quant as QZ
 from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.gpu
@@ -75,6 +76,85 @@ def test_paged_attention_kernel_matches_plain(card, dtype, Hq, Hkv, W, B):
                                rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
     if B > 1:
         assert not got[-1, 0].any()                # dead slot: zero row 0
+
+
+def _int8_case(rng, card, dtype, B, W, Hq, Hkv, D, ps=16, N=40, P=8):
+    """The float case's q, tables and lengths with int8 pages: normal K/V
+    quantized per (row, head), the trash page (the last) all zero codes and
+    zero scales, as in a fresh pool."""
+    q, kp, vp, tb, ln = (torch.from_numpy(a).to(card) for a in _paged_case(
+        rng, B, W, Hq, Hkv, D, ps, N, P, dead_slot=B > 1))
+    kq, ks = QZ.Int8KVQuant().quantize(kp)
+    vq, vs = QZ.Int8KVQuant().quantize(vp)
+    for t in (kq, ks, vq, vs):
+        t[-1] = 0
+    return q.to(DTYPES[dtype]), kq, vq, tb, ln, ks, vs
+
+
+# (Hq, Hkv, D, W, B): qwen2-7b's heads and the SMOKE configs', at decode,
+# a verify width and a prefill chunk
+INT8_CASES = [(28, 4, 128, 1, 4), (28, 4, 128, 4, 4), (28, 4, 128, 64, 1),
+              (4, 2, 16, 1, 3), (4, 2, 16, 4, 3), (4, 2, 16, 64, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,D,W,B", INT8_CASES)
+def test_paged_attention_int8_kernel_matches_plain(card, dtype, Hq, Hkv, D,
+                                                   W, B):
+    rng = np.random.default_rng(Hq + D + W + B)
+    q, kq, vq, tb, ln, ks, vs = _int8_case(rng, card, dtype, B, W, Hq, Hkv, D)
+    ops.reset_counts()
+    got = ops.paged_attention_mq(q, kq, vq, tb, ln, ks, vs)
+    torch.cuda.synchronize()
+    assert ops.COUNTS["paged_attention_mq_int8"].kernel == 1
+    want = ref.paged_attention_mq(q, kq, vq, tb, ln, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    if B > 1:
+        assert not got[-1, 0].any()                # dead slot: zero row 0
+
+
+def test_paged_attention_int8_wrapper_refuses_bad_scales(card):
+    from repro_torch.kernels.paged_attention import paged_attention_mq_cuda
+    rng = np.random.default_rng(9)
+    q, kq, vq, tb, ln, ks, vs = _int8_case(rng, card, "bfloat16", 2, 1, 8, 2,
+                                           128)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        paged_attention_mq_cuda(q, kq, vq, tb, ln, ks, None)
+    with pytest.raises(TypeError, match="want float32"):
+        paged_attention_mq_cuda(q, kq, vq, tb, ln, ks.bfloat16(), vs)
+    with pytest.raises(TypeError, match="int8 pages with k_scale"):
+        paged_attention_mq_cuda(q, kq, vq, tb, ln)          # no scales at all
+    q, kq, vq, tb, ln, ks, vs = _int8_case(rng, card, "bfloat16", 2, 1, 8, 2,
+                                           24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        paged_attention_mq_cuda(q, kq, vq, tb, ln, ks, vs)
+
+
+def test_int8_engine_on_card_matches_cpu(card):
+    """SMOKE qwen2-7b in float32 with int8 KV pages and int8 weights: the
+    card's engine runs the int8 kernel, never a plain version, and emits
+    the CPU engine's greedy streams."""
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40))]
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        eng = ServeEngine(model, params, max_slots=3, max_len=128,
+                          page_size=16, prefill_chunk=16, device=device,
+                          kv_quant="int8", weight_quant="int8")
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        return {r.rid: r.output for r in eng.run_until_drained()}
+
+    want = serve("cpu")
+    ops.reset_counts()
+    got = serve(card)
+    assert ops.COUNTS["paged_attention_mq_int8"].kernel > 0
+    assert ops.COUNTS["paged_attention_mq"].kernel == 0
+    assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
+    assert got == want
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): causal, window, MQA/GQA/MHA,

@@ -38,7 +38,8 @@ def test_port_runs_without_loading_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.bridge, repro_torch.launch.serve\n"
             "import repro_torch.serve.engine, repro_torch.kernels.ref\n"
-            "import repro_torch.core.runtime\n"
+            "import repro_torch.core.runtime, repro_torch.optim.compress\n"
+            "import repro_torch.serve.quant\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -115,6 +115,64 @@ def test_paged_attention_plain_trash_page_isolated():
     np.testing.assert_array_equal(_np(base), _np(got))
 
 
+def _int8_pages(rng, N, ps, Hkv, D):
+    """int8 codes and positive float32 scales of one (N, ps, Hkv) page pool
+    whose last page (the trash page) has zero codes and zero scales, as a
+    fresh pool's."""
+    codes = rng.integers(-127, 128, size=(N, ps, Hkv, D)).astype(np.int8)
+    scale = rng.uniform(0.001, 0.05, size=(N, ps, Hkv)).astype(np.float32)
+    codes[-1], scale[-1] = 0, 0.0
+    return codes, scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W", [1, 4, 16])
+def test_paged_attention_int8_plain_matches_reference(W, dtype):
+    """int8 pages with per-(row, head) scales: the port's plain version
+    against the reference's oracle and its interpret-mode kernel, ragged
+    lengths and a dead slot whose rows are zero."""
+    rng = np.random.default_rng(20 + W)
+    B, Hq, Hkv, D, ps, N, P = 3, 8, 2, 16, 8, 12, 4
+    q = rng.normal(size=(B, W, Hq, D)).astype(np.float32)
+    kc, ks = _int8_pages(rng, N, ps, Hkv, D)
+    vc, vs = _int8_pages(rng, N, ps, Hkv, D)
+    tables = rng.integers(0, N - 1, size=(B, P)).astype(np.int32)
+    lens = np.array([P * ps - W + 1, 9, 0], np.int32)
+    tables[-1] = N - 1                          # dead slot: the trash page
+    qj, qt = _pair(q, dtype)
+    got = ref.paged_attention_mq(
+        qt, torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(tables), torch.from_numpy(lens),
+        torch.from_numpy(ks), torch.from_numpy(vs))
+    args = (jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(tables),
+            jnp.asarray(lens), jnp.asarray(ks), jnp.asarray(vs))
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    assert got.dtype == qt.dtype
+    for want in (jref.paged_attention_mq(qj, *args),
+                 jops.paged_attention_mq(qj, *args)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    assert not got[-1].any()                   # dead slot: every row zero
+
+
+def test_paged_attention_int8_wrapper_routes_and_counts():
+    """The counted wrapper takes int8 pages on the CPU route to the plain
+    version, counts them under their own name, and refuses one scale
+    without the other."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 16)).astype(np.float32))
+    kc, ks = (torch.from_numpy(a) for a in _int8_pages(rng, 5, 8, 2, 16))
+    tb = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    ln = torch.tensor([9, 3], dtype=torch.int32)
+    ops.reset_counts()
+    out = ops.paged_attention_mq(q, kc, kc, tb, ln, ks, ks)
+    assert ops.COUNTS["paged_attention_mq_int8"].plain == 1
+    assert ops.COUNTS["paged_attention_mq"].plain == 0
+    torch.testing.assert_close(out, ref.paged_attention_mq(q, kc, kc, tb, ln,
+                                                           ks, ks))
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        ops.paged_attention_mq(q, kc, kc, tb, ln, ks, None)
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------

@@ -16,12 +16,14 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.models.api import build_model as jax_build_model
+from repro.serve import quant as JQ
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import smoke_config
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.api import build_model
+from repro_torch.serve import quant as QZ
 
 ATOL = 1e-4          # float32 on both sides; only summation order differs
 PS, N_PAGES, P = 8, 10, 6       # page size, pool pages (+1 trash), table width
@@ -109,6 +111,101 @@ def test_paged_prefill_then_decode_match_reference(models, use_pallas):
         _close(tlog[:1], jlog[:1], f"decode logits step {step}")
         for leaf in ("k", "v"):
             _close(tst[leaf], jst[leaf], f"decode {leaf} step {step}")
+        tok = np.array([[int(np.argmax(np.asarray(jlog)[0, 0]))], [0]],
+                       np.int32)
+
+
+def _int8_storage_pair(cfg):
+    shape = (cfg.n_layers, N_PAGES + 1, PS, cfg.n_kv_heads, cfg.head_dim)
+    jst = {"k": jnp.zeros(shape, jnp.int8), "v": jnp.zeros(shape, jnp.int8),
+           "k_scale": jnp.zeros(shape[:-1], jnp.float32),
+           "v_scale": jnp.zeros(shape[:-1], jnp.float32)}
+    tst = {k: torch.zeros(v.shape, dtype=getattr(torch, str(v.dtype)))
+           for k, v in jst.items()}
+    return jst, tst
+
+
+# K/V computed in another summation order can land on the other side of an
+# int8 rounding boundary: the share of codes one step apart is limited
+# (measured on the CPU: at most 1.8e-4, one V code of 5632, in one call;
+# 0 in the others), and a flipped code moves the later logits by up to
+# 4.2e-4, so int8 logits get a wider limit than ATOL
+CODE_FLIP_LIMIT = 1e-3
+INT8_ATOL = 1e-3
+
+
+def _close_int8_storage(tst, jst, what):
+    """Scales allclose at rtol 1e-5, codes within one step everywhere and
+    rarely apart at all."""
+    for leaf in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(tst[leaf].numpy(), np.asarray(jst[leaf]),
+                                   rtol=1e-5, atol=0, err_msg=f"{what} {leaf}")
+    for leaf in ("k", "v"):
+        d = np.abs(tst[leaf].numpy().astype(np.int32)
+                   - np.asarray(jst[leaf]).astype(np.int32))
+        assert d.max() <= 1, f"{what} {leaf}: codes {d.max()} apart"
+        share = float((d > 0).mean())
+        assert share <= CODE_FLIP_LIMIT, f"{what} {leaf}: {share} differ"
+
+
+@pytest.mark.parametrize("weights", ["float", "int8"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_paged_int8_calls_match_reference(models, use_pallas, weights):
+    """int8 KV pages (and int8 weights): two prefill chunks and three decode
+    steps with a dead slot, as in the float test above, against the
+    reference with its int8 policy; the reference's weights dequantized as
+    its engine does, the port's passed quantized."""
+    jcfg, np_params, model, params = models
+    jcfg = jcfg.replace(use_pallas=use_pallas)
+    jmodel = jax_build_model(jcfg)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    if weights == "int8":
+        jparams = JQ.dequantize_params(JQ.quantize_params(jparams))
+        params = QZ.quantize_params(params)
+    jq, tq = JQ.make_kv_quant("int8"), QZ.make_kv_quant("int8")
+    rng = np.random.default_rng(8)
+    jst, tst = _int8_storage_pair(jcfg)
+    table = np.array([3, 1, 5, 0, 6, 2], np.int32)
+    prompt = rng.integers(0, jcfg.vocab, 27).astype(np.int32)
+    C = 2 * PS
+    for start in (0, C):
+        toks = np.zeros((1, C), np.int32)
+        valid = min(C, len(prompt) - start)
+        toks[0, :valid] = prompt[start:start + valid]
+        pages = table[start // PS:(start + C) // PS]
+        jst, jh, _ = jmodel.paged_prefill_chunk(
+            jparams, jst, jnp.asarray(table), jnp.asarray(pages),
+            np.int32(start), jnp.asarray(toks), None, use_pallas=use_pallas,
+            quant=jq)
+        th = model.paged_prefill_chunk(
+            params, tst, torch.from_numpy(table), torch.from_numpy(pages),
+            start, torch.from_numpy(toks), quant=tq)
+        np.testing.assert_allclose(
+            model.lm_head(params, th).numpy(),
+            np.asarray(jmodel.lm_head(jparams, jh, None)), rtol=0,
+            atol=INT8_ATOL, err_msg=f"prefill logits @ {start}")
+        _close_int8_storage(tst, jst, f"prefill @ {start}")
+
+    tables = np.stack([table, np.zeros_like(table)])
+    tok = np.array([[int(prompt[-1])], [0]], np.int32)
+    for step in range(3):
+        ln = len(prompt) + step
+        lengths = np.array([ln, 0], np.int32)
+        wpages = np.array([table[ln // PS], N_PAGES], np.int32)
+        woffs = np.array([ln % PS, 0], np.int32)
+        jst, jlog, _ = jmodel.paged_decode_step(
+            jparams, jst, jnp.asarray(tables), jnp.asarray(lengths),
+            jnp.asarray(tok), jnp.asarray(wpages), jnp.asarray(woffs), None,
+            use_pallas=use_pallas, quant=jq)
+        tlog = model.paged_decode_step(
+            params, tst, torch.from_numpy(tables), torch.from_numpy(lengths),
+            torch.from_numpy(tok), torch.from_numpy(wpages),
+            torch.from_numpy(woffs), quant=tq)
+        assert tlog.dtype == torch.float32 and tlog.shape == jlog.shape
+        np.testing.assert_allclose(tlog[:1].numpy(), np.asarray(jlog)[:1],
+                                   rtol=0, atol=INT8_ATOL,
+                                   err_msg=f"decode logits step {step}")
+        _close_int8_storage(tst, jst, f"decode step {step}")
         tok = np.array([[int(np.argmax(np.asarray(jlog)[0, 0]))], [0]],
                        np.int32)
 

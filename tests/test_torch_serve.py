@@ -187,8 +187,7 @@ def test_entry_points_need_a_card_unless_told_cpu(pair):
 
 @pytest.mark.parametrize("kw", [dict(sampler=lambda k, l: 0),
                                 dict(spec_decode="ngram"),
-                                dict(kv_quant="int8"),
-                                dict(weight_quant="int8"), dict(mesh=object()),
+                                dict(mesh=object()),
                                 dict(prefill_only=True)])
 def test_unported_engine_features_raise(pair, kw):
     _, _, model, params = pair
@@ -203,6 +202,75 @@ def test_unported_request_features_raise(pair, kw):
     eng = ServeEngine(model, params, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         eng.submit([1, 2, 3], **kw)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pages and int8 weights
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("prefix_cache", [True, False])
+def test_int8_streams_match_reference(pair, prefix_cache):
+    """kv_quant="int8": the port's greedy streams equal the reference's
+    int8 streams, over a shared-prefix set (prefix hits and a full-prompt
+    replay with the cache on)."""
+    got, want, s_got, s_want = _both(pair, WAVES, max_new=12, max_slots=2,
+                                     max_len=128, prefix_cache=prefix_cache,
+                                     kv_quant="int8")
+    assert got == want
+    for k in ("ticks", "chunk_prefills", "prefix_hits", "cow_copies",
+              "pages_high_water", "kv_quant", "kv_bytes_per_token"):
+        assert s_got[k] == s_want[k], k
+    assert s_got["kv_quant"] == "int8"
+
+
+def test_int8_streams_match_reference_under_forced_preemption(pair):
+    got, want, s_got, _ = _both(pair, [PREEMPT_PROMPTS], max_new=30,
+                                max_slots=2, max_len=64, num_pages=4,
+                                kv_quant="int8")
+    assert got == want
+    assert s_got["preemptions"] >= 1
+
+
+def test_int8_weight_streams_match_reference(pair):
+    """weight_quant="int8" with kv_quant="int8": the port's per-layer
+    dequantization gives the reference's whole-tree streams."""
+    got, want, s_got, s_want = _both(pair, [PROMPTS], max_slots=3,
+                                     max_len=128, kv_quant="int8",
+                                     weight_quant="int8")
+    assert got == want
+    assert s_got["weight_quant"] == s_want["weight_quant"] == "int8"
+
+
+def test_quant_flags_validated(pair):
+    _, _, model, params = pair
+    with pytest.raises(ValueError, match="kv_quant='int8' requires the paged"):
+        ServeEngine(model, params, device="cpu", paged=False, kv_quant="int8")
+    with pytest.raises(ValueError, match="unknown kv_quant"):
+        ServeEngine(model, params, device="cpu", kv_quant="fp4")
+    with pytest.raises(ValueError, match="paged serving path only"):
+        ServeEngine(model, params, device="cpu", paged=False,
+                    weight_quant="int8")
+    with pytest.raises(ValueError, match="unknown weight_quant"):
+        ServeEngine(model, params, device="cpu", weight_quant="int4")
+    eng = ServeEngine(model, params, device="cpu", kv_quant="off",
+                      weight_quant="off")
+    assert (eng.stats["kv_quant"], eng.stats["weight_quant"]) == ("off", "off")
+    assert eng.pool.storage["k"].dtype == torch.float32
+
+
+def test_launcher_serves_int8_on_cpu(capsys):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    eng = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                             "--max-new", "4", "--kv-quant", "int8",
+                             "--weight-quant", "int8"])
+    out = capsys.readouterr().out
+    assert "quant(kv=int8, w=int8, 160 KV B/tok)" in out
+    assert "kv_bytes_per_token=160" in out
+    assert len(eng.finished) == 3
+    assert all(len(r.output) == 4 for r in eng.finished)
+    assert ops.COUNTS["paged_attention_mq_int8"].plain > 0
+    assert ops.COUNTS["paged_attention_mq"].plain == 0
 
 
 # ---------------------------------------------------------------------------
