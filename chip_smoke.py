@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the result lines):
                  limit.
 2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all at once) and prints what ptxas
-                 reports of the flash-attention kernels' and the D-128
-                 paged-attention kernels' registers and spills.
+                 reports of the flash-attention kernels', the D-128
+                 paged-attention kernels' and the K-64 wkv kernels'
+                 registers and spills.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them.
 4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
@@ -58,6 +59,25 @@ Phases (any failure exits non-zero before the result lines):
                  1 and 4 prefill-farm workers.
 11. step-dense — one dense decode step (4 slots, max_len 2048) and one
                  bucket-1024 prefill, host-issued and as device time.
+12. small-rwkv — the SMOKE rwkv6-3b engine (float32) on the card emits the
+                 same greedy streams as on the CPU.
+13. main-rwkv  — full-width, full-depth rwkv6-3b (32 layers, bf16, seeded
+                 random weights, the float32 leaves in float32) through
+                 the launcher, which picks the dense path by itself: 8
+                 requests of 964-1007 tokens (bucket 1024), 32 new tokens
+                 each; every request must finish with 32 in-vocab tokens,
+                 the wkv kernel must launch exactly 32 times a prefill or
+                 decode step, and no other kernel and no plain version may
+                 run.  Then, in float32 on the same weights, one prompt's
+                 prefill through the kernel and through its plain version:
+                 layer 0's final wkv state is gated (every layer's gap
+                 printed).  Prints the peak device memory, wall tok/s and
+                 mean TTFT.
+14. step-rwkv  — one 4-slot rwkv decode step and one bucket-1024 prefill,
+                 host-issued and as device time, with the card's idle
+                 share; the wkv kernel timed at the prefill and decode
+                 shapes (kernel, plain, bound, and a composite yardstick:
+                 the reference's chunked matmul form written in torch).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -99,6 +119,19 @@ TOL = {"rmsnorm": {torch.float32: 2e-4, torch.bfloat16: 2e-2},
 # kernel against one through its plain version, max |dK| over max |K|
 # (layer 0's K precedes any attention)
 K_GAP_TOL = 1e-3
+# the wkv kernel against its plain version: both compute in float32 from
+# the same inputs (bf16 r, k, v widened exactly) and differ in summation
+# order only; max |d| over max(1, max |plain|).  main-rwkv's layer-0 wkv
+# state is the same function at the parity phase's full-width prefill
+# shape, so it is gated at the same limit.
+RWKV_REL = 1e-5
+# (B, S, H, K, V): the reference's three cases (K != V in the third), a
+# ragged length, and rwkv6-3b's full-width prefill and decode shapes
+RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
+              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64)]
+RWKV_ARGS = ["--arch", "rwkv6-3b", "--requests", "8", "--max-new", "32",
+             "--slots", "4", "--max-len", "2048", "--shared-prefix", "960",
+             "--device", "cuda"]
 FARM_WORKERS = (1, 4, 1, 4)        # main-dense's farm sizes, alternated
 PS = 16                            # the main path's page size
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
@@ -849,6 +882,273 @@ def phase_step_dense(eng, times) -> None:
         f"ms")
 
 
+# -- rwkv6: the dense path of a recurrent family, kernel B4 --------------------
+
+def rwkv_case(rng, dev, dtype, B, S, H, K, V):
+    """r, k, v in ``dtype``; a decay spanning about e^-20 to 1, as
+    exp(-exp(x)) with x ~ N(0, 1) gives it at full width; u and a nonzero
+    initial state (float32)."""
+    f = np.float32
+    r, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, C)).astype(f))
+               .to(dev, dtype) for C in (K, K, V))
+    w = torch.from_numpy(np.exp(-np.exp(rng.normal(size=(B, S, H, K))))
+                         .astype(f)).to(dev)
+    u = torch.from_numpy(rng.normal(size=(H, K)).astype(f)).to(dev)
+    s0 = torch.from_numpy(rng.normal(size=(B, H, K, V)).astype(f)).to(dev)
+    return r, k, v, w, u, s0
+
+
+def rel_gap(got, want) -> tuple[float, float]:
+    """(max |d|, max |d| / max(1, max |want|))."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def phase_parity_rwkv(dev) -> dict:
+    """The wkv kernel against its plain version at RWKV_CASES, r/k/v in
+    bf16 and float32, from a nonzero state written in place (the decode
+    step's use) and from zeros.  Max abs and relative errors by dtype."""
+    rng = np.random.default_rng(4)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        for B, S, H, K, V in RWKV_CASES:
+            r, k, v, w, u, s0 = rwkv_case(rng, dev, dtype, B, S, H, K, V)
+            want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0)
+            zero_y, zero_s = ref.rwkv6_scan(r, k, v, w, u)
+            state = s0.clone()
+            y, st = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
+            y0, st0 = ops.rwkv6_scan(r, k, v, w, u)
+            torch.cuda.synchronize()
+            if st is not state:
+                raise AssertionError("rwkv6_scan: state not written in place")
+            for what, got, want in (("y", y, want_y), ("state", state, want_s),
+                                    ("y0", y0, zero_y), ("state0", st0, zero_s)):
+                err, rel = rel_gap(got, want)
+                if not rel <= RWKV_REL:
+                    raise AssertionError(
+                        f"rwkv6_scan B={B} S={S} H={H} K={K} V={V} {dtype} "
+                        f"{what}: kernel disagrees with plain version (max "
+                        f"abs err {err}, relative {rel}, limit {RWKV_REL})")
+                a, b = errs.get(key, (0.0, 0.0))
+                errs[key] = (max(a, err), max(b, rel))
+    log(f"parity ok: {2 * len(RWKV_CASES)} rwkv6_scan cases (each from a "
+        f"state in place and from zeros), limit max|d| <= {RWKV_REL} x "
+        f"max(1, max|plain|); (max abs err, max relative) by r/k/v dtype "
+        f"{errs}")
+    return errs
+
+
+def phase_small_rwkv(dev) -> None:
+    model = build_model(smoke_config("rwkv6-3b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40)),
+               [1, 2]]
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        with ServeEngine(model, params, max_slots=3, max_len=128,
+                         device=device) as eng:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            return {r.rid: r.output for r in eng.run_until_drained()}
+
+    want, got = serve("cpu"), serve(dev)
+    if got != want:
+        raise AssertionError(f"SMOKE rwkv6-3b engine on the card {got} != "
+                             f"CPU {want}")
+    log("small input, rwkv: card streams == CPU streams (SMOKE rwkv6-3b, "
+        "float32, dense path picked by itself)")
+
+
+def phase_main_rwkv():
+    """Full-width rwkv6-3b through the launcher, counts from 0: served,
+    through the wkv kernel only, 32 launches a prefill or decode step;
+    then the float32 prefill gaps between the kernel and its plain
+    version."""
+    args = launch_serve.parse_args(RWKV_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng = launch_serve.main(RWKV_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, done, s = eng.model.cfg, eng.finished, eng.stats
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+    if eng.paged or not all(964 <= len(p) <= 1007 for p in prompts):
+        raise AssertionError(f"main-rwkv: paged={eng.paged}, prompt lengths "
+                             f"{[len(p) for p in prompts]}")
+    if len(done) != 8 or any(r.error is not None for r in done):
+        raise AssertionError(f"main-rwkv: {len(done)} finished, errors "
+                             f"{[r.error for r in done if r.error]}")
+    for r in done:
+        if len(r.output) != 32 or not all(0 <= t < cfg.vocab for t in r.output):
+            raise AssertionError(f"main-rwkv request {r.rid}: bad output "
+                                 f"{r.output}")
+    steps = s["prefills"] + s["ticks"]
+    want = {k: (cfg.n_layers * steps if k == "rwkv6_scan" else 0, 0)
+            for k in counts}
+    if s["prefills"] != 8 or counts != want:
+        raise AssertionError(f"main-rwkv: {s['prefills']} prefills, "
+                             f"{s['ticks']} decode steps, launches {counts}, "
+                             f"want {want}")
+    gaps = rwkv_prefill_gaps(eng, prompts[0])
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(eng.params))
+    toks = sum(len(r.output) for r in done)
+    ttft = float(np.mean([r.first_token_at - r.submitted_at for r in done]))
+    log(f"main-rwkv: rwkv6-3b {cfg.n_layers} layers {cfg.dtype}, {len(done)} "
+        f"requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"prompt tokens (bucket 1024), {toks} tokens, {toks / wall:.1f} tok/s "
+        f"wall (init included: {wall:.2f}s), mean TTFT {ttft * 1e3:.2f} ms, "
+        f"ticks={s['ticks']} prefills={s['prefills']}, {weights} B of "
+        f"weights, max_memory_allocated={peak} B; launches {counts} "
+        f"({cfg.n_layers} x {steps} prefills and decode steps)")
+    log("main-rwkv, float32, one prompt of "
+        f"{len(prompts[0])} tokens (bucket 1024): wkv kernel vs plain "
+        "version, final wkv state max|dS| / max|S| by layer: "
+        + " ".join(f"{g:.2e}" for g in gaps)
+        + f" (layer 0 gated at {RWKV_REL})")
+    return counts["rwkv6_scan"][0], eng
+
+
+def rwkv_prefill_gaps(eng, prompt) -> list[float]:
+    """Per-layer max|dS| / max|S| of the final wkv state between a float32
+    prefill of ``prompt`` (bucket-padded, as the engine pads it) through
+    the kernel and one through its plain version, on ``eng``'s weights;
+    raises if layer 0 exceeds RWKV_REL."""
+    model = build_model(eng.model.cfg.replace(dtype="float32"))
+    params = tree_map(lambda t: t.float(), eng.params)
+    toks = np.zeros((1, 1024), np.int32)
+    toks[0, :len(prompt)] = prompt
+    toks = torch.tensor(toks, device=eng.device)
+    kernel_s = model.prefill(params, toks)[0]["wkv"][:, 0]
+    launch = ops.rwkv6_scan
+    ops.rwkv6_scan = ref.rwkv6_scan                  # the same call, plain
+    try:
+        plain_s = model.prefill(params, toks)[0]["wkv"][:, 0]
+    finally:
+        ops.rwkv6_scan = launch
+    gaps = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(kernel_s, plain_s)]
+    del params, kernel_s, plain_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not gaps[0] <= RWKV_REL:
+        raise AssertionError(f"main-rwkv: layer-0 wkv state of the kernel's "
+                             f"prefill is {gaps[0]} (relative) from the plain "
+                             f"version's, limit {RWKV_REL}")
+    return gaps
+
+
+def wkv_chunked(r, k, v, w, u, state, chunk: int = 32):
+    """Composite yardstick, timed only: the reference's chunked matmul form
+    of the recurrence (``repro/models/rwkv6.py:_wkv_chunked``) in torch,
+    float32.  Its ``exp(-cumsum(log w))`` overflows where a chunk's decays
+    multiply below about e^-88, as the full-width decay range allows, so
+    its values are not compared."""
+    B, S, H, K = r.shape
+    nc = S // chunk
+
+    def chunks(t):                              # (B, S, H, C) -> (nc, B, Q, H, C)
+        return t.float().reshape(B, nc, chunk, H, t.shape[-1]).transpose(0, 1)
+
+    rc, kc, vc = chunks(r), chunks(k), chunks(v)
+    lw = chunks(torch.log(torch.clamp(w, min=1e-30)))
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=r.device), -1)
+    ys = []
+    for c in range(nc):
+        r_, k_, v_, lw_ = rc[c], kc[c], vc[c], lw[c]
+        cs = torch.cumsum(lw_, dim=1)
+        r_t = r_ * torch.exp(cs - lw_)
+        k_t = k_ * torch.exp(-cs)
+        A = torch.einsum("bqhk,bjhk->bhqj", r_t, k_t).masked_fill(~mask, 0.0)
+        diag = torch.einsum("bqhk,bqhk->bqh", r_ * u, k_)
+        y = torch.einsum("bhqj,bjhv->bqhv", A, v_) + diag[..., None] * v_
+        ys.append(y + torch.einsum("bqhk,bhkv->bqhv", r_t, state))
+        k_end = k_ * torch.exp(cs[:, -1:] - cs)
+        state = state * torch.exp(cs[:, -1])[..., None] \
+            + torch.einsum("bqhk,bqhv->bhkv", k_end, v_)
+    return torch.stack(ys, 1).reshape(B, S, H, -1), state
+
+
+def wkv_cost(B, S, H, K, V, rkv_bytes) -> tuple[int, int]:
+    """(bytes, operations) of one wkv call: r, k, v read once in their
+    dtype, w and y float32, u, the state read and written; 5 flops a state
+    element and step (y += r S; S = w S + k v) plus 2K + 2V for the bonus
+    term r . (u o k) v."""
+    nbytes = (B * S * H * (2 * K + V) * rkv_bytes + B * S * H * K * 4
+              + B * S * H * V * 4 + H * K * 4 + 2 * B * H * K * V * 4)
+    return nbytes, B * S * H * (5 * K * V + 2 * K + 2 * V)
+
+
+def phase_timing_rwkv(dev) -> dict:
+    """The wkv kernel, its plain version and the composite yardstick at the
+    main-rwkv prefill shape (B 1, S 1024, H 40, K = V 64, bf16 r/k/v), and
+    kernel and plain at the decode shape (B 4, S 1), one state per layer
+    (32 states: more than the 50 MB L2), as device time."""
+    cfg = get_config("rwkv6-3b")
+    H, K = cfg.rwkv_heads, cfg.rwkv_head_dim
+    rng = np.random.default_rng(5)
+    r, k, v, w, u, s0 = rwkv_case(rng, dev, torch.bfloat16, 1, 1024, H, K, K)
+    t = {"kernel": device_ms([lambda: ops.rwkv6_scan(r, k, v, w, u, s0)] * 4),
+         "plain": device_ms([lambda: ref.rwkv6_scan(r, k, v, w, u, s0)],
+                            reps=5),
+         "composite": device_ms([lambda: wkv_chunked(r, k, v, w, u, s0)] * 4)}
+    eager = time_ms(lambda: ops.rwkv6_scan(r, k, v, w, u, s0))
+    b_ms, b_by = bound(*wkv_cost(1, 1024, H, K, K, 2), torch.float32)
+    shape = f"prefill B=1 S=1024 H={H} K=V={K} r/k/v bf16"
+    log(f"timing rwkv6_scan [{shape}]: device kernel {t['kernel']:.5f} ms, "
+        f"plain {t['plain']:.5f} ms, composite (chunked torch) "
+        f"{t['composite']:.5f} ms, bound {b_ms:.6f} ms ({b_by}); host-issued "
+        f"kernel {eager:.5f} ms")
+    layers = [rwkv_case(rng, dev, torch.bfloat16, 4, 1, H, K, K)
+              for _ in range(cfg.n_layers)]
+    d = {"kernel": device_ms([lambda a=a: ops.rwkv6_scan(*a[:5], a[5],
+                                                         out_state=a[5])
+                              for a in layers]),
+         "plain": device_ms([lambda a=a: ref.rwkv6_scan(*a[:5], a[5], a[5])
+                             for a in layers])}
+    db_ms, db_by = bound(*wkv_cost(4, 1, H, K, K, 2), torch.float32)
+    log(f"timing rwkv6_scan [decode B=4 S=1 H={H} K=V={K}, state in place]: "
+        f"device kernel {d['kernel']:.5f} ms, plain {d['plain']:.5f} ms, "
+        f"bound {db_ms:.6f} ms ({db_by})")
+    return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+                composite_ms=t["composite"], bound_ms=b_ms, bound_by=b_by,
+                shape=shape, decode_ms=d["kernel"], decode_plain_ms=d["plain"],
+                decode_bound_ms=db_ms)
+
+
+def phase_step_rwkv(eng, times) -> None:
+    """One rwkv decode step over the engine's 4 slots and one bucket-1024
+    prefill, host-issued and as device time, with the wkv kernel's share."""
+    model, params, state = eng.model, eng.params, eng.state
+    cfg, dev = model.cfg, eng.device
+    rng = np.random.default_rng(6)
+    B = eng.max_slots
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+                        device=dev)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 1024))
+                          .astype(np.int32), device=dev)
+    for name, fn in (
+            (f"rwkv decode step ({B} slots)",
+             lambda: model.decode_step(params, state, toks)),
+            ("rwkv prefill (bucket 1024)",
+             lambda: model.prefill(params, prompt))):
+        host = time_ms(fn, iters=10, warmup=2)
+        devt = device_ms([fn], reps=10)
+        log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
+            f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
+            f"time)")
+    log(f"rwkv: {cfg.n_layers} rwkv6_scan launches at their device times = "
+        f"{cfg.n_layers * times['decode_ms']:.3f} ms a decode step, "
+        f"{cfg.n_layers * times['ms']:.3f} ms a prefill")
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -859,6 +1159,8 @@ SOURCES = {
         "src/repro/kernels/paged_attention.py:171 (k_scale/v_scale)"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113"),
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:82"),
 }
 
 
@@ -883,12 +1185,16 @@ def main() -> int:
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in build.sources())})")
     # flash attention at every D; paged attention (float and int8 pages)
-    # at 4 accumulator columns a lane, D 97-128
+    # at 4 accumulator columns a lane, D 97-128; the wkv kernel at K 64
     for line in (ptxas_report("flash_attention_kernel")
-                 + ptxas_report("paged_attention_mq_kernel", "Li4E")):
+                 + ptxas_report("paged_attention_mq_kernel", "Li4E")
+                 + ptxas_report("rwkv6_scan_kernel", "ILi64E")):
         log(f"ptxas {line}")
     errs = phase_parity(dev)
+    rwkv_errs = phase_parity_rwkv(dev)
+    errs["rwkv6_scan"] = max(e for e, _ in rwkv_errs.values())
     phase_small(dev)
+    phase_small_rwkv(dev)
     launches, eng, bf16_peak = phase_main()
     # read before the step phase writes into the pool's pages
     prompt = launch_serve.make_prompts(launch_serve.parse_args(MAIN_ARGS),
@@ -908,6 +1214,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_launches, eng = phase_main_dense()
     phase_step_dense(eng, times)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["rwkv6_scan"], eng = phase_main_rwkv()
+    times["rwkv6_scan"] = phase_timing_rwkv(dev)
+    phase_step_rwkv(eng, times["rwkv6_scan"])
+    del eng
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
     launches["paged_attention_mq_int8"] = \
@@ -921,7 +1234,10 @@ def main() -> int:
             "max_abs_err": errs[name], "parity": "pass",
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "timed_shape": t["shape"]})
+            "library_ms": t["library_ms"], "timed_shape": t["shape"],
+            **{k: t[k] for k in ("composite_ms", "decode_ms",
+                                 "decode_plain_ms", "decode_bound_ms")
+               if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "flash_attention_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                                _i64, _i64, _i64, _i64, _i64, _i64,
                                _i64, _i64, _i64, _i, _i, _f, _i, _vp],
+    # r, k, v, w, u, state0 (null: zeros), y, out_state, B, S, H, K, V,
+    # r/k/v dtype, stream
+    "rwkv6_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
 }
 
 

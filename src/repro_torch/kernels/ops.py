@@ -16,6 +16,7 @@ import threading
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rwkv6_scan as _rw
 
 
 @dataclasses.dataclass
@@ -27,7 +28,7 @@ class LaunchCount:
 
 COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "paged_attention_mq_int8": LaunchCount(),
-          "flash_attention": LaunchCount()}
+          "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -96,3 +97,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
         return out
     _count("flash_attention", kernel=False)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
+    """The RWKV-6 wkv recurrence, r/k/w (B, S, H, K), v (B, S, H, V) ->
+    (y (B, S, H, V) float32, final state (B, H, K, V) float32); with
+    ``out_state`` the final state lands there in place (it may be
+    ``state0``); see :mod:`repro_torch.kernels.rwkv6_scan`."""
+    if _route(r, "rwkv6_scan"):
+        out = _rw.rwkv6_scan_cuda(r, k, v, w, u, state0, out_state)
+        _count("rwkv6_scan", kernel=True)
+        return out
+    _count("rwkv6_scan", kernel=False)
+    return _rw.rwkv6_scan_plain(r, k, v, w, u, state0, out_state)

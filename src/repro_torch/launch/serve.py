@@ -8,6 +8,8 @@ paged engine (``--kv-quant int8`` with int8 KV pages, ``--weight-quant
 int8`` with int8 weights, quantized as they are drawn); ``--dense`` serves
 through the dense per-slot path instead (whole-prompt prefills farmed over
 ``--prefill-workers`` threads);
+``--arch rwkv6-3b`` serves rwkv6 (a recurrent state per slot, no paged
+KV cache) on the dense path without ``--dense``;
 ``--smoke --device cpu`` runs the small config on the CPU through the
 kernels' plain versions.  Prints the reference launcher's summary lines
 plus each kernel's launch count.
@@ -36,7 +38,8 @@ def parse_args(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--dense", action="store_true",
-                    help="force the dense per-slot cache path")
+                    help="force the dense per-slot path (a family without "
+                    "a paged KV cache, such as rwkv6, takes it by itself)")
     ap.add_argument("--prefill-workers", type=int, default=4,
                     help="threads of the dense path's prefill farm")
     ap.add_argument("--page-size", type=int, default=16)

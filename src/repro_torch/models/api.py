@@ -1,23 +1,34 @@
-"""Model API of the port: :class:`DecoderLM` and :func:`build_model`.
+"""Model API of the port: :class:`DecoderLM`, :class:`RwkvLM` and
+:func:`build_model`.
 
-Counterpart of ``repro.models.api`` for the dense decoders' serving paths:
-paged (chunked prefill and decode against a page pool) and dense per-slot
-(whole-prompt prefill and decode against a per-slot cache).  The members
-are plain functions over dict-of-tensor params, which is all the serving
-engine calls.
+Counterpart of ``repro.models.api`` for the serving paths ported so far:
+the dense decoders paged (chunked prefill and decode against a page pool)
+and dense per-slot (whole-prompt prefill and decode against a per-slot
+cache), and rwkv6 on the dense per-slot path (a recurrent state per
+slot).  The members are plain functions over dict-of-tensor params, which
+is all the serving engine calls.
 """
 from __future__ import annotations
 
-__all__ = ["DecoderLM", "build_model"]
+__all__ = ["DecoderLM", "RwkvLM", "build_model"]
 
 from typing import Optional, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as T
 from repro_torch.models.module import (init_params, resolve_device,
                                        torch_dtype)
+
+
+def _generator(generator_or_seed, dev) -> torch.Generator:
+    if isinstance(generator_or_seed, torch.Generator):
+        return generator_or_seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(generator_or_seed))
+    return gen
 
 
 class DecoderLM:
@@ -44,18 +55,14 @@ class DecoderLM:
         ``quantize_params(init(...))``."""
         from repro_torch.serve.quant import quantize_params
         dev = resolve_device(device)
-        if isinstance(generator_or_seed, torch.Generator):
-            gen = generator_or_seed
-        else:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(generator_or_seed))
         dt = torch_dtype(self.cfg.dtype) if dtype is None else dtype
         if weight_quant not in (None, "off", "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r}; want "
                              "'int8' or 'off'")
         finish = quantize_params if weight_quant == "int8" else None
-        return init_params(self.param_defs(), gen, device=dev, dtype=dt,
-                           finish=finish)
+        return init_params(self.param_defs(), _generator(generator_or_seed,
+                                                         dev),
+                           device=dev, dtype=dt, finish=finish)
 
     def supports_paged_decode(self) -> bool:
         """Whether the family has a per-token KV cache that can page."""
@@ -113,9 +120,78 @@ class DecoderLM:
         return T.lm_logits(params, hidden)
 
 
-def build_model(cfg: ModelConfig) -> DecoderLM:
-    """The :class:`DecoderLM` bound to ``cfg`` (dense family only)."""
-    if cfg.family != "dense":
+class RwkvLM:
+    """RWKV-6 LM: an O(1) recurrent decode state per slot, so it serves on
+    the dense per-slot path only (whole-prompt prefill, batched decode, the
+    logits head)."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def param_defs(self) -> dict:
+        """Tree of :class:`repro_torch.models.module.Param` for every weight
+        (the norms, ``u``, ``decay_base`` and ``w_o`` declared float32)."""
+        return RW.rwkv_lm_defs(self.cfg)
+
+    def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
+             device=None, dtype: Optional[torch.dtype] = None,
+             weight_quant: Optional[str] = None) -> dict:
+        """Random weights on ``device`` (``cuda`` unless named) in ``dtype``
+        (the config's compute dtype unless named), the float32 leaves in
+        float32.  A seed builds a ``torch.Generator`` on the device; a
+        generator must live there.  ``weight_quant="int8"`` is refused: int8
+        weights are wired through the paged serving path only."""
+        cfg = self.cfg
+        if weight_quant not in (None, "off"):
+            raise ValueError(
+                f"weight_quant={weight_quant!r} is refused for {cfg.name} "
+                f"({cfg.family}): int8 weights are wired through the paged "
+                "serving path only, and this family serves on the dense "
+                "per-slot path")
+        dev = resolve_device(device)
+        dt = torch_dtype(cfg.dtype) if dtype is None else dtype
+        return init_params(self.param_defs(), _generator(generator_or_seed,
+                                                         dev),
+                           device=dev, dtype=dt)
+
+    def supports_paged_decode(self) -> bool:
+        """False: a recurrent state has no per-token KV cache to page."""
+        return False
+
+    def prefill(self, params, tokens):
+        """Whole prompts (B, S) -> (state, final hidden (B, S, d))."""
+        return RW.prefill(params, self.cfg, tokens)
+
+    def init_decode_state(self, batch: int, max_len: int, *, device=None):
+        """Zeroed per-slot state ``{"wkv", "tm_prev", "cm_prev"}`` (float32)
+        on ``device`` (``cuda`` unless named); ``max_len`` is ignored."""
+        del max_len
+        return RW.init_state(self.cfg, batch, device=resolve_device(device))
+
+    def decode_step(self, params, state, tokens, pos=None):
+        """tokens (B, 1) -> float32 logits (B, 1, V); ``state`` advanced in
+        place; ``pos`` is ignored."""
+        return RW.decode_step(params, self.cfg, state, tokens, pos)
+
+    def lm_head(self, params, hidden):
+        """Project final hidden states to float32 vocab logits."""
+        return T.lm_logits(params, hidden)
+
+
+_FAMILIES = {"dense": DecoderLM, "ssm": RwkvLM}
+# families of the reference still to port, and the ROADMAP item they wait for
+_NOT_PORTED = {"moe": "MoE (ROADMAP A9)",
+               "vlm": "multimodal (ROADMAP A10)",
+               "audio": "multimodal (ROADMAP A10)",
+               "hybrid": "mamba2 / zamba with kernel B5 (ROADMAP A11)"}
+
+
+def build_model(cfg: ModelConfig):
+    """The family's model class bound to ``cfg``: :class:`DecoderLM` for
+    dense decoders, :class:`RwkvLM` for rwkv6 (``ssm``)."""
+    if cfg.family not in _FAMILIES:
+        slice_name = _NOT_PORTED.get(cfg.family, "an unplanned")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)")
-    return DecoderLM(cfg)
+            f"{cfg.name}: family {cfg.family!r} is not ported yet: it comes "
+            f"with the {slice_name} slice")
+    return _FAMILIES[cfg.family](cfg)

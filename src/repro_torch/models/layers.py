@@ -1,9 +1,12 @@
-"""Shared layers of the dense decoder path (functional; params are dicts of
-tensors already in the compute dtype).
+"""Shared layers of the served models (functional; params are dicts of
+tensors already in the dtype they are read in).
 
 Counterpart of ``repro.models.layers``.  The reference keeps float32
 params and casts them at every call; the port casts once when the params
-are made or loaded, which gives the same values.
+are made or loaded, which gives the same values where the reference casts
+to the compute dtype.  A leaf the reference reads in float32 whatever the
+compute dtype (the layernorm's scale and bias) is declared float32
+(``Param(dtype=...)``) and stays so.
 """
 from __future__ import annotations
 
@@ -23,6 +26,22 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     """Row-wise RMSNorm over the last axis: the RMSNorm kernel on a card,
     its plain version on the CPU."""
     return ops.rmsnorm(x, params["scale"], eps=eps)
+
+
+def layernorm_def(dim: int) -> dict:
+    """Declaration of one LayerNorm's scale and bias (kept in float32)."""
+    return {"scale": Param((dim,), init="ones", dtype=torch.float32),
+            "bias": Param((dim,), init="zeros", dtype=torch.float32)}
+
+
+def layernorm(params, x, *, eps: float = 1e-5):
+    """LayerNorm over the last axis, in float32 with float32 scale and bias;
+    the result keeps ``x``'s dtype.  No kernel: the reference has none."""
+    xf = x.to(torch.float32)
+    var, mu = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)
+            + params["bias"].to(torch.float32)).to(x.dtype)
 
 
 def embed(params, tokens):

@@ -4,13 +4,15 @@ Models declare parameters as nested dicts of :class:`Param` (shape plus
 initializer), the same trees as the reference's ``repro.models.module``
 without the logical partition specs: the port serves on one card, so there
 is nothing to shard.  :func:`init_params` materializes a declaration tree
-into tensors on one device.
+into tensors on one device, each leaf in the model's dtype unless its
+declaration names its own (the reference's ``dtype`` override: a leaf the
+model always reads in float32 is kept in float32).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -21,6 +23,7 @@ class Param:
 
     shape: tuple
     init: str = "normal"          # normal | zeros | ones | small
+    dtype: Optional[torch.dtype] = None   # overrides the model's dtype
 
     def stddev(self) -> float:
         """The normal initializer's standard deviation (1/sqrt(fan_in))."""
@@ -66,20 +69,22 @@ def init_params(defs, generator: torch.Generator, *, device: torch.device,
     """Materialize a declaration tree on ``device``.
 
     Each leaf is drawn in float32 from ``generator`` (which must live on
-    ``device``) and cast before the next is drawn, so a full-width model
+    ``device``) and cast to ``dtype`` (or to its declared dtype) before the
+    next is drawn, so a full-width model
     never holds a float32 copy of more than one leaf.  ``finish``, if
     given, maps each cast leaf to what the tree keeps (the int8 weight
     quantizer), before the next leaf is drawn."""
     def make(p: Param):
+        dt = p.dtype or dtype
         if p.init == "zeros":
-            w = torch.zeros(p.shape, dtype=dtype, device=device)
+            w = torch.zeros(p.shape, dtype=dt, device=device)
         elif p.init == "ones":
-            w = torch.ones(p.shape, dtype=dtype, device=device)
+            w = torch.ones(p.shape, dtype=dt, device=device)
         else:
             std = 0.02 if p.init == "small" else p.stddev()
             w = torch.randn(p.shape, generator=generator,
                             dtype=torch.float32, device=device)
-            w = w.mul_(std).to(dtype)
+            w = w.mul_(std).to(dt)
         return w if finish is None else finish(w)
 
     return tree_map(make, defs)

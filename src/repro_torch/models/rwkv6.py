@@ -1,0 +1,124 @@
+"""RWKV-6 (Finch) blocks for serving: attention-free token mixing with a
+data-dependent decay.
+
+Counterpart of ``repro.models.rwkv6``.  The per-head recurrence
+``S_t = diag(w_t) S_t-1 + k_t v_t^T`` runs through the wkv kernel
+(:func:`repro_torch.kernels.ops.rwkv6_scan`) for every sequence length,
+prefill and decode alike; the reference's chunked matmul form
+(``_wkv_chunked``) and its ``lax.scan`` are what the kernel replaces, and
+they differ from it by rounding only.  Given a state, the kernel writes
+the final state **in place** into it, so a layer's slice of the decode
+state is the result.
+
+As in the reference, the projections, the token shift and the channel mix
+run in the compute dtype, while the decay ``w``, the bonus ``u``, the wkv
+output, ``ln_x``, the ``silu(g)`` gate and ``w_o`` work in float32: those
+leaves are declared float32 (``decay_base``, ``u``, ``ln_x``, ``w_o``,
+and ``ln1`` / ``ln2``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.module import Param
+
+
+def rwkv_block_def(cfg) -> dict:
+    """Parameter tree of one RWKV-6 block (time mix + channel mix)."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    H = cfg.rwkv_heads
+    f32 = torch.float32
+    return {
+        "ln1": L.layernorm_def(d),
+        "ln2": L.layernorm_def(d),
+        "tm": {  # time mix
+            "mu_r": Param((d,), init="small"),
+            "mu_k": Param((d,), init="small"),
+            "mu_v": Param((d,), init="small"),
+            "mu_g": Param((d,), init="small"),
+            "mu_w": Param((d,), init="small"),
+            "w_r": Param((d, H, hd)),
+            "w_k": Param((d, H, hd)),
+            "w_v": Param((d, H, hd)),
+            "w_g": Param((d, H, hd)),
+            "w_decay": Param((d, H, hd), init="small"),
+            "decay_base": Param((H, hd), init="zeros", dtype=f32),
+            "u": Param((H, hd), init="small", dtype=f32),
+            "ln_x": L.layernorm_def(H * hd),
+            "w_o": Param((H, hd, d), dtype=f32),
+        },
+        "cm": {  # channel mix
+            "mu_k": Param((d,), init="small"),
+            "mu_r": Param((d,), init="small"),
+            "w_k": Param((d, cfg.d_ff)),
+            "w_v": Param((cfg.d_ff, d)),
+            "w_r": Param((d, d)),
+        },
+    }
+
+
+def _token_shift(x, x_prev=None):
+    """(B, S, d) -> the previous token's activations: zeros before the
+    first, or ``x_prev`` (B, 1, d), kept in float32 by the state, cast to
+    ``x``'s dtype."""
+    if x_prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([x_prev.to(x.dtype), x], dim=1)[:, :-1]
+
+
+def _lerp(x, shifted, mu):
+    """``x + (shifted - x) * mu`` in ``x``'s dtype."""
+    return x + (shifted - x) * mu.to(x.dtype)
+
+
+def time_mix(p, x, cfg, *, state=None, x_prev=None):
+    """Returns ``(out, state, last_x)``.  ``state``: (B, H, K, V) float32,
+    updated in place (zeros, in a fresh tensor, when None)."""
+    B, S, d = x.shape
+    H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    sx = _token_shift(x, x_prev)
+
+    def project(mu, w):
+        return (_lerp(x, sx, p[mu]) @ p[w].reshape(d, H * hd)).view(B, S, H,
+                                                                    hd)
+
+    r = project("mu_r", "w_r")
+    k = project("mu_k", "w_k")
+    v = project("mu_v", "w_v")
+    g = project("mu_g", "w_g")
+    wlog = project("mu_w", "w_decay")
+    # data-dependent decay in (0, 1): w = exp(-exp(base + wlog)), float32
+    w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32)
+                             + wlog.to(torch.float32)))        # (B, S, H, K)
+    y, state = ops.rwkv6_scan(r, k, v, w, p["u"].to(torch.float32), state,
+                              out_state=state)
+    y = L.layernorm(p["ln_x"], y.reshape(B, S, H * hd))        # float32
+    y = y.view(B, S, H, hd) * F.silu(g.to(y.dtype))
+    w_o = p["w_o"].reshape(H * hd, d).to(y.dtype)
+    out = y.reshape(B, S, H * hd) @ w_o
+    return out.to(x.dtype), state, x[:, -1:]
+
+
+def channel_mix(p, x, *, x_prev=None):
+    """The squared-ReLU FFN with a sigmoid receptance gate; returns
+    ``(out, last_x)``."""
+    sx = _token_shift(x, x_prev)
+    k = torch.square(torch.relu(_lerp(x, sx, p["mu_k"]) @ p["w_k"]))
+    kv = k @ p["w_v"]
+    r = torch.sigmoid(_lerp(x, sx, p["mu_r"]) @ p["w_r"])
+    return r * kv, x[:, -1:]
+
+
+def rwkv_block(params, x, cfg, *, tm_state=None, tm_prev=None,
+               cm_prev=None):
+    """Pre-norm block: returns ``(x, wkv state, tm last_x, cm last_x)``."""
+    h = L.layernorm(params["ln1"], x)
+    o, new_state, new_tm_prev = time_mix(params["tm"], h, cfg,
+                                         state=tm_state, x_prev=tm_prev)
+    x = x + o
+    h = L.layernorm(params["ln2"], x)
+    o, new_cm_prev = channel_mix(params["cm"], h, x_prev=cm_prev)
+    return x + o, new_state, new_tm_prev, new_cm_prev

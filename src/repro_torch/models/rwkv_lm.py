@@ -1,0 +1,81 @@
+"""RWKV-6 language model for serving: embed -> layernorm -> [rwkv blocks]
+-> layernorm -> head.
+
+Counterpart of the serving half of ``repro.models.rwkv_lm``.  The decode
+state is O(1) in the sequence length: per layer a (B, H, K, V) float32 wkv
+state plus the one-token shift buffers of the time and channel mix, float32
+too.  The reference scans the stacked layers with ``jax.lax.scan`` and
+returns a new state; here a Python loop walks the layers and writes each
+layer's slice of the state **in place** (the kernel writes the wkv state,
+the loop the shift buffers), so the caller's one copy is the result.
+``forward`` and ``lm_loss`` come with the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R
+from repro_torch.models import transformer as T
+from repro_torch.models.module import Param, torch_dtype
+
+
+def rwkv_lm_defs(cfg) -> dict:
+    """Parameter tree of the whole model (blocks stacked)."""
+    return {
+        "embed": {"table": Param((cfg.padded_vocab, cfg.d_model),
+                                 init="small")},
+        "ln_in": L.layernorm_def(cfg.d_model),
+        "blocks": T.stack_defs(R.rwkv_block_def(cfg), cfg.n_layers),
+        "final_norm": L.layernorm_def(cfg.d_model),
+        "unembed": {"w": Param((cfg.d_model, cfg.padded_vocab),
+                               init="small")},
+    }
+
+
+def init_state(cfg, batch: int, *, device) -> dict:
+    """Zeroed decode state: ``wkv`` (L, batch, H, K, V), ``tm_prev`` and
+    ``cm_prev`` (L, batch, 1, d), all float32."""
+    Lh, H, hd, d = cfg.n_layers, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    f32 = torch.float32
+    return {
+        "wkv": torch.zeros(Lh, batch, H, hd, hd, dtype=f32, device=device),
+        "tm_prev": torch.zeros(Lh, batch, 1, d, dtype=f32, device=device),
+        "cm_prev": torch.zeros(Lh, batch, 1, d, dtype=f32, device=device),
+    }
+
+
+def _embed(params, cfg, tokens):
+    return T.embed_tokens(params, tokens).to(torch_dtype(cfg.dtype))
+
+
+def _forward_with_state(params, cfg, x, state):
+    """Run the blocks over ``x`` (B, S, d) from ``state``, which is updated
+    in place; returns the final-normed hidden states."""
+    x = L.layernorm(params["ln_in"], x)
+    for i in range(cfg.n_layers):
+        tm_prev, cm_prev = state["tm_prev"][i], state["cm_prev"][i]
+        x, _, new_tm, new_cm = R.rwkv_block(
+            T._layer(params["blocks"], i), x, cfg, tm_state=state["wkv"][i],
+            tm_prev=tm_prev, cm_prev=cm_prev)
+        tm_prev.copy_(new_tm)           # float32, as the reference stores it
+        cm_prev.copy_(new_cm)
+    return L.layernorm(params["final_norm"], x)
+
+
+def prefill(params, cfg, tokens):
+    """Whole prompts (B, S) from a zero state -> (state, final hidden
+    (B, S, d)).  A right-padded prompt runs its pad tokens through the
+    recurrence too, as in the reference: the state is the padded
+    sequence's."""
+    state = init_state(cfg, tokens.shape[0], device=tokens.device)
+    x = _forward_with_state(params, cfg, _embed(params, cfg, tokens), state)
+    return state, x
+
+
+def decode_step(params, cfg, state, tokens, pos=None):
+    """tokens (B, 1) -> float32 logits (B, 1, V); ``state`` is advanced in
+    place.  ``pos`` is ignored: the position enters through the state."""
+    del pos
+    x = _forward_with_state(params, cfg, _embed(params, cfg, tokens), state)
+    return T.lm_logits(params, x)

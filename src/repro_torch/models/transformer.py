@@ -40,7 +40,8 @@ from repro_torch.serve import quant as QZ
 
 def stack_defs(defs, n: int):
     """Prepend a stacked layer axis to every Param in a layer def tree."""
-    return tree_map(lambda p: Param((n,) + tuple(p.shape), init=p.init), defs)
+    return tree_map(lambda p: Param((n,) + tuple(p.shape), init=p.init,
+                                    dtype=p.dtype), defs)
 
 
 def block_defs(cfg) -> dict:

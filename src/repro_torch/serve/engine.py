@@ -1,5 +1,6 @@
 """Continuous-batching serving engine on one device: over a paged KV
-cache, or over a dense per-slot cache.
+cache, or over a dense per-slot decode state (a KV cache, or rwkv6's
+recurrent state).
 
 Counterpart of the single-device paths of ``repro.serve.engine``:
 ``submit()`` requests, ``tick()`` the loop, collect
@@ -13,14 +14,15 @@ runs the scheduler's plan on the device.
   stores the pages as int8 with per-(row, head) scale leaves;
   ``weight_quant="int8"`` keeps the weights as per-tensor int8, dequantized
   where each is used (:mod:`repro_torch.serve.quant`).
-* **dense per-slot** (``paged=False``): admission -> one whole-prompt
-  prefill per admitted request, right-padded to a length bucket and farmed
-  over the paper's thread farm (:class:`repro_torch.core.runtime.
-  ThreadFarmExecutor`; each task launches its kernels from its worker
-  thread) -> :func:`repro_torch.serve.pages.write_slot` splices each
-  prefilled cache into its slot -> one batched decode step over every
-  slot's whole cache -> greedy commit -> retire.  The prefix cache is off,
-  as in the reference.
+* **dense per-slot** (``paged=False``, and the only path of a family
+  without a paged KV cache, such as rwkv6, which picks it by itself):
+  admission -> one whole-prompt prefill per admitted request, right-padded
+  to a length bucket and farmed over the paper's thread farm
+  (:class:`repro_torch.core.runtime.ThreadFarmExecutor`; each task
+  launches its kernels from its worker thread) ->
+  :func:`repro_torch.serve.pages.write_slot` splices each prefilled state
+  into its slot -> one batched decode step over every slot's state ->
+  greedy commit -> retire.  The prefix cache is off, as in the reference.
 
 The reference donates the storage to each jitted call and, when a call
 raises, checks whether the donated buffers were consumed.  Here every call
@@ -39,9 +41,10 @@ The contract stays the same, by two routes:
   :meth:`repro_torch.serve.pages.PagePool.reset_storage`, then raises.
 
 The dense path keeps the same contract: a failing **prefill** raised
-before its cache reached the state, so only its request is retired (with
-``error``); a failing **decode** may have written into every slot's cache,
-so the engine evicts every resident, rebuilds a zeroed state and raises.
+before its state reached the engine's, so only its request is retired
+(with ``error``); a failing **decode** may have written into every slot's
+state, so the engine evicts every resident, rebuilds a zeroed state and
+raises.
 
 Features of the reference engine that later port slices bring (seeded and
 custom sampling, encoder inputs, speculative decode, the device mesh,
@@ -101,9 +104,10 @@ def _not_ported(what: str, slice_name: str):
 class ServeEngine:
     """Continuous-batching engine on one device (``cuda`` unless ``device``
     names another): paged unless ``paged=False``; see the module
-    docstring.  ``prefill_workers`` sizes the dense path's prefill farm
-    (a paged engine has none).  ``kv_quant`` / ``weight_quant``: "int8" or
-    "off" (paged only)."""
+    docstring.  ``paged=None`` picks the paged path for a family with a
+    paged KV cache and the dense one otherwise.  ``prefill_workers`` sizes
+    the dense path's prefill farm (a paged engine has none).
+    ``kv_quant`` / ``weight_quant``: "int8" or "off" (paged only)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -125,8 +129,9 @@ class ServeEngine:
         self.paged = model.supports_paged_decode() if paged is None \
             else bool(paged)
         if self.paged and not model.supports_paged_decode():
-            raise _not_ported(f"{model.cfg.name} without a paged KV cache",
-                              "non-paged families")
+            raise ValueError(
+                f"{model.cfg.name} ({model.cfg.family}) has no paged KV "
+                "cache; construct with paged=False")
         # int8 KV pages live in the pool, as scale leaves beside the pages;
         # int8 weights are wired through the paged calls only
         self.kv_quant = QZ.make_kv_quant(kv_quant)
@@ -145,7 +150,11 @@ class ServeEngine:
             if not self.paged:
                 raise ValueError(
                     "weight_quant='int8' is wired through the paged serving "
-                    "path only; drop the flag or use a paged family")
+                    f"path only: {model.cfg.name} ({model.cfg.family}) "
+                    + ("was constructed with paged=False"
+                       if model.supports_paged_decode() else
+                       "has no paged KV cache")
+                    + "; drop the flag or use a paged family")
             self.weight_quant = "int8"
         else:
             raise ValueError(
@@ -377,17 +386,21 @@ class ServeEngine:
 
     def _prefill_one(self, job):
         """One request's whole-prompt prefill and first token: a
-        self-contained farm task (it writes nothing the engine holds)."""
+        self-contained farm task (it writes nothing the engine holds).
+        Returns the prefill's (B = 1) decode state and the token."""
         n = job.n_valid
         bucket = min(_bucket(n), self.max_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = job.tokens[:n]                 # right-pad into bucket
-        cache, hidden = self.model.prefill(self.params, self._dev(toks))
-        # right-padding: cache rows beyond n hold pad garbage, but
+        state, hidden = self.model.prefill(self.params, self._dev(toks))
+        # right-padding: KV cache rows beyond n hold pad garbage, but
         # lengths[slot] = n masks them out (kv_valid_len) and later decode
-        # tokens overwrite them in order
+        # tokens overwrite them in order.  A recurrent state (rwkv6) has no
+        # such mask: the pad tokens run through the recurrence and the
+        # slot's state is the padded sequence's, exactly as in the
+        # reference (ROADMAP, Queue C)
         logits = self.model.lm_head(self.params, hidden[:, n - 1:n])
-        return cache, int(self._greedy(logits[0, -1]))
+        return state, int(self._greedy(logits[0, -1]))
 
     def _tick_dense(self) -> bool:
         _, rejects = self.sched.admit()
@@ -410,8 +423,8 @@ class ServeEngine:
                     self.sched.release(job.slot)
                     errors.append((job.req, res))
                     continue
-                cache, tok = res
-                PG.write_slot(self.state, cache, job.slot)
+                state, tok = res
+                PG.write_slot(self.state, state, job.slot)
                 self.sched.chunk_done(job)
                 self._emit_first_token(job.slot, tok)
 
@@ -424,7 +437,7 @@ class ServeEngine:
                                                 toks, pos)
                 self._commit_decode(live, logits)
             except BaseException:
-                # the in-place writes may have touched every slot's cache:
+                # the in-place writes may have touched every slot's state:
                 # evict and rebuild before raising
                 self._evict_residents()
                 self.state = None              # let the old buffers go first

@@ -418,10 +418,12 @@ def write_slot(state, slot_state, slot: int) -> None:
     """Write a (B = 1) prefill state into slot ``slot`` of the batched
     state, in place.
 
-    Every leaf has batch on axis 1.  A leaf whose sequence axis (axis 2) is
-    shorter than the slot's gets the prefill's rows and zeros after them,
-    as the reference's zero-pad gives (the validity length masks the tail
-    either way).  Values are cast to the state's dtype, as in the reference.
+    Every leaf has batch on axis 1.  A KV-cache leaf whose sequence axis
+    (axis 2) is shorter than the slot's gets the prefill's rows and zeros
+    after them, as the reference's zero-pad gives (the validity length
+    masks the tail either way); a leaf of the same shape as the slot's
+    (a recurrent state such as rwkv6's wkv and shift buffers) is copied
+    whole.  Values are cast to the state's dtype, as in the reference.
     """
     for name, dst in state.items():
         src = slot_state[name][:, 0]

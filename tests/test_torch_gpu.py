@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch version
-at the dense archs' shapes, and the serving engine (paged and dense
-per-slot) on the card through the kernels against the same engine on the
-CPU.  Every test here needs a card
+at the served archs' shapes, and the serving engine (paged and dense
+per-slot, qwen2-7b and rwkv6-3b) on the card through the kernels against
+the same engine on the CPU.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -248,4 +248,100 @@ def test_engine_on_card_matches_cpu(card):
     paged_kernels = ("rmsnorm", "paged_attention_mq")
     assert all(ops.COUNTS[k].kernel > 0 for k in paged_kernels)
     assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
+    assert got == want
+
+
+# (B, S, H, K, V): the reference's three cases (K != V in the third), a
+# ragged length, and the full-width prefill and decode shapes of rwkv6-3b
+RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
+              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64)]
+# both sides compute in float32 from the same (exactly widened) inputs and
+# differ in summation order only: max |d| over max(1, max |plain|)
+RWKV_REL = 1e-5
+
+
+def _rwkv_case(rng, card, dtype, B, S, H, K, V):
+    """r, k, v in ``dtype``; the decay spans about e^-20 to 1, as
+    exp(-exp(x)) with x ~ N(0, 1) gives it at full width; u and a nonzero
+    initial state."""
+    f = np.float32
+    r, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, C)).astype(f))
+               .to(card, DTYPES[dtype]) for C in (K, K, V))
+    w = torch.from_numpy(np.exp(-np.exp(rng.normal(size=(B, S, H, K))))
+                         .astype(f)).to(card)
+    u = torch.from_numpy(rng.normal(size=(H, K)).astype(f)).to(card)
+    s0 = torch.from_numpy(rng.normal(size=(B, H, K, V)).astype(f)).to(card)
+    return r, k, v, w, u, s0
+
+
+def _rel_close(got, want, what):
+    err = (got - want).abs().max().item()
+    limit = RWKV_REL * max(1.0, want.abs().max().item())
+    assert err <= limit, f"{what}: max abs err {err} > {limit}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,V", RWKV_CASES)
+def test_rwkv6_scan_kernel_matches_plain(card, dtype, B, S, H, K, V):
+    """y and the final state against the plain version; the state is
+    written in place into ``state0`` (the decode step's use)."""
+    rng = np.random.default_rng(S + K + V)
+    r, k, v, w, u, s0 = _rwkv_case(rng, card, dtype, B, S, H, K, V)
+    want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    ops.reset_counts()
+    y, st = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert st is state and ops.COUNTS["rwkv6_scan"].kernel == 1
+    _rel_close(y, want_y, "y")
+    _rel_close(state, want_s, "state")
+    y0, s_zero = ops.rwkv6_scan(r, k, v, w, u)            # zero state
+    want_y0, want_s0 = ref.rwkv6_scan(r, k, v, w, u)
+    _rel_close(y0, want_y0, "y from zeros")
+    _rel_close(s_zero, want_s0, "state from zeros")
+
+
+def test_rwkv6_scan_wrapper_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    rng = np.random.default_rng(4)
+    r, k, v, w, u, s0 = _rwkv_case(rng, card, "bfloat16", 1, 8, 2, 24, 24)
+    with pytest.raises(ValueError, match="key width K=24"):
+        rwkv6_scan_cuda(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = _rwkv_case(rng, card, "bfloat16", 1, 8, 2, 16, 16)
+    with pytest.raises(TypeError, match="w is torch.bfloat16"):
+        rwkv6_scan_cuda(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(TypeError, match="dtypes r="):
+        rwkv6_scan_cuda(r, k.float(), v, w, u, s0)
+    with pytest.raises(ValueError, match="want"):
+        rwkv6_scan_cuda(r, k, v, w, u[:1], s0)
+
+
+def test_rwkv_engine_on_card_matches_cpu(card):
+    """SMOKE rwkv6-3b in float32 on the dense per-slot path (picked by
+    itself): every layer's recurrence runs the wkv kernel, once a layer a
+    prefill or decode step, never its plain version, and the streams equal
+    the CPU's."""
+    model = build_model(smoke_config("rwkv6-3b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, list(range(40)),
+               [1, 2]]
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        with ServeEngine(model, params, max_slots=3, max_len=128,
+                         prefill_workers=3, device=device) as eng:
+            assert not eng.paged
+            for p in prompts:
+                eng.submit(p, max_new_tokens=8)
+            eng.run_until_drained()
+        return {r.rid: r.output for r in eng.finished}, eng.stats
+
+    want, _ = serve("cpu")
+    ops.reset_counts()
+    got, stats = serve(card)
+    assert ops.COUNTS["rwkv6_scan"].kernel \
+        == model.cfg.n_layers * (stats["prefills"] + stats["ticks"])
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    assert all(c.kernel == 0 for n, c in ops.COUNTS.items()
+               if n != "rwkv6_scan")
     assert got == want
