@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result lines):
 2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all at once) and prints what ptxas
                  reports of the flash-attention kernels', the D-128
-                 paged-attention kernels' and the K-64 wkv kernels'
-                 registers and spills.
+                 paged-attention kernels', the K-64 wkv kernels' and the
+                 N = P = 64 SSD kernel's registers and spills.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them.
 4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
@@ -78,6 +78,34 @@ Phases (any failure exits non-zero before the result lines):
                  share; the wkv kernel timed at the prefill and decode
                  shapes (kernel, plain, bound, and a composite yardstick:
                  the reference's chunked matmul form written in torch).
+15. parity-ssd — the SSD kernel against its plain version: the
+                 reference's three cases, a ragged length, zamba2-7b's
+                 prefill and decode shapes and every (N, P) it is built
+                 for, B/C in bf16 and float32, from a state written in
+                 place, from a given state and from zeros.
+16. small-zamba — the SMOKE zamba2-7b (float32) as aligned batches
+                 (prefill, then decode steps at one position) on the card
+                 emits the same greedy streams as on the CPU.
+17. main-zamba — full-width, full-depth zamba2-7b (81 Mamba-2 layers and
+                 3 applications of the shared block, bf16, seeded random
+                 weights, the float32 leaves in float32) through
+                 ``HybridLM``: 4 prompts of 1000 tokens, max_len 1032,
+                 greedy to 32 new tokens; every row must get 32 in-vocab
+                 tokens, the SSD kernel must launch exactly 81 times a
+                 prefill or decode step, RMSNorm only as a kernel, and no
+                 other kernel and no plain version may run.  Then a second
+                 prefill compares every layer's SSD call with the plain
+                 version on the same inputs: layer 0 is gated (every
+                 layer's gap printed).  Prints the weights' bytes, the peak
+                 device memory, the prefill's time and decode tok/s.
+18. step-zamba — one 4-row decode step and one 4 x 1000 prefill,
+                 host-issued and as device time, with the card's idle
+                 share; the SSD kernel timed at the prefill and decode
+                 shapes (kernel, plain, bound, and a composite yardstick:
+                 the reference's chunked form ``_ssd_chunked`` in torch).
+
+zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
+the model's API (``prefill``, ``lm_head``, ``decode_step``) directly.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -129,6 +157,21 @@ RWKV_REL = 1e-5
 # ragged length, and rwkv6-3b's full-width prefill and decode shapes
 RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
               (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64)]
+# the SSD kernel against its plain version: both in float32 from the same
+# inputs (bf16 B and C widened exactly); the kernel's chunked form
+# reassociates the decay products (exp of a cumsum for a product of exps)
+# and the sums, so they differ by rounding only (a CPU mirror of the
+# kernel's arithmetic gave 8.7e-7 at zamba2's shapes); max |d| over
+# max(1, max |plain|), as for RWKV_REL.  main-zamba's layer-0 SSD call is
+# the same function at the parity phase's prefill shape: the same limit,
+# on max |d| / max |plain| (its values are far below 1 at random init).
+SSD_REL = 1e-5
+# (B, S, H, P, N): the reference's three cases, a ragged length, and
+# zamba2-7b's full-width prefill and decode shapes
+SSD_CASES = [(2, 256, 3, 16, 8), (1, 128, 2, 32, 16), (1, 512, 1, 8, 4),
+             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64)]
+ZAMBA_ROWS, ZAMBA_PROMPT, ZAMBA_NEW = 4, 1000, 32    # main-zamba's batch
+ZAMBA_MAX_LEN = 1032
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--requests", "8", "--max-new", "32",
              "--slots", "4", "--max-len", "2048", "--shared-prefix", "960",
              "--device", "cuda"]
@@ -1149,6 +1192,315 @@ def phase_step_rwkv(eng, times) -> None:
         f"{cfg.n_layers * times['ms']:.3f} ms a prefill")
 
 
+# -- zamba2: Mamba-2 layers and the shared block as an aligned batch, B5 ------
+
+def ssd_case(rng, dev, bc_dtype, B, S, H, P, N):
+    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -dt (A_log
+    0), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a nonzero float32
+    initial state."""
+    f = np.float32
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H))))
+    xdt = torch.from_numpy((rng.normal(size=(B, S, H, P)) * dt[..., None])
+                           .astype(f)).to(dev)
+    la = torch.from_numpy((-dt).astype(f)).to(dev)
+    bm, cm = (torch.from_numpy(rng.normal(size=(B, S, N)).astype(f))
+              .to(dev, bc_dtype) for _ in range(2))
+    s0 = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(f)).to(dev)
+    return xdt, la, bm, cm, s0
+
+
+def phase_parity_ssd(dev) -> dict:
+    """The SSD kernel against its plain version at SSD_CASES and at every
+    (N, P) the kernel is built for (B 2, S 70, H 3), B/C in bf16 and
+    float32: from a nonzero state written in place (aliased, the decode
+    step's use), from a given state into a fresh one, and from zeros.  Max
+    abs and relative errors by B/C dtype."""
+    rng = np.random.default_rng(7)
+    cases = SSD_CASES + [(2, 70, 3, P, N) for P in (8, 16, 32, 64)
+                         for N in (4, 8, 16, 32, 64)]
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        for B, S, H, P, N in cases:
+            xdt, la, bm, cm, s0 = ssd_case(rng, dev, dtype, B, S, H, P, N)
+            want_y, want_s = ref.ssd_scan(xdt, la, bm, cm, s0)
+            zero_y, zero_s = ref.ssd_scan(xdt, la, bm, cm)
+            state = s0.clone()
+            y, st = ops.ssd_scan(xdt, la, bm, cm, state, out_state=state)
+            y1, s1 = ops.ssd_scan(xdt, la, bm, cm, s0)
+            y0, st0 = ops.ssd_scan(xdt, la, bm, cm)
+            torch.cuda.synchronize()
+            if st is not state:
+                raise AssertionError("ssd_scan: state not written in place")
+            for what, got, want in (("y", y, want_y), ("state", state, want_s),
+                                    ("y given", y1, want_y),
+                                    ("state given", s1, want_s),
+                                    ("y0", y0, zero_y), ("state0", st0, zero_s)):
+                err, rel = rel_gap(got, want)
+                if not rel <= SSD_REL:
+                    raise AssertionError(
+                        f"ssd_scan B={B} S={S} H={H} P={P} N={N} B/C {dtype} "
+                        f"{what}: kernel disagrees with plain version (max "
+                        f"abs err {err}, relative {rel}, limit {SSD_REL})")
+                a, b = errs.get(key, (0.0, 0.0))
+                errs[key] = (max(a, err), max(b, rel))
+    log(f"parity ok: {2 * len(cases)} ssd_scan cases (each from a state in "
+        f"place, from a given state and from zeros; every N in 4-64 and P "
+        f"in 8-64), limit max|d| <= {SSD_REL} x max(1, max|plain|); (max "
+        f"abs err, max relative) by B/C dtype {errs}")
+    return errs
+
+
+def greedy_aligned(model, params, prompts, new: int, max_len: int):
+    """Greedy tokens of an aligned batch through the model's API: prefill
+    the (B, S) prompts, token 1 from the last hidden row, then one decode
+    step at one position for every further token.  Returns the (B, new)
+    tokens on the host and the seconds of the prefill (with its first
+    token) and of the decode steps, each ended by a synchronize."""
+    dev = prompts.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    state, hidden = model.prefill(params, prompts, max_len)
+    tok = model.lm_head(params, hidden[:, -1:]).argmax(-1)       # (B, 1)
+    sync()
+    t1 = time.perf_counter()
+    out = [tok]
+    for step in range(new - 1):
+        logits = model.decode_step(params, state, tok.int(),
+                                   prompts.shape[1] + step)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    sync()
+    return torch.cat(out, 1).cpu().numpy(), t1 - t0, time.perf_counter() - t1
+
+
+def phase_small_zamba(dev) -> None:
+    model = build_model(smoke_config("zamba2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    rng = np.random.default_rng(8)
+    for rows, length in ((3, 9), (2, 40), (1, 5)):
+        prompts = torch.tensor(rng.integers(0, model.cfg.vocab,
+                                            (rows, length)).astype(np.int32))
+        want = greedy_aligned(model, cpu_params, prompts, 8, length + 8)[0]
+        got = greedy_aligned(model, card_params, prompts.to(dev), 8,
+                             length + 8)[0]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"SMOKE zamba2-7b, {rows} x {length}: card "
+                                 f"{got.tolist()} != CPU {want.tolist()}")
+    log("small input, zamba: card streams == CPU streams (SMOKE zamba2-7b, "
+        "float32, aligned batches 3 x 9, 2 x 40, 1 x 5, 8 new tokens each)")
+
+
+def phase_main_zamba(dev):
+    """Full-width zamba2-7b through ``HybridLM``, counts from 0: 4 x 1000
+    prompts greedy to 32 tokens, through the SSD kernel (81 launches a
+    prefill or decode step) and RMSNorm only; then every layer's SSD call
+    of a second prefill held against the plain version."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    prompts = torch.tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (ZAMBA_ROWS, ZAMBA_PROMPT)).astype(np.int32), device=dev)
+    toks, t_prefill, t_decode = greedy_aligned(model, params, prompts,
+                                               ZAMBA_NEW, ZAMBA_MAX_LEN)
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if toks.shape != (ZAMBA_ROWS, ZAMBA_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"main-zamba: tokens {toks.tolist()}")
+    steps = 1 + (ZAMBA_NEW - 1)                # the prefill and decode steps
+    for name, (kernel, plain) in counts.items():
+        want = cfg.n_layers * steps if name == "ssd_scan" else None
+        if plain or (name == "ssd_scan" and kernel != want) or (
+                name == "rmsnorm" and kernel <= 0) or (
+                name not in ("ssd_scan", "rmsnorm") and kernel):
+            raise AssertionError(f"main-zamba: launches {counts}; want "
+                                 f"ssd_scan {cfg.n_layers * steps}, rmsnorm "
+                                 "> 0, no other kernel and no plain version")
+    gaps, scales = ssd_layer_gaps(model, params, prompts)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"main-zamba: zamba2-7b {cfg.n_layers} Mamba-2 layers + "
+        f"{cfg.n_layers // cfg.shared_attn_every} shared blocks {cfg.dtype}, {ZAMBA_ROWS} prompts of {ZAMBA_PROMPT} tokens "
+        f"(max_len {ZAMBA_MAX_LEN}), {toks.size} tokens; prefill "
+        f"{t_prefill * 1e3:.2f} ms (with the first token), "
+        f"{ZAMBA_NEW - 1} decode steps {t_decode * 1e3:.2f} ms = "
+        f"{ZAMBA_ROWS * (ZAMBA_NEW - 1) / t_decode:.1f} tok/s; wall "
+        f"{wall:.2f}s (init included); {weights} B of weights, "
+        f"max_memory_allocated={peak} B; launches {counts} ({cfg.n_layers} "
+        f"x {steps} prefill and decode steps)")
+    log("main-zamba, the SSD calls of a second prefill on the same prompts: "
+        "kernel vs plain version on the same inputs, max|d| / max|plain| "
+        "of y and the final state by layer: "
+        + " ".join(f"{g:.2e}" for g in gaps) + f" (layer 0 gated at {SSD_REL}); "
+        f"max|y|, max|state| of the plain version: layer 0 {scales[0][0]:.3e}, "
+        f"{scales[0][1]:.3e}; over the layers {max(a for a, _ in scales):.3e}, "
+        f"{max(b for _, b in scales):.3e}")
+    return counts["ssd_scan"][0], model, params
+
+
+def ssd_layer_gaps(model, params, prompts):
+    """Per-layer max|d| / max|plain| between the SSD kernel and its plain
+    version on each Mamba layer's own inputs in a prefill of ``prompts``
+    (the larger of y's and the final state's; no floor at 1: at random
+    init the SSD values are far below 1), and per layer the largest |y|
+    and |state| of the plain version; raises if layer 0's gap exceeds
+    SSD_REL."""
+    gaps, scales = [], []
+    launch = ops.ssd_scan
+
+    def compare(xdt, la, bm, cm, state0=None, *, out_state=None):
+        s0 = None if state0 is None else state0.clone()
+        y, st = launch(xdt, la, bm, cm, state0, out_state=out_state)
+        py, ps = ref.ssd_scan(xdt, la, bm, cm, s0)
+        scale = (py.abs().max().item(), ps.abs().max().item())
+        gaps.append(max(rel_gap(y, py)[0] / max(scale[0], 1e-30),
+                        rel_gap(st, ps)[0] / max(scale[1], 1e-30)))
+        scales.append(scale)
+        return y, st
+
+    ops.ssd_scan = compare                     # the model's calls, compared
+    try:
+        model.prefill(params, prompts, ZAMBA_MAX_LEN)
+    finally:
+        ops.ssd_scan = launch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not gaps[0] <= SSD_REL:
+        raise AssertionError(f"main-zamba: layer-0 SSD call of the prefill is "
+                             f"{gaps[0]} (relative) from the plain version's, "
+                             f"limit {SSD_REL}")
+    return gaps, scales
+
+
+def ssd_chunked(xdt, la, bm, cm, state, chunk: int = 256):
+    """Composite yardstick, timed only: the reference's chunked form
+    (``repro/models/mamba2.py:_ssd_chunked``, which halves its chunk until
+    it divides S: 8 at S 1000) in torch, float32, from xdt and la."""
+    B, S, H, P = xdt.shape
+    Q = min(chunk, S)
+    while S % Q:
+        Q //= 2
+    nc = S // Q
+
+    def chunks(t):                              # (B, S, ...) -> (nc, B, Q, ...)
+        return t.float().reshape(B, nc, Q, *t.shape[2:]).transpose(0, 1)
+
+    xc, lc, bc, cc = chunks(xdt), chunks(la), chunks(bm), chunks(cm)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xdt.device))
+    ys = []
+    for c in range(nc):
+        cs = torch.cumsum(lc[c], dim=1)                          # (B, Q, H)
+        total = cs[:, -1:]
+        G = torch.einsum("bqn,bkn->bqk", cc[c], bc[c])
+        dec = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])    # (B,Q,K,H)
+        M = G[..., None] * torch.where(mask[None, :, :, None], dec, 0.0)
+        y = torch.einsum("bqkh,bkhp->bqhp", M, xc[c])
+        ys.append(y + torch.einsum("bqn,bhnp,bqh->bqhp", cc[c], state,
+                                   torch.exp(cs)))
+        wj = torch.exp(total - cs)
+        state = state * torch.exp(total).transpose(1, 2)[..., None] \
+            + torch.einsum("bqn,bqh,bqhp->bhnp", bc[c], wj, xc[c])
+    return torch.stack(ys, 1).reshape(B, S, H, P), state
+
+
+def ssd_cost(B, S, H, P, N, bc_bytes) -> tuple[int, int]:
+    """(bytes, operations) of one SSD call, counted from the function and
+    not from the kernel's tiling.  Bytes: xdt and y float32, la, B and C
+    read once in their dtype, the state read and written.  Operations: the
+    chunked dual form at the chunk length q (the last chunk ragged) that
+    needs the fewest, a multiply and an add each: C.B^T once per batch row
+    (B and C are one group shared by all heads), N for each of a chunk's
+    q(q+1)/2 visible pairs; for each head, P for each visible pair (the
+    decayed product with xdt), 4 N P a step (C.S and the state update) and
+    N P a chunk (the state's decay)."""
+    nbytes = (2 * B * S * H * P * 4 + B * S * H * 4 + 2 * B * S * N * bc_bytes
+              + 2 * B * H * N * P * 4)
+
+    def chunk_ops(q):
+        return q * (q + 1) * (N + H * P) + H * (4 * q + 1) * N * P if q else 0
+
+    nops = B * min((S // q) * chunk_ops(q) + chunk_ops(S % q)
+                   for q in range(1, S + 1))
+    return nbytes, nops
+
+
+def phase_timing_ssd(dev) -> dict:
+    """The SSD kernel, its plain version and the composite yardstick at the
+    main-zamba prefill shape (B 4, S 1000, H 112, N = P = 64, bf16 B/C),
+    and kernel and plain at the decode shape (B 4, S 1), one state per
+    layer (81 states: more than the 50 MB L2), as device time."""
+    cfg = get_config("zamba2-7b")
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    B, S = ZAMBA_ROWS, ZAMBA_PROMPT
+    rng = np.random.default_rng(10)
+    xdt, la, bm, cm, s0 = ssd_case(rng, dev, torch.bfloat16, B, S, H, P, N)
+    t = {"kernel": device_ms([lambda: ops.ssd_scan(xdt, la, bm, cm, s0)] * 4),
+         "plain": device_ms([lambda: ref.ssd_scan(xdt, la, bm, cm, s0)],
+                            reps=3),
+         "composite": device_ms([lambda: ssd_chunked(xdt, la, bm, cm, s0)],
+                                reps=5)}
+    eager = time_ms(lambda: ops.ssd_scan(xdt, la, bm, cm, s0))
+    _, comp_gap = rel_gap(ssd_chunked(xdt, la, bm, cm, s0)[0],
+                          ref.ssd_scan(xdt, la, bm, cm, s0)[0])
+    b_ms, b_by = bound(*ssd_cost(B, S, H, P, N, 2), torch.float32)
+    shape = f"prefill B={B} S={S} H={H} P={P} N={N} B/C bf16"
+    log(f"timing ssd_scan [{shape}]: device kernel {t['kernel']:.5f} ms, "
+        f"plain {t['plain']:.5f} ms, composite (the reference's chunked "
+        f"form in torch) {t['composite']:.5f} ms (its y {comp_gap:.2e} "
+        f"relative from the plain version's), bound {b_ms:.6f} ms ({b_by}); "
+        f"host-issued kernel {eager:.5f} ms")
+    layers = [ssd_case(rng, dev, torch.bfloat16, B, 1, H, P, N)
+              for _ in range(cfg.n_layers)]
+    d = {"kernel": device_ms([lambda a=a: ops.ssd_scan(*a[:4], a[4],
+                                                       out_state=a[4])
+                              for a in layers]),
+         "plain": device_ms([lambda a=a: ref.ssd_scan(*a[:4], a[4], a[4])
+                             for a in layers])}
+    db_ms, db_by = bound(*ssd_cost(B, 1, H, P, N, 2), torch.float32)
+    log(f"timing ssd_scan [decode B={B} S=1 H={H} P={P} N={N}, state in "
+        f"place]: device kernel {d['kernel']:.5f} ms, plain "
+        f"{d['plain']:.5f} ms, bound {db_ms:.6f} ms ({db_by})")
+    return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+                composite_ms=t["composite"], bound_ms=b_ms, bound_by=b_by,
+                shape=shape, decode_ms=d["kernel"], decode_plain_ms=d["plain"],
+                decode_bound_ms=db_ms)
+
+
+def phase_step_zamba(model, params, times) -> None:
+    """One 4-row zamba decode step and one 4 x 1000 prefill, host-issued
+    and as device time, with the SSD kernel's share."""
+    cfg, dev = model.cfg, torch.device("cuda")
+    rng = np.random.default_rng(11)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (ZAMBA_ROWS,
+                                                       ZAMBA_PROMPT))
+                           .astype(np.int32), device=dev)
+    state, _ = model.prefill(params, prompts, ZAMBA_MAX_LEN)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (ZAMBA_ROWS, 1))
+                        .astype(np.int32), device=dev)
+    for name, fn in (
+            (f"zamba decode step ({ZAMBA_ROWS} rows at position "
+             f"{ZAMBA_PROMPT})",
+             lambda: model.decode_step(params, state, toks, ZAMBA_PROMPT)),
+            (f"zamba prefill ({ZAMBA_ROWS} x {ZAMBA_PROMPT})",
+             lambda: model.prefill(params, prompts, ZAMBA_MAX_LEN))):
+        host = time_ms(fn, iters=5, warmup=2)
+        devt = device_ms([fn], reps=5)
+        log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
+            f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
+            f"time)")
+    log(f"zamba: {cfg.n_layers} ssd_scan launches at their device times = "
+        f"{cfg.n_layers * times['decode_ms']:.3f} ms a decode step, "
+        f"{cfg.n_layers * times['ms']:.3f} ms a prefill")
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -1161,6 +1513,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:113"),
     "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:82"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:99"),
 }
 
 
@@ -1185,16 +1539,21 @@ def main() -> int:
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in build.sources())})")
     # flash attention at every D; paged attention (float and int8 pages)
-    # at 4 accumulator columns a lane, D 97-128; the wkv kernel at K 64
+    # at 4 accumulator columns a lane, D 97-128; the wkv kernel at K 64;
+    # the SSD kernel at N = P = 64
     for line in (ptxas_report("flash_attention_kernel")
                  + ptxas_report("paged_attention_mq_kernel", "Li4E")
-                 + ptxas_report("rwkv6_scan_kernel", "ILi64E")):
+                 + ptxas_report("rwkv6_scan_kernel", "ILi64E")
+                 + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")):
         log(f"ptxas {line}")
     errs = phase_parity(dev)
     rwkv_errs = phase_parity_rwkv(dev)
     errs["rwkv6_scan"] = max(e for e, _ in rwkv_errs.values())
+    ssd_errs = phase_parity_ssd(dev)
+    errs["ssd_scan"] = max(e for e, _ in ssd_errs.values())
     phase_small(dev)
     phase_small_rwkv(dev)
+    phase_small_zamba(dev)
     launches, eng, bf16_peak = phase_main()
     # read before the step phase writes into the pool's pages
     prompt = launch_serve.make_prompts(launch_serve.parse_args(MAIN_ARGS),
@@ -1220,7 +1579,13 @@ def main() -> int:
     launches["rwkv6_scan"], eng = phase_main_rwkv()
     times["rwkv6_scan"] = phase_timing_rwkv(dev)
     phase_step_rwkv(eng, times["rwkv6_scan"])
-    del eng
+    del eng                             # free the rwkv engine's weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["ssd_scan"], model, params = phase_main_zamba(dev)
+    times["ssd_scan"] = phase_timing_ssd(dev)
+    phase_step_zamba(model, params, times["ssd_scan"])
+    del model, params
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
     launches["paged_attention_mq_int8"] = \

@@ -8,7 +8,8 @@ which is the one cast the reference instead makes at every call.  Given
 the model's declaration tree (``defs``), a leaf declared with its own
 dtype keeps that dtype instead: the reference reads such a leaf in
 float32 whatever the compute dtype (rwkv6's norms, ``u``, ``decay_base``
-and ``w_o``).
+and ``w_o``; each zamba2 Mamba layer's ``A_log``, ``D``, ``dt_bias`` and
+conv weights, stacked two deep as ``(segments, layers, ...)``).
 """
 from __future__ import annotations
 

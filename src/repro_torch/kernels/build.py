@@ -48,6 +48,9 @@ _SIGNATURES = {
     # r, k, v, w, u, state0 (null: zeros), y, out_state, B, S, H, K, V,
     # r/k/v dtype, stream
     "rwkv6_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
+    # xdt, la, Bm, Cm, state0 (null: zeros), y, out_state, B, S, H, N, P,
+    # Bm/Cm dtype, stream
+    "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
 }
 
 

@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import rwkv6_scan as _rw
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 @dataclasses.dataclass
@@ -28,7 +29,8 @@ class LaunchCount:
 
 COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "paged_attention_mq_int8": LaunchCount(),
-          "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount()}
+          "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount(),
+          "ssd_scan": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -110,3 +112,16 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
         return out
     _count("rwkv6_scan", kernel=False)
     return _rw.rwkv6_scan_plain(r, k, v, w, u, state0, out_state)
+
+
+def ssd_scan(xdt, la, Bm, Cm, state0=None, *, out_state=None):
+    """The Mamba-2 SSD recurrence, xdt (B, S, H, P), la (B, S, H), Bm/Cm
+    (B, S, N) -> (y (B, S, H, P) float32, final state (B, H, N, P)
+    float32); with ``out_state`` the final state lands there in place (it
+    may be ``state0``); see :mod:`repro_torch.kernels.ssd_scan`."""
+    if _route(xdt, "ssd_scan"):
+        out = _ssd.ssd_scan_cuda(xdt, la, Bm, Cm, state0, out_state)
+        _count("ssd_scan", kernel=True)
+        return out
+    _count("ssd_scan", kernel=False)
+    return _ssd.ssd_scan_plain(xdt, la, Bm, Cm, state0, out_state)

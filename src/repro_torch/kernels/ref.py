@@ -7,5 +7,7 @@ from repro_torch.kernels.paged_attention import \
     paged_attention_mq_plain as paged_attention_mq
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as rmsnorm
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain as rwkv6_scan
+from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_scan
 
-__all__ = ["flash_attention", "paged_attention_mq", "rmsnorm", "rwkv6_scan"]
+__all__ = ["flash_attention", "paged_attention_mq", "rmsnorm", "rwkv6_scan",
+           "ssd_scan"]

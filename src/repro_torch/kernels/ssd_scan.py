@@ -1,0 +1,114 @@
+"""The Mamba-2 SSD scan: the CUDA kernel's launcher and its plain PyTorch
+version.
+
+For every batch row and head, with an f32 N x P state ``S`` and one B/C
+group shared by the heads::
+
+    S_t = exp(la_t) S_{t-1} + B_t (outer) xdt_t        y_t = C_t . S_t
+
+over xdt ``(B, S, H, P)``, la ``(B, S, H)`` (the log of each step's decay),
+B and C ``(B, S, N)`` and an initial state ``(B, H, N, P)`` (zeros when
+None).  Returns y ``(B, S, H, P)`` float32 and the final state
+``(B, H, N, P)`` float32.  Every Mamba-2 layer runs it, prefill and decode
+alike.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
+``repro/kernels/ssd_scan.py:ssd_scan`` and, like it, computes the chunked
+dual form; its source note says what bounds it on Hopper and how the
+design answers that.  Unlike the TPU wrapper it takes any sequence length,
+not only multiples of its chunk.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+STATE_DIMS = (4, 8, 16, 32, 64)    # the state widths N the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64)        # the head widths P
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan_plain(xdt, la, Bm, Cm, state0=None, out_state=None):
+    """The recurrence step by step in float32: the CPU path and the
+    kernel's oracle (``repro.kernels.ref.ssd_scan``).  With ``out_state``
+    the final state is copied into it (it may be ``state0``) and
+    returned."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    st = torch.zeros(B, H, N, P, dtype=f32, device=xdt.device) \
+        if state0 is None else state0.to(f32).clone()
+    xf, lf, Bf, Cf = (t.to(f32) for t in (xdt, la, Bm, Cm))
+    y = torch.empty(B, S, H, P, dtype=f32, device=xdt.device)
+    for t in range(S):
+        decay = torch.exp(lf[:, t])[:, :, None, None]           # (B, H, 1, 1)
+        st = st * decay + Bf[:, t, None, :, None] * xf[:, t, :, None, :]
+        y[:, t] = torch.einsum("bn,bhnp->bhp", Cf[:, t], st)
+    if out_state is not None:
+        out_state.copy_(st)
+        st = out_state
+    return y, st
+
+
+def ssd_scan_cuda(xdt, la, Bm, Cm, state0=None, out_state=None):
+    """Launch the SSD kernel on ``xdt``'s card (current stream).  Shapes as
+    in :func:`ssd_scan_plain`; xdt, la, state0 and out_state are float32,
+    Bm and Cm share one dtype (float32 or bfloat16, widened in the kernel);
+    N is one of 4, 8, 16, 32, 64 and P one of 8, 16, 32, 64.
+    ``out_state`` (contiguous) receives the final state in place and may be
+    ``state0``.  Raises on anything else; never falls back."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    dev = xdt.device
+    if not xdt.is_cuda:
+        raise ValueError("ssd_scan_cuda: xdt must lie on a card")
+    named = {"la": la, "Bm": Bm, "Cm": Cm, "state0": state0,
+             "out_state": out_state}
+    for name, t in named.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"ssd_scan_cuda: {name} on {t.device}, xdt on "
+                             f"{dev}")
+    for name, t in (("xdt", xdt), ("la", la), ("state0", state0),
+                    ("out_state", out_state)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan_cuda: {name} is {t.dtype}, want "
+                            "float32")
+    if Bm.dtype not in _DTYPE_CODES or Cm.dtype != Bm.dtype:
+        raise TypeError(f"ssd_scan_cuda: dtypes Bm={Bm.dtype} Cm={Cm.dtype}; "
+                        "want one of float32/bfloat16 for both")
+    state_shape = (B, H, N, P)
+    if (la.shape != (B, S, H) or Bm.shape != (B, S, N)
+            or Cm.shape != (B, S, N)
+            or (state0 is not None and state0.shape != state_shape)
+            or (out_state is not None and out_state.shape != state_shape)):
+        raise ValueError(
+            f"ssd_scan_cuda: xdt {tuple(xdt.shape)}, la {tuple(la.shape)}, "
+            f"Bm/Cm {tuple(Bm.shape)}/{tuple(Cm.shape)}, state0 "
+            f"{None if state0 is None else tuple(state0.shape)}, out_state "
+            f"{None if out_state is None else tuple(out_state.shape)}; want "
+            f"(B, S, H, P), (B, S, H), (B, S, N) and {state_shape}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"ssd_scan_cuda: state width N={N} not in "
+                         f"{STATE_DIMS}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan_cuda: head width P={P} not in "
+                         f"{HEAD_DIMS}")
+    if out_state is None:
+        out_state = torch.empty(state_shape, dtype=torch.float32, device=dev)
+    elif not out_state.is_contiguous():
+        raise ValueError("ssd_scan_cuda: out_state must be contiguous (it "
+                         "is written in place)")
+    y = torch.empty(B, S, H, P, dtype=torch.float32, device=dev)
+    xdt, la, Bm, Cm = (t.contiguous() for t in (xdt, la, Bm, Cm))
+    if state0 is not None:
+        state0 = state0.contiguous()
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.ssd_scan_launch(
+            xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            None if state0 is None else state0.data_ptr(), y.data_ptr(),
+            out_state.data_ptr(), B, S, H, N, P, _DTYPE_CODES[Bm.dtype],
+            stream), "ssd_scan")
+    return y, out_state

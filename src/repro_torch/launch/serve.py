@@ -9,7 +9,9 @@ int8`` with int8 weights, quantized as they are drawn); ``--dense`` serves
 through the dense per-slot path instead (whole-prompt prefills farmed over
 ``--prefill-workers`` threads);
 ``--arch rwkv6-3b`` serves rwkv6 (a recurrent state per slot, no paged
-KV cache) on the dense path without ``--dense``;
+KV cache) on the dense path without ``--dense``; ``--arch zamba2-7b`` is
+refused, as in the reference (zamba2 serves only as an aligned batch:
+:class:`repro_torch.models.api.HybridLM`);
 ``--smoke --device cpu`` runs the small config on the CPU through the
 kernels' plain versions.  Prints the reference launcher's summary lines
 plus each kernel's launch count.
@@ -77,6 +79,11 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
+    why = model.engine_refusal()
+    if why:  # before init allocates the weights
+        raise SystemExit(f"{args.arch}: the engine demo serves KV-cache and "
+                         f"recurrent-slot families; {args.arch} is {why} "
+                         f"({type(model).__name__}.prefill and decode_step)")
     params = model.init(0, device=args.device, weight_quant=args.weight_quant)
     eng = ServeEngine(model, params, max_slots=args.slots,
                       max_len=args.max_len, page_size=args.page_size,

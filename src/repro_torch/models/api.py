@@ -1,16 +1,17 @@
-"""Model API of the port: :class:`DecoderLM`, :class:`RwkvLM` and
-:func:`build_model`.
+"""Model API of the port: :class:`DecoderLM`, :class:`RwkvLM`,
+:class:`HybridLM` and :func:`build_model`.
 
 Counterpart of ``repro.models.api`` for the serving paths ported so far:
 the dense decoders paged (chunked prefill and decode against a page pool)
 and dense per-slot (whole-prompt prefill and decode against a per-slot
-cache), and rwkv6 on the dense per-slot path (a recurrent state per
-slot).  The members are plain functions over dict-of-tensor params, which
+cache), rwkv6 on the dense per-slot path (a recurrent state per slot), and
+zamba2 as an aligned batch (prefill, then decode at one position for every
+row).  The members are plain functions over dict-of-tensor params, which
 is all the serving engine calls.
 """
 from __future__ import annotations
 
-__all__ = ["DecoderLM", "RwkvLM", "build_model"]
+__all__ = ["DecoderLM", "RwkvLM", "HybridLM", "build_model"]
 
 from typing import Optional, Union
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as T
+from repro_torch.models import zamba as Z
 from repro_torch.models.module import (init_params, resolve_device,
                                        torch_dtype)
 
@@ -29,6 +31,23 @@ def _generator(generator_or_seed, dev) -> torch.Generator:
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(generator_or_seed))
     return gen
+
+
+def _init_float(model, generator_or_seed, device, dtype, weight_quant,
+                serves: str) -> dict:
+    """``init`` of a family that serves off the paged path: random weights
+    without quantization (``weight_quant="int8"`` is refused, naming where
+    the family ``serves``)."""
+    cfg = model.cfg
+    if weight_quant not in (None, "off"):
+        raise ValueError(
+            f"weight_quant={weight_quant!r} is refused for {cfg.name} "
+            f"({cfg.family}): int8 weights are wired through the paged "
+            f"serving path only, and this family serves {serves}")
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype) if dtype is None else dtype
+    return init_params(model.param_defs(), _generator(generator_or_seed, dev),
+                       device=dev, dtype=dt)
 
 
 class DecoderLM:
@@ -67,6 +86,10 @@ class DecoderLM:
     def supports_paged_decode(self) -> bool:
         """Whether the family has a per-token KV cache that can page."""
         return not T.uses_window_cache(self.cfg)
+
+    def engine_refusal(self) -> Optional[str]:
+        """None: the serving engine serves the family."""
+        return None
 
     def paged_leaf_specs(self, quant=None):
         """``{"k", "v"}`` :class:`repro_torch.serve.pages.PagedLeafSpec`:
@@ -141,22 +164,16 @@ class RwkvLM:
         float32.  A seed builds a ``torch.Generator`` on the device; a
         generator must live there.  ``weight_quant="int8"`` is refused: int8
         weights are wired through the paged serving path only."""
-        cfg = self.cfg
-        if weight_quant not in (None, "off"):
-            raise ValueError(
-                f"weight_quant={weight_quant!r} is refused for {cfg.name} "
-                f"({cfg.family}): int8 weights are wired through the paged "
-                "serving path only, and this family serves on the dense "
-                "per-slot path")
-        dev = resolve_device(device)
-        dt = torch_dtype(cfg.dtype) if dtype is None else dtype
-        return init_params(self.param_defs(), _generator(generator_or_seed,
-                                                         dev),
-                           device=dev, dtype=dt)
+        return _init_float(self, generator_or_seed, device, dtype,
+                           weight_quant, "on the dense per-slot path")
 
     def supports_paged_decode(self) -> bool:
         """False: a recurrent state has no per-token KV cache to page."""
         return False
+
+    def engine_refusal(self) -> Optional[str]:
+        """None: the serving engine serves the family (dense path)."""
+        return None
 
     def prefill(self, params, tokens):
         """Whole prompts (B, S) -> (state, final hidden (B, S, d))."""
@@ -178,17 +195,76 @@ class RwkvLM:
         return T.lm_logits(params, hidden)
 
 
-_FAMILIES = {"dense": DecoderLM, "ssm": RwkvLM}
+class HybridLM:
+    """Zamba2-style Mamba-2 / shared-attention hybrid: served as an aligned
+    batch, as in the reference (prefill of prompts of one length, then
+    decode steps at one position for the whole batch, the logits head).
+    The serving engine refuses the family, as the reference's launcher
+    does."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def param_defs(self) -> dict:
+        """Tree of :class:`repro_torch.models.module.Param` for every weight
+        (each Mamba layer's ``A_log``, ``D``, ``dt_bias`` and conv weights
+        declared float32)."""
+        return Z.zamba_defs(self.cfg)
+
+    def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
+             device=None, dtype: Optional[torch.dtype] = None,
+             weight_quant: Optional[str] = None) -> dict:
+        """Random weights on ``device`` (``cuda`` unless named) in ``dtype``
+        (the config's compute dtype unless named), the float32 leaves in
+        float32.  A seed builds a ``torch.Generator`` on the device; a
+        generator must live there.  ``weight_quant="int8"`` is refused: int8
+        weights are wired through the paged serving path only."""
+        return _init_float(self, generator_or_seed, device, dtype,
+                           weight_quant, "as an aligned batch")
+
+    def supports_paged_decode(self) -> bool:
+        """False: the Mamba state has no per-token KV cache to page."""
+        return False
+
+    def engine_refusal(self) -> Optional[str]:
+        """Why the serving engine does not serve the family: it serves only
+        as an aligned batch, as in the reference."""
+        return Z.ALIGNED_ONLY
+
+    def prefill(self, params, tokens, max_len: int):
+        """Prompts (B, S) of one length -> (state, final hidden (B, S, d));
+        the shared block's caches hold ``max_len`` rows."""
+        return Z.prefill(params, self.cfg, tokens, max_len)
+
+    def init_decode_state(self, batch: int, max_len: int, *, device=None):
+        """Zeroed state (:func:`repro_torch.models.zamba.init_state`) on
+        ``device`` (``cuda`` unless named)."""
+        return Z.init_state(self.cfg, batch, max_len,
+                            dtype=torch_dtype(self.cfg.dtype),
+                            device=resolve_device(device))
+
+    def decode_step(self, params, state, tokens, pos):
+        """tokens (B, 1) at the one position ``pos`` of the whole batch ->
+        float32 logits (B, 1, V); ``state`` advanced in place.  A per-row
+        position vector raises ``ValueError``."""
+        return Z.decode_step(params, self.cfg, state, tokens, pos)
+
+    def lm_head(self, params, hidden):
+        """Project final hidden states to float32 vocab logits."""
+        return T.lm_logits(params, hidden)
+
+
+_FAMILIES = {"dense": DecoderLM, "ssm": RwkvLM, "hybrid": HybridLM}
 # families of the reference still to port, and the ROADMAP item they wait for
 _NOT_PORTED = {"moe": "MoE (ROADMAP A9)",
                "vlm": "multimodal (ROADMAP A10)",
-               "audio": "multimodal (ROADMAP A10)",
-               "hybrid": "mamba2 / zamba with kernel B5 (ROADMAP A11)"}
+               "audio": "multimodal (ROADMAP A10)"}
 
 
 def build_model(cfg: ModelConfig):
     """The family's model class bound to ``cfg``: :class:`DecoderLM` for
-    dense decoders, :class:`RwkvLM` for rwkv6 (``ssm``)."""
+    dense decoders, :class:`RwkvLM` for rwkv6 (``ssm``), :class:`HybridLM`
+    for zamba2 (``hybrid``)."""
     if cfg.family not in _FAMILIES:
         slice_name = _NOT_PORTED.get(cfg.family, "an unplanned")
         raise NotImplementedError(

@@ -1,0 +1,174 @@
+"""Zamba2-style hybrid LM for serving: a Mamba-2 backbone with one *shared*
+transformer block applied after every ``cfg.shared_attn_every`` layers.
+
+Counterpart of the serving half of ``repro.models.zamba`` (zamba2-7b: 81
+Mamba-2 layers in 3 segments of 27, the shared block after each).  The
+shared block has one parameter copy but one KV cache per application.
+
+The reference serves this family only as an **aligned batch**: every row
+prefilled from position 0 with prompts of one length, then decoded with
+one scalar position for the whole batch (``HybridLM.prefill`` and
+``decode_step``); its serving engine refuses the family.  The same holds
+here: ``pos`` is one integer, and a per-row position vector raises.
+
+The decode state holds, per Mamba layer (stacked ``(segments,
+layers_per_segment, ...)``), the float32 SSM state and conv tails, and per
+application of the shared block a K/V cache of ``max_len`` rows.  The
+reference scans each segment with ``jax.lax.scan`` and returns a new state;
+here Python loops walk the segments and layers and advance the state **in
+place** (the SSD kernel writes each layer's SSM state, the block its conv
+tails, and the shared block's K/V rows land by slice assignment), so the
+caller's one copy is the result.  ``forward`` and ``lm_loss`` come with the
+training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import transformer as T
+from repro_torch.models.module import Param, torch_dtype, tree_map
+
+# why the family is served only as an aligned batch, for every refusal
+ALIGNED_ONLY = (
+    "served only as an aligned batch (prompts of one length, then decode "
+    "steps at one position for the whole batch), as in the reference: its "
+    "shared block writes the cache with dynamic_update_slice at one scalar "
+    "start (repro/models/zamba.py:72), so per-row positions fail there, and "
+    "its launcher refuses the family (repro/launch/serve.py:215)")
+
+
+def _n_segments(cfg) -> int:
+    k = cfg.shared_attn_every
+    if k <= 0 or cfg.n_layers % k:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a "
+                         f"multiple of shared_attn_every={k}")
+    return cfg.n_layers // k
+
+
+def zamba_defs(cfg) -> dict:
+    """Parameter tree of the whole model; the Mamba layers stacked as
+    ``(segments, layers_per_segment, ...)``."""
+    seg, k = _n_segments(cfg), cfg.shared_attn_every
+    mamba_layer = {"ln": L.rmsnorm_def(cfg.d_model),
+                   "mamba": M2.mamba2_def(cfg)}
+    return {
+        "embed": {"table": Param((cfg.padded_vocab, cfg.d_model),
+                                 init="small")},
+        "mamba_blocks": T.stack_defs(T.stack_defs(mamba_layer, k), seg),
+        "shared": {
+            "ln1": L.rmsnorm_def(cfg.d_model),
+            "attn": A.attention_def(cfg),
+            "ln2": L.rmsnorm_def(cfg.d_model),
+            "mlp": L.mlp_def(cfg.d_model, cfg.d_ff),
+        },
+        "final_norm": L.rmsnorm_def(cfg.d_model),
+        "unembed": {"w": Param((cfg.d_model, cfg.padded_vocab),
+                               init="small")},
+    }
+
+
+def _shared_block(params, x, cfg, *, positions, cache_k, cache_v, cache_pos):
+    """One application of the shared attention + MLP block against its own
+    cache: the new K/V rows are written at ``cache_pos`` in place (a start
+    past ``max_len - S`` is clamped, as ``dynamic_update_slice`` does), then
+    the queries attend over the cache, masked by ``cache_pos + S``.  The
+    mask's offsets are read from ``positions`` (``cache_pos + arange(S)``
+    on the device), so a step copies nothing from the host."""
+    h = L.rmsnorm(params["ln1"], x)
+    q, k, v = A.qkv_project(params["attn"], h, cfg, positions)
+    S, max_len = q.shape[1], cache_k.shape[1]
+    start = min(max(cache_pos, 0), max_len - S)
+    cache_k[:, start:start + S] = k
+    cache_v[:, start:start + S] = v
+    o = A.gqa_attention(q, cache_k, cache_v, causal=True,
+                        q_offset=positions[0], kv_valid_len=positions[-1] + 1,
+                        kv_chunk=max(max_len, 1))
+    x = x + A.out_project(params["attn"], o)
+    h = L.rmsnorm(params["ln2"], x)
+    return x + L.mlp(params["mlp"], h)
+
+
+def _mamba_segment(seg_params, x, cfg, states):
+    """The segment's Mamba layers in order, each pre-normed and residual;
+    ``states`` (``{"ssm", "conv"}`` stacked on the segment's layer axis)
+    are advanced in place."""
+    for i in range(cfg.shared_attn_every):
+        p = T._layer(seg_params, i)
+        h = L.rmsnorm(p["ln"], x)
+        y, _, _ = M2.mamba2_block(
+            p["mamba"], h, cfg, ssm_state=states["ssm"][i],
+            conv_state={c: states["conv"][c][i] for c in "xBC"})
+        x = x + y
+    return x
+
+
+def init_state(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
+    """Zeroed decode state: ``mamba`` ``{"ssm" (seg, k, batch, H, N, P),
+    "conv" {"x", "B", "C"} (seg, k, batch, K-1, C)}`` in float32, and
+    ``attn_cache`` ``{"k", "v"}`` (seg, batch, max_len, Hkv, D) in
+    ``dtype``."""
+    seg, k = _n_segments(cfg), cfg.shared_attn_every
+    layer = M2.init_mamba_state(cfg, batch, device=device)
+    kv = (seg, batch, max_len, cfg.padded_kv_heads, cfg.head_dim)
+    return {
+        "mamba": tree_map(lambda t: t.new_zeros((seg, k) + tuple(t.shape)),
+                          layer),
+        "attn_cache": {"k": torch.zeros(kv, dtype=dtype, device=device),
+                       "v": torch.zeros(kv, dtype=dtype, device=device)},
+    }
+
+
+def _check_pos(pos) -> int:
+    """One position for the whole batch, as the reference serves it."""
+    t = torch.as_tensor(pos)
+    if t.ndim != 0:
+        raise ValueError(f"zamba: pos must be one integer for the whole "
+                         f"batch, got shape {tuple(t.shape)}: the family is "
+                         f"{ALIGNED_ONLY}")
+    return int(t.item())
+
+
+def _forward_with_state(params, cfg, x, state, pos: int):
+    """Shared by prefill (S >= 1) and decode (S == 1): the segments, each
+    followed by the shared block, then the final norm; ``state`` is
+    advanced in place."""
+    S = x.shape[1]
+    positions = pos + torch.arange(S, device=x.device)
+    mamba, cache = state["mamba"], state["attn_cache"]
+    for s in range(_n_segments(cfg)):
+        x = _mamba_segment(T._layer(params["mamba_blocks"], s), x, cfg,
+                           {"ssm": mamba["ssm"][s],
+                            "conv": {c: mamba["conv"][c][s] for c in "xBC"}})
+        x = _shared_block(params["shared"], x, cfg, positions=positions,
+                          cache_k=cache["k"][s], cache_v=cache["v"][s],
+                          cache_pos=pos)
+    return L.rmsnorm(params["final_norm"], x)
+
+
+def _embed(params, cfg, tokens):
+    return T.embed_tokens(params, tokens).to(torch_dtype(cfg.dtype))
+
+
+def prefill(params, cfg, tokens, max_len: int):
+    """Prompts (B, S) of one length from position 0 -> (state with a
+    ``max_len``-row cache, final hidden (B, S, d))."""
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"zamba prefill: {S} tokens do not fit max_len="
+                         f"{max_len}")
+    state = init_state(cfg, B, max_len, dtype=torch_dtype(cfg.dtype),
+                       device=tokens.device)
+    x = _forward_with_state(params, cfg, _embed(params, cfg, tokens), state, 0)
+    return state, x
+
+
+def decode_step(params, cfg, state, tokens, pos):
+    """tokens (B, 1) at the one position ``pos`` (an int, or a 0-dim
+    tensor) -> float32 logits (B, 1, V); ``state`` is advanced in place."""
+    pos = _check_pos(pos)
+    x = _forward_with_state(params, cfg, _embed(params, cfg, tokens), state,
+                            pos)
+    return T.lm_logits(params, x)

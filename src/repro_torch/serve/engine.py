@@ -49,7 +49,9 @@ raises.
 Features of the reference engine that later port slices bring (seeded and
 custom sampling, encoder inputs, speculative decode, the device mesh,
 prefill-only disaggregation) raise ``NotImplementedError`` here instead of
-being ignored.
+being ignored.  A model whose ``engine_refusal()`` names a reason is
+refused: the hybrid family (zamba2) serves only as an aligned batch
+(:class:`repro_torch.models.api.HybridLM`), as in the reference.
 """
 
 from __future__ import annotations
@@ -126,6 +128,12 @@ class ServeEngine:
         for bad, what, slice_name in refused:
             if bad:
                 raise _not_ported(what, slice_name)
+        why = model.engine_refusal()
+        if why:
+            raise ValueError(f"{model.cfg.name} ({model.cfg.family}) is not "
+                             f"served by the engine: the family is {why}; "
+                             f"call {type(model).__name__}.prefill and "
+                             "decode_step")
         self.paged = model.supports_paged_decode() if paged is None \
             else bool(paged)
         if self.paged and not model.supports_paged_decode():

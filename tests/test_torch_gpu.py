@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch version
-at the served archs' shapes, and the serving engine (paged and dense
+at the served archs' shapes, the serving engine (paged and dense
 per-slot, qwen2-7b and rwkv6-3b) on the card through the kernels against
-the same engine on the CPU.  Every test here needs a card
+the same engine on the CPU, and zamba2's aligned batch the same way.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -344,4 +344,121 @@ def test_rwkv_engine_on_card_matches_cpu(card):
     assert all(c.plain == 0 for c in ops.COUNTS.values())
     assert all(c.kernel == 0 for n, c in ops.COUNTS.items()
                if n != "rwkv6_scan")
+    assert got == want
+
+
+# (B, S, H, P, N): the reference's three cases, a ragged length, and the
+# full-width prefill and decode shapes of zamba2-7b
+SSD_CASES = [(2, 256, 3, 16, 8), (1, 128, 2, 32, 16), (1, 512, 1, 8, 4),
+             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64)]
+# both sides compute in float32 from the same (exactly widened) inputs; the
+# kernel's chunked form reassociates the decay products: max |d| over
+# max(1, max |plain|) (a CPU mirror of its arithmetic gave 8.7e-7)
+SSD_REL = 1e-5
+
+
+def _ssd_case(rng, card, bc_dtype, B, S, H, P, N):
+    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -dt (A_log
+    0), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a nonzero state."""
+    f = np.float32
+    dt = np.log1p(np.exp(rng.normal(size=(B, S, H))))
+    xdt = torch.from_numpy((rng.normal(size=(B, S, H, P)) * dt[..., None])
+                           .astype(f)).to(card)
+    la = torch.from_numpy((-dt).astype(f)).to(card)
+    bm, cm = (torch.from_numpy(rng.normal(size=(B, S, N)).astype(f))
+              .to(card, DTYPES[bc_dtype]) for _ in range(2))
+    s0 = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(f)).to(card)
+    return xdt, la, bm, cm, s0
+
+
+def _ssd_close(got, want, what):
+    err = (got - want).abs().max().item()
+    limit = SSD_REL * max(1.0, want.abs().max().item())
+    assert err <= limit, f"{what}: max abs err {err} > {limit}"
+
+
+@pytest.mark.parametrize("bc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(card, bc_dtype, B, S, H, P, N):
+    """y and the final state against the plain version: the state written
+    in place into ``state0`` (the decode step's use), from a given state
+    into a fresh one, and from zeros."""
+    rng = np.random.default_rng(S + P + N)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, bc_dtype, B, S, H, P, N)
+    want_y, want_s = ref.ssd_scan(xdt, la, bm, cm, s0)
+    state = s0.clone()
+    ops.reset_counts()
+    y, st = ops.ssd_scan(xdt, la, bm, cm, state, out_state=state)
+    torch.cuda.synchronize()
+    assert st is state and ops.COUNTS["ssd_scan"].kernel == 1
+    _ssd_close(y, want_y, "y")
+    _ssd_close(state, want_s, "state")
+    y1, s1 = ops.ssd_scan(xdt, la, bm, cm, s0)
+    _ssd_close(y1, want_y, "y, state given")
+    _ssd_close(s1, want_s, "state, state given")
+    y0, s_zero = ops.ssd_scan(xdt, la, bm, cm)
+    want_y0, want_s0 = ref.ssd_scan(xdt, la, bm, cm)
+    _ssd_close(y0, want_y0, "y from zeros")
+    _ssd_close(s_zero, want_s0, "state from zeros")
+
+
+@pytest.mark.parametrize("N", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("P", [8, 16, 32, 64])
+def test_ssd_scan_kernel_every_width(card, P, N):
+    """Every (N, P) instantiation, over two chunks and a ragged third."""
+    rng = np.random.default_rng(P * N)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, "bfloat16", 2, 70, 3, P, N)
+    want_y, want_s = ref.ssd_scan(xdt, la, bm, cm, s0)
+    y, st = ops.ssd_scan(xdt, la, bm, cm, s0)
+    _ssd_close(y, want_y, "y")
+    _ssd_close(st, want_s, "state")
+
+
+def test_ssd_scan_wrapper_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    rng = np.random.default_rng(4)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, "bfloat16", 1, 8, 2, 24, 8)
+    with pytest.raises(ValueError, match="head width P=24"):
+        ssd_scan_cuda(xdt, la, bm, cm, s0)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, "bfloat16", 1, 8, 2, 16, 12)
+    with pytest.raises(ValueError, match="state width N=12"):
+        ssd_scan_cuda(xdt, la, bm, cm, s0)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, "bfloat16", 1, 8, 2, 16, 8)
+    with pytest.raises(TypeError, match="xdt is torch.bfloat16"):
+        ssd_scan_cuda(xdt.bfloat16(), la, bm, cm, s0)
+    with pytest.raises(TypeError, match="dtypes Bm="):
+        ssd_scan_cuda(xdt, la, bm, cm.float(), s0)
+    with pytest.raises(ValueError, match="want"):
+        ssd_scan_cuda(xdt, la[:, :4], bm, cm, s0)
+
+
+def test_zamba_on_card_matches_cpu(card):
+    """SMOKE zamba2-7b in float32 as an aligned batch: prefill, then
+    decode steps at one position; every Mamba layer runs the SSD kernel
+    once a prefill or step, never its plain version, and the greedy
+    streams equal the CPU's."""
+    model = build_model(smoke_config("zamba2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = torch.tensor(np.random.default_rng(2).integers(
+        0, model.cfg.vocab, (3, 9)).astype(np.int32))
+    new = 8
+
+    def greedy(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        state, hidden = model.prefill(params, prompts.to(device), 9 + new)
+        tok = model.lm_head(params, hidden[:, -1:]).argmax(-1)
+        out = [tok]
+        for step in range(new - 1):
+            tok = model.decode_step(params, state, tok.int(), 9 + step)\
+                .argmax(-1)
+            out.append(tok)
+        return torch.cat(out, 1).cpu().tolist()
+
+    want = greedy("cpu")
+    ops.reset_counts()
+    got = greedy(card)
+    assert ops.COUNTS["ssd_scan"].kernel == model.cfg.n_layers * new
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    assert all(c.kernel == 0 for n, c in ops.COUNTS.items()
+               if n not in ("ssd_scan", "rmsnorm"))
     assert got == want

@@ -41,6 +41,8 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.core.runtime, repro_torch.optim.compress\n"
             "import repro_torch.serve.quant, repro_torch.models.rwkv6\n"
             "import repro_torch.models.rwkv_lm, repro_torch.kernels.rwkv6_scan\n"
+            "import repro_torch.models.mamba2, repro_torch.models.zamba\n"
+            "import repro_torch.kernels.ssd_scan\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
