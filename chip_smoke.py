@@ -8,19 +8,27 @@ Phases (any failure exits non-zero before the result lines):
                  limit.
 2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all at once) and prints what ptxas
-                 reports of the flash-attention kernels', the D-128
-                 paged-attention kernels', the K-64 wkv kernels' and the
-                 N = P = 64 SSD kernel's registers and spills.
+                 reports of the flash-attention kernels' (both routes), the
+                 D 97-128 paged-attention split kernels' and the combine
+                 kernels', the K-64 wkv kernels' and the N = P = 64 SSD
+                 kernel's registers, spills and shared memory.
 3. parity      — each kernel against its plain PyTorch version at the main
-                 paths' shapes, with the tolerances printed beside them.
+                 paths' shapes, with the tolerances printed beside them;
+                 flash attention on its tensor-core route (bf16, D 64 and
+                 128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
+                 strided q/k/v) and its CUDA-core route; paged attention
+                 split over many key ranges (tables of 128 and 512 pages,
+                 lengths on and beside a split edge, W 64 deep in the
+                 table), float and int8 pages.
 4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
                  same greedy streams as on the CPU, paged and then dense.
 5. main        — full-width, full-depth qwen2-7b (28 layers, bf16, seeded
                  random weights) through the serving launcher, paged: 8
                  requests sharing a 256-token prefix, 32 new tokens each;
                  every request must finish, the paged path's kernels must
-                 launch, no plain version may run, and the prefix cache
-                 must hit.
+                 launch, every paged-attention call split over more than
+                 one key range, no plain version may run, and the prefix
+                 cache must hit.
 6. timing      — each kernel, its plain version and one PyTorch yardstick
                  call timed at the main paths' shapes (device time from a
                  replayed CUDA graph; the host-issued time printed beside),
@@ -48,8 +56,9 @@ Phases (any failure exits non-zero before the result lines):
                  8 requests of 964-1007 tokens (a 960-token shared prefix),
                  so every whole-prompt prefill runs at bucket 1024, farmed
                  over the prefill farm; every request must finish,
-                 flash attention must launch 28 times a prefill, RMSNorm
-                 must launch, and no plain version may run.  Then, in
+                 flash attention must launch 28 times a prefill, every
+                 launch on the tensor-core route, RMSNorm must launch, and
+                 no plain version may run.  Then, in
                  float32 on the same weights, one prompt's prefill through
                  the kernel and through its plain version must give the
                  same layer-1 K cache (the gap of every layer printed).
@@ -181,8 +190,10 @@ MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
              "--slots", "4", "--max-len", "512", "--page-size", str(PS),
              "--prefill-chunk", "64", "--prefix-cache", "on",
              "--shared-prefix", "256", "--device", "cuda"]
-PAGED_KERNELS = ("rmsnorm", "paged_attention_mq")   # the paged path runs
-INT8_KERNELS = ("rmsnorm", "paged_attention_mq_int8")  # ... with int8 pages
+# the paged path runs (with the sub-count of split paged-attention calls)
+PAGED_KERNELS = ("rmsnorm", "paged_attention_mq", "paged_attention_mq_split")
+INT8_KERNELS = ("rmsnorm", "paged_attention_mq_int8",   # ... with int8 pages
+                "paged_attention_mq_split")
 INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
 # (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
 INT8_HEADS = ((28, 4, 128), (4, 2, 16))
@@ -190,7 +201,9 @@ DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
               "--max-new", "32", "--slots", "4", "--max-len", "2048",
               "--shared-prefix", "960", "--device", "cuda"]
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): the reference's five kernel
-# cases, a ragged length, D = 64 and 256, and the dense prefill's shape
+# cases, a ragged length, D = 64 and 256, the dense prefill's shapes (S
+# 1024 and 2048) and a ragged 1000 at its heads, Sq != Sk both ways; bf16
+# at D 64 and 128 takes the tensor-core route
 FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 512, 512, 2, 2, 16, True, 100),
                (2, 256, 256, 4, 1, 32, False, None),
@@ -199,7 +212,20 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 200, 200, 4, 2, 128, True, None),
                (1, 200, 200, 8, 2, 64, True, 48),
                (1, 300, 300, 8, 2, 256, True, None),
-               (1, 1024, 1024, 28, 4, 128, True, None)]
+               (1, 1024, 1024, 28, 4, 128, True, None),
+               (1, 2048, 2048, 28, 4, 128, True, None),
+               (1, 1000, 1000, 28, 4, 128, True, None),
+               (1, 130, 90, 4, 2, 64, False, None),
+               (2, 300, 200, 28, 4, 128, True, None)]
+# (B, W, Hq, Hkv, P, n_pages, lengths): paged attention split over many key
+# ranges (64 positions each): tables of 128 and 512 pages of 16 (32 and
+# 128 splits), lengths on a split edge (64, 128: the last key ends a range)
+# and beside it (63, 65, 129), a dead slot, W 64 deep in the table
+SPLIT_CASES = [(4, 1, 28, 4, 128, 160, (2000, 64, 65, 0)),
+               (4, 1, 28, 4, 512, 600, (8000, 63, 128, 129)),
+               (2, 4, 28, 4, 128, 300, (1500, 0)),
+               (1, 64, 28, 4, 128, 160, (1900,)),
+               (1, 64, 16, 8, 512, 600, (6000,))]
 
 
 def log(msg: str) -> None:
@@ -373,16 +399,74 @@ def phase_parity(dev) -> dict:
                                             window=window), dtype)
             key = str(dtype).split(".")[-1]
             flash_errs[key] = max(flash_errs.get(key, 0.0), err)
+    # q, k, v sliced out of one fused buffer: read through their strides
+    qkv = torch.randn(2, 1024, 36, 128, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :28], qkv[:, :, 28:32], qkv[:, :, 32:]
+    ops.reset_counts()
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if ops.COUNTS["flash_attention_tc"].kernel != 1:
+        raise AssertionError("flash_attention strided bf16 D 128: not on the "
+                             "tensor-core route")
+    flash_errs["bfloat16"] = max(flash_errs["bfloat16"], check(
+        "flash_attention", "strided q/k/v B=2 S=1024 Hq=28 Hkv=4 D=128 "
+        "bfloat16", got, ref.flash_attention(q, k, v), torch.bfloat16))
     errs["flash_attention"] = max(flash_errs.values())
     int8_errs = phase_parity_int8(rng, dev)
     errs["paged_attention_mq_int8"] = max(int8_errs.values())
+    split_errs = phase_parity_split(rng, dev)
+    errs["paged_attention_mq"] = max(errs["paged_attention_mq"],
+                                     split_errs["paged_attention_mq"])
+    errs["paged_attention_mq_int8"] = max(
+        errs["paged_attention_mq_int8"], split_errs["paged_attention_mq_int8"])
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
     log(f"parity ok: 16 rmsnorm + 24 paged_attention_mq + "
-        f"{2 * len(FLASH_CASES)} flash_attention + 24 "
-        f"paged_attention_mq_int8 cases, tol (rtol=atol) {tols}; max abs "
-        f"err {errs}; flash_attention by dtype {flash_errs}; "
-        f"paged_attention_mq_int8 by dtype {int8_errs}")
+        f"{2 * len(FLASH_CASES) + 1} flash_attention + 24 "
+        f"paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
+        f"paged-attention cases, tol (rtol=atol) {tols}; max abs err "
+        f"{errs}; flash_attention by dtype {flash_errs}; "
+        f"paged_attention_mq_int8 by dtype {int8_errs}; split cases "
+        f"{split_errs}")
+    return errs
+
+
+def phase_parity_split(rng, dev) -> dict:
+    """Paged attention over SPLIT_CASES (many key splits), float and int8
+    pages, q in bf16 and f32: the split and combine kernels against the
+    plain version; a dead slot's row 0 must be zero.  Max abs error by
+    kernel name."""
+    from repro_torch.kernels.paged_attention import split_count
+    errs = {"paged_attention_mq": 0.0, "paged_attention_mq_int8": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, W, Hq, Hkv, P, n_pages, lengths in SPLIT_CASES:
+            trash = n_pages
+            q = torch.randn(B, W, Hq, 128, device=dev).to(dtype)
+            kp = torch.randn(n_pages + 1, PS, Hkv, 128, device=dev)
+            vp = torch.randn(n_pages + 1, PS, Hkv, 128, device=dev)
+            kp[trash], vp[trash] = 1e4, -1e4
+            tables = np.full((B, P), trash, np.int32)
+            for b, n in enumerate(lengths):
+                used = -(-(n + W - 1) // PS) if n else 0
+                tables[b, :used] = rng.permutation(n_pages)[:used]
+            tb = torch.tensor(tables, device=dev)
+            ln = torch.tensor(np.asarray(lengths, np.int32), device=dev)
+            label = (f"split B={B} W={W} Hq={Hq} Hkv={Hkv} P={P} "
+                     f"({split_count(P, PS)} splits) lengths={lengths} "
+                     f"{dtype}")
+            pages = quantize_pages(kp, vp)
+            for name, args in (
+                    ("paged_attention_mq", (kp.to(dtype), vp.to(dtype), tb,
+                                            ln)),
+                    ("paged_attention_mq_int8", (pages[0], pages[1], tb, ln,
+                                                 *pages[2:]))):
+                got = ops.paged_attention_mq(q, *args)
+                torch.cuda.synchronize()
+                if 0 in lengths and got[list(lengths).index(0), 0].any():
+                    raise AssertionError(f"{name} {label}: dead slot not zero")
+                errs[name] = max(errs[name], check(
+                    name, label, got, ref.paged_attention_mq(q, *args),
+                    dtype))
     return errs
 
 
@@ -474,9 +558,23 @@ def serve_main(extra=()):
     return eng, counts, wall, torch.cuda.max_memory_allocated()
 
 
+def check_split(label: str, counts: dict, name: str, P: int) -> None:
+    """Every paged-attention call of the run split over more than one key
+    range: the shapes-only split count of the table is above 1, and the
+    split sub-count equals the calls."""
+    from repro_torch.kernels.paged_attention import split_count
+    n = split_count(P, PS)
+    if n <= 1 or counts["paged_attention_mq_split"][0] != counts[name][0]:
+        raise AssertionError(f"{label}: {n} splits for a table of {P} pages, "
+                             f"{counts['paged_attention_mq_split'][0]} split "
+                             f"calls of {counts[name][0]} {name} calls")
+
+
 def phase_main():
     eng, counts, wall, peak = serve_main()
     check_served(eng, "main path", counts, PAGED_KERNELS)
+    check_split("main path", counts, "paged_attention_mq",
+                eng.sched.pages_per_slot)
     cfg, done = eng.model.cfg, eng.finished
     toks = sum(len(r.output) for r in done)
     s = eng.stats
@@ -526,6 +624,8 @@ def phase_main_int8(ref_kv, ref_streams, prompt):
     ``prompt`` within half a step of the bf16 run's (``ref_kv``)."""
     eng, counts, wall, peak = serve_main(["--kv-quant", "int8"])
     check_served(eng, "main-int8", counts, INT8_KERNELS)
+    check_split("main-int8", counts, "paged_attention_mq_int8",
+                eng.sched.pages_per_slot)
     s, cfg = eng.stats, eng.model.cfg
     if s["kv_bytes_per_token"] != INT8_KV_BYTES:
         raise AssertionError(f"main-int8: {s['kv_bytes_per_token']} KV bytes "
@@ -633,7 +733,7 @@ def phase_timing(dev) -> dict:
     mask = (torch.arange(P * PS, device=dev)[None, :]
             < ln[:, None])[:, None, None, :]                      # (B,1,1,S)
 
-    def library(q, kp, vp, tb):
+    def library(q, kp, vp, tb, mask=mask):
         b = tb.shape[0]
         k = kp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
         v = vp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
@@ -691,38 +791,39 @@ def phase_timing(dev) -> dict:
             f"prefill B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
             nbytes, nops)
 
-    # the prefill-chunk shapes (one window of 64 at position 192), printed
+    # the prefill-chunk shapes (one window of 64 at position 192): kept in
+    # the B1 entries as chunk_*
     W2, start = 64, 192
     q2 = torch.randn(1, W2, Hq, D, device=dev).to(dtype)
     ln2 = torch.tensor([start + 1], dtype=torch.int32, device=dev)
     tb2 = tb[:1]
-    b2, by2 = bound(*attention_cost(q2, layers[0][0], tb2, ln2), dtype)
     x2 = torch.randn(64, d, device=dev).to(dtype)
-    t_pa = device_ms([lambda kv=kv: ops.paged_attention_mq(q2, *kv, tb2, ln2)
-                      for kv in layers])
-    p_pa = device_ms([lambda kv=kv: ref.paged_attention_mq(q2, *kv, tb2, ln2)
-                      for kv in layers])
-    log(f"prefill-chunk shapes (device): paged_attention_mq W={W2} "
-        f"start={start}: {t_pa:.5f} ms (plain {p_pa:.5f} ms, bound "
-        f"{b2:.6f} ms by {by2}); rmsnorm (64, {d}): "
-        f"{device_ms([lambda: ops.rmsnorm(x2, scale)]):.5f} ms (plain "
-        f"{device_ms([lambda: ref.rmsnorm(x2, scale)]):.5f} ms)")
-    b8, by8 = bound(*attention_cost(q2, int8_layers[0][0], tb2, ln2,
-                                    scaled=True), dtype)
     mask2 = (torch.arange(P * PS, device=dev)[None, :]             # causal
              < start + 1 + torch.arange(W2, device=dev)[:, None])[None, None]
-    t8 = {name: device_ms([lambda kv=kv: fn(kv) for kv in int8_layers])
-          for name, fn in (
-              ("kernel", lambda kv: ops.paged_attention_mq(
-                  q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
-              ("plain", lambda kv: ref.paged_attention_mq(
-                  q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
-              ("composite", lambda kv: library_int8(q2, *kv, tb2,
-                                                    mask=mask2)))}
-    log(f"prefill-chunk shapes (device): paged_attention_mq_int8 W={W2} "
-        f"start={start}: {t8['kernel']:.5f} ms (plain {t8['plain']:.5f} ms, "
-        f"composite library {t8['composite']:.5f} ms, bound {b8:.6f} ms by "
-        f"{by8})")
+    for name, kvs, scaled, lib in (
+            ("paged_attention_mq", layers, False,
+             lambda kv: library(q2, *kv, tb2, mask=mask2)),
+            ("paged_attention_mq_int8", int8_layers, True,
+             lambda kv: library_int8(q2, *kv, tb2, mask=mask2))):
+        b2, by2 = bound(*attention_cost(q2, kvs[0][0], tb2, ln2,
+                                        scaled=scaled), dtype)
+        t2 = {what: device_ms([lambda kv=kv: fn(kv) for kv in kvs])
+              for what, fn in (
+                  ("kernel", lambda kv: ops.paged_attention_mq(
+                      q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
+                  ("plain", lambda kv: ref.paged_attention_mq(
+                      q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
+                  ("library", lib))}
+        out[name].update(chunk_ms=t2["kernel"], chunk_plain_ms=t2["plain"],
+                         chunk_library_ms=t2["library"], chunk_bound_ms=b2,
+                         chunk_shape=f"prefill chunk W={W2} start={start}")
+        log(f"prefill-chunk shapes (device): {name} W={W2} start={start}: "
+            f"{t2['kernel']:.5f} ms (plain {t2['plain']:.5f} ms, library "
+            f"{'composite ' if scaled else ''}{t2['library']:.5f} ms, bound "
+            f"{b2:.6f} ms by {by2})")
+    log(f"prefill-chunk shapes (device): rmsnorm (64, {d}): "
+        f"{device_ms([lambda: ops.rmsnorm(x2, scale)]):.5f} ms (plain "
+        f"{device_ms([lambda: ref.rmsnorm(x2, scale)]):.5f} ms)")
     return out
 
 
@@ -803,11 +904,13 @@ def phase_main_dense():
             raise AssertionError(f"main-dense request {r.rid}: bad output "
                                  f"{r.output}")
     prefills = eng.stats["prefills"]
-    if prefills != 8 or counts["flash_attention"] != (cfg.n_layers * 8, 0):
+    if (prefills != 8 or counts["flash_attention"] != (cfg.n_layers * 8, 0)
+            or counts["flash_attention_tc"] != (cfg.n_layers * 8, 0)):
         raise AssertionError(f"main-dense: {prefills} prefills, "
                              f"flash_attention (launches, plain) "
-                             f"{counts['flash_attention']}, want "
-                             f"({cfg.n_layers * 8}, 0)")
+                             f"{counts['flash_attention']}, on the tensor "
+                             f"cores {counts['flash_attention_tc']}, want "
+                             f"({cfg.n_layers * 8}, 0) for both")
     if counts["rmsnorm"][0] <= 0 or any(p for _, p in counts.values()):
         raise AssertionError(f"main-dense: launches {counts}")
     with ServeEngine(eng.model, eng.params, max_slots=args.slots,
@@ -830,7 +933,8 @@ def phase_main_dense():
         f"{wall:.2f}s), ticks={eng.stats['ticks']} prefills={prefills}, "
         f"max_memory_allocated={peak} B; launches {counts} "
         f"({counts['flash_attention'][0] // prefills} flash_attention a "
-        f"prefill); dense vs paged greedy streams on the same prompts: "
+        f"prefill, {counts['flash_attention_tc'][0]} launches on the tensor "
+        f"cores); dense vs paged greedy streams on the same prompts: "
         f"{same}/{toks} tokens equal, first difference at token {prefix}")
     log("main-dense, float32, one prompt of "
         f"{len(prompts[0])} tokens: flash kernel vs plain version, max|dK| "
@@ -1538,11 +1642,14 @@ def main() -> int:
     build.library()
     log(f"build: kernels ready in {time.perf_counter() - t0:.1f}s "
         f"({', '.join(p.name for p in build.sources())})")
-    # flash attention at every D; paged attention (float and int8 pages)
-    # at 4 accumulator columns a lane, D 97-128; the wkv kernel at K 64;
-    # the SSD kernel at N = P = 64
-    for line in (ptxas_report("flash_attention_kernel")
-                 + ptxas_report("paged_attention_mq_kernel", "Li4E")
+    # flash attention: the tensor-core route at D 64 and 128, the CUDA-core
+    # route at every D; paged attention's split kernel (float and int8
+    # pages) at 4 accumulator columns a lane, D 97-128, and the combine;
+    # the wkv kernel at K 64; the SSD kernel at N = P = 64
+    for line in (ptxas_report("flash_attention_tc_kernel")
+                 + ptxas_report("flash_attention_kernel")
+                 + ptxas_report("paged_attention_split_kernel", "Li4E")
+                 + ptxas_report("paged_attention_combine_kernel")
                  + ptxas_report("rwkv6_scan_kernel", "ILi64E")
                  + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")):
         log(f"ptxas {line}")
@@ -1588,6 +1695,9 @@ def main() -> int:
     del model, params
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
+    times["flash_attention"].update(
+        {f"s2048_{k}": times["flash_attention S=2048"][k]
+         for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     launches["paged_attention_mq_int8"] = \
         int8_launches["paged_attention_mq_int8"]
     kernels = []
@@ -1600,9 +1710,12 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "timed_shape": t["shape"],
-            **{k: t[k] for k in ("composite_ms", "decode_ms",
-                                 "decode_plain_ms", "decode_bound_ms")
-               if k in t}})
+            **{k: t[k] for k in (
+                "composite_ms", "decode_ms", "decode_plain_ms",
+                "decode_bound_ms", "chunk_ms", "chunk_plain_ms",
+                "chunk_library_ms", "chunk_bound_ms", "chunk_shape",
+                "s2048_ms", "s2048_plain_ms", "s2048_library_ms",
+                "s2048_bound_ms") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,37 +14,97 @@
 // q's dtype.  Unlike the TPU kernel, a key a row cannot see never takes
 // weight: masked probabilities are zeroed explicitly (a row can be fully
 // masked on a tile another row of the block needs), so a row that sees no
-// key at all is written as zeros.
+// key at all is written as zeros.  Any S >= 1 works, Sq != Sk works, and
+// q, k, v are read through their (batch, seq, head) strides.
 //
 // Bound on this card: operations at the prefill shapes.  Every visible
 // (query, key) pair costs 4 * D flops a query head against one read of
 // q, k, v and one write of out, so at S = 1024 the work is ~450 flops a
-// byte, above the ~295 at which H100 stops being memory-bound.
+// byte, above the ~295 at which H100 stops being memory-bound.  The bound
+// is the tensor cores' rate, which only wgmma reaches.
 //
-// Design, a first simple one (float32 on CUDA cores; no wgmma, no TMA):
-// * Grid (ceil(Sq / BM), Hq, B); each block owns BM query rows of one
-//   (sequence, query head).  Blocks run in no order, so the TPU's
-//   sequential KV axis is a loop inside the block, and its tile skip is
-//   the loop's bounds: a causal block stops after its last row's key, a
-//   windowed block starts at the first key its first row can see.  The
-//   x index is reversed so that the heaviest causal tiles launch first.
-// * q, k and v are read in the (B, S, H, D) layout through their strides
-//   with 16-byte vector loads; the wrapper does no transpose.  Rows past
-//   Sq and keys past the loop's end are staged as zeros and masked, so any
-//   S >= 1 works (the TPU wrapper asserts S % 256 == 0).
-// * 128 threads = 16 row groups x 8 column groups.  A thread holds TM
-//   query rows; for the scores it takes TN keys (j = cg + 8 * t) of a tile,
-//   for the output D / 8 columns (c = cg + 8 * t), so a row's max and sum
-//   are reduced over 8 neighbouring lanes by shuffle.  Q and K are staged
-//   in shared memory transposed ([D][rows]) and V row-major, all float32,
-//   so the inner loops read shared memory without bank conflicts; the
-//   tile's probabilities pass through shared memory ([keys][BM + 1]) from
-//   the score layout to the P @ V layout.
-// * The accumulator is TM x D / 8 float32 registers a thread: 64 at
-//   D = 128 with TM = 4.  At D = 256 the same rows would need 128 and
-//   spill, so D = 256 holds TM = 2 rows a thread (BM = 32) and 32-key tiles,
-//   which also keeps its shared memory near 100 KB, two blocks an SM.
+// Two routes, chosen by the wrapper from dtype and D before any launch
+// (neither is a fallback of the other; the entry point refuses a route
+// that does not match them):
+//
+// 1. Tensor cores (flash_attention_tc_kernel): bf16 q/k/v at D 64 and 128,
+//    the serving path's case (qwen2-7b and qwen3-1.7b, D 128).
+//    * A block holds 128 query rows of one (sequence, query head): two
+//      consumer warpgroups of 64 rows each (wgmma's M) and a producer
+//      warpgroup.  setmaxnreg gives the producer 24 registers a thread and
+//      the consumers 240.
+//    * One producer thread keeps K/V tiles of 128 keys in flight with TMA
+//      (cp.async.bulk.tensor, 4-d tensor maps over (D, H, S, B) built on
+//      the host through cudaGetDriverEntryPoint, so the library links no
+//      libcuda, and passed as __grid_constant__ parameters) into a ring of
+//      3 stages (224 KB with q at D 128), full/empty mbarriers between
+//      producer and consumers.  The q tile arrives once the same way.  TMA
+//      writes the 128-byte swizzle (64 bf16 a row of an atom; D 128 is two
+//      atoms side by side), which is the layout the wgmma descriptors name;
+//      rows past S arrive as zeros.
+//    * S = Q K^T is D / 16 wgmma.m64n128k16 from shared memory (both
+//      operands K-major), float32 accumulator in registers.  The online
+//      softmax runs on the accumulator fragment (ex2 with the scale and
+//      log2 e folded into one FMA), a row's max reduced over the 4 lanes
+//      that share it; the row sums stay per lane until the end.
+//    * O += P V is 8 wgmma.m64nDk16 with P from registers: the m64
+//      accumulator layout is the A-fragment layout, so P needs no trip
+//      through shared memory; V is the B operand, MN-major (the
+//      descriptor's transpose bit).  P enters as a bf16 pair hi + lo (lo
+//      the rounding rest of hi), two wgmma each: one bf16 rounding of p
+//      gave 1.23x the 4e-3 bf16 limit at S 1024 in a CPU emulation of this
+//      arithmetic, the pair 0.65x.  It costs PV twice, 1.5x the tensor
+//      work.
+//    * What bounds it on the card is keeping the tensor cores fed, not the
+//      products: a tile's softmax on the CUDA cores takes about as long as
+//      its wgmma (run one tile at a time, D 64 took as long as D 128 on an
+//      H100).  So a warpgroup pipelines its tiles as FlashAttention-3
+//      does: QK of tile i and PV of tile i - 1 are issued together, and
+//      the softmax of tile i runs on the CUDA cores while PV i - 1 runs on
+//      the tensor cores (S, P and O in registers: 192 of the 240).
+//    * Blocks start in the order of their work, the last query block of
+//      every (sequence, head) first: at S 1024, 8 x 28 = 224 blocks are
+//      1.7 waves on 132 SMs, and heaviest-first only within each head
+//      leaves 8-tile blocks for the second wave.  With this order the
+//      busiest SM holds about 8 tile-times against an average of 7.6, so
+//      a persistent schedule could gain little here.
+//    * The dead-tile skip stays: a causal block stops after its last row's
+//      key, a windowed one starts at its first row's first key, and a
+//      warpgroup releases unread the tiles none of its rows sees.
+//    * Raw PTX in inline asm (wgmma.cuh), not CuTe: the build stays one
+//      nvcc per source with no include path beyond the toolkit's.
+//    * ptxas (sm_90a): 168 registers a thread at launch (setmaxnreg moves
+//      them), no spills, no stack; 230,456 bytes of dynamic shared memory
+//      at D 128, 115,768 at D 64.
+// 2. CUDA cores (flash_attention_kernel): float32 q/k/v (the 2e-4 float32
+//    limit rules out TF32 and bf16 operands), and bf16 at D 16 and 32
+//    (the SMOKE configs) and 256 (gemma3, a later slice).
+//    * Grid (ceil(Sq / BM), Hq, B); each block owns BM query rows of one
+//      (sequence, query head).  Blocks run in no order, so the TPU's
+//      sequential KV axis is a loop inside the block, and its tile skip is
+//      the loop's bounds.  The x index is reversed so that the heaviest
+//      causal tiles launch first.
+//    * q, k and v are read in the (B, S, H, D) layout through their
+//      strides with 16-byte vector loads.  Rows past Sq and keys past the
+//      loop's end are staged as zeros and masked.
+//    * 128 threads = 16 row groups x 8 column groups.  A thread holds TM
+//      query rows; for the scores it takes TN keys (j = cg + 8 * t) of a
+//      tile, for the output D / 8 columns (c = cg + 8 * t), so a row's max
+//      and sum are reduced over 8 neighbouring lanes by shuffle.  Q and K
+//      are staged in shared memory transposed ([D][rows]) and V
+//      row-major, all float32; the tile's probabilities pass through
+//      shared memory ([keys][BM + 1]) from the score layout to the P @ V
+//      layout.
+//    * The accumulator is TM x D / 8 float32 registers a thread: 64 at
+//      D = 128 with TM = 4.  D = 256 holds TM = 2 rows a thread (BM = 32)
+//      and 32-key tiles, which keeps its shared memory near 100 KB.
+//
+// chip_smoke.py prints every instantiation's registers and spills from
+// build/*.log.
+#include <cuda.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -270,34 +330,487 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int B, int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
                      Strides ks, Strides vs, int causal, int window,
                      float scale, cudaStream_t stream) {
+  // bf16 at D 64 and 128 is the tensor cores' (route 1), never built here
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 #define REPRO_FA_CASE(DIM)                                                     \
   case DIM:                                                                    \
-    return launch<T, DIM>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks, vs,       \
-                          causal, window, scale, stream);
+    if constexpr (!kBf16 || (DIM != 64 && DIM != 128))                         \
+      return launch<T, DIM>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks, vs,     \
+                            causal, window, scale, stream);                   \
+    break;
   switch (D) {
     REPRO_FA_CASE(16) REPRO_FA_CASE(32) REPRO_FA_CASE(64) REPRO_FA_CASE(128)
     REPRO_FA_CASE(256)
-    default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FA_CASE
+  return cudaErrorInvalidValue;
 }
+
+// -- route 1: tensor cores (wgmma, TMA, mbarriers) ---------------------------
+
+namespace tc {
+
+constexpr int kBM = 128;            // query rows a block: 2 consumer warpgroups
+constexpr int kBN = 128;            // keys a tile
+constexpr int kStages = 3;          // K/V ring depth
+constexpr int kThreads = 384;       // producer warpgroup + 2 consumers
+constexpr int kAtomBytes = 128;     // a swizzle atom's row: 64 bf16
+constexpr float kNegInf = -1e30f;
+
+template <int D>
+struct Smem {
+  static constexpr int kQBytes = kBM * D * 2;      // D / 64 atoms of 128 rows
+  static constexpr int kTileBytes = kBN * D * 2;   // one of K, V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // + full[kStages], empty[kStages], q barriers; + slack to align to 1024
+  static constexpr int kBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-d tensor map -> shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; lbo/sbo in bytes.
+// K-major: sbo is the stride of 8-row groups (1024), lbo unused.  MN-major:
+// lbo is the stride of 64-wide atoms along MN, sbo of 8-row groups along K.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are pending; groups
+// complete in the order they were committed
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the SFU (inf -> 0 for x = -inf); the same approximation exp2f
+// makes, without its handling of denormal results
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// pin registers that an async wgmma reads or writes to this point of the
+// program: no instruction that defines them may move between wgmma.fence
+// and the wait (ptxas would serialize the wgmma batch)
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (D == 128)
+    wgmma_rs_m64n128k16(o, a, b);
+  else
+    wgmma_rs_m64n64k16(o, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                          int Hq, int Hkv, int causal, int window,
+                          float scale_log2) {
+  using L = Smem<D>;
+  constexpr int kAtoms = D / 64;          // swizzle atoms across D
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // the swizzle's alignment
+  const uint32_t q_s = base;
+  const uint32_t bars = base + L::kBarOffset;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t q_bar = bars + 8 * 2 * kStages;
+  auto k_tile = [&](int s) { return base + L::kQBytes + s * L::kStageBytes; };
+  auto v_tile = [&](int s) { return k_tile(s) + L::kTileBytes; };
+
+  // blocks start in x order: every (sequence, head) of the last query
+  // block first, the heaviest causal work of the whole grid
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  // the keys any row of this block can see: the TPU's dead-tile skip
+  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBN - 1) / kBN
+                                        : 0;
+  const int tid = threadIdx.x, wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);             // one arrive a consumer warp
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ---------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load(q_s + a * kBM * kAtomBytes, &q_map, 64 * a, h, q0, b, q_bar);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages, k0 = kv_begin + i * kBN;
+        if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), L::kStageBytes);
+        for (int a = 0; a < kAtoms; ++a) {
+          tma_load(k_tile(s) + a * kBN * kAtomBytes, &k_map, 64 * a, hk, k0, b,
+                   full(s));
+          tma_load(v_tile(s) + a * kBN * kAtomBytes, &v_map, 64 * a, hk, k0, b,
+                   full(s));
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows q0 + 64 c .. + 63 -------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int c = wg - 1, tw = tid - 128 * wg;
+  const int warp = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
+  const int rlo = q0 + 64 * c, rhi = rlo + 63;
+  const int row[2] = {rlo + 16 * warp + g, rlo + 16 * warp + g + 8};
+  const uint32_t q_rows = q_s + 64 * c * kAtomBytes;   // this warpgroup's rows
+  // the tiles this warpgroup's rows see form one run [i_lo, i_hi) of the
+  // block's (a window cuts early tiles, causality late ones); the others
+  // are released unread
+  auto seen = [&](int i) {
+    const int k0 = kv_begin + i * kBN;
+    return k0 < Sk && !(causal && k0 > rhi) &&
+           !(window > 0 && rlo - (k0 + kBN - 1) >= window);
+  };
+  int i_lo = 0;
+  while (i_lo < n_tiles && !seen(i_lo)) ++i_lo;
+  int i_hi = i_lo;
+  while (i_hi < n_tiles && seen(i_hi)) ++i_hi;
+  auto release = [&](int i) {              // this warp is done with tile i
+    if (lane == 0) mbar_arrive(empty(i % kStages));
+  };
+  auto skip = [&](int i) {
+    mbar_wait(full(i % kStages), (i / kStages) & 1);
+    release(i);
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float sacc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) sacc[i] = 0.f;
+  uint32_t ph[kBN / 16][4], pl[kBN / 16][4];   // P of the tile in flight
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // S = Q K^T of tile i into sacc: D / 16 k steps; a step inside a
+  // swizzle atom moves the descriptors 32 bytes
+  auto issue_qk = [&](int i) {
+    const uint32_t k_s = k_tile(i % kStages);
+    fence_regs<kBN / 2>(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_m64n128k16(
+          sacc, gmma_desc(q_rows + (kk / 4) * kBM * kAtomBytes + off, 16, 1024),
+          gmma_desc(k_s + (kk / 4) * kBN * kAtomBytes + off, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+    fence_regs<kBN / 2>(sacc);
+  };
+  // O += P V of tile i: V is [keys][D] in atoms of 64 columns (MN-major);
+  // a k step of 16 keys is two 8-row groups, 2048 bytes; P as hi + lo
+  auto issue_pv = [&](int i) {
+    const uint32_t v_s = v_tile(i % kStages);
+    fence_regs<D / 2>(o);
+    fence_regs<kBN / 4>(&ph[0][0]);
+    fence_regs<kBN / 4>(&pl[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t vd = gmma_desc(v_s + kk * 16 * kAtomBytes,
+                                    kBN * kAtomBytes, 1024);
+      wgmma_pv<D>(o, ph[kk], vd);
+      wgmma_pv<D>(o, pl[kk], vd);
+    }
+    wgmma_commit();
+    fence_regs<D / 2>(o);
+  };
+  // online softmax of tile i on the fragment: sacc[4 j + e] is row
+  // row[e >> 1], key k0 + 8 j + 2 t + (e & 1).  Leaves p = exp2((s - m)
+  // scale log2 e) in sacc, updates m and l, returns the rescale of O.
+  auto softmax = [&](int i, float* corr) {
+    const int k0 = kv_begin + i * kBN;
+    const bool full_tile = k0 + kBN <= Sk && (!causal || k0 + kBN - 1 <= rlo) &&
+                           (window <= 0 || rhi - k0 < window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!full_tile) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1), r = row[e >> 1];
+          const bool ok = key < Sk && (!causal || key <= r) &&
+                          (window <= 0 || r - key < window);
+          // exp2(-inf) = 0: a masked key is zeroed explicitly
+          if (!ok) sacc[4 * j + e] = -__int_as_float(0x7f800000);
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
+      }
+    float neg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      neg[r] = -mx[r] * scale_log2;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            fast_exp2(fmaf(sacc[4 * j + e], scale_log2, neg[e >> 1]));
+        sacc[4 * j + e] = p;
+        l[e >> 1] += p;
+      }
+  };
+  // P (in sacc) as bf16 hi + lo A fragments: k step kk covers keys
+  // 16 kk .. + 15, which are sacc[8 kk .. 8 kk + 7] in register order
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = sacc[8 * kk + 2 * r], p1 = sacc[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        ph[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[kk][r] = pack_bf16x2(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+  };
+  auto rescale = [&](const float* corr) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+  };
+
+  for (int i = 0; i < i_lo; ++i) skip(i);
+  mbar_wait(q_bar, 0);
+  if (i_lo < i_hi) {
+    // The pipeline (FlashAttention-3's, within a warpgroup): QK of tile i
+    // and PV of tile i - 1 are issued together, and the softmax of tile i
+    // runs on the CUDA cores while PV i - 1 runs on the tensor cores.
+    float corr[2];
+    mbar_wait(full(i_lo % kStages), (i_lo / kStages) & 1);
+    issue_qk(i_lo);
+    wgmma_wait<0>();
+    fence_regs<kBN / 2>(sacc);
+    softmax(i_lo, corr);
+    pack_p();
+    for (int i = i_lo + 1; i < i_hi; ++i) {
+      mbar_wait(full(i % kStages), (i / kStages) & 1);
+      issue_qk(i);
+      issue_pv(i - 1);
+      wgmma_wait<1>();                     // QK i done, PV i - 1 in flight
+      fence_regs<kBN / 2>(sacc);
+      softmax(i, corr);
+      wgmma_wait<0>();                     // PV i - 1 done: P and O free
+      fence_regs<D / 2>(o);
+      release(i - 1);
+      rescale(corr);
+      pack_p();
+    }
+    issue_pv(i_hi - 1);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    release(i_hi - 1);
+  }
+  for (int i = i_hi; i < n_tiles; ++i) skip(i);
+
+  // out (B, Sq, Hq, D) contiguous: o[4 j + e] is row row[e >> 1], column
+  // 8 j + 2 t + (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * Sq + row[r]) * Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
+// -lcuda); null if the driver has none
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, H, D) bf16 tensor read through its strides (elements) in boxes
+// of 64 columns x 1 head x `rows` rows x 1 sequence, 128-byte swizzle,
+// rows past S zero-filled.  A size-1 dimension's stride is free in torch,
+// so it is replaced by a dense one the encoder accepts.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              Strides st, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  long long sh = H > 1 ? st.h : D;
+  long long ss = S > 1 ? st.s : sh * H;
+  long long sb = B > 1 ? st.b : ss * S;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
+                   Strides ks, Strides vs, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Smem<D>::kBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, B, Sq, Hq, D, qs, kBM) ||
+      !make_map(&k_map, k, B, Sk, Hkv, D, ks, kBN) ||
+      !make_map(&v_map, v, B, Sk, Hkv, D, vs, kBN))
+    return cudaErrorInvalidValue;
+  const dim3 grid(B * Hq, (Sq + kBM - 1) / kBM);
+  flash_attention_tc_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv,
+      causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 // q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) through their (batch, seq,
 // head) strides in elements; out contiguous (B, Sq, Hq, D).  window <= 0:
-// no window.  Returns the launch's cudaError_t.
+// no window.  route 1: the tensor cores, which must be bf16 at D 64 or
+// 128; route 0: the CUDA cores, everything else.  Returns the launch's
+// cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int route, void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq > 65535 ||
       Hq % Hkv != 0)
     return cudaErrorInvalidValue;
+  const bool tensor_cores = dtype == kBFloat16 && (D == 64 || D == 128);
+  if (route != static_cast<int>(tensor_cores)) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores)
+    return D == 128 ? tc::launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks,
+                                      vs, causal, window, scale, s)
+                    : tc::launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks,
+                                     vs, causal, window, scale, s);
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs,
                            causal, window, scale, s);

@@ -35,16 +35,14 @@ _SIGNATURES = {
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_launch": [_vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
     # q, k_pages, v_pages, k_scale, v_scale (null unless int8 pages),
-    # tables, lengths, out, B, W, Hq, Hkv, D, page_size, P, scale,
-    # q dtype, page dtype, stream
-    "paged_attention_mq_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                                  _i, _i, _i, _i, _i, _i, _i, _f, _i, _i,
-                                  _vp],
+    # tables, lengths, out, part_acc, part_ml (null unless split), B, W,
+    # Hq, Hkv, D, page_size, P, n_split, scale, q dtype, page dtype, stream
+    "paged_attention_mq_launch": [_vp] * 10 + [_i] * 8 + [_f, _i, _i, _vp],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, D, q/k/v (batch, seq, head) strides,
-    # causal, window, scale, dtype, stream
+    # causal, window, scale, dtype, route (1: tensor cores), stream
     "flash_attention_launch": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                                _i64, _i64, _i64, _i64, _i64, _i64,
-                               _i64, _i64, _i64, _i, _i, _f, _i, _vp],
+                               _i64, _i64, _i64, _i, _i, _f, _i, _i, _vp],
     # r, k, v, w, u, state0 (null: zeros), y, out_state, B, S, H, K, V,
     # r/k/v dtype, stream
     "rwkv6_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],

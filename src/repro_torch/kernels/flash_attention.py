@@ -10,7 +10,10 @@ The serving engine's whole-prompt prefill runs it in every layer.
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py:flash_attention``; its source note says
 what bounds it on Hopper and how the design answers that.  Unlike the TPU
-wrapper it takes any sequence length, not only multiples of its tile.
+wrapper it takes any sequence length, not only multiples of its tile.  It
+has two routes, chosen from dtype and D before the launch
+(:func:`tensor_core_route`): bf16 at D 64 and 128 on the tensor cores
+(wgmma and TMA), everything else on CUDA cores.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,6 +61,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def tensor_core_route(q) -> bool:
+    """True when the kernel runs ``q``'s call on the tensor cores: bf16 at
+    a head dim in :data:`TENSOR_CORE_HEAD_DIMS`.  Float32 stays on CUDA
+    cores (its 2e-4 limit rules out TF32 and bf16 operands), and so do the
+    other head dims."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
+
+
 def _strided(t):
     """``t`` itself when the kernel can read it through its strides (head
     dim contiguous, 16-byte aligned rows), else a contiguous copy."""
@@ -70,7 +82,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     """Launch the flash-attention kernel on ``q``'s card (current stream).
     Shapes as in :func:`flash_attention_plain`; q, k and v share one dtype
     (float32 or bfloat16) and D is one of 16, 32, 64, 128, 256.  Raises on
-    anything else; never falls back."""
+    anything else; never falls back.  bf16 at D 64 and 128 runs on the
+    tensor cores, everything else on CUDA cores (:func:`tensor_core_route`);
+    a call on either route that fails to build or launch raises and never
+    runs the other."""
     _check_window(window)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dk = k.shape
@@ -105,6 +120,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), 0 if window is None else int(window),
-            float(D ** -0.5), _DTYPE_CODES[q.dtype], stream),
+            float(D ** -0.5), _DTYPE_CODES[q.dtype],
+            int(tensor_core_route(q)), stream),
             "flash_attention")
     return out

@@ -5,6 +5,11 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
+Two entries are sub-counts of a kernel's launches, not kernels of their
+own: ``flash_attention_tc`` counts the flash-attention launches that took
+the tensor-core route, ``paged_attention_mq_split`` the paged-attention
+calls (float or int8 pages) split over more than one key range, each a
+split launch and a combine launch.
 The counts are bumped under a lock: the dense path's prefills run on the
 prefill farm's worker threads.
 """
@@ -30,7 +35,10 @@ class LaunchCount:
 COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "paged_attention_mq_int8": LaunchCount(),
           "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount(),
-          "ssd_scan": LaunchCount()}
+          "ssd_scan": LaunchCount(),
+          # sub-counts of the two attention kernels' launches
+          "flash_attention_tc": LaunchCount(),
+          "paged_attention_mq_split": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -83,6 +91,8 @@ def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,
         out = _pa.paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
                                           k_scale, v_scale)
         _count(name, kernel=True)
+        if _pa.split_count(tables.shape[-1], k_pages.shape[1]) > 1:
+            _count("paged_attention_mq_split", kernel=True)
         return out
     _count(name, kernel=False)
     return _pa.paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths,
@@ -96,6 +106,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     if _route(q, "flash_attention"):
         out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         _count("flash_attention", kernel=True)
+        if _fa.tensor_core_route(q):
+            _count("flash_attention_tc", kernel=True)
         return out
     _count("flash_attention", kernel=False)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -16,7 +16,9 @@ attention reads each key and value as ``float(code) * scale``.
 The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``repro/kernels/paged_attention.py:paged_attention_mq``, float and int8
 pages alike; its source note says what bounds it on Hopper and how the
-design answers that.
+design answers that.  It splits the keys over blocks of
+:data:`SPLIT_KEYS` positions (:func:`split_count`), each writing a float32
+partial ``(m, l, acc)`` that a combine kernel merges.
 """
 from __future__ import annotations
 
@@ -25,7 +27,15 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+SPLIT_KEYS = 64                  # key positions a block of the kernel takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def split_count(pages_per_seq: int, page_size: int) -> int:
+    """The kernel's key splits for a ``(B, pages_per_seq)`` table: one per
+    :data:`SPLIT_KEYS` positions of the table's capacity.  It reads shapes
+    only, never the lengths, so a CUDA graph can hold the call."""
+    return -(-pages_per_seq * page_size // SPLIT_KEYS)
 
 
 def paged_attention_mq_plain(q, k_pages, v_pages, tables, lengths,
@@ -69,7 +79,10 @@ def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
     bfloat16; the pages share its dtype, or are int8 with both scales
     (float32, (N, page_size, Hkv), contiguous).  D is a multiple of 8 up to
     256, of 16 for int8 pages.  Raises on anything else; never falls
-    back."""
+    back.  bf16 q runs on tensor cores (mma.sync), float32 q on CUDA
+    cores.  With more than one split (:func:`split_count`) the call is two
+    launches, the split kernel and the combine, and allocates float32
+    partials of ``B * W * Hq * n_split * (D + 2)`` elements."""
     B, W, Hq, D = q.shape
     N, ps, Hkv, Dk = k_pages.shape
     P = tables.shape[-1]
@@ -122,6 +135,12 @@ def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
             raise ValueError(f"paged_attention_mq_cuda: {name} is not "
                              "16-byte aligned")
     out = torch.empty_like(q)
+    n_split = split_count(P, ps)
+    part_acc = part_ml = None
+    if n_split > 1:
+        rows = B * W * Hq * n_split
+        part_acc = torch.empty(rows * D, dtype=torch.float32, device=dev)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -130,6 +149,9 @@ def paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, W, Hq, Hkv, D, ps, P, float(D ** -0.5), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[kv_dtype], stream), "paged_attention_mq")
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            B, W, Hq, Hkv, D, ps, P, n_split, float(D ** -0.5),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[kv_dtype], stream),
+            "paged_attention_mq")
     return out

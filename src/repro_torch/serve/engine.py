@@ -109,12 +109,17 @@ class ServeEngine:
     docstring.  ``paged=None`` picks the paged path for a family with a
     paged KV cache and the dense one otherwise.  ``prefill_workers`` sizes
     the dense path's prefill farm (a paged engine has none).
-    ``kv_quant`` / ``weight_quant``: "int8" or "off" (paged only)."""
+    ``kv_quant`` / ``weight_quant``: "int8" or "off" (paged only).
+    ``chunks_per_tick`` caps the paged path's prefill chunks a tick.
+    ``strict=True`` makes a tick raise ``RuntimeError`` after it retired
+    its failed requests (each with ``.error``) and committed its healthy
+    work, as the reference does."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill_chunk: int = 64,
-                 prefix_cache: bool = True, device=None, sampler=None,
+                 chunks_per_tick: int = 2, prefix_cache: bool = True,
+                 strict: bool = False, device=None, sampler=None,
                  prefill_workers: int = 4, paged: Optional[bool] = None,
                  spec_decode=None, kv_quant=None, weight_quant=None,
                  mesh=None, prefill_only: bool = False):
@@ -181,6 +186,7 @@ class ServeEngine:
             params = QZ.quantize_params(params)
         self.model, self.params = model, params
         self.max_slots, self.max_len = max_slots, max_len
+        self.strict = strict
         self.prefix_cache = bool(prefix_cache) and self.paged
         if self.paged:
             if num_pages is None:       # dense-equivalent budget by default
@@ -191,7 +197,8 @@ class ServeEngine:
                                  prefix_cache=self.prefix_cache)
             self.sched = Scheduler(max_slots=max_slots, max_len=max_len,
                                    pool=self.pool,
-                                   prefill_chunk=prefill_chunk)
+                                   prefill_chunk=prefill_chunk,
+                                   chunks_per_tick=chunks_per_tick)
         else:
             self.pool = None
             self.sched = Scheduler(max_slots=max_slots, max_len=max_len)
@@ -272,6 +279,18 @@ class ServeEngine:
         req.error = err
         req.done_at = time.perf_counter()
         self.finished.append(req)
+
+    def _raise_or_record(self, errors) -> None:
+        """Retire every errored request with ``req.error`` set; under
+        ``strict=True`` then raise (the tick's healthy work is already
+        committed)."""
+        for req, err in errors:
+            self._retire_error(req, err)
+        if errors and self.strict:
+            rids = [req.rid for req, _ in errors]
+            raise RuntimeError(
+                f"prefill failed for request(s) {rids}; each request's "
+                f".error holds its exception") from errors[0][1]
 
     def _reject_errors(self, rejects) -> list:
         def why(r):
@@ -386,8 +405,7 @@ class ServeEngine:
             cow_copies=self.sched.cow_copies,
             evictions=self.pool.evictions,
             pages_high_water=self.pool.high_water)
-        for req, err in errors:
-            self._retire_error(req, err)
+        self._raise_or_record(errors)
         return bool(live) or self.sched.has_work()
 
     # -- dense tick ------------------------------------------------------------
@@ -454,8 +472,7 @@ class ServeEngine:
                     self._retire_error(req, err)
                 raise
 
-        for req, err in errors:
-            self._retire_error(req, err)
+        self._raise_or_record(errors)
         return bool(live) or self.sched.has_work()
 
     def tick(self) -> bool:

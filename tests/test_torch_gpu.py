@@ -25,6 +25,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # outputs are O(1), attention's ~0.1, so its bf16 limit is tighter)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+# int8 pages: chip_smoke.py's limits
+INT8_TOL = {"float32": 2e-4, "bfloat16": 4e-3}
 
 
 @pytest.fixture
@@ -114,6 +116,55 @@ def test_paged_attention_int8_kernel_matches_plain(card, dtype, Hq, Hkv, D,
         assert not got[-1, 0].any()                # dead slot: zero row 0
 
 
+# (B, W, Hq, Hkv, P, lengths): paged attention split over many ranges of
+# 64 key positions: tables of 128 and 512 pages of 16, lengths on a split
+# edge (64, 128) and beside it (63, 65, 129), a dead slot, W 64 deep in
+# the table
+SPLIT_CASES = [(4, 1, 28, 4, 128, (2000, 64, 65, 0)),
+               (4, 1, 28, 4, 512, (8000, 63, 128, 129)),
+               (2, 4, 28, 4, 128, (1500, 0)),
+               (1, 64, 28, 4, 128, (1900,)),
+               (1, 64, 16, 8, 512, (6000,))]
+
+
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,W,Hq,Hkv,P,lengths", SPLIT_CASES)
+def test_paged_attention_split_kernel_matches_plain(card, pages, dtype, B, W,
+                                                    Hq, Hkv, P, lengths):
+    """The split kernel and its combine against the plain version over
+    many key splits; every call counts as split; a dead slot is zero."""
+    from repro_torch.kernels.paged_attention import split_count
+    rng = np.random.default_rng(P + W + B)
+    ps, D, N = 16, 128, 4 * P + 1                    # page N - 1: the trash
+    q = rng.normal(size=(B, W, Hq, D)).astype(np.float32)
+    kp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(N, ps, Hkv, D)).astype(np.float32)
+    kp[-1], vp[-1] = 1e4, -1e4
+    tables = np.full((B, P), N - 1, np.int32)
+    for b, n in enumerate(lengths):
+        used = -(-(n + W - 1) // ps) if n else 0
+        tables[b, :used] = rng.permutation(N - 1)[:used]
+    q, kp, vp, tb, ln = (torch.from_numpy(a).to(card) for a in (
+        q, kp, vp, tables, np.asarray(lengths, np.int32)))
+    q = q.to(DTYPES[dtype])
+    if pages == "int8":
+        (kq, ks), (vq, vs) = (QZ.Int8KVQuant().quantize(t) for t in (kp, vp))
+        args, tol = (kq, vq, tb, ln, ks, vs), INT8_TOL[dtype]
+    else:
+        args, tol = (kp.to(q.dtype), vp.to(q.dtype), tb, ln), ATTN_TOL[dtype]
+    ops.reset_counts()
+    got = ops.paged_attention_mq(q, *args)
+    torch.cuda.synchronize()
+    assert split_count(P, ps) > 1
+    assert ops.COUNTS["paged_attention_mq_split"].kernel == 1
+    torch.testing.assert_close(got.float(),
+                               ref.paged_attention_mq(q, *args).float(),
+                               rtol=tol, atol=tol)
+    if 0 in lengths:
+        assert not got[list(lengths).index(0), 0].any()
+
+
 def test_paged_attention_int8_wrapper_refuses_bad_scales(card):
     from repro_torch.kernels.paged_attention import paged_attention_mq_cuda
     rng = np.random.default_rng(9)
@@ -158,7 +209,9 @@ def test_int8_engine_on_card_matches_cpu(card):
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): causal, window, MQA/GQA/MHA,
-# ragged lengths, every head width the kernel instantiates
+# ragged lengths, every head width the kernel instantiates; qwen2-7b's
+# heads at the dense prefill's buckets (1024, 2048) and a ragged 1000, and
+# S 200 at D 64 with a window, which bf16 runs on the tensor cores
 FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 512, 512, 2, 2, 16, True, 100),
                (2, 256, 256, 4, 1, 32, False, None),
@@ -167,7 +220,12 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (2, 77, 77, 4, 1, 128, False, 19),
                (1, 300, 300, 4, 2, 256, True, 64),
                (1, 1, 1, 4, 2, 128, True, None),
-               (1, 130, 90, 4, 2, 64, False, None)]
+               (1, 130, 90, 4, 2, 64, False, None),
+               (1, 1024, 1024, 28, 4, 128, True, None),
+               (1, 2048, 2048, 28, 4, 128, True, None),
+               (1, 1000, 1000, 28, 4, 128, True, None),
+               (1, 200, 200, 8, 2, 64, True, 48),
+               (2, 300, 200, 28, 4, 128, True, None)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -182,6 +240,29 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, Hq,
     torch.cuda.synchronize()
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,D,tc", [("bfloat16", 64, True),
+                                        ("bfloat16", 128, True),
+                                        ("bfloat16", 32, False),
+                                        ("bfloat16", 256, False),
+                                        ("float32", 128, False)])
+def test_flash_attention_route_follows_dtype_and_head_dim(card, dtype, D,
+                                                          tc):
+    """bf16 at D 64 and 128 launches on the tensor cores (counted under
+    flash_attention_tc), everything else on the CUDA cores."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 70, H, D))
+                                .astype(np.float32)).to(card, DTYPES[dtype])
+               for H in (4, 2, 2))
+    ops.reset_counts()
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.COUNTS["flash_attention"].kernel == 1
+    assert ops.COUNTS["flash_attention_tc"].kernel == int(tc)
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v).float(),
                                rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
 
 

@@ -115,6 +115,86 @@ def test_paged_attention_plain_trash_page_isolated():
     np.testing.assert_array_equal(_np(base), _np(got))
 
 
+def _split_partials(q, kp, vp, tables, lens, split):
+    """The split kernel's arithmetic in float32: for each range of
+    ``split`` key positions, each row's max score ``m`` over the keys it
+    sees there, ``l`` and ``acc`` of exp(score - m) (zero where it sees
+    none).  Returns m, l (B, W, Hq, n) and acc (B, W, Hq, n, D)."""
+    B, W, Hq, D = q.shape
+    _, ps, Hkv, _ = kp.shape
+    P, G = tables.shape[1], Hq // Hkv
+    n = -(-P * ps // split)
+    k = kp[tables].reshape(B, P * ps, Hkv, D)
+    v = vp[tables].reshape(B, P * ps, Hkv, D)
+    s = np.einsum("bwhgd,bkhd->bwhgk", q.reshape(B, W, Hkv, G, D), k) \
+        * D ** -0.5
+    limit = lens[:, None] + np.arange(W)[None, :]                   # (B, W)
+    seen = np.arange(P * ps)[None, None, :] < limit[..., None]      # (B, W, K)
+    seen = np.broadcast_to(seen[:, :, None, None], s.shape)
+    m = np.full((B, W, Hkv, G, n), -1e30, np.float32)
+    l = np.zeros((B, W, Hkv, G, n), np.float32)
+    acc = np.zeros((B, W, Hkv, G, n, D), np.float32)
+    for i in range(n):
+        cut = slice(i * split, (i + 1) * split)
+        si, ok = s[..., cut], seen[..., cut]
+        m[..., i] = np.where(ok, si, -1e30).max(-1)
+        p = np.exp(np.where(ok, si - m[..., i:i + 1], -np.inf))
+        l[..., i] = p.sum(-1)
+        acc[..., i, :] = np.einsum("bwhgk,bkhd->bwhgd", p, v[:, cut])
+    return (m.reshape(B, W, Hq, n), l.reshape(B, W, Hq, n),
+            acc.reshape(B, W, Hq, n, D))
+
+
+def _combine(m, l, acc):
+    """The combine kernel's formula: splits with l > 0 weighted by
+    e^(m_s - M), M their largest m; a row with none is zeros."""
+    live = l > 0
+    top = np.where(live, m, -np.inf).max(-1, keepdims=True)
+    top = np.where(np.isfinite(top), top, 0.0)
+    w = np.where(live, np.exp(np.where(live, m - top, 0.0)), 0.0)
+    num = (w[..., None] * np.where(live[..., None], acc, 0.0)).sum(-2)
+    return num / np.maximum((w * l).sum(-1), 1e-30)[..., None]
+
+
+# (B, W, P, lengths): a split that holds no visible key (slot 0 ends in
+# split 0 of 4), a dead slot, lengths on and beside a split edge (64 with
+# W 1 ends exactly at the edge; 65 crosses it), W 64 at a deep position
+SPLIT_CASES = [(2, 1, 16, [20, 0]), (3, 1, 8, [64, 65, 63]),
+               (2, 4, 8, [61, 0]), (1, 64, 16, [150])]
+
+
+@pytest.mark.parametrize("B,W,P,lengths", SPLIT_CASES)
+def test_paged_attention_split_partials_merge_to_plain(B, W, P, lengths):
+    """Partials over SPLIT_KEYS-position ranges of the keys, merged as the
+    combine kernel merges them, equal the plain version (float32, 1e-5),
+    with empty splits, a dead slot, split edges and W 64."""
+    from repro_torch.kernels.paged_attention import SPLIT_KEYS
+    rng = np.random.default_rng(B + W + P)
+    Hq, Hkv, D, ps, N = 8, 2, 16, 16, 2 * P + 1
+    q, kp, vp, tables, lens = _paged_case(rng, B, W, Hq, Hkv, D, ps, N, P,
+                                          "float32")
+    lens = np.asarray(lengths, np.int32)
+    m, l, acc = _split_partials(q, kp, vp, tables, lens, SPLIT_KEYS)
+    assert (l == 0).any()                       # some split sees no key
+    got = _combine(m, l, acc)
+    want = _np(_plain(q, kp, vp, tables, lens, "float32"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if lens[-1] == 0:
+        assert not got[-1, 0].any()             # dead slot: zero row 0
+
+
+def test_paged_attention_split_count_reads_shapes_only():
+    """One split while the table holds at most SPLIT_KEYS positions, then
+    one more for each further SPLIT_KEYS; qwen2-7b's main path (32 pages
+    of 16) has 8."""
+    from repro_torch.kernels.paged_attention import SPLIT_KEYS, split_count
+    assert SPLIT_KEYS == 64
+    assert split_count(1, 16) == split_count(4, 16) == split_count(64, 1) == 1
+    assert split_count(5, 16) == split_count(8, 16) == 2
+    assert split_count(32, 16) == 8
+    assert split_count(3, 7) == 1 and split_count(10, 7) == 2
+
+
 def _int8_pages(rng, N, ps, Hkv, D):
     """int8 codes and positive float32 scales of one (N, ps, Hkv) page pool
     whose last page (the trash page) has zero codes and zero scales, as a

@@ -421,3 +421,82 @@ def test_close_releases_the_farm_and_the_engine_still_serves(pair):
                                           for r in eng.finished)
     eng.close()
     assert eng._prefill_farm._pool is None
+
+
+# ---------------------------------------------------------------------------
+# strict and chunks_per_tick (the reference's options)
+# ---------------------------------------------------------------------------
+
+def _strict_run(engine, queue, request_cls):
+    """The reference's strict-mode script: two good prompts around a bad one
+    (200 tokens >= max_len 128) put straight on the queue.  Returns (error
+    rids after the raising drain, streams after the second drain)."""
+    engine.submit([5, 17, 33], max_new_tokens=4)
+    queue.append(request_cls(1000, np.arange(200, dtype=np.int32), 4))
+    engine.submit([7, 8, 9], max_new_tokens=4)
+    with pytest.raises(RuntimeError,
+                       match=r"prefill failed for request\(s\) \[1000\]"):
+        engine.run_until_drained()
+    failed = [r.rid for r in engine.finished if r.error is not None]
+    done = engine.run_until_drained()
+    assert sorted(r.rid for r in done if r.error is None) == [0, 1]
+    return failed, {r.rid: r.output for r in done if r.error is None}
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_engine_strict_raises_on_bad_request(pair, paged):
+    """``strict=True`` (tests/test_serve.py's script, on the paged and the
+    dense path): the tick retires the bad request with its error, commits
+    the healthy work and raises; a second drain completes the rest.  The
+    error rids and the streams equal the reference engine's."""
+    from repro.serve.engine import Request as JaxRequest
+    from repro_torch.serve.engine import Request
+    jmodel, jparams, model, params = pair
+    jeng = JaxServeEngine(jmodel, jparams, max_slots=3, max_len=128,
+                          paged=paged, strict=True)
+    want = _strict_run(jeng, jeng.queue, JaxRequest)
+    jeng.close()
+    with ServeEngine(model, params, max_slots=3, max_len=128, paged=paged,
+                     strict=True, device="cpu") as eng:
+        got = _strict_run(eng, eng.sched.queue, Request)
+    assert got == want
+    assert got[0] == [1000]
+    if paged:
+        assert eng.pool.pages_in_use == 0
+
+
+def _chunked_run(engine):
+    """The reference's anti-stall script at ``chunks_per_tick=1``: a short
+    request goes live, then a 99-token prompt prefills in chunks of 16.
+    Returns the short request's tokens added by each of six ticks, and the
+    streams by prompt length after draining."""
+    engine.submit([9, 8, 7], max_new_tokens=24)
+    engine.run_until_drained(max_ticks=2)          # the short request is live
+    short = engine.sched.slot_req[0]
+    engine.submit(list(range(1, 100)), max_new_tokens=4)   # 7 chunks
+    per_tick = []
+    for _ in range(6):
+        n = len(short.output)
+        engine.tick()
+        per_tick.append(len(short.output) - n)
+    long_req = engine.sched.slot_req[1]
+    assert long_req is not None and not long_req.output   # still prefilling
+    done = engine.run_until_drained()
+    assert engine.stats["chunk_prefills"] >= 7
+    return per_tick, {len(r.prompt): r.output for r in done}
+
+
+def test_chunked_prefill_keeps_decode_flowing(pair):
+    """One prefill chunk a tick (``chunks_per_tick=1``): the live request
+    emits one token every tick while the long prompt prefills, and the
+    token counts per tick and the streams equal the reference's."""
+    jmodel, jparams, model, params = pair
+    kw = dict(max_slots=2, max_len=128, paged=True, page_size=16,
+              prefill_chunk=16, chunks_per_tick=1)
+    jeng = JaxServeEngine(jmodel, jparams, **kw)
+    want = _chunked_run(jeng)
+    jeng.close()
+    got = _chunked_run(ServeEngine(model, params, device="cpu", **kw))
+    assert got == want
+    assert got[0] == [1] * 6
+    assert len(got[1][3]) == 24 and len(got[1][99]) == 4
