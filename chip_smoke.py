@@ -10,8 +10,13 @@ Phases (any failure exits non-zero before the result lines):
                  (one nvcc per source, all at once) and prints what ptxas
                  reports of the flash-attention kernels' (both routes), the
                  D 97-128 paged-attention split kernels' and the combine
-                 kernels', the K-64 wkv kernels' and the N = P = 64 SSD
-                 kernel's registers, spills and shared memory.
+                 kernels', the K-64 wkv kernels' (both routes: the
+                 CUDA-core time loop, and the tensor-core route's chunk
+                 states, chunk-state pass and outputs) and the N = P = 64
+                 SSD kernels' (the CUDA-core loop, and the tensor-core
+                 route's segment states and outputs) registers, spills and
+                 shared memory, with the tensor-core routes' dynamic shared
+                 memory.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them;
                  flash attention on its tensor-core route (bf16, D 64 and
@@ -19,7 +24,12 @@ Phases (any failure exits non-zero before the result lines):
                  strided q/k/v) and its CUDA-core route; paged attention
                  split over many key ranges (tables of 128 and 512 pages,
                  lengths on and beside a split edge, W 64 deep in the
-                 table), float and int8 pages.
+                 table), float and int8 pages; the wkv kernel on both
+                 routes (the tensor-core route for K = V = 64 from one
+                 chunk of 64 steps on: the full-width prefill, S 64 and 65,
+                 each such call checked by its sub-count; S 63 and the
+                 decode shape on CUDA cores), also with exact zeros and
+                 denormals planted in w.
 4. small       — the SMOKE qwen2-7b engine (float32) on the card emits the
                  same greedy streams as on the CPU, paged and then dense.
 5. main        — full-width, full-depth qwen2-7b (28 layers, bf16, seeded
@@ -76,22 +86,30 @@ Phases (any failure exits non-zero before the result lines):
                  requests of 964-1007 tokens (bucket 1024), 32 new tokens
                  each; every request must finish with 32 in-vocab tokens,
                  the wkv kernel must launch exactly 32 times a prefill or
-                 decode step, and no other kernel and no plain version may
-                 run.  Then, in float32 on the same weights, one prompt's
-                 prefill through the kernel and through its plain version:
-                 layer 0's final wkv state is gated (every layer's gap
-                 printed).  Prints the peak device memory, wall tok/s and
-                 mean TTFT.
+                 decode step, every prefill call on the tensor-core route
+                 and every decode call on the CUDA-core one (by the
+                 ``rwkv6_scan_tc`` sub-count), and no other kernel and no
+                 plain version may run.  Then, in float32 on the same
+                 weights, one prompt's prefill through the kernel and
+                 through its plain version: layer 0's final wkv state is
+                 gated (every layer's gap printed).  Prints the peak
+                 device memory, wall tok/s and mean TTFT.
 14. step-rwkv  — one 4-slot rwkv decode step and one bucket-1024 prefill,
                  host-issued and as device time, with the card's idle
                  share; the wkv kernel timed at the prefill and decode
                  shapes (kernel, plain, bound, and a composite yardstick:
-                 the reference's chunked matmul form written in torch).
+                 the reference's chunked matmul form written in torch); the
+                 prefill's bound at the TF32 tensor-core peak (its route),
+                 the float32 CUDA-core one beside it.
 15. parity-ssd — the SSD kernel against its plain version: the
                  reference's three cases, a ragged length, zamba2-7b's
-                 prefill and decode shapes and every (N, P) it is built
-                 for, B/C in bf16 and float32, from a state written in
-                 place, from a given state and from zeros.
+                 prefill and decode shapes, S 63, 64 and 65 at N = P = 64,
+                 a slow decay that carries the state across the
+                 tensor-core route's segments, and every (N, P) it is
+                 built for, B/C in bf16 and float32, from a state written
+                 in place, from a given state and from zeros; every call
+                 that the tensor-core route takes (N = P = 64, bf16 B/C,
+                 S >= 64) checked by its sub-count.
 16. small-zamba — the SMOKE zamba2-7b (float32) as aligned batches
                  (prefill, then decode steps at one position) on the card
                  emits the same greedy streams as on the CPU.
@@ -101,17 +119,22 @@ Phases (any failure exits non-zero before the result lines):
                  ``HybridLM``: 4 prompts of 1000 tokens, max_len 1032,
                  greedy to 32 new tokens; every row must get 32 in-vocab
                  tokens, the SSD kernel must launch exactly 81 times a
-                 prefill or decode step, RMSNorm only as a kernel, and no
-                 other kernel and no plain version may run.  Then a second
-                 prefill compares every layer's SSD call with the plain
-                 version on the same inputs: layer 0 is gated (every
-                 layer's gap printed).  Prints the weights' bytes, the peak
-                 device memory, the prefill's time and decode tok/s.
+                 prefill or decode step, the 81 prefill calls on the
+                 tensor-core route and every decode call on the CUDA-core
+                 one (by the ``ssd_scan_tc`` sub-count), RMSNorm only as a
+                 kernel, and no other kernel and no plain version may
+                 run.  Then a second prefill compares every layer's SSD
+                 call with the plain version on the same inputs: layer 0
+                 is gated (every layer's gap printed).  Prints the
+                 weights' bytes, the peak device memory, the prefill's
+                 time and decode tok/s.
 18. step-zamba — one 4-row decode step and one 4 x 1000 prefill,
                  host-issued and as device time, with the card's idle
                  share; the SSD kernel timed at the prefill and decode
                  shapes (kernel, plain, bound, and a composite yardstick:
-                 the reference's chunked form ``_ssd_chunked`` in torch).
+                 the reference's chunked form ``_ssd_chunked`` in torch);
+                 the prefill's bound at the TF32 tensor-core peak, the
+                 float32 CUDA-core one beside it.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly.
@@ -142,7 +165,9 @@ from repro_torch.serve import quant as QZ  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peaks: bf16 and TF32 on the tensor cores, float32 on CUDA cores
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, "tf32": 494.7e12,
+                  torch.float32: 67e12}
 # rtol = atol per kernel and dtype.  bf16 rmsnorm outputs are O(1), where
 # one bf16 ulp is 2**-7 ~ 8e-3; bf16 paged-attention outputs are ~0.1; the
 # bf16 attention limits of flash attention and the int8 paged attention sit
@@ -163,9 +188,15 @@ K_GAP_TOL = 1e-3
 # shape, so it is gated at the same limit.
 RWKV_REL = 1e-5
 # (B, S, H, K, V): the reference's three cases (K != V in the third), a
-# ragged length, and rwkv6-3b's full-width prefill and decode shapes
+# ragged length, rwkv6-3b's full-width prefill and decode shapes, and one
+# step short of the tensor-core route's chunk (64), on it and past it
 RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
-              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64)]
+              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64),
+              (2, 63, 3, 64, 64), (2, 64, 3, 64, 64), (2, 65, 3, 64, 64)]
+# ... and with exact zeros and as many denormals planted in w (B, S, H, K,
+# V, planted): the full-width decay range has both
+RWKV_PLANTED = [(1, 1024, 40, 64, 64, 200), (2, 65, 3, 64, 64, 8),
+                (2, 63, 3, 64, 64, 8)]
 # the SSD kernel against its plain version: both in float32 from the same
 # inputs (bf16 B and C widened exactly); the kernel's chunked form
 # reassociates the decay products (exp of a cumsum for a product of exps)
@@ -175,10 +206,16 @@ RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
 # the same function at the parity phase's prefill shape: the same limit,
 # on max |d| / max |plain| (its values are far below 1 at random init).
 SSD_REL = 1e-5
-# (B, S, H, P, N): the reference's three cases, a ragged length, and
-# zamba2-7b's full-width prefill and decode shapes
+# (B, S, H, P, N): the reference's three cases, a ragged length,
+# zamba2-7b's full-width prefill and decode shapes, and one step short of
+# the tensor-core route's chunk (64), on it and past it
 SSD_CASES = [(2, 256, 3, 16, 8), (1, 128, 2, 32, 16), (1, 512, 1, 8, 4),
-             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64)]
+             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64),
+             (2, 63, 8, 64, 64), (2, 64, 8, 64, 64), (2, 65, 8, 64, 64)]
+# (B, S, H): a decay 200 times slower than zamba2's init (la = -0.005 dt)
+# keeps the state alive across the tensor-core route's segments of 256
+# steps, which at the init's decay carry about e^-200 of it
+SSD_SLOW_CASES = [(2, 1000, 5), (1, 300, 3)]
 ZAMBA_ROWS, ZAMBA_PROMPT, ZAMBA_NEW = 4, 1000, 32    # main-zamba's batch
 ZAMBA_MAX_LEN = 1032
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--requests", "8", "--max-new", "32",
@@ -1031,15 +1068,21 @@ def phase_step_dense(eng, times) -> None:
 
 # -- rwkv6: the dense path of a recurrent family, kernel B4 --------------------
 
-def rwkv_case(rng, dev, dtype, B, S, H, K, V):
+def rwkv_case(rng, dev, dtype, B, S, H, K, V, planted=0):
     """r, k, v in ``dtype``; a decay spanning about e^-20 to 1, as
-    exp(-exp(x)) with x ~ N(0, 1) gives it at full width; u and a nonzero
-    initial state (float32)."""
+    exp(-exp(x)) with x ~ N(0, 1) gives it at full width, with ``planted``
+    exact zeros and as many denormals put into it; u and a nonzero initial
+    state (float32)."""
     f = np.float32
     r, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, C)).astype(f))
                .to(dev, dtype) for C in (K, K, V))
-    w = torch.from_numpy(np.exp(-np.exp(rng.normal(size=(B, S, H, K))))
-                         .astype(f)).to(dev)
+    w = np.exp(-np.exp(rng.normal(size=(B, S, H, K)))).astype(f)
+    if planted:
+        flat = w.reshape(-1)
+        at = rng.choice(flat.size, 2 * planted, replace=False)
+        flat[at[:planted]] = 0.0
+        flat[at[planted:]] = rng.uniform(1e-45, 1e-39, planted).astype(f)
+    w = torch.from_numpy(w).to(dev)
     u = torch.from_numpy(rng.normal(size=(H, K)).astype(f)).to(dev)
     s0 = torch.from_numpy(rng.normal(size=(B, H, K, V)).astype(f)).to(dev)
     return r, k, v, w, u, s0
@@ -1052,37 +1095,55 @@ def rel_gap(got, want) -> tuple[float, float]:
 
 
 def phase_parity_rwkv(dev) -> dict:
-    """The wkv kernel against its plain version at RWKV_CASES, r/k/v in
-    bf16 and float32, from a nonzero state written in place (the decode
-    step's use) and from zeros.  Max abs and relative errors by dtype."""
+    """The wkv kernel against its plain version at RWKV_CASES and
+    RWKV_PLANTED, r/k/v in bf16 and float32, from a nonzero state written
+    in place (the decode step's use) and from zeros; each call's route
+    checked by the ``rwkv6_scan_tc`` sub-count.  Max abs and relative
+    errors by dtype."""
+    from repro_torch.kernels.rwkv6_scan import tensor_core_route
     rng = np.random.default_rng(4)
     errs = {}
+    cases = [c + (0,) for c in RWKV_CASES] + RWKV_PLANTED
     for dtype in (torch.bfloat16, torch.float32):
         key = str(dtype).split(".")[-1]
-        for B, S, H, K, V in RWKV_CASES:
-            r, k, v, w, u, s0 = rwkv_case(rng, dev, dtype, B, S, H, K, V)
+        for B, S, H, K, V, planted in cases:
+            r, k, v, w, u, s0 = rwkv_case(rng, dev, dtype, B, S, H, K, V,
+                                          planted)
             want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0)
             zero_y, zero_s = ref.rwkv6_scan(r, k, v, w, u)
             state = s0.clone()
+            ops.reset_counts()
             y, st = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
             y0, st0 = ops.rwkv6_scan(r, k, v, w, u)
             torch.cuda.synchronize()
             if st is not state:
                 raise AssertionError("rwkv6_scan: state not written in place")
+            tc = ops.COUNTS["rwkv6_scan_tc"].kernel
+            if tc != 2 * tensor_core_route(r, v) or (
+                    (B, S, H) == (1, 1024, 40) and tc != 2):
+                raise AssertionError(
+                    f"rwkv6_scan B={B} S={S} H={H} K={K} V={V}: {tc} of 2 "
+                    f"calls on the tensor-core route")
+            if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+                raise AssertionError(f"rwkv6_scan B={B} S={S} H={H} planted="
+                                     f"{planted}: non-finite output")
             for what, got, want in (("y", y, want_y), ("state", state, want_s),
                                     ("y0", y0, zero_y), ("state0", st0, zero_s)):
                 err, rel = rel_gap(got, want)
                 if not rel <= RWKV_REL:
                     raise AssertionError(
-                        f"rwkv6_scan B={B} S={S} H={H} K={K} V={V} {dtype} "
-                        f"{what}: kernel disagrees with plain version (max "
-                        f"abs err {err}, relative {rel}, limit {RWKV_REL})")
+                        f"rwkv6_scan B={B} S={S} H={H} K={K} V={V} planted="
+                        f"{planted} {dtype} {what}: kernel disagrees with "
+                        f"plain version (max abs err {err}, relative {rel}, "
+                        f"limit {RWKV_REL})")
                 a, b = errs.get(key, (0.0, 0.0))
                 errs[key] = (max(a, err), max(b, rel))
-    log(f"parity ok: {2 * len(RWKV_CASES)} rwkv6_scan cases (each from a "
-        f"state in place and from zeros), limit max|d| <= {RWKV_REL} x "
-        f"max(1, max|plain|); (max abs err, max relative) by r/k/v dtype "
-        f"{errs}")
+    log(f"parity ok: {2 * len(cases)} rwkv6_scan cases "
+        f"({2 * len(RWKV_PLANTED)} with zeros and denormals planted in w; "
+        f"each from a state in place "
+        f"and from zeros; K = V = 64 from S 64 on the tensor-core route, by "
+        f"its sub-count), limit max|d| <= {RWKV_REL} x max(1, max|plain|); "
+        f"(max abs err, max relative) by r/k/v dtype {errs}")
     return errs
 
 
@@ -1137,8 +1198,11 @@ def phase_main_rwkv():
             raise AssertionError(f"main-rwkv request {r.rid}: bad output "
                                  f"{r.output}")
     steps = s["prefills"] + s["ticks"]
-    want = {k: (cfg.n_layers * steps if k == "rwkv6_scan" else 0, 0)
-            for k in counts}
+    # every prefill call (S 1024) on the tensor-core route, every decode
+    # call (S 1) on the CUDA-core one
+    want = {k: (0, 0) for k in counts}
+    want["rwkv6_scan"] = (cfg.n_layers * steps, 0)
+    want["rwkv6_scan_tc"] = (cfg.n_layers * s["prefills"], 0)
     if s["prefills"] != 8 or counts != want:
         raise AssertionError(f"main-rwkv: {s['prefills']} prefills, "
                              f"{s['ticks']} decode steps, launches {counts}, "
@@ -1153,13 +1217,16 @@ def phase_main_rwkv():
         f"wall (init included: {wall:.2f}s), mean TTFT {ttft * 1e3:.2f} ms, "
         f"ticks={s['ticks']} prefills={s['prefills']}, {weights} B of "
         f"weights, max_memory_allocated={peak} B; launches {counts} "
-        f"({cfg.n_layers} x {steps} prefills and decode steps)")
+        f"({cfg.n_layers} x {steps} prefills and decode steps: "
+        f"{counts['rwkv6_scan_tc'][0]} prefill calls on the tensor-core "
+        f"route, {counts['rwkv6_scan'][0] - counts['rwkv6_scan_tc'][0]} "
+        f"decode calls on the CUDA-core one)")
     log("main-rwkv, float32, one prompt of "
         f"{len(prompts[0])} tokens (bucket 1024): wkv kernel vs plain "
         "version, final wkv state max|dS| / max|S| by layer: "
         + " ".join(f"{g:.2e}" for g in gaps)
         + f" (layer 0 gated at {RWKV_REL})")
-    return counts["rwkv6_scan"][0], eng
+    return {k: counts[k][0] for k in ("rwkv6_scan", "rwkv6_scan_tc")}, eng
 
 
 def rwkv_prefill_gaps(eng, prompt) -> list[float]:
@@ -1247,12 +1314,16 @@ def phase_timing_rwkv(dev) -> dict:
                             reps=5),
          "composite": device_ms([lambda: wkv_chunked(r, k, v, w, u, s0)] * 4)}
     eager = time_ms(lambda: ops.rwkv6_scan(r, k, v, w, u, s0))
-    b_ms, b_by = bound(*wkv_cost(1, 1024, H, K, K, 2), torch.float32)
+    cost = wkv_cost(1, 1024, H, K, K, 2)
+    b_ms, b_by = bound(*cost, "tf32")             # its route: tensor cores
+    f32_ms, f32_by = bound(*cost, torch.float32)  # the CUDA-core route's
     shape = f"prefill B=1 S=1024 H={H} K=V={K} r/k/v bf16"
-    log(f"timing rwkv6_scan [{shape}]: device kernel {t['kernel']:.5f} ms, "
-        f"plain {t['plain']:.5f} ms, composite (chunked torch) "
-        f"{t['composite']:.5f} ms, bound {b_ms:.6f} ms ({b_by}); host-issued "
-        f"kernel {eager:.5f} ms")
+    log(f"timing rwkv6_scan [{shape}, tensor-core route]: device kernel "
+        f"{t['kernel']:.5f} ms (3 launches), plain {t['plain']:.5f} ms, "
+        f"composite (chunked torch) {t['composite']:.5f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}, operations at the TF32 peak; at the float32 "
+        f"CUDA-core peak {f32_ms:.6f} ms, {f32_by}); host-issued kernel "
+        f"{eager:.5f} ms")
     layers = [rwkv_case(rng, dev, torch.bfloat16, 4, 1, H, K, K)
               for _ in range(cfg.n_layers)]
     d = {"kernel": device_ms([lambda a=a: ops.rwkv6_scan(*a[:5], a[5],
@@ -1266,8 +1337,8 @@ def phase_timing_rwkv(dev) -> dict:
         f"bound {db_ms:.6f} ms ({db_by})")
     return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
                 composite_ms=t["composite"], bound_ms=b_ms, bound_by=b_by,
-                shape=shape, decode_ms=d["kernel"], decode_plain_ms=d["plain"],
-                decode_bound_ms=db_ms)
+                bound_f32_ms=f32_ms, shape=shape, decode_ms=d["kernel"],
+                decode_plain_ms=d["plain"], decode_bound_ms=db_ms)
 
 
 def phase_step_rwkv(eng, times) -> None:
@@ -1298,15 +1369,15 @@ def phase_step_rwkv(eng, times) -> None:
 
 # -- zamba2: Mamba-2 layers and the shared block as an aligned batch, B5 ------
 
-def ssd_case(rng, dev, bc_dtype, B, S, H, P, N):
-    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -dt (A_log
-    0), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a nonzero float32
-    initial state."""
+def ssd_case(rng, dev, bc_dtype, B, S, H, P, N, decay=1.0):
+    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -decay dt
+    (A_log 0 at decay 1), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a
+    nonzero float32 initial state."""
     f = np.float32
     dt = np.log1p(np.exp(rng.normal(size=(B, S, H))))
     xdt = torch.from_numpy((rng.normal(size=(B, S, H, P)) * dt[..., None])
                            .astype(f)).to(dev)
-    la = torch.from_numpy((-dt).astype(f)).to(dev)
+    la = torch.from_numpy((-decay * dt).astype(f)).to(dev)
     bm, cm = (torch.from_numpy(rng.normal(size=(B, S, N)).astype(f))
               .to(dev, bc_dtype) for _ in range(2))
     s0 = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(f)).to(dev)
@@ -1314,28 +1385,42 @@ def ssd_case(rng, dev, bc_dtype, B, S, H, P, N):
 
 
 def phase_parity_ssd(dev) -> dict:
-    """The SSD kernel against its plain version at SSD_CASES and at every
-    (N, P) the kernel is built for (B 2, S 70, H 3), B/C in bf16 and
-    float32: from a nonzero state written in place (aliased, the decode
-    step's use), from a given state into a fresh one, and from zeros.  Max
-    abs and relative errors by B/C dtype."""
+    """The SSD kernel against its plain version at SSD_CASES, at
+    SSD_SLOW_CASES (N = P = 64) and at every (N, P) the kernel is built for
+    (B 2, S 70, H 3), B/C in bf16 and float32: from a nonzero state written
+    in place (aliased, the decode step's use), from a given state into a
+    fresh one, and from zeros; each call's route checked by the
+    ``ssd_scan_tc`` sub-count.  Max abs and relative errors by B/C
+    dtype."""
+    from repro_torch.kernels.ssd_scan import tensor_core_route
     rng = np.random.default_rng(7)
-    cases = SSD_CASES + [(2, 70, 3, P, N) for P in (8, 16, 32, 64)
-                         for N in (4, 8, 16, 32, 64)]
+    cases = ([c + (1.0,) for c in SSD_CASES]
+             + [(B, S, H, 64, 64, 0.005) for B, S, H in SSD_SLOW_CASES]
+             + [(2, 70, 3, P, N, 1.0) for P in (8, 16, 32, 64)
+                for N in (4, 8, 16, 32, 64)])
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         key = str(dtype).split(".")[-1]
-        for B, S, H, P, N in cases:
-            xdt, la, bm, cm, s0 = ssd_case(rng, dev, dtype, B, S, H, P, N)
+        for B, S, H, P, N, decay in cases:
+            xdt, la, bm, cm, s0 = ssd_case(rng, dev, dtype, B, S, H, P, N,
+                                           decay)
             want_y, want_s = ref.ssd_scan(xdt, la, bm, cm, s0)
             zero_y, zero_s = ref.ssd_scan(xdt, la, bm, cm)
             state = s0.clone()
+            ops.reset_counts()
             y, st = ops.ssd_scan(xdt, la, bm, cm, state, out_state=state)
             y1, s1 = ops.ssd_scan(xdt, la, bm, cm, s0)
             y0, st0 = ops.ssd_scan(xdt, la, bm, cm)
             torch.cuda.synchronize()
             if st is not state:
                 raise AssertionError("ssd_scan: state not written in place")
+            tc = ops.COUNTS["ssd_scan_tc"].kernel
+            if tc != 3 * tensor_core_route(xdt, bm) or (
+                    (B, S, H, dtype) == (4, 1000, 112, torch.bfloat16)
+                    and tc != 3):
+                raise AssertionError(
+                    f"ssd_scan B={B} S={S} H={H} P={P} N={N} B/C {dtype}: "
+                    f"{tc} of 3 calls on the tensor-core route")
             for what, got, want in (("y", y, want_y), ("state", state, want_s),
                                     ("y given", y1, want_y),
                                     ("state given", s1, want_s),
@@ -1343,15 +1428,18 @@ def phase_parity_ssd(dev) -> dict:
                 err, rel = rel_gap(got, want)
                 if not rel <= SSD_REL:
                     raise AssertionError(
-                        f"ssd_scan B={B} S={S} H={H} P={P} N={N} B/C {dtype} "
-                        f"{what}: kernel disagrees with plain version (max "
-                        f"abs err {err}, relative {rel}, limit {SSD_REL})")
+                        f"ssd_scan B={B} S={S} H={H} P={P} N={N} decay "
+                        f"{decay} B/C {dtype} {what}: kernel disagrees with "
+                        f"plain version (max abs err {err}, relative {rel}, "
+                        f"limit {SSD_REL})")
                 a, b = errs.get(key, (0.0, 0.0))
                 errs[key] = (max(a, err), max(b, rel))
     log(f"parity ok: {2 * len(cases)} ssd_scan cases (each from a state in "
         f"place, from a given state and from zeros; every N in 4-64 and P "
-        f"in 8-64), limit max|d| <= {SSD_REL} x max(1, max|plain|); (max "
-        f"abs err, max relative) by B/C dtype {errs}")
+        f"in 8-64; N = P = 64 with bf16 B/C from S 64 on the tensor-core "
+        f"route, by its sub-count; a slow decay across its segments), "
+        f"limit max|d| <= {SSD_REL} x max(1, max|plain|); (max abs err, max "
+        f"relative) by B/C dtype {errs}")
     return errs
 
 
@@ -1421,14 +1509,16 @@ def phase_main_zamba(dev):
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"main-zamba: tokens {toks.tolist()}")
     steps = 1 + (ZAMBA_NEW - 1)                # the prefill and decode steps
+    # the prefill's calls (S 1000) on the tensor-core route, the decode
+    # steps' (S 1) on the CUDA-core one
+    want = {"ssd_scan": cfg.n_layers * steps, "ssd_scan_tc": cfg.n_layers}
     for name, (kernel, plain) in counts.items():
-        want = cfg.n_layers * steps if name == "ssd_scan" else None
-        if plain or (name == "ssd_scan" and kernel != want) or (
+        if plain or (name in want and kernel != want[name]) or (
                 name == "rmsnorm" and kernel <= 0) or (
-                name not in ("ssd_scan", "rmsnorm") and kernel):
+                name not in ("ssd_scan", "ssd_scan_tc", "rmsnorm") and kernel):
             raise AssertionError(f"main-zamba: launches {counts}; want "
-                                 f"ssd_scan {cfg.n_layers * steps}, rmsnorm "
-                                 "> 0, no other kernel and no plain version")
+                                 f"{want}, rmsnorm > 0, no other kernel and "
+                                 "no plain version")
     gaps, scales = ssd_layer_gaps(model, params, prompts)
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"main-zamba: zamba2-7b {cfg.n_layers} Mamba-2 layers + "
@@ -1439,7 +1529,10 @@ def phase_main_zamba(dev):
         f"{ZAMBA_ROWS * (ZAMBA_NEW - 1) / t_decode:.1f} tok/s; wall "
         f"{wall:.2f}s (init included); {weights} B of weights, "
         f"max_memory_allocated={peak} B; launches {counts} ({cfg.n_layers} "
-        f"x {steps} prefill and decode steps)")
+        f"x {steps} prefill and decode steps: {counts['ssd_scan_tc'][0]} "
+        f"prefill calls on the tensor-core route, "
+        f"{counts['ssd_scan'][0] - counts['ssd_scan_tc'][0]} decode calls on "
+        f"the CUDA-core one)")
     log("main-zamba, the SSD calls of a second prefill on the same prompts: "
         "kernel vs plain version on the same inputs, max|d| / max|plain| "
         "of y and the final state by layer: "
@@ -1447,7 +1540,8 @@ def phase_main_zamba(dev):
         f"max|y|, max|state| of the plain version: layer 0 {scales[0][0]:.3e}, "
         f"{scales[0][1]:.3e}; over the layers {max(a for a, _ in scales):.3e}, "
         f"{max(b for _, b in scales):.3e}")
-    return counts["ssd_scan"][0], model, params
+    return ({k: counts[k][0] for k in ("ssd_scan", "ssd_scan_tc")}, model,
+            params)
 
 
 def ssd_layer_gaps(model, params, prompts):
@@ -1554,13 +1648,17 @@ def phase_timing_ssd(dev) -> dict:
     eager = time_ms(lambda: ops.ssd_scan(xdt, la, bm, cm, s0))
     _, comp_gap = rel_gap(ssd_chunked(xdt, la, bm, cm, s0)[0],
                           ref.ssd_scan(xdt, la, bm, cm, s0)[0])
-    b_ms, b_by = bound(*ssd_cost(B, S, H, P, N, 2), torch.float32)
+    cost = ssd_cost(B, S, H, P, N, 2)
+    b_ms, b_by = bound(*cost, "tf32")             # its route: tensor cores
+    f32_ms, f32_by = bound(*cost, torch.float32)  # the CUDA-core route's
     shape = f"prefill B={B} S={S} H={H} P={P} N={N} B/C bf16"
-    log(f"timing ssd_scan [{shape}]: device kernel {t['kernel']:.5f} ms, "
-        f"plain {t['plain']:.5f} ms, composite (the reference's chunked "
-        f"form in torch) {t['composite']:.5f} ms (its y {comp_gap:.2e} "
-        f"relative from the plain version's), bound {b_ms:.6f} ms ({b_by}); "
-        f"host-issued kernel {eager:.5f} ms")
+    log(f"timing ssd_scan [{shape}, tensor-core route]: device kernel "
+        f"{t['kernel']:.5f} ms (2 launches), plain {t['plain']:.5f} ms, "
+        f"composite (the reference's chunked form in torch) "
+        f"{t['composite']:.5f} ms (its y {comp_gap:.2e} relative from the "
+        f"plain version's), bound {b_ms:.6f} ms ({b_by}, operations at the "
+        f"TF32 peak; at the float32 CUDA-core peak {f32_ms:.6f} ms, "
+        f"{f32_by}); host-issued kernel {eager:.5f} ms")
     layers = [ssd_case(rng, dev, torch.bfloat16, B, 1, H, P, N)
               for _ in range(cfg.n_layers)]
     d = {"kernel": device_ms([lambda a=a: ops.ssd_scan(*a[:4], a[4],
@@ -1574,8 +1672,8 @@ def phase_timing_ssd(dev) -> dict:
         f"{d['plain']:.5f} ms, bound {db_ms:.6f} ms ({db_by})")
     return dict(ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
                 composite_ms=t["composite"], bound_ms=b_ms, bound_by=b_by,
-                shape=shape, decode_ms=d["kernel"], decode_plain_ms=d["plain"],
-                decode_bound_ms=db_ms)
+                bound_f32_ms=f32_ms, shape=shape, decode_ms=d["kernel"],
+                decode_plain_ms=d["plain"], decode_bound_ms=db_ms)
 
 
 def phase_step_zamba(model, params, times) -> None:
@@ -1622,6 +1720,16 @@ SOURCES = {
 }
 
 
+# the CUDA kernels behind each wrapper that has more than one: its routes'
+# kernels, in launch order
+DEVICE_KERNELS = {
+    "rwkv6_scan": ["rwkv6_chunk_state_kernel", "rwkv6_chunk_pass_kernel",
+                   "rwkv6_chunk_out_kernel", "rwkv6_scan_kernel"],
+    "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
+                 "ssd_scan_kernel"],
+}
+
+
 def ptxas_report(*names: str) -> list[str]:
     """ptxas's register, spill and shared-memory lines for the kernels
     whose mangled name holds every one of ``names``."""
@@ -1645,14 +1753,26 @@ def main() -> int:
     # flash attention: the tensor-core route at D 64 and 128, the CUDA-core
     # route at every D; paged attention's split kernel (float and int8
     # pages) at 4 accumulator columns a lane, D 97-128, and the combine;
-    # the wkv kernel at K 64; the SSD kernel at N = P = 64
+    # the wkv kernels: the CUDA-core one at K 64, the tensor-core route's
+    # three; the SSD kernels: the CUDA-core one at N = P = 64, the
+    # tensor-core route's two
     for line in (ptxas_report("flash_attention_tc_kernel")
                  + ptxas_report("flash_attention_kernel")
                  + ptxas_report("paged_attention_split_kernel", "Li4E")
                  + ptxas_report("paged_attention_combine_kernel")
                  + ptxas_report("rwkv6_scan_kernel", "ILi64E")
-                 + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")):
+                 + ptxas_report("rwkv6_chunk_state_kernel")
+                 + ptxas_report("rwkv6_chunk_pass_kernel")
+                 + ptxas_report("rwkv6_chunk_out_kernel")
+                 + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")
+                 + ptxas_report("ssd_seg_state_kernel")
+                 + ptxas_report("ssd_seg_out_kernel")):
         log(f"ptxas {line}")
+    lib = build.library()
+    log("dynamic shared memory of the tensor-core routes: wkv launches 1 "
+        f"and 3 {lib.rwkv6_scan_tc_smem(1)} / {lib.rwkv6_scan_tc_smem(3)} B, "
+        f"SSD launches 1 and 2 {lib.ssd_scan_tc_smem(1)} / "
+        f"{lib.ssd_scan_tc_smem(2)} B")
     errs = phase_parity(dev)
     rwkv_errs = phase_parity_rwkv(dev)
     errs["rwkv6_scan"] = max(e for e, _ in rwkv_errs.values())
@@ -1683,13 +1803,15 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    launches["rwkv6_scan"], eng = phase_main_rwkv()
+    rwkv_launches, eng = phase_main_rwkv()
+    launches.update(rwkv_launches)
     times["rwkv6_scan"] = phase_timing_rwkv(dev)
     phase_step_rwkv(eng, times["rwkv6_scan"])
     del eng                             # free the rwkv engine's weights
     gc.collect()
     torch.cuda.empty_cache()
-    launches["ssd_scan"], model, params = phase_main_zamba(dev)
+    ssd_launches, model, params = phase_main_zamba(dev)
+    launches.update(ssd_launches)
     times["ssd_scan"] = phase_timing_ssd(dev)
     phase_step_zamba(model, params, times["ssd_scan"])
     del model, params
@@ -1710,7 +1832,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "timed_shape": t["shape"],
+            **({"device_kernels": DEVICE_KERNELS[name],
+                "tc_launches": launches[f"{name}_tc"]}
+               if name in DEVICE_KERNELS else {}),
             **{k: t[k] for k in (
+                "bound_f32_ms",
                 "composite_ms", "decode_ms", "decode_plain_ms",
                 "decode_bound_ms", "chunk_ms", "chunk_plain_ms",
                 "chunk_library_ms", "chunk_bound_ms", "chunk_shape",

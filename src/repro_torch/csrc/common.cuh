@@ -111,3 +111,44 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// -- TF32 tensor-core products, split for float32 accuracy --------------------
+
+// float32 -> TF32 bit pattern (10 mantissa bits), to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 rounds
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: about 22 significant bits together (x - hi is
+// exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 accumulate.
+// Fragments (g = lane / 4, c = lane % 4): a0 (g, c), a1 (g + 8, c),
+// a2 (g, c + 4), a3 (g + 8, c + 4); b0 (k c, n g), b1 (k c + 4, n g);
+// d0, d1 (g, 2c + 0/1), d2, d3 (g + 8, 2c + 0/1)
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with both operands split (3xTF32): lo.hi + hi.lo + hi.hi, the
+// small products first; lo.lo (about 2^-22 of a b) is dropped
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi,
+                                           const uint32_t* a_lo,
+                                           const uint32_t* b_hi,
+                                           const uint32_t* b_lo) {
+  mma_tf32_1688(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32_1688(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32_1688(d, a_hi, b_hi[0], b_hi[1]);
+}

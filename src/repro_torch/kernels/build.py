@@ -30,7 +30,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# every C entry point returns its cudaError_t (0 = launched)
+# every C entry point that launches returns its cudaError_t (0 = launched)
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_launch": [_vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
@@ -46,9 +46,19 @@ _SIGNATURES = {
     # r, k, v, w, u, state0 (null: zeros), y, out_state, B, S, H, K, V,
     # r/k/v dtype, stream
     "rwkv6_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
+    # r, k, v, w, u, state0 (null: zeros), y, out_state, workspace, decays,
+    # B, S, H, r/k/v dtype, stream
+    "rwkv6_scan_tc_launch": [_vp] * 10 + [_i] * 4 + [_vp],
     # xdt, la, Bm, Cm, state0 (null: zeros), y, out_state, B, S, H, N, P,
     # Bm/Cm dtype, stream
     "ssd_scan_launch": [_vp] * 7 + [_i] * 6 + [_vp],
+    # xdt, la, Bm, Cm (bf16), state0 (null: zeros), y, out_state, workspace,
+    # decays, B, S, H, stream
+    "ssd_scan_tc_launch": [_vp] * 9 + [_i] * 3 + [_vp],
+    # the tensor-core routes' dynamic shared memory a launch (bytes; not
+    # launches: they return the size, not a cudaError_t)
+    "rwkv6_scan_tc_smem": [_i],
+    "ssd_scan_tc_smem": [_i],
 }
 
 

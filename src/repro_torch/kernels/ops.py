@@ -5,11 +5,14 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
-Two entries are sub-counts of a kernel's launches, not kernels of their
+Four entries are sub-counts of a kernel's calls, not kernels of their
 own: ``flash_attention_tc`` counts the flash-attention launches that took
 the tensor-core route, ``paged_attention_mq_split`` the paged-attention
 calls (float or int8 pages) split over more than one key range, each a
-split launch and a combine launch.
+split launch and a combine launch, and ``rwkv6_scan_tc`` and
+``ssd_scan_tc`` the scan calls that took the tensor-core route: three
+launches for the wkv (chunk states, the pass over them, outputs), two for
+the SSD (segment states, outputs).
 The counts are bumped under a lock: the dense path's prefills run on the
 prefill farm's worker threads.
 """
@@ -36,9 +39,10 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "paged_attention_mq_int8": LaunchCount(),
           "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount(),
           "ssd_scan": LaunchCount(),
-          # sub-counts of the two attention kernels' launches
+          # sub-counts of the attention kernels' and the scans' calls
           "flash_attention_tc": LaunchCount(),
-          "paged_attention_mq_split": LaunchCount()}
+          "paged_attention_mq_split": LaunchCount(),
+          "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -121,6 +125,8 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
     if _route(r, "rwkv6_scan"):
         out = _rw.rwkv6_scan_cuda(r, k, v, w, u, state0, out_state)
         _count("rwkv6_scan", kernel=True)
+        if _rw.tensor_core_route(r, v):
+            _count("rwkv6_scan_tc", kernel=True)
         return out
     _count("rwkv6_scan", kernel=False)
     return _rw.rwkv6_scan_plain(r, k, v, w, u, state0, out_state)
@@ -134,6 +140,8 @@ def ssd_scan(xdt, la, Bm, Cm, state0=None, *, out_state=None):
     if _route(xdt, "ssd_scan"):
         out = _ssd.ssd_scan_cuda(xdt, la, Bm, Cm, state0, out_state)
         _count("ssd_scan", kernel=True)
+        if _ssd.tensor_core_route(xdt, Bm):
+            _count("ssd_scan_tc", kernel=True)
         return out
     _count("ssd_scan", kernel=False)
     return _ssd.ssd_scan_plain(xdt, la, Bm, Cm, state0, out_state)

@@ -13,7 +13,12 @@ Every rwkv6 time-mix layer runs it, prefill and decode alike.
 The kernel (``csrc/rwkv6_scan.cu``) replaces the TPU kernel
 ``repro/kernels/rwkv6_scan.py:rwkv6_scan``; its source note says what
 bounds it on Hopper and how the design answers that.  Unlike the TPU
-wrapper it takes any sequence length, not only multiples of its tile.
+wrapper it takes any sequence length, not only multiples of its tile.  It
+has two routes (:func:`tensor_core_route`, from shapes only): K = V = 64
+and at least one chunk of steps (every rwkv6-3b prefill) run chunk-parallel
+on the tensor cores, three launches over a float32 workspace the wrapper
+allocates; the rest (other widths, short prompts, every decode step) runs
+the time loop of one block per (batch, head) on CUDA cores.
 """
 from __future__ import annotations
 
@@ -24,6 +29,30 @@ from repro_torch.kernels import build
 HEAD_DIMS = (8, 16, 32, 64)        # the key widths K the kernel is built for
 MAX_V = 256                        # value columns: one thread each
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TC_CHUNK, TC_SUB = 64, 16         # the tensor-core route's chunk, sub-chunk
+TC_WIDTH = 64                      # ... and its K = V
+
+
+def tensor_core_route(r, v) -> bool:
+    """True when the kernel runs the call of ``r`` (B, S, H, K) and ``v``
+    (B, S, H, V) chunk-parallel on the tensor cores: K = V = 64 and S at
+    least one chunk.  Reads shapes only, so a CUDA graph can hold the
+    call."""
+    return (r.shape[-1] == TC_WIDTH and v.shape[-1] == TC_WIDTH
+            and r.shape[1] >= TC_CHUNK)
+
+
+def workspace_elems(B: int, S: int, H: int) -> int:
+    """float32 elements of the tensor-core route's workspace: each
+    chunk's 64 x 64 state and 64 decays, per (batch, head)."""
+    nc = -(-S // TC_CHUNK)
+    return B * H * nc * (TC_WIDTH * TC_WIDTH + TC_WIDTH)
+
+
+def _aligned(t):
+    """``t`` (contiguous) itself when the kernel can read it with 16-byte
+    vector loads, else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def rwkv6_scan_plain(r, k, v, w, u, state0=None, out_state=None):
@@ -55,6 +84,8 @@ def rwkv6_scan_cuda(r, k, v, w, u, state0=None, out_state=None):
     bfloat16, converted in the kernel); w, u, state0 and out_state are
     float32; K is one of 8, 16, 32, 64 and V at most 256.  ``out_state``
     (contiguous) receives the final state in place and may be ``state0``.
+    The route follows :func:`tensor_core_route`; a call on either route
+    that fails to build or launch raises and never runs the other.
     Raises on anything else; never falls back."""
     B, S, H, K = r.shape
     V = v.shape[-1]
@@ -104,6 +135,20 @@ def rwkv6_scan_cuda(r, k, v, w, u, state0=None, out_state=None):
     if state0 is not None:
         state0 = state0.contiguous()
     lib = build.library()
+    if tensor_core_route(r, v):
+        r, k, v, w = (_aligned(t) for t in (r, k, v, w))
+        ws = torch.empty(workspace_elems(B, S, H), dtype=torch.float32,
+                         device=dev)
+        dec = ws[B * H * -(-S // TC_CHUNK) * TC_WIDTH * TC_WIDTH:]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check(lib.rwkv6_scan_tc_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), None if state0 is None else state0.data_ptr(),
+                y.data_ptr(), out_state.data_ptr(), ws.data_ptr(),
+                dec.data_ptr(), B, S, H, _DTYPE_CODES[r.dtype], stream),
+                "rwkv6_scan (tensor cores)")
+        return y, out_state
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.rwkv6_scan_launch(

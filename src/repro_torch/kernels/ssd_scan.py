@@ -16,7 +16,13 @@ The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py:ssd_scan`` and, like it, computes the chunked
 dual form; its source note says what bounds it on Hopper and how the
 design answers that.  Unlike the TPU wrapper it takes any sequence length,
-not only multiples of its chunk.
+not only multiples of its chunk.  It has two routes
+(:func:`tensor_core_route`, from shapes and dtypes only): N = P = 64 with
+bf16 B and C and at least one chunk of steps (every zamba2-7b prefill) run
+on the tensor cores, in parallel over segments of TC_SEG chunks, two
+launches over a float32 workspace the wrapper allocates; the rest (float32
+B/C, other widths, short prompts, every decode step) runs one block per
+(batch, head) that loops over the chunks on CUDA cores.
 """
 from __future__ import annotations
 
@@ -27,6 +33,38 @@ from repro_torch.kernels import build
 STATE_DIMS = (4, 8, 16, 32, 64)    # the state widths N the kernel is built for
 HEAD_DIMS = (8, 16, 32, 64)        # the head widths P
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TC_CHUNK, TC_SUB = 64, 16         # the tensor-core route's chunk, sub-chunk
+TC_SEG = 4                         # ... chunks a segment
+TC_WIDTH = 64                      # ... and its N = P
+
+
+def tensor_core_route(xdt, Bm) -> bool:
+    """True when the kernel runs the call of ``xdt`` (B, S, H, P) and
+    ``Bm`` (B, S, N) on the tensor cores: N = P = 64, B and C in bf16
+    (exact in the tensor cores; float32 B/C would need both operands split
+    in every product), S at least one chunk.  Reads shapes and dtypes
+    only, so a CUDA graph can hold the call."""
+    return (xdt.shape[-1] == TC_WIDTH and Bm.shape[-1] == TC_WIDTH
+            and Bm.dtype == torch.bfloat16 and xdt.shape[1] >= TC_CHUNK)
+
+
+def segments(S: int) -> int:
+    """Segments of TC_SEG chunks of TC_CHUNK steps that cover S steps."""
+    return -(-S // (TC_CHUNK * TC_SEG))
+
+
+def workspace_elems(B: int, S: int, H: int) -> int:
+    """float32 elements of the tensor-core route's workspace, per (batch,
+    head): the initial state and each segment's 64 x 64 state
+    contribution, then each segment's decay."""
+    nseg = segments(S)
+    return B * H * ((nseg + 1) * TC_WIDTH * TC_WIDTH + nseg)
+
+
+def _aligned(t):
+    """``t`` (contiguous) itself when the kernel can copy it in 16-byte
+    pieces, else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ssd_scan_plain(xdt, la, Bm, Cm, state0=None, out_state=None):
@@ -57,7 +95,9 @@ def ssd_scan_cuda(xdt, la, Bm, Cm, state0=None, out_state=None):
     Bm and Cm share one dtype (float32 or bfloat16, widened in the kernel);
     N is one of 4, 8, 16, 32, 64 and P one of 8, 16, 32, 64.
     ``out_state`` (contiguous) receives the final state in place and may be
-    ``state0``.  Raises on anything else; never falls back."""
+    ``state0``.  The route follows :func:`tensor_core_route`; a call on
+    either route that fails to build or launch raises and never runs the
+    other.  Raises on anything else; never falls back."""
     B, S, H, P = xdt.shape
     N = Bm.shape[-1]
     dev = xdt.device
@@ -104,6 +144,26 @@ def ssd_scan_cuda(xdt, la, Bm, Cm, state0=None, out_state=None):
     if state0 is not None:
         state0 = state0.contiguous()
     lib = build.library()
+    if tensor_core_route(xdt, Bm):
+        xdt, Bm, Cm = (_aligned(t) for t in (xdt, Bm, Cm))
+        if state0 is not None:
+            state0 = _aligned(state0)
+        # the kernel writes the final state in 16-byte pieces
+        final = out_state if out_state.data_ptr() % 16 == 0 \
+            else torch.empty(state_shape, dtype=torch.float32, device=dev)
+        ws = torch.empty(workspace_elems(B, S, H), dtype=torch.float32,
+                         device=dev)
+        dec = ws[B * H * (segments(S) + 1) * TC_WIDTH * TC_WIDTH:]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check(lib.ssd_scan_tc_launch(
+                xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                None if state0 is None else state0.data_ptr(), y.data_ptr(),
+                final.data_ptr(), ws.data_ptr(), dec.data_ptr(), B, S, H,
+                stream), "ssd_scan (tensor cores)")
+        if final is not out_state:
+            out_state.copy_(final)
+        return y, out_state
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.ssd_scan_launch(

@@ -333,23 +333,31 @@ def test_engine_on_card_matches_cpu(card):
 
 
 # (B, S, H, K, V): the reference's three cases (K != V in the third), a
-# ragged length, and the full-width prefill and decode shapes of rwkv6-3b
+# ragged length, the full-width prefill and decode shapes of rwkv6-3b, and
+# one step short of the tensor-core route's chunk (64), on it and past it
 RWKV_CASES = [(2, 128, 3, 16, 16), (1, 64, 2, 8, 8), (1, 192, 1, 32, 16),
-              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64)]
+              (2, 200, 3, 64, 64), (1, 1024, 40, 64, 64), (4, 1, 40, 64, 64),
+              (2, 63, 3, 64, 64), (2, 64, 3, 64, 64), (2, 65, 3, 64, 64)]
 # both sides compute in float32 from the same (exactly widened) inputs and
 # differ in summation order only: max |d| over max(1, max |plain|)
 RWKV_REL = 1e-5
 
 
-def _rwkv_case(rng, card, dtype, B, S, H, K, V):
+def _rwkv_case(rng, card, dtype, B, S, H, K, V, planted=0):
     """r, k, v in ``dtype``; the decay spans about e^-20 to 1, as
-    exp(-exp(x)) with x ~ N(0, 1) gives it at full width; u and a nonzero
-    initial state."""
+    exp(-exp(x)) with x ~ N(0, 1) gives it at full width, with ``planted``
+    exact zeros and as many denormals put into it; u and a nonzero initial
+    state."""
     f = np.float32
     r, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, C)).astype(f))
                .to(card, DTYPES[dtype]) for C in (K, K, V))
-    w = torch.from_numpy(np.exp(-np.exp(rng.normal(size=(B, S, H, K))))
-                         .astype(f)).to(card)
+    w = np.exp(-np.exp(rng.normal(size=(B, S, H, K)))).astype(f)
+    if planted:
+        flat = w.reshape(-1)
+        at = rng.choice(flat.size, 2 * planted, replace=False)
+        flat[at[:planted]] = 0.0
+        flat[at[planted:]] = rng.uniform(1e-45, 1e-39, planted).astype(f)
+    w = torch.from_numpy(w).to(card)
     u = torch.from_numpy(rng.normal(size=(H, K)).astype(f)).to(card)
     s0 = torch.from_numpy(rng.normal(size=(B, H, K, V)).astype(f)).to(card)
     return r, k, v, w, u, s0
@@ -374,12 +382,34 @@ def test_rwkv6_scan_kernel_matches_plain(card, dtype, B, S, H, K, V):
     y, st = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
     torch.cuda.synchronize()
     assert st is state and ops.COUNTS["rwkv6_scan"].kernel == 1
+    # the tensor-core route takes K = V = 64 from one chunk (64 steps) on
+    assert ops.COUNTS["rwkv6_scan_tc"].kernel \
+        == int(K == V == 64 and S >= 64)
     _rel_close(y, want_y, "y")
     _rel_close(state, want_s, "state")
     y0, s_zero = ops.rwkv6_scan(r, k, v, w, u)            # zero state
     want_y0, want_s0 = ref.rwkv6_scan(r, k, v, w, u)
     _rel_close(y0, want_y0, "y from zeros")
     _rel_close(s_zero, want_s0, "state from zeros")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H", [(1, 256, 4), (2, 65, 3), (2, 63, 3)])
+def test_rwkv6_scan_kernel_zero_and_denormal_decays(card, dtype, B, S, H):
+    """Exact zeros and denormals in w (the full-width decay range has
+    both) on either route: finite, and within RWKV_REL of the plain
+    version, from a state written in place."""
+    rng = np.random.default_rng(S + H)
+    r, k, v, w, u, s0 = _rwkv_case(rng, card, dtype, B, S, H, 64, 64,
+                                   planted=40)
+    assert (w == 0).sum() == 40
+    want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    y, _ = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    _rel_close(y, want_y, "y")
+    _rel_close(state, want_s, "state")
 
 
 def test_rwkv6_scan_wrapper_refuses_what_it_does_not_take(card):
@@ -428,24 +458,27 @@ def test_rwkv_engine_on_card_matches_cpu(card):
     assert got == want
 
 
-# (B, S, H, P, N): the reference's three cases, a ragged length, and the
-# full-width prefill and decode shapes of zamba2-7b
+# (B, S, H, P, N): the reference's three cases, a ragged length, the
+# full-width prefill and decode shapes of zamba2-7b, and one step short of
+# the tensor-core route's chunk (64), on it and past it
 SSD_CASES = [(2, 256, 3, 16, 8), (1, 128, 2, 32, 16), (1, 512, 1, 8, 4),
-             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64)]
+             (2, 200, 3, 16, 8), (4, 1000, 112, 64, 64), (4, 1, 112, 64, 64),
+             (2, 63, 8, 64, 64), (2, 64, 8, 64, 64), (2, 65, 8, 64, 64)]
 # both sides compute in float32 from the same (exactly widened) inputs; the
 # kernel's chunked form reassociates the decay products: max |d| over
 # max(1, max |plain|) (a CPU mirror of its arithmetic gave 8.7e-7)
 SSD_REL = 1e-5
 
 
-def _ssd_case(rng, card, bc_dtype, B, S, H, P, N):
-    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -dt (A_log
-    0), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a nonzero state."""
+def _ssd_case(rng, card, bc_dtype, B, S, H, P, N, decay=1.0):
+    """zamba2's init statistics: dt = softplus(N(0, 1)), la = -decay dt
+    (A_log 0 at decay 1), xdt = N(0, 1) * dt; B and C in ``bc_dtype``; a
+    nonzero state."""
     f = np.float32
     dt = np.log1p(np.exp(rng.normal(size=(B, S, H))))
     xdt = torch.from_numpy((rng.normal(size=(B, S, H, P)) * dt[..., None])
                            .astype(f)).to(card)
-    la = torch.from_numpy((-dt).astype(f)).to(card)
+    la = torch.from_numpy((-decay * dt).astype(f)).to(card)
     bm, cm = (torch.from_numpy(rng.normal(size=(B, S, N)).astype(f))
               .to(card, DTYPES[bc_dtype]) for _ in range(2))
     s0 = torch.from_numpy(rng.normal(size=(B, H, N, P)).astype(f)).to(card)
@@ -472,6 +505,9 @@ def test_ssd_scan_kernel_matches_plain(card, bc_dtype, B, S, H, P, N):
     y, st = ops.ssd_scan(xdt, la, bm, cm, state, out_state=state)
     torch.cuda.synchronize()
     assert st is state and ops.COUNTS["ssd_scan"].kernel == 1
+    # the tensor-core route takes N = P = 64 with bf16 B/C from one chunk
+    assert ops.COUNTS["ssd_scan_tc"].kernel == int(
+        P == N == 64 and bc_dtype == "bfloat16" and S >= 64)
     _ssd_close(y, want_y, "y")
     _ssd_close(state, want_s, "state")
     y1, s1 = ops.ssd_scan(xdt, la, bm, cm, s0)
@@ -493,6 +529,24 @@ def test_ssd_scan_kernel_every_width(card, P, N):
     y, st = ops.ssd_scan(xdt, la, bm, cm, s0)
     _ssd_close(y, want_y, "y")
     _ssd_close(st, want_s, "state")
+
+
+@pytest.mark.parametrize("B,S,H", [(2, 1000, 5), (1, 300, 3)])
+def test_ssd_scan_kernel_carries_state_across_segments(card, B, S, H):
+    """A decay 200 times slower than zamba2's init keeps the state alive
+    across the tensor-core route's segments of 256 steps, so the segment
+    states and their composition show in y and the final state."""
+    rng = np.random.default_rng(S + H)
+    xdt, la, bm, cm, s0 = _ssd_case(rng, card, "bfloat16", B, S, H, 64, 64,
+                                    decay=0.005)
+    want_y, want_s = ref.ssd_scan(xdt, la, bm, cm, s0)
+    state = s0.clone()
+    ops.reset_counts()
+    y, _ = ops.ssd_scan(xdt, la, bm, cm, state, out_state=state)
+    torch.cuda.synchronize()
+    assert ops.COUNTS["ssd_scan_tc"].kernel == 1
+    _ssd_close(y, want_y, "y")
+    _ssd_close(state, want_s, "state")
 
 
 def test_ssd_scan_wrapper_refuses_what_it_does_not_take(card):
