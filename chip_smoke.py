@@ -19,6 +19,10 @@ Phases (any failure exits non-zero before the result lines):
                  memory.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them;
+                 RMSNorm's three variants (the norm, the residual add fused
+                 into it, Mamba-2's SiLU gate fused into it) at every row
+                 count the main runs launch (1 to 4097 rows, d 3584, 7168,
+                 2048 and an odd 1001), the fused add's sum bit for bit;
                  flash attention on its tensor-core route (bf16, D 64 and
                  128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
                  strided q/k/v) and its CUDA-core route; paged attention
@@ -37,17 +41,21 @@ Phases (any failure exits non-zero before the result lines):
                  requests sharing a 256-token prefix, 32 new tokens each;
                  every request must finish, the paged path's kernels must
                  launch, every paged-attention call split over more than
-                 one key range, no plain version may run, and the prefix
-                 cache must hit.
+                 one key range, no plain version may run, the prefix
+                 cache must hit, and RMSNorm must launch once alone and
+                 2 x 28 times with the residual add a step or chunk.
 6. timing      — each kernel, its plain version and one PyTorch yardstick
                  call timed at the main paths' shapes (device time from a
                  replayed CUDA graph; the host-issued time printed beside),
-                 beside the bytes/operations bound.  The int8 paged
+                 beside the bytes/operations bound; RMSNorm's variants at
+                 every (rows, d) the main runs launch them with, beside the
+                 ops they replace and a launch floor (a 1-element op); the
+                 final norm's fused add, which stores no sum, apart.  The int8 paged
                  attention's yardstick is a composite (gather, dequant
                  multiply, ``scaled_dot_product_attention``): no one
                  PyTorch call takes int8 pages.
 7. step        — one paged decode step and one prefill chunk, host-issued
-                 and as device time.
+                 and as device time, with RMSNorm's share.
 8. main-int8   — the main run with ``--kv-quant int8``: every request must
                  finish, the int8 paged attention must launch (the float
                  one and every plain version not at all), the prefix cache
@@ -67,8 +75,9 @@ Phases (any failure exits non-zero before the result lines):
                  so every whole-prompt prefill runs at bucket 1024, farmed
                  over the prefill farm; every request must finish,
                  flash attention must launch 28 times a prefill, every
-                 launch on the tensor-core route, RMSNorm must launch, and
-                 no plain version may run.  Then, in
+                 launch on the tensor-core route, RMSNorm must launch once
+                 alone and 2 x 28 times with the residual add a prefill or
+                 decode step, and no plain version may run.  Then, in
                  float32 on the same weights, one prompt's prefill through
                  the kernel and through its plain version must give the
                  same layer-1 K cache (the gap of every layer printed).
@@ -121,16 +130,17 @@ Phases (any failure exits non-zero before the result lines):
                  tokens, the SSD kernel must launch exactly 81 times a
                  prefill or decode step, the 81 prefill calls on the
                  tensor-core route and every decode call on the CUDA-core
-                 one (by the ``ssd_scan_tc`` sub-count), RMSNorm only as a
-                 kernel, and no other kernel and no plain version may
-                 run.  Then a second prefill compares every layer's SSD
+                 one (by the ``ssd_scan_tc`` sub-count), RMSNorm exactly 1
+                 time alone, 87 times with the residual add and 81 times
+                 with the SiLU gate a step, and no other kernel and no
+                 plain version may run.  Then a second prefill compares every layer's SSD
                  call with the plain version on the same inputs: layer 0
                  is gated (every layer's gap printed).  Prints the
                  weights' bytes, the peak device memory, the prefill's
                  time and decode tok/s.
 18. step-zamba — one 4-row decode step and one 4 x 1000 prefill,
                  host-issued and as device time, with the card's idle
-                 share; the SSD kernel timed at the prefill and decode
+                 share and RMSNorm's; the SSD kernel timed at the prefill and decode
                  shapes (kernel, plain, bound, and a composite yardstick:
                  the reference's chunked form ``_ssd_chunked`` in torch);
                  the prefill's bound at the TF32 tensor-core peak, the
@@ -144,6 +154,7 @@ The line before the last is the ``{"kernels": [...]}`` record; the last is
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import pathlib
@@ -227,10 +238,29 @@ MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
              "--slots", "4", "--max-len", "512", "--page-size", str(PS),
              "--prefill-chunk", "64", "--prefix-cache", "on",
              "--shared-prefix", "256", "--device", "cuda"]
-# the paged path runs (with the sub-count of split paged-attention calls)
-PAGED_KERNELS = ("rmsnorm", "paged_attention_mq", "paged_attention_mq_split")
-INT8_KERNELS = ("rmsnorm", "paged_attention_mq_int8",   # ... with int8 pages
-                "paged_attention_mq_split")
+# the paged path runs (with the sub-counts of fused add + norm calls and of
+# split paged-attention calls)
+PAGED_KERNELS = ("rmsnorm", "rmsnorm_add", "paged_attention_mq",
+                 "paged_attention_mq_split")
+INT8_KERNELS = ("rmsnorm", "rmsnorm_add",               # ... with int8 pages
+                "paged_attention_mq_int8", "paged_attention_mq_split")
+# B2's parity cases: every row count the main runs launch it with (decode 4,
+# prefill chunk 64, dense prefill 1024, zamba2 prefill 4000), one row, a
+# ragged 1000 and 4097; d of qwen2-7b and zamba2-7b (3584), zamba2's
+# d_inner (7168, the gated norm's), 2048, and one off the kernel's 16-byte
+# vector (its scalar route)
+NORM_ROWS = (1, 4, 64, 1000, 1024, 4000, 4097)
+NORM_DIMS = (3584, 7168, 2048, 1001)
+# (rows, d) of each B2 variant in the main runs: decode, prefill chunk,
+# dense prefill, zamba2 prefill (the first norm, each Mamba layer's and the
+# shared block's at d 3584, the gated norm at d_inner 7168); final_rmsnorm
+# is the fused add of a model's last norm, which stores no sum
+NORM_TIMED = {"rmsnorm": [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584)],
+              "add_rmsnorm": [(4, 3584), (64, 3584), (1024, 3584),
+                              (4000, 3584)],
+              "final_rmsnorm": [(4, 3584), (64, 3584), (1024, 3584),
+                                (4000, 3584)],
+              "gated_rmsnorm": [(4, 7168), (4000, 7168)]}
 INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
 # (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
 INT8_HEADS = ((28, 4, 128), (4, 2, 16))
@@ -394,20 +424,52 @@ def phase_device() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), smi.stdout.strip().splitlines()[0]
 
 
+def phase_parity_rmsnorm(dev) -> dict:
+    """B2's three variants against their plain versions at NORM_ROWS x
+    NORM_DIMS, bf16 and float32 (the gated norm: y float32, z and scale in
+    the dtype): the norm within TOL["rmsnorm"], the fused add's sum s bit
+    for bit, and its norm without the sum (``keep_sum=False``) bit for bit
+    the one beside it.  Max abs error by variant."""
+    errs = {"rmsnorm": 0.0, "add_rmsnorm": 0.0, "gated_rmsnorm": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in NORM_DIMS:
+            scale = torch.randn(d, device=dev).to(dtype)
+            for rows in NORM_ROWS:
+                x, dl = (torch.randn(rows, d, device=dev).to(dtype)
+                         for _ in range(2))
+                y = torch.randn(rows, d, device=dev)
+                label = f"rows={rows} d={d} {dtype}"
+                got = {"rmsnorm": ops.rmsnorm(x, scale),
+                       "add_rmsnorm": ops.add_rmsnorm(x, dl, scale),
+                       "gated_rmsnorm": ops.gated_rmsnorm(y, 2 * x, scale)}
+                nosum = ops.add_rmsnorm(x, dl, scale, keep_sum=False)
+                torch.cuda.synchronize()
+                if nosum[0] is not None or not torch.equal(
+                        nosum[1], got["add_rmsnorm"][1]):
+                    raise AssertionError(f"add_rmsnorm {label}: the norm "
+                                         "without the sum differs")
+                want = {"rmsnorm": ref.rmsnorm(x, scale),
+                        "add_rmsnorm": ref.add_rmsnorm(x, dl, scale),
+                        "gated_rmsnorm": ref.gated_rmsnorm(y, 2 * x, scale)}
+                if not torch.equal(got["add_rmsnorm"][0],
+                                   want["add_rmsnorm"][0]):
+                    raise AssertionError(f"add_rmsnorm {label}: s is not "
+                                         "x + delta bit for bit")
+                for name in errs:
+                    g, w = got[name], want[name]
+                    if name == "add_rmsnorm":
+                        g, w = g[1], w[1]
+                    errs[name] = max(errs[name], check(
+                        "rmsnorm", f"{name} {label}", g, w, dtype))
+    return errs
+
+
 def phase_parity(dev) -> dict:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
-    errs = {"rmsnorm": 0.0, "paged_attention_mq": 0.0}
+    norm_errs = phase_parity_rmsnorm(dev)
+    errs = {"rmsnorm": max(norm_errs.values()), "paged_attention_mq": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (3584, 2048):
-            scale = torch.randn(d, device=dev).to(dtype)
-            for rows in (1, 4, 64, 4097):
-                x = torch.randn(rows, d, device=dev).to(dtype)
-                got = ops.rmsnorm(x, scale)
-                torch.cuda.synchronize()
-                errs["rmsnorm"] = max(errs["rmsnorm"], check(
-                    "rmsnorm", f"rows={rows} d={d} {dtype}", got,
-                    ref.rmsnorm(x, scale), dtype))
         for Hq, Hkv in ((28, 4), (16, 8)):
             for W in (1, 5, 64):
                 for B in (1, 8):
@@ -458,11 +520,13 @@ def phase_parity(dev) -> dict:
         errs["paged_attention_mq_int8"], split_errs["paged_attention_mq_int8"])
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
-    log(f"parity ok: 16 rmsnorm + 24 paged_attention_mq + "
+    log(f"parity ok: {6 * len(NORM_ROWS) * len(NORM_DIMS)} rmsnorm (3 "
+        f"variants; the fused add's s bit for bit) + 24 paged_attention_mq + "
         f"{2 * len(FLASH_CASES) + 1} flash_attention + 24 "
         f"paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
         f"paged-attention cases, tol (rtol=atol) {tols}; max abs err "
-        f"{errs}; flash_attention by dtype {flash_errs}; "
+        f"{errs}; rmsnorm by variant {norm_errs}; flash_attention by dtype "
+        f"{flash_errs}; "
         f"paged_attention_mq_int8 by dtype {int8_errs}; split cases "
         f"{split_errs}")
     return errs
@@ -595,6 +659,27 @@ def serve_main(extra=()):
     return eng, counts, wall, torch.cuda.max_memory_allocated()
 
 
+def check_norm_counts(label: str, counts: dict, steps: int,
+                      per_step: tuple[int, int, int]) -> None:
+    """B2 ran ``per_step`` (standalone norms, fused add + norm, gated norms)
+    times each of the run's ``steps`` prefills, prefill chunks and decode
+    steps, every call as a kernel launch."""
+    c = {k: counts[k] for k in ("rmsnorm", "rmsnorm_add", "rmsnorm_gated")}
+    got = (c["rmsnorm"][0] - c["rmsnorm_add"][0] - c["rmsnorm_gated"][0],
+           c["rmsnorm_add"][0], c["rmsnorm_gated"][0])
+    want = tuple(n * steps for n in per_step)
+    if got != want or any(plain for _, plain in c.values()):
+        raise AssertionError(f"{label}: B2 (standalone, add, gated) launches "
+                             f"{got} over {steps} steps, want {want} "
+                             f"({per_step} a step); counts {c}")
+
+
+def qwen_norms(cfg) -> tuple[int, int, int]:
+    """B2's launches a qwen2 step: the first block's ln1 alone, every other
+    norm (the other ln1s, each ln2, the final norm) with its residual add."""
+    return 1, 2 * cfg.n_layers, 0
+
+
 def check_split(label: str, counts: dict, name: str, P: int) -> None:
     """Every paged-attention call of the run split over more than one key
     range: the shapes-only split count of the table is above 1, and the
@@ -615,6 +700,8 @@ def phase_main():
     cfg, done = eng.model.cfg, eng.finished
     toks = sum(len(r.output) for r in done)
     s = eng.stats
+    check_norm_counts("main path", counts, s["ticks"] + s["chunk_prefills"],
+                      qwen_norms(cfg))
     log(f"main path: qwen2-7b {cfg.n_layers} layers {cfg.dtype}, {len(done)} "
         f"requests, {toks} tokens, {toks / wall:.1f} tok/s wall "
         f"(init included: {wall:.2f}s), ticks={s['ticks']} "
@@ -744,16 +831,7 @@ def phase_timing(dev) -> dict:
             f"{eager['kernel']:.5f} ms, plain {eager['plain']:.5f} ms, "
             f"library {eager['library']:.5f} ms")
 
-    d, rows = cfg.d_model, 4
-    xs = [torch.randn(rows, d, device=dev).to(dtype) for _ in range(8)]
-    scale = torch.randn(d, device=dev).to(dtype)
-    measure("rmsnorm", {
-        "kernel": [lambda x=x: ops.rmsnorm(x, scale) for x in xs],
-        "plain": [lambda x=x: ref.rmsnorm(x, scale) for x in xs],
-        "library": [lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)
-                    for x in xs]},
-        f"x ({rows}, {d}) bf16",
-        2 * xs[0].numel() * xs[0].element_size() + d * 2, 4 * xs[0].numel())
+    out["rmsnorm"] = phase_timing_rmsnorm(dev)
 
     # one page pool per layer, as in a decode step: 28 layers' pages are
     # larger than the 50 MB L2, so each call finds its K/V in HBM
@@ -834,7 +912,6 @@ def phase_timing(dev) -> dict:
     q2 = torch.randn(1, W2, Hq, D, device=dev).to(dtype)
     ln2 = torch.tensor([start + 1], dtype=torch.int32, device=dev)
     tb2 = tb[:1]
-    x2 = torch.randn(64, d, device=dev).to(dtype)
     mask2 = (torch.arange(P * PS, device=dev)[None, :]             # causal
              < start + 1 + torch.arange(W2, device=dev)[:, None])[None, None]
     for name, kvs, scaled, lib in (
@@ -858,10 +935,114 @@ def phase_timing(dev) -> dict:
             f"{t2['kernel']:.5f} ms (plain {t2['plain']:.5f} ms, library "
             f"{'composite ' if scaled else ''}{t2['library']:.5f} ms, bound "
             f"{b2:.6f} ms by {by2})")
-    log(f"prefill-chunk shapes (device): rmsnorm (64, {d}): "
-        f"{device_ms([lambda: ops.rmsnorm(x2, scale)]):.5f} ms (plain "
-        f"{device_ms([lambda: ref.rmsnorm(x2, scale)]):.5f} ms)")
     return out
+
+
+def norm_case(name, rows, d, dev):
+    """(args, bytes, operations) of one B2 call: bf16 x (and delta), or
+    float32 y and bf16 z for the gated norm; a bf16 scale.  Bytes: each
+    input read once and each output written once; operations: the float32
+    arithmetic an element (the norm's 4, the add's 1, the gate's silu,
+    roundings and product 6); the final norm writes no sum."""
+    bf16 = torch.bfloat16
+    scale = torch.randn(d, device=dev).to(bf16)
+    if name == "rmsnorm":
+        return ((torch.randn(rows, d, device=dev).to(bf16), scale),
+                rows * d * 4 + d * 2, 4 * rows * d)
+    if name in ("add_rmsnorm", "final_rmsnorm"):
+        return ((torch.randn(rows, d, device=dev).to(bf16),
+                 torch.randn(rows, d, device=dev).to(bf16), scale),
+                rows * d * (8 if name == "add_rmsnorm" else 6) + d * 2,
+                5 * rows * d)
+    return ((torch.randn(rows, d, device=dev),
+             torch.randn(rows, d, device=dev).to(bf16), scale),
+            rows * d * 8 + d * 2, 10 * rows * d)
+
+
+def norm_fns(name):
+    """(kernel wrapper, plain version) of one timed B2 variant."""
+    if name == "final_rmsnorm":
+        return (functools.partial(ops.add_rmsnorm, keep_sum=False),
+                functools.partial(ref.add_rmsnorm, keep_sum=False))
+    return getattr(ops, name), getattr(ref, name)
+
+
+def phase_timing_rmsnorm(dev) -> dict:
+    """B2's three variants at every (rows, d) the main runs launch them with
+    (NORM_TIMED): device time of 8 calls on distinct inputs from a replayed
+    CUDA graph and the host-issued time, beside the plain version, the
+    yardstick (``F.rms_norm``; for the fused variants the ops they replace,
+    ending in ``F.rms_norm``), the bytes bound and a launch floor (a
+    1-element PyTorch op in the same harness).  The headline is the plain
+    norm at the decode shape, where its first port was timed."""
+    import torch.nn.functional as F
+    one = torch.zeros(1, device=dev)
+    floor = device_ms([lambda: one.add_(1)] * 8)
+    floor_host = time_ms(lambda: one.add_(1))
+    log(f"timing launch floor (a 1-element add_): device {floor:.5f} ms, "
+        f"host-issued {floor_host:.5f} ms")
+
+    def library(name, *a):
+        if name == "rmsnorm":
+            x, sc = a
+            return F.rms_norm(x, sc.shape, sc, 1e-6)
+        if name == "add_rmsnorm":
+            x, dl, sc = a
+            s = x + dl
+            return s, F.rms_norm(s, sc.shape, sc, 1e-6)
+        if name == "final_rmsnorm":
+            x, dl, sc = a
+            return F.rms_norm(x + dl, sc.shape, sc, 1e-6)
+        y, z, sc = a
+        return F.rms_norm(y.to(z.dtype) * F.silu(z), sc.shape, sc, 1e-6)
+
+    variants = {}
+    for name, shapes in NORM_TIMED.items():
+        kernel, plain = norm_fns(name)
+        for rows, d in shapes:
+            cases = [norm_case(name, rows, d, dev) for _ in range(8)]
+            nbytes, nops = cases[0][1:]
+            fns = {"kernel": [lambda a=c[0]: kernel(*a) for c in cases],
+                   "plain": [lambda a=c[0]: plain(*a) for c in cases],
+                   "library": [lambda a=c[0]: library(name, *a)
+                               for c in cases]}
+            t = {k: device_ms(v) for k, v in fns.items()}
+            host = {k: time_ms(fns[k][0]) for k in ("kernel", "library")}
+            b_ms, b_by = bound(nbytes, nops, torch.float32)
+            key = f"{name} rows={rows} d={d}"
+            variants[key] = dict(
+                ms=t["kernel"], host_ms=host["kernel"], plain_ms=t["plain"],
+                library_ms=t["library"], library_host_ms=host["library"],
+                bound_ms=b_ms, bound_by=b_by, of_bound=b_ms / t["kernel"])
+            log(f"timing {key} ({'y f32, z' if name == 'gated_rmsnorm' else 'x'}"
+                f" bf16): device kernel {t['kernel']:.5f} ms, plain "
+                f"{t['plain']:.5f} ms, yardstick {t['library']:.5f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}; the kernel at "
+                f"{b_ms / t['kernel']:.1%} of it); host-issued kernel "
+                f"{host['kernel']:.5f} ms, yardstick {host['library']:.5f} ms")
+            del cases, fns
+    rows, d = NORM_TIMED["rmsnorm"][0]
+    head = variants[f"rmsnorm rows={rows} d={d}"]
+    return dict(ms=head["ms"], plain_ms=head["plain_ms"],
+                library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], shape=f"x ({rows}, {d}) bf16",
+                floor_ms=floor, floor_host_ms=floor_host, variants=variants)
+
+
+def norm_ms(times, name, rows, d) -> float:
+    """B2's device time of one variant at (rows, d) from the timing phase."""
+    return times["rmsnorm"]["variants"][f"{name} rows={rows} d={d}"]["ms"]
+
+
+def step_norms_ms(times, per_step, rows, d, di=None) -> float:
+    """B2's device time in one step of ``per_step`` (standalone, fused add,
+    gated) launches at ``rows``: the last fused add is the final norm's."""
+    alone, add, gated = per_step
+    return (alone * norm_ms(times, "rmsnorm", rows, d)
+            + (add - 1) * norm_ms(times, "add_rmsnorm", rows, d)
+            + norm_ms(times, "final_rmsnorm", rows, d)
+            + (gated * norm_ms(times, "gated_rmsnorm", rows, di)
+               if gated else 0.0))
 
 
 def phase_step(eng, times, label: str = "") -> None:
@@ -900,17 +1081,20 @@ def phase_step(eng, times, label: str = "") -> None:
         return model.paged_prefill_chunk(params, storage, row, pages, start,
                                          chunk, **kw)
 
-    kernels = (cfg.n_layers * times[attn]["ms"]
-               + (2 * cfg.n_layers + 1) * times["rmsnorm"]["ms"])
-    for name, fn in (("decode step (4 slots)", decode),
-                     ("prefill chunk (64 at 192)", prefill)):
+    L, d = cfg.n_layers, cfg.d_model
+    for name, fn, rows in (("decode step (4 slots)", decode, 4),
+                           ("prefill chunk (64 at 192)", prefill, 64)):
         host = time_ms(fn, iters=10, warmup=2)
         devt = device_ms([fn], reps=10)
+        norms = step_norms_ms(times, qwen_norms(cfg), rows, d)
         log(f"{label}{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
             f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
-            f"time)")
-    log(f"{label}decode step: {cfg.n_layers} {attn} + "
-        f"{2 * cfg.n_layers + 1} rmsnorm launches at their device times = "
+            f"time); B2's 1 rmsnorm + {2 * L - 1} add_rmsnorm + 1 "
+            f"final_rmsnorm launches at their device times = {norms:.4f} ms")
+    kernels = L * times[attn]["ms"] + step_norms_ms(times, qwen_norms(cfg),
+                                                    4, d)
+    log(f"{label}decode step: {L} {attn} + 1 rmsnorm + {2 * L - 1} "
+        f"add_rmsnorm + 1 final_rmsnorm launches at their device times = "
         f"{kernels:.3f} ms")
 
 
@@ -948,8 +1132,13 @@ def phase_main_dense():
                              f"{counts['flash_attention']}, on the tensor "
                              f"cores {counts['flash_attention_tc']}, want "
                              f"({cfg.n_layers * 8}, 0) for both")
-    if counts["rmsnorm"][0] <= 0 or any(p for _, p in counts.values()):
+    if any(p for _, p in counts.values()) or any(
+            k for name, (k, _) in counts.items()
+            if name not in ("flash_attention", "flash_attention_tc",
+                            "rmsnorm", "rmsnorm_add")):
         raise AssertionError(f"main-dense: launches {counts}")
+    check_norm_counts("main-dense", counts, prefills + eng.stats["ticks"],
+                      qwen_norms(cfg))
     with ServeEngine(eng.model, eng.params, max_slots=args.slots,
                      max_len=args.max_len, page_size=PS, prefill_chunk=64,
                      device=args.device) as paged:
@@ -1051,16 +1240,19 @@ def phase_step_dense(eng, times) -> None:
                         device=dev)
     prompt = torch.tensor(rng.integers(0, cfg.vocab, (1, 1024))
                           .astype(np.int32), device=dev)
-    for name, fn in (
+    L, d = cfg.n_layers, cfg.d_model
+    for name, fn, rows in (
             (f"dense decode step ({B} slots, max_len {eng.max_len})",
-             lambda: model.decode_step(params, state, toks, pos)),
+             lambda: model.decode_step(params, state, toks, pos), B),
             ("dense prefill (bucket 1024)",
-             lambda: model.prefill(params, prompt))):
+             lambda: model.prefill(params, prompt), 1024)):
         host = time_ms(fn, iters=10, warmup=2)
         devt = device_ms([fn], reps=10)
+        norms = step_norms_ms(times, qwen_norms(cfg), rows, d)
         log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
             f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
-            f"time)")
+            f"time); B2's 1 rmsnorm + {2 * L - 1} add_rmsnorm + 1 "
+            f"final_rmsnorm launches at their device times = {norms:.4f} ms")
     log(f"dense prefill: {cfg.n_layers} flash_attention launches at their "
         f"device time = {cfg.n_layers * times['flash_attention']['ms']:.3f} "
         f"ms")
@@ -1485,6 +1677,14 @@ def phase_small_zamba(dev) -> None:
         "float32, aligned batches 3 x 9, 2 x 40, 1 x 5, 8 new tokens each)")
 
 
+def zamba_norms(cfg) -> tuple[int, int, int]:
+    """B2's launches a zamba2 step: the first Mamba layer's norm alone;
+    every other Mamba layer's, each shared block's two and the final norm
+    with their residual adds; each Mamba layer's gated output norm."""
+    segments = cfg.n_layers // cfg.shared_attn_every
+    return 1, cfg.n_layers + 2 * segments, cfg.n_layers
+
+
 def phase_main_zamba(dev):
     """Full-width zamba2-7b through ``HybridLM``, counts from 0: 4 x 1000
     prompts greedy to 32 tokens, through the SSD kernel (81 launches a
@@ -1514,11 +1714,12 @@ def phase_main_zamba(dev):
     want = {"ssd_scan": cfg.n_layers * steps, "ssd_scan_tc": cfg.n_layers}
     for name, (kernel, plain) in counts.items():
         if plain or (name in want and kernel != want[name]) or (
-                name == "rmsnorm" and kernel <= 0) or (
-                name not in ("ssd_scan", "ssd_scan_tc", "rmsnorm") and kernel):
+                name not in ("ssd_scan", "ssd_scan_tc", "rmsnorm",
+                             "rmsnorm_add", "rmsnorm_gated") and kernel):
             raise AssertionError(f"main-zamba: launches {counts}; want "
-                                 f"{want}, rmsnorm > 0, no other kernel and "
-                                 "no plain version")
+                                 f"{want}, B2, no other kernel and no plain "
+                                 "version")
+    check_norm_counts("main-zamba", counts, steps, zamba_norms(cfg))
     gaps, scales = ssd_layer_gaps(model, params, prompts)
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     log(f"main-zamba: zamba2-7b {cfg.n_layers} Mamba-2 layers + "
@@ -1540,8 +1741,9 @@ def phase_main_zamba(dev):
         f"max|y|, max|state| of the plain version: layer 0 {scales[0][0]:.3e}, "
         f"{scales[0][1]:.3e}; over the layers {max(a for a, _ in scales):.3e}, "
         f"{max(b for _, b in scales):.3e}")
-    return ({k: counts[k][0] for k in ("ssd_scan", "ssd_scan_tc")}, model,
-            params)
+    return ({k: counts[k][0] for k in ("ssd_scan", "ssd_scan_tc", "rmsnorm",
+                                       "rmsnorm_add", "rmsnorm_gated")},
+            model, params)
 
 
 def ssd_layer_gaps(model, params, prompts):
@@ -1678,7 +1880,7 @@ def phase_timing_ssd(dev) -> dict:
 
 def phase_step_zamba(model, params, times) -> None:
     """One 4-row zamba decode step and one 4 x 1000 prefill, host-issued
-    and as device time, with the SSD kernel's share."""
+    and as device time, with the SSD kernel's and B2's shares."""
     cfg, dev = model.cfg, torch.device("cuda")
     rng = np.random.default_rng(11)
     prompts = torch.tensor(rng.integers(0, cfg.vocab, (ZAMBA_ROWS,
@@ -1687,20 +1889,28 @@ def phase_step_zamba(model, params, times) -> None:
     state, _ = model.prefill(params, prompts, ZAMBA_MAX_LEN)
     toks = torch.tensor(rng.integers(0, cfg.vocab, (ZAMBA_ROWS, 1))
                         .astype(np.int32), device=dev)
-    for name, fn in (
+    alone, add, gated = zamba_norms(cfg)
+    d, di = cfg.d_model, cfg.d_inner
+    for name, fn, rows in (
             (f"zamba decode step ({ZAMBA_ROWS} rows at position "
              f"{ZAMBA_PROMPT})",
-             lambda: model.decode_step(params, state, toks, ZAMBA_PROMPT)),
+             lambda: model.decode_step(params, state, toks, ZAMBA_PROMPT),
+             ZAMBA_ROWS),
             (f"zamba prefill ({ZAMBA_ROWS} x {ZAMBA_PROMPT})",
-             lambda: model.prefill(params, prompts, ZAMBA_MAX_LEN))):
+             lambda: model.prefill(params, prompts, ZAMBA_MAX_LEN),
+             ZAMBA_ROWS * ZAMBA_PROMPT)):
         host = time_ms(fn, iters=5, warmup=2)
         devt = device_ms([fn], reps=5)
+        norms = step_norms_ms(times, (alone, add, gated), rows, d, di)
         log(f"{name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
             f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
-            f"time)")
+            f"time); B2's {alone} rmsnorm + {add - 1} add_rmsnorm + 1 "
+            f"final_rmsnorm + {gated} gated_rmsnorm launches at their device "
+            f"times = {norms:.4f} ms")
+    ssd = times["ssd_scan"]
     log(f"zamba: {cfg.n_layers} ssd_scan launches at their device times = "
-        f"{cfg.n_layers * times['decode_ms']:.3f} ms a decode step, "
-        f"{cfg.n_layers * times['ms']:.3f} ms a prefill")
+        f"{cfg.n_layers * ssd['decode_ms']:.3f} ms a decode step, "
+        f"{cfg.n_layers * ssd['ms']:.3f} ms a prefill")
 
 
 SOURCES = {
@@ -1782,6 +1992,7 @@ def main() -> int:
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
     launches, eng, bf16_peak = phase_main()
+    paged_launches = dict(launches)
     # read before the step phase writes into the pool's pages
     prompt = launch_serve.make_prompts(launch_serve.parse_args(MAIN_ARGS),
                                        eng.model.cfg.vocab)[0]
@@ -1810,10 +2021,11 @@ def main() -> int:
     del eng                             # free the rwkv engine's weights
     gc.collect()
     torch.cuda.empty_cache()
-    ssd_launches, model, params = phase_main_zamba(dev)
-    launches.update(ssd_launches)
+    zamba_launches, model, params = phase_main_zamba(dev)
+    launches.update({k: zamba_launches[k] for k in ("ssd_scan",
+                                                    "ssd_scan_tc")})
     times["ssd_scan"] = phase_timing_ssd(dev)
-    phase_step_zamba(model, params, times["ssd_scan"])
+    phase_step_zamba(model, params, times)
     del model, params
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
@@ -1822,6 +2034,13 @@ def main() -> int:
          for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     launches["paged_attention_mq_int8"] = \
         int8_launches["paged_attention_mq_int8"]
+    # B2's launches (standalone, fused add, gated) in each run that has it
+    times["rmsnorm"]["launches_by_run"] = {
+        label: {"rmsnorm": c["rmsnorm"] - c["rmsnorm_add"] - c["rmsnorm_gated"],
+                "add_rmsnorm": c["rmsnorm_add"],
+                "gated_rmsnorm": c["rmsnorm_gated"]}
+        for label, c in (("main", paged_launches), ("main-dense", dense_launches),
+                         ("main-zamba", zamba_launches))}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         t = times[name]
@@ -1841,7 +2060,8 @@ def main() -> int:
                 "decode_bound_ms", "chunk_ms", "chunk_plain_ms",
                 "chunk_library_ms", "chunk_bound_ms", "chunk_shape",
                 "s2048_ms", "s2048_plain_ms", "s2048_library_ms",
-                "s2048_bound_ms") if k in t}})
+                "s2048_bound_ms", "floor_ms", "floor_host_ms", "variants",
+                "launches_by_run") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

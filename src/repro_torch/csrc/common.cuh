@@ -37,16 +37,6 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
   for (int j = 0; j < Vec16<T>::N; ++j) out[j] = to_f32<T>(e[j]);
 }
 
-// Pack N floats into one 16-byte vector of T.
-template <typename T>
-__device__ __forceinline__ uint4 pack16(const float* in) {
-  uint4 raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int j = 0; j < Vec16<T>::N; ++j) e[j] = from_f32<T>(in[j]);
-  return raw;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

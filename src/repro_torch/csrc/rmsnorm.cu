@@ -1,112 +1,349 @@
-// Fused RMSNorm for Hopper: y = x * rsqrt(mean(x^2) + eps) * scale.
+// RMSNorm for Hopper, fused with the elementwise op the served models run
+// right before it: y = v * rsqrt(mean(v^2) + eps) * scale over each row, where
+//
+//   rmsnorm        v = x
+//   add_rmsnorm    v = s = x + delta, rounded once to x's dtype; s is written
+//                  too (the new residual stream) unless its pointer is null
+//                  (a model's final norm, after which no op reads s)
+//   gated_rmsnorm  v = T(T(y) * T(silu(z))), y float32, z and the result in
+//                  T (Mamba-2's gated output norm, with the roundings of the
+//                  unfused bf16 expression)
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py:rmsnorm
 // (_rmsnorm_kernel), which tiles rows into VMEM and pads the last row block.
 //
-// Bound on this card: bytes.  Each row is read once and written once (plus
-// the d-wide scale, which stays in L1/L2), against about 4 flops an element,
-// far under the ~295 flops a byte at which H100 stops being memory-bound.
-// Design: one 256-thread block per row, 16-byte vector loads and stores where
-// the row allows it (d a multiple of the vector width and 16-byte aligned
-// pointers), a float32 sum of squares reduced across the warp and then the
-// block, and the row re-read from L1 for the scaled write.  The grid has one
-// block per row, so the ragged edge needs no padding and no mask.
+// Bound on this card: bytes (about 4-8 flops an element against the ~295 a
+// byte at which H100 stops being memory-bound), and at the decode shapes (4
+// rows) the launch and one DRAM round trip.  So the design reads every input
+// byte once and writes every output byte once, and saves the launches and the
+// round trips of the separate add and gate:
+//   - one block a row, every thread holding its 16-byte vectors of the row in
+//     registers, packed as loaded (the pre-norm values rounded to x's dtype,
+//     the scale): all loads are issued before the reduction, the scaled
+//     write needs no second read, and a thread's few registers leave room
+//     for many rows on an SM;
+//   - one reduction step across warps (each warp's partial into shared
+//     memory, one barrier, every thread sums the partials itself);
+//   - many rows: blocks of a few warps, several rows in flight on each SM.
+// A row whose d is not a multiple of the vector, whose pointers are not
+// 16-byte aligned or which is too wide for the registers takes a scalar
+// kernel that reads the row twice.  The route is picked from shapes and
+// pointers only.  Tried and dropped on an H100 (PERF.md §6): holding the
+// values unpacked as float32 (more registers, fewer rows in flight: 2-33%
+// slower), reading scale after the reduction from L1, splitting a few-row
+// launch's rows over clusters of blocks (both slower but for the gated
+// norm at 4 rows), and programmatic dependent launches (no decode step
+// faster).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+enum Variant { kPlain = 0, kAdd = 1, kGated = 2 };
 
+constexpr int kMaxThreads = 512;     // the vector kernel's widest block
+constexpr int kScalarThreads = 256;
+
+struct Args {
+  const void* a;       // x (plain, add) or y (gated, float32)
+  const void* b;       // delta (add), z (gated), null (plain)
+  const void* scale;
+  void* s;             // add: x + delta, or null (not stored); null otherwise
+  void* out;
+  int d;
+  float eps;
+};
+
+// The elements of U in one 32-bit word, to and from float32 (bf16: exact
+// widening, round to nearest even back).
+template <typename U> struct Word;
+template <> struct Word<float> {
+  static constexpr int kPer = 1;
+  static __device__ __forceinline__ void get(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w);
+  }
+  static __device__ __forceinline__ uint32_t put(const float* f) {
+    return __float_as_uint(f[0]);
+  }
+};
+template <> struct Word<__nv_bfloat16> {
+  static constexpr int kPer = 2;
+  static __device__ __forceinline__ void get(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w << 16);
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ uint32_t put(const float* f) {
+    return pack_bf16x2(f[0], f[1]);
+  }
+};
+
+// N elements of U, packed in 32-bit words as they lie in memory.
+template <typename U, int N>
+struct Packed {
+  static constexpr int kWords = N / Word<U>::kPer;
+  uint32_t w[kWords];
+};
+
+// Load N elements of U at p: whole 16-byte vectors, or one 8-byte one (an
+// N of 4 two-byte elements).
+template <typename U, int N>
+__device__ __forceinline__ Packed<U, N> load_packed(const U* p) {
+  Packed<U, N> r;
+  constexpr int W = Packed<U, N>::kWords;
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < W / 4; ++c) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[c];
+      r.w[4 * c] = q.x, r.w[4 * c + 1] = q.y;
+      r.w[4 * c + 2] = q.z, r.w[4 * c + 3] = q.w;
+    }
+  } else {
+    static_assert(W == 2, "load_packed: 8 or a multiple of 16 bytes");
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    r.w[0] = q.x, r.w[1] = q.y;
+  }
+  return r;
+}
+
+template <typename U, int N>
+__device__ __forceinline__ void unpack(const Packed<U, N>& r, float* f) {
+#pragma unroll
+  for (int i = 0; i < Packed<U, N>::kWords; ++i)
+    Word<U>::get(r.w[i], f + i * Word<U>::kPer);
+}
+
+// N floats rounded to T, packed
+template <typename T, int N>
+__device__ __forceinline__ Packed<T, N> pack(const float* f) {
+  Packed<T, N> r;
+#pragma unroll
+  for (int i = 0; i < Packed<T, N>::kWords; ++i)
+    r.w[i] = Word<T>::put(f + i * Word<T>::kPer);
+  return r;
+}
+
+// store 16 bytes of T
+template <typename T, int N>
+__device__ __forceinline__ void store_packed(T* p, const Packed<T, N>& r) {
+  static_assert(Packed<T, N>::kWords == 4, "store_packed: one 16-byte vector");
+  *reinterpret_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32<T>(from_f32<T>(v));
+}
+
+// silu in float32 as PyTorch computes it (x / (1 + exp(-x))), then the
+// product of the two T-rounded factors, rounded to T
+template <typename T>
+__device__ __forceinline__ float gate(float y, float z) {
+  const float g = round_to<T>(z / (1.f + expf(-z)));
+  return round_to<T>(round_to<T>(y) * g);
+}
+
+// The sum over the block in one step across warps: every thread returns it.
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float part[kThreads / 32];
+  __shared__ float part[kMaxThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
   if (lane == 0) part[warp] = v;
   __syncthreads();
-  if (warp == 0) {
-    v = lane < kThreads / 32 ? part[lane] : 0.f;
-    v = warp_sum(v);
-    if (lane == 0) part[0] = v;
-  }
-  __syncthreads();
-  return part[0];
+  float t = 0.f;
+  const int n = blockDim.x >> 5;
+  for (int w = 0; w < n; ++w) t += part[w];
+  return t;
 }
 
-template <typename T, typename S, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ out, int d, float eps) {
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * d;
-  T* yr = out + row * d;
+// One block a row; thread t holds the row's vectors t, t + blockDim.x, ...
+// (at most VPT of them) in registers between the sum and the write.
+template <int V, typename T, typename S, int VPT>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_vec_kernel(Args a) {
   constexpr int N = Vec16<T>::N;
-  float ss = 0.f;
-  if (kVec) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    for (int i = threadIdx.x; i < d / N; i += kThreads) {
-      float f[N];
-      unpack16<T>(xv[i], f);
+  const int nvec = a.d / N;
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.d;
+  const S* scale = static_cast<const S*>(a.scale);
+  Packed<S, N> sc[VPT];
+  Packed<T, N> v[VPT];      // the pre-norm values, rounded to T
 #pragma unroll
-      for (int j = 0; j < N; ++j) ss += f[j] * f[j];
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += kThreads) {
-      const float f = to_f32<T>(xr[i]);
-      ss += f * f;
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec) sc[k] = load_packed<S, N>(scale + i * N);
+  }
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i >= nvec) continue;
+    const size_t e = base + static_cast<size_t>(i) * N;
+    if constexpr (V == kGated) {
+      float y[N], z[N];
+      unpack(load_packed<float, N>(static_cast<const float*>(a.a) + e), y);
+      unpack(load_packed<T, N>(static_cast<const T*>(a.b) + e), z);
+#pragma unroll
+      for (int j = 0; j < N; ++j) z[j] = gate<T>(y[j], z[j]);
+      v[k] = pack<T, N>(z);
+    } else {
+      v[k] = load_packed<T, N>(static_cast<const T*>(a.a) + e);
+      if constexpr (V == kAdd) {
+        float x[N], dl[N];
+        unpack(v[k], x);
+        unpack(load_packed<T, N>(static_cast<const T*>(a.b) + e), dl);
+#pragma unroll
+        for (int j = 0; j < N; ++j) x[j] += dl[j];
+        v[k] = pack<T, N>(x);               // s: x + delta rounded once
+      }
     }
   }
-  const float inv = rsqrtf(block_sum(ss) / d + eps);
-  if (kVec) {
-    const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    uint4* yv = reinterpret_cast<uint4*>(yr);
-    for (int i = threadIdx.x; i < d / N; i += kThreads) {
-      float f[N];
-      unpack16<T>(xv[i], f);
+  float ss = 0.f;
 #pragma unroll
-      for (int j = 0; j < N; ++j) f[j] = f[j] * inv * to_f32<S>(scale[i * N + j]);
-      yv[i] = pack16<T>(f);
-    }
-  } else {
-    for (int i = threadIdx.x; i < d; i += kThreads)
-      yr[i] = from_f32<T>(to_f32<T>(xr[i]) * inv * to_f32<S>(scale[i]));
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i >= nvec) continue;
+    if constexpr (V == kAdd)
+      if (a.s)
+        store_packed(static_cast<T*>(a.s) + base + static_cast<size_t>(i) * N,
+                     v[k]);
+    float f[N];
+    unpack(v[k], f);
+#pragma unroll
+    for (int j = 0; j < N; ++j) ss += f[j] * f[j];
+  }
+  const float inv = rsqrtf(block_sum(ss) / a.d + a.eps);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i >= nvec) continue;
+    float f[N], g[N];
+    unpack(v[k], f);
+    unpack(sc[k], g);
+#pragma unroll
+    for (int j = 0; j < N; ++j) f[j] = f[j] * inv * g[j];
+    store_packed(static_cast<T*>(a.out) + base + static_cast<size_t>(i) * N,
+                 pack<T, N>(f));
   }
 }
 
-template <typename T, typename S>
-void launch(const void* x, const void* scale, void* out, long long rows, int d,
-            float eps, cudaStream_t stream) {
-  const bool vec = d % Vec16<T>::N == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>(rows));
-  if (vec)
-    rmsnorm_kernel<T, S, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const S*>(scale),
-        static_cast<T*>(out), d, eps);
-  else
-    rmsnorm_kernel<T, S, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const S*>(scale),
-        static_cast<T*>(out), d, eps);
+// Element e of row base's pre-norm value; the add variant writes s there
+// when it stores s.
+template <int V, typename T>
+__device__ __forceinline__ float pre_norm(const Args& a, size_t e) {
+  if constexpr (V == kGated)
+    return gate<T>(static_cast<const float*>(a.a)[e],
+                   to_f32<T>(static_cast<const T*>(a.b)[e]));
+  const float x = to_f32<T>(static_cast<const T*>(a.a)[e]);
+  if constexpr (V == kAdd) {
+    const T s = from_f32<T>(x + to_f32<T>(static_cast<const T*>(a.b)[e]));
+    if (a.s) static_cast<T*>(a.s)[e] = s;
+    return to_f32<T>(s);
+  }
+  return x;
+}
+
+// Any d and alignment: one block a row, the row read twice (the second
+// read of a stored s is the thread's own write, else of x and delta or y and
+// z, from L1/L2).
+template <int V, typename T, typename S>
+__global__ void __launch_bounds__(kScalarThreads)
+rmsnorm_scalar_kernel(Args a) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.d;
+  const S* scale = static_cast<const S*>(a.scale);
+  float ss = 0.f;
+  for (int j = threadIdx.x; j < a.d; j += blockDim.x) {
+    const float f = pre_norm<V, T>(a, base + j);
+    ss += f * f;
+  }
+  const float inv = rsqrtf(block_sum(ss) / a.d + a.eps);
+  T* out = static_cast<T*>(a.out) + base;
+  for (int j = threadIdx.x; j < a.d; j += blockDim.x) {
+    float f;
+    if (V == kAdd && a.s)
+      f = to_f32<T>(static_cast<const T*>(a.s)[base + j]);
+    else
+      f = pre_norm<V, T>(a, base + j);
+    out[j] = from_f32<T>(f * inv * to_f32<S>(scale[j]));
+  }
+}
+
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+template <typename K>
+cudaError_t start(K kernel, const Args& a, long long rows, int threads,
+                  cudaStream_t stream) {
+  kernel<<<static_cast<unsigned>(rows), threads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int V, typename T, typename S>
+cudaError_t launch(const Args& a, long long rows, cudaStream_t stream) {
+  constexpr int N = Vec16<T>::N;
+  const int nvec = a.d / N;
+  const bool vec =
+      a.d % N == 0 && nvec <= 4 * kMaxThreads && aligned(a.a, 16) &&
+      (V == kPlain || aligned(a.b, 16)) && (V != kAdd || aligned(a.s, 16)) &&
+      aligned(a.out, 16) && aligned(a.scale, N * sizeof(S) >= 16 ? 16 : 8);
+  if (!vec)
+    return start(rmsnorm_scalar_kernel<V, T, S>, a, rows, kScalarThreads,
+                 stream);
+  // 2 vectors a thread up to d = 1024 vectors (8192 bf16), else 4; the
+  // block rounded up to whole warps
+  const int vpt = nvec <= 2 * kMaxThreads ? 2 : 4;
+  const int threads = ((nvec + vpt - 1) / vpt + 31) / 32 * 32;
+  if (vpt == 2)
+    return start(rmsnorm_vec_kernel<V, T, S, 2>, a, rows, threads, stream);
+  return start(rmsnorm_vec_kernel<V, T, S, 4>, a, rows, threads, stream);
+}
+
+template <int V>
+cudaError_t dispatch(const Args& a, long long rows, int dtype, int scale_dtype,
+                     cudaStream_t stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL || a.d <= 0) return cudaErrorInvalidValue;
+  if (dtype == kFloat32 && scale_dtype == kFloat32)
+    return launch<V, float, float>(a, rows, stream);
+  if (dtype == kFloat32 && scale_dtype == kBFloat16)
+    return launch<V, float, __nv_bfloat16>(a, rows, stream);
+  if (dtype == kBFloat16 && scale_dtype == kFloat32)
+    return launch<V, __nv_bfloat16, float>(a, rows, stream);
+  if (dtype == kBFloat16 && scale_dtype == kBFloat16)
+    return launch<V, __nv_bfloat16, __nv_bfloat16>(a, rows, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Each entry point launches on `stream`, allocates nothing, and returns its
+// cudaError_t (0: launched).  rows x d row-major, contiguous; dtype codes as
+// in common.cuh.
+
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
                               long long rows, int d, float eps, int x_dtype,
                               int scale_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || rows > 0x7fffffffLL || d <= 0) return cudaErrorInvalidValue;
-  if (x_dtype == kFloat32 && scale_dtype == kFloat32)
-    launch<float, float>(x, scale, out, rows, d, eps, s);
-  else if (x_dtype == kFloat32 && scale_dtype == kBFloat16)
-    launch<float, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
-  else if (x_dtype == kBFloat16 && scale_dtype == kFloat32)
-    launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, s);
-  else if (x_dtype == kBFloat16 && scale_dtype == kBFloat16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  const Args a{x, nullptr, scale, nullptr, out, d, eps};
+  return dispatch<kPlain>(a, rows, x_dtype, scale_dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// s null: the sum is not stored, only the norm
+extern "C" int add_rmsnorm_launch(const void* x, const void* delta,
+                                  const void* scale, void* s, void* out,
+                                  long long rows, int d, float eps,
+                                  int x_dtype, int scale_dtype,
+                                  void* stream) {
+  const Args a{x, delta, scale, s, out, d, eps};
+  return dispatch<kAdd>(a, rows, x_dtype, scale_dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// y float32; z and out in z_dtype
+extern "C" int gated_rmsnorm_launch(const void* y, const void* z,
+                                    const void* scale, void* out,
+                                    long long rows, int d, float eps,
+                                    int z_dtype, int scale_dtype,
+                                    void* stream) {
+  const Args a{y, z, scale, nullptr, out, d, eps};
+  return dispatch<kGated>(a, rows, z_dtype, scale_dtype,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernel_error_string(int err) {

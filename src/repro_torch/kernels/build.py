@@ -34,6 +34,11 @@ _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_floa
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_launch": [_vp, _vp, _vp, _i64, _i, _f, _i, _i, _vp],
+    # x, delta, scale, s (x + delta; null: not stored), out, rows, d, eps,
+    # x_dtype, scale_dtype, stream
+    "add_rmsnorm_launch": [_vp] * 5 + [_i64, _i, _f, _i, _i, _vp],
+    # y (float32), z, scale, out, rows, d, eps, z_dtype, scale_dtype, stream
+    "gated_rmsnorm_launch": [_vp] * 4 + [_i64, _i, _f, _i, _i, _vp],
     # q, k_pages, v_pages, k_scale, v_scale (null unless int8 pages),
     # tables, lengths, out, part_acc, part_ml (null unless split), B, W,
     # Hq, Hkv, D, page_size, P, n_split, scale, q dtype, page dtype, stream

@@ -5,8 +5,11 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
-Four entries are sub-counts of a kernel's calls, not kernels of their
-own: ``flash_attention_tc`` counts the flash-attention launches that took
+Six entries are sub-counts of a kernel's calls, not kernels of their
+own: ``rmsnorm_add`` and ``rmsnorm_gated`` count the RMSNorm calls (each
+one launch, all counted under ``rmsnorm``) of its fused variants, the
+residual add and Mamba-2's SiLU gate, on either route;
+``flash_attention_tc`` counts the flash-attention launches that took
 the tensor-core route, ``paged_attention_mq_split`` the paged-attention
 calls (float or int8 pages) split over more than one key range, each a
 split launch and a combine launch, and ``rwkv6_scan_tc`` and
@@ -39,7 +42,9 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "paged_attention_mq_int8": LaunchCount(),
           "flash_attention": LaunchCount(), "rwkv6_scan": LaunchCount(),
           "ssd_scan": LaunchCount(),
-          # sub-counts of the attention kernels' and the scans' calls
+          # sub-counts of RMSNorm's, the attention kernels' and the scans'
+          # calls
+          "rmsnorm_add": LaunchCount(), "rmsnorm_gated": LaunchCount(),
           "flash_attention_tc": LaunchCount(),
           "paged_attention_mq_split": LaunchCount(),
           "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount()}
@@ -53,12 +58,13 @@ def reset_counts() -> None:
             c.kernel = c.plain = 0
 
 
-def _count(name: str, kernel: bool) -> None:
+def _count(*names: str, kernel: bool) -> None:
     with _count_lock:
-        if kernel:
-            COUNTS[name].kernel += 1
-        else:
-            COUNTS[name].plain += 1
+        for name in names:
+            if kernel:
+                COUNTS[name].kernel += 1
+            else:
+                COUNTS[name].plain += 1
 
 
 def _route(x, name: str) -> bool:
@@ -78,6 +84,31 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
         return out
     _count("rmsnorm", kernel=False)
     return _rn.rmsnorm_plain(x, scale, eps=eps)
+
+
+def add_rmsnorm(x, delta, scale, *, eps: float = 1e-6,
+                keep_sum: bool = True):
+    """The residual add fused into the next RMSNorm: ``(s, y)``, ``s = x +
+    delta`` (bit for bit) and ``y`` the RMSNorm of ``s``; ``s`` is None,
+    and the kernel does not store it, unless ``keep_sum``."""
+    if _route(x, "rmsnorm"):
+        out = _rn.add_rmsnorm_cuda(x, delta, scale, eps=eps,
+                                   keep_sum=keep_sum)
+        _count("rmsnorm", "rmsnorm_add", kernel=True)
+        return out
+    _count("rmsnorm", "rmsnorm_add", kernel=False)
+    return _rn.add_rmsnorm_plain(x, delta, scale, eps=eps, keep_sum=keep_sum)
+
+
+def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
+    """Mamba-2's gated output norm, ``rmsnorm(y.to(z.dtype) * silu(z))``,
+    in one kernel; y float32, the result in z's dtype."""
+    if _route(y, "rmsnorm"):
+        out = _rn.gated_rmsnorm_cuda(y, z, scale, eps=eps)
+        _count("rmsnorm", "rmsnorm_gated", kernel=True)
+        return out
+    _count("rmsnorm", "rmsnorm_gated", kernel=False)
+    return _rn.gated_rmsnorm_plain(y, z, scale, eps=eps)
 
 
 def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,

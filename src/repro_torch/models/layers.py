@@ -28,6 +28,31 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     return ops.rmsnorm(x, params["scale"], eps=eps)
 
 
+def add_rmsnorm(params, x, delta, *, eps: float = 1e-6):
+    """The residual stream ``x + delta`` and its RMSNorm, ``(stream,
+    normed)``, in one kernel; with ``delta`` None (nothing pending: the
+    first norm of a model) the stream is ``x`` and only the norm runs."""
+    if delta is None:
+        return x, rmsnorm(params, x, eps=eps)
+    return ops.add_rmsnorm(x, delta, params["scale"], eps=eps)
+
+
+def final_rmsnorm(params, x, delta, *, eps: float = 1e-6):
+    """The RMSNorm of ``x + delta`` (``x`` with ``delta`` None) after a
+    model's last block: as :func:`add_rmsnorm`, but the stream, which no op
+    reads after it, is not stored."""
+    if delta is None:
+        return rmsnorm(params, x, eps=eps)
+    return ops.add_rmsnorm(x, delta, params["scale"], eps=eps,
+                           keep_sum=False)[1]
+
+
+def gated_rmsnorm(params, y, z, *, eps: float = 1e-6):
+    """Mamba-2's gated norm ``rmsnorm(y.to(z.dtype) * silu(z))`` in one
+    kernel; y float32, the result in z's dtype."""
+    return ops.gated_rmsnorm(y, z, params["scale"], eps=eps)
+
+
 def layernorm_def(dim: int) -> dict:
     """Declaration of one LayerNorm's scale and bias (kept in float32)."""
     return {"scale": Param((dim,), init="ones", dtype=torch.float32),

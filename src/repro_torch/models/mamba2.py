@@ -101,7 +101,7 @@ def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None):
     y = y.to(xh.dtype) + xh.to(f32) * params["D"].to(f32)[:, None]
     y = y.reshape(xc.shape)
 
-    y = L.rmsnorm(params["out_norm"], y.to(x.dtype) * F.silu(z))
+    y = L.gated_rmsnorm(params["out_norm"], y, z)       # z in x's dtype
     return y @ params["w_out"], ssm_state, conv_state
 
 

@@ -146,19 +146,22 @@ def _write_kv(kv, k, v, quant, scatter) -> None:
     scatter(kv["v_scale"], sv)
 
 
-def _paged_block(p, x, cfg, *, positions, kv, write, attend):
+def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend):
     """One decoder block against one layer's page storage ``kv``.
 
-    ``write(kv, k, v)`` commits the fresh K/V into pages (a whole-chunk
-    scatter in prefill, a per-slot token scatter in decode) before
-    ``attend(q, kv)`` reads them.  Returns the block's output."""
-    h = L.rmsnorm(p["ln1"], x)
+    ``delta`` is the previous block's MLP output, not yet added to the
+    residual stream ``x`` (None before the first block): the add runs
+    inside this block's first norm, as the attention output's does inside
+    its second.  ``write(kv, k, v)`` commits the fresh K/V into pages (a
+    whole-chunk scatter in prefill, a per-slot token scatter in decode)
+    before ``attend(q, kv)`` reads them.  Returns ``(x, delta)``: the
+    stream and this block's pending MLP output."""
+    x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
     write(kv, k, v)
     o = attend(q, kv)
-    x = x + A.out_project(p["attn"], o)
-    h = L.rmsnorm(p["ln2"], x)
-    return x + L.mlp(p["mlp"], h)
+    x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
+    return x, L.mlp(p["mlp"], h)
 
 
 def _check_paged(cfg):
@@ -202,10 +205,12 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
                                         k_scale=kv.get("k_scale"),
                                         v_scale=kv.get("v_scale"))
 
+    delta = None
     for i, p in enumerate(_blocks(params, cfg)):
-        x = _paged_block(p, x, cfg, positions=positions,
-                         kv=_layer(storage, i), write=write, attend=attend)
-    return L.rmsnorm(params["final_norm"], x)
+        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
+                                kv=_layer(storage, i), write=write,
+                                attend=attend)
+    return L.final_rmsnorm(params["final_norm"], x, delta)
 
 
 def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
@@ -233,21 +238,25 @@ def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
                                         k_scale=kv.get("k_scale"),
                                         v_scale=kv.get("v_scale"))
 
+    delta = None
     for i, p in enumerate(_blocks(params, cfg)):
-        x = _paged_block(p, x, cfg, positions=positions,
-                         kv=_layer(storage, i), write=write, attend=attend)
-    x = L.rmsnorm(params["final_norm"], x)
-    return lm_logits(params, x)
+        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
+                                kv=_layer(storage, i), write=write,
+                                attend=attend)
+    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
 
 
 # ---------------------------------------------------------------------------
 # Dense per-slot cache (the engine's paged=False path)
 # ---------------------------------------------------------------------------
 
-def block_apply(p, x, cfg, *, positions, window, cache_k=None, cache_v=None,
-                cache_pos=None):
-    """Pre-norm block.  Returns ``(x, k, v)``: the fresh K/V of this layer
-    without a cache (whole-prompt prefill), the cache itself with one.
+def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
+                cache_v=None, cache_pos=None):
+    """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
+    this block's MLP output not yet added to it (the next norm adds it; the
+    ``delta`` passed in is the previous block's, None before the first), and
+    the fresh K/V of this layer without a cache (whole-prompt prefill), the
+    cache itself with one.
 
     With a cache (decode), ``cache_k``/``cache_v`` are this layer's
     (B, max_len, Hkv, D) views of the stacked cache: the new K/V are written
@@ -256,7 +265,7 @@ def block_apply(p, x, cfg, *, positions, window, cache_k=None, cache_v=None,
     the whole cache, masked by ``cache_pos + S``.  As the reference's
     ``dynamic_update_slice`` does, a start past ``max_len - S`` is clamped.
     """
-    h = L.rmsnorm(p["ln1"], x)
+    x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
     if cache_k is None:
         o = A.gqa_attention(q, k, v, causal=True, window=window,
@@ -274,9 +283,8 @@ def block_apply(p, x, cfg, *, positions, window, cache_k=None, cache_v=None,
         o = A.gqa_attention(q, k, v, causal=True, window=window,
                             q_offset=cache_pos, kv_valid_len=cache_pos + S,
                             kv_chunk=max(max_len, 1))
-    x = x + A.out_project(p["attn"], o)
-    h = L.rmsnorm(p["ln2"], x)
-    return x + L.mlp(p["mlp"], h), k, v
+    x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
+    return x, L.mlp(p["mlp"], h), k, v
 
 
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
@@ -299,12 +307,14 @@ def prefill(params, cfg, tokens, max_len: Optional[int] = None):
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)
     cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
+    delta = None
     for i, window in enumerate(layer_windows(cfg)):
-        x, k, v = block_apply(_layer(params["blocks"], i), x, cfg,
-                              positions=positions, window=window)
+        x, delta, k, v = block_apply(_layer(params["blocks"], i), x, cfg,
+                                     positions=positions, window=window,
+                                     delta=delta)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
-    return cache, L.rmsnorm(params["final_norm"], x)
+    return cache, L.final_rmsnorm(params["final_norm"], x, delta)
 
 
 def decode_step(params, cfg, cache, tokens, pos):
@@ -317,10 +327,10 @@ def decode_step(params, cfg, cache, tokens, pos):
     x = embed_tokens(params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     positions = pos[..., None] + torch.arange(1, device=x.device)
+    delta = None
     for i, window in enumerate(layer_windows(cfg)):
-        x, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                              positions=positions, window=window,
-                              cache_k=cache["k"][i], cache_v=cache["v"][i],
-                              cache_pos=pos)
-    x = L.rmsnorm(params["final_norm"], x)
-    return lm_logits(params, x)
+        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
+                                     positions=positions, window=window,
+                                     delta=delta, cache_k=cache["k"][i],
+                                     cache_v=cache["v"][i], cache_pos=pos)
+    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))

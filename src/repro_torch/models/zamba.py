@@ -70,14 +70,17 @@ def zamba_defs(cfg) -> dict:
     }
 
 
-def _shared_block(params, x, cfg, *, positions, cache_k, cache_v, cache_pos):
+def _shared_block(params, x, delta, cfg, *, positions, cache_k, cache_v,
+                  cache_pos):
     """One application of the shared attention + MLP block against its own
-    cache: the new K/V rows are written at ``cache_pos`` in place (a start
+    cache, the pending ``delta`` added to the stream ``x`` inside its first
+    norm; returns ``(x, delta)``, its own MLP output pending.  The new K/V
+    rows are written at ``cache_pos`` in place (a start
     past ``max_len - S`` is clamped, as ``dynamic_update_slice`` does), then
     the queries attend over the cache, masked by ``cache_pos + S``.  The
     mask's offsets are read from ``positions`` (``cache_pos + arange(S)``
     on the device), so a step copies nothing from the host."""
-    h = L.rmsnorm(params["ln1"], x)
+    x, h = L.add_rmsnorm(params["ln1"], x, delta)
     q, k, v = A.qkv_project(params["attn"], h, cfg, positions)
     S, max_len = q.shape[1], cache_k.shape[1]
     start = min(max(cache_pos, 0), max_len - S)
@@ -86,23 +89,23 @@ def _shared_block(params, x, cfg, *, positions, cache_k, cache_v, cache_pos):
     o = A.gqa_attention(q, cache_k, cache_v, causal=True,
                         q_offset=positions[0], kv_valid_len=positions[-1] + 1,
                         kv_chunk=max(max_len, 1))
-    x = x + A.out_project(params["attn"], o)
-    h = L.rmsnorm(params["ln2"], x)
-    return x + L.mlp(params["mlp"], h)
+    x, h = L.add_rmsnorm(params["ln2"], x, A.out_project(params["attn"], o))
+    return x, L.mlp(params["mlp"], h)
 
 
-def _mamba_segment(seg_params, x, cfg, states):
-    """The segment's Mamba layers in order, each pre-normed and residual;
-    ``states`` (``{"ssm", "conv"}`` stacked on the segment's layer axis)
-    are advanced in place."""
+def _mamba_segment(seg_params, x, delta, cfg, states):
+    """The segment's Mamba layers in order, each pre-normed and residual:
+    each layer's output stays pending (``delta``) until the next norm adds
+    it to the stream ``x``; returns ``(x, delta)``.  ``states``
+    (``{"ssm", "conv"}`` stacked on the segment's layer axis) are advanced
+    in place."""
     for i in range(cfg.shared_attn_every):
         p = T._layer(seg_params, i)
-        h = L.rmsnorm(p["ln"], x)
-        y, _, _ = M2.mamba2_block(
+        x, h = L.add_rmsnorm(p["ln"], x, delta)
+        delta, _, _ = M2.mamba2_block(
             p["mamba"], h, cfg, ssm_state=states["ssm"][i],
             conv_state={c: states["conv"][c][i] for c in "xBC"})
-        x = x + y
-    return x
+    return x, delta
 
 
 def init_state(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
@@ -133,19 +136,21 @@ def _check_pos(pos) -> int:
 
 def _forward_with_state(params, cfg, x, state, pos: int):
     """Shared by prefill (S >= 1) and decode (S == 1): the segments, each
-    followed by the shared block, then the final norm; ``state`` is
-    advanced in place."""
+    followed by the shared block, then the final norm; every residual add
+    runs inside the norm after it.  ``state`` is advanced in place."""
     S = x.shape[1]
     positions = pos + torch.arange(S, device=x.device)
     mamba, cache = state["mamba"], state["attn_cache"]
+    delta = None
     for s in range(_n_segments(cfg)):
-        x = _mamba_segment(T._layer(params["mamba_blocks"], s), x, cfg,
-                           {"ssm": mamba["ssm"][s],
-                            "conv": {c: mamba["conv"][c][s] for c in "xBC"}})
-        x = _shared_block(params["shared"], x, cfg, positions=positions,
-                          cache_k=cache["k"][s], cache_v=cache["v"][s],
-                          cache_pos=pos)
-    return L.rmsnorm(params["final_norm"], x)
+        x, delta = _mamba_segment(
+            T._layer(params["mamba_blocks"], s), x, delta, cfg,
+            {"ssm": mamba["ssm"][s],
+             "conv": {c: mamba["conv"][c][s] for c in "xBC"}})
+        x, delta = _shared_block(params["shared"], x, delta, cfg,
+                                 positions=positions, cache_k=cache["k"][s],
+                                 cache_v=cache["v"][s], cache_pos=pos)
+    return L.final_rmsnorm(params["final_norm"], x, delta)
 
 
 def _embed(params, cfg, tokens):

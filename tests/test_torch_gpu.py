@@ -63,6 +63,122 @@ def test_rmsnorm_kernel_matches_plain(card, dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# (rows, d) of the fused norms: the main paths' (decode 4, prefill chunk
+# 64, dense prefill 1024, zamba2 prefill 4000; d 3584, gated d 7168), one
+# row, and widths off the kernel's vector (8) or past its register rows
+NORM_CASES = [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584), (4, 7168),
+              (4000, 7168), (1, 3584), (5, 1001), (3, 100), (2, 20000)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", NORM_CASES)
+def test_add_rmsnorm_kernel_matches_plain(card, dtype, rows, d):
+    """s bit for bit x + delta; y within rmsnorm's limits."""
+    rng = np.random.default_rng(rows + d)
+    x, dl = (torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+             .to(card, DTYPES[dtype]) for _ in range(2))
+    scale = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        card, DTYPES[dtype])
+    s, y = ops.add_rmsnorm(x, dl, scale)
+    torch.cuda.synchronize()
+    want_s, want_y = ref.add_rmsnorm(x, dl, scale)
+    assert s.dtype == y.dtype == x.dtype
+    assert torch.equal(s, want_s)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("z_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", NORM_CASES)
+def test_gated_rmsnorm_kernel_matches_plain(card, z_dtype, rows, d):
+    rng = np.random.default_rng(rows + d + 1)
+    y = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)).to(
+        card)
+    z = torch.from_numpy((2 * rng.normal(size=(rows, d))).astype(np.float32)
+                         ).to(card, DTYPES[z_dtype])
+    scale = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        card, DTYPES[z_dtype])
+    got = ops.gated_rmsnorm(y, z, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == z.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.gated_rmsnorm(y, z, scale).float(),
+                               rtol=TOL[z_dtype], atol=TOL[z_dtype])
+
+
+def test_fused_rmsnorm_kernels_count_and_read_strided_inputs(card):
+    """One launch each under ``rmsnorm`` and its sub-count; a strided
+    (transposed) input is made contiguous first."""
+    x = torch.randn(8, 64, device=card).t()
+    dl = torch.randn(64, 8, device=card)
+    scale = torch.randn(8, device=card)
+    ops.reset_counts()
+    s, y = ops.add_rmsnorm(x, dl, scale)
+    g = ops.gated_rmsnorm(x.contiguous(), dl, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(s, x + dl)
+    torch.testing.assert_close(y, ref.rmsnorm(x + dl, scale), rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(g, ref.gated_rmsnorm(x.contiguous(), dl,
+                                                    scale),
+                               rtol=2e-4, atol=2e-4)
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
+              if c.kernel or c.plain}
+    assert counts == {"rmsnorm": (2, 0), "rmsnorm_add": (1, 0),
+                      "rmsnorm_gated": (1, 0)}
+    ops.reset_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", NORM_CASES)
+def test_add_rmsnorm_kernel_without_the_sum(card, dtype, rows, d):
+    """keep_sum=False (the models' final norm): s is not stored and comes
+    back None, the norm is bit for bit the one beside a stored s, and the
+    launch counts as a fused add."""
+    rng = np.random.default_rng(rows + d + 2)
+    x, dl = (torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+             .to(card, DTYPES[dtype]) for _ in range(2))
+    scale = torch.from_numpy(rng.normal(size=(d,)).astype(np.float32)).to(
+        card, DTYPES[dtype])
+    ops.reset_counts()
+    s, y = ops.add_rmsnorm(x, dl, scale, keep_sum=False)
+    _, want = ops.add_rmsnorm(x, dl, scale)
+    torch.cuda.synchronize()
+    assert s is None
+    assert torch.equal(y, want)
+    assert (ops.COUNTS["rmsnorm_add"].kernel,
+            ops.COUNTS["rmsnorm"].kernel) == (2, 2)
+    ops.reset_counts()
+
+
+def test_rmsnorm_wrappers_refuse_what_they_do_not_take(card):
+    from repro_torch.kernels import rmsnorm as RN
+    x = torch.randn(4, 64, device=card)
+    s = torch.ones(64, device=card)
+    with pytest.raises(TypeError):
+        RN.add_rmsnorm_cuda(x, x.bfloat16(), s)          # mixed dtypes
+    with pytest.raises(TypeError):
+        RN.add_rmsnorm_cuda(x.half(), x.half(), s)       # float16
+    with pytest.raises(ValueError):
+        RN.add_rmsnorm_cuda(x, x[:2], s)                 # shapes differ
+    with pytest.raises(ValueError):
+        RN.add_rmsnorm_cuda(x, x.cpu(), s)               # not on one card
+    with pytest.raises(ValueError):
+        RN.add_rmsnorm_cuda(x, x, torch.ones(32, device=card))
+    with pytest.raises(TypeError):
+        RN.gated_rmsnorm_cuda(x.bfloat16(), x.bfloat16(), s)  # y not float32
+    with pytest.raises(TypeError):
+        RN.gated_rmsnorm_cuda(x, x.half(), s)
+    with pytest.raises(ValueError):
+        RN.gated_rmsnorm_cuda(x, x[:, :32], s)
+    with pytest.raises(ValueError):
+        RN.gated_rmsnorm_cuda(x, x, s.cpu())
+    with pytest.raises(TypeError):
+        RN.rmsnorm_cuda(x, s.half())                     # scale float16
+    with pytest.raises(ValueError):
+        RN.rmsnorm_cuda(x.cpu(), s)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Hq,Hkv,W,B", [(28, 4, 1, 8), (28, 4, 64, 1),
                                         (16, 8, 5, 8), (4, 2, 3, 2)])
@@ -595,5 +711,6 @@ def test_zamba_on_card_matches_cpu(card):
     assert ops.COUNTS["ssd_scan"].kernel == model.cfg.n_layers * new
     assert all(c.plain == 0 for c in ops.COUNTS.values())
     assert all(c.kernel == 0 for n, c in ops.COUNTS.items()
-               if n not in ("ssd_scan", "rmsnorm"))
+               if n not in ("ssd_scan", "rmsnorm", "rmsnorm_add",
+                            "rmsnorm_gated"))
     assert got == want
