@@ -21,14 +21,19 @@ Phases (any failure exits non-zero before the result lines):
                  paths' shapes, with the tolerances printed beside them;
                  RMSNorm's three variants (the norm, the residual add fused
                  into it, Mamba-2's SiLU gate fused into it) at every row
-                 count the main runs launch (1 to 4097 rows, d 3584, 7168,
-                 2048 and an odd 1001), the fused add's sum bit for bit;
+                 count the main runs launch (1 to 4097 rows, main-spec's
+                 verify forwards' 12 and 20 and its drafter's 512; d 3584,
+                 7168, 2048 and an odd 1001), the fused add's sum bit for
+                 bit;
                  flash attention on its tensor-core route (bf16, D 64 and
                  128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
                  strided q/k/v) and its CUDA-core route; paged attention
                  split over many key ranges (tables of 128 and 512 pages,
                  lengths on and beside a split edge, W 64 deep in the
-                 table), float and int8 pages; the wkv kernel on both
+                 table), float and int8 pages; paged attention at the
+                 verify windows of main-spec (B 4, W 3 and 5, a 32-page
+                 table), float and int8 pages, each call counted as a
+                 verify call of its width; the wkv kernel on both
                  routes (the tensor-core route for K = V = 64 from one
                  chunk of 64 steps on: the full-width prefill, S 64 and 65,
                  each such call checked by its sub-count; S 63 and the
@@ -45,7 +50,8 @@ Phases (any failure exits non-zero before the result lines):
                  cache must hit, and RMSNorm must launch once alone and
                  2 x 28 times with the residual add a step or chunk.
 6. timing      — each kernel, its plain version and one PyTorch yardstick
-                 call timed at the main paths' shapes (device time from a
+                 call timed at the main paths' shapes (B1 also at
+                 main-spec's verify window, B 4, W 5; device time from a
                  replayed CUDA graph; the host-issued time printed beside),
                  beside the bytes/operations bound; RMSNorm's variants at
                  every (rows, d) the main runs launch them with, beside the
@@ -146,6 +152,43 @@ Phases (any failure exits non-zero before the result lines):
                  the prefill's bound at the TF32 tensor-core peak, the
                  float32 CUDA-core one beside it.
 
+19. main-spec  — the main run with the self-2 drafter (``--spec-decode
+                 self-2 --spec-k 4``): every request finishes, drafts are
+                 proposed, the drafter's flash attention runs on the
+                 tensor cores (2 launches a drafted token), the engine's
+                 verify ticks are of widths 3 and 5 only (B1's verify
+                 calls by width: the layers times the engine's
+                 ``verify_widths``), B1 and B2 launch exactly as the ticks,
+                 chunks and drafter forwards need; prints proposed,
+                 accepted, the acceptance rate, verify ticks and wall
+                 tok/s, and (not gated: the random full-depth model is
+                 chaotic) each stream's first divergence from main's and a
+                 verify window's position 0 against a decode step.  Then a
+                 verify tick's parts timed (the verify forward at W 3 and
+                 5, one drafter forward), and the gates on the same
+                 weights cut to their first 2 layers: the self-1 and
+                 self-2 drafters' streams equal to spec-off's (a
+                 divergence fails, printed with the spec-off top-2 margin
+                 there; the smallest margin of the spec-off run printed),
+                 a verify window's position 0 within the stated limit of
+                 a decode step, with the K/V each call wrote for position
+                 0 compared, and a window off by one position shown to
+                 exceed that limit.
+20. main-spec-int8 — the same with ``--kv-quant int8`` (B1-int8 on verify
+                 windows), against main-int8.
+21. main-sampled — main's 8 requests seeded, with top-k (k 40, T 0.8),
+                 top-p (0.9, T 0.8) and temperature (T 0.8) heads cycled,
+                 served twice, then through rejection-sampled speculation
+                 (self-2, ``spec_temperature`` 0.8), twice: each pair's
+                 streams identical.  ``prng.bits`` on the card equals the
+                 CPU's bit for bit; a temperature histogram over 8 logits
+                 within the chi-square bound of softmax; the host-issued
+                 time of one seeded draw over the full vocab.
+22. traffic    — the launcher's ``--traffic poisson --clock wall``: 16
+                 arrivals at 2 requests a second; prints the report (TTFT,
+                 ITL and e2e percentiles, tok/s, goodput), which must be
+                 complete; the paged kernels launch, no plain version runs.
+
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly.
 
@@ -172,7 +215,9 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
+from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve import quant as QZ  # noqa: E402
+from repro_torch.serve import sampling as SM  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -234,6 +279,36 @@ RWKV_ARGS = ["--arch", "rwkv6-3b", "--requests", "8", "--max-new", "32",
              "--device", "cuda"]
 FARM_WORKERS = (1, 4, 1, 4)        # main-dense's farm sizes, alternated
 PS = 16                            # the main path's page size
+# main-spec: the self-drafter of the target's first 2 layers, up to 4
+# drafts a slot (verify windows of 3 or 5)
+SPEC_ARGS = ["--spec-decode", "self-2", "--spec-k", "4"]
+VERIFY_WIDTHS = (3, 5)
+# The gates of speculation hold the full-width weights cut to their first
+# GATE_DEPTH layers: the random full-depth model is chaotic (main-dense's
+# float32 K gap grows from 3e-7 at layer 1 to 1.0 by layer 16), so a verify
+# window's position 0 and a decode step of the same token, whose GEMMs have
+# other row counts, part by O(1) logits at depth 28 (main-spec prints 6-8
+# max |d logit|, bf16).  At full depth both are printed, not gated.  The
+# stream gate: at depth 2 every spec-on stream equals its spec-off twin.
+# The per-call gate: that gap at depth 2 over the true vocab (logits ~1.2
+# rms at random init), bf16, below VERIFY_LOGIT_TOL by KV policy; the
+# readings it was set from are in PERF.md §6: W 3 0.0088 with bf16
+# pages, 0.1197 with int8 pages (the calls' layer-1 K/V of position 0
+# land a code step apart; printed), W 5 0.0 with both; a window off by one
+# position (5.8-7.1) must exceed the limit.
+GATE_DEPTH = 2
+VERIFY_LOGIT_TOL = {"off": 0.05, "int8": 0.25}
+# main-sampled: the heads (k 40, T 0.8; p 0.9, T 0.8; T 0.8) cycled over
+# main's 8 requests, each seeded; the histogram's logit row and draws; its
+# bound: the chi-square of 7 degrees of freedom at p = 0.001
+SAMPLE_T = 0.8
+HIST_LOGITS = (2.0, 1.0, 0.5, 0.0, -0.5, -1.0, 1.5, 0.2)
+HIST_DRAWS = 100_000
+CHI2_BOUND = 24.32
+# traffic: 16 Poisson arrivals at 2 requests a second (main serves its 8
+# requests closed-loop at several a second; printed beside it)
+TRAFFIC_ARGS = ["--requests", "16", "--traffic", "poisson", "--clock",
+                "wall", "--rate", "2.0"]
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
              "--slots", "4", "--max-len", "512", "--page-size", str(PS),
              "--prefill-chunk", "64", "--prefix-cache", "on",
@@ -244,22 +319,25 @@ PAGED_KERNELS = ("rmsnorm", "rmsnorm_add", "paged_attention_mq",
                  "paged_attention_mq_split")
 INT8_KERNELS = ("rmsnorm", "rmsnorm_add",               # ... with int8 pages
                 "paged_attention_mq_int8", "paged_attention_mq_split")
+# ... with speculation: verify windows, and the drafter's flash attention
+SPEC_KERNELS = ("flash_attention", "flash_attention_tc")
 # B2's parity cases: every row count the main runs launch it with (decode 4,
-# prefill chunk 64, dense prefill 1024, zamba2 prefill 4000), one row, a
-# ragged 1000 and 4097; d of qwen2-7b and zamba2-7b (3584), zamba2's
-# d_inner (7168, the gated norm's), 2048, and one off the kernel's 16-byte
-# vector (its scalar route)
-NORM_ROWS = (1, 4, 64, 1000, 1024, 4000, 4097)
+# prefill chunk 64, dense prefill 1024, zamba2 prefill 4000, main-spec's
+# verify forwards over 4 slots at W 3 and 5, 12 and 20, and its drafter's
+# forward over a bucket of 512), one row, a ragged 1000 and 4097; d of
+# qwen2-7b and zamba2-7b (3584), zamba2's d_inner (7168, the gated norm's),
+# 2048, and one off the kernel's 16-byte vector (its scalar route)
+NORM_ROWS = (1, 4, 12, 20, 64, 512, 1000, 1024, 4000, 4097)
 NORM_DIMS = (3584, 7168, 2048, 1001)
 # (rows, d) of each B2 variant in the main runs: decode, prefill chunk,
 # dense prefill, zamba2 prefill (the first norm, each Mamba layer's and the
-# shared block's at d 3584, the gated norm at d_inner 7168); final_rmsnorm
+# shared block's at d 3584, the gated norm at d_inner 7168), main-spec's
+# verify forwards (12 and 20 rows) and drafter forward (512); final_rmsnorm
 # is the fused add of a model's last norm, which stores no sum
-NORM_TIMED = {"rmsnorm": [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584)],
-              "add_rmsnorm": [(4, 3584), (64, 3584), (1024, 3584),
-                              (4000, 3584)],
-              "final_rmsnorm": [(4, 3584), (64, 3584), (1024, 3584),
-                                (4000, 3584)],
+_QWEN_NORM_ROWS = [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584),
+                   (12, 3584), (20, 3584), (512, 3584)]
+NORM_TIMED = {"rmsnorm": _QWEN_NORM_ROWS, "add_rmsnorm": _QWEN_NORM_ROWS,
+              "final_rmsnorm": _QWEN_NORM_ROWS,
               "gated_rmsnorm": [(4, 7168), (4000, 7168)]}
 INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
 # (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
@@ -269,7 +347,8 @@ DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
               "--shared-prefix", "960", "--device", "cuda"]
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): the reference's five kernel
 # cases, a ragged length, D = 64 and 256, the dense prefill's shapes (S
-# 1024 and 2048) and a ragged 1000 at its heads, Sq != Sk both ways; bf16
+# 1024 and 2048) and a ragged 1000 at its heads, Sq != Sk both ways, the
+# self-drafter's buckets; bf16
 # at D 64 and 128 takes the tensor-core route
 FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 512, 512, 2, 2, 16, True, 100),
@@ -283,7 +362,11 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 2048, 2048, 28, 4, 128, True, None),
                (1, 1000, 1000, 28, 4, 128, True, None),
                (1, 130, 90, 4, 2, 64, False, None),
-               (2, 300, 200, 28, 4, 128, True, None)]
+               (2, 300, 200, 28, 4, 128, True, None),
+               # the self-2 drafter's buckets in main-spec (512) and the
+               # smallest one (16)
+               (1, 512, 512, 28, 4, 128, True, None),
+               (1, 16, 16, 28, 4, 128, True, None)]
 # (B, W, Hq, Hkv, P, n_pages, lengths): paged attention split over many key
 # ranges (64 positions each): tables of 128 and 512 pages of 16 (32 and
 # 128 splits), lengths on a split edge (64, 128: the last key ends a range)
@@ -471,7 +554,7 @@ def phase_parity(dev) -> dict:
     errs = {"rmsnorm": max(norm_errs.values()), "paged_attention_mq": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for Hq, Hkv in ((28, 4), (16, 8)):
-            for W in (1, 5, 64):
+            for W in (1, 3, 5, 64):
                 for B in (1, 8):
                     q, kp, vp, tb, ln = attention_case(
                         rng, dev, dtype, B=B, W=W, Hq=Hq, Hkv=Hkv)
@@ -518,17 +601,52 @@ def phase_parity(dev) -> dict:
                                      split_errs["paged_attention_mq"])
     errs["paged_attention_mq_int8"] = max(
         errs["paged_attention_mq_int8"], split_errs["paged_attention_mq_int8"])
+    verify_errs = phase_parity_verify(rng, dev)
+    for name in verify_errs:
+        errs[name] = max(errs[name], verify_errs[name])
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
     log(f"parity ok: {6 * len(NORM_ROWS) * len(NORM_DIMS)} rmsnorm (3 "
-        f"variants; the fused add's s bit for bit) + 24 paged_attention_mq + "
+        f"variants; the fused add's s bit for bit) + 32 paged_attention_mq + "
         f"{2 * len(FLASH_CASES) + 1} flash_attention + 24 "
         f"paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
         f"paged-attention cases, tol (rtol=atol) {tols}; max abs err "
         f"{errs}; rmsnorm by variant {norm_errs}; flash_attention by dtype "
         f"{flash_errs}; "
         f"paged_attention_mq_int8 by dtype {int8_errs}; split cases "
-        f"{split_errs}")
+        f"{split_errs}; verify windows (B 4, W {VERIFY_WIDTHS}, a 32-page "
+        f"table, 4 cases a page kind) {verify_errs}")
+    return errs
+
+
+def phase_parity_verify(rng, dev) -> dict:
+    """Paged attention at main-spec's verify windows: B 4, W 3 and 5 (W·G
+    = 21 and 35 query rows a KV head, the last 16-row tile partial), 28/4
+    heads of 128, a 32-page table over 128 pages, float and int8 pages, q
+    bf16 and f32, a dead slot; each call one kernel launch.  Max abs error
+    by kernel name."""
+    errs = {"paged_attention_mq": 0.0, "paged_attention_mq_int8": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for W in VERIFY_WIDTHS:
+            q, kp, vp, tb, ln = attention_case(rng, dev, dtype, B=4, W=W,
+                                               Hq=28, Hkv=4, n_pages=128,
+                                               P=32)
+            pages = quantize_pages(kp.float(), vp.float())
+            for name, args in (
+                    ("paged_attention_mq", (kp, vp, tb, ln)),
+                    ("paged_attention_mq_int8", (pages[0], pages[1], tb, ln,
+                                                 *pages[2:]))):
+                ops.reset_counts()
+                got = ops.paged_attention_mq(q, *args)
+                torch.cuda.synchronize()
+                if ops.COUNTS[name] != ops.LaunchCount(kernel=1):
+                    raise AssertionError(f"{name} W={W}: not one kernel "
+                                         f"launch ({ops.COUNTS[name]})")
+                if got[-1, 0].any():
+                    raise AssertionError(f"{name} W={W}: dead slot not zero")
+                errs[name] = max(errs[name], check(
+                    name, f"verify B=4 W={W} P=32 {dtype}", got,
+                    ref.paged_attention_mq(q, *args), dtype))
     return errs
 
 
@@ -692,6 +810,14 @@ def check_split(label: str, counts: dict, name: str, P: int) -> None:
                              f"calls of {counts[name][0]} {name} calls")
 
 
+def served_rate(eng) -> float:
+    """Requests a second the engine served closed-loop: its finished
+    requests over first submit to last retirement."""
+    done = eng.finished
+    span = max(r.done_at for r in done) - min(r.submitted_at for r in done)
+    return len(done) / span
+
+
 def phase_main():
     eng, counts, wall, peak = serve_main()
     check_served(eng, "main path", counts, PAGED_KERNELS)
@@ -707,7 +833,8 @@ def phase_main():
         f"(init included: {wall:.2f}s), ticks={s['ticks']} "
         f"chunks={s['chunk_prefills']} pages_high_water="
         f"{s['pages_high_water']} prefix_hits={s['prefix_hits']} "
-        f"max_memory_allocated={peak} B; launches {counts}")
+        f"max_memory_allocated={peak} B; {served_rate(eng):.2f} requests/s "
+        f"served closed-loop; launches {counts}")
     return {k: v[0] for k, v in counts.items()}, eng, peak
 
 
@@ -745,7 +872,8 @@ def streams_agree(eng, want) -> str:
 def phase_main_int8(ref_kv, ref_streams, prompt):
     """The main run with int8 KV pages: served, through the int8 kernel
     only, 29568 KV bytes a token, and layer 0's dequantized K/V of
-    ``prompt`` within half a step of the bf16 run's (``ref_kv``)."""
+    ``prompt`` within half a step of the bf16 run's (``ref_kv``).  Returns
+    the launch counts and the engine."""
     eng, counts, wall, peak = serve_main(["--kv-quant", "int8"])
     check_served(eng, "main-int8", counts, INT8_KERNELS)
     check_split("main-int8", counts, "paged_attention_mq_int8",
@@ -935,6 +1063,42 @@ def phase_timing(dev) -> dict:
             f"{t2['kernel']:.5f} ms (plain {t2['plain']:.5f} ms, library "
             f"{'composite ' if scaled else ''}{t2['library']:.5f} ms, bound "
             f"{b2:.6f} ms by {by2})")
+
+    # main-spec's full verify window (W 5) over the 4 decode slots: kept in
+    # the B1 entries as verify_*
+    W5 = max(VERIFY_WIDTHS)
+    q5 = torch.randn(B, W5, Hq, D, device=dev).to(dtype)
+    mask5 = (torch.arange(P * PS, device=dev)[None, None, :]         # causal
+             < (ln[:, None] + torch.arange(W5, device=dev))[:, :, None]
+             )[:, None]                                         # (B,1,W,S)
+    for name, kvs, scaled, lib in (
+            ("paged_attention_mq", layers, False,
+             lambda kv: library(q5, *kv, tb, mask=mask5)),
+            ("paged_attention_mq_int8", int8_layers, True,
+             lambda kv: library_int8(q5, *kv, tb, mask=mask5))):
+        b5, by5 = bound(*attention_cost(q5, kvs[0][0], tb, ln,
+                                        scaled=scaled), dtype)
+        t5 = {what: device_ms([lambda kv=kv: fn(kv) for kv in kvs])
+              for what, fn in (
+                  ("kernel", lambda kv: ops.paged_attention_mq(
+                      q5, kv[0], kv[1], tb, ln, *kv[2:])),
+                  ("plain", lambda kv: ref.paged_attention_mq(
+                      q5, kv[0], kv[1], tb, ln, *kv[2:])),
+                  ("library", lib))}
+        host5 = time_ms(lambda: ops.paged_attention_mq(
+            q5, kvs[0][0], kvs[0][1], tb, ln, *kvs[0][2:]))
+        out[name].update(verify_ms=t5["kernel"], verify_plain_ms=t5["plain"],
+                         verify_library_ms=t5["library"],
+                         verify_bound_ms=b5, verify_bound_by=by5,
+                         verify_host_ms=host5,
+                         verify_shape=f"verify B={B} W={W5} P={P} "
+                         f"lengths={lens.tolist()}")
+        log(f"verify-window shapes (device): {name} B={B} W={W5} Hq={Hq} "
+            f"Hkv={Hkv} D={D} P={P}: {t5['kernel']:.5f} ms (plain "
+            f"{t5['plain']:.5f} ms, library "
+            f"{'composite ' if scaled else 'gather + SDPA '}"
+            f"{t5['library']:.5f} ms, bound {b5:.6f} ms by {by5}); "
+            f"host-issued kernel {host5:.5f} ms")
     return out
 
 
@@ -1913,6 +2077,403 @@ def phase_step_zamba(model, params, times) -> None:
         f"{cfg.n_layers * ssd['ms']:.3f} ms a prefill")
 
 
+# -- speculative decode, seeded sampling and open-loop traffic ---------------
+
+def spec_stream_gate(label, eng, ref_streams, margins=None) -> list[str]:
+    """Each spec-on stream against its spec-off twin, one line a request:
+    all equal, or the first divergence.  With ``margins`` (rid -> the
+    spec-off run's top-2 logit margin of each token, in stream order) it
+    is a gate: a divergence fails, with the spec-off margin there."""
+    lines = []
+    for r in sorted(eng.finished, key=lambda r: r.rid):
+        got, want = r.output, ref_streams[r.rid]
+        i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if i is None and len(got) == len(want):
+            lines.append(f"{r.rid}: all {len(got)} equal")
+            continue
+        i = min(len(got), len(want)) if i is None else i
+        if margins is not None:
+            ms = margins[r.rid]
+            m = f"{ms[i]:.4f}" if i < len(ms) else "none (past its end)"
+            raise AssertionError(
+                f"{label} request {r.rid}: leaves the spec-off stream at "
+                f"token {i}; the spec-off top-2 margin there is {m}")
+        lines.append(f"{r.rid}: first divergence at token {i}")
+    return lines
+
+
+class MarginSampler:
+    """A greedy per-request sampler (the engine's default: the argmax over
+    the true vocab) that records the top-2 logit margin of each token it
+    picks, in stream order."""
+
+    def __init__(self, vocab: int):
+        self.vocab, self.margins = vocab, []
+
+    def __call__(self, key, logits):
+        top = logits[..., :self.vocab].float().topk(2, dim=-1).values
+        self.margins.append((top[..., 0] - top[..., 1]).item())
+        return SM.greedy(logits, true_vocab=self.vocab)
+
+
+def verify_windows(eng, rng):
+    """Inputs of a verify forward on ``eng``'s pool: 4 slots on disjoint
+    32-page tables at lengths 276-310, and for each width of
+    VERIFY_WIDTHS (tokens (B, W), write pages, write offsets); tensors on
+    the engine's device: (tables, lengths, {W: window})."""
+    B, P = eng.max_slots, eng.sched.pages_per_slot
+    lens = np.array([300, 288, 310, 276][:B], np.int32)
+    tables = rng.permutation(eng.pool.num_pages)[:B * P].reshape(B, P) \
+        .astype(np.int32)
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), device=eng.device)
+
+    windows = {}
+    for W in VERIFY_WIDTHS:
+        toks = rng.integers(0, eng.model.cfg.vocab, (B, W)).astype(np.int32)
+        pos = lens[:, None] + np.arange(W)
+        windows[W] = (t(toks), t(np.take_along_axis(tables, pos // PS, 1)),
+                      t(pos % PS))
+    return t(tables), t(lens), windows
+
+
+def written_kv_gap(a, b, pages, offs, quant: bool) -> dict:
+    """How the K/V that two calls wrote for one position a slot (at
+    ``pages``, ``offs``) differ, by layer: with int8 pages the codes that
+    differ, the largest code step and the largest relative scale gap; with
+    float pages the largest |d|."""
+    p, o = pages.long(), offs.long()
+    out = {}
+    for name in ("k", "v"):
+        x, y = a[name][:, p, o], b[name][:, p, o]       # (L, B, Hkv, D)
+        if quant:
+            d = (x.int() - y.int()).abs().flatten(1)
+            sx, sy = (t[name + "_scale"][:, p, o].flatten(1) for t in (a, b))
+            rel = ((sx - sy).abs() / sy.abs().clamp_min(1e-30)).amax(1)
+            out[name] = {"codes_differing": (d > 0).sum(1).tolist(),
+                         "of": d.shape[1], "max_step": d.amax(1).tolist(),
+                         "scale_rel_gap": rel.tolist()}
+        else:
+            out[name] = {"max_abs": (x.float() - y.float()).abs()
+                         .flatten(1).amax(1).tolist()}
+    return out
+
+
+def verify_call_gaps(eng, limit) -> dict:
+    """Position 0 of a verify window (W 3 and 5) against a decode step of
+    the same tokens on the same pages (each call on its own copy of the
+    engine's storage, :func:`verify_windows`), by width: max |d logit|
+    over the true vocab, gated at ``limit`` (None: printed only); whether
+    the argmax agrees; the K/V each call wrote for position 0
+    (:func:`written_kv_gap`); and, when gated, the gap of a window off by
+    one position (lengths + 1: its queries one RoPE position late, one
+    stale key admitted), which must exceed ``limit``."""
+    model, params, V = eng.model, eng.params, eng.model.cfg.vocab
+    kw = {} if eng.kv_quant is None else {"quant": eng.kv_quant}
+    tables, lens, windows = verify_windows(eng, np.random.default_rng(3))
+
+    def call(step, lengths, *window):
+        storage = {k: v.clone() for k, v in eng.pool.storage.items()}
+        logits = step(params, storage, tables, lengths, *window, **kw)
+        return logits[:, 0, :V], storage
+
+    out = {}
+    for W, (toks, wp, wo) in windows.items():
+        dec, dst = call(model.paged_decode_step, lens, toks[:, :1],
+                        wp[:, 0], wo[:, 0])
+        ver, vst = call(model.paged_verify, lens, toks, wp, wo)
+        gap = (ver - dec).abs().max().item()
+        out[W] = {"gap": gap,
+                  "argmax_agrees": bool((ver.argmax(-1)
+                                         == dec.argmax(-1)).all()),
+                  "written_kv": written_kv_gap(dst, vst, wp[:, 0], wo[:, 0],
+                                               eng.kv_quant is not None)}
+        del dst, vst
+        if limit is None:
+            continue
+        bad, _ = call(model.paged_verify, lens + 1, toks, wp, wo)
+        out[W]["off_by_one_gap"] = bad_gap = (bad - dec).abs().max().item()
+        if not gap <= limit:
+            raise AssertionError(f"verify W={W} position 0 vs decode: max "
+                                 f"|d logit| {gap} > {limit}; {out[W]}")
+        if not bad_gap > limit:
+            raise AssertionError(f"verify W={W}: a window off by one "
+                                 f"position gives max |d logit| {bad_gap} "
+                                 f"<= the limit {limit}")
+    return out
+
+
+def phase_main_spec(label, extra, kernels, attn, ref_streams):
+    """main with the self-2 drafter (``extra`` adds the KV policy): every
+    request finishes, drafts are proposed, the drafter's flash attention
+    runs on the tensor cores (2 launches a drafted token), the verify
+    ticks are of widths 3 and 5 only, B1 (all split) and B2 launch exactly
+    as many times as the ticks, chunks and drafter forwards need, no plain
+    version runs; then the stream and per-call gates.  Returns the launch
+    counts, B1's verify calls by width (a call a layer of each verify tick
+    of that width) and the engine."""
+    eng, counts, wall, peak = serve_main(list(extra) + SPEC_ARGS)
+    check_served(eng, label, counts, kernels + SPEC_KERNELS)
+    check_split(label, counts, attn, eng.sched.pages_per_slot)
+    s, cfg = eng.stats, eng.model.cfg
+    L, steps = cfg.n_layers, s["ticks"] + s["chunk_prefills"]
+    fa = counts["flash_attention"][0]
+    if s["draft_proposed"] <= 0 or fa != counts["flash_attention_tc"][0] \
+            or fa % 2:
+        raise AssertionError(f"{label}: {s['draft_proposed']} drafts, "
+                             f"{fa} flash_attention launches "
+                             f"({counts['flash_attention_tc'][0]} on the "
+                             "tensor cores); want drafts and 2 tensor-core "
+                             "launches a drafted token")
+    forwards = fa // 2                  # 2 drafter layers a drafted token
+    ticks_by_width = dict(sorted(s["verify_widths"].items()))
+    widths = {W: L * n for W, n in ticks_by_width.items()}
+    verify = sum(widths.values())
+    if (not widths or set(widths) - set(VERIFY_WIDTHS)
+            or verify > L * s["ticks"] or counts[attn][0] != L * steps):
+        raise AssertionError(f"{label}: {attn} {counts[attn][0]} launches "
+                             f"for {steps} ticks and chunks, verify ticks "
+                             f"by width {ticks_by_width}")
+    alone = (counts["rmsnorm"][0] - counts["rmsnorm_add"][0]
+             - counts["rmsnorm_gated"][0])
+    want = (steps + forwards, 2 * L * steps + 4 * forwards)
+    if (alone, counts["rmsnorm_add"][0]) != want:
+        raise AssertionError(f"{label}: B2 (standalone, add) launches "
+                             f"{(alone, counts['rmsnorm_add'][0])}, want "
+                             f"{want} ({steps} ticks and chunks, {forwards} "
+                             "2-layer drafter forwards)")
+    lines = spec_stream_gate(label, eng, ref_streams)
+    gaps = verify_call_gaps(eng, limit=None)
+    toks = sum(len(r.output) for r in eng.finished)
+    log(f"{label}: self-2 drafter, k 4: proposed={s['draft_proposed']} "
+        f"accepted={s['draft_accepted']} acceptance_rate="
+        f"{s['acceptance_rate']:.4f}, {verify // L} verify ticks of "
+        f"{s['ticks']} ticks, {toks} tokens, {toks / wall:.1f} tok/s wall "
+        f"(init included: {wall:.2f}s), {served_rate(eng):.2f} requests/s; "
+        f"B1 verify calls by width {widths} ({L} layers x the engine's "
+        f"verify ticks by width {ticks_by_width}); B3 launches from the drafter "
+        f"{fa} ({forwards} forwards); max_memory_allocated={peak} B; "
+        f"launches {counts}")
+    log(f"{label}, depth {L} (not gated: chaotic at random init): verify "
+        f"position 0 vs decode by width {gaps}; streams against spec-off: "
+        f"{'; '.join(lines)}")
+    phase_step_spec(eng, label)
+    spec_gates(label, eng)
+    return {k: v[0] for k, v in counts.items()}, widths, eng
+
+
+def phase_step_spec(eng, label) -> None:
+    """A verify tick's two parts, host-issued and as device time: the
+    verify forward over 4 slots at W 3 and 5 (:func:`verify_windows`), and
+    one self-2 drafter forward at bucket 512 (a tick runs up to 4 a slot),
+    with the card's idle share."""
+    model, params = eng.model, eng.params
+    kw = {} if eng.kv_quant is None else {"quant": eng.kv_quant}
+    rng = np.random.default_rng(4)
+    tables, lens, windows = verify_windows(eng, rng)
+    fns = {f"verify forward (4 slots, W {W})": functools.partial(
+        model.paged_verify, params, eng.pool.storage, tables, lens, *window,
+        **kw) for W, window in windows.items()}
+    drafter = eng.drafter
+    buf = torch.tensor(rng.integers(0, model.cfg.vocab, (1, 512))
+                       .astype(np.int32), device=eng.device)
+    fns["self-2 drafter forward (bucket 512)"] = \
+        lambda: drafter._next_logits(buf, 300)
+    for name, fn in fns.items():
+        host = time_ms(fn, iters=10, warmup=2)
+        devt = device_ms([fn], reps=10)
+        log(f"{label} {name}: host-issued {host:.3f} ms, device {devt:.3f} "
+            f"ms (card idle {max(0.0, 1 - devt / host):.1%} of the "
+            "host-issued time)")
+
+
+def spec_gates(label, eng) -> None:
+    """The stream and per-call gates on ``eng``'s weights cut to their
+    first GATE_DEPTH layers (full widths, ``eng``'s KV policy, main's
+    prompts and engine shape): spec-off streams with their top-2 margins
+    (:class:`MarginSampler`), then spec-on with the self-1 drafter (drafts
+    mostly rejected) and the self-2 one (the whole cut model: every draft
+    accepted, 5 tokens a verify tick), each stream equal to its spec-off
+    twin; then the per-call gate on the spec-off engine's pages."""
+    args = launch_serve.parse_args(MAIN_ARGS)
+    cfg = eng.model.cfg.replace(n_layers=GATE_DEPTH)
+    model = build_model(cfg)
+    params = dict(eng.params, blocks=tree_map(lambda a: a[:GATE_DEPTH],
+                                              eng.params["blocks"]))
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+
+    def run(samplers=None, **kw):
+        e = ServeEngine(model, params, max_slots=args.slots,
+                        max_len=args.max_len, page_size=PS,
+                        prefill_chunk=args.prefill_chunk,
+                        kv_quant=eng.stats["kv_quant"], device=eng.device,
+                        **kw)
+        rids = [e.submit(p, max_new_tokens=args.max_new,
+                         sampler=None if samplers is None else samplers[i])
+                for i, p in enumerate(prompts)]
+        e.run_until_drained()
+        if any(r.error is not None for r in e.finished):
+            raise AssertionError(f"{label} gates: a request failed")
+        return e, rids
+
+    samplers = [MarginSampler(cfg.vocab) for _ in prompts]
+    off, rids = run(samplers)
+    ref_streams = {r.rid: r.output for r in off.finished}
+    margins = {rid: smp.margins for rid, smp in zip(rids, samplers)}
+    if off.stats["preemptions"] or any(
+            len(margins[rid]) != len(ref_streams[rid]) for rid in rids):
+        raise AssertionError(f"{label} gates: spec-off margins not one a "
+                             f"token ({off.stats['preemptions']} "
+                             "preemptions)")
+    low = min((m, rid, i) for rid, ms in margins.items()
+              for i, m in enumerate(ms))
+    for drafter in ("self-1", "self-2"):
+        on, _ = run(spec_decode=drafter, spec_k=4)
+        lines = spec_stream_gate(f"{label} depth {GATE_DEPTH} {drafter}",
+                                 on, ref_streams, margins)
+        s = on.stats
+        log(f"{label} stream gate, depth {GATE_DEPTH}, {drafter} drafter: "
+            f"proposed={s['draft_proposed']} accepted={s['draft_accepted']}"
+            f", ticks {s['ticks']} (spec-off {off.stats['ticks']}), verify "
+            f"ticks by width {dict(sorted(s['verify_widths'].items()))}; "
+            f"against spec-off (must be equal; first divergence: none): "
+            f"{'; '.join(lines)}")
+    log(f"{label} stream gate, depth {GATE_DEPTH}: the spec-off run's "
+        f"smallest top-2 margin {low[0]:.4f} (request {low[1]}, token "
+        f"{low[2]})")
+    call_limit = VERIFY_LOGIT_TOL[eng.stats["kv_quant"]]
+    gaps = verify_call_gaps(off, call_limit)
+    log(f"{label} per-call gate, depth {GATE_DEPTH}: verify position 0 vs "
+        f"decode (limit {call_limit}) by width {gaps}")
+
+
+def phase_main_sampled(dev) -> None:
+    """Seeded sampling at full width: main's 8 requests, each seeded, with
+    top-k, top-p and temperature heads cycled, served twice; then the same
+    prompts seeded through rejection-sampled speculation (self-2,
+    spec_temperature 0.8), twice: each pair's streams identical.  Then the
+    threefry bits on the card against the CPU bit for bit, a temperature
+    histogram against softmax, and the host-issued time of one seeded draw
+    over the full vocab."""
+    args = launch_serve.parse_args(MAIN_ARGS)
+    cfg = get_config("qwen2-7b")
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(0, device=dev)
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+    V = cfg.vocab
+    heads = [functools.partial(SM.sample_top_k, k=40, temperature=SAMPLE_T,
+                               true_vocab=V),
+             functools.partial(SM.sample_top_p, p=0.9, temperature=SAMPLE_T,
+                               true_vocab=V),
+             functools.partial(SM.sample_temperature, temperature=SAMPLE_T,
+                               true_vocab=V)]
+
+    def run(**ekw):
+        ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ServeEngine(model, params, max_slots=args.slots,
+                         max_len=args.max_len, page_size=PS,
+                         prefill_chunk=args.prefill_chunk, device=dev,
+                         **ekw) as eng:
+            for i, p in enumerate(prompts):
+                eng.submit(p, max_new_tokens=args.max_new, seed=i,
+                           sampler=None if ekw else heads[i % 3])
+            done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(r.error is not None or len(r.output) != args.max_new
+               or not all(0 <= t < V for t in r.output) for r in done):
+            raise AssertionError(f"main-sampled {ekw}: bad requests")
+        if any(c.plain for c in ops.COUNTS.values()):
+            raise AssertionError("main-sampled: a plain version ran")
+        return {r.rid: r.output for r in done}, eng.stats, wall
+
+    spec = dict(spec_decode="self-2", spec_k=4, spec_temperature=SAMPLE_T)
+    for what, ekw in (("top-k / top-p / temperature heads", {}),
+                      ("rejection-sampled speculation", spec)):
+        a, s, wall = run(**ekw)
+        b, _, wall2 = run(**ekw)
+        if a != b:
+            raise AssertionError(f"main-sampled, {what}: two runs differ")
+        toks = sum(map(len, a.values()))
+        extra = (f", proposed={s['draft_proposed']} accepted="
+                 f"{s['draft_accepted']}" if ekw else "")
+        log(f"main-sampled, {what}: 8 seeded requests x 2 runs, streams "
+            f"identical; {toks} tokens, {toks / wall:.1f} / "
+            f"{toks / wall2:.1f} tok/s wall; ticks={s['ticks']}{extra}")
+    for seed in (0, 7, 2**31 - 1):
+        k = prng.PRNGKey(seed)
+        for shape in ((V,), (4, V), (7,)):
+            if not torch.equal(prng.bits(k, shape, device=dev).cpu(),
+                               prng.bits(k, shape)):
+                raise AssertionError(f"prng.bits {seed} {shape}: card != CPU")
+    logits = torch.tensor(HIST_LOGITS, device=dev)
+    draws = SM.sample_temperature(prng.PRNGKey(11), logits.expand(
+        HIST_DRAWS, -1), temperature=SAMPLE_T)
+    seen = torch.bincount(draws.long(), minlength=len(HIST_LOGITS)).double()
+    want = torch.softmax(logits.double() / SAMPLE_T, -1) * HIST_DRAWS
+    chi2 = float(((seen - want) ** 2 / want).sum())
+    if not chi2 < CHI2_BOUND:
+        raise AssertionError(f"sample_temperature histogram: chi-square "
+                             f"{chi2} >= {CHI2_BOUND}")
+    row = torch.randn(V, device=dev)
+    host = time_ms(lambda: SM.sample_temperature(
+        prng.fold_in(prng.PRNGKey(5), 3), row, temperature=SAMPLE_T).item(),
+        iters=20, warmup=3)
+    log(f"main-sampled: prng.bits on the card == CPU bit for bit (seeds 0, "
+        f"7, 2**31-1; shapes ({V},), (4, {V}), (7,)); sample_temperature "
+        f"histogram of {HIST_DRAWS} draws over {len(HIST_LOGITS)} logits at "
+        f"T {SAMPLE_T}: chi-square {chi2:.3f} (bound {CHI2_BOUND}, p 0.001); "
+        f"one seeded draw over {V} logits: {host:.3f} ms host-issued")
+    del params
+
+
+def phase_traffic(main_rate: float) -> None:
+    """An open-loop run through the launcher: 16 Poisson arrivals at the
+    stated rate on the wall clock; the report must be complete (every
+    request measured, no errors, every percentile, throughput and
+    goodput), the paged path's kernels must launch and no plain version
+    run.  Nothing else of the report is gated."""
+    args = launch_serve.parse_args(MAIN_ARGS + TRAFFIC_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, cfg = launch_serve.build_engine(args)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    res = launch_serve.run_traffic_demo(eng, cfg, args)
+    rep = res["report"]
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    n = args.requests
+    pct = [rep[m][q] for m in ("ttft", "itl", "e2e")
+           for q in ("p50", "p95", "p99")]
+    if (rep["n_requests"] != n or rep["n_measured"] != n or rep["n_errors"]
+            or rep["tokens"] != n * args.max_new or None in pct
+            or not rep["tok_per_s"] > 0
+            or set(rep["goodput"]) != {"tok_per_s", "req_per_s",
+                                       "slo_attainment"}):
+        raise AssertionError(f"traffic: incomplete report {rep}")
+    for name in PAGED_KERNELS:
+        if counts[name][0] <= 0:
+            raise AssertionError(f"traffic: {name} did not launch")
+    if any(p for _, p in counts.values()):
+        raise AssertionError(f"traffic: a plain version ran {counts}")
+    g = rep["goodput"]
+    log(f"traffic: qwen2-7b paged, {n} Poisson arrivals at {args.rate} "
+        f"requests/s (main served {main_rate:.2f} requests/s closed-loop), "
+        f"wall clock: TTFT p50 {rep['ttft']['p50']:.4f} s p99 "
+        f"{rep['ttft']['p99']:.4f} s, ITL p50 {rep['itl']['p50']:.4f} s p99 "
+        f"{rep['itl']['p99']:.4f} s, e2e p50 {rep['e2e']['p50']:.4f} s p99 "
+        f"{rep['e2e']['p99']:.4f} s, {rep['tok_per_s']:.2f} tok/s over "
+        f"{rep['span']:.3f} s, goodput {g['tok_per_s']:.2f} tok/s "
+        f"(slo_attainment {g['slo_attainment']:.2f}, no SLO); launches "
+        f"{counts}")
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -1992,6 +2553,7 @@ def main() -> int:
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
     launches, eng, bf16_peak = phase_main()
+    main_rate = served_rate(eng)
     paged_launches = dict(launches)
     # read before the step phase writes into the pool's pages
     prompt = launch_serve.make_prompts(launch_serve.parse_args(MAIN_ARGS),
@@ -2002,6 +2564,7 @@ def main() -> int:
     phase_step(eng, times)
     del eng                             # free the paged model's weights
     int8_launches, eng = phase_main_int8(ref_kv, ref_streams, prompt)
+    int8_streams = {r.rid: r.output for r in eng.finished}
     phase_step(eng, times, "int8 KV: ")
     del eng
     eng = phase_main_int8w(bf16_peak, ref_streams)
@@ -2027,6 +2590,23 @@ def main() -> int:
     times["ssd_scan"] = phase_timing_ssd(dev)
     phase_step_zamba(model, params, times)
     del model, params
+    # the paged path's request features: speculation (bf16 and int8
+    # pages), seeded sampling, open-loop traffic
+    spec_launches, widths, eng = phase_main_spec(
+        "main-spec", (), PAGED_KERNELS, "paged_attention_mq", ref_streams)
+    del eng
+    _, int8_widths, eng = phase_main_spec(
+        "main-spec-int8", ("--kv-quant", "int8"), INT8_KERNELS,
+        "paged_attention_mq_int8", int8_streams)
+    del eng
+    phase_main_sampled(dev)
+    phase_traffic(main_rate)
+    times["paged_attention_mq"]["verify_launches"] = {
+        f"W{W}": n for W, n in widths.items()}
+    times["paged_attention_mq_int8"]["verify_launches"] = {
+        f"W{W}": n for W, n in int8_widths.items()}
+    times["flash_attention"]["drafter_launches"] = \
+        spec_launches["flash_attention"]
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
     times["flash_attention"].update(
@@ -2055,6 +2635,9 @@ def main() -> int:
                 "tc_launches": launches[f"{name}_tc"]}
                if name in DEVICE_KERNELS else {}),
             **{k: t[k] for k in (
+                "verify_ms", "verify_plain_ms", "verify_library_ms",
+                "verify_bound_ms", "verify_bound_by", "verify_host_ms",
+                "verify_shape", "verify_launches", "drafter_launches",
                 "bound_f32_ms",
                 "composite_ms", "decode_ms", "decode_plain_ms",
                 "decode_bound_ms", "chunk_ms", "chunk_plain_ms",

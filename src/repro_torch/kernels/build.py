@@ -5,7 +5,10 @@ together, and link into one shared library with a plain C interface,
 loaded through ``ctypes``.  The build runs at the first CUDA
 launch, never at import, into ``build/`` at the repository root, under a
 name keyed by a hash of the sources: an edited source builds anew, an
-unchanged one loads the library already there.  A failed build raises.
+unchanged one loads the library already there.  A failed build, and a
+launch that a C entry point reports as failed, raise :class:`KernelError`
+(a ``RuntimeError``), so a caller that must not swallow a kernel's failure
+(the speculative drafter's caller) can tell it from any other error.
 ptxas reports each kernel's registers, spills and shared memory
 (``-Xptxas -v``) into a ``.log`` file beside the library
 (:func:`build_log`).
@@ -67,6 +70,10 @@ _SIGNATURES = {
 }
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build, load or launch."""
+
+
 def sources() -> list[pathlib.Path]:
     """The CUDA sources the library is built from."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
@@ -80,7 +87,7 @@ def _nvcc() -> str:
     cand = pathlib.Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+    raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
@@ -94,7 +101,7 @@ def _run(cmds: list[list[str]]) -> str:
     failed = [f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}"
               for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return "".join(outs)
 
 
@@ -136,7 +143,10 @@ def library() -> ctypes.CDLL:
             target = _target()
             if not target.exists():
                 _build(target)
-            lib = ctypes.CDLL(str(target))
+            try:
+                lib = ctypes.CDLL(str(target))
+            except OSError as e:
+                raise KernelError(f"cannot load {target}: {e}") from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -151,4 +161,4 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         msg = library().kernel_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+        raise KernelError(f"{what}: CUDA error {err} ({msg}) at launch")

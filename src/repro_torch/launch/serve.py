@@ -13,12 +13,20 @@ KV cache) on the dense path without ``--dense``; ``--arch zamba2-7b`` is
 refused, as in the reference (zamba2 serves only as an aligned batch:
 :class:`repro_torch.models.api.HybridLM`);
 ``--smoke --device cpu`` runs the small config on the CPU through the
-kernels' plain versions.  Prints the reference launcher's summary lines
-plus each kernel's launch count.
+kernels' plain versions.  ``--spec-decode ngram|self-K`` speculates up to
+``--spec-k`` tokens a slot and verifies them in one batched forward (paged
+path).  ``--traffic poisson|bursty`` drives the engine with a seeded
+open-loop arrival process at ``--rate`` requests a clock unit instead of
+submitting everything up front, and prints the metric report (TTFT, ITL,
+e2e, goodput under ``--slo-ttft`` / ``--slo-e2e``); ``--clock virtual``
+counts engine ticks (deterministic), ``--clock wall`` seconds;
+``--metrics-out`` writes the report as JSON.  Prints the reference
+launcher's summary lines plus each kernel's launch count.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -28,6 +36,7 @@ from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models.api import build_model
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.traffic import make_workload, run_traffic
 
 
 def parse_args(argv=None):
@@ -60,6 +69,30 @@ def parse_args(argv=None):
     ap.add_argument("--weight-quant", choices=("int8", "off"), default="off",
                     help="store the weights as per-tensor int8, dequantized "
                     "where each is used (a layer's inside the layer loop)")
+    ap.add_argument("--spec-decode", default="off", metavar="ngram|self-K|off",
+                    help="speculative multi-token decode: a drafter proposes "
+                    "tokens, one batched verify accepts the prefix the "
+                    "target agrees with (paged families only; 'ngram' = "
+                    "prompt-lookup, 'self-2' = first-2-layer self-draft)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per verify window")
+    ap.add_argument("--traffic", choices=("off", "poisson", "bursty"),
+                    default="off",
+                    help="drive the engine with an open-loop seeded arrival "
+                    "process instead of submitting everything up front")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="traffic arrival rate (requests per clock unit)")
+    ap.add_argument("--clock", choices=("virtual", "wall"), default="virtual",
+                    help="virtual: 1 tick = 1 time unit, fully "
+                    "deterministic; wall: real seconds")
+    ap.add_argument("--slo-ttft", type=float, default=None, metavar="T",
+                    help="goodput SLO: time-to-first-token bound "
+                    "(clock units)")
+    ap.add_argument("--slo-e2e", type=float, default=None, metavar="T",
+                    help="goodput SLO: end-to-end latency bound "
+                    "(clock units)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the traffic metric report as JSON")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
 
@@ -74,9 +107,56 @@ def make_prompts(args, vocab: int) -> list:
             for _ in range(args.requests)]
 
 
-def main(argv=None):
-    """Build the model, serve seeded random prompts, print the summary."""
-    args = parse_args(argv)
+def run_traffic_demo(eng, cfg, args) -> dict:
+    """Open-loop traffic run: seeded workload, event log, metric report
+    (printed, and written to ``--metrics-out``); returns
+    :func:`repro_torch.serve.traffic.run_traffic`'s result.  Closes the
+    engine."""
+    slo = {}
+    if args.slo_ttft is not None:
+        slo["ttft"] = args.slo_ttft
+    if args.slo_e2e is not None:
+        slo["e2e"] = args.slo_e2e
+    # cap prompt bands so prefix + tail + generation fit in max_len
+    hi = max(5, args.max_len - args.shared_prefix - args.max_new - 1)
+    len_mix = ((3.0, 4, min(24, hi)), (1.0, min(32, hi), hi))
+    wl = make_workload(kind=args.traffic, n_requests=args.requests,
+                       rate=args.rate, vocab=cfg.vocab, seed=0,
+                       max_new_tokens=args.max_new,
+                       shared_prefix_len=args.shared_prefix, n_sessions=2,
+                       len_mix=len_mix)
+    t0 = time.perf_counter()
+    res = run_traffic(eng, wl, clock=args.clock, slo=slo or None)
+    dt = time.perf_counter() - t0
+    eng.close()
+    rep = res["report"]
+    unit = "ticks" if args.clock == "virtual" else "s"
+    print(f"[serve] traffic {args.traffic} rate={args.rate}: "
+          f"{rep['n_measured']}/{rep['n_requests']} requests, "
+          f"{rep['tokens']} tokens over {rep['span']:.1f} {unit} "
+          f"({dt:.2f}s wall)")
+    for name in ("ttft", "itl", "e2e"):
+        p = rep[name]
+        print(f"[serve] {name}: p50={p['p50']} p95={p['p95']} "
+              f"p99={p['p99']} {unit} (n={p['n']})")
+    g = rep["goodput"]
+    per = "tick" if args.clock == "virtual" else "s"
+    print(f"[serve] goodput: {g['tok_per_s']:.3f} tok/{per} "
+          f"slo_attainment={g['slo_attainment']:.2f}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"args": {"traffic": args.traffic, "rate": args.rate,
+                                "clock": args.clock,
+                                "requests": args.requests,
+                                "max_new": args.max_new},
+                       "wall_seconds": dt, "report": rep}, f, indent=2)
+        print(f"[serve] metrics written to {args.metrics_out}")
+    return res
+
+
+def build_engine(args):
+    """The model of ``args`` with seeded random weights, and the engine
+    that serves it: ``(engine, config)``."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     why = model.engine_refusal()
@@ -93,11 +173,24 @@ def main(argv=None):
                       prefill_workers=args.prefill_workers,
                       paged=False if args.dense else None,
                       kv_quant=args.kv_quant, weight_quant=args.weight_quant,
+                      spec_decode=None if args.spec_decode == "off"
+                      else args.spec_decode, spec_k=args.spec_k,
                       device=args.device)
+    return eng, cfg
 
+
+def main(argv=None):
+    """Build the model, serve seeded random prompts (or a traffic run),
+    print the summary; returns the engine."""
+    args = parse_args(argv)
+    eng, cfg = build_engine(args)
     ops.reset_counts()
     if eng.device.type == "cuda":   # the seeded init runs asynchronously
         torch.cuda.synchronize(eng.device)
+    if args.traffic != "off":
+        run_traffic_demo(eng, cfg, args)
+        print_counts()
+        return eng
     t0 = time.perf_counter()
     for prompt in make_prompts(args, cfg.vocab):
         eng.submit(prompt, max_new_tokens=args.max_new)
@@ -114,6 +207,8 @@ def main(argv=None):
     if eng.kv_quant is not None or eng.weight_quant:
         mode += (f" quant(kv={s['kv_quant']}, w={s['weight_quant']}, "
                  f"{s['kv_bytes_per_token']} KV B/tok)")
+    if eng.drafter is not None:
+        mode += f" spec={args.spec_decode}(k={eng.spec_k})"
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s); ticks={s['ticks']} "
           f"chunks={s['chunk_prefills']} "
@@ -125,11 +220,20 @@ def main(argv=None):
               f"hit_tokens={s['prefix_hit_tokens']} "
               f"cow_copies={s['cow_copies']} evictions={s['evictions']} "
               f"cached_now={eng.pool.pages_cached} pages")
+        if eng.drafter is not None:
+            print(f"[serve] spec decode: proposed={s['draft_proposed']} "
+                  f"accepted={s['draft_accepted']} "
+                  f"acceptance_rate={s['acceptance_rate']:.2f}")
+    print_counts()
+    eng.close()
+    return eng
+
+
+def print_counts() -> None:
+    """Each kernel's launches and plain-version calls since the reset."""
     print("[serve] kernels: " + " ".join(
         f"{name}: launches={c.kernel} plain={c.plain}"
         for name, c in ops.COUNTS.items()))
-    eng.close()
-    return eng
 
 
 if __name__ == "__main__":

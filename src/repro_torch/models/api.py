@@ -2,7 +2,8 @@
 :class:`HybridLM` and :func:`build_model`.
 
 Counterpart of ``repro.models.api`` for the serving paths ported so far:
-the dense decoders paged (chunked prefill and decode against a page pool)
+the dense decoders paged (chunked prefill, decode and speculative verify
+windows against a page pool, and a cache-free scoring forward)
 and dense per-slot (whole-prompt prefill and decode against a per-slot
 cache), rwkv6 on the dense per-slot path (a recurrent state per slot), and
 zamba2 as an aligned batch (prefill, then decode at one position for every
@@ -119,6 +120,22 @@ class DecoderLM:
         return T.paged_decode_step(params, self.cfg, storage, tables, lengths,
                                    tokens, write_pages, write_offs,
                                    quant=quant)
+
+    def paged_verify(self, params, storage, tables, lengths, tokens,
+                     write_pages, write_offs, *, quant=None):
+        """A speculative verify window: tokens (B, C) -> float32 logits
+        (B, C, V); the window's K/V written in place at (write_pages,
+        write_offs) (B, C) (quantized on write with a KV ``quant``
+        policy)."""
+        return T.paged_verify_chunk(params, self.cfg, storage, tables,
+                                    lengths, tokens, write_pages, write_offs,
+                                    quant=quant)
+
+    def forward(self, params, tokens):
+        """Scoring forward without a cache: tokens (B, S) -> final hidden
+        states (B, S, d) (the self-drafter runs it on a truncated
+        model)."""
+        return T.forward(params, self.cfg, tokens)
 
     def prefill(self, params, tokens, max_len: Optional[int] = None):
         """Whole prompts (B, S) -> (cache, final hidden (B, S, d)); the

@@ -246,6 +246,49 @@ def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
     return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
 
 
+def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
+                       write_pages, write_offs, quant=None):
+    """Score a per-slot window of candidate tokens in one batched forward,
+    in place — the speculative-decode verify step.
+
+    tokens: (B, C) — position 0 is each slot's next input token (its K/V
+    not yet cached), positions 1..C-1 draft continuations (right-padded
+    for slots with shorter windows);  tables: (B, P);  lengths: (B,) tokens
+    already cached (= the position of tokens[:, 0]);  write_pages /
+    write_offs: (B, C) where each position's K/V lands (pad and dead-slot
+    positions point at the pool's trash page);  quant as in
+    :func:`paged_prefill_chunk`.  Returns float32 logits (B, C, V):
+    logits[:, i] scores the token following tokens[:, i].  C == 1 is a
+    decode step.
+
+    Every window position's K/V is written before attention runs, and
+    paged attention scores the whole (B, C) window in one call, window
+    position i seeing keys below ``lengths + i + 1``; pad positions only
+    influence pad logits."""
+    _check_paged(cfg)
+    x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
+    C = x.shape[1]
+    positions = lengths[:, None] + torch.arange(C, device=x.device)
+    valid = A.window_lengths(lengths, lengths.shape[0], x.device)
+
+    def write(kv, k, v):
+        _write_kv(kv, k, v, quant,
+                  lambda st, val: PG.scatter_window(st, write_pages,
+                                                    write_offs, val))
+
+    def attend(q, kv):
+        return A.paged_window_attention(q, kv["k"], kv["v"], tables, valid,
+                                        k_scale=kv.get("k_scale"),
+                                        v_scale=kv.get("v_scale"))
+
+    delta = None
+    for i, p in enumerate(_blocks(params, cfg)):
+        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
+                                kv=_layer(storage, i), write=write,
+                                attend=attend)
+    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
+
+
 # ---------------------------------------------------------------------------
 # Dense per-slot cache (the engine's paged=False path)
 # ---------------------------------------------------------------------------
@@ -285,6 +328,22 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                             kv_chunk=max(max_len, 1))
     x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
     return x, L.mlp(p["mlp"], h), k, v
+
+
+def forward(params, cfg, tokens):
+    """Scoring forward without a cache (inference only): tokens (B, S) ->
+    the final hidden states (B, S, d), every layer's attention causal over
+    the whole sequence (the flash-attention kernel on a card).  The
+    reference's also returns the MoE auxiliary loss; a dense block has
+    none."""
+    x = embed_tokens(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    delta = None
+    for i, window in enumerate(layer_windows(cfg)):
+        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
+                                     positions=positions, window=window,
+                                     delta=delta)
+    return L.final_rmsnorm(params["final_norm"], x, delta)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:

@@ -10,7 +10,8 @@ runs the scheduler's plan on the device.
 
 * **paged** (the default): admission with a radix prefix match ->
   page-aligned chunked prefill -> copy-on-write -> one batched decode step
-  for every live slot -> greedy commit -> retire.  ``kv_quant="int8"``
+  for every live slot (or, with a drafter, one batched verify window) ->
+  sample and commit -> retire.  ``kv_quant="int8"``
   stores the pages as int8 with per-(row, head) scale leaves;
   ``weight_quant="int8"`` keeps the weights as per-tensor int8, dequantized
   where each is used (:mod:`repro_torch.serve.quant`).
@@ -22,7 +23,29 @@ runs the scheduler's plan on the device.
   launches its kernels from its worker thread) ->
   :func:`repro_torch.serve.pages.write_slot` splices each prefilled state
   into its slot -> one batched decode step over every slot's state ->
-  greedy commit -> retire.  The prefix cache is off, as in the reference.
+  sample and commit -> retire.  The prefix cache is off, as in the
+  reference.
+
+Sampling is the reference's: greedy unless an engine-wide ``sampler`` or a
+request's own ``sampler`` says otherwise, each a function ``(key, logits)
+-> token`` over :mod:`repro_torch.serve.prng` keys.  A request with a
+``seed`` samples its token ``i`` with ``fold_in(PRNGKey(seed), i)``; every
+other draw takes a key split off the engine's, which starts at
+``PRNGKey(0)`` and is split at the points the reference splits it (every
+decode tick, every paged first token without a seed, every dense prefill,
+every sampled verify tick), so the port's draws are the reference's.
+
+Speculative decode (``spec_decode="ngram[-N]"`` or ``"self[-K]"``, or a
+drafter object; paged path only, the dense path decodes token by token):
+each tick the drafter proposes up to ``spec_k`` tokens a live slot, the
+scheduler grants their write pages best-effort (never preempting), one
+batched verify forward (:meth:`repro_torch.models.api.DecoderLM.
+paged_verify`, paged attention over the whole (B, C) window) scores every
+window, and each slot emits its accepted drafts plus one correction or
+bonus token (greedy acceptance, or rejection sampling at
+``spec_temperature > 0``), then hands back the pages its rejected drafts
+held.  ``stats["verify_widths"]`` counts the verify ticks by window width
+C (a verify forward's paged-attention calls are (B, C) windows).
 
 The reference donates the storage to each jitted call and, when a call
 raises, checks whether the donated buffers were consumed.  Here every call
@@ -46,11 +69,11 @@ before its state reached the engine's, so only its request is retired
 state, so the engine evicts every resident, rebuilds a zeroed state and
 raises.
 
-Features of the reference engine that later port slices bring (seeded and
-custom sampling, encoder inputs, speculative decode, the device mesh,
-prefill-only disaggregation) raise ``NotImplementedError`` here instead of
-being ignored.  A model whose ``engine_refusal()`` names a reason is
-refused: the hybrid family (zamba2) serves only as an aligned batch
+Features of the reference engine that later port slices bring (encoder
+inputs, the device mesh, prefill-only disaggregation) raise
+``NotImplementedError`` here instead of being ignored.  A model whose
+``engine_refusal()`` names a reason is refused: the hybrid family (zamba2)
+serves only as an aligned batch
 (:class:`repro_torch.models.api.HybridLM`), as in the reference.
 """
 
@@ -62,18 +85,22 @@ import dataclasses
 import functools
 import itertools
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.runtime import ThreadFarmExecutor
+from repro_torch.kernels.build import KernelError
 from repro_torch.models.module import resolve_device, tree_leaves
 from repro_torch.serve import pages as PG
+from repro_torch.serve import prng
 from repro_torch.serve import quant as QZ
+from repro_torch.serve import spec as SP
 from repro_torch.serve.pages import PagePool
-from repro_torch.serve.sampling import greedy
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.sampling import (greedy, spec_rejection_sample,
+                                        spec_verify_greedy)
+from repro_torch.serve.scheduler import Scheduler, prefill_tokens
 
 
 @dataclasses.dataclass
@@ -83,6 +110,9 @@ class Request:
     prompt: np.ndarray                     # (prompt_len,) int32
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
+    sampler: Optional[Callable] = None     # per-request (key, logits) -> tok
+    seed: Optional[int] = None             # token i is sampled with
+    #                                        fold_in(PRNGKey(seed), i)
     output: list = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
@@ -96,6 +126,18 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
         if n <= b:
             return b
     return ((n + 4095) // 4096) * 4096
+
+
+def _as_int(tok) -> int:
+    """A sampler's one token (a 0-d or 1-element tensor, array or int)."""
+    return int(tok.item()) if isinstance(tok, torch.Tensor) else int(tok)
+
+
+def _host_tokens(toks) -> np.ndarray:
+    """A sampler's batch of tokens as a writable host int array."""
+    if isinstance(toks, torch.Tensor):
+        toks = toks.cpu().numpy()
+    return np.array(toks)
 
 
 def _not_ported(what: str, slice_name: str):
@@ -113,21 +155,22 @@ class ServeEngine:
     ``chunks_per_tick`` caps the paged path's prefill chunks a tick.
     ``strict=True`` makes a tick raise ``RuntimeError`` after it retired
     its failed requests (each with ``.error``) and committed its healthy
-    work, as the reference does."""
+    work, as the reference does.  ``sampler``: the engine-wide ``(key,
+    logits (B, V)) -> (B,)`` draw (greedy when None).  ``spec_decode``,
+    ``spec_k``, ``spec_temperature``: speculative decode (module
+    docstring)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
                  num_pages: Optional[int] = None, prefill_chunk: int = 64,
                  chunks_per_tick: int = 2, prefix_cache: bool = True,
-                 strict: bool = False, device=None, sampler=None,
+                 strict: bool = False, device=None,
+                 sampler: Optional[Callable] = None,
                  prefill_workers: int = 4, paged: Optional[bool] = None,
-                 spec_decode=None, kv_quant=None, weight_quant=None,
-                 mesh=None, prefill_only: bool = False):
-        refused = [(sampler is not None, "an engine-wide sampler",
-                    "seeded sampling"),
-                   (spec_decode not in (None, "off", False), "spec_decode",
-                    "speculative decode"),
-                   (mesh is not None, "a device mesh", "MoE with TP/EP"),
+                 spec_decode=None, spec_k: int = 4,
+                 spec_temperature: float = 0.0, kv_quant=None,
+                 weight_quant=None, mesh=None, prefill_only: bool = False):
+        refused = [(mesh is not None, "a device mesh", "MoE with TP/EP"),
                    (bool(prefill_only), "prefill_only",
                     "traffic, metrics and disagg")]
         for bad, what, slice_name in refused:
@@ -145,6 +188,15 @@ class ServeEngine:
             raise ValueError(
                 f"{model.cfg.name} ({model.cfg.family}) has no paged KV "
                 "cache; construct with paged=False")
+        speculate = spec_decode not in (None, "off", False)
+        if speculate and self.paged and sampler is not None:
+            raise ValueError(
+                "spec_decode supports the default greedy sampler "
+                "(spec_temperature=0, bit-identical streams) or "
+                "built-in temperature rejection sampling "
+                "(spec_temperature > 0); a custom engine-wide sampler "
+                "cannot be verified and would be silently ignored — "
+                "drop it (per-request samplers remain supported)")
         # int8 KV pages live in the pool, as scale leaves beside the pages;
         # int8 weights are wired through the paged calls only
         self.kv_quant = QZ.make_kv_quant(kv_quant)
@@ -168,6 +220,12 @@ class ServeEngine:
                        if model.supports_paged_decode() else
                        "has no paged KV cache")
                     + "; drop the flag or use a paged family")
+            if isinstance(spec_decode, str) \
+                    and spec_decode.partition("-")[0] == "self":
+                raise ValueError(
+                    "weight_quant='int8' cannot build the self-K drafter "
+                    "(it slices raw float param leaves); use the ngram "
+                    "drafter or pass a pre-built drafter object")
             self.weight_quant = "int8"
         else:
             raise ValueError(
@@ -207,13 +265,28 @@ class ServeEngine:
             self.state = self._fresh_state()
             self._prefill_farm = ThreadFarmExecutor(
                 num_workers=max(1, prefill_workers))
+        vocab = model.cfg.vocab
+        self.sampler = sampler or (
+            lambda key, logits: greedy(logits, true_vocab=vocab))
+        # speculative decode: the paged path only; the dense path falls
+        # back to plain per-token decode (the drafter is never consulted)
+        self.spec_k = max(1, int(spec_k))
+        self.spec_temperature = float(spec_temperature)
+        if not speculate or not self.paged:
+            self.drafter = None
+        else:
+            self.drafter = spec_decode if not isinstance(spec_decode, str) \
+                else SP.make_drafter(spec_decode, model=model, params=params)
         self.last_token = np.zeros(max_slots, np.int32)
         self.finished: list[Request] = []
         self._rid = itertools.count()
+        self._key = prng.PRNGKey(0)
         self.stats = {"ticks": 0, "tokens": 0, "prefills": 0,
                       "chunk_prefills": 0, "preemptions": 0,
                       "prefix_hits": 0, "prefix_hit_tokens": 0,
                       "cow_copies": 0, "evictions": 0, "pages_high_water": 0,
+                      "draft_proposed": 0, "draft_accepted": 0,
+                      "acceptance_rate": 0.0, "verify_widths": {},
                       "kv_quant": self.kv_quant.name if self.kv_quant
                       else "off",
                       "weight_quant": self.weight_quant or "off",
@@ -229,24 +302,59 @@ class ServeEngine:
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_id: Optional[int] = None, sampler=None,
                seed: Optional[int] = None, encoder_input=None) -> int:
-        """Enqueue one greedy request; returns its rid."""
-        if sampler is not None:
-            raise _not_ported("a per-request sampler", "seeded sampling")
-        if seed is not None:
-            raise _not_ported("a per-request seed", "seeded sampling")
+        """Enqueue one request; returns its rid.  ``sampler`` (``(key,
+        logits (V,)) -> token``) and ``seed`` override the engine's draw for
+        this request's tokens."""
         if encoder_input is not None:
             raise _not_ported("encoder_input", "multimodal")
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) >= self.max_len:
             raise ValueError(
                 f"prompt length {len(prompt)} >= max_len {self.max_len}")
-        req = Request(next(self._rid), prompt, max_new_tokens, eos_id)
+        req = Request(next(self._rid), prompt, max_new_tokens, eos_id,
+                      sampler, seed)
         req.submitted_at = time.perf_counter()
         self.sched.submit(req)
         return req.rid
 
-    def _greedy(self, logits) -> np.ndarray:
-        return greedy(logits, true_vocab=self.model.cfg.vocab).cpu().numpy()
+    # -- sampling ------------------------------------------------------------
+
+    @staticmethod
+    def _seeded_key(req: Request) -> np.ndarray:
+        """A seeded request's key for its NEXT token depends only on
+        (seed, tokens emitted so far) — never on tick count, slot id or
+        admission order, so sampled streams reproduce run to run."""
+        return prng.fold_in(prng.PRNGKey(req.seed), len(req.output))
+
+    def _sample_batch(self, logits_last, slots):
+        """Sample every live slot: one batched draw with the engine default,
+        overridden row-wise for requests carrying their own sampler and/or
+        seed.  A per-row draw that raises is isolated — returns (tokens,
+        [(slot, error), ...]); the engine's own batched sampler failing
+        raises."""
+        self._key, sub = prng.split(self._key)
+        nxt = _host_tokens(self.sampler(sub, logits_last))
+        errors = []
+        for slot in slots:
+            req = self.sched.slot_req[slot]
+            if req is None or (req.sampler is None and req.seed is None):
+                continue
+            k = self._seeded_key(req) if req.seed is not None \
+                else prng.fold_in(sub, slot)
+            fn = req.sampler or self.sampler
+            try:
+                nxt[slot] = _as_int(fn(k, logits_last[slot]))
+            except Exception as e:                  # noqa: BLE001
+                errors.append((slot, e))
+        return nxt, errors
+
+    def _sample_one(self, req: Request, logits_row) -> int:
+        if req.seed is not None:
+            sub = self._seeded_key(req)
+        else:
+            self._key, sub = prng.split(self._key)
+        fn = req.sampler or self.sampler
+        return _as_int(fn(sub, logits_row))
 
     # -- retirement ----------------------------------------------------------
 
@@ -299,10 +407,16 @@ class ServeEngine:
             return f"prompt length {len(r.prompt)} >= max_len {self.max_len}"
         return [(r, ValueError(why(r))) for r in rejects]
 
-    def _commit_decode(self, live, logits) -> None:
+    def _commit_decode(self, live, logits) -> list:
+        """Sample + book one decoded token for every live slot.  Slots
+        whose per-request sampler raised are retired instead (their pages
+        return to the pool); returns their (req, error) pairs."""
         self.stats["ticks"] += 1
-        nxt = self._greedy(logits[:, -1])
+        nxt, sample_errors = self._sample_batch(logits[:, -1], live)
+        bad = {slot for slot, _ in sample_errors}
         for slot in live:
+            if slot in bad:
+                continue
             req = self.sched.slot_req[slot]
             tok = int(nxt[slot])
             req.output.append(tok)
@@ -310,6 +424,12 @@ class ServeEngine:
             self.sched.lengths[slot] += 1
             self.stats["tokens"] += 1
             self._check_retire(slot, tok)
+        errors = []
+        for slot, e in sample_errors:
+            req = self.sched.slot_req[slot]
+            self.sched.release(slot)
+            errors.append((req, e))
+        return errors
 
     def _evict_residents(self):
         """Preempt every resident — youngest first, so the OLDEST lands back
@@ -334,7 +454,7 @@ class ServeEngine:
             return None
         i = job.n_valid - 1
         logits = self.model.lm_head(self.params, hidden[:, i:i + 1])
-        return int(self._greedy(logits[0, -1]))
+        return self._sample_one(job.req, logits[0, -1])
 
     def _tick_paged(self) -> bool:
         _, rejects = self.sched.admit()
@@ -358,37 +478,75 @@ class ServeEngine:
 
         live = self.sched.live_slots()
         cow = []
+        drafts = {}
+        if live and self.drafter is not None:
+            try:
+                drafts = self._propose_drafts(live)
+            except Exception:
+                for req, err in errors:
+                    self._retire_error(req, err)
+                raise
         if live:
-            # may preempt the youngest and/or schedule copy-on-write moves
-            _, cow, _ = self.sched.ensure_decode_pages()
+            # may preempt the youngest and/or schedule copy-on-write moves;
+            # draft windows reserve their extra write pages best-effort
+            # (never preempting — speculation can't evict anyone)
+            _, cow, granted = self.sched.ensure_decode_pages(
+                extra={s: len(d) for s, d in drafts.items()} or None)
+            drafts = {s: d[:granted.get(s, 0)]
+                      for s, d in drafts.items()
+                      if self.sched.slot_req[s] is not None
+                      and granted.get(s, 0) > 0}
             live = self.sched.live_slots()
+            # a COW'd slot preempted later in the same pass already gave
+            # its copy page back — don't write into it
             cow = [(s, a, b) for s, a, b in cow
                    if self.sched.slot_req[s] is not None]
         self.stats["preemptions"] = self.sched.preemptions
         if live:
             ps = self.pool.page_size
             B = self.max_slots
-            wpages = np.full(B, self.pool.trash_page, np.int32)
-            woffs = np.zeros(B, np.int32)
+            # verify width: the widest granted draft + 1, bucketed to two
+            # widths (half / full window)
+            C = self._spec_width(max(len(d) for d in drafts.values())
+                                 + 1) if drafts else 1
+            wpages = np.full((B, C), self.pool.trash_page, np.int32)
+            woffs = np.zeros((B, C), np.int32)
             lens = np.zeros(B, np.int32)
-            toks = np.zeros((B, 1), np.int32)
+            toks = np.zeros((B, C), np.int32)
             for slot in live:
                 ln = int(self.sched.lengths[slot])
                 lens[slot] = ln
                 toks[slot, 0] = self.last_token[slot]
-                wpages[slot] = self.sched.table[slot, ln // ps]
-                woffs[slot] = ln % ps
+                d = drafts.get(slot)
+                nd = 0 if d is None else len(d)
+                if nd:
+                    toks[slot, 1:1 + nd] = d
+                for i in range(nd + 1):
+                    wpages[slot, i] = self.sched.table[slot, (ln + i) // ps]
+                    woffs[slot, i] = (ln + i) % ps
+            # sampled speculation (spec_temperature > 0) routes EVERY tick
+            # through the verify commit, so a no-draft tick never falls
+            # back to the engine's greedy sampler
+            verify = bool(drafts) or (self.drafter is not None
+                                      and self.spec_temperature > 0)
+            if verify:
+                widths = self.stats["verify_widths"]
+                widths[C] = widths.get(C, 0) + 1
+            if not verify:          # a decode step writes one token a slot
+                wpages, woffs = wpages[:, 0], woffs[:, 0]
+            step = self.model.paged_verify if verify \
+                else self.model.paged_decode_step
             try:
                 if cow:         # copies strictly before this tick's writes
                     PG.copy_pages(self.pool.storage, self.pool.leaf_specs,
                                   self._dev([a for _, a, _ in cow]),
                                   self._dev([b for _, _, b in cow]))
-                logits = self.model.paged_decode_step(
-                    self.params, self.pool.storage,
-                    self._dev(self.sched.table), self._dev(lens),
-                    self._dev(toks), self._dev(wpages), self._dev(woffs),
-                    **self._paged_kw)
-                self._commit_decode(live, logits)
+                logits = step(self.params, self.pool.storage,
+                              self._dev(self.sched.table), self._dev(lens),
+                              self._dev(toks), self._dev(wpages),
+                              self._dev(woffs), **self._paged_kw)
+                errors += self._commit_verify(live, drafts, logits) \
+                    if verify else self._commit_decode(live, logits)
             except BaseException:
                 # engine-level failure: the in-place writes may have touched
                 # every live slot, so evict and rebuild before raising, and
@@ -405,15 +563,115 @@ class ServeEngine:
             cow_copies=self.sched.cow_copies,
             evictions=self.pool.evictions,
             pages_high_water=self.pool.high_water)
+        proposed = self.stats["draft_proposed"]
+        self.stats["acceptance_rate"] = (
+            self.stats["draft_accepted"] / proposed if proposed else 0.0)
         self._raise_or_record(errors)
         return bool(live) or self.sched.has_work()
 
+    # -- speculative decode --------------------------------------------------
+
+    def _spec_width(self, need: int) -> int:
+        half = 1 + (self.spec_k + 1) // 2
+        return half if need <= half else self.spec_k + 1
+
+    def _propose_drafts(self, live) -> dict:
+        """Ask the drafter for up to ``spec_k`` continuation tokens per
+        spec-eligible live slot, never past the request's remaining token
+        budget or into ``max_len``'s last writable position.  A drafter
+        raising (or proposing nothing) means no drafts for that slot this
+        tick — unless it is the port's own self-drafter, or what raised is
+        a kernel (:class:`KernelError`): those propagate, since a kernel
+        that fails or refuses its input must not read as "no drafts"."""
+        drafts = {}
+        for slot in live:
+            req = self.sched.slot_req[slot]
+            if req.sampler is not None:
+                continue        # black-box per-request sampler: unverifiable
+            budget = min(self.spec_k,
+                         req.max_new_tokens - len(req.output) - 1,
+                         self.max_len - 2 - int(self.sched.lengths[slot]))
+            if budget <= 0:
+                continue
+            try:
+                prop = np.asarray(self.drafter.propose(
+                    prefill_tokens(req), budget), np.int32).reshape(-1)
+            except Exception as e:                      # noqa: BLE001
+                if isinstance(e, KernelError) or isinstance(
+                        self.drafter, SP.TruncatedSelfDrafter):
+                    raise
+                continue        # a sloppy drafter costs nothing
+            if prop.size:
+                drafts[slot] = prop[:budget]
+        return drafts
+
+    def _commit_verify(self, live, drafts, logits) -> list:
+        """Book a verify forward's emitted tokens for every live slot: the
+        accepted draft prefix + one correction/bonus each (a slot without
+        drafts emits exactly its plain decoded token), retiring at the same
+        stream position as plain decode; then every surviving slot hands
+        its over-reserved verify pages back to the pool.  Returns the
+        (req, error) pairs of slots whose own sampler raised."""
+        self.stats["ticks"] += 1
+        greedy_mode = self.spec_temperature <= 0
+        if greedy_mode:         # the rejection path never reads the argmax
+            rows = greedy(logits, true_vocab=self.model.cfg.vocab) \
+                .cpu().numpy()
+        else:
+            self._key, tick_key = prng.split(self._key)
+            logits_np = logits.cpu().numpy()
+        errors = []
+        for slot in live:
+            req = self.sched.slot_req[slot]
+            d = drafts.get(slot)
+            nd = 0 if d is None else len(d)
+            draft = [] if d is None else [int(t) for t in d]
+            if req.sampler is not None:
+                # black-box sampler (no drafts were proposed for it): one
+                # token off position 0, error-isolated like _sample_batch
+                try:
+                    accepted, emitted = 0, [self._sample_one(req,
+                                                             logits[slot, 0])]
+                except Exception as e:                  # noqa: BLE001
+                    self.sched.release(slot)
+                    errors.append((req, e))
+                    continue
+            elif not greedy_mode:
+                if req.seed is not None:
+                    base = prng.PRNGKey(req.seed)
+                    keys = [prng.fold_in(base, len(req.output) + i)
+                            for i in range(nd + 1)]
+                else:
+                    keys = [prng.fold_in(tick_key,
+                                         slot * (self.spec_k + 2) + i)
+                            for i in range(nd + 1)]
+                accepted, emitted = spec_rejection_sample(
+                    keys, logits_np[slot, :nd + 1], draft,
+                    temperature=self.spec_temperature,
+                    true_vocab=self.model.cfg.vocab)
+            else:
+                accepted, emitted = spec_verify_greedy(rows[slot], draft)
+            self.stats["draft_proposed"] += nd
+            self.stats["draft_accepted"] += accepted
+            for tok in emitted:
+                tok = int(tok)
+                req.output.append(tok)
+                self.last_token[slot] = tok
+                self.sched.lengths[slot] += 1
+                self.stats["tokens"] += 1
+                if self._check_retire(slot, tok):
+                    break
+            self.sched.rollback_verify_pages(slot)
+        return errors
+
     # -- dense tick ------------------------------------------------------------
 
-    def _prefill_one(self, job):
-        """One request's whole-prompt prefill and first token: a
-        self-contained farm task (it writes nothing the engine holds).
-        Returns the prefill's (B = 1) decode state and the token."""
+    def _prefill_one(self, job, key):
+        """One request's whole-prompt prefill and first token, drawn with
+        ``key`` by the request's sampler or the engine's (a seed is not
+        read here, as in the reference): a self-contained farm task (it
+        writes nothing the engine holds).  Returns the prefill's (B = 1)
+        decode state and the token."""
         n = job.n_valid
         bucket = min(_bucket(n), self.max_len)
         toks = np.zeros((1, bucket), np.int32)
@@ -426,7 +684,8 @@ class ServeEngine:
         # slot's state is the padded sequence's, exactly as in the
         # reference (ROADMAP, Queue C)
         logits = self.model.lm_head(self.params, hidden[:, n - 1:n])
-        return state, int(self._greedy(logits[0, -1]))
+        fn = job.req.sampler or self.sampler
+        return state, _as_int(fn(key, logits[0, -1]))
 
     def _tick_dense(self) -> bool:
         _, rejects = self.sched.admit()
@@ -434,16 +693,22 @@ class ServeEngine:
 
         jobs = self.sched.next_chunks()          # dense: whole-prompt jobs
         if jobs:
-            def guarded(job):
+            keys = []
+            for _ in jobs:                       # keys drawn in slot order
+                self._key, sub = prng.split(self._key)
+                keys.append(sub)
+
+            def guarded(job, key):
                 # isolate failures so one bad request cannot drop the
                 # other concurrently admitted requests
                 try:
-                    return self._prefill_one(job)
+                    return self._prefill_one(job, key)
                 except Exception as e:                      # noqa: BLE001
                     return e
 
             results, _ = self._prefill_farm.map_callables(
-                [functools.partial(guarded, job) for job in jobs])
+                [functools.partial(guarded, job, key)
+                 for job, key in zip(jobs, keys)])
             for job, res in zip(jobs, results):
                 if isinstance(res, Exception):
                     self.sched.release(job.slot)
@@ -461,7 +726,7 @@ class ServeEngine:
             try:
                 logits = self.model.decode_step(self.params, self.state,
                                                 toks, pos)
-                self._commit_decode(live, logits)
+                errors += self._commit_decode(live, logits)
             except BaseException:
                 # the in-place writes may have touched every slot's state:
                 # evict and rebuild before raising

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 __all__ = ["N_TRASH", "PagePool", "PagedLeafSpec", "PrefixCache",
            "copy_pages", "gather_pages", "scatter_chunk", "scatter_token",
-           "write_slot"]
+           "scatter_window", "write_slot"]
 
 import dataclasses
 import heapq
@@ -384,6 +384,16 @@ def scatter_token(storage, pages, offs, vals) -> None:
     write.  pages, offs: (B,) ints; vals: (B, suffix...)."""
     _check_write_dtype(storage, vals, "scatter_token")
     storage[pages.long(), offs.long()] = vals
+
+
+def scatter_window(storage, pages, offs, vals) -> None:
+    """Write a per-slot window of tokens at (page, offset) pairs, in place —
+    the speculative-verify write (C candidate positions a slot in one
+    scatter; pad and dead positions point at the trash page).
+    pages, offs: (B, C) ints; vals: (B, C, suffix...)."""
+    B, C = pages.shape
+    scatter_token(storage, pages.reshape(-1), offs.reshape(-1),
+                  vals.reshape((B * C,) + vals.shape[2:]))
 
 
 def gather_pages(storage, tables):

@@ -714,3 +714,114 @@ def test_zamba_on_card_matches_cpu(card):
                if n not in ("ssd_scan", "rmsnorm", "rmsnorm_add",
                             "rmsnorm_gated"))
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# speculative decode and seeded sampling on the card
+# ---------------------------------------------------------------------------
+
+# (B, W): the engine's verify windows at spec_k 4 (W 3 and 5, the half and
+# the full window) over 4 slots, qwen2-7b's heads (W·G = 21 and 35 rows a
+# KV head: the last 16-row tile partial), and the 32-page table of the main
+# run, float and int8 pages
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W", [3, 5])
+def test_paged_attention_kernel_at_verify_widths(card, pages, dtype, W):
+    rng = np.random.default_rng(W + len(dtype))
+    if pages == "int8":
+        q, kq, vq, tb, ln, ks, vs = _int8_case(rng, card, dtype, 4, W, 28, 4,
+                                               128, N=160, P=32)
+        args, tol = (q, kq, vq, tb, ln, ks, vs), ATTN_TOL[dtype]
+        name = "paged_attention_mq_int8"
+    else:
+        case = _paged_case(rng, 4, W, 28, 4, 128, 16, 160, 32, dead_slot=True)
+        q, kp, vp, tb, ln = (torch.from_numpy(a).to(card) for a in case)
+        q, kp, vp = (t.to(DTYPES[dtype]) for t in (q, kp, vp))
+        args, tol = (q, kp, vp, tb, ln), ATTN_TOL[dtype]
+        name = "paged_attention_mq"
+    ops.reset_counts()
+    got = ops.paged_attention_mq(*args)
+    torch.cuda.synchronize()
+    assert ops.COUNTS[name].kernel == 1
+    want = ref.paged_attention_mq(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[-1, 0].any()                    # dead slot: zero row 0
+
+
+def test_prng_draws_on_card_match_cpu(card):
+    """The threefry bits bit for bit, and so the uniforms, on the card and
+    on the CPU (the full qwen2 vocab, a batch of rows)."""
+    from repro_torch.serve import prng
+    for seed in (0, 7, 2**31 - 1):
+        k = prng.PRNGKey(seed)
+        for shape in ((152064,), (4, 152064), (7,)):
+            got = prng.bits(k, shape, device=card)
+            assert torch.equal(got.cpu(), prng.bits(k, shape))
+            assert torch.equal(prng.uniform(k, shape, device=card).cpu(),
+                               prng.uniform(k, shape))
+
+
+def _smoke_spec_streams(device, cpu_params, model, **kw):
+    params = tree_map(lambda t: t.to(device), cpu_params)
+    eng = ServeEngine(model, params, max_slots=3, max_len=128, page_size=16,
+                      prefill_chunk=16, device=device, **kw)
+    prompts = [[5, 17, 33, 5, 17, 33, 5, 17], [7] * 11, list(range(40))]
+    for p in prompts:
+        eng.submit(p, max_new_tokens=10)
+    return {r.rid: r.output for r in eng.run_until_drained()}, eng
+
+
+def test_spec_engine_on_card_matches_cpu(card):
+    """SMOKE qwen2-7b in float32 with the 1-layer self-drafter: the verify
+    windows through paged attention, the drafter through flash attention,
+    never a plain version, and the CPU engine's greedy streams."""
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    want, _ = _smoke_spec_streams("cpu", cpu_params, model)
+    ops.reset_counts()
+    got, eng = _smoke_spec_streams(card, cpu_params, model,
+                                   spec_decode="self-1")
+    assert eng.stats["draft_proposed"] > 0
+    for name in ("paged_attention_mq", "flash_attention", "rmsnorm"):
+        assert ops.COUNTS[name].kernel > 0, name
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    assert got == want
+
+
+def test_drafter_kernel_failure_reaches_the_caller(card, monkeypatch):
+    """A flash-attention launch that fails inside the self-drafter raises
+    KernelError out of the engine's tick; it is never read as "no
+    drafts"."""
+    from repro_torch.kernels import build
+    real = build.library()
+
+    class FailingFlash:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def flash_attention_launch(self, *args):
+            return 1                               # cudaErrorInvalidValue
+
+    monkeypatch.setattr(build, "library", lambda: FailingFlash())
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    ops.reset_counts()
+    with pytest.raises(build.KernelError, match="flash_attention"):
+        _smoke_spec_streams(card, cpu_params, model, spec_decode="self-1")
+    assert ops.COUNTS["flash_attention"].kernel == 0
+
+
+def test_drafter_wrapper_refusal_reaches_the_caller(card, monkeypatch):
+    """The flash-attention wrapper refusing its input inside the
+    self-drafter (here: no head dim accepted) raises its ValueError out of
+    the engine's tick; it is never read as "no drafts"."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "HEAD_DIMS", ())
+    model = build_model(smoke_config("qwen2-7b"))
+    cpu_params = model.init(0, device="cpu")
+    ops.reset_counts()
+    with pytest.raises(ValueError, match="flash_attention_cuda: head dim"):
+        _smoke_spec_streams(card, cpu_params, model, spec_decode="self-1")
+    assert ops.COUNTS["flash_attention"].kernel == 0
+    assert ops.COUNTS["paged_attention_mq"].kernel > 0

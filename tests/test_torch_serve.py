@@ -185,8 +185,10 @@ def test_entry_points_need_a_card_unless_told_cpu(pair):
         ServeEngine(model, params, device="meta")
 
 
-@pytest.mark.parametrize("kw", [dict(sampler=lambda k, l: 0),
-                                dict(spec_decode="ngram"),
+# each unported feature alone and beside a ported one (the sampler and the
+# drafter, ported since), which must not let it through
+@pytest.mark.parametrize("kw", [dict(mesh=object(), sampler=lambda k, l: 0),
+                                dict(prefill_only=True, spec_decode="ngram"),
                                 dict(mesh=object()),
                                 dict(prefill_only=True)])
 def test_unported_engine_features_raise(pair, kw):
@@ -195,8 +197,10 @@ def test_unported_engine_features_raise(pair, kw):
         ServeEngine(model, params, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(seed=1), dict(sampler=lambda k, l: 0),
-                                dict(encoder_input=np.zeros((2, 64)))])
+@pytest.mark.parametrize("kw", [
+    dict(encoder_input=np.zeros((2, 64)), seed=1),
+    dict(encoder_input=np.zeros((2, 64)), sampler=lambda k, l: 0),
+    dict(encoder_input=np.zeros((2, 64)))])
 def test_unported_request_features_raise(pair, kw):
     _, _, model, params = pair
     eng = ServeEngine(model, params, device="cpu")
