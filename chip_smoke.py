@@ -188,6 +188,31 @@ Phases (any failure exits non-zero before the result lines):
                  arrivals at 2 requests a second; prints the report (TTFT,
                  ITL and e2e percentiles, tok/s, goodput), which must be
                  complete; the paged kernels launch, no plain version runs.
+23. science-runtime — the paper's parabola (32 x 32 tasks) through the
+                 serial host loop, SerialExecutor, VmapExecutor,
+                 MeshExecutor over a real NCCL group at world 1 and the
+                 thread farm (8 workers, deadline factor 3): the counts
+                 equal, the outputs within 1e-5 of the serial executor's;
+                 the farm's steals, rebalances and stragglers.
+24. science-mcmc — ideal points of 700 members from 5000 synthetic roll
+                 calls (seed 1), 4 chains x 200 iterations through
+                 VmapExecutor: |corr| with the true points > 0.95, the
+                 largest R-hat printed; a Gibbs iteration's device time
+                 beside its threefry draws'; a small chain card == CPU
+                 within 1e-3.
+25. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
+                 steps, the load-balanced SPMD driver over NCCL at world 1
+                 for 200, 4 replicas of 2^16 x 300 steps on the thread farm
+                 and again serially (the same energies): every E0 within
+                 0.1 of 1.5, no population extinct or at capacity; a
+                 walker step's device time beside its draws'.
+26. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
+                 the Schwarz route over NCCL at world 1: relative mass
+                 drift < 1e-5, the routes within 1e-5, every step's
+                 iterations under the cap; a Jacobi iteration timed;
+                 48 x 48 card == CPU within 1e-5.
+Each science phase prints its sizes, wall time and peak device memory; no
+TPU kernel lies on their path, and each leaves no process group behind.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly.
@@ -210,8 +235,12 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.apps import boussinesq as bq  # noqa: E402
+from repro_torch.apps import dmc, mcmc  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.core import comm as comm_lib  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import apps as apps_launch  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
@@ -307,6 +336,17 @@ HIST_DRAWS = 100_000
 CHI2_BOUND = 24.32
 # traffic: 16 Poisson arrivals at 2 requests a second (main serves its 8
 # requests closed-loop at several a second; printed beside it)
+# the science phases' sizes (PERF.md §4): the farm of examples/quickstart.py;
+# a European Parliament term (410-751 members, thousands of roll calls);
+# DMC (walkers, capacity, steps) serial, (walkers, steps) at world 1, and
+# (replicas, walkers, steps) on the farm; Boussinesq (grid side, steps)
+SCI_FARM_WORKERS, SCI_DEADLINE = 8, 3.0
+SCI_MCMC = (700, 5000)
+SCI_DMC_SERIAL = (2**18, 2**20, 400)
+SCI_DMC_PARALLEL = (2**18, 200)
+SCI_DMC_REPLICAS = (4, 2**16, 300)
+SCI_BQ = (2048, 50)
+STORE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ranks"
 TRAFFIC_ARGS = ["--requests", "16", "--traffic", "poisson", "--clock",
                 "wall", "--rate", "2.0"]
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
@@ -2474,6 +2514,239 @@ def phase_traffic(main_rate: float) -> None:
         f"{counts}")
 
 
+# -- the paper's science layer: the executor runtime and the three apps -------
+
+def science_start() -> tuple[float, int]:
+    """A science run's start: the clock, and the device memory already
+    allocated (by earlier phases), from which its peak is counted."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter(), torch.cuda.memory_allocated()
+
+
+def science_report(label: str, start: tuple[float, int]) -> str:
+    """Wall seconds since ``start`` (after a sync) and the run's own peak
+    device memory (above what was allocated at its start)."""
+    torch.cuda.synchronize()
+    t0, base = start
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return (f"{label} wall {time.perf_counter() - t0:.3f} s, peak device "
+            f"memory {peak:.3f} GiB")
+
+
+def step_times(fn, draws) -> str:
+    """One step of an app's loop (``fn``, sync-free), host-issued and as
+    device time, beside the device time of its threefry draws (``draws``,
+    one call at the step's shapes)."""
+    host = time_ms(fn, iters=10, warmup=2)
+    devt = device_ms([fn], reps=10)
+    rng_ms = device_ms([draws], reps=10)
+    return (f"a step host-issued {host:.3f} ms, device {devt:.3f} ms (card "
+            f"idle {max(0.0, 1 - devt / host):.1%}); its threefry draws "
+            f"{rng_ms:.3f} ms device ({rng_ms / devt:.1%} of the step)")
+
+
+def _runtime_rank(comm, dev):
+    return apps_launch.quickstart(dev, comm, workers=SCI_FARM_WORKERS,
+                                  deadline_factor=SCI_DEADLINE)
+
+
+def phase_science_runtime(dev) -> None:
+    """The paper's parabola (32 x 32 combinations) through the serial host
+    loop, SerialExecutor, VmapExecutor, MeshExecutor over a real NCCL
+    group at world 1, and the thread farm (8 workers, deadline factor 3):
+    the counts equal, each executor's outputs within 1e-5 of the serial
+    executor's; the farm's steals, rebalances and stragglers printed."""
+    t0 = science_start()
+    out = comm_lib.run_ranks(_runtime_rank, (dev,), world=1,
+                             store_dir=STORE_DIR, device=dev)[0]
+    if torch.distributed.is_initialized():
+        raise AssertionError("science-runtime: a process group was left")
+    log(f"science-runtime: parabola {apps_launch.M}x{apps_launch.M} "
+        f"through serial, vmap, mesh (NCCL, world 1) and thread farm "
+        f"({SCI_FARM_WORKERS} workers, deadline factor {SCI_DEADLINE}): "
+        f"counts {out['counts']}, largest gap to serial {out['gap']:.3g}; "
+        f"farm steals {out['farm']['steals']}, rebalances "
+        f"{out['farm']['rebalances']}, stragglers "
+        f"{out['farm']['stragglers']}; "
+        + science_report("phase", t0))
+
+
+def phase_science_mcmc(dev) -> None:
+    """Ideal-point MCMC at the scale of a European Parliament term: the
+    chains of the reference's defaults through VmapExecutor; recovery of
+    the true ideal points gated, the largest R-hat printed; one vmapped
+    Gibbs iteration timed beside its threefry draws; then a small chain
+    on the card against the same chain on the CPU."""
+    n_leg, n_votes = SCI_MCMC
+    t0 = science_start()
+    y, truth = mcmc.make_synthetic_votes(prng.PRNGKey(1), n_leg, n_votes,
+                                         device=dev)
+    problem = mcmc.IdealPointProblem(y, n_chains=4, n_iter=200, burn=100)
+    res = mcmc.solve(problem, "vmap")
+    corr = abs(float(np.corrcoef(res["x_mean"].cpu().numpy(),
+                                 truth["x"].cpu().numpy())[0, 1]))
+    rhat = float(res["rhat"].max())
+    wall = science_report("", t0)
+    if not corr > 0.95 or not np.isfinite(rhat):
+        raise AssertionError(f"science-mcmc: |corr| {corr}, max R-hat {rhat}")
+    keys = problem.initialize()["key"]
+    pos = y > 0.5
+    carry = (torch.zeros(4, n_leg, device=dev),
+             torch.zeros(4, n_votes, device=dev),
+             torch.zeros(4, n_votes, device=dev))
+    step = torch.func.vmap(lambda k, x, b, a: mcmc.gibbs_step(
+        (x, b, a), k, pos), randomness="error")
+    draws = torch.func.vmap(lambda k: (
+        prng.uniform(k, (n_leg, n_votes), minval=1e-6, maxval=1 - 1e-6),
+        prng.normal(k, (2, n_votes)), prng.normal(k, (n_leg,))),
+        randomness="error")
+    times = step_times(lambda: step(keys, *carry), lambda: draws(keys))
+    # the same small chain on the card and on the CPU (the CPU test's
+    # limit against the reference, 1e-3)
+    ys, _ = mcmc.make_synthetic_votes(prng.PRNGKey(2), 20, 40, device="cpu")
+    chains = [mcmc.run_chain(prng.PRNGKey(3, device=d), ys.to(d), n_iter=40,
+                             burn=0, thin=1)["x_draws"].cpu()
+              for d in (dev, "cpu")]
+    gap = float((chains[0] - chains[1]).abs().max())
+    if not gap < 1e-3:
+        raise AssertionError(f"science-mcmc: card chain != CPU chain ({gap})")
+    log(f"science-mcmc: {n_leg} members x {n_votes} roll calls (seed 1), 4 "
+        f"chains x 200 iterations (burn 100) through VmapExecutor: "
+        f"|corr(x_mean, true x)| {corr:.4f} (gate > 0.95), largest R-hat "
+        f"{rhat:.4f};{wall}; {times}; a 20 x 40 chain of 40 iterations: "
+        f"card vs CPU max |dx| {gap:.3g} (limit 1e-3)")
+
+
+def phase_science_dmc(dev) -> None:
+    """DMC in a 3D harmonic trap: the serial driver, the load-balanced SPMD
+    driver over a real NCCL group at world 1, and independent replicas on
+    the thread farm; every E0 estimate within 0.1 of 1.5, no population
+    extinct or at its capacity.  One walker step timed beside its threefry
+    draws."""
+    n, cap, steps = SCI_DMC_SERIAL
+    lines = []
+
+    def gate(label, out, capacity):
+        """E0 within 0.1 of 1.5; the population never extinct nor at its
+        capacity (replicas: each replica's)."""
+        runs = out.get("replicas", [out])
+        e0s = [float(r["e0_estimate"]) for r in runs]
+        counts = np.concatenate([r["counts"].cpu().numpy() for r in runs])
+        if (not all(abs(e - 1.5) < 0.1 for e in e0s) or counts.min() <= 0
+                or counts.max() >= capacity):
+            raise AssertionError(f"science-dmc {label}: E0 {e0s}, population "
+                                 f"{counts.min()}..{counts.max()} of "
+                                 f"{capacity}")
+        return (f"E0 {' / '.join(f'{e:.4f}' for e in e0s)}, population "
+                f"{counts.min()}..{counts.max()}")
+
+    t0 = science_start()
+    out = dmc.run_serial(n, steps, capacity=cap, tau=0.01, device=dev)
+    lines.append(f"run_serial {n} walkers (capacity {cap}), tau 0.01, "
+                 f"{steps} steps: {gate('serial', out, cap)};"
+                 + science_report("", t0))
+    n_p, steps_p = SCI_DMC_PARALLEL
+    t0 = science_start()
+    out = dmc.run_parallel(n_p, steps_p, world=1, store_dir=STORE_DIR,
+                           tau=0.01, device=dev)
+    lines.append(f"run_parallel (NCCL, world 1) {n_p} walkers (capacity "
+                 f"{4 * n_p}), {steps_p} steps: "
+                 f"{gate('parallel', out, 4 * n_p)}, rebalances "
+                 f"{out['rebalances']};" + science_report("", t0))
+    reps, n_r, steps_r = SCI_DMC_REPLICAS
+    t0 = science_start()
+    out = dmc.run_replicas(reps, "thread", n_r, steps_r, tau=0.01,
+                           device=dev, num_workers=reps)
+    lines.append(f"run_replicas on the thread farm, {reps} x {n_r} walkers, "
+                 f"{steps_r} steps: {gate('replicas', out, 4 * n_r)}, mean "
+                 f"{float(out['e0_estimate']):.4f} spread "
+                 f"{float(out['e0_std']):.4f};" + science_report("", t0))
+    # the same replicas one after another: the farm's yardstick; each
+    # replica's arithmetic is the same either way
+    t0 = science_start()
+    ref = dmc.run_replicas(reps, "serial", n_r, steps_r, tau=0.01,
+                           device=dev)
+    e0s = [float(r["e0_estimate"]) for r in out["replicas"]]
+    if e0s != [float(r["e0_estimate"]) for r in ref["replicas"]]:
+        raise AssertionError("science-dmc: farm replicas != serial replicas")
+    lines.append("the same replicas on SerialExecutor: E0 equal;"
+                 + science_report("", t0))
+    w = dmc.Walkers(n, cap, tau=0.01, device=dev)
+    k = prng.PRNGKey(9)
+    times = step_times(
+        lambda: dmc.walker_step(k, w.pos, w.count, w.e_trial, tau=0.01),
+        lambda: (prng.normal(k, (cap, 3), device=dev),
+                 prng.uniform(k, (cap,), device=dev)))
+    log("science-dmc: " + "; ".join(lines) + f"; walker step at capacity "
+        f"{cap}: {times}")
+    if torch.distributed.is_initialized():
+        raise AssertionError("science-dmc: a process group was left")
+
+
+def phase_science_boussinesq(dev) -> None:
+    """Boussinesq waves on a 2048 x 2048 grid, serial and through the
+    Schwarz route over a real NCCL group at world 1: relative mass drift
+    under 1e-5, the two routes within 1e-5 of each other, every step's
+    iterations within the cap; one Jacobi iteration timed; then 48 x 48 on
+    the card against the CPU within 1e-5."""
+    nx, steps = SCI_BQ
+    p = bq.BoussinesqParams(nx=nx, ny=nx, dx=0.1, dt=0.02, eps=0.3,
+                            alpha=0.05)
+    t0 = science_start()
+    eta_s, phi_s, hist_s = bq.run_serial(p, steps, device=dev)
+    serial = science_report("", t0)
+    t0 = science_start()
+    eta_p, phi_p, hist_p = bq.run_parallel(p, steps, world=1,
+                                           store_dir=STORE_DIR, device=dev)
+    schwarz = science_report("", t0)
+    mass = hist_s["mass"].double().cpu()
+    # relative to the wave's mass of |eta| (its signed mass is ~0)
+    scale = float(eta_s.abs().sum())
+    drift = float((mass - mass[0]).abs().max()) / scale
+    gap = max(float((eta_s.cpu() - eta_p).abs().max()),
+              float((phi_s.cpu() - phi_p).abs().max()))
+    iters = hist_s["iters"] + hist_p["iters"]
+    if (not drift < 1e-5 or not gap < 1e-5
+            or not all(1 <= i < p.schwarz_max_iter for i in iters)):
+        raise AssertionError(f"science-boussinesq: drift {drift}, gap {gap}, "
+                             f"iterations {min(iters)}..{max(iters)}")
+    eta, phi = bq.initial_condition(p, device=dev)
+    eta, phi = bq._with_ghosts(eta), bq._with_ghosts(phi)
+    rhs = torch.zeros_like(eta[1:-1]) + 1e-3
+
+    def iteration():
+        d = bq.apply_physical_bc(phi, None)
+        d = bq.jacobi_sweeps(d, rhs, p.c, p.dx, p.jacobi_sweeps)
+        return torch.sum((d - phi) ** 2) / torch.sum(d ** 2)
+
+    host = time_ms(iteration, iters=10, warmup=2)
+    devt = device_ms([iteration], reps=10)
+    small = bq.BoussinesqParams(nx=48, ny=48, dt=0.02, eps=0.3, alpha=0.05)
+    card, cpu = (bq.run_serial(small, 30, device=d) for d in (dev, "cpu"))
+    small_gap = max(float((card[i].cpu() - cpu[i]).abs().max())
+                    for i in (0, 1))
+    if not small_gap < 1e-5 or card[2]["iters"] != cpu[2]["iters"]:
+        raise AssertionError(f"science-boussinesq: 48x48 card != CPU "
+                             f"({small_gap})")
+    log(f"science-boussinesq: {nx} x {nx} (dx 0.1, dt 0.02, eps 0.3, alpha "
+        f"0.05), {steps} steps: serial Jacobi iterations a step "
+        f"{min(hist_s['iters'])}..{max(hist_s['iters'])} (mean "
+        f"{np.mean(hist_s['iters']):.1f}, {sum(hist_s['iters'])} in all, one "
+        f"host read each but the first),{serial}; Schwarz (NCCL, world 1) "
+        f"iterations {min(hist_p['iters'])}..{max(hist_p['iters'])} (mean "
+        f"{np.mean(hist_p['iters']):.1f}, one max all-reduce and host read "
+        f"each),{schwarz}; relative mass drift {drift:.3g} (gate 1e-5), "
+        f"serial vs Schwarz max gap {gap:.3g} (gate 1e-5); one iteration "
+        f"({p.jacobi_sweeps} sweeps and the convergence sums) host-issued "
+        f"{host:.3f} ms, device {devt:.3f} ms (card idle "
+        f"{max(0.0, 1 - devt / host):.1%}); 48 x 48, 30 steps: card vs CPU "
+        f"max gap {small_gap:.3g}, iterations equal")
+    if torch.distributed.is_initialized():
+        raise AssertionError("science-boussinesq: a process group was left")
+
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -2601,6 +2874,13 @@ def main() -> int:
     del eng
     phase_main_sampled(dev)
     phase_traffic(main_rate)
+    # the paper's function-centric layer: no TPU kernel on this path
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_science_runtime(dev)
+    phase_science_mcmc(dev)
+    phase_science_dmc(dev)
+    phase_science_boussinesq(dev)
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
     times["paged_attention_mq_int8"]["verify_launches"] = {

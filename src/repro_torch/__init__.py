@@ -1,4 +1,6 @@
-"""PyTorch and CUDA port of the serving stack, for one NVIDIA Hopper card.
+"""PyTorch and CUDA port of the serving stack and of the paper's
+function-centric layer (:mod:`repro_torch.core`, :mod:`repro_torch.apps`),
+for one NVIDIA Hopper card.
 
 The package mirrors ``repro`` module for module where a counterpart exists
 (``repro_torch/<pkg>/<mod>.py`` <-> ``repro/<pkg>/<mod>.py``) and imports

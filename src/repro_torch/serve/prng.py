@@ -9,9 +9,16 @@ seed and the logits; a ``torch.Generator`` could not reproduce it.
 * A **key** is a ``(2,)`` uint32 numpy array on the host: keys are made,
   split and folded a few times a tick, each a single threefry block, so
   they never touch the device.
-* A **draw** (:func:`bits`, :func:`uniform`, :func:`categorical`) runs on
-  the device of the tensor it serves (the logits' for a categorical), one
-  threefry lane per element.
+* A key may also be an int64 tensor of the same two words on a device
+  (``PRNGKey(seed, device=...)``).  :func:`split`, :func:`fold_in` and
+  every draw take it and give tensors back, with the same bits, and never
+  read it on the host: a stack of such keys goes through
+  ``torch.func.vmap``, so the science apps' chains and walkers draw from
+  explicit keys where the vmap cannot hide a generator's state.
+* A **draw** (:func:`bits`, :func:`uniform`, :func:`normal`,
+  :func:`categorical`) runs on the device of the tensor it serves (the
+  logits' for a categorical, a tensor key's own), one threefry lane per
+  element.
 
 torch has no uint32 arithmetic, so the hash runs on int64 values below
 2**32, masked after every add and before every logical shift.  The same
@@ -25,8 +32,8 @@ indices ``0..n-1`` the same way and keeps both words as the new keys;
 """
 from __future__ import annotations
 
-__all__ = ["PRNGKey", "bits", "categorical", "fold_in", "gumbel", "split",
-           "threefry2x32", "uniform"]
+__all__ = ["PRNGKey", "bits", "categorical", "fold_in", "gumbel", "normal",
+           "split", "threefry2x32", "uniform"]
 
 import numpy as np
 import torch
@@ -34,8 +41,9 @@ import torch
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
-_FLOAT32_ONE_BITS = 0x3F800000
 _NMANT = 23                                  # float32 mantissa bits
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))       # float32, as jax multiplies
 
 
 def _rotl(x, d: int):
@@ -43,10 +51,11 @@ def _rotl(x, d: int):
     return ((x << d) & MASK) | (x >> (32 - d))
 
 
-def threefry2x32(k1: int, k2: int, x1, x2):
-    """The Threefry-2x32 block (20 rounds) of key words ``k1, k2`` over the
-    counter words ``x1, x2``: int64 arrays or tensors holding uint32
-    values.  Returns the two output words the same way."""
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block (20 rounds) of key words ``k1, k2`` (ints,
+    or int64 tensors) over the counter words ``x1, x2``: int64 arrays or
+    tensors holding uint32 values.  Returns the two output words the same
+    way."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = (x1 + ks[0]) & MASK
     x2 = (x2 + ks[1]) & MASK
@@ -59,7 +68,14 @@ def threefry2x32(k1: int, k2: int, x1, x2):
     return x1, x2
 
 
-def _words(key) -> tuple[int, int]:
+def _words(key):
+    """A key's two words: ints for a host key, int64 tensors (never read on
+    the host) for a tensor key."""
+    if isinstance(key, torch.Tensor):
+        if key.shape != (2,):
+            raise ValueError(f"a key is a (2,) array, got shape "
+                             f"{tuple(key.shape)}")
+        return key[0], key[1]
     k = np.asarray(key)
     if k.shape != (2,):
         raise ValueError(f"a key is a (2,) uint32 array, got shape {k.shape}")
@@ -70,46 +86,70 @@ def _key(w1, w2) -> np.ndarray:
     return np.asarray([int(w1), int(w2)], np.uint32)
 
 
-def PRNGKey(seed: int) -> np.ndarray:
+def PRNGKey(seed: int, device=None):
     """The key of an integer seed: its high and low 32-bit words (a seed
     in 32 bits has a zero high word; a negative one is taken mod 2**32, as
-    jax's 32-bit mode converts it)."""
+    jax's 32-bit mode converts it).  With ``device``, the two words as an
+    int64 tensor there (a tensor key)."""
     seed = int(seed)
     if not -2**31 <= seed < 2**32:
         raise OverflowError(f"seed {seed} does not fit 32 bits")
+    if device is not None:
+        return torch.tensor([0, seed & MASK], dtype=torch.int64,
+                            device=device)
     return _key(0, seed & MASK)
 
 
-def fold_in(key, data: int) -> np.ndarray:
-    """A new key from ``key`` and a 32-bit integer."""
+def fold_in(key, data):
+    """A new key from ``key`` and a 32-bit integer (an int64 tensor too,
+    for a tensor key)."""
     k1, k2 = _words(key)
+    if isinstance(key, torch.Tensor):
+        d = (data if isinstance(data, torch.Tensor) else torch.full(
+            (), int(data), dtype=torch.int64, device=key.device)) & MASK
+        y1, y2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+        return torch.stack([y1, y2])
     y1, y2 = threefry2x32(k1, k2, np.int64(0), np.int64(int(data) & MASK))
     return _key(y1, y2)
 
 
-def split(key, num: int = 2) -> np.ndarray:
-    """``num`` new keys from ``key``, as a (num, 2) uint32 array."""
+def split(key, num: int = 2):
+    """``num`` new keys from ``key``: a (num, 2) uint32 array, or a (num, 2)
+    int64 tensor for a tensor key."""
     k1, k2 = _words(key)
+    if isinstance(key, torch.Tensor):
+        lo = torch.arange(num, dtype=torch.int64, device=key.device)
+        y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+        return torch.stack([y1, y2], dim=-1)
     lo = np.arange(num, dtype=np.int64)
     y1, y2 = threefry2x32(k1, k2, np.zeros_like(lo), lo)
     return np.stack([y1, y2], axis=-1).astype(np.uint32)
 
 
-def bits(key, shape=(), *, device="cpu") -> torch.Tensor:
-    """Uniform 32-bit draws of ``shape`` on ``device``, as int64 values in
-    ``[0, 2**32)`` (``jax.random.bits``'s uint32 values)."""
+def _device(key, device):
+    """Where a draw runs: ``device`` if given, else a tensor key's own
+    device, else the CPU."""
+    if device is not None:
+        return device
+    return key.device if isinstance(key, torch.Tensor) else "cpu"
+
+
+def bits(key, shape=(), *, device=None) -> torch.Tensor:
+    """Uniform 32-bit draws of ``shape`` on ``device`` (default: a tensor
+    key's device, else the CPU), as int64 values in ``[0, 2**32)``
+    (``jax.random.bits``'s uint32 values)."""
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape, dtype=np.int64))
     if n >= 2**32:          # the counters' high word would be needed
         raise NotImplementedError("draws of 2**32 elements or more")
     k1, k2 = _words(key)
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    lo = torch.arange(n, dtype=torch.int64, device=_device(key, device))
     y1, y2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return (y1 ^ y2).reshape(shape)
 
 
 def uniform(key, shape=(), *, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu") -> torch.Tensor:
+            device=None) -> torch.Tensor:
     """float32 draws in ``[minval, maxval)``: the top 23 bits of each draw
     as the mantissa of a float in [1, 2), minus 1, scaled, shifted and
     clamped below at ``minval``, as ``jax.random.uniform`` computes them.
@@ -120,13 +160,25 @@ def uniform(key, shape=(), *, minval: float = 0.0, maxval: float = 1.0,
     result wherever that sum is exact in float64 too, as it is for ranges
     of moderate exponents ([0, 1), [-2, 3)); for [tiny, 1) the float64 sum
     drops ``tiny`` against any nonzero draw, as the fused one does."""
+    device = _device(key, device)
     b = bits(key, shape, device=device)
-    f = ((b >> (32 - _NMANT)) | _FLOAT32_ONE_BITS).to(torch.int32) \
-        .view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    # the float in [1, 2) with these 23 mantissa bits, minus 1, is
+    # m / 2**23 exactly: no bit cast (torch.func.vmap batches none)
+    f = (b >> (32 - _NMANT)).to(torch.float32) * 2.0 ** -_NMANT
+    # torch.full, not torch.tensor: no host-to-device copy, so a draw can
+    # be captured in a CUDA graph
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    span = torch.full((), maxval, dtype=torch.float32, device=device) - lo
     fused = (f.double() * span.double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, fused)
+
+
+def normal(key, shape=(), *, device=None) -> torch.Tensor:
+    """Standard normal float32 draws, ``sqrt(2) * erfinv(u)`` of a uniform
+    ``u`` in ``[nextafter(-1, 0), 1)``, as jax 0.9.0's ``_normal_real``
+    computes them; torch's ``erfinv`` and XLA's differ by ulps."""
+    u = uniform(key, shape, minval=_NORMAL_LO, maxval=1.0, device=device)
+    return _SQRT2 * torch.erfinv(u)
 
 
 def gumbel(key, shape=(), *, device="cpu") -> torch.Tensor:

@@ -825,3 +825,112 @@ def test_drafter_wrapper_refusal_reaches_the_caller(card, monkeypatch):
         _smoke_spec_streams(card, cpu_params, model, spec_decode="self-1")
     assert ops.COUNTS["flash_attention"].kernel == 0
     assert ops.COUNTS["paged_attention_mq"].kernel > 0
+
+
+# ---------------------------------------------------------------------------
+# The science layer on the card: tensor keys, the three apps against the
+# CPU, and the transport over NCCL at world 1
+# ---------------------------------------------------------------------------
+
+def test_tensor_keys_on_card_match_cpu(card):
+    """split, fold_in and the uniform bits of a tensor key bit for bit the
+    CPU's; the normals within erfinv's ulps (1e-5)."""
+    from repro_torch.serve import prng
+    for seed in (0, 7):
+        k, kc = prng.PRNGKey(seed, device=card), prng.PRNGKey(seed,
+                                                             device="cpu")
+        assert torch.equal(prng.split(k, 5).cpu(), prng.split(kc, 5))
+        assert torch.equal(prng.fold_in(k, 3).cpu(), prng.fold_in(kc, 3))
+        assert torch.equal(prng.uniform(k, (700, 50)).cpu(),
+                           prng.uniform(kc, (700, 50)))
+        torch.testing.assert_close(prng.normal(k, (4096,)).cpu(),
+                                   prng.normal(kc, (4096,)), rtol=0,
+                                   atol=1e-5)
+
+
+def test_mcmc_chain_on_card_matches_cpu(card):
+    """The same key's chain on the card and the CPU: within the CPU
+    test's limit against the reference (1e-3)."""
+    from repro_torch.apps import mcmc
+    from repro_torch.serve import prng
+    y, _ = mcmc.make_synthetic_votes(prng.PRNGKey(2), 20, 40, device="cpu")
+    yc, _ = mcmc.make_synthetic_votes(prng.PRNGKey(2), 20, 40, device=card)
+    assert torch.equal(yc.cpu(), y)
+    got, want = (mcmc.solve_vmap(mcmc.IdealPointProblem(
+        yy, n_chains=2, n_iter=40, burn=20, seed=3)) for yy in (yc, y))
+    torch.testing.assert_close(got["x_mean"].cpu(), want["x_mean"], rtol=0,
+                               atol=1e-3)
+
+
+def test_dmc_on_card_matches_cpu(card):
+    """300 walkers, 50 steps: the population equal at every step, E_T
+    within 1e-5."""
+    from repro_torch.apps import dmc
+    got = dmc.run_serial(300, 50, tau=0.02, seed=0, device=card)
+    want = dmc.run_serial(300, 50, tau=0.02, seed=0, device="cpu")
+    assert torch.equal(got["counts"].cpu(), want["counts"])
+    torch.testing.assert_close(got["e_trial"].cpu(), want["e_trial"],
+                               rtol=0, atol=1e-5)
+
+
+def test_boussinesq_on_card_matches_cpu(card):
+    """48 x 48, 20 steps: eta and phi within 1e-5, iterations equal."""
+    from repro_torch.apps import boussinesq as bq
+    p = bq.BoussinesqParams(nx=48, ny=48, dt=0.02, eps=0.3, alpha=0.05)
+    got = bq.run_serial(p, 20, device=card)
+    want = bq.run_serial(p, 20, device="cpu")
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
+    assert got[2]["iters"] == want[2]["iters"]
+
+
+def _nccl_world1(comm, dev):
+    """Collectives, the mesh executor and the Schwarz run over one NCCL
+    rank, each against the same call on a Comm with no group."""
+    from repro_torch.apps import boussinesq as bq
+    from repro_torch.core.runtime import MeshExecutor
+    x = torch.arange(24.0, device=dev).reshape(2, 3, 4)
+    out = {"gather": comm.all_gather(x, axis=1),
+           "sum": comm.all_reduce_sum(x), "max": comm.all_reduce_max(x),
+           "a2a": comm.all_to_all(x, split_axis=1, concat_axis=0),
+           "permute_self": comm.permute(x, [(0, 0)]),
+           "permute_none": comm.permute(x, []),
+           "broadcast": comm.broadcast_from(x),
+           "mesh": MeshExecutor(comm).run(
+               lambda: {"a": torch.arange(5.0, device=dev)},
+               lambda t: t["a"] * 2, lambda o: o)}
+    p = bq.BoussinesqParams(nx=32, ny=32, dt=0.02, eps=0.3, alpha=0.05)
+    out["schwarz"] = bq.run_rank(comm, p, 5, device=dev)
+    return out
+
+
+def test_nccl_world1_transport_matches_alone(card, tmp_path):
+    """A real NCCL group at world 1 (made and destroyed in this process)
+    gives what a Comm with no group computes; no group is left behind."""
+    from repro_torch.core.comm import Comm, run_ranks
+    got = run_ranks(_nccl_world1, (card,), world=1, store_dir=tmp_path,
+                    device=card)[0]
+    assert not torch.distributed.is_initialized()
+    want = _nccl_world1(Comm(), card)
+    for k in ("gather", "sum", "max", "a2a", "permute_self", "permute_none",
+              "broadcast", "mesh"):
+        assert torch.equal(got[k], want[k].cpu()), k
+    for g, w in zip(got["schwarz"][:2], want["schwarz"][:2]):
+        torch.testing.assert_close(g, w.cpu(), rtol=0, atol=1e-6)
+    assert got["schwarz"][2]["iters"] == want["schwarz"][2]["iters"]
+
+
+def test_quickstart_on_card(card):
+    """The parabola through the four executors on the card agrees with
+    the host loop."""
+    from repro_torch.launch import apps
+    out = apps.quickstart(card)
+    assert set(out["counts"].values()) == {out["counts"]["host"]}
+    assert out["counts"]["host"] == 487
+
+
+def test_run_ranks_refuses_more_nccl_ranks_than_cards(card, tmp_path):
+    from repro_torch.core.comm import run_ranks
+    with pytest.raises(RuntimeError, match="CUDA cards"):
+        run_ranks(_nccl_world1, (card,), world=torch.cuda.device_count() + 1,
+                  store_dir=tmp_path, device=card)

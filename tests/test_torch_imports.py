@@ -42,7 +42,9 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.serve.quant, repro_torch.models.rwkv6\n"
             "import repro_torch.models.rwkv_lm, repro_torch.kernels.rwkv6_scan\n"
             "import repro_torch.models.mamba2, repro_torch.models.zamba\n"
-            "import repro_torch.kernels.ssd_scan\n"
+            "import repro_torch.kernels.ssd_scan, repro_torch.core\n"
+            "import repro_torch.apps.mcmc, repro_torch.apps.dmc\n"
+            "import repro_torch.apps.boussinesq, repro_torch.launch.apps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
