@@ -23,8 +23,9 @@ Phases (any failure exits non-zero before the result lines):
                  into it, Mamba-2's SiLU gate fused into it) at every row
                  count the main runs launch (1 to 4097 rows, main-spec's
                  verify forwards' 12 and 20 and its drafter's 512; d 3584,
-                 7168, 2048 and an odd 1001), the fused add's sum bit for
-                 bit;
+                 7168, 2048, an odd 1001 and qwen2.5-14b's 5120), the fused
+                 add's sum bit for bit; paged attention at G 7, 2 and 5
+                 (qwen2.5-14b's 40/8 heads);
                  flash attention on its tensor-core route (bf16, D 64 and
                  128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
                  strided q/k/v) and its CUDA-core route; paged attention
@@ -188,25 +189,53 @@ Phases (any failure exits non-zero before the result lines):
                  arrivals at 2 requests a second; prints the report (TTFT,
                  ITL and e2e percentiles, tok/s, goodput), which must be
                  complete; the paged kernels launch, no plain version runs.
-23. science-runtime — the paper's parabola (32 x 32 tasks) through the
+23. main-disagg — main through the launcher's ``--disagg`` (a prefill-only
+                 engine and a decode engine on one copy of the weights, a
+                 KV page handoff between them, the two stages driven by
+                 ``run_stages``): the serial executor, the thread executor,
+                 then int8 KV pages (serial).  Each run is served as main
+                 is (kernels only, B1 split), every request goes through
+                 one handoff and one injection, both pools are whole after
+                 the drain, B1 and B2 launch L and 1 + 2L times a role's
+                 chunk or step (in the serial runs counted inside each
+                 role's stage; in the thread run, where the stages
+                 overlap, the run's total), and the streams equal main's
+                 (main-int8's for int8 pages).  Prints the measured
+                 launches by role, the peak
+                 device memory against main's, wall tok/s of serial against
+                 thread, and one handoff of 19 pages (a 300-token prompt)
+                 as device time beside its bytes bound.  Then B1 timed at
+                 qwen2.5-14b's heads (G 5: decode B 4, W 1 and a W 64
+                 chunk).
+24. main-14b   — full-width, full-depth qwen2.5-14b (48 layers, d 5120,
+                 40/8 heads, bf16, random weights from seed 0, no cut)
+                 with main's request mix: the monolithic paged engine,
+                 then the disaggregated pair on the same weight tensors;
+                 both through the kernels only, the streams equal, both
+                 pools whole; prints the weights' bytes and the peak
+                 device memory of each run.
+25. traffic-disagg — phase 22 through ``--disagg``: the same report gates,
+                 printed beside the monolithic run's TTFT/ITL p50/p99,
+                 tok/s and first-to-second-token gap.
+26. science-runtime — the paper's parabola (32 x 32 tasks) through the
                  serial host loop, SerialExecutor, VmapExecutor,
                  MeshExecutor over a real NCCL group at world 1 and the
                  thread farm (8 workers, deadline factor 3): the counts
                  equal, the outputs within 1e-5 of the serial executor's;
                  the farm's steals, rebalances and stragglers.
-24. science-mcmc — ideal points of 700 members from 5000 synthetic roll
+27. science-mcmc — ideal points of 700 members from 5000 synthetic roll
                  calls (seed 1), 4 chains x 200 iterations through
                  VmapExecutor: |corr| with the true points > 0.95, the
                  largest R-hat printed; a Gibbs iteration's device time
                  beside its threefry draws'; a small chain card == CPU
                  within 1e-3.
-25. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
+28. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
                  steps, the load-balanced SPMD driver over NCCL at world 1
                  for 200, 4 replicas of 2^16 x 300 steps on the thread farm
                  and again serially (the same energies): every E0 within
                  0.1 of 1.5, no population extinct or at capacity; a
                  walker step's device time beside its draws'.
-26. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
+29. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
                  the Schwarz route over NCCL at world 1: relative mass
                  drift < 1e-5, the routes within 1e-5, every step's
                  iterations under the cap; a Jacobi iteration timed;
@@ -222,6 +251,7 @@ The line before the last is the ``{"kernels": [...]}`` record; the last is
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -244,9 +274,11 @@ from repro_torch.launch import apps as apps_launch  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
+from repro_torch.serve import pages as PG  # noqa: E402
 from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve import quant as QZ  # noqa: E402
 from repro_torch.serve import sampling as SM  # noqa: E402
+from repro_torch.serve.disagg import DisaggServeEngine  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -347,6 +379,8 @@ SCI_DMC_PARALLEL = (2**18, 200)
 SCI_DMC_REPLICAS = (4, 2**16, 300)
 SCI_BQ = (2048, 50)
 STORE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ranks"
+# main-disagg's handoff timed at a 300-token prompt: 19 pages of 16
+HANDOFF_PAGES = 19
 TRAFFIC_ARGS = ["--requests", "16", "--traffic", "poisson", "--clock",
                 "wall", "--rate", "2.0"]
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
@@ -366,20 +400,25 @@ SPEC_KERNELS = ("flash_attention", "flash_attention_tc")
 # verify forwards over 4 slots at W 3 and 5, 12 and 20, and its drafter's
 # forward over a bucket of 512), one row, a ragged 1000 and 4097; d of
 # qwen2-7b and zamba2-7b (3584), zamba2's d_inner (7168, the gated norm's),
-# 2048, and one off the kernel's 16-byte vector (its scalar route)
+# 2048, one off the kernel's 16-byte vector (its scalar route), and
+# qwen2.5-14b's 5120 (main-14b)
 NORM_ROWS = (1, 4, 12, 20, 64, 512, 1000, 1024, 4000, 4097)
-NORM_DIMS = (3584, 7168, 2048, 1001)
+NORM_DIMS = (3584, 7168, 2048, 1001, 5120)
 # (rows, d) of each B2 variant in the main runs: decode, prefill chunk,
 # dense prefill, zamba2 prefill (the first norm, each Mamba layer's and the
 # shared block's at d 3584, the gated norm at d_inner 7168), main-spec's
-# verify forwards (12 and 20 rows) and drafter forward (512); final_rmsnorm
+# verify forwards (12 and 20 rows) and drafter forward (512), main-14b's
+# decode step and prefill chunk at d 5120 (4 and 64 rows); final_rmsnorm
 # is the fused add of a model's last norm, which stores no sum
 _QWEN_NORM_ROWS = [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584),
-                   (12, 3584), (20, 3584), (512, 3584)]
+                   (12, 3584), (20, 3584), (512, 3584), (4, 5120), (64, 5120)]
 NORM_TIMED = {"rmsnorm": _QWEN_NORM_ROWS, "add_rmsnorm": _QWEN_NORM_ROWS,
               "final_rmsnorm": _QWEN_NORM_ROWS,
               "gated_rmsnorm": [(4, 7168), (4000, 7168)]}
 INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
+# (Hq, Hkv) of B1's float parity cases: qwen2-7b (G 7), G 2, and
+# qwen2.5-14b (G 5, main-14b's decode and chunk shapes)
+ATTN_HEADS = ((28, 4), (16, 8), (40, 8))
 # (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
 INT8_HEADS = ((28, 4, 128), (4, 2, 16))
 DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
@@ -593,7 +632,7 @@ def phase_parity(dev) -> dict:
     norm_errs = phase_parity_rmsnorm(dev)
     errs = {"rmsnorm": max(norm_errs.values()), "paged_attention_mq": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for Hq, Hkv in ((28, 4), (16, 8)):
+        for Hq, Hkv in ATTN_HEADS:
             for W in (1, 3, 5, 64):
                 for B in (1, 8):
                     q, kp, vp, tb, ln = attention_case(
@@ -647,7 +686,8 @@ def phase_parity(dev) -> dict:
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
     log(f"parity ok: {6 * len(NORM_ROWS) * len(NORM_DIMS)} rmsnorm (3 "
-        f"variants; the fused add's s bit for bit) + 32 paged_attention_mq + "
+        f"variants; the fused add's s bit for bit) + "
+        f"{16 * len(ATTN_HEADS)} paged_attention_mq (Hq/Hkv {ATTN_HEADS}) + "
         f"{2 * len(FLASH_CASES) + 1} flash_attention + 24 "
         f"paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
         f"paged-attention cases, tol (rtol=atol) {tols}; max abs err "
@@ -784,7 +824,8 @@ def phase_small(dev) -> None:
 def check_served(eng, label: str, counts: dict, kernels) -> None:
     """The launcher's 8 requests finished with 32 valid tokens each, the
     path's ``kernels`` launched, no other counted kernel and no plain
-    version ran, and the prefix cache hit."""
+    version ran, and the prefix cache hit (the prefiller's, for a
+    disaggregated engine)."""
     cfg, done = eng.model.cfg, eng.finished
     if len(done) != 8 or any(r.error is not None for r in done):
         raise AssertionError(f"{label}: {len(done)} finished, errors "
@@ -797,7 +838,8 @@ def check_served(eng, label: str, counts: dict, kernels) -> None:
         if (kernel <= 0) == (name in kernels) or plain != 0:
             raise AssertionError(f"{label}: {name} launched {kernel} times, "
                                  f"plain version ran {plain} times")
-    if eng.stats["prefix_hits"] <= 0:
+    stats = eng.stats
+    if stats.get("prefill", stats)["prefix_hits"] <= 0:
         raise AssertionError(f"{label}: no prefix-cache hit")
 
 
@@ -976,6 +1018,70 @@ def phase_main_int8w(bf16_peak, ref_streams):
     return eng
 
 
+def paged_pools(cfg, rng, dev, dtype):
+    """B1's timed inputs at ``cfg``'s heads: 4 slots' block tables of 32
+    pages into 128-page pools, the slots' lengths, and one K/V pool pair a
+    layer: every layer's pages together are larger than the 50 MB L2, so
+    each call finds its K/V in HBM.  Returns (tables, lengths, layers)."""
+    n_pages, P = 128, 32
+    lens = np.array([300, 288, 310, 276], np.int32)
+    tables = np.stack([rng.permutation(n_pages)[:P] for _ in range(4)])
+    layers = [(torch.randn(n_pages + 1, PS, cfg.n_kv_heads, cfg.head_dim,
+                           device=dev).to(dtype),
+               torch.randn(n_pages + 1, PS, cfg.n_kv_heads, cfg.head_dim,
+                           device=dev).to(dtype))
+              for _ in range(cfg.n_layers)]
+    return torch.tensor(tables.astype(np.int32), device=dev), lens, layers
+
+
+def window_mask(ln, W: int, S: int):
+    """The causal mask of ``W`` query positions a slot, the first at key
+    ``ln - 1``, over ``S`` keys: (B, 1, W, S)."""
+    return (torch.arange(S, device=ln.device)[None, None, :]
+            < (ln[:, None] + torch.arange(W, device=ln.device))[:, :, None]
+            )[:, None]
+
+
+def sdpa_paged(q, kp, vp, tb, mask):
+    """B1's yardstick: gather the slots' pages, then
+    ``scaled_dot_product_attention`` under ``mask``."""
+    import torch.nn.functional as F
+    b, (Hkv, D) = tb.shape[0], kp.shape[-2:]
+    k = kp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
+    v = vp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
+
+
+def sdpa_paged_int8(q, kq, vq, ks, vs, tb, mask):
+    """Composite yardstick of int8 pages: gather, dequantize (float32
+    multiply, cast to q's dtype) and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    b, t, (Hkv, D) = tb.shape[0], tb.long(), kq.shape[-2:]
+    k, v = ((c[t].float() * sc[t][..., None]).to(q.dtype)
+            .reshape(b, -1, Hkv, D).transpose(1, 2)
+            for c, sc in ((kq, ks), (vq, vs)))
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
+
+
+def time_window(q, kvs, tb, ln, mask, scaled=False):
+    """Device times of B1 (kernel, plain version, yardstick) at one window
+    shape, each over every layer's pools in turn, and its bound: (times,
+    bound ms, bound by)."""
+    lib = sdpa_paged_int8 if scaled else sdpa_paged
+    b, by = bound(*attention_cost(q, kvs[0][0], tb, ln, scaled=scaled),
+                  q.dtype)
+    t = {what: device_ms([lambda kv=kv: fn(kv) for kv in kvs])
+         for what, fn in (
+             ("kernel", lambda kv: ops.paged_attention_mq(
+                 q, kv[0], kv[1], tb, ln, *kv[2:])),
+             ("plain", lambda kv: ref.paged_attention_mq(
+                 q, kv[0], kv[1], tb, ln, *kv[2:])),
+             ("library", lambda kv: lib(q, *kv, tb, mask)))}
+    return t, b, by
+
+
 def phase_timing(dev) -> dict:
     """Kernel, plain-version and yardstick times at the main path's decode
     shapes (4 slots, bf16, qwen2-7b): device time from CUDA-graph replay,
@@ -1001,37 +1107,13 @@ def phase_timing(dev) -> dict:
 
     out["rmsnorm"] = phase_timing_rmsnorm(dev)
 
-    # one page pool per layer, as in a decode step: 28 layers' pages are
-    # larger than the 50 MB L2, so each call finds its K/V in HBM
+    # one page pool per layer, as in a decode step
     B, W, Hq, Hkv, D = 4, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    n_pages, P = 128, 32
-    lens = np.array([300, 288, 310, 276], np.int32)
-    tables = np.stack([rng.permutation(n_pages)[:P] for _ in range(B)])
-    tb = torch.tensor(tables.astype(np.int32), device=dev)
+    tb, lens, layers = paged_pools(cfg, rng, dev, dtype)
+    P = tb.shape[1]
     ln = torch.tensor(lens, device=dev)
     q = torch.randn(B, W, Hq, D, device=dev).to(dtype)
-    layers = [(torch.randn(n_pages + 1, PS, Hkv, D, device=dev).to(dtype),
-               torch.randn(n_pages + 1, PS, Hkv, D, device=dev).to(dtype))
-              for _ in range(cfg.n_layers)]
-    mask = (torch.arange(P * PS, device=dev)[None, :]
-            < ln[:, None])[:, None, None, :]                      # (B,1,1,S)
-
-    def library(q, kp, vp, tb, mask=mask):
-        b = tb.shape[0]
-        k = kp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
-        v = vp[tb.long()].reshape(b, -1, Hkv, D).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
-
-    def library_int8(q, kq, vq, ks, vs, tb, mask=mask):
-        """Composite yardstick: gather, dequantize (float32 multiply, cast
-        to q's dtype) and scaled_dot_product_attention."""
-        b, t = tb.shape[0], tb.long()
-        k, v = ((c[t].float() * sc[t][..., None]).to(q.dtype)
-                .reshape(b, -1, Hkv, D).transpose(1, 2)
-                for c, sc in ((kq, ks), (vq, vs)))
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k, v, attn_mask=mask[:b], enable_gqa=True)
+    mask = window_mask(ln, W, P * PS)
 
     int8_layers = [quantize_pages(kp.float(), vp.float())
                    for kp, vp in layers]
@@ -1041,7 +1123,8 @@ def phase_timing(dev) -> dict:
                    for kv in layers],
         "plain": [lambda kv=kv: ref.paged_attention_mq(q, *kv, tb, ln)
                   for kv in layers],
-        "library": [lambda kv=kv: library(q, *kv, tb) for kv in layers]},
+        "library": [lambda kv=kv: sdpa_paged(q, *kv, tb, mask)
+                    for kv in layers]},
         f"decode B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} ps={PS} "
         f"lengths={lens.tolist()} bf16", nbytes, nops)
     nbytes, nops = attention_cost(q, int8_layers[0][0], tb, ln, scaled=True)
@@ -1052,7 +1135,7 @@ def phase_timing(dev) -> dict:
         "plain": [lambda kv=kv: ref.paged_attention_mq(q, kv[0], kv[1], tb,
                                                        ln, *kv[2:])
                   for kv in int8_layers],
-        "library": [lambda kv=kv: library_int8(q, *kv, tb)
+        "library": [lambda kv=kv: sdpa_paged_int8(q, *kv, tb, mask)
                     for kv in int8_layers]},
         f"decode B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} ps={PS} "
         f"lengths={lens.tolist()} q bf16, int8 pages", nbytes, nops)
@@ -1080,22 +1163,10 @@ def phase_timing(dev) -> dict:
     q2 = torch.randn(1, W2, Hq, D, device=dev).to(dtype)
     ln2 = torch.tensor([start + 1], dtype=torch.int32, device=dev)
     tb2 = tb[:1]
-    mask2 = (torch.arange(P * PS, device=dev)[None, :]             # causal
-             < start + 1 + torch.arange(W2, device=dev)[:, None])[None, None]
-    for name, kvs, scaled, lib in (
-            ("paged_attention_mq", layers, False,
-             lambda kv: library(q2, *kv, tb2, mask=mask2)),
-            ("paged_attention_mq_int8", int8_layers, True,
-             lambda kv: library_int8(q2, *kv, tb2, mask=mask2))):
-        b2, by2 = bound(*attention_cost(q2, kvs[0][0], tb2, ln2,
-                                        scaled=scaled), dtype)
-        t2 = {what: device_ms([lambda kv=kv: fn(kv) for kv in kvs])
-              for what, fn in (
-                  ("kernel", lambda kv: ops.paged_attention_mq(
-                      q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
-                  ("plain", lambda kv: ref.paged_attention_mq(
-                      q2, kv[0], kv[1], tb2, ln2, *kv[2:])),
-                  ("library", lib))}
+    mask2 = window_mask(ln2, W2, P * PS)
+    for name, kvs, scaled in (("paged_attention_mq", layers, False),
+                              ("paged_attention_mq_int8", int8_layers, True)):
+        t2, b2, by2 = time_window(q2, kvs, tb2, ln2, mask2, scaled)
         out[name].update(chunk_ms=t2["kernel"], chunk_plain_ms=t2["plain"],
                          chunk_library_ms=t2["library"], chunk_bound_ms=b2,
                          chunk_shape=f"prefill chunk W={W2} start={start}")
@@ -1108,23 +1179,10 @@ def phase_timing(dev) -> dict:
     # the B1 entries as verify_*
     W5 = max(VERIFY_WIDTHS)
     q5 = torch.randn(B, W5, Hq, D, device=dev).to(dtype)
-    mask5 = (torch.arange(P * PS, device=dev)[None, None, :]         # causal
-             < (ln[:, None] + torch.arange(W5, device=dev))[:, :, None]
-             )[:, None]                                         # (B,1,W,S)
-    for name, kvs, scaled, lib in (
-            ("paged_attention_mq", layers, False,
-             lambda kv: library(q5, *kv, tb, mask=mask5)),
-            ("paged_attention_mq_int8", int8_layers, True,
-             lambda kv: library_int8(q5, *kv, tb, mask=mask5))):
-        b5, by5 = bound(*attention_cost(q5, kvs[0][0], tb, ln,
-                                        scaled=scaled), dtype)
-        t5 = {what: device_ms([lambda kv=kv: fn(kv) for kv in kvs])
-              for what, fn in (
-                  ("kernel", lambda kv: ops.paged_attention_mq(
-                      q5, kv[0], kv[1], tb, ln, *kv[2:])),
-                  ("plain", lambda kv: ref.paged_attention_mq(
-                      q5, kv[0], kv[1], tb, ln, *kv[2:])),
-                  ("library", lib))}
+    mask5 = window_mask(ln, W5, P * PS)
+    for name, kvs, scaled in (("paged_attention_mq", layers, False),
+                              ("paged_attention_mq_int8", int8_layers, True)):
+        t5, b5, by5 = time_window(q5, kvs, tb, ln, mask5, scaled)
         host5 = time_ms(lambda: ops.paged_attention_mq(
             q5, kvs[0][0], kvs[0][1], tb, ln, *kvs[0][2:]))
         out[name].update(verify_ms=t5["kernel"], verify_plain_ms=t5["plain"],
@@ -2473,13 +2531,14 @@ def phase_main_sampled(dev) -> None:
     del params
 
 
-def phase_traffic(main_rate: float) -> None:
-    """An open-loop run through the launcher: 16 Poisson arrivals at the
-    stated rate on the wall clock; the report must be complete (every
-    request measured, no errors, every percentile, throughput and
-    goodput), the paged path's kernels must launch and no plain version
-    run.  Nothing else of the report is gated."""
-    args = launch_serve.parse_args(MAIN_ARGS + TRAFFIC_ARGS)
+def phase_traffic(main_rate: float, extra=(), label="traffic") -> dict:
+    """An open-loop run through the launcher (``extra`` added to its
+    arguments): 16 Poisson arrivals at the stated rate on the wall clock;
+    the report must be complete (every request measured, no errors, every
+    percentile, throughput and goodput), the paged path's kernels must
+    launch and no plain version run.  Nothing else of the report is gated.
+    Returns the report with each request's first-to-second-token gap."""
+    args = launch_serve.parse_args(MAIN_ARGS + TRAFFIC_ARGS + list(extra))
     gc.collect()
     torch.cuda.empty_cache()
     eng, cfg = launch_serve.build_engine(args)
@@ -2496,22 +2555,332 @@ def phase_traffic(main_rate: float) -> None:
             or not rep["tok_per_s"] > 0
             or set(rep["goodput"]) != {"tok_per_s", "req_per_s",
                                        "slo_attainment"}):
-        raise AssertionError(f"traffic: incomplete report {rep}")
+        raise AssertionError(f"{label}: incomplete report {rep}")
     for name in PAGED_KERNELS:
         if counts[name][0] <= 0:
-            raise AssertionError(f"traffic: {name} did not launch")
+            raise AssertionError(f"{label}: {name} did not launch")
     if any(p for _, p in counts.values()):
-        raise AssertionError(f"traffic: a plain version ran {counts}")
+        raise AssertionError(f"{label}: a plain version ran {counts}")
+    gaps = second_token_gaps(res["events"])
     g = rep["goodput"]
-    log(f"traffic: qwen2-7b paged, {n} Poisson arrivals at {args.rate} "
+    log(f"{label}: qwen2-7b paged{' disaggregated' if args.disagg else ''}, "
+        f"{n} Poisson arrivals at {args.rate} "
         f"requests/s (main served {main_rate:.2f} requests/s closed-loop), "
         f"wall clock: TTFT p50 {rep['ttft']['p50']:.4f} s p99 "
         f"{rep['ttft']['p99']:.4f} s, ITL p50 {rep['itl']['p50']:.4f} s p99 "
         f"{rep['itl']['p99']:.4f} s, e2e p50 {rep['e2e']['p50']:.4f} s p99 "
         f"{rep['e2e']['p99']:.4f} s, {rep['tok_per_s']:.2f} tok/s over "
         f"{rep['span']:.3f} s, goodput {g['tok_per_s']:.2f} tok/s "
-        f"(slo_attainment {g['slo_attainment']:.2f}, no SLO); launches "
-        f"{counts}")
+        f"(slo_attainment {g['slo_attainment']:.2f}, no SLO); first to "
+        f"second token p50 {np.percentile(gaps, 50):.4f} s max "
+        f"{max(gaps):.4f} s; launches {counts}")
+    return dict(rep, second_token_gaps=gaps)
+
+
+def second_token_gaps(events) -> list[float]:
+    """Each request's wall seconds from its first token to its second, from
+    the harness's event log (0 when both came out of one tick)."""
+    seen, first, gaps = {}, {}, []
+    for ev in events:
+        if ev["kind"] != "tokens":
+            continue
+        rid = ev["rid"]
+        before = seen.get(rid, 0)
+        seen[rid] = before + ev["n"]
+        if before == 0:
+            first[rid] = ev["t"]
+        if before < 2 <= seen[rid]:
+            gaps.append(ev["t"] - first[rid])
+    return gaps
+
+
+# -- disaggregated prefill/decode: two engines, one page handoff --------------
+
+@contextlib.contextmanager
+def launches_by_role(names):
+    """Kernel launches of ``names`` inside each role's stage of a
+    disaggregated engine, measured: ``ops.COUNTS`` is read before and after
+    every call of the two stage functions that ``run_stages`` drives.
+    Yields ``{"prefill": {name: n}, "decode": {name: n}}``, filled as the
+    stages run.  Exact under the serial executor only: there the stages
+    never overlap."""
+    roles = {role: dict.fromkeys(names, 0) for role in ("prefill", "decode")}
+    saved = {attr: getattr(DisaggServeEngine, attr)
+             for attr in ("_prefill_stage", "_decode_stage")}
+
+    def counted(stage, acc):
+        def run(self):
+            before = {n: ops.COUNTS[n].kernel for n in names}
+            try:
+                return stage(self)
+            finally:
+                for n in names:
+                    acc[n] += ops.COUNTS[n].kernel - before[n]
+        return run
+
+    for (attr, stage), role in zip(saved.items(), roles):
+        setattr(DisaggServeEngine, attr, counted(stage, roles[role]))
+    try:
+        yield roles
+    finally:
+        for attr, stage in saved.items():
+            setattr(DisaggServeEngine, attr, stage)
+
+
+def check_disagg(label, eng, counts, attn, want, roles=None) -> dict | None:
+    """Gates of a disaggregated run over main's 8 requests: served as main
+    is (:func:`check_served`, every B1 call split), each request through
+    one handoff and one injection, both pools whole after the drain (every
+    page free or parked in the prefix cache, none held), and the streams
+    equal to the monolithic run's ``want``; both roles serve the same weight
+    tensors (one copy).  B1's and B2's launches must be the roles' steps
+    times a step's: L a prefill chunk or decode step, and 1 + 2L.  With
+    ``roles``, the launches measured in each role's stage
+    (:func:`launches_by_role`, serial executor), each role's must equal its
+    own steps' and the two must add up to the run's; without, only the
+    run's total is held.  Returns ``roles``."""
+    check_served(eng, label, counts,
+                 PAGED_KERNELS if attn == "paged_attention_mq"
+                 else INT8_KERNELS)
+    pre, dec = eng.prefiller, eng.decoder
+    check_split(label, counts, attn, dec.sched.pages_per_slot)
+    n = (pre.stats["kv_handoffs"], dec.stats["kv_injections"])
+    if n != (8, 8):
+        raise AssertionError(f"{label}: handoffs, injections {n}, want 8 each")
+    if not all(a is b for a, b in zip(tree_leaves(pre.params),
+                                      tree_leaves(dec.params))):
+        raise AssertionError(f"{label}: the roles hold two copies of the "
+                             "weights")
+    for role, e in (("prefill", pre), ("decode", dec)):
+        pool = e.pool
+        if (pool.pages_in_use or e.sched.held_pages()
+                or pool.pages_free + pool.pages_cached != pool.num_pages):
+            raise AssertionError(
+                f"{label}: the {role} pool is not whole after the drain: "
+                f"{pool.pages_free} free, {pool.pages_cached} cached, "
+                f"{pool.pages_in_use} in use of {pool.num_pages}")
+    L = eng.model.cfg.n_layers
+    steps = {"prefill": pre.stats["chunk_prefills"],
+             "decode": dec.stats["ticks"] + dec.stats["chunk_prefills"]}
+    need = {role: {attn: L * k, "rmsnorm": (1 + 2 * L) * k}
+            for role, k in steps.items()}
+    for name in (attn, "rmsnorm"):
+        if counts[name][0] != sum(r[name] for r in need.values()):
+            raise AssertionError(f"{label}: {name} launched {counts[name][0]} "
+                                 f"times; the roles' steps {steps} need "
+                                 f"{need}")
+        if roles is not None and (
+                {r: roles[r][name] for r in need}
+                != {r: need[r][name] for r in need}):
+            raise AssertionError(f"{label}: {name} launched {roles} in the "
+                                 f"roles' stages; their steps {steps} need "
+                                 f"{need}")
+    got = {r.rid: r.output for r in eng.finished}
+    if got != want:
+        raise AssertionError(f"{label}: streams differ from the monolithic "
+                             f"run's: {streams_agree(eng, want)}")
+    return roles
+
+
+def memory_account(eng) -> str:
+    """Device bytes of a disaggregated engine's weights (one copy, shared)
+    and of each role's page pool, as printed text."""
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(eng.decoder.params))
+    pools = {role: sum(t.numel() * t.element_size()
+                       for t in e.pool.storage.values())
+             for role, e in (("prefill", eng.prefiller),
+                             ("decode", eng.decoder))}
+    return f"weights {weights} B once, pools {pools} B"
+
+
+def handoff_timing(eng, n_pages: int) -> dict:
+    """Device time of one handoff of ``n_pages`` pages between the run's two
+    pools (the prefiller's gather of every leaf, the decoder's scatter),
+    replayed from a CUDA graph, beside its bytes and their bound: the copy
+    is read and written by the gather and again by the scatter."""
+    pre, dec = eng.prefiller.pool, eng.decoder.pool
+    dev = dec.device
+    src = torch.arange(n_pages, device=dev)[None]
+    dst = torch.arange(n_pages, device=dev)
+    kv = {}
+
+    def handoff():
+        for name, st in pre.storage.items():
+            n = len(pre.leaf_specs[name].prefix)
+            kv[name] = PG.gather_pages(st, src, n_prefix=n).squeeze(n)
+        for name, st in dec.storage.items():
+            PG.scatter_chunk(st, dst, kv[name], page_size=dec.page_size,
+                             n_prefix=len(dec.leaf_specs[name].prefix))
+
+    ms = device_ms([handoff])
+    host = time_ms(handoff, iters=20, warmup=2)
+    nbytes = sum(t.numel() * t.element_size() for t in kv.values())
+    return dict(ms=ms, host_ms=host, bytes=nbytes,
+                bound_ms=4 * nbytes / HBM_BYTES_PER_S * 1e3,
+                positions=n_pages * dec.page_size)
+
+
+def phase_main_disagg(main_peak, ref_streams, int8_streams) -> dict:
+    """main through the launcher's ``--disagg``: the serial executor, the
+    thread executor, then int8 KV pages (serial); each run gated by
+    :func:`check_disagg` against main's or main-int8's streams.  Prints the
+    roles' B1 and B2 launches, the device memory (the weights once, each
+    role's pool; the run's peak above what earlier phases left allocated,
+    beside main's peak), the wall tok/s of serial against thread, and the
+    handoff of a 300-token prompt (19 pages) as device time against its
+    bound.  Returns the serial run's launches by role and the handoff's
+    timing."""
+    out = {}
+    for label, extra, attn, want in (
+            ("serial", [], "paged_attention_mq", ref_streams),
+            ("thread", ["--executor", "thread"], "paged_attention_mq",
+             ref_streams),
+            ("int8", ["--kv-quant", "int8"], "paged_attention_mq_int8",
+             int8_streams)):
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        if label == "thread":       # the stages overlap: the run's total
+            roles = None
+            eng, counts, wall, peak = serve_main(["--disagg"] + extra)
+        else:
+            with launches_by_role((attn, "rmsnorm")) as roles:
+                eng, counts, wall, peak = serve_main(["--disagg"] + extra)
+        peak -= base
+        check_disagg(f"main-disagg {label}", eng, counts, attn, want, roles)
+        toks = sum(len(r.output) for r in eng.finished)
+        s = eng.stats
+        kv_b = s["decode"]["kv_bytes_per_token"]
+        log(f"main-disagg {label}: qwen2-7b, {len(eng.finished)} requests, "
+            f"{toks} tokens, {toks / wall:.1f} tok/s wall (init included: "
+            f"{wall:.2f}s); handoffs={s['prefill']['kv_handoffs']} "
+            f"injections={s['decode']['kv_injections']}; prefill role "
+            f"{s['prefill']['chunk_prefills']} chunks, decode role "
+            f"{s['decode']['ticks']} ticks; launches measured by role "
+            f"{roles or 'not split (the stages overlap)'}; "
+            f"{kv_b} KV B a token; {memory_account(eng)}; peak above the "
+            f"run's start {peak} B (main {main_peak} B); streams equal to "
+            f"the monolithic run's; launches {counts}")
+        out[label] = dict(roles=roles, tok_s=toks / wall, peak=peak)
+        if label == "serial":
+            t = handoff_timing(eng, HANDOFF_PAGES)
+            out["handoff"] = t
+            log(f"main-disagg handoff of {HANDOFF_PAGES} pages "
+                f"({t['positions']} positions, {kv_b} B a token): "
+                f"{t['bytes']} B, device {t['ms']:.5f} ms (gather + "
+                f"scatter, every leaf), bound {t['bound_ms']:.6f} ms "
+                f"(4 x bytes / {HBM_BYTES_PER_S:.3g} B/s), host-issued "
+                f"{t['host_ms']:.5f} ms; a copy on one card, not a transfer "
+                f"over a link")
+        eng.close()
+        del eng
+    log(f"main-disagg: wall tok/s serial {out['serial']['tok_s']:.1f}, "
+        f"thread {out['thread']['tok_s']:.1f}")
+    return out
+
+
+def phase_timing_g5(dev) -> dict:
+    """B1 at qwen2.5-14b's heads (Hq 40, Hkv 8: G 5), bf16, at main's two
+    timed windows (:func:`phase_timing`): the decode step (4 slots, W 1)
+    and a prefill chunk (W 64 at position 192), over 48 layers' pools;
+    device times of kernel, plain version and yardstick beside the
+    bound."""
+    cfg = get_config("qwen2.5-14b")
+    dtype = torch.bfloat16
+    tb, lens, layers = paged_pools(cfg, np.random.default_rng(5), dev, dtype)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    for key, B, W, ln in (
+            ("g5_decode", 4, 1, torch.tensor(lens, device=dev)),
+            ("g5_chunk", 1, 64, torch.tensor([193], dtype=torch.int32,
+                                             device=dev))):
+        q = torch.randn(B, W, Hq, D, device=dev).to(dtype)
+        ms, b, by = time_window(q, layers, tb[:B], ln,
+                                window_mask(ln, W, tb.shape[1] * PS))
+        out.update({f"{key}_ms": ms["kernel"], f"{key}_plain_ms": ms["plain"],
+                    f"{key}_library_ms": ms["library"],
+                    f"{key}_bound_ms": b, f"{key}_bound_by": by})
+        log(f"timing paged_attention_mq at G 5 [{key[3:]} B={B} W={W} "
+            f"Hq={Hq} Hkv={Hkv} D={D}, {cfg.n_layers} layers' pools, bf16]: "
+            f"device kernel {ms['kernel']:.5f} ms, plain {ms['plain']:.5f} "
+            f"ms, library {ms['library']:.5f} ms, bound {b:.6f} ms ({by})")
+    del layers
+    return out
+
+
+def phase_main_14b() -> dict:
+    """Full-width, full-depth qwen2.5-14b (48 layers, d 5120, bf16, random
+    weights from seed 0, no cut) with main's request mix: the monolithic
+    paged engine, then the disaggregated pair on the same weight tensors
+    (one copy).  Both served through the kernels only, B1 split, B2 as
+    the steps need; the disaggregated streams equal the monolithic ones,
+    each handoff injected once and both pools whole.  Prints the weights'
+    bytes, the peak device memory of each run, tok/s and the launches."""
+    args = launch_serve.parse_args(["--arch", "qwen2.5-14b"] + MAIN_ARGS[2:])
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+    kw = dict(max_slots=args.slots, max_len=args.max_len,
+              page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+              prefix_cache=True, device="cuda")
+    runs = {}
+    for label, make in (("monolithic", lambda: ServeEngine(model, params,
+                                                           **kw)),
+                        ("disagg", lambda: DisaggServeEngine(model, params,
+                                                             **kw))):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        eng = make()
+        with launches_by_role(("paged_attention_mq", "rmsnorm")) as roles:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=args.max_new)
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        if label == "monolithic":
+            want = {r.rid: r.output for r in eng.finished}
+            check_served(eng, "main-14b monolithic", counts, PAGED_KERNELS)
+            check_split("main-14b monolithic", counts, "paged_attention_mq",
+                        eng.sched.pages_per_slot)
+            s = eng.stats
+            check_norm_counts("main-14b monolithic", counts,
+                              s["ticks"] + s["chunk_prefills"],
+                              qwen_norms(cfg))
+            what = (f"ticks={s['ticks']} chunks={s['chunk_prefills']} "
+                    f"prefix_hits={s['prefix_hits']}")
+        else:
+            check_disagg("main-14b disagg", eng, counts,
+                         "paged_attention_mq", want, roles)
+            what = (f"launches measured by role {roles}; "
+                    f"{memory_account(eng)}")
+        toks = sum(len(r.output) for r in eng.finished)
+        runs[label] = dict(tok_s=toks / wall, peak=peak)
+        log(f"main-14b {label}: qwen2.5-14b {cfg.n_layers} layers d "
+            f"{cfg.d_model} Hq/Hkv {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"{cfg.dtype}, {len(eng.finished)} requests, {toks} tokens, "
+            f"{toks / wall:.1f} tok/s wall, {what}; peak above the "
+            f"phase's start {peak} B; launches {counts}")
+        eng.close()
+        del eng
+    log(f"main-14b: {n_params} parameters, {weights} B of weights (one copy, "
+        f"initialised in {init_s:.2f}s); disaggregated streams equal the "
+        f"monolithic ones; peak monolithic {runs['monolithic']['peak']} B, "
+        f"disagg {runs['disagg']['peak']} B")
+    del params
+    return runs
 
 
 # -- the paper's science layer: the executor runtime and the three apps -------
@@ -2825,6 +3194,7 @@ def main() -> int:
     phase_small(dev)
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
+    main_base = torch.cuda.memory_allocated()
     launches, eng, bf16_peak = phase_main()
     main_rate = served_rate(eng)
     paged_launches = dict(launches)
@@ -2873,7 +3243,25 @@ def main() -> int:
         "paged_attention_mq_int8", int8_streams)
     del eng
     phase_main_sampled(dev)
-    phase_traffic(main_rate)
+    traffic = phase_traffic(main_rate)
+    # disaggregated prefill/decode: qwen2-7b (bf16 and int8 pages, serial
+    # and thread), qwen2.5-14b beside its monolithic run, open-loop traffic
+    t_disagg = time.perf_counter()
+    disagg = phase_main_disagg(bf16_peak - main_base, ref_streams,
+                               int8_streams)
+    times["paged_attention_mq"].update(phase_timing_g5(dev))
+    phase_main_14b()
+    traffic_disagg = phase_traffic(main_rate, ["--disagg"], "traffic-disagg")
+    log("traffic-disagg beside traffic: " + "; ".join(
+        f"{m} p50 {traffic_disagg[m]['p50']:.4f} s (monolithic "
+        f"{traffic[m]['p50']:.4f} s) p99 {traffic_disagg[m]['p99']:.4f} s "
+        f"(monolithic {traffic[m]['p99']:.4f} s)" for m in ("ttft", "itl"))
+        + f"; {traffic_disagg['tok_per_s']:.2f} tok/s (monolithic "
+        f"{traffic['tok_per_s']:.2f}); first to second token p50 "
+        f"{np.percentile(traffic_disagg['second_token_gaps'], 50):.4f} s "
+        f"(monolithic {np.percentile(traffic['second_token_gaps'], 50):.4f}"
+        f" s); the three disaggregated phases took "
+        f"{time.perf_counter() - t_disagg:.1f} s")
     # the paper's function-centric layer: no TPU kernel on this path
     gc.collect()
     torch.cuda.empty_cache()
@@ -2887,6 +3275,10 @@ def main() -> int:
         f"W{W}": n for W, n in int8_widths.items()}
     times["flash_attention"]["drafter_launches"] = \
         spec_launches["flash_attention"]
+    # B1's and B2's launches by role in main-disagg's serial run
+    for name in ("paged_attention_mq", "rmsnorm"):
+        times[name]["disagg_launches"] = {
+            role: n[name] for role, n in disagg["serial"]["roles"].items()}
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
     times["flash_attention"].update(
@@ -2924,7 +3316,11 @@ def main() -> int:
                 "chunk_library_ms", "chunk_bound_ms", "chunk_shape",
                 "s2048_ms", "s2048_plain_ms", "s2048_library_ms",
                 "s2048_bound_ms", "floor_ms", "floor_host_ms", "variants",
-                "launches_by_run") if k in t}})
+                "launches_by_run", "disagg_launches", "g5_decode_ms",
+                "g5_decode_plain_ms", "g5_decode_library_ms",
+                "g5_decode_bound_ms", "g5_decode_bound_by", "g5_chunk_ms",
+                "g5_chunk_plain_ms", "g5_chunk_library_ms",
+                "g5_chunk_bound_ms", "g5_chunk_bound_by") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

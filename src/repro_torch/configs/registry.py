@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported archs.
 
-The dense decoders (qwen2-7b, qwen3-1.7b), rwkv6-3b and zamba2-7b are
-here; every other arch of the reference registry raises until its slice
-lands.
+The dense decoders (qwen2-7b, qwen2.5-14b, qwen3-1.7b), rwkv6-3b and
+zamba2-7b are here; every other arch of the reference registry raises until
+its slice lands.
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import importlib
 
 _MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2p5_14b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",

@@ -20,7 +20,10 @@ open-loop arrival process at ``--rate`` requests a clock unit instead of
 submitting everything up front, and prints the metric report (TTFT, ITL,
 e2e, goodput under ``--slo-ttft`` / ``--slo-e2e``); ``--clock virtual``
 counts engine ticks (deterministic), ``--clock wall`` seconds;
-``--metrics-out`` writes the report as JSON.  Prints the reference
+``--metrics-out`` writes the report as JSON.  ``--disagg`` serves through
+a prefill-only engine and a decode engine with a KV page handoff between
+them (:class:`repro_torch.serve.disagg.DisaggServeEngine`, paged only),
+their stages driven by ``--executor serial|thread``.  Prints the reference
 launcher's summary lines plus each kernel's launch count.
 """
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models.api import build_model
+from repro_torch.serve.disagg import DisaggServeEngine
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.traffic import make_workload, run_traffic
 
@@ -76,6 +80,13 @@ def parse_args(argv=None):
                     "prompt-lookup, 'self-2' = first-2-layer self-draft)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="max draft tokens per verify window")
+    ap.add_argument("--disagg", action="store_true",
+                    help="split serving into a prefill-only engine and a "
+                    "decode engine with KV page handoff between them")
+    ap.add_argument("--executor", choices=("serial", "thread"),
+                    default="serial",
+                    help="how the disagg stages run: deterministic serial "
+                    "order or overlapped farm threads")
     ap.add_argument("--traffic", choices=("off", "poisson", "bursty"),
                     default="off",
                     help="drive the engine with an open-loop seeded arrival "
@@ -94,7 +105,10 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the traffic metric report as JSON")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.disagg and args.dense:
+        raise SystemExit("--disagg needs the paged KV engine; drop --dense")
+    return args
 
 
 def make_prompts(args, vocab: int) -> list:
@@ -165,17 +179,18 @@ def build_engine(args):
                          f"recurrent-slot families; {args.arch} is {why} "
                          f"({type(model).__name__}.prefill and decode_step)")
     params = model.init(0, device=args.device, weight_quant=args.weight_quant)
-    eng = ServeEngine(model, params, max_slots=args.slots,
-                      max_len=args.max_len, page_size=args.page_size,
-                      num_pages=args.num_pages,
-                      prefill_chunk=args.prefill_chunk,
-                      prefix_cache=args.prefix_cache == "on",
-                      prefill_workers=args.prefill_workers,
-                      paged=False if args.dense else None,
-                      kv_quant=args.kv_quant, weight_quant=args.weight_quant,
-                      spec_decode=None if args.spec_decode == "off"
-                      else args.spec_decode, spec_k=args.spec_k,
-                      device=args.device)
+    kw = dict(max_slots=args.slots, max_len=args.max_len,
+              page_size=args.page_size, num_pages=args.num_pages,
+              prefill_chunk=args.prefill_chunk,
+              prefix_cache=args.prefix_cache == "on",
+              kv_quant=args.kv_quant, weight_quant=args.weight_quant,
+              spec_decode=None if args.spec_decode == "off"
+              else args.spec_decode, spec_k=args.spec_k, device=args.device)
+    if args.disagg:
+        eng = DisaggServeEngine(model, params, executor=args.executor, **kw)
+    else:
+        eng = ServeEngine(model, params, prefill_workers=args.prefill_workers,
+                          paged=False if args.dense else None, **kw)
     return eng, cfg
 
 
@@ -197,6 +212,19 @@ def main(argv=None):
     done = eng.run_until_drained()
     dt = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done)
+    if args.disagg:
+        s = eng.stats
+        print(f"[serve] disagg: {len(done)} requests, {toks} tokens in "
+              f"{dt:.2f}s ({toks/dt:.1f} tok/s); "
+              f"prefill ticks={s['prefill']['ticks']} "
+              f"handoffs={s['prefill']['kv_handoffs']} | "
+              f"decode ticks={s['decode']['ticks']} "
+              f"injections={s['decode']['kv_injections']} "
+              f"preempt={s['decode']['preemptions']} "
+              f"[executor={args.executor}]")
+        print_counts()
+        eng.close()
+        return eng
     ttfts = [r.first_token_at - r.submitted_at for r in done
              if r.first_token_at is not None]
     s = eng.stats

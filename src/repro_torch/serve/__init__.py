@@ -11,10 +11,13 @@
   line for line).
 * :mod:`repro_torch.serve.engine` — the tick loop driving a model's paged
   prefill, decode and verify functions, or its dense per-slot ones.
+* :mod:`repro_torch.serve.disagg` — disaggregated prefill/decode over a
+  KV page handoff, the two roles driven by ``run_stages``.
 * :mod:`repro_torch.serve.traffic` / :mod:`repro_torch.serve.metrics` —
   seeded open-loop workloads and SLO reporting.
 """
-from repro_torch.serve.pages import PagePool, PagedLeafSpec, PrefixCache
+from repro_torch.serve.pages import (KVHandoff, PagePool, PagedLeafSpec,
+                                     PrefixCache)
 from repro_torch.serve.sampling import (greedy, sample_temperature,
                                         sample_top_k, sample_top_p,
                                         spec_rejection_sample,
@@ -26,6 +29,7 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.spec import (Drafter, NgramDrafter,
                                     TruncatedSelfDrafter, make_drafter)
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.disagg import DisaggServeEngine
 from repro_torch.serve.metrics import (compute_report, nearest_rank,
                                        percentiles)
 from repro_torch.serve.traffic import (TrafficHarness, TrafficRequest,
@@ -33,7 +37,8 @@ from repro_torch.serve.traffic import (TrafficHarness, TrafficRequest,
                                        poisson_arrivals, record_trace,
                                        run_traffic, workload_from_trace)
 
-__all__ = ["Drafter", "Int8KVQuant", "NgramDrafter", "PagePool",
+__all__ = ["DisaggServeEngine", "Drafter", "Int8KVQuant", "KVHandoff",
+           "NgramDrafter", "PagePool",
            "PagedLeafSpec", "PrefixCache", "Request", "Scheduler",
            "ServeEngine", "TrafficHarness", "TrafficRequest",
            "TruncatedSelfDrafter", "bursty_arrivals", "compute_report",

@@ -69,9 +69,15 @@ before its state reached the engine's, so only its request is retired
 state, so the engine evicts every resident, rebuilds a zeroed state and
 raises.
 
+Disaggregated serving (:mod:`repro_torch.serve.disagg`) pairs a
+``prefill_only=True`` engine, which hands each completed prefill's pages
+off as a :class:`repro_torch.serve.pages.KVHandoff` instead of decoding,
+with a plain engine that takes them in through :meth:`ServeEngine.
+inject_prefilled`.
+
 Features of the reference engine that later port slices bring (encoder
-inputs, the device mesh, prefill-only disaggregation) raise
-``NotImplementedError`` here instead of being ignored.  A model whose
+inputs, the device mesh) raise ``NotImplementedError`` here instead of
+being ignored.  A model whose
 ``engine_refusal()`` names a reason is refused: the hybrid family (zamba2)
 serves only as an aligned batch
 (:class:`repro_torch.models.api.HybridLM`), as in the reference.
@@ -100,7 +106,7 @@ from repro_torch.serve import spec as SP
 from repro_torch.serve.pages import PagePool
 from repro_torch.serve.sampling import (greedy, spec_rejection_sample,
                                         spec_verify_greedy)
-from repro_torch.serve.scheduler import Scheduler, prefill_tokens
+from repro_torch.serve.scheduler import FREE, Scheduler, prefill_tokens
 
 
 @dataclasses.dataclass
@@ -158,7 +164,9 @@ class ServeEngine:
     work, as the reference does.  ``sampler``: the engine-wide ``(key,
     logits (B, V)) -> (B,)`` draw (greedy when None).  ``spec_decode``,
     ``spec_k``, ``spec_temperature``: speculative decode (module
-    docstring)."""
+    docstring).  ``prefill_only=True`` makes the engine the prefill role of
+    disaggregated serving (paged only): each surviving request leaves as a
+    :class:`repro_torch.serve.pages.KVHandoff` in :attr:`handoffs`."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -170,12 +178,8 @@ class ServeEngine:
                  spec_decode=None, spec_k: int = 4,
                  spec_temperature: float = 0.0, kv_quant=None,
                  weight_quant=None, mesh=None, prefill_only: bool = False):
-        refused = [(mesh is not None, "a device mesh", "MoE with TP/EP"),
-                   (bool(prefill_only), "prefill_only",
-                    "traffic, metrics and disagg")]
-        for bad, what, slice_name in refused:
-            if bad:
-                raise _not_ported(what, slice_name)
+        if mesh is not None:
+            raise _not_ported("a device mesh", "MoE with TP/EP")
         why = model.engine_refusal()
         if why:
             raise ValueError(f"{model.cfg.name} ({model.cfg.family}) is not "
@@ -197,6 +201,30 @@ class ServeEngine:
                 "(spec_temperature > 0); a custom engine-wide sampler "
                 "cannot be verified and would be silently ignored — "
                 "drop it (per-request samplers remain supported)")
+        # A prefill-only engine is the producer half of disaggregated
+        # serving (repro_torch.serve.disagg): it admits and chunk-prefills
+        # as usual, but packages each completed prefill's pages as a
+        # KVHandoff for a decoder to inject instead of decoding.  Handoff
+        # moves whole refcounted pages, so it exists in paged mode only,
+        # and speculation is meaningless on an engine that never decodes.
+        self.prefill_only = bool(prefill_only)
+        self.handoffs: list[PG.KVHandoff] = []
+        if self.prefill_only and not self.paged:
+            raise ValueError(
+                f"prefill_only requires the paged KV engine: "
+                f"{model.cfg.name} ({model.cfg.family}) has no pages to "
+                "hand off; drop the flag or use a paged family")
+        if self.prefill_only and speculate:
+            raise ValueError(
+                "spec_decode on a prefill_only engine would never run "
+                "(speculation happens at decode); configure the drafter on "
+                "the decoder side")
+        if self.prefill_only and getattr(model.cfg, "is_encoder_decoder",
+                                         False):
+            raise ValueError(
+                f"prefill_only on {model.cfg.name} (enc-dec) has no cross-KV "
+                "handoff: the decoder half could never read the audio pages; "
+                "serve enc-dec monolithic")
         # int8 KV pages live in the pool, as scale leaves beside the pages;
         # int8 weights are wired through the paged calls only
         self.kv_quant = QZ.make_kv_quant(kv_quant)
@@ -287,6 +315,7 @@ class ServeEngine:
                       "cow_copies": 0, "evictions": 0, "pages_high_water": 0,
                       "draft_proposed": 0, "draft_accepted": 0,
                       "acceptance_rate": 0.0, "verify_widths": {},
+                      "kv_handoffs": 0, "kv_injections": 0,
                       "kv_quant": self.kv_quant.name if self.kv_quant
                       else "off",
                       "weight_quant": self.weight_quant or "off",
@@ -296,6 +325,24 @@ class ServeEngine:
     def _dev(self, a) -> torch.Tensor:
         """A host array as a fresh tensor on the engine's device."""
         return torch.tensor(np.asarray(a), device=self.device)
+
+    # -- compat views --------------------------------------------------------
+
+    @property
+    def queue(self) -> list:
+        """Requests admitted-but-waiting (scheduler FIFO view)."""
+        return self.sched.queue
+
+    @property
+    def slot_req(self) -> list:
+        """Per-slot resident request (None for a free slot)."""
+        return self.sched.slot_req
+
+    @property
+    def storage(self):
+        """The paged KV storage tree (it lives on the pool, the only copy;
+        every tick writes into it in place); None on the dense path."""
+        return self.pool.storage if self.pool is not None else None
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -374,6 +421,10 @@ class ServeEngine:
         return False
 
     def _emit_first_token(self, slot: int, tok: int):
+        """Bookkeeping for the token sampled off a completed prefill (EOS
+        and budget checked at once: a request may finish here).  A
+        prefill-only engine hands a surviving request off to a decoder
+        instead of keeping the slot live."""
         req = self.sched.slot_req[slot]
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
@@ -381,7 +432,76 @@ class ServeEngine:
         self.last_token[slot] = tok
         self.stats["tokens"] += 1
         self.stats["prefills"] += 1
+        if self.prefill_only:
+            # instant EOS, a one-token budget or max_len still retire here:
+            # there is nothing left for a decoder to do
+            if not self._check_retire(slot, tok):
+                self._handoff(slot)
+            return
         self._check_retire(slot, tok)
+
+    # -- disaggregated prefill/decode: page handoff ---------------------------
+
+    def _gather_slot_kv(self, row: np.ndarray) -> dict:
+        """Gather one slot's pages into a contiguous copy per pool leaf
+        (``prefix + (n * page_size,) + suffix``).  The copy is independent
+        of the pool's storage, so a later storage rebuild cannot touch an
+        in-flight handoff."""
+        tables = self._dev(np.asarray(row, np.int32)[None])
+        out = {}
+        for name, st in self.pool.storage.items():
+            n = len(self.pool.leaf_specs[name].prefix)
+            out[name] = PG.gather_pages(st, tables, n_prefix=n).squeeze(n)
+        return out
+
+    def _handoff(self, slot: int):
+        """Package a completed prefill for a decoder: gather the slot's KV,
+        take one in-flight reference per source page (they may stay
+        registered and be re-shared by the prefix cache meanwhile, but a
+        referenced page is never evicted or reallocated), then release the
+        slot: full clean pages park in the prefix index as a monolithic
+        retirement's would.  The KVHandoff owns the in-flight references
+        until its ``release()``."""
+        req = self.sched.slot_req[slot]
+        total = int(self.sched.lengths[slot])
+        n_kv = -(-total // self.pool.page_size)
+        pages = [int(p) for p in self.sched.table[slot, :n_kv]]
+        kv = self._gather_slot_kv(self.sched.table[slot, :n_kv])
+        self.pool.incref(pages)
+        self.sched.release(slot)
+        self.stats["kv_handoffs"] += 1
+        self.handoffs.append(PG.KVHandoff(req=req, length=total, kv=kv,
+                                          pages=pages, pool=self.pool))
+
+    def inject_prefilled(self, handoff: PG.KVHandoff) -> bool:
+        """Decoder half of the page handoff: bind a prefilled request into a
+        LIVE slot by scattering the gathered KV into freshly allocated
+        pages — no recompute.  All-or-nothing like admission: returns False
+        (taking nothing) when no slot is free or the pool cannot yield
+        ``(length + page_size) // page_size`` pages now; the caller retries
+        after a tick drains capacity.  On success the handoff's source
+        references are NOT dropped: the caller owns ``handoff.release()``
+        (idempotent)."""
+        if not self.paged:
+            raise ValueError("page handoff requires the paged KV engine")
+        req, total = handoff.req, handoff.length
+        assert req.output, "handoff carries the prefill's first token"
+        slot = next((s for s in range(self.max_slots)
+                     if self.sched.status[s] == FREE), None)
+        if slot is None:
+            return False
+        ps = self.pool.page_size
+        pages = self.pool.alloc((total + ps) // ps)
+        if pages is None:
+            return False
+        pg = self._dev(np.asarray(pages[:-(-total // ps)], np.int32))
+        for name, st in self.pool.storage.items():
+            PG.scatter_chunk(st, pg, handoff.kv[name], page_size=ps,
+                             n_prefix=len(self.pool.leaf_specs[name].prefix))
+        self.sched.bind_prefilled(slot, req, pages, total)
+        self.last_token[slot] = req.output[-1]
+        self.stats["kv_injections"] += 1
+        return True
 
     def _retire_error(self, req: Request, err: BaseException):
         req.error = err

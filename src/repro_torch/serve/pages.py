@@ -16,9 +16,9 @@ the engine's per-slot state in the same way.
 
 from __future__ import annotations
 
-__all__ = ["N_TRASH", "PagePool", "PagedLeafSpec", "PrefixCache",
-           "copy_pages", "gather_pages", "scatter_chunk", "scatter_token",
-           "scatter_window", "write_slot"]
+__all__ = ["KVHandoff", "N_TRASH", "PagePool", "PagedLeafSpec",
+           "PrefixCache", "copy_pages", "gather_pages", "scatter_chunk",
+           "scatter_token", "scatter_window", "write_slot"]
 
 import dataclasses
 import heapq
@@ -352,6 +352,66 @@ class PagePool:
                 self._n_cached -= 1
                 self._free_push(q)
 
+    def free(self, pages) -> None:
+        """Return exclusively-held pages to the free list.  Freeing a page
+        already on the free list, or one still shared (refcount > 1),
+        raises instead of silently corrupting the FIFO order — release
+        paths must go through :meth:`decref`.  A registered page leaves the
+        prefix index with its cached descendants, which go back to the free
+        list."""
+        for p in pages:
+            p = int(p)
+            if not 0 <= p < self.num_pages:
+                raise ValueError(f"free of invalid page id {p}")
+            if p in self._free_set:
+                raise ValueError(f"double free of page {p}")
+            if self._ref[p] > 1:
+                raise ValueError(
+                    f"free of page {p} with refcount {int(self._ref[p])}; "
+                    "shared pages are released via decref")
+            if self.prefix is not None and p in self.prefix:
+                if self._ref[p] == 0:       # was parked in the cache
+                    self._n_cached -= 1
+                for q in self.prefix.forget(p):
+                    if q != p and self._ref[q] == 0:    # orphaned descendants
+                        self._n_cached -= 1
+                        self._free_push(q)
+            self._ref[p] = 0
+            self._free_push(p)
+
+    def tokens_capacity(self) -> int:
+        """Total token positions the pool can hold."""
+        return self.num_pages * self.page_size
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """A completed prefill's KV in flight between two pools — the unit of
+    disaggregated prefill/decode transfer (:mod:`repro_torch.serve.disagg`).
+
+    The prefiller gathers the request's pages into a contiguous copy
+    (``kv``: one tensor per pool leaf, shaped ``prefix + (n * page_size,) +
+    suffix``; int8 payloads travel with their scale leaves, which are
+    ordinary pool leaves), takes one extra reference per source page, and
+    releases the slot.  The held references pin the source pages until the
+    decoder has scattered the copy into its own pool and the coordinator
+    calls :meth:`release`, which drops them exactly once: a second call is
+    a no-op, so a retry that races a preemption can never double-free.
+    """
+    req: Any                    # the Request, with its first token appended
+    length: int                 # prefilled positions (first token excluded)
+    kv: Any                     # gathered storage tree (see above)
+    pages: list                 # source page ids holding the in-flight refs
+    pool: Any                   # source PagePool
+    released: bool = False
+
+    def release(self) -> None:
+        """Drop the handoff's page references (idempotent)."""
+        if self.released:
+            return
+        self.released = True
+        self.pool.decref(self.pages)
+
 
 # ---------------------------------------------------------------------------
 # Device ops: in-place writes into the pool's storage tensors
@@ -368,43 +428,57 @@ def _check_write_dtype(storage, vals, op: str):
             "implicit lossy casts are not performed")
 
 
-def scatter_chunk(storage, pages, chunk, *, page_size: int) -> None:
+def _pfx(n_prefix: int) -> tuple:
+    return (slice(None),) * n_prefix
+
+
+def scatter_chunk(storage, pages, chunk, *, page_size: int,
+                  n_prefix: int = 0) -> None:
     """Write a page-aligned token chunk into its pages, in place.
 
-    storage: (N, page_size, suffix...) — one layer's leaf;  pages: (n,) int
-    page ids;  chunk: (n * page_size, suffix...) — in the storage dtype.
+    storage: (prefix..., N, page_size, suffix...) — ``n_prefix`` leading
+    axes (a pool leaf's layer axis), none for one layer's leaf;
+    pages: (n,) int page ids;  chunk: (prefix..., n * page_size,
+    suffix...) — in the storage dtype.
     """
     _check_write_dtype(storage, chunk, "scatter_chunk")
     n = pages.shape[0]
-    storage[pages.long()] = chunk.reshape((n, page_size) + chunk.shape[1:])
+    pre = chunk.shape[:n_prefix]
+    suf = chunk.shape[n_prefix + 1:]
+    storage[_pfx(n_prefix) + (pages.long(),)] = chunk.reshape(
+        pre + (n, page_size) + suf)
 
 
-def scatter_token(storage, pages, offs, vals) -> None:
+def scatter_token(storage, pages, offs, vals, *, n_prefix: int = 0) -> None:
     """Write one token per slot at (page, offset), in place — the decode
-    write.  pages, offs: (B,) ints; vals: (B, suffix...)."""
+    write.  pages, offs: (B,) ints; vals: (prefix..., B, suffix...)."""
     _check_write_dtype(storage, vals, "scatter_token")
-    storage[pages.long(), offs.long()] = vals
+    storage[_pfx(n_prefix) + (pages.long(), offs.long())] = vals
 
 
-def scatter_window(storage, pages, offs, vals) -> None:
+def scatter_window(storage, pages, offs, vals, *, n_prefix: int = 0) -> None:
     """Write a per-slot window of tokens at (page, offset) pairs, in place —
     the speculative-verify write (C candidate positions a slot in one
     scatter; pad and dead positions point at the trash page).
-    pages, offs: (B, C) ints; vals: (B, C, suffix...)."""
+    pages, offs: (B, C) ints; vals: (prefix..., B, C, suffix...)."""
     B, C = pages.shape
+    pre = vals.shape[:n_prefix]
+    suf = vals.shape[n_prefix + 2:]
     scatter_token(storage, pages.reshape(-1), offs.reshape(-1),
-                  vals.reshape((B * C,) + vals.shape[2:]))
+                  vals.reshape(pre + (B * C,) + suf), n_prefix=n_prefix)
 
 
-def gather_pages(storage, tables):
+def gather_pages(storage, tables, *, n_prefix: int = 0):
     """Gather each slot's pages into a contiguous copy.
 
-    storage: (N, page_size, suffix...);  tables: (B, P) ints
-    -> (B, P * page_size, suffix...)
+    storage: (prefix..., N, page_size, suffix...);  tables: (B, P) ints
+    -> (prefix..., B, P * page_size, suffix...)
     """
     B, P = tables.shape
-    g = storage[tables.long()]
-    return g.reshape((B, P * storage.shape[1]) + g.shape[3:])
+    g = storage[_pfx(n_prefix) + (tables.long(),)]
+    pre = g.shape[:n_prefix]
+    suf = g.shape[n_prefix + 3:]
+    return g.reshape(pre + (B, P * storage.shape[n_prefix + 1]) + suf)
 
 
 def copy_pages(storage, leaf_specs, src, dst) -> None:
@@ -415,7 +489,7 @@ def copy_pages(storage, leaf_specs, src, dst) -> None:
     (the layer axis)."""
     src, dst = src.long(), dst.long()
     for name, st in storage.items():
-        pfx = (slice(None),) * len(leaf_specs[name].prefix)
+        pfx = _pfx(len(leaf_specs[name].prefix))
         vals = st[pfx + (src,)]              # advanced indexing: a copy
         st[pfx + (dst,)] = vals
 

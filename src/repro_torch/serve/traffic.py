@@ -15,8 +15,10 @@ load-generation half of the measurement story (the metric half is
   port's engine takes no encoder input yet: :class:`TrafficHarness`
   refuses such a request (ROADMAP A10).
 * :class:`TrafficHarness` — drives any engine with the monolithic
-  interface (``submit`` / ``tick`` / per-request ``output`` + ``done_at``)
-  and emits a flat event log — ``submit`` at the request's *arrival* time
+  interface (``submit`` / ``tick`` / per-request ``output`` + ``done_at``),
+  so the monolithic :class:`~repro_torch.serve.engine.ServeEngine` and the
+  disaggregated :class:`~repro_torch.serve.disagg.DisaggServeEngine`
+  measure under identical load.  It emits a flat event log — ``submit`` at the request's *arrival* time
   (so TTFT includes queueing delay), ``tokens`` whenever a tracked
   request's output grew during a tick, ``done`` on retirement — which
   :func:`repro_torch.serve.metrics.compute_report` folds into the report.
@@ -248,10 +250,14 @@ class TrafficHarness:
         self.events: list[dict] = []
 
     def _submit_queue(self) -> list:
-        # the queue new submissions land on
-        return self.engine.sched.queue
+        # the queue new submissions land on — the prefiller's for a
+        # disaggregated engine
+        eng = getattr(self.engine, "prefiller", self.engine)
+        return eng.sched.queue
 
     def _engine_busy(self) -> bool:
+        if hasattr(self.engine, "has_work"):
+            return self.engine.has_work()
         return self.engine.sched.has_work()
 
     def run(self, workload, *, max_ticks: int = 100_000) -> list[dict]:

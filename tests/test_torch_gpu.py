@@ -934,3 +934,76 @@ def test_run_ranks_refuses_more_nccl_ranks_than_cards(card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA cards"):
         run_ranks(_nccl_world1, (card,), world=torch.cuda.device_count() + 1,
                   store_dir=tmp_path, device=card)
+
+
+# -- disaggregated prefill/decode: the KV page handoff on the card ------------
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_handoff_gather_inject_round_trip_on_card(card, kv_quant):
+    """SMOKE qwen2-7b on the card: a prefill-only engine's packet holds its
+    source pages bit for bit, and after ``inject_prefilled`` the decoder's
+    pages hold the packet bit for bit (float and int8 pages with their
+    scale leaves)."""
+    from repro_torch.serve import pages as PG
+    model = build_model(smoke_config("qwen2-7b"))
+    params = model.init(0, device=card)
+    kw = dict(max_slots=2, max_len=64, page_size=8, prefill_chunk=16,
+              kv_quant=kv_quant, device=card)
+    pre = ServeEngine(model, params, prefill_only=True, **kw)
+    dec = ServeEngine(model, params, **kw)
+    pre.submit(list(range(3, 24)), max_new_tokens=4)
+    for _ in range(8):          # two chunks of 16, then the handoff
+        if pre.handoffs:
+            break
+        pre.tick()
+    packet = pre.handoffs.pop(0)
+    n = -(-packet.length // 8)
+    assert packet.length == 21 and len(packet.pages) == n
+    table = torch.tensor([packet.pages], device=card)
+    for name, st in pre.pool.storage.items():
+        src = PG.gather_pages(st, table, n_prefix=1).squeeze(1)
+        assert packet.kv[name].is_cuda
+        assert torch.equal(packet.kv[name], src), name
+    assert dec.inject_prefilled(packet)
+    packet.release()
+    slot = next(s for s in range(2) if dec.slot_req[s] is packet.req)
+    table = torch.tensor([dec.sched.table[slot, :n].tolist()], device=card)
+    for name, st in dec.pool.storage.items():
+        got = PG.gather_pages(st, table, n_prefix=1).squeeze(1)
+        assert torch.equal(got, packet.kv[name]), name
+    assert dec.stats["kv_injections"] == 1 and pre.stats["kv_handoffs"] == 1
+
+
+@pytest.mark.parametrize("executor", ["serial", "thread"])
+def test_disagg_on_card_matches_monolithic_and_drains(card, executor):
+    """SMOKE qwen2-7b in float32 on the card: the disaggregated engine's
+    greedy streams equal the monolithic engine's on the card, through the
+    kernels only, and both pools are whole after the drain."""
+    from repro_torch.serve.disagg import DisaggServeEngine
+    model = build_model(smoke_config("qwen2-7b"))
+    params = model.init(0, device=card)
+    prompts = [list(range(1, 20)), list(range(1, 20)), list(range(5, 40)),
+               [2, 3, 4, 5, 6, 7, 8]]
+    kw = dict(max_slots=3, max_len=64, page_size=8, num_pages=24,
+              prefill_chunk=16, device=card)
+
+    def serve(eng):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        out = {r.rid: r.output for r in eng.run_until_drained()}
+        return out
+
+    with ServeEngine(model, params, **kw) as mono:
+        want = serve(mono)
+    ops.reset_counts()
+    with DisaggServeEngine(model, params, executor=executor, **kw) as eng:
+        got = serve(eng)
+    assert got == want
+    assert eng.stats["prefill"]["kv_handoffs"] == len(prompts)
+    assert eng.stats["decode"]["kv_injections"] == len(prompts)
+    for pool in (eng.prefiller.pool, eng.decoder.pool):
+        assert pool.pages_in_use == 0
+        assert pool.pages_free + pool.pages_cached == pool.num_pages
+    for name in ("paged_attention_mq", "rmsnorm"):
+        assert ops.COUNTS[name].kernel > 0, name
+    assert all(c.plain == 0 for c in ops.COUNTS.values())

@@ -45,6 +45,7 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.kernels.ssd_scan, repro_torch.core\n"
             "import repro_torch.apps.mcmc, repro_torch.apps.dmc\n"
             "import repro_torch.apps.boussinesq, repro_torch.launch.apps\n"
+            "import repro_torch.serve.disagg, repro_torch.configs.qwen2p5_14b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

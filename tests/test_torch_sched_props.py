@@ -7,16 +7,27 @@ After every step the two must hold the same state — refcounts, free-list
 order, prefix-cache partition, page tables, slot status, queue order and
 counters — and the port's pool must conserve its pages.  The reference's
 own property tests (``test_sched_props.py``) check its invariants; the
-lockstep carries them over to the port."""
+lockstep carries them over to the port.
+
+The disaggregated drive does the same with two pools a package (prefiller
+and decoder, int8 leaf layout with its scale leaf) and ``KVHandoff``
+packets between them: page conservation on both pools after every step,
+with a packet's in-flight references counted as held, and a delivered
+packet released twice (the second a no-op)."""
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro.serve import quant as JQZ
+from repro.serve.pages import KVHandoff as JaxKVHandoff
 from repro.serve.pages import PagePool as JaxPagePool
 from repro.serve.pages import PagedLeafSpec as JaxPagedLeafSpec
 from repro.serve.scheduler import Scheduler as JaxScheduler
-from repro_torch.serve.pages import PagePool, PagedLeafSpec
+from repro_torch.serve import quant as QZ
+from repro_torch.serve.pages import KVHandoff, PagePool, PagedLeafSpec
 from repro_torch.serve.scheduler import FREE, LIVE, Scheduler
 
 NUM_PAGES, PAGE_SIZE, SLOTS, MAX_LEN = 8, 4, 3, 32
@@ -148,3 +159,156 @@ def test_pool_and_scheduler_lockstep_with_prefix_cache(actions, plens):
     """Sharing in play: equal-length prompts (equal content) match, park,
     get LRU-evicted and copy-on-write, identically in both packages."""
     _lockstep(actions, plens, prefix_cache=True)
+
+
+# -- disaggregated prefill/decode: two pools and KVHandoff packets -----------
+
+def _disagg_side(port, prefix_cache):
+    """One package's (pool, scheduler) in the int8 leaf layout."""
+    if port:
+        specs = QZ.quantize_leaf_specs(
+            {"k": PagedLeafSpec((1,), (1, 1), torch.float32)},
+            QZ.Int8KVQuant())
+        pool = PagePool(specs, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                        device="cpu", prefix_cache=prefix_cache)
+        sched = Scheduler
+    else:
+        specs = JQZ.quantize_leaf_specs(
+            {"k": JaxPagedLeafSpec((1,), (1, 1), jnp.float32)},
+            JQZ.Int8KVQuant())
+        pool = JaxPagePool(specs, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                           prefix_cache=prefix_cache)
+        sched = JaxScheduler
+    return pool, sched(max_slots=SLOTS, max_len=MAX_LEN, pool=pool,
+                       prefill_chunk=PAGE_SIZE, chunks_per_tick=2)
+
+
+def _held(pool, s, extra):
+    """The reference's conservation check, with ``extra`` (page -> refs)
+    the in-flight packets' references outside any slot table."""
+    refs = [pool.ref(p) for p in range(pool.num_pages)]
+    cnt = Counter(int(p) for slot in range(s.max_slots)
+                  for p in s.table[slot, :int(s.n_pages[slot])])
+    cnt.update(extra)
+    assert all(cnt.get(p, 0) == refs[p] for p in range(pool.num_pages))
+    assert s.held_pages() + sum(extra.values()) == sum(refs)
+    free = {int(p) for p in pool._free}
+    assert len(free) == pool.pages_free
+    cached = {p for p in range(pool.num_pages) if refs[p] == 0
+              and pool.prefix is not None and p in pool.prefix}
+    held = {p for p in range(pool.num_pages) if refs[p] > 0}
+    assert not (free & cached) and not (free & held) and not (cached & held)
+    assert free | cached | held == set(range(pool.num_pages))
+    assert pool.pages_cached == len(cached)
+    for slot in range(s.max_slots):
+        if s.status[slot] == FREE:
+            assert int(s.n_pages[slot]) == 0
+
+
+def _drive_disagg(actions, plens, prefix_cache, port):
+    """The reference's ``_drive_disagg`` on one package: returns the
+    per-step states of both sides, the pending packets and both sides."""
+    (pool_p, sp), (pool_d, sd) = (_disagg_side(port, prefix_cache)
+                                  for _ in range(2))
+    handoff = KVHandoff if port else JaxKVHandoff
+    pending = []
+    rid = iter(range(1_000_000))
+    for n in plens:
+        sp.submit(_Req(next(rid), n))
+    n_late, trace = 0, []
+    for a in actions:
+        if a == 0:
+            sp.admit()
+        elif a == 1:
+            for job in sp.next_chunks():
+                sp.chunk_done(job)
+                if job.is_last:
+                    total = int(sp.lengths[job.slot])
+                    pages = [int(p) for p in
+                             sp.table[job.slot, :-(-total // sp.page_size)]]
+                    pool_p.incref(pages)        # the in-flight references
+                    sp.release(job.slot)
+                    pending.append(handoff(req=job.req, length=total, kv=None,
+                                           pages=pages, pool=pool_p))
+        elif a == 2 and pending:                # deliver the oldest packet
+            pkt = pending[0]
+            slot = next((x for x in range(sd.max_slots)
+                         if sd.status[x] == FREE), None)
+            if slot is not None:
+                ps = sd.page_size
+                pages = pool_d.alloc((pkt.length + ps) // ps)
+                if pages is not None:
+                    sd.bind_prefilled(slot, pkt.req, pages, pkt.length)
+                    pkt.release()
+                    pkt.release()               # must be a no-op
+                    pending.pop(0)
+        elif a == 3:
+            for slot in sd.live_slots():
+                if int(sd.lengths[slot]) < sd.max_len - 1:
+                    sd.lengths[slot] += 1
+            try:
+                sd.ensure_decode_pages()
+            except RuntimeError:
+                pass
+        elif a == 4:
+            live = sd.live_slots()
+            if live:
+                sd.release(min(live, key=lambda sl: sd.admitted_at[sl]))
+        elif a == 5:
+            resident = [sl for sl in range(sp.max_slots)
+                        if sp.status[sl] != FREE]
+            if resident:
+                sp.preempt(max(resident, key=lambda sl: sp.admitted_at[sl]))
+        elif a == 6:
+            resident = [sl for sl in range(sd.max_slots)
+                        if sd.status[sl] != FREE]
+            if resident:
+                sd.preempt(max(resident, key=lambda sl: sd.admitted_at[sl]))
+            sd.admit()
+        else:
+            n_late += 1
+            sp.submit(_Req(next(rid), 1 + (n_late * 7) % (MAX_LEN // 2)))
+        inflight = Counter(p for pkt in pending if not pkt.released
+                           for p in pkt.pages)
+        if port:
+            _held(pool_p, sp, inflight)
+            _held(pool_d, sd, Counter())
+        trace.append((_state(pool_p, sp), _state(pool_d, sd),
+                      [(pkt.req.rid, pkt.length, pkt.pages) for pkt in pending]))
+    return trace, pending, (pool_p, sp), (pool_d, sd)
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.lists(st.integers(0, 7), min_size=1, max_size=60),
+       st.lists(st.integers(1, 20), min_size=1, max_size=8),
+       st.booleans())
+def test_handoff_page_conservation(actions, plens, prefix_cache):
+    """Random prefill / handoff / deliver / decode / preempt interleavings
+    conserve pages on both of the port's pools, with in-flight packet
+    references counted as held on the prefiller, step for step in the
+    reference's states."""
+    want = _drive_disagg(actions, plens, prefix_cache, port=False)[0]
+    got = _drive_disagg(actions, plens, prefix_cache, port=True)[0]
+    assert got == want
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.lists(st.integers(0, 7), min_size=10, max_size=60),
+       st.lists(st.integers(1, 20), min_size=2, max_size=8),
+       st.booleans())
+def test_handoff_drain_returns_every_page(actions, plens, prefix_cache):
+    """After releasing every in-flight packet (twice) and every resident
+    slot on both sides, both of the port's pools are whole again."""
+    _, pending, *sides = _drive_disagg(actions, plens, prefix_cache,
+                                       port=True)
+    for pkt in pending:
+        pkt.release()
+        pkt.release()
+    for pool, s in sides:
+        for slot in range(s.max_slots):
+            if s.status[slot] != FREE:
+                s.release(slot)
+        assert s.held_pages() == 0
+        assert pool.pages_free + pool.pages_cached == pool.num_pages
+        pool.flush_cache()
+        assert pool.pages_free == pool.num_pages and pool.pages_cached == 0

@@ -185,12 +185,12 @@ def test_entry_points_need_a_card_unless_told_cpu(pair):
         ServeEngine(model, params, device="meta")
 
 
-# each unported feature alone and beside a ported one (the sampler and the
-# drafter, ported since), which must not let it through
+# the unported feature alone and beside ported ones (the sampler, the
+# drafter and prefill_only, ported since), which must not let it through
 @pytest.mark.parametrize("kw", [dict(mesh=object(), sampler=lambda k, l: 0),
-                                dict(prefill_only=True, spec_decode="ngram"),
+                                dict(mesh=object(), prefill_only=True),
                                 dict(mesh=object()),
-                                dict(prefill_only=True)])
+                                dict(mesh=object(), spec_decode="ngram")])
 def test_unported_engine_features_raise(pair, kw):
     _, _, model, params = pair
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -504,3 +504,152 @@ def test_chunked_prefill_keeps_decode_flowing(pair):
     assert got == want
     assert got[0] == [1] * 6
     assert len(got[1][3]) == 24 and len(got[1][99]) == 4
+
+
+# ---------------------------------------------------------------------------
+# the reference's compat API: engine views, PagePool.free / tokens_capacity
+# ---------------------------------------------------------------------------
+
+def test_compat_views_match_reference(pair):
+    """After one admitting tick (5 prompts, 3 slots) both engines show the
+    same ``queue`` and ``slot_req`` rids, and ``storage`` is the pool's
+    storage with the reference's leaves and shapes; its values (K and V of
+    magnitude up to ~10, float32) agree within 1e-4, about a hundred ulps
+    of summation order.  A dense engine has no storage."""
+    jmodel, jparams, model, params = pair
+    prompts = PROMPTS + [[9, 8, 7, 6], [1] * 20]
+    views = []
+    for cls, m, p, kw in ((JaxServeEngine, jmodel, jparams, {}),
+                          (ServeEngine, model, params, {"device": "cpu"})):
+        eng = cls(m, p, max_slots=3, max_len=64, page_size=16,
+                  prefill_chunk=16, **kw)
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=4)
+        eng.tick()
+        assert eng.storage is eng.pool.storage
+        views.append(([r.rid for r in eng.queue],
+                      [None if r is None else r.rid for r in eng.slot_req],
+                      {k: np.asarray(v) for k, v in eng.storage.items()}))
+        eng.close()
+        dense = cls(m, p, paged=False, max_slots=2, max_len=64, **kw)
+        assert dense.storage is None
+        dense.close()
+    (jq, jslots, jst), (q, slots, st) = views
+    assert (q, slots) == (jq, jslots) and q and None not in slots
+    assert sorted(st) == sorted(jst)
+    for k in st:
+        assert st[k].shape == jst[k].shape
+        np.testing.assert_allclose(st[k], jst[k], rtol=1e-4, atol=1e-4)
+
+
+def _free_steps(pool, cached_toks):
+    """One sequence of pool calls, each step's outcome (the error text of a
+    refused call) and the pool's state after it."""
+    out = []
+
+    def step(fn, *a):
+        try:
+            fn(*a)
+            res = None
+        except ValueError as e:
+            res = str(e)
+        out.append((res, list(pool._free), pool.pages_cached,
+                    pool.pages_in_use,
+                    [pool.ref(p) for p in range(pool.num_pages)]))
+
+    a = pool.alloc(4)
+    for depth in range(3):                    # a cached chain a0 -> a1 -> a2
+        pool.prefix.insert(cached_toks, depth, a[depth])
+    step(pool.decref, [a[1], a[2]])           # a1, a2 park in the cache
+    step(pool.incref, [a[3]])                 # a3 shared
+    step(pool.free, [99])                     # invalid id
+    step(pool.free, [-1])
+    step(pool.free, [a[3]])                   # refcount 2
+    step(pool.free, [6])                      # on the free list
+    step(pool.free, [a[0]])                   # a0 and its orphans a1, a2
+    step(pool.free, [a[1]])                   # now a double free
+    step(pool.decref, [a[3]])
+    step(pool.free, [a[3]])                   # exclusive again
+    step(pool.free, [a[3]])
+    out.append(pool.tokens_capacity())
+    return out
+
+
+def test_pool_free_matches_reference():
+    """``free`` raises the reference's errors on the same sequence (invalid
+    id, refcount > 1, double free), forgets a registered page with its
+    cached descendants, and leaves the same free list; ``tokens_capacity``
+    is the reference's."""
+    import jax.numpy as jnp
+    from repro.serve.pages import PagePool as JaxPagePool
+    from repro.serve.pages import PagedLeafSpec as JaxPagedLeafSpec
+    toks = np.arange(12, dtype=np.int32)
+    jpool = JaxPagePool({"k": JaxPagedLeafSpec((1,), (1, 1), jnp.float32)},
+                        num_pages=8, page_size=4, prefix_cache=True)
+    pool = PG.PagePool({"k": PG.PagedLeafSpec((1,), (1, 1), torch.float32)},
+                       num_pages=8, page_size=4, device="cpu",
+                       prefix_cache=True)
+    want, got = _free_steps(jpool, toks), _free_steps(pool, toks)
+    assert got == want
+    assert sum(res is not None for res, *_ in got[:-1]) == 6
+    assert got[-1] == 32
+
+
+def test_page_ops_take_the_layer_axis():
+    """``n_prefix=1`` scatters and gathers a pool leaf (L, N, page_size,
+    ...) the way ``n_prefix=0`` does each layer's leaf, bit for bit."""
+    rng = np.random.default_rng(1)
+    L, N, ps = 3, 6, 4
+    storage = torch.zeros(L, N, ps, 2, 3)
+    chunk = torch.from_numpy(rng.normal(size=(L, 2 * ps, 2, 3))
+                             .astype(np.float32))
+    pages = torch.tensor([4, 1])
+    PG.scatter_chunk(storage, pages, chunk, page_size=ps, n_prefix=1)
+    tok = torch.from_numpy(rng.normal(size=(L, 2, 2, 3)).astype(np.float32))
+    PG.scatter_token(storage, torch.tensor([1, 0]), torch.tensor([3, 2]),
+                     tok, n_prefix=1)
+    win = torch.from_numpy(rng.normal(size=(L, 1, 2, 2, 3))
+                           .astype(np.float32))
+    PG.scatter_window(storage, torch.tensor([[2, 2]]), torch.tensor([[0, 1]]),
+                      win, n_prefix=1)
+    got = PG.gather_pages(storage, torch.tensor([[4, 1], [2, 0]]),
+                          n_prefix=1)
+    assert got.shape == (L, 2, 2 * ps, 2, 3)
+    for layer in range(L):
+        one = torch.zeros(N, ps, 2, 3)
+        PG.scatter_chunk(one, pages, chunk[layer], page_size=ps)
+        PG.scatter_token(one, torch.tensor([1, 0]), torch.tensor([3, 2]),
+                         tok[layer])
+        PG.scatter_window(one, torch.tensor([[2, 2]]),
+                          torch.tensor([[0, 1]]), win[layer])
+        assert torch.equal(storage[layer], one)
+        assert torch.equal(got[layer], PG.gather_pages(
+            one, torch.tensor([[4, 1], [2, 0]])))
+
+
+def test_kv_handoff_release_is_idempotent():
+    pool = PG.PagePool({"k": PG.PagedLeafSpec((1,), (1, 1), torch.float32)},
+                       num_pages=4, page_size=4, device="cpu")
+    pages = pool.alloc(2)
+    pool.incref(pages)
+    packet = PG.KVHandoff(req=None, length=5, kv=None, pages=pages, pool=pool)
+    packet.release()
+    packet.release()
+    assert packet.released and [pool.ref(p) for p in pages] == [1, 1]
+
+
+def test_qwen2p5_14b_smoke_streams_match_reference():
+    """qwen2.5-14b's SMOKE config (the reference's, copied) on the paged
+    engine gives the reference's greedy streams on bridged weights."""
+    jmodel = jax_build_model(
+        jax_smoke_config("qwen2.5-14b").replace(remat="none"))
+    jparams = jmodel.init(jax.random.PRNGKey(14))
+    model = build_model(smoke_config("qwen2.5-14b"))
+    assert model.cfg == smoke_config("qwen2.5-14b")
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    want, _ = _serve(JaxServeEngine, jmodel, jparams, [PROMPTS],
+                     max_new=10, max_slots=3, max_len=128)
+    got, _ = _serve(ServeEngine, model, params, [PROMPTS], max_new=10,
+                    max_slots=3, max_len=128, device="cpu", check=_conserved)
+    assert got == want
