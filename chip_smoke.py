@@ -25,7 +25,9 @@ Phases (any failure exits non-zero before the result lines):
                  verify forwards' 12 and 20 and its drafter's 512; d 3584,
                  7168, 2048, an odd 1001 and qwen2.5-14b's 5120), the fused
                  add's sum bit for bit; paged attention at G 7, 2 and 5
-                 (qwen2.5-14b's 40/8 heads);
+                 (qwen2.5-14b's 40/8 heads) and 16 (qwen3-moe's 64/4, float
+                 and int8 pages; RMSNorm also at its d 4096 and its QK-norm's
+                 128);
                  flash attention on its tensor-core route (bf16, D 64 and
                  128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
                  strided q/k/v) and its CUDA-core route; paged attention
@@ -217,25 +219,46 @@ Phases (any failure exits non-zero before the result lines):
 25. traffic-disagg — phase 22 through ``--disagg``: the same report gates,
                  printed beside the monolithic run's TTFT/ITL p50/p99,
                  tok/s and first-to-second-token gap.
-26. science-runtime — the paper's parabola (32 x 32 tasks) through the
+26. MoE         — the serial MoE path (ROADMAP A9a), every earlier
+                 phase's tensors freed first.  B1 timed at qwen3-moe's
+                 heads (G 16: 64/4, decode B 4 W 1 and a W 64 chunk, over
+                 94 layers' pools).  main-moe: qwen3-moe-235b-a22b at full
+                 width (d 4096, 64/4 heads, QK-norm, 128 experts top-8,
+                 bf16) cut to 12 layers, main's mix monolithic, then
+                 disaggregated on the same weights: streams equal, B1 L and
+                 B2 1 + 4L a step, the telemetry exact (routed = top_k x L
+                 x the rows the paged calls were fed, dead slots and pad
+                 included; the per-expert counts add up); its decode step
+                 and a prefill chunk host-issued and as device time beside
+                 the bytes bound.  main-moe-placed: the same at 6 layers,
+                 unplaced, then through the dense per-slot path (flash
+                 attention at 64/4 on the tensor cores, L a prefill), then
+                 with the experts re-placed every 2 ticks: the placed
+                 streams and telemetry equal the unplaced ones.
+                 main-arctic: arctic-480b (d 7168, 56/8 heads, 128 experts
+                 top-2 beside the dense MLP) cut to 2 layers, as main-moe.
+                 moe-block: one full-width qwen3-moe layer on 64 tokens,
+                 bf16 weights against float32 on the card: equal
+                 telemetry, relative L2 within 2e-2.
+27. science-runtime — the paper's parabola (32 x 32 tasks) through the
                  serial host loop, SerialExecutor, VmapExecutor,
                  MeshExecutor over a real NCCL group at world 1 and the
                  thread farm (8 workers, deadline factor 3): the counts
                  equal, the outputs within 1e-5 of the serial executor's;
                  the farm's steals, rebalances and stragglers.
-27. science-mcmc — ideal points of 700 members from 5000 synthetic roll
+28. science-mcmc — ideal points of 700 members from 5000 synthetic roll
                  calls (seed 1), 4 chains x 200 iterations through
                  VmapExecutor: |corr| with the true points > 0.95, the
                  largest R-hat printed; a Gibbs iteration's device time
                  beside its threefry draws'; a small chain card == CPU
                  within 1e-3.
-28. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
+29. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
                  steps, the load-balanced SPMD driver over NCCL at world 1
                  for 200, 4 replicas of 2^16 x 300 steps on the thread farm
                  and again serially (the same energies): every E0 within
                  0.1 of 1.5, no population extinct or at capacity; a
                  walker step's device time beside its draws'.
-29. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
+30. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
                  the Schwarz route over NCCL at world 1: relative mass
                  drift < 1e-5, the routes within 1e-5, every step's
                  iterations under the cap; a Jacobi iteration timed;
@@ -381,6 +404,20 @@ SCI_BQ = (2048, 50)
 STORE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "ranks"
 # main-disagg's handoff timed at a 300-token prompt: 19 pages of 16
 HANDOFF_PAGES = 19
+# the serial MoE path at full width (PERF.md §4): qwen3-moe cut from 94 to
+# 12 layers (62.2 GB of bf16 weights), and to 6 for the placed run, whose
+# placed copy of the experts sits beside the pristine tree; arctic cut
+# from 35 to 2 (55.4 GB); the placed run re-places every 2 ticks
+MOE_ARCH, ARCTIC_ARCH = "qwen3-moe-235b-a22b", "arctic-480b"
+MOE_LAYERS, MOE_PLACED_LAYERS, ARCTIC_LAYERS = 12, 6, 2
+MOE_PLACE_EVERY = 2
+# moe-block: one full-width qwen3-moe layer on 64 tokens, bf16 weights
+# against the same weights in float32.  The bf16 path rounds the expert
+# input rows, the gate/up products, the SiLU product and the output to
+# bf16 (unit roundoff 2**-9 ~ 2e-3, the GEMMs accumulate in float32), so
+# the relative L2 gap should be a few times 2e-3; the gate is 2e-2
+MOE_BLOCK_TOKENS = 64
+MOE_BLOCK_REL = 2e-2
 TRAFFIC_ARGS = ["--requests", "16", "--traffic", "poisson", "--clock",
                 "wall", "--rate", "2.0"]
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
@@ -400,27 +437,36 @@ SPEC_KERNELS = ("flash_attention", "flash_attention_tc")
 # verify forwards over 4 slots at W 3 and 5, 12 and 20, and its drafter's
 # forward over a bucket of 512), one row, a ragged 1000 and 4097; d of
 # qwen2-7b and zamba2-7b (3584), zamba2's d_inner (7168, the gated norm's),
-# 2048, one off the kernel's 16-byte vector (its scalar route), and
-# qwen2.5-14b's 5120 (main-14b)
+# 2048, one off the kernel's 16-byte vector (its scalar route),
+# qwen2.5-14b's 5120 (main-14b), qwen3-moe's 4096 and its QK-norm's 128
+# (main-moe; arctic is 7168)
 NORM_ROWS = (1, 4, 12, 20, 64, 512, 1000, 1024, 4000, 4097)
-NORM_DIMS = (3584, 7168, 2048, 1001, 5120)
+NORM_DIMS = (3584, 7168, 2048, 1001, 5120, 4096, 128)
 # (rows, d) of each B2 variant in the main runs: decode, prefill chunk,
 # dense prefill, zamba2 prefill (the first norm, each Mamba layer's and the
 # shared block's at d 3584, the gated norm at d_inner 7168), main-spec's
-# verify forwards (12 and 20 rows) and drafter forward (512), main-14b's
-# decode step and prefill chunk at d 5120 (4 and 64 rows); final_rmsnorm
+# verify forwards (12 and 20 rows) and drafter forward (512), main-14b's,
+# main-moe's and main-arctic's decode step and prefill chunk at d 5120,
+# 4096 and 7168 (4 and 64 rows); final_rmsnorm
 # is the fused add of a model's last norm, which stores no sum
 _QWEN_NORM_ROWS = [(4, 3584), (64, 3584), (1024, 3584), (4000, 3584),
-                   (12, 3584), (20, 3584), (512, 3584), (4, 5120), (64, 5120)]
-NORM_TIMED = {"rmsnorm": _QWEN_NORM_ROWS, "add_rmsnorm": _QWEN_NORM_ROWS,
+                   (12, 3584), (20, 3584), (512, 3584), (4, 5120), (64, 5120),
+                   (4, 4096), (64, 4096), (4, 7168), (64, 7168)]
+# ... main-moe's QK-norm: q over B x 64 heads and k over B x 4 at d 128,
+# decode (B 4: 256 and 16 rows) and a chunk (64: 4096 and 256 rows)
+NORM_TIMED = {"rmsnorm": _QWEN_NORM_ROWS + [(16, 128), (256, 128),
+                                            (4096, 128)],
+              "add_rmsnorm": _QWEN_NORM_ROWS,
               "final_rmsnorm": _QWEN_NORM_ROWS,
               "gated_rmsnorm": [(4, 7168), (4000, 7168)]}
 INT8_KV_BYTES = 29568              # qwen2-7b: 28 x 2 x 4 x (128 + 4) bytes
-# (Hq, Hkv) of B1's float parity cases: qwen2-7b (G 7), G 2, and
-# qwen2.5-14b (G 5, main-14b's decode and chunk shapes)
-ATTN_HEADS = ((28, 4), (16, 8), (40, 8))
-# (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b and SMOKE
-INT8_HEADS = ((28, 4, 128), (4, 2, 16))
+# (Hq, Hkv) of B1's float parity cases: qwen2-7b (G 7, also arctic's
+# 56/8), G 2, qwen2.5-14b (G 5, main-14b's decode and chunk shapes) and
+# qwen3-moe (G 16: 1024 rows a KV head in a W-64 chunk)
+ATTN_HEADS = ((28, 4), (16, 8), (40, 8), (64, 4))
+# (Hq, Hkv, D) of the int8 kernel's parity cases: qwen2-7b, SMOKE and
+# qwen3-moe
+INT8_HEADS = ((28, 4, 128), (4, 2, 16), (64, 4, 128))
 DENSE_ARGS = ["--arch", "qwen2-7b", "--dense", "--requests", "8",
               "--max-new", "32", "--slots", "4", "--max-len", "2048",
               "--shared-prefix", "960", "--device", "cuda"]
@@ -445,7 +491,11 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                # the self-2 drafter's buckets in main-spec (512) and the
                # smallest one (16)
                (1, 512, 512, 28, 4, 128, True, None),
-               (1, 16, 16, 28, 4, 128, True, None)]
+               (1, 16, 16, 28, 4, 128, True, None),
+               # qwen3-moe's heads (G 16): main-moe-placed's dense
+               # prefills (bucket 512) and a ragged length
+               (1, 512, 512, 64, 4, 128, True, None),
+               (1, 300, 300, 64, 4, 128, True, None)]
 # (B, W, Hq, Hkv, P, n_pages, lengths): paged attention split over many key
 # ranges (64 positions each): tables of 128 and 512 pages of 16 (32 and
 # 128 splits), lengths on a split edge (64, 128: the last key ends a range)
@@ -688,8 +738,8 @@ def phase_parity(dev) -> dict:
     log(f"parity ok: {6 * len(NORM_ROWS) * len(NORM_DIMS)} rmsnorm (3 "
         f"variants; the fused add's s bit for bit) + "
         f"{16 * len(ATTN_HEADS)} paged_attention_mq (Hq/Hkv {ATTN_HEADS}) + "
-        f"{2 * len(FLASH_CASES) + 1} flash_attention + 24 "
-        f"paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
+        f"{2 * len(FLASH_CASES) + 1} flash_attention + "
+        f"{12 * len(INT8_HEADS)} paged_attention_mq_int8 cases + {4 * len(SPLIT_CASES)} split "
         f"paged-attention cases, tol (rtol=atol) {tols}; max abs err "
         f"{errs}; rmsnorm by variant {norm_errs}; flash_attention by dtype "
         f"{flash_errs}; "
@@ -875,9 +925,11 @@ def check_norm_counts(label: str, counts: dict, steps: int,
 
 
 def qwen_norms(cfg) -> tuple[int, int, int]:
-    """B2's launches a qwen2 step: the first block's ln1 alone, every other
-    norm (the other ln1s, each ln2, the final norm) with its residual add."""
-    return 1, 2 * cfg.n_layers, 0
+    """B2's launches a decoder step: the first block's ln1 alone, every
+    other norm (the other ln1s, each ln2, the final norm) with its residual
+    add; with QK-norm (qwen3) also each layer's q and k norms alone."""
+    L = cfg.n_layers
+    return 1 + (2 * L if cfg.qk_norm else 0), 2 * L, 0
 
 
 def check_split(label: str, counts: dict, name: str, P: int) -> None:
@@ -2274,7 +2326,7 @@ def verify_call_gaps(eng, limit) -> dict:
 
     def call(step, lengths, *window):
         storage = {k: v.clone() for k, v in eng.pool.storage.items()}
-        logits = step(params, storage, tables, lengths, *window, **kw)
+        logits, _ = step(params, storage, tables, lengths, *window, **kw)
         return logits[:, 0, :V], storage
 
     out = {}
@@ -2634,7 +2686,8 @@ def check_disagg(label, eng, counts, attn, want, roles=None) -> dict | None:
     page free or parked in the prefix cache, none held), and the streams
     equal to the monolithic run's ``want``; both roles serve the same weight
     tensors (one copy).  B1's and B2's launches must be the roles' steps
-    times a step's: L a prefill chunk or decode step, and 1 + 2L.  With
+    times a step's: L a prefill chunk or decode step, and
+    :func:`qwen_norms`' sum (1 + 2L; 1 + 4L with QK-norm).  With
     ``roles``, the launches measured in each role's stage
     (:func:`launches_by_role`, serial executor), each role's must equal its
     own steps' and the two must add up to the run's; without, only the
@@ -2659,10 +2712,11 @@ def check_disagg(label, eng, counts, attn, want, roles=None) -> dict | None:
                 f"{label}: the {role} pool is not whole after the drain: "
                 f"{pool.pages_free} free, {pool.pages_cached} cached, "
                 f"{pool.pages_in_use} in use of {pool.num_pages}")
-    L = eng.model.cfg.n_layers
+    cfg = eng.model.cfg
+    L = cfg.n_layers
     steps = {"prefill": pre.stats["chunk_prefills"],
              "decode": dec.stats["ticks"] + dec.stats["chunk_prefills"]}
-    need = {role: {attn: L * k, "rmsnorm": (1 + 2 * L) * k}
+    need = {role: {attn: L * k, "rmsnorm": sum(qwen_norms(cfg)) * k}
             for role, k in steps.items()}
     for name in (attn, "rmsnorm"):
         if counts[name][0] != sum(r[name] for r in need.values()):
@@ -2779,45 +2833,40 @@ def phase_main_disagg(main_peak, ref_streams, int8_streams) -> dict:
     return out
 
 
-def phase_timing_g5(dev) -> dict:
-    """B1 at qwen2.5-14b's heads (Hq 40, Hkv 8: G 5), bf16, at main's two
-    timed windows (:func:`phase_timing`): the decode step (4 slots, W 1)
-    and a prefill chunk (W 64 at position 192), over 48 layers' pools;
-    device times of kernel, plain version and yardstick beside the
-    bound."""
-    cfg = get_config("qwen2.5-14b")
+def phase_timing_heads(dev, cfg, tag: str, seed: int) -> dict:
+    """B1 at ``cfg``'s heads, bf16, at main's two timed windows
+    (:func:`phase_timing`): the decode step (4 slots, W 1) and a prefill
+    chunk (W 64 at position 192), over ``cfg.n_layers`` layers' pools;
+    device times of kernel, plain version and yardstick beside the bound,
+    under keys ``{tag}_decode_*`` and ``{tag}_chunk_*``."""
     dtype = torch.bfloat16
-    tb, lens, layers = paged_pools(cfg, np.random.default_rng(5), dev, dtype)
+    tb, lens, layers = paged_pools(cfg, np.random.default_rng(seed), dev,
+                                   dtype)
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
     for key, B, W, ln in (
-            ("g5_decode", 4, 1, torch.tensor(lens, device=dev)),
-            ("g5_chunk", 1, 64, torch.tensor([193], dtype=torch.int32,
-                                             device=dev))):
+            (f"{tag}_decode", 4, 1, torch.tensor(lens, device=dev)),
+            (f"{tag}_chunk", 1, 64, torch.tensor([193], dtype=torch.int32,
+                                                 device=dev))):
         q = torch.randn(B, W, Hq, D, device=dev).to(dtype)
         ms, b, by = time_window(q, layers, tb[:B], ln,
                                 window_mask(ln, W, tb.shape[1] * PS))
         out.update({f"{key}_ms": ms["kernel"], f"{key}_plain_ms": ms["plain"],
                     f"{key}_library_ms": ms["library"],
                     f"{key}_bound_ms": b, f"{key}_bound_by": by})
-        log(f"timing paged_attention_mq at G 5 [{key[3:]} B={B} W={W} "
-            f"Hq={Hq} Hkv={Hkv} D={D}, {cfg.n_layers} layers' pools, bf16]: "
-            f"device kernel {ms['kernel']:.5f} ms, plain {ms['plain']:.5f} "
-            f"ms, library {ms['library']:.5f} ms, bound {b:.6f} ms ({by})")
+        log(f"timing paged_attention_mq at G {Hq // Hkv} [{cfg.name} "
+            f"{key.split('_')[1]} B={B} W={W} Hq={Hq} Hkv={Hkv} D={D}, "
+            f"{cfg.n_layers} layers' pools, bf16]: device kernel "
+            f"{ms['kernel']:.5f} ms, plain {ms['plain']:.5f} ms, library "
+            f"{ms['library']:.5f} ms, bound {b:.6f} ms ({by})")
     del layers
     return out
 
 
-def phase_main_14b() -> dict:
-    """Full-width, full-depth qwen2.5-14b (48 layers, d 5120, bf16, random
-    weights from seed 0, no cut) with main's request mix: the monolithic
-    paged engine, then the disaggregated pair on the same weight tensors
-    (one copy).  Both served through the kernels only, B1 split, B2 as
-    the steps need; the disaggregated streams equal the monolithic ones,
-    each handoff injected once and both pools whole.  Prints the weights'
-    bytes, the peak device memory of each run, tok/s and the launches."""
-    args = launch_serve.parse_args(["--arch", "qwen2.5-14b"] + MAIN_ARGS[2:])
-    cfg = get_config(args.arch)
+def init_model(cfg):
+    """``cfg``'s model with random weights from seed 0 on the card, every
+    earlier phase's cached blocks released first: (model, params, seconds
+    the init took, the device bytes allocated before it)."""
     model = build_model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2825,62 +2874,429 @@ def phase_main_14b() -> dict:
     t0 = time.perf_counter()
     params = model.init(0, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    return model, params, time.perf_counter() - t0, base
+
+
+def engine_kw(args) -> dict:
+    """The paged engine's arguments of a launcher command line."""
+    return dict(max_slots=args.slots, max_len=args.max_len,
+                page_size=args.page_size, prefill_chunk=args.prefill_chunk,
+                prefix_cache=args.prefix_cache == "on", device="cuda")
+
+
+@contextlib.contextmanager
+def rows_fed(model):
+    """The token rows the model's paged calls are fed, counted while the
+    block runs: ``{"rows": n}``, every slot of a decode step (dead ones
+    too) and every position of a prefill chunk or verify window (pad
+    too), each the rows its MoE blocks route."""
+    acc = {"rows": 0}
+    names = ("paged_prefill_chunk", "paged_decode_step", "paged_verify")
+    saved = {n: getattr(model, n) for n in names}
+
+    def counted(fn, tok_arg):
+        def call(*a, **kw):
+            acc["rows"] += a[tok_arg].numel()
+            return fn(*a, **kw)
+        return call
+
+    for n in names:     # tokens: the 6th argument of a chunk, else the 5th
+        setattr(model, n, counted(saved[n], 5 if n == names[0] else 4))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            delattr(model, n)
+
+
+def serve_counted(eng, prompts, max_new: int):
+    """Serve ``prompts`` on a fresh engine with the counts and the peak mark
+    zeroed first, B1's and B2's launches measured by role for a
+    disaggregated engine, the rows fed to the paged calls counted
+    (:func:`rows_fed`): (streams, launch counts, roles, peak device bytes,
+    rows)."""
+    with launches_by_role(("paged_attention_mq", "rmsnorm")) as roles, \
+            rows_fed(eng.model) as fed:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=max_new)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    return ({r.rid: r.output for r in eng.finished}, counts, roles,
+            torch.cuda.max_memory_allocated(), fed["rows"])
+
+
+def check_moe_telemetry(label, cfg, engines, rows: int) -> dict:
+    """The run's engines together routed top_k x L x the ``rows`` their
+    paged calls were fed (:func:`rows_fed`), and each engine's per-expert
+    counts add up to its routed total; returns the run's routed, dropped
+    and per-expert totals."""
+    out = {"routed": 0, "dropped": 0, "experts": np.zeros(cfg.n_experts,
+                                                          np.int64)}
+    for role, e in engines.items():
+        s = e.stats
+        if sum(s["expert_tokens"]) != s["moe_tokens_routed"]:
+            raise AssertionError(
+                f"{label} {role}: routed {s['moe_tokens_routed']}, per-expert "
+                f"sum {sum(s['expert_tokens'])}")
+        out["routed"] += s["moe_tokens_routed"]
+        out["dropped"] += s["moe_dropped_tokens"]
+        out["experts"] += np.asarray(s["expert_tokens"], np.int64)
+    want = cfg.top_k * cfg.n_layers * rows
+    if out["routed"] != want:
+        raise AssertionError(f"{label}: routed {out['routed']}, want top_k x "
+                             f"L x rows = {want} ({rows} rows fed)")
+    return out
+
+
+def mono_then_disagg(label, model, params, args, base: int) -> dict:
+    """The launcher's 8 prompts for ``args`` through the monolithic paged
+    engine, then the disaggregated pair (serial) on the same weight tensors
+    (one copy).  Both served through the kernels only, B1 split, B2 as the
+    steps need; the disaggregated streams equal the monolithic ones, each
+    handoff injected once and both pools whole; an MoE model's telemetry
+    exact (:func:`check_moe_telemetry`).  Returns per run: streams,
+    counts, roles, stats, tok/s, wall, rows fed, peak above ``base`` (the
+    device bytes allocated before the weights) and the MoE totals."""
+    cfg = model.cfg
     prompts = launch_serve.make_prompts(args, cfg.vocab)
-    kw = dict(max_slots=args.slots, max_len=args.max_len,
-              page_size=args.page_size, prefill_chunk=args.prefill_chunk,
-              prefix_cache=True, device="cuda")
+    kw = engine_kw(args)
     runs = {}
-    for label, make in (("monolithic", lambda: ServeEngine(model, params,
-                                                           **kw)),
-                        ("disagg", lambda: DisaggServeEngine(model, params,
-                                                             **kw))):
+    for run, make in (("monolithic", lambda: ServeEngine(model, params,
+                                                         **kw)),
+                      ("disagg", lambda: DisaggServeEngine(model, params,
+                                                           **kw))):
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_counts()
         t0 = time.perf_counter()
         eng = make()
-        with launches_by_role(("paged_attention_mq", "rmsnorm")) as roles:
-            for p in prompts:
-                eng.submit(p, max_new_tokens=args.max_new)
-            eng.run_until_drained()
-            torch.cuda.synchronize()
+        streams, counts, roles, peak, rows = serve_counted(eng, prompts,
+                                                           args.max_new)
         wall = time.perf_counter() - t0
-        counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
-        peak = torch.cuda.max_memory_allocated() - base
-        if label == "monolithic":
-            want = {r.rid: r.output for r in eng.finished}
-            check_served(eng, "main-14b monolithic", counts, PAGED_KERNELS)
-            check_split("main-14b monolithic", counts, "paged_attention_mq",
+        if run == "monolithic":
+            check_served(eng, f"{label} monolithic", counts, PAGED_KERNELS)
+            check_split(f"{label} monolithic", counts, "paged_attention_mq",
                         eng.sched.pages_per_slot)
             s = eng.stats
-            check_norm_counts("main-14b monolithic", counts,
+            check_norm_counts(f"{label} monolithic", counts,
                               s["ticks"] + s["chunk_prefills"],
                               qwen_norms(cfg))
-            what = (f"ticks={s['ticks']} chunks={s['chunk_prefills']} "
-                    f"prefix_hits={s['prefix_hits']}")
+            engines, stats = {"monolithic": eng}, s
         else:
-            check_disagg("main-14b disagg", eng, counts,
-                         "paged_attention_mq", want, roles)
-            what = (f"launches measured by role {roles}; "
-                    f"{memory_account(eng)}")
-        toks = sum(len(r.output) for r in eng.finished)
-        runs[label] = dict(tok_s=toks / wall, peak=peak)
-        log(f"main-14b {label}: qwen2.5-14b {cfg.n_layers} layers d "
-            f"{cfg.d_model} Hq/Hkv {cfg.n_heads}/{cfg.n_kv_heads} "
-            f"{cfg.dtype}, {len(eng.finished)} requests, {toks} tokens, "
-            f"{toks / wall:.1f} tok/s wall, {what}; peak above the "
-            f"phase's start {peak} B; launches {counts}")
+            check_disagg(f"{label} disagg", eng, counts,
+                         "paged_attention_mq", runs["monolithic"]["streams"],
+                         roles)
+            engines = {"prefill": eng.prefiller, "decode": eng.decoder}
+            stats = eng.stats
+        moe = (check_moe_telemetry(f"{label} {run}", cfg, engines, rows)
+               if cfg.n_experts else None)
+        toks = sum(len(o) for o in streams.values())
+        runs[run] = dict(streams=streams, counts=counts, roles=roles,
+                         stats=stats, tok_s=toks / wall, wall=wall,
+                         rows=rows,
+                         peak=peak - base, moe=moe,
+                         memory=None if run == "monolithic"
+                         else memory_account(eng))
         eng.close()
-        del eng
+        del eng, engines
+    return runs
+
+
+def log_runs(label, cfg, runs, extra: str = "") -> None:
+    """One line a run of :func:`mono_then_disagg`."""
+    for run, r in runs.items():
+        s = r["stats"]
+        what = (f"ticks={s['ticks']} chunks={s['chunk_prefills']} "
+                f"prefix_hits={s['prefix_hits']}" if run == "monolithic"
+                else f"launches measured by role {r['roles']}; "
+                f"{r['memory']}")
+        moe = "" if r["moe"] is None else (
+            f"; moe: routed={r['moe']['routed']} dropped="
+            f"{r['moe']['dropped']} (top_k x L x {r['rows']} rows fed, "
+            "exact)")
+        toks = sum(len(o) for o in r["streams"].values())
+        log(f"{label} {run}: {cfg.name} {cfg.n_layers} layers d "
+            f"{cfg.d_model} Hq/Hkv {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"{cfg.dtype}{extra}, {len(r['streams'])} requests, {toks} "
+            f"tokens, {r['tok_s']:.1f} tok/s wall ({r['wall']:.2f} s), "
+            f"{what}{moe}; peak above the phase's start {r['peak']} B; "
+            f"launches {r['counts']}")
+
+
+def phase_main_14b() -> dict:
+    """Full-width, full-depth qwen2.5-14b (48 layers, d 5120, bf16, random
+    weights from seed 0, no cut) with main's request mix through
+    :func:`mono_then_disagg`.  Prints the weights' bytes, the peak device
+    memory of each run, tok/s and the launches."""
+    args = launch_serve.parse_args(["--arch", "qwen2.5-14b"] + MAIN_ARGS[2:])
+    model, params, init_s, base = init_model(get_config(args.arch))
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    runs = mono_then_disagg("main-14b", model, params, args, base)
+    log_runs("main-14b", model.cfg, runs)
     log(f"main-14b: {n_params} parameters, {weights} B of weights (one copy, "
         f"initialised in {init_s:.2f}s); disaggregated streams equal the "
         f"monolithic ones; peak monolithic {runs['monolithic']['peak']} B, "
         f"disagg {runs['disagg']['peak']} B")
     del params
     return runs
+
+
+# -- the serial MoE path: qwen3-moe and arctic at full width ------------------
+
+def decode_cost(model, params, eng) -> tuple[int, int]:
+    """(bytes, operations) a 4-slot decode step at lengths 300 +/- 12 must
+    move and do: every block weight read once (all E experts, as the
+    capacity-padded dispatch multiplies every expert's buffer), the
+    embedding rows, the final norm and the unembedding; the slots' K/V
+    rows; the logits written.  Operations: 2 a weight element a routed row
+    (top_k experts), plus attention's 4 D a key a query head."""
+    cfg = model.cfg
+    B, L, d = eng.max_slots, cfg.n_layers, cfg.d_model
+    blocks = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(params["blocks"]))
+    unembed = params["unembed"]["w"]
+    keys = sum([300, 288, 310, 276][:B])
+    kv = keys * L * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    nbytes = (blocks + B * d * 2 + d * 2 + unembed.numel() * 2 + kv
+              + B * unembed.shape[1] * 4)
+    expert = 3 * d * cfg.expert_d_ff
+    per_row = (sum(t.numel() for t in tree_leaves(params["blocks"])) // L
+               - cfg.n_experts * expert + cfg.top_k * expert)
+    nops = 2 * B * (L * per_row + unembed.numel()) \
+        + 4 * cfg.head_dim * cfg.n_heads * keys * L
+    return nbytes, nops
+
+
+def phase_step_moe(label, model, params, eng) -> dict:
+    """One 4-slot decode step and one prefill chunk (64 at 192) of an MoE
+    model on ``eng``'s pool, host-issued and as device time (a replayed
+    CUDA graph), with the card's idle share; the decode step beside its
+    bytes bound (:func:`decode_cost`) and beside the bound of the experts a
+    step routes to (at most B x top_k a layer), which is what a dispatch
+    that skipped empty experts would read."""
+    cfg, dev = model.cfg, eng.device
+    storage = eng.pool.storage
+    rng = np.random.default_rng(2)
+    B, P = eng.max_slots, eng.sched.pages_per_slot
+    lens = torch.tensor([300, 288, 310, 276][:B], dtype=torch.int32,
+                        device=dev)
+    tables = torch.tensor(
+        np.stack([rng.permutation(eng.pool.num_pages)[:P] for _ in range(B)]
+                 ).astype(np.int32), device=dev)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+                        device=dev)
+    wp = tables[torch.arange(B, device=dev), (lens // PS).long()]
+    wo = lens % PS
+    start, C = 192, 64
+    row = tables[0]
+    pages = row[start // PS:(start + C) // PS]
+    chunk = torch.tensor(rng.integers(0, cfg.vocab, (1, C)).astype(np.int32),
+                         device=dev)
+    fns = {f"decode step ({B} slots)": lambda: model.paged_decode_step(
+               params, storage, tables, lens, toks, wp, wo),
+           f"prefill chunk ({C} at {start})": lambda: model.paged_prefill_chunk(
+               params, storage, row, pages, start, chunk)}
+    out = {}
+    for name, fn in fns.items():
+        host = time_ms(fn, iters=5, warmup=2)
+        devt = device_ms([fn], reps=5)
+        out[name] = (host, devt)
+        log(f"{label} {name}: host-issued {host:.3f} ms, device {devt:.3f} ms "
+            f"(card idle {max(0.0, 1 - devt / host):.1%} of the host-issued "
+            "time)")
+    nbytes, nops = decode_cost(model, params, eng)
+    b_ms, b_by = bound(nbytes, nops, torch.bfloat16)
+    expert = 3 * cfg.d_model * cfg.expert_d_ff * 2
+    live = min(cfg.n_experts, B * cfg.top_k)
+    live_ms = (nbytes - cfg.n_layers * (cfg.n_experts - live) * expert) \
+        / HBM_BYTES_PER_S * 1e3
+    host, devt = out[f"decode step ({B} slots)"]
+    log(f"{label} decode step against its bound: device {devt:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}: {nbytes} B at {HBM_BYTES_PER_S:.3g} B/s, "
+        f"{nops} operations; the step at {b_ms / devt:.1%} of it); reading "
+        f"only the <= {live} experts a layer the step routes to: "
+        f"{live_ms:.3f} ms")
+    return dict(decode_ms=devt, decode_host_ms=host, bound_ms=b_ms,
+                bound_by=b_by, live_bound_ms=live_ms)
+
+
+def phase_main_moe() -> dict:
+    """main-moe: qwen3-moe-235b-a22b at full width cut to MOE_LAYERS layers,
+    main's mix through :func:`mono_then_disagg` (streams equal, telemetry
+    exact); its decode step against the bytes bound; peak memory, tok/s
+    and the launcher's ``[serve] moe:`` numbers.  Returns B1's and B2's
+    launches in the monolithic run and the step's times."""
+    args = launch_serve.parse_args(["--arch", MOE_ARCH] + MAIN_ARGS[2:])
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    model, params, init_s, base = init_model(cfg)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    runs = mono_then_disagg("main-moe", model, params, args, base)
+    log_runs("main-moe", cfg, runs, f" (cut from "
+             f"{get_config(MOE_ARCH).n_layers} layers)")
+    s = runs["monolithic"]["stats"]
+    log(f"main-moe: {weights} B of weights (initialised in {init_s:.2f}s); "
+        f"[serve] moe: routed={s['moe_tokens_routed']} "
+        f"dropped={s['moe_dropped_tokens']} "
+        f"rank_imbalance={s['expert_imbalance']:.2f} "
+        f"placements={s['placement_updates']}; experts with no token over "
+        f"the run: {int((np.asarray(s['expert_tokens']) == 0).sum())} of "
+        f"{cfg.n_experts}; disaggregated streams equal the monolithic ones")
+    with ServeEngine(model, params, **engine_kw(args)) as eng:
+        step = phase_step_moe("main-moe", model, params, eng)
+    del params
+    return {"counts": runs["monolithic"]["counts"], "step": step,
+            "roles": runs["disagg"]["roles"]}
+
+
+def phase_main_moe_placed() -> dict:
+    """main-moe-placed: qwen3-moe at full width cut to MOE_PLACED_LAYERS
+    layers, main's mix unplaced, then with the experts re-placed every
+    MOE_PLACE_EVERY ticks: the streams equal bit for bit, at least one
+    placement, ``phys_expert`` a permutation of the experts, the telemetry
+    equal.  Between them the dense per-slot path (``paged=False``) on the
+    same weights: flash attention at 64/4 heads on the tensor cores, L a
+    prefill; its streams' agreement with the paged ones printed.  Returns
+    the dense run's launches."""
+    args = launch_serve.parse_args(["--arch", MOE_ARCH] + MAIN_ARGS[2:])
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_PLACED_LAYERS)
+    model, params, _, base = init_model(cfg)
+    prompts = launch_serve.make_prompts(args, cfg.vocab)
+    runs = {}
+    for run, kw in (("unplaced", {}), ("dense", {"paged": False}),
+                    ("placed", {"placement_interval": MOE_PLACE_EVERY})):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with ServeEngine(model, params, **engine_kw(args), **kw) as eng:
+            streams, counts, _, peak, rows = serve_counted(eng, prompts,
+                                                           args.max_new)
+            runs[run] = dict(streams=streams, counts=counts, rows=rows,
+                             peak=peak - base,
+                             stats=dict(eng.stats),
+                             wall=time.perf_counter() - t0,
+                             plan=eng.placement)
+        if run != "dense":
+            check_served(eng, f"main-moe-placed {run}", counts,
+                         PAGED_KERNELS)
+            check_moe_telemetry(f"main-moe-placed {run}", cfg,
+                                {run: eng}, rows)
+        del eng
+    un, de, pl = runs["unplaced"], runs["dense"], runs["placed"]
+    if pl["streams"] != un["streams"]:
+        raise AssertionError("main-moe-placed: placed streams differ from the "
+                             "unplaced ones")
+    plan = pl["plan"]
+    if (pl["stats"]["placement_updates"] < 1 or plan is None
+            or sorted(plan.phys_expert.tolist()) != list(range(cfg.n_experts))):
+        raise AssertionError(f"main-moe-placed: {pl['stats']['placement_updates']}"
+                             " placements, or the plan is not a permutation")
+    for k in ("moe_tokens_routed", "moe_dropped_tokens", "expert_tokens"):
+        if pl["stats"][k] != un["stats"][k]:
+            raise AssertionError(f"main-moe-placed: {k} differs placed vs "
+                                 "unplaced")
+    n_pre = de["stats"]["prefills"]
+    L = cfg.n_layers
+    dc = de["counts"]
+    if (len(de["streams"]) != 8 or n_pre != 8
+            or dc["flash_attention"] != (L * n_pre, 0)
+            or dc["flash_attention_tc"] != (L * n_pre, 0)
+            or any(p for _, p in dc.values())
+            or any(k for name, (k, _) in dc.items()
+                   if name not in ("flash_attention", "flash_attention_tc",
+                                   "rmsnorm", "rmsnorm_add"))):
+        raise AssertionError(f"main-moe-placed dense: {n_pre} prefills, "
+                             f"launches {dc}")
+    check_norm_counts("main-moe-placed dense", dc,
+                      n_pre + de["stats"]["ticks"], qwen_norms(cfg))
+    same = sum(a == b for rid in de["streams"]
+               for a, b in zip(de["streams"][rid], un["streams"][rid]))
+    toks = sum(len(o) for o in un["streams"].values())
+    log(f"main-moe-placed: qwen3-moe {L} layers (cut from "
+        f"{get_config(MOE_ARCH).n_layers}), experts re-placed every "
+        f"{MOE_PLACE_EVERY} ticks: {pl['stats']['placement_updates']} "
+        f"placements, streams equal to the unplaced run's bit for bit, "
+        f"telemetry equal (routed {un['stats']['moe_tokens_routed']}, "
+        f"dropped {un['stats']['moe_dropped_tokens']}), imbalance over the "
+        f"last window {pl['stats']['expert_imbalance']:.2f}; wall unplaced "
+        f"{un['wall']:.2f} s, placed {pl['wall']:.2f} s; peak unplaced "
+        f"{un['peak']} B, placed {pl['peak']} B (the pristine tree and one "
+        f"placed copy); the last plan's first slots "
+        f"{plan.phys_expert[:8].tolist()}")
+    log(f"main-moe-placed dense path: {n_pre} whole-prompt prefills (bucket "
+        f"512), {de['stats']['ticks']} decode steps, {de['wall']:.2f} s, "
+        f"launches {dc}; dense vs paged greedy streams {same}/{toks} tokens "
+        f"equal (the chunked and whole-prompt prefills route other row "
+        f"sets, so capacity drops differ)")
+    del params
+    return {"dense_counts": dc}
+
+
+def phase_main_arctic() -> dict:
+    """main-arctic: arctic-480b at full width cut to ARCTIC_LAYERS layers,
+    main's 8 requests (4 would all be admitted at once, and no prefix-cache
+    hit would be gated) through :func:`mono_then_disagg`; its decode step
+    against the bytes bound."""
+    args = launch_serve.parse_args(["--arch", ARCTIC_ARCH] + MAIN_ARGS[2:])
+    cfg = get_config(ARCTIC_ARCH).replace(n_layers=ARCTIC_LAYERS)
+    model, params, init_s, base = init_model(cfg)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    runs = mono_then_disagg("main-arctic", model, params, args, base)
+    log_runs("main-arctic", cfg, runs, f" (cut from "
+             f"{get_config(ARCTIC_ARCH).n_layers} layers)")
+    log(f"main-arctic: {weights} B of weights (initialised in "
+        f"{init_s:.2f}s); disaggregated streams equal the monolithic ones")
+    with ServeEngine(model, params, **engine_kw(args)) as eng:
+        step = phase_step_moe("main-arctic", model, params, eng)
+    del params
+    return {"counts": runs["monolithic"]["counts"], "step": step}
+
+
+def phase_moe_block(dev) -> dict:
+    """One full-width qwen3-moe layer's ``moe_apply`` on MOE_BLOCK_TOKENS
+    tokens with bf16 weights and input, against the same call with the
+    weights and input upcast to float32 on the card (float32 GEMMs, no
+    TF32): both route through the same float32 router on the same values,
+    so the telemetry must be equal and the outputs within MOE_BLOCK_REL
+    (relative L2).  Prints the gap, and both calls' device times."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.module import init_params
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    p16 = init_params(M.moe_def(cfg), gen, device=dev, dtype=torch.bfloat16)
+    p32 = {k: v.float() for k, v in p16.items()}
+    x16 = torch.randn(1, MOE_BLOCK_TOKENS, cfg.d_model, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x32 = x16.float()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("moe-block: TF32 matmuls are on")
+    serial = comm_lib.SerialComm()
+    y16, _, s16 = M.moe_apply_expert_parallel(p16, x16, cfg, serial)
+    y32, _, s32 = M.moe_apply_expert_parallel(p32, x32, cfg, serial)
+    torch.cuda.synchronize()
+    for k in ("tokens", "dropped"):
+        if not torch.equal(s16[k], s32[k]):
+            raise AssertionError(f"moe-block: {k} differ bf16 vs float32")
+    rel = ((y16.float() - y32).norm() / y32.norm()).item()
+    err = (y16.float() - y32).abs().max().item()
+    if not rel <= MOE_BLOCK_REL:
+        raise AssertionError(f"moe-block: bf16 vs float32 relative L2 gap "
+                             f"{rel} > {MOE_BLOCK_REL}")
+    t16 = device_ms([lambda: M.moe_apply(p16, x16, cfg)], reps=5)
+    t32 = device_ms([lambda: M.moe_apply(p32, x32, cfg)], reps=5)
+    log(f"moe-block: qwen3-moe layer (E {cfg.n_experts}, top_k {cfg.top_k}, "
+        f"d {cfg.d_model}, expert d_ff {cfg.expert_d_ff}) on "
+        f"{MOE_BLOCK_TOKENS} tokens, bf16 vs float32 weights: relative L2 "
+        f"{rel:.3e} (gate {MOE_BLOCK_REL}), max |d| {err:.3e} (max |y| "
+        f"{y32.abs().max().item():.3e}); routed {int(s16['tokens'].sum())}, "
+        f"dropped {int(s16['dropped'].sum())} in both; device bf16 "
+        f"{t16:.3f} ms, float32 {t32:.3f} ms")
+    return {"rel": rel, "max_abs": err}
 
 
 # -- the paper's science layer: the executor runtime and the three apps -------
@@ -3249,7 +3665,8 @@ def main() -> int:
     t_disagg = time.perf_counter()
     disagg = phase_main_disagg(bf16_peak - main_base, ref_streams,
                                int8_streams)
-    times["paged_attention_mq"].update(phase_timing_g5(dev))
+    times["paged_attention_mq"].update(
+        phase_timing_heads(dev, get_config("qwen2.5-14b"), "g5", 5))
     phase_main_14b()
     traffic_disagg = phase_traffic(main_rate, ["--disagg"], "traffic-disagg")
     log("traffic-disagg beside traffic: " + "; ".join(
@@ -3262,6 +3679,19 @@ def main() -> int:
         f"(monolithic {np.percentile(traffic['second_token_gaps'], 50):.4f}"
         f" s); the three disaggregated phases took "
         f"{time.perf_counter() - t_disagg:.1f} s")
+    # the serial MoE path (ROADMAP A9a): B1 at qwen3-moe's G 16, then
+    # full-width qwen3-moe and arctic, each after every earlier phase's
+    # tensors are freed (init_model empties the cache first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["paged_attention_mq"].update(
+        phase_timing_heads(dev, get_config(MOE_ARCH), "g16", 16))
+    t_moe = time.perf_counter()
+    moe = {"main-moe": phase_main_moe()}
+    moe["main-moe-placed"] = phase_main_moe_placed()
+    moe["main-arctic"] = phase_main_arctic()
+    phase_moe_block(dev)
+    log(f"the four MoE phases took {time.perf_counter() - t_moe:.1f} s")
     # the paper's function-centric layer: no TPU kernel on this path
     gc.collect()
     torch.cuda.empty_cache()
@@ -3279,6 +3709,19 @@ def main() -> int:
     for name in ("paged_attention_mq", "rmsnorm"):
         times[name]["disagg_launches"] = {
             role: n[name] for role, n in disagg["serial"]["roles"].items()}
+    # B1's, B2's and B3's launches in the MoE runs: main-moe's and
+    # main-arctic's monolithic runs, main-moe-placed's dense-path run
+    moe_counts = {"main-moe": moe["main-moe"]["counts"],
+                  "main-arctic": moe["main-arctic"]["counts"],
+                  "main-moe-placed dense": moe["main-moe-placed"][
+                      "dense_counts"]}
+    for name in ("paged_attention_mq", "flash_attention"):
+        times[name]["moe_launches"] = {run: c[name][0]
+                                       for run, c in moe_counts.items()}
+    times["rmsnorm"]["moe_launches"] = {
+        run: {"rmsnorm": c["rmsnorm"][0] - c["rmsnorm_add"][0],
+              "add_rmsnorm": c["rmsnorm_add"][0]}
+        for run, c in moe_counts.items()}
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
     times["flash_attention"].update(
@@ -3320,7 +3763,12 @@ def main() -> int:
                 "g5_decode_plain_ms", "g5_decode_library_ms",
                 "g5_decode_bound_ms", "g5_decode_bound_by", "g5_chunk_ms",
                 "g5_chunk_plain_ms", "g5_chunk_library_ms",
-                "g5_chunk_bound_ms", "g5_chunk_bound_by") if k in t}})
+                "g5_chunk_bound_ms", "g5_chunk_bound_by", "g16_decode_ms",
+                "g16_decode_plain_ms", "g16_decode_library_ms",
+                "g16_decode_bound_ms", "g16_decode_bound_by", "g16_chunk_ms",
+                "g16_chunk_plain_ms", "g16_chunk_library_ms",
+                "g16_chunk_bound_ms", "g16_chunk_bound_by",
+                "moe_launches") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported archs.
 
-The dense decoders (qwen2-7b, qwen2.5-14b, qwen3-1.7b), rwkv6-3b and
-zamba2-7b are here; every other arch of the reference registry raises until
-its slice lands.
+The dense decoders (qwen2-7b, qwen2.5-14b, qwen3-1.7b), the MoE decoders
+(qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b and zamba2-7b are here; every
+other arch of the reference registry raises until its slice lands.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ _MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "qwen2.5-14b": "repro_torch.configs.qwen2p5_14b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }

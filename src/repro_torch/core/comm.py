@@ -274,6 +274,9 @@ def run_ranks(fn: Callable, args: tuple = (), *, world: int, store_dir,
             p.unlink(missing_ok=True)
 
 
+_FAILURE_GRACE = 5.0      # seconds the other ranks get to exit after a failure
+
+
 def _failure(procs, ranks: list, tag: str) -> RuntimeError:
     msgs = []
     for r in ranks:
@@ -294,10 +297,16 @@ def _spawn(fn, args, kwargs, world, store, device, timeout, tag) -> list:
     deadline = time.monotonic() + timeout
     try:
         while not all(p.exitcode == 0 for p in procs):
-            failed = [r for r, p in enumerate(procs)
-                      if p.exitcode not in (None, 0)]
-            if failed:
-                raise _failure(procs, failed, tag)
+            if any(p.exitcode not in (None, 0) for p in procs):
+                # a rank that fails takes down the ranks waiting on it in a
+                # collective, and either may exit first: give the others a
+                # moment, so the first failure's traceback is in the report
+                grace = time.monotonic() + _FAILURE_GRACE
+                while time.monotonic() < grace and any(
+                        p.exitcode is None for p in procs):
+                    time.sleep(0.02)
+                raise _failure(procs, [r for r, p in enumerate(procs)
+                                       if p.exitcode not in (None, 0)], tag)
             if time.monotonic() > deadline:
                 hung = [r for r, p in enumerate(procs) if p.is_alive()]
                 raise TimeoutError(f"rank(s) {hung} of {world} still running "

@@ -23,8 +23,13 @@ counts engine ticks (deterministic), ``--clock wall`` seconds;
 ``--metrics-out`` writes the report as JSON.  ``--disagg`` serves through
 a prefill-only engine and a decode engine with a KV page handoff between
 them (:class:`repro_torch.serve.disagg.DisaggServeEngine`, paged only),
-their stages driven by ``--executor serial|thread``.  Prints the reference
-launcher's summary lines plus each kernel's launch count.
+their stages driven by ``--executor serial|thread``.  ``--arch
+qwen3-moe-235b-a22b`` or ``arctic-480b`` serves an MoE model;
+``--expert-placement N`` re-places its experts every N ticks from the
+measured per-expert token counts, and the paged run prints a ``[serve]
+moe:`` line (assignments routed and dropped, the rank imbalance, the
+placements).  Prints the reference launcher's summary lines plus each
+kernel's launch count.
 """
 from __future__ import annotations
 
@@ -80,6 +85,10 @@ def parse_args(argv=None):
                     "prompt-lookup, 'self-2' = first-2-layer self-draft)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="max draft tokens per verify window")
+    ap.add_argument("--expert-placement", type=int, default=0, metavar="N",
+                    help="re-place experts every N ticks from measured "
+                    "per-expert token counts (load_balance-driven, "
+                    "hot-expert replication; 0 = off)")
     ap.add_argument("--disagg", action="store_true",
                     help="split serving into a prefill-only engine and a "
                     "decode engine with KV page handoff between them")
@@ -185,7 +194,8 @@ def build_engine(args):
               prefix_cache=args.prefix_cache == "on",
               kv_quant=args.kv_quant, weight_quant=args.weight_quant,
               spec_decode=None if args.spec_decode == "off"
-              else args.spec_decode, spec_k=args.spec_k, device=args.device)
+              else args.spec_decode, spec_k=args.spec_k, device=args.device,
+              placement_interval=args.expert_placement)
     if args.disagg:
         eng = DisaggServeEngine(model, params, executor=args.executor, **kw)
     else:
@@ -252,6 +262,13 @@ def main(argv=None):
             print(f"[serve] spec decode: proposed={s['draft_proposed']} "
                   f"accepted={s['draft_accepted']} "
                   f"acceptance_rate={s['acceptance_rate']:.2f}")
+        if cfg.n_experts:
+            # drops (capacity factor, evicted experts) leave no trace in
+            # the streams: the drop rule zeroes the expert's contribution
+            print(f"[serve] moe: routed={s['moe_tokens_routed']} "
+                  f"dropped={s['moe_dropped_tokens']} "
+                  f"rank_imbalance={s['expert_imbalance']:.2f} "
+                  f"placements={s['placement_updates']}")
     print_counts()
     eng.close()
     return eng

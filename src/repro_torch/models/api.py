@@ -2,8 +2,8 @@
 :class:`HybridLM` and :func:`build_model`.
 
 Counterpart of ``repro.models.api`` for the serving paths ported so far:
-the dense decoders paged (chunked prefill, decode and speculative verify
-windows against a page pool, and a cache-free scoring forward)
+the dense and MoE decoders paged (chunked prefill, decode and speculative
+verify windows against a page pool, and a cache-free scoring forward)
 and dense per-slot (whole-prompt prefill and decode against a per-slot
 cache), rwkv6 on the dense per-slot path (a recurrent state per slot), and
 zamba2 as an aligned batch (prefill, then decode at one position for every
@@ -52,8 +52,10 @@ def _init_float(model, generator_or_seed, device, dtype, weight_quant,
 
 
 class DecoderLM:
-    """Dense decoder-only transformer LM: paged prefill chunks and decode,
-    whole-prompt prefill and decode on a per-slot cache, the logits head."""
+    """Decoder-only transformer LM, dense or MoE: paged prefill chunks,
+    decode and verify windows (each returning the per-expert telemetry
+    beside its output), whole-prompt prefill and decode on a per-slot
+    cache, the logits head."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -106,30 +108,35 @@ class DecoderLM:
         return quantize_leaf_specs({"k": leaf, "v": leaf}, quant)
 
     def paged_prefill_chunk(self, params, storage, table_row, pages_chunk,
-                            start, tokens, *, quant=None):
+                            start, tokens, *, quant=None, placement=None):
         """Prefill tokens (1, C) at positions [start, start + C) into pages
-        (in place, quantized on write with a KV ``quant`` policy); returns
-        the final hidden states (1, C, d)."""
+        (in place, quantized on write with a KV ``quant`` policy; an MoE
+        model's experts dispatched through the (3, E) ``placement`` map);
+        returns ``(hidden (1, C, d), telemetry)``, telemetry the
+        layer-summed ``{"expert_tokens", "expert_dropped"}`` int32 (E,)
+        ((0,) for a dense model)."""
         return T.paged_prefill_chunk(params, self.cfg, storage, table_row,
-                                     pages_chunk, start, tokens, quant=quant)
+                                     pages_chunk, start, tokens, quant=quant,
+                                     placement=placement)
 
     def paged_decode_step(self, params, storage, tables, lengths, tokens,
-                          write_pages, write_offs, *, quant=None):
-        """tokens (B, 1) -> float32 logits (B, 1, V); K/V written in place
-        (quantized on write with a KV ``quant`` policy)."""
+                          write_pages, write_offs, *, quant=None,
+                          placement=None):
+        """tokens (B, 1) -> ``(float32 logits (B, 1, V), telemetry)``; K/V
+        written in place (quantized on write with a KV ``quant`` policy)."""
         return T.paged_decode_step(params, self.cfg, storage, tables, lengths,
                                    tokens, write_pages, write_offs,
-                                   quant=quant)
+                                   quant=quant, placement=placement)
 
     def paged_verify(self, params, storage, tables, lengths, tokens,
-                     write_pages, write_offs, *, quant=None):
-        """A speculative verify window: tokens (B, C) -> float32 logits
-        (B, C, V); the window's K/V written in place at (write_pages,
-        write_offs) (B, C) (quantized on write with a KV ``quant``
-        policy)."""
+                     write_pages, write_offs, *, quant=None, placement=None):
+        """A speculative verify window: tokens (B, C) -> ``(float32 logits
+        (B, C, V), telemetry)``; the window's K/V written in place at
+        (write_pages, write_offs) (B, C) (quantized on write with a KV
+        ``quant`` policy)."""
         return T.paged_verify_chunk(params, self.cfg, storage, tables,
                                     lengths, tokens, write_pages, write_offs,
-                                    quant=quant)
+                                    quant=quant, placement=placement)
 
     def forward(self, params, tokens):
         """Scoring forward without a cache: tokens (B, S) -> final hidden
@@ -271,16 +278,16 @@ class HybridLM:
         return T.lm_logits(params, hidden)
 
 
-_FAMILIES = {"dense": DecoderLM, "ssm": RwkvLM, "hybrid": HybridLM}
+_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": RwkvLM,
+             "hybrid": HybridLM}
 # families of the reference still to port, and the ROADMAP item they wait for
-_NOT_PORTED = {"moe": "MoE (ROADMAP A9)",
-               "vlm": "multimodal (ROADMAP A10)",
+_NOT_PORTED = {"vlm": "multimodal (ROADMAP A10)",
                "audio": "multimodal (ROADMAP A10)"}
 
 
 def build_model(cfg: ModelConfig):
     """The family's model class bound to ``cfg``: :class:`DecoderLM` for
-    dense decoders, :class:`RwkvLM` for rwkv6 (``ssm``), :class:`HybridLM`
+    dense and MoE decoders, :class:`RwkvLM` for rwkv6 (``ssm``), :class:`HybridLM`
     for zamba2 (``hybrid``)."""
     if cfg.family not in _FAMILIES:
         slice_name = _NOT_PORTED.get(cfg.family, "an unplanned")

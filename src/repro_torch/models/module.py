@@ -64,6 +64,10 @@ def torch_dtype(name) -> torch.dtype:
     return getattr(torch, str(name))
 
 
+_WHOLE_DRAW = 1 << 32      # elements of the largest leaf drawn in one piece
+_PIECE = 1 << 28           # ... and the pieces of a larger one
+
+
 def init_params(defs, generator: torch.Generator, *, device: torch.device,
                 dtype: torch.dtype, finish: Callable | None = None):
     """Materialize a declaration tree on ``device``.
@@ -71,9 +75,12 @@ def init_params(defs, generator: torch.Generator, *, device: torch.device,
     Each leaf is drawn in float32 from ``generator`` (which must live on
     ``device``) and cast to ``dtype`` (or to its declared dtype) before the
     next is drawn, so a full-width model
-    never holds a float32 copy of more than one leaf.  ``finish``, if
-    given, maps each cast leaf to what the tree keeps (the int8 weight
-    quantizer), before the next leaf is drawn."""
+    never holds a float32 copy of more than one leaf.  A leaf of more than
+    ``2**32`` elements (a stack of a full-width MoE model's experts) is
+    drawn and cast ``2**28`` elements at a time instead, so its float32
+    draw never exists whole either; its values are then not those of one
+    draw.  ``finish``, if given, maps each cast leaf to what the tree keeps
+    (the int8 weight quantizer), before the next leaf is drawn."""
     def make(p: Param):
         dt = p.dtype or dtype
         if p.init == "zeros":
@@ -82,9 +89,19 @@ def init_params(defs, generator: torch.Generator, *, device: torch.device,
             w = torch.ones(p.shape, dtype=dt, device=device)
         else:
             std = 0.02 if p.init == "small" else p.stddev()
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            w = w.mul_(std).to(dt)
+            n = math.prod(p.shape)
+            if n <= _WHOLE_DRAW:
+                w = torch.randn(p.shape, generator=generator,
+                                dtype=torch.float32, device=device)
+                w = w.mul_(std).to(dt)
+            else:
+                w = torch.empty(p.shape, dtype=dt, device=device)
+                flat = w.view(-1)
+                for i in range(0, n, _PIECE):
+                    m = min(_PIECE, n - i)
+                    flat[i:i + m] = torch.randn(
+                        m, generator=generator, dtype=torch.float32,
+                        device=device).mul_(std)
         return w if finish is None else finish(w)
 
     return tree_map(make, defs)

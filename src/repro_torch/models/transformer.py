@@ -2,9 +2,19 @@
 dense per-slot cache.
 
 Counterpart of the serving half of ``repro.models.transformer``, without
-the mesh transport, MoE or precomputed embeds.  Params keep the
-reference's keys and shapes, with ``params["blocks"]`` stacked on a
-leading layer axis.
+the mesh transport or precomputed embeds.  Params keep the reference's
+keys and shapes, with ``params["blocks"]`` stacked on a leading layer axis.
+
+An MoE block (``cfg.n_experts``; qwen3-moe, and arctic with its dense
+residual MLP beside the experts) replaces the MLP with
+:func:`repro_torch.models.moe.moe_apply_expert_parallel` over the serial
+transport, fed the rows the forward sees (every slot at decode, dead ones
+included; every chunk position, pad included), as in the reference.  The
+paged calls take the (3, E) expert ``placement`` map and return, beside
+their output, the layer-summed per-expert telemetry ``{"expert_tokens",
+"expert_dropped"}`` (int32 (E,); (0,) for a dense model).  The dense
+per-slot path runs the serial block and carries no telemetry, as the
+reference's does.
 
 The paged path also serves int8 KV pages (a ``quant`` policy from
 :mod:`repro_torch.serve.quant`: K/V are quantized on write, their scales
@@ -31,11 +41,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.comm import SerialComm
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.module import Param, torch_dtype, tree_map
 from repro_torch.serve import pages as PG
 from repro_torch.serve import quant as QZ
+
+_SERIAL = SerialComm()
 
 
 def stack_defs(defs, n: int):
@@ -45,15 +59,20 @@ def stack_defs(defs, n: int):
 
 
 def block_defs(cfg) -> dict:
-    """Parameter tree of one dense decoder block."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE blocks are not ported yet")
-    return {
+    """Parameter tree of one decoder block: the MLP, or for an MoE model the
+    expert block (plus the dense residual MLP where the config has one)."""
+    d = {
         "ln1": L.rmsnorm_def(cfg.d_model),
         "attn": A.attention_def(cfg),
         "ln2": L.rmsnorm_def(cfg.d_model),
-        "mlp": L.mlp_def(cfg.d_model, cfg.d_ff),
     }
+    if cfg.n_experts:
+        d["moe"] = M.moe_def(cfg)
+        if cfg.dense_residual:
+            d["mlp"] = L.mlp_def(cfg.d_model, cfg.d_ff)
+    else:
+        d["mlp"] = L.mlp_def(cfg.d_model, cfg.d_ff)
+    return d
 
 
 def transformer_defs(cfg) -> dict:
@@ -146,22 +165,56 @@ def _write_kv(kv, k, v, quant, scatter) -> None:
     scatter(kv["v_scale"], sv)
 
 
-def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend):
+def _ffn(p, h, cfg, placement=None):
+    """The block's feed-forward half on the normed stream ``h``: the MLP, or
+    the MoE block (plus the dense residual MLP).  Returns ``(y, stats)``,
+    stats the MoE block's per-expert telemetry (None for an MLP)."""
+    if not cfg.n_experts:
+        return L.mlp(p["mlp"], h), None
+    y, _, stats = M.moe_apply_expert_parallel(p["moe"], h, cfg, _SERIAL,
+                                              placement=placement)
+    if cfg.dense_residual:
+        y = y + L.mlp(p["mlp"], h)
+    return y, stats
+
+
+def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend,
+                 placement=None):
     """One decoder block against one layer's page storage ``kv``.
 
-    ``delta`` is the previous block's MLP output, not yet added to the
-    residual stream ``x`` (None before the first block): the add runs
+    ``delta`` is the previous block's feed-forward output, not yet added to
+    the residual stream ``x`` (None before the first block): the add runs
     inside this block's first norm, as the attention output's does inside
     its second.  ``write(kv, k, v)`` commits the fresh K/V into pages (a
     whole-chunk scatter in prefill, a per-slot token scatter in decode)
-    before ``attend(q, kv)`` reads them.  Returns ``(x, delta)``: the
-    stream and this block's pending MLP output."""
+    before ``attend(q, kv)`` reads them.  Returns ``(x, delta, stats)``:
+    the stream, this block's pending feed-forward output and its MoE
+    telemetry (None for a dense block)."""
     x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
     write(kv, k, v)
     o = attend(q, kv)
     x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
-    return x, L.mlp(p["mlp"], h)
+    return (x, *_ffn(p, h, cfg, placement))
+
+
+def _paged_layers(params, cfg, storage, x, *, positions, write, attend,
+                  placement):
+    """Every block over its layer's storage; returns the final normed
+    hidden states and the layer-summed telemetry ``{"expert_tokens",
+    "expert_dropped"}``."""
+    acc = M.empty_expert_stats(cfg.n_experts, x.device)
+    delta = None
+    for i, p in enumerate(_blocks(params, cfg)):
+        x, delta, stats = _paged_block(p, x, delta, cfg, positions=positions,
+                                       kv=_layer(storage, i), write=write,
+                                       attend=attend, placement=placement)
+        if stats is not None:
+            for k in acc:
+                acc[k] += stats[k]
+    hidden = L.final_rmsnorm(params["final_norm"], x, delta)
+    return hidden, {"expert_tokens": acc["tokens"],
+                    "expert_dropped": acc["dropped"]}
 
 
 def _check_paged(cfg):
@@ -178,7 +231,7 @@ def _blocks(params, cfg):
 
 
 def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
-                        tokens, quant=None):
+                        tokens, quant=None, placement=None):
     """Prefill one page-aligned prompt chunk into paged storage, in place.
 
     storage: {"k", "v"} of (L, N, page_size, Hkv, D), plus
@@ -186,7 +239,11 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
     policy;  table_row: (P,) the slot's page table;  pages_chunk:
     (C // page_size,) pages covering positions [start, start + C);  start:
     int;  tokens: (1, C), right-padded (the validity length masks pad
-    garbage).  Returns the final hidden states (1, C, d)."""
+    garbage);  placement: the (3, E) expert dispatch map of an MoE model
+    (None: the unplaced layout).  Returns ``(hidden, telemetry)``: the final
+    hidden states (1, C, d) and the layer-summed per-expert
+    ``{"expert_tokens", "expert_dropped"}`` int32 counts ((0,) for a dense
+    model)."""
     _check_paged(cfg)
     page_size = storage["k"].shape[2]
     x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
@@ -205,23 +262,20 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
                                         k_scale=kv.get("k_scale"),
                                         v_scale=kv.get("v_scale"))
 
-    delta = None
-    for i, p in enumerate(_blocks(params, cfg)):
-        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
-                                kv=_layer(storage, i), write=write,
-                                attend=attend)
-    return L.final_rmsnorm(params["final_norm"], x, delta)
+    return _paged_layers(params, cfg, storage, x, positions=positions,
+                         write=write, attend=attend, placement=placement)
 
 
 def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
-                      write_pages, write_offs, quant=None):
+                      write_pages, write_offs, quant=None, placement=None):
     """One token for every slot against paged storage, in place.
 
     tokens: (B, 1);  tables: (B, P);  lengths: (B,) tokens already cached
     (= the current token's position);  write_pages/write_offs: (B,) where
     each slot's new K/V lands (dead slots point at the pool's trash page);
-    quant as in :func:`paged_prefill_chunk`.  Returns float32 logits
-    (B, 1, V)."""
+    quant and placement as in :func:`paged_prefill_chunk`.  Returns
+    ``(logits, telemetry)``: float32 logits (B, 1, V) and the telemetry of
+    :func:`paged_prefill_chunk`."""
     _check_paged(cfg)
     x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     positions = lengths[:, None]
@@ -238,16 +292,14 @@ def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
                                         k_scale=kv.get("k_scale"),
                                         v_scale=kv.get("v_scale"))
 
-    delta = None
-    for i, p in enumerate(_blocks(params, cfg)):
-        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
-                                kv=_layer(storage, i), write=write,
-                                attend=attend)
-    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
+    hidden, tel = _paged_layers(params, cfg, storage, x, positions=positions,
+                                write=write, attend=attend,
+                                placement=placement)
+    return lm_logits(params, hidden), tel
 
 
 def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
-                       write_pages, write_offs, quant=None):
+                       write_pages, write_offs, quant=None, placement=None):
     """Score a per-slot window of candidate tokens in one batched forward,
     in place — the speculative-decode verify step.
 
@@ -256,10 +308,11 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
     for slots with shorter windows);  tables: (B, P);  lengths: (B,) tokens
     already cached (= the position of tokens[:, 0]);  write_pages /
     write_offs: (B, C) where each position's K/V lands (pad and dead-slot
-    positions point at the pool's trash page);  quant as in
-    :func:`paged_prefill_chunk`.  Returns float32 logits (B, C, V):
-    logits[:, i] scores the token following tokens[:, i].  C == 1 is a
-    decode step.
+    positions point at the pool's trash page);  quant and placement as in
+    :func:`paged_prefill_chunk`.  Returns ``(logits, telemetry)``: float32
+    logits (B, C, V), logits[:, i] scoring the token following
+    tokens[:, i], and the telemetry of :func:`paged_prefill_chunk`.  C == 1
+    is a decode step.
 
     Every window position's K/V is written before attention runs, and
     paged attention scores the whole (B, C) window in one call, window
@@ -281,12 +334,10 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
                                         k_scale=kv.get("k_scale"),
                                         v_scale=kv.get("v_scale"))
 
-    delta = None
-    for i, p in enumerate(_blocks(params, cfg)):
-        x, delta = _paged_block(p, x, delta, cfg, positions=positions,
-                                kv=_layer(storage, i), write=write,
-                                attend=attend)
-    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
+    hidden, tel = _paged_layers(params, cfg, storage, x, positions=positions,
+                                write=write, attend=attend,
+                                placement=placement)
+    return lm_logits(params, hidden), tel
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +347,8 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                 cache_v=None, cache_pos=None):
     """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
-    this block's MLP output not yet added to it (the next norm adds it; the
+    this block's feed-forward output (the MLP, or the serial MoE block plus
+    any dense residual MLP) not yet added to it (the next norm adds it; the
     ``delta`` passed in is the previous block's, None before the first), and
     the fresh K/V of this layer without a cache (whole-prompt prefill), the
     cache itself with one.
@@ -327,15 +379,21 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                             q_offset=cache_pos, kv_valid_len=cache_pos + S,
                             kv_chunk=max(max_len, 1))
     x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
-    return x, L.mlp(p["mlp"], h), k, v
+    if cfg.n_experts:
+        y, _ = M.moe_apply(p["moe"], h, cfg)
+        if cfg.dense_residual:
+            y = y + L.mlp(p["mlp"], h)
+    else:
+        y = L.mlp(p["mlp"], h)
+    return x, y, k, v
 
 
 def forward(params, cfg, tokens):
     """Scoring forward without a cache (inference only): tokens (B, S) ->
     the final hidden states (B, S, d), every layer's attention causal over
     the whole sequence (the flash-attention kernel on a card).  The
-    reference's also returns the MoE auxiliary loss; a dense block has
-    none."""
+    reference's also returns the MoE auxiliary loss, a training quantity
+    that comes with ROADMAP A13."""
     x = embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     delta = None

@@ -6,6 +6,8 @@
   :mod:`repro_torch.serve.spec` — orthogonal policies: int8 KV pages and
   weights, token sampling (over the threefry keys of
   :mod:`repro_torch.serve.prng`), speculative drafting.
+* :mod:`repro_torch.serve.placement` — load-aware expert placement of an
+  MoE model from its measured per-expert token counts.
 * :mod:`repro_torch.serve.scheduler` — admission, chunked prefill planning,
   copy-on-write and preemption (host-side numpy, shared with the reference
   line for line).
@@ -25,6 +27,9 @@ from repro_torch.serve.sampling import (greedy, sample_temperature,
 from repro_torch.serve.quant import (Int8KVQuant, dequantize_params,
                                      kv_bytes_per_token, make_kv_quant,
                                      quantize_leaf_specs, quantize_params)
+from repro_torch.serve.placement import (PlacementPlan, apply_placement,
+                                         identity_plan, imbalance,
+                                         plan_placement)
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.spec import (Drafter, NgramDrafter,
                                     TruncatedSelfDrafter, make_drafter)
@@ -39,12 +44,13 @@ from repro_torch.serve.traffic import (TrafficHarness, TrafficRequest,
 
 __all__ = ["DisaggServeEngine", "Drafter", "Int8KVQuant", "KVHandoff",
            "NgramDrafter", "PagePool",
-           "PagedLeafSpec", "PrefixCache", "Request", "Scheduler",
-           "ServeEngine", "TrafficHarness", "TrafficRequest",
-           "TruncatedSelfDrafter", "bursty_arrivals", "compute_report",
-           "dequantize_params", "greedy", "kv_bytes_per_token",
-           "make_drafter", "make_kv_quant", "make_workload", "nearest_rank",
-           "percentiles", "poisson_arrivals", "quantize_leaf_specs",
+           "PagedLeafSpec", "PlacementPlan", "PrefixCache", "Request",
+           "Scheduler", "ServeEngine", "TrafficHarness", "TrafficRequest",
+           "TruncatedSelfDrafter", "apply_placement", "bursty_arrivals",
+           "compute_report", "dequantize_params", "greedy", "identity_plan",
+           "imbalance", "kv_bytes_per_token", "make_drafter",
+           "make_kv_quant", "make_workload", "nearest_rank", "percentiles",
+           "plan_placement", "poisson_arrivals", "quantize_leaf_specs",
            "quantize_params", "record_trace", "run_traffic",
            "sample_temperature", "sample_top_k", "sample_top_p",
            "spec_rejection_sample", "spec_verify_greedy",

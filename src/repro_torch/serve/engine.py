@@ -69,6 +69,16 @@ before its state reached the engine's, so only its request is retired
 state, so the engine evicts every resident, rebuilds a zeroed state and
 raises.
 
+An MoE model (qwen3-moe, arctic) serves on both paths.  On the paged one
+every prefill chunk, decode and verify forward returns its per-expert
+telemetry, which the engine sums into ``stats`` (``moe_tokens_routed``,
+``moe_dropped_tokens``, ``expert_tokens``, ``expert_imbalance``), and
+``placement_interval=N`` re-places the experts every N ticks from the
+tokens measured since the last placement
+(:mod:`repro_torch.serve.placement`): the expert stacks are permuted from
+the pristine tree and the (3, E) dispatch map is passed to every paged
+call, so the streams do not change.  The engine is one device (``ep`` 1).
+
 Disaggregated serving (:mod:`repro_torch.serve.disagg`) pairs a
 ``prefill_only=True`` engine, which hands each completed prefill's pages
 off as a :class:`repro_torch.serve.pages.KVHandoff` instead of decoding,
@@ -76,8 +86,8 @@ with a plain engine that takes them in through :meth:`ServeEngine.
 inject_prefilled`.
 
 Features of the reference engine that later port slices bring (encoder
-inputs, the device mesh) raise ``NotImplementedError`` here instead of
-being ignored.  A model whose
+inputs, the device mesh of ROADMAP A9b) raise ``NotImplementedError``
+here instead of being ignored.  A model whose
 ``engine_refusal()`` names a reason is refused: the hybrid family (zamba2)
 serves only as an aligned batch
 (:class:`repro_torch.models.api.HybridLM`), as in the reference.
@@ -100,6 +110,7 @@ from repro_torch.core.runtime import ThreadFarmExecutor
 from repro_torch.kernels.build import KernelError
 from repro_torch.models.module import resolve_device, tree_leaves
 from repro_torch.serve import pages as PG
+from repro_torch.serve import placement as PL
 from repro_torch.serve import prng
 from repro_torch.serve import quant as QZ
 from repro_torch.serve import spec as SP
@@ -166,7 +177,9 @@ class ServeEngine:
     ``spec_k``, ``spec_temperature``: speculative decode (module
     docstring).  ``prefill_only=True`` makes the engine the prefill role of
     disaggregated serving (paged only): each surviving request leaves as a
-    :class:`repro_torch.serve.pages.KVHandoff` in :attr:`handoffs`."""
+    :class:`repro_torch.serve.pages.KVHandoff` in :attr:`handoffs`.
+    ``placement_interval=N`` re-places a paged MoE model's experts every N
+    ticks (0: never; module docstring)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -177,9 +190,12 @@ class ServeEngine:
                  prefill_workers: int = 4, paged: Optional[bool] = None,
                  spec_decode=None, spec_k: int = 4,
                  spec_temperature: float = 0.0, kv_quant=None,
-                 weight_quant=None, mesh=None, prefill_only: bool = False):
+                 weight_quant=None, mesh=None, prefill_only: bool = False,
+                 placement_interval: int = 0):
         if mesh is not None:
-            raise _not_ported("a device mesh", "MoE with TP/EP")
+            raise _not_ported("a device mesh",
+                              "tensor- and expert-parallel serving (ROADMAP "
+                              "A9b)")
         why = model.engine_refusal()
         if why:
             raise ValueError(f"{model.cfg.name} ({model.cfg.family}) is not "
@@ -305,6 +321,21 @@ class ServeEngine:
         else:
             self.drafter = spec_decode if not isinstance(spec_decode, str) \
                 else SP.make_drafter(spec_decode, model=model, params=params)
+        # load-aware expert placement (paged MoE engines): the dispatch map
+        # rides every paged call as a tensor; the expert stacks are
+        # permuted from the pristine tree, so plans never compose
+        n_exp = model.cfg.n_experts if self.paged else 0
+        self.ep = 1
+        self.placement = None                   # PlacementPlan once updated
+        self.placement_interval = int(placement_interval)
+        self._params_unplaced = self.params     # pristine expert order
+        self._id_plan = PL.identity_plan(n_exp, self.ep) if n_exp else None
+        self._place_arr = self._dev(self._id_plan.dispatch_arrays() if n_exp
+                                    else np.zeros((3, 0), np.int32))
+        if n_exp:
+            self._paged_kw["placement"] = self._place_arr
+        self._expert_tokens = np.zeros(n_exp, np.int64)   # lifetime
+        self._expert_window = np.zeros(n_exp, np.int64)   # since re-place
         self.last_token = np.zeros(max_slots, np.int32)
         self.finished: list[Request] = []
         self._rid = itertools.count()
@@ -320,7 +351,10 @@ class ServeEngine:
                       else "off",
                       "weight_quant": self.weight_quant or "off",
                       "kv_bytes_per_token": QZ.kv_bytes_per_token(
-                          self.pool.leaf_specs) if self.paged else 0}
+                          self.pool.leaf_specs) if self.paged else 0,
+                      "moe_tokens_routed": 0, "moe_dropped_tokens": 0,
+                      "expert_tokens": [0] * n_exp,
+                      "expert_imbalance": 0.0, "placement_updates": 0}
 
     def _dev(self, a) -> torch.Tensor:
         """A host array as a fresh tensor on the engine's device."""
@@ -564,10 +598,11 @@ class ServeEngine:
 
     def _prefill_job(self, job) -> Optional[int]:
         """Run one prefill chunk; the first token when it was the last."""
-        hidden = self.model.paged_prefill_chunk(
+        hidden, tel = self.model.paged_prefill_chunk(
             self.params, self.pool.storage,
             self._dev(self.sched.table[job.slot]), self._dev(job.pages),
             job.start, self._dev(job.tokens[None]), **self._paged_kw)
+        self._account_moe(tel)
         self.sched.chunk_done(job)
         self.stats["chunk_prefills"] += 1
         if not job.is_last:
@@ -661,10 +696,12 @@ class ServeEngine:
                     PG.copy_pages(self.pool.storage, self.pool.leaf_specs,
                                   self._dev([a for _, a, _ in cow]),
                                   self._dev([b for _, _, b in cow]))
-                logits = step(self.params, self.pool.storage,
-                              self._dev(self.sched.table), self._dev(lens),
-                              self._dev(toks), self._dev(wpages),
-                              self._dev(woffs), **self._paged_kw)
+                logits, tel = step(self.params, self.pool.storage,
+                                   self._dev(self.sched.table),
+                                   self._dev(lens), self._dev(toks),
+                                   self._dev(wpages), self._dev(woffs),
+                                   **self._paged_kw)
+                self._account_moe(tel)
                 errors += self._commit_verify(live, drafts, logits) \
                     if verify else self._commit_decode(live, logits)
             except BaseException:
@@ -686,8 +723,60 @@ class ServeEngine:
         proposed = self.stats["draft_proposed"]
         self.stats["acceptance_rate"] = (
             self.stats["draft_accepted"] / proposed if proposed else 0.0)
+        if (self.placement_interval and self._expert_tokens.size
+                and self.stats["ticks"] % self.placement_interval == 0
+                and self._expert_window.sum()):
+            self.update_placement()
         self._raise_or_record(errors)
         return bool(live) or self.sched.has_work()
+
+    # -- expert telemetry + load-aware placement -----------------------------
+
+    def _account_moe(self, tel) -> None:
+        """Fold one forward's per-expert telemetry into the engine's stats
+        (a dense model's is empty)."""
+        if self._expert_tokens.size == 0:
+            return
+        t = tel["expert_tokens"].cpu().numpy().astype(np.int64)
+        d = tel["expert_dropped"].cpu().numpy().astype(np.int64)
+        self._expert_tokens += t
+        self._expert_window += t
+        self.stats["moe_tokens_routed"] += int(t.sum())
+        self.stats["moe_dropped_tokens"] += int(d.sum())
+        self.stats["expert_tokens"] = self._expert_tokens.tolist()
+        if self._expert_window.sum():
+            plan = self.placement or self._id_plan
+            self.stats["expert_imbalance"] = PL.imbalance(
+                plan.rank_loads(self._expert_window))
+
+    def update_placement(self, plan=None):
+        """Re-place the experts between ticks from the measured token
+        window.
+
+        ``plan=None`` computes one with
+        :func:`repro_torch.serve.placement.plan_placement` (hot-expert
+        replication on); an explicit :class:`PlacementPlan` is applied as
+        it is.  The expert stacks are permuted from the pristine
+        (identity-order) params, so plans never compose, and the dispatch
+        map goes to every later paged call.  The previous placed copy is
+        let go first, so at most one exists beside the pristine tree.
+        Returns the active plan (None when the window was empty)."""
+        if self._expert_tokens.size == 0:
+            raise ValueError(
+                f"{self.model.cfg.name}: expert placement needs a paged "
+                "MoE model")
+        if plan is None:
+            if not self._expert_window.sum():
+                return None
+            plan = PL.plan_placement(self._expert_window, self.ep)
+        self.params = self._params_unplaced
+        self.params = PL.apply_placement(self._params_unplaced, plan)
+        self.placement = plan
+        self._place_arr = self._dev(plan.dispatch_arrays())
+        self._paged_kw["placement"] = self._place_arr
+        self._expert_window[:] = 0
+        self.stats["placement_updates"] += 1
+        return plan
 
     # -- speculative decode --------------------------------------------------
 

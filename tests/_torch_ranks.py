@@ -120,6 +120,73 @@ def all_checks(comm) -> dict:
             "science": science(comm)}
 
 
+def moe_inputs(arch: str = "qwen3-moe-235b-a22b", tokens: int = 37):
+    """A SMOKE MoE block's float32 inputs from numpy: (x (T, d), the
+    block's params {router, gate, up, down} with all E experts).  Column 0
+    of x is 1 and the router's row 0 pins experts E-1 and E-2 at logit
+    -100, so they never route: an expert placement may evict them.  The
+    MoE bodies import the model stack where they run, so the ranks of the
+    other bodies start without it."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(arch)
+    E, d, eff = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    rng = np.random.default_rng((SEED, tokens))
+    x = rng.normal(size=(tokens, d)).astype(np.float32)
+    x[:, 0] = 1.0
+    wr = (0.2 * rng.normal(size=(d, E))).astype(np.float32)
+    wr[:, E - 2:] = 0.0
+    wr[0, E - 2:] = -100.0
+    w = {"router": wr}
+    for name, shape in (("gate", (E, d, eff)), ("up", (E, d, eff)),
+                        ("down", (E, eff, d))):
+        w[name] = (0.1 * rng.normal(size=shape)).astype(np.float32)
+    return cfg, x, w
+
+
+def moe_plan(cfg, x, w, ep: int):
+    """The placement plan of ``ep`` ranks for the serial block's own
+    per-expert counts on these inputs."""
+    from repro_torch.core.comm import SerialComm
+    from repro_torch.models import moe as M
+    from repro_torch.serve import placement as PL
+    params = {k: torch.from_numpy(v) for k, v in w.items()}
+    _, _, stats = M.moe_apply_expert_parallel(params, torch.from_numpy(x),
+                                              cfg, SerialComm())
+    return PL.plan_placement(stats["tokens"].numpy(), ep)
+
+
+def placed_block(w, plan):
+    """The block's params permuted into ``plan``'s physical slots (router
+    untouched) and its (3, E) dispatch map; the identity layout for None."""
+    from repro_torch.serve import placement as PL
+    params = {k: torch.from_numpy(v) for k, v in w.items()}
+    if plan is None:
+        return params, None
+    stacked = PL.apply_placement(
+        {"blocks": {"moe": {k: v[None] for k, v in params.items()}}}, plan)
+    return ({k: v[0] for k, v in stacked["blocks"]["moe"].items()},
+            torch.from_numpy(plan.dispatch_arrays()))
+
+
+def moe_expert_parallel(comm) -> dict:
+    """``moe_apply_expert_parallel`` with this rank's E/ep experts, unplaced
+    and under the plan of the world's size: y, aux and the telemetry."""
+    from repro_torch.models import moe as M
+    n, r = comm.size(), comm.rank()
+    cfg, x, w = moe_inputs()
+    out = {}
+    for label, plan in (("unplaced", None),
+                        ("placed", moe_plan(cfg, x, w, n))):
+        params, placement = placed_block(w, plan)
+        e_loc = cfg.n_experts // n
+        local = {k: (v if k == "router" else v[r * e_loc:(r + 1) * e_loc])
+                 for k, v in params.items()}
+        y, aux, stats = M.moe_apply_expert_parallel(
+            local, torch.from_numpy(x)[None], cfg, comm, placement=placement)
+        out[label] = {"y": y[0], "aux": aux, **stats}
+    return out
+
+
 def failing(comm):
     """A rank that fails while the others wait in a collective."""
     if comm.rank() == 1:

@@ -1,10 +1,10 @@
 """The port's disaggregated prefill/decode engine against the reference's.
 
-Each dense case of the reference's ``test_disagg.py`` runs three engines on
-the same bridged SMOKE qwen2-7b weights: the port's
-:class:`~repro_torch.serve.disagg.DisaggServeEngine`, the port's monolithic
-:class:`~repro_torch.serve.engine.ServeEngine` and the reference's
-``DisaggServeEngine``.  The tolerance is none: greedy streams, and seeded
+Each dense case of the reference's ``test_disagg.py``, and its MoE case,
+runs three engines on the same bridged SMOKE qwen2-7b (qwen3-moe)
+weights: the port's :class:`~repro_torch.serve.disagg.DisaggServeEngine`,
+the port's monolithic :class:`~repro_torch.serve.engine.ServeEngine` and
+the reference's ``DisaggServeEngine``.  The tolerance is none: greedy streams, and seeded
 streams (a token's key folds the request's seed and its position), are
 equal token for token.  Then the handoff's bookkeeping (accounting, clean
 pools, backpressure, the flags' refusals), the thread discipline of the
@@ -31,16 +31,24 @@ from repro_torch.serve import DisaggServeEngine, ServeEngine
 from repro_torch.serve import traffic as T
 
 
-@pytest.fixture(scope="module")
-def dense():
+def _bridged(arch):
     """(reference model, its params, port model, bridged params)."""
-    jmodel = jax_build_model(
-        jax_smoke_config("qwen2-7b").replace(remat="none"))
+    jmodel = jax_build_model(jax_smoke_config(arch).replace(remat="none"))
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    model = build_model(smoke_config("qwen2-7b"))
+    model = build_model(smoke_config(arch))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams),
                                device="cpu")
     return jmodel, jparams, model, params
+
+
+@pytest.fixture(scope="module")
+def dense():
+    return _bridged("qwen2-7b")
+
+
+@pytest.fixture(scope="module")
+def moe():
+    return _bridged("qwen3-moe-235b-a22b")
 
 
 def _prompts(vocab):
@@ -104,6 +112,22 @@ def test_disagg_matches_monolithic_and_reference(dense, prefix_cache,
                                    kv_quant=kv_quant, **KW)
     port.close()
     assert got == mono == want
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_disagg_matches_monolithic_moe(moe, prefix_cache, kv_quant):
+    """The reference's MoE case: the expert block needs nothing new of the
+    handoff; each role routes its own forwards and counts them."""
+    got, mono, want, port = _three(moe, _prompts(moe[2].cfg.vocab),
+                                   prefix_cache=prefix_cache,
+                                   kv_quant=kv_quant, **KW)
+    assert got == mono == want
+    s = port.stats
+    routed = s["prefill"]["moe_tokens_routed"] + \
+        s["decode"]["moe_tokens_routed"]
+    assert routed > 0 and s["prefill"]["moe_tokens_routed"] > 0
+    port.close()
 
 
 def test_disagg_under_forced_preemption(dense):

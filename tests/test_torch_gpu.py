@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch version
 at the served archs' shapes, the serving engine (paged and dense
-per-slot, qwen2-7b and rwkv6-3b) on the card through the kernels against
-the same engine on the CPU, and zamba2's aligned batch the same way.  Every test here needs a card
+per-slot, qwen2-7b and rwkv6-3b; qwen3-moe paged, placed and unplaced) on
+the card through the kernels against the same engine on the CPU, the MoE
+block over NCCL at world 1 against the serial block, and zamba2's aligned
+batch the same way.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -1006,4 +1008,69 @@ def test_disagg_on_card_matches_monolithic_and_drains(card, executor):
         assert pool.pages_free + pool.pages_cached == pool.num_pages
     for name in ("paged_attention_mq", "rmsnorm"):
         assert ops.COUNTS[name].kernel > 0, name
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+
+
+# -- the serial MoE path: expert parallelism and placement on the card --------
+
+def _moe_ep_world1(comm, dev):
+    """SMOKE qwen3-moe's block on the card over ``comm``, unplaced and under
+    an ep-1 plan of its own counts."""
+    import _torch_ranks as R
+    from repro_torch.models import moe as M
+    cfg, x, w = R.moe_inputs()
+    out = {}
+    for label, plan in (("unplaced", None),
+                        ("placed", R.moe_plan(cfg, x, w, comm.size()))):
+        params, placement = R.placed_block(w, plan)
+        params = {k: v.to(dev) for k, v in params.items()}
+        y, aux, stats = M.moe_apply_expert_parallel(
+            params, torch.from_numpy(x).to(dev), cfg, comm,
+            placement=None if placement is None else placement.to(dev))
+        out[label] = {"y": y, "aux": aux, **stats}
+    return out
+
+
+def test_moe_expert_parallel_nccl_world1_matches_serial(card, tmp_path):
+    """``moe_apply_expert_parallel`` over a real NCCL group at world 1
+    equals the serial block on the card bit for bit (y, aux, telemetry),
+    unplaced and placed."""
+    from repro_torch.core.comm import SerialComm, run_ranks
+    got = run_ranks(_moe_ep_world1, (card,), world=1, store_dir=tmp_path,
+                    device=card)[0]
+    want = _moe_ep_world1(SerialComm(), card)
+    for label in ("unplaced", "placed"):
+        for k in ("y", "aux", "tokens", "dropped"):
+            assert torch.equal(got[label][k], want[label][k].cpu()), (label, k)
+
+
+def test_moe_engine_on_card_placed_matches_unplaced_and_cpu(card):
+    """SMOKE qwen3-moe (float32) through the paged engine on the card: the
+    streams with the experts re-placed every 2 ticks equal the unplaced
+    ones and the CPU engine's, with equal telemetry, through the kernels
+    only."""
+    model = build_model(smoke_config("qwen3-moe-235b-a22b"))
+    cpu_params = model.init(0, device="cpu")
+    prompts = [[5, 17, 33, 2, 9], [7] * 9, [1, 2, 3] * 4,
+               [100, 200, 300, 4, 5, 6, 7]]
+
+    def serve(device, **kw):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        with ServeEngine(model, params, max_slots=4, max_len=96,
+                         page_size=16, prefill_chunk=32, device=device,
+                         **kw) as eng:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=6)
+            out = {r.rid: r.output for r in eng.run_until_drained()}
+        return out, eng.stats
+
+    want, s_cpu = serve("cpu")
+    ops.reset_counts()
+    got, s_card = serve(card)
+    placed, s_placed = serve(card, placement_interval=2)
+    assert got == want == placed
+    assert s_placed["placement_updates"] >= 1
+    for k in ("moe_tokens_routed", "moe_dropped_tokens", "expert_tokens"):
+        assert s_card[k] == s_cpu[k] == s_placed[k], k
+    assert ops.COUNTS["paged_attention_mq"].kernel > 0
     assert all(c.plain == 0 for c in ops.COUNTS.values())

@@ -46,6 +46,9 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.apps.mcmc, repro_torch.apps.dmc\n"
             "import repro_torch.apps.boussinesq, repro_torch.launch.apps\n"
             "import repro_torch.serve.disagg, repro_torch.configs.qwen2p5_14b\n"
+            "import repro_torch.models.moe, repro_torch.serve.placement\n"
+            "import repro_torch.configs.qwen3_moe_235b\n"
+            "import repro_torch.configs.arctic_480b\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -84,7 +84,7 @@ def test_paged_prefill_then_decode_match_reference(models, use_pallas):
         jst, jh, _ = jmodel.paged_prefill_chunk(
             jparams, jst, jnp.asarray(table), jnp.asarray(pages),
             np.int32(start), jnp.asarray(toks), None, use_pallas=use_pallas)
-        th = model.paged_prefill_chunk(
+        th, _ = model.paged_prefill_chunk(
             params, tst, torch.from_numpy(table), torch.from_numpy(pages),
             start, torch.from_numpy(toks))
         _close(model.lm_head(params, th), jmodel.lm_head(jparams, jh, None),
@@ -103,7 +103,7 @@ def test_paged_prefill_then_decode_match_reference(models, use_pallas):
             jparams, jst, jnp.asarray(tables), jnp.asarray(lengths),
             jnp.asarray(tok), jnp.asarray(wpages), jnp.asarray(woffs), None,
             use_pallas=use_pallas)
-        tlog = model.paged_decode_step(
+        tlog, _ = model.paged_decode_step(
             params, tst, torch.from_numpy(tables), torch.from_numpy(lengths),
             torch.from_numpy(tok), torch.from_numpy(wpages),
             torch.from_numpy(woffs))
@@ -177,7 +177,7 @@ def test_paged_int8_calls_match_reference(models, use_pallas, weights):
             jparams, jst, jnp.asarray(table), jnp.asarray(pages),
             np.int32(start), jnp.asarray(toks), None, use_pallas=use_pallas,
             quant=jq)
-        th = model.paged_prefill_chunk(
+        th, _ = model.paged_prefill_chunk(
             params, tst, torch.from_numpy(table), torch.from_numpy(pages),
             start, torch.from_numpy(toks), quant=tq)
         np.testing.assert_allclose(
@@ -197,7 +197,7 @@ def test_paged_int8_calls_match_reference(models, use_pallas, weights):
             jparams, jst, jnp.asarray(tables), jnp.asarray(lengths),
             jnp.asarray(tok), jnp.asarray(wpages), jnp.asarray(woffs), None,
             use_pallas=use_pallas, quant=jq)
-        tlog = model.paged_decode_step(
+        tlog, _ = model.paged_decode_step(
             params, tst, torch.from_numpy(tables), torch.from_numpy(lengths),
             torch.from_numpy(tok), torch.from_numpy(wpages),
             torch.from_numpy(woffs), quant=tq)

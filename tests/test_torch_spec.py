@@ -190,8 +190,8 @@ def test_paged_verify_chunk_matches_reference(pair, quant, C):
     jst, jlog, _ = jmodel.paged_verify(
         jparams, jst, *map(jnp.asarray, args), None, quant=jq)
     ops.reset_counts()
-    tlog = model.paged_verify(params, tst, *map(torch.from_numpy, args),
-                              quant=tq)
+    tlog, _ = model.paged_verify(params, tst, *map(torch.from_numpy, args),
+                                 quant=tq)
     L = model.cfg.n_layers          # one paged-attention call a layer
     name = "paged_attention_mq_int8" if quant else "paged_attention_mq"
     assert ops.COUNTS[name] == ops.LaunchCount(plain=L)
