@@ -215,7 +215,14 @@ Phases (any failure exits non-zero before the result lines):
                  then the disaggregated pair on the same weight tensors;
                  both through the kernels only, the streams equal, both
                  pools whole; prints the weights' bytes and the peak
-                 device memory of each run.
+                 device memory of each run.  main-mesh: the same weights
+                 through ``ServeEngine(mesh=make_mesh((1,), ("model",)))``
+                 inside ``run_ranks(world=1)`` (a real NCCL group of one:
+                 the all-reduces and the vocab gather run): the streams
+                 and B1/B2 launches equal the monolithic run's, its peak
+                 at most 0.5 GB above; the decode step and a chunk
+                 without and through the mesh in turns (profiled device
+                 time, NCCL's share apart, and host-issued).
 25. traffic-disagg — phase 22 through ``--disagg``: the same report gates,
                  printed beside the monolithic run's TTFT/ITL p50/p99,
                  tok/s and first-to-second-token gap.
@@ -235,11 +242,23 @@ Phases (any failure exits non-zero before the result lines):
                  attention at 64/4 on the tensor cores, L a prefill), then
                  with the experts re-placed every 2 ticks: the placed
                  streams and telemetry equal the unplaced ones.
+                 main-moe-mesh: main-moe's weights through an (expert 1,
+                 model 1) mesh of one NCCL rank (the all-to-alls and the
+                 tiled expert gather run): streams, B1/B2 launches and the
+                 five MoE stats equal the monolithic run's, the peak at
+                 most 1 GB above, the steps in turns as main-mesh's;
+                 main-moe-placed-mesh: the placed run through that mesh
+                 (each re-placement gathers a layer's shards at a time),
+                 equal to the serial placed run, peak within 1 GB.
                  main-arctic: arctic-480b (d 7168, 56/8 heads, 128 experts
                  top-2 beside the dense MLP) cut to 2 layers, as main-moe.
                  moe-block: one full-width qwen3-moe layer on 64 tokens,
                  bf16 weights against float32 on the card: equal
-                 telemetry, relative L2 within 2e-2.
+                 telemetry, relative L2 within 2e-2.  Then B1 at the
+                 per-rank heads of tensor parallelism (qwen2.5-14b at tp
+                 2, 4, 8; qwen3-moe at 2, 4; qwen2-7b at 2, 4), decode and
+                 a 64-row chunk, bf16: parity, then timed beside gather +
+                 SDPA and the bound; the time the mesh phases add.
 27. science-runtime — the paper's parabola (32 x 32 tasks) through the
                  serial host loop, SerialExecutor, VmapExecutor,
                  MeshExecutor over a real NCCL group at world 1 and the
@@ -418,6 +437,18 @@ MOE_PLACE_EVERY = 2
 # the relative L2 gap should be a few times 2e-3; the gate is 2e-2
 MOE_BLOCK_TOKENS = 64
 MOE_BLOCK_REL = 2e-2
+# the serving mesh at world 1 (one NCCL rank): main-mesh on main-14b's
+# weights, main-moe-mesh on main-moe's, the placed run on main-moe-placed's;
+# the peak of a mesh run may exceed its unmeshed twin's by this much at
+# most (a second copy of any weight tensor would exceed it)
+MESH_PEAK_SLACK = {"main-mesh": 2**29, "main-moe-mesh": 2**30,
+                   "main-moe-placed-mesh": 2**30}
+MOE_STATS = ("moe_tokens_routed", "moe_dropped_tokens", "expert_tokens",
+             "expert_imbalance", "placement_updates")
+# B1 at the per-rank heads of tensor-parallel serving: (arch, tp)
+SHARD_HEADS = (("qwen2.5-14b", 2), ("qwen2.5-14b", 4), ("qwen2.5-14b", 8),
+               ("qwen3-moe-235b-a22b", 2), ("qwen3-moe-235b-a22b", 4),
+               ("qwen2-7b", 2), ("qwen2-7b", 4))
 TRAFFIC_ARGS = ["--requests", "16", "--traffic", "poisson", "--clock",
                 "wall", "--rate", "2.0"]
 MAIN_ARGS = ["--arch", "qwen2-7b", "--requests", "8", "--max-new", "32",
@@ -2838,7 +2869,8 @@ def phase_timing_heads(dev, cfg, tag: str, seed: int) -> dict:
     (:func:`phase_timing`): the decode step (4 slots, W 1) and a prefill
     chunk (W 64 at position 192), over ``cfg.n_layers`` layers' pools;
     device times of kernel, plain version and yardstick beside the bound,
-    under keys ``{tag}_decode_*`` and ``{tag}_chunk_*``."""
+    under keys ``{tag}_decode_*`` and ``{tag}_chunk_*``; the kernel held
+    against its plain version on the first layer's pools first."""
     dtype = torch.bfloat16
     tb, lens, layers = paged_pools(cfg, np.random.default_rng(seed), dev,
                                    dtype)
@@ -2849,11 +2881,16 @@ def phase_timing_heads(dev, cfg, tag: str, seed: int) -> dict:
             (f"{tag}_chunk", 1, 64, torch.tensor([193], dtype=torch.int32,
                                                  device=dev))):
         q = torch.randn(B, W, Hq, D, device=dev).to(dtype)
+        kp, vp = layers[0]
+        err = check("paged_attention_mq", f"{key} (Hq {Hq}, Hkv {Hkv})",
+                    ops.paged_attention_mq(q, kp, vp, tb[:B], ln),
+                    ref.paged_attention_mq(q, kp, vp, tb[:B], ln), dtype)
         ms, b, by = time_window(q, layers, tb[:B], ln,
                                 window_mask(ln, W, tb.shape[1] * PS))
         out.update({f"{key}_ms": ms["kernel"], f"{key}_plain_ms": ms["plain"],
                     f"{key}_library_ms": ms["library"],
-                    f"{key}_bound_ms": b, f"{key}_bound_by": by})
+                    f"{key}_bound_ms": b, f"{key}_bound_by": by,
+                    f"{key}_max_abs_err": err})
         log(f"timing paged_attention_mq at G {Hq // Hkv} [{cfg.name} "
             f"{key.split('_')[1]} B={B} W={W} Hq={Hq} Hkv={Hkv} D={D}, "
             f"{cfg.n_layers} layers' pools, bf16]: device kernel "
@@ -3027,8 +3064,10 @@ def log_runs(label, cfg, runs, extra: str = "") -> None:
 def phase_main_14b() -> dict:
     """Full-width, full-depth qwen2.5-14b (48 layers, d 5120, bf16, random
     weights from seed 0, no cut) with main's request mix through
-    :func:`mono_then_disagg`.  Prints the weights' bytes, the peak device
-    memory of each run, tok/s and the launches."""
+    :func:`mono_then_disagg`, then main-mesh: the same through a serving
+    mesh of one NCCL rank (:func:`phase_mesh`).  Prints the weights'
+    bytes, the peak device memory of each run, tok/s and the launches;
+    returns main-mesh's wall seconds."""
     args = launch_serve.parse_args(["--arch", "qwen2.5-14b"] + MAIN_ARGS[2:])
     model, params, init_s, base = init_model(get_config(args.arch))
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
@@ -3039,8 +3078,163 @@ def phase_main_14b() -> dict:
         f"initialised in {init_s:.2f}s); disaggregated streams equal the "
         f"monolithic ones; peak monolithic {runs['monolithic']['peak']} B, "
         f"disagg {runs['disagg']['peak']} B")
+    t0 = time.perf_counter()
+    phase_mesh("main-mesh", model, params, args, base, runs["monolithic"],
+               (1,), ("model",))
     del params
-    return runs
+    return time.perf_counter() - t0
+
+
+# -- the serving mesh at world 1: tensor and expert parallelism (A9b) ----------
+
+def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
+    """(device ms a call, of which NCCL's kernels) of ``fn``: the sum of
+    its kernels' device times in a ``torch.profiler`` trace of ``iters``
+    calls (a call with NCCL collectives is not captured in a CUDA graph
+    here), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = nccl = 0.0
+    for ev in prof.key_averages():
+        total += ev.self_device_time_total
+        if "nccl" in ev.key.lower():
+            nccl += ev.self_device_time_total
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / iters / 1e3, nccl / iters / 1e3
+
+
+def mesh_step_turns(model, eng) -> dict:
+    """The decode step and prefill chunk of :func:`step_fns` on the mesh
+    engine's pool, without a transport ("plain") and through the mesh's
+    (the all-reduces, the vocab gather, an MoE block's all-to-alls and
+    expert gather on one NCCL rank), in turns plain, mesh, mesh, plain:
+    host-issued ms and profiled device ms (NCCL's share apart) a call,
+    {name: {"plain" | "mesh": [(host, device, nccl), ...]}}."""
+    mesh_kw = {k: eng._paged_kw[k] for k in ("comm", "ep_comm")}
+    out = {}
+    for name, fn in step_fns(model, eng.params, eng).items():
+        res = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            call = functools.partial(fn, **({} if which == "plain"
+                                            else mesh_kw))
+            res[which].append((time_ms(call, iters=3, warmup=1),
+                               *profiled_ms(call)))
+        out[name] = res
+    return out
+
+
+def _mesh_rank(comm, model, params, args, shape, names, prompts,
+               placement_interval, steps):
+    """A world-1 rank: the paged engine on ``make_mesh(shape, names)``
+    serving ``prompts`` (:func:`serve_counted`, the peak and counts zeroed
+    first), then, with ``steps``, :func:`mesh_step_turns`."""
+    mesh = comm_lib.make_mesh(shape, names)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, mesh=mesh,
+                      placement_interval=placement_interval,
+                      **engine_kw(args))
+    streams, counts, _, peak, rows = serve_counted(eng, prompts,
+                                                   args.max_new)
+    out = dict(streams=streams, counts=counts, peak=peak, rows=rows,
+               stats=dict(eng.stats), wall=time.perf_counter() - t0,
+               tp=eng.tp, ep=eng.ep,
+               groups=[mesh.comm(a).size() for a in names])
+    if steps:
+        out["steps"] = mesh_step_turns(model, eng)
+    eng.close()
+    return out
+
+
+def phase_mesh(label, model, params, args, base, twin, shape, names,
+               placement_interval=0, steps=True) -> dict:
+    """``label``: the launcher's prompts of ``args`` through the paged
+    engine on a serving mesh of ``shape`` over ``names`` inside
+    ``run_ranks`` at world 1 on the card (real NCCL groups of one), on the
+    weights its unmeshed ``twin`` run served (one copy).  Gates: the
+    streams, B1's and B2's launches and an MoE model's five MoE stats equal
+    the twin's; the peak above ``base`` at most the twin's plus
+    MESH_PEAK_SLACK (no second copy of the weights).  With ``steps``, the
+    decode step and chunk plain vs through the mesh, in turns."""
+    t0 = time.perf_counter()
+    prompts = launch_serve.make_prompts(args, model.cfg.vocab)
+    r = comm_lib.run_ranks(_mesh_rank, (model, params, args, shape, names,
+                                        prompts, placement_interval, steps),
+                           world=1, store_dir=STORE_DIR, device="cuda")[0]
+    if torch.distributed.is_initialized():
+        raise AssertionError(f"{label}: a process group was left")
+    wall = time.perf_counter() - t0
+    r["peak"] -= base
+    if r["streams"] != twin["streams"]:
+        raise AssertionError(f"{label}: the mesh streams differ from the "
+                             "unmeshed run's")
+    for name in PAGED_KERNELS:
+        if r["counts"][name] != twin["counts"][name]:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{r['counts'][name]}, unmeshed "
+                                 f"{twin['counts'][name]}")
+    if model.cfg.n_experts:
+        for k in MOE_STATS:
+            if r["stats"][k] != twin["stats"][k]:
+                raise AssertionError(f"{label}: {k} {r['stats'][k]}, "
+                                     f"unmeshed {twin['stats'][k]}")
+    if r["peak"] > twin["peak"] + MESH_PEAK_SLACK[label]:
+        raise AssertionError(f"{label}: peak {r['peak']} B above the "
+                             f"unmeshed {twin['peak']} B + "
+                             f"{MESH_PEAK_SLACK[label]} B")
+    mesh = ", ".join(f"{n} {s}" for n, s in zip(names, shape))
+    log(f"{label}: {model.cfg.name} {model.cfg.n_layers} layers through "
+        f"ServeEngine(mesh=({mesh})) in run_ranks(world=1, NCCL): tp "
+        f"{r['tp']}, ep {r['ep']}, groups of {r['groups']}; "
+        f"{len(r['streams'])} requests equal to the unmeshed run token for "
+        f"token; B1/B2 launches {[r['counts'][n] for n in PAGED_KERNELS]} "
+        f"as unmeshed"
+        + (f"; MoE stats equal (routed {r['stats']['moe_tokens_routed']}, "
+           f"dropped {r['stats']['moe_dropped_tokens']}, placements "
+           f"{r['stats']['placement_updates']})" if model.cfg.n_experts
+           else "")
+        + f"; peak above the weights' start {r['peak']} B (unmeshed "
+        f"{twin['peak']} B, +{r['peak'] - twin['peak']} B); serve wall "
+        f"{r['wall']:.2f} s (unmeshed {twin['wall']:.2f} s); phase "
+        f"{wall:.1f} s")
+    for name, res in r.get("steps", {}).items():
+        mean = {w: np.mean(np.asarray(v), axis=0) for w, v in res.items()}
+        (ph, pd, _), (mh, md, mn) = mean["plain"], mean["mesh"]
+        log(f"{label} {name}, turns plain/mesh/mesh/plain: device "
+            f"(profiled) plain {' / '.join(f'{v[1]:.3f}' for v in res['plain'])} "
+            f"ms, mesh {' / '.join(f'{v[1]:.3f}' for v in res['mesh'])} ms "
+            f"(+{md - pd:.3f} ms, {md / pd - 1:+.2%}; NCCL kernels "
+            f"{mn:.3f} ms of it); host-issued plain "
+            f"{' / '.join(f'{v[0]:.3f}' for v in res['plain'])} ms, mesh "
+            f"{' / '.join(f'{v[0]:.3f}' for v in res['mesh'])} ms "
+            f"({mh / ph - 1:+.2%})")
+    return r
+
+
+def phase_shard_heads(dev) -> dict:
+    """B1 at the per-rank heads of tensor-parallel serving (SHARD_HEADS:
+    the config's heads over tp), bf16, decode (4 slots) and a 64-row
+    chunk over the full depth's pools: parity, then kernel, plain and
+    gather + SDPA beside the bound (:func:`phase_timing_heads`)."""
+    t0 = time.perf_counter()
+    out = {}
+    for i, (arch, tp) in enumerate(SHARD_HEADS):
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_heads=cfg.n_heads // tp,
+                          n_kv_heads=cfg.n_kv_heads // tp)
+        tag = f"{arch.split('-')[0]}_tp{tp}"
+        out[tag] = phase_timing_heads(dev, cfg, tag, 30 + i)
+    log(f"B1 at the shard shapes: {len(SHARD_HEADS)} shapes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # -- the serial MoE path: qwen3-moe and arctic at full width ------------------
@@ -3069,13 +3263,10 @@ def decode_cost(model, params, eng) -> tuple[int, int]:
     return nbytes, nops
 
 
-def phase_step_moe(label, model, params, eng) -> dict:
-    """One 4-slot decode step and one prefill chunk (64 at 192) of an MoE
-    model on ``eng``'s pool, host-issued and as device time (a replayed
-    CUDA graph), with the card's idle share; the decode step beside its
-    bytes bound (:func:`decode_cost`) and beside the bound of the experts a
-    step routes to (at most B x top_k a layer), which is what a dispatch
-    that skipped empty experts would read."""
+def step_fns(model, params, eng) -> dict:
+    """A 4-slot decode step at lengths 300 +/- 12 and a prefill chunk (64
+    at 192) on ``eng``'s pool, each a function of the model call's extra
+    keywords (a mesh's transports): {name: fn(**kw)}."""
     cfg, dev = model.cfg, eng.device
     storage = eng.pool.storage
     rng = np.random.default_rng(2)
@@ -3094,12 +3285,23 @@ def phase_step_moe(label, model, params, eng) -> dict:
     pages = row[start // PS:(start + C) // PS]
     chunk = torch.tensor(rng.integers(0, cfg.vocab, (1, C)).astype(np.int32),
                          device=dev)
-    fns = {f"decode step ({B} slots)": lambda: model.paged_decode_step(
-               params, storage, tables, lens, toks, wp, wo),
-           f"prefill chunk ({C} at {start})": lambda: model.paged_prefill_chunk(
-               params, storage, row, pages, start, chunk)}
+    return {f"decode step ({B} slots)": lambda **kw: model.paged_decode_step(
+                params, storage, tables, lens, toks, wp, wo, **kw),
+            f"prefill chunk ({C} at {start})":
+            lambda **kw: model.paged_prefill_chunk(
+                params, storage, row, pages, start, chunk, **kw)}
+
+
+def phase_step_moe(label, model, params, eng) -> dict:
+    """One 4-slot decode step and one prefill chunk (64 at 192) of an MoE
+    model on ``eng``'s pool (:func:`step_fns`), host-issued and as device
+    time (a replayed CUDA graph), with the card's idle share; the decode
+    step beside its bytes bound (:func:`decode_cost`) and beside the bound
+    of the experts a step routes to (at most B x top_k a layer), which is
+    what a dispatch that skipped empty experts would read."""
+    cfg, B = model.cfg, eng.max_slots
     out = {}
-    for name, fn in fns.items():
+    for name, fn in step_fns(model, params, eng).items():
         host = time_ms(fn, iters=5, warmup=2)
         devt = device_ms([fn], reps=5)
         out[name] = (host, devt)
@@ -3135,6 +3337,10 @@ def phase_main_moe() -> dict:
     runs = mono_then_disagg("main-moe", model, params, args, base)
     log_runs("main-moe", cfg, runs, f" (cut from "
              f"{get_config(MOE_ARCH).n_layers} layers)")
+    t0 = time.perf_counter()
+    phase_mesh("main-moe-mesh", model, params, args, base,
+               runs["monolithic"], (1, 1), ("expert", "model"))
+    mesh_s = time.perf_counter() - t0
     s = runs["monolithic"]["stats"]
     log(f"main-moe: {weights} B of weights (initialised in {init_s:.2f}s); "
         f"[serve] moe: routed={s['moe_tokens_routed']} "
@@ -3147,7 +3353,7 @@ def phase_main_moe() -> dict:
         step = phase_step_moe("main-moe", model, params, eng)
     del params
     return {"counts": runs["monolithic"]["counts"], "step": step,
-            "roles": runs["disagg"]["roles"]}
+            "roles": runs["disagg"]["roles"], "mesh_s": mesh_s}
 
 
 def phase_main_moe_placed() -> dict:
@@ -3155,7 +3361,9 @@ def phase_main_moe_placed() -> dict:
     layers, main's mix unplaced, then with the experts re-placed every
     MOE_PLACE_EVERY ticks: the streams equal bit for bit, at least one
     placement, ``phys_expert`` a permutation of the experts, the telemetry
-    equal.  Between them the dense per-slot path (``paged=False``) on the
+    equal; the placed run again through an (expert 1, model 1) mesh of one
+    NCCL rank, whose re-placements gather each layer's shards
+    (:func:`phase_mesh`).  Between them the dense per-slot path (``paged=False``) on the
     same weights: flash attention at 64/4 heads on the tensor cores, L a
     prefill; its streams' agreement with the paged ones printed.  Returns
     the dense run's launches."""
@@ -3230,8 +3438,12 @@ def phase_main_moe_placed() -> dict:
         f"launches {dc}; dense vs paged greedy streams {same}/{toks} tokens "
         f"equal (the chunked and whole-prompt prefills route other row "
         f"sets, so capacity drops differ)")
+    t0 = time.perf_counter()
+    phase_mesh("main-moe-placed-mesh", model, params, args, base, pl, (1, 1),
+               ("expert", "model"), placement_interval=MOE_PLACE_EVERY,
+               steps=False)
     del params
-    return {"dense_counts": dc}
+    return {"dense_counts": dc, "mesh_s": time.perf_counter() - t0}
 
 
 def phase_main_arctic() -> dict:
@@ -3667,7 +3879,7 @@ def main() -> int:
                                int8_streams)
     times["paged_attention_mq"].update(
         phase_timing_heads(dev, get_config("qwen2.5-14b"), "g5", 5))
-    phase_main_14b()
+    mesh_s = phase_main_14b()
     traffic_disagg = phase_traffic(main_rate, ["--disagg"], "traffic-disagg")
     log("traffic-disagg beside traffic: " + "; ".join(
         f"{m} p50 {traffic_disagg[m]['p50']:.4f} s (monolithic "
@@ -3692,6 +3904,13 @@ def main() -> int:
     moe["main-arctic"] = phase_main_arctic()
     phase_moe_block(dev)
     log(f"the four MoE phases took {time.perf_counter() - t_moe:.1f} s")
+    # tensor parallelism's per-rank heads: B1 at the shard shapes
+    t_heads = time.perf_counter()
+    times["paged_attention_mq"]["shard_heads"] = phase_shard_heads(dev)
+    mesh_s += (moe["main-moe"]["mesh_s"] + moe["main-moe-placed"]["mesh_s"]
+               + time.perf_counter() - t_heads)
+    log(f"the serving-mesh phases (main-mesh, main-moe-mesh, "
+        f"main-moe-placed-mesh, B1 at the shard shapes) added {mesh_s:.1f} s")
     # the paper's function-centric layer: no TPU kernel on this path
     gc.collect()
     torch.cuda.empty_cache()
@@ -3768,7 +3987,7 @@ def main() -> int:
                 "g16_decode_bound_ms", "g16_decode_bound_by", "g16_chunk_ms",
                 "g16_chunk_plain_ms", "g16_chunk_library_ms",
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
-                "moe_launches") if k in t}})
+                "moe_launches", "shard_heads") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

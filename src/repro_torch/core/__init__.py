@@ -27,7 +27,7 @@ All four tiers are implementations of one
 paper's ``(initialize, func, finalize)`` contract; the functions above are
 thin wrappers kept for the paper-faithful spelling.
 """
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Mesh, make_mesh
 from repro_torch.core.functional import (solve_problem, parallel_solve_problem,
                                          vmap_solve_problem, host_task_farm)
 from repro_torch.core.runtime import (Executor, MeshExecutor, SerialExecutor,
@@ -46,7 +46,8 @@ from repro_torch.core.schwarz import (additive_schwarz_iterations,
                                       simple_convergence_test, halo_exchange)
 
 __all__ = [
-    "Comm", "solve_problem", "parallel_solve_problem", "vmap_solve_problem",
+    "Comm", "Mesh", "make_mesh", "solve_problem", "parallel_solve_problem",
+    "vmap_solve_problem",
     "host_task_farm", "Executor", "SerialExecutor", "VmapExecutor", "MeshExecutor",
     "ThreadFarmExecutor", "make_executor", "straggler_deadline",
     "simple_partitioning", "get_subproblem_input_args", "pad_to_multiple",

@@ -17,10 +17,19 @@ here is a module-level function ``fn(comm, *args)`` that
 Every rank must call the same collectives in the same order; a rank that
 skips one leaves the others waiting, so :func:`run_ranks` joins its ranks
 under a timeout.
+
+A serving mesh (:func:`make_mesh`, the counterpart of ``jax.make_mesh``)
+lays the ranks of the world out on named axes and gives each axis a
+:class:`Comm` over the ranks that share every other coordinate.  Code that
+takes a transport tells the serial one from a mesh axis by one test,
+``comm.axis is None``: a :class:`SerialComm` has no axis, a :class:`Comm`
+always names one.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import pathlib
 import time
@@ -28,6 +37,7 @@ import traceback
 import uuid
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -40,10 +50,16 @@ class Comm:
     a world of one: its collectives keep their meaning (an untiled
     ``all_gather`` inserts the axis, ``permute`` leaves zeros where no pair
     sends), computed in place, as the reference's ``Comm`` over a
-    one-device mesh computes them."""
+    one-device mesh computes them.  ``axis`` names the mesh axis the group
+    spans (``"world"`` for the default group); it is never None, which is
+    how a mesh transport is told from :class:`SerialComm`."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, *, axis="world"):
+        if axis is None:
+            raise ValueError("a Comm spans a named axis; SerialComm is the "
+                             "transport without one")
         self.group = group
+        self.axis = axis
         self._alone = not dist.is_initialized()
         if self._alone and group is not None:
             raise ValueError("a process group was given, but torch."
@@ -152,9 +168,11 @@ class Comm:
 
 class SerialComm:
     """Single-process Comm with identical interface (paper's serial path),
-    with the reference's identities."""
+    with the reference's identities.  Its ``axis`` is None: the serial
+    transport spans no mesh axis."""
 
     group = None
+    axis = None
 
     def rank(self) -> int:
         return 0
@@ -193,6 +211,85 @@ def make_comm(group=None) -> Comm | SerialComm:
     (``torch.distributed.group.WORLD`` for the default one) a
     :class:`Comm` over it."""
     return SerialComm() if group is None else Comm(group)
+
+
+# ---------------------------------------------------------------------------
+# A serving mesh: the world's ranks on named axes, one Comm an axis
+# ---------------------------------------------------------------------------
+
+class Mesh:
+    """The ranks of the initialized world laid out row-major on named axes,
+    as ``jax.make_mesh`` lays out devices: on ``("expert", "model")`` of
+    shape (ep, tp), rank ``e * tp + m`` sits at (e, m).
+
+    ``axis_names`` and ``shape`` (a dict: ``mesh.shape["model"]``) read as
+    the reference's mesh does; ``coords`` is this rank's coordinate on each
+    axis; :meth:`comm` is the :class:`Comm` of one axis, over the ranks
+    that share every other coordinate with this one; ``world`` is a
+    :class:`Comm` over every rank of the mesh, in rank order (which is the
+    row-major order of the axes)."""
+
+    def __init__(self, shape, axis_names):
+        shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names):
+            raise ValueError(f"mesh shape {shape} and axis names "
+                             f"{axis_names} must pair up, names distinct")
+        if not dist.is_initialized():
+            raise RuntimeError("make_mesh runs inside an initialized world "
+                               "(run_ranks); with no group there is no mesh")
+        world, me = dist.get_world_size(), dist.get_rank()
+        if math.prod(shape) != world:
+            raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs "
+                             f"{math.prod(shape)} ranks, the world has "
+                             f"{world}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+        self.coords = dict(zip(axis_names,
+                               (int(c) for c in np.unravel_index(me, shape))))
+        self.world = Comm(axis=axis_names)
+        self._comms = {}
+        # every rank creates every group, in the same order: new_group is a
+        # collective of the whole world even for the ranks outside it
+        for i, name in enumerate(axis_names):
+            others = [range(n) if j != i else (0,)
+                      for j, n in enumerate(shape)]
+            for base in itertools.product(*others):
+                ranks = []
+                for c in range(shape[i]):
+                    at = list(base)
+                    at[i] = c
+                    ranks.append(int(np.ravel_multi_index(at, shape)))
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    self._comms[name] = Comm(group, axis=name)
+
+    def comm(self, name: str) -> Comm:
+        """The :class:`Comm` of axis ``name`` through this rank."""
+        return self._comms[name]
+
+    def index(self, axes, rank: int | None = None) -> tuple[int, int]:
+        """(the shard index of this rank, or of world rank ``rank``, and the
+        shard count) when a tensor axis is split over the mesh axes
+        ``axes`` (one name, or a tuple, major first): the reference's
+        ``PartitionSpec`` entry semantics."""
+        if isinstance(axes, str):
+            axes = (axes,)
+        coords = self.coords if rank is None else dict(zip(
+            self.axis_names, (int(c) for c in np.unravel_index(
+                rank, tuple(self.shape.values())))))
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * self.shape[a] + coords[a]
+            n *= self.shape[a]
+        return idx, n
+
+
+def make_mesh(shape, axis_names) -> Mesh:
+    """The serving mesh of the initialized world (:class:`Mesh`): the
+    counterpart of ``jax.make_mesh(shape, axis_names)``.  Every rank must
+    call it, in the same order as every other group it makes."""
+    return Mesh(shape, axis_names)
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +340,9 @@ def run_ranks(fn: Callable, args: tuple = (), *, world: int, store_dir,
     and return each rank's result, in rank order (tensors on the host).
 
     ``fn`` must be importable at module level (ranks start from a fresh
-    import).  The group meets through a ``file://`` store in ``store_dir``,
-    so no port is taken; its backend follows ``device`` (NCCL on ``cuda``,
+    import).  The group meets through a ``file://`` store in ``store_dir``
+    (a relative one is taken from the working directory: a ``file://`` URL
+    needs an absolute path), so no port is taken; its backend follows ``device`` (NCCL on ``cuda``,
     one card a rank; gloo on ``cpu``).  At ``world`` 1 the rank is this
     process: the group is made, used and destroyed here, and no group is
     left behind.  Otherwise each rank is a process spawned with
@@ -258,7 +356,8 @@ def run_ranks(fn: Callable, args: tuple = (), *, world: int, store_dir,
                            f"{torch.cuda.device_count()} are visible")
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized")
-    pathlib.Path(store_dir).mkdir(parents=True, exist_ok=True)
+    store_dir = pathlib.Path(store_dir).resolve()
+    store_dir.mkdir(parents=True, exist_ok=True)
     tag = os.path.join(str(store_dir), f"ranks-{uuid.uuid4().hex}")
     store = f"{tag}.store"
     try:

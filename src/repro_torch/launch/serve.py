@@ -30,17 +30,33 @@ measured per-expert token counts, and the paged run prints a ``[serve]
 moe:`` line (assignments routed and dropped, the rank imbalance, the
 placements).  Prints the reference launcher's summary lines plus each
 kernel's launch count.
+
+``--mesh tp=N[,ep=M]`` serves tensor-parallel over a serving mesh of
+``tp * ep`` ranks (:func:`parse_mesh`): the launcher runs its serve body on
+that many ranks through :func:`repro_torch.core.comm.run_ranks` (NCCL, one
+card a rank, on ``--device cuda``; gloo on ``--device cpu``), each rank
+builds the same seeded weights and serves its shard, and rank 0 prints the
+summary with the reference's `` tp=N ep=M`` mode tag.  Too few cards
+raise, as ``run_ranks`` does; there is no gloo fallback on the card.  The
+ranks meet through a file store in ``--store-dir``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+        --smoke --device cpu --mesh tp=2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import math
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.core import comm as C
 from repro_torch.kernels import ops
 from repro_torch.models.api import build_model
 from repro_torch.serve.disagg import DisaggServeEngine
@@ -113,11 +129,40 @@ def parse_args(argv=None):
                     "(clock units)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the traffic metric report as JSON")
+    ap.add_argument("--mesh", default=None, metavar="tp=N[,ep=M]",
+                    help="serve tensor-parallel over N ranks ('model' "
+                    "axis); add ep=M for a 2-D ('expert', 'model') mesh "
+                    "partitioning whole MoE experts over M ranks (NCCL, "
+                    "one card a rank, on cuda; gloo on cpu)")
+    ap.add_argument("--store-dir", default="build/ranks",
+                    help="where a mesh's ranks meet (a file store)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     if args.disagg and args.dense:
         raise SystemExit("--disagg needs the paged KV engine; drop --dense")
+    parse_mesh(args.mesh)           # a bad spec fails before any rank starts
     return args
+
+
+def parse_mesh(spec):
+    """``"tp=N[,ep=M]"`` -> the serving mesh's ``(shape, axis_names)``
+    (None for no spec).  ``tp=N`` alone is the 1-D ``("model",)`` mesh;
+    any spec naming ``ep`` is the 2-D ``("expert", "model")`` mesh of
+    ep x tp ranks (``ep=M`` alone means tp=1), as the reference's."""
+    if not spec:
+        return None
+    vals: dict[str, int] = {}
+    for part in spec.split(","):
+        key, _, val = part.partition("=")
+        if key not in ("tp", "ep") or key in vals \
+                or not val.isdigit() or int(val) < 1:
+            raise SystemExit(
+                f"--mesh expects tp=N[,ep=M] (each >= 1), got {spec!r}")
+        vals[key] = int(val)
+    tp, ep = vals.get("tp", 1), vals.get("ep")
+    if ep is None:
+        return (tp,), ("model",)
+    return (ep, tp), ("expert", "model")
 
 
 def make_prompts(args, vocab: int) -> list:
@@ -166,7 +211,7 @@ def run_traffic_demo(eng, cfg, args) -> dict:
     per = "tick" if args.clock == "virtual" else "s"
     print(f"[serve] goodput: {g['tok_per_s']:.3f} tok/{per} "
           f"slo_attainment={g['slo_attainment']:.2f}")
-    if args.metrics_out:
+    if args.metrics_out and (eng.mesh is None or eng.mesh.world.rank() == 0):
         with open(args.metrics_out, "w") as f:
             json.dump({"args": {"traffic": args.traffic, "rate": args.rate,
                                 "clock": args.clock,
@@ -177,9 +222,10 @@ def run_traffic_demo(eng, cfg, args) -> dict:
     return res
 
 
-def build_engine(args):
+def build_engine(args, mesh=None):
     """The model of ``args`` with seeded random weights, and the engine
-    that serves it: ``(engine, config)``."""
+    that serves it (this rank's, on a serving ``mesh``): ``(engine,
+    config)``."""
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
     why = model.engine_refusal()
@@ -195,7 +241,7 @@ def build_engine(args):
               kv_quant=args.kv_quant, weight_quant=args.weight_quant,
               spec_decode=None if args.spec_decode == "off"
               else args.spec_decode, spec_k=args.spec_k, device=args.device,
-              placement_interval=args.expert_placement)
+              placement_interval=args.expert_placement, mesh=mesh)
     if args.disagg:
         eng = DisaggServeEngine(model, params, executor=args.executor, **kw)
     else:
@@ -206,9 +252,35 @@ def build_engine(args):
 
 def main(argv=None):
     """Build the model, serve seeded random prompts (or a traffic run),
-    print the summary; returns the engine."""
+    print the summary; returns the engine.  With ``--mesh``, the serve body
+    runs on the mesh's ranks and this returns each rank's
+    :func:`serve_rank` result instead."""
     args = parse_args(argv)
-    eng, cfg = build_engine(args)
+    mesh = parse_mesh(args.mesh)
+    if mesh is None:
+        return serve(args)
+    return C.run_ranks(serve_rank, (args,), world=math.prod(mesh[0]),
+                       store_dir=args.store_dir, device=args.device,
+                       timeout=3600)
+
+
+def serve_rank(comm, args) -> dict:
+    """One rank of a ``--mesh`` run: make the mesh, serve, and return the
+    rank's streams and its mesh shape; only rank 0 prints."""
+    mesh = C.make_mesh(*parse_mesh(args.mesh))
+    quiet = contextlib.redirect_stdout(io.StringIO()) if comm.rank() \
+        else contextlib.nullcontext()
+    with quiet:
+        eng = serve(args, mesh)
+    return {"streams": {r.rid: list(r.output) for r in eng.finished},
+            "tp": eng.tp if hasattr(eng, "tp") else eng.decoder.tp,
+            "ep": eng.ep if hasattr(eng, "ep") else eng.decoder.ep}
+
+
+def serve(args, mesh=None):
+    """The serve body: build the engine (on ``mesh``, this rank's), serve,
+    print the summary; returns the engine."""
+    eng, cfg = build_engine(args, mesh)
     ops.reset_counts()
     if eng.device.type == "cuda":   # the seeded init runs asynchronously
         torch.cuda.synchronize(eng.device)
@@ -247,6 +319,8 @@ def main(argv=None):
                  f"{s['kv_bytes_per_token']} KV B/tok)")
     if eng.drafter is not None:
         mode += f" spec={args.spec_decode}(k={eng.spec_k})"
+    if mesh is not None:
+        mode += f" tp={eng.tp}" + (f" ep={eng.ep}" if eng.ep > 1 else "")
     print(f"[serve] {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks/dt:.1f} tok/s); ticks={s['ticks']} "
           f"chunks={s['chunk_prefills']} "

@@ -9,10 +9,21 @@ cache), rwkv6 on the dense per-slot path (a recurrent state per slot), and
 zamba2 as an aligned batch (prefill, then decode at one position for every
 row).  The members are plain functions over dict-of-tensor params, which
 is all the serving engine calls.
+
+The serving-mesh rules are the reference's (``SERVE_TP_AXES``): a family
+with a paged KV cache serves Megatron-style tensor-parallel — attention
+heads, MLP ff, the experts and the unembedding's vocab split over the
+``"model"`` axis (:meth:`DecoderLM.serve_param_specs`), the KV pages' head
+axis too (:meth:`DecoderLM.paged_storage_specs`) — and, on a 2-D
+``("expert", "model")`` mesh, the expert stacks over both axes, expert
+major.  A family without one (rwkv6, and a dense-path ``DecoderLM``)
+serves slot-parallel: the params replicated, the decode state's slot axis
+split over ``"model"`` (``serve_state_specs``).  Specs are tuples, one
+entry an axis: None, a mesh axis name, or a tuple of names.
 """
 from __future__ import annotations
 
-__all__ = ["DecoderLM", "RwkvLM", "HybridLM", "build_model"]
+__all__ = ["DecoderLM", "RwkvLM", "HybridLM", "SERVE_TP_AXES", "build_model"]
 
 from typing import Optional, Union
 
@@ -22,8 +33,67 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as T
 from repro_torch.models import zamba as Z
-from repro_torch.models.module import (init_params, resolve_device,
-                                       torch_dtype)
+from repro_torch.models.module import (init_params, mesh_spec,
+                                       resolve_device, torch_dtype, tree_map)
+
+# -- serving-mesh sharding rules (the reference's) ---------------------------
+# logical axis -> serving-mesh axis; every other logical axis is replicated
+SERVE_TP_AXES: dict = {
+    "q_heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+}
+
+
+def _param_specs(defs, table) -> dict:
+    return tree_map(lambda p: mesh_spec(p.logical_axes(), table), defs)
+
+
+def _slot_specs(logical) -> dict:
+    """Slot-parallel specs of a decode state: the logical ``"batch"`` axis
+    of every leaf split over ``"model"``, the rest replicated."""
+    return tree_map(lambda spec: tuple("model" if ax == "batch" else None
+                                       for ax in spec), logical)
+
+
+def _no_tp_specs(cfg):
+    return NotImplementedError(
+        f"{cfg.family} has no TP serving specs (engine slot-parallel mode "
+        "replicates params instead)")
+
+
+def _validate_mesh(model, tp: int, ep: int) -> None:
+    """The reference's ``validate_serve_mesh``: raise with every
+    indivisible dimension named for a (tp, ep) serving mesh."""
+    cfg = model.cfg
+    if ep > 1 and not cfg.n_experts:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) is a dense family with no "
+            f"experts: expert-parallel ep={ep} cannot apply — drop the "
+            "expert axis (--mesh tp=N)")
+    if tp <= 1 and ep <= 1:
+        return
+    bad = []
+    if model.supports_paged_decode():
+        if tp > 1:
+            dims = {"padded_q_heads": cfg.padded_q_heads,
+                    "padded_kv_heads": cfg.padded_kv_heads,
+                    "padded_vocab": cfg.padded_vocab}
+            if not cfg.n_experts or cfg.dense_residual:
+                dims["d_ff"] = cfg.d_ff
+            bad += [f"{k}={v} (tp={tp})" for k, v in dims.items() if v % tp]
+        if cfg.n_experts and cfg.n_experts % (ep * tp):
+            # the experts split over both axes (tp cuts expert rows even on
+            # a 1-D mesh), so the product must divide the stack
+            shards = f"ep*tp={ep * tp}" if ep > 1 else f"tp={tp}"
+            bad.append(f"n_experts={cfg.n_experts} ({shards})")
+    elif ep > 1:
+        bad.append(f"family={cfg.family} has no paged expert path (ep={ep})")
+    if bad:
+        raise ValueError(f"{cfg.name}: serving mesh (tp={tp}, ep={ep}) does "
+                         "not divide " + ", ".join(bad))
 
 
 def _generator(generator_or_seed, dev) -> torch.Generator:
@@ -108,41 +178,51 @@ class DecoderLM:
         return quantize_leaf_specs({"k": leaf, "v": leaf}, quant)
 
     def paged_prefill_chunk(self, params, storage, table_row, pages_chunk,
-                            start, tokens, *, quant=None, placement=None):
+                            start, tokens, *, quant=None, placement=None,
+                            comm=None, ep_comm=None):
         """Prefill tokens (1, C) at positions [start, start + C) into pages
         (in place, quantized on write with a KV ``quant`` policy; an MoE
         model's experts dispatched through the (3, E) ``placement`` map);
         returns ``(hidden (1, C, d), telemetry)``, telemetry the
         layer-summed ``{"expert_tokens", "expert_dropped"}`` int32 (E,)
-        ((0,) for a dense model)."""
+        ((0,) for a dense model).  ``comm`` / ``ep_comm``: the serving
+        mesh's ``"model"`` / ``"expert"`` transports, with ``params`` and
+        ``storage`` the rank's shards (None: one device)."""
         return T.paged_prefill_chunk(params, self.cfg, storage, table_row,
                                      pages_chunk, start, tokens, quant=quant,
-                                     placement=placement)
+                                     placement=placement, comm=comm,
+                                     ep_comm=ep_comm)
 
     def paged_decode_step(self, params, storage, tables, lengths, tokens,
                           write_pages, write_offs, *, quant=None,
-                          placement=None):
+                          placement=None, comm=None, ep_comm=None):
         """tokens (B, 1) -> ``(float32 logits (B, 1, V), telemetry)``; K/V
-        written in place (quantized on write with a KV ``quant`` policy)."""
+        written in place (quantized on write with a KV ``quant`` policy);
+        ``comm`` / ``ep_comm`` as in :meth:`paged_prefill_chunk` (the
+        logits all-gathered over the vocab shards)."""
         return T.paged_decode_step(params, self.cfg, storage, tables, lengths,
                                    tokens, write_pages, write_offs,
-                                   quant=quant, placement=placement)
+                                   quant=quant, placement=placement,
+                                   comm=comm, ep_comm=ep_comm)
 
     def paged_verify(self, params, storage, tables, lengths, tokens,
-                     write_pages, write_offs, *, quant=None, placement=None):
+                     write_pages, write_offs, *, quant=None, placement=None,
+                     comm=None, ep_comm=None):
         """A speculative verify window: tokens (B, C) -> ``(float32 logits
         (B, C, V), telemetry)``; the window's K/V written in place at
         (write_pages, write_offs) (B, C) (quantized on write with a KV
-        ``quant`` policy)."""
+        ``quant`` policy); ``comm`` / ``ep_comm`` as in
+        :meth:`paged_decode_step`."""
         return T.paged_verify_chunk(params, self.cfg, storage, tables,
                                     lengths, tokens, write_pages, write_offs,
-                                    quant=quant, placement=placement)
+                                    quant=quant, placement=placement,
+                                    comm=comm, ep_comm=ep_comm)
 
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, *, comm=None, ep_comm=None):
         """Scoring forward without a cache: tokens (B, S) -> final hidden
-        states (B, S, d) (the self-drafter runs it on a truncated
-        model)."""
-        return T.forward(params, self.cfg, tokens)
+        states (B, S, d) (the self-drafter runs it on a truncated model;
+        under a mesh on the rank's shards, with the mesh's transports)."""
+        return T.forward(params, self.cfg, tokens, comm, ep_comm)
 
     def prefill(self, params, tokens, max_len: Optional[int] = None):
         """Whole prompts (B, S) -> (cache, final hidden (B, S, d)); the
@@ -161,10 +241,50 @@ class DecoderLM:
         logits (B, 1, V); the K/V are written into ``state`` in place."""
         return T.decode_step(params, self.cfg, state, tokens, pos)
 
-    def lm_head(self, params, hidden):
+    def lm_head(self, params, hidden, comm=None):
         """Project final hidden states to float32 vocab logits (an int8
-        unembedding dequantized to the hidden states' dtype first)."""
-        return T.lm_logits(params, hidden)
+        unembedding dequantized to the hidden states' dtype first); with a
+        mesh ``comm`` the rank's vocab shard, all-gathered."""
+        return T.lm_logits(params, hidden, comm)
+
+    # -- serving-mesh rules ---------------------------------------------------
+
+    def serve_param_specs(self, ep: int = 1) -> dict:
+        """Mesh specs of the params under tensor-parallel paged serving:
+        attention heads, MLP ff, the experts and the unembedding's vocab
+        split over ``"model"``; the norms, the router and the embedding
+        table (its lookup needs every row) replicated.  ``ep > 1``: the
+        expert stacks split over ``("expert", "model")``, expert major."""
+        table = dict(SERVE_TP_AXES)
+        if ep > 1:
+            table["experts"] = ("expert", "model")
+        specs = _param_specs(self.param_defs(), table)
+        specs["embed"]["table"] = (None, None)
+        return specs
+
+    def serve_state_specs(self, batch: int, max_len: int) -> dict:
+        """Slot-parallel specs of the dense per-slot cache: its slot axis
+        over ``"model"``."""
+        del batch, max_len
+        return _slot_specs(T.cache_specs(self.cfg))
+
+    def paged_storage_specs(self, quant=None) -> dict:
+        """Mesh specs of the page pool's storage under tensor-parallel
+        serving: the leading suffix axis of every :meth:`paged_leaf_specs`
+        leaf (the KV-head axis; a scale leaf's whole suffix) over
+        ``"model"``."""
+        return tree_map(
+            lambda s: (None,) * (len(s.prefix) + 2) + ("model",)
+            + (None,) * (len(s.suffix) - 1), self.paged_leaf_specs(quant))
+
+    def validate_serve_mesh(self, tp: int = 1, ep: int = 1) -> None:
+        """Raise with every indivisible dimension named for a (tp, ep)
+        serving mesh; ``ep > 1`` on a dense family is refused outright."""
+        _validate_mesh(self, tp, ep)
+
+    def validate_serve_tp(self, tp: int) -> None:
+        """:meth:`validate_serve_mesh` on a 1-D mesh."""
+        self.validate_serve_mesh(tp=tp)
 
 
 class RwkvLM:
@@ -217,6 +337,21 @@ class RwkvLM:
     def lm_head(self, params, hidden):
         """Project final hidden states to float32 vocab logits."""
         return T.lm_logits(params, hidden)
+
+    def serve_param_specs(self, ep: int = 1):
+        """Refused: the family serves slot-parallel, params replicated."""
+        raise _no_tp_specs(self.cfg)
+
+    def serve_state_specs(self, batch: int, max_len: int) -> dict:
+        """Slot-parallel specs of the recurrent state: its slot axis over
+        ``"model"``."""
+        del batch, max_len
+        return _slot_specs(RW.state_specs(self.cfg))
+
+    def validate_serve_mesh(self, tp: int = 1, ep: int = 1) -> None:
+        """The reference's checks; ``ep > 1`` is refused (no paged expert
+        path)."""
+        _validate_mesh(self, tp, ep)
 
 
 class HybridLM:
@@ -276,6 +411,21 @@ class HybridLM:
     def lm_head(self, params, hidden):
         """Project final hidden states to float32 vocab logits."""
         return T.lm_logits(params, hidden)
+
+    def serve_param_specs(self, ep: int = 1):
+        """Refused: the family has no paged TP specs."""
+        raise _no_tp_specs(self.cfg)
+
+    def serve_state_specs(self, batch: int, max_len: int) -> dict:
+        """Slot-parallel specs of the state: its slot axis over
+        ``"model"`` (the engine refuses the family, as the reference's
+        launcher does)."""
+        del batch, max_len
+        return _slot_specs(Z.state_specs(self.cfg))
+
+    def validate_serve_mesh(self, tp: int = 1, ep: int = 1) -> None:
+        """The reference's checks; ``ep > 1`` is refused."""
+        _validate_mesh(self, tp, ep)
 
 
 _FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": RwkvLM,

@@ -25,15 +25,17 @@ def attention_def(cfg) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     hq, hkv = cfg.padded_q_heads, cfg.padded_kv_heads
     defs = {
-        "wq": Param((d, hq, hd)),
-        "wk": Param((d, hkv, hd)),
-        "wv": Param((d, hkv, hd)),
-        "wo": Param((hq, hd, d)),
+        "wq": Param((d, hq, hd), ("embed_w", "q_heads", "head_dim")),
+        "wk": Param((d, hkv, hd), ("embed_w", "kv_heads", "head_dim")),
+        "wv": Param((d, hkv, hd), ("embed_w", "kv_heads", "head_dim")),
+        "wo": Param((hq, hd, d), ("q_heads", "head_dim", "embed_w")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = Param((hq, hd), init="zeros")
-        defs["bk"] = Param((hkv, hd), init="zeros")
-        defs["bv"] = Param((hkv, hd), init="zeros")
+        defs["bq"] = Param((hq, hd), ("q_heads", "head_dim"), init="zeros")
+        defs["bk"] = Param((hkv, hd), ("kv_heads", "head_dim"),
+                           init="zeros")
+        defs["bv"] = Param((hkv, hd), ("kv_heads", "head_dim"),
+                           init="zeros")
     if cfg.qk_norm:
         defs["q_norm"] = L.rmsnorm_def(hd)
         defs["k_norm"] = L.rmsnorm_def(hd)

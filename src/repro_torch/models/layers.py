@@ -19,7 +19,7 @@ from repro_torch.models.module import Param
 
 def rmsnorm_def(dim: int) -> dict:
     """Declaration of one RMSNorm scale."""
-    return {"scale": Param((dim,), init="ones")}
+    return {"scale": Param((dim,), (None,), init="ones")}
 
 
 def rmsnorm(params, x, *, eps: float = 1e-6):
@@ -55,8 +55,10 @@ def gated_rmsnorm(params, y, z, *, eps: float = 1e-6):
 
 def layernorm_def(dim: int) -> dict:
     """Declaration of one LayerNorm's scale and bias (kept in float32)."""
-    return {"scale": Param((dim,), init="ones", dtype=torch.float32),
-            "bias": Param((dim,), init="zeros", dtype=torch.float32)}
+    return {"scale": Param((dim,), (None,), init="ones",
+                           dtype=torch.float32),
+            "bias": Param((dim,), (None,), init="zeros",
+                          dtype=torch.float32)}
 
 
 def layernorm(params, x, *, eps: float = 1e-5):
@@ -85,9 +87,9 @@ def linear(params, x):
 def mlp_def(d_model: int, d_ff: int) -> dict:
     """Declaration of the gated (SwiGLU) MLP."""
     return {
-        "gate": Param((d_model, d_ff)),
-        "up": Param((d_model, d_ff)),
-        "down": Param((d_ff, d_model)),
+        "gate": Param((d_model, d_ff), ("embed_w", "mlp")),
+        "up": Param((d_model, d_ff), ("embed_w", "mlp")),
+        "down": Param((d_ff, d_model), ("mlp", "embed_w")),
     }
 
 

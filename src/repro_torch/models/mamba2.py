@@ -31,19 +31,20 @@ def mamba2_def(cfg) -> dict:
     K = cfg.conv_kernel
     f32 = torch.float32
     return {
-        "w_z": Param((d, di)),
-        "w_x": Param((d, di)),
-        "w_B": Param((d, N)),
-        "w_C": Param((d, N)),
-        "w_dt": Param((d, H)),
-        "conv_x": Param((K, di), init="small", dtype=f32),
-        "conv_B": Param((K, N), init="small", dtype=f32),
-        "conv_C": Param((K, N), init="small", dtype=f32),
-        "A_log": Param((H,), init="zeros", dtype=f32),
-        "D": Param((H,), init="ones", dtype=f32),
-        "dt_bias": Param((H,), init="zeros", dtype=f32),
+        "w_z": Param((d, di), ("embed_w", "inner")),
+        "w_x": Param((d, di), ("embed_w", "inner")),
+        "w_B": Param((d, N), ("embed_w", None)),
+        "w_C": Param((d, N), ("embed_w", None)),
+        "w_dt": Param((d, H), ("embed_w", "ssm_heads")),
+        "conv_x": Param((K, di), ("conv_k", "inner"), init="small",
+                        dtype=f32),
+        "conv_B": Param((K, N), ("conv_k", None), init="small", dtype=f32),
+        "conv_C": Param((K, N), ("conv_k", None), init="small", dtype=f32),
+        "A_log": Param((H,), ("ssm_heads",), init="zeros", dtype=f32),
+        "D": Param((H,), ("ssm_heads",), init="ones", dtype=f32),
+        "dt_bias": Param((H,), ("ssm_heads",), init="zeros", dtype=f32),
         "out_norm": L.rmsnorm_def(di),
-        "w_out": Param((di, d)),
+        "w_out": Param((di, d), ("inner", "embed_w")),
     }
 
 

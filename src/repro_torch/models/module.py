@@ -1,12 +1,17 @@
 """Parameter declarations and seeded initialization for the port.
 
-Models declare parameters as nested dicts of :class:`Param` (shape plus
-initializer), the same trees as the reference's ``repro.models.module``
-without the logical partition specs: the port serves on one card, so there
-is nothing to shard.  :func:`init_params` materializes a declaration tree
-into tensors on one device, each leaf in the model's dtype unless its
+Models declare parameters as nested dicts of :class:`Param` (shape,
+logical axis names and initializer), the same trees as the reference's
+``repro.models.module``.  :func:`init_params` materializes a declaration
+tree into tensors on one device, each leaf in the model's dtype unless its
 declaration names its own (the reference's ``dtype`` override: a leaf the
 model always reads in float32 is kept in float32).
+
+The logical axes (``"q_heads"``, ``"mlp"``, ``"vocab"``, ...) are the
+reference's, leaf for leaf.  A serving mesh maps them onto its axes through
+a table (:func:`mesh_spec`), and :func:`shard_leaf` cuts a rank's shard of
+a tensor from the mapped spec: the serving engine's tensor- and
+expert-parallel layout (``repro_torch.models.api.SERVE_TP_AXES``).
 """
 from __future__ import annotations
 
@@ -19,11 +24,24 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """Declaration of one parameter tensor."""
+    """Declaration of one parameter tensor: its shape, the logical name of
+    each axis (None: an axis no mesh splits; ``spec=None``: none is named)
+    and its initializer."""
 
     shape: tuple
+    spec: Optional[tuple] = None  # logical axis names, one an axis
     init: str = "normal"          # normal | zeros | ones | small
     dtype: Optional[torch.dtype] = None   # overrides the model's dtype
+
+    def __post_init__(self):
+        if self.spec is not None and len(self.spec) != len(self.shape):
+            raise ValueError(f"spec {self.spec} does not name the "
+                             f"{len(self.shape)} axes of {self.shape}")
+
+    def logical_axes(self) -> tuple:
+        """The logical name of every axis (None where none is named)."""
+        return tuple(self.spec) if self.spec is not None \
+            else (None,) * len(self.shape)
 
     def stddev(self) -> float:
         """The normal initializer's standard deviation (1/sqrt(fan_in))."""
@@ -43,6 +61,45 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def mesh_spec(logical: tuple, table: dict) -> tuple:
+    """Logical axis names -> the mesh axes each tensor axis is split over
+    (None: not split), through ``table`` (logical name -> a mesh axis, or
+    a tuple of them, major first); names the table lacks are not split."""
+    return tuple(table.get(ax) if ax is not None else None for ax in logical)
+
+
+def shard_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of ``x`` under the mesh spec ``spec`` (one entry an
+    axis of ``x``: None, a mesh axis name, or a tuple of names, major
+    first; :meth:`repro_torch.core.comm.Mesh.index`).  A tensor no axis of
+    which is split on more than one rank is returned itself; otherwise the
+    shard is copied out on its own (``clone``), so the whole tensor can be
+    let go and no second whole copy is kept."""
+    if len(spec) > x.ndim:
+        raise ValueError(f"spec {spec} names more axes than {tuple(x.shape)}")
+    out = x
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        idx, n = mesh.index(axes)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"axis {dim} of {tuple(x.shape)} does not "
+                             f"split over {n} ranks ({axes})")
+        size = x.shape[dim] // n
+        out = out.narrow(dim, idx * size, size)
+    return x if out is x else out.clone()
+
+
+def shard_params(params, specs, mesh):
+    """:func:`shard_leaf` over a tree: ``specs`` mirrors ``params`` (a
+    quantized weight's ``{"q8", "s8"}`` pair with its own pair of specs)."""
+    if isinstance(params, dict):
+        return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
+    return shard_leaf(params, specs, mesh)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -28,8 +28,17 @@ host, so a decode step can be captured in a CUDA graph.
 
 The expert GEMMs are batched products (``torch.bmm``) outside any kernel of
 the reference's, as its ``jnp.einsum`` is; the router runs in float32.
-The reference's training paths (``rules``, ``shard_map``, expert TP) and
-its serving-TP ``shard_comm`` come with later slices (ROADMAP A9b, A13).
+
+Serving tensor parallelism (``shard_comm``, the engine's ``"model"`` axis)
+keeps the activations, the routing, the capacity rule and the combine
+replicated and splits only the expert GEMMs: each rank computes its own
+experts' rows of the replicated dispatch buffer and one tiled
+``all_gather`` restores the buffer in expert order, so every expert's rows
+meet the same weights as in the serial block, on one rank, and the block
+is bit for bit the serial one.  ``tp_comm`` (expert TP: the expert ff
+axis split, the down projection's partial sums all-reduced in float32) is
+the reference's training layout; the reference's ``rules`` /
+``shard_map`` training path comes with ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -53,10 +62,10 @@ def moe_def(cfg) -> dict:
     gate/up (E, d, eff) and down (E, eff, d)."""
     d, E, eff = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
     return {
-        "router": Param((d, E), init="small"),
-        "gate": Param((E, d, eff)),
-        "up": Param((E, d, eff)),
-        "down": Param((E, eff, d)),
+        "router": Param((d, E), ("embed", None), init="small"),
+        "gate": Param((E, d, eff), ("experts", "expert_embed", "expert_mlp")),
+        "up": Param((E, d, eff), ("experts", "expert_embed", "expert_mlp")),
+        "down": Param((E, eff, d), ("experts", "expert_mlp", "expert_embed")),
     }
 
 
@@ -87,10 +96,21 @@ def empty_expert_stats(n_experts: int, device=None) -> dict:
     return {"tokens": z, "dropped": z.clone()}
 
 
-def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm,
-                              placement=None):
+def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm, tp_comm=None,
+                              shard_comm=None, placement=None):
     """The routed computation on one rank.  x2d: (T, d), replicated on every
-    rank of ``comm``; ``wg``/``wu``/``wd``: this rank's E/ep experts.
+    rank of ``comm``; ``wg``/``wu``/``wd``: this rank's E/ep experts (with
+    ``shard_comm``, its E/(ep*tp)).
+
+    ``tp_comm``: expert TP — the expert ff axis of ``wg``/``wu``/``wd`` is
+    split over this axis, and the down projection's partial sums are
+    all-reduced over it in float32.
+
+    ``shard_comm``: serving TP — the activations are replicated over this
+    axis too and the expert stacks are split over it; each rank takes its
+    experts' rows of the (replicated) exchanged buffer and a tiled
+    ``all_gather`` restores the buffer in expert order (module
+    docstring).
 
     ``placement``: a (3, E) int32 tensor [slot_a, slot_b, split_q] from
     :mod:`repro_torch.serve.placement`: logical expert e's first
@@ -160,12 +180,23 @@ def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm,
 
     # --- EP exchange: each rank gets its experts' rows from every rank -------
     buf = comm.all_to_all(buf, split_axis=0, concat_axis=1)   # (E/ep, C*ep, d)
+    if shard_comm is not None:
+        # serving TP: the buffer is replicated; take my experts' rows
+        n_sh, e_sh = shard_comm.size(), wg.shape[0]
+        assert e_sh * n_sh == E // ep, (tuple(wg.shape), n_sh, E // ep)
+        buf = buf.narrow(0, shard_comm.rank() * e_sh, e_sh)
 
     # --- expert GEMMs ---------------------------------------------------------
     g = torch.bmm(buf, wg.to(buf.dtype))
     u = torch.bmm(buf, wu.to(buf.dtype))
     h = F.silu(g) * u
     out = torch.bmm(h, wd.to(h.dtype))
+    if tp_comm is not None:
+        # expert TP: the ff axis is split; sum the down projection's parts
+        out = tp_comm.all_reduce_sum(out.float()).to(out.dtype)
+    if shard_comm is not None:
+        # rank order is expert order: the gather is the serial layout
+        out = shard_comm.all_gather(out, axis=0, tiled=True)  # (E/ep, ., d)
 
     # --- return + combine in sorted order ------------------------------------
     out = comm.all_to_all(out, split_axis=1, concat_axis=0)   # (E, C, d)
@@ -185,7 +216,8 @@ def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm,
     return y, aux, stats
 
 
-def moe_apply_expert_parallel(params, x, cfg, ep_comm, placement=None):
+def moe_apply_expert_parallel(params, x, cfg, ep_comm, shard_comm=None,
+                              placement=None):
     """MoE block with the experts partitioned over ``ep_comm``'s ranks.
 
     Activations, and so routing, the capacity rule and the combine, are
@@ -195,12 +227,27 @@ def moe_apply_expert_parallel(params, x, cfg, ep_comm, placement=None):
     gate/up/down: (E/ep, ...)), and the reverse ``all_to_all`` gives every
     rank the whole combined buffer.  Each expert's rows meet the same
     weights as in the serial block, on one rank.  ``SerialComm()`` is the
-    serial block.  Returns ``(y, aux, stats)`` (see
-    :func:`_dispatch_compute_combine`)."""
+    serial block.
+
+    Composes with serving TP as a 2-D ``("expert", "model")`` mesh: pass
+    the model axis's Comm as ``shard_comm``, and each rank's expert stacks
+    arrive (E/(ep*tp), ...), expert-major.  Returns ``(y, aux, stats)``
+    (see :func:`_dispatch_compute_combine`)."""
     y2d, aux, stats = _dispatch_compute_combine(
         x.reshape(-1, x.shape[-1]), params["router"], params["gate"],
-        params["up"], params["down"], cfg, ep_comm, placement=placement)
+        params["up"], params["down"], cfg, ep_comm, shard_comm=shard_comm,
+        placement=placement)
     return y2d.reshape(x.shape), aux, stats
+
+
+def moe_apply_serve_tp(params, x, cfg, shard_comm, placement=None):
+    """The MoE block under serving TP alone: activations replicated over
+    ``shard_comm``'s ranks, the expert stacks split over them (E/tp each),
+    the router replicated; bit for bit the serial block.  Returns ``(y,
+    aux, stats)``."""
+    return moe_apply_expert_parallel(params, x, cfg, SerialComm(),
+                                     shard_comm=shard_comm,
+                                     placement=placement)
 
 
 def moe_apply(params, x, cfg):

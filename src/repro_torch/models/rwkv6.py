@@ -35,27 +35,30 @@ def rwkv_block_def(cfg) -> dict:
         "ln1": L.layernorm_def(d),
         "ln2": L.layernorm_def(d),
         "tm": {  # time mix
-            "mu_r": Param((d,), init="small"),
-            "mu_k": Param((d,), init="small"),
-            "mu_v": Param((d,), init="small"),
-            "mu_g": Param((d,), init="small"),
-            "mu_w": Param((d,), init="small"),
-            "w_r": Param((d, H, hd)),
-            "w_k": Param((d, H, hd)),
-            "w_v": Param((d, H, hd)),
-            "w_g": Param((d, H, hd)),
-            "w_decay": Param((d, H, hd), init="small"),
-            "decay_base": Param((H, hd), init="zeros", dtype=f32),
-            "u": Param((H, hd), init="small", dtype=f32),
+            "mu_r": Param((d,), (None,), init="small"),
+            "mu_k": Param((d,), (None,), init="small"),
+            "mu_v": Param((d,), (None,), init="small"),
+            "mu_g": Param((d,), (None,), init="small"),
+            "mu_w": Param((d,), (None,), init="small"),
+            "w_r": Param((d, H, hd), ("embed_w", None, None)),
+            "w_k": Param((d, H, hd), ("embed_w", None, None)),
+            "w_v": Param((d, H, hd), ("embed_w", None, "rwkv_v")),
+            "w_g": Param((d, H, hd), ("embed_w", None, "rwkv_v")),
+            "w_decay": Param((d, H, hd), ("embed_w", None, None),
+                             init="small"),
+            "decay_base": Param((H, hd), (None, None), init="zeros",
+                                dtype=f32),
+            "u": Param((H, hd), (None, None), init="small", dtype=f32),
             "ln_x": L.layernorm_def(H * hd),
-            "w_o": Param((H, hd, d), dtype=f32),
+            "w_o": Param((H, hd, d), (None, "rwkv_v", "embed_w"),
+                         dtype=f32),
         },
         "cm": {  # channel mix
-            "mu_k": Param((d,), init="small"),
-            "mu_r": Param((d,), init="small"),
-            "w_k": Param((d, cfg.d_ff)),
-            "w_v": Param((cfg.d_ff, d)),
-            "w_r": Param((d, d)),
+            "mu_k": Param((d,), (None,), init="small"),
+            "mu_r": Param((d,), (None,), init="small"),
+            "w_k": Param((d, cfg.d_ff), ("embed_w", "mlp")),
+            "w_v": Param((cfg.d_ff, d), ("mlp", "embed_w")),
+            "w_r": Param((d, d), ("embed_w", None)),
         },
     }
 

@@ -24,13 +24,20 @@ def rwkv_lm_defs(cfg) -> dict:
     """Parameter tree of the whole model (blocks stacked)."""
     return {
         "embed": {"table": Param((cfg.padded_vocab, cfg.d_model),
-                                 init="small")},
+                                 ("vocab", "embed_w"), init="small")},
         "ln_in": L.layernorm_def(cfg.d_model),
         "blocks": T.stack_defs(R.rwkv_block_def(cfg), cfg.n_layers),
         "final_norm": L.layernorm_def(cfg.d_model),
         "unembed": {"w": Param((cfg.d_model, cfg.padded_vocab),
-                               init="small")},
+                               ("embed_w", "vocab"), init="small")},
     }
+
+
+def state_specs(cfg) -> dict:
+    """The logical axes of :func:`init_state`'s leaves (the reference's)."""
+    return {"wkv": (None, "batch", None, None, "rwkv_v"),
+            "tm_prev": (None, "batch", None, None),
+            "cm_prev": (None, "batch", None, None)}
 
 
 def init_state(cfg, batch: int, *, device) -> dict:

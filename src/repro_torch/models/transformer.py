@@ -2,8 +2,22 @@
 dense per-slot cache.
 
 Counterpart of the serving half of ``repro.models.transformer``, without
-the mesh transport or precomputed embeds.  Params keep the reference's
-keys and shapes, with ``params["blocks"]`` stacked on a leading layer axis.
+precomputed embeds.  Params keep the reference's keys and shapes, with
+``params["blocks"]`` stacked on a leading layer axis.
+
+Serving tensor parallelism (Megatron TP of the paged path) is the
+reference's: the paged calls take a ``comm``, the
+:class:`repro_torch.core.comm.Comm` of the engine's ``"model"`` axis, and
+then see their rank's shard of the weights (heads, ff, experts, vocab) and
+of the KV pages (heads).  Attention runs on the local heads; one
+``all_reduce_sum`` after the attention out-projection and one after the
+MLP (arctic's dense residual MLP included) rebuild the replicated residual
+stream, and the vocab-sharded logits are all-gathered, tiled on the last
+axis.  ``ep_comm`` (the ``"expert"`` axis) partitions whole experts
+(:func:`repro_torch.models.moe.moe_apply_expert_parallel`).  With the
+serial transport (``comm=None``) every collective is the identity and the
+code is the single-card path.  The cache-free :func:`forward` (the
+self-drafter's) takes the same ``comm``.
 
 An MoE block (``cfg.n_experts``; qwen3-moe, and arctic with its dense
 residual MLP beside the experts) replaces the MLP with
@@ -53,9 +67,11 @@ _SERIAL = SerialComm()
 
 
 def stack_defs(defs, n: int):
-    """Prepend a stacked layer axis to every Param in a layer def tree."""
-    return tree_map(lambda p: Param((n,) + tuple(p.shape), init=p.init,
-                                    dtype=p.dtype), defs)
+    """Prepend a stacked ``layers`` axis to every Param in a layer def
+    tree."""
+    return tree_map(lambda p: Param((n,) + tuple(p.shape),
+                                    ("layers",) + p.logical_axes(),
+                                    init=p.init, dtype=p.dtype), defs)
 
 
 def block_defs(cfg) -> dict:
@@ -79,11 +95,11 @@ def transformer_defs(cfg) -> dict:
     """Parameter tree of the whole decoder (blocks stacked)."""
     return {
         "embed": {"table": Param((cfg.padded_vocab, cfg.d_model),
-                                 init="small")},
+                                 ("vocab", "embed_w"), init="small")},
         "blocks": stack_defs(block_defs(cfg), cfg.n_layers),
         "final_norm": L.rmsnorm_def(cfg.d_model),
         "unembed": {"w": Param((cfg.d_model, cfg.padded_vocab),
-                               init="small")},
+                               ("embed_w", "vocab"), init="small")},
     }
 
 
@@ -97,8 +113,10 @@ def embed_tokens(params, tokens, dtype=None):
     return L.embed(params["embed"], tokens)
 
 
-def lm_logits(params, hidden):
-    """(B, S, d) -> (B, S, V) logits in float32.
+def lm_logits(params, hidden, comm=None):
+    """(B, S, d) -> (B, S, V) logits in float32; with a mesh ``comm`` the
+    unembedding holds the rank's vocab shard and the shards' logits are
+    all-gathered, tiled on the last axis.
 
     The reference multiplies in the compute dtype and accumulates into a
     float32 result (``preferred_element_type``).  Here a float32 model
@@ -117,7 +135,8 @@ def lm_logits(params, hidden):
         out = torch.mm(h, w, out_dtype=torch.float32)
     else:
         out = h.float() @ w.float()
-    return out.reshape(*hidden.shape[:-1], w.shape[-1])
+    out = out.reshape(*hidden.shape[:-1], w.shape[-1])
+    return out if comm is None else comm.all_gather(out, axis=-1, tiled=True)
 
 
 def layer_windows(cfg) -> list:
@@ -165,21 +184,24 @@ def _write_kv(kv, k, v, quant, scatter) -> None:
     scatter(kv["v_scale"], sv)
 
 
-def _ffn(p, h, cfg, placement=None):
+def _ffn(p, h, cfg, placement=None, comm=_SERIAL, ep_comm=None):
     """The block's feed-forward half on the normed stream ``h``: the MLP, or
     the MoE block (plus the dense residual MLP).  Returns ``(y, stats)``,
-    stats the MoE block's per-expert telemetry (None for an MLP)."""
+    stats the MoE block's per-expert telemetry (None for an MLP).  A mesh
+    ``comm`` sums the MLP's ff-sharded partial outputs and splits the
+    expert GEMMs (``shard_comm``); ``ep_comm`` partitions the experts."""
     if not cfg.n_experts:
-        return L.mlp(p["mlp"], h), None
-    y, _, stats = M.moe_apply_expert_parallel(p["moe"], h, cfg, _SERIAL,
-                                              placement=placement)
+        return comm.all_reduce_sum(L.mlp(p["mlp"], h)), None
+    y, _, stats = M.moe_apply_expert_parallel(
+        p["moe"], h, cfg, _SERIAL if ep_comm is None else ep_comm,
+        shard_comm=None if comm.axis is None else comm, placement=placement)
     if cfg.dense_residual:
-        y = y + L.mlp(p["mlp"], h)
+        y = y + comm.all_reduce_sum(L.mlp(p["mlp"], h))
     return y, stats
 
 
 def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend,
-                 placement=None):
+                 placement=None, comm=_SERIAL, ep_comm=None):
     """One decoder block against one layer's page storage ``kv``.
 
     ``delta`` is the previous block's feed-forward output, not yet added to
@@ -189,17 +211,20 @@ def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend,
     whole-chunk scatter in prefill, a per-slot token scatter in decode)
     before ``attend(q, kv)`` reads them.  Returns ``(x, delta, stats)``:
     the stream, this block's pending feed-forward output and its MoE
-    telemetry (None for a dense block)."""
+    telemetry (None for a dense block).  With a mesh ``comm`` the heads,
+    ff and KV pages are the rank's shard, and both projections back to
+    d_model are summed over the ranks (module docstring)."""
     x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
     write(kv, k, v)
     o = attend(q, kv)
-    x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
-    return (x, *_ffn(p, h, cfg, placement))
+    x, h = L.add_rmsnorm(p["ln2"], x,
+                         comm.all_reduce_sum(A.out_project(p["attn"], o)))
+    return (x, *_ffn(p, h, cfg, placement, comm, ep_comm))
 
 
 def _paged_layers(params, cfg, storage, x, *, positions, write, attend,
-                  placement):
+                  placement, comm, ep_comm):
     """Every block over its layer's storage; returns the final normed
     hidden states and the layer-summed telemetry ``{"expert_tokens",
     "expert_dropped"}``."""
@@ -208,7 +233,8 @@ def _paged_layers(params, cfg, storage, x, *, positions, write, attend,
     for i, p in enumerate(_blocks(params, cfg)):
         x, delta, stats = _paged_block(p, x, delta, cfg, positions=positions,
                                        kv=_layer(storage, i), write=write,
-                                       attend=attend, placement=placement)
+                                       attend=attend, placement=placement,
+                                       comm=comm, ep_comm=ep_comm)
         if stats is not None:
             for k in acc:
                 acc[k] += stats[k]
@@ -231,7 +257,8 @@ def _blocks(params, cfg):
 
 
 def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
-                        tokens, quant=None, placement=None):
+                        tokens, quant=None, placement=None, comm=None,
+                        ep_comm=None):
     """Prefill one page-aligned prompt chunk into paged storage, in place.
 
     storage: {"k", "v"} of (L, N, page_size, Hkv, D), plus
@@ -240,11 +267,13 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
     (C // page_size,) pages covering positions [start, start + C);  start:
     int;  tokens: (1, C), right-padded (the validity length masks pad
     garbage);  placement: the (3, E) expert dispatch map of an MoE model
-    (None: the unplaced layout).  Returns ``(hidden, telemetry)``: the final
-    hidden states (1, C, d) and the layer-summed per-expert
-    ``{"expert_tokens", "expert_dropped"}`` int32 counts ((0,) for a dense
-    model)."""
+    (None: the unplaced layout);  comm / ep_comm: the mesh transports
+    (module docstring; None: serial).  Returns ``(hidden, telemetry)``:
+    the final hidden states (1, C, d), replicated, and the layer-summed
+    per-expert ``{"expert_tokens", "expert_dropped"}`` int32 counts ((0,)
+    for a dense model), the same on every rank."""
     _check_paged(cfg)
+    comm = _SERIAL if comm is None else comm
     page_size = storage["k"].shape[2]
     x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     C = x.shape[1]
@@ -263,20 +292,24 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
                                         v_scale=kv.get("v_scale"))
 
     return _paged_layers(params, cfg, storage, x, positions=positions,
-                         write=write, attend=attend, placement=placement)
+                         write=write, attend=attend, placement=placement,
+                         comm=comm, ep_comm=ep_comm)
 
 
 def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
-                      write_pages, write_offs, quant=None, placement=None):
+                      write_pages, write_offs, quant=None, placement=None,
+                      comm=None, ep_comm=None):
     """One token for every slot against paged storage, in place.
 
     tokens: (B, 1);  tables: (B, P);  lengths: (B,) tokens already cached
     (= the current token's position);  write_pages/write_offs: (B,) where
     each slot's new K/V lands (dead slots point at the pool's trash page);
-    quant and placement as in :func:`paged_prefill_chunk`.  Returns
-    ``(logits, telemetry)``: float32 logits (B, 1, V) and the telemetry of
+    quant, placement, comm and ep_comm as in :func:`paged_prefill_chunk`.
+    Returns ``(logits, telemetry)``: float32 logits (B, 1, V) (with a mesh
+    ``comm``, the vocab shards all-gathered) and the telemetry of
     :func:`paged_prefill_chunk`."""
     _check_paged(cfg)
+    comm = _SERIAL if comm is None else comm
     x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     positions = lengths[:, None]
     # valid keys including the current token; one tensor for all layers
@@ -294,12 +327,14 @@ def paged_decode_step(params, cfg, storage, tables, lengths, tokens,
 
     hidden, tel = _paged_layers(params, cfg, storage, x, positions=positions,
                                 write=write, attend=attend,
-                                placement=placement)
-    return lm_logits(params, hidden), tel
+                                placement=placement, comm=comm,
+                                ep_comm=ep_comm)
+    return lm_logits(params, hidden, comm), tel
 
 
 def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
-                       write_pages, write_offs, quant=None, placement=None):
+                       write_pages, write_offs, quant=None, placement=None,
+                       comm=None, ep_comm=None):
     """Score a per-slot window of candidate tokens in one batched forward,
     in place — the speculative-decode verify step.
 
@@ -308,8 +343,9 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
     for slots with shorter windows);  tables: (B, P);  lengths: (B,) tokens
     already cached (= the position of tokens[:, 0]);  write_pages /
     write_offs: (B, C) where each position's K/V lands (pad and dead-slot
-    positions point at the pool's trash page);  quant and placement as in
-    :func:`paged_prefill_chunk`.  Returns ``(logits, telemetry)``: float32
+    positions point at the pool's trash page);  quant, placement, comm and
+    ep_comm as in :func:`paged_prefill_chunk`.  Returns ``(logits,
+    telemetry)``: float32
     logits (B, C, V), logits[:, i] scoring the token following
     tokens[:, i], and the telemetry of :func:`paged_prefill_chunk`.  C == 1
     is a decode step.
@@ -319,6 +355,7 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
     position i seeing keys below ``lengths + i + 1``; pad positions only
     influence pad logits."""
     _check_paged(cfg)
+    comm = _SERIAL if comm is None else comm
     x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
     C = x.shape[1]
     positions = lengths[:, None] + torch.arange(C, device=x.device)
@@ -336,8 +373,9 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 
     hidden, tel = _paged_layers(params, cfg, storage, x, positions=positions,
                                 write=write, attend=attend,
-                                placement=placement)
-    return lm_logits(params, hidden), tel
+                                placement=placement, comm=comm,
+                                ep_comm=ep_comm)
+    return lm_logits(params, hidden, comm), tel
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +383,7 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 # ---------------------------------------------------------------------------
 
 def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
-                cache_v=None, cache_pos=None):
+                cache_v=None, cache_pos=None, comm=_SERIAL, ep_comm=None):
     """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
     this block's feed-forward output (the MLP, or the serial MoE block plus
     any dense residual MLP) not yet added to it (the next norm adds it; the
@@ -359,6 +397,8 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     place** with ``index_put_`` on those views, then the queries attend over
     the whole cache, masked by ``cache_pos + S``.  As the reference's
     ``dynamic_update_slice`` does, a start past ``max_len - S`` is clamped.
+    ``comm`` / ``ep_comm``: the mesh transports of :func:`_paged_block`
+    (the cache-free forward of the self-drafter under a mesh).
     """
     x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
@@ -378,30 +418,35 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
         o = A.gqa_attention(q, k, v, causal=True, window=window,
                             q_offset=cache_pos, kv_valid_len=cache_pos + S,
                             kv_chunk=max(max_len, 1))
-    x, h = L.add_rmsnorm(p["ln2"], x, A.out_project(p["attn"], o))
-    if cfg.n_experts:
-        y, _ = M.moe_apply(p["moe"], h, cfg)
-        if cfg.dense_residual:
-            y = y + L.mlp(p["mlp"], h)
-    else:
-        y = L.mlp(p["mlp"], h)
+    x, h = L.add_rmsnorm(p["ln2"], x,
+                         comm.all_reduce_sum(A.out_project(p["attn"], o)))
+    y, _ = _ffn(p, h, cfg, None, comm, ep_comm)
     return x, y, k, v
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, comm=None, ep_comm=None):
     """Scoring forward without a cache (inference only): tokens (B, S) ->
     the final hidden states (B, S, d), every layer's attention causal over
     the whole sequence (the flash-attention kernel on a card).  The
     reference's also returns the MoE auxiliary loss, a training quantity
-    that comes with ROADMAP A13."""
+    that comes with ROADMAP A13.  ``comm`` / ``ep_comm``: the mesh
+    transports of the paged calls (the rank's shard of the weights)."""
+    comm = _SERIAL if comm is None else comm
     x = embed_tokens(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     delta = None
     for i, window in enumerate(layer_windows(cfg)):
         x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
                                      positions=positions, window=window,
-                                     delta=delta)
+                                     delta=delta, comm=comm, ep_comm=ep_comm)
     return L.final_rmsnorm(params["final_norm"], x, delta)
+
+
+def cache_specs(cfg) -> dict:
+    """The logical axes of :func:`init_cache`'s leaves (the reference's)."""
+    _check_dense(cfg)
+    spec = (None, "batch", "kv_seq", None, None)
+    return {"k": spec, "v": spec}
 
 
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:

@@ -56,7 +56,7 @@ def zamba_defs(cfg) -> dict:
                    "mamba": M2.mamba2_def(cfg)}
     return {
         "embed": {"table": Param((cfg.padded_vocab, cfg.d_model),
-                                 init="small")},
+                                 ("vocab", "embed_w"), init="small")},
         "mamba_blocks": T.stack_defs(T.stack_defs(mamba_layer, k), seg),
         "shared": {
             "ln1": L.rmsnorm_def(cfg.d_model),
@@ -66,7 +66,7 @@ def zamba_defs(cfg) -> dict:
         },
         "final_norm": L.rmsnorm_def(cfg.d_model),
         "unembed": {"w": Param((cfg.d_model, cfg.padded_vocab),
-                               init="small")},
+                               ("embed_w", "vocab"), init="small")},
     }
 
 
@@ -106,6 +106,20 @@ def _mamba_segment(seg_params, x, delta, cfg, states):
             p["mamba"], h, cfg, ssm_state=states["ssm"][i],
             conv_state={c: states["conv"][c][i] for c in "xBC"})
     return x, delta
+
+
+def state_specs(cfg) -> dict:
+    """The logical axes of :func:`init_state`'s leaves (the reference's)."""
+    return {
+        "mamba": {
+            "ssm": (None, None, "batch", "ssm_heads", None, None),
+            "conv": {"x": (None, None, "batch", None, "inner"),
+                     "B": (None, None, "batch", None, None),
+                     "C": (None, None, "batch", None, None)},
+        },
+        "attn_cache": {"k": (None, "batch", "kv_seq", None, None),
+                       "v": (None, "batch", "kv_seq", None, None)},
+    }
 
 
 def init_state(cfg, batch: int, max_len: int, *, dtype, device) -> dict:

@@ -26,7 +26,8 @@ from repro_torch.serve.sampling import (greedy, sample_temperature,
                                         spec_verify_greedy)
 from repro_torch.serve.quant import (Int8KVQuant, dequantize_params,
                                      kv_bytes_per_token, make_kv_quant,
-                                     quantize_leaf_specs, quantize_params)
+                                     quantize_leaf_specs,
+                                     quantize_param_specs, quantize_params)
 from repro_torch.serve.placement import (PlacementPlan, apply_placement,
                                          identity_plan, imbalance,
                                          plan_placement)
@@ -51,7 +52,7 @@ __all__ = ["DisaggServeEngine", "Drafter", "Int8KVQuant", "KVHandoff",
            "imbalance", "kv_bytes_per_token", "make_drafter",
            "make_kv_quant", "make_workload", "nearest_rank", "percentiles",
            "plan_placement", "poisson_arrivals", "quantize_leaf_specs",
-           "quantize_params", "record_trace", "run_traffic",
+           "quantize_param_specs", "quantize_params", "record_trace", "run_traffic",
            "sample_temperature", "sample_top_k", "sample_top_p",
            "spec_rejection_sample", "spec_verify_greedy",
            "workload_from_trace"]

@@ -48,6 +48,14 @@ once both stages have returned, on the caller's thread: the prefiller's
 pool is never touched by two threads at once.  Under the serial executor
 the prefiller's pool sees the same calls in the same order as the
 reference's.
+
+A serving ``mesh=`` passes through to both roles, as the reference's
+shared engine kwargs do: each role is the mesh engine, every rank serves
+its shard of both, and the roles' collectives run in the serial stage
+order on every rank.  The thread executor is refused with a mesh: the
+decode stage injects whatever packets the prefill thread has queued when
+it looks, which differs from rank to rank, so the ranks' replicated
+schedulers would diverge and their collectives would stop pairing up.
 """
 
 from __future__ import annotations
@@ -90,6 +98,13 @@ class DisaggServeEngine:
                  prefill_slots=None, prefill_pages=None, **kw):
         if kw.get("weight_quant") == "int8":
             params = QZ.quantize_params(params)
+        if kw.get("mesh") is not None and executor != "serial":
+            raise ValueError(
+                f"executor={executor!r} with a mesh: the decode stage "
+                "injects whatever the prefill thread has queued when it "
+                "looks, which differs rank to rank, so the replicated "
+                "schedulers would diverge and the ranks' collectives stop "
+                "pairing up; use executor='serial' under a mesh")
         self.executor = make_executor(executor)
         decode_kw = dict(kw)
         prefill_kw = {k: v for k, v in kw.items() if k not in _DECODE_ONLY}
@@ -121,6 +136,11 @@ class DisaggServeEngine:
     def device(self):
         """The device both roles serve on."""
         return self.decoder.device
+
+    @property
+    def mesh(self):
+        """The serving mesh both roles shard over (None: one device)."""
+        return self.decoder.mesh
 
     @property
     def finished(self) -> list:

@@ -1,8 +1,8 @@
-"""Continuous-batching serving engine on one device: over a paged KV
-cache, or over a dense per-slot decode state (a KV cache, or rwkv6's
-recurrent state).
+"""Continuous-batching serving engine: over a paged KV cache, or over a
+dense per-slot decode state (a KV cache, or rwkv6's recurrent state), on
+one device or on the ranks of a serving mesh.
 
-Counterpart of the single-device paths of ``repro.serve.engine``:
+Counterpart of ``repro.serve.engine``:
 ``submit()`` requests, ``tick()`` the loop, collect
 :attr:`ServeEngine.finished`.  The policy lives in
 :mod:`repro_torch.serve.scheduler` (a copy of the reference's); this module
@@ -77,7 +77,26 @@ telemetry, which the engine sums into ``stats`` (``moe_tokens_routed``,
 tokens measured since the last placement
 (:mod:`repro_torch.serve.placement`): the expert stacks are permuted from
 the pristine tree and the (3, E) dispatch map is passed to every paged
-call, so the streams do not change.  The engine is one device (``ep`` 1).
+call, so the streams do not change.
+
+Tensor and expert parallelism (``mesh=``, a
+:class:`repro_torch.core.comm.Mesh` from ``make_mesh``): every rank of the
+mesh runs this engine as the same SPMD body (``run_ranks``), with the same
+requests.  The scheduler, the page tables and the sampling stay on the
+host and replicated; every rank computes the same logits and so samples
+the same tokens.  A family with a paged KV cache runs Megatron TP over the
+``"model"`` axis: each rank cuts its shard of every weight from the
+family's ``serve_param_specs`` (int8 weights quantized whole first,
+``quantize_param_specs``) and holds its ``Hkv / tp`` heads of every page;
+the paged calls take the axis's Comm and all-reduce after each projection
+back to d_model.  A ``("expert", "model")`` mesh also partitions whole
+experts over ``"expert"`` (all-to-all dispatch), and a re-placement builds
+each rank's placed shard from the pristine shards through the mesh, one
+layer's stack gathered at a time.  A family without one (rwkv6, and
+``paged=False``) runs slot-parallel: the params replicated, each rank
+decoding its ``max_slots / tp`` slots' state and the logits all-gathered
+over slots; the whole-prompt prefills run on every rank and only the slot's
+owner keeps the state.  ``mesh=None`` is the single-device engine.
 
 Disaggregated serving (:mod:`repro_torch.serve.disagg`) pairs a
 ``prefill_only=True`` engine, which hands each completed prefill's pages
@@ -86,8 +105,8 @@ with a plain engine that takes them in through :meth:`ServeEngine.
 inject_prefilled`.
 
 Features of the reference engine that later port slices bring (encoder
-inputs, the device mesh of ROADMAP A9b) raise ``NotImplementedError``
-here instead of being ignored.  A model whose
+inputs, ROADMAP A10) raise ``NotImplementedError`` here instead of being
+ignored.  A model whose
 ``engine_refusal()`` names a reason is refused: the hybrid family (zamba2)
 serves only as an aligned batch
 (:class:`repro_torch.models.api.HybridLM`), as in the reference.
@@ -108,7 +127,8 @@ import torch
 
 from repro_torch.core.runtime import ThreadFarmExecutor
 from repro_torch.kernels.build import KernelError
-from repro_torch.models.module import resolve_device, tree_leaves
+from repro_torch.models.module import (resolve_device, shard_params,
+                                       tree_leaves)
 from repro_torch.serve import pages as PG
 from repro_torch.serve import placement as PL
 from repro_torch.serve import prng
@@ -179,7 +199,10 @@ class ServeEngine:
     disaggregated serving (paged only): each surviving request leaves as a
     :class:`repro_torch.serve.pages.KVHandoff` in :attr:`handoffs`.
     ``placement_interval=N`` re-places a paged MoE model's experts every N
-    ticks (0: never; module docstring)."""
+    ticks (0: never; module docstring).  ``mesh``: a serving mesh with a
+    ``"model"`` axis (and optionally ``"expert"``) over which this rank
+    serves its shard; every rank of it builds the engine from the same
+    whole ``params`` (module docstring)."""
 
     def __init__(self, model, params, *, max_slots: int = 8,
                  max_len: int = 512, page_size: int = 16,
@@ -192,10 +215,6 @@ class ServeEngine:
                  spec_temperature: float = 0.0, kv_quant=None,
                  weight_quant=None, mesh=None, prefill_only: bool = False,
                  placement_interval: int = 0):
-        if mesh is not None:
-            raise _not_ported("a device mesh",
-                              "tensor- and expert-parallel serving (ROADMAP "
-                              "A9b)")
         why = model.engine_refusal()
         if why:
             raise ValueError(f"{model.cfg.name} ({model.cfg.family}) is not "
@@ -286,6 +305,45 @@ class ServeEngine:
             else {"quant": self.kv_quant}
         if self.weight_quant:       # a tree quantized at init stays as it is
             params = QZ.quantize_params(params)
+        # -- serving mesh: tensor-, expert- or slot-parallel -------------------
+        self.mesh = mesh
+        self.tp = self.ep = 1
+        self._comm = self._ep_comm = None
+        if mesh is not None:
+            if "model" not in mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a 'model' axis, got {mesh.axis_names}")
+            self.tp = int(mesh.shape["model"])
+            self.ep = int(mesh.shape.get("expert", 1))
+            self._comm = mesh.comm("model")
+            if self.paged:
+                # head-sharded TP (+ expert-partitioned EP): the family's
+                # specs; the whole tree was quantized first, so each int8
+                # shard keeps its weight's one scale
+                model.validate_serve_mesh(tp=self.tp, ep=self.ep)
+                pspecs = model.serve_param_specs(ep=self.ep)
+                if self.weight_quant:
+                    pspecs = QZ.quantize_param_specs(pspecs, params)
+                params = shard_params(params, pspecs, mesh)
+                if "expert" in mesh.axis_names:
+                    self._ep_comm = mesh.comm("expert")
+                self._paged_kw.update(comm=self._comm, ep_comm=self._ep_comm)
+            else:
+                if self.ep > 1:
+                    raise ValueError(
+                        f"expert-parallel serving needs the paged MoE path: "
+                        f"{model.cfg.name} ({model.cfg.family}) is serving "
+                        "non-paged (slot-parallel); drop the expert axis")
+                if max_slots % self.tp:
+                    raise ValueError(
+                        f"slot-parallel serving shards slots over the mesh: "
+                        f"max_slots={max_slots} must divide by tp={self.tp}")
+        # the rank's own slots of the dense path's state (all of them on
+        # one device)
+        n_local = max_slots // self.tp
+        lo = (mesh.coords["model"] if mesh is not None else 0) * n_local
+        self._slots = range(lo, lo + n_local)
+        self._head_kw = {"comm": self._comm} if self.paged and mesh else {}
         self.model, self.params = model, params
         self.max_slots, self.max_len = max_slots, max_len
         self.strict = strict
@@ -293,7 +351,10 @@ class ServeEngine:
         if self.paged:
             if num_pages is None:       # dense-equivalent budget by default
                 num_pages = -(-max_slots * max_len // page_size)
-            self.pool = PagePool(model.paged_leaf_specs(self.kv_quant),
+            # under a mesh the pool holds the rank's Hkv / tp heads
+            leaf_specs = model.paged_leaf_specs(self.kv_quant)
+            self.pool = PagePool(leaf_specs if mesh is None
+                                 else PG.local_leaf_specs(leaf_specs, self.tp),
                                  num_pages=num_pages, page_size=page_size,
                                  device=self.device,
                                  prefix_cache=self.prefix_cache)
@@ -305,7 +366,7 @@ class ServeEngine:
             self.pool = None
             self.sched = Scheduler(max_slots=max_slots, max_len=max_len)
             self._fresh_state = lambda: model.init_decode_state(
-                max_slots, max_len, device=self.device)
+                n_local, max_len, device=self.device)
             self.state = self._fresh_state()
             self._prefill_farm = ThreadFarmExecutor(
                 num_workers=max(1, prefill_workers))
@@ -320,12 +381,12 @@ class ServeEngine:
             self.drafter = None
         else:
             self.drafter = spec_decode if not isinstance(spec_decode, str) \
-                else SP.make_drafter(spec_decode, model=model, params=params)
+                else SP.make_drafter(spec_decode, model=model, params=params,
+                                     comm=self._comm, ep_comm=self._ep_comm)
         # load-aware expert placement (paged MoE engines): the dispatch map
         # rides every paged call as a tensor; the expert stacks are
         # permuted from the pristine tree, so plans never compose
         n_exp = model.cfg.n_experts if self.paged else 0
-        self.ep = 1
         self.placement = None                   # PlacementPlan once updated
         self.placement_interval = int(placement_interval)
         self._params_unplaced = self.params     # pristine expert order
@@ -351,7 +412,8 @@ class ServeEngine:
                       else "off",
                       "weight_quant": self.weight_quant or "off",
                       "kv_bytes_per_token": QZ.kv_bytes_per_token(
-                          self.pool.leaf_specs) if self.paged else 0,
+                          model.paged_leaf_specs(self.kv_quant))
+                      if self.paged else 0,
                       "moe_tokens_routed": 0, "moe_dropped_tokens": 0,
                       "expert_tokens": [0] * n_exp,
                       "expert_imbalance": 0.0, "placement_updates": 0}
@@ -608,7 +670,8 @@ class ServeEngine:
         if not job.is_last:
             return None
         i = job.n_valid - 1
-        logits = self.model.lm_head(self.params, hidden[:, i:i + 1])
+        logits = self.model.lm_head(self.params, hidden[:, i:i + 1],
+                                    **self._head_kw)
         return self._sample_one(job.req, logits[0, -1])
 
     def _tick_paged(self) -> bool:
@@ -770,13 +833,50 @@ class ServeEngine:
                 return None
             plan = PL.plan_placement(self._expert_window, self.ep)
         self.params = self._params_unplaced
-        self.params = PL.apply_placement(self._params_unplaced, plan)
+        self.params = PL.apply_placement(self._params_unplaced, plan) \
+            if self.mesh is None else self._placed_shards(plan)
         self.placement = plan
         self._place_arr = self._dev(plan.dispatch_arrays())
         self._paged_kw["placement"] = self._place_arr
         self._expert_window[:] = 0
         self.stats["placement_updates"] += 1
         return plan
+
+    def _placed_shards(self, plan):
+        """This rank's shard of the placed expert stacks under a mesh: the
+        experts' shard index runs expert-major over the mesh axes the
+        stacks split over, so shard ``i`` holds physical slots ``[i * E_sh,
+        (i + 1) * E_sh)``.  Each stack is rebuilt one layer at a time: the
+        layer's pristine shards are all-gathered over the mesh (the whole
+        layer's stack, on one rank of a world of one the shard itself) and
+        the rank's physical slots picked out of it, so no rank holds more
+        than one gathered layer beside its pristine and placed shards."""
+        mesh, world = self.mesh, self.mesh.world
+        axes = tuple(a for a in ("expert", "model") if a in mesh.axis_names)
+        idx, n = mesh.index(axes)
+        e_sh = self.model.cfg.n_experts // n
+        # the world rank holding each pristine shard, and so each logical
+        # expert's row in a layer gathered in world-rank order
+        holder = np.argsort([mesh.index(axes, r)[0]
+                             for r in range(world.size())])
+        experts = np.asarray(plan.phys_expert[idx * e_sh:(idx + 1) * e_sh],
+                             np.int64)
+        rows = self._dev(holder[experts // e_sh] * e_sh + experts % e_sh)
+        pristine = self._params_unplaced["blocks"]["moe"]
+        moe = dict(pristine)
+        for name in ("gate", "up", "down"):
+            leaf = pristine[name]
+            src = leaf["q8"] if QZ.is_q8(leaf) else leaf
+            out = torch.empty_like(src)
+            for layer in range(src.shape[0]):
+                part = src[layer]
+                full = part if world.size() == 1 else world.all_gather(
+                    part, tiled=True)
+                torch.index_select(full, 0, rows, out=out[layer])
+                del full
+            moe[name] = dict(leaf, q8=out) if QZ.is_q8(leaf) else out
+        blocks = dict(self._params_unplaced["blocks"], moe=moe)
+        return dict(self._params_unplaced, blocks=blocks)
 
     # -- speculative decode --------------------------------------------------
 
@@ -886,6 +986,8 @@ class ServeEngine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = job.tokens[:n]                 # right-pad into bucket
         state, hidden = self.model.prefill(self.params, self._dev(toks))
+        if job.slot not in self._slots:
+            state = None    # another rank of the mesh keeps this slot
         # right-padding: KV cache rows beyond n hold pad garbage, but
         # lengths[slot] = n masks them out (kv_valid_len) and later decode
         # tokens overwrite them in order.  A recurrent state (rwkv6) has no
@@ -924,17 +1026,24 @@ class ServeEngine:
                     errors.append((job.req, res))
                     continue
                 state, tok = res
-                PG.write_slot(self.state, state, job.slot)
+                if state is not None:
+                    PG.write_slot(self.state, state,
+                                  job.slot - self._slots.start)
                 self.sched.chunk_done(job)
                 self._emit_first_token(job.slot, tok)
 
         live = self.sched.live_slots()
         if live:
-            toks = self._dev(self.last_token.reshape(-1, 1))
-            pos = self._dev(self.sched.lengths.astype(np.int32))
+            # the rank's own slots (every slot on one device)
+            own = slice(self._slots.start, self._slots.stop)
+            toks = self._dev(self.last_token[own].reshape(-1, 1))
+            pos = self._dev(self.sched.lengths[own].astype(np.int32))
             try:
                 logits = self.model.decode_step(self.params, self.state,
                                                 toks, pos)
+                if self.mesh is not None:   # every rank samples every slot
+                    logits = self._comm.all_gather(logits, axis=0,
+                                                   tiled=True)
                 errors += self._commit_decode(live, logits)
             except BaseException:
                 # the in-place writes may have touched every slot's state:

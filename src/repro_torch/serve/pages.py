@@ -1,7 +1,8 @@
 """Paged KV-cache storage: refcounted page pool + radix prefix cache.
 
-Counterpart of ``repro.serve.pages`` for the single-card paged path.  The
-host-side bookkeeping (:class:`PrefixCache`, :class:`PagePool`'s free list,
+Counterpart of ``repro.serve.pages``.  On a serving mesh each rank's pool
+holds its own share of the KV heads (:func:`local_leaf_specs`) under the
+same page ids.  The host-side bookkeeping (:class:`PrefixCache`, :class:`PagePool`'s free list,
 refcounts, LRU eviction and the trash page at index ``num_pages``) is the
 reference's, line for line, so identical request streams produce identical
 page tables in both packages.
@@ -17,8 +18,8 @@ the engine's per-slot state in the same way.
 from __future__ import annotations
 
 __all__ = ["KVHandoff", "N_TRASH", "PagePool", "PagedLeafSpec",
-           "PrefixCache", "copy_pages", "gather_pages", "scatter_chunk",
-           "scatter_token", "scatter_window", "write_slot"]
+           "PrefixCache", "copy_pages", "gather_pages", "local_leaf_specs",
+           "scatter_chunk", "scatter_token", "scatter_window", "write_slot"]
 
 import dataclasses
 import heapq
@@ -46,6 +47,22 @@ class PagedLeafSpec:
     def storage_shape(self, num_pages: int, page_size: int) -> tuple:
         """prefix + (num_pages, page_size) + suffix — the pool array shape."""
         return tuple(self.prefix) + (num_pages, page_size) + tuple(self.suffix)
+
+
+def local_leaf_specs(leaf_specs, tp: int):
+    """The leaves one rank of a ``tp``-way head-sharded mesh holds: each
+    leaf's leading suffix axis (the KV-head axis; a scale leaf's whole
+    suffix) cut to its ``1/tp`` share, as the reference's
+    ``paged_storage_specs`` shards it.  Page ids, and so refcounts, the
+    prefix cache, copy-on-write and handoffs, stay replicated: every op
+    acts on the rank's own heads of the same pages."""
+    def local(s: PagedLeafSpec) -> PagedLeafSpec:
+        if not s.suffix or s.suffix[0] % tp:
+            raise ValueError(f"paged leaf suffix {s.suffix} has no head "
+                             f"axis that splits over tp={tp}")
+        return PagedLeafSpec(s.prefix, (s.suffix[0] // tp,) + s.suffix[1:],
+                             s.dtype)
+    return tree_map(local, leaf_specs)
 
 
 # extra never-allocated page absorbing dead-slot decode writes; storage is

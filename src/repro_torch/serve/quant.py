@@ -1,7 +1,6 @@
 """Quantization policies for serving: int8 KV pages and int8 weights.
 
-Counterpart of ``repro.serve.quant`` on one card (the mesh half,
-``quantize_param_specs``, comes with tensor parallelism, ROADMAP A9):
+Counterpart of ``repro.serve.quant``:
 
 * :class:`Int8KVQuant` — per-(token row, KV head) symmetric int8 for the
   paged KV cache.  ``quantize`` maps a K/V block ``(..., Hkv, D)`` to int8
@@ -24,12 +23,17 @@ Counterpart of ``repro.serve.quant`` on one card (the mesh half,
   gives the reference's numbers: the scale is per tensor, so slicing
   before or after the multiply is the same, and the reference casts each
   dequantized float32 weight to the compute dtype where it is used.
+* :func:`quantize_param_specs` — the mesh layout of a quantized tree: the
+  int8 payload keeps its weight's spec, the per-tensor scale is replicated.
+  The engine quantizes the whole tree before it cuts the shards, so every
+  shard dequantizes with its whole weight's scale and the cut commutes
+  with dequantization.
 """
 from __future__ import annotations
 
 __all__ = ["Int8KVQuant", "SCALE_SUFFIX", "dequantize_params", "is_q8",
            "kv_bytes_per_token", "make_kv_quant", "quantize_leaf_specs",
-           "quantize_params"]
+           "quantize_param_specs", "quantize_params"]
 
 import math
 
@@ -142,3 +146,18 @@ def dequantize_params(params, dtype=torch.float32):
         return {k: dequantize_params(v, dtype) for k, v in params.items()}
     return params
 
+
+
+def quantize_param_specs(specs, params):
+    """Mirror a tree of mesh specs (tuples) onto the quantized layout of
+    ``params``: a weight :func:`quantize_params` quantizes (a float leaf of
+    two or more axes, or a ``{"q8", "s8"}`` pair already) becomes
+    ``{"q8": its spec, "s8": ()}`` — the payload keeps the weight's spec,
+    the 0-dim scale is replicated; every other leaf keeps its spec."""
+    if is_q8(params):
+        return {"q8": specs, "s8": ()}
+    if isinstance(params, dict):
+        return {k: quantize_param_specs(specs[k], params[k]) for k in params}
+    if _weight_quantizable(params):
+        return {"q8": specs, "s8": ()}
+    return specs

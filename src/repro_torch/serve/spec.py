@@ -107,9 +107,13 @@ class TruncatedSelfDrafter:
     stacked weights, no copy), the final norm and the shared lm head.
     Proposals are greedy and autoregressive: each draft token re-runs the
     truncated forward over the stream right-padded to a length bucket (16
-    to 2048), on the device the weights lie on."""
+    to 2048), on the device the weights lie on.  Under a serving mesh
+    ``params`` are the rank's shards and ``comm`` / ``ep_comm`` the mesh's
+    transports, which the truncated forward and lm head take as the
+    target's paged calls do."""
 
-    def __init__(self, model, params, *, layers: int = 2):
+    def __init__(self, model, params, *, layers: int = 2, comm=None,
+                 ep_comm=None):
         cfg = model.cfg
         if not model.supports_paged_decode():
             raise ValueError(
@@ -126,11 +130,13 @@ class TruncatedSelfDrafter:
             "unembed": params["unembed"],
         }
         self.device = tree_leaves(params)[0].device
+        self.comm, self.ep_comm = comm, ep_comm
 
     def _next_logits(self, toks: torch.Tensor, n_valid: int):
-        hidden = self.model.forward(self.params, toks)
+        hidden = self.model.forward(self.params, toks, comm=self.comm,
+                                    ep_comm=self.ep_comm)
         return self.model.lm_head(self.params,
-                                  hidden[:, n_valid - 1:n_valid])
+                                  hidden[:, n_valid - 1:n_valid], self.comm)
 
     def propose(self, tokens: np.ndarray, k: int) -> np.ndarray:
         """Greedy rollout of the truncated model, one token at a time."""
@@ -148,12 +154,14 @@ class TruncatedSelfDrafter:
         return np.asarray(out, np.int32)
 
 
-def make_drafter(name: str, model=None, params=None) -> Drafter:
+def make_drafter(name: str, model=None, params=None, comm=None,
+                 ep_comm=None) -> Drafter:
     """Resolve a CLI-style drafter name.
 
     ``"ngram"`` (or ``"ngram-N"`` for a max n-gram of N) needs no model;
     ``"self-K"`` (or ``"self"``, K defaulting to 2) truncates the target to
-    its first K layers and needs ``model`` + ``params``.
+    its first K layers and needs ``model`` + ``params`` (under a mesh the
+    rank's shards, with the mesh's ``comm`` / ``ep_comm``).
     """
     base, _, arg = name.partition("-")
     if base == "ngram":
@@ -162,5 +170,6 @@ def make_drafter(name: str, model=None, params=None) -> Drafter:
         if model is None or params is None:
             raise ValueError("the self-K drafter needs model= and params=")
         return TruncatedSelfDrafter(model, params,
-                                    layers=int(arg) if arg else 2)
+                                    layers=int(arg) if arg else 2,
+                                    comm=comm, ep_comm=ep_comm)
     raise ValueError(f"unknown drafter {name!r} (want ngram[-N] or self[-K])")

@@ -31,6 +31,13 @@ load-generation half of the measurement story (the metric half is
   run (workload + events + token streams) to a JSON-safe dict and rebuild
   the workload from it, so a recorded run replays bit-identically under
   the virtual clock.
+
+An engine on a serving mesh (``engine.mesh``) is driven on every rank at
+once, and its replicated schedulers must see the same arrivals at the same
+ticks.  The virtual clock gives that by itself; under the wall clock, rank
+0's clock decides how many arrivals are due each tick and
+``broadcast_from`` hands the count to every rank, so clock skew between the
+ranks cannot desynchronise them.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.serve import metrics as MT
 
@@ -248,6 +256,21 @@ class TrafficHarness:
             raise ValueError(f"unknown clock {clock!r}; want 'virtual' or "
                              "'wall'")
         self.events: list[dict] = []
+        # a mesh engine under the wall clock: rank 0 decides the arrivals
+        mesh = getattr(engine, "mesh", None)
+        self._world = mesh.world if (mesh is not None
+                                     and clock == "wall") else None
+
+    def _n_due(self, work, i: int) -> int:
+        """How many of ``work[i:]`` have arrived by now: this rank's clock,
+        or rank 0's for a mesh engine under the wall clock."""
+        n = 0
+        while i + n < len(work) and work[i + n].arrival <= self.clock.now:
+            n += 1
+        if self._world is not None:
+            n = int(self._world.broadcast_from(
+                torch.tensor([n], device=self.engine.device), root=0)[0])
+        return n
 
     def _submit_queue(self) -> list:
         # the queue new submissions land on — the prefiller's for a
@@ -272,8 +295,7 @@ class TrafficHarness:
             if (i < len(work) and work[i].arrival > self.clock.now
                     and not self._engine_busy()):
                 self.clock.fast_forward(work[i].arrival)
-            while i < len(work) and work[i].arrival <= self.clock.now:
-                tr = work[i]
+            for tr in work[i:i + self._n_due(work, i)]:
                 if tr.encoder_input is not None:
                     raise NotImplementedError(
                         "a request with encoder_input is not ported yet: "

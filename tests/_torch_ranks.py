@@ -199,3 +199,217 @@ def hanging_forever(comm):
     if comm.rank() == 0:
         time.sleep(600)
     return comm.all_reduce_sum(torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# the serving engine on a mesh (tensor, expert and slot parallelism)
+# ---------------------------------------------------------------------------
+
+MESH_PROMPTS = [[5, 17, 33, 2, 9], [100, 200, 300], [7] * 11, [1, 2, 3, 4]]
+SPEC_PROMPTS = [[5, 17, 33, 5, 17, 33, 5, 17], [7] * 11,
+                [1, 2, 3, 4, 1, 2, 3, 4, 1, 2], [9, 9, 8, 8, 9, 9, 8, 8]]
+PREEMPT_PROMPTS = [[5, 17, 33, 2, 9, 1, 2, 3], [100, 200, 300, 4, 5, 6, 7, 8]]
+SHARED = list(range(1, 25))
+PREFIX_WAVES = [[SHARED], [SHARED, SHARED], [SHARED[:20] + [77, 78]]]
+BASE_KW = dict(max_slots=4, max_len=64, page_size=8, prefill_chunk=16)
+TP = ("model",)
+EP = ("expert", "model")
+# (arch, engine kwargs, waves, max_new) of every case, by name: each mesh
+# run below is held against the reference's single-device engine on these
+MESH_CASES = {
+    "qwen2": ("qwen2-7b", BASE_KW, [MESH_PROMPTS], 6),
+    "qwen2-preempt": ("qwen2-7b", dict(max_slots=2, max_len=64, page_size=16,
+                                       num_pages=4, prefill_chunk=16),
+                      [PREEMPT_PROMPTS], 30),
+    "qwen2-prefix": ("qwen2-7b", dict(max_slots=2, max_len=128, page_size=16,
+                                      prefill_chunk=16), PREFIX_WAVES, 12),
+    "qwen2-int8": ("qwen2-7b", dict(BASE_KW, kv_quant="int8",
+                                    weight_quant="int8"),
+                   [MESH_PROMPTS], 6),
+    "qwen2-ngram": ("qwen2-7b", dict(max_slots=3, max_len=128, page_size=16,
+                                     prefill_chunk=16, spec_decode="ngram"),
+                    [SPEC_PROMPTS], 12),
+    "qwen2-self1": ("qwen2-7b", dict(max_slots=3, max_len=128, page_size=16,
+                                     prefill_chunk=16, spec_decode="self-1"),
+                    [SPEC_PROMPTS], 12),
+    "qwen2-dense": ("qwen2-7b", dict(BASE_KW, paged=False), [MESH_PROMPTS],
+                    6),
+    "moe": ("qwen3-moe-235b-a22b", BASE_KW, [MESH_PROMPTS], 6),
+    "moe-placed": ("qwen3-moe-235b-a22b", dict(BASE_KW, placement_interval=2),
+                   [MESH_PROMPTS], 6),
+    "arctic": ("arctic-480b", BASE_KW, [MESH_PROMPTS], 6),
+    "rwkv": ("rwkv6-3b", dict(max_slots=4, max_len=64), [MESH_PROMPTS], 6),
+}
+# the mesh runs of each world: (case, mesh shape, axis names)
+MESH_RUNS = {
+    2: [("qwen2", (2,), TP), ("qwen2-preempt", (2,), TP),
+        ("qwen2-prefix", (2,), TP), ("qwen2-int8", (2,), TP),
+        ("qwen2-ngram", (2,), TP), ("qwen2-self1", (2,), TP),
+        ("qwen2-dense", (2,), TP), ("moe", (2,), TP), ("moe", (2, 1), EP),
+        ("moe-placed", (2, 1), EP), ("arctic", (2,), TP),
+        ("rwkv", (2,), TP)],
+    4: [("qwen2", (4,), TP), ("moe", (4,), TP), ("moe", (2, 2), EP),
+        ("moe-placed", (2, 2), EP)],
+}
+
+
+def mesh_config(arch: str):
+    """The port's SMOKE config of a mesh case: 8 query and 4 KV heads, so
+    tp 4 splits them (rwkv6 has no attention heads)."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(arch)
+    return cfg if cfg.family == "ssm" else cfg.replace(n_heads=8,
+                                                       n_kv_heads=4)
+
+
+def _serve_case(model, params, mesh, case):
+    from repro_torch.serve.engine import ServeEngine
+    _, kw, waves, max_new = MESH_CASES[case]
+    eng = ServeEngine(model, params, mesh=mesh, device="cpu", **kw)
+    for wave in waves:
+        for p in wave:
+            eng.submit(p, max_new_tokens=max_new)
+        eng.run_until_drained()
+    eng.close()
+    if any(r.error is not None for r in eng.finished):
+        raise RuntimeError([r.error for r in eng.finished])
+    return {"streams": {r.rid: list(r.output) for r in eng.finished},
+            "stats": dict(eng.stats), "tp": eng.tp, "ep": eng.ep}
+
+
+def percall_inputs(cfg):
+    """A prefill chunk (16 tokens at 0, pages 0 and 1 of 8) and a decode
+    step of 2 slots after it, from numpy: the per-call check's inputs."""
+    rng = np.random.default_rng((SEED, 7))
+    return {"chunk": rng.integers(0, cfg.vocab, (1, 16)).astype(np.int32),
+            "row": np.arange(8, dtype=np.int32),
+            "tables": np.stack([np.arange(8), np.arange(8)]).astype(np.int32),
+            "lengths": np.array([16, 9], np.int32),
+            "step": rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32),
+            "wpages": np.array([2, 1], np.int32),
+            "woffs": np.array([0, 1], np.int32)}
+
+
+def _percall(model, params, mesh) -> dict:
+    """tp-way paged prefill chunk then decode on a fresh pool of 8 pages of
+    8: the chunk's hidden states and the step's logits."""
+    from repro_torch.models.module import shard_params
+    from repro_torch.serve import pages as PG
+    inp = {k: torch.from_numpy(v) for k, v in
+           percall_inputs(model.cfg).items()}
+    params = shard_params(params, model.serve_param_specs(), mesh)
+    specs = PG.local_leaf_specs(model.paged_leaf_specs(),
+                                mesh.shape["model"])
+    pool = PG.PagePool(specs, num_pages=8, page_size=8, device="cpu")
+    kw = {"comm": mesh.comm("model")}
+    hidden, _ = model.paged_prefill_chunk(params, pool.storage, inp["row"],
+                                          inp["row"][:2], 0, inp["chunk"],
+                                          **kw)
+    logits, _ = model.paged_decode_step(
+        params, pool.storage, inp["tables"], inp["lengths"], inp["step"],
+        inp["wpages"], inp["woffs"], **kw)
+    return {"hidden": hidden, "logits": logits}
+
+
+def _moe_blocks(mesh) -> dict:
+    """The MoE block with its experts split over the mesh (serving TP over
+    ``"model"``, partitioned over ``"expert"`` where the mesh has it): y,
+    aux and the telemetry, unplaced."""
+    from repro_torch.core.comm import SerialComm
+    from repro_torch.models import moe as M
+    from repro_torch.models.module import shard_leaf
+    cfg, x, w = moe_inputs()
+    axes = tuple(a for a in EP if a in mesh.axis_names)
+    params = {k: torch.from_numpy(v) if k == "router" else
+              shard_leaf(torch.from_numpy(v), (axes,), mesh)
+              for k, v in w.items()}
+    ep_comm = mesh.comm("expert") if "expert" in axes else SerialComm()
+    y, aux, stats = M.moe_apply_expert_parallel(
+        params, torch.from_numpy(x)[None], cfg, ep_comm,
+        shard_comm=mesh.comm("model"))
+    return {"y": y[0], "aux": aux, **stats}
+
+
+def _disagg(model, params, mesh) -> dict:
+    """The ``"qwen2"`` case through the disaggregated pair (serial), both
+    roles on the mesh."""
+    from repro_torch.serve.disagg import DisaggServeEngine
+    _, kw, waves, max_new = MESH_CASES["qwen2"]
+    eng = DisaggServeEngine(model, params, mesh=mesh, device="cpu", **kw)
+    for p in waves[0]:
+        eng.submit(p, max_new_tokens=max_new)
+    eng.run_until_drained()
+    eng.close()
+    return {"streams": {r.rid: list(r.output) for r in eng.finished},
+            "handoffs": eng.stats["prefill"]["kv_handoffs"],
+            "injections": eng.stats["decode"]["kv_injections"]}
+
+
+TRAFFIC = dict(kind="poisson", n_requests=6, rate=4.0, seed=0,
+               max_new_tokens=6, shared_prefix_len=8, n_sessions=2)
+
+
+def _traffic_wall(model, params, mesh) -> dict:
+    """An open-loop Poisson run under the wall clock on the ``"qwen2"``
+    case's engine: rank 0's clock decides the arrivals."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.traffic import make_workload, run_traffic
+    _, kw, _, _ = MESH_CASES["qwen2"]
+    eng = ServeEngine(model, params, mesh=mesh, device="cpu", **kw)
+    wl = make_workload(vocab=model.cfg.vocab, **TRAFFIC)
+    res = run_traffic(eng, wl, clock="wall")
+    eng.close()
+    return {"outputs": res["outputs"],
+            "submits": sum(e["kind"] == "submit" for e in res["events"])}
+
+
+def _moe_expert_tp(mesh) -> dict:
+    """The block in expert TP (``tp_comm``): every expert's ff axis split
+    over ``"model"``, the down projection's partial sums all-reduced in
+    float32: y, aux and the telemetry."""
+    from repro_torch.core.comm import SerialComm
+    from repro_torch.models import moe as M
+    from repro_torch.models.module import shard_leaf
+    cfg, x, w = moe_inputs()
+    cut = {"gate": (None, None, "model"), "up": (None, None, "model"),
+           "down": (None, "model", None)}
+    p = {k: torch.from_numpy(v) if k == "router" else
+         shard_leaf(torch.from_numpy(v), cut[k], mesh)
+         for k, v in w.items()}
+    y, aux, stats = M._dispatch_compute_combine(
+        torch.from_numpy(x), p["router"], p["gate"], p["up"], p["down"],
+        cfg, SerialComm(), tp_comm=mesh.comm("model"))
+    return {"y": y, "aux": aux, **stats}
+
+
+def mesh_serve(comm, weights: dict) -> dict:
+    """Every mesh run of this world's size (:data:`MESH_RUNS`) on the
+    bridged ``weights`` (numpy trees by arch), the per-call check at tp 2
+    and the split MoE block; one thread a rank."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.comm import make_mesh
+    from repro_torch.models.api import build_model
+    torch.set_num_threads(1)
+    n = comm.size()
+    meshes, models, params, out = {}, {}, {}, {}
+    for case, shape, names in MESH_RUNS[n]:
+        arch = MESH_CASES[case][0]
+        if arch not in models:
+            models[arch] = model = build_model(mesh_config(arch))
+            params[arch] = params_from_numpy(weights[arch], device="cpu",
+                                             defs=model.param_defs())
+        if (shape, names) not in meshes:    # every rank, in the same order
+            meshes[shape, names] = make_mesh(shape, names)
+        out[case, shape] = _serve_case(models[arch], params[arch],
+                                       meshes[shape, names], case)
+    mesh = meshes[(n,), TP]
+    if n == 2:
+        model, p = models["qwen2-7b"], params["qwen2-7b"]
+        out["percall"] = _percall(model, p, mesh)
+        out["disagg"] = _disagg(model, p, mesh)
+        out["traffic-wall"] = _traffic_wall(model, p, mesh)
+        out["expert-tp"] = _moe_expert_tp(mesh)
+    out["block", (n,)] = _moe_blocks(mesh)
+    if n == 4:
+        out["block", (2, 2)] = _moe_blocks(meshes[(2, 2), EP])
+    return out

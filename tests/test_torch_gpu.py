@@ -2,8 +2,10 @@
 at the served archs' shapes, the serving engine (paged and dense
 per-slot, qwen2-7b and rwkv6-3b; qwen3-moe paged, placed and unplaced) on
 the card through the kernels against the same engine on the CPU, the MoE
-block over NCCL at world 1 against the serial block, and zamba2's aligned
-batch the same way.  Every test here needs a card
+block over NCCL at world 1 against the serial block, the engine on a
+serving mesh of one NCCL rank against the unmeshed engine, B1 at the
+per-rank head shapes of tensor parallelism, and zamba2's aligned batch the
+same way.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -1074,3 +1076,60 @@ def test_moe_engine_on_card_placed_matches_unplaced_and_cpu(card):
         assert s_card[k] == s_cpu[k] == s_placed[k], k
     assert ops.COUNTS["paged_attention_mq"].kernel > 0
     assert all(c.plain == 0 for c in ops.COUNTS.values())
+
+
+@pytest.mark.parametrize("Hq,Hkv,W,B", [(5, 1, 1, 4), (10, 2, 64, 1),
+                                        (16, 1, 1, 4), (7, 1, 64, 1)])
+def test_paged_attention_kernel_at_shard_shapes(card, Hq, Hkv, W, B):
+    """B1 at the per-rank heads of tensor-parallel serving (qwen2.5-14b at
+    tp 8 and 4, qwen3-moe at tp 4, qwen2-7b at tp 4), bf16, at decode and
+    a 64-row chunk: few KV heads, so few blocks, against its plain
+    version."""
+    rng = np.random.default_rng(Hq * 7 + W)
+    case = _paged_case(rng, B, W, Hq, Hkv, 128, 16, 40, 8, dead_slot=B > 1)
+    q, kp, vp, tb, ln = (torch.from_numpy(a).to(card) for a in case)
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    got = ops.paged_attention_mq(q, kp, vp, tb, ln)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_mq(q, kp, vp, tb, ln)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL["bfloat16"],
+                               atol=ATTN_TOL["bfloat16"])
+
+
+def _mesh_world1(comm, model, params, prompts, mesh_shape, names):
+    from repro_torch.core.comm import make_mesh
+    mesh = make_mesh(mesh_shape, names)
+    with ServeEngine(model, params, max_slots=4, max_len=96, page_size=16,
+                     prefill_chunk=32, device="cuda", mesh=mesh) as eng:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        out = {r.rid: r.output for r in eng.run_until_drained()}
+    return out, {k: eng.stats[k] for k in ("moe_tokens_routed",
+                                           "expert_tokens", "tokens")}
+
+
+@pytest.mark.parametrize("arch,shape,names", [
+    ("qwen2-7b", (1,), ("model",)),
+    ("qwen3-moe-235b-a22b", (1, 1), ("expert", "model"))])
+def test_mesh_engine_world1_nccl_matches_unmeshed(card, tmp_path, arch,
+                                                  shape, names):
+    """The engine on a serving mesh of one NCCL rank (real groups of one,
+    the all-reduces, the vocab gather and, for qwen3-moe, the all-to-all
+    and the tiled expert gather all running) gives the unmeshed engine's
+    streams and telemetry on the card, SMOKE float32."""
+    from repro_torch.core.comm import run_ranks
+    model = build_model(smoke_config(arch))
+    params = model.init(0, device=card)
+    prompts = [[5, 17, 33, 2, 9], [7] * 9, [1, 2, 3] * 4,
+               [100, 200, 300, 4, 5, 6, 7]]
+    got = run_ranks(_mesh_world1, (model, params, prompts, shape, names),
+                    world=1, store_dir=tmp_path, device=card)[0]
+    with ServeEngine(model, params, max_slots=4, max_len=96, page_size=16,
+                     prefill_chunk=32, device=card) as eng:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        want = {r.rid: r.output for r in eng.run_until_drained()}
+    assert got[0] == want
+    for k in got[1]:
+        assert got[1][k] == eng.stats[k], k

@@ -49,6 +49,10 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.models.moe, repro_torch.serve.placement\n"
             "import repro_torch.configs.qwen3_moe_235b\n"
             "import repro_torch.configs.arctic_480b\n"
+            "import repro_torch.core.comm, repro_torch.models.api\n"
+            "import repro_torch.models.module, repro_torch.models.transformer\n"
+            "import repro_torch.serve.pages, repro_torch.serve.spec\n"
+            "import repro_torch.serve.traffic, repro_torch.launch.collectives\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -185,16 +185,29 @@ def test_entry_points_need_a_card_unless_told_cpu(pair):
         ServeEngine(model, params, device="meta")
 
 
-# the unported feature alone and beside ported ones (the sampler, the
-# drafter and prefill_only, ported since), which must not let it through
-@pytest.mark.parametrize("kw", [dict(mesh=object(), sampler=lambda k, l: 0),
-                                dict(mesh=object(), prefill_only=True),
-                                dict(mesh=object()),
-                                dict(mesh=object(), spec_decode="ngram")])
+class _DataMesh:
+    """A mesh whose one axis is not the serving mesh's ``"model"``."""
+    axis_names = ("data",)
+    shape = {"data": 2}
+
+
+# the device mesh, unported until tensor- and expert-parallel serving
+# (ROADMAP A9b) and now read: alone and beside the sampler, the drafter
+# and prefill_only, a mesh without a "model" axis is refused with the
+# reference's message, never ignored
+@pytest.mark.parametrize("kw", [dict(mesh=_DataMesh(),
+                                     sampler=lambda k, l: 0),
+                                dict(mesh=_DataMesh(), prefill_only=True),
+                                dict(mesh=_DataMesh()),
+                                dict(mesh=_DataMesh(), spec_decode="ngram")])
 def test_unported_engine_features_raise(pair, kw):
-    _, _, model, params = pair
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    jmodel, jparams, model, params = pair
+    with pytest.raises(ValueError) as want:
+        JaxServeEngine(jmodel, jparams, **kw)
+    with pytest.raises(ValueError, match="serving mesh needs a 'model' "
+                       "axis") as got:
         ServeEngine(model, params, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [
