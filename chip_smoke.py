@@ -259,25 +259,61 @@ Phases (any failure exits non-zero before the result lines):
                  2, 4, 8; qwen3-moe at 2, 4; qwen2-7b at 2, 4), decode and
                  a 64-row chunk, bf16: parity, then timed beside gather +
                  SDPA and the bound; the time the mesh phases add.
-27. science-runtime — the paper's parabola (32 x 32 tasks) through the
+27. multimodal  — multimodal serving (ROADMAP A10).  B3 and B1 timed at
+                 its shapes (MM_FLASH, MM_PAGED: whisper's encode chunk,
+                 a clip's last chunk of 32 frames with 28 valid keys, a
+                 full chunk's keys cut to 28 and 1, a whole 1500-frame
+                 clip, llava's S 2944 prefill, qwen3-moe's G 16 at 512;
+                 B1 at G 1 / D 64 at decode, verify windows of 3 and 5
+                 and a chunk, and 188-page tables) beside SDPA (gather +
+                 SDPA for B1) and the bound; the parity phase holds them
+                 against their plain versions first.  Each of the two
+                 phases below records every shape its serving calls give
+                 B1 and B3 and holds the kernels against their plain
+                 versions at each of them.  main-vlm:
+                 llava-next-mistral-7b at full width and depth (32 layers,
+                 d 4096, 32/8 heads of 128, 2880 image tokens, bf16) through
+                 the launcher's ``--image``: 8 requests over two
+                 alternating images, 32 new tokens each, 4 slots of 3008;
+                 B1 and B2 exactly L and 1 + 2L a step or chunk (every B1
+                 call split), the exact prefix hits (4 of 2896 tokens),
+                 the pool whole; two identical image requests equal (or
+                 parting only at a near-tie: margin below NEAR_TIE); the
+                 prefix cache against a fresh prefill (prefix_cache_trace:
+                 the engine's fresh and cached token-0 logits bit-equal
+                 to model-level prefills over fresh pages; at GATE_DEPTH
+                 layers in float32 fresh and cached within
+                 CACHE_F32_TOL, the other image's pages beyond it); the
+                 decode step and an image chunk 2816 deep timed.
+                 main-whisper: whisper-tiny at full width (4 + 4 layers, d
+                 384, 6 heads of 64, 1500 frames) through ``--audio``: 8
+                 requests over two clips, 24 encode chunks each, B3 4
+                 launches an encode chunk (all on the tensor cores), B1 4 a
+                 decode step or decoder chunk, no plain version, both
+                 pools whole; an identical pair, and the launcher's own
+                 stream against it, under the near-tie rule; ngram
+                 speculation's streams against the plain ones under the
+                 same rule; the decode step, a decoder chunk and an
+                 encode chunk timed.
+28. science-runtime — the paper's parabola (32 x 32 tasks) through the
                  serial host loop, SerialExecutor, VmapExecutor,
                  MeshExecutor over a real NCCL group at world 1 and the
                  thread farm (8 workers, deadline factor 3): the counts
                  equal, the outputs within 1e-5 of the serial executor's;
                  the farm's steals, rebalances and stragglers.
-28. science-mcmc — ideal points of 700 members from 5000 synthetic roll
+29. science-mcmc — ideal points of 700 members from 5000 synthetic roll
                  calls (seed 1), 4 chains x 200 iterations through
                  VmapExecutor: |corr| with the true points > 0.95, the
                  largest R-hat printed; a Gibbs iteration's device time
                  beside its threefry draws'; a small chain card == CPU
                  within 1e-3.
-29. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
+30. science-dmc — 2^18 walkers (capacity 2^20, tau 0.01): serial 400
                  steps, the load-balanced SPMD driver over NCCL at world 1
                  for 200, 4 replicas of 2^16 x 300 steps on the thread farm
                  and again serially (the same energies): every E0 within
                  0.1 of 1.5, no population extinct or at capacity; a
                  walker step's device time beside its draws'.
-30. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
+31. science-boussinesq — a 2048 x 2048 grid, 50 steps, serial and through
                  the Schwarz route over NCCL at world 1: relative mass
                  drift < 1e-5, the routes within 1e-5, every step's
                  iterations under the cap; a Jacobi iteration timed;
@@ -321,7 +357,8 @@ from repro_torch.serve import prng  # noqa: E402
 from repro_torch.serve import quant as QZ  # noqa: E402
 from repro_torch.serve import sampling as SM  # noqa: E402
 from repro_torch.serve.disagg import DisaggServeEngine  # noqa: E402
-from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    ServeEngine, encoder_prefix_tokens)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # dense peaks: bf16 and TF32 on the tensor cores, float32 on CUDA cores
@@ -401,6 +438,12 @@ VERIFY_WIDTHS = (3, 5)
 # position (5.8-7.1) must exceed the limit.
 GATE_DEPTH = 2
 VERIFY_LOGIT_TOL = {"off": 0.05, "int8": 0.25}
+# main-vlm's prefix cache against a fresh prefill at GATE_DEPTH layers in
+# float32: the cached request recomputes its last page in a chunk of
+# another row count, a rounding gap about 2^-16 of bf16's (main-dense's
+# float32 K gap is 3e-7 at layer 1); a wrong cache entry (the other
+# image's pages) moves token 0's logits (~1 rms) by O(1)
+CACHE_F32_TOL = 1e-3
 # main-sampled: the heads (k 40, T 0.8; p 0.9, T 0.8; T 0.8) cycled over
 # main's 8 requests, each seeded; the histogram's logit row and draws; its
 # bound: the chi-square of 7 degrees of freedom at p = 0.001
@@ -764,6 +807,9 @@ def phase_parity(dev) -> dict:
     verify_errs = phase_parity_verify(rng, dev)
     for name in verify_errs:
         errs[name] = max(errs[name], verify_errs[name])
+    mm_errs = phase_parity_mm(rng, dev)
+    for name in mm_errs:
+        errs[name] = max(errs[name], mm_errs[name])
     tols = {k: {str(dt).split(".")[-1]: t for dt, t in v.items()}
             for k, v in TOL.items()}
     log(f"parity ok: {6 * len(NORM_ROWS) * len(NORM_DIMS)} rmsnorm (3 "
@@ -2260,28 +2306,43 @@ def phase_step_zamba(model, params, times) -> None:
 
 # -- speculative decode, seeded sampling and open-loop traffic ---------------
 
-def spec_stream_gate(label, eng, ref_streams, margins=None) -> list[str]:
-    """Each spec-on stream against its spec-off twin, one line a request:
-    all equal, or the first divergence.  With ``margins`` (rid -> the
-    spec-off run's top-2 logit margin of each token, in stream order) it
-    is a gate: a divergence fails, with the spec-off margin there."""
+# Two greedy streams of the same request may part only where the stream
+# they are held against had a near-tie: its top-2 logit margin at the
+# first divergence below this (bf16 logits; a divergence elsewhere fails)
+NEAR_TIE = 0.05
+
+
+def stream_gate(label, got: dict, want: dict, margins=None,
+                near_tie: float = NEAR_TIE) -> list[str]:
+    """Each stream of ``got`` against ``want``'s of the same key, one line
+    a key: all equal, or the first divergence.  With ``margins`` (key -> the
+    top-2 logit margin of each of ``want``'s tokens, in stream order) it is
+    a gate: a divergence where that margin is not below ``near_tie`` fails
+    (``near_tie`` 0: any divergence fails)."""
     lines = []
-    for r in sorted(eng.finished, key=lambda r: r.rid):
-        got, want = r.output, ref_streams[r.rid]
-        i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                 None)
-        if i is None and len(got) == len(want):
-            lines.append(f"{r.rid}: all {len(got)} equal")
+    for key in sorted(got):
+        g, w = got[key], want[key]
+        i = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if i is None and len(g) == len(w):
+            lines.append(f"{key}: all {len(g)} equal")
             continue
-        i = min(len(got), len(want)) if i is None else i
-        if margins is not None:
-            ms = margins[r.rid]
-            m = f"{ms[i]:.4f}" if i < len(ms) else "none (past its end)"
-            raise AssertionError(
-                f"{label} request {r.rid}: leaves the spec-off stream at "
-                f"token {i}; the spec-off top-2 margin there is {m}")
-        lines.append(f"{r.rid}: first divergence at token {i}")
+        i = min(len(g), len(w)) if i is None else i
+        if margins is None:
+            lines.append(f"{key}: first divergence at token {i}")
+            continue
+        ms = margins[key]
+        m = ms[i] if i < len(ms) else float("inf")
+        lines.append(f"{key}: first divergence at token {i}, margin {m:.4f}")
+        if not m < near_tie:
+            raise AssertionError(f"{label} {key}: the streams part at token "
+                                 f"{i} where the margin is {m:.4f} (not a "
+                                 f"near-tie: < {near_tie})")
     return lines
+
+
+def finished_streams(eng) -> dict:
+    """``eng``'s finished streams by request id."""
+    return {r.rid: r.output for r in eng.finished}
 
 
 class MarginSampler:
@@ -2289,12 +2350,16 @@ class MarginSampler:
     the true vocab) that records the top-2 logit margin of each token it
     picks, in stream order."""
 
-    def __init__(self, vocab: int):
+    def __init__(self, vocab: int, keep: bool = False):
         self.vocab, self.margins = vocab, []
+        self.logits = [] if keep else None      # with ``keep``: each row
 
     def __call__(self, key, logits):
-        top = logits[..., :self.vocab].float().topk(2, dim=-1).values
+        row = logits[..., :self.vocab].float()
+        top = row.topk(2, dim=-1).values
         self.margins.append((top[..., 0] - top[..., 1]).item())
+        if self.logits is not None:
+            self.logits.append(row.clone())
         return SM.greedy(logits, true_vocab=self.vocab)
 
 
@@ -2425,7 +2490,7 @@ def phase_main_spec(label, extra, kernels, attn, ref_streams):
                              f"{(alone, counts['rmsnorm_add'][0])}, want "
                              f"{want} ({steps} ticks and chunks, {forwards} "
                              "2-layer drafter forwards)")
-    lines = spec_stream_gate(label, eng, ref_streams)
+    lines = stream_gate(label, finished_streams(eng), ref_streams)
     gaps = verify_call_gaps(eng, limit=None)
     toks = sum(len(r.output) for r in eng.finished)
     log(f"{label}: self-2 drafter, k 4: proposed={s['draft_proposed']} "
@@ -2512,8 +2577,9 @@ def spec_gates(label, eng) -> None:
               for i, m in enumerate(ms))
     for drafter in ("self-1", "self-2"):
         on, _ = run(spec_decode=drafter, spec_k=4)
-        lines = spec_stream_gate(f"{label} depth {GATE_DEPTH} {drafter}",
-                                 on, ref_streams, margins)
+        lines = stream_gate(f"{label} depth {GATE_DEPTH} {drafter}",
+                            finished_streams(on), ref_streams, margins,
+                            near_tie=0.0)
         s = on.stats
         log(f"{label} stream gate, depth {GATE_DEPTH}, {drafter} drafter: "
             f"proposed={s['draft_proposed']} accepted={s['draft_accepted']}"
@@ -3744,6 +3810,682 @@ def phase_science_boussinesq(dev) -> None:
 
 
 
+# -- multimodal serving (ROADMAP A10): llava's image prefixes, whisper -------
+
+# main-vlm: llava-next-mistral-7b at full width and depth (32 layers, d
+# 4096, 32/8 heads of 128, d_ff 14336, 2880 image tokens), each request
+# with one of two alternating images; max_len 3008 (188 pages of 16) holds
+# the image, a 16-token shared prefix (one page), a tail of up to 47 tokens
+# and 32 new ones
+VLM_ARGS = ["--arch", "llava-next-mistral-7b", "--image", "--requests", "8",
+            "--max-new", "32", "--slots", "4", "--max-len", "3008",
+            "--page-size", str(PS), "--prefill-chunk", "64",
+            "--prefix-cache", "on", "--shared-prefix", "16", "--device",
+            "cuda"]
+# main-whisper: whisper-tiny at full width (4 + 4 layers, d 384, 6 heads of
+# 64, 1500 frames, vocab 51865), every request with one of two clips: 24
+# encode chunks a clip (23 of 64 frames, one of 32 with 28 valid)
+WHISPER_ARGS = ["--arch", "whisper-tiny", "--audio", "--requests", "8",
+                "--max-new", "32", "--slots", "4", "--max-len", "128",
+                "--page-size", str(PS), "--prefill-chunk", "64",
+                "--shared-prefix", "16", "--device", "cuda"]
+WHISPER_CHUNKS = 24
+# the timed steps (4 slots' lengths, the 64-row chunk's start): llava's
+# decode ~2950 deep and its last image chunk; whisper's decode and its
+# first decoder chunk
+VLM_STEP = ((2950, 2941, 2962, 2933), 2816)
+WHISPER_STEP = ((80, 66, 93, 70), 0)
+# B3 at the multimodal shapes, bf16 on the tensor cores: (B, Sq, Sk, Hq,
+# Hkv, D, causal): whisper's encode chunk, a clip's last chunk (32 frames
+# of the clip padded to 1504, its keys cut to the 28 valid), a full chunk's
+# keys cut to 28 and to 1, a whole 1500-frame clip, llava's dense prefill
+# (the image and a 64-token text), and qwen3-moe's G 16 at bucket 512
+# (main-moe-placed)
+MM_FLASH = {"whisper-chunk": (1, 64, 64, 6, 6, 64, False),
+            "whisper-last-chunk": (1, 32, 28, 6, 6, 64, False),
+            "whisper-chunk-k28": (1, 64, 28, 6, 6, 64, False),
+            "whisper-chunk-k1": (1, 64, 1, 6, 6, 64, False),
+            "whisper-clip": (1, 1500, 1500, 6, 6, 64, False),
+            "llava-prefill": (1, 2944, 2944, 32, 8, 128, True),
+            "g16-prefill": (1, 512, 512, 64, 4, 128, True)}
+# B1 at the multimodal shapes: (B, W, Hq, Hkv, D, table pages, pool pages,
+# lengths, layers timed): whisper's decoder (G 1, D 64) at decode, at
+# ngram speculation's verify windows of 3 and 5 (main-whisper's widths)
+# and at a 64-row chunk; llava's last image chunk (2880 deep) and a decode
+# ~2950 deep over tables of 188 pages (47 key ranges)
+MM_PAGED = {"whisper-decode": (4, 1, 6, 6, 64, 8, 40, (80, 66, 93, 0), 4),
+            "whisper-verify-w3": (4, 3, 6, 6, 64, 8, 40, (45, 38, 57, 62),
+                                  4),
+            "whisper-verify-w5": (4, 5, 6, 6, 64, 8, 40, (45, 38, 57, 0), 4),
+            "whisper-chunk": (1, 64, 6, 6, 64, 8, 40, (1,), 4),
+            "llava-chunk": (1, 64, 32, 8, 128, 188, 200, (2817,), 32),
+            "llava-decode": (4, 1, 32, 8, 128, 188, 760,
+                             (2950, 2941, 2962, 2933), 32)}
+
+
+class KernelShapes:
+    """From construction to :meth:`stop`, the shapes B3 and B1 are called
+    at through ``ops``: B3 (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype),
+    B1 (B, W, Hq, Hkv, D, table pages, q dtype, page dtype).  :meth:`parity`
+    holds each kernel against its plain version at each of them."""
+
+    def __init__(self):
+        self.flash, self.paged = set(), set()
+        self._fa, self._pa = ops.flash_attention, ops.paged_attention_mq
+
+        def flash(q, k, v, *, causal=True, window=None):
+            self.flash.add((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                            q.shape[3], causal, window, q.dtype))
+            return self._fa(q, k, v, causal=causal, window=window)
+
+        def paged(q, k_pages, v_pages, tables, lengths, k_scale=None,
+                  v_scale=None):
+            self.paged.add((*q.shape[:3], k_pages.shape[2], q.shape[3],
+                            tables.shape[-1], q.dtype, k_pages.dtype))
+            return self._pa(q, k_pages, v_pages, tables, lengths, k_scale,
+                            v_scale)
+
+        ops.flash_attention, ops.paged_attention_mq = flash, paged
+
+    def stop(self):
+        ops.flash_attention, ops.paged_attention_mq = self._fa, self._pa
+
+    def parity(self, label, dev) -> dict:
+        """Each recorded shape on seeded random inputs, kernel against plain
+        version under TOL (B1: each slot's length random over its table, so
+        windows run up to the table's end): max abs error by kernel name,
+        and a line."""
+        rng = np.random.default_rng(5)
+        errs = {}
+        for B, Sq, Sk, Hq, Hkv, D, causal, window, dt in sorted(
+                self.flash, key=str):
+            q = torch.randn(B, Sq, Hq, D, device=dev).to(dt)
+            k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dt)
+                    for _ in range(2))
+            e = check("flash_attention", f"{label} path shape B={B} Sq={Sq} "
+                      f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
+                      f"window={window} {dt}",
+                      ops.flash_attention(q, k, v, causal=causal,
+                                          window=window),
+                      ref.flash_attention(q, k, v, causal=causal,
+                                          window=window), dt)
+            errs["flash_attention"] = max(errs.get("flash_attention", 0), e)
+        for B, W, Hq, Hkv, D, P, qdt, pdt in sorted(self.paged, key=str):
+            lengths = rng.integers(1, P * PS - W + 2, B)
+            q, kp, vp, tb, ln = mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P,
+                                              B * P, lengths)
+            if pdt == torch.int8:
+                name, args = "paged_attention_mq_int8", (
+                    *quantize_pages(kp, vp)[:2], tb, ln,
+                    *quantize_pages(kp, vp)[2:])
+            else:
+                name, args = "paged_attention_mq", (kp.to(pdt), vp.to(pdt),
+                                                    tb, ln)
+            e = check(name, f"{label} path shape B={B} W={W} Hq={Hq} "
+                      f"Hkv={Hkv} D={D} P={P} {qdt} pages {pdt}",
+                      ops.paged_attention_mq(q.to(qdt), *args),
+                      ref.paged_attention_mq(q.to(qdt), *args), qdt)
+            errs[name] = max(errs.get(name, 0), e)
+        log(f"{label}: every B3 and B1 shape of its serving calls held "
+            f"against the plain version: B3 {sorted(self.flash, key=str)}; "
+            f"B1 {sorted(self.paged, key=str)}; max abs err {errs}")
+        return errs
+
+
+def serve_margins(eng, reqs, max_new: int):
+    """Serve ``reqs`` ((prompt, payload) each) on ``eng`` with a margin
+    recorder each: (streams by submission index, their margins)."""
+    samplers, rids = [], []
+    for prompt, payload in reqs:
+        samplers.append(MarginSampler(eng.model.cfg.vocab))
+        rids.append(eng.submit(prompt, max_new_tokens=max_new,
+                               encoder_input=payload, sampler=samplers[-1]))
+    done = {r.rid: r for r in eng.run_until_drained()}
+    if any(done[rid].error is not None for rid in rids):
+        raise AssertionError([done[rid].error for rid in rids])
+    return ({i: done[rid].output for i, rid in enumerate(rids)},
+            {i: s.margins for i, s in enumerate(samplers)})
+
+
+def serve_mm(args_list, label: str):
+    """The launcher on ``args_list`` with the counts and the peak mark
+    zeroed first: (engine, counts, wall seconds, peak device bytes)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    eng = launch_serve.main(args_list)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    done = eng.finished
+    if len(done) != 8 or any(r.error is not None for r in done) or any(
+            len(r.output) != 32 or not all(0 <= t < eng.model.cfg.vocab
+                                           for t in r.output) for r in done):
+        raise AssertionError(f"{label}: {len(done)} finished, errors "
+                             f"{[r.error for r in done if r.error]}")
+    for name, (_, plain) in counts.items():
+        if plain:
+            raise AssertionError(f"{label}: {name}'s plain version ran "
+                                 f"{plain} times")
+    return eng, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def identical_pair(eng, label, args, enc_shape,
+                   against_run: bool = True) -> str:
+    """The launcher's first request (its prompt and payload) twice at once
+    on ``eng`` after its run: the two streams under :func:`stream_gate`,
+    and with ``against_run`` the launcher run's own stream against the
+    first of them, gated the same way."""
+    prompt, payload = launch_serve.make_requests(
+        args, eng.model.cfg.vocab, enc_shape)[0]
+    first = min(eng.finished, key=lambda r: r.rid).output
+    streams, margins = serve_margins(eng, [(prompt, payload)] * 2,
+                                     args.max_new)
+    pair = stream_gate(label, {1: streams[1]}, {1: streams[0]},
+                       {1: margins[0]})
+    line = f"identical pair {pair[0]}"
+    if against_run:
+        again = stream_gate(f"{label} against the run's own", {0: first},
+                            {0: streams[0]}, margins)
+        line += f"; against the run's own {again[0]}"
+    return line
+
+
+def fresh_then_cached(model, params, args, prompt, payload) -> list:
+    """``prompt`` with its image ``payload`` served alone on a new paged
+    engine of ``args`` (its prefix cache empty), then again on it, from
+    the cache: ``(stream, its sampler with each token's logits, prefix hit
+    tokens)`` of each run."""
+    runs = []
+    with ServeEngine(model, params, **engine_kw(args)) as e:
+        for _ in range(2):
+            smp = MarginSampler(model.cfg.vocab, keep=True)
+            hit = e.stats["prefix_hit_tokens"]
+            rid = e.submit(prompt, max_new_tokens=args.max_new,
+                           encoder_input=payload, sampler=smp)
+            r = {r.rid: r for r in e.run_until_drained()}[rid]
+            if r.error is not None:
+                raise AssertionError(r.error)
+            runs.append((r.output, smp, e.stats["prefix_hit_tokens"] - hit))
+    return runs
+
+
+def chunked_token0(model, params, storage, toks, payload, starts, P: int,
+                   replay: bool = False):
+    """Token 0's logits (float32, the true vocab) of a prefill run at model
+    level as the engine runs it: a chunk from each of ``starts`` to the
+    next (the last to the page-padded end), into pages 0.. of ``storage``
+    (with ``replay``, as for a prompt found whole in the prefix cache, into
+    its trash page ``P``) through a table of ``P`` pages, the rows of
+    ``payload`` where ``toks`` are image pseudo-tokens."""
+    dev = next(iter(tree_leaves(storage))).device
+    total, padded = len(toks), -(-len(toks) // PS) * PS
+    row = torch.arange(P, dtype=torch.int32, device=dev)
+    bounds = list(starts) + [padded]
+    for start, end in zip(bounds, bounds[1:]):
+        C = end - start
+        t = np.zeros(C, np.int32)
+        valid = min(C, total - start)
+        t[:valid] = toks[start:start + valid]
+        kw = {}
+        if start < len(payload):
+            buf = np.zeros((C, payload.shape[1]), np.float32)
+            take = min(C, len(payload) - start)
+            buf[:take] = payload[start:start + take]
+            kw["embeds"] = torch.tensor(buf[None], device=dev)
+        pages = row[start // PS:end // PS].clone()
+        if replay:
+            pages.fill_(P)
+        hidden, _ = model.paged_prefill_chunk(
+            params, storage, row, pages, start,
+            torch.tensor(t[None], device=dev), **kw)
+    logits = model.lm_head(params, hidden[:, valid - 1:valid])
+    return logits[0, -1, :model.cfg.vocab].float()
+
+
+def prefix_cache_trace(eng, args) -> str:
+    """The launcher's first image request fresh and from the prefix cache.
+    A cached request prefills only the rows past its hit, in a chunk of
+    another row count than the fresh prefill's last, so its GEMMs and B1
+    round differently, and a random model at full depth amplifies that
+    (see GATE_DEPTH).  Gated: the launcher run's stream equals the request
+    served alone (near-tie rule); at full depth the engine's fresh and
+    cached token-0 logits equal, bit for bit, a model-level prefill over
+    fresh pages with the engine's chunks, so the cache hands back exactly
+    a fresh prefill's K/V; at GATE_DEPTH layers, in the served dtype and
+    in float32, fresh and cached streams under the near-tie rule, and in
+    float32 their token-0 logits within CACHE_F32_TOL, while the cached
+    chunk over the other image's pages (a wrong cache entry) must part
+    by more.  Printed: the full-depth fresh against cached gap and
+    streams, and the served dtype's gap at GATE_DEPTH."""
+    cfg, model, dev = eng.model.cfg, eng.model, eng.device
+    reqs = launch_serve.make_requests(args, cfg.vocab,
+                                      launch_serve.encoder_shape(cfg, args))
+    (prompt, payload), (_, other) = reqs[0], reqs[1]
+    toks = np.concatenate([encoder_prefix_tokens(payload), prompt])
+    total, P = len(toks), eng.sched.pages_per_slot
+    padded = -(-total // PS) * PS
+    fresh_starts = range(0, padded, args.prefill_chunk)
+    # the fresh request's decode fills its prompt's last page, which it
+    # registers, so its twin finds the whole prompt in the cache and
+    # replays that page for token 0's logits (as the scheduler admits it)
+    replay_starts = range((total - 1) // PS * PS, padded, args.prefill_chunk)
+    first = min(eng.finished, key=lambda r: r.rid).output
+
+    def pages():
+        return PG.PagePool(model.paged_leaf_specs(None), num_pages=P,
+                           page_size=PS, device=dev).storage
+
+    def hits(label, f_hit, c_hit):
+        if (f_hit, c_hit) != (0, total):
+            raise AssertionError(f"{label}: prefix hits fresh {f_hit}, "
+                                 f"cached {c_hit}, want 0 and {total}")
+
+    (f_out, f_smp, f_hit), (c_out, c_smp, c_hit) = fresh_then_cached(
+        model, eng.params, args, prompt, payload)
+    hits("main-vlm", f_hit, c_hit)
+    alone = stream_gate("main-vlm the run's first request against it served "
+                        "alone", {0: first}, {0: f_out}, {0: f_smp.margins})
+    storage = pages()
+    fresh = chunked_token0(model, eng.params, storage, toks, payload,
+                           fresh_starts, P)
+    cached = chunked_token0(model, eng.params, storage, toks, payload,
+                            replay_starts, P, replay=True)
+    for what, got, want in (("fresh", f_smp.logits[0], fresh),
+                            ("cached", c_smp.logits[0], cached)):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"main-vlm: the engine's {what} token-0 logits are "
+                f"{(got - want).abs().max().item()} from the model-level "
+                "prefill's over fresh pages (want bit-equal)")
+    gap = (fresh - cached).abs().max().item()
+    full = stream_gate("main-vlm", {0: c_out}, {0: f_out})
+    del storage
+    # GATE_DEPTH layers of the same weights, bf16 and float32, where
+    # rounding is 2^16 times finer: the float32 twins agree within
+    # CACHE_F32_TOL, and over the other image's pages (a wrong cache
+    # entry) token 0 parts by more
+    depth = {}
+    for dt in dict.fromkeys((cfg.dtype, "float32")):
+        cut = build_model(cfg.replace(n_layers=GATE_DEPTH, dtype=dt))
+        cparams = dict(eng.params, blocks=tree_map(lambda a: a[:GATE_DEPTH],
+                                                   eng.params["blocks"]))
+        if dt != cfg.dtype:
+            cparams = tree_map(lambda t: t.float(), cparams)
+        (f2_out, f2_smp, f2_hit), (c2_out, c2_smp, c2_hit) = \
+            fresh_then_cached(cut, cparams, args, prompt, payload)
+        hits(f"main-vlm depth {GATE_DEPTH} {dt}", f2_hit, c2_hit)
+        storage = PG.PagePool(cut.paged_leaf_specs(None), num_pages=P,
+                              page_size=PS, device=dev).storage
+        chunked_token0(cut, cparams, storage,
+                       np.concatenate([encoder_prefix_tokens(other), prompt]),
+                       other, fresh_starts, P)
+        wrong = chunked_token0(cut, cparams, storage, toks, payload,
+                               replay_starts, P, replay=True)
+        depth[dt] = (
+            (f2_smp.logits[0] - c2_smp.logits[0]).abs().max().item(),
+            (wrong - f2_smp.logits[0]).abs().max().item(),
+            stream_gate(f"main-vlm depth {GATE_DEPTH} {dt} cached against "
+                        "fresh", {0: c2_out}, {0: f2_out},
+                        {0: f2_smp.margins})[0])
+        del cut, cparams, storage
+    gap2, wrong2, _ = depth["float32"]
+    if not gap2 <= CACHE_F32_TOL < wrong2:
+        raise AssertionError(f"main-vlm depth {GATE_DEPTH} float32: cached "
+                             f"against fresh token-0 max |d logit| {gap2}, "
+                             f"over the other image's pages {wrong2}; want "
+                             f"<= {CACHE_F32_TOL} and over it")
+    return (f"prefix cache against a fresh prefill (hit {c_hit} of "
+            f"{total} tokens; the replayed chunk {padded - replay_starts[0]} "
+            f"rows, the fresh one's last {padded - fresh_starts[-1]}): the "
+            f"run's first request against it served alone {alone[0]}; full "
+            f"depth: engine fresh and cached token-0 logits == the "
+            f"model-level prefills over fresh pages (bit for bit), fresh "
+            f"against cached token-0 max |d logit| {gap:.4f} (printed, "
+            f"chaotic at random init), streams {full[0]}; depth "
+            f"{GATE_DEPTH}: " + "; ".join(
+                f"{dt} token-0 max |d logit| {g:.3g}, over the other "
+                f"image's pages {w:.4f}, streams {line}"
+                for dt, (g, w, line) in depth.items())
+            + f" (float32 gate {CACHE_F32_TOL})")
+
+
+def mm_step(eng, label: str, lens, start: int, cross=None, embeds=False,
+            encode=None) -> dict:
+    """``eng``'s decode step (4 slots at ``lens``) and a 64-row prefill
+    chunk at ``start`` (over an image prefix with ``embeds``), with the
+    ``cross`` bundle of an enc-dec model, and ``encode`` (an encode chunk's
+    call) beside them: host-issued and device time (a replayed CUDA graph)
+    each, with the card's idle share."""
+    model, params, storage = eng.model, eng.params, eng.pool.storage
+    cfg, dev = model.cfg, eng.device
+    rng = np.random.default_rng(3)
+    B, P = eng.max_slots, eng.sched.pages_per_slot
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.tensor(np.stack([rng.permutation(eng.pool.num_pages)[:P]
+                                    for _ in range(B)]).astype(np.int32),
+                          device=dev)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32),
+                        device=dev)
+    wp = tables[torch.arange(B, device=dev), (ln // PS).long()]
+    wo = ln % PS
+    row, C = tables[0], 64
+    pages = row[start // PS:(start + C) // PS]
+    ctoks = torch.tensor(rng.integers(0, cfg.vocab, (1, C)).astype(np.int32),
+                         device=dev)
+    kw, ckw = {}, {}
+    if cross is not None:       # the decode bundle, and slot 0's for a chunk
+        kw["cross"] = c = cross(B)
+        ckw["cross"] = dict(c, tables=c["tables"][0],
+                            frames_len=c["frames_len"][0])
+    if embeds:                  # every row of the chunk an image row
+        ctoks = torch.full((1, C), -1, dtype=torch.int32, device=dev)
+        ckw["embeds"] = torch.randn(1, C, cfg.d_model, device=dev)
+    fns = {f"decode step ({B} slots at {list(lens)})":
+           lambda: model.paged_decode_step(params, storage, tables, ln, toks,
+                                           wp, wo, **kw),
+           f"prefill chunk ({C} rows at {start})":
+           lambda: model.paged_prefill_chunk(params, storage, row, pages,
+                                             start, ctoks, **ckw)}
+    if encode is not None:
+        fns["encode chunk (64 frames, encoder + cross K/V + scatter)"] = \
+            encode
+    out = {}
+    for name, fn in fns.items():
+        host = time_ms(fn, iters=10, warmup=2)
+        devt = device_ms([fn], reps=10)
+        out[name.split(" (")[0]] = {"host_ms": host, "device_ms": devt}
+        log(f"{label} {name}: host-issued {host:.3f} ms, device {devt:.3f} "
+            f"ms (card idle {max(0.0, 1 - devt / host):.1%} of the "
+            f"host-issued time)")
+    return out
+
+
+def phase_main_vlm() -> dict:
+    """main-vlm: llava-next-mistral-7b at full width and depth through the
+    launcher's ``--image``: the 8 requests finish through the kernels (B1
+    and B2 exactly L and 1 + 2L a step or chunk, every B1 call split), the
+    exact prefix hits of the repeated images, the pool whole; then two
+    identical image requests, and the decode step and an image chunk
+    timed."""
+    shapes = KernelShapes()             # every serving call's, to the trace
+    eng, counts, wall, peak = serve_mm(VLM_ARGS, "main-vlm")
+    args = launch_serve.parse_args(VLM_ARGS)
+    cfg, s, pool = eng.model.cfg, eng.stats, eng.pool
+    L, steps = cfg.n_layers, s["ticks"] + s["chunk_prefills"]
+    check_norm_counts("main-vlm", counts, steps, qwen_norms(cfg))
+    check_split("main-vlm", counts, "paged_attention_mq",
+                eng.sched.pages_per_slot)
+    if counts["paged_attention_mq"][0] != L * steps:
+        raise AssertionError(f"main-vlm: B1 launched "
+                             f"{counts['paged_attention_mq'][0]} times over "
+                             f"{steps} steps and chunks, want {L} each")
+    others = [k for k, (n, _) in counts.items() if n and k not in
+              PAGED_KERNELS]
+    if others:
+        raise AssertionError(f"main-vlm: {others} launched")
+    # the first 4 requests are admitted together (no page registered yet);
+    # each later one finds its image's 180 pages and the shared prefix's
+    # page in the cache
+    hits = args.requests - args.slots
+    per_hit = (cfg.n_image_tokens + args.shared_prefix) // PS * PS
+    if (s["prefix_hits"], s["prefix_hit_tokens"]) != (hits, hits * per_hit):
+        raise AssertionError(f"main-vlm: prefix hits {s['prefix_hits']} / "
+                             f"{s['prefix_hit_tokens']} tokens, want {hits} "
+                             f"/ {hits * per_hit}")
+    if pool.pages_free + pool.pages_cached + pool.pages_in_use \
+            != pool.num_pages:
+        raise AssertionError("main-vlm: the page pool is not whole")
+    toks = sum(len(r.output) for r in eng.finished)
+    weights = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(eng.params))
+    log(f"main-vlm: llava-next-mistral-7b {L} layers {cfg.dtype}, "
+        f"{sum(t.numel() for t in tree_leaves(eng.params))} parameters, "
+        f"{weights} B of weights; {toks} tokens, {toks / wall:.1f} tok/s "
+        f"wall (init included: {wall:.2f}s); ticks={s['ticks']} "
+        f"chunks={s['chunk_prefills']} prefix_hits={s['prefix_hits']} "
+        f"hit_tokens={s['prefix_hit_tokens']} pages_high_water="
+        f"{s['pages_high_water']}/{pool.num_pages} "
+        f"max_memory_allocated={peak} B; launches {counts}")
+    # served from the cache, the pair parts from the launcher's fresh
+    # stream by rounding: prefix_cache_trace holds that comparison
+    log("main-vlm: " + identical_pair(
+        eng, "main-vlm", args, launch_serve.encoder_shape(cfg, args),
+        against_run=False))
+    log("main-vlm: " + prefix_cache_trace(eng, args))
+    shapes.stop()
+    errs = shapes.parity("main-vlm", eng.device)
+    steps_t = mm_step(eng, "main-vlm", *VLM_STEP, embeds=True)
+    out = {"launches": {k: counts[k][0] for k in ("paged_attention_mq",
+                                                   "rmsnorm")},
+           "steps": steps_t, "wall_tok_s": toks / wall, "peak": peak,
+           "errs": errs}
+    del eng
+    return out
+
+
+def phase_main_whisper() -> dict:
+    """main-whisper: whisper-tiny at full width through the launcher's
+    ``--audio``: 8 x 24 encode chunks, B3 4 launches an encode chunk (all
+    on the tensor cores), B1 4 a decode step or decoder chunk, both pools
+    whole; two identical requests; ngram speculation against the plain
+    streams; the decode step, a decoder chunk and an encode chunk timed."""
+    shapes = KernelShapes()             # every serving call's, to ngram's
+    eng, counts, wall, peak = serve_mm(WHISPER_ARGS, "main-whisper")
+    args = launch_serve.parse_args(WHISPER_ARGS)
+    cfg, s = eng.model.cfg, eng.stats
+    Ld = cfg.decoder_layers
+    want = {"flash_attention": cfg.n_layers * s["encode_chunks"],
+            "flash_attention_tc": cfg.n_layers * s["encode_chunks"],
+            "paged_attention_mq": Ld * (s["ticks"] + s["chunk_prefills"])}
+    got = {k: counts[k][0] for k in want}
+    if s["encode_chunks"] != args.requests * WHISPER_CHUNKS or got != want:
+        raise AssertionError(f"main-whisper: encode chunks "
+                             f"{s['encode_chunks']} (want "
+                             f"{args.requests * WHISPER_CHUNKS}), launches "
+                             f"{got}, want {want}")
+    others = [k for k, (n, _) in counts.items() if n and k not in
+              ("flash_attention", "flash_attention_tc", "paged_attention_mq",
+               "paged_attention_mq_split")]
+    if others or eng.prefix_cache:
+        raise AssertionError(f"main-whisper: {others} launched, prefix "
+                             f"cache {eng.prefix_cache}")
+    cp, pool = eng.cross_pool, eng.pool
+    if (cp.pages_in_use, cp.pages_free) != (0, cp.num_pages) \
+            or pool.pages_free + pool.pages_cached + pool.pages_in_use \
+            != pool.num_pages:
+        raise AssertionError("main-whisper: a pool is not whole")
+    toks = sum(len(r.output) for r in eng.finished)
+    log(f"main-whisper: whisper-tiny {cfg.n_layers} + {Ld} layers "
+        f"{cfg.dtype}, {toks} tokens, {toks / wall:.1f} tok/s wall (init "
+        f"included: {wall:.2f}s); ticks={s['ticks']} chunks="
+        f"{s['chunk_prefills']} encode_chunks={s['encode_chunks']} "
+        f"cross pool {cp.num_pages} pages, max_memory_allocated={peak} B; "
+        f"launches {counts}")
+    shape = launch_serve.encoder_shape(cfg, args)
+    log("main-whisper: " + identical_pair(eng, "main-whisper", args, shape))
+    # ngram speculation: prompts whose tail repeats, so the drafter finds
+    # n-grams from the first tick on; held against the same requests
+    # served plain with their margins recorded
+    reqs = [(np.concatenate([p[:16], p[16:24], p[16:24]]), payload)
+            for p, payload in launch_serve.make_requests(args, cfg.vocab,
+                                                         shape)[:4]]
+    kw = engine_kw(args)
+    with ServeEngine(eng.model, eng.params, **kw) as plain:
+        want_s, margins = serve_margins(plain, reqs, args.max_new)
+    with ServeEngine(eng.model, eng.params, spec_decode="ngram",
+                     **kw) as spec:
+        for p, payload in reqs:
+            spec.submit(p, max_new_tokens=args.max_new,
+                        encoder_input=payload)
+        got_s = {i: r.output for i, r in enumerate(
+            sorted(spec.run_until_drained(), key=lambda r: r.rid))}
+        ss = spec.stats
+    if ss["draft_proposed"] <= 0:
+        raise AssertionError("main-whisper ngram: no draft proposed")
+    lines = stream_gate("main-whisper ngram", got_s, want_s, margins)
+    log(f"main-whisper ngram: proposed={ss['draft_proposed']} accepted="
+        f"{ss['draft_accepted']} verify widths {ss['verify_widths']}; "
+        + "; ".join(lines))
+    shapes.stop()
+    errs = shapes.parity("main-whisper", eng.device)
+    enc = launch_serve.make_requests(args, cfg.vocab, shape)[0][1]
+    n = min(64, len(enc))                   # one full encode chunk
+    frames = torch.tensor(enc[None, :n], device=eng.device)
+    cpages = torch.arange(n // PS, dtype=torch.int32, device=eng.device)
+
+    def encode():
+        k, v = eng.model.cross_kv_chunk(eng.params, eng.model.encode_chunk(
+            eng.params, frames, 0, n))
+        eng.model.scatter_cross(eng.cross_pool.storage, cpages, k, v,
+                                page_size=PS)
+
+    def cross(B):
+        nc = eng.sched.cross_pages_per_slot
+        return {"storage": eng.cross_pool.storage,
+                "tables": torch.arange(B * nc, dtype=torch.int32,
+                                       device=eng.device).reshape(B, nc)
+                % eng.cross_pool.num_pages,
+                "frames_len": torch.full((B,), cfg.n_audio_frames,
+                                         dtype=torch.int32,
+                                         device=eng.device)}
+
+    steps_t = mm_step(eng, "main-whisper", *WHISPER_STEP, cross=cross,
+                      encode=encode)
+    out = {"launches": {k: counts[k][0] for k in ("paged_attention_mq",
+                                                   "flash_attention",
+                                                   "flash_attention_tc")},
+           "steps": steps_t, "wall_tok_s": toks / wall, "peak": peak,
+           "errs": errs}
+    del eng
+    return out
+
+
+def mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P, n_pages, lengths):
+    """q (float32), float32 pools with a trash page of large values, tables
+    of ``P`` pages whose used part names distinct pages (the rest the trash
+    page), the lengths; a length 0 is a dead slot (all trash)."""
+    trash = n_pages
+    q = torch.randn(B, W, Hq, D, device=dev)
+    kp = torch.randn(n_pages + 1, PS, Hkv, D, device=dev)
+    vp = torch.randn(n_pages + 1, PS, Hkv, D, device=dev)
+    kp[trash], vp[trash] = 1e4, -1e4
+    tables = np.full((B, P), trash, np.int32)
+    for b, n in enumerate(lengths):
+        used = -(-(n + W - 1) // PS) if n else 0
+        tables[b, :used] = rng.permutation(n_pages)[:used]
+    return (q, kp, vp, torch.tensor(tables, device=dev),
+            torch.tensor(np.asarray(lengths, np.int32), device=dev))
+
+
+def phase_parity_mm(rng, dev) -> dict:
+    """B3 and B1 at the multimodal shapes (MM_FLASH, MM_PAGED) against their
+    plain versions: B3 bf16, each call one launch on the tensor cores; B1
+    with q and pages in bf16 and float32, and int8 pages, a dead slot's
+    row 0 zero.  Max abs error by kernel name."""
+    from repro_torch.kernels.paged_attention import split_count
+    errs = {"flash_attention": 0.0, "paged_attention_mq": 0.0,
+            "paged_attention_mq_int8": 0.0}
+    for label, (B, Sq, Sk, Hq, Hkv, D, causal) in MM_FLASH.items():
+        q = torch.randn(B, Sq, Hq, D, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, Sk, Hkv, D, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, Sk, Hkv, D, device=dev).to(torch.bfloat16)
+        ops.reset_counts()
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if ops.COUNTS["flash_attention_tc"].kernel != 1:
+            raise AssertionError(f"flash_attention {label}: not one launch "
+                                 "on the tensor cores")
+        errs["flash_attention"] = max(errs["flash_attention"], check(
+            "flash_attention", f"{label} {(B, Sq, Sk, Hq, Hkv, D)} causal="
+            f"{causal} bf16", got, ref.flash_attention(q, k, v,
+                                                       causal=causal),
+            torch.bfloat16))
+    for label, (B, W, Hq, Hkv, D, P, n_pages, lengths, _) in \
+            MM_PAGED.items():
+        q, kp, vp, tb, ln = mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P,
+                                          n_pages, lengths)
+        pages = quantize_pages(kp, vp)
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, args in (
+                    ("paged_attention_mq", (kp.to(dtype), vp.to(dtype), tb,
+                                            ln)),
+                    ("paged_attention_mq_int8", (pages[0], pages[1], tb, ln,
+                                                 *pages[2:]))):
+                got = ops.paged_attention_mq(q.to(dtype), *args)
+                torch.cuda.synchronize()
+                if 0 in lengths and got[list(lengths).index(0), 0].any():
+                    raise AssertionError(f"{name} {label}: dead slot not "
+                                         "zero")
+                errs[name] = max(errs[name], check(
+                    name, f"{label} B={B} W={W} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"P={P} ({split_count(P, PS)} key ranges) {dtype}", got,
+                    ref.paged_attention_mq(q.to(dtype), *args), dtype))
+    log(f"parity ok (multimodal shapes): {len(MM_FLASH)} flash_attention "
+        f"(bf16, tensor cores: {list(MM_FLASH)}) + {4 * len(MM_PAGED)} "
+        f"paged-attention cases ({list(MM_PAGED)}; bf16 and float32, float "
+        f"and int8 pages); max abs err {errs}")
+    return errs
+
+
+def phase_timing_mm(dev) -> dict:
+    """B3 and B1 timed at the multimodal shapes: device times (a replayed
+    CUDA graph) of kernel, plain version and yardstick (SDPA; gather +
+    SDPA for B1) beside the bound; B1 over each shape's layers' pools in
+    turn.  Returns ``{kernel: {label: times}}``."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(11)
+    dtype = torch.bfloat16
+    out = {"flash_attention": {}, "paged_attention_mq": {}}
+    for label, (B, Sq, Sk, Hq, Hkv, D, causal) in MM_FLASH.items():
+        q = torch.randn(B, Sq, Hq, D, device=dev).to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        b, by = bound((2 * q.numel() + k.numel() + v.numel())
+                      * q.element_size(), 4 * D * Hq * B * pairs, dtype)
+        reps = 1 if Sq > 1000 else 4
+        t = {what: device_ms([fn] * reps) for what, fn in (
+            ("kernel", lambda: ops.flash_attention(q, k, v, causal=causal)),
+            ("plain", lambda: ref.flash_attention(q, k, v, causal=causal)),
+            ("library", lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)))}
+        host = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        out["flash_attention"][label] = {
+            "shape": [B, Sq, Sk, Hq, Hkv, D, causal], "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": b, "bound_by": by, "host_ms": host}
+        log(f"timing flash_attention {label} [B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+            f"Hkv={Hkv} D={D} causal={causal} bf16]: device kernel "
+            f"{t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, SDPA "
+            f"{t['library']:.5f} ms, bound {b:.6f} ms ({by}); host-issued "
+            f"kernel {host:.5f} ms")
+    for label, (B, W, Hq, Hkv, D, P, n_pages, lengths, n_layers) in \
+            MM_PAGED.items():
+        q, _, _, tb, ln = mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P,
+                                        n_pages, lengths)
+        q = q.to(dtype)
+        layers = [tuple(torch.randn(n_pages + 1, PS, Hkv, D,
+                                    device=dev).to(dtype) for _ in range(2))
+                  for _ in range(n_layers)]
+        t, b, by = time_window(q, layers, tb, ln,
+                               window_mask(ln, W, P * PS))
+        out["paged_attention_mq"][label] = {
+            "shape": [B, W, Hq, Hkv, D, P, list(lengths)],
+            "ms": t["kernel"], "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": b, "bound_by": by}
+        log(f"timing paged_attention_mq {label} [B={B} W={W} Hq={Hq} "
+            f"Hkv={Hkv} D={D} P={P} lengths={list(lengths)}, {n_layers} "
+            f"layers' pools, bf16]: device kernel {t['kernel']:.5f} ms, "
+            f"plain {t['plain']:.5f} ms, gather + SDPA {t['library']:.5f} "
+            f"ms, bound {b:.6f} ms ({by})")
+        del layers
+    return out
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -3911,6 +4653,26 @@ def main() -> int:
                + time.perf_counter() - t_heads)
     log(f"the serving-mesh phases (main-mesh, main-moe-mesh, "
         f"main-moe-placed-mesh, B1 at the shard shapes) added {mesh_s:.1f} s")
+    # multimodal serving (ROADMAP A10): B1 and B3 at its shapes, then
+    # full-width llava and whisper through the launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_mm = time.perf_counter()
+    mm_times = phase_timing_mm(dev)
+    mm = {"main-vlm": phase_main_vlm()}
+    mm["main-whisper"] = phase_main_whisper()
+    log(f"the multimodal phases (timing, main-vlm, main-whisper) took "
+        f"{time.perf_counter() - t_mm:.1f} s")
+    for name in ("paged_attention_mq", "flash_attention"):
+        times[name]["multimodal"] = {
+            "timed": mm_times[name],
+            "launches": {run: r["launches"][name] for run, r in mm.items()
+                         if name in r["launches"]}}
+    times["rmsnorm"]["multimodal"] = {
+        "launches": {"main-vlm": mm["main-vlm"]["launches"]["rmsnorm"]}}
+    for r in mm.values():       # parity at the shapes the phases served at
+        for name, e in r["errs"].items():
+            errs[name] = max(errs[name], e)
     # the paper's function-centric layer: no TPU kernel on this path
     gc.collect()
     torch.cuda.empty_cache()
@@ -3987,7 +4749,7 @@ def main() -> int:
                 "g16_decode_bound_ms", "g16_decode_bound_by", "g16_chunk_ms",
                 "g16_chunk_plain_ms", "g16_chunk_library_ms",
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
-                "moe_launches", "shard_heads") if k in t}})
+                "moe_launches", "shard_heads", "multimodal") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

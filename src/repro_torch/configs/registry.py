@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported archs.
 
 The dense decoders (qwen2-7b, qwen2.5-14b, qwen3-1.7b), the MoE decoders
-(qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b and zamba2-7b are here; every
-other arch of the reference registry raises until its slice lands.
+(qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b, zamba2-7b and the multimodal
+pair (llava-next-mistral-7b, whisper-tiny) are here; every other arch of
+the reference registry raises until its slice lands.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ _MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 

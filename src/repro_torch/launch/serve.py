@@ -28,8 +28,13 @@ qwen3-moe-235b-a22b`` or ``arctic-480b`` serves an MoE model;
 ``--expert-placement N`` re-places its experts every N ticks from the
 measured per-expert token counts, and the paged run prints a ``[serve]
 moe:`` line (assignments routed and dropped, the rank imbalance, the
-placements).  Prints the reference launcher's summary lines plus each
-kernel's launch count.
+placements).  ``--arch llava-next-mistral-7b --image`` attaches one of
+two alternating images to the requests (``--encoder-frac`` of them under
+``--traffic``), ``--arch whisper-tiny --audio`` one of two clips to every
+request, which then prints a ``[serve] cross-KV:`` line (encode chunks,
+cross pages in use); neither goes through ``--disagg``, nor ``--audio``
+through ``--dense``.  Prints the reference launcher's summary lines plus
+each kernel's launch count.
 
 ``--mesh tp=N[,ep=M]`` serves tensor-parallel over a serving mesh of
 ``tp * ep`` ranks (:func:`parse_mesh`): the launcher runs its serve body on
@@ -136,12 +141,64 @@ def parse_args(argv=None):
                     "one card a rank, on cuda; gloo on cpu)")
     ap.add_argument("--store-dir", default="build/ranks",
                     help="where a mesh's ranks meet (a file store)")
+    ap.add_argument("--image", action="store_true",
+                    help="multimodal serving: attach precomputed image-patch "
+                    "embeddings to a fraction of requests (VLM families; "
+                    "the image prefix pages share through the prefix cache)")
+    ap.add_argument("--audio", action="store_true",
+                    help="multimodal serving: attach audio frames to every "
+                    "request (enc-dec families; streaming chunked encode "
+                    "into read-only cross-KV pages)")
+    ap.add_argument("--encoder-frac", type=float, default=0.5,
+                    help="fraction of requests carrying an image with "
+                    "--image under --traffic (audio is always 1.0: enc-dec "
+                    "needs a clip)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     if args.disagg and args.dense:
         raise SystemExit("--disagg needs the paged KV engine; drop --dense")
+    check_encoder_flags(args, arch_config(args))
     parse_mesh(args.mesh)           # a bad spec fails before any rank starts
     return args
+
+
+def arch_config(args):
+    """The config ``args`` name: ``--arch``, its SMOKE twin with
+    ``--smoke``."""
+    return smoke_config(args.arch) if args.smoke else get_config(args.arch)
+
+
+def check_encoder_flags(args, cfg) -> None:
+    """The reference launcher's refusals of ``--image`` / ``--audio``: each
+    needs its family, and neither goes through ``--disagg`` (``--audio``
+    not through ``--dense`` either)."""
+    if args.image and cfg.family != "vlm":
+        raise SystemExit(f"--image needs a VLM arch (family 'vlm'); "
+                         f"{args.arch} is '{cfg.family}'")
+    if args.audio and cfg.family != "audio":
+        raise SystemExit(f"--audio needs an enc-dec arch (family 'audio'); "
+                         f"{args.arch} is '{cfg.family}'")
+    if args.audio and (args.disagg or args.dense):
+        raise SystemExit("--audio serves monolithic and paged only (cross-KV "
+                         "pages have no handoff or dense twin); drop "
+                         "--disagg/--dense")
+    if (args.image or args.audio) and args.disagg:
+        raise SystemExit("--image/--audio are wired through the monolithic "
+                         "engine; drop --disagg")
+
+
+def encoder_workload_kwargs(cfg, args) -> dict:
+    """``--image`` / ``--audio`` -> the multimodal band of
+    :func:`repro_torch.serve.traffic.make_workload` (empty with both off,
+    which keeps the text schedule as it was)."""
+    shape = encoder_shape(cfg, args)
+    if shape is None:
+        return {}
+    # an enc-dec model refuses a request without a clip: every one has one
+    return dict(encoder="image" if args.image else "audio",
+                encoder_shape=shape,
+                encoder_frac=args.encoder_frac if args.image else 1.0,
+                n_encoder_inputs=2)
 
 
 def parse_mesh(spec):
@@ -165,14 +222,38 @@ def parse_mesh(spec):
     return (ep, tp), ("expert", "model")
 
 
-def make_prompts(args, vocab: int) -> list:
-    """The seeded prompts: ``--shared-prefix`` common tokens, then 4-47 own
-    tokens each."""
+def encoder_shape(cfg, args):
+    """The ``(n, d_model)`` payload of ``--image`` / ``--audio`` (None with
+    both off)."""
+    if args.image:
+        return cfg.n_image_tokens, cfg.d_model
+    if args.audio:
+        return cfg.n_audio_frames, cfg.d_model
+    return None
+
+
+def make_requests(args, vocab: int, enc_shape=None) -> list:
+    """The seeded requests, ``(prompt, encoder payload or None)`` each: the
+    prompts are ``--shared-prefix`` common tokens, then 4-47 own tokens;
+    with an ``enc_shape`` the requests alternate between two payloads of
+    that shape (a repeated image shares its prefix pages, distinct ones
+    never alias), drawn after the shared prefix as the reference draws
+    them."""
     rng = np.random.default_rng(0)
     shared = rng.integers(0, vocab, args.shared_prefix)
-    return [np.concatenate([shared,
-                            rng.integers(0, vocab, int(rng.integers(4, 48)))])
-            for _ in range(args.requests)]
+    pool = [] if enc_shape is None else [
+        rng.standard_normal(enc_shape).astype(np.float32) for _ in range(2)]
+    out = []
+    for i in range(args.requests):
+        tail = rng.integers(0, vocab, int(rng.integers(4, 48)))
+        out.append((np.concatenate([shared, tail]),
+                    pool[i % 2] if pool else None))
+    return out
+
+
+def make_prompts(args, vocab: int) -> list:
+    """The seeded text prompts of :func:`make_requests`."""
+    return [p for p, _ in make_requests(args, vocab)]
 
 
 def run_traffic_demo(eng, cfg, args) -> dict:
@@ -185,14 +266,17 @@ def run_traffic_demo(eng, cfg, args) -> dict:
         slo["ttft"] = args.slo_ttft
     if args.slo_e2e is not None:
         slo["e2e"] = args.slo_e2e
-    # cap prompt bands so prefix + tail + generation fit in max_len
-    hi = max(5, args.max_len - args.shared_prefix - args.max_new - 1)
+    # cap prompt bands so prefix + tail + generation (and a VLM's image
+    # pseudo-token prefix) fit in max_len
+    enc_extra = cfg.n_image_tokens if args.image else 0
+    hi = max(5, args.max_len - args.shared_prefix - args.max_new - 1
+             - enc_extra)
     len_mix = ((3.0, 4, min(24, hi)), (1.0, min(32, hi), hi))
     wl = make_workload(kind=args.traffic, n_requests=args.requests,
                        rate=args.rate, vocab=cfg.vocab, seed=0,
                        max_new_tokens=args.max_new,
                        shared_prefix_len=args.shared_prefix, n_sessions=2,
-                       len_mix=len_mix)
+                       len_mix=len_mix, **encoder_workload_kwargs(cfg, args))
     t0 = time.perf_counter()
     res = run_traffic(eng, wl, clock=args.clock, slo=slo or None)
     dt = time.perf_counter() - t0
@@ -226,7 +310,7 @@ def build_engine(args, mesh=None):
     """The model of ``args`` with seeded random weights, and the engine
     that serves it (this rank's, on a serving ``mesh``): ``(engine,
     config)``."""
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = arch_config(args)
     model = build_model(cfg)
     why = model.engine_refusal()
     if why:  # before init allocates the weights
@@ -289,8 +373,10 @@ def serve(args, mesh=None):
         print_counts()
         return eng
     t0 = time.perf_counter()
-    for prompt in make_prompts(args, cfg.vocab):
-        eng.submit(prompt, max_new_tokens=args.max_new)
+    for prompt, payload in make_requests(args, cfg.vocab,
+                                         encoder_shape(cfg, args)):
+        kw = {} if payload is None else {"encoder_input": payload}
+        eng.submit(prompt, max_new_tokens=args.max_new, **kw)
     done = eng.run_until_drained()
     dt = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done)
@@ -332,6 +418,10 @@ def serve(args, mesh=None):
               f"hit_tokens={s['prefix_hit_tokens']} "
               f"cow_copies={s['cow_copies']} evictions={s['evictions']} "
               f"cached_now={eng.pool.pages_cached} pages")
+        if eng.cross_pool is not None:
+            print(f"[serve] cross-KV: encode_chunks={s['encode_chunks']} "
+                  f"pages_in_use={eng.cross_pool.pages_in_use}/"
+                  f"{eng.cross_pool.num_pages}")
         if eng.drafter is not None:
             print(f"[serve] spec decode: proposed={s['draft_proposed']} "
                   f"accepted={s['draft_accepted']} "

@@ -1,14 +1,17 @@
-"""Model API of the port: :class:`DecoderLM`, :class:`RwkvLM`,
-:class:`HybridLM` and :func:`build_model`.
+"""Model API of the port: :class:`DecoderLM`, :class:`VLM`,
+:class:`RwkvLM`, :class:`HybridLM`, :class:`Whisper` and
+:func:`build_model`.
 
-Counterpart of ``repro.models.api`` for the serving paths ported so far:
+Counterpart of ``repro.models.api`` for the serving paths:
 the dense and MoE decoders paged (chunked prefill, decode and speculative
 verify windows against a page pool, and a cache-free scoring forward)
 and dense per-slot (whole-prompt prefill and decode against a per-slot
-cache), rwkv6 on the dense per-slot path (a recurrent state per slot), and
-zamba2 as an aligned batch (prefill, then decode at one position for every
-row).  The members are plain functions over dict-of-tensor params, which
-is all the serving engine calls.
+cache), llava's VLM as a decoder whose prompts may start with precomputed
+image embeddings, rwkv6 on the dense per-slot path (a recurrent state per
+slot), zamba2 as an aligned batch (prefill, then decode at one position
+for every row), and whisper's encoder-decoder paged, its cross-attention
+K/V in a read-only cross-KV pool.  The members are plain functions over
+dict-of-tensor params, which is all the serving engine calls.
 
 The serving-mesh rules are the reference's (``SERVE_TP_AXES``): a family
 with a paged KV cache serves Megatron-style tensor-parallel — attention
@@ -23,7 +26,8 @@ entry an axis: None, a mesh axis name, or a tuple of names.
 """
 from __future__ import annotations
 
-__all__ = ["DecoderLM", "RwkvLM", "HybridLM", "SERVE_TP_AXES", "build_model"]
+__all__ = ["DecoderLM", "HybridLM", "RwkvLM", "SERVE_TP_AXES", "VLM",
+           "Whisper", "build_model"]
 
 from typing import Optional, Union
 
@@ -32,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models import zamba as Z
 from repro_torch.models.module import (init_params, mesh_spec,
                                        resolve_device, torch_dtype, tree_map)
@@ -179,7 +184,7 @@ class DecoderLM:
 
     def paged_prefill_chunk(self, params, storage, table_row, pages_chunk,
                             start, tokens, *, quant=None, placement=None,
-                            comm=None, ep_comm=None):
+                            comm=None, ep_comm=None, embeds=None):
         """Prefill tokens (1, C) at positions [start, start + C) into pages
         (in place, quantized on write with a KV ``quant`` policy; an MoE
         model's experts dispatched through the (3, E) ``placement`` map);
@@ -187,11 +192,13 @@ class DecoderLM:
         layer-summed ``{"expert_tokens", "expert_dropped"}`` int32 (E,)
         ((0,) for a dense model).  ``comm`` / ``ep_comm``: the serving
         mesh's ``"model"`` / ``"expert"`` transports, with ``params`` and
-        ``storage`` the rank's shards (None: one device)."""
+        ``storage`` the rank's shards (None: one device).  ``embeds``: None,
+        or (1, C, d) rows that replace the embeddings where ``tokens`` is
+        negative (a VLM's image prefix)."""
         return T.paged_prefill_chunk(params, self.cfg, storage, table_row,
                                      pages_chunk, start, tokens, quant=quant,
                                      placement=placement, comm=comm,
-                                     ep_comm=ep_comm)
+                                     ep_comm=ep_comm, embeds=embeds)
 
     def paged_decode_step(self, params, storage, tables, lengths, tokens,
                           write_pages, write_offs, *, quant=None,
@@ -285,6 +292,54 @@ class DecoderLM:
     def validate_serve_tp(self, tp: int) -> None:
         """:meth:`validate_serve_mesh` on a 1-D mesh."""
         self.validate_serve_mesh(tp=tp)
+
+    def validate_serve_encoder(self, *, page_size: int, max_len: int,
+                               prefix_cache: bool = False) -> None:
+        """A text-only family has no encoder: nothing to check."""
+
+
+class VLM(DecoderLM):
+    """LLaVA-style: precomputed anyres patch embeddings in front of the text
+    (the modality frontend is a stub, as in the reference).  On the paged
+    engine the image rides as a prefix of pseudo-tokens whose rows
+    :meth:`DecoderLM.paged_prefill_chunk` takes from ``embeds``."""
+
+    def _embeds(self, params, batch):
+        txt = T.embed_tokens(params, batch["tokens"],
+                             torch_dtype(self.cfg.dtype))
+        img = batch["image_embeds"].to(txt.dtype)
+        return torch.cat([img, txt], dim=1)
+
+    def prefill(self, params, batch, max_len: Optional[int] = None):
+        """``batch``: ``{"tokens": (B, S), "image_embeds": (B, I, d)}`` ->
+        (cache, final hidden (B, I + S, d)); the image rows come first."""
+        return T.prefill(params, self.cfg, max_len=max_len,
+                         inputs_embeds=self._embeds(params, batch))
+
+    def validate_serve_encoder(self, *, page_size: int, max_len: int,
+                               prefix_cache: bool = False) -> None:
+        """The image prefix takes ``n_image_tokens`` leading positions of
+        every image request, so it must leave room for text and one
+        generated token inside ``max_len``, and, with the prefix cache
+        sharing image pages, tile exactly into pages (a boundary page would
+        mix image and text and never be sharable).  The reference's
+        messages."""
+        cfg = self.cfg
+        I = cfg.n_image_tokens
+        if I + 1 >= max_len:
+            raise ValueError(
+                f"{cfg.name}: n_image_tokens={I} leaves no room inside "
+                f"max_len={max_len} for a text prompt plus one generated "
+                f"token; raise max_len to at least {I + 2} (--max-len)")
+        if prefix_cache and I % page_size:
+            fix = max(d for d in range(1, page_size + 1) if I % d == 0)
+            raise ValueError(
+                f"{cfg.name}: n_image_tokens={I} is not a multiple of "
+                f"page_size={page_size}, so image-prefix pages can never be "
+                "shared through the prefix cache (the boundary page would "
+                "mix image and text content).  Fix: pass a page size that "
+                f"divides {I} — e.g. --page-size {fix} — or disable "
+                "--prefix-cache")
 
 
 class RwkvLM:
@@ -428,20 +483,177 @@ class HybridLM:
         _validate_mesh(self, tp, ep)
 
 
-_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": RwkvLM,
-             "hybrid": HybridLM}
-# families of the reference still to port, and the ROADMAP item they wait for
-_NOT_PORTED = {"vlm": "multimodal (ROADMAP A10)",
-               "audio": "multimodal (ROADMAP A10)"}
+class Whisper:
+    """Encoder-decoder audio model: a bidirectional frame encoder and a
+    causal token decoder with cross-attention.  Serves paged only: the
+    decoder's self-attention K/V page as a decoder-only LM's, and the cross
+    K/V (computed once a clip by :meth:`encode_chunk` and
+    :meth:`cross_kv_chunk`) live in a read-only
+    :class:`repro_torch.serve.pages.CrossKVPool`; every paged call takes a
+    ``cross={"storage", "tables", "frames_len"}`` bundle."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def param_defs(self) -> dict:
+        """Tree of :class:`repro_torch.models.module.Param` for every weight
+        (the LayerNorms' scale and bias declared float32)."""
+        return W.whisper_defs(self.cfg)
+
+    # the decoder-only model's: random weights (the LayerNorms in float32,
+    # as declared), int8 ones quantized as they are drawn
+    init = DecoderLM.init
+
+    def supports_paged_decode(self) -> bool:
+        """True: the decoder's self-attention cache pages."""
+        return True
+
+    def engine_refusal(self) -> Optional[str]:
+        """None: the serving engine serves the family (paged only)."""
+        return None
+
+    def _leaf(self):
+        from repro_torch.serve.pages import PagedLeafSpec
+        cfg = self.cfg
+        return PagedLeafSpec((cfg.decoder_layers,),
+                             (cfg.n_heads, cfg.head_dim),
+                             torch_dtype(cfg.dtype))
+
+    def paged_leaf_specs(self, quant=None):
+        """``{"k", "v"}`` self-attention page leaves of (Ld, num_pages,
+        page_size, h, hd), int8 with scale leaves under a KV ``quant``."""
+        from repro_torch.serve.quant import quantize_leaf_specs
+        leaf = self._leaf()
+        return quantize_leaf_specs({"k": leaf, "v": leaf}, quant)
+
+    def cross_leaf_specs(self, quant=None):
+        """``{"cross_k", "cross_v"}`` leaves of the cross-KV pool: pages over
+        audio-frame rows, otherwise the self pages' layout (int8 scale
+        leaves ride along the same way)."""
+        from repro_torch.serve.quant import quantize_leaf_specs
+        leaf = self._leaf()
+        return quantize_leaf_specs({"cross_k": leaf, "cross_v": leaf}, quant)
+
+    def encode_chunk(self, params, frames, start: int, n_valid: int):
+        """The encoder over ONE audio chunk (1, Cf, d) at absolute positions
+        [start, start + Cf), ``n_valid`` real frames: the streaming chunked
+        encode (:func:`repro_torch.models.whisper.encode_chunk`)."""
+        return W.encode_chunk(params, self.cfg, frames, start, n_valid)
+
+    def cross_kv_chunk(self, params, enc_chunk):
+        """Encoder-output chunk (1, Cf, d) -> cross K/V (Ld, Cf, h, hd)."""
+        return W.cross_kv_chunk(params, self.cfg, enc_chunk)
+
+    def scatter_cross(self, storage, pages, k, v, *, page_size: int,
+                      quant=None) -> None:
+        """Write one chunk's cross K/V into its pages, in place (quantized
+        on write under a KV ``quant`` policy)."""
+        W.scatter_cross(storage, pages, k, v, page_size=page_size,
+                        quant=quant)
+
+    def paged_prefill_chunk(self, params, storage, table_row, pages_chunk,
+                            start, tokens, *, cross, quant=None):
+        """A decoder-prompt chunk (1, C) into the self pages, reading the
+        slot's cross pages: ``cross = {"storage", "tables" (Pc,),
+        "frames_len"}``.  Returns ``(hidden (1, C, d), telemetry)``."""
+        return W.paged_prefill_chunk(
+            params, self.cfg, storage, table_row, pages_chunk, start, tokens,
+            cross["storage"], cross["tables"], cross["frames_len"],
+            quant=quant)
+
+    def paged_decode_step(self, params, storage, tables, lengths, tokens,
+                          write_pages, write_offs, *, cross, quant=None):
+        """tokens (B, 1) -> ``(float32 logits (B, 1, V), telemetry)``;
+        ``cross``'s tables (B, Pc) and frames_len (B,), 0 on dead slots."""
+        return W.paged_decode_step(
+            params, self.cfg, storage, tables, lengths, tokens, write_pages,
+            write_offs, cross["storage"], cross["tables"],
+            cross["frames_len"], quant=quant)
+
+    def paged_verify(self, params, storage, tables, lengths, tokens,
+                     write_pages, write_offs, *, cross, quant=None):
+        """A speculative verify window (B, C) -> ``(float32 logits
+        (B, C, V), telemetry)``, with the cross read of
+        :meth:`paged_decode_step`."""
+        return W.paged_verify_chunk(
+            params, self.cfg, storage, tables, lengths, tokens, write_pages,
+            write_offs, cross["storage"], cross["tables"],
+            cross["frames_len"], quant=quant)
+
+    def prefill(self, params, batch, max_len: int):
+        """``batch``: ``{"frames": (B, F, d), "tokens": (B, S)}`` -> (state,
+        final hidden (B, S, d)): the whole clip encoded, every layer's cross
+        K/V, the decoder prompt."""
+        return W.prefill(params, self.cfg, batch["frames"], batch["tokens"],
+                         max_len)
+
+    def init_decode_state(self, batch: int, max_len: int, *, device=None):
+        """Zeroed self and cross K/V (:func:`repro_torch.models.whisper.
+        init_state`) in the compute dtype on ``device``."""
+        return W.init_state(self.cfg, batch, max_len,
+                            dtype=torch_dtype(self.cfg.dtype),
+                            device=resolve_device(device))
+
+    def decode_step(self, params, state, tokens, pos):
+        """tokens (B, 1) at ``pos`` -> float32 logits (B, 1, V); the self
+        K/V written into ``state`` in place."""
+        return W.decode_step(params, self.cfg, state, tokens, pos)
+
+    def lm_head(self, params, hidden):
+        """Project final hidden states to float32 vocab logits."""
+        return T.lm_logits(params, hidden)
+
+    # -- serving-mesh rules: whisper serves on no mesh, as in the reference
+
+    def serve_param_specs(self, ep: int = 1):
+        """Refused, as the reference's: no TP serving specs."""
+        raise _no_tp_specs(self.cfg)
+
+    def serve_state_specs(self, batch: int, max_len: int) -> dict:
+        """Slot-parallel specs of the dense state: its slot axis over
+        ``"model"``, the reference's rule; no serving path reaches it, as
+        whisper serves on no mesh."""
+        del batch, max_len
+        return _slot_specs(W.state_specs(self.cfg))
+
+    # the rules of the decoder-only model: the pages' head axis over
+    # "model"; a 1-D mesh check through this class's validate_serve_mesh
+    paged_storage_specs = DecoderLM.paged_storage_specs
+    validate_serve_tp = DecoderLM.validate_serve_tp
+
+    def validate_serve_mesh(self, tp: int = 1, ep: int = 1) -> None:
+        """Any serving mesh is refused, with the reference's message: the
+        cross-KV pool is not wired for one."""
+        if tp > 1 or ep > 1:
+            raise ValueError(
+                f"{self.cfg.name} (audio/enc-dec) serves single-device only "
+                f"in this release: mesh (tp={tp}, ep={ep}) is not wired for "
+                "the cross-KV pool (see ROADMAP item 5 follow-ups) — drop "
+                "--mesh")
+
+    def validate_serve_encoder(self, *, page_size: int, max_len: int,
+                               prefix_cache: bool = False) -> None:
+        """Audio frames need at least one frame, and the decoder max_len >= 2
+        (prompt plus one generated token).  The prefix cache never applies
+        (the engine turns it off).  The reference's messages."""
+        cfg = self.cfg
+        if cfg.n_audio_frames < 1:
+            raise ValueError(
+                f"{cfg.name}: n_audio_frames={cfg.n_audio_frames} — an "
+                "enc-dec request needs at least one audio frame")
+        if max_len < 2:
+            raise ValueError(
+                f"{cfg.name}: max_len={max_len} cannot hold a decoder "
+                "prompt plus one generated token; raise --max-len")
+
+
+_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": VLM,
+             "ssm": RwkvLM, "hybrid": HybridLM, "audio": Whisper}
 
 
 def build_model(cfg: ModelConfig):
     """The family's model class bound to ``cfg``: :class:`DecoderLM` for
-    dense and MoE decoders, :class:`RwkvLM` for rwkv6 (``ssm``), :class:`HybridLM`
-    for zamba2 (``hybrid``)."""
-    if cfg.family not in _FAMILIES:
-        slice_name = _NOT_PORTED.get(cfg.family, "an unplanned")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: it comes "
-            f"with the {slice_name} slice")
+    dense and MoE decoders, :class:`VLM` for llava (``vlm``),
+    :class:`RwkvLM` for rwkv6 (``ssm``), :class:`HybridLM` for zamba2
+    (``hybrid``), :class:`Whisper` for whisper (``audio``)."""
     return _FAMILIES[cfg.family](cfg)

@@ -71,9 +71,19 @@ def layernorm(params, x, *, eps: float = 1e-5):
             + params["bias"].to(torch.float32)).to(x.dtype)
 
 
+def embedding_def(vocab: int, dim: int) -> dict:
+    """Declaration of one embedding table."""
+    return {"table": Param((vocab, dim), ("vocab", "embed"), init="small")}
+
+
 def embed(params, tokens):
     """Table lookup: (..., ) int tokens -> (..., d)."""
     return params["table"][tokens.long()]
+
+
+def unembed(params, x):
+    """Tied unembedding: (B, S, d) @ (V, d)^T -> (B, S, V) in float32."""
+    return x.float() @ params["table"].float().T
 
 
 def linear(params, x):
@@ -96,6 +106,35 @@ def mlp_def(d_model: int, d_ff: int) -> dict:
 def mlp(params, x):
     """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down``."""
     return (F.silu(x @ params["gate"]) * (x @ params["up"])) @ params["down"]
+
+
+def mlp_plain_def(d_model: int, d_ff: int) -> dict:
+    """Declaration of the non-gated FFN with biases (whisper's)."""
+    return {
+        "up": Param((d_model, d_ff), ("embed_w", "mlp")),
+        "up_b": Param((d_ff,), ("mlp",), init="zeros"),
+        "down": Param((d_ff, d_model), ("mlp", "embed_w")),
+        "down_b": Param((d_model,), (None,), init="zeros"),
+    }
+
+
+def mlp_plain(params, x):
+    """``gelu(x @ up + up_b) @ down + down_b`` with the tanh GELU, which is
+    ``jax.nn.gelu``'s default (torch's default is the erf form)."""
+    h = F.gelu(x @ params["up"] + params["up_b"], approximate="tanh")
+    return h @ params["down"] + params["down_b"]
+
+
+def sinusoidal_pos(positions, dim: int, *, base: float = 10000.0):
+    """(S,) int positions -> (S, dim) float32 sinusoidal embeddings (whisper's
+    encoder and decoder): ``[sin, cos]`` of ``positions * base ** (-i /
+    max(half - 1, 1))``."""
+    half = dim // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions[:, None].to(torch.float32) * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope(x, positions, *, theta: float = 10000.0):

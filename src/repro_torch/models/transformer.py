@@ -1,9 +1,11 @@
 """Dense decoder-only LM for serving: on paged KV storage, and on the
 dense per-slot cache.
 
-Counterpart of the serving half of ``repro.models.transformer``, without
-precomputed embeds.  Params keep the reference's keys and shapes, with
-``params["blocks"]`` stacked on a leading layer axis.
+Counterpart of the serving half of ``repro.models.transformer``.  Params
+keep the reference's keys and shapes, with ``params["blocks"]`` stacked on
+a leading layer axis.  Precomputed embeddings (a VLM's image prefix) enter
+through ``embeds=`` of :func:`paged_prefill_chunk` and ``inputs_embeds=``
+of :func:`prefill`.
 
 Serving tensor parallelism (Megatron TP of the paged path) is the
 reference's: the paged calls take a ``comm``, the
@@ -256,9 +258,18 @@ def _blocks(params, cfg):
         yield QZ.dequantize_params(_layer(params["blocks"], i), dtype)
 
 
+def chunk_embeddings(params, tokens, embeds, dtype):
+    """A prefill chunk's input rows: the table's rows of the real tokens,
+    and ``embeds``' rows (1, C, d) where ``tokens`` is negative (a VLM's
+    image pseudo-tokens).  The table is read at ``max(tokens, 0)``: the
+    pseudo-tokens themselves are no index."""
+    x = embed_tokens(params, tokens.clamp(min=0), dtype)
+    return torch.where((tokens < 0)[..., None], embeds.to(x.dtype), x)
+
+
 def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
                         tokens, quant=None, placement=None, comm=None,
-                        ep_comm=None):
+                        ep_comm=None, embeds=None):
     """Prefill one page-aligned prompt chunk into paged storage, in place.
 
     storage: {"k", "v"} of (L, N, page_size, Hkv, D), plus
@@ -268,14 +279,17 @@ def paged_prefill_chunk(params, cfg, storage, table_row, pages_chunk, start,
     int;  tokens: (1, C), right-padded (the validity length masks pad
     garbage);  placement: the (3, E) expert dispatch map of an MoE model
     (None: the unplaced layout);  comm / ep_comm: the mesh transports
-    (module docstring; None: serial).  Returns ``(hidden, telemetry)``:
+    (module docstring; None: serial);  embeds: None, or (1, C, d) rows
+    spliced in where ``tokens`` is negative (:func:`chunk_embeddings`; a
+    mesh replicates them like the tokens).  Returns ``(hidden, telemetry)``:
     the final hidden states (1, C, d), replicated, and the layer-summed
     per-expert ``{"expert_tokens", "expert_dropped"}`` int32 counts ((0,)
     for a dense model), the same on every rank."""
     _check_paged(cfg)
     comm = _SERIAL if comm is None else comm
     page_size = storage["k"].shape[2]
-    x = embed_tokens(params, tokens, torch_dtype(cfg.dtype))
+    x = embed_tokens(params, tokens, torch_dtype(cfg.dtype)) if embeds is None \
+        else chunk_embeddings(params, tokens, embeds, torch_dtype(cfg.dtype))
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)
     tables = table_row[None]
@@ -457,14 +471,17 @@ def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def prefill(params, cfg, tokens, max_len: Optional[int] = None):
-    """Run whole prompts (B, S) and build their cache.  Returns
-    ``(cache, hidden)``: the cache ``{"k", "v"}`` of (L, B, max_len, Hkv, D)
-    holds the prompt's K/V in its first S positions and zeros after, and
-    hidden is the final (B, S, d) sequence, so a caller with right-padded
-    prompts reads each at its own valid length."""
+def prefill(params, cfg, tokens=None, max_len: Optional[int] = None, *,
+            inputs_embeds=None):
+    """Run whole prompts (B, S), or their embeddings ``inputs_embeds``
+    (B, S, d), and build their cache.  Returns ``(cache, hidden)``: the
+    cache ``{"k", "v"}`` of (L, B, max_len, Hkv, D) holds the prompt's K/V
+    in its first S positions and zeros after, and hidden is the final
+    (B, S, d) sequence, so a caller with right-padded prompts reads each at
+    its own valid length."""
     _check_dense(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens) if inputs_embeds is None \
+        else inputs_embeds
     B, S = x.shape[:2]
     max_len = max_len or S
     positions = torch.arange(S, device=x.device)

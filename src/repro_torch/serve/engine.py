@@ -104,17 +104,33 @@ off as a :class:`repro_torch.serve.pages.KVHandoff` instead of decoding,
 with a plain engine that takes them in through :meth:`ServeEngine.
 inject_prefilled`.
 
-Features of the reference engine that later port slices bring (encoder
-inputs, ROADMAP A10) raise ``NotImplementedError`` here instead of being
-ignored.  A model whose
-``engine_refusal()`` names a reason is refused: the hybrid family (zamba2)
-serves only as an aligned batch
+Encoder-attached requests (``submit(encoder_input=...)``, paged only):
+
+* a **VLM** (llava) request carries ``(n_image_tokens, d_model)`` image
+  embeddings.  They ride as a prefix of strictly negative pseudo-tokens
+  (:func:`encoder_prefix_tokens`, a content hash of the embeddings), so
+  the prefix cache shares a repeated image's pages as it shares text; the
+  prefill chunks that cover the prefix take their rows from the
+  embeddings.
+* an **enc-dec** (whisper) request carries ``(n_frames, d_model)`` audio
+  frames; every request of such a model must.  Each clip is encoded in
+  streaming chunks on the prefill farm (encoder and cross K/V, pure
+  compute), the cross K/V scattered serially into a read-only
+  :class:`repro_torch.serve.pages.CrossKVPool` sized for every slot before
+  any decoder chunk of the same tick reads them; the decoder's chunks,
+  decode steps and verify windows read them through a ``cross`` bundle
+  (dead slots at ``frames_len = 0``).  The prefix cache is off for such a
+  model (the decoder's K/V depend on the audio), and it has no dense path
+  and no prefill-only role, as in the reference.
+
+A model whose ``engine_refusal()`` names a reason is refused: the hybrid
+family (zamba2) serves only as an aligned batch
 (:class:`repro_torch.models.api.HybridLM`), as in the reference.
 """
 
 from __future__ import annotations
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "encoder_prefix_tokens"]
 
 import dataclasses
 import functools
@@ -137,7 +153,8 @@ from repro_torch.serve import spec as SP
 from repro_torch.serve.pages import PagePool
 from repro_torch.serve.sampling import (greedy, spec_rejection_sample,
                                         spec_verify_greedy)
-from repro_torch.serve.scheduler import FREE, Scheduler, prefill_tokens
+from repro_torch.serve.scheduler import (FREE, EncodeJob, Scheduler,
+                                         prefill_tokens)
 
 
 @dataclasses.dataclass
@@ -150,6 +167,15 @@ class Request:
     sampler: Optional[Callable] = None     # per-request (key, logits) -> tok
     seed: Optional[int] = None             # token i is sampled with
     #                                        fold_in(PRNGKey(seed), i)
+    encoder_input: Optional[np.ndarray] = None
+    #                                        (n_image_tokens, d_model) image
+    #                                        embeddings for a VLM, (n_frames,
+    #                                        d_model) audio frames for enc-dec
+    # filled by the engine:
+    encoder_tokens: Optional[np.ndarray] = None
+    #                                        VLM only: the image's negative
+    #                                        pseudo-tokens
+    #                                        (encoder_prefix_tokens)
     output: list = dataclasses.field(default_factory=list)
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
@@ -177,9 +203,22 @@ def _host_tokens(toks) -> np.ndarray:
     return np.array(toks)
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice")
+def encoder_prefix_tokens(enc: np.ndarray) -> np.ndarray:
+    """Deterministic strictly negative pseudo-tokens for an image prefix,
+    bit for bit the reference's.
+
+    The prefix cache keys pages on token bytes, so an image prefix needs a
+    token sequence that never collides with a real token (every real one
+    is >= 0) and is a pure content hash of the embeddings: blake2b of the
+    float32 bytes seeds numpy's ``default_rng``, which draws one token a
+    row.  The same image maps to the same pseudo-tokens and shares pages;
+    distinct images collide with probability ~2**-128."""
+    import hashlib
+    enc = np.ascontiguousarray(np.asarray(enc, np.float32))
+    digest = hashlib.blake2b(enc.tobytes(), digest_size=16).digest()
+    rng = np.random.default_rng(int.from_bytes(digest, "little"))
+    draw = rng.integers(0, 2**31 - 1, size=len(enc), dtype=np.int64)
+    return (-1 - draw).astype(np.int32)
 
 
 class ServeEngine:
@@ -187,7 +226,8 @@ class ServeEngine:
     names another): paged unless ``paged=False``; see the module
     docstring.  ``paged=None`` picks the paged path for a family with a
     paged KV cache and the dense one otherwise.  ``prefill_workers`` sizes
-    the dense path's prefill farm (a paged engine has none).
+    the prefill farm: the dense path's whole-prompt prefills, an enc-dec
+    model's encode chunks (any other paged engine has none).
     ``kv_quant`` / ``weight_quant``: "int8" or "off" (paged only).
     ``chunks_per_tick`` caps the paged path's prefill chunks a tick.
     ``strict=True`` makes a tick raise ``RuntimeError`` after it retired
@@ -227,6 +267,27 @@ class ServeEngine:
             raise ValueError(
                 f"{model.cfg.name} ({model.cfg.family}) has no paged KV "
                 "cache; construct with paged=False")
+        self.prefix_cache = bool(prefix_cache) and self.paged
+        # encoder-attached serving: an enc-dec model serves paged only (the
+        # dense path has nowhere to hold the cross K/V), with the prefix
+        # cache off (its decoder K/V depend on the audio, so token-keyed
+        # sharing would alias different clips)
+        enc_dec = bool(getattr(model.cfg, "is_encoder_decoder", False))
+        if not self.paged and enc_dec:
+            raise ValueError(
+                f"{model.cfg.name} ({model.cfg.family}) is encoder-decoder "
+                "and serves through the paged engine only (cross-KV pages); "
+                "drop paged=False")
+        self._enc_dec = self.paged and enc_dec
+        if self._enc_dec:
+            self.prefix_cache = False
+        self._n_image = int(model.cfg.n_image_tokens or 0) \
+            if self.paged and model.cfg.family == "vlm" else 0
+        if self._enc_dec or self._n_image:
+            model.validate_serve_encoder(page_size=page_size,
+                                         max_len=max_len,
+                                         prefix_cache=self.prefix_cache)
+        self.cross_pool = None
         speculate = spec_decode not in (None, "off", False)
         if speculate and self.paged and sampler is not None:
             raise ValueError(
@@ -254,8 +315,7 @@ class ServeEngine:
                 "spec_decode on a prefill_only engine would never run "
                 "(speculation happens at decode); configure the drafter on "
                 "the decoder side")
-        if self.prefill_only and getattr(model.cfg, "is_encoder_decoder",
-                                         False):
+        if self.prefill_only and self._enc_dec:
             raise ValueError(
                 f"prefill_only on {model.cfg.name} (enc-dec) has no cross-KV "
                 "handoff: the decoder half could never read the audio pages; "
@@ -347,7 +407,6 @@ class ServeEngine:
         self.model, self.params = model, params
         self.max_slots, self.max_len = max_slots, max_len
         self.strict = strict
-        self.prefix_cache = bool(prefix_cache) and self.paged
         if self.paged:
             if num_pages is None:       # dense-equivalent budget by default
                 num_pages = -(-max_slots * max_len // page_size)
@@ -358,10 +417,24 @@ class ServeEngine:
                                  num_pages=num_pages, page_size=page_size,
                                  device=self.device,
                                  prefix_cache=self.prefix_cache)
+            cross_kw = {}
+            if self._enc_dec:
+                # one read-only cross-KV pool sized for every slot holding
+                # a full-length clip (a request takes ceil(n_frames /
+                # page_size) pages); the encode chunks run on the farm
+                F = int(model.cfg.n_audio_frames)
+                self.cross_pool = PG.CrossKVPool(
+                    model.cross_leaf_specs(self.kv_quant),
+                    num_pages=max_slots * -(-F // page_size),
+                    page_size=page_size, device=self.device)
+                cross_kw = dict(cross_pool=self.cross_pool, max_frames=F)
+                self._prefill_farm = ThreadFarmExecutor(
+                    num_workers=max(1, prefill_workers))
             self.sched = Scheduler(max_slots=max_slots, max_len=max_len,
                                    pool=self.pool,
                                    prefill_chunk=prefill_chunk,
-                                   chunks_per_tick=chunks_per_tick)
+                                   chunks_per_tick=chunks_per_tick,
+                                   **cross_kw)
         else:
             self.pool = None
             self.sched = Scheduler(max_slots=max_slots, max_len=max_len)
@@ -408,6 +481,7 @@ class ServeEngine:
                       "draft_proposed": 0, "draft_accepted": 0,
                       "acceptance_rate": 0.0, "verify_widths": {},
                       "kv_handoffs": 0, "kv_injections": 0,
+                      "encode_chunks": 0,
                       "kv_quant": self.kv_quant.name if self.kv_quant
                       else "off",
                       "weight_quant": self.weight_quant or "off",
@@ -447,15 +521,59 @@ class ServeEngine:
                seed: Optional[int] = None, encoder_input=None) -> int:
         """Enqueue one request; returns its rid.  ``sampler`` (``(key,
         logits (V,)) -> token``) and ``seed`` override the engine's draw for
-        this request's tokens."""
-        if encoder_input is not None:
-            raise _not_ported("encoder_input", "multimodal")
+        this request's tokens.
+
+        ``encoder_input`` attaches precomputed encoder embeddings: for a
+        VLM the ``(n_image_tokens, d_model)`` image embeddings (served as a
+        pseudo-token prefix: :func:`encoder_prefix_tokens`); for an enc-dec
+        model the ``(n_frames, d_model)`` audio frames (``1 <= n_frames <=
+        n_audio_frames``), which every request of it needs.  Text-only
+        families refuse it.  The reference's checks and messages."""
         prompt = np.asarray(prompt, np.int32)
-        if len(prompt) >= self.max_len:
+        enc_tok = None
+        cfg = self.model.cfg
+        if encoder_input is not None:
+            if not self.paged:
+                raise ValueError(
+                    "encoder_input requires the paged engine (the dense "
+                    "path prefills token batches only)")
+            encoder_input = np.asarray(encoder_input, np.float32)
+            if encoder_input.ndim != 2 \
+                    or encoder_input.shape[-1] != cfg.d_model:
+                raise ValueError(
+                    f"encoder_input must be (n, d_model={cfg.d_model}), "
+                    f"got {encoder_input.shape}")
+            if self._enc_dec:
+                F = int(cfg.n_audio_frames)
+                if not 1 <= len(encoder_input) <= F:
+                    raise ValueError(
+                        f"{cfg.name}: encoder_input carries "
+                        f"{len(encoder_input)} audio frames; want 1..{F} "
+                        "(n_audio_frames)")
+            elif self._n_image:
+                if len(encoder_input) != self._n_image:
+                    raise ValueError(
+                        f"{cfg.name}: encoder_input carries "
+                        f"{len(encoder_input)} image tokens; want exactly "
+                        f"n_image_tokens={self._n_image}")
+                enc_tok = encoder_prefix_tokens(encoder_input)
+            else:
+                raise ValueError(
+                    f"{cfg.name} ({cfg.family}) takes no encoder_input: "
+                    "only VLM and enc-dec audio families are "
+                    "encoder-attached")
+        elif self._enc_dec:
             raise ValueError(
-                f"prompt length {len(prompt)} >= max_len {self.max_len}")
+                f"{cfg.name} (enc-dec) requires encoder_input: "
+                "the decoder cross-attends into the audio's cross-KV pages")
+        total = len(prompt) + (0 if enc_tok is None else len(enc_tok))
+        if total >= self.max_len:
+            what = "prompt length" if enc_tok is None \
+                else "image prefix + prompt length"
+            raise ValueError(f"{what} {total} >= max_len {self.max_len}")
         req = Request(next(self._rid), prompt, max_new_tokens, eos_id,
-                      sampler, seed)
+                      sampler, seed, encoder_input=encoder_input)
+        req.encoder_tokens = enc_tok
         req.submitted_at = time.perf_counter()
         self.sched.submit(req)
         return req.rid
@@ -658,12 +776,25 @@ class ServeEngine:
 
     # -- the tick ------------------------------------------------------------
 
+    def _cross_bundle(self, tables, frames_len) -> dict:
+        """The ``cross`` argument of an enc-dec model's paged calls."""
+        return {"cross": {"storage": self.cross_pool.storage,
+                          "tables": self._dev(tables),
+                          "frames_len": self._dev(frames_len)}}
+
     def _prefill_job(self, job) -> Optional[int]:
         """Run one prefill chunk; the first token when it was the last."""
+        kw = dict(self._paged_kw)
+        if job.embeds is not None:      # a VLM chunk over its image prefix
+            kw["embeds"] = self._dev(job.embeds[None])
+        elif self._enc_dec:
+            kw.update(self._cross_bundle(
+                self.sched.cross_table[job.slot],
+                np.int32(self.sched.enc_total[job.slot])))
         hidden, tel = self.model.paged_prefill_chunk(
             self.params, self.pool.storage,
             self._dev(self.sched.table[job.slot]), self._dev(job.pages),
-            job.start, self._dev(job.tokens[None]), **self._paged_kw)
+            job.start, self._dev(job.tokens[None]), **kw)
         self._account_moe(tel)
         self.sched.chunk_done(job)
         self.stats["chunk_prefills"] += 1
@@ -674,12 +805,54 @@ class ServeEngine:
                                     **self._head_kw)
         return self._sample_one(job.req, logits[0, -1])
 
+    def _encode(self, job):
+        """One audio chunk's encoder and cross K/V (pure compute, a farm
+        task): ``(k, v)`` of (Ld, Cf, h, hd), or the exception it raised."""
+        try:
+            return self.model.cross_kv_chunk(
+                self.params, self.model.encode_chunk(
+                    self.params, self._dev(job.frames[None]), job.start,
+                    job.n_valid))
+        except Exception as e:                          # noqa: BLE001
+            return e
+
+    def _encode_jobs(self, jobs, failed: set, errors: list) -> None:
+        """Streaming chunked encode: the chunks of different requests
+        overlap on the prefill farm; each result is scattered into its cross
+        pages serially after, before any decoder chunk of this tick reads
+        them.  A failing chunk retires its request alone."""
+        results, _ = self._prefill_farm.map_callables(
+            [functools.partial(self._encode, job) for job in jobs])
+        for job, res in zip(jobs, results):
+            if job.slot in failed \
+                    or self.sched.slot_req[job.slot] is not job.req:
+                continue
+            try:
+                if isinstance(res, Exception):
+                    raise res
+                self.model.scatter_cross(
+                    self.cross_pool.storage, self._dev(job.pages), *res,
+                    page_size=self.cross_pool.page_size,
+                    quant=self.kv_quant)
+                self.sched.encode_done(job)
+                self.stats["encode_chunks"] += 1
+            except Exception as e:                      # noqa: BLE001
+                failed.add(job.slot)
+                self.sched.release(job.slot)
+                errors.append((job.req, e))
+
     def _tick_paged(self) -> bool:
         _, rejects = self.sched.admit()
         errors = self._reject_errors(rejects)
 
         failed = set()
-        for job in self.sched.next_chunks():
+        jobs = self.sched.next_chunks()
+        enc_jobs = [j for j in jobs if isinstance(j, EncodeJob)]
+        if enc_jobs:
+            self._encode_jobs(enc_jobs, failed, errors)
+        for job in jobs:
+            if isinstance(job, EncodeJob):
+                continue
             if job.slot in failed or self.sched.slot_req[job.slot] is not job.req:
                 continue
             # error isolation: a request that dies mid-prefill hands every
@@ -754,6 +927,15 @@ class ServeEngine:
                 wpages, woffs = wpages[:, 0], woffs[:, 0]
             step = self.model.paged_verify if verify \
                 else self.model.paged_decode_step
+            kw = self._paged_kw
+            if self._enc_dec:
+                # dead slots read at frames_len 0: the whole cross read is
+                # masked to zeros, so their stale table rows are never seen
+                flens = np.zeros(B, np.int32)
+                for slot in live:
+                    flens[slot] = self.sched.enc_total[slot]
+                kw = dict(kw, **self._cross_bundle(self.sched.cross_table,
+                                                   flens))
             try:
                 if cow:         # copies strictly before this tick's writes
                     PG.copy_pages(self.pool.storage, self.pool.leaf_specs,
@@ -762,8 +944,7 @@ class ServeEngine:
                 logits, tel = step(self.params, self.pool.storage,
                                    self._dev(self.sched.table),
                                    self._dev(lens), self._dev(toks),
-                                   self._dev(wpages), self._dev(woffs),
-                                   **self._paged_kw)
+                                   self._dev(wpages), self._dev(woffs), **kw)
                 self._account_moe(tel)
                 errors += self._commit_verify(live, drafts, logits) \
                     if verify else self._commit_decode(live, logits)
@@ -1073,8 +1254,8 @@ class ServeEngine:
     # -- lifecycle -----------------------------------------------------------
 
     def close(self):
-        """Release the dense path's prefill-farm threads.  The engine stays
-        usable: the farm makes a new pool at its next call."""
+        """Release the prefill farm's threads.  The engine stays usable: the
+        farm makes a new pool at its next call."""
         farm = getattr(self, "_prefill_farm", None)
         if farm is not None:
             farm.shutdown()

@@ -17,7 +17,7 @@ the engine's per-slot state in the same way.
 
 from __future__ import annotations
 
-__all__ = ["KVHandoff", "N_TRASH", "PagePool", "PagedLeafSpec",
+__all__ = ["CrossKVPool", "KVHandoff", "N_TRASH", "PagePool", "PagedLeafSpec",
            "PrefixCache", "copy_pages", "gather_pages", "local_leaf_specs",
            "scatter_chunk", "scatter_token", "scatter_window", "write_slot"]
 
@@ -399,6 +399,31 @@ class PagePool:
     def tokens_capacity(self) -> int:
         """Total token positions the pool can hold."""
         return self.num_pages * self.page_size
+
+
+class CrossKVPool(PagePool):
+    """Refcounted pages for an encoder-decoder's cross-attention K/V.
+
+    Each request's cross K/V is computed once, from the encoder's output,
+    and afterwards only read, so this is a narrowed :class:`PagePool`: its
+    pages are written once by the encode path's scatter and never mutated
+    (no copy-on-write), and it refuses a prefix cache (cross K/V is keyed
+    by audio content, not by token prefixes).  Release and preemption go
+    through the same ``alloc`` / ``decref`` lifecycle as the self-attention
+    pages, so ``pages_free + pages_in_use == num_pages`` holds under forced
+    preemption; int8 cross pages carry scale leaves as the self pages do.
+    The trash page exists here too: a dead decode slot's cross table points
+    at it, and its ``frames_len = 0`` masks the whole read."""
+
+    def __init__(self, leaf_specs, *, num_pages: int, page_size: int,
+                 device, prefix_cache: bool = False):
+        if prefix_cache:
+            raise ValueError(
+                "CrossKVPool does not support a prefix cache: cross K/V is "
+                "content-addressed by audio, not by token prefixes")
+        super().__init__(leaf_specs, num_pages=num_pages,
+                         page_size=page_size, device=device,
+                         prefix_cache=False)
 
 
 @dataclasses.dataclass

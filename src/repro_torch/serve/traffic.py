@@ -10,10 +10,9 @@ load-generation half of the measurement story (the metric half is
   bursty arrivals, shared-prefix chat sessions (``n_sessions`` system
   prompts drawn once, requests appending their own tails — the pattern the
   prefix cache exists for), and a mixed prompt-length distribution
-  (weighted uniform bands, defaulting to mostly-short-some-long).  Its
-  multimodal band (``encoder=``) builds the reference's workloads, but the
-  port's engine takes no encoder input yet: :class:`TrafficHarness`
-  refuses such a request (ROADMAP A10).
+  (weighted uniform bands, defaulting to mostly-short-some-long), and a
+  multimodal band (``encoder=``: image embeddings or audio frames on a
+  share of the requests), each request's payload passed to ``submit``.
 * :class:`TrafficHarness` — drives any engine with the monolithic
   interface (``submit`` / ``tick`` / per-request ``output`` + ``done_at``),
   so the monolithic :class:`~repro_torch.serve.engine.ServeEngine` and the
@@ -296,13 +295,13 @@ class TrafficHarness:
                     and not self._engine_busy()):
                 self.clock.fast_forward(work[i].arrival)
             for tr in work[i:i + self._n_due(work, i)]:
-                if tr.encoder_input is not None:
-                    raise NotImplementedError(
-                        "a request with encoder_input is not ported yet: "
-                        "it comes with the multimodal slice (ROADMAP A10)")
+                # the payload rides as an optional keyword, so a text-only
+                # submission is the call it always was
+                kw = {} if tr.encoder_input is None \
+                    else {"encoder_input": tr.encoder_input}
                 rid = self.engine.submit(tr.prompt,
                                          max_new_tokens=tr.max_new_tokens,
-                                         seed=tr.seed)
+                                         seed=tr.seed, **kw)
                 req = self._submit_queue()[-1]
                 assert req.rid == rid
                 track[rid] = {"req": req, "seen": 0, "done": False}
@@ -310,6 +309,8 @@ class TrafficHarness:
                       "kind": "submit",
                       "prompt_len": int(len(tr.prompt)),
                       "session": int(tr.session)}
+                if tr.encoder_input is not None:
+                    ev["encoder_len"] = int(len(tr.encoder_input))
                 events.append(ev)
                 i += 1
             self.engine.tick()

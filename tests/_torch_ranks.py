@@ -413,3 +413,33 @@ def mesh_serve(comm, weights: dict) -> dict:
     if n == 4:
         out["block", (2, 2)] = _moe_blocks(meshes[(2, 2), EP])
     return out
+
+
+# llava's SMOKE VLM (4 query / 2 KV heads) under a serving mesh: image and
+# text requests through Megatron TP of the paged path
+VLM_KW = dict(max_slots=2, max_len=64, page_size=8, prefill_chunk=8)
+
+
+def vlm_mesh_serve(comm, weights, requests) -> dict:
+    """The ``requests`` ((prompt, image or None, max_new) each) on a
+    ``("model",)`` mesh of the whole world, on the bridged ``weights``: the
+    streams and the prefix-cache hits."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.comm import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+    torch.set_num_threads(1)
+    model = build_model(smoke_config("llava-next-mistral-7b"))
+    params = params_from_numpy(weights, device="cpu")
+    mesh = make_mesh((comm.size(),), ("model",))
+    eng = ServeEngine(model, params, mesh=mesh, device="cpu", **VLM_KW)
+    for prompt, image, n in requests:
+        kw = {} if image is None else {"encoder_input": image}
+        eng.submit(prompt, max_new_tokens=n, **kw)
+    eng.run_until_drained()
+    eng.close()
+    if any(r.error is not None for r in eng.finished):
+        raise RuntimeError([r.error for r in eng.finished])
+    return {"streams": {r.rid: list(r.output) for r in eng.finished},
+            "prefix_hits": eng.stats["prefix_hits"], "tp": eng.tp}

@@ -246,7 +246,8 @@ def test_prefill_only_flag_validation(dense):
 
 def test_prefill_only_refuses_encoder_decoder(dense):
     """The enc-dec refusal is keyed on the model's config, as in the
-    reference (the port has no enc-dec family yet)."""
+    reference: a decoder-only model whose config names decoder layers is
+    refused too."""
     model = copy.copy(dense[2])
     model.cfg = model.cfg.replace(decoder_layers=2)
     assert model.cfg.is_encoder_decoder

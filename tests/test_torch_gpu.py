@@ -285,6 +285,49 @@ def test_paged_attention_split_kernel_matches_plain(card, pages, dtype, B, W,
         assert not got[list(lengths).index(0), 0].any()
 
 
+# (B, W, Hq, Hkv, D, P, N, lengths): whisper's decoder (G 1, D 64) at
+# decode (a dead slot), at ngram verify windows of 3 and 5 and a 64-row
+# chunk; llava's last image chunk 2880 deep and a decode ~2950 deep over
+# tables of 188 pages
+MM_PAGED = [(4, 1, 6, 6, 64, 8, 40, (80, 66, 93, 0)),
+            (4, 3, 6, 6, 64, 8, 40, (45, 38, 57, 62)),
+            (4, 5, 6, 6, 64, 8, 40, (45, 38, 57, 0)),
+            (1, 64, 6, 6, 64, 8, 40, (1,)),
+            (1, 64, 32, 8, 128, 188, 200, (2817,)),
+            (4, 1, 32, 8, 128, 188, 760, (2950, 2941, 2962, 2933))]
+
+
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,W,Hq,Hkv,D,P,N,lengths", MM_PAGED)
+def test_paged_attention_kernel_at_multimodal_shapes(card, pages, dtype, B,
+                                                     W, Hq, Hkv, D, P, N,
+                                                     lengths):
+    rng = np.random.default_rng(Hq + W + P)
+    q = torch.from_numpy(rng.normal(size=(B, W, Hq, D)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.normal(size=(N + 1, 16, Hkv, D))
+                               .astype(np.float32)) for _ in range(2))
+    tables = np.full((B, P), N, np.int32)          # page N: the trash page
+    for b, n in enumerate(lengths):
+        used = -(-(n + W - 1) // 16) if n else 0
+        tables[b, :used] = rng.permutation(N)[:used]
+    tb = torch.from_numpy(tables).to(card)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    q, kp, vp = (t.to(card, DTYPES[dtype]) for t in (q, kp, vp))
+    if pages == "int8":
+        (kq, ks), (vq, vs) = (QZ.Int8KVQuant().quantize(t.float())
+                              for t in (kp, vp))
+        args, tol = (kq, vq, tb, ln, ks, vs), INT8_TOL[dtype]
+    else:
+        args, tol = (kp, vp, tb, ln), ATTN_TOL[dtype]
+    got = ops.paged_attention_mq(q, *args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_mq(q, *args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if 0 in lengths:
+        assert not got[list(lengths).index(0), 0].any()
+
+
 def test_paged_attention_int8_wrapper_refuses_bad_scales(card):
     from repro_torch.kernels.paged_attention import paged_attention_mq_cuda
     rng = np.random.default_rng(9)
@@ -345,7 +388,17 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 2048, 2048, 28, 4, 128, True, None),
                (1, 1000, 1000, 28, 4, 128, True, None),
                (1, 200, 200, 8, 2, 64, True, 48),
-               (2, 300, 200, 28, 4, 128, True, None)]
+               (2, 300, 200, 28, 4, 128, True, None),
+               # whisper's encoder (non-causal, 6/6 heads of 64): a chunk,
+               # a clip's last chunk (32 frames, keys cut to the 28 valid),
+               # a full chunk's keys cut to 28 and to 1, a whole clip;
+               # llava's dense prefill (2880 image rows and 64 text)
+               (1, 64, 64, 6, 6, 64, False, None),
+               (1, 32, 28, 6, 6, 64, False, None),
+               (1, 64, 28, 6, 6, 64, False, None),
+               (1, 64, 1, 6, 6, 64, False, None),
+               (1, 1500, 1500, 6, 6, 64, False, None),
+               (1, 2944, 2944, 32, 8, 128, True, None)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -448,6 +501,47 @@ def test_engine_on_card_matches_cpu(card):
     got = serve(card)
     paged_kernels = ("rmsnorm", "paged_attention_mq")
     assert all(ops.COUNTS[k].kernel > 0 for k in paged_kernels)
+    assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("whisper-tiny", {}), ("whisper-tiny", {"kv_quant": "int8"}),
+    ("llava-next-mistral-7b", {})])
+def test_multimodal_engine_on_card_matches_cpu(card, arch, kw):
+    """SMOKE whisper-tiny (float and int8 pages) and llava in float32: the
+    engine on the card, through the kernels and never their plain
+    versions, emits the CPU engine's greedy streams for requests with
+    encoder payloads (whisper: B3 on the encoder; llava: a repeated image
+    and a text request)."""
+    model = build_model(smoke_config(arch))
+    cfg = model.cfg
+    cpu_params = model.init(0, device="cpu")
+    rng = np.random.default_rng(5)
+    n = cfg.n_audio_frames or cfg.n_image_tokens
+    enc = [rng.normal(size=(n, cfg.d_model)).astype(np.float32)
+           for _ in range(2)]
+    reqs = [([5, 17, 33, 2, 9], enc[0]), ([100, 200, 300], enc[1]),
+            ([7] * 11, enc[0])]
+    if cfg.family == "vlm":
+        reqs.append((list(range(20)), None))
+
+    def serve(device):
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        eng = ServeEngine(model, params, max_slots=2, max_len=64,
+                          page_size=8, prefill_chunk=16, device=device, **kw)
+        for p, e in reqs:
+            eng.submit(p, max_new_tokens=8,
+                       **({} if e is None else {"encoder_input": e}))
+        out = {r.rid: r.output for r in eng.run_until_drained()}
+        eng.close()
+        return out
+
+    want = serve("cpu")
+    ops.reset_counts()
+    got = serve(card)
+    kernel = "flash_attention" if cfg.family == "audio" else "rmsnorm"
+    assert ops.COUNTS[kernel].kernel > 0
     assert all(ops.COUNTS[k].plain == 0 for k in ops.COUNTS)
     assert got == want
 

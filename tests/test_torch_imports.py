@@ -53,6 +53,9 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.models.module, repro_torch.models.transformer\n"
             "import repro_torch.serve.pages, repro_torch.serve.spec\n"
             "import repro_torch.serve.traffic, repro_torch.launch.collectives\n"
+            "import repro_torch.models.whisper\n"
+            "import repro_torch.configs.llava_next_mistral_7b\n"
+            "import repro_torch.configs.whisper_tiny\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

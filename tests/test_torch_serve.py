@@ -215,10 +215,17 @@ def test_unported_engine_features_raise(pair, kw):
     dict(encoder_input=np.zeros((2, 64)), sampler=lambda k, l: 0),
     dict(encoder_input=np.zeros((2, 64)))])
 def test_unported_request_features_raise(pair, kw):
-    _, _, model, params = pair
+    """A text-only family refuses an encoder payload with the reference's
+    ValueError, whatever else the request carries."""
+    jmodel, jparams, model, params = pair
     eng = ServeEngine(model, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    jeng = JaxServeEngine(jmodel, jparams)
+    with pytest.raises(ValueError, match="takes no encoder_input") as got:
         eng.submit([1, 2, 3], **kw)
+    with pytest.raises(ValueError) as want:
+        jeng.submit([1, 2, 3], **kw)
+    assert str(got.value) == str(want.value)
+    jeng.close()
 
 
 # ---------------------------------------------------------------------------

@@ -148,12 +148,22 @@ def test_trace_replay_round_trip(pair):
 
 
 def test_encoder_workload_is_refused(pair):
-    _, _, model, params = pair
+    """A text model refuses an image workload's first image request with
+    the reference's error."""
+    jmodel, jparams, model, params = pair
+    d = model.cfg.d_model
     wl = T.make_workload(kind="poisson", vocab=model.cfg.vocab,
-                         encoder="image", encoder_shape=(4, 16), **WL_KW)
+                         encoder="image", encoder_shape=(4, d), **WL_KW)
     eng = ServeEngine(model, params, device="cpu", **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="takes no encoder_input") as got:
         T.run_traffic(eng, wl)
+    jwl = JT.make_workload(kind="poisson", vocab=model.cfg.vocab,
+                           encoder="image", encoder_shape=(4, d), **WL_KW)
+    jeng = JaxServeEngine(jmodel, jparams, **ENGINE_KW)
+    with pytest.raises(ValueError) as want:
+        JT.run_traffic(jeng, jwl)
+    jeng.close()
+    assert str(got.value) == str(want.value)
 
 
 def test_launcher_traffic_report_matches_reference(tmp_path, monkeypatch,
