@@ -321,14 +321,71 @@ Phases (any failure exits non-zero before the result lines):
 Each science phase prints its sizes, wall time and peak device memory; no
 TPU kernel lies on their path, and each leaves no process group behind.
 
+One-card training (ROADMAP A13a) and gemma3's window caches (A11):
+
+32. parity-train — right after the parity phases: B2's backward kernel
+                 (the norm, the fused add with its sum read on and not) at
+                 training's (rows, d) (TRAIN_NORM_CASES: qwen3-1.7b's 8192
+                 x 2048 and QK-norm rows at d 128, gemma3's d 2560 and
+                 256), bf16 and float32, and B3's backward (bf16 D 128 S
+                 2048 16/8 causal, D 256 S 2048 8/4 window 1024, a ragged
+                 S 1000, float32 D 16), each against autograd through the
+                 plain version in float32 on the same inputs, the limits
+                 printed with their reasons.
+33. small-train — after the small phases: 5 trainer steps of float32
+                 SMOKE qwen3-1.7b on the card against the CPU from the same
+                 seeded weights and batches: losses within 1e-4, gradient
+                 norms within 1e-3.
+34. main-train — after the science phases: full-width, full-depth
+                 qwen3-1.7b (28 layers, d 2048, 16/8 heads of 128, vocab
+                 151936; float32 weights and AdamW moments, bf16 compute,
+                 remat full) through ``Trainer`` at 4 x 2048 for 20 steps:
+                 every loss finite and the last below the first; B3 56
+                 launches a step (28 and 28 recomputed), all on the tensor
+                 cores, its backward 28; B2 113 forward launches a step
+                 twice but the final norm's, its backward 113 (56 of the
+                 fused add); no other kernel, no plain version; B3 and B2,
+                 forward and backward, held against their plain versions
+                 at every shape the steps called them at.  Prints the
+                 losses, a step's host-issued and (profiled) device ms,
+                 tokens/s and the peak memory beside the state's 16 B a
+                 param; then a checkpoint of the full width cut to 2 layers
+                 saved and restored bit for bit.
+35. main-gemma3 — full-width, full-depth gemma3-4b (34 layers: 29 windowed
+                 of 1024, 5 global; d 2560, 8/4 heads of 256, vocab
+                 262144, bf16, seed 0) as aligned batches through its API:
+                 4 prompts of 2000 tokens (the ring compressed, then
+                 wrapped each step) and 4 of 300 (the ring left-padded),
+                 greedy to 32: B3 34 launches a prefill (29 windowed, 5
+                 global, none on the tensor cores) and none at decode, B2
+                 69 + 68 fused a prefill or step, nothing else; B3 and B2
+                 held against their plain versions at every shape a batch
+                 called them at; teacher
+                 forcing (the last decode step against a prefill of the
+                 same tokens) within GEMMA_BF16_TOL at full depth, the
+                 argmax equal but at near-ties, and at the first 6 layers
+                 in float32 within GEMMA_F32_TOL; a prefill and a decode
+                 step host-issued and as profiled device time, idle share.
+36. timing-train — B3 at gemma3's prefill shapes (B 4, S 2048, window 1024
+                 and global; a replayed CUDA graph), B3's backward at
+                 main-train's and gemma3's shapes and B2's backward at
+                 main-train's (rows, d) (device time of calls queued
+                 behind a spin, autograd's included), each beside its
+                 plain version,
+                 one PyTorch yardstick (SDPA with the same mask, SDPA's
+                 backward, ``F.rms_norm``'s backward with the same float32
+                 scale) and its bound.
+
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
-the model's API (``prefill``, ``lm_head``, ``decode_step``) directly.
+the model's API (``prefill``, ``lm_head``, ``decode_step``) directly; so
+does main-gemma3 (the reference's window-cache decode is aligned-only).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -336,6 +393,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -350,6 +408,7 @@ from repro_torch.core import comm as comm_lib  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import apps as apps_launch  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.models.module import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import pages as PG  # noqa: E402
@@ -626,6 +685,35 @@ def device_ms(fns, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * len(fns))
+
+
+def queued_ms(fn, iters: int = 10, warmup: int = 2,
+              cycles: int = 400_000_000) -> float:
+    """Mean device milliseconds a call of ``fn``, for calls a CUDA graph
+    does not capture (autograd's backward): the card is held in a spin of
+    ``cycles`` clocks (~0.2 s) while the host queues ``iters`` calls behind
+    it, and CUDA events time the queue from the spin's end, so the calls
+    run back to back at the card's pace.  Raises if the host took longer to
+    queue them than the spin lasted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host >= spin.elapsed_time(start):
+        raise AssertionError(f"queued_ms: the host queued the calls in "
+                             f"{host:.1f} ms, past the card's "
+                             f"{spin.elapsed_time(start):.1f} ms spin")
+    return start.elapsed_time(end) / iters
 
 
 # -- kernel inputs at the main path's shapes ----------------------------------
@@ -3864,52 +3952,93 @@ MM_PAGED = {"whisper-decode": (4, 1, 6, 6, 64, 8, 40, (80, 66, 93, 0), 4),
 
 
 class KernelShapes:
-    """From construction to :meth:`stop`, the shapes B3 and B1 are called
-    at through ``ops``: B3 (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype),
-    B1 (B, W, Hq, Hkv, D, table pages, q dtype, page dtype).  :meth:`parity`
-    holds each kernel against its plain version at each of them."""
+    """From construction to :meth:`stop`, the calls through ``ops`` of B3,
+    B1 and B2 (the norm and its fused add), counted by shape: B3 (B, Sq,
+    Sk, Hq, Hkv, D, causal, window, dtype, grad), B1 (B, W, Hq, Hkv, D,
+    table pages, q dtype, page dtype), B2 (variant, rows, d, dtype, scale
+    dtype, keep_sum, eps, grad); ``grad`` says autograd took a gradient
+    through the call.  :meth:`parity` holds each kernel against its plain
+    version at each shape, and under ``grad`` its backward kernel against
+    autograd through the plain version too."""
 
     def __init__(self):
-        self.flash, self.paged = set(), set()
-        self._fa, self._pa = ops.flash_attention, ops.paged_attention_mq
+        self.flash, self.paged, self.norm = (collections.Counter()
+                                             for _ in range(3))
+        self._lock = threading.Lock()
+        self._ops = {name: getattr(ops, name) for name in (
+            "flash_attention", "paged_attention_mq", "rmsnorm",
+            "add_rmsnorm")}
+        fa, pa, rn, arn = self._ops.values()
+
+        def tally(counter, key):
+            with self._lock:
+                counter[key] += 1
 
         def flash(q, k, v, *, causal=True, window=None):
-            self.flash.add((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
-                            q.shape[3], causal, window, q.dtype))
-            return self._fa(q, k, v, causal=causal, window=window)
+            tally(self.flash, (*q.shape[:2], k.shape[1], q.shape[2],
+                               k.shape[2], q.shape[3], causal, window,
+                               q.dtype, ops._needs_grad(q, k, v)))
+            return fa(q, k, v, causal=causal, window=window)
 
         def paged(q, k_pages, v_pages, tables, lengths, k_scale=None,
                   v_scale=None):
-            self.paged.add((*q.shape[:3], k_pages.shape[2], q.shape[3],
-                            tables.shape[-1], q.dtype, k_pages.dtype))
-            return self._pa(q, k_pages, v_pages, tables, lengths, k_scale,
-                            v_scale)
+            tally(self.paged, (*q.shape[:3], k_pages.shape[2], q.shape[3],
+                               tables.shape[-1], q.dtype, k_pages.dtype))
+            return pa(q, k_pages, v_pages, tables, lengths, k_scale, v_scale)
 
-        ops.flash_attention, ops.paged_attention_mq = flash, paged
+        def rmsnorm(x, scale, *, eps=1e-6):
+            tally(self.norm, ("rmsnorm", x.numel() // x.shape[-1],
+                              x.shape[-1], x.dtype, scale.dtype, True, eps,
+                              ops._needs_grad(x, scale)))
+            return rn(x, scale, eps=eps)
+
+        def add_rmsnorm(x, delta, scale, *, eps=1e-6, keep_sum=True):
+            tally(self.norm, ("add_rmsnorm", x.numel() // x.shape[-1],
+                              x.shape[-1], x.dtype, scale.dtype, keep_sum,
+                              eps, ops._needs_grad(x, delta, scale)))
+            return arn(x, delta, scale, eps=eps, keep_sum=keep_sum)
+
+        for name, fn in zip(self._ops, (flash, paged, rmsnorm, add_rmsnorm)):
+            setattr(ops, name, fn)
 
     def stop(self):
-        ops.flash_attention, ops.paged_attention_mq = self._fa, self._pa
+        for name, fn in self._ops.items():
+            setattr(ops, name, fn)
+
+    def flash_calls(self, windowed: bool) -> int:
+        """B3 calls with a window (``windowed``) or without."""
+        return sum(n for key, n in self.flash.items()
+                   if (key[7] is not None) == windowed)
 
     def parity(self, label, dev) -> dict:
         """Each recorded shape on seeded random inputs, kernel against plain
         version under TOL (B1: each slot's length random over its table, so
-        windows run up to the table's end): max abs error by kernel name,
-        and a line."""
+        windows run up to the table's end; B2: the fused add's sum bit for
+        bit), and under ``grad`` the backward kernel against autograd
+        through the plain version in float32 (:func:`flash_bwd_gap`,
+        :func:`norm_bwd_gap`): max abs error by kernel name, and a line."""
         rng = np.random.default_rng(5)
         errs = {}
-        for B, Sq, Sk, Hq, Hkv, D, causal, window, dt in sorted(
+
+        def keep(name, e):
+            errs[name] = max(errs.get(name, 0.0), e)
+
+        for B, Sq, Sk, Hq, Hkv, D, causal, window, dt, grad in sorted(
                 self.flash, key=str):
             q = torch.randn(B, Sq, Hq, D, device=dev).to(dt)
             k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dt)
                     for _ in range(2))
-            e = check("flash_attention", f"{label} path shape B={B} Sq={Sq} "
-                      f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
-                      f"window={window} {dt}",
-                      ops.flash_attention(q, k, v, causal=causal,
-                                          window=window),
-                      ref.flash_attention(q, k, v, causal=causal,
-                                          window=window), dt)
-            errs["flash_attention"] = max(errs.get("flash_attention", 0), e)
+            what = (f"{label} path shape B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+                    f"Hkv={Hkv} D={D} causal={causal} window={window} {dt}")
+            keep("flash_attention", check(
+                "flash_attention", what,
+                ops.flash_attention(q, k, v, causal=causal, window=window),
+                ref.flash_attention(q, k, v, causal=causal, window=window),
+                dt))
+            del q, k, v
+            if grad:
+                keep("flash_attention_bwd", flash_bwd_gap(
+                    dev, B, Sq, Hq, Hkv, D, causal, window, dt, what)[0])
         for B, W, Hq, Hkv, D, P, qdt, pdt in sorted(self.paged, key=str):
             lengths = rng.integers(1, P * PS - W + 2, B)
             q, kp, vp, tb, ln = mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P,
@@ -3921,14 +4050,36 @@ class KernelShapes:
             else:
                 name, args = "paged_attention_mq", (kp.to(pdt), vp.to(pdt),
                                                     tb, ln)
-            e = check(name, f"{label} path shape B={B} W={W} Hq={Hq} "
-                      f"Hkv={Hkv} D={D} P={P} {qdt} pages {pdt}",
-                      ops.paged_attention_mq(q.to(qdt), *args),
-                      ref.paged_attention_mq(q.to(qdt), *args), qdt)
-            errs[name] = max(errs.get(name, 0), e)
-        log(f"{label}: every B3 and B1 shape of its serving calls held "
-            f"against the plain version: B3 {sorted(self.flash, key=str)}; "
-            f"B1 {sorted(self.paged, key=str)}; max abs err {errs}")
+            keep(name, check(name, f"{label} path shape B={B} W={W} Hq={Hq} "
+                             f"Hkv={Hkv} D={D} P={P} {qdt} pages {pdt}",
+                             ops.paged_attention_mq(q.to(qdt), *args),
+                             ref.paged_attention_mq(q.to(qdt), *args), qdt))
+        for variant, rows, d, dt, sdt, keep_sum, eps, grad in sorted(
+                self.norm, key=str):
+            x, dl = (torch.randn(rows, d, device=dev).to(dt) for _ in range(2))
+            scale = (1 + 0.1 * torch.randn(d, device=dev)).to(sdt)
+            what = (f"{label} path shape {variant} rows={rows} d={d} {dt} "
+                    f"scale {sdt} keep_sum={keep_sum} eps={eps}")
+            if variant == "rmsnorm":
+                got = ops.rmsnorm(x, scale, eps=eps)
+                want = ref.rmsnorm(x, scale, eps=eps)
+            else:
+                (s, got), (s_want, want) = (fn(
+                    x, dl, scale, eps=eps, keep_sum=keep_sum)
+                    for fn in (ops.add_rmsnorm, ref.add_rmsnorm))
+                if keep_sum and not torch.equal(s, s_want):
+                    raise AssertionError(f"add_rmsnorm {what}: s is not x "
+                                         "+ delta bit for bit")
+            keep("rmsnorm", check("rmsnorm", what, got, want, dt))
+            del x, dl
+            if grad:
+                keep("rmsnorm_bwd", norm_bwd_gap(
+                    dev, variant, rows, d, dt, keep_sum, what, sdt, eps)[0])
+        log(f"{label}: every B3, B1 and B2 shape of its calls held against "
+            f"the plain version (under grad the backward too), with its "
+            f"calls: B3 {sorted(self.flash.items(), key=str)}; B1 "
+            f"{sorted(self.paged.items(), key=str)}; B2 "
+            f"{sorted(self.norm.items(), key=str)}; max abs err {errs}")
         return errs
 
 
@@ -4486,6 +4637,669 @@ def phase_timing_mm(dev) -> dict:
     return out
 
 
+# -- one-card training and gemma3's window caches (ROADMAP A13a, A11) ----------
+
+# B2's backward at training's (rows, d): qwen3-1.7b's main-train (B 4 x S
+# 2048 = 8192 rows at d 2048; its QK-norms over 16 and 8 heads at d 128),
+# gemma3's d 2560 and QK-norm d 256 (4 x 2000 rows, 8 and 4 heads), one row
+# and a width off the vector.  Every variant: the norm, the fused add with
+# its sum read on, and without (a model's final norm)
+TRAIN_NORM_CASES = [(8192, 2048), (131072, 128), (65536, 128), (8000, 2560),
+                    (64000, 256), (32000, 256), (1, 2048), (7, 1001)]
+# max |d| over max(1, max |autograd|): the kernel's gradients from bf16
+# rows in float32, rounded once to bf16 (2**-8 of a value), against
+# autograd through the plain version in float32 on the same (widened)
+# inputs; dscale sums over up to 131072 rows in another order.  float32:
+# summation order only
+TRAIN_NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# B3's backward: (B, S, Hq, Hkv, D, causal, window, dtype): qwen3-1.7b's
+# training shape (two sequences of it), gemma3's windowed layers, a ragged
+# S, SMOKE's float32 D 16
+TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
+                     (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
+                     (2, 1000, 16, 8, 128, True, None, torch.bfloat16),
+                     (2, 300, 4, 2, 16, True, None, torch.float32)]
+# dq, dk, dv are sums of O(1) terms over the keys or queries: bf16 within
+# 2e-2 of the largest magnitude (the kernel reads the bf16 forward output
+# O for rowsum(dO * O) and rounds its result to bf16 once, where the
+# float32 autograd rounds nothing), float32 within 1e-4 (summation order)
+TRAIN_FLASH_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# main-train: full-width, full-depth qwen3-1.7b, float32 weights and
+# moments, bf16 compute, remat full; the launcher's AdamW for 20 steps
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-1.7b", 4, 2048, 20
+TRAIN_LR = 1e-3
+CKPT_LAYERS = 2                 # the checkpoint round trip's cut
+# small-train: 5 float32 SMOKE steps, card against CPU; the losses within
+# 1e-4 and the gradient norms within 1e-3 relative: float32 on both, sums
+# in other orders; each Adam step moves every weight by about lr whatever
+# its gradient's size, so a near-zero gradient whose sign rounding decides
+# moves the next steps' losses by more than its own size
+SMALL_TRAIN_REL = {"loss": 1e-4, "grad_norm": 1e-3}
+# main-gemma3: full-width, full-depth gemma3-4b (bf16, seed 0) as aligned
+# batches: 4 prompts of 2000 tokens (past the 1024 window: the ring's
+# compression and its wrap) and 4 of 300 (the ring left-padded), greedy to
+# 32 tokens each
+GEMMA_ARCH = "gemma3-4b"
+GEMMA_BATCHES = ((4, 2000), (4, 300))
+GEMMA_NEW = 32
+# The teacher-forcing gate: the last decode step's logits against the last
+# position of a prefill of the same tokens, over the vocab's 262144 logits
+# (~1 rms at random init).  The two reach them through other kernels
+# (flash attention's CUDA-core route against the decode's plain attention,
+# GEMMs of other row counts), so bf16 rounds at other places (2**-8 of a
+# value) in each of 34 layers: at full depth in bf16 within
+# GEMMA_BF16_TOL, about three times the largest gap measured on an H100
+# (0.0309 and 0.0288, no flip, PERF.md §6: QK-norm keeps this random model
+# far less chaotic than qwen2's), the argmax equal unless the prefill's
+# top-2 margin is below NEAR_TIE.  The kernels' own shapes are held to
+# their plain versions apart from this gate (KernelShapes).
+# The same at the first GEMMA_GATE_DEPTH layers (the five windowed layers
+# before the first global one, and it) in float32 within GEMMA_F32_TOL:
+# summation order only (measured 5.3e-06 and 3.2e-06).
+GEMMA_GATE_DEPTH = 6
+GEMMA_F32_TOL = 1e-3
+GEMMA_BF16_TOL = 0.1
+
+
+def grads_of(fn, tensors, cots):
+    """Gradients of ``fn(*tensors)`` (one output or a tuple, None entries
+    skipped) against the cotangents ``cots``, on detached copies."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, c) for o, c in zip(outs, cots) if o is not None]
+    return torch.autograd.grad([o for o, _ in pairs], leaves,
+                               [c for _, c in pairs])
+
+
+def grad_gap(got, want) -> tuple[float, float]:
+    """(max |d|, max |d| over max(1, max |want|))."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def norm_bwd_gap(dev, variant, rows, d, dtype, keep_sum, what,
+                 sdtype=torch.float32, eps=1e-6) -> tuple[float, float]:
+    """B2's backward for ``variant`` ("rmsnorm", or "add_rmsnorm" with or
+    without its sum read on) on seeded random rows against autograd
+    through the plain version in float32 on the same (widened) inputs:
+    (max |d|, max |d| over max(1, max |autograd|)) over its gradients;
+    raises past TRAIN_NORM_TOL."""
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
+    x, dl, gy, gs = (torch.randn(rows, d, device=dev).to(dtype)
+                     for _ in range(4))
+    scale = (1 + 0.1 * torch.randn(d, device=dev)).to(sdtype)
+    f32 = [t.float() for t in (x, dl, scale)]
+    if variant == "rmsnorm":
+        names = ("dx", "dscale")
+        got = grads_of(lambda a, c: ops.rmsnorm(a, c, eps=eps), (x, scale),
+                       (gy,))
+        want = grads_of(lambda a, c: rmsnorm_plain(a, c, eps=eps),
+                        (f32[0], f32[2]), (gy.float(),))
+    else:
+        names = ("dx", "ddelta", "dscale")
+        got = grads_of(lambda a, b, c: ops.add_rmsnorm(
+            a, b, c, eps=eps, keep_sum=keep_sum), (x, dl, scale), (gs, gy))
+        want = grads_of(lambda a, b, c: add_rmsnorm_plain(
+            a, b, c, eps=eps, keep_sum=keep_sum), f32,
+            (gs.float(), gy.float()))
+    torch.cuda.synchronize()
+    worst = (0.0, 0.0)
+    for g, w, name in zip(got, want, names):
+        e, r = grad_gap(g, w)
+        if r > TRAIN_NORM_TOL[dtype]:
+            raise AssertionError(f"{what}: B2 backward {name} {r} > "
+                                 f"{TRAIN_NORM_TOL[dtype]}")
+        worst = (max(worst[0], e), max(worst[1], r))
+    return worst
+
+
+def flash_bwd_gap(dev, B, S, Hq, Hkv, D, causal, window, dtype,
+                  what) -> tuple[float, float]:
+    """B3's backward (``Sq == Sk``) on seeded random inputs against autograd
+    through the plain version in float32 on the same (widened) inputs:
+    (max |d|, max |d| over max(1, max |autograd|)) over dq, dk, dv; raises
+    past TRAIN_FLASH_REL."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    q, g = (torch.randn(B, S, Hq, D, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(dtype)
+            for _ in range(2))
+    got = grads_of(lambda a, b, c: ops.flash_attention(
+        a, b, c, causal=causal, window=window), (q, k, v), (g,))
+    want = grads_of(lambda a, b, c: flash_attention_plain(
+        a, b, c, causal=causal, window=window),
+        tuple(t.float() for t in (q, k, v)), (g.float(),))
+    torch.cuda.synchronize()
+    worst = (0.0, 0.0)
+    for gg, w, name in zip(got, want, ("dq", "dk", "dv")):
+        e, r = grad_gap(gg, w)
+        if r > TRAIN_FLASH_REL[dtype]:
+            raise AssertionError(f"{what}: B3 backward {name} {r} > "
+                                 f"{TRAIN_FLASH_REL[dtype]}")
+        worst = (max(worst[0], e), max(worst[1], r))
+    return worst
+
+
+def phase_parity_train(dev) -> dict:
+    """B2's and B3's backward kernels against autograd through their plain
+    versions in float32 on the same inputs: B2's three variants (the norm,
+    the fused add with and without its sum) at TRAIN_NORM_CASES in bf16
+    and float32, B3 at TRAIN_FLASH_CASES, each gated on its relative gap.
+    Returns the max abs error by kernel (and logs the relative ones)."""
+    torch.manual_seed(1)
+    errs = {"rmsnorm_bwd": 0.0, "flash_attention_bwd": 0.0}
+    rels = dict(errs)
+
+    def keep(name, gap):
+        errs[name] = max(errs[name], gap[0])
+        rels[name] = max(rels[name], gap[1])
+
+    ops.reset_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, d in TRAIN_NORM_CASES:
+            for variant, keep_sum in (("rmsnorm", True),
+                                      ("add_rmsnorm", True),
+                                      ("add_rmsnorm", False)):
+                keep("rmsnorm_bwd", norm_bwd_gap(
+                    dev, variant, rows, d, dtype, keep_sum,
+                    f"parity-train {variant} keep_sum={keep_sum} "
+                    f"rows={rows} d={d} {dtype}"))
+    for B, S, Hq, Hkv, D, causal, window, dtype in TRAIN_FLASH_CASES:
+        keep("flash_attention_bwd", flash_bwd_gap(
+            dev, B, S, Hq, Hkv, D, causal, window, dtype,
+            f"parity-train flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} "
+            f"D={D} window={window} {dtype}"))
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
+              if c.kernel or c.plain}
+    want_b2 = 2 * 3 * len(TRAIN_NORM_CASES)
+    if (counts.get("rmsnorm_bwd", (0, 0))[0] != want_b2
+            or counts.get("flash_attention_bwd", (0, 0))[0]
+            != len(TRAIN_FLASH_CASES)):
+        raise AssertionError(f"parity-train: backward launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity-train: B2's backward (rmsnorm, add_rmsnorm with and "
+        f"without its sum) at (rows, d) {TRAIN_NORM_CASES}, bf16 (limit "
+        f"{TRAIN_NORM_TOL[torch.bfloat16]}: one bf16 rounding of the "
+        f"gradient) and float32 (limit {TRAIN_NORM_TOL[torch.float32]}: "
+        f"summation order), and B3's backward at {[c[:7] for c in TRAIN_FLASH_CASES]} "
+        f"(bf16 limit {TRAIN_FLASH_REL[torch.bfloat16]}: the bf16 forward "
+        f"output and one rounding of the gradient; float32 "
+        f"{TRAIN_FLASH_REL[torch.float32]}), each against autograd through "
+        f"the plain version in float32: max |d| over max(1, max |autograd|) "
+        f"{rels}, max |d| {errs}; launches {counts}")
+    return errs
+
+
+def phase_small_train(dev) -> None:
+    """5 trainer steps of float32 SMOKE qwen3-1.7b on the card (B2's and
+    B3's backward kernels) against the same on the CPU, from the same
+    seeded weights and batches."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    model = build_model(smoke_config(TRAIN_ARCH))
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    hist = {}
+    for where in ("cpu", "cuda"):
+        ops.reset_counts()
+        tr = Trainer(model, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                        decay_steps=5),
+                     TrainerConfig(steps=5, log_every=100),
+                     make_data_iter(SyntheticTask(model.cfg, 4, 64),
+                                    device=where),
+                     device=where, params=params, log=lambda s: None)
+        hist[where] = tr.fit()["history"]
+    counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
+    if (any(c.plain for c in ops.COUNTS.values())
+            or counts.get("flash_attention_bwd") != 5 * model.cfg.n_layers
+            or not counts.get("rmsnorm_bwd")):
+        raise AssertionError(f"small-train: card launches {counts}")
+    gaps = {key: max(abs(a[key] - b[key]) / abs(a[key])
+                     for a, b in zip(hist["cpu"], hist["cuda"]))
+            for key in SMALL_TRAIN_REL}
+    for key, lim in SMALL_TRAIN_REL.items():
+        if gaps[key] > lim:
+            raise AssertionError(f"small-train: {key} card vs CPU "
+                                 f"{gaps[key]} > {lim}: "
+                                 f"{[(a[key], b[key]) for a, b in zip(hist['cpu'], hist['cuda'])]}")
+    log(f"small-train: 5 steps of SMOKE {TRAIN_ARCH} (float32) card == CPU: "
+        f"losses {[round(h['loss'], 6) for h in hist['cuda']]}, largest "
+        f"relative gaps {gaps} (limits {SMALL_TRAIN_REL}); card launches "
+        f"{counts}")
+    ops.reset_counts()
+
+
+def phase_main_train(dev) -> dict:
+    """Full-width, full-depth qwen3-1.7b through ``Trainer``: 20 steps of 4
+    x 2048 tokens, float32 weights and AdamW moments, bf16 compute, remat
+    full, counts from 0.  Then one step profiled, B3 and B2 held against
+    their plain versions at every shape the steps called them at (forward
+    and backward: :class:`KernelShapes`), and a checkpoint round trip at
+    full width cut to CKPT_LAYERS layers."""
+    import shutil
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (Trainer, TrainerConfig,
+                                   create_train_state, make_train_step,
+                                   restore_checkpoint, save_checkpoint)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    L = cfg.n_layers
+    n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(
+        model.param_defs()))
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                      decay_steps=TRAIN_STEPS)
+    task = SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
+    tr = Trainer(model, opt, TrainerConfig(steps=TRAIN_STEPS, log_every=5),
+                 make_data_iter(task, device=dev), device=dev, seed=0,
+                 log=log)
+    ops.reset_counts()
+    shapes = KernelShapes()
+    t0 = time.perf_counter()
+    try:
+        h = tr.fit()["history"]
+    finally:
+        shapes.stop()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in h]
+    log(f"[train] {TRAIN_ARCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"over {len(h)} steps; stragglers={tr.stragglers}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"main-train: losses {losses}")
+    alone, add, _ = qwen_norms(cfg)             # one forward's
+    n = TRAIN_STEPS
+    # the forward's norms run twice (remat recomputes every block) but the
+    # final norm, which lies outside the blocks, once; the backward once
+    want = {"flash_attention": 2 * L * n, "flash_attention_tc": 2 * L * n,
+            "flash_attention_bwd": L * n,
+            "rmsnorm": (2 * (alone + add) - 1) * n,
+            "rmsnorm_add": (2 * add - 1) * n,
+            "rmsnorm_bwd": (alone + add) * n, "rmsnorm_add_bwd": add * n}
+    bad = {k: counts[k] for k in counts if (counts[k][1] or (
+        k in want and counts[k][0] != want[k]) or (
+        k not in want and counts[k][0]))}
+    if bad:
+        raise AssertionError(f"main-train: launches {counts}; want {want}, "
+                             "no other kernel and no plain version")
+    times = [m["step_time"] for m in h[2:]]
+    host = float(np.median(times)) * 1e3
+    state = tr.final_state
+    batch = next(make_data_iter(task, device=dev, start_step=TRAIN_STEPS))
+    step = make_train_step(model, opt)
+    devt, _ = profiled_ms(lambda: step(state, batch), iters=1)
+    log(f"main-train: {TRAIN_ARCH} {L} layers d {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} vocab "
+        f"{cfg.vocab}, float32 weights and moments, {cfg.dtype} compute, "
+        f"remat {cfg.remat}, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps "
+        f"in {wall:.1f} s: losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(m['grad_norm'], 3) for m in h]}; a step host-issued "
+        f"{host:.1f} ms (median of steps 3-{n}), device {devt:.1f} ms (one "
+        f"step profiled: card idle {max(0.0, 1 - devt / host):.1%}), "
+        f"{TRAIN_B * TRAIN_S / host * 1e3:.0f} tokens/s; "
+        f"max_memory_allocated={peak} B against the state's {n_params} "
+        f"params x 16 B = {n_params * 16} B (float32 params, gradients, m, "
+        f"v); launches {counts} (B3 {2 * L} a step forward, the blocks' "
+        f"recompute included, all on the tensor cores, {L} backward; B2 "
+        f"{alone + add} backward a step, {add} of them the fused add's)")
+    del state, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = shapes.parity("main-train", dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoint round trip, full width cut in depth
+    cut = build_model(cfg.replace(n_layers=CKPT_LAYERS))
+    st = create_train_state(cut, 1, opt, device=dev)
+    ckdir = str(pathlib.Path(__file__).resolve().parent / "build"
+                / "ckpt_main_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(ckdir, 7, st)
+    t_save = time.perf_counter() - t0
+    like = create_train_state(cut, 2, opt, device=dev)
+    t0 = time.perf_counter()
+    got, step = restore_checkpoint(ckdir, like)
+    t_restore = time.perf_counter() - t0
+    equal = step == 7 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(st), tree_leaves(got)))
+    size = sum(f.stat().st_size for f in pathlib.Path(ckdir).rglob("*.npy"))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not equal:
+        raise AssertionError("main-train: the restored checkpoint differs")
+    log(f"main-train checkpoint: {TRAIN_ARCH} at full width cut to "
+        f"{CKPT_LAYERS} of {L} layers, {len(tree_leaves(st))} leaves, {size} "
+        f"B of .npy, saved in {t_save:.1f} s and restored in "
+        f"{t_restore:.1f} s, bit for bit equal")
+    del st, like, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: counts[k][0] for k in want},
+            "host_ms": host, "device_ms": devt, "peak": peak,
+            "losses": losses, "errs": errs}
+
+
+def teacher_forcing(model, params, prompts, toks):
+    """(decode logits, prefill logits) of the last generated token: a
+    prefill of the prompts, a decode step a token over ``toks[:, :-1]``,
+    the last one's logits; and the last position of a prefill of the
+    prompts and ``toks[:, :-1]`` together."""
+    B, S = prompts.shape
+    new = toks.shape[1]
+    max_len = S + new
+    seq = torch.cat([prompts, toks.to(prompts.dtype)], dim=1)
+    cache, _ = model.prefill(params, prompts, max_len)
+    for i in range(new - 1):
+        logits = model.decode_step(params, cache, seq[:, S + i:S + i + 1],
+                                   S + i)
+    _, hidden = model.prefill(params, seq[:, :-1], max_len)
+    want = model.lm_head(params, hidden[:, -1:])
+    return logits[:, 0, :model.cfg.vocab], want[:, 0, :model.cfg.vocab]
+
+
+def tf_gap(got, want) -> tuple[float, int, float]:
+    """(max |d logit|, rows whose argmax differs, the smallest top-2 margin
+    of the prefill's logits among them)."""
+    gap = (got - want).abs().max().item()
+    diff = (got.argmax(-1) != want.argmax(-1)).nonzero().flatten().tolist()
+    top2 = want.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    return gap, len(diff), min((margins[i] for i in diff), default=0.0)
+
+
+def phase_main_gemma3(dev) -> dict:
+    """Full-width, full-depth gemma3-4b as aligned batches (GEMMA_BATCHES,
+    greedy to GEMMA_NEW), counts from 0 each: B3 34 launches a prefill (29
+    windowed, 5 global, none on the tensor cores), none at decode; B2
+    qwen_norms a prefill or step; nothing else and no plain version; B3
+    and B2 held against their plain versions at every shape the batch
+    called them at (:class:`KernelShapes`).  Teacher forcing gated at full
+    depth in bf16 and at GEMMA_GATE_DEPTH layers in float32.  Each batch's
+    prefill and decode step timed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(GEMMA_ARCH)
+    model = build_model(cfg)
+    L = cfg.n_layers
+    glob, loc = T.layer_groups(cfg)
+    params = model.init(0, device=dev)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(25)
+    out = {"launches": {}, "steps": {}, "errs": {}}
+    for rows, S in GEMMA_BATCHES:
+        label = f"{rows} x {S}"
+        prompts = torch.tensor(rng.integers(0, cfg.vocab, (rows, S))
+                               .astype(np.int32), device=dev)
+        ops.reset_counts()
+        shapes = KernelShapes()
+        try:
+            toks, t_pre, t_dec = greedy_aligned(model, params, prompts,
+                                                GEMMA_NEW, S + GEMMA_NEW)
+        finally:
+            shapes.stop()
+        counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+        windowed, global_ = (shapes.flash_calls(w) for w in (True, False))
+        if toks.shape != (rows, GEMMA_NEW) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"main-gemma3 {label}: tokens {toks}")
+        if ((windowed, global_) != (len(loc), len(glob))
+                or counts["flash_attention"] != (L, 0)
+                or counts["flash_attention_tc"][0]
+                or any(counts[k][0] for k in counts if k not in (
+                    "flash_attention", "rmsnorm", "rmsnorm_add"))):
+            raise AssertionError(
+                f"main-gemma3 {label}: B3 windowed {windowed} global "
+                f"{global_} (want {len(loc)} and {len(glob)}); launches "
+                f"{counts}")
+        check_norm_counts(f"main-gemma3 {label}", counts, GEMMA_NEW,
+                          qwen_norms(cfg))
+        out["launches"][label] = {k: counts[k][0] for k in (
+            "flash_attention", "rmsnorm", "rmsnorm_add")}
+        out["launches"][label]["flash_attention_windowed"] = windowed
+        for name, e in shapes.parity(f"main-gemma3 {label}", dev).items():
+            out["errs"][name] = max(out["errs"].get(name, 0.0), e)
+        got, want = teacher_forcing(model, params, prompts,
+                                    torch.tensor(toks, device=dev))
+        gap, flips, margin = tf_gap(got, want)
+        if gap > GEMMA_BF16_TOL or (flips and margin >= NEAR_TIE):
+            raise AssertionError(
+                f"main-gemma3 {label}: teacher forcing max |d logit| {gap} "
+                f"(limit {GEMMA_BF16_TOL}), argmax differs in {flips} rows "
+                f"(top-2 margin {margin}, near-tie below {NEAR_TIE})")
+        # one prefill and one decode step, host-issued and device time
+        state, _ = model.prefill(params, prompts, S + GEMMA_NEW)
+        tok = torch.tensor(toks[:, :1], device=dev, dtype=torch.int32)
+        steps = {}
+        for name, fn in (
+                ("prefill", lambda: model.prefill(params, prompts,
+                                                  S + GEMMA_NEW)),
+                ("decode", lambda: model.decode_step(params, state, tok, S))):
+            host = time_ms(fn, iters=3, warmup=1)
+            devt, _ = profiled_ms(fn, iters=2)
+            steps[name] = {"host_ms": host, "device_ms": devt,
+                           "idle": max(0.0, 1 - devt / host)}
+        out["steps"][label] = steps
+        log(f"main-gemma3 {label}: {GEMMA_ARCH} {L} layers ({len(loc)} "
+            f"windowed of {cfg.local_window}, {len(glob)} global) d "
+            f"{cfg.d_model} {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim} vocab {cfg.vocab} {cfg.dtype}, greedy to "
+            f"{GEMMA_NEW}: prefill {t_pre * 1e3:.1f} ms with the first token, "
+            f"{GEMMA_NEW - 1} decode steps {t_dec * 1e3:.1f} ms; B3 "
+            f"{windowed} windowed + {global_} global launches a "
+            f"prefill, none on the tensor cores; launches {counts}; "
+            f"teacher forcing (the last decode step against a prefill of "
+            f"the same tokens): max |d logit| {gap:.4f} (limit "
+            f"{GEMMA_BF16_TOL}), argmax differs in {flips} of {rows} rows "
+            f"(smallest top-2 margin there {margin:.4f}); a prefill "
+            f"host-issued {steps['prefill']['host_ms']:.2f} ms, device "
+            f"{steps['prefill']['device_ms']:.2f} ms (idle "
+            f"{steps['prefill']['idle']:.1%}); a decode step host-issued "
+            f"{steps['decode']['host_ms']:.2f} ms, device "
+            f"{steps['decode']['device_ms']:.2f} ms (idle "
+            f"{steps['decode']['idle']:.1%})")
+        del state, prompts
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main-gemma3: {weights} B of weights, max_memory_allocated={peak} B")
+    # the gates: the weights cut to their first GEMMA_GATE_DEPTH layers
+    cut_cfg = cfg.replace(n_layers=GEMMA_GATE_DEPTH)
+    cut_params = {k: v for k, v in params.items() if k != "blocks"}
+    cut_params["blocks"] = tree_map(lambda t: t[:GEMMA_GATE_DEPTH],
+                                    params["blocks"])
+    del params
+    gates = []
+    p = tree_map(lambda t: t.float(), cut_params)
+    m = build_model(cut_cfg.replace(dtype="float32"))
+    for rows, S in GEMMA_BATCHES:
+        prompts = torch.tensor(rng.integers(0, cfg.vocab, (rows, S))
+                               .astype(np.int32), device=dev)
+        toks, _, _ = greedy_aligned(m, p, prompts, GEMMA_NEW, S + GEMMA_NEW)
+        got, want = teacher_forcing(m, p, prompts,
+                                    torch.tensor(toks, device=dev))
+        gap, flips, margin = tf_gap(got, want)
+        if gap > GEMMA_F32_TOL or (flips and margin >= NEAR_TIE):
+            raise AssertionError(
+                f"main-gemma3 gate float32 {rows} x {S}: max |d logit| {gap} "
+                f"(limit {GEMMA_F32_TOL}), argmax differs in {flips} rows "
+                f"(top-2 margin {margin}, near-tie below {NEAR_TIE})")
+        gates.append(f"float32 {rows} x {S} {gap:.2e} (limit "
+                     f"{GEMMA_F32_TOL}), argmax flips {flips}")
+    del p
+    log(f"main-gemma3 gates at the first {GEMMA_GATE_DEPTH} layers (5 "
+        f"windowed + 1 global): teacher forcing, the last of {GEMMA_NEW} "
+        f"greedy tokens decoded past the ring's wrap against a prefill of "
+        f"the same tokens: " + "; ".join(gates))
+    del cut_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak"] = peak
+    return out
+
+
+def window_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal row set sees, windowed or not."""
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def sdpa_mask(S: int, window, dev):
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    ok = j <= i
+    if window is not None:
+        ok &= (i - j) < window
+    return ok
+
+
+def phase_timing_train(dev) -> dict:
+    """B3 forward at gemma3's prefill shapes (S 2048, window 1024 and
+    global); B3's and B2's backward at the training shapes.  Each beside
+    its plain version, one PyTorch yardstick (SDPA with the same mask,
+    SDPA's backward, autograd through ``F.rms_norm`` with the same float32
+    scale) and its bound.  The forwards in device time of a replayed CUDA
+    graph; the backwards, whose plain and yardstick runs are autograd
+    calls, in device time of calls queued behind a spin
+    (:func:`queued_ms`)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import (add_rmsnorm_plain,
+                                             rmsnorm_bwd_cuda, rmsnorm_plain)
+    torch.manual_seed(3)
+    bf16 = torch.bfloat16
+    out = {"flash_attention": {}, "flash_attention_bwd": {},
+           "rmsnorm_bwd": {}}
+    gcfg = get_config(GEMMA_ARCH)
+    B, S, Hq, Hkv, D = 4, 2048, gcfg.n_heads, gcfg.n_kv_heads, gcfg.head_dim
+    q = torch.randn(B, S, Hq, D, device=dev).to(bf16)
+    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16) for _ in range(2))
+    for window in (gcfg.local_window, None):
+        mask = sdpa_mask(S, window, dev)
+        label = f"gemma3 window={window}"
+        b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                      4 * D * Hq * B * window_pairs(S, window), bf16)
+        t = {what: device_ms([fn]) for what, fn in (
+            ("kernel", lambda: ops.flash_attention(q, k, v, window=window)),
+            ("plain", lambda: ref.flash_attention(q, k, v, window=window)),
+            ("library", lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)))}
+        out["flash_attention"][label] = {
+            "shape": [B, S, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": b, "bound_by": by}
+        log(f"timing flash_attention {label} [B={B} S={S} Hq={Hq} Hkv={Hkv} "
+            f"D={D} bf16, CUDA-core route]: device kernel {t['kernel']:.4f} "
+            f"ms, plain {t['plain']:.4f} ms, SDPA (same mask) "
+            f"{t['library']:.4f} ms, bound {b:.4f} ms ({by})")
+    del q, k, v
+    tcfg = get_config(TRAIN_ARCH)
+    for label, (B, S, Hq, Hkv, D, window) in (
+            ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
+                       tcfg.head_dim, None)),
+            ("gemma3", (1, 2048, gcfg.n_heads, gcfg.n_kv_heads,
+                        gcfg.head_dim, gcfg.local_window))):
+        q, g = (torch.randn(B, S, Hq, D, device=dev).to(bf16)
+                for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
+                for _ in range(2))
+        o = ops.flash_attention(q, k, v, window=window)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = flash_attention_plain(*leaves, window=window)
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+        mask = sdpa_mask(S, window, dev)
+        lib_out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in lib_leaves), attn_mask=mask,
+            enable_gqa=True)
+        gt = g.transpose(1, 2)
+        pairs = window_pairs(S, window)
+        b, by = bound((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                       + 2 * o.numel()) * 2, 10 * D * Hq * B * pairs, bf16)
+        t = {"kernel": queued_ms(lambda: flash_attention_bwd_cuda(
+                 q, k, v, o, g, window=window), iters=5),
+             "plain": queued_ms(lambda: torch.autograd.grad(
+                 plain_out, leaves, g, retain_graph=True), iters=5),
+             "library": queued_ms(lambda: torch.autograd.grad(
+                 lib_out, lib_leaves, gt, retain_graph=True))}
+        out["flash_attention_bwd"][label] = {
+            "shape": [B, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "bound_ms": b, "bound_by": by}
+        log(f"timing flash_attention_bwd {label} [B={B} S={S} Hq={Hq} "
+            f"Hkv={Hkv} D={D} window={window} bf16]: device kernel "
+            f"{t['kernel']:.4f} ms, plain (autograd, float32) "
+            f"{t['plain']:.4f} ms, SDPA's backward (same mask) "
+            f"{t['library']:.4f} ms, bound {b:.4f} ms ({by}; its "
+            f"operations: 5 products of the forward's size)")
+        del q, k, v, g, o, leaves, plain_out, lib_leaves, lib_out
+        gc.collect()
+        torch.cuda.empty_cache()
+    L_rows = TRAIN_B * TRAIN_S
+    for label, rows, d, add in (
+            ("ln", L_rows, tcfg.d_model, False),
+            ("add_ln", L_rows, tcfg.d_model, True),
+            ("q_norm", L_rows * tcfg.n_heads, tcfg.head_dim, False),
+            ("k_norm", L_rows * tcfg.n_kv_heads, tcfg.head_dim, False)):
+        x, dl, dy, ds = (torch.randn(rows, d, device=dev).to(bf16)
+                         for _ in range(4))
+        scale = 1 + 0.1 * torch.randn(d, device=dev)
+        dsa = ds if add else None
+        cots = (ds, dy) if add else (dy,)
+        inputs = (x, dl, scale) if add else (x, scale)
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        plain_out = (add_rmsnorm_plain(*leaves) if add
+                     else rmsnorm_plain(*leaves))
+        lib_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+        if add:
+            s_lib = lib_leaves[0] + lib_leaves[1]
+            lib_out = (s_lib, F.rms_norm(s_lib, (d,), weight=lib_leaves[2],
+                                         eps=1e-6))
+        else:
+            lib_out = F.rms_norm(lib_leaves[0], (d,), weight=lib_leaves[1],
+                                 eps=1e-6)
+        # the kernel reads the rows, dy (and ds) and the scale, and
+        # writes dx and dscale
+        n_in = 3 if add else 2
+        b, by = bound(rows * d * 2 * (n_in + 1) + 2 * 4 * d,
+                      8 * rows * d, bf16)
+        # F.rms_norm's fused backward takes only a scale of the rows'
+        # dtype: a bf16 scale, for the speed it reaches, not the yardstick
+        lib16 = [x.detach().clone().requires_grad_(True),
+                 scale.to(bf16).requires_grad_(True)]
+        out16 = F.rms_norm(lib16[0], (d,), weight=lib16[1], eps=1e-6)
+        t = {"kernel": queued_ms(lambda: rmsnorm_bwd_cuda(x, dy, dsa, scale)),
+             "plain": queued_ms(lambda: torch.autograd.grad(
+                 plain_out, leaves, cots, retain_graph=True)),
+             "library": queued_ms(lambda: torch.autograd.grad(
+                 lib_out, lib_leaves, cots, retain_graph=True)),
+             "library_bf16": queued_ms(lambda: torch.autograd.grad(
+                 out16, lib16, dy, retain_graph=True))}
+        out["rmsnorm_bwd"][label] = {
+            "shape": [rows, d, add], "ms": t["kernel"],
+            "plain_ms": t["plain"], "library_ms": t["library"],
+            "library_bf16_scale_ms": t["library_bf16"],
+            "bound_ms": b, "bound_by": by}
+        log(f"timing rmsnorm_bwd {label} [rows={rows} d={d} bf16, float32 "
+            f"scale, {'with' if add else 'no'} sum gradient]: device kernel "
+            f"{t['kernel']:.4f} ms (two launches), plain (autograd) "
+            f"{t['plain']:.4f} ms, F.rms_norm's backward (the same float32 "
+            f"scale{', the add before it' if add else ''}) "
+            f"{t['library']:.4f} ms (with a bf16 scale, its fused kernel, "
+            f"no add: {t['library_bf16']:.4f} ms), bound {b:.4f} ms ({by})")
+        del x, dl, dy, ds, leaves, plain_out, lib_leaves, lib_out, lib16, out16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 SOURCES = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:38"),
@@ -4500,6 +5314,14 @@ SOURCES = {
                    "src/repro/kernels/rwkv6_scan.py:82"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:99"),
+    # the backward kernels of training: the reference differentiates its
+    # jnp paths (no Pallas kernel has a VJP), so each names the TPU kernel
+    # whose port it differentiates
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:38 (its backward)"),
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:113 (its backward)"),
 }
 
 
@@ -4510,6 +5332,8 @@ DEVICE_KERNELS = {
                    "rwkv6_chunk_out_kernel", "rwkv6_scan_kernel"],
     "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
                  "ssd_scan_kernel"],
+    "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
+    "flash_attention_bwd": ["fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel"],
 }
 
 
@@ -4549,7 +5373,10 @@ def main() -> int:
                  + ptxas_report("rwkv6_chunk_out_kernel")
                  + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")
                  + ptxas_report("ssd_seg_state_kernel")
-                 + ptxas_report("ssd_seg_out_kernel")):
+                 + ptxas_report("ssd_seg_out_kernel")
+                 + ptxas_report("rmsnorm_bwd")
+                 + ptxas_report("fa_bwd", "Li128E")
+                 + ptxas_report("fa_bwd", "Li256E")):
         log(f"ptxas {line}")
     lib = build.library()
     log("dynamic shared memory of the tensor-core routes: wkv launches 1 "
@@ -4561,9 +5388,11 @@ def main() -> int:
     errs["rwkv6_scan"] = max(e for e, _ in rwkv_errs.values())
     ssd_errs = phase_parity_ssd(dev)
     errs["ssd_scan"] = max(e for e, _ in ssd_errs.values())
+    errs.update(phase_parity_train(dev))
     phase_small(dev)
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
+    phase_small_train(dev)
     main_base = torch.cuda.memory_allocated()
     launches, eng, bf16_peak = phase_main()
     main_rate = served_rate(eng)
@@ -4670,9 +5499,6 @@ def main() -> int:
                          if name in r["launches"]}}
     times["rmsnorm"]["multimodal"] = {
         "launches": {"main-vlm": mm["main-vlm"]["launches"]["rmsnorm"]}}
-    for r in mm.values():       # parity at the shapes the phases served at
-        for name, e in r["errs"].items():
-            errs[name] = max(errs[name], e)
     # the paper's function-centric layer: no TPU kernel on this path
     gc.collect()
     torch.cuda.empty_cache()
@@ -4680,6 +5506,33 @@ def main() -> int:
     phase_science_mcmc(dev)
     phase_science_dmc(dev)
     phase_science_boussinesq(dev)
+    # one-card training (ROADMAP A13a) and gemma3's window caches (A11)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    train = phase_main_train(dev)
+    gemma = phase_main_gemma3(dev)
+    train_times = phase_timing_train(dev)
+    log(f"the training and gemma3 phases (main-train, main-gemma3, "
+        f"timing-train) took {time.perf_counter() - t_new:.1f} s")
+    # parity at the shapes the phases served and trained at
+    for r in (*mm.values(), train, gemma):
+        for name, e in r["errs"].items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    times["flash_attention"]["gemma3"] = {
+        "timed": train_times["flash_attention"],
+        "launches": gemma["launches"], "steps": gemma["steps"]}
+    times["flash_attention"]["train_launches"] = {
+        k: train["launches"][k] for k in ("flash_attention",
+                                          "flash_attention_tc")}
+    times["rmsnorm"]["train_launches"] = {
+        k: train["launches"][k] for k in ("rmsnorm", "rmsnorm_add")}
+    for name, head in (("rmsnorm_bwd", "add_ln"),
+                       ("flash_attention_bwd", "train")):
+        times[name] = {**train_times[name][head],
+                       "variants": train_times[name]}
+        launches[name] = train["launches"][name]
+    times["rmsnorm_bwd"]["add_launches"] = train["launches"]["rmsnorm_add_bwd"]
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
     times["paged_attention_mq_int8"]["verify_launches"] = {
@@ -4727,9 +5580,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "timed_shape": t["shape"],
-            **({"device_kernels": DEVICE_KERNELS[name],
-                "tc_launches": launches[f"{name}_tc"]}
+            **({"device_kernels": DEVICE_KERNELS[name]}
                if name in DEVICE_KERNELS else {}),
+            # the scans' tensor-core route sub-counts
+            **({"tc_launches": launches[f"{name}_tc"]}
+               if name in ("rwkv6_scan", "ssd_scan") else {}),
             **{k: t[k] for k in (
                 "verify_ms", "verify_plain_ms", "verify_library_ms",
                 "verify_bound_ms", "verify_bound_by", "verify_host_ms",
@@ -4749,7 +5604,8 @@ def main() -> int:
                 "g16_decode_bound_ms", "g16_decode_bound_by", "g16_chunk_ms",
                 "g16_chunk_plain_ms", "g16_chunk_library_ms",
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
-                "moe_launches", "shard_heads", "multimodal") if k in t}})
+                "moe_launches", "shard_heads", "multimodal", "gemma3",
+                "train_launches", "add_launches") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the ported archs.
 
-The dense decoders (qwen2-7b, qwen2.5-14b, qwen3-1.7b), the MoE decoders
-(qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b, zamba2-7b and the multimodal
-pair (llava-next-mistral-7b, whisper-tiny) are here; every other arch of
-the reference registry raises until its slice lands.
+Every arch of the reference registry is here: the dense decoders
+(qwen2-7b, qwen2.5-14b, qwen3-1.7b, and gemma3-4b with its sliding-window
+layers), the MoE decoders (qwen3-moe-235b-a22b, arctic-480b), rwkv6-3b,
+zamba2-7b and the multimodal pair (llava-next-mistral-7b, whisper-tiny).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ _MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "qwen2.5-14b": "repro_torch.configs.qwen2p5_14b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",

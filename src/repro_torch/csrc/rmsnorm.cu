@@ -346,6 +346,159 @@ extern "C" int gated_rmsnorm_launch(const void* y, const void* z,
                           static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// -- backward ------------------------------------------------------------------
+//
+// The gradient of y = v * r * scale, r = rsqrt(mean(v^2) + eps), over each
+// row v (the norm's input: x, or the fused add's sum s), from the output's
+// gradient dy and, for the fused add, the sum's own gradient ds:
+//
+//   dv = r * (dy * scale - v * r^2 * mean(dy * scale * v)) + ds
+//   dscale = sum over rows of dy * v * r
+//
+// all in float32 from T rows (bf16 or float32), dv rounded to T once.  For
+// the fused add dv is the gradient of both addends.  Replaces no TPU kernel
+// (the reference trains through jnp, whose XLA backward is not a Pallas
+// kernel); it is B2's backward for training on the card.
+//
+// Bound on this card: bytes, as the forward (a few flops an element).  One
+// warp a row: the row's two sums by shuffle, then dv, with no barrier.  The
+// scale's gradient is a sum over every row, which blocks cannot share
+// without atomics, so each block adds its rows' terms into a float32 row
+// of its own in shared memory (a warp each, no two threads on one word,
+// summed in a fixed order) and writes one partial row; a second kernel
+// sums the partials column by column.  The grid and the rows of a warp
+// depend on (rows, d) only, so the result is the same every run.  The row
+// is read twice (the second read from L1/L2): a kernel that is right
+// first; fusing the passes is later work (ROADMAP Queue B).
+
+constexpr int kBwdMaxWarps = 8;
+constexpr int kBwdSmem = 48 * 1024;     // a block's partial rows, no opt-in
+constexpr long long kBwdMaxBlocks = 528;  // 4 blocks an SM of 132
+
+int bwd_warps(int d) {
+  const int w = kBwdSmem / (4 * d);
+  return w < kBwdMaxWarps ? w : kBwdMaxWarps;
+}
+
+long long bwd_blocks(long long rows, int d) {
+  const int w = bwd_warps(d);
+  if (w < 1) return 0;
+  const long long b = (rows + w - 1) / w;
+  return b < kBwdMaxBlocks ? b : kBwdMaxBlocks;
+}
+
+template <typename T, typename S>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32)
+rmsnorm_bwd_kernel(const T* __restrict__ v, const T* __restrict__ dy,
+                   const T* __restrict__ ds, const S* __restrict__ scale,
+                   T* __restrict__ dv, float* __restrict__ part,
+                   long long rows, int d, float eps) {
+  extern __shared__ float acc[];        // [warps][d]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  float* mine = acc + static_cast<size_t>(warp) * d;
+  for (int j = lane; j < d; j += 32) mine[j] = 0.f;
+  for (long long row = static_cast<long long>(blockIdx.x) * nw + warp;
+       row < rows; row += static_cast<long long>(gridDim.x) * nw) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float ss = 0.f, dot = 0.f;
+    for (int j = lane; j < d; j += 32) {
+      const float x = to_f32<T>(v[base + j]);
+      ss += x * x;
+      dot += to_f32<T>(dy[base + j]) * to_f32<S>(scale[j]) * x;
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float r = rsqrtf(ss / d + eps);
+    const float c = r * r * dot / d;
+    for (int j = lane; j < d; j += 32) {
+      const float x = to_f32<T>(v[base + j]);
+      const float g = to_f32<T>(dy[base + j]);
+      float out = r * (g * to_f32<S>(scale[j]) - x * c);
+      if (ds) out += to_f32<T>(ds[base + j]);
+      dv[base + j] = from_f32<T>(out);
+      mine[j] += g * x * r;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float t = 0.f;
+    for (int w = 0; w < nw; ++w) t += acc[static_cast<size_t>(w) * d + j];
+    part[static_cast<size_t>(blockIdx.x) * d + j] = t;
+  }
+}
+
+// dscale[j] = the blocks' partials of column j, summed in block order
+template <typename S>
+__global__ void rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
+                                          S* __restrict__ dscale, int blocks,
+                                          int d) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  float t = 0.f;
+  for (int b = 0; b < blocks; ++b) t += part[static_cast<size_t>(b) * d + j];
+  dscale[j] = from_f32<S>(t);
+}
+
+template <typename T, typename S>
+cudaError_t launch_bwd(const void* v, const void* dy, const void* ds,
+                       const void* scale, void* dv, void* part, void* dscale,
+                       long long rows, int d, float eps, cudaStream_t stream) {
+  const int w = bwd_warps(d);
+  const long long blocks = bwd_blocks(rows, d);
+  rmsnorm_bwd_kernel<T, S><<<static_cast<unsigned>(blocks), w * 32,
+                             static_cast<size_t>(w) * d * sizeof(float),
+                             stream>>>(
+      static_cast<const T*>(v), static_cast<const T*>(dy),
+      static_cast<const T*>(ds), static_cast<const S*>(scale),
+      static_cast<T*>(dv), static_cast<float*>(part), rows, d, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_reduce_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<S*>(dscale),
+      static_cast<int>(blocks), d);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks of the backward's first kernel for (rows, d): its float32
+// partials of dscale take blocks x d floats of workspace.  0: d too wide.
+extern "C" int rmsnorm_bwd_blocks(long long rows, int d) {
+  return d > 0 && rows > 0 ? static_cast<int>(bwd_blocks(rows, d)) : 0;
+}
+
+// The norm's backward over rows x d: v the norm's input (x, or the fused
+// add's sum), dy the output's gradient, ds the sum's gradient (null: the
+// plain norm, or a sum no op read), all in x_dtype and contiguous; dv (in
+// x_dtype) and dscale (in scale_dtype) written; part: float32 workspace of
+// rmsnorm_bwd_blocks(rows, d) x d.
+extern "C" int rmsnorm_bwd_launch(const void* v, const void* dy,
+                                  const void* ds, const void* scale, void* dv,
+                                  void* part, void* dscale, long long rows,
+                                  int d, float eps, int x_dtype,
+                                  int scale_dtype, void* stream) {
+  if (rows <= 0 || d <= 0 || bwd_blocks(rows, d) == 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kFloat32 && scale_dtype == kFloat32)
+    return launch_bwd<float, float>(v, dy, ds, scale, dv, part, dscale, rows,
+                                    d, eps, s);
+  if (x_dtype == kFloat32 && scale_dtype == kBFloat16)
+    return launch_bwd<float, __nv_bfloat16>(v, dy, ds, scale, dv, part,
+                                            dscale, rows, d, eps, s);
+  if (x_dtype == kBFloat16 && scale_dtype == kFloat32)
+    return launch_bwd<__nv_bfloat16, float>(v, dy, ds, scale, dv, part,
+                                            dscale, rows, d, eps, s);
+  if (x_dtype == kBFloat16 && scale_dtype == kBFloat16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(v, dy, ds, scale, dv,
+                                                    part, dscale, rows, d,
+                                                    eps, s);
+  return cudaErrorInvalidValue;
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

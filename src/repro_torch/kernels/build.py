@@ -63,10 +63,18 @@ _SIGNATURES = {
     # xdt, la, Bm, Cm (bf16), state0 (null: zeros), y, out_state, workspace,
     # decays, B, S, H, stream
     "ssd_scan_tc_launch": [_vp] * 9 + [_i] * 3 + [_vp],
-    # the tensor-core routes' dynamic shared memory a launch (bytes; not
-    # launches: they return the size, not a cudaError_t)
+    # v (the norm's input), dy, ds (null: none), scale, dv, workspace,
+    # dscale, rows, d, eps, x_dtype, scale_dtype, stream
+    "rmsnorm_bwd_launch": [_vp] * 7 + [_i64, _i, _f, _i, _i, _vp],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, Hq, Hkv, D, causal,
+    # window, scale, dtype, stream
+    "flash_attention_bwd_launch": [_vp] * 10 + [_i] * 7 + [_f, _i, _vp],
+    # the tensor-core routes' dynamic shared memory a launch (bytes), and
+    # the norm backward's blocks for (rows, d) (not launches: they return
+    # the size, not a cudaError_t)
     "rwkv6_scan_tc_smem": [_i],
     "ssd_scan_tc_smem": [_i],
+    "rmsnorm_bwd_blocks": [_i64, _i],
 }
 
 

@@ -14,6 +14,15 @@ wrapper it takes any sequence length, not only multiples of its tile.  It
 has two routes, chosen from dtype and D before the launch
 (:func:`tensor_core_route`): bf16 at D 64 and 128 on the tensor cores
 (wgmma and TMA), everything else on CUDA cores.
+
+Training needs the gradients of a whole-sequence forward: the backward
+kernels (``csrc/flash_attention_bwd.cu``, launched by
+:func:`flash_attention_bwd_cuda` from the autograd Function in
+:mod:`repro_torch.kernels.ops`) take the forward's inputs, its output and
+the output's gradient, and recompute each row's log-sum-exp themselves, so
+the forward kernels and their serving times are as they were.  On the CPU
+autograd differentiates the plain version, which is also the backward's
+oracle on the card.
 """
 from __future__ import annotations
 
@@ -124,3 +133,53 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
             int(tensor_core_route(q)), stream),
             "flash_attention")
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
+                             window=None):
+    """Launch the flash-attention backward (``csrc/flash_attention_bwd.cu``)
+    on ``q``'s card: the gradients ``(dq, dk, dv)`` of a whole-sequence
+    forward (``Sq == Sk``) from its inputs, its output ``out`` and the
+    output's gradient ``dout``, computed in float32 on CUDA cores and
+    returned in q's dtype (dk and dv summed over each KV head's query
+    heads).  float32 or bfloat16, D one of :data:`HEAD_DIMS`.  Raises on
+    anything else; never falls back."""
+    _check_window(window)
+    B, S, Hq, D = q.shape
+    dev = q.device
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd_cuda: q must lie on a card")
+    for name, t in (("k", k), ("v", v), ("out", out), ("dout", dout)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} is "
+                             f"{t.dtype} on {t.device}, q {q.dtype} on {dev}")
+    Hkv = k.shape[2]
+    if (k.shape != (B, S, Hkv, D) or v.shape != k.shape
+            or out.shape != q.shape or dout.shape != q.shape or Hkv == 0
+            or Hq % Hkv):
+        raise ValueError(f"flash_attention_bwd_cuda: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}: "
+                         "want Sq == Sk and GQA heads")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd_cuda: dtype {q.dtype}; want "
+                        "float32 or bfloat16")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), B, S, Hq, Hkv, D, int(causal),
+            0 if window is None else int(window), float(D ** -0.5),
+            _DTYPE_CODES[q.dtype], stream), "flash_attention_bwd")
+    return dq, dk, dv

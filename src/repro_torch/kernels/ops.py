@@ -18,11 +18,26 @@ launches for the wkv (chunk states, the pass over them, outputs), two for
 the SSD (segment states, outputs).
 The counts are bumped under a lock: the dense path's prefills run on the
 prefill farm's worker threads.
+
+Training: when autograd needs a gradient through a call (grad mode on and
+an input that requires one), RMSNorm, its fused add and flash attention
+run as ``torch.autograd.Function``s on a card, whose backward is a kernel
+too: ``rmsnorm_bwd`` counts B2's backward launches (``rmsnorm_add_bwd``
+the fused add's among them), ``flash_attention_bwd`` B3's (each call two
+launches: dq with the rows' log-sum-exp, then dk and dv).  Their forward
+launches count as serving's do.  On the CPU autograd differentiates the
+plain versions.  A kernel with no backward yet (the gated norm, paged
+attention, the scans) refuses a card call that needs a gradient, naming
+where its backward comes (ROADMAP A13b); no gradient goes through a plain
+version on a card.  Without a gradient to take, the launches, routes and
+counts are those of serving.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -47,7 +62,10 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "rmsnorm_add": LaunchCount(), "rmsnorm_gated": LaunchCount(),
           "flash_attention_tc": LaunchCount(),
           "paged_attention_mq_split": LaunchCount(),
-          "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount()}
+          "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount(),
+          # the backward kernels, and the fused add's sub-count of B2's
+          "rmsnorm_bwd": LaunchCount(), "rmsnorm_add_bwd": LaunchCount(),
+          "flash_attention_bwd": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -76,8 +94,92 @@ def _route(x, name: str) -> bool:
     return False
 
 
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd takes a gradient through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    """Refuse a card call that autograd would differentiate: the kernel
+    has no backward yet."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward yet (it comes with its "
+            "family's training, ROADMAP A13b); no gradient goes through a "
+            "plain version on a card")
+
+
+class _RMSNorm(torch.autograd.Function):
+    """B2 on a card with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out = _rn.rmsnorm_cuda(x, scale, eps=eps)
+        _count("rmsnorm", kernel=True)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = _rn.rmsnorm_bwd_cuda(x, dy, None, scale, eps=ctx.eps)
+        _count("rmsnorm_bwd", kernel=True)
+        return dx, dscale, None
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """B2's fused residual add on a card with its backward kernel: the sum
+    is always stored (the backward reads it), and its gradient, with the
+    norm's, passes to both addends."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, eps):
+        s, out = _rn.add_rmsnorm_cuda(x, delta, scale, eps=eps,
+                                      keep_sum=True)
+        _count("rmsnorm", "rmsnorm_add", kernel=True)
+        ctx.save_for_backward(s, scale)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return s, out
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, scale = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(s)
+        dv, dscale = _rn.rmsnorm_bwd_cuda(s, dy, ds, scale, eps=ctx.eps)
+        _count("rmsnorm_bwd", "rmsnorm_add_bwd", kernel=True)
+        return dv, dv, dscale, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B3 on a card with its backward kernels (``Sq == Sk``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _count("flash_attention", kernel=True)
+        if _fa.tensor_core_route(q):
+            _count("flash_attention_tc", kernel=True)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd_cuda(
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+        _count("flash_attention_bwd", kernel=True)
+        return dq, dk, dv, None, None
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` with a ``(d,)`` scale."""
+    if _route(x, "rmsnorm") and _needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
     if _route(x, "rmsnorm"):
         out = _rn.rmsnorm_cuda(x, scale, eps=eps)
         _count("rmsnorm", kernel=True)
@@ -90,7 +192,11 @@ def add_rmsnorm(x, delta, scale, *, eps: float = 1e-6,
                 keep_sum: bool = True):
     """The residual add fused into the next RMSNorm: ``(s, y)``, ``s = x +
     delta`` (bit for bit) and ``y`` the RMSNorm of ``s``; ``s`` is None,
-    and the kernel does not store it, unless ``keep_sum``."""
+    and the kernel does not store it, unless ``keep_sum`` (under autograd
+    the kernel stores it for the backward all the same)."""
+    if _route(x, "rmsnorm") and _needs_grad(x, delta, scale):
+        s, out = _AddRMSNorm.apply(x, delta, scale, eps)
+        return s if keep_sum else None, out
     if _route(x, "rmsnorm"):
         out = _rn.add_rmsnorm_cuda(x, delta, scale, eps=eps,
                                    keep_sum=keep_sum)
@@ -104,6 +210,7 @@ def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
     """Mamba-2's gated output norm, ``rmsnorm(y.to(z.dtype) * silu(z))``,
     in one kernel; y float32, the result in z's dtype."""
     if _route(y, "rmsnorm"):
+        _no_backward("gated_rmsnorm", y, z, scale)
         out = _rn.gated_rmsnorm_cuda(y, z, scale, eps=eps)
         _count("rmsnorm", "rmsnorm_gated", kernel=True)
         return out
@@ -123,6 +230,7 @@ def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,
     name = "paged_attention_mq" if k_scale is None \
         else "paged_attention_mq_int8"
     if _route(q, name):
+        _no_backward(name, q, k_pages, v_pages)
         out = _pa.paged_attention_mq_cuda(q, k_pages, v_pages, tables, lengths,
                                           k_scale, v_scale)
         _count(name, kernel=True)
@@ -137,7 +245,14 @@ def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Whole-sequence GQA, (B, Sq, Hq, D) x (B, Sk, Hkv, D) -> (B, Sq, Hq, D);
     ``window`` None for global attention; see
-    :mod:`repro_torch.kernels.flash_attention`."""
+    :mod:`repro_torch.kernels.flash_attention`.  Under autograd on a card
+    (``Sq == Sk`` only) the backward is a kernel too."""
+    if _route(q, "flash_attention") and _needs_grad(q, k, v):
+        if q.shape[1] != k.shape[1]:
+            raise NotImplementedError(
+                "flash_attention: the backward kernel takes Sq == Sk (the "
+                f"training forward), got Sq={q.shape[1]} Sk={k.shape[1]}")
+        return _FlashAttention.apply(q, k, v, causal, window)
     if _route(q, "flash_attention"):
         out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
         _count("flash_attention", kernel=True)
@@ -154,6 +269,7 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
     ``out_state`` the final state lands there in place (it may be
     ``state0``); see :mod:`repro_torch.kernels.rwkv6_scan`."""
     if _route(r, "rwkv6_scan"):
+        _no_backward("rwkv6_scan", r, k, v, w, u, state0)
         out = _rw.rwkv6_scan_cuda(r, k, v, w, u, state0, out_state)
         _count("rwkv6_scan", kernel=True)
         if _rw.tensor_core_route(r, v):
@@ -169,6 +285,7 @@ def ssd_scan(xdt, la, Bm, Cm, state0=None, *, out_state=None):
     float32); with ``out_state`` the final state lands there in place (it
     may be ``state0``); see :mod:`repro_torch.kernels.ssd_scan`."""
     if _route(xdt, "ssd_scan"):
+        _no_backward("ssd_scan", xdt, la, Bm, Cm, state0)
         out = _ssd.ssd_scan_cuda(xdt, la, Bm, Cm, state0, out_state)
         _count("ssd_scan", kernel=True)
         if _ssd.tensor_core_route(xdt, Bm):

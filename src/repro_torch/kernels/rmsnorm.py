@@ -15,7 +15,11 @@ the op that the served models run right before it:
 
 The plain versions below are the same ops in eager PyTorch, in the order
 the models ran them before the fusion: the CPU path and the kernel's
-oracle.
+oracle.  Training differentiates the plain norm and the fused add through
+autograd on the CPU; on a card their backward is a kernel of the same
+source (:func:`rmsnorm_bwd_cuda`, wrapped as autograd Functions in
+:mod:`repro_torch.kernels.ops`), held against autograd through the plain
+versions.
 """
 from __future__ import annotations
 
@@ -150,3 +154,39 @@ def gated_rmsnorm_cuda(y, z, scale, *, eps: float = 1e-6):
             (y.data_ptr(), z.data_ptr(), scale.data_ptr(), out.data_ptr()), y,
             idx, eps, z.dtype, scale)
     return out
+
+
+def rmsnorm_bwd_cuda(v, dy, ds, scale, *, eps: float = 1e-6):
+    """Launch B2's backward on ``v``'s card: the gradients ``(dv, dscale)``
+    of ``rmsnorm(v) * scale`` from the output's gradient ``dy`` and, for
+    the fused add, the sum's own ``ds`` (None: none), computed in float32;
+    ``dv`` in ``v``'s dtype (for the fused add, the gradient of both
+    addends), ``dscale`` in ``scale``'s, summed over the rows in a second
+    kernel from per-block partials (no atomics: the same every run)."""
+    if v.dtype not in _DTYPE_CODES or dy.dtype != v.dtype or (
+            ds is not None and ds.dtype != v.dtype):
+        raise TypeError(f"rmsnorm_bwd_cuda: unsupported dtypes {v.dtype}, "
+                        f"{dy.dtype}, {None if ds is None else ds.dtype} "
+                        "(all float32 or all bfloat16)")
+    others = (dy,) if ds is None else (dy, ds)
+    idx = _card("rmsnorm_bwd_cuda", v, scale, *others)
+    v, dy, scale = _contiguous(v), _contiguous(dy), _contiguous(scale)
+    ds = None if ds is None else _contiguous(ds)
+    dv = torch.empty_like(v)
+    dscale = torch.empty_like(scale)
+    d = v.shape[-1]
+    rows = v.numel() // d if d else 0
+    if not rows:
+        return dv, dscale.zero_()
+    lib = _library()
+    blocks = lib.rmsnorm_bwd_blocks(rows, d)
+    if blocks <= 0:
+        raise ValueError(f"rmsnorm_bwd_cuda: d={d} is wider than the "
+                         "backward takes")
+    part = torch.empty(blocks, d, dtype=torch.float32, device=v.device)
+    _launch("rmsnorm_bwd", lib.rmsnorm_bwd_launch,
+            (v.data_ptr(), dy.data_ptr(),
+             None if ds is None else ds.data_ptr(), scale.data_ptr(),
+             dv.data_ptr(), part.data_ptr(), dscale.data_ptr()), v, idx, eps,
+            v.dtype, scale)
+    return dv, dscale

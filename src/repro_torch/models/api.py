@@ -26,9 +26,10 @@ entry an axis: None, a mesh axis name, or a tuple of names.
 """
 from __future__ import annotations
 
-__all__ = ["DecoderLM", "HybridLM", "RwkvLM", "SERVE_TP_AXES", "VLM",
-           "Whisper", "build_model"]
+__all__ = ["ArraySpec", "DecoderLM", "HybridLM", "RwkvLM", "SERVE_TP_AXES",
+           "VLM", "Whisper", "build_model"]
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -50,6 +51,15 @@ SERVE_TP_AXES: dict = {
     "vocab": "model",
     "experts": "model",
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ArraySpec:
+    """Shape, dtype and logical axis names of one input array (the
+    reference's ``ArraySpec`` without its JAX sharding)."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: tuple
 
 
 def _param_specs(defs, table) -> dict:
@@ -166,8 +176,33 @@ class DecoderLM:
         return not T.uses_window_cache(self.cfg)
 
     def engine_refusal(self) -> Optional[str]:
-        """None: the serving engine serves the family."""
-        return None
+        """None: the serving engine serves the model; for a window-cache
+        model (gemma3) why it does not: its mixed cache decodes only as an
+        aligned batch, as in the reference."""
+        return T.WINDOW_ALIGNED_ONLY if T.uses_window_cache(self.cfg) \
+            else None
+
+    # -- training ---------------------------------------------------------------
+
+    def loss(self, params, batch: dict):
+        """Mean next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S)
+        over float32 weights -> ``(loss, {"ce", "aux", "tokens"})``; an
+        MoE model raises ``NotImplementedError`` (ROADMAP A13b)."""
+        return T.lm_loss(params, self.cfg, tokens=batch["tokens"],
+                         labels=batch["labels"])
+
+    def train_batch_specs(self, shape) -> dict:
+        """:class:`ArraySpec` of each training-batch key at ``shape``'s
+        ``global_batch`` x ``seq_len``."""
+        B, S = shape.global_batch, shape.seq_len
+        tok = ArraySpec((B, S), torch.int32, ("batch", "seq"))
+        return {"tokens": tok, "labels": tok}
+
+    def prefill_batch_specs(self, shape) -> dict:
+        """The training specs without ``labels``: what prefill takes."""
+        specs = dict(self.train_batch_specs(shape))
+        specs.pop("labels")
+        return specs
 
     def paged_leaf_specs(self, quant=None):
         """``{"k", "v"}`` :class:`repro_torch.serve.pages.PagedLeafSpec`:
@@ -238,14 +273,19 @@ class DecoderLM:
 
     def init_decode_state(self, batch: int, max_len: int, *, device=None):
         """Zeroed per-slot cache ``{"k", "v"}`` of (L, batch, max_len, Hkv, D)
-        in the compute dtype on ``device`` (``cuda`` unless named)."""
+        in the compute dtype on ``device`` (``cuda`` unless named); for a
+        window-cache model the mixed cache of the global layers' ``{"k",
+        "v"}`` and the sliding-window layers' rings ``{"k_loc", "v_loc"}``
+        (:func:`repro_torch.models.transformer.init_cache`)."""
         return T.init_cache(self.cfg, batch, max_len,
                             dtype=torch_dtype(self.cfg.dtype),
                             device=resolve_device(device))
 
     def decode_step(self, params, state, tokens, pos):
         """tokens (B, 1) at positions ``pos`` ((B,) or an int) -> float32
-        logits (B, 1, V); the K/V are written into ``state`` in place."""
+        logits (B, 1, V); the K/V are written into ``state`` in place.  A
+        window-cache model takes one int for the whole batch, and a
+        position vector raises ``ValueError``."""
         return T.decode_step(params, self.cfg, state, tokens, pos)
 
     def lm_head(self, params, hidden, comm=None):
@@ -270,8 +310,8 @@ class DecoderLM:
         return specs
 
     def serve_state_specs(self, batch: int, max_len: int) -> dict:
-        """Slot-parallel specs of the dense per-slot cache: its slot axis
-        over ``"model"``."""
+        """Slot-parallel specs of the dense per-slot cache (a window-cache
+        model's mixed one): its slot axis over ``"model"``."""
         del batch, max_len
         return _slot_specs(T.cache_specs(self.cfg))
 
@@ -303,6 +343,17 @@ class VLM(DecoderLM):
     (the modality frontend is a stub, as in the reference).  On the paged
     engine the image rides as a prefix of pseudo-tokens whose rows
     :meth:`DecoderLM.paged_prefill_chunk` takes from ``embeds``."""
+
+    def loss(self, params, batch: dict):
+        """Refused: training with image prefixes comes with ROADMAP A13b."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: VLM training (image-prefix batches) comes "
+            "with ROADMAP A13b")
+
+    def train_batch_specs(self, shape) -> dict:
+        """Refused with :meth:`loss`."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: VLM training batches come with ROADMAP A13b")
 
     def _embeds(self, params, batch):
         txt = T.embed_tokens(params, batch["tokens"],

@@ -170,8 +170,11 @@ def gqa_attention(q, k, v, *, causal: bool = True,
     (the reference passes ``BIG_WINDOW`` there).  ``q_offset``: absolute
     position of q[0], an int or (B,) (ragged decode).  ``kv_valid_len``:
     live prefix of the KV buffers (decode caches), an int or (B,).
-    ``k_start``: absolute position of k[0] (ring caches; negative positions
-    are masked).  Returns (B, Sq, Hq, D) in q's dtype.
+    ``k_start``: absolute position of k[0], an int (ring caches: the
+    window decode reads its ring of W keys as one chunk, ``kv_chunk=W``, as
+    the reference does, which raises for a ring over several chunks too;
+    keys at negative positions are masked).  Returns
+    (B, Sq, Hq, D) in q's dtype.
 
     Whole-sequence attention (``Sq == Sk``, no ``kv_valid_len``, no offsets)
     goes to :func:`repro_torch.kernels.ops.flash_attention`: the

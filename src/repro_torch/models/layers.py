@@ -152,3 +152,29 @@ def rope(x, positions, *, theta: float = 10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def masked_ce_sums(logits, labels, *, true_vocab=None, z_loss: float = 0.0):
+    """(sum of the nll, count) in float32 over ``labels >= 0``; with
+    ``true_vocab`` below the vocab axis, the padded tail is kept out of the
+    partition function; an optional z-loss."""
+    logits = logits.to(torch.float32)
+    v = logits.shape[-1]
+    if true_vocab is not None and true_vocab < v:
+        pad = torch.arange(v, device=logits.device) >= true_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    w = (labels >= 0).to(torch.float32)
+    return (nll * w).sum(), w.sum()
+
+
+def cross_entropy(logits, labels, *, true_vocab=None, z_loss: float = 0.0):
+    """Mean cross-entropy of :func:`masked_ce_sums`."""
+    tot, cnt = masked_ce_sums(logits, labels, true_vocab=true_vocab,
+                              z_loss=z_loss)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -38,7 +38,7 @@ meet the same weights as in the serial block, on one rank, and the block
 is bit for bit the serial one.  ``tp_comm`` (expert TP: the expert ff
 axis split, the down projection's partial sums all-reduced in float32) is
 the reference's training layout; the reference's ``rules`` /
-``shard_map`` training path comes with ROADMAP A13.
+``shard_map`` training path comes with ROADMAP A13b.
 """
 from __future__ import annotations
 

@@ -115,6 +115,18 @@ def embed_tokens(params, tokens, dtype=None):
     return L.embed(params["embed"], tokens)
 
 
+def _mm_f32(a, b):
+    """``a @ b`` of two 2-D tensors of one dtype, returned in float32: a
+    bf16 pair on a card asks cuBLAS for the float32 result of the bf16
+    product; the CPU has no such product, so there both operands are
+    widened first (their values are exact in float32)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def lm_logits(params, hidden, comm=None):
     """(B, S, d) -> (B, S, V) logits in float32; with a mesh ``comm`` the
     unembedding holds the rank's vocab shard and the shards' logits are
@@ -122,21 +134,12 @@ def lm_logits(params, hidden, comm=None):
 
     The reference multiplies in the compute dtype and accumulates into a
     float32 result (``preferred_element_type``).  Here a float32 model
-    multiplies in float32; a bf16 model on a card asks cuBLAS for a float32
-    output of the bf16 product (``torch.mm(..., out_dtype=float32)``), and
-    on the CPU, which has no such product, both bf16 operands are widened
-    to float32 first (their values are exact in float32).  An int8
+    multiplies in float32, a bf16 one through :func:`_mm_f32`.  An int8
     unembedding is dequantized to the hidden states' dtype first."""
     w = params["unembed"]["w"]
     if QZ.is_q8(w):
         w = QZ.dequantize_params(w, hidden.dtype)
-    h = hidden.reshape(-1, hidden.shape[-1])
-    if h.dtype == torch.float32:
-        out = h @ w
-    elif h.is_cuda:
-        out = torch.mm(h, w, out_dtype=torch.float32)
-    else:
-        out = h.float() @ w.float()
+    out = _mm_f32(hidden.reshape(-1, hidden.shape[-1]), w)
     out = out.reshape(*hidden.shape[:-1], w.shape[-1])
     return out if comm is None else comm.all_gather(out, axis=-1, tiled=True)
 
@@ -152,11 +155,22 @@ def uses_window_cache(cfg) -> bool:
     return bool(cfg.local_window and cfg.global_every)
 
 
-def _check_dense(cfg):
-    if uses_window_cache(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: window/ring caches are not ported yet: they come "
-            "with the non-paged families slice (ROADMAP A11)")
+def layer_groups(cfg) -> tuple[list, list]:
+    """(global layer indices, sliding-window layer indices)."""
+    glob = [i for i in range(cfg.n_layers) if cfg.window_for_layer(i) is None]
+    loc = [i for i in range(cfg.n_layers)
+           if cfg.window_for_layer(i) is not None]
+    return glob, loc
+
+
+# why a window-cache model is served only as an aligned batch, for every
+# refusal
+WINDOW_ALIGNED_ONLY = (
+    "served only as an aligned batch (prompts of one length, then decode "
+    "steps at one position for the whole batch), as in the reference: its "
+    "window-cache decode is aligned-only (repro/models/transformer.py:603 "
+    "asserts a scalar position, so the engine's per-slot positions crash "
+    "it at the first decode tick)")
 
 
 def _layer(tree, i: int):
@@ -393,17 +407,18 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 
 
 # ---------------------------------------------------------------------------
-# Dense per-slot cache (the engine's paged=False path)
+# The block over contiguous K/V, the cache-free forwards and the loss
 # ---------------------------------------------------------------------------
 
 def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
-                cache_v=None, cache_pos=None, comm=_SERIAL, ep_comm=None):
+                cache_v=None, cache_pos=None, ring: bool = False,
+                comm=_SERIAL, ep_comm=None):
     """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
     this block's feed-forward output (the MLP, or the serial MoE block plus
     any dense residual MLP) not yet added to it (the next norm adds it; the
     ``delta`` passed in is the previous block's, None before the first), and
-    the fresh K/V of this layer without a cache (whole-prompt prefill), the
-    cache itself with one.
+    the fresh K/V of this layer without a cache (whole-prompt prefill, the
+    training forward), the cache itself with one.
 
     With a cache (decode), ``cache_k``/``cache_v`` are this layer's
     (B, max_len, Hkv, D) views of the stacked cache: the new K/V are written
@@ -411,6 +426,12 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     place** with ``index_put_`` on those views, then the queries attend over
     the whole cache, masked by ``cache_pos + S``.  As the reference's
     ``dynamic_update_slice`` does, a start past ``max_len - S`` is clamped.
+    With ``ring`` they are a sliding-window layer's (B, W, Hkv, D) ring
+    (one token a step, ``cache_pos`` an int): its keys shift one slot
+    towards 0, the new K/V land in slot ``W - 1``, in place, and the query
+    attends over the ring as one chunk, slot ``j`` at position
+    ``cache_pos - W + 1 + j`` (negative positions masked), as the
+    reference's ``_window_decode_step`` does.
     ``comm`` / ``ep_comm``: the mesh transports of :func:`_paged_block`
     (the cache-free forward of the self-drafter under a mesh).
     """
@@ -419,6 +440,17 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     if cache_k is None:
         o = A.gqa_attention(q, k, v, causal=True, window=window,
                             kv_chunk=cfg.kv_chunk)
+    elif ring:
+        if q.shape[1] != 1 or not isinstance(cache_pos, int):
+            raise ValueError("a ring cache takes one token at one position "
+                             "for the whole batch a step")
+        W = cache_k.shape[1]
+        cache_k.copy_(torch.cat([cache_k[:, 1:], k], dim=1))
+        cache_v.copy_(torch.cat([cache_v[:, 1:], v], dim=1))
+        k, v = cache_k, cache_v
+        o = A.gqa_attention(q, k, v, causal=True, window=window,
+                            q_offset=cache_pos, k_start=cache_pos - W + 1,
+                            kv_chunk=W)
     else:
         B, S = q.shape[:2]
         max_len = cache_k.shape[1]
@@ -438,48 +470,199 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     return x, y, k, v
 
 
+def _remat(fn, remat: str):
+    """``fn`` recomputed in the backward pass (``"full"``: nothing of it
+    saved but its inputs, the reference's ``nothing_saveable``), or as it
+    is (``"none"``, and whenever autograd is off)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) "
+            "comes with ROADMAP A13b; use 'full' or 'none'")
+    if remat != "full":
+        raise ValueError(f"unknown remat {remat!r}; want none | dots | full")
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def compute_params(tree, dtype):
+    """A block's weights cast to the compute ``dtype`` where they are used,
+    the reference's ``astype`` at every call; the norms' scales stay as
+    they are (the reference reads them in float32).  The casts are
+    differentiable: a float32 weight's gradient arrives in float32."""
+    if isinstance(tree, dict):
+        return {k: v if k == "scale" else compute_params(v, dtype)
+                for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _blocks_forward(params, cfg, x, *, comm=_SERIAL, ep_comm=None,
+                    dtype=None, remat: str = "none"):
+    """Every block over the whole sequence ``x`` (B, S, d), causal, then the
+    final norm: the shared loop of the scoring forward and the training
+    forward.  ``dtype``: cast each block's weights to it inside the block
+    (:func:`compute_params`); ``remat``: :func:`_remat` of each block."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    delta = None
+    for i, window in enumerate(layer_windows(cfg)):
+        def body(x, delta, p=_layer(params["blocks"], i), window=window):
+            if dtype is not None:
+                p = compute_params(p, dtype)
+            x, y, _, _ = block_apply(p, x, cfg, positions=positions,
+                                     window=window, delta=delta, comm=comm,
+                                     ep_comm=ep_comm)
+            return x, y
+        x, delta = _remat(body, remat)(x, delta)
+    return L.final_rmsnorm(params["final_norm"], x, delta)
+
+
 def forward(params, cfg, tokens, comm=None, ep_comm=None):
     """Scoring forward without a cache (inference only): tokens (B, S) ->
     the final hidden states (B, S, d), every layer's attention causal over
     the whole sequence (the flash-attention kernel on a card).  The
-    reference's also returns the MoE auxiliary loss, a training quantity
-    that comes with ROADMAP A13.  ``comm`` / ``ep_comm``: the mesh
-    transports of the paged calls (the rank's shard of the weights)."""
-    comm = _SERIAL if comm is None else comm
-    x = embed_tokens(params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
-    delta = None
-    for i, window in enumerate(layer_windows(cfg)):
-        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                                     positions=positions, window=window,
-                                     delta=delta, comm=comm, ep_comm=ep_comm)
-    return L.final_rmsnorm(params["final_norm"], x, delta)
+    training forward is :func:`forward_train`.  ``comm`` / ``ep_comm``:
+    the mesh transports of the paged calls (the rank's shard of the
+    weights)."""
+    return _blocks_forward(params, cfg, embed_tokens(params, tokens),
+                           comm=_SERIAL if comm is None else comm,
+                           ep_comm=ep_comm)
 
+
+def _check_trainable(cfg):
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training (its router's auxiliary loss and the "
+            "expert blocks' backward) comes with ROADMAP A13b")
+
+
+def forward_train(params, cfg, tokens=None, inputs_embeds=None):
+    """Training forward over float32 (``param_dtype``) weights: tokens
+    (B, S), or their embeddings (B, S, d) -> ``(hidden, aux)``, the final
+    hidden states (B, S, d) in the compute dtype and the auxiliary loss
+    (0 for a dense model).  Each block runs in the compute dtype and is
+    recomputed in the backward pass under ``cfg.remat``."""
+    _check_trainable(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], tokens).to(dtype) if inputs_embeds is None \
+        else inputs_embeds
+    hidden = _blocks_forward(params, cfg, x, dtype=dtype, remat=cfg.remat)
+    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+class _LogitsF32(torch.autograd.Function):
+    """``h @ w`` in float32 from hidden states ``h`` (N, d) in the compute
+    dtype and a float32 unembedding ``w`` (d, V), cast to the compute
+    dtype inside (the reference's ``einsum(..., preferred_element_type=
+    float32)``).  The backward takes the float32 cotangent to the compute
+    dtype for ``dh`` and returns ``dw`` in float32 (a bf16 product
+    accumulated into a float32 result), so no bf16 copy of ``w`` is kept
+    between the passes."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h, w.to(h.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        gc = g.to(h.dtype)
+        dh = gc @ w.to(h.dtype).T
+        dw = _mm_f32(h.T.contiguous(), gc)
+        return dh, dw.to(w.dtype)
+
+
+def loss_from_hidden(unembed_w, hidden, labels, cfg, loss_chunks: int = 8):
+    """Mean cross-entropy from the final hidden states (B, S, d) and their
+    labels (B, S) (``< 0``: not scored), and the count scored.  The logits
+    (float32, (B, S/chunks, V) at a time) are taken a sequence chunk at a
+    time and recomputed in the backward pass, so the whole (B, S, V)
+    never exists."""
+    S = hidden.shape[1]
+    chunks = loss_chunks if S % loss_chunks == 0 and S >= loss_chunks else 1
+    c = S // chunks
+
+    def chunk_loss(h_c, l_c, w):
+        B = h_c.shape[0]
+        logits = _LogitsF32.apply(h_c.reshape(-1, h_c.shape[-1]), w)
+        return L.masked_ce_sums(logits.reshape(B, c, -1), l_c,
+                                true_vocab=cfg.vocab, z_loss=cfg.z_loss)
+
+    fn = _remat(chunk_loss, "full")
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(chunks):
+        t, n = fn(hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+                  unembed_w)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def lm_loss(params, cfg, tokens=None, labels=None, inputs_embeds=None,
+            loss_chunks: int = 8):
+    """``(loss, {"ce", "aux", "tokens"})`` of next-token prediction over
+    float32 weights (:func:`forward_train`, :func:`loss_from_hidden`)."""
+    hidden, aux = forward_train(params, cfg, tokens, inputs_embeds)
+    ce, cnt = loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
+                               loss_chunks)
+    return ce, {"ce": ce, "aux": aux, "tokens": cnt}
+
+
+# ---------------------------------------------------------------------------
+# Dense per-slot cache (the engine's paged=False path; gemma3's mixed
+# window/ring cache as an aligned batch)
+# ---------------------------------------------------------------------------
 
 def cache_specs(cfg) -> dict:
     """The logical axes of :func:`init_cache`'s leaves (the reference's)."""
-    _check_dense(cfg)
     spec = (None, "batch", "kv_seq", None, None)
-    return {"k": spec, "v": spec}
+    if not uses_window_cache(cfg):
+        return {"k": spec, "v": spec}
+    return {"k": spec, "v": spec, "k_loc": spec, "v_loc": spec}
 
 
 def init_cache(cfg, batch: int, max_len: int, *, dtype, device) -> dict:
-    """Zeroed per-slot cache ``{"k", "v"}`` of (L, batch, max_len, Hkv, D)."""
-    _check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.padded_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Zeroed per-slot cache: ``{"k", "v"}`` of (L, batch, max_len, Hkv,
+    D); for a window-cache model the global layers' ``{"k", "v"}`` of
+    (n_global, ...) and the ring buffers ``{"k_loc", "v_loc"}`` of
+    (n_local, batch, W, Hkv, D), ``W = min(local_window, max_len)``."""
+    tail = (cfg.padded_kv_heads, cfg.head_dim)
+
+    def zeros(*shape):
+        return torch.zeros(shape + tail, dtype=dtype, device=device)
+    if not uses_window_cache(cfg):
+        return {"k": zeros(cfg.n_layers, batch, max_len),
+                "v": zeros(cfg.n_layers, batch, max_len)}
+    glob, loc = layer_groups(cfg)
+    W = min(cfg.local_window, max_len)
+    return {"k": zeros(len(glob), batch, max_len),
+            "v": zeros(len(glob), batch, max_len),
+            "k_loc": zeros(len(loc), batch, W),
+            "v_loc": zeros(len(loc), batch, W)}
+
+
+def _cache_layer(cfg, cache, i: int):
+    """Layer ``i``'s (k, v) views of ``cache`` and whether they are a ring."""
+    if not uses_window_cache(cfg):
+        return cache["k"][i], cache["v"][i], False
+    glob, loc = layer_groups(cfg)
+    if i in glob:
+        g = glob.index(i)
+        return cache["k"][g], cache["v"][g], False
+    j = loc.index(i)
+    return cache["k_loc"][j], cache["v_loc"][j], True
 
 
 def prefill(params, cfg, tokens=None, max_len: Optional[int] = None, *,
             inputs_embeds=None):
     """Run whole prompts (B, S), or their embeddings ``inputs_embeds``
     (B, S, d), and build their cache.  Returns ``(cache, hidden)``: the
-    cache ``{"k", "v"}`` of (L, B, max_len, Hkv, D) holds the prompt's K/V
-    in its first S positions and zeros after, and hidden is the final
-    (B, S, d) sequence, so a caller with right-padded prompts reads each at
-    its own valid length."""
-    _check_dense(cfg)
+    cache (:func:`init_cache`) holds the prompt's K/V in its first S
+    positions and zeros after, and hidden is the final (B, S, d) sequence,
+    so a caller with right-padded prompts reads each at its own valid
+    length.  A sliding-window layer keeps the last ``min(W, S)`` positions
+    in its ring, right-aligned (slot ``W - 1`` is position ``S - 1``), the
+    slots before them zeros (masked as negative positions at decode)."""
     x = embed_tokens(params, tokens) if inputs_embeds is None \
         else inputs_embeds
     B, S = x.shape[:2]
@@ -491,25 +674,58 @@ def prefill(params, cfg, tokens=None, max_len: Optional[int] = None, *,
         x, delta, k, v = block_apply(_layer(params["blocks"], i), x, cfg,
                                      positions=positions, window=window,
                                      delta=delta)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        ck, cv, ring = _cache_layer(cfg, cache, i)
+        if ring:
+            take = min(ck.shape[1], S)
+            ck[:, ck.shape[1] - take:] = k[:, S - take:]
+            cv[:, cv.shape[1] - take:] = v[:, S - take:]
+        else:
+            ck[:, :S] = k
+            cv[:, :S] = v
     return cache, L.final_rmsnorm(params["final_norm"], x, delta)
+
+
+def _decode_layers(params, cfg, cache, tokens, pos):
+    """Every block's decode of ``tokens`` (B, 1) at ``pos`` (an int for a
+    window cache, else an int or (B,) tensor, taken to the device), then
+    the logits head."""
+    x = embed_tokens(params, tokens)
+    if not uses_window_cache(cfg):
+        pos = torch.as_tensor(pos, device=x.device)
+    positions = torch.as_tensor(pos, device=x.device)[..., None] \
+        + torch.arange(1, device=x.device)
+    delta = None
+    for i, window in enumerate(layer_windows(cfg)):
+        ck, cv, ring = _cache_layer(cfg, cache, i)
+        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
+                                     positions=positions, window=window,
+                                     delta=delta, cache_k=ck, cache_v=cv,
+                                     cache_pos=pos, ring=ring)
+    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
+
+
+def _window_decode_step(params, cfg, cache, tokens, pos):
+    """One token for every row of an aligned batch against the mixed cache,
+    in place: a global layer writes position ``pos`` of its full cache and
+    attends below ``pos + 1``, a sliding-window layer shifts its ring and
+    attends over it (:func:`block_apply`).  ``pos``: one int for the whole
+    batch; a per-row vector raises ``ValueError``, as the reference's
+    aligned-only decode asserts."""
+    t = torch.as_tensor(pos)
+    if t.ndim != 0:
+        raise ValueError(f"{cfg.name}: pos must be one integer for the whole "
+                         f"batch, got shape {tuple(t.shape)}: the model is "
+                         f"{WINDOW_ALIGNED_ONLY}")
+    return _decode_layers(params, cfg, cache, tokens, int(t.item()))
 
 
 def decode_step(params, cfg, cache, tokens, pos):
     """One token for every slot against the per-slot cache, in place.
 
     tokens: (B, 1);  pos: an int (aligned) or (B,) int tensor (ragged
-    slots): each slot's current length, where its new K/V lands.  Returns
-    float32 logits (B, 1, V)."""
-    _check_dense(cfg)
-    x = embed_tokens(params, tokens)
-    pos = torch.as_tensor(pos, device=x.device)
-    positions = pos[..., None] + torch.arange(1, device=x.device)
-    delta = None
-    for i, window in enumerate(layer_windows(cfg)):
-        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                                     positions=positions, window=window,
-                                     delta=delta, cache_k=cache["k"][i],
-                                     cache_v=cache["v"][i], cache_pos=pos)
-    return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
+    slots): each slot's current length, where its new K/V lands; a
+    window-cache model takes one int only (:func:`_window_decode_step`).
+    Returns float32 logits (B, 1, V)."""
+    if uses_window_cache(cfg):
+        return _window_decode_step(params, cfg, cache, tokens, pos)
+    return _decode_layers(params, cfg, cache, tokens, pos)

@@ -9,7 +9,7 @@ self-attention, cross-attention over the encoder output, LayerNorm (eps
 MLPs; whisper's attention has q and v biases and no k bias.  Params keep
 the reference's keys and shapes (``enc_blocks`` / ``dec_blocks`` stacked
 on a leading layer axis).  Training's ``decode_train`` and ``loss`` come
-with ROADMAP A13.
+with ROADMAP A13b.
 
 Serving runs through the paged engine: the decoder's self-attention K/V
 page like a decoder-only LM's (B1, the paged-attention kernel, at G 1),

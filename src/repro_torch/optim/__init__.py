@@ -1,4 +1,12 @@
-"""Optimizer-side numerics of the port.  For now only the symmetric int8
-quantizer of :mod:`repro_torch.optim.compress`, which the serving stack's
-int8 KV pages and int8 weights use; the gradient all-reduce that is its
-other consumer in the reference comes with training (ROADMAP A13)."""
+"""Optimizer-side numerics of the port: AdamW with its schedule and
+global-norm clipping (:mod:`repro_torch.optim.adamw`, the trainer's), and
+the symmetric int8 quantizer of :mod:`repro_torch.optim.compress`, which
+the serving stack's int8 KV pages and int8 weights use.  The compressed
+gradient all-reduce, that quantizer's other consumer in the reference,
+comes with training over ``torch.distributed`` (ROADMAP A13b)."""
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     clip_by_global_norm, global_norm,
+                                     lr_schedule)
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update",
+           "clip_by_global_norm", "global_norm", "lr_schedule"]

@@ -9,9 +9,10 @@ to even, as ``jnp.round`` does, and the division is a true division, so
 identical inputs give identical codes and scales in both packages.
 
 The error-feedback all-reduce (``compressed_psum``) comes with training
-(ROADMAP A13).  Quantizing works on one float32 copy of ``g`` in place,
-and dequantizing writes its result in one pass, so a multi-gigabyte weight
-never meets a chain of float32 temporaries.
+over ``torch.distributed`` (ROADMAP A13b).  Quantizing works on one
+float32 copy of ``g`` in place, and dequantizing writes its result in one
+pass, so a multi-gigabyte weight never meets a chain of float32
+temporaries.
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ seed and the logits; a ``torch.Generator`` could not reproduce it.
   ``torch.func.vmap``, so the science apps' chains and walkers draw from
   explicit keys where the vmap cannot hide a generator's state.
 * A **draw** (:func:`bits`, :func:`uniform`, :func:`normal`,
-  :func:`categorical`) runs on the device of the tensor it serves (the
+  :func:`randint`, :func:`categorical`) runs on the device of the tensor it serves (the
   logits' for a categorical, a tensor key's own), one threefry lane per
   element.
 
@@ -33,7 +33,7 @@ indices ``0..n-1`` the same way and keeps both words as the new keys;
 from __future__ import annotations
 
 __all__ = ["PRNGKey", "bits", "categorical", "fold_in", "gumbel", "normal",
-           "split", "threefry2x32", "uniform"]
+           "randint", "split", "threefry2x32", "uniform"]
 
 import numpy as np
 import torch
@@ -171,6 +171,29 @@ def uniform(key, shape=(), *, minval: float = 0.0, maxval: float = 1.0,
     span = torch.full((), maxval, dtype=torch.float32, device=device) - lo
     fused = (f.double() * span.double() + lo.double()).to(torch.float32)
     return torch.maximum(lo, fused)
+
+
+def randint(key, shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)``, as ``jax.random.randint``
+    computes them for int32 (64 random bits an element, from the two keys
+    of ``split(key)``, reduced modulo the span in uint32 arithmetic, its
+    wrap-arounds included: for a span above 2**16 the multiplier
+    ``2**32 mod span`` wraps to 0 there, so only the low word counts).
+    ``minval``/``maxval`` are ints in int32's range; ``maxval <= minval``
+    gives ``minval``."""
+    lo_lim, hi_lim = -2**31, 2**31 - 1
+    if not (lo_lim <= minval <= hi_lim and lo_lim <= maxval <= hi_lim):
+        raise OverflowError(f"randint: [{minval}, {maxval}) is outside "
+                            "int32")
+    k = split(key)
+    higher = bits(k[0], shape, device=device)
+    lower = bits(k[1], shape, device=device)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    off = ((((higher % span) * mult) & MASK) + lower % span) & MASK
+    return (minval + off % span).to(torch.int32)
 
 
 def normal(key, shape=(), *, device=None) -> torch.Tensor:

@@ -4,8 +4,9 @@ per-slot, qwen2-7b and rwkv6-3b; qwen3-moe paged, placed and unplaced) on
 the card through the kernels against the same engine on the CPU, the MoE
 block over NCCL at world 1 against the serial block, the engine on a
 serving mesh of one NCCL rank against the unmeshed engine, B1 at the
-per-rank head shapes of tensor parallelism, and zamba2's aligned batch the
-same way.  Every test here needs a card
+per-rank head shapes of tensor parallelism, zamba2's and gemma3's aligned
+batches the same way, and training: B2's and B3's backward kernels against
+autograd through their plain versions, a SMOKE trainer card == CPU.  Every test here needs a card
 and skips with a reason where none is visible; the file imports no JAX, so
 it runs on a card's host that has none:
 
@@ -1227,3 +1228,166 @@ def test_mesh_engine_world1_nccl_matches_unmeshed(card, tmp_path, arch,
     assert got[0] == want
     for k in got[1]:
         assert got[1][k] == eng.stats[k], k
+
+
+# -- training (ROADMAP A13a): the backward kernels, gemma3, a trainer -------
+
+# B2's backward: the rows and widths of training (QK-norms d 128 and 256,
+# qwen3-1.7b 2048, gemma3 2560), one row, a width off every vector
+BWD_NORM_CASES = [(4096, 128), (640, 256), (8192, 2048), (1000, 2560),
+                  (1, 2048), (7, 100)]
+# max |d| over max(1, max |autograd|): float32 summation order; bf16 the
+# gradient rounded once to bf16 (one ulp 2**-7 of O(1) values) where the
+# float32 autograd rounds none
+BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _grads(fn, *tensors, cot):
+    leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward([o for o in outs if o is not None],
+                            [c for o, c in zip(outs, cot) if o is not None])
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", BWD_NORM_CASES)
+def test_rmsnorm_backward_kernels_match_autograd(card, dtype, rows, d):
+    """rmsnorm and the fused add (its sum read on, and not), on the card
+    through the backward kernel, against autograd through the plain
+    versions in float32 on the same inputs."""
+    from repro_torch.kernels.rmsnorm import (add_rmsnorm_plain,
+                                             rmsnorm_plain)
+    rng = np.random.default_rng(rows + d)
+    dt = DTYPES[dtype]
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape))
+                                .astype(np.float32)).to(card)
+    x, delta, gy, gs = (t(rows, d).to(dt) for _ in range(4))
+    s = 1 + t(d, scale=0.1)
+    tol = BWD_TOL[dtype]
+    ops.reset_counts()
+    got = _grads(ops.rmsnorm, x, s, cot=(gy,))
+    want = _grads(rmsnorm_plain, x.float(), s, cot=(gy.float(),))
+    for g, w in zip(got, want):
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), err
+    for keep in (True, False):
+        got = _grads(lambda a, b, c: ops.add_rmsnorm(a, b, c, keep_sum=keep),
+                     x, delta, s, cot=(gs, gy))
+        want = _grads(lambda a, b, c: add_rmsnorm_plain(a, b, c,
+                                                        keep_sum=keep),
+                      x.float(), delta.float(), s,
+                      cot=(gs.float(), gy.float()))
+        for g, w in zip(got, want):
+            err = (g.float() - w).abs().max().item()
+            assert err <= tol * max(1.0, w.abs().max().item()), (keep, err)
+    torch.cuda.synchronize()
+    assert ops.COUNTS["rmsnorm_bwd"].kernel == 3
+    assert ops.COUNTS["rmsnorm_add_bwd"].kernel == 2
+    assert ops.COUNTS["rmsnorm"].plain == 0
+    ops.reset_counts()
+
+
+# (B, S, Hq, Hkv, D, causal, window): SMOKE, qwen3-1.7b's heads at D 128,
+# gemma3's 8/4 at D 256 windowed, a ragged S, bidirectional
+BWD_FLASH_CASES = [(2, 64, 4, 2, 16, True, None), (1, 100, 4, 1, 32, True, 8),
+                   (1, 257, 16, 8, 128, True, None),
+                   (1, 300, 8, 4, 256, True, 64),
+                   (2, 77, 2, 2, 64, False, None)]
+# dq/dk/dv are sums over keys (queries) of O(1) terms: float32 within
+# 1e-4 of the largest, bf16 within 2e-2 (inputs, output and dO rounded to
+# bf16 on the card's side only)
+BWD_ATTN_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", BWD_FLASH_CASES)
+def test_flash_attention_backward_kernel_matches_autograd(
+        card, dtype, B, S, Hq, Hkv, D, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(S + D)
+    dt = DTYPES[dtype]
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, dt)
+    q, k, v, g = t(B, S, Hq, D), t(B, S, Hkv, D), t(B, S, Hkv, D), \
+        t(B, S, Hq, D)
+    ops.reset_counts()
+    got = _grads(lambda a, b, c: ops.flash_attention(a, b, c, causal=causal,
+                                                     window=window),
+                 q, k, v, cot=(g,))
+    want = _grads(lambda a, b, c: flash_attention_plain(
+        a, b, c, causal=causal, window=window), q.float(), k.float(),
+        v.float(), cot=(g.float(),))
+    torch.cuda.synchronize()
+    for gg, w, name in zip(got, want, ("dq", "dk", "dv")):
+        err = (gg.float() - w).abs().max().item()
+        assert err <= BWD_ATTN_REL[dtype] * max(1.0, w.abs().max().item()), \
+            (name, err)
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert ops.COUNTS["flash_attention"].plain == 0
+    ops.reset_counts()
+
+
+def test_kernels_without_backward_refuse_grad(card):
+    x = torch.ones(2, 3, 8, device=card, requires_grad=True)
+    z = torch.ones(2, 3, 8, device=card)
+    with pytest.raises(NotImplementedError, match="A13b"):
+        ops.gated_rmsnorm(x, z, torch.ones(8, device=card))
+    with pytest.raises(NotImplementedError, match="Sq == Sk"):
+        ops.flash_attention(torch.ones(1, 2, 2, 16, device=card,
+                                       requires_grad=True),
+                            torch.ones(1, 3, 2, 16, device=card),
+                            torch.ones(1, 3, 2, 16, device=card))
+
+
+def test_gemma3_aligned_batch_on_card_matches_cpu(card):
+    """SMOKE gemma3-4b (float32): prefill then 12 aligned decode steps past
+    the ring's wrap, greedy, card == CPU."""
+    model = build_model(smoke_config("gemma3-4b"))
+    cpu_params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(card), cpu_params)
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, model.cfg.vocab, (2, 11)).astype(np.int32))
+    outs = []
+    for params, dev in ((cpu_params, "cpu"), (card_params, card)):
+        cache, hidden = model.prefill(params, prompts.to(dev), 24)
+        tok = model.lm_head(params, hidden[:, -1:]).argmax(-1)
+        toks = [tok]
+        for step in range(12):
+            tok = model.decode_step(params, cache, tok.int(), 11 + step) \
+                .argmax(-1)
+            toks.append(tok)
+        outs.append(torch.cat(toks, 1).cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_smoke_trainer_on_card_matches_cpu(card):
+    """Three float32 SMOKE qwen3-1.7b trainer steps on the card (B2 and B3
+    backward kernels) against the CPU from the same weights and batches."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    model = build_model(smoke_config("qwen3-1.7b"))
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    hist = {}
+    for dev in ("cpu", card):
+        ops.reset_counts()
+        tr = Trainer(model, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                        decay_steps=3),
+                     TrainerConfig(steps=3, log_every=100),
+                     make_data_iter(SyntheticTask(model.cfg, 4, 32),
+                                    device=dev),
+                     device=dev, params=params, log=lambda s: None)
+        hist[str(dev)] = tr.fit()["history"]
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 3 * model.cfg.n_layers
+    assert ops.COUNTS["rmsnorm_bwd"].kernel > 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    ops.reset_counts()
+    for a, b in zip(hist["cpu"], hist["cuda"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-3)

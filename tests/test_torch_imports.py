@@ -56,6 +56,12 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.models.whisper\n"
             "import repro_torch.configs.llava_next_mistral_7b\n"
             "import repro_torch.configs.whisper_tiny\n"
+            "import repro_torch.configs.gemma3_4b, repro_torch.data\n"
+            "import repro_torch.data.pipeline, repro_torch.optim.adamw\n"
+            "import repro_torch.train, repro_torch.train.checkpoint\n"
+            "import repro_torch.train.fault, repro_torch.train.state\n"
+            "import repro_torch.train.step, repro_torch.train.trainer\n"
+            "import repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -64,3 +70,23 @@ def test_port_runs_without_loading_jax():
                           env={"PYTHONPATH": str(REPO / "src"),
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_train_launcher_runs_without_loading_jax():
+    """``python -m repro_torch.launch.train --smoke --device cpu --steps
+    3`` trains and never loads JAX or the reference package."""
+    code = ("import sys, runpy\n"
+            "sys.argv = ['train', '--smoke', '--device', 'cpu', '--steps', "
+            "'3', '--batch', '2', '--seq', '16']\n"
+            "runpy.run_module('repro_torch.launch.train', "
+            "run_name='__main__')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[train] qwen3-1.7b: loss " in proc.stdout
+    assert "over 3 steps" in proc.stdout

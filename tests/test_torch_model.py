@@ -346,10 +346,17 @@ def test_dense_path_routes_only_prefill_to_flash(models):
 
 
 def test_window_caches_wait_for_their_slice(models):
+    """A window-cache config gets the reference's mixed cache (its slice,
+    ROADMAP A11, has landed): full K/V for the global layers, rings of
+    min(window, max_len) for the sliding-window ones, zeroed."""
     _, _, model, _ = models
     gemma_like = model.cfg.replace(local_window=4, global_every=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.init_cache(gemma_like, 1, 8, dtype=torch.float32, device="cpu")
+    cache = T.init_cache(gemma_like, 1, 8, dtype=torch.float32, device="cpu")
+    want = JT.init_cache(gemma_like, 1, 8, dtype=jnp.float32)
+    assert sorted(cache) == sorted(want)
+    for name, leaf in cache.items():
+        assert tuple(leaf.shape) == want[name].shape, name
+        assert not leaf.any()
 
 
 def test_layers_match_reference():
