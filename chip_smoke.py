@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result lines):
                  limit.
 2. build       — compiles the CUDA kernels from ``src/repro_torch/csrc``
                  (one nvcc per source, all at once) and prints what ptxas
-                 reports of the flash-attention kernels' (both routes), the
+                 reports of the flash-attention kernels' (both routes, the
+                 backward's too), the
                  D 97-128 paged-attention split kernels' and the combine
                  kernels', the K-64 wkv kernels' (both routes: the
                  CUDA-core time loop, and the tensor-core route's chunk
@@ -28,8 +29,8 @@ Phases (any failure exits non-zero before the result lines):
                  (qwen2.5-14b's 40/8 heads) and 16 (qwen3-moe's 64/4, float
                  and int8 pages; RMSNorm also at its d 4096 and its QK-norm's
                  128);
-                 flash attention on its tensor-core route (bf16, D 64 and
-                 128: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
+                 flash attention on its tensor-core route (bf16, D 64, 128
+                 and 256: S 1024, 2048, a ragged 1000, a window, Sq != Sk,
                  strided q/k/v) and its CUDA-core route; paged attention
                  split over many key ranges (tables of 128 and 512 pages,
                  lengths on and beside a split edge, W 64 deep in the
@@ -329,9 +330,11 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  x 2048 and QK-norm rows at d 128, gemma3's d 2560 and
                  256), bf16 and float32, and B3's backward (bf16 D 128 S
                  2048 16/8 causal, D 256 S 2048 8/4 window 1024, a ragged
-                 S 1000, float32 D 16), each against autograd through the
-                 plain version in float32 on the same inputs, the limits
-                 printed with their reasons.
+                 S 1000, D 64 non-causal, D 128 16/4 window 512, float32
+                 D 16), each against autograd through the plain version in
+                 float32 on the same inputs, the limits printed with their
+                 reasons; every bf16 D 64/128 call on the backward's
+                 tensor-core route (counted ``flash_attention_bwd_tc``).
 33. small-train — after the small phases: 5 trainer steps of float32
                  SMOKE qwen3-1.7b on the card against the CPU from the same
                  seeded weights and batches: losses within 1e-4, gradient
@@ -342,7 +345,8 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  remat full) through ``Trainer`` at 4 x 2048 for 20 steps:
                  every loss finite and the last below the first; B3 56
                  launches a step (28 and 28 recomputed), all on the tensor
-                 cores, its backward 28; B2 113 forward launches a step
+                 cores, its backward 28, all on the tensor cores; B2 113
+                 forward launches a step
                  twice but the final norm's, its backward 113 (56 of the
                  fused add); no other kernel, no plain version; B3 and B2,
                  forward and backward, held against their plain versions
@@ -357,7 +361,7 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  4 prompts of 2000 tokens (the ring compressed, then
                  wrapped each step) and 4 of 300 (the ring left-padded),
                  greedy to 32: B3 34 launches a prefill (29 windowed, 5
-                 global, none on the tensor cores) and none at decode, B2
+                 global, all on the tensor cores) and none at decode, B2
                  69 + 68 fused a prefill or step, nothing else; B3 and B2
                  held against their plain versions at every shape a batch
                  called them at; teacher
@@ -374,7 +378,9 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  plain version,
                  one PyTorch yardstick (SDPA with the same mask, SDPA's
                  backward, ``F.rms_norm``'s backward with the same float32
-                 scale) and its bound.
+                 scale; beside an unwindowed row also SDPA with
+                 ``is_causal=True``, which can take its flash backend where
+                 an explicit mask cannot) and its bound.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly; so
@@ -1304,6 +1310,7 @@ def phase_timing(dev) -> dict:
     shapes (4 slots, bf16, qwen2-7b): device time from CUDA-graph replay,
     with the host-issued (eager) time printed beside."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     cfg = get_config("qwen2-7b")
     dtype = torch.bfloat16
     rng = np.random.default_rng(1)
@@ -1365,7 +1372,8 @@ def phase_timing(dev) -> dict:
         fv = torch.randn(1, S, Hkv, D, device=dev).to(dtype)
         nbytes = (2 * fq.numel() + fk.numel() + fv.numel()) * fq.element_size()
         nops = 4 * D * Hq * S * (S + 1) // 2          # visible pairs only
-        measure("flash_attention" if S == 1024 else f"flash_attention S={S}", {
+        name = "flash_attention" if S == 1024 else f"flash_attention S={S}"
+        measure(name, {
             "kernel": [lambda: ops.flash_attention(fq, fk, fv)] * 4,
             "plain": [lambda: ref.flash_attention(fq, fk, fv)] * 4,
             "library": [lambda: F.scaled_dot_product_attention(
@@ -1373,6 +1381,13 @@ def phase_timing(dev) -> dict:
                 is_causal=True, enable_gqa=True)] * 4},
             f"prefill B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal bf16",
             nbytes, nops)
+        # the same launch writing each row's log-sum-exp, as training's
+        # forward does: serving passes no pointer and writes none
+        out[name]["with_lse_ms"] = device_ms(
+            [lambda: flash_attention_cuda(fq, fk, fv, with_lse=True)] * 4)
+        log(f"timing {name} with the log-sum-exp written (training's "
+            f"forward): device {out[name]['with_lse_ms']:.5f} ms against "
+            f"serving's {out[name]['ms']:.5f} ms")
 
     # the prefill-chunk shapes (one window of 64 at position 192): kept in
     # the B1 entries as chunk_*
@@ -4654,10 +4669,13 @@ TRAIN_NORM_CASES = [(8192, 2048), (131072, 128), (65536, 128), (8000, 2560),
 TRAIN_NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # B3's backward: (B, S, Hq, Hkv, D, causal, window, dtype): qwen3-1.7b's
 # training shape (two sequences of it), gemma3's windowed layers, a ragged
-# S, SMOKE's float32 D 16
+# S, D 64 non-causal (whisper's encoder heads), D 128 windowed at G 4,
+# SMOKE's float32 D 16; bf16 at D 64 and 128 on the tensor cores
 TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
                      (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
                      (2, 1000, 16, 8, 128, True, None, torch.bfloat16),
+                     (2, 1500, 6, 6, 64, False, None, torch.bfloat16),
+                     (1, 2048, 16, 4, 128, True, 512, torch.bfloat16),
                      (2, 300, 4, 2, 16, True, None, torch.float32)]
 # dq, dk, dv are sums of O(1) terms over the keys or queries: bf16 within
 # 2e-2 of the largest magnitude (the kernel reads the bf16 forward output
@@ -4685,12 +4703,13 @@ GEMMA_NEW = 32
 # The teacher-forcing gate: the last decode step's logits against the last
 # position of a prefill of the same tokens, over the vocab's 262144 logits
 # (~1 rms at random init).  The two reach them through other kernels
-# (flash attention's CUDA-core route against the decode's plain attention,
-# GEMMs of other row counts), so bf16 rounds at other places (2**-8 of a
-# value) in each of 34 layers: at full depth in bf16 within
-# GEMMA_BF16_TOL, about three times the largest gap measured on an H100
-# (0.0309 and 0.0288, no flip, PERF.md §6: QK-norm keeps this random model
-# far less chaotic than qwen2's), the argmax equal unless the prefill's
+# (flash attention's tensor-core route, P as a bf16 pair, against the
+# decode's plain attention, GEMMs of other row counts), so bf16 rounds at
+# other places (2**-8 of a value) in each of 34 layers: at full depth in
+# bf16 within GEMMA_BF16_TOL, about three times the largest gap measured on
+# an H100 when the prefill ran on CUDA cores (0.0309 and 0.0288, no flip,
+# PERF.md §6: QK-norm keeps this random model far less chaotic than
+# qwen2's), the argmax equal unless the prefill's
 # top-2 margin is below NEAR_TIE.  The kernels' own shapes are held to
 # their plain versions apart from this gate (KernelShapes).
 # The same at the first GEMMA_GATE_DEPTH layers (the five windowed layers
@@ -4812,10 +4831,14 @@ def phase_parity_train(dev) -> dict:
     counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
               if c.kernel or c.plain}
     want_b2 = 2 * 3 * len(TRAIN_NORM_CASES)
+    want_tc = sum(dt == torch.bfloat16 and D in (64, 128)
+                  for _, _, _, _, D, _, _, dt in TRAIN_FLASH_CASES)
     if (counts.get("rmsnorm_bwd", (0, 0))[0] != want_b2
             or counts.get("flash_attention_bwd", (0, 0))[0]
-            != len(TRAIN_FLASH_CASES)):
-        raise AssertionError(f"parity-train: backward launches {counts}")
+            != len(TRAIN_FLASH_CASES)
+            or counts.get("flash_attention_bwd_tc", (0, 0))[0] != want_tc):
+        raise AssertionError(f"parity-train: backward launches {counts}; "
+                             f"want {want_tc} on the tensor cores")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"parity-train: B2's backward (rmsnorm, add_rmsnorm with and "
@@ -4825,8 +4848,10 @@ def phase_parity_train(dev) -> dict:
         f"summation order), and B3's backward at {[c[:7] for c in TRAIN_FLASH_CASES]} "
         f"(bf16 limit {TRAIN_FLASH_REL[torch.bfloat16]}: the bf16 forward "
         f"output and one rounding of the gradient; float32 "
-        f"{TRAIN_FLASH_REL[torch.float32]}), each against autograd through "
-        f"the plain version in float32: max |d| over max(1, max |autograd|) "
+        f"{TRAIN_FLASH_REL[torch.float32]}; bf16 D 64/128 on the tensor "
+        f"cores, P and dS rounded to bf16 once), each against autograd "
+        f"through the plain version in float32: max |d| over max(1, max "
+        f"|autograd|) "
         f"{rels}, max |d| {errs}; launches {counts}")
     return errs
 
@@ -4917,7 +4942,7 @@ def phase_main_train(dev) -> dict:
     # the forward's norms run twice (remat recomputes every block) but the
     # final norm, which lies outside the blocks, once; the backward once
     want = {"flash_attention": 2 * L * n, "flash_attention_tc": 2 * L * n,
-            "flash_attention_bwd": L * n,
+            "flash_attention_bwd": L * n, "flash_attention_bwd_tc": L * n,
             "rmsnorm": (2 * (alone + add) - 1) * n,
             "rmsnorm_add": (2 * add - 1) * n,
             "rmsnorm_bwd": (alone + add) * n, "rmsnorm_add_bwd": add * n}
@@ -4945,7 +4970,8 @@ def phase_main_train(dev) -> dict:
         f"max_memory_allocated={peak} B against the state's {n_params} "
         f"params x 16 B = {n_params * 16} B (float32 params, gradients, m, "
         f"v); launches {counts} (B3 {2 * L} a step forward, the blocks' "
-        f"recompute included, all on the tensor cores, {L} backward; B2 "
+        f"recompute included, all on the tensor cores, {L} backward, all on "
+        f"the tensor cores; B2 "
         f"{alone + add} backward a step, {add} of them the fused add's)")
     del state, batch, tr, step
     gc.collect()
@@ -5015,7 +5041,7 @@ def tf_gap(got, want) -> tuple[float, int, float]:
 def phase_main_gemma3(dev) -> dict:
     """Full-width, full-depth gemma3-4b as aligned batches (GEMMA_BATCHES,
     greedy to GEMMA_NEW), counts from 0 each: B3 34 launches a prefill (29
-    windowed, 5 global, none on the tensor cores), none at decode; B2
+    windowed, 5 global, all on the tensor cores), none at decode; B2
     qwen_norms a prefill or step; nothing else and no plain version; B3
     and B2 held against their plain versions at every shape the batch
     called them at (:class:`KernelShapes`).  Teacher forcing gated at full
@@ -5050,9 +5076,10 @@ def phase_main_gemma3(dev) -> dict:
             raise AssertionError(f"main-gemma3 {label}: tokens {toks}")
         if ((windowed, global_) != (len(loc), len(glob))
                 or counts["flash_attention"] != (L, 0)
-                or counts["flash_attention_tc"][0]
+                or counts["flash_attention_tc"] != (L, 0)
                 or any(counts[k][0] for k in counts if k not in (
-                    "flash_attention", "rmsnorm", "rmsnorm_add"))):
+                    "flash_attention", "flash_attention_tc", "rmsnorm",
+                    "rmsnorm_add"))):
             raise AssertionError(
                 f"main-gemma3 {label}: B3 windowed {windowed} global "
                 f"{global_} (want {len(loc)} and {len(glob)}); launches "
@@ -5060,7 +5087,8 @@ def phase_main_gemma3(dev) -> dict:
         check_norm_counts(f"main-gemma3 {label}", counts, GEMMA_NEW,
                           qwen_norms(cfg))
         out["launches"][label] = {k: counts[k][0] for k in (
-            "flash_attention", "rmsnorm", "rmsnorm_add")}
+            "flash_attention", "flash_attention_tc", "rmsnorm",
+            "rmsnorm_add")}
         out["launches"][label]["flash_attention_windowed"] = windowed
         for name, e in shapes.parity(f"main-gemma3 {label}", dev).items():
             out["errs"][name] = max(out["errs"].get(name, 0.0), e)
@@ -5092,7 +5120,7 @@ def phase_main_gemma3(dev) -> dict:
             f"{GEMMA_NEW}: prefill {t_pre * 1e3:.1f} ms with the first token, "
             f"{GEMMA_NEW - 1} decode steps {t_dec * 1e3:.1f} ms; B3 "
             f"{windowed} windowed + {global_} global launches a "
-            f"prefill, none on the tensor cores; launches {counts}; "
+            f"prefill, all on the tensor cores; launches {counts}; "
             f"teacher forcing (the last decode step against a prefill of "
             f"the same tokens): max |d logit| {gap:.4f} (limit "
             f"{GEMMA_BF16_TOL}), argmax differs in {flips} of {rows} rows "
@@ -5162,13 +5190,16 @@ def phase_timing_train(dev) -> dict:
     global); B3's and B2's backward at the training shapes.  Each beside
     its plain version, one PyTorch yardstick (SDPA with the same mask,
     SDPA's backward, autograd through ``F.rms_norm`` with the same float32
-    scale) and its bound.  The forwards in device time of a replayed CUDA
-    graph; the backwards, whose plain and yardstick runs are autograd
-    calls, in device time of calls queued behind a spin
+    scale) and its bound; an unwindowed B3 row also beside SDPA with
+    ``is_causal=True`` (an explicit mask keeps SDPA off its flash backend,
+    so this is the stronger yardstick).  The forwards in device time of a
+    replayed CUDA graph; the backwards, whose plain and yardstick runs are
+    autograd calls, in device time of calls queued behind a spin
     (:func:`queued_ms`)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        backward_tensor_core_route, flash_attention_bwd_cuda,
+        flash_attention_cuda, flash_attention_plain, tensor_core_route)
     from repro_torch.kernels.rmsnorm import (add_rmsnorm_plain,
                                              rmsnorm_bwd_cuda, rmsnorm_plain)
     torch.manual_seed(3)
@@ -5184,20 +5215,29 @@ def phase_timing_train(dev) -> dict:
         label = f"gemma3 window={window}"
         b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
                       4 * D * Hq * B * window_pairs(S, window), bf16)
-        t = {what: device_ms([fn]) for what, fn in (
-            ("kernel", lambda: ops.flash_attention(q, k, v, window=window)),
-            ("plain", lambda: ref.flash_attention(q, k, v, window=window)),
-            ("library", lambda: F.scaled_dot_product_attention(
+        fns = [("kernel", lambda: ops.flash_attention(q, k, v, window=window)),
+               ("plain", lambda: ref.flash_attention(q, k, v, window=window)),
+               ("library", lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   attn_mask=mask, enable_gqa=True))]
+        if window is None:
+            fns.append(("library_causal", lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)))}
+                is_causal=True, enable_gqa=True)))
+        t = {what: device_ms([fn]) for what, fn in fns}
         out["flash_attention"][label] = {
             "shape": [B, S, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by,
+            **({"library_causal_ms": t["library_causal"]}
+               if window is None else {})}
+        route = "tensor-core" if tensor_core_route(q) else "CUDA-core"
+        causal_lib = (f", SDPA is_causal {t['library_causal']:.4f} ms"
+                      if window is None else "")
         log(f"timing flash_attention {label} [B={B} S={S} Hq={Hq} Hkv={Hkv} "
-            f"D={D} bf16, CUDA-core route]: device kernel {t['kernel']:.4f} "
+            f"D={D} bf16, {route} route]: device kernel {t['kernel']:.4f} "
             f"ms, plain {t['plain']:.4f} ms, SDPA (same mask) "
-            f"{t['library']:.4f} ms, bound {b:.4f} ms ({by})")
+            f"{t['library']:.4f} ms{causal_lib}, bound {b:.4f} ms ({by})")
     del q, k, v
     tcfg = get_config(TRAIN_ARCH)
     for label, (B, S, Hq, Hkv, D, window) in (
@@ -5209,7 +5249,10 @@ def phase_timing_train(dev) -> dict:
                 for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
                 for _ in range(2))
-        o = ops.flash_attention(q, k, v, window=window)
+        tc = backward_tensor_core_route(q)
+        o, lse = (flash_attention_cuda(q, k, v, window=window, with_lse=True)
+                  if tc else (ops.flash_attention(q, k, v, window=window),
+                              None))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         plain_out = flash_attention_plain(*leaves, window=window)
         lib_leaves = [t.detach().clone().requires_grad_(True)
@@ -5222,23 +5265,40 @@ def phase_timing_train(dev) -> dict:
         pairs = window_pairs(S, window)
         b, by = bound((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                        + 2 * o.numel()) * 2, 10 * D * Hq * B * pairs, bf16)
+        if window is None:
+            causal_leaves = [t.detach().clone().requires_grad_(True)
+                             for t in (q, k, v)]
+            causal_out = F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in causal_leaves), is_causal=True,
+                enable_gqa=True)
         t = {"kernel": queued_ms(lambda: flash_attention_bwd_cuda(
-                 q, k, v, o, g, window=window), iters=5),
+                 q, k, v, o, g, window=window, lse=lse), iters=5),
              "plain": queued_ms(lambda: torch.autograd.grad(
                  plain_out, leaves, g, retain_graph=True), iters=5),
              "library": queued_ms(lambda: torch.autograd.grad(
                  lib_out, lib_leaves, gt, retain_graph=True))}
+        if window is None:
+            t["library_causal"] = queued_ms(lambda: torch.autograd.grad(
+                causal_out, causal_leaves, gt, retain_graph=True))
+            del causal_leaves, causal_out
         out["flash_attention_bwd"][label] = {
             "shape": [B, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by,
+            "cores": "tensor" if tc else "CUDA",
+            **({"library_causal_ms": t["library_causal"]}
+               if window is None else {})}
+        causal_lib = (f", SDPA's backward with is_causal "
+                      f"{t['library_causal']:.4f} ms" if window is None
+                      else "")
         log(f"timing flash_attention_bwd {label} [B={B} S={S} Hq={Hq} "
-            f"Hkv={Hkv} D={D} window={window} bf16]: device kernel "
+            f"Hkv={Hkv} D={D} window={window} bf16, "
+            f"{'tensor' if tc else 'CUDA'}-core route]: device kernel "
             f"{t['kernel']:.4f} ms, plain (autograd, float32) "
             f"{t['plain']:.4f} ms, SDPA's backward (same mask) "
-            f"{t['library']:.4f} ms, bound {b:.4f} ms ({by}; its "
+            f"{t['library']:.4f} ms{causal_lib}, bound {b:.4f} ms ({by}; its "
             f"operations: 5 products of the forward's size)")
-        del q, k, v, g, o, leaves, plain_out, lib_leaves, lib_out
+        del q, k, v, g, o, lse, leaves, plain_out, lib_leaves, lib_out
         gc.collect()
         torch.cuda.empty_cache()
     L_rows = TRAIN_B * TRAIN_S
@@ -5333,7 +5393,11 @@ DEVICE_KERNELS = {
     "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
                  "ssd_scan_kernel"],
     "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
-    "flash_attention_bwd": ["fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel"],
+    "flash_attention": ["flash_attention_tc_kernel",
+                        "flash_attention_kernel"],
+    "flash_attention_bwd": ["fa_bwd_delta_kernel", "fa_bwd_dq_tc_kernel",
+                            "fa_bwd_dkdv_tc_kernel", "fa_bwd_dq_kernel",
+                            "fa_bwd_dkdv_kernel"],
 }
 
 
@@ -5375,6 +5439,7 @@ def main() -> int:
                  + ptxas_report("ssd_seg_state_kernel")
                  + ptxas_report("ssd_seg_out_kernel")
                  + ptxas_report("rmsnorm_bwd")
+                 + ptxas_report("fa_bwd", "Li64E")
                  + ptxas_report("fa_bwd", "Li128E")
                  + ptxas_report("fa_bwd", "Li256E")):
         log(f"ptxas {line}")
@@ -5532,6 +5597,8 @@ def main() -> int:
         times[name] = {**train_times[name][head],
                        "variants": train_times[name]}
         launches[name] = train["launches"][name]
+    launches["flash_attention_bwd_tc"] = train["launches"][
+        "flash_attention_bwd_tc"]
     times["rmsnorm_bwd"]["add_launches"] = train["launches"]["rmsnorm_add_bwd"]
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
@@ -5558,9 +5625,11 @@ def main() -> int:
         for run, c in moe_counts.items()}
     # each kernel's launches from the run of the path that carries it
     launches["flash_attention"] = dense_launches["flash_attention"]
+    launches["flash_attention_tc"] = dense_launches["flash_attention_tc"]
     times["flash_attention"].update(
         {f"s2048_{k}": times["flash_attention S=2048"][k]
-         for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                   "with_lse_ms")})
     launches["paged_attention_mq_int8"] = \
         int8_launches["paged_attention_mq_int8"]
     # B2's launches (standalone, fused add, gated) in each run that has it
@@ -5582,9 +5651,10 @@ def main() -> int:
             "library_ms": t["library_ms"], "timed_shape": t["shape"],
             **({"device_kernels": DEVICE_KERNELS[name]}
                if name in DEVICE_KERNELS else {}),
-            # the scans' tensor-core route sub-counts
+            # the tensor-core route sub-counts of the scans and of B3's
+            # forward and backward
             **({"tc_launches": launches[f"{name}_tc"]}
-               if name in ("rwkv6_scan", "ssd_scan") else {}),
+               if f"{name}_tc" in launches else {}),
             **{k: t[k] for k in (
                 "verify_ms", "verify_plain_ms", "verify_library_ms",
                 "verify_bound_ms", "verify_bound_by", "verify_host_ms",
@@ -5605,7 +5675,8 @@ def main() -> int:
                 "g16_chunk_plain_ms", "g16_chunk_library_ms",
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
                 "moe_launches", "shard_heads", "multimodal", "gemma3",
-                "train_launches", "add_launches") if k in t}})
+                "train_launches", "add_launches", "library_causal_ms",
+                "cores", "with_lse_ms", "s2048_with_lse_ms") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,41 +27,51 @@
 // (neither is a fallback of the other; the entry point refuses a route
 // that does not match them):
 //
-// 1. Tensor cores (flash_attention_tc_kernel): bf16 q/k/v at D 64 and 128,
-//    the serving path's case (qwen2-7b and qwen3-1.7b, D 128).
+// 1. Tensor cores (flash_attention_tc_kernel): bf16 q/k/v at D 64, 128
+//    and 256, the serving path's case (qwen2-7b and qwen3-1.7b, D 128;
+//    gemma3-4b, D 256).
 //    * A block holds 128 query rows of one (sequence, query head): two
 //      consumer warpgroups of 64 rows each (wgmma's M) and a producer
 //      warpgroup.  setmaxnreg gives the producer 24 registers a thread and
 //      the consumers 240.
-//    * One producer thread keeps K/V tiles of 128 keys in flight with TMA
+//    * One producer thread keeps K/V tiles in flight with TMA
 //      (cp.async.bulk.tensor, 4-d tensor maps over (D, H, S, B) built on
 //      the host through cudaGetDriverEntryPoint, so the library links no
-//      libcuda, and passed as __grid_constant__ parameters) into a ring of
-//      3 stages (224 KB with q at D 128), full/empty mbarriers between
-//      producer and consumers.  The q tile arrives once the same way.  TMA
-//      writes the 128-byte swizzle (64 bf16 a row of an atom; D 128 is two
-//      atoms side by side), which is the layout the wgmma descriptors name;
-//      rows past S arrive as zeros.
-//    * S = Q K^T is D / 16 wgmma.m64n128k16 from shared memory (both
-//      operands K-major), float32 accumulator in registers.  The online
-//      softmax runs on the accumulator fragment (ex2 with the scale and
-//      log2 e folded into one FMA), a row's max reduced over the 4 lanes
-//      that share it; the row sums stay per lane until the end.
-//    * O += P V is 8 wgmma.m64nDk16 with P from registers: the m64
-//      accumulator layout is the A-fragment layout, so P needs no trip
-//      through shared memory; V is the B operand, MN-major (the
-//      descriptor's transpose bit).  P enters as a bf16 pair hi + lo (lo
-//      the rounding rest of hi), two wgmma each: one bf16 rounding of p
-//      gave 1.23x the 4e-3 bf16 limit at S 1024 in a CPU emulation of this
-//      arithmetic, the pair 0.65x.  It costs PV twice, 1.5x the tensor
-//      work.
+//      libcuda, and passed as __grid_constant__ parameters) into a ring,
+//      full/empty mbarriers between producer and consumers: tiles of 128
+//      keys in 3 stages at D 64 and 128 (224 KB with q at D 128); at D 256
+//      tiles of 64 keys in 2 stages, since q alone is 64 KB there and a
+//      128-key stage would be 128 KB (q + 2 x 64 KB = 192 KB).  The q tile
+//      arrives once the same way.  TMA writes the 128-byte swizzle (64 bf16
+//      a row of an atom; D 128 is two atoms side by side, D 256 four),
+//      which is the layout the wgmma descriptors name; rows past S arrive
+//      as zeros (tma.cuh).
+//    * S = Q K^T is D / 16 wgmma from shared memory (both operands
+//      K-major; m64n128k16, at D 256 m64n64k16), float32 accumulator in
+//      registers.  The online softmax runs on the accumulator fragment (ex2
+//      with the scale and log2 e folded into one FMA), a row's max reduced
+//      over the 4 lanes that share it; the row sums stay per lane until
+//      the end.
+//    * O += P V is wgmma.m64nDk16 with P from registers (N = D, up to
+//      wgmma's widest 256): the m64 accumulator layout is the A-fragment
+//      layout, so P needs no trip through shared memory; V is the B
+//      operand, MN-major (the descriptor's transpose bit).  P enters as a
+//      bf16 pair hi + lo (lo the rounding rest of hi), two wgmma each: one
+//      bf16 rounding of p gave 1.23x the 4e-3 bf16 limit at S 1024 in a CPU
+//      emulation of this arithmetic, the pair 0.65x.  It costs PV twice,
+//      1.5x the tensor work.
 //    * What bounds it on the card is keeping the tensor cores fed, not the
 //      products: a tile's softmax on the CUDA cores takes about as long as
 //      its wgmma (run one tile at a time, D 64 took as long as D 128 on an
 //      H100).  So a warpgroup pipelines its tiles as FlashAttention-3
 //      does: QK of tile i and PV of tile i - 1 are issued together, and
 //      the softmax of tile i runs on the CUDA cores while PV i - 1 runs on
-//      the tensor cores (S, P and O in registers: 192 of the 240).
+//      the tensor cores (S, P and O in registers: 64 + 64 + 64 of the 240
+//      at D 128).  D 256 runs its tiles one after the other: with 64-key
+//      tiles S is 32 registers and P's pair 32, so the overlap would hold
+//      the same 192 beside O's 128, but ptxas then spilled, and on an H100
+//      the overlapped version ran slower at gemma3's prefill (B 4, S 2048,
+//      8/4) than this one, which spills nothing.
 //    * Blocks start in the order of their work, the last query block of
 //      every (sequence, head) first: at S 1024, 8 x 28 = 224 blocks are
 //      1.7 waves on 132 SMs, and heaviest-first only within each head
@@ -71,14 +81,17 @@
 //    * The dead-tile skip stays: a causal block stops after its last row's
 //      key, a windowed one starts at its first row's first key, and a
 //      warpgroup releases unread the tiles none of its rows sees.
-//    * Raw PTX in inline asm (wgmma.cuh), not CuTe: the build stays one
-//      nvcc per source with no include path beyond the toolkit's.
+//    * Training's forward also writes each row's log-sum-exp in log2 units
+//      (m scale log2 e + log2 l, float32, every row of the block) for the
+//      backward's tensor-core route; serving passes no pointer.
+//    * Raw PTX in inline asm (wgmma.cuh, tma.cuh), not CuTe: the build
+//      stays one nvcc per source with no include path beyond the toolkit's.
 //    * ptxas (sm_90a): 168 registers a thread at launch (setmaxnreg moves
 //      them), no spills, no stack; 230,456 bytes of dynamic shared memory
-//      at D 128, 115,768 at D 64.
+//      at D 128, 115,768 at D 64, 197,672 at D 256.
 // 2. CUDA cores (flash_attention_kernel): float32 q/k/v (the 2e-4 float32
 //    limit rules out TF32 and bf16 operands), and bf16 at D 16 and 32
-//    (the SMOKE configs) and 256 (gemma3, a later slice).
+//    (the SMOKE configs).
 //    * Grid (ceil(Sq / BM), Hq, B); each block owns BM query rows of one
 //      (sequence, query head).  Blocks run in no order, so the TPU's
 //      sequential KV axis is a loop inside the block, and its tile skip is
@@ -101,9 +114,8 @@
 //
 // chip_smoke.py prints every instantiation's registers and spills from
 // build/*.log.
-#include <cuda.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -330,11 +342,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int B, int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
                      Strides ks, Strides vs, int causal, int window,
                      float scale, cudaStream_t stream) {
-  // bf16 at D 64 and 128 is the tensor cores' (route 1), never built here
+  // bf16 at D 64, 128 and 256 is the tensor cores' (route 1), never built
+  // here
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
 #define REPRO_FA_CASE(DIM)                                                     \
   case DIM:                                                                    \
-    if constexpr (!kBf16 || (DIM != 64 && DIM != 128))                         \
+    if constexpr (!kBf16 || DIM < 64)                                          \
       return launch<T, DIM>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks, vs,     \
                             causal, window, scale, stream);                   \
     break;
@@ -350,15 +363,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int kBM = 128;            // query rows a block: 2 consumer warpgroups
-constexpr int kBN = 128;            // keys a tile
-constexpr int kStages = 3;          // K/V ring depth
 constexpr int kThreads = 384;       // producer warpgroup + 2 consumers
-constexpr int kAtomBytes = 128;     // a swizzle atom's row: 64 bf16
 constexpr float kNegInf = -1e30f;
+constexpr float kNoKey = 1e30f;     // log-sum-exp of a row that sees no key
 
 template <int D>
 struct Smem {
+  // keys a tile and ring depth: 128-key tiles in 3 stages at D 64 and 128;
+  // at D 256 a 128-key stage alone would be 128 KB, so 64-key tiles in 2
+  // stages (q 64 KB + 2 x 64 KB)
+  static constexpr int kBN = D == 256 ? 64 : 128;
+  static constexpr int kStages = D == 256 ? 2 : 3;
   static constexpr int kQBytes = kBM * D * 2;      // D / 64 atoms of 128 rows
   static constexpr int kTileBytes = kBN * D * 2;   // one of K, V
   static constexpr int kStageBytes = 2 * kTileBytes;
@@ -367,94 +385,22 @@ struct Smem {
   static constexpr int kBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one box of a 4-d tensor map -> shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; lbo/sbo in bytes.
-// K-major: sbo is the stride of 8-row groups (1024), lbo unused.  MN-major:
-// lbo is the stride of 64-wide atoms along MN, sbo of 8-row groups along K.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are pending; groups
-// complete in the order they were committed
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the SFU (inf -> 0 for x = -inf); the same approximation exp2f
-// makes, without its handling of denormal results
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-// pin registers that an async wgmma reads or writes to this point of the
-// program: no instruction that defines them may move between wgmma.fence
-// and the wait (ptxas would serialize the wgmma batch)
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+// S = Q K^T for one k step: 128-key tiles at D 64 and 128, 64-key at 256
+template <int D>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (D == 256)
+    wgmma_ss_m64n64k16(s, a, b, scale_d);
+  else
+    wgmma_ss_m64n128k16(s, a, b, scale_d);
 }
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t b) {
-  if constexpr (D == 128)
+  if constexpr (D == 256)
+    wgmma_rs_m64n256k16(o, a, b);
+  else if constexpr (D == 128)
     wgmma_rs_m64n128k16(o, a, b);
   else
     wgmma_rs_m64n64k16(o, a, b);
@@ -465,11 +411,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
-                          __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                          int Hq, int Hkv, int causal, int window,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int lse_stride, int Sq,
+                          int Sk, int Hq, int Hkv, int causal, int window,
                           float scale_log2) {
   using L = Smem<D>;
+  constexpr int kBN = L::kBN, kStages = L::kStages;
   constexpr int kAtoms = D / 64;          // swizzle atoms across D
+  // QK of tile i beside PV of tile i - 1: not at D 256 (see the note)
+  constexpr bool kOverlap = D != 256;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // the swizzle's alignment
@@ -570,7 +520,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_m64n128k16(
+      wgmma_qk<D>(
           sacc, gmma_desc(q_rows + (kk / 4) * kBM * kAtomBytes + off, 16, 1024),
           gmma_desc(k_s + (kk / 4) * kBN * kAtomBytes + off, 16, 1024),
           kk > 0);
@@ -659,7 +609,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
   for (int i = 0; i < i_lo; ++i) skip(i);
   mbar_wait(q_bar, 0);
-  if (i_lo < i_hi) {
+  if constexpr (!kOverlap) {
+    float corr[2];
+    for (int i = i_lo; i < i_hi; ++i) {
+      mbar_wait(full(i % kStages), (i / kStages) & 1);
+      issue_qk(i);
+      wgmma_wait<0>();
+      fence_regs<kBN / 2>(sacc);
+      softmax(i, corr);
+      rescale(corr);
+      pack_p();
+      issue_pv(i);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      release(i);
+    }
+  } else if (i_lo < i_hi) {
     // The pipeline (FlashAttention-3's, within a warpgroup): QK of tile i
     // and PV of tile i - 1 are issued together, and the softmax of tile i
     // runs on the CUDA cores while PV i - 1 runs on the tensor cores.
@@ -697,6 +662,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  // the rows' log-sum-exp in log2 units, m scale log2 e + log2 l, for the
+  // backward: every row of the block, those past Sq too (lse_stride covers
+  // them), so the backward reads no unwritten row
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lse[(static_cast<size_t>(b) * Hq + h) * lse_stride + row[r]] =
+          l[r] > 0.f ? m[r] * scale_log2 + __log2f(l[r]) : kNoKey;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= Sq) continue;
@@ -710,77 +684,27 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded (no
-// -lcuda); null if the driver has none
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, S, H, D) bf16 tensor read through its strides (elements) in boxes
-// of 64 columns x 1 head x `rows` rows x 1 sequence, 128-byte swizzle,
-// rows past S zero-filled.  A size-1 dimension's stride is free in torch,
-// so it is replaced by a dense one the encoder accepts.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-              Strides st, int rows) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  long long sh = H > 1 ? st.h : D;
-  long long ss = S > 1 ? st.s : sh * H;
-  long long sb = B > 1 ? st.b : ss * S;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
-                   Strides ks, Strides vs, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
+                   Strides qs, Strides ks, Strides vs, int causal, int window,
+                   float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Smem<D>::kBytes);
   if (attr != cudaSuccess) return attr;
+  constexpr int kBN = Smem<D>::kBN;
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, q, B, Sq, Hq, D, qs, kBM) ||
-      !make_map(&k_map, k, B, Sk, Hkv, D, ks, kBN) ||
-      !make_map(&v_map, v, B, Sk, Hkv, D, vs, kBN))
+  if (!make_map(&q_map, q, B, Sq, Hq, D, qs.b, qs.s, qs.h, kBM) ||
+      !make_map(&k_map, k, B, Sk, Hkv, D, ks.b, ks.s, ks.h, kBN) ||
+      !make_map(&v_map, v, B, Sk, Hkv, D, vs.b, vs.s, vs.h, kBN))
     return cudaErrorInvalidValue;
-  const dim3 grid(B * Hq, (Sq + kBM - 1) / kBM);
+  const int blocks = (Sq + kBM - 1) / kBM;
+  const dim3 grid(B * Hq, blocks);
   flash_attention_tc_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv,
-      causal, window, scale * 1.4426950408889634f);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse,
+      blocks * kBM, Sq, Sk, Hq, Hkv, causal, window,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -790,27 +714,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) through their (batch, seq,
 // head) strides in elements; out contiguous (B, Sq, Hq, D).  window <= 0:
-// no window.  route 1: the tensor cores, which must be bf16 at D 64 or
-// 128; route 0: the CUDA cores, everything else.  Returns the launch's
+// no window.  route 1: the tensor cores, which must be bf16 at D 64, 128 or
+// 256; route 0: the CUDA cores, everything else.  lse: null, or (route 1
+// only) a float32 (B, Hq, ceil(Sq / 128) * 128) buffer that receives each
+// row's log-sum-exp in log2 units for the backward.  Returns the launch's
 // cudaError_t.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
     float scale, int dtype, int route, void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq > 65535 ||
       Hq % Hkv != 0)
     return cudaErrorInvalidValue;
-  const bool tensor_cores = dtype == kBFloat16 && (D == 64 || D == 128);
+  const bool tensor_cores =
+      dtype == kBFloat16 && (D == 64 || D == 128 || D == 256);
   if (route != static_cast<int>(tensor_cores)) return cudaErrorInvalidValue;
+  if (lse != nullptr && !tensor_cores) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores)
-    return D == 128 ? tc::launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks,
-                                      vs, causal, window, scale, s)
-                    : tc::launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks,
-                                     vs, causal, window, scale, s);
+  float* l = static_cast<float*>(lse);
+  if (tensor_cores) {
+    if (D == 256)
+      return tc::launch<256>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
+                             causal, window, scale, s);
+    if (D == 128)
+      return tc::launch<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
+                             causal, window, scale, s);
+    return tc::launch<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
+                          causal, window, scale, s);
+  }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs,
                            causal, window, scale, s);

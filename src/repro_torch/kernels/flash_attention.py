@@ -12,17 +12,20 @@ The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 what bounds it on Hopper and how the design answers that.  Unlike the TPU
 wrapper it takes any sequence length, not only multiples of its tile.  It
 has two routes, chosen from dtype and D before the launch
-(:func:`tensor_core_route`): bf16 at D 64 and 128 on the tensor cores
+(:func:`tensor_core_route`): bf16 at D 64, 128 and 256 on the tensor cores
 (wgmma and TMA), everything else on CUDA cores.
 
 Training needs the gradients of a whole-sequence forward: the backward
 kernels (``csrc/flash_attention_bwd.cu``, launched by
 :func:`flash_attention_bwd_cuda` from the autograd Function in
 :mod:`repro_torch.kernels.ops`) take the forward's inputs, its output and
-the output's gradient, and recompute each row's log-sum-exp themselves, so
-the forward kernels and their serving times are as they were.  On the CPU
-autograd differentiates the plain version, which is also the backward's
-oracle on the card.
+the output's gradient.  They too have two routes
+(:func:`backward_tensor_core_route`): bf16 at D 64 and 128 on the tensor
+cores, which read each row's log-sum-exp from the forward
+(``flash_attention_cuda(..., with_lse=True)``; serving asks for none, and
+its launches write none); float32 and the other head dims on CUDA cores,
+which recompute it.  On the CPU autograd differentiates the plain version,
+which is also the backward's oracle on the card.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+BACKWARD_TENSOR_CORE_HEAD_DIMS = (64, 128)
+LSE_ROWS = 128     # the log-sum-exp's rows are padded to the forward's block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,6 +83,21 @@ def tensor_core_route(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
 
 
+def backward_tensor_core_route(q) -> bool:
+    """True when the backward runs ``q``'s call on the tensor cores: bf16 at
+    a head dim in :data:`BACKWARD_TENSOR_CORE_HEAD_DIMS`.  Float32, D 16 and
+    32, and D 256 (whose dk and dv accumulators alone would take 256
+    registers a thread) stay on CUDA cores."""
+    return (q.dtype == torch.bfloat16
+            and q.shape[-1] in BACKWARD_TENSOR_CORE_HEAD_DIMS)
+
+
+def lse_rows(S: int) -> int:
+    """Rows of a head in the log-sum-exp the forward hands the backward:
+    ``S`` rounded up to :data:`LSE_ROWS`."""
+    return -(-S // LSE_ROWS) * LSE_ROWS
+
+
 def _strided(t):
     """``t`` itself when the kernel can read it through its strides (head
     dim contiguous, 16-byte aligned rows), else a contiguous copy."""
@@ -87,14 +107,20 @@ def _strided(t):
     return t if ok else t.contiguous()
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
+                         with_lse: bool = False):
     """Launch the flash-attention kernel on ``q``'s card (current stream).
     Shapes as in :func:`flash_attention_plain`; q, k and v share one dtype
     (float32 or bfloat16) and D is one of 16, 32, 64, 128, 256.  Raises on
-    anything else; never falls back.  bf16 at D 64 and 128 runs on the
+    anything else; never falls back.  bf16 at D 64, 128 and 256 runs on the
     tensor cores, everything else on CUDA cores (:func:`tensor_core_route`);
     a call on either route that fails to build or launch raises and never
-    runs the other."""
+    runs the other.
+
+    ``with_lse`` (only where :func:`backward_tensor_core_route` holds)
+    returns ``(out, lse)``: each row's log-sum-exp of the scaled scores in
+    log2 units, float32 ``(B, Hq, lse_rows(Sq))`` (rows past ``Sq`` are
+    written too), which the tensor-core backward reads."""
     _check_window(window)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dk = k.shape
@@ -116,34 +142,47 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {D} not in "
                          f"{HEAD_DIMS}")
+    if with_lse and not backward_tensor_core_route(q):
+        raise ValueError("flash_attention_cuda: with_lse is for the "
+                         "tensor-core backward (bf16, D in "
+                         f"{BACKWARD_TENSOR_CORE_HEAD_DIMS}); got {q.dtype} "
+                         f"at D {D}")
     out = torch.empty(B, Sq, Hq, D, dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    if Sk == 0:
-        return out.zero_()
+    lse = (torch.empty(B, Hq, lse_rows(Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    if out.numel() == 0 or Sk == 0:
+        if lse is not None:
+            lse.fill_(float("inf"))
+        out = out.zero_()
+        return (out, lse) if with_lse else out
     q, k, v = _strided(q), _strided(k), _strided(v)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), 0 if window is None else int(window),
             float(D ** -0.5), _DTYPE_CODES[q.dtype],
             int(tensor_core_route(q)), stream),
             "flash_attention")
-    return out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
-                             window=None):
+                             window=None, lse=None):
     """Launch the flash-attention backward (``csrc/flash_attention_bwd.cu``)
     on ``q``'s card: the gradients ``(dq, dk, dv)`` of a whole-sequence
     forward (``Sq == Sk``) from its inputs, its output ``out`` and the
-    output's gradient ``dout``, computed in float32 on CUDA cores and
-    returned in q's dtype (dk and dv summed over each KV head's query
-    heads).  float32 or bfloat16, D one of :data:`HEAD_DIMS`.  Raises on
-    anything else; never falls back."""
+    output's gradient ``dout``, in q's dtype (dk and dv summed over each KV
+    head's query heads).  float32 or bfloat16, D one of :data:`HEAD_DIMS`.
+
+    Where :func:`backward_tensor_core_route` holds the kernels run on the
+    tensor cores and need ``lse``, the forward's
+    (``flash_attention_cuda(..., with_lse=True)``); elsewhere they run on
+    CUDA cores in float32, recompute it, and ``lse`` must be None.  Raises
+    on anything else; never falls back."""
     _check_window(window)
     B, S, Hq, D = q.shape
     dev = q.device
@@ -167,12 +206,28 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in "
                          f"{HEAD_DIMS}")
+    tc = backward_tensor_core_route(q)
+    rows = lse_rows(S) if tc else S
+    if tc and (lse is None or lse.shape != (B, Hq, rows)
+               or lse.dtype != torch.float32 or lse.device != dev
+               or not lse.is_contiguous() or lse.data_ptr() % 16):
+        got = None if lse is None else (lse.dtype, tuple(lse.shape),
+                                        lse.device)
+        raise ValueError("flash_attention_bwd_cuda: the tensor-core route "
+                         "needs the forward's lse, contiguous float32 "
+                         f"{(B, Hq, rows)} on {dev} (the kernel copies "
+                         f"16-byte aligned slices of it); got {got}")
+    if not tc and lse is not None:
+        raise ValueError("flash_attention_bwd_cuda: the CUDA-core route "
+                         f"({q.dtype}, D {D}) recomputes the log-sum-exp; "
+                         "pass lse=None")
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty(B, Hq, S, dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    if not tc:
+        lse = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
+    delta = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -181,5 +236,5 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), B, S, Hq, Hkv, D, int(causal),
             0 if window is None else int(window), float(D ** -0.5),
-            _DTYPE_CODES[q.dtype], stream), "flash_attention_bwd")
+            _DTYPE_CODES[q.dtype], int(tc), stream), "flash_attention_bwd")
     return dq, dk, dv

@@ -5,8 +5,9 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
-Six entries are sub-counts of a kernel's calls, not kernels of their
-own: ``rmsnorm_add`` and ``rmsnorm_gated`` count the RMSNorm calls (each
+Seven entries are sub-counts of a kernel's calls, not kernels of their
+own (``flash_attention_bwd_tc``, below, the seventh): ``rmsnorm_add`` and
+``rmsnorm_gated`` count the RMSNorm calls (each
 one launch, all counted under ``rmsnorm``) of its fused variants, the
 residual add and Mamba-2's SiLU gate, on either route;
 ``flash_attention_tc`` counts the flash-attention launches that took
@@ -23,8 +24,11 @@ Training: when autograd needs a gradient through a call (grad mode on and
 an input that requires one), RMSNorm, its fused add and flash attention
 run as ``torch.autograd.Function``s on a card, whose backward is a kernel
 too: ``rmsnorm_bwd`` counts B2's backward launches (``rmsnorm_add_bwd``
-the fused add's among them), ``flash_attention_bwd`` B3's (each call two
-launches: dq with the rows' log-sum-exp, then dk and dv).  Their forward
+the fused add's among them), ``flash_attention_bwd`` B3's backward calls
+and its sub-count ``flash_attention_bwd_tc`` those on the tensor cores
+(bf16 at D 64 and 128: three launches, delta = rowsum(dO * O), dq, then
+dk and dv, reading the log-sum-exp the forward wrote; the CUDA-core route
+two: dq with the rows' log-sum-exp, then dk and dv).  Their forward
 launches count as serving's do.  On the CPU autograd differentiates the
 plain versions.  A kernel with no backward yet (the gated norm, paged
 attention, the scans) refuses a card call that needs a gradient, naming
@@ -65,7 +69,8 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount(),
           # the backward kernels, and the fused add's sub-count of B2's
           "rmsnorm_bwd": LaunchCount(), "rmsnorm_add_bwd": LaunchCount(),
-          "flash_attention_bwd": LaunchCount()}
+          "flash_attention_bwd": LaunchCount(),
+          "flash_attention_bwd_tc": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -155,24 +160,31 @@ class _AddRMSNorm(torch.autograd.Function):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B3 on a card with its backward kernels (``Sq == Sk``)."""
+    """B3 on a card with its backward kernels (``Sq == Sk``).  Where the
+    backward takes the tensor cores the forward also writes each row's
+    log-sum-exp, which the backward reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        tc_bwd = _fa.backward_tensor_core_route(q)
+        res = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       with_lse=tc_bwd)
+        out, lse = res if tc_bwd else (res, None)
         _count("flash_attention", kernel=True)
         if _fa.tensor_core_route(q):
             _count("flash_attention_tc", kernel=True)
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _fa.flash_attention_bwd_cuda(
-            q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window, lse=lse)
         _count("flash_attention_bwd", kernel=True)
+        if lse is not None:
+            _count("flash_attention_bwd_tc", kernel=True)
         return dq, dk, dv, None, None
 
 

@@ -406,6 +406,19 @@ class RwkvLM:
         (the norms, ``u``, ``decay_base`` and ``w_o`` declared float32)."""
         return RW.rwkv_lm_defs(self.cfg)
 
+    def loss(self, params, batch: dict):
+        """Refused: rwkv6 training (B4's backward) comes with ROADMAP A13b
+        item 4."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: rwkv6 training (the wkv scan's backward) "
+            "comes with ROADMAP A13b item 4")
+
+    def train_batch_specs(self, shape) -> dict:
+        """Refused with :meth:`loss`."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: rwkv6 training batches come with ROADMAP "
+            "A13b item 4")
+
     def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
              device=None, dtype: Optional[torch.dtype] = None,
              weight_quant: Optional[str] = None) -> dict:
@@ -475,6 +488,20 @@ class HybridLM:
         (each Mamba layer's ``A_log``, ``D``, ``dt_bias`` and conv weights
         declared float32)."""
         return Z.zamba_defs(self.cfg)
+
+    def loss(self, params, batch: dict):
+        """Refused: zamba2 training (B5's backward, B3 at D 112) comes
+        with ROADMAP A13b item 4."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: zamba2 training (the SSD scan's and the gated "
+            "norm's backward, B3 at head dim 112) comes with ROADMAP A13b "
+            "item 4")
+
+    def train_batch_specs(self, shape) -> dict:
+        """Refused with :meth:`loss`."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: zamba2 training batches come with ROADMAP "
+            "A13b item 4")
 
     def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
              device=None, dtype: Optional[torch.dtype] = None,

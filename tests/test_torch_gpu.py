@@ -375,7 +375,9 @@ def test_int8_engine_on_card_matches_cpu(card):
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): causal, window, MQA/GQA/MHA,
 # ragged lengths, every head width the kernel instantiates; qwen2-7b's
 # heads at the dense prefill's buckets (1024, 2048) and a ragged 1000, and
-# S 200 at D 64 with a window, which bf16 runs on the tensor cores
+# S 200 at D 64 with a window, which bf16 runs on the tensor cores; gemma3's
+# D 256 (bf16 on the tensor cores, 64-key tiles): S 77 and 300, a window,
+# non-causal, Sq != Sk both ways
 FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 512, 512, 2, 2, 16, True, 100),
                (2, 256, 256, 4, 1, 32, False, None),
@@ -399,7 +401,11 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 32, True, None),
                (1, 64, 28, 6, 6, 64, False, None),
                (1, 64, 1, 6, 6, 64, False, None),
                (1, 1500, 1500, 6, 6, 64, False, None),
-               (1, 2944, 2944, 32, 8, 128, True, None)]
+               (1, 2944, 2944, 32, 8, 128, True, None),
+               (1, 77, 77, 8, 4, 256, True, None),
+               (1, 300, 300, 8, 4, 256, False, None),
+               (1, 130, 90, 4, 2, 256, False, None),
+               (1, 90, 130, 4, 2, 256, True, None)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -420,12 +426,12 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, Hq,
 @pytest.mark.parametrize("dtype,D,tc", [("bfloat16", 64, True),
                                         ("bfloat16", 128, True),
                                         ("bfloat16", 32, False),
-                                        ("bfloat16", 256, False),
+                                        ("bfloat16", 256, True),
                                         ("float32", 128, False)])
 def test_flash_attention_route_follows_dtype_and_head_dim(card, dtype, D,
                                                           tc):
-    """bf16 at D 64 and 128 launches on the tensor cores (counted under
-    flash_attention_tc), everything else on the CUDA cores."""
+    """bf16 at D 64, 128 and 256 launches on the tensor cores (counted
+    under flash_attention_tc), everything else on the CUDA cores."""
     rng = np.random.default_rng(D)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 70, H, D))
                                 .astype(np.float32)).to(card, DTYPES[dtype])
@@ -1292,11 +1298,13 @@ def test_rmsnorm_backward_kernels_match_autograd(card, dtype, rows, d):
 
 
 # (B, S, Hq, Hkv, D, causal, window): SMOKE, qwen3-1.7b's heads at D 128,
-# gemma3's 8/4 at D 256 windowed, a ragged S, bidirectional
+# gemma3's 8/4 at D 256 windowed, a ragged S, bidirectional, G 4 windowed
+# at D 128; bf16 at D 64 and 128 takes the tensor cores
 BWD_FLASH_CASES = [(2, 64, 4, 2, 16, True, None), (1, 100, 4, 1, 32, True, 8),
                    (1, 257, 16, 8, 128, True, None),
                    (1, 300, 8, 4, 256, True, 64),
-                   (2, 77, 2, 2, 64, False, None)]
+                   (2, 77, 2, 2, 64, False, None),
+                   (1, 300, 16, 4, 128, True, 64)]
 # dq/dk/dv are sums over keys (queries) of O(1) terms: float32 within
 # 1e-4 of the largest, bf16 within 2e-2 (inputs, output and dO rounded to
 # bf16 on the card's side only)
@@ -1329,6 +1337,8 @@ def test_flash_attention_backward_kernel_matches_autograd(
         assert err <= BWD_ATTN_REL[dtype] * max(1.0, w.abs().max().item()), \
             (name, err)
     assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == int(
+        dtype == "bfloat16" and D in (64, 128))
     assert ops.COUNTS["flash_attention"].plain == 0
     ops.reset_counts()
 
