@@ -334,7 +334,13 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  D 16), each against autograd through the plain version in
                  float32 on the same inputs, the limits printed with their
                  reasons; every bf16 D 64/128 call on the backward's
-                 tensor-core route (counted ``flash_attention_bwd_tc``).
+                 tensor-core route (counted ``flash_attention_bwd_tc``);
+                 then B3 with a query offset (sequence parallelism's
+                 blocks: bf16 D 128 Sq 1024 / Sk 2048 at 1024, the same
+                 with window 512, float32 D 64 Sq 130 / Sk 260 at 130, Sk
+                 - Sq 133 at D 128), forward under TOL and backward under
+                 the limits above, every call a launch (bf16 D 64/128 on
+                 the tensor cores), counted apart.
 33. small-train — after the small phases: 5 trainer steps of float32
                  SMOKE qwen3-1.7b on the card against the CPU from the same
                  seeded weights and batches: losses within 1e-4, gradient
@@ -355,6 +361,20 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  tokens/s and the peak memory beside the state's 16 B a
                  param; then a checkpoint of the full width cut to 2 layers
                  saved and restored bit for bit.
+34b. main-train-mesh — right after main-train: its first 5 steps through
+                 ``Trainer`` on ``make_debug_mesh(1, 1)`` in a
+                 ``run_ranks`` world of 1 over NCCL (the state sharded at
+                 birth, each block gathering its layer inside its body,
+                 K/V gathered over "model", gradients reduce-scattered):
+                 losses and gradient norms within 1e-5 of main-train's
+                 (bit equality expected and reported), B2/B3 launches a
+                 step (forward and backward) main-train's, the peak
+                 within 1.10 x main-train's; a step host-issued and
+                 profiled device time with NCCL's share.  Then pod-dp: a
+                 (1, 1, 1) ("pod", "data", "model") mesh, 3 steps int8 +
+                 error feedback and 3 plain from the seeded state: the
+                 last losses within 0.05, the wire under 0.3 of float32;
+                 step times.
 35. main-gemma3 — full-width, full-depth gemma3-4b (34 layers: 29 windowed
                  of 1024, 5 global; d 2560, 8/4 heads of 256, vocab
                  262144, bf16, seed 0) as aligned batches through its API:
@@ -380,7 +400,12 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  backward, ``F.rms_norm``'s backward with the same float32
                  scale; beside an unwindowed row also SDPA with
                  ``is_causal=True``, which can take its flash backend where
-                 an explicit mask cannot) and its bound.
+                 an explicit mask cannot) and its bound; B3 forward and
+                 backward at the sequence-parallel block (B 4, Sq 1024 at
+                 offset 1024, Sk 2048, 16/8 heads of 128, bf16) beside
+                 SDPA with the same mask (explicit, and
+                 ``causal_lower_right``) and the bound, with the card's
+                 name and power limit.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly; so
@@ -3256,11 +3281,12 @@ def phase_main_14b() -> dict:
 
 # -- the serving mesh at world 1: tensor and expert parallelism (A9b) ----------
 
-def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
-    """(device ms a call, of which NCCL's kernels) of ``fn``: the sum of
-    its kernels' device times in a ``torch.profiler`` trace of ``iters``
-    calls (a call with NCCL collectives is not captured in a CUDA graph
-    here), after one warm-up call."""
+def profiled_parts(fn, iters: int = 2) -> tuple[float, float, float]:
+    """(device ms a call, of which NCCL's kernels, of which device-to-device
+    copies) of ``fn``: the sums of its device times in a ``torch.profiler``
+    trace of ``iters`` calls (a call with NCCL collectives is not captured
+    in a CUDA graph here), after one warm-up call.  NCCL over a group of
+    one rank launches no kernel: its gathers are copies."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -3268,14 +3294,22 @@ def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = nccl = 0.0
+    total = nccl = copies = 0.0
     for ev in prof.key_averages():
         total += ev.self_device_time_total
         if "nccl" in ev.key.lower():
             nccl += ev.self_device_time_total
+        elif "memcpy dtod" in ev.key.lower():
+            copies += ev.self_device_time_total
     if total <= 0:
         raise AssertionError("the profiler saw no device time")
-    return total / iters / 1e3, nccl / iters / 1e3
+    return total / iters / 1e3, nccl / iters / 1e3, copies / iters / 1e3
+
+
+def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
+    """(device ms a call, of which NCCL's kernels) of ``fn``
+    (:func:`profiled_parts`)."""
+    return profiled_parts(fn, iters)[:2]
 
 
 def mesh_step_turns(model, eng) -> dict:
@@ -3989,11 +4023,12 @@ class KernelShapes:
             with self._lock:
                 counter[key] += 1
 
-        def flash(q, k, v, *, causal=True, window=None):
+        def flash(q, k, v, *, causal=True, window=None, q_offset=0):
             tally(self.flash, (*q.shape[:2], k.shape[1], q.shape[2],
                                k.shape[2], q.shape[3], causal, window,
-                               q.dtype, ops._needs_grad(q, k, v)))
-            return fa(q, k, v, causal=causal, window=window)
+                               q.dtype, ops._needs_grad(q, k, v), q_offset))
+            return fa(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset)
 
         def paged(q, k_pages, v_pages, tables, lengths, k_scale=None,
                   v_scale=None):
@@ -4038,22 +4073,23 @@ class KernelShapes:
         def keep(name, e):
             errs[name] = max(errs.get(name, 0.0), e)
 
-        for B, Sq, Sk, Hq, Hkv, D, causal, window, dt, grad in sorted(
+        for B, Sq, Sk, Hq, Hkv, D, causal, window, dt, grad, off in sorted(
                 self.flash, key=str):
             q = torch.randn(B, Sq, Hq, D, device=dev).to(dt)
             k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dt)
                     for _ in range(2))
             what = (f"{label} path shape B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
-                    f"Hkv={Hkv} D={D} causal={causal} window={window} {dt}")
+                    f"Hkv={Hkv} D={D} causal={causal} window={window} "
+                    f"q_offset={off} {dt}")
+            kw = dict(causal=causal, window=window, q_offset=off)
             keep("flash_attention", check(
-                "flash_attention", what,
-                ops.flash_attention(q, k, v, causal=causal, window=window),
-                ref.flash_attention(q, k, v, causal=causal, window=window),
-                dt))
+                "flash_attention", what, ops.flash_attention(q, k, v, **kw),
+                ref.flash_attention(q, k, v, **kw), dt))
             del q, k, v
             if grad:
                 keep("flash_attention_bwd", flash_bwd_gap(
-                    dev, B, Sq, Hq, Hkv, D, causal, window, dt, what)[0])
+                    dev, B, Sq, Hq, Hkv, D, causal, window, dt, what,
+                    Sk=Sk, q_offset=off)[0])
         for B, W, Hq, Hkv, D, P, qdt, pdt in sorted(self.paged, key=str):
             lengths = rng.integers(1, P * PS - W + 2, B)
             q, kp, vp, tb, ln = mm_paged_case(rng, dev, B, W, Hq, Hkv, D, P,
@@ -4682,10 +4718,40 @@ TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
 # O for rowsum(dO * O) and rounds its result to bf16 once, where the
 # float32 autograd rounds nothing), float32 within 1e-4 (summation order)
 TRAIN_FLASH_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# B3 with a query offset, training's sequence parallelism (a rank's block
+# of Sq queries at q_offset against the Sk = q_offset + Sq keys before its
+# last one), forward and backward: (B, Sq, Sk, q_offset, Hq, Hkv, D,
+# causal, window, dtype): qwen3-1.7b's second block of a 2048 sequence
+# over 2 ranks on the tensor cores, the same windowed, float32 at D 64 on
+# CUDA cores, and Sk - Sq = 133, no multiple of any tile
+TRAIN_FLASH_OFFSET_CASES = [
+    (1, 1024, 2048, 1024, 16, 8, 128, True, None, torch.bfloat16),
+    (1, 1024, 2048, 1024, 16, 8, 128, True, 512, torch.bfloat16),
+    (2, 130, 260, 130, 4, 2, 64, True, None, torch.float32),
+    (2, 200, 333, 133, 8, 4, 128, True, None, torch.bfloat16)]
 # main-train: full-width, full-depth qwen3-1.7b, float32 weights and
 # moments, bf16 compute, remat full; the launcher's AdamW for 20 steps
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-1.7b", 4, 2048, 20
 TRAIN_LR = 1e-3
+# timing-train's sequence-parallel block (B, Sq, Sk, q_offset): main-train's
+# 4 rows, the second half (1024 queries at 1024) of its 2048 positions
+# over 2 ranks
+SP_BLOCK = (TRAIN_B, 1024, 2048, 1024)
+# main-train-mesh: main-train's first steps through Trainer on a (1, 1)
+# ("data", "model") mesh in a run_ranks world of 1 over NCCL; its losses
+# and gradient norms within TRAIN_MESH_REL of main-train's (at world 1
+# every gather and reduce-scatter is a copy of one rank's tensor, so the
+# arithmetic is main-train's: bit equality is expected), its peak within
+# TRAIN_MESH_PEAK of main-train's (a layer's weights gathered at a time)
+TRAIN_MESH_STEPS = 5
+TRAIN_MESH_REL = 1e-5
+TRAIN_MESH_PEAK = 1.10
+# pod-dp: the same model on a (1, 1, 1) ("pod", "data", "model") mesh at
+# world 1, POD_DP_STEPS steps int8-compressed, then as many plain from the
+# same state; the reference test's gates
+POD_DP_STEPS = 3
+POD_DP_LOSS_GAP = 0.05
+POD_DP_WIRE = 0.3
 CKPT_LAYERS = 2                 # the checkpoint round trip's cut
 # small-train: 5 float32 SMOKE steps, card against CPU; the losses within
 # 1e-4 and the gradient norms within 1e-3 relative: float32 on both, sums
@@ -4774,20 +4840,22 @@ def norm_bwd_gap(dev, variant, rows, d, dtype, keep_sum, what,
 
 
 def flash_bwd_gap(dev, B, S, Hq, Hkv, D, causal, window, dtype,
-                  what) -> tuple[float, float]:
-    """B3's backward (``Sq == Sk``) on seeded random inputs against autograd
-    through the plain version in float32 on the same (widened) inputs:
-    (max |d|, max |d| over max(1, max |autograd|)) over dq, dk, dv; raises
-    past TRAIN_FLASH_REL."""
+                  what, Sk=None, q_offset=0) -> tuple[float, float]:
+    """B3's backward (S queries at ``q_offset``, ``Sk`` keys: S unless
+    given) on seeded random inputs against autograd through the plain
+    version in float32 on the same (widened) inputs: (max |d|, max |d|
+    over max(1, max |autograd|)) over dq, dk, dv; raises past
+    TRAIN_FLASH_REL."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    Sk = S if Sk is None else Sk
     q, g = (torch.randn(B, S, Hq, D, device=dev).to(dtype) for _ in range(2))
-    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(dtype)
+    k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
             for _ in range(2))
-    got = grads_of(lambda a, b, c: ops.flash_attention(
-        a, b, c, causal=causal, window=window), (q, k, v), (g,))
-    want = grads_of(lambda a, b, c: flash_attention_plain(
-        a, b, c, causal=causal, window=window),
-        tuple(t.float() for t in (q, k, v)), (g.float(),))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = grads_of(lambda a, b, c: ops.flash_attention(a, b, c, **kw),
+                   (q, k, v), (g,))
+    want = grads_of(lambda a, b, c: flash_attention_plain(a, b, c, **kw),
+                    tuple(t.float() for t in (q, k, v)), (g.float(),))
     torch.cuda.synchronize()
     worst = (0.0, 0.0)
     for gg, w, name in zip(got, want, ("dq", "dk", "dv")):
@@ -4803,8 +4871,11 @@ def phase_parity_train(dev) -> dict:
     """B2's and B3's backward kernels against autograd through their plain
     versions in float32 on the same inputs: B2's three variants (the norm,
     the fused add with and without its sum) at TRAIN_NORM_CASES in bf16
-    and float32, B3 at TRAIN_FLASH_CASES, each gated on its relative gap.
-    Returns the max abs error by kernel (and logs the relative ones)."""
+    and float32, B3 at TRAIN_FLASH_CASES, each gated on its relative gap;
+    then B3 with a query offset (TRAIN_FLASH_OFFSET_CASES), forward under
+    TOL and backward, its launches counted apart.  Returns the max abs
+    error by kernel (and logs the relative ones) and the offset calls'
+    launches."""
     torch.manual_seed(1)
     errs = {"rmsnorm_bwd": 0.0, "flash_attention_bwd": 0.0}
     rels = dict(errs)
@@ -4839,8 +4910,44 @@ def phase_parity_train(dev) -> dict:
             or counts.get("flash_attention_bwd_tc", (0, 0))[0] != want_tc):
         raise AssertionError(f"parity-train: backward launches {counts}; "
                              f"want {want_tc} on the tensor cores")
+    # B3 with a query offset, forward then backward, its launches apart
+    ops.reset_counts()
+    off_err = 0.0
+    for (B, Sq, Sk, off, Hq, Hkv, D, causal, window,
+         dtype) in TRAIN_FLASH_OFFSET_CASES:
+        what = (f"parity-train flash_attention B={B} Sq={Sq} Sk={Sk} "
+                f"q_offset={off} Hq={Hq} Hkv={Hkv} D={D} window={window} "
+                f"{dtype}")
+        q = torch.randn(B, Sq, Hq, D, device=dev).to(dtype)
+        k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        off_err = max(off_err, check(
+            "flash_attention", what, ops.flash_attention(q, k, v, **kw),
+            ref.flash_attention(q, k, v, **kw), dtype))
+        del q, k, v
+        keep("flash_attention_bwd", flash_bwd_gap(
+            dev, B, Sq, Hq, Hkv, D, causal, window, dtype, what, Sk=Sk,
+            q_offset=off))
+    off_counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
+    n_off = len(TRAIN_FLASH_OFFSET_CASES)
+    tc_fwd = sum(dt == torch.bfloat16 and c[6] in (64, 128, 256)
+                 for *c, dt in TRAIN_FLASH_OFFSET_CASES)
+    tc_bwd = sum(dt == torch.bfloat16 and c[6] in (64, 128)
+                 for *c, dt in TRAIN_FLASH_OFFSET_CASES)
+    want_off = {"flash_attention": 2 * n_off, "flash_attention_tc": 2 * tc_fwd,
+                "flash_attention_bwd": n_off, "flash_attention_bwd_tc": tc_bwd}
+    if off_counts != want_off or any(c.plain for c in ops.COUNTS.values()):
+        raise AssertionError(f"parity-train: the offset calls launched "
+                             f"{off_counts}; want {want_off}, no plain call")
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"parity-train: B3 with a query offset at "
+        f"{[c[:9] for c in TRAIN_FLASH_OFFSET_CASES]}: forward max abs "
+        f"{off_err:.3e} (limits {TOL['flash_attention']}), the backward "
+        f"within the limits above; launches {off_counts} (forward twice a "
+        f"case: alone and under autograd; bf16 D 64/128 on the tensor "
+        f"cores both ways)")
     log(f"parity-train: B2's backward (rmsnorm, add_rmsnorm with and "
         f"without its sum) at (rows, d) {TRAIN_NORM_CASES}, bf16 (limit "
         f"{TRAIN_NORM_TOL[torch.bfloat16]}: one bf16 rounding of the "
@@ -4853,7 +4960,8 @@ def phase_parity_train(dev) -> dict:
         f"through the plain version in float32: max |d| over max(1, max "
         f"|autograd|) "
         f"{rels}, max |d| {errs}; launches {counts}")
-    return errs
+    errs["flash_attention"] = off_err
+    return errs, off_counts
 
 
 def phase_small_train(dev) -> None:
@@ -5007,7 +5115,152 @@ def phase_main_train(dev) -> dict:
     torch.cuda.empty_cache()
     return {"launches": {k: counts[k][0] for k in want},
             "host_ms": host, "device_ms": devt, "peak": peak,
-            "losses": losses, "errs": errs}
+            "losses": losses, "grad_norms": [m["grad_norm"] for m in h],
+            "errs": errs}
+
+
+def _train_mesh_rank(comm) -> dict:
+    """A world-1 rank on the card (NCCL): main-train's first
+    TRAIN_MESH_STEPS steps through ``Trainer`` on ``make_debug_mesh(1, 1)``
+    (the state sharded at birth, a layer's weights gathered inside its
+    block, the K/V gathered over "model", the gradients reduce-scattered),
+    one more step profiled; then pod-dp on a (1, 1, 1) ("pod", "data",
+    "model") mesh, POD_DP_STEPS steps compressed and as many plain, each
+    from the seeded state."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.mesh import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    from repro_torch.train.pod_dp import make_pod_dp_step
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    mesh = make_debug_mesh(1, 1)
+    rules = rules_for_mesh(mesh)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                      decay_steps=TRAIN_STEPS)
+    task = SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
+    specs = model.train_batch_specs(type("S", (), {
+        "global_batch": TRAIN_B, "seq_len": TRAIN_S})())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(model, opt, TrainerConfig(steps=TRAIN_MESH_STEPS,
+                                           log_every=TRAIN_MESH_STEPS),
+                 make_data_iter(task, mesh, rules, specs, device=dev),
+                 mesh=mesh, rules=rules, device=dev, seed=0, log=log)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    h = tr.fit()["history"]
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
+              if c.kernel or c.plain}
+    peak = torch.cuda.max_memory_allocated()
+    state = tr.final_state
+    batch = next(make_data_iter(task, mesh, rules, specs, device=dev,
+                                start_step=TRAIN_MESH_STEPS))
+    step = make_train_step(model, opt, mesh, rules)
+    devt, nccl, copies = profiled_parts(lambda: step(state, batch), iters=1)
+    del state, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"losses": [m["loss"] for m in h],
+           "grad_norms": [m["grad_norm"] for m in h],
+           "step_times": [m["step_time"] for m in h], "counts": counts,
+           "peak": peak, "device_ms": devt, "nccl_ms": nccl,
+           "copy_ms": copies, "wall": wall,
+           "groups": [mesh.comm(a).size() for a in mesh.axis_names]}
+    pmesh = comm_lib.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    prules = rules_for_mesh(pmesh)
+    for compress in (True, False):
+        ps = make_pod_dp_step(model, opt, pmesh, prules, compress=compress)
+        st = ps.init_state(0, device=dev)
+        outs, ts = [], []
+        for i in range(POD_DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, o = ps(st, task.batch_at(i))
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            outs.append(o)
+        out["pod", compress] = {"outs": outs, "times": ts}
+        del st, ps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_train_mesh(train) -> dict:
+    """main-train-mesh and pod-dp (:func:`_train_mesh_rank`) in
+    ``run_ranks(world=1)`` on the card.  Gates: the losses and gradient
+    norms within TRAIN_MESH_REL of main-train's first steps, B2's and B3's
+    launches a step (forward and backward) main-train's, no plain call,
+    the peak within TRAIN_MESH_PEAK of main-train's; pod-dp's last losses
+    within POD_DP_LOSS_GAP and its wire under POD_DP_WIRE of float32."""
+    t0 = time.perf_counter()
+    r = comm_lib.run_ranks(_train_mesh_rank, (), world=1,
+                           store_dir=STORE_DIR, device="cuda")[0]
+    if torch.distributed.is_initialized():
+        raise AssertionError("main-train-mesh: a process group was left")
+    n = TRAIN_MESH_STEPS
+    want = {"losses": train["losses"][:n],
+            "grad_norms": train["grad_norms"][:n]}
+    gaps = {k: max(abs(a - b) / abs(b) for a, b in zip(r[k], want[k]))
+            for k in want}
+    bitwise = all(r[k] == want[k] for k in want)
+    for k, g in gaps.items():
+        if not g <= TRAIN_MESH_REL:
+            raise AssertionError(f"main-train-mesh: {k} {r[k]} against "
+                                 f"main-train's {want[k]} (gap {g})")
+    per_step = {k: train["launches"][k] / TRAIN_STEPS
+                for k in train["launches"]}
+    got = {k: r["counts"].get(k, (0, 0))[0] / n for k in per_step}
+    extra = {k: c for k, c in r["counts"].items()
+             if c[1] or k not in per_step}
+    if got != per_step or extra:
+        raise AssertionError(f"main-train-mesh: launches a step {got}, "
+                             f"main-train's {per_step}; other {extra}")
+    if r["peak"] > TRAIN_MESH_PEAK * train["peak"]:
+        raise AssertionError(f"main-train-mesh: peak {r['peak']} B above "
+                             f"{TRAIN_MESH_PEAK} x main-train's "
+                             f"{train['peak']} B")
+    host = float(np.median(r["step_times"][2:])) * 1e3
+    log(f"main-train-mesh: {TRAIN_ARCH} through Trainer(mesh="
+        f"make_debug_mesh(1, 1)) in run_ranks(world=1, NCCL), groups of "
+        f"{r['groups']}, {n} steps of {TRAIN_B} x {TRAIN_S} in "
+        f"{r['wall']:.1f} s: losses {r['losses']} (main-train's "
+        f"{want['losses']}), grad norms {r['grad_norms']} (main-train's "
+        f"{want['grad_norms']}): {'bit for bit equal' if bitwise else 'largest relative gaps ' + str(gaps)} "
+        f"(limit {TRAIN_MESH_REL}); launches a step {got} = main-train's; "
+        f"a step host-issued {host:.1f} ms (median of steps 3-{n}; "
+        f"main-train {train['host_ms']:.1f} ms), device {r['device_ms']:.1f} "
+        f"ms (one step profiled; NCCL's kernels {r['nccl_ms']:.2f} ms and "
+        f"device-to-device copies {r['copy_ms']:.2f} ms of it: NCCL over one "
+        f"rank copies; main-train {train['device_ms']:.1f} ms); "
+        f"max_memory_allocated "
+        f"{r['peak']} B = {r['peak'] / train['peak']:.4f} x main-train's "
+        f"{train['peak']} B (limit {TRAIN_MESH_PEAK})")
+    comp, plain = r["pod", True]["outs"], r["pod", False]["outs"]
+    gap = abs(comp[-1]["loss"] - plain[-1]["loss"])
+    wire, fp32 = comp[-1]["wire_bytes"], comp[-1]["fp32_bytes"]
+    if not gap < POD_DP_LOSS_GAP or not wire < POD_DP_WIRE * fp32:
+        raise AssertionError(f"pod-dp: last losses {comp[-1]['loss']} / "
+                             f"{plain[-1]['loss']}, wire {wire} of {fp32} B")
+    log(f"pod-dp: {TRAIN_ARCH} on a (1, 1, 1) (pod, data, model) mesh in "
+        f"run_ranks(world=1, NCCL), {POD_DP_STEPS} steps int8 + error "
+        f"feedback then {POD_DP_STEPS} plain from the seeded state: losses "
+        f"{[o['loss'] for o in comp]} / {[o['loss'] for o in plain]}, |last "
+        f"gap| {gap:.6f} (limit {POD_DP_LOSS_GAP}); wire {wire} B against "
+        f"{fp32} B of float32 ({wire / fp32:.4f}, limit {POD_DP_WIRE}); step "
+        f"times {[round(t * 1e3, 1) for t in r['pod', True]['times']]} / "
+        f"{[round(t * 1e3, 1) for t in r['pod', False]['times']]} ms; both "
+        f"phases {time.perf_counter() - t0:.1f} s")
+    return {"launches": {k: r["counts"].get(k, (0, 0))[0]
+                         for k in per_step},
+            "steps": n, "peak": r["peak"], "host_ms": host,
+            "device_ms": r["device_ms"], "nccl_ms": r["nccl_ms"],
+            "copy_ms": r["copy_ms"]}
 
 
 def teacher_forcing(model, params, prompts, toks):
@@ -5185,7 +5438,22 @@ def sdpa_mask(S: int, window, dev):
     return ok
 
 
-def phase_timing_train(dev) -> dict:
+def optional_ms(what: str, fn):
+    """``fn()``, or None (logged) where this torch's SDPA refuses the call:
+    a yardstick that is not there is recorded as absent, never guessed."""
+    try:
+        return fn()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f"{what}: not run ({type(e).__name__}: {str(e)[:160]})")
+        return None
+
+
+def sp_pairs(Sq: int, off: int) -> int:
+    """(query, key) pairs a causal block of Sq queries at ``off`` sees."""
+    return Sq * off + Sq * (Sq + 1) // 2
+
+
+def phase_timing_train(dev, smi: str) -> dict:
     """B3 forward at gemma3's prefill shapes (S 2048, window 1024 and
     global); B3's and B2's backward at the training shapes.  Each beside
     its plain version, one PyTorch yardstick (SDPA with the same mask,
@@ -5240,6 +5508,80 @@ def phase_timing_train(dev) -> dict:
             f"{t['library']:.4f} ms{causal_lib}, bound {b:.4f} ms ({by})")
     del q, k, v
     tcfg = get_config(TRAIN_ARCH)
+    # the sequence-parallel block: B3 forward and backward with a query
+    # offset beside SDPA with the same mask (explicit, and as
+    # causal_lower_right, which keeps SDPA on its fused kernels)
+    from torch.nn.attention.bias import causal_lower_right
+    B, Sq, Sk, off = SP_BLOCK
+    Hq, Hkv, D = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
+    q, g = (torch.randn(B, Sq, Hq, D, device=dev).to(bf16) for _ in range(2))
+    k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(bf16)
+            for _ in range(2))
+    mask = (torch.arange(Sk, device=dev)[None, :]
+            <= off + torch.arange(Sq, device=dev)[:, None])
+    lower_right = causal_lower_right(Sq, Sk)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = sp_pairs(Sq, off)
+    b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                  4 * D * Hq * B * pairs, bf16)
+    t = {what: device_ms([fn]) for what, fn in (
+        ("kernel", lambda: ops.flash_attention(q, k, v, q_offset=off)),
+        ("plain", lambda: ref.flash_attention(q, k, v, q_offset=off)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)))}
+    t["library_causal"] = optional_ms("SDPA causal_lower_right", lambda: (
+        device_ms([lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lower_right, enable_gqa=True)])))
+    out["flash_attention"]["sp_block"] = {
+        "shape": [B, Sq, Sk, Hq, Hkv, D, True, None, off], "ms": t["kernel"],
+        "plain_ms": t["plain"], "library_ms": t["library"],
+        "library_causal_ms": t["library_causal"], "bound_ms": b,
+        "bound_by": by, "card": smi}
+    log(f"timing flash_attention sp-block [B={B} Sq={Sq} Sk={Sk} "
+        f"q_offset={off} Hq={Hq} Hkv={Hkv} D={D} bf16, tensor-core route; "
+        f"{smi}]: device kernel {t['kernel']:.4f} ms, plain "
+        f"{t['plain']:.4f} ms, SDPA (same mask) {t['library']:.4f} ms, SDPA "
+        f"causal_lower_right {t['library_causal']} ms, bound {b:.4f} ms "
+        f"({by})")
+    o, lse = flash_attention_cuda(q, k, v, q_offset=off, with_lse=True)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    plain_out = flash_attention_plain(*leaves, q_offset=off)
+    lib_leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in lib_leaves), attn_mask=mask,
+        enable_gqa=True)
+    lr_leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lr_out = optional_ms("SDPA causal_lower_right", lambda: (
+        F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in lr_leaves), attn_mask=lower_right,
+            enable_gqa=True)))
+    gt = g.transpose(1, 2)
+    b, by = bound((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                   + 2 * o.numel()) * 2, 10 * D * Hq * B * pairs, bf16)
+    t = {"kernel": queued_ms(lambda: flash_attention_bwd_cuda(
+             q, k, v, o, g, q_offset=off, lse=lse), iters=5),
+         "plain": queued_ms(lambda: torch.autograd.grad(
+             plain_out, leaves, g, retain_graph=True), iters=5),
+         "library": queued_ms(lambda: torch.autograd.grad(
+             lib_out, lib_leaves, gt, retain_graph=True)),
+         "library_causal": None if lr_out is None else queued_ms(
+             lambda: torch.autograd.grad(lr_out, lr_leaves, gt,
+                                         retain_graph=True))}
+    out["flash_attention_bwd"]["sp_block"] = {
+        "shape": [B, Sq, Sk, Hq, Hkv, D, True, None, off], "ms": t["kernel"],
+        "plain_ms": t["plain"], "library_ms": t["library"],
+        "library_causal_ms": t["library_causal"], "bound_ms": b,
+        "bound_by": by, "cores": "tensor", "card": smi}
+    log(f"timing flash_attention_bwd sp-block [B={B} Sq={Sq} Sk={Sk} "
+        f"q_offset={off} Hq={Hq} Hkv={Hkv} D={D} bf16, tensor-core route; "
+        f"{smi}]: device kernel {t['kernel']:.4f} ms, plain (autograd, "
+        f"float32) {t['plain']:.4f} ms, SDPA's backward (same mask) "
+        f"{t['library']:.4f} ms, causal_lower_right {t['library_causal']} "
+        f"ms, bound {b:.4f} ms ({by})")
+    del (q, k, v, g, o, lse, leaves, plain_out, lib_leaves, lib_out,
+         lr_leaves, lr_out, qt, kt, vt, gt, mask)
+    gc.collect()
+    torch.cuda.empty_cache()
     for label, (B, S, Hq, Hkv, D, window) in (
             ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
                        tcfg.head_dim, None)),
@@ -5453,7 +5795,10 @@ def main() -> int:
     errs["rwkv6_scan"] = max(e for e, _ in rwkv_errs.values())
     ssd_errs = phase_parity_ssd(dev)
     errs["ssd_scan"] = max(e for e, _ in ssd_errs.values())
-    errs.update(phase_parity_train(dev))
+    train_errs, offset_launches = phase_parity_train(dev)
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  train_errs.pop("flash_attention"))
+    errs.update(train_errs)
     phase_small(dev)
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
@@ -5576,10 +5921,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
     train = phase_main_train(dev)
+    t_mesh = time.perf_counter()
+    train_mesh = phase_main_train_mesh(train)
+    t_mesh = time.perf_counter() - t_mesh
     gemma = phase_main_gemma3(dev)
-    train_times = phase_timing_train(dev)
-    log(f"the training and gemma3 phases (main-train, main-gemma3, "
-        f"timing-train) took {time.perf_counter() - t_new:.1f} s")
+    train_times = phase_timing_train(dev, smi)
+    log(f"the training and gemma3 phases (main-train, main-train-mesh and "
+        f"pod-dp ({t_mesh:.1f} s), main-gemma3, timing-train) took "
+        f"{time.perf_counter() - t_new:.1f} s")
     # parity at the shapes the phases served and trained at
     for r in (*mm.values(), train, gemma):
         for name, e in r["errs"].items():
@@ -5590,12 +5939,23 @@ def main() -> int:
     times["flash_attention"]["train_launches"] = {
         k: train["launches"][k] for k in ("flash_attention",
                                           "flash_attention_tc")}
+    times["flash_attention"]["offset"] = {
+        "timed": train_times["flash_attention"]["sp_block"],
+        "backward_timed": train_times["flash_attention_bwd"]["sp_block"],
+        "parity_launches": offset_launches}
+    mesh_launches = train_mesh["launches"]
+    times["flash_attention"]["train_mesh_launches"] = {
+        k: mesh_launches[k] for k in ("flash_attention",
+                                      "flash_attention_tc")}
+    times["rmsnorm"]["train_mesh_launches"] = {
+        k: mesh_launches[k] for k in ("rmsnorm", "rmsnorm_add")}
     times["rmsnorm"]["train_launches"] = {
         k: train["launches"][k] for k in ("rmsnorm", "rmsnorm_add")}
     for name, head in (("rmsnorm_bwd", "add_ln"),
                        ("flash_attention_bwd", "train")):
         times[name] = {**train_times[name][head],
-                       "variants": train_times[name]}
+                       "variants": train_times[name],
+                       "train_mesh_launches": mesh_launches[name]}
         launches[name] = train["launches"][name]
     launches["flash_attention_bwd_tc"] = train["launches"][
         "flash_attention_bwd_tc"]
@@ -5676,6 +6036,7 @@ def main() -> int:
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
                 "moe_launches", "shard_heads", "multimodal", "gemma3",
                 "train_launches", "add_launches", "library_causal_ms",
+                "offset", "train_mesh_launches",
                 "cores", "with_lse_ms", "s2048_with_lse_ms") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,6 +17,13 @@
 // key at all is written as zeros.  Any S >= 1 works, Sq != Sk works, and
 // q, k, v are read through their (batch, seq, head) strides.
 //
+// A query offset q_off >= 0 (training's sequence parallelism: a rank's
+// block of queries at positions q_off .. q_off + Sq - 1 against the keys
+// 0 .. Sk - 1 before it) puts row i at position p = q_off + i: it sees key
+// j when (not causal or j <= p) and (no window or p - j < window).  Every
+// mask and every dead-tile bound compares positions; q_off 0 is the TPU
+// kernel's case.
+//
 // Bound on this card: operations at the prefill shapes.  Every visible
 // (query, key) pair costs 4 * D flops a query head against one read of
 // q, k, v and one write of out, so at S = 1024 the work is ~450 flops a
@@ -147,7 +154,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int Sq,
                        int Sk, int Hq, int Hkv, Strides qs, Strides ks,
-                       Strides vs, int causal, int window, float scale) {
+                       Strides vs, int causal, int window, int q_off,
+                       float scale) {
   using C = Tile<D>;
   constexpr int TM = C::TM, TN = C::TN, BM = C::BM, BN = C::BN, TC = C::TC,
                 PS = C::PS;
@@ -182,9 +190,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < N; ++e) q_s[(c + e) * BM + r] = f[e] * scale;
   }
 
-  // the keys any row of this tile can see: the TPU's dead-tile skip
-  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the keys any row of this tile can see: the TPU's dead-tile skip (row
+  // i sits at position q_off + i)
+  const int kv_end = causal ? min(Sk, q_off + q_last + 1) : Sk;
+  const int kv_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   float m[TM], l[TM], acc[TM][TC];
 #pragma unroll
@@ -249,14 +258,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax per row; the row's 8 lanes reduce by shuffle
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int row = q0 + rg * TM + i;
+      const int pos = q_off + q0 + rg * TM + i;   // the row's position
       unsigned seen = 0;       // bit t: key cg + 8t is visible to this row
       float mx = kNegInf;
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
         const int key = k0 + cg + kColGroups * t;
-        const bool ok = key < kv_end && (!causal || key <= row) &&
-                        (window <= 0 || row - key < window);
+        const bool ok = key < kv_end && (!causal || key <= pos) &&
+                        (window <= 0 || pos - key < window);
         if (ok) {
           seen |= 1u << t;
           mx = fmaxf(mx, s[i][t]);
@@ -316,8 +325,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int Hq, int Hkv, Strides qs,
-                   Strides ks, Strides vs, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   Strides ks, Strides vs, int causal, int window, int q_off,
+                   float scale, cudaStream_t stream) {
   using C = Tile<D>;
   // above 48 KB only with the attribute; set once per instantiation (a
   // function-local static is initialised once, thread-safely), so a launch
@@ -333,7 +342,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, D><<<grid, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, qs, ks,
-      vs, causal, window, scale);
+      vs, causal, window, q_off, scale);
   return cudaGetLastError();
 }
 
@@ -341,7 +350,7 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int B, int Sq, int Sk, int Hq, int Hkv, int D, Strides qs,
                      Strides ks, Strides vs, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     int q_off, float scale, cudaStream_t stream) {
   // bf16 at D 64, 128 and 256 is the tensor cores' (route 1), never built
   // here
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
@@ -349,7 +358,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   case DIM:                                                                    \
     if constexpr (!kBf16 || DIM < 64)                                          \
       return launch<T, DIM>(q, k, v, out, B, Sq, Sk, Hq, Hkv, qs, ks, vs,     \
-                            causal, window, scale, stream);                   \
+                            causal, window, q_off, scale, stream);            \
     break;
   switch (D) {
     REPRO_FA_CASE(16) REPRO_FA_CASE(32) REPRO_FA_CASE(64) REPRO_FA_CASE(128)
@@ -414,7 +423,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int lse_stride, int Sq,
                           int Sk, int Hq, int Hkv, int causal, int window,
-                          float scale_log2) {
+                          int q_off, float scale_log2) {
   using L = Smem<D>;
   constexpr int kBN = L::kBN, kStages = L::kStages;
   constexpr int kAtoms = D / 64;          // swizzle atoms across D
@@ -436,9 +445,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
   const int q_last = min(q0 + kBM, Sq) - 1;
-  // the keys any row of this block can see: the TPU's dead-tile skip
-  const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // the keys any row of this block can see: the TPU's dead-tile skip (row
+  // i sits at position q_off + i)
+  const int kv_end = causal ? min(Sk, q_off + q_last + 1) : Sk;
+  const int kv_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBN - 1) / kBN
                                         : 0;
   const int tid = threadIdx.x, wg = tid / 128;
@@ -481,14 +491,17 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
   const int rlo = q0 + 64 * c, rhi = rlo + 63;
   const int row[2] = {rlo + 16 * warp + g, rlo + 16 * warp + g + 8};
+  // the rows' positions: the masks compare these with the keys'
+  const int plo = q_off + rlo, phi = q_off + rhi;
+  const int pos[2] = {q_off + row[0], q_off + row[1]};
   const uint32_t q_rows = q_s + 64 * c * kAtomBytes;   // this warpgroup's rows
   // the tiles this warpgroup's rows see form one run [i_lo, i_hi) of the
   // block's (a window cuts early tiles, causality late ones); the others
   // are released unread
   auto seen = [&](int i) {
     const int k0 = kv_begin + i * kBN;
-    return k0 < Sk && !(causal && k0 > rhi) &&
-           !(window > 0 && rlo - (k0 + kBN - 1) >= window);
+    return k0 < Sk && !(causal && k0 > phi) &&
+           !(window > 0 && plo - (k0 + kBN - 1) >= window);
   };
   int i_lo = 0;
   while (i_lo < n_tiles && !seen(i_lo)) ++i_lo;
@@ -551,15 +564,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   // scale log2 e) in sacc, updates m and l, returns the rescale of O.
   auto softmax = [&](int i, float* corr) {
     const int k0 = kv_begin + i * kBN;
-    const bool full_tile = k0 + kBN <= Sk && (!causal || k0 + kBN - 1 <= rlo) &&
-                           (window <= 0 || rhi - k0 < window);
+    const bool full_tile = k0 + kBN <= Sk && (!causal || k0 + kBN - 1 <= plo) &&
+                           (window <= 0 || phi - k0 < window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (!full_tile) {
-          const int key = k0 + 8 * j + 2 * t + (e & 1), r = row[e >> 1];
+          const int key = k0 + 8 * j + 2 * t + (e & 1), r = pos[e >> 1];
           const bool ok = key < Sk && (!causal || key <= r) &&
                           (window <= 0 || r - key < window);
           // exp2(-inf) = 0: a masked key is zeroed explicitly
@@ -688,7 +701,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int Sq, int Sk, int Hq, int Hkv,
                    Strides qs, Strides ks, Strides vs, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   int q_off, float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Smem<D>::kBytes);
@@ -703,7 +716,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B * Hq, blocks);
   flash_attention_tc_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse,
-      blocks * kBM, Sq, Sk, Hq, Hkv, causal, window,
+      blocks * kBM, Sq, Sk, Hq, Hkv, causal, window, q_off,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -714,7 +727,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D) through their (batch, seq,
 // head) strides in elements; out contiguous (B, Sq, Hq, D).  window <= 0:
-// no window.  route 1: the tensor cores, which must be bf16 at D 64, 128 or
+// no window.  q_off >= 0: query row i sits at position q_off + i (the keys
+// at 0 .. Sk - 1).  route 1: the tensor cores, which must be bf16 at D 64, 128 or
 // 256; route 0: the CUDA cores, everything else.  lse: null, or (route 1
 // only) a float32 (B, Hq, ceil(Sq / 128) * 128) buffer that receives each
 // row's log-sum-exp in log2 units for the backward.  Returns the launch's
@@ -724,9 +738,9 @@ extern "C" int flash_attention_launch(
     int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, int dtype, int route, void* stream) {
+    int q_off, float scale, int dtype, int route, void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq > 65535 ||
-      Hq % Hkv != 0)
+      Hq % Hkv != 0 || q_off < 0)
     return cudaErrorInvalidValue;
   const bool tensor_cores =
       dtype == kBFloat16 && (D == 64 || D == 128 || D == 256);
@@ -738,18 +752,18 @@ extern "C" int flash_attention_launch(
   if (tensor_cores) {
     if (D == 256)
       return tc::launch<256>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
-                             causal, window, scale, s);
+                             causal, window, q_off, scale, s);
     if (D == 128)
       return tc::launch<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
-                             causal, window, scale, s);
+                             causal, window, q_off, scale, s);
     return tc::launch<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, qs, ks, vs,
-                          causal, window, scale, s);
+                          causal, window, q_off, scale, s);
   }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, qs, ks, vs,
-                           causal, window, scale, s);
+                           causal, window, q_off, scale, s);
   if (dtype == kBFloat16)
     return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, qs, ks,
-                                   vs, causal, window, scale, s);
+                                   vs, causal, window, q_off, scale, s);
   return cudaErrorInvalidValue;
 }

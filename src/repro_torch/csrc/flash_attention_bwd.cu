@@ -1,6 +1,9 @@
 // The backward of flash attention for Hopper: the gradients of grouped-query
-// attention over whole sequences (Sq == Sk == S, the training forward),
-// causal and/or sliding-window, with respect to q, k and v.
+// attention over whole sequences, causal and/or sliding-window, with respect
+// to q, k and v.  Sq queries at positions q_off .. q_off + Sq - 1 attend to
+// Sk keys at 0 .. Sk - 1: the training forward has Sq == Sk and q_off 0;
+// under sequence parallelism a rank's query block has q_off = its first
+// position and the keys before its last query (flash_attention.cu's note).
 //
 // Replaces no TPU kernel: the reference trains through jnp (its Pallas
 // flash kernel, src/repro/kernels/flash_attention.py:flash_attention, has
@@ -131,13 +134,15 @@ struct Tile {
 };
 
 struct Geo {
-  int S, Hq, Hkv, causal, window;
+  int Sq, Sk, q_off, Hq, Hkv, causal, window;
   float scale;
 };
 
+// query row i (at position q_off + i) sees key j
 __device__ __forceinline__ bool visible(int i, int j, const Geo& g) {
-  return j < g.S && i < g.S && (!g.causal || j <= i) &&
-         (g.window <= 0 || i - j < g.window);
+  const int p = g.q_off + i;
+  return j < g.Sk && i < g.Sq && (!g.causal || j <= p) &&
+         (g.window <= 0 || p - j < g.window);
 }
 
 // rows [row0, row0 + rows) of a (S, H, D) slab (row stride `stride`
@@ -195,22 +200,22 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z, h = blockIdx.y, hk = h / (g.Hq / g.Hkv);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // heaviest first
-  const int q_last = min(q0 + BM, g.S) - 1;
+  const int q_last = min(q0 + BM, g.Sq) - 1;
   const int tid = threadIdx.x, rg = tid / kColGroups, cg = tid % kColGroups;
   const long long qs = static_cast<long long>(g.Hq) * D;   // seq strides
   const long long ks = static_cast<long long>(g.Hkv) * D;
-  const long long qoff = static_cast<long long>(b) * g.S * qs + h * D;
-  const long long koff = static_cast<long long>(b) * g.S * ks + hk * D;
+  const long long qoff = static_cast<long long>(b) * g.Sq * qs + h * D;
+  const long long koff = static_cast<long long>(b) * g.Sk * ks + hk * D;
 
-  load_t<T, D>(q_s, BM, q + qoff, qs, q0, BM, g.S, g.scale);
-  load_t<T, D>(do_s, BM, dout + qoff, qs, q0, BM, g.S, 1.f);
+  load_t<T, D>(q_s, BM, q + qoff, qs, q0, BM, g.Sq, g.scale);
+  load_t<T, D>(do_s, BM, dout + qoff, qs, q0, BM, g.Sq, 1.f);
 
   float dl[TM];                   // delta of each row
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = q0 + rg * TM + i;
     float t = 0.f;
-    if (row < g.S) {
+    if (row < g.Sq) {
       const T* a = dout + qoff + row * qs;
       const T* c = o + qoff + row * qs;
       for (int e = cg; e < D; e += kColGroups)
@@ -219,8 +224,9 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dl[i] = group_sum(t);
   }
 
-  const int kv_end = g.causal ? min(g.S, q_last + 1) : g.S;
-  const int kv_begin = g.window > 0 ? max(0, q0 - g.window + 1) : 0;
+  const int kv_end = g.causal ? min(g.Sk, g.q_off + q_last + 1) : g.Sk;
+  const int kv_begin =
+      g.window > 0 ? max(0, g.q_off + q0 - g.window + 1) : 0;
 
   // pass 1: each row's log-sum-exp over the keys it sees
   float m[TM], l[TM];
@@ -269,8 +275,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < TM; ++i) {
     const int row = q0 + rg * TM + i;
     lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : kPosInf;
-    if (row < g.S && cg == 0) {
-      const size_t at = (static_cast<size_t>(b) * g.Hq + h) * g.S + row;
+    if (row < g.Sq && cg == 0) {
+      const size_t at = (static_cast<size_t>(b) * g.Hq + h) * g.Sq + row;
       lse_out[at] = lse[i];
       delta_out[at] = dl[i];
     }
@@ -340,7 +346,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = q0 + rg * TM + i;
-    if (row >= g.S) continue;
+    if (row >= g.Sq) continue;
     T* dst = dq + qoff + row * qs + cg;
 #pragma unroll
     for (int c = 0; c < TC; ++c)
@@ -370,17 +376,18 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z, hk = blockIdx.y, G = g.Hq / g.Hkv;
   const int k0 = blockIdx.x * BM;   // the first keys see the most queries
-  const int k_last = min(k0 + BM, g.S) - 1;
+  const int k_last = min(k0 + BM, g.Sk) - 1;
   const int tid = threadIdx.x, rg = tid / kColGroups, cg = tid % kColGroups;
   const long long qs = static_cast<long long>(g.Hq) * D;
   const long long ks = static_cast<long long>(g.Hkv) * D;
-  const long long koff = static_cast<long long>(b) * g.S * ks + hk * D;
+  const long long koff = static_cast<long long>(b) * g.Sk * ks + hk * D;
 
-  load_t<T, D>(k_s, BM, k + koff, ks, k0, BM, g.S, 1.f);
-  load_t<T, D>(v_s, BM, v + koff, ks, k0, BM, g.S, 1.f);
-  // the queries that see any key of the tile
-  const int q_begin = g.causal ? k0 : 0;
-  const int q_end = g.window > 0 ? min(g.S, k_last + g.window) : g.S;
+  load_t<T, D>(k_s, BM, k + koff, ks, k0, BM, g.Sk, 1.f);
+  load_t<T, D>(v_s, BM, v + koff, ks, k0, BM, g.Sk, 1.f);
+  // the query rows that see any key of the tile (row i at q_off + i)
+  const int q_begin = g.causal ? max(0, k0 - g.q_off) : 0;
+  const int q_end =
+      g.window > 0 ? min(g.Sq, max(0, k_last + g.window - g.q_off)) : g.Sq;
 
   float ak[TM][TC], av[TM][TC];
 #pragma unroll
@@ -390,8 +397,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
-    const long long qoff = static_cast<long long>(b) * g.S * qs + h * D;
-    const size_t loff = (static_cast<size_t>(b) * g.Hq + h) * g.S;
+    const long long qoff = static_cast<long long>(b) * g.Sq * qs + h * D;
+    const size_t loff = (static_cast<size_t>(b) * g.Hq + h) * g.Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += BN) {
       __syncthreads();
       load_t<T, D>(q_s, CS, q + qoff, qs, q0, BN, q_end, g.scale);
@@ -467,7 +474,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int key = k0 + rg * TM + i;
-    if (key >= g.S) continue;
+    if (key >= g.Sk) continue;
     T* kd = dk + koff + key * ks + cg;
     T* vd = dv + koff + key * ks + cg;
 #pragma unroll
@@ -499,8 +506,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
           ? cudaErrorInvalidValue
           : allow_smem(fa_bwd_dkdv_kernel<T, D>, C::kDkvSmem);
   if (attr != cudaSuccess) return attr;
-  const unsigned tiles = (g.S + C::BM - 1) / C::BM;
-  fa_bwd_dq_kernel<T, D><<<dim3(tiles, g.Hq, B), kThreads, C::kDqSmem,
+  const unsigned q_tiles = (g.Sq + C::BM - 1) / C::BM;
+  const unsigned k_tiles = (g.Sk + C::BM - 1) / C::BM;
+  fa_bwd_dq_kernel<T, D><<<dim3(q_tiles, g.Hq, B), kThreads, C::kDqSmem,
                            stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
@@ -508,7 +516,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<float*>(lse), static_cast<float*>(delta), g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_kernel<T, D><<<dim3(tiles, g.Hkv, B), kThreads, C::kDkvSmem,
+  fa_bwd_dkdv_kernel<T, D><<<dim3(k_tiles, g.Hkv, B), kThreads, C::kDkvSmem,
                              stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -606,7 +614,7 @@ __device__ __forceinline__ void pack_frag(const float* x, uint32_t (*a)[4]) {
 }
 
 // a warpgroup's 64 x D float32 fragment, scaled, as bf16 into a (B, S, H,
-// D) contiguous tensor at head h: acc[4 j + e] is row rows[e >> 1], column
+// D) contiguous tensor at head h (S the tensor's own length): acc[4 j + e] is row rows[e >> 1], column
 // 8 j + 2 t + (e & 1); rows at or past S are not written
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float* acc,
@@ -625,7 +633,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float* acc,
 }
 
 // delta = rowsum(dO * O) in float32, one warp a row, for every row of the
-// padded (B, Hq, stride) layout; rows at or past S are 0
+// padded (B, Hq, stride) layout; rows at or past S (= Sq) are 0
 template <int D>
 __global__ void __launch_bounds__(256)
 fa_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
@@ -662,9 +670,9 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int S, int Hq, int Hkv,
-                    int causal, int window, int stride, float scale_log2,
-                    float scale) {
+                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                    int q_off, int Hq, int Hkv, int causal, int window,
+                    int stride, float scale_log2, float scale) {
   using L = Smem<D>;
   constexpr int kAtoms = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -682,9 +690,9 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   // the last query block of every (sequence, head) first: the heaviest
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int q_last = min(q0 + kRows, S) - 1;
-  const int kv_end = causal ? min(S, q_last + 1) : S;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int q_last = min(q0 + kRows, Sq) - 1;
+  const int kv_end = causal ? min(Sk, q_off + q_last + 1) : Sk;
+  const int kv_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int n_tiles =
       kv_end > kv_begin ? (kv_end - kv_begin + kCols - 1) / kCols : 0;
   const int tid = threadIdx.x, wg = tid / 128;
@@ -729,6 +737,9 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = tw / 32, lane = tw % 32, g = lane / 4, t = lane % 4;
   const int rlo = q0 + 64 * c, rhi = rlo + 63;
   const int row[2] = {rlo + 16 * warp + g, rlo + 16 * warp + g + 8};
+  // the rows' positions: the masks compare these with the keys'
+  const int plo = q_off + rlo, phi = q_off + rhi;
+  const int pos[2] = {q_off + row[0], q_off + row[1]};
   const uint32_t q_rows = q_s + 64 * c * kAtomBytes;
   const uint32_t do_rows = do_s + 64 * c * kAtomBytes;
   const size_t bh = static_cast<size_t>(b) * Hq + h;
@@ -740,8 +751,8 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
   auto seen = [&](int i) {
     const int k0 = kv_begin + i * kCols;
-    return k0 < S && !(causal && k0 > rhi) &&
-           !(window > 0 && rlo - (k0 + kCols - 1) >= window);
+    return k0 < Sk && !(causal && k0 > phi) &&
+           !(window > 0 && plo - (k0 + kCols - 1) >= window);
   };
   int i_lo = 0;
   while (i_lo < n_tiles && !seen(i_lo)) ++i_lo;
@@ -777,15 +788,15 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     fence_regs<kCols / 2>(s);
     if (i > i_lo) release(i - 1);
     const int k0 = kv_begin + i * kCols;
-    const bool full_tile = k0 + kCols <= S &&
-                           (!causal || k0 + kCols - 1 <= rlo) &&
-                           (window <= 0 || rhi - k0 < window);
+    const bool full_tile = k0 + kCols <= Sk &&
+                           (!causal || k0 + kCols - 1 <= plo) &&
+                           (window <= 0 || phi - k0 < window);
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1), r = row[e >> 1];
-        const bool ok = full_tile || (key < S && (!causal || key <= r) &&
+        const int key = k0 + 8 * j + 2 * t + (e & 1), r = pos[e >> 1];
+        const bool ok = full_tile || (key < Sk && (!causal || key <= r) &&
                                       (window <= 0 || r - key < window));
         const float p =
             fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse_r[e >> 1]));
@@ -827,7 +838,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     release(i_hi - 1);
   }
   for (int i = i_hi; i < n_tiles; ++i) skip(i);
-  store_rows<D>(dq, acc, row, b, S, Hq, h, t, scale);
+  store_rows<D>(dq, acc, row, b, Sq, Hq, h, t, scale);
 }
 
 // dk, dv: a block owns 128 keys of one (sequence, KV head) and, for each of
@@ -844,9 +855,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int Hq, int Hkv,
-                      int causal, int window, int stride, float scale_log2,
-                      float scale) {
+                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                      int q_off, int Hq, int Hkv, int causal, int window,
+                      int stride, float scale_log2, float scale) {
   using L = Smem<D>;
   constexpr int kAtoms = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -870,10 +881,13 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   // the first keys see the most queries: they start first
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, G = Hq / Hkv;
   const int k0 = blockIdx.y * kRows;
-  const int k_last = min(k0 + kRows, S) - 1;
-  // the queries any key of the block sees (k0 is a multiple of 64)
-  const int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(S, k_last + window) : S;
+  const int k_last = min(k0 + kRows, Sk) - 1;
+  // the query rows any key of the block sees (row i at q_off + i); the
+  // first is rounded down to a multiple of 64, so that a stage's slices of
+  // lse and delta are aligned and end inside the padded rows
+  const int q_begin = causal ? (max(0, k0 - q_off) & ~63) : 0;
+  const int q_end =
+      window > 0 ? min(Sq, max(0, k_last + window - q_off)) : Sq;
   const int n_q = q_end > q_begin ? (q_end - q_begin + kCols - 1) / kCols : 0;
   const int n_tiles = G * n_q;
   const int tid = threadIdx.x, wg = tid / 128;
@@ -935,9 +949,11 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % kStages, q0 = q_begin + (i % n_q) * kCols;
     mbar_wait(full(st), (i / kStages) & 1);
-    // a tile none of this warpgroup's keys sees is released unread
-    if (klo >= S || (causal && q0 + kCols - 1 < klo) ||
-        (window > 0 && q0 - khi >= window)) {
+    // a tile none of this warpgroup's keys sees is released unread (its
+    // queries at positions p0 .. p0 + 63)
+    const int p0 = q_off + q0;
+    if (klo >= Sk || (causal && p0 + kCols - 1 < klo) ||
+        (window > 0 && p0 - khi >= window)) {
       if (lane == 0) mbar_arrive(empty(st));
       continue;
     }
@@ -945,9 +961,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     issue_xyt<D, true>(dp, v_rows, do_tile(st));
     const float* lse_s = vecs + 2 * st * kCols;
     const float* dl_s = lse_s + kCols;
-    const bool full_tile = q0 + kCols <= S && khi < S &&
-                           (!causal || q0 >= khi) &&
-                           (window <= 0 || q0 + kCols - 1 - klo < window);
+    const bool full_tile = q0 + kCols <= Sq && khi < Sk &&
+                           (!causal || p0 >= khi) &&
+                           (window <= 0 || p0 + kCols - 1 - klo < window);
     // P^T while dP^T is in flight: s[4 j + e] is key key[e >> 1], query
     // q0 + 8 j + 2 t + (e & 1)
     wgmma_wait<1>();
@@ -958,9 +974,10 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qr = q0 + 8 * j + 2 * t + (e & 1), kr = key[e >> 1];
+        const int pr = q_off + qr;
         const bool ok =
-            full_tile || (qr < S && kr < S && (!causal || kr <= qr) &&
-                          (window <= 0 || qr - kr < window));
+            full_tile || (qr < Sq && kr < Sk && (!causal || kr <= pr) &&
+                          (window <= 0 || pr - kr < window));
         const float p = fast_exp2(
             fmaf(s[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
         s[4 * j + e] = ok ? p : 0.f;
@@ -991,16 +1008,16 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     fence_regs<D / 2>(ak);
     if (lane == 0) mbar_arrive(empty(st));
   }
-  store_rows<D>(dk, ak, key, b, S, Hkv, hk, t, scale);
-  store_rows<D>(dv, av, key, b, S, Hkv, hk, t, 1.f);
+  store_rows<D>(dk, ak, key, b, Sk, Hkv, hk, t, scale);
+  store_rows<D>(dv, av, key, b, Sk, Hkv, hk, t, 1.f);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, void* dq, void* dk, void* dv,
-                   const void* lse, void* delta, int B, int S, int Hq,
-                   int Hkv, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const void* lse, void* delta, int B, int Sq, int Sk,
+                   int q_off, int Hq, int Hkv, int causal, int window,
+                   float scale, cudaStream_t stream) {
   using L = Smem<D>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<D>,
@@ -1013,18 +1030,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   if (attr != cudaSuccess) return attr;
   const long long qs = static_cast<long long>(Hq) * D;   // seq strides
   const long long ks = static_cast<long long>(Hkv) * D;
-  const int blocks = (S + kRows - 1) / kRows, stride = blocks * kRows;
+  const int q_blocks = (Sq + kRows - 1) / kRows, stride = q_blocks * kRows;
+  const int k_blocks = (Sk + kRows - 1) / kRows;
   // the dq kernel's q and dO in 128-row boxes, k and v in 64-row tiles;
   // the dk/dv kernel's the other way round
   CUtensorMap q128, do128, k64, v64, q64, do64, k128, v128;
-  if (!make_map(&q128, q, B, S, Hq, D, S * qs, qs, D, kRows) ||
-      !make_map(&do128, dout, B, S, Hq, D, S * qs, qs, D, kRows) ||
-      !make_map(&k64, k, B, S, Hkv, D, S * ks, ks, D, kCols) ||
-      !make_map(&v64, v, B, S, Hkv, D, S * ks, ks, D, kCols) ||
-      !make_map(&q64, q, B, S, Hq, D, S * qs, qs, D, kCols) ||
-      !make_map(&do64, dout, B, S, Hq, D, S * qs, qs, D, kCols) ||
-      !make_map(&k128, k, B, S, Hkv, D, S * ks, ks, D, kRows) ||
-      !make_map(&v128, v, B, S, Hkv, D, S * ks, ks, D, kRows))
+  if (!make_map(&q128, q, B, Sq, Hq, D, Sq * qs, qs, D, kRows) ||
+      !make_map(&do128, dout, B, Sq, Hq, D, Sq * qs, qs, D, kRows) ||
+      !make_map(&k64, k, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
+      !make_map(&v64, v, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
+      !make_map(&q64, q, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
+      !make_map(&do64, dout, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
+      !make_map(&k128, k, B, Sk, Hkv, D, Sk * ks, ks, D, kRows) ||
+      !make_map(&v128, v, B, Sk, Hkv, D, Sk * ks, ks, D, kRows))
     return cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   float* dl = static_cast<float*>(delta);
@@ -1032,20 +1050,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const size_t rows = static_cast<size_t>(B) * Hq * stride;
   fa_bwd_delta_kernel<D><<<static_cast<unsigned>(rows / 8), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), dl, S, Hq, stride);
+      static_cast<const __nv_bfloat16*>(dout), dl, Sq, Hq, stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fa_bwd_dq_tc_kernel<D><<<dim3(B * Hq, blocks), kThreads, L::kBytes,
+  fa_bwd_dq_tc_kernel<D><<<dim3(B * Hq, q_blocks), kThreads, L::kBytes,
                            stream>>>(
-      q128, do128, k64, v64, ls, dl, static_cast<__nv_bfloat16*>(dq), S, Hq,
-      Hkv, causal, window, stride, scale_log2, scale);
+      q128, do128, k64, v64, ls, dl, static_cast<__nv_bfloat16*>(dq), Sq, Sk,
+      q_off, Hq, Hkv, causal, window, stride, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_tc_kernel<D><<<dim3(B * Hkv, blocks), kThreads, L::kBytes,
+  fa_bwd_dkdv_tc_kernel<D><<<dim3(B * Hkv, k_blocks), kThreads, L::kBytes,
                              stream>>>(
       q64, do64, k128, v128, ls, dl, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv, causal, window, stride,
-      scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, q_off, Hq, Hkv, causal, window,
+      stride, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -1076,31 +1094,34 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq (B, S, Hq, D) and k, v, dk, dv (B, S, Hkv, D), contiguous,
-// all in `dtype`; window <= 0: no window.  route 0 (CUDA cores): lse and
-// delta are float32 (B, Hq, S) workspace, written by the first kernel and
-// read by the second.  route 1 (tensor cores: bf16 at D 64 or 128): lse is
-// the forward's, float32 (B, Hq, ceil(S / 128) * 128) in log2 units, and
-// delta workspace of that shape.  The entry refuses a route that does not
+// q, o, dout, dq (B, Sq, Hq, D) and k, v, dk, dv (B, Sk, Hkv, D), contiguous,
+// all in `dtype`; query row i at position q_off + i (q_off >= 0); window <=
+// 0: no window.  route 0 (CUDA cores): lse and delta are float32 (B, Hq, Sq)
+// workspace, written by the first kernel and read by the second.  route 1
+// (tensor cores: bf16 at D 64 or 128): lse is the forward's, float32 (B,
+// Hq, ceil(Sq / 128) * 128) in log2 units, and delta workspace of that
+// shape.  The entry refuses a route that does not
 // match dtype and D.  Returns the last launch's cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int B, int S, int Hq, int Hkv, int D, int causal, int window, float scale,
-    int dtype, int route, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || Hkv <= 0 || Hq > 65535 ||
-      Hq % Hkv != 0)
+    int B, int Sq, int Sk, int q_off, int Hq, int Hkv, int D, int causal,
+    int window, float scale, int dtype, int route, void* stream) {
+  if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || q_off < 0 || Hkv <= 0 ||
+      Hq > 65535 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   const bool tensor_cores = dtype == kBFloat16 && (D == 64 || D == 128);
   if (route != static_cast<int>(tensor_cores)) return cudaErrorInvalidValue;
-  const Geo g{S, Hq, Hkv, causal, window, scale};
+  const Geo g{Sq, Sk, q_off, Hq, Hkv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_cores)
     return D == 128
                ? tc::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B,
-                                 S, Hq, Hkv, causal, window, scale, s)
-               : tc::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, S,
-                                Hq, Hkv, causal, window, scale, s);
+                                 Sq, Sk, q_off, Hq, Hkv, causal, window, scale,
+                                 s)
+               : tc::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B,
+                                Sq, Sk, q_off, Hq, Hkv, causal, window, scale,
+                                s);
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, D, g,
                            s);

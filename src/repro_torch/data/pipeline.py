@@ -12,9 +12,12 @@ give the same batches.
 The reference makes a batch inside ``jit`` and, with a mesh, sharded at
 birth; here a batch is made on the host (the chain is a sequential scan of
 a few thousand steps over a handful of rows) and moved to the step's
-device in one copy.  A mesh comes with ROADMAP A13b.  The VLM and audio
-batches (precomputed image and frame embeddings) come with those
-families' training, A13b too.
+device in one copy.  With a mesh each rank cuts its own block of every
+leaf on the host (the batch specs' ``("batch", "seq")`` through the
+mesh's rules: rows over ``"data"``, or ``("pod", "data")`` on two pods,
+and positions over ``"model"``) and moves only that: the whole batch never
+reaches a device.  The VLM and audio batches (precomputed image and frame
+embeddings) come with those families' training, ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Iterator
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.mesh.axes import AxisRules, logical_to_mesh
+from repro_torch.models.module import shard_leaf
 from repro_torch.serve import prng
 
 
@@ -62,25 +67,37 @@ class SyntheticTask:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def make_batch_fn(task: SyntheticTask, mesh=None, *, device=None):
-    """``step -> batch`` on ``device`` (the host's tensors if None); a mesh
-    raises (ROADMAP A13b)."""
+def make_batch_fn(task: SyntheticTask, mesh=None,
+                  rules: AxisRules | None = None, batch_specs=None, *,
+                  device=None):
+    """``step -> batch`` on ``device`` (the host's tensors if None).  With a
+    ``mesh``, its ``rules`` and the model's ``batch_specs``
+    (``train_batch_specs``), this rank's block of each leaf."""
+    specs = None
     if mesh is not None:
-        raise NotImplementedError("batches sharded over a mesh come with "
-                                  "ROADMAP A13b")
+        if rules is None or batch_specs is None:
+            raise ValueError("a sharded batch needs the mesh's rules and the "
+                             "model's train_batch_specs")
+        specs = {k: logical_to_mesh(sp.spec, rules)
+                 for k, sp in batch_specs.items()}
 
     def fn(step: int) -> dict:
         batch = task.batch_at(step)
+        if specs is not None:
+            batch = {k: shard_leaf(v, specs[k], mesh)
+                     for k, v in batch.items()}
         if device is None:
             return batch
         return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
     return fn
 
 
-def make_data_iter(task: SyntheticTask, mesh=None, *, device=None,
+def make_data_iter(task: SyntheticTask, mesh=None, rules=None,
+                   batch_specs=None, *, device=None,
                    start_step: int = 0) -> Iterator[dict]:
-    """Batches ``start_step, start_step + 1, ...`` of ``task``."""
-    fn = make_batch_fn(task, mesh, device=device)
+    """Batches ``start_step, start_step + 1, ...`` of ``task`` (this rank's
+    blocks on a mesh: :func:`make_batch_fn`)."""
+    fn = make_batch_fn(task, mesh, rules, batch_specs, device=device)
     step = start_step
     while True:
         yield fn(step)

@@ -47,10 +47,10 @@ _SIGNATURES = {
     # Hq, Hkv, D, page_size, P, n_split, scale, q dtype, page dtype, stream
     "paged_attention_mq_launch": [_vp] * 10 + [_i] * 8 + [_f, _i, _i, _vp],
     # q, k, v, out, lse (null: not written), B, Sq, Sk, Hq, Hkv, D, q/k/v
-    # (batch, seq, head) strides, causal, window, scale, dtype, route (1:
-    # tensor cores), stream
+    # (batch, seq, head) strides, causal, window, q_off, scale, dtype, route
+    # (1: tensor cores), stream
     "flash_attention_launch": [_vp] * 5 + [_i] * 6 + [_i64] * 9
-                              + [_i, _i, _f, _i, _i, _vp],
+                              + [_i, _i, _i, _f, _i, _i, _vp],
     # r, k, v, w, u, state0 (null: zeros), y, out_state, B, S, H, K, V,
     # r/k/v dtype, stream
     "rwkv6_scan_launch": [_vp] * 8 + [_i] * 6 + [_vp],
@@ -66,9 +66,9 @@ _SIGNATURES = {
     # v (the norm's input), dy, ds (null: none), scale, dv, workspace,
     # dscale, rows, d, eps, x_dtype, scale_dtype, stream
     "rmsnorm_bwd_launch": [_vp] * 7 + [_i64, _i, _f, _i, _i, _vp],
-    # q, k, v, o, dout, dq, dk, dv, lse, delta, B, S, Hq, Hkv, D, causal,
-    # window, scale, dtype, route (1: tensor cores), stream
-    "flash_attention_bwd_launch": [_vp] * 10 + [_i] * 7 + [_f, _i, _i, _vp],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, q_off, Hq, Hkv,
+    # D, causal, window, scale, dtype, route (1: tensor cores), stream
+    "flash_attention_bwd_launch": [_vp] * 10 + [_i] * 9 + [_f, _i, _i, _vp],
     # the tensor-core routes' dynamic shared memory a launch (bytes), and
     # the norm backward's blocks for (rows, d) (not launches: they return
     # the size, not a cudaError_t)

@@ -3,9 +3,12 @@ plain PyTorch version.
 
 Grouped-query attention of q ``(B, Sq, Hq, D)`` against k, v
 ``(B, Sk, Hkv, D)``: query head ``h`` reads KV head ``h // (Hq // Hkv)``,
-query row ``i`` sees key ``j`` when ``j <= i`` (causal) and
-``i - j < window`` (a sliding window), scores are scaled by ``D ** -0.5``.
-The serving engine's whole-prompt prefill runs it in every layer.
+query row ``i`` sits at position ``p = q_offset + i`` (``q_offset`` 0
+unless given) and sees key ``j`` when ``j <= p`` (causal) and
+``p - j < window`` (a sliding window), scores are scaled by ``D ** -0.5``.
+The serving engine's whole-prompt prefill runs it in every layer; training
+over a mesh runs a rank's block of queries with ``q_offset`` its first
+position against the keys up to its last (sequence parallelism).
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py:flash_attention``; its source note says
@@ -15,7 +18,7 @@ has two routes, chosen from dtype and D before the launch
 (:func:`tensor_core_route`): bf16 at D 64, 128 and 256 on the tensor cores
 (wgmma and TMA), everything else on CUDA cores.
 
-Training needs the gradients of a whole-sequence forward: the backward
+Training needs the gradients of the forward: the backward
 kernels (``csrc/flash_attention_bwd.cu``, launched by
 :func:`flash_attention_bwd_cuda` from the autograd Function in
 :mod:`repro_torch.kernels.ops`) take the forward's inputs, its output and
@@ -47,21 +50,31 @@ def _check_window(window) -> None:
                          "(None for global attention)")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+def _check_offset(q_offset) -> None:
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset!r} must be "
+                         "an int >= 0")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
+                          q_offset: int = 0):
     """Masked softmax attention in float32: the CPU path and the kernel's
-    oracle (``repro.kernels.ref.flash_attention``).
+    oracle (``repro.kernels.ref.flash_attention``; with ``q_offset`` the
+    mask of ``repro.models.attention.gqa_attention(q_offset=)``).
 
     q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's
-    dtype.  A row that sees no key (only with ``Sq > Sk`` and a window) is
-    zeros, as in the kernel, where the reference would average every key.
+    dtype.  A row that sees no key (with a window, or an offset past the
+    keys) is zeros, as in the kernel, where the reference would average
+    every key.
     """
     _check_window(window)
+    _check_offset(q_offset)
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D).to(torch.float32) * D ** -0.5
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
     if causal:
@@ -108,20 +121,21 @@ def _strided(t):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
-                         with_lse: bool = False):
+                         q_offset: int = 0, with_lse: bool = False):
     """Launch the flash-attention kernel on ``q``'s card (current stream).
     Shapes as in :func:`flash_attention_plain`; q, k and v share one dtype
     (float32 or bfloat16) and D is one of 16, 32, 64, 128, 256.  Raises on
     anything else; never falls back.  bf16 at D 64, 128 and 256 runs on the
     tensor cores, everything else on CUDA cores (:func:`tensor_core_route`);
     a call on either route that fails to build or launch raises and never
-    runs the other.
+    runs the other.  ``q_offset``: the position of query row 0.
 
     ``with_lse`` (only where :func:`backward_tensor_core_route` holds)
     returns ``(out, lse)``: each row's log-sum-exp of the scaled scores in
     log2 units, float32 ``(B, Hq, lse_rows(Sq))`` (rows past ``Sq`` are
     written too), which the tensor-core backward reads."""
     _check_window(window)
+    _check_offset(q_offset)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dk = k.shape
     dev = q.device
@@ -164,19 +178,20 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
             None if lse is None else lse.data_ptr(),
             B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), 0 if window is None else int(window),
-            float(D ** -0.5), _DTYPE_CODES[q.dtype],
+            q_offset, float(D ** -0.5), _DTYPE_CODES[q.dtype],
             int(tensor_core_route(q)), stream),
             "flash_attention")
     return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
-                             window=None, lse=None):
+                             window=None, q_offset: int = 0, lse=None):
     """Launch the flash-attention backward (``csrc/flash_attention_bwd.cu``)
-    on ``q``'s card: the gradients ``(dq, dk, dv)`` of a whole-sequence
-    forward (``Sq == Sk``) from its inputs, its output ``out`` and the
-    output's gradient ``dout``, in q's dtype (dk and dv summed over each KV
-    head's query heads).  float32 or bfloat16, D one of :data:`HEAD_DIMS`.
+    on ``q``'s card: the gradients ``(dq, dk, dv)`` of the forward of the
+    same ``causal``, ``window`` and ``q_offset`` from its inputs, its output
+    ``out`` and the output's gradient ``dout``, in q's dtype (dk and dv
+    summed over each KV head's query heads).  float32 or bfloat16, D one of
+    :data:`HEAD_DIMS`.
 
     Where :func:`backward_tensor_core_route` holds the kernels run on the
     tensor cores and need ``lse``, the forward's
@@ -184,7 +199,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
     CUDA cores in float32, recompute it, and ``lse`` must be None.  Raises
     on anything else; never falls back."""
     _check_window(window)
-    B, S, Hq, D = q.shape
+    _check_offset(q_offset)
+    B, Sq, Hq, D = q.shape
     dev = q.device
     if not q.is_cuda:
         raise ValueError("flash_attention_bwd_cuda: q must lie on a card")
@@ -192,14 +208,14 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
                              f"{t.dtype} on {t.device}, q {q.dtype} on {dev}")
-    Hkv = k.shape[2]
-    if (k.shape != (B, S, Hkv, D) or v.shape != k.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != (B, Sk, Hkv, D) or v.shape != k.shape
             or out.shape != q.shape or dout.shape != q.shape or Hkv == 0
             or Hq % Hkv):
         raise ValueError(f"flash_attention_bwd_cuda: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, out "
                          f"{tuple(out.shape)}, dout {tuple(dout.shape)}: "
-                         "want Sq == Sk and GQA heads")
+                         "want GQA heads")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd_cuda: dtype {q.dtype}; want "
                         "float32 or bfloat16")
@@ -207,7 +223,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in "
                          f"{HEAD_DIMS}")
     tc = backward_tensor_core_route(q)
-    rows = lse_rows(S) if tc else S
+    rows = lse_rows(Sq) if tc else Sq
     if tc and (lse is None or lse.shape != (B, Hq, rows)
                or lse.dtype != torch.float32 or lse.device != dev
                or not lse.is_contiguous() or lse.data_ptr() % 16):
@@ -223,8 +239,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
                          "pass lse=None")
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+    if q.numel() == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     if not tc:
         lse = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
     delta = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
@@ -234,7 +250,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         build.check(lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), B, S, Hq, Hkv, D, int(causal),
-            0 if window is None else int(window), float(D ** -0.5),
+            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, q_offset, Hq, Hkv, D,
+            int(causal), 0 if window is None else int(window),
+            float(D ** -0.5),
             _DTYPE_CODES[q.dtype], int(tc), stream), "flash_attention_bwd")
     return dq, dk, dv

@@ -160,32 +160,33 @@ class _AddRMSNorm(torch.autograd.Function):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B3 on a card with its backward kernels (``Sq == Sk``).  Where the
-    backward takes the tensor cores the forward also writes each row's
-    log-sum-exp, which the backward reads."""
+    """B3 on a card with its backward kernels (any ``Sq``, ``Sk`` and
+    query offset).  Where the backward takes the tensor cores the forward
+    also writes each row's log-sum-exp, which the backward reads."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         tc_bwd = _fa.backward_tensor_core_route(q)
         res = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                       with_lse=tc_bwd)
+                                       q_offset=q_offset, with_lse=tc_bwd)
         out, lse = res if tc_bwd else (res, None)
         _count("flash_attention", kernel=True)
         if _fa.tensor_core_route(q):
             _count("flash_attention_tc", kernel=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _fa.flash_attention_bwd_cuda(
-            q, k, v, out, dout, causal=ctx.causal, window=ctx.window, lse=lse)
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window,
+            q_offset=ctx.q_offset, lse=lse)
         _count("flash_attention_bwd", kernel=True)
         if lse is not None:
             _count("flash_attention_bwd_tc", kernel=True)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
@@ -254,25 +255,24 @@ def paged_attention_mq(q, k_pages, v_pages, tables, lengths, k_scale=None,
                                         k_scale, v_scale)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None):
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offset: int = 0):
     """Whole-sequence GQA, (B, Sq, Hq, D) x (B, Sk, Hkv, D) -> (B, Sq, Hq, D);
-    ``window`` None for global attention; see
-    :mod:`repro_torch.kernels.flash_attention`.  Under autograd on a card
-    (``Sq == Sk`` only) the backward is a kernel too."""
+    ``window`` None for global attention; query row ``i`` at position
+    ``q_offset + i``; see :mod:`repro_torch.kernels.flash_attention`.  Under
+    autograd on a card the backward is a kernel too."""
     if _route(q, "flash_attention") and _needs_grad(q, k, v):
-        if q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                "flash_attention: the backward kernel takes Sq == Sk (the "
-                f"training forward), got Sq={q.shape[1]} Sk={k.shape[1]}")
-        return _FlashAttention.apply(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
     if _route(q, "flash_attention"):
-        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
         _count("flash_attention", kernel=True)
         if _fa.tensor_core_route(q):
             _count("flash_attention_tc", kernel=True)
         return out
     _count("flash_attention", kernel=False)
-    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
 
 
 def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):

@@ -184,12 +184,14 @@ class DecoderLM:
 
     # -- training ---------------------------------------------------------------
 
-    def loss(self, params, batch: dict):
+    def loss(self, params, batch: dict, mesh=None):
         """Mean next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S)
         over float32 weights -> ``(loss, {"ce", "aux", "tokens"})``; an
-        MoE model raises ``NotImplementedError`` (ROADMAP A13b)."""
+        MoE model raises ``NotImplementedError`` (ROADMAP A13b).  ``mesh``:
+        a :class:`repro_torch.mesh.grad_comm.TrainMesh` (``params`` this
+        rank's shards, ``batch`` its block; the loss the global mean)."""
         return T.lm_loss(params, self.cfg, tokens=batch["tokens"],
-                         labels=batch["labels"])
+                         labels=batch["labels"], mesh=mesh)
 
     def train_batch_specs(self, shape) -> dict:
         """:class:`ArraySpec` of each training-batch key at ``shape``'s
@@ -344,7 +346,7 @@ class VLM(DecoderLM):
     engine the image rides as a prefix of pseudo-tokens whose rows
     :meth:`DecoderLM.paged_prefill_chunk` takes from ``embeds``."""
 
-    def loss(self, params, batch: dict):
+    def loss(self, params, batch: dict, mesh=None):
         """Refused: training with image prefixes comes with ROADMAP A13b."""
         raise NotImplementedError(
             f"{self.cfg.name}: VLM training (image-prefix batches) comes "
@@ -406,7 +408,7 @@ class RwkvLM:
         (the norms, ``u``, ``decay_base`` and ``w_o`` declared float32)."""
         return RW.rwkv_lm_defs(self.cfg)
 
-    def loss(self, params, batch: dict):
+    def loss(self, params, batch: dict, mesh=None):
         """Refused: rwkv6 training (B4's backward) comes with ROADMAP A13b
         item 4."""
         raise NotImplementedError(
@@ -489,7 +491,7 @@ class HybridLM:
         declared float32)."""
         return Z.zamba_defs(self.cfg)
 
-    def loss(self, params, batch: dict):
+    def loss(self, params, batch: dict, mesh=None):
         """Refused: zamba2 training (B5's backward, B3 at D 112) comes
         with ROADMAP A13b item 4."""
         raise NotImplementedError(

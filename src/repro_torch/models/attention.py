@@ -176,21 +176,26 @@ def gqa_attention(q, k, v, *, causal: bool = True,
     keys at negative positions are masked).  Returns
     (B, Sq, Hq, D) in q's dtype.
 
-    Whole-sequence attention (``Sq == Sk``, no ``kv_valid_len``, no offsets)
-    goes to :func:`repro_torch.kernels.ops.flash_attention`: the
-    flash-attention kernel on a card, its plain version on the CPU.  The
-    route follows the tensor's device; ``cfg.use_pallas`` is not consulted.
-    Everything else is the reference's chunked online softmax in plain
-    PyTorch.
+    Attention whose keys are every position up to the last query (an int
+    ``q_offset``, ``Sk == q_offset + Sq``, no ``kv_valid_len``, no
+    ``k_start``: whole-sequence attention, and a rank's block of queries
+    under training's sequence parallelism) goes to
+    :func:`repro_torch.kernels.ops.flash_attention`: the flash-attention
+    kernel on a card, its plain version on the CPU.  The route follows the
+    tensor's device; ``cfg.use_pallas`` is not consulted.  Everything else
+    (decode caches, rings, whisper's cross-attention over its frames) is
+    the reference's chunked online softmax in plain PyTorch.
     """
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = D ** -0.5
 
-    if (Sq == Sk and kv_valid_len is None and k_start is None
-            and isinstance(q_offset, int) and q_offset == 0):
-        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if (kv_valid_len is None and k_start is None
+            and isinstance(q_offset, int) and q_offset >= 0
+            and Sk == q_offset + Sq):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
 
     # (B, Hkv, G * Sq, D): the G query heads of a KV head stacked on rows
     qg = (q.reshape(B, Sq, Hkv, G, D) * scale).permute(0, 2, 3, 1, 4) \

@@ -50,6 +50,15 @@ of the storage or cache tensors, so the caller's single copy is the result.
 The dense path (:func:`prefill`, :func:`decode_step`) serves global-
 attention families; the window/ring caches of gemma3 come with the
 non-paged families' slice and raise ``NotImplementedError`` here.
+
+Training (:func:`forward_train`, :func:`lm_loss`) runs on one device or,
+with ``mesh=`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`), on a
+rank's ZeRO-3 shards and its block of the batch: rows over ``"data"``,
+positions over ``"model"`` (the reference's activation layout).  Each
+block gathers its layer's weights inside its checkpointed body, its
+queries attend to the K/V of every position up to their last (gathered
+over ``"model"``; flash attention with a query offset), and the loss is
+the global mean, so the ranks' gradients sum to the single device's.
 """
 from __future__ import annotations
 
@@ -412,7 +421,7 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 
 def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                 cache_v=None, cache_pos=None, ring: bool = False,
-                comm=_SERIAL, ep_comm=None):
+                comm=_SERIAL, ep_comm=None, mesh=None):
     """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
     this block's feed-forward output (the MLP, or the serial MoE block plus
     any dense residual MLP) not yet added to it (the next norm adds it; the
@@ -433,11 +442,19 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     ``cache_pos - W + 1 + j`` (negative positions masked), as the
     reference's ``_window_decode_step`` does.
     ``comm`` / ``ep_comm``: the mesh transports of :func:`_paged_block`
-    (the cache-free forward of the self-drafter under a mesh).
+    (the cache-free forward of the self-drafter under a mesh).  ``mesh``
+    (a :class:`repro_torch.mesh.grad_comm.TrainMesh`, training): ``x`` is
+    this rank's block of positions, and its queries attend to the keys of
+    every position up to their last, gathered over the sequence's axes
+    (``k`` and ``v`` returned are that prefix).
     """
     x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
-    if cache_k is None:
+    if cache_k is None and mesh is not None:
+        k, v, off = mesh.attention_kv(k, v)
+        o = A.gqa_attention(q, k, v, causal=True, window=window,
+                            q_offset=off, kv_chunk=cfg.kv_chunk)
+    elif cache_k is None:
         o = A.gqa_attention(q, k, v, causal=True, window=window,
                             kv_chunk=cfg.kv_chunk)
     elif ring:
@@ -498,20 +515,30 @@ def compute_params(tree, dtype):
 
 
 def _blocks_forward(params, cfg, x, *, comm=_SERIAL, ep_comm=None,
-                    dtype=None, remat: str = "none"):
+                    dtype=None, remat: str = "none", mesh=None):
     """Every block over the whole sequence ``x`` (B, S, d), causal, then the
     final norm: the shared loop of the scoring forward and the training
     forward.  ``dtype``: cast each block's weights to it inside the block
-    (:func:`compute_params`); ``remat``: :func:`_remat` of each block."""
-    positions = torch.arange(x.shape[1], device=x.device)
+    (:func:`compute_params`); ``remat``: :func:`_remat` of each block.
+    ``mesh`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``x`` is
+    this rank's block of rows and positions, and each block gathers its
+    layer's shards inside its body (in ``dtype``), so ``remat="full"``
+    gathers them again in the backward pass and no block's whole weights
+    outlive it."""
+    off = 0 if mesh is None else mesh.seq_block()[0] * x.shape[1]
+    positions = off + torch.arange(x.shape[1], device=x.device)
+    specs = None if mesh is None else tree_map(lambda s: s[1:],
+                                               mesh.specs["blocks"])
     delta = None
     for i, window in enumerate(layer_windows(cfg)):
         def body(x, delta, p=_layer(params["blocks"], i), window=window):
-            if dtype is not None:
+            if mesh is not None:
+                p = mesh.gather_params(p, specs, dtype)
+            elif dtype is not None:
                 p = compute_params(p, dtype)
             x, y, _, _ = block_apply(p, x, cfg, positions=positions,
                                      window=window, delta=delta, comm=comm,
-                                     ep_comm=ep_comm)
+                                     ep_comm=ep_comm, mesh=mesh)
             return x, y
         x, delta = _remat(body, remat)(x, delta)
     return L.final_rmsnorm(params["final_norm"], x, delta)
@@ -536,17 +563,31 @@ def _check_trainable(cfg):
             "expert blocks' backward) comes with ROADMAP A13b")
 
 
-def forward_train(params, cfg, tokens=None, inputs_embeds=None):
+def forward_train(params, cfg, tokens=None, inputs_embeds=None, mesh=None):
     """Training forward over float32 (``param_dtype``) weights: tokens
     (B, S), or their embeddings (B, S, d) -> ``(hidden, aux)``, the final
     hidden states (B, S, d) in the compute dtype and the auxiliary loss
     (0 for a dense model).  Each block runs in the compute dtype and is
-    recomputed in the backward pass under ``cfg.remat``."""
+    recomputed in the backward pass under ``cfg.remat``.
+
+    ``mesh`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``params``
+    are this rank's ZeRO-3 shards and the input its block (B / dp rows, S /
+    tp positions); the embedding table is gathered in float32 (its rows
+    then cast, as on one device), each block's weights inside the block
+    (:func:`_blocks_forward`)."""
     _check_trainable(cfg)
     dtype = torch_dtype(cfg.dtype)
-    x = L.embed(params["embed"], tokens).to(dtype) if inputs_embeds is None \
-        else inputs_embeds
-    hidden = _blocks_forward(params, cfg, x, dtype=dtype, remat=cfg.remat)
+    if inputs_embeds is not None:
+        x = inputs_embeds
+    elif mesh is None:
+        x = L.embed(params["embed"], tokens).to(dtype)
+    else:
+        table = mesh.gather(params["embed"]["table"],
+                            mesh.specs["embed"]["table"])
+        x = table[tokens.long()].to(dtype)
+        del table
+    hidden = _blocks_forward(params, cfg, x, dtype=dtype, remat=cfg.remat,
+                             mesh=mesh)
     return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -573,12 +614,17 @@ class _LogitsF32(torch.autograd.Function):
         return dh, dw.to(w.dtype)
 
 
-def loss_from_hidden(unembed_w, hidden, labels, cfg, loss_chunks: int = 8):
+def loss_from_hidden(unembed_w, hidden, labels, cfg, loss_chunks: int = 8,
+                     mesh=None):
     """Mean cross-entropy from the final hidden states (B, S, d) and their
     labels (B, S) (``< 0``: not scored), and the count scored.  The logits
     (float32, (B, S/chunks, V) at a time) are taken a sequence chunk at a
     time and recomputed in the backward pass, so the whole (B, S, V)
-    never exists."""
+    never exists.  With a ``mesh`` (training's
+    :class:`repro_torch.mesh.grad_comm.TrainMesh`) the rank's block is
+    scored: its sum and count are summed over the ranks (the sum's
+    backward the identity), so every rank returns the global mean and
+    count, and the ranks' gradients sum to the single device's."""
     S = hidden.shape[1]
     chunks = loss_chunks if S % loss_chunks == 0 and S >= loss_chunks else 1
     c = S // chunks
@@ -595,16 +641,23 @@ def loss_from_hidden(unembed_w, hidden, labels, cfg, loss_chunks: int = 8):
         t, n = fn(hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
                   unembed_w)
         tot, cnt = tot + t, cnt + n
+    if mesh is not None:
+        tot = mesh.all_reduce_sum(tot)
+        cnt = mesh.all_reduce_sum(cnt.detach())
     return tot / torch.clamp(cnt, min=1.0), cnt
 
 
 def lm_loss(params, cfg, tokens=None, labels=None, inputs_embeds=None,
-            loss_chunks: int = 8):
+            loss_chunks: int = 8, mesh=None):
     """``(loss, {"ce", "aux", "tokens"})`` of next-token prediction over
-    float32 weights (:func:`forward_train`, :func:`loss_from_hidden`)."""
-    hidden, aux = forward_train(params, cfg, tokens, inputs_embeds)
-    ce, cnt = loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
-                               loss_chunks)
+    float32 weights (:func:`forward_train`, :func:`loss_from_hidden`); on a
+    ``mesh`` the rank's block of ``tokens`` / ``labels``, the unembedding
+    gathered in float32 and the loss the global mean."""
+    hidden, aux = forward_train(params, cfg, tokens, inputs_embeds, mesh)
+    w = params["unembed"]["w"]
+    if mesh is not None:
+        w = mesh.gather(w, mesh.specs["unembed"]["w"])
+    ce, cnt = loss_from_hidden(w, hidden, labels, cfg, loss_chunks, mesh)
     return ce, {"ce": ce, "aux": aux, "tokens": cnt}
 
 

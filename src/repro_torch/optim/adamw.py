@@ -7,6 +7,12 @@ buffers); here :func:`adamw_update` writes params and moments **in
 place**, leaf by leaf, so a full-width model never holds a second copy of
 its state (qwen3-1.7b: 2.03 B params x 16 B of float32 params, gradients
 and moments ~ 33 GB on one card).
+
+On a mesh (a :class:`repro_torch.mesh.grad_comm.TrainMesh`) each rank
+holds shards of the params, gradients and moments; the update stays
+elementwise on them, and only the global norm needs the mesh: the shards'
+sums of squares are summed over the ranks, each leaf replicated on some
+axes counted once (by the ranks at coordinate 0 of those axes).
 """
 from __future__ import annotations
 
@@ -46,11 +52,18 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32; over a tree of
+    shards on ``mesh`` (a ``TrainMesh`` whose specs the tree mirrors) the
+    sum runs over the whole tree, every rank gets the same norm."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tree_leaves(tree)))
+    owned = mesh.owned(tree)
+    zero = torch.zeros((), dtype=torch.float32, device=owned[0][0].device)
+    total = sum(torch.sum(torch.square(x.to(torch.float32))) if own else zero
+                for x, own in owned)
+    return torch.sqrt(mesh.all_reduce_sum(total))
 
 
 def clip_by_global_norm(tree, max_norm: float):
@@ -81,16 +94,17 @@ def _walk(fn, p, g, m, v):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, cfg: AdamWConfig):
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig, mesh=None):
     """One AdamW step: clip ``grads`` by their global norm, update
     ``params`` and the moments **in place** (math in float32, stored in
     their own dtypes), advance the step.  Returns ``(params, opt_state,
-    {"lr", "grad_norm"})``, the first two the same objects updated."""
+    {"lr", "grad_norm"})``, the first two the same objects updated.  On a
+    ``mesh`` the leaves are shards (:func:`global_norm`)."""
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
     # clip_by_global_norm's scaling, leaf by leaf inside the update (no
     # clipped copy of the gradients)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

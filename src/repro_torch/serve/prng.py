@@ -204,9 +204,10 @@ def normal(key, shape=(), *, device=None) -> torch.Tensor:
     return _SQRT2 * torch.erfinv(u)
 
 
-def gumbel(key, shape=(), *, device="cpu") -> torch.Tensor:
+def gumbel(key, shape=(), *, device=None) -> torch.Tensor:
     """Standard Gumbel float32 draws, ``-log(-log(u))`` of a uniform ``u``
-    in ``[tiny, 1)`` (jax's default "low" mode)."""
+    in ``[tiny, 1)`` (jax's default "low" mode), on ``device`` (a tensor
+    key's own unless named, as every draw here)."""
     tiny = float(torch.finfo(torch.float32).tiny)
     u = uniform(key, shape, minval=tiny, maxval=1.0, device=device)
     return -torch.log(-torch.log(u))

@@ -18,9 +18,14 @@ CRC is ``zlib.crc32`` of the array's bytes.  Everything is written into
 mid-save leaves a ``.tmp`` that discovery ignores; restore checks every
 leaf's CRC and raises ``ValueError`` on a missing or corrupted leaf (the
 callers fall back to an older checkpoint:
-:func:`repro_torch.train.fault.restore_latest_valid`).  Arrays are saved
-whole (the logical layout); restoring onto a mesh comes with ROADMAP
-A13b.
+:func:`repro_torch.train.fault.restore_latest_valid`).
+
+Arrays are saved whole, in the logical layout, whatever mesh wrote them,
+so a checkpoint restores onto another mesh or onto one device (the
+elastic path, :func:`repro_torch.train.fault.reshard_state`).  On a mesh
+(``shardings``: :func:`repro_torch.train.state.state_shardings`) every
+rank gathers every leaf, rank 0 writes, and the ranks meet before any
+returns; on restore every rank reads each leaf and cuts its own shard.
 """
 from __future__ import annotations
 
@@ -33,6 +38,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.mesh.grad_comm import gather
+from repro_torch.models.module import shard_leaf
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 
@@ -84,17 +92,45 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _gathered(state, shardings):
+    """(path, whole leaf) of a sharded state, one leaf gathered at a time
+    (a collective of every rank of the mesh)."""
+    sh = dict(_leaves(shardings))
+    for path, leaf in _leaves(state):
+        with torch.no_grad():
+            yield path, gather(leaf, sh[path].spec, sh[path].mesh)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any, *,
-                    keep: int = 3) -> str:
+                    keep: int = 3, shardings: Any = None) -> str:
     """Write ``state`` (a nested dict of tensors) atomically; prune to the
-    newest ``keep`` checkpoints.  Returns the step's directory."""
+    newest ``keep`` checkpoints.  Returns the step's directory.  With
+    ``shardings`` (the state's layout on a mesh; every rank calls) each
+    leaf is gathered whole on every rank, one at a time, and rank 0 writes
+    it; the ranks return together, once the checkpoint is committed."""
+    if shardings is None:
+        return _write(ckpt_dir, step, _leaves(state), keep)
+    mesh = next(sh for _, sh in _leaves(shardings)).mesh
+    leaves = _gathered(state, shardings)
+    if mesh.world.rank() == 0:
+        final = _write(ckpt_dir, step, leaves, keep)
+    else:
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        for _ in leaves:
+            pass
+    dev = next(t for _, t in _leaves(state)).device
+    mesh.world.all_reduce_sum(torch.zeros(1, device=dev))    # a barrier
+    return final
+
+
+def _write(ckpt_dir: str, step: int, leaves, keep: int) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {}
-    for path, leaf in _leaves(state):
+    for path, leaf in leaves:
         name = _leaf_name(path)
         arr = _to_numpy(leaf)
         fn = name + ".npy"
@@ -119,12 +155,12 @@ def restore_checkpoint(ckpt_dir: str, state_like: Any, *,
                        step: Optional[int] = None,
                        shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``state_like``: each leaf on its
-    like's device, requiring a gradient where its like does.  Raises
-    ``ValueError`` on missing or corrupted data.  Returns ``(state,
-    step)``."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh comes with ROADMAP "
-                                  "A13b")
+    like's device, requiring a gradient where its like does; with
+    ``shardings`` (``state_like``'s layout on a mesh, which may differ from
+    the writer's) each leaf is this rank's shard of the saved array.
+    Raises ``ValueError`` on missing or corrupted data.  Returns
+    ``(state, step)``."""
+    sh = None if shardings is None else dict(_leaves(shardings))
     if step is None:
         step = latest_checkpoint(ckpt_dir)
         if step is None:
@@ -143,10 +179,13 @@ def restore_checkpoint(ckpt_dir: str, state_like: Any, *,
         arr = np.load(os.path.join(d, meta["file"]))
         if zlib.crc32(arr.tobytes()) != meta["crc"]:
             raise ValueError(f"checkpoint {d} leaf {name} corrupted (crc)")
-        if tuple(arr.shape) != tuple(tree.shape):
-            raise ValueError(f"leaf {name}: shape {arr.shape} != expected "
-                             f"{tuple(tree.shape)}")
-        out = _from_numpy(arr).to(tree.device)
+        out = _from_numpy(arr)
+        if sh is not None:
+            out = shard_leaf(out, sh[path].spec, sh[path].mesh)
+        if tuple(out.shape) != tuple(tree.shape):
+            raise ValueError(f"leaf {name}: shape {tuple(out.shape)} != "
+                             f"expected {tuple(tree.shape)}")
+        out = out.to(tree.device)
         return out.requires_grad_(True) if tree.requires_grad else out
 
     return restore(state_like), step

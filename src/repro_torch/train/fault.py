@@ -12,8 +12,14 @@ fallback and the host-level straggler re-dispatch (the reference's
   the runtime's thread farm, which re-issues a task running past
   ``deadline_factor`` x the median to an idle worker (first completion
   wins); the trainer flags steps past the same deadline rule.
-* **A change of node count** (:func:`reshard_state`) needs a mesh: it
-  comes with ROADMAP A13b.
+* **A change of node count** (preemption, repair, scale-up): a checkpoint
+  is saved whole whatever mesh wrote it, and restores onto any other
+  (``restore_checkpoint(..., shardings=)``); :func:`reshard_state` places
+  a whole state onto a mesh's shardings.
+  Resume is exact because the data pipeline is a pure function of the step.
+
+On a mesh the loss the guard reads is the global one (every rank's), so
+every rank rolls back together.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import math
 from typing import Any, Callable, Sequence
 
 from repro_torch.core.functional import host_task_farm
+from repro_torch.models.module import shard_leaf
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -57,9 +64,20 @@ def restore_latest_valid(ckpt_dir: str, state_like, shardings=None, *,
 
 
 def reshard_state(state, shardings):
-    """Elastic scaling onto a new mesh: comes with ROADMAP A13b."""
-    raise NotImplementedError("resharding a train state onto a mesh comes "
-                              "with ROADMAP A13b")
+    """Elastic scaling: place a whole ``state`` (the host's, one device's,
+    or a checkpoint's restored without shardings) onto ``shardings`` (a
+    layout from :func:`repro_torch.train.state.state_shardings`; None:
+    whole), each leaf this rank's shard, a copy, requiring a gradient
+    where the leaf does."""
+    def place(t, sh):
+        if isinstance(t, dict):
+            return {k: place(v, None if sh is None else sh[k])
+                    for k, v in t.items()}
+        grad, t = t.requires_grad, t.detach()
+        out = t if sh is None else shard_leaf(t, sh.spec, sh.mesh)
+        out = out.clone() if out is t else out
+        return out.requires_grad_(grad)
+    return place(state, shardings)
 
 
 @dataclasses.dataclass

@@ -9,6 +9,12 @@ training loop (the reference's ``repro.train.trainer``).
 The loop itself is :func:`repro_torch.core.time_integration.
 parallel_time_integration`: a training run and a DMC walker simulation
 drive the same generic function with different user functions.
+
+With ``mesh=`` / ``rules=`` every rank of the mesh runs the same loop on
+its shards (the state sharded at birth, checkpoints gathered and written
+by rank 0, restored by every rank onto its shards, the NaN guard reading
+the global loss); only rank 0 logs, and each rank's straggler watchdog
+reads its own step times.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from repro_torch.core.time_integration import parallel_time_integration
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.fault import NanGuard
-from repro_torch.train.state import create_train_state
+from repro_torch.train.state import create_train_state, state_shardings
 from repro_torch.train.step import make_train_step
 
 
@@ -32,7 +38,7 @@ class TrainerConfig:
     ckpt_keep: int = 3
     log_every: int = 10
     accum_steps: int = 1
-    grad_sync: str = "gspmd"            # gspmd | compressed (refused)
+    grad_sync: str = "gspmd"            # gspmd | compressed (pod_dp's)
     nan_guard: bool = True
     straggler_factor: float = 3.0       # host-level step-deadline watchdog
     resume: bool = True
@@ -40,26 +46,29 @@ class TrainerConfig:
 
 class Trainer:
     """Fit ``model`` on ``data_iter``'s batches: ``seed`` draws the params
-    on ``device`` (or ``params``, bridged weights, start it)."""
+    on ``device`` (or ``params``, bridged weights, start it).  On a
+    ``mesh`` (with its ``rules``) ``data_iter`` yields this rank's blocks
+    (:func:`repro_torch.data.make_data_iter` with the mesh)."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, tcfg: TrainerConfig,
-                 data_iter: Iterator[dict], *, mesh=None, seed=0,
-                 device=None, params: Optional[dict] = None,
+                 data_iter: Iterator[dict], *, mesh=None, rules=None,
+                 seed=0, device=None, params: Optional[dict] = None,
                  log: Callable[[str], None] = print):
-        if mesh is not None:
-            raise NotImplementedError("training over a mesh comes with "
-                                      "ROADMAP A13b")
         self.model, self.opt_cfg, self.tcfg = model, opt_cfg, tcfg
         self.data_iter = data_iter
+        self.mesh, self.rules = mesh, rules
         self.seed, self.device, self.params = seed, device, params
-        self.log = log
-        self.step_fn = make_train_step(model, opt_cfg,
+        self.rank = 0 if mesh is None else mesh.world.rank()
+        self.log = log if self.rank == 0 else (lambda s: None)
+        self.step_fn = make_train_step(model, opt_cfg, mesh, rules,
                                        accum_steps=tcfg.accum_steps,
                                        grad_sync=tcfg.grad_sync)
+        self.shardings = (state_shardings(model, mesh, rules)
+                          if mesh is not None else None)
         self.start_step = 0
         self.metrics_history: list[dict] = []
         self.stragglers: list[int] = []
-        self._guard = (NanGuard(tcfg.ckpt_dir)
+        self._guard = (NanGuard(tcfg.ckpt_dir, self.shardings)
                        if (tcfg.nan_guard and tcfg.ckpt_dir) else None)
         self._data_skip = 0
 
@@ -67,13 +76,14 @@ class Trainer:
 
     def _initialize(self):
         state = create_train_state(self.model, self.seed, self.opt_cfg,
-                                   device=self.device, params=self.params)
+                                   self.mesh, self.rules, device=self.device,
+                                   params=self.params)
         self.params = None                       # the state holds them now
         if (self.tcfg.resume and self.tcfg.ckpt_dir
                 and ckpt_lib.latest_checkpoint(self.tcfg.ckpt_dir)
                 is not None):
-            state, step = ckpt_lib.restore_checkpoint(self.tcfg.ckpt_dir,
-                                                      state)
+            state, step = ckpt_lib.restore_checkpoint(
+                self.tcfg.ckpt_dir, state, shardings=self.shardings)
             self.start_step = step
             self.log(f"[trainer] resumed from step {step}")
         return state, self.tcfg.steps - self.start_step
@@ -98,7 +108,8 @@ class Trainer:
                 return state
         if self.tcfg.ckpt_dir and gstep % self.tcfg.ckpt_every == 0:
             ckpt_lib.save_checkpoint(self.tcfg.ckpt_dir, gstep, state,
-                                     keep=self.tcfg.ckpt_keep)
+                                     keep=self.tcfg.ckpt_keep,
+                                     shardings=self.shardings)
         return state
 
     def _on_step_end(self, step, obs, stats):
@@ -138,5 +149,6 @@ class Trainer:
             gstep = self.start_step + len(self.metrics_history)
             ckpt_lib.save_checkpoint(self.tcfg.ckpt_dir, gstep,
                                      self.final_state,
-                                     keep=self.tcfg.ckpt_keep)
+                                     keep=self.tcfg.ckpt_keep,
+                                     shardings=self.shardings)
         return result

@@ -443,3 +443,267 @@ def vlm_mesh_serve(comm, weights, requests) -> dict:
         raise RuntimeError([r.error for r in eng.finished])
     return {"streams": {r.rid: list(r.output) for r in eng.finished},
             "prefix_hits": eng.stats["prefix_hits"], "tp": eng.tp}
+
+
+# -- training over a mesh (tests/test_torch_mesh_train.py) -------------------
+# SMOKE qwen3-1.7b with the reference test's tp=2 (its vocab padding), a
+# batch of 8 x 32 (seed 0), the reference test's one-step AdamW, and the
+# five-step trainer's
+TRAIN_B, TRAIN_S = 8, 32
+TRAIN_OPT1 = dict(peak_lr=1e-2, warmup_steps=0, decay_steps=10)
+TRAIN_OPT5 = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=5)
+POD_OPT = dict(peak_lr=3e-3, warmup_steps=0, decay_steps=20)
+POD_STEPS = 8
+TRAIN_MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
+POD_MESHES = [(2, 2, 1), (2, 1, 2)]
+CKPT_STEP = 1                   # the elastic resume's checkpoint
+DM = ("data", "model")
+PDM = ("pod", "data", "model")
+
+
+def train_model():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(smoke_config("qwen3-1.7b").replace(tp=2))
+
+
+def train_task(cfg):
+    from repro_torch.data import SyntheticTask
+    return SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
+
+
+def _gathered(tree, specs, mesh, keep: bool):
+    """Every leaf of a sharded tree whole (a collective of every rank), as
+    numpy on the rank that ``keep``s it."""
+    from repro_torch.mesh.grad_comm import gather
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _gathered(v, specs[k], mesh, keep)
+        else:
+            with torch.no_grad():
+                w = gather(v, specs[k], mesh)
+            out[k] = w.detach().numpy().copy() if keep else None
+    return out
+
+
+def _train_case(mesh, weights, ckpt_dir=None) -> dict:
+    """One mesh's training checks: a step (lr 1e-2), the same with two
+    microbatches, the eval loss, the seeded sharded init gathered, five
+    trainer steps (checkpointing every step into ``ckpt_dir``)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.data import make_batch_fn, make_data_iter
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (Trainer, TrainerConfig,
+                                   create_train_state, make_eval_step,
+                                   make_train_step)
+    from repro_torch.train.step import train_mesh
+    model = train_model()
+    rules = rules_for_mesh(mesh)
+    tm = train_mesh(model, mesh, rules)
+    keep = mesh.world.rank() == 0
+    params = params_from_numpy(weights, device="cpu",
+                               defs=model.param_defs())
+    task = train_task(model.cfg)
+    specs = model.train_batch_specs(type("S", (), {
+        "global_batch": TRAIN_B, "seq_len": TRAIN_S})())
+    batch = make_batch_fn(task, mesh, rules, specs)(0)
+    out = {}
+    opt1 = AdamWConfig(**TRAIN_OPT1)
+    for accum in (1, 2):
+        st = create_train_state(model, 0, opt1, mesh, rules, device="cpu",
+                                params=params)
+        _, m = make_train_step(model, opt1, mesh, rules,
+                               accum_steps=accum)(st, batch)
+        out["step", accum] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": _gathered(st["params"], tm.specs, mesh, keep),
+            "m": _gathered(st["opt"]["m"], tm.specs, mesh, keep)}
+    st = create_train_state(model, 0, opt1, mesh, rules, device="cpu",
+                            params=params)
+    out["eval"] = float(make_eval_step(model, mesh, rules)(
+        st["params"], batch)["loss"])
+    st = create_train_state(model, 0, opt1, mesh, rules, device="cpu")
+    out["init"] = _gathered(st["params"], tm.specs, mesh, keep)
+    tr = Trainer(model, AdamWConfig(**TRAIN_OPT5),
+                 TrainerConfig(steps=5, log_every=100, ckpt_dir=ckpt_dir,
+                               ckpt_every=1, ckpt_keep=5),
+                 make_data_iter(task, mesh, rules, specs, device="cpu"),
+                 mesh=mesh, rules=rules, device="cpu", params=params,
+                 log=lambda s: None)
+    out["history"] = tr.fit()["history"]
+    out["final"] = _gathered(tr.final_state["params"], tm.specs, mesh, keep)
+    return out
+
+
+def _resume(mesh, ckpt_dir) -> dict:
+    """The loss of the step after the checkpoint at CKPT_STEP, restored
+    onto ``mesh``'s shards; whether ``reshard_state`` of the checkpoint
+    restored whole gives the same shards."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.train import (create_train_state, make_train_step,
+                                   reshard_state, restore_checkpoint,
+                                   state_shardings)
+    model = train_model()
+    rules = rules_for_mesh(mesh)
+    opt = AdamWConfig(**TRAIN_OPT5)
+    like = create_train_state(model, 0, opt, mesh, rules, device="cpu")
+    sh = state_shardings(model, mesh, rules)
+    st, step = restore_checkpoint(ckpt_dir, like, step=CKPT_STEP,
+                                  shardings=sh)
+    # the same checkpoint restored whole, then resharded onto the mesh
+    whole, _ = restore_checkpoint(ckpt_dir, create_train_state(
+        model, 0, opt, device="cpu"), step=CKPT_STEP)
+    again = reshard_state(whole, sh)
+    same = all(torch.equal(a, b) and a.requires_grad == b.requires_grad
+               for a, b in zip(tree_leaves(again), tree_leaves(st)))
+    specs = model.train_batch_specs(type("S", (), {
+        "global_batch": TRAIN_B, "seq_len": TRAIN_S})())
+    batch = make_batch_fn(train_task(model.cfg), mesh, rules, specs)(step)
+    _, m = make_train_step(model, opt, mesh, rules)(st, batch)
+    return {"loss": float(m["loss"]), "resharded_equal": same}
+
+
+def _nan_guard(mesh, ckpt_dir) -> dict:
+    """NaN on every rank: each rolls back to the newest checkpoint, its
+    shard of the embedding table that checkpoint's."""
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import NanGuard, create_train_state, state_shardings
+    model = train_model()
+    rules = rules_for_mesh(mesh)
+    sh = state_shardings(model, mesh, rules)
+    like = create_train_state(model, 0, AdamWConfig(**TRAIN_OPT5), mesh,
+                              rules, device="cpu")
+    guard = NanGuard(ckpt_dir, sh, max_rollbacks=1)
+    healthy = guard.check(torch.tensor(1.5), like) is None
+    state, step, skip = guard.check(torch.tensor(float("nan")), like)
+    return {"healthy": healthy, "step": step, "skip": skip,
+            "table": state["params"]["embed"]["table"].detach().numpy(),
+            "spec": sh["params"]["embed"]["table"].spec,
+            "coords": dict(mesh.coords)}
+
+
+def _pod_dp(mesh, weights) -> dict:
+    """POD_STEPS pod data-parallel steps, compressed and not, from the
+    bridged weights; each pod's first param leaf gathered whole."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.mesh.grad_comm import gather
+    from repro_torch.train.pod_dp import make_pod_dp_step
+    from repro_torch.train.pod_dp import split_pod_meshes
+    model = train_model()
+    rules = rules_for_mesh(mesh)
+    params = params_from_numpy(weights, device="cpu",
+                               defs=model.param_defs())
+    task = train_task(model.cfg)
+    out = {"pods": [(p.pod, p.member, p.shape, p.world and p.world.size())
+                    for p in split_pod_meshes(mesh)]}
+    for compress in (True, False):
+        step = make_pod_dp_step(model, AdamWConfig(**POD_OPT), mesh, rules,
+                                compress=compress)
+        state = step.init_state(0, device="cpu", params=params)
+        outs = []
+        for i in range(POD_STEPS):
+            state, o = step(state, task.batch_at(i))
+            outs.append(o)
+        spec = step.tm.specs["embed"]["table"]
+        with torch.no_grad():
+            table = gather(state["params"]["embed"]["table"], spec, mesh)
+        out[compress] = {"outs": outs,
+                         "table": table.detach().numpy().copy()}
+    return out
+
+
+def _psum_input(rank: int, n_leaves: int = 3) -> dict:
+    rng = np.random.default_rng((SEED, rank, 7))
+    shapes = [(5, 7), (33,), (4, 3, 2)][:n_leaves]
+    return {f"g{i}": rng.normal(size=s).astype(np.float32) * (i + 1)
+            for i, s in enumerate(shapes)}
+
+
+def _psum(comm) -> dict:
+    """compressed_psum twice on this rank's input (the second call with
+    the first's residual, the same gradient)."""
+    from repro_torch.optim.compress import (compressed_psum,
+                                            init_compression_state)
+    g = {k: torch.from_numpy(v) for k, v in _psum_input(comm.rank()).items()}
+    err = init_compression_state(g)["err"]
+    mean1, err = compressed_psum(g, err, comm)
+    mean2, err2 = compressed_psum(g, err, comm)
+    return {"mean1": mean1, "err1": err, "mean2": mean2, "err2": err2}
+
+
+def mesh_train(comm, weights, ckpt_dir, resume_dir=None) -> dict:
+    """Every training check of this world's size on the bridged
+    ``weights``: TRAIN_MESHES' cases, compressed_psum; at world 4 the (2,
+    2) run checkpoints into ``ckpt_dir``, NanGuard rolls back, and the pod
+    meshes train; at world 2 the (2, 1) mesh resumes from ``resume_dir``
+    (world 4's checkpoint).  One thread a rank."""
+    from repro_torch.core.comm import make_mesh
+    torch.set_num_threads(1)
+    n = comm.size()
+    out = {"psum": _psum(comm)}
+    for shape in TRAIN_MESHES[n]:
+        mesh = make_mesh(shape, DM)
+        out["train", shape] = _train_case(
+            mesh, weights, ckpt_dir if n == 4 else None)
+        if n == 4:
+            out["nan"] = _nan_guard(mesh, ckpt_dir)
+        if resume_dir is not None and shape == (2, 1):
+            out["resume"] = _resume(mesh, resume_dir)
+    if n == 4:
+        for shape in POD_MESHES:
+            out["pod", shape] = _pod_dp(make_mesh(shape, PDM), weights)
+    return out
+
+
+# -- ring attention and the pipeline (tests/test_torch_mesh_parallel.py) ------
+RING = dict(B=2, S=64, Hq=4, Hkv=2, D=32)
+PIPE = dict(n_stages=4, n_micro=6, mb=2, d=16)
+
+
+def ring_inputs():
+    rng = np.random.default_rng(0)
+    B, S, Hq, Hkv, D = (RING[k] for k in ("B", "S", "Hq", "Hkv", "D"))
+    return (rng.normal(size=(B, S, Hq, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32),
+            rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+
+
+def pipe_inputs():
+    rng = np.random.default_rng(0)
+    n, m, mb, d = (PIPE[k] for k in ("n_stages", "n_micro", "mb", "d"))
+    params = {"w": (rng.normal(size=(n, d, d)) * 0.2).astype(np.float32),
+              "b": (rng.normal(size=(n, d)) * 0.1).astype(np.float32)}
+    return params, rng.normal(size=(m, mb, d)).astype(np.float32)
+
+
+def pipe_stage(p, h):
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def mesh_parallel(comm) -> dict:
+    """This rank's block of causal ring attention over the world (an
+    ``("sp",)`` mesh), and at world 4 the GPipe forward over ``("pod",)``."""
+    from repro_torch.core.comm import make_mesh
+    from repro_torch.mesh import pipeline_apply, ring_attention
+    torch.set_num_threads(1)
+    n, r = comm.size(), comm.rank()
+    mesh = make_mesh((n,), ("sp",))
+    s = RING["S"] // n
+    q, k, v = (torch.from_numpy(a[:, r * s:(r + 1) * s])
+               for a in ring_inputs())
+    out = {"ring": ring_attention(q, k, v, mesh.comm("sp"), causal=True)}
+    if n == PIPE["n_stages"]:
+        params, x = pipe_inputs()
+        pmesh = make_mesh((n,), ("pod",))
+        out["pipe"] = pipeline_apply(
+            pipe_stage, {k: torch.from_numpy(a) for k, a in params.items()},
+            torch.from_numpy(x), pmesh, axis="pod")
+    return out

@@ -2,7 +2,8 @@
 bit: ``prng.randint`` against ``jax.random.randint`` (int32: spans below
 and above 2**16, a negative minval, an empty range, host and tensor
 keys), and ``SyntheticTask`` batches (SMOKE and full vocabularies, several
-seeds and steps); ``make_data_iter`` and ``host_shard_batch``."""
+seeds and steps); ``make_data_iter`` (a rank's block on a mesh too) and
+``host_shard_batch``."""
 import jax
 import numpy as np
 import pytest
@@ -15,7 +16,24 @@ from repro.data import host_shard_batch as jhost_shard_batch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data import (SyntheticTask, host_shard_batch,
                               make_data_iter)
+from repro_torch.mesh.axes import rules_for_mesh
+from repro_torch.models.api import build_model
 from repro_torch.serve import prng
+
+
+class _At:
+    """One rank's place on a ``("data", "model")`` mesh: what cutting its
+    block of a batch reads (``Mesh.index``)."""
+    axis_names = ("data", "model")
+
+    def __init__(self, coords, shape):
+        self.coords, self.shape = coords, shape
+
+    def index(self, axes):
+        idx, n = 0, 1
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            idx, n = idx * self.shape[a] + self.coords[a], n * self.shape[a]
+        return idx, n
 
 
 @pytest.mark.parametrize("seed,shape,lo,hi", [
@@ -71,5 +89,13 @@ def test_data_iter_and_host_shard():
             np.testing.assert_array_equal(got[k].numpy(), want[k])
     with pytest.raises(NotImplementedError, match="A13b"):
         SyntheticTask(smoke_config("whisper-tiny"), 1, 8).batch_at(0)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        next(make_data_iter(task, mesh=object()))
+    # on a mesh a rank's batch is its block: rows over "data", positions
+    # over "model" (here rank (1, 1) of a (2, 2) mesh)
+    rank = _At({"data": 1, "model": 1}, {"data": 2, "model": 2})
+    rules = rules_for_mesh(rank)
+    specs = build_model(cfg).train_batch_specs(
+        type("S", (), {"global_batch": 4, "seq_len": 8})())
+    got = next(make_data_iter(task, rank, rules, specs, device="cpu",
+                              start_step=3))
+    for k, v in task.batch_at(3).items():
+        np.testing.assert_array_equal(got[k].numpy(), v[2:, 4:].numpy())

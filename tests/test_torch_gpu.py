@@ -423,6 +423,47 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, Hq,
                                rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
 
 
+# (B, Sq, Sk, q_offset, Hq, Hkv, D, causal, window): training's sequence
+# parallelism, a rank's queries at q_offset against the keys before its
+# last one (Sk = q_offset + Sq): qwen3-1.7b's block of a 4 x 2048 sequence
+# over 2 ranks, the same with a window, float32 at D 64 on CUDA cores
+# (Sq 130 / Sk 260), an offset where Sk - Sq is no multiple of any tile,
+# D 256 windowed, D 16; and offsets past the keys (rows that see none)
+FLASH_OFFSET_CASES = [(1, 1024, 2048, 1024, 16, 8, 128, True, None),
+                      (1, 1024, 2048, 1024, 16, 8, 128, True, 512),
+                      (2, 130, 260, 130, 4, 2, 64, True, None),
+                      (2, 200, 333, 133, 8, 4, 128, True, None),
+                      (2, 200, 333, 133, 8, 4, 64, True, 100),
+                      (1, 96, 300, 204, 4, 4, 256, True, 64),
+                      (1, 96, 300, 204, 4, 4, 16, True, None),
+                      (1, 64, 100, 300, 4, 2, 64, True, 50),
+                      (2, 130, 90, 17, 4, 2, 128, False, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,off,Hq,Hkv,D,causal,window",
+                         FLASH_OFFSET_CASES)
+def test_flash_attention_kernel_with_offset_matches_plain(
+        card, dtype, B, Sq, Sk, off, Hq, Hkv, D, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(Sq + D + off)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, D))
+                                .astype(np.float32)).to(card, DTYPES[dtype])
+               for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+    ops.reset_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    assert ops.COUNTS["flash_attention"].kernel == 1
+    assert ops.COUNTS["flash_attention_tc"].kernel == int(
+        dtype == "bfloat16" and D in (64, 128, 256))
+    ops.reset_counts()
+
+
 @pytest.mark.parametrize("dtype,D,tc", [("bfloat16", 64, True),
                                         ("bfloat16", 128, True),
                                         ("bfloat16", 32, False),
@@ -953,6 +994,18 @@ def test_tensor_keys_on_card_match_cpu(card):
                                    atol=1e-5)
 
 
+def test_gumbel_draws_on_a_card_keys_device(card):
+    """A key on the card with no ``device``: the Gumbel draw lands on the
+    card (it used to default to the CPU, a device mismatch), its values
+    the CPU key's within the logs' ulps (1e-6)."""
+    from repro_torch.serve import prng
+    k, kc = prng.PRNGKey(3, device=card), prng.PRNGKey(3, device="cpu")
+    got = prng.gumbel(k, (4096,))
+    assert got.device == k.device
+    torch.testing.assert_close(got.cpu(), prng.gumbel(kc, (4096,)), rtol=0,
+                               atol=1e-6)
+
+
 def test_mcmc_chain_on_card_matches_cpu(card):
     """The same key's chain on the card and the CPU: within the CPU
     test's limit against the reference (1e-3)."""
@@ -1312,6 +1365,40 @@ BWD_ATTN_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,off,Hq,Hkv,D,causal,window",
+                         FLASH_OFFSET_CASES)
+def test_flash_attention_backward_kernel_with_offset_matches_autograd(
+        card, dtype, B, Sq, Sk, off, Hq, Hkv, D, causal, window):
+    """FLASH_OFFSET_CASES' backward against autograd through the plain
+    version in float32; bf16 at D 64/128 on the tensor cores."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(Sq + D + off)
+    dt = DTYPES[dtype]
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, dt)
+    q, k, v, g = t(B, Sq, Hq, D), t(B, Sk, Hkv, D), t(B, Sk, Hkv, D), \
+        t(B, Sq, Hq, D)
+    ops.reset_counts()
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = _grads(lambda a, b, c: ops.flash_attention(a, b, c, **kw),
+                 q, k, v, cot=(g,))
+    want = _grads(lambda a, b, c: flash_attention_plain(a, b, c, **kw),
+                  q.float(), k.float(), v.float(), cot=(g.float(),))
+    torch.cuda.synchronize()
+    for gg, w, name in zip(got, want, ("dq", "dk", "dv")):
+        err = (gg.float() - w).abs().max().item()
+        assert err <= BWD_ATTN_REL[dtype] * max(1.0, w.abs().max().item()), \
+            (name, err)
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == int(
+        dtype == "bfloat16" and D in (64, 128))
+    assert ops.COUNTS["flash_attention"].plain == 0
+    ops.reset_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", BWD_FLASH_CASES)
 def test_flash_attention_backward_kernel_matches_autograd(
         card, dtype, B, S, Hq, Hkv, D, causal, window):
@@ -1348,11 +1435,18 @@ def test_kernels_without_backward_refuse_grad(card):
     z = torch.ones(2, 3, 8, device=card)
     with pytest.raises(NotImplementedError, match="A13b"):
         ops.gated_rmsnorm(x, z, torch.ones(8, device=card))
-    with pytest.raises(NotImplementedError, match="Sq == Sk"):
-        ops.flash_attention(torch.ones(1, 2, 2, 16, device=card,
-                                       requires_grad=True),
-                            torch.ones(1, 3, 2, 16, device=card),
-                            torch.ones(1, 3, 2, 16, device=card))
+    # flash attention with Sq != Sk (a query offset) has its backward
+    # kernel: it runs, it does not refuse
+    ops.reset_counts()
+    q = torch.ones(1, 2, 2, 16, device=card, requires_grad=True)
+    out = ops.flash_attention(q, torch.ones(1, 3, 2, 16, device=card),
+                              torch.ones(1, 3, 2, 16, device=card),
+                              q_offset=1)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    ops.reset_counts()
 
 
 def test_gemma3_aligned_batch_on_card_matches_cpu(card):

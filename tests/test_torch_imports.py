@@ -61,7 +61,10 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.train, repro_torch.train.checkpoint\n"
             "import repro_torch.train.fault, repro_torch.train.state\n"
             "import repro_torch.train.step, repro_torch.train.trainer\n"
-            "import repro_torch.launch.train\n"
+            "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+            "import repro_torch.mesh, repro_torch.mesh.axes\n"
+            "import repro_torch.mesh.ring, repro_torch.mesh.pipeline\n"
+            "import repro_torch.mesh.grad_comm, repro_torch.train.pod_dp\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

@@ -93,6 +93,17 @@ def test_gumbel_close_to_jax():
     assert (got == want).mean() > 0.5
 
 
+def test_gumbel_draws_on_the_keys_device():
+    """With no ``device``, a tensor key's draw lands where the key lies
+    (here the host, as ``bits``, ``uniform`` and ``normal`` place theirs),
+    with the values of the draw named there."""
+    k = prng.PRNGKey(7, device="cpu")
+    got = prng.gumbel(k, (4, 33))
+    assert got.device == k.device
+    assert torch.equal(got, prng.gumbel(k, (4, 33), device="cpu"))
+    assert torch.equal(got, prng.gumbel(prng.PRNGKey(7), (4, 33)))
+
+
 @pytest.mark.parametrize("V", [3, 1000, 152064])
 def test_categorical_matches_jax(V):
     rng = np.random.default_rng(V)

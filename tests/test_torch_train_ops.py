@@ -5,7 +5,9 @@ residual add; B3: flash attention) on the CPU, on numpy-seeded inputs:
   ``repro_torch.kernels.ops`` under autograd, and the backward kernels'
   oracle on the card) against ``jax.grad`` of the reference's functions
   (``repro.kernels.ref``, the x + delta the reference's blocks add before
-  their norms): causal, sliding-window, bidirectional and GQA cases;
+  their norms): causal, sliding-window, bidirectional and GQA cases, and
+  queries at an offset against ``repro.models.attention.gqa_attention(
+  q_offset=)`` (sequence parallelism's blocks);
 * the backward kernels' arithmetic mirrored in float64 numpy (B2: the row
   formula and the scale's gradient summed over per-block partials; B3: the
   log-sum-exp recomputed, ``rowsum(dO * O)``, dS, and dk/dv summed over a
@@ -162,16 +164,18 @@ def test_flash_attention_grad_matches_jax(case):
         _close(got, w, ATTN_REL, f"flash attention {name} {case}")
 
 
-def _flash_bwd_mirror(q, k, v, o, g, causal, window):
+def _flash_bwd_mirror(q, k, v, o, g, causal, window, q_offset=0):
     """csrc/flash_attention_bwd.cu in float64: lse recomputed, delta =
     rowsum(dO * O), dS = P (dP - delta); dq from every key, dk and dv
-    summed over the G query heads of each KV head."""
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    summed over the G query heads of each KV head; query row i at position
+    q_offset + i."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = D ** -0.5
-    i, j = np.arange(S)[:, None], np.arange(S)[None, :]
-    ok = np.ones((S, S), bool)
+    i = q_offset + np.arange(Sq)[:, None]
+    j = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
     if causal:
         ok &= j <= i
     if window is not None:
@@ -205,6 +209,71 @@ def test_flash_attention_backward_formula(case):
         q, k, v, out.detach().numpy(), g)), causal, window)
     for m, t, name in zip(got, (tq, tk, tv), ("dq", "dk", "dv")):
         _close(m, t.grad, MIRROR_REL, f"mirror {name} {case}")
+
+
+# (B, Sq, q_offset, Hq, Hkv, D, causal, window), Sk = q_offset + Sq: a
+# rank's block of queries under sequence parallelism (the keys of every
+# position up to its last query)
+OFFSET_CASES = [(2, 12, 20, 4, 2, 16, True, None),
+                (1, 16, 24, 4, 1, 32, True, 8),
+                (2, 13, 13, 2, 2, 16, True, None),
+                (1, 9, 7, 8, 4, 64, True, 5)]
+
+
+def _offset_inputs(B, Sq, off, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, off + Sq, Hkv, D)).astype(np.float32)
+            for _ in range(2))
+    g = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_flash_attention_offset_matches_reference_gqa(case):
+    """B3 with a query offset (the plain route, under autograd): the output
+    against the reference's ``gqa_attention(q_offset=)`` and its gradients
+    against ``jax.grad`` of it."""
+    from repro.models import attention as JA
+    from repro.models.transformer import BIG_WINDOW
+    B, Sq, off, Hq, Hkv, D, causal, window = case
+    q, k, v, g = _offset_inputs(B, Sq, off, Hq, Hkv, D, 3 * Sq + off)
+
+    def jfn(q, k, v):
+        return JA.gqa_attention(q, k, v, causal=causal,
+                                window=BIG_WINDOW if window is None
+                                else window, q_offset=off)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_out = jfn(jq, jk, jv)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfn(q, k, v) * g),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
+    ops.reset_counts()
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              q_offset=off)
+    _close(out, want_out, ATTN_REL, f"offset forward {case}")
+    (out * torch.from_numpy(g)).sum().backward()
+    assert ops.COUNTS["flash_attention"].plain == 1
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want,
+                            ("dq", "dk", "dv")):
+        _close(got, w, ATTN_REL, f"offset {name} {case}")
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_flash_attention_offset_backward_formula(case):
+    """The backward kernels' float64 mirror at a query offset (the dead
+    tiles' bounds shift by it) against autograd through the plain
+    version."""
+    B, Sq, off, Hq, Hkv, D, causal, window = case
+    q, k, v, g = _offset_inputs(B, Sq, off, Hq, Hkv, D, 5 * Sq + off)
+    tq, tk, tv = _leaf(q), _leaf(k), _leaf(v)
+    out = flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                q_offset=off)
+    (out * torch.from_numpy(g)).sum().backward()
+    got = _flash_bwd_mirror(*(a.astype(np.float64) for a in (
+        q, k, v, out.detach().numpy(), g)), causal, window, q_offset=off)
+    for m, t, name in zip(got, (tq, tk, tv), ("dq", "dk", "dv")):
+        _close(m, t.grad, MIRROR_REL, f"offset mirror {name} {case}")
 
 
 def test_no_gradient_means_serving_routes():
