@@ -331,7 +331,8 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  256), bf16 and float32, and B3's backward (bf16 D 128 S
                  2048 16/8 causal, D 256 S 2048 8/4 window 1024, a ragged
                  S 1000, D 64 non-causal, D 128 16/4 window 512, float32
-                 D 16), each against autograd through the plain version in
+                 D 16, and qwen3-moe's bf16 D 128 S 2048 64/4 causal at
+                 G 16), each against autograd through the plain version in
                  float32 on the same inputs, the limits printed with their
                  reasons; every bf16 D 64/128 call on the backward's
                  tensor-core route (counted ``flash_attention_bwd_tc``);
@@ -375,6 +376,29 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  error feedback and 3 plain from the seeded state: the
                  last losses within 0.05, the wire under 0.3 of float32;
                  step times.
+34c. main-train-dots — main-train's config, seed and batches for 3 steps
+                 under ``remat="dots"`` (the blocks' 2-D products saved,
+                 everything else, B2's and B3's autograd Functions
+                 included, recomputed): losses within 1e-6 of main-train's
+                 first 3 (bit equality expected and reported), B2/B3
+                 launches a step main-train's, no plain version; the peak
+                 and a step's profiled device time beside main-train's.
+34d. main-train-moe — full-width qwen3-moe-235b-a22b (d 4096, 64/4 heads of
+                 128, 128 experts top-8 of ff 1536, vocab 151936, QK-norm)
+                 cut to 2 layers (its 6.22 B params x 8 B of bf16 state,
+                 49.8 GB; a third layer would add 19.9 GB), bf16 params
+                 and AdamW moments as its config declares, bf16 compute,
+                 remat full, through ``Trainer`` at 4 x 2048 for 10 steps:
+                 every loss and aux finite and the last loss below the
+                 first; B3 4 launches a step and its backward 2, all on
+                 the tensor cores at G 16; B2's launches a step as in
+                 main-train; no plain version; B3 and B2, forward and
+                 backward, held against their plain versions at every
+                 shape the steps called them at.  Prints the losses and
+                 aux a step, a step's host-issued and profiled device ms,
+                 tokens/s and the peak beside the state's bytes.  arctic's
+                 13.4 B expert params a layer take 107 GB of state alone:
+                 it trains at SMOKE on the CPU only.
 35. main-gemma3 — full-width, full-depth gemma3-4b (34 layers: 29 windowed
                  of 1024, 5 global; d 2560, 8/4 heads of 256, vocab
                  262144, bf16, seed 0) as aligned batches through its API:
@@ -392,7 +416,8 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  step host-issued and as profiled device time, idle share.
 36. timing-train — B3 at gemma3's prefill shapes (B 4, S 2048, window 1024
                  and global; a replayed CUDA graph), B3's backward at
-                 main-train's and gemma3's shapes and B2's backward at
+                 main-train's, gemma3's and main-train-moe's (B 4, S 2048,
+                 64/4 heads of 128: G 16) shapes and B2's backward at
                  main-train's (rows, d) (device time of calls queued
                  behind a spin, autograd's included), each beside its
                  plain version,
@@ -3312,6 +3337,71 @@ def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
     return profiled_parts(fn, iters)[:2]
 
 
+def kernel_group(name: str) -> str:
+    """A device kernel's group in a training step's breakdown."""
+    k = name.lower()
+    for group, keys in (("B3", ("fa_bwd", "flash_attention")),
+                        ("B2", ("rmsnorm",)),
+                        ("GEMM", ("gemm", "xmma", "cutlass", "nvjet")),
+                        ("index", ("index", "scatter", "gather")),
+                        ("copy/fill", ("memcpy", "memset", "fill")),
+                        ("reduction", ("reduce",)),
+                        ("elementwise", ("elementwise", "vectorized",
+                                         "unrolled"))):
+        if any(key in k for key in keys):
+            return group
+    return "other"
+
+
+def train_step_split(model, opt, state, batch) -> dict:
+    """One train step of ``state`` on ``batch`` in its two parts, each
+    timed by CUDA events with its peak apart: the loss's forward and
+    backward (``make_grads_fn``) and AdamW; then one whole step
+    (``make_train_step``) profiled, its device time summed by
+    :func:`kernel_group`.  The state is updated by both."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import make_grads_fn
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev[0].record()
+    _, _, grads = make_grads_fn(model)(state["params"], batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out = {"peak_grads": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    ev[2].record()
+    adamw_update(state["params"], grads, state["opt"], opt)
+    ev[3].record()
+    torch.cuda.synchronize()
+    out.update(peak_adamw=torch.cuda.max_memory_allocated(),
+               grads_ms=ev[0].elapsed_time(ev[1]),
+               adamw_ms=ev[2].elapsed_time(ev[3]))
+    del grads
+    step = make_train_step(model, opt)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    groups = collections.Counter()
+    for e in prof.key_averages():
+        groups[kernel_group(e.key)] += e.self_device_time_total / 1e3
+    out["device_ms"] = sum(groups.values())
+    if out["device_ms"] <= 0:
+        raise AssertionError("the profiler saw no device time")
+    out["groups"] = {g: round(t, 1) for g, t in groups.most_common()}
+    return out
+
+
+def split_line(sp: dict) -> str:
+    """:func:`train_step_split`'s numbers as a log line's tail."""
+    return (f"device {sp['device_ms']:.1f} ms by group {sp['groups']}; the "
+            f"loss's forward and backward {sp['grads_ms']:.1f} ms (peak "
+            f"{sp['peak_grads']} B), AdamW {sp['adamw_ms']:.1f} ms (peak "
+            f"{sp['peak_adamw']} B) by CUDA events")
+
+
 def mesh_step_turns(model, eng) -> dict:
     """The decode step and prefill chunk of :func:`step_fns` on the mesh
     engine's pool, without a transport ("plain") and through the mesh's
@@ -4706,13 +4796,15 @@ TRAIN_NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # B3's backward: (B, S, Hq, Hkv, D, causal, window, dtype): qwen3-1.7b's
 # training shape (two sequences of it), gemma3's windowed layers, a ragged
 # S, D 64 non-causal (whisper's encoder heads), D 128 windowed at G 4,
-# SMOKE's float32 D 16; bf16 at D 64 and 128 on the tensor cores
+# SMOKE's float32 D 16, qwen3-moe's 64/4 heads (G 16, main-train-moe's);
+# bf16 at D 64 and 128 on the tensor cores
 TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
                      (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
                      (2, 1000, 16, 8, 128, True, None, torch.bfloat16),
                      (2, 1500, 6, 6, 64, False, None, torch.bfloat16),
                      (1, 2048, 16, 4, 128, True, 512, torch.bfloat16),
-                     (2, 300, 4, 2, 16, True, None, torch.float32)]
+                     (2, 300, 4, 2, 16, True, None, torch.float32),
+                     (2, 2048, 64, 4, 128, True, None, torch.bfloat16)]
 # dq, dk, dv are sums of O(1) terms over the keys or queries: bf16 within
 # 2e-2 of the largest magnitude (the kernel reads the bf16 forward output
 # O for rowsum(dO * O) and rounds its result to bf16 once, where the
@@ -4752,6 +4844,23 @@ TRAIN_MESH_PEAK = 1.10
 POD_DP_STEPS = 3
 POD_DP_LOSS_GAP = 0.05
 POD_DP_WIRE = 0.3
+# main-train-moe: full-width qwen3-moe-235b-a22b (d 4096, 64/4 heads of
+# 128, 128 experts top-8 of ff 1536, vocab 151936, QK-norm) cut to
+# TRAIN_MOE_LAYERS layers, bf16 params and AdamW moments as its config
+# declares, bf16 compute, remat full, through Trainer at TRAIN_MOE_B x
+# TRAIN_S for TRAIN_MOE_STEPS steps.  Its state is 6.22 B params x 8 B (bf16
+# param, gradient, m and v) = 49.8 GB; a third layer adds 19.9 GB, so two
+# layers are what one 80 GB card holds.  arctic at full width needs 13.4 B
+# expert params a layer (107 GB of state), so it trains only at SMOKE (on
+# the CPU, in tests/test_torch_moe_train.py)
+TRAIN_MOE_LAYERS, TRAIN_MOE_B, TRAIN_MOE_STEPS = 2, 4, 10
+# main-train-dots: main-train's config under remat="dots" for
+# TRAIN_DOTS_STEPS steps from the same seed: the forward is main-train's,
+# and the backward reads the 2-D products' outputs it saved where "full"
+# computes them again, on the same inputs, so bit equality is expected;
+# the gate is TRAIN_DOTS_REL
+TRAIN_DOTS_STEPS = 3
+TRAIN_DOTS_REL = 1e-6
 CKPT_LAYERS = 2                 # the checkpoint round trip's cut
 # small-train: 5 float32 SMOKE steps, card against CPU; the losses within
 # 1e-4 and the gradient norms within 1e-3 relative: float32 on both, sums
@@ -5014,8 +5123,8 @@ def phase_main_train(dev) -> dict:
     from repro_torch.data import SyntheticTask, make_data_iter
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import (Trainer, TrainerConfig,
-                                   create_train_state, make_train_step,
-                                   restore_checkpoint, save_checkpoint)
+                                   create_train_state, restore_checkpoint,
+                                   save_checkpoint)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5049,23 +5158,14 @@ def phase_main_train(dev) -> dict:
     n = TRAIN_STEPS
     # the forward's norms run twice (remat recomputes every block) but the
     # final norm, which lies outside the blocks, once; the backward once
-    want = {"flash_attention": 2 * L * n, "flash_attention_tc": 2 * L * n,
-            "flash_attention_bwd": L * n, "flash_attention_bwd_tc": L * n,
-            "rmsnorm": (2 * (alone + add) - 1) * n,
-            "rmsnorm_add": (2 * add - 1) * n,
-            "rmsnorm_bwd": (alone + add) * n, "rmsnorm_add_bwd": add * n}
-    bad = {k: counts[k] for k in counts if (counts[k][1] or (
-        k in want and counts[k][0] != want[k]) or (
-        k not in want and counts[k][0]))}
-    if bad:
-        raise AssertionError(f"main-train: launches {counts}; want {want}, "
-                             "no other kernel and no plain version")
+    want = train_launches_wanted(cfg, n)
+    check_train_launches("main-train", counts, want)
     times = [m["step_time"] for m in h[2:]]
     host = float(np.median(times)) * 1e3
     state = tr.final_state
     batch = next(make_data_iter(task, device=dev, start_step=TRAIN_STEPS))
-    step = make_train_step(model, opt)
-    devt, _ = profiled_ms(lambda: step(state, batch), iters=1)
+    split = train_step_split(model, opt, state, batch)
+    devt = split["device_ms"]
     log(f"main-train: {TRAIN_ARCH} {L} layers d {cfg.d_model} "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} vocab "
         f"{cfg.vocab}, float32 weights and moments, {cfg.dtype} compute, "
@@ -5080,8 +5180,9 @@ def phase_main_train(dev) -> dict:
         f"v); launches {counts} (B3 {2 * L} a step forward, the blocks' "
         f"recompute included, all on the tensor cores, {L} backward, all on "
         f"the tensor cores; B2 "
-        f"{alone + add} backward a step, {add} of them the fused add's)")
-    del state, batch, tr, step
+        f"{alone + add} backward a step, {add} of them the fused add's); "
+        f"a step after them: {split_line(split)}")
+    del state, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
     errs = shapes.parity("main-train", dev)
@@ -5261,6 +5362,179 @@ def phase_main_train_mesh(train) -> dict:
             "steps": n, "peak": r["peak"], "host_ms": host,
             "device_ms": r["device_ms"], "nccl_ms": r["nccl_ms"],
             "copy_ms": r["copy_ms"]}
+
+
+def train_launches_wanted(cfg, steps: int) -> dict:
+    """B2's and B3's launches in ``steps`` steps of a qwen3-style decoder
+    under remat (each block's forward twice, the final norm once, the
+    backward once), every B3 call on the tensor cores both ways."""
+    L = cfg.n_layers
+    alone, add, _ = qwen_norms(cfg)
+    return {"flash_attention": 2 * L * steps,
+            "flash_attention_tc": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
+            "flash_attention_bwd_tc": L * steps,
+            "rmsnorm": (2 * (alone + add) - 1) * steps,
+            "rmsnorm_add": (2 * add - 1) * steps,
+            "rmsnorm_bwd": (alone + add) * steps,
+            "rmsnorm_add_bwd": add * steps}
+
+
+def check_train_launches(label: str, counts: dict, want: dict) -> None:
+    """Every count ``want`` names as wanted, no other kernel, no plain
+    call."""
+    bad = {k: c for k, c in counts.items() if c[1] or (
+        k in want and c[0] != want[k]) or (k not in want and c[0])}
+    if bad:
+        raise AssertionError(f"{label}: launches {counts}; want {want}, no "
+                             "other kernel and no plain version")
+
+
+def phase_main_train_moe(dev) -> dict:
+    """Full-width qwen3-moe-235b-a22b cut to TRAIN_MOE_LAYERS layers through
+    ``Trainer``: TRAIN_MOE_STEPS steps of TRAIN_MOE_B x TRAIN_S, bf16 params
+    and moments (its config's ``param_dtype`` / ``moment_dtype``), bf16
+    compute, remat full, counts from 0.  Gates: every loss finite and the
+    last below the first; B3 forward and backward (G 16) all on the tensor
+    cores and B2's launches a step as :func:`train_launches_wanted` says;
+    no plain version; then B2 and B3 held against their plain versions at
+    every shape the steps called them at, forward and backward.  Prints the
+    losses and the aux a step, a step's host-issued and profiled device ms,
+    tokens/s and the peak beside the state's bytes."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.models.module import torch_dtype
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH).replace(n_layers=TRAIN_MOE_LAYERS)
+    model = build_model(cfg)
+    n = TRAIN_MOE_STEPS
+    n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(
+        model.param_defs()))
+    pdt, mdt = torch_dtype(cfg.param_dtype), torch_dtype(cfg.moment_dtype)
+    state_bytes = n_params * (2 * pdt.itemsize + 2 * mdt.itemsize)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(n // 10, 1),
+                      decay_steps=n, moment_dtype=mdt)
+    task = SyntheticTask(cfg, batch=TRAIN_MOE_B, seq_len=TRAIN_S)
+    tr = Trainer(model, opt, TrainerConfig(steps=n, log_every=5),
+                 make_data_iter(task, device=dev), device=dev, seed=0,
+                 param_dtype=pdt, log=log)
+    ops.reset_counts()
+    shapes = KernelShapes()
+    t0 = time.perf_counter()
+    try:
+        h = tr.fit()["history"]
+    finally:
+        shapes.stop()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in h]
+    auxes = [m["aux"] for m in h]
+    log(f"[train] {MOE_ARCH} ({TRAIN_MOE_LAYERS} layers): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(h)} steps; "
+        f"stragglers={tr.stragglers}")
+    if not all(np.isfinite(losses + auxes)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"main-train-moe: losses {losses}, aux {auxes}")
+    want = train_launches_wanted(cfg, n)
+    check_train_launches("main-train-moe", counts, want)
+    host = float(np.median([m["step_time"] for m in h[2:]])) * 1e3
+    state = tr.final_state
+    batch = next(make_data_iter(task, device=dev, start_step=n))
+    split = train_step_split(model, opt, state, batch)
+    devt = split["device_ms"]
+    L = cfg.n_layers
+    alone, add, _ = qwen_norms(cfg)
+    log(f"main-train-moe: {MOE_ARCH} at full width cut to {L} of "
+        f"{get_config(MOE_ARCH).n_layers} layers (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of ff {cfg.expert_d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab}), "
+        f"{cfg.param_dtype} params, {cfg.moment_dtype} moments, {cfg.dtype} "
+        f"compute, remat {cfg.remat}, batch {TRAIN_MOE_B} x {TRAIN_S}, {n} "
+        f"steps in {wall:.1f} s: losses {[round(x, 4) for x in losses]}; "
+        f"aux {[round(x, 5) for x in auxes]}; ce "
+        f"{[round(m['ce'], 4) for m in h]}; grad norms "
+        f"{[round(m['grad_norm'], 3) for m in h]}; a step host-issued "
+        f"{host:.1f} ms (median of steps 3-{n}), device {devt:.1f} ms (one "
+        f"step profiled: card idle {max(0.0, 1 - devt / host):.1%}), "
+        f"{TRAIN_MOE_B * TRAIN_S / host * 1e3:.0f} tokens/s; "
+        f"max_memory_allocated={peak} B against the state's {n_params} "
+        f"params x {state_bytes // n_params} B = {state_bytes} B ({pdt} "
+        f"params and gradients, {mdt} m and v); launches {counts} (B3 "
+        f"{2 * L} a step forward, the blocks' recompute included, and {L} "
+        f"backward, all on the tensor cores at G "
+        f"{cfg.n_heads // cfg.n_kv_heads}; B2 {alone + add} backward a "
+        f"step, {add} of them the fused add's); a step after them: "
+        f"{split_line(split)}")
+    del state, batch, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = shapes.parity("main-train-moe", dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: counts[k][0] for k in want}, "host_ms": host,
+            "device_ms": devt, "peak": peak, "state_bytes": state_bytes,
+            "losses": losses, "aux": auxes, "split": split, "errs": errs}
+
+
+def phase_main_train_dots(dev, train) -> dict:
+    """main-train's model, seed, batches and AdamW for TRAIN_DOTS_STEPS
+    steps under ``remat="dots"`` (the outputs of the blocks' 2-D products
+    saved, everything else recomputed).  Gates: the losses within
+    TRAIN_DOTS_REL of main-train's first ones, B2's and B3's launches a
+    step main-train's (B3's and B2's autograd Functions are recomputed, as
+    under "full"), no plain version.  Prints the peak and a step's
+    profiled device time beside main-train's."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH).replace(remat="dots")
+    model = build_model(cfg)
+    n = TRAIN_DOTS_STEPS
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                      decay_steps=TRAIN_STEPS)
+    task = SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
+    tr = Trainer(model, opt, TrainerConfig(steps=n, log_every=n),
+                 make_data_iter(task, device=dev), device=dev, seed=0,
+                 log=log)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    h = tr.fit()["history"]
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in h]
+    want_losses = train["losses"][:n]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    if not gap <= TRAIN_DOTS_REL:
+        raise AssertionError(f"main-train-dots: losses {losses} against "
+                             f"main-train's {want_losses} (gap {gap})")
+    per_step = {k: v // TRAIN_STEPS for k, v in train["launches"].items()}
+    check_train_launches("main-train-dots", counts,
+                         {k: v * n for k, v in per_step.items()})
+    state = tr.final_state
+    batch = next(make_data_iter(task, device=dev, start_step=n))
+    step = make_train_step(model, opt)
+    devt, _ = profiled_ms(lambda: step(state, batch), iters=1)
+    log(f"main-train-dots: {TRAIN_ARCH} as main-train under remat "
+        f"{cfg.remat!r}, {n} steps in {wall:.1f} s: losses {losses} "
+        f"(main-train's {want_losses}: "
+        f"{'bit for bit equal' if losses == want_losses else f'largest relative gap {gap}'}"
+        f", limit {TRAIN_DOTS_REL}); launches a step {per_step} = "
+        f"main-train's; a step host-issued {[round(m['step_time'] * 1e3, 1) for m in h]} ms, "
+        f"device {devt:.1f} ms (one step profiled; main-train under 'full' "
+        f"{train['device_ms']:.1f} ms); max_memory_allocated {peak} B "
+        f"(main-train {train['peak']} B: {peak / train['peak']:.4f} x)")
+    del state, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"device_ms": devt, "peak": peak, "losses": losses}
 
 
 def teacher_forcing(model, params, prompts, toks):
@@ -5582,11 +5856,14 @@ def phase_timing_train(dev, smi: str) -> dict:
          lr_leaves, lr_out, qt, kt, vt, gt, mask)
     gc.collect()
     torch.cuda.empty_cache()
+    mcfg = get_config(MOE_ARCH)
     for label, (B, S, Hq, Hkv, D, window) in (
             ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
                        tcfg.head_dim, None)),
             ("gemma3", (1, 2048, gcfg.n_heads, gcfg.n_kv_heads,
-                        gcfg.head_dim, gcfg.local_window))):
+                        gcfg.head_dim, gcfg.local_window)),
+            ("train_moe", (TRAIN_MOE_B, TRAIN_S, mcfg.n_heads,
+                           mcfg.n_kv_heads, mcfg.head_dim, None))):
         q, g = (torch.randn(B, S, Hq, D, device=dev).to(bf16)
                 for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
@@ -5924,13 +6201,19 @@ def main() -> int:
     t_mesh = time.perf_counter()
     train_mesh = phase_main_train_mesh(train)
     t_mesh = time.perf_counter() - t_mesh
+    # MoE training and remat="dots" (ROADMAP A13b items 3 and 6)
+    t_moe = time.perf_counter()
+    phase_main_train_dots(dev, train)
+    train_moe = phase_main_train_moe(dev)
+    t_moe = time.perf_counter() - t_moe
     gemma = phase_main_gemma3(dev)
     train_times = phase_timing_train(dev, smi)
     log(f"the training and gemma3 phases (main-train, main-train-mesh and "
-        f"pod-dp ({t_mesh:.1f} s), main-gemma3, timing-train) took "
+        f"pod-dp ({t_mesh:.1f} s), main-train-dots and main-train-moe "
+        f"({t_moe:.1f} s), main-gemma3, timing-train) took "
         f"{time.perf_counter() - t_new:.1f} s")
     # parity at the shapes the phases served and trained at
-    for r in (*mm.values(), train, gemma):
+    for r in (*mm.values(), train, train_moe, gemma):
         for name, e in r["errs"].items():
             errs[name] = max(errs.get(name, 0.0), e)
     times["flash_attention"]["gemma3"] = {
@@ -5951,11 +6234,18 @@ def main() -> int:
         k: mesh_launches[k] for k in ("rmsnorm", "rmsnorm_add")}
     times["rmsnorm"]["train_launches"] = {
         k: train["launches"][k] for k in ("rmsnorm", "rmsnorm_add")}
+    # main-train-moe's launches (its 10 steps), beside main-train's
+    for name, keys in (("flash_attention", ("flash_attention",
+                                            "flash_attention_tc")),
+                       ("rmsnorm", ("rmsnorm", "rmsnorm_add"))):
+        times[name]["train_moe_launches"] = {
+            k: train_moe["launches"][k] for k in keys}
     for name, head in (("rmsnorm_bwd", "add_ln"),
                        ("flash_attention_bwd", "train")):
         times[name] = {**train_times[name][head],
                        "variants": train_times[name],
-                       "train_mesh_launches": mesh_launches[name]}
+                       "train_mesh_launches": mesh_launches[name],
+                       "train_moe_launches": train_moe["launches"][name]}
         launches[name] = train["launches"][name]
     launches["flash_attention_bwd_tc"] = train["launches"][
         "flash_attention_bwd_tc"]
@@ -6036,7 +6326,7 @@ def main() -> int:
                 "g16_chunk_bound_ms", "g16_chunk_bound_by",
                 "moe_launches", "shard_heads", "multimodal", "gemma3",
                 "train_launches", "add_launches", "library_causal_ms",
-                "offset", "train_mesh_launches",
+                "offset", "train_mesh_launches", "train_moe_launches",
                 "cores", "with_lse_ms", "s2048_with_lse_ms") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))

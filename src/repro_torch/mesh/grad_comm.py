@@ -16,6 +16,10 @@ autograd Functions over :class:`repro_torch.core.comm.Comm` groups:
 * :func:`all_reduce_sum` — a sum over mesh axes whose backward is the
   identity (the loss: every rank's gradient is its own tokens' share, and
   the ranks' gradients sum to the single-device gradient).
+* :class:`ExpertComm` — the expert axis's transport for the MoE block in
+  training: its ``all_to_all``'s backward is the all-to-all with the two
+  axes swapped, and its ``all_reduce_sum``'s sums the cotangent over the
+  axis (psum's transpose: every rank of the axis uses the sum).
 
 Every rank must issue the same collectives in the same order.  The forward
 is the same program on every rank, and autograd replays it in reverse on
@@ -35,6 +39,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.comm import SerialComm
 from repro_torch.mesh.axes import AxisRules, logical_to_mesh
 from repro_torch.models.module import tree_map
 
@@ -166,6 +171,58 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """``comm.all_to_all``; the backward sends each part's gradient back to
+    the rank it came from: the all-to-all with the axes swapped."""
+
+    @staticmethod
+    def forward(ctx, x, comm, split_axis, concat_axis):
+        ctx.comm, ctx.axes = comm, (split_axis, concat_axis)
+        return comm.all_to_all(x, split_axis=split_axis,
+                               concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (ctx.comm.all_to_all(g, split_axis=concat_axis,
+                                    concat_axis=split_axis), None, None, None)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """A sum over ``comm`` whose result every rank of it uses: the backward
+    sums the cotangent over ``comm`` too."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_sum(g), None
+
+
+class ExpertComm:
+    """A :class:`repro_torch.core.comm.Comm` of the expert axis with
+    gradients, what the MoE block trains over (``models/moe.py``): the
+    dispatch buffer's exchanges and the router statistics' sums."""
+
+    def __init__(self, comm):
+        self.comm = comm
+
+    def rank(self) -> int:
+        return self.comm.rank()
+
+    def size(self) -> int:
+        return self.comm.size()
+
+    def all_to_all(self, x, *, split_axis: int, concat_axis: int):
+        return _AllToAll.apply(x, self.comm, split_axis, concat_axis)
+
+    def all_reduce_sum(self, x):
+        return _SumOverGroup.apply(x, self.comm)
+
+
 def gather_many(xs: list, specs: list, mesh, dtype=None) -> list:
     """The whole tensors from this rank's shards ``xs`` under their mesh
     ``specs``, each cast to ``dtype`` first when given (a tensor no axis
@@ -224,7 +281,10 @@ class TrainMesh:
     out ``"pod"``, over which it reduces gradients itself).
 
     * ``specs``: the mesh spec of every parameter of ``defs`` (the model's
-      declaration tree), the state's layout;
+      declaration tree), the state's layout; ``gather_specs`` the same
+      with the ``"experts"`` dims left out: what the forward gathers (an
+      MoE block's expert stacks stay split over the expert axis,
+      :meth:`expert_comm`);
     * the batch is split over ``rules["batch"]`` (rows) and
       ``rules["seq"]`` (positions): a rank holds rows of its data block and
       the positions ``seq_offset() .. + S / seq_count``;
@@ -241,8 +301,12 @@ class TrainMesh:
         self.axes = tuple(mesh.axis_names if axes is None else axes)
         self.specs = tree_map(
             lambda p: logical_to_mesh(p.logical_axes(), rules), defs)
+        self.gather_specs = tree_map(lambda p: logical_to_mesh(
+            tuple(None if a == "experts" else a for a in p.logical_axes()),
+            rules), defs)
         self.seq_axes = _axes(rules.get("seq"))
         self.comms = tuple(mesh.comm(a) for a in self.axes)
+        self.n_ranks = math.prod(c.size() for c in self.comms)
 
     # -- the batch's layout -------------------------------------------------
     def seq_block(self) -> tuple[int, int]:
@@ -293,6 +357,18 @@ class TrainMesh:
     def all_reduce_sum(self, x):
         """The sum over the program's axes; identity backward."""
         return all_reduce_sum(x, self.comms)
+
+    def expert_comm(self) -> ExpertComm:
+        """The MoE block's transport: the axis ``rules["experts"]`` splits
+        the experts over (one axis, or none: a one-rank group)."""
+        axes = _axes(self.rules.get("experts"))
+        if len(axes) > 1:
+            raise NotImplementedError(
+                f"experts split over {axes}: MoE training splits them over "
+                "one mesh axis")
+        if not axes:
+            return ExpertComm(SerialComm())
+        return ExpertComm(self.mesh.comm(axes[0]))
 
     # -- gradients -----------------------------------------------------------
     def _replicated(self, spec) -> tuple:

@@ -185,11 +185,13 @@ class DecoderLM:
     # -- training ---------------------------------------------------------------
 
     def loss(self, params, batch: dict, mesh=None):
-        """Mean next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S)
-        over float32 weights -> ``(loss, {"ce", "aux", "tokens"})``; an
-        MoE model raises ``NotImplementedError`` (ROADMAP A13b).  ``mesh``:
-        a :class:`repro_torch.mesh.grad_comm.TrainMesh` (``params`` this
-        rank's shards, ``batch`` its block; the loss the global mean)."""
+        """Next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S) ->
+        ``(loss, {"ce", "aux", "tokens"})``: the mean cross-entropy, plus
+        ``moe_aux_weight`` times the router's auxiliary loss (the MoE
+        blocks' mean; 0 for a dense model).  ``mesh``: a
+        :class:`repro_torch.mesh.grad_comm.TrainMesh` (``params`` this
+        rank's shards, ``batch`` its block; the loss the global mean, an
+        MoE model's experts split over the expert axis)."""
         return T.lm_loss(params, self.cfg, tokens=batch["tokens"],
                          labels=batch["labels"], mesh=mesh)
 

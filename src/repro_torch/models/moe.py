@@ -8,8 +8,8 @@ the paper's §3.2 load balancing applied to tokens: the capacity factor is
 hands each rank its experts' rows is ``redistribute_work``.  With
 :class:`repro_torch.core.comm.SerialComm` the same code is the serial block.
 
-The reference's ``jnp`` steps map one for one, with two changes that keep
-the block deterministic on a card:
+The reference's ``jnp`` steps map one for one, with changes that keep
+the block, forward and backward, deterministic on a card:
 
 * the sort of the assignments by expert is ``torch.argsort(stable=True)``
   (``jnp.argsort`` is stable), and each assignment's rank within its expert
@@ -19,12 +19,25 @@ the block deterministic on a card:
   an ``index_add_`` here, whose CUDA form adds a token's ``top_k``
   contributions in whatever order its atomics land.  Instead each token's
   contributions are gathered in sorted (expert) order, the order the
-  reference's scatter adds them in, and summed one after another from zero.
+  reference's scatter adds them in, and summed one after another from zero;
+* the dispatch reads each assignment's row from the (T, k, d) view of the
+  tokens, at (token, choice), not from the (T, d) tokens at the token: the
+  backward of the first writes every row of that view once and sums over
+  ``k`` in a fixed order, where the second's would add a token's ``k``
+  rows with atomics in any order.  The combine's gather reads every
+  dropped assignment at one row, but ``torch.where`` gives those reads a
+  zero gradient, so the adds its backward makes there are exact in any
+  order.  Every other gather of the block reads each row once.
 
 Dropped assignments (past an expert's capacity, or to an evicted expert)
 are written to a spare row ``E * C`` of the dispatch buffer that is thrown
 away; many writes to it race harmlessly.  No step reads a count back to the
 host, so a decode step can be captured in a CUDA graph.
+
+Training differentiates the block as written: the router and ``top_p``,
+the balancing loss's mean router probability ``me`` and the z-loss carry
+gradients; the assignments' share ``ce_frac`` and the counts carry none,
+as in the reference.
 
 The expert GEMMs are batched products (``torch.bmm``) outside any kernel of
 the reference's, as its ``jnp.einsum`` is; the router runs in float32.
@@ -37,8 +50,17 @@ experts' rows of the replicated dispatch buffer and one tiled
 meet the same weights as in the serial block, on one rank, and the block
 is bit for bit the serial one.  ``tp_comm`` (expert TP: the expert ff
 axis split, the down projection's partial sums all-reduced in float32) is
-the reference's training layout; the reference's ``rules`` /
-``shard_map`` training path comes with ROADMAP A13b.
+the reference's weight-stationary decode layout.
+
+Training over a mesh is the reference's ``shard_map`` train mode: each
+rank routes its own tokens (its block of rows and positions), its capacity
+from its own token count, and the ``comm`` is the expert axis's
+:class:`repro_torch.mesh.grad_comm.ExpertComm`, whose ``all_to_all``
+carries the buffer's gradient back to the tokens' ranks and whose sums of
+``me``, ``ce_frac`` and the z-loss give each rank of the axis the summed
+cotangent (psum's transpose).  The rank's expert stacks are its E/ep
+experts, whole in d (the ZeRO-3 gather of their ``"expert_embed"`` dim is
+the caller's: ``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -99,7 +121,8 @@ def empty_expert_stats(n_experts: int, device=None) -> dict:
 def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm, tp_comm=None,
                               shard_comm=None, placement=None):
     """The routed computation on one rank.  x2d: (T, d), replicated on every
-    rank of ``comm``; ``wg``/``wu``/``wd``: this rank's E/ep experts (with
+    rank of ``comm`` in serving, the rank's own tokens in training (module
+    docstring); ``wg``/``wu``/``wd``: this rank's E/ep experts (with
     ``shard_comm``, its E/(ep*tp)).
 
     ``tp_comm``: expert TP — the expert ff axis of ``wg``/``wu``/``wd`` is
@@ -169,7 +192,8 @@ def _dispatch_compute_combine(x2d, wr, wg, wu, wd, cfg, comm, tp_comm=None,
         keep = keep & (slot_e >= 0)                    # evicted -> dropped
     slot = torch.where(keep, slot_e * C + pos, torch.full_like(pos, E * C))
     buf = torch.zeros(E * C + 1, d, dtype=x2d.dtype, device=dev)
-    buf[slot] = x2d[sorted_tok]
+    # each assignment's row from the (T, k, d) view (module docstring)
+    buf[slot] = x2d.unsqueeze(1).expand(T, k, d)[sorted_tok, order % k]
     buf = buf[:-1].reshape(E, C, d)
 
     # --- telemetry: per-logical-expert routed / dropped assignments ----------

@@ -48,8 +48,9 @@ paged-prefill step writes its fresh K/V **in place** into that layer's view
 of the storage or cache tensors, so the caller's single copy is the result.
 
 The dense path (:func:`prefill`, :func:`decode_step`) serves global-
-attention families; the window/ring caches of gemma3 come with the
-non-paged families' slice and raise ``NotImplementedError`` here.
+attention families, and gemma3's mixed cache (full caches for its global
+layers, rings for its sliding-window ones: :func:`init_cache`) as an
+aligned batch, one position for every row (:func:`_window_decode_step`).
 
 Training (:func:`forward_train`, :func:`lm_loss`) runs on one device or,
 with ``mesh=`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`), on a
@@ -58,13 +59,24 @@ positions over ``"model"`` (the reference's activation layout).  Each
 block gathers its layer's weights inside its checkpointed body, its
 queries attend to the K/V of every position up to their last (gathered
 over ``"model"``; flash attention with a query offset), and the loss is
-the global mean, so the ranks' gradients sum to the single device's.
+the global mean, so the ranks' gradients sum to the single device's.  An
+MoE block adds its router's auxiliary loss (the layers' mean, weighted by
+``moe_aux_weight``).  On a mesh its expert stacks stay split over the
+axis ``"experts"`` maps to (``"model"``; only their ``"expert_embed"``
+dim is gathered), each rank routes its own tokens at its own capacity,
+and the dispatch buffer goes to the experts' ranks and back through an
+all-to-all with a gradient (:class:`repro_torch.mesh.grad_comm.
+ExpertComm`); the aux is the mean over the ranks of each rank's, its
+router statistics averaged over the expert axis, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.comm import SerialComm
 from repro_torch.models import attention as A
@@ -211,18 +223,19 @@ def _write_kv(kv, k, v, quant, scatter) -> None:
 
 def _ffn(p, h, cfg, placement=None, comm=_SERIAL, ep_comm=None):
     """The block's feed-forward half on the normed stream ``h``: the MLP, or
-    the MoE block (plus the dense residual MLP).  Returns ``(y, stats)``,
-    stats the MoE block's per-expert telemetry (None for an MLP).  A mesh
-    ``comm`` sums the MLP's ff-sharded partial outputs and splits the
-    expert GEMMs (``shard_comm``); ``ep_comm`` partitions the experts."""
+    the MoE block (plus the dense residual MLP).  Returns ``(y, aux,
+    stats)``: the MoE block's float32 auxiliary loss and per-expert
+    telemetry (None for an MLP).  A mesh ``comm`` sums the MLP's ff-sharded
+    partial outputs and splits the expert GEMMs (``shard_comm``);
+    ``ep_comm`` partitions the experts."""
     if not cfg.n_experts:
-        return comm.all_reduce_sum(L.mlp(p["mlp"], h)), None
-    y, _, stats = M.moe_apply_expert_parallel(
+        return comm.all_reduce_sum(L.mlp(p["mlp"], h)), None, None
+    y, aux, stats = M.moe_apply_expert_parallel(
         p["moe"], h, cfg, _SERIAL if ep_comm is None else ep_comm,
         shard_comm=None if comm.axis is None else comm, placement=placement)
     if cfg.dense_residual:
         y = y + comm.all_reduce_sum(L.mlp(p["mlp"], h))
-    return y, stats
+    return y, aux, stats
 
 
 def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend,
@@ -245,7 +258,8 @@ def _paged_block(p, x, delta, cfg, *, positions, kv, write, attend,
     o = attend(q, kv)
     x, h = L.add_rmsnorm(p["ln2"], x,
                          comm.all_reduce_sum(A.out_project(p["attn"], o)))
-    return (x, *_ffn(p, h, cfg, placement, comm, ep_comm))
+    y, _, stats = _ffn(p, h, cfg, placement, comm, ep_comm)
+    return x, y, stats
 
 
 def _paged_layers(params, cfg, storage, x, *, positions, write, attend,
@@ -422,10 +436,11 @@ def paged_verify_chunk(params, cfg, storage, tables, lengths, tokens,
 def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                 cache_v=None, cache_pos=None, ring: bool = False,
                 comm=_SERIAL, ep_comm=None, mesh=None):
-    """Pre-norm block.  Returns ``(x, delta, k, v)``: the residual stream,
-    this block's feed-forward output (the MLP, or the serial MoE block plus
-    any dense residual MLP) not yet added to it (the next norm adds it; the
-    ``delta`` passed in is the previous block's, None before the first), and
+    """Pre-norm block.  Returns ``(x, delta, aux, k, v)``: the residual
+    stream, this block's feed-forward output (the MLP, or the MoE block
+    plus any dense residual MLP) not yet added to it (the next norm adds
+    it; the ``delta`` passed in is the previous block's, None before the
+    first), the MoE block's float32 auxiliary loss (None for an MLP), and
     the fresh K/V of this layer without a cache (whole-prompt prefill, the
     training forward), the cache itself with one.
 
@@ -446,7 +461,9 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
     (a :class:`repro_torch.mesh.grad_comm.TrainMesh`, training): ``x`` is
     this rank's block of positions, and its queries attend to the keys of
     every position up to their last, gathered over the sequence's axes
-    (``k`` and ``v`` returned are that prefix).
+    (``k`` and ``v`` returned are that prefix), and an MoE block's experts
+    are the rank's, reached through ``ep_comm`` (its
+    :meth:`repro_torch.mesh.grad_comm.TrainMesh.expert_comm`).
     """
     x, h = L.add_rmsnorm(p["ln1"], x, delta)
     q, k, v = A.qkv_project(p["attn"], h, cfg, positions)
@@ -483,24 +500,36 @@ def block_apply(p, x, cfg, *, positions, window, delta=None, cache_k=None,
                             kv_chunk=max(max_len, 1))
     x, h = L.add_rmsnorm(p["ln2"], x,
                          comm.all_reduce_sum(A.out_project(p["attn"], o)))
-    y, _ = _ffn(p, h, cfg, None, comm, ep_comm)
-    return x, y, k, v
+    y, aux, _ = _ffn(p, h, cfg, None, comm, ep_comm)
+    return x, y, aux, k, v
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    output of every 2-D product (the projections, the router's logits),
+    recompute everything else (norms, RoPE, attention, the MoE dispatch
+    and its expert products, which have a batch dim)."""
+    if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _remat(fn, remat: str):
     """``fn`` recomputed in the backward pass (``"full"``: nothing of it
-    saved but its inputs, the reference's ``nothing_saveable``), or as it
-    is (``"none"``, and whenever autograd is off)."""
+    saved but its inputs, the reference's ``nothing_saveable``; ``"dots"``:
+    the outputs of its 2-D products saved as well, :func:`_dots_policy`),
+    or as it is (``"none"``, and whenever autograd is off).  Either way
+    the recompute runs the same ops in the same order, so a collective in
+    ``fn`` runs again on every rank alike."""
     if remat == "none" or not torch.is_grad_enabled():
         return fn
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) "
-            "comes with ROADMAP A13b; use 'full' or 'none'")
-    if remat != "full":
+    if remat not in ("dots", "full"):
         raise ValueError(f"unknown remat {remat!r}; want none | dots | full")
-    return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=False)
+    kw = {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)} \
+        if remat == "dots" else {}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
 
 
 def compute_params(tree, dtype):
@@ -518,30 +547,38 @@ def _blocks_forward(params, cfg, x, *, comm=_SERIAL, ep_comm=None,
                     dtype=None, remat: str = "none", mesh=None):
     """Every block over the whole sequence ``x`` (B, S, d), causal, then the
     final norm: the shared loop of the scoring forward and the training
-    forward.  ``dtype``: cast each block's weights to it inside the block
-    (:func:`compute_params`); ``remat``: :func:`_remat` of each block.
-    ``mesh`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``x`` is
-    this rank's block of rows and positions, and each block gathers its
-    layer's shards inside its body (in ``dtype``), so ``remat="full"``
-    gathers them again in the backward pass and no block's whole weights
-    outlive it."""
+    forward.  Returns ``(hidden, aux)``, aux the sum of the MoE blocks'
+    auxiliary losses (None for a dense model).  ``dtype``: cast each
+    block's weights to it inside the block (:func:`compute_params`);
+    ``remat``: :func:`_remat` of each block.  ``mesh`` (a
+    :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``x`` is this rank's
+    block of rows and positions, and each block gathers its layer's shards
+    inside its body (in ``dtype``; the expert stacks stay split over the
+    expert axis), so remat gathers them again in the backward pass and no
+    block's whole weights outlive it."""
     off = 0 if mesh is None else mesh.seq_block()[0] * x.shape[1]
     positions = off + torch.arange(x.shape[1], device=x.device)
-    specs = None if mesh is None else tree_map(lambda s: s[1:],
-                                               mesh.specs["blocks"])
-    delta = None
+    specs = None
+    if mesh is not None:
+        specs = tree_map(lambda s: s[1:], mesh.gather_specs["blocks"])
+        if cfg.n_experts:
+            ep_comm = mesh.expert_comm()
+    delta = aux = None
     for i, window in enumerate(layer_windows(cfg)):
         def body(x, delta, p=_layer(params["blocks"], i), window=window):
             if mesh is not None:
                 p = mesh.gather_params(p, specs, dtype)
             elif dtype is not None:
                 p = compute_params(p, dtype)
-            x, y, _, _ = block_apply(p, x, cfg, positions=positions,
-                                     window=window, delta=delta, comm=comm,
-                                     ep_comm=ep_comm, mesh=mesh)
-            return x, y
-        x, delta = _remat(body, remat)(x, delta)
-    return L.final_rmsnorm(params["final_norm"], x, delta)
+            x, y, a, _, _ = block_apply(p, x, cfg, positions=positions,
+                                        window=window, delta=delta,
+                                        comm=comm, ep_comm=ep_comm,
+                                        mesh=mesh)
+            return x, y, a
+        x, delta, a = _remat(body, remat)(x, delta)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return L.final_rmsnorm(params["final_norm"], x, delta), aux
 
 
 def forward(params, cfg, tokens, comm=None, ep_comm=None):
@@ -553,29 +590,23 @@ def forward(params, cfg, tokens, comm=None, ep_comm=None):
     weights)."""
     return _blocks_forward(params, cfg, embed_tokens(params, tokens),
                            comm=_SERIAL if comm is None else comm,
-                           ep_comm=ep_comm)
-
-
-def _check_trainable(cfg):
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (its router's auxiliary loss and the "
-            "expert blocks' backward) comes with ROADMAP A13b")
+                           ep_comm=ep_comm)[0]
 
 
 def forward_train(params, cfg, tokens=None, inputs_embeds=None, mesh=None):
-    """Training forward over float32 (``param_dtype``) weights: tokens
-    (B, S), or their embeddings (B, S, d) -> ``(hidden, aux)``, the final
-    hidden states (B, S, d) in the compute dtype and the auxiliary loss
-    (0 for a dense model).  Each block runs in the compute dtype and is
-    recomputed in the backward pass under ``cfg.remat``.
+    """Training forward over the ``param_dtype`` weights: tokens (B, S),
+    or their embeddings (B, S, d) -> ``(hidden, aux)``, the final hidden
+    states (B, S, d) in the compute dtype and the float32 auxiliary loss:
+    the MoE blocks' mean over the layers (0 for a dense model).  Each
+    block runs in the compute dtype and is recomputed in the backward pass
+    under ``cfg.remat``.
 
     ``mesh`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``params``
     are this rank's ZeRO-3 shards and the input its block (B / dp rows, S /
     tp positions); the embedding table is gathered in float32 (its rows
     then cast, as on one device), each block's weights inside the block
-    (:func:`_blocks_forward`)."""
-    _check_trainable(cfg)
+    (:func:`_blocks_forward`); the aux is the mean over the ranks of each
+    rank's (the sum's backward the identity, as the loss's)."""
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds is not None:
         x = inputs_embeds
@@ -586,9 +617,14 @@ def forward_train(params, cfg, tokens=None, inputs_embeds=None, mesh=None):
                             mesh.specs["embed"]["table"])
         x = table[tokens.long()].to(dtype)
         del table
-    hidden = _blocks_forward(params, cfg, x, dtype=dtype, remat=cfg.remat,
-                             mesh=mesh)
-    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+    hidden, aux = _blocks_forward(params, cfg, x, dtype=dtype,
+                                  remat=cfg.remat, mesh=mesh)
+    if aux is None:
+        return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = aux / max(cfg.n_layers, 1)
+    if mesh is not None:
+        aux = mesh.all_reduce_sum(aux) / mesh.n_ranks
+    return hidden, aux
 
 
 class _LogitsF32(torch.autograd.Function):
@@ -649,16 +685,19 @@ def loss_from_hidden(unembed_w, hidden, labels, cfg, loss_chunks: int = 8,
 
 def lm_loss(params, cfg, tokens=None, labels=None, inputs_embeds=None,
             loss_chunks: int = 8, mesh=None):
-    """``(loss, {"ce", "aux", "tokens"})`` of next-token prediction over
-    float32 weights (:func:`forward_train`, :func:`loss_from_hidden`); on a
-    ``mesh`` the rank's block of ``tokens`` / ``labels``, the unembedding
-    gathered in float32 and the loss the global mean."""
+    """``(loss, {"ce", "aux", "tokens"})`` of next-token prediction
+    (:func:`forward_train`, :func:`loss_from_hidden`): the mean
+    cross-entropy, plus ``moe_aux_weight`` times the auxiliary loss for an
+    MoE model, as in the reference; on a ``mesh`` the rank's block of
+    ``tokens`` / ``labels``, the unembedding gathered in float32 and the
+    loss the global mean."""
     hidden, aux = forward_train(params, cfg, tokens, inputs_embeds, mesh)
     w = params["unembed"]["w"]
     if mesh is not None:
         w = mesh.gather(w, mesh.specs["unembed"]["w"])
     ce, cnt = loss_from_hidden(w, hidden, labels, cfg, loss_chunks, mesh)
-    return ce, {"ce": ce, "aux": aux, "tokens": cnt}
+    loss = ce + cfg.moe_aux_weight * aux if cfg.n_experts else ce
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
@@ -724,9 +763,9 @@ def prefill(params, cfg, tokens=None, max_len: Optional[int] = None, *,
     cache = init_cache(cfg, B, max_len, dtype=x.dtype, device=x.device)
     delta = None
     for i, window in enumerate(layer_windows(cfg)):
-        x, delta, k, v = block_apply(_layer(params["blocks"], i), x, cfg,
-                                     positions=positions, window=window,
-                                     delta=delta)
+        x, delta, _, k, v = block_apply(_layer(params["blocks"], i), x,
+                                        cfg, positions=positions,
+                                        window=window, delta=delta)
         ck, cv, ring = _cache_layer(cfg, cache, i)
         if ring:
             take = min(ck.shape[1], S)
@@ -750,10 +789,10 @@ def _decode_layers(params, cfg, cache, tokens, pos):
     delta = None
     for i, window in enumerate(layer_windows(cfg)):
         ck, cv, ring = _cache_layer(cfg, cache, i)
-        x, delta, _, _ = block_apply(_layer(params["blocks"], i), x, cfg,
-                                     positions=positions, window=window,
-                                     delta=delta, cache_k=ck, cache_v=cv,
-                                     cache_pos=pos, ring=ring)
+        x, delta, *_ = block_apply(_layer(params["blocks"], i), x, cfg,
+                                   positions=positions, window=window,
+                                   delta=delta, cache_k=ck, cache_v=cv,
+                                   cache_pos=pos, ring=ring)
     return lm_logits(params, L.final_rmsnorm(params["final_norm"], x, delta))
 
 

@@ -13,6 +13,14 @@ holds shards of the params, gradients and moments; the update stays
 elementwise on them, and only the global norm needs the mesh: the shards'
 sums of squares are summed over the ranks, each leaf replicated on some
 axes counted once (by the ranks at coordinate 0 of those axes).
+
+A leaf of more than :data:`SLICE_OVER` elements (a stacked expert weight:
+qwen3-moe's gate at two layers is (2, 128, 4096, 1536), 1.61 B) is updated
+and summed in slices along its leading axes, each under
+:data:`SLICE_ELEMS`: the update makes several float32 temporaries of what
+it updates, which for such a leaf whole would be 6.4 GB each.  The update
+is elementwise, so slicing leaves its bits unchanged; only such a leaf's
+sum of squares is added up in another order.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ import math
 import torch
 
 from repro_torch.models.module import tree_leaves, tree_map
+
+SLICE_OVER = 2 ** 30     # a leaf above this many elements goes in slices
+SLICE_ELEMS = 2 ** 28    # of at most this many elements (whole rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,17 +63,35 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _slices(*ts) -> list:
+    """Matching views of ``ts`` (tensors of one shape): the tensors
+    themselves, or for one of more than SLICE_OVER elements, blocks of
+    whole rows along the leading axes of at most SLICE_ELEMS elements
+    each (contiguous tensors only, so that writes reach them)."""
+    t = ts[0]
+    if t.numel() <= SLICE_OVER or not all(x.is_contiguous() for x in ts):
+        return [ts]
+    k = 1
+    while math.prod(t.shape[k:]) > SLICE_ELEMS and k < t.dim() - 1:
+        k += 1
+    per = max(1, SLICE_ELEMS // math.prod(t.shape[k:]))
+    return list(zip(*(x.view(-1, *x.shape[k:]).split(per) for x in ts)))
+
+
+def _sum_squares(x) -> torch.Tensor:
+    return sum(torch.sum(torch.square(s.to(torch.float32)))
+               for s, in _slices(x))
+
+
 def global_norm(tree, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32; over a tree of
     shards on ``mesh`` (a ``TrainMesh`` whose specs the tree mirrors) the
     sum runs over the whole tree, every rank gets the same norm."""
     if mesh is None:
-        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                              for x in tree_leaves(tree)))
+        return torch.sqrt(sum(_sum_squares(x) for x in tree_leaves(tree)))
     owned = mesh.owned(tree)
     zero = torch.zeros((), dtype=torch.float32, device=owned[0][0].device)
-    total = sum(torch.sum(torch.square(x.to(torch.float32))) if own else zero
-                for x, own in owned)
+    total = sum(_sum_squares(x) if own else zero for x, own in owned)
     return torch.sqrt(mesh.all_reduce_sum(total))
 
 
@@ -113,6 +142,10 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, mesh=None):
     bc2 = 1 - b2 ** step.to(f32)
 
     def upd(p, g, m, v):
+        for part in _slices(p, g, m, v):
+            upd_part(*part)
+
+    def upd_part(p, g, m, v):
         gf = (g.to(f32) * scale).to(g.dtype).to(f32)
         mf = b1 * m.to(f32) + (1 - b1) * gf
         vf = b2 * v.to(f32) + (1 - b2) * gf * gf

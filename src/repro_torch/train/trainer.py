@@ -21,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Iterator, Optional
 
+import torch
+
 from repro_torch.core.runtime import straggler_deadline
 from repro_torch.core.time_integration import parallel_time_integration
 from repro_torch.optim.adamw import AdamWConfig
@@ -46,18 +48,21 @@ class TrainerConfig:
 
 class Trainer:
     """Fit ``model`` on ``data_iter``'s batches: ``seed`` draws the params
-    on ``device`` (or ``params``, bridged weights, start it).  On a
-    ``mesh`` (with its ``rules``) ``data_iter`` yields this rank's blocks
-    (:func:`repro_torch.data.make_data_iter` with the mesh)."""
+    on ``device`` in ``param_dtype`` (or ``params``, bridged weights, start
+    it).  On a ``mesh`` (with its ``rules``) ``data_iter`` yields this
+    rank's blocks (:func:`repro_torch.data.make_data_iter` with the
+    mesh)."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, tcfg: TrainerConfig,
                  data_iter: Iterator[dict], *, mesh=None, rules=None,
                  seed=0, device=None, params: Optional[dict] = None,
+                 param_dtype=torch.float32,
                  log: Callable[[str], None] = print):
         self.model, self.opt_cfg, self.tcfg = model, opt_cfg, tcfg
         self.data_iter = data_iter
         self.mesh, self.rules = mesh, rules
         self.seed, self.device, self.params = seed, device, params
+        self.param_dtype = param_dtype
         self.rank = 0 if mesh is None else mesh.world.rank()
         self.log = log if self.rank == 0 else (lambda s: None)
         self.step_fn = make_train_step(model, opt_cfg, mesh, rules,
@@ -77,6 +82,7 @@ class Trainer:
     def _initialize(self):
         state = create_train_state(self.model, self.seed, self.opt_cfg,
                                    self.mesh, self.rules, device=self.device,
+                                   param_dtype=self.param_dtype,
                                    params=self.params)
         self.params = None                       # the state holds them now
         if (self.tcfg.resume and self.tcfg.ckpt_dir

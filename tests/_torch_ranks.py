@@ -707,3 +707,96 @@ def mesh_parallel(comm) -> dict:
             pipe_stage, {k: torch.from_numpy(a) for k, a in params.items()},
             torch.from_numpy(x), pmesh, axis="pod")
     return out
+
+
+# -- MoE training over a mesh (tests/test_torch_moe_train.py) -----------------
+# SMOKE qwen3-moe (8 experts, top 4; tp 2, as the dense mesh tests) on
+# ("data", "model") meshes, the experts split over "model"; capacity factor
+# 8.0, so that no rank's capacity drops a token, for the step and the
+# trainer; the block alone at the config's own 1.25, MOE_BLOCK_T tokens a
+# rank, where tokens drop
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_TRAIN_MESHES = {2: [(1, 2), (2, 1)], 4: [(2, 2)]}
+MOE_TRAIN_CF = 8.0
+MOE_BLOCK_T = 24
+
+
+def moe_train_model(capacity_factor: float = MOE_TRAIN_CF):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(smoke_config(MOE_ARCH).replace(
+        tp=2, capacity_factor=capacity_factor))
+
+
+def moe_block_tokens(rank: int, d: int) -> np.ndarray:
+    """World rank ``rank``'s tokens for the block alone."""
+    rng = np.random.default_rng((SEED, 41, rank))
+    return rng.normal(size=(MOE_BLOCK_T, d)).astype(np.float32)
+
+
+def _moe_block_alone(mesh, tm, weights) -> dict:
+    """Layer 0's MoE block on this rank's tokens at the config's capacity
+    factor, its experts this rank's E/tp over the expert axis: y, aux and
+    the telemetry."""
+    from repro_torch.models import moe as M
+    cfg = moe_train_model(1.25).cfg
+    w = {k: torch.from_numpy(v[0]) for k, v in
+         weights["blocks"]["moe"].items()}
+    ec = tm.expert_comm()
+    e_loc = cfg.n_experts // ec.size()
+    lo = ec.rank() * e_loc
+    x = torch.from_numpy(moe_block_tokens(mesh.world.rank(), cfg.d_model))
+    with torch.no_grad():
+        y, aux, stats = M._dispatch_compute_combine(
+            x, w["router"], *(w[k][lo:lo + e_loc] for k in ("gate", "up",
+                                                           "down")),
+            cfg, ec)
+    return {"y": y, "aux": float(aux), **stats}
+
+
+def _moe_train_case(mesh, weights) -> dict:
+    """One mesh's MoE training checks: one step's loss, ce, aux and every
+    gradient leaf gathered whole, five trainer steps, the seeded sharded
+    init gathered, the block alone."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.data import make_batch_fn, make_data_iter
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, create_train_state
+    from repro_torch.train.step import make_grads_fn, train_mesh
+    model = moe_train_model()
+    rules = rules_for_mesh(mesh)
+    tm = train_mesh(model, mesh, rules)
+    keep = mesh.world.rank() == 0
+    params = params_from_numpy(weights, device="cpu",
+                               defs=model.param_defs())
+    task = train_task(model.cfg)
+    specs = model.train_batch_specs(type("S", (), {
+        "global_batch": TRAIN_B, "seq_len": TRAIN_S})())
+    batch = make_batch_fn(task, mesh, rules, specs)(0)
+    opt = AdamWConfig(**TRAIN_OPT5)
+    st = create_train_state(model, 0, opt, mesh, rules, device="cpu",
+                            params=params)
+    loss, met, grads = make_grads_fn(model, tm)(st["params"], batch)
+    tm.finish_grads(grads)
+    out = {"step": {"loss": float(loss),
+                    **{k: float(v) for k, v in met.items()},
+                    "grads": _gathered(grads, tm.specs, mesh, keep)}}
+    tr = Trainer(model, opt, TrainerConfig(steps=5, log_every=100),
+                 make_data_iter(task, mesh, rules, specs, device="cpu"),
+                 mesh=mesh, rules=rules, device="cpu", params=params,
+                 log=lambda s: None)
+    out["history"] = tr.fit()["history"]
+    st = create_train_state(model, 0, opt, mesh, rules, device="cpu")
+    out["init"] = _gathered(st["params"], tm.specs, mesh, keep)
+    out["block"] = _moe_block_alone(mesh, tm, weights)
+    return out
+
+
+def moe_train(comm, weights) -> dict:
+    """MOE_TRAIN_MESHES' cases of this world's size on the bridged SMOKE
+    ``weights``; one thread a rank."""
+    from repro_torch.core.comm import make_mesh
+    torch.set_num_threads(1)
+    return {shape: _moe_train_case(make_mesh(shape, DM), weights)
+            for shape in MOE_TRAIN_MESHES[comm.size()]}

@@ -9,9 +9,11 @@ the CPU, from bridged SMOKE weights and the same synthetic batches:
   against 1 and against the reference's 2;
 * checkpoints written by either package restored by the other, the
   corrupted-checkpoint fallback and ``NanGuard``'s rollback;
-* what is refused: MoE and VLM training, ``remat='dots'``, compressed
-  gradient sync outside pod-DP, a mesh wider than the visible cards
-  (training over a mesh itself: tests/test_torch_mesh_train.py).
+* what is refused: VLM training, compressed gradient sync outside
+  pod-DP, a mesh wider than the visible cards (training over a mesh
+  itself: tests/test_torch_mesh_train.py); ``remat='dots'`` and MoE
+  models train (held against the reference in
+  tests/test_torch_moe_train.py).
 
 Tolerances: float32 on both sides, summation order only.  The loss within
 1e-6 of its value; each gradient leaf within 1e-4 of its largest
@@ -337,13 +339,25 @@ def test_eval_step_and_refusals():
     assert out["loss"].grad_fn is None and float(out["tokens"]) == B * S - 3
     with pytest.raises(ValueError, match="pod_dp"):
         make_train_step(model, PO.AdamWConfig(), grad_sync="compressed")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        build_model(smoke_config("qwen3-1.7b").replace(remat="dots")).loss(
-            params, batch)
+    # remat='dots' and an MoE model train: a finite loss, a finite
+    # gradient on every leaf; the MoE loss is its ce plus the weighted aux
+    dots = build_model(smoke_config("qwen3-1.7b").replace(remat="dots"))
+    loss, _ = dots.loss(params, batch)
+    assert all(torch.isfinite(g).all() for g in torch.autograd.grad(
+        loss, tree_leaves(params)))
     moe = build_model(smoke_config("qwen3-moe-235b-a22b"))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        T.lm_loss({}, moe.cfg, tokens=batch["tokens"],
-                  labels=batch["labels"])
+    mp = tree_map(lambda t: t.requires_grad_(True),
+                  moe.init(0, device="cpu", dtype=torch.float32))
+    mb = _batch(moe.cfg)
+    loss, met = T.lm_loss(mp, moe.cfg, tokens=mb["tokens"],
+                          labels=mb["labels"])
+    loss_v, ce, aux = (float(t.detach()) for t in (loss, met["ce"],
+                                                  met["aux"]))
+    assert aux > 0
+    assert loss_v == pytest.approx(ce + moe.cfg.moe_aux_weight * aux,
+                                   rel=1e-6)
+    assert all(torch.isfinite(g).all() for g in torch.autograd.grad(
+        loss, tree_leaves(mp)))
     vlm = build_model(smoke_config("llava-next-mistral-7b"))
     with pytest.raises(NotImplementedError, match="A13b"):
         vlm.loss({}, batch)
