@@ -17,7 +17,8 @@ Phases (any failure exits non-zero before the result lines):
                  SSD kernels' (the CUDA-core loop, and the tensor-core
                  route's segment states and outputs) registers, spills and
                  shared memory, with the tensor-core routes' dynamic shared
-                 memory.
+                 memory; and the K = V = 64 wkv and N = P = 64 SSD
+                 backward kernels'.
 3. parity      — each kernel against its plain PyTorch version at the main
                  paths' shapes, with the tolerances printed beside them;
                  RMSNorm's three variants (the norm, the residual add fused
@@ -341,7 +342,15 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  with window 512, float32 D 64 Sq 130 / Sk 260 at 130, Sk
                  - Sq 133 at D 128), forward under TOL and backward under
                  the limits above, every call a launch (bf16 D 64/128 on
-                 the tensor cores), counted apart.
+                 the tensor cores), counted apart.  Then the recurrent
+                 families' backward kernels: B4's (B 2, S 256 and a
+                 ragged 200, H 4, K = V = 64, a nonzero state, and a case
+                 with decays at 0 and denormal), B5's (B 2, S 256, H 8,
+                 N = P = 64), r/k/v and B/C float32 and bf16, the gated
+                 norm's at (8192, 7168) bf16 and B3 at head dim 112 (B 1,
+                 S 2048, 32/32, bf16 causal, forward under TOL), each
+                 against autograd through its plain version in float32
+                 and run twice: the same bits.
 33. small-train — after the small phases: 5 trainer steps of float32
                  SMOKE qwen3-1.7b on the card against the CPU from the same
                  seeded weights and batches: losses within 1e-4, gradient
@@ -399,6 +408,27 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  tokens/s and the peak beside the state's bytes.  arctic's
                  13.4 B expert params a layer take 107 GB of state alone:
                  it trains at SMOKE on the CPU only.
+34e. main-train-rwkv — right after main-train: full-width, full-depth
+                 rwkv6-3b (32 layers, d 2560, 40 heads of 64, vocab 65536:
+                 3.27 B params, 52.4 GB of float32 state; bf16 compute,
+                 remat full) through ``Trainer`` at 4 x 2048 for 5 steps:
+                 every loss finite and the last below the first; B4 64
+                 launches a step (32 and 32 recomputed, all on the tensor
+                 cores) and its backward 32; no other kernel, no plain
+                 version; two forward and backward passes from the final
+                 state the same bits.  Prints the losses, a step's
+                 host-issued and profiled device ms by kernel group,
+                 tokens/s and the peak beside the state's 16 B a param.
+34f. main-train-zamba — full-width zamba2-7b (d 3584, 112 SSM heads of 64,
+                 N 64, 32/32 attention heads of 112, ff 14336) cut from 81
+                 to 27 Mamba-2 layers (one segment, one application of the
+                 shared block: 2.54 B params, 40.6 GB of state), as 34e:
+                 B5 54 + 27 backward a step (tensor cores forward), B2 111
+                 (55 fused with the add, 54 gated) + 57 backward (29 and
+                 27), B3 at D 112 1 + 1 on the tensor cores (zero-padded
+                 to 128); B2 and B3 held against their plain versions at
+                 every shape the steps called them at, forward and
+                 backward.
 35. main-gemma3 — full-width, full-depth gemma3-4b (34 layers: 29 windowed
                  of 1024, 5 global; d 2560, 8/4 heads of 256, vocab
                  262144, bf16, seed 0) as aligned batches through its API:
@@ -430,7 +460,16 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  offset 1024, Sk 2048, 16/8 heads of 128, bf16) beside
                  SDPA with the same mask (explicit, and
                  ``causal_lower_right``) and the bound, with the card's
-                 name and power limit.
+                 name and power limit.  The recurrent families' rows: B4's
+                 backward at main-train-rwkv's shape and B5's at
+                 main-train-zamba's (beside the plain autograd on one of
+                 the 4 rows, which also holds the kernels' gradients of
+                 that row at S 2048, and B4's du from a call on it alone,
+                 under parity-train's limits; no single PyTorch call),
+                 the gated norm's at
+                 (8192, 7168), B3 at head dim 112 forward and backward at
+                 main-train-zamba's shared block (B 4, S 2048, 32/32)
+                 beside SDPA with the same mask and with ``is_causal``.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly; so
@@ -3342,6 +3381,8 @@ def kernel_group(name: str) -> str:
     k = name.lower()
     for group, keys in (("B3", ("fa_bwd", "flash_attention")),
                         ("B2", ("rmsnorm",)),
+                        ("B4", ("rwkv6",)),
+                        ("B5", ("ssd_scan", "ssd_seg")),
                         ("GEMM", ("gemm", "xmma", "cutlass", "nvjet")),
                         ("index", ("index", "scatter", "gather")),
                         ("copy/fill", ("memcpy", "memset", "fill")),
@@ -4893,6 +4934,36 @@ GEMMA_NEW = 32
 GEMMA_GATE_DEPTH = 6
 GEMMA_F32_TOL = 1e-3
 GEMMA_BF16_TOL = 0.1
+# parity-train, the recurrent families' backward kernels, each against
+# autograd through its plain version in float32 on the same (widened)
+# inputs and run twice (the same bits): B4 at (B, S, H, K, V, planted
+# zeros and as many denormals in w): two sequences of 256, a ragged 200 (no
+# multiple of the backward's 32-step chunk) and 256 with decays at 0, from
+# a nonzero state; B5 at (B, S, H, P, N), B and C float32 and bf16; the
+# gated norm at main-train-zamba's (rows, d), bf16 z; B3 at zamba2's head
+# dim 112 (B, S, Hq, Hkv, D; bf16, causal) forward and backward
+TRAIN_RWKV_CASES = [(2, 256, 4, 64, 64, 0), (2, 200, 4, 64, 64, 0),
+                    (2, 256, 4, 64, 64, 64)]
+TRAIN_SSD_CASES = [(2, 256, 8, 64, 64)]
+TRAIN_GATED_CASES = [(8192, 7168)]
+TRAIN_FLASH_Z = (1, 2048, 32, 32, 112)
+# max |d| over max(1, max |autograd|): float32 inputs differ by summation
+# order only (the kernel recomputes the states the plain version keeps);
+# bf16 r/k/v and B/C have their gradients rounded once to bf16 (2**-8 of a
+# value)
+SCAN_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+# main-train-rwkv: full-width, full-depth rwkv6-3b (32 layers, d 2560, 40
+# heads of 64, ff 8960, vocab 65536): 3.27 B params, 52.3 GB of float32
+# params, gradients and AdamW moments; bf16 compute, remat full; through
+# Trainer at TRAIN_REC_B x TRAIN_S for TRAIN_REC_STEPS steps.
+# main-train-zamba: full-width zamba2-7b (d 3584, 112 SSM heads of 64, N
+# 64, 32/32 heads of 112, ff 14336) cut from 81 to TRAIN_ZAMBA_LAYERS
+# Mamba-2 layers, one segment and one application of the shared block:
+# 2.54 B params, 40.6 GB of state (the full 81 layers hold 6.75 B, 108
+# GB; two segments 4.64 B, 74 GB before any activation)
+TRAIN_RWKV_ARCH, TRAIN_ZAMBA_ARCH, TRAIN_ZAMBA_LAYERS = \
+    "rwkv6-3b", "zamba2-7b", 27
+TRAIN_REC_B, TRAIN_REC_STEPS = 4, 5
 
 
 def grads_of(fn, tensors, cots):
@@ -5537,6 +5608,428 @@ def phase_main_train_dots(dev, train) -> dict:
     return {"device_ms": devt, "peak": peak, "losses": losses}
 
 
+def bwd_twice(what, fn, tensors, cots):
+    """:func:`grads_of` twice on the same inputs: raises unless the two
+    runs give the same bits; the first run's gradients."""
+    a, b = (grads_of(fn, tensors, cots) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two runs of the backward differ")
+    return a
+
+
+def gaps_within(what, names, got, want, limit) -> tuple[float, float]:
+    """(max |d|, max |d| over max(1, max |want|)) over the gradients;
+    raises past ``limit``."""
+    worst = (0.0, 0.0)
+    for g, w, name in zip(got, want, names):
+        e, r = grad_gap(g, w)
+        if r > limit:
+            raise AssertionError(f"{what}: {name} {r} > {limit}")
+        worst = (max(worst[0], e), max(worst[1], r))
+    return worst
+
+
+def phase_parity_train_recurrent(dev) -> dict:
+    """parity-train's recurrent half: B4's and B5's backward kernels
+    (TRAIN_RWKV_CASES, TRAIN_SSD_CASES; float32 and bf16 r/k/v or B/C),
+    the gated norm's (TRAIN_GATED_CASES) and B3 at head dim 112
+    (TRAIN_FLASH_Z, forward under TOL), each backward against autograd
+    through its plain version in float32 on the same inputs and run twice,
+    the same bits.  Returns the max abs errors by kernel."""
+    rng = np.random.default_rng(29)
+    torch.manual_seed(29)
+    errs = {"rwkv6_scan_bwd": 0.0, "ssd_scan_bwd": 0.0,
+            "rmsnorm_gated_bwd": 0.0, "flash_attention_bwd": 0.0}
+    rels = dict(errs)
+
+    def keep(name, gap):
+        errs[name] = max(errs[name], gap[0])
+        rels[name] = max(rels[name], gap[1])
+
+    ops.reset_counts()
+    n_rwkv = n_ssd = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, K, V, planted in TRAIN_RWKV_CASES:
+            what = (f"parity-train rwkv6_scan B={B} S={S} H={H} K={K} V={V} "
+                    f"planted={planted} {dtype}")
+            ins = rwkv_case(rng, dev, dtype, B, S, H, K, V, planted)
+            cots = (torch.randn(B, S, H, V, device=dev),
+                    torch.randn(B, H, K, V, device=dev))
+            got = bwd_twice(what, ops.rwkv6_scan, ins, cots)
+            want = grads_of(ref.rwkv6_scan, [t.float() for t in ins], cots)
+            keep("rwkv6_scan_bwd", gaps_within(
+                what, ("dr", "dk", "dv", "dw", "du", "dstate0"), got, want,
+                SCAN_BWD_REL[dtype]))
+            n_rwkv += 1
+        for B, S, H, P, N in TRAIN_SSD_CASES:
+            what = f"parity-train ssd_scan B={B} S={S} H={H} P={P} N={N} " \
+                f"B/C {dtype}"
+            ins = ssd_case(rng, dev, dtype, B, S, H, P, N)
+            cots = (torch.randn(B, S, H, P, device=dev),
+                    torch.randn(B, H, N, P, device=dev))
+            got = bwd_twice(what, ops.ssd_scan, ins, cots)
+            want = grads_of(ref.ssd_scan, [t.float() for t in ins], cots)
+            keep("ssd_scan_bwd", gaps_within(
+                what, ("dxdt", "dla", "dB", "dC", "dstate0"), got, want,
+                SCAN_BWD_REL[dtype]))
+            n_ssd += 1
+    bf16 = torch.bfloat16
+    for rows, d in TRAIN_GATED_CASES:
+        what = f"parity-train gated_rmsnorm rows={rows} d={d} z bf16"
+        y = torch.randn(rows, d, device=dev)
+        z, g = (torch.randn(rows, d, device=dev).to(bf16) for _ in range(2))
+        scale = 1 + 0.1 * torch.randn(d, device=dev)
+        got = bwd_twice(what, ops.gated_rmsnorm, (y, z, scale), (g,))
+        want = grads_of(ref.gated_rmsnorm, (y, z.float(), scale),
+                        (g.float(),))
+        keep("rmsnorm_gated_bwd", gaps_within(
+            what, ("dy", "dz", "dscale"), got, want, TRAIN_NORM_TOL[bf16]))
+        del y, z, g, got, want
+    B, S, Hq, Hkv, D = TRAIN_FLASH_Z
+    what = f"parity-train flash_attention B={B} S={S} Hq={Hq} Hkv={Hkv} " \
+        f"D={D} causal bf16"
+    q, g = (torch.randn(B, S, Hq, D, device=dev).to(bf16) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
+            for _ in range(2))
+    fwd_err = check("flash_attention", what, ops.flash_attention(q, k, v),
+                    ref.flash_attention(q, k, v), bf16)
+    got = bwd_twice(what, ops.flash_attention, (q, k, v), (g,))
+    want = grads_of(ref.flash_attention, tuple(t.float() for t in (q, k, v)),
+                    (g.float(),))
+    keep("flash_attention_bwd", gaps_within(
+        what, ("dq", "dk", "dv"), got, want, TRAIN_FLASH_REL[bf16]))
+    del q, k, v, g, got, want
+    counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
+    n_gated = len(TRAIN_GATED_CASES)
+    want_counts = {
+        "rwkv6_scan": 2 * n_rwkv, "rwkv6_scan_tc": 2 * n_rwkv,
+        "rwkv6_scan_bwd": 2 * n_rwkv, "ssd_scan": 2 * n_ssd,
+        "ssd_scan_tc": n_ssd, "ssd_scan_bwd": 2 * n_ssd,
+        "rmsnorm": 2 * n_gated, "rmsnorm_gated": 2 * n_gated,
+        "rmsnorm_bwd": 2 * n_gated, "rmsnorm_gated_bwd": 2 * n_gated,
+        "flash_attention": 3, "flash_attention_tc": 3,
+        "flash_attention_bwd": 2, "flash_attention_bwd_tc": 2}
+    if counts != want_counts or any(c.plain for c in ops.COUNTS.values()):
+        raise AssertionError(f"parity-train (recurrent): launches {counts}; "
+                             f"want {want_counts}, no plain call")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parity-train: B4's backward at (B, S, H, K, V, planted) "
+        f"{TRAIN_RWKV_CASES} with a nonzero state, B5's at (B, S, H, P, N) "
+        f"{TRAIN_SSD_CASES}, r/k/v and B/C in bf16 and float32 (limits "
+        f"{ {str(k): v for k, v in SCAN_BWD_REL.items()} }: summation order "
+        f"for float32 inputs, one bf16 rounding of the gradient for bf16), "
+        f"the gated norm's at (rows, d) {TRAIN_GATED_CASES} with bf16 z "
+        f"(limit {TRAIN_NORM_TOL[bf16]}), B3 at head dim 112 "
+        f"{TRAIN_FLASH_Z} bf16 causal (zero-padded to 128 on the tensor "
+        f"cores: forward max abs {fwd_err:.3e}, limit "
+        f"{TOL['flash_attention'][bf16]}; backward limit "
+        f"{TRAIN_FLASH_REL[bf16]}), each against autograd through the "
+        f"plain version in float32: max |d| over max(1, max |autograd|) "
+        f"{rels}, max |d| {errs}; each backward run twice: the same bits; "
+        f"launches {counts} (each case's forward and backward twice, the "
+        f"forward once more alone for B3)")
+    errs["flash_attention"] = fwd_err
+    return errs
+
+
+def recurrent_launches_wanted(cfg, steps: int) -> dict:
+    """The kernels' launches in ``steps`` training steps of rwkv6 or zamba2
+    under remat full: each recomputed block's forward twice, its backward
+    once.  rwkv6: the wkv scan a layer (the tensor-core route at K = V =
+    64), nothing else (its norms are LayerNorms, plain in both packages).
+    zamba2: a Mamba layer's norm (the first alone, the rest fused with the
+    residual add), SSD scan (tensor cores: bf16 B/C, N = P = 64) and gated
+    norm; a segment's shared block (its two fused norms and B3 at D 112 on
+    the tensor cores, not recomputed); the final norm, fused."""
+    L = cfg.n_layers
+    if cfg.family != "hybrid":
+        return {"rwkv6_scan": 2 * L * steps, "rwkv6_scan_tc": 2 * L * steps,
+                "rwkv6_scan_bwd": L * steps}
+    seg = L // cfg.shared_attn_every
+    per_step = {
+        "ssd_scan": 2 * L, "ssd_scan_tc": 2 * L, "ssd_scan_bwd": L,
+        "rmsnorm": 4 * L + 2 * seg + 1,
+        "rmsnorm_add": 2 * (L - 1) + 2 * seg + 1,
+        "rmsnorm_gated": 2 * L,
+        "rmsnorm_bwd": 2 * L + 2 * seg + 1,
+        "rmsnorm_add_bwd": L - 1 + 2 * seg + 1,
+        "rmsnorm_gated_bwd": L,
+        "flash_attention": seg, "flash_attention_tc": seg,
+        "flash_attention_bwd": seg, "flash_attention_bwd_tc": seg}
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def grads_checksum(model, params, batch) -> list:
+    """The loss's bits and each gradient leaf's sum of its float32 bit
+    patterns (as int64) of one forward and backward: equal bits give
+    equal sums, and two whole gradients need not be held at once."""
+    from repro_torch.train.step import make_grads_fn
+    loss, _, grads = make_grads_fn(model)(params, batch)
+    out = [loss.reshape(1).view(torch.int32).item()]
+    for g in tree_leaves(grads):
+        out.append(g.view(torch.int32).sum(dtype=torch.int64).item())
+    del grads
+    return out
+
+
+def phase_main_train_recurrent(dev, label: str, cfg, with_shapes: bool):
+    """A recurrent family through ``Trainer`` at TRAIN_REC_B x TRAIN_S for
+    TRAIN_REC_STEPS steps, float32 params and AdamW moments, bf16 compute,
+    remat full, counts from 0.  Gates: every loss finite and the last below
+    the first; the launches :func:`recurrent_launches_wanted` names, no
+    other kernel, no plain version; two forward and backward passes from
+    the final state on one batch the same bits (:func:`grads_checksum`).
+    Prints the losses, a step's host-issued and profiled device ms by
+    kernel group, tokens/s and the peak beside the state's bytes.  With
+    ``with_shapes``, B2 and B3 held against their plain versions at every
+    shape the steps called them at, forward and backward."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    n = TRAIN_REC_STEPS
+    n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(
+        model.param_defs()))
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1, decay_steps=n)
+    task = SyntheticTask(cfg, batch=TRAIN_REC_B, seq_len=TRAIN_S)
+    tr = Trainer(model, opt, TrainerConfig(steps=n, log_every=n),
+                 make_data_iter(task, device=dev), device=dev, seed=0,
+                 log=log)
+    ops.reset_counts()
+    shapes = KernelShapes() if with_shapes else None
+    t0 = time.perf_counter()
+    try:
+        h = tr.fit()["history"]
+    finally:
+        if shapes is not None:
+            shapes.stop()
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in h]
+    log(f"[train] {cfg.name} ({cfg.n_layers} layers): loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} over {len(h)} steps; "
+        f"stragglers={tr.stragglers}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}")
+    want = recurrent_launches_wanted(cfg, n)
+    check_train_launches(label, counts, want)
+    host = float(np.median([m["step_time"] for m in h[2:]])) * 1e3
+    state = tr.final_state
+    batch = next(make_data_iter(task, device=dev, start_step=n))
+    sums = [grads_checksum(model, state["params"], batch) for _ in range(2)]
+    if sums[0] != sums[1]:
+        raise AssertionError(f"{label}: two passes from one state differ "
+                             f"(loss bits {sums[0][0]} / {sums[1][0]})")
+    split = train_step_split(model, opt, state, batch)
+    devt = split["device_ms"]
+    state_bytes = n_params * 16
+    per_step = {k: v // n for k, v in want.items()}
+    log(f"{label}: {cfg.name} {cfg.n_layers} layers d {cfg.d_model}, "
+        f"float32 weights and moments, {cfg.dtype} compute, remat "
+        f"{cfg.remat}, batch {TRAIN_REC_B} x {TRAIN_S}, {n} steps in "
+        f"{wall:.1f} s: losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(m['grad_norm'], 3) for m in h]}; a step host-issued "
+        f"{host:.1f} ms (median of steps 3-{n}), device {devt:.1f} ms (one "
+        f"step profiled: card idle {max(0.0, 1 - devt / host):.1%}), "
+        f"{TRAIN_REC_B * TRAIN_S / host * 1e3:.0f} tokens/s; "
+        f"max_memory_allocated={peak} B against the state's {n_params} "
+        f"params x 16 B = {state_bytes} B (float32 params, gradients, m, "
+        f"v); launches a step {per_step}, all of {counts}; two passes from "
+        f"the final state the same bits (loss and every gradient leaf's "
+        f"checksum); a step after them: {split_line(split)}")
+    del state, batch, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = shapes.parity(label, dev) if shapes is not None else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: counts[k][0] for k in want}, "host_ms": host,
+            "device_ms": devt, "peak": peak, "state_bytes": state_bytes,
+            "losses": losses, "split": split, "errs": errs}
+
+
+def scan_bwd_cost(kind: str, B, S, H, K, V, in_bytes) -> tuple[int, int]:
+    """(bytes, operations) of a scan's backward (``kind`` "rwkv6", or B5's
+    with P and N in place of K and V).  Bytes: the inputs read
+    once (r, k, v or B and C in their dtype; w, xdt, la, dy float32), the
+    gradients written once in their inputs' dtypes.  Operations a state
+    element and step: the state's step forward (2: the states are not
+    kept), and for B4 dr, dk, dv, dw (2 each) and G's step (2); for B5 S_t
+    (2), G += C dy (2), dC, dB, dxdt, dla (2 each) and G's decay (1)."""
+    if kind == "rwkv6":
+        elems = B * S * H
+        reads = elems * ((2 * K + V) * in_bytes + K * 4 + V * 4)
+        writes = elems * ((2 * K + V) * in_bytes + K * 4)
+        return reads + writes, elems * K * V * 12
+    nbytes = (2 * B * S * H * K * 4 + 2 * B * S * H * 4
+              + 4 * B * S * V * in_bytes + B * S * H * K * 4)
+    return nbytes, B * S * H * K * V * 15
+
+
+def phase_timing_train_recurrent(dev, smi: str) -> dict:
+    """timing-train's rows of the recurrent families: B4's backward at
+    main-train-rwkv's shape, B5's at main-train-zamba's, the gated norm's
+    at its (rows, d) and B3 at head dim 112 (main-train-zamba's shared
+    block: B 4, S 2048, 32/32 heads, bf16, causal) forward and backward.
+    Each kernel as device time of calls queued behind a spin, beside its
+    bound and its plain version (autograd for the backwards; a scan's plain
+    autograd on one batch row, timed by CUDA events around a host-paced
+    call: its graph over 2048 steps at 4 rows would hold 21 and 60 GB);
+    B3 also beside SDPA with the same mask and with ``is_causal``.  No
+    single PyTorch call computes a scan's or the gated norm's backward:
+    their library time is None.  Each scan's backward at these shapes is
+    also held against that plain autograd at SCAN_BWD_REL (bf16 inputs):
+    row 0 of the B 4 call (B4's dr, dk, dv, dw; B5's dxdt, dla and dB, dC,
+    which sum over every head of the row), and B4's du, a sum over the
+    batch rows, from a call on row 0 alone; raises past the limit and
+    returns the max abs gaps as ``max_abs_err``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import gated_rmsnorm_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    rng = np.random.default_rng(31)
+    torch.manual_seed(31)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def plain_autograd(fn, ins, cot):
+        """(ms, gradients) of the plain version's autograd."""
+        leaves = [t.detach().float().requires_grad_(True) for t in ins]
+        y = fn(*leaves)[0]
+        grads = []
+
+        def run():
+            grads[:] = torch.autograd.grad(y, leaves, cot, retain_graph=True)
+        ms = time_ms(run, iters=1, warmup=1)
+        del y, leaves
+        return ms, grads
+
+    def s2048_gap(what, names, got, want) -> float:
+        e, r = gaps_within(f"timing-train {what} (S {S}, against the plain "
+                           "autograd)", names, got, want, SCAN_BWD_REL[bf16])
+        log(f"timing-train {what}: {', '.join(names)} against the plain "
+            f"autograd at S {S}: max |d| {e:.3e}, max |d| over max(1, max "
+            f"|autograd|) {r:.3e} (limit {SCAN_BWD_REL[bf16]})")
+        return e
+
+    rcfg = get_config(TRAIN_RWKV_ARCH)
+    B, S, H, K = TRAIN_REC_B, TRAIN_S, rcfg.rwkv_heads, rcfg.rwkv_head_dim
+    r, k, v, w, u, _ = rwkv_case(rng, dev, bf16, B, S, H, K, K)
+    gy = torch.randn(B, S, H, K, device=dev)
+    ms = queued_ms(lambda: rwkv6_scan_bwd_cuda(r, k, v, w, u, None, gy),
+                   iters=3)
+    plain, want = plain_autograd(ref.rwkv6_scan,
+                                 (r[:1], k[:1], v[:1], w[:1], u), gy[:1])
+    got = rwkv6_scan_bwd_cuda(r, k, v, w, u, None, gy)
+    err = s2048_gap(f"rwkv6_scan_bwd B={B} H={H} K=V={K}, row 0",
+                    ("dr", "dk", "dv", "dw"), [g[:1] for g in got[:4]],
+                    want[:4])
+    got = rwkv6_scan_bwd_cuda(r[:1], k[:1], v[:1], w[:1], u, None, gy[:1])
+    err = max(err, s2048_gap(f"rwkv6_scan_bwd B=1 H={H} K=V={K}", ("du",),
+                             got[4:5], want[4:5]))
+    del got, want
+    cost = scan_bwd_cost("rwkv6", B, S, H, K, K, 2)
+    b, by = bound(*cost, "tf32")
+    f32_b, f32_by = bound(*cost, torch.float32)
+    out["rwkv6_scan_bwd"] = dict(
+        ms=ms, plain_ms=plain, plain_shape=[1, S, H, K, K], library_ms=None,
+        bound_ms=b, bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
+        shape=f"B={B} S={S} H={H} K=V={K} r/k/v bf16, no state", card=smi)
+    log(f"timing rwkv6_scan_bwd [B={B} S={S} H={H} K=V={K} r/k/v bf16; "
+        f"{smi}]: device kernel {ms:.4f} ms (two launches), plain "
+        f"(autograd, float32, B 1) {plain:.2f} ms, no single PyTorch call, "
+        f"bound {b:.4f} ms ({by}, operations at the TF32 peak; at the "
+        f"float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
+    del r, k, v, w, u, gy
+    zcfg = get_config(TRAIN_ZAMBA_ARCH)
+    H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
+    xdt, la, bm, cm, _ = ssd_case(rng, dev, bf16, B, S, H, P, N)
+    gy = torch.randn(B, S, H, P, device=dev)
+    ms = queued_ms(lambda: ssd_scan_bwd_cuda(xdt, la, bm, cm, None, gy),
+                   iters=3)
+    plain, want = plain_autograd(ref.ssd_scan,
+                                 (xdt[:1], la[:1], bm[:1], cm[:1]), gy[:1])
+    got = ssd_scan_bwd_cuda(xdt, la, bm, cm, None, gy)
+    err = s2048_gap(f"ssd_scan_bwd B={B} H={H} P={P} N={N}, row 0",
+                    ("dxdt", "dla", "dB", "dC"), [g[:1] for g in got[:4]],
+                    want)
+    del got, want
+    cost = scan_bwd_cost("ssd", B, S, H, P, N, 2)
+    b, by = bound(*cost, "tf32")
+    f32_b, f32_by = bound(*cost, torch.float32)
+    out["ssd_scan_bwd"] = dict(
+        ms=ms, plain_ms=plain, plain_shape=[1, S, H, P, N], library_ms=None,
+        bound_ms=b, bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
+        shape=f"B={B} S={S} H={H} P={P} N={N} B/C bf16, no state", card=smi)
+    log(f"timing ssd_scan_bwd [B={B} S={S} H={H} P={P} N={N} B/C bf16; "
+        f"{smi}]: device kernel {ms:.4f} ms (two launches), plain "
+        f"(autograd, float32, B 1) {plain:.2f} ms, no single PyTorch call, "
+        f"bound {b:.4f} ms ({by}, operations at the TF32 peak; at the "
+        f"float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
+    del xdt, la, bm, cm, gy
+    rows, d = TRAIN_GATED_CASES[0]
+    y = torch.randn(rows, d, device=dev)
+    z, g = (torch.randn(rows, d, device=dev).to(bf16) for _ in range(2))
+    scale = 1 + 0.1 * torch.randn(d, device=dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (y, z, scale)]
+    plain_out = ref.gated_rmsnorm(*leaves)
+    t = {"kernel": queued_ms(lambda: gated_rmsnorm_bwd_cuda(y, z, g, scale)),
+         "plain": queued_ms(lambda: torch.autograd.grad(
+             plain_out, leaves, g, retain_graph=True))}
+    # y (float32), z and dout read; dy (float32) and dz written; the scale
+    b, by = bound(rows * d * (4 + 2 + 2 + 4 + 2) + 2 * 4 * d, 20 * rows * d,
+                  bf16)
+    out["rmsnorm_gated_bwd"] = dict(
+        ms=t["kernel"], plain_ms=t["plain"], library_ms=None, bound_ms=b,
+        bound_by=by, shape=[rows, d, "z bf16, y float32, float32 scale"],
+        card=smi)
+    log(f"timing rmsnorm_gated_bwd [rows={rows} d={d}, y float32, z bf16, "
+        f"float32 scale; {smi}]: device kernel {t['kernel']:.4f} ms (two "
+        f"launches), plain (autograd, bf16 as the model runs it) "
+        f"{t['plain']:.4f} ms, no single PyTorch call, bound {b:.4f} ms "
+        f"({by})")
+    del y, z, g, scale, leaves, plain_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    Hq, Hkv, D = zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim
+    q = torch.randn(B, S, Hq, D, device=dev).to(bf16)
+    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16) for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = sdpa_mask(S, None, dev)
+    pairs = window_pairs(S, None)
+    b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                  4 * D * Hq * B * pairs, bf16)
+    t = {what: device_ms([fn]) for what, fn in (
+        ("kernel", lambda: ops.flash_attention(q, k, v)),
+        ("plain", lambda: ref.flash_attention(q, k, v)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        ("library_causal", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)))}
+    out["flash_attention_z"] = {
+        "shape": [B, S, S, Hq, Hkv, D, True, None], "ms": t["kernel"],
+        "plain_ms": t["plain"], "library_ms": t["library"],
+        "library_causal_ms": t["library_causal"], "bound_ms": b,
+        "bound_by": by, "cores": "tensor (D 112 zero-padded to 128)",
+        "card": smi}
+    log(f"timing flash_attention zamba2 [B={B} S={S} Hq={Hq} Hkv={Hkv} "
+        f"D={D} bf16 causal, tensor-core route at D 128 zero-padded; "
+        f"{smi}]: device kernel {t['kernel']:.4f} ms (the pads and the "
+        f"slice included), plain {t['plain']:.4f} ms, SDPA (same mask) "
+        f"{t['library']:.4f} ms, SDPA is_causal {t['library_causal']:.4f} "
+        f"ms, bound {b:.4f} ms ({by}, at D 112)")
+    del q, k, v, qt, kt, vt, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def teacher_forcing(model, params, prompts, toks):
     """(decode logits, prefill logits) of the last generated token: a
     prefill of the prompts, a decode step a token over ``toks[:, :-1]``,
@@ -5857,13 +6350,16 @@ def phase_timing_train(dev, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mcfg = get_config(MOE_ARCH)
+    zcfg = get_config(TRAIN_ZAMBA_ARCH)
     for label, (B, S, Hq, Hkv, D, window) in (
             ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
                        tcfg.head_dim, None)),
             ("gemma3", (1, 2048, gcfg.n_heads, gcfg.n_kv_heads,
                         gcfg.head_dim, gcfg.local_window)),
             ("train_moe", (TRAIN_MOE_B, TRAIN_S, mcfg.n_heads,
-                           mcfg.n_kv_heads, mcfg.head_dim, None))):
+                           mcfg.n_kv_heads, mcfg.head_dim, None)),
+            ("train_zamba", (TRAIN_REC_B, TRAIN_S, zcfg.n_heads,
+                             zcfg.n_kv_heads, zcfg.head_dim, None))):
         q, g = (torch.randn(B, S, Hq, D, device=dev).to(bf16)
                 for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
@@ -6001,6 +6497,14 @@ SOURCES = {
     "flash_attention_bwd": (
         "src/repro_torch/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:113 (its backward)"),
+    "rmsnorm_gated_bwd": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:38 (its backward, Mamba-2's gated "
+        "variant)"),
+    "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan.py:82 (its backward)"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:99 (its backward)"),
 }
 
 
@@ -6012,6 +6516,9 @@ DEVICE_KERNELS = {
     "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
                  "ssd_scan_kernel"],
     "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
+    "rmsnorm_gated_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
+    "rwkv6_scan_bwd": ["rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd_du_kernel"],
+    "ssd_scan_bwd": ["ssd_scan_bwd_kernel", "ssd_scan_bwd_bc_kernel"],
     "flash_attention": ["flash_attention_tc_kernel",
                         "flash_attention_kernel"],
     "flash_attention_bwd": ["fa_bwd_delta_kernel", "fa_bwd_dq_tc_kernel",
@@ -6060,7 +6567,9 @@ def main() -> int:
                  + ptxas_report("rmsnorm_bwd")
                  + ptxas_report("fa_bwd", "Li64E")
                  + ptxas_report("fa_bwd", "Li128E")
-                 + ptxas_report("fa_bwd", "Li256E")):
+                 + ptxas_report("fa_bwd", "Li256E")
+                 + ptxas_report("rwkv6_scan_bwd_kernel", "ILi64E")
+                 + ptxas_report("ssd_scan_bwd_kernel", "ILi64E")):
         log(f"ptxas {line}")
     lib = build.library()
     log("dynamic shared memory of the tensor-core routes: wkv launches 1 "
@@ -6076,6 +6585,8 @@ def main() -> int:
     errs["flash_attention"] = max(errs["flash_attention"],
                                   train_errs.pop("flash_attention"))
     errs.update(train_errs)
+    for name, e in phase_parity_train_recurrent(dev).items():
+        errs[name] = max(errs.get(name, 0.0), e)
     phase_small(dev)
     phase_small_rwkv(dev)
     phase_small_zamba(dev)
@@ -6198,6 +6709,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
     train = phase_main_train(dev)
+    # rwkv6 and zamba2 training on one card (ROADMAP A13b item 4)
+    t_rec = time.perf_counter()
+    train_rwkv = phase_main_train_recurrent(
+        dev, "main-train-rwkv", get_config(TRAIN_RWKV_ARCH), False)
+    train_zamba = phase_main_train_recurrent(
+        dev, "main-train-zamba", get_config(TRAIN_ZAMBA_ARCH).replace(
+            n_layers=TRAIN_ZAMBA_LAYERS), True)
+    t_rec = time.perf_counter() - t_rec
     t_mesh = time.perf_counter()
     train_mesh = phase_main_train_mesh(train)
     t_mesh = time.perf_counter() - t_mesh
@@ -6208,12 +6727,18 @@ def main() -> int:
     t_moe = time.perf_counter() - t_moe
     gemma = phase_main_gemma3(dev)
     train_times = phase_timing_train(dev, smi)
-    log(f"the training and gemma3 phases (main-train, main-train-mesh and "
-        f"pod-dp ({t_mesh:.1f} s), main-train-dots and main-train-moe "
-        f"({t_moe:.1f} s), main-gemma3, timing-train) took "
+    t_rec_timing = time.perf_counter()
+    rec_times = phase_timing_train_recurrent(dev, smi)
+    t_rec += time.perf_counter() - t_rec_timing
+    log(f"the training and gemma3 phases (main-train, main-train-rwkv and "
+        f"main-train-zamba with their timing rows ({t_rec:.1f} s), "
+        f"main-train-mesh and pod-dp ({t_mesh:.1f} s), main-train-dots and "
+        f"main-train-moe ({t_moe:.1f} s), main-gemma3, timing-train) took "
         f"{time.perf_counter() - t_new:.1f} s")
     # parity at the shapes the phases served and trained at
-    for r in (*mm.values(), train, train_moe, gemma):
+    for name in ("rwkv6_scan_bwd", "ssd_scan_bwd"):
+        errs[name] = max(errs[name], rec_times[name].pop("max_abs_err"))
+    for r in (*mm.values(), train, train_moe, gemma, train_zamba):
         for name, e in r["errs"].items():
             errs[name] = max(errs.get(name, 0.0), e)
     times["flash_attention"]["gemma3"] = {
@@ -6249,6 +6774,30 @@ def main() -> int:
         launches[name] = train["launches"][name]
     launches["flash_attention_bwd_tc"] = train["launches"][
         "flash_attention_bwd_tc"]
+    # the recurrent families' backward kernels: main-train-rwkv's and
+    # main-train-zamba's launches; B3 at zamba2's head dim 112 and the
+    # scans' forward launches in training beside them
+    for name, run in (("rwkv6_scan_bwd", train_rwkv),
+                      ("ssd_scan_bwd", train_zamba),
+                      ("rmsnorm_gated_bwd", train_zamba)):
+        times[name] = {**rec_times[name],
+                       "train_step_ms": run["host_ms"],
+                       "train_device_ms": run["device_ms"]}
+        launches[name] = run["launches"][name]
+    for name, run in (("rwkv6_scan", train_rwkv), ("ssd_scan", train_zamba)):
+        times[name]["train_launches"] = {
+            k: run["launches"][k] for k in (name, f"{name}_tc")}
+    times["flash_attention"]["zamba_d112"] = {
+        "timed": rec_times["flash_attention_z"],
+        "launches": {k: train_zamba["launches"][k] for k in (
+            "flash_attention", "flash_attention_tc")}}
+    times["flash_attention_bwd"]["zamba_d112"] = {
+        "timed": train_times["flash_attention_bwd"]["train_zamba"],
+        "launches": {k: train_zamba["launches"][k] for k in (
+            "flash_attention_bwd", "flash_attention_bwd_tc")}}
+    times["rmsnorm_bwd"]["train_zamba_launches"] = {
+        k: train_zamba["launches"][k] for k in (
+            "rmsnorm_bwd", "rmsnorm_add_bwd", "rmsnorm_gated_bwd")}
     times["rmsnorm_bwd"]["add_launches"] = train["launches"]["rmsnorm_add_bwd"]
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
@@ -6327,7 +6876,9 @@ def main() -> int:
                 "moe_launches", "shard_heads", "multimodal", "gemma3",
                 "train_launches", "add_launches", "library_causal_ms",
                 "offset", "train_mesh_launches", "train_moe_launches",
-                "cores", "with_lse_ms", "s2048_with_lse_ms") if k in t}})
+                "cores", "with_lse_ms", "s2048_with_lse_ms", "zamba_d112",
+                "train_zamba_launches", "train_step_ms", "train_device_ms",
+                "plain_shape", "card") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

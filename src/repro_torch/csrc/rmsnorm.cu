@@ -362,6 +362,13 @@ namespace {
 // (the reference trains through jnp, whose XLA backward is not a Pallas
 // kernel); it is B2's backward for training on the card.
 //
+// The gated variant (Mamba-2's output norm, v = T(T(y) * T(silu(z))))
+// recomputes v from y and z where the plain one reads it, takes dv as
+// above (rounded to T: the gradient of the T product), and passes it
+// through the gate in the same kernel: dy = T(dv * T(silu(z))) (float32,
+// y's dtype) and dz = T(T(dv * T(y)) * silu'(z)), the roundings of
+// autograd through the unfused T expression.
+//
 // Bound on this card: bytes, as the forward (a few flops an element).  One
 // warp a row: the row's two sums by shuffle, then dv, with no barrier.  The
 // scale's gradient is a sum over every row, which blocks cannot share
@@ -389,23 +396,31 @@ long long bwd_blocks(long long rows, int d) {
   return b < kBwdMaxBlocks ? b : kBwdMaxBlocks;
 }
 
-template <typename T, typename S>
+template <typename T, typename S, bool Gated>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32)
-rmsnorm_bwd_kernel(const T* __restrict__ v, const T* __restrict__ dy,
-                   const T* __restrict__ ds, const S* __restrict__ scale,
-                   T* __restrict__ dv, float* __restrict__ part,
+rmsnorm_bwd_kernel(const void* __restrict__ v_or_y, const T* __restrict__ z,
+                   const T* __restrict__ dy, const T* __restrict__ ds,
+                   const S* __restrict__ scale, void* __restrict__ dv_or_dy,
+                   T* __restrict__ dz, float* __restrict__ part,
                    long long rows, int d, float eps) {
   extern __shared__ float acc[];        // [warps][d]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   float* mine = acc + static_cast<size_t>(warp) * d;
+  // the norm's input: v, or the gated variant's T(T(y) * T(silu(z)))
+  auto input = [&](size_t e) -> float {
+    if constexpr (Gated)
+      return gate<T>(static_cast<const float*>(v_or_y)[e], to_f32<T>(z[e]));
+    else
+      return to_f32<T>(static_cast<const T*>(v_or_y)[e]);
+  };
   for (int j = lane; j < d; j += 32) mine[j] = 0.f;
   for (long long row = static_cast<long long>(blockIdx.x) * nw + warp;
        row < rows; row += static_cast<long long>(gridDim.x) * nw) {
     const size_t base = static_cast<size_t>(row) * d;
     float ss = 0.f, dot = 0.f;
     for (int j = lane; j < d; j += 32) {
-      const float x = to_f32<T>(v[base + j]);
+      const float x = input(base + j);
       ss += x * x;
       dot += to_f32<T>(dy[base + j]) * to_f32<S>(scale[j]) * x;
     }
@@ -414,11 +429,25 @@ rmsnorm_bwd_kernel(const T* __restrict__ v, const T* __restrict__ dy,
     const float r = rsqrtf(ss / d + eps);
     const float c = r * r * dot / d;
     for (int j = lane; j < d; j += 32) {
-      const float x = to_f32<T>(v[base + j]);
+      const float x = input(base + j);
       const float g = to_f32<T>(dy[base + j]);
       float out = r * (g * to_f32<S>(scale[j]) - x * c);
-      if (ds) out += to_f32<T>(ds[base + j]);
-      dv[base + j] = from_f32<T>(out);
+      if constexpr (Gated) {
+        // the gate's backward with the roundings of autograd through the
+        // unfused T expression: dg rounded to T, each product rounded to
+        // T, silu's backward in float32 rounded once
+        const float dg = round_to<T>(out);
+        const float zf = to_f32<T>(z[base + j]);
+        const float yf = static_cast<const float*>(v_or_y)[base + j];
+        const float sig = 1.f / (1.f + expf(-zf));
+        const float silu = round_to<T>(zf / (1.f + expf(-zf)));
+        static_cast<float*>(dv_or_dy)[base + j] = round_to<T>(dg * silu);
+        const float dsl = round_to<T>(dg * round_to<T>(yf));
+        dz[base + j] = from_f32<T>(dsl * sig * (1.f + zf * (1.f - sig)));
+      } else {
+        if (ds) out += to_f32<T>(ds[base + j]);
+        static_cast<T*>(dv_or_dy)[base + j] = from_f32<T>(out);
+      }
       mine[j] += g * x * r;
     }
   }
@@ -442,24 +471,47 @@ __global__ void rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
   dscale[j] = from_f32<S>(t);
 }
 
-template <typename T, typename S>
-cudaError_t launch_bwd(const void* v, const void* dy, const void* ds,
-                       const void* scale, void* dv, void* part, void* dscale,
-                       long long rows, int d, float eps, cudaStream_t stream) {
+template <typename T, typename S, bool Gated>
+cudaError_t launch_bwd(const void* v, const void* z, const void* dy,
+                       const void* ds, const void* scale, void* dv, void* dz,
+                       void* part, void* dscale, long long rows, int d,
+                       float eps, cudaStream_t stream) {
   const int w = bwd_warps(d);
   const long long blocks = bwd_blocks(rows, d);
-  rmsnorm_bwd_kernel<T, S><<<static_cast<unsigned>(blocks), w * 32,
-                             static_cast<size_t>(w) * d * sizeof(float),
-                             stream>>>(
-      static_cast<const T*>(v), static_cast<const T*>(dy),
-      static_cast<const T*>(ds), static_cast<const S*>(scale),
-      static_cast<T*>(dv), static_cast<float*>(part), rows, d, eps);
+  rmsnorm_bwd_kernel<T, S, Gated><<<static_cast<unsigned>(blocks), w * 32,
+                                    static_cast<size_t>(w) * d * sizeof(float),
+                                    stream>>>(
+      v, static_cast<const T*>(z), static_cast<const T*>(dy),
+      static_cast<const T*>(ds), static_cast<const S*>(scale), dv,
+      static_cast<T*>(dz), static_cast<float*>(part), rows, d, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   rmsnorm_bwd_reduce_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<S*>(dscale),
       static_cast<int>(blocks), d);
   return cudaGetLastError();
+}
+
+template <bool Gated>
+int dispatch_bwd(const void* v, const void* z, const void* dy,
+                 const void* ds, const void* scale, void* dv, void* dz,
+                 void* part, void* dscale, long long rows, int d, float eps,
+                 int x_dtype, int scale_dtype, cudaStream_t s) {
+  if (rows <= 0 || d <= 0 || bwd_blocks(rows, d) == 0)
+    return cudaErrorInvalidValue;
+  if (x_dtype == kFloat32 && scale_dtype == kFloat32)
+    return launch_bwd<float, float, Gated>(v, z, dy, ds, scale, dv, dz, part,
+                                           dscale, rows, d, eps, s);
+  if (x_dtype == kFloat32 && scale_dtype == kBFloat16)
+    return launch_bwd<float, __nv_bfloat16, Gated>(
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+  if (x_dtype == kBFloat16 && scale_dtype == kFloat32)
+    return launch_bwd<__nv_bfloat16, float, Gated>(
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+  if (x_dtype == kBFloat16 && scale_dtype == kBFloat16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16, Gated>(
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -480,23 +532,24 @@ extern "C" int rmsnorm_bwd_launch(const void* v, const void* dy,
                                   void* part, void* dscale, long long rows,
                                   int d, float eps, int x_dtype,
                                   int scale_dtype, void* stream) {
-  if (rows <= 0 || d <= 0 || bwd_blocks(rows, d) == 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kFloat32 && scale_dtype == kFloat32)
-    return launch_bwd<float, float>(v, dy, ds, scale, dv, part, dscale, rows,
-                                    d, eps, s);
-  if (x_dtype == kFloat32 && scale_dtype == kBFloat16)
-    return launch_bwd<float, __nv_bfloat16>(v, dy, ds, scale, dv, part,
-                                            dscale, rows, d, eps, s);
-  if (x_dtype == kBFloat16 && scale_dtype == kFloat32)
-    return launch_bwd<__nv_bfloat16, float>(v, dy, ds, scale, dv, part,
-                                            dscale, rows, d, eps, s);
-  if (x_dtype == kBFloat16 && scale_dtype == kBFloat16)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(v, dy, ds, scale, dv,
-                                                    part, dscale, rows, d,
-                                                    eps, s);
-  return cudaErrorInvalidValue;
+  return dispatch_bwd<false>(v, nullptr, dy, ds, scale, dv, nullptr, part,
+                             dscale, rows, d, eps, x_dtype, scale_dtype,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The gated norm's backward over rows x d: y (float32) and z (z_dtype) the
+// forward's inputs, dout the output's gradient (z_dtype); dy (float32, its
+// values exact in z_dtype) and dz (z_dtype) and dscale (scale_dtype)
+// written; part as for rmsnorm_bwd_launch.
+extern "C" int gated_rmsnorm_bwd_launch(const void* y, const void* z,
+                                        const void* dout, const void* scale,
+                                        void* dy, void* dz, void* part,
+                                        void* dscale, long long rows, int d,
+                                        float eps, int z_dtype,
+                                        int scale_dtype, void* stream) {
+  return dispatch_bwd<true>(y, z, dout, nullptr, scale, dy, dz, part, dscale,
+                            rows, d, eps, z_dtype, scale_dtype,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* kernel_error_string(int err) {

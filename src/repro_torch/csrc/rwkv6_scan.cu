@@ -701,3 +701,318 @@ extern "C" int rwkv6_scan_tc_smem(int launch) {
   return launch == 1 ? static_cast<int>(kStateSmem)
                      : launch == 3 ? static_cast<int>(kOutSmem) : 0;
 }
+
+namespace {
+
+// -- backward ---------------------------------------------------------------
+//
+// The gradients of the recurrence from y's gradient dy (and, where the final
+// state feeds on, its gradient dsT; null: zero).  With G_t the gradient
+// that reaches S_t (G_T = dsT), walking t from the last step down:
+//     dr_t = (S_{t-1} + (u o k_t) v_t^T) dy_t
+//     dk_t = u o r_t (v_t . dy_t) + G_t v_t
+//     dv_t = (r_t . (u o k_t)) dy_t + G_t^T k_t
+//     dw_t = rowsum(G_t o S_{t-1})
+//     du  += r_t o k_t (v_t . dy_t)
+//     G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   dstate0 = G_{-1}.
+// Replaces no TPU kernel (the reference trains through jnp, whose XLA
+// backward is not a Pallas kernel, and no Pallas kernel has a VJP); it is
+// B4's backward for training on the card.
+//
+// Design.  Every element of S (and of G) evolves on its own: row i decays
+// by w_t[i], column j takes v_t[j].  So one block per (batch, head) holds
+// the whole state, a thread a row segment of 16 columns (row i, columns
+// 16q .. 16q + 15, the NQ segments of a row in neighbouring lanes): dr, dk,
+// dw and du are sums along a row (the thread's 16 terms, then NQ lanes by
+// shuffles), dv a sum down a column (8 / NQ rows a warp by shuffles, then
+// the warps' partials through shared memory, summed in warp order).
+// S_{t-1} is never recovered by dividing by w_t (w reaches exact zeros at
+// the full-width decay range): the block first runs the recurrence forward
+// and keeps the state at the start of every chunk of kBwdChunk steps in a
+// float32 workspace (B H ceil(S / kBwdChunk) K V); walking back, it reloads
+// a chunk's entry state, recomputes forward to the start of each sub-chunk
+// of kBwdSub steps and holds that sub-chunk's kBwdSub entry states in
+// registers.  That costs 2.5 forward steps a step, on CUDA cores in
+// float32.  du sums over batch rows: each block writes its own partial, a
+// second kernel sums them in batch order; no float atomics anywhere, so
+// two runs give the same bits.
+//
+// Bound on this card: a K x V state element takes about 10 flops a step
+// (4 products forward and back, the recompute aside), so at the rwkv6-3b
+// training shape (B 4, S 2048, H 40, K = V = 64) 13.4 GFLOP, 0.2 ms at the
+// 67 TFLOP/s float32 CUDA-core peak, against 55 MB of inputs and gradients
+// (0.016 ms): operations.  A simple kernel that is right first: 160 blocks
+// walking 2048 dependent steps each leave most of the card idle; the
+// chunked tensor-core form of the forward is the later design (ROADMAP
+// Queue B).
+
+constexpr int kBwdCols = 16;    // value columns a thread holds
+constexpr int kBwdChunk = 32;   // steps staged at once; stored-state interval
+constexpr int kBwdSub = 8;      // entry states a thread keeps in registers
+// column segments a row: 64 columns, zeros past V (one build serves every
+// V <= 64)
+constexpr int kBwdSegs = 4;
+
+template <int K, typename T>
+__global__ void __launch_bounds__((K > 32 / kBwdSegs ? K : 32 / kBwdSegs) *
+                                  kBwdSegs)
+rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ w,
+                      const float* __restrict__ u,
+                      const float* __restrict__ state0,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ dsT, float* __restrict__ dr,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      float* __restrict__ dw, float* __restrict__ du_part,
+                      float* __restrict__ ds0, float* __restrict__ ws, int S,
+                      int H, int V) {
+  constexpr int NQ = kBwdSegs;
+  constexpr int R = K > 32 / NQ ? K : 32 / NQ;   // rows, dummies past K
+  constexpr int VP = NQ * kBwdCols;              // columns, zeros past V
+  constexpr int NT = R * NQ;
+  constexpr int NW = NT / 32;
+  __shared__ float r_s[kBwdChunk][K];
+  __shared__ float k_s[kBwdChunk][K];
+  __shared__ float w_s[kBwdChunk][K];
+  __shared__ float v_s[kBwdChunk][VP];
+  __shared__ float dy_s[kBwdChunk][VP];
+  __shared__ float bonus_s[kBwdChunk];   // r_t . (u o k_t)
+  __shared__ float vdy_s[kBwdChunk];     // v_t . dy_t
+  __shared__ float u_s[K];
+  __shared__ float dvp[2][NW][VP];       // each warp's dv partial, two steps
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int i = tid / NQ, q = tid - i * NQ;      // row, column segment
+  const int j0 = q * kBwdCols;
+  const bool row_ok = i < K;
+  const int nc = (S + kBwdChunk - 1) / kBwdChunk;
+  const size_t st_off = static_cast<size_t>(bh) * K * V;
+  float* wsb = ws + static_cast<size_t>(bh) * nc * K * V;
+
+  for (int e = tid; e < K; e += NT) u_s[e] = u[h * K + e];
+
+  // stage chunk c's inputs as float32 (v and dy zero past V), then each
+  // step's two scalars
+  auto stage = [&](int c, bool grads) {
+    const int t0 = c * kBwdChunk;
+    const int n = min(kBwdChunk, S - t0);
+    __syncthreads();                     // the previous chunk is consumed
+    for (int e = tid; e < n * K; e += NT) {
+      const int t = e / K, ii = e - t * K;
+      const size_t g = ((static_cast<size_t>(b) * S + t0 + t) * H + h) * K + ii;
+      r_s[t][ii] = to_f32<T>(r[g]);
+      k_s[t][ii] = to_f32<T>(k[g]);
+      w_s[t][ii] = w[g];
+    }
+    for (int e = tid; e < n * VP; e += NT) {
+      const int t = e / VP, jj = e - t * VP;
+      const size_t g = ((static_cast<size_t>(b) * S + t0 + t) * H + h) * V + jj;
+      v_s[t][jj] = jj < V ? to_f32<T>(v[g]) : 0.f;
+      dy_s[t][jj] = grads && jj < V ? dy[g] : 0.f;
+    }
+    __syncthreads();
+    if (grads) {
+      for (int t = tid; t < n; t += NT) {
+        float a = 0.f, c2 = 0.f;
+        for (int ii = 0; ii < K; ++ii) a = fmaf(r_s[t][ii], u_s[ii] * k_s[t][ii], a);
+        for (int jj = 0; jj < VP; ++jj) c2 = fmaf(v_s[t][jj], dy_s[t][jj], c2);
+        bonus_s[t] = a;
+        vdy_s[t] = c2;
+      }
+      __syncthreads();
+    }
+    return n;
+  };
+  // one forward step of this thread's row segment
+  auto advance = [&](float* st, int t) {
+    const float wi = row_ok ? w_s[t][i] : 1.f;
+    const float ki = row_ok ? k_s[t][i] : 0.f;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e)
+      st[e] = fmaf(wi, st[e], ki * v_s[t][j0 + e]);
+  };
+  auto ws_at = [&](int c, int e) -> float* {
+    return wsb + (static_cast<size_t>(c) * K + i) * V + j0 + e;
+  };
+
+  // 1. forward: each chunk's entry state into the workspace
+  float st[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e)
+    st[e] = state0 && row_ok && j0 + e < V
+                ? state0[st_off + static_cast<size_t>(i) * V + j0 + e] : 0.f;
+  for (int c = 0; c < nc; ++c) {
+    if (row_ok) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        if (j0 + e < V) *ws_at(c, e) = st[e];
+    }
+    if (c + 1 == nc) break;              // the last chunk's steps: unused
+    const int n = stage(c, false);
+    for (int t = 0; t < n; ++t) advance(st, t);
+  }
+
+  // 2. backward, chunk by chunk from the last
+  float G[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e)
+    G[e] = dsT && row_ok && j0 + e < V
+               ? dsT[st_off + static_cast<size_t>(i) * V + j0 + e] : 0.f;
+  const float ui = row_ok ? u_s[i] : 0.f;
+  float du_acc = 0.f;
+  int buf = 0;
+  for (int c = nc - 1; c >= 0; --c) {
+    const int n = stage(c, true);
+    const int t0 = c * kBwdChunk;
+    for (int s0 = ((n - 1) / kBwdSub) * kBwdSub; s0 >= 0; s0 -= kBwdSub) {
+      // the entry states of steps s0 .. s0 + kBwdSub - 1 of the chunk
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        st[e] = row_ok && j0 + e < V ? *ws_at(c, e) : 0.f;
+      for (int t = 0; t < s0; ++t) advance(st, t);
+      float sb[kBwdSub][kBwdCols];
+#pragma unroll
+      for (int a = 0; a < kBwdSub; ++a) {
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) sb[a][e] = st[e];
+        if (s0 + a < n) advance(st, s0 + a);
+      }
+#pragma unroll
+      for (int a = kBwdSub - 1; a >= 0; --a) {
+        const int tl = s0 + a;
+        if (tl >= n) continue;           // uniform across the block
+        const float ri = row_ok ? r_s[tl][i] : 0.f;
+        const float ki = row_ok ? k_s[tl][i] : 0.f;
+        const float wi = row_ok ? w_s[tl][i] : 1.f;
+        float pr = 0.f, pk = 0.f, pw = 0.f, pv[kBwdCols];
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) {
+          const float vj = v_s[tl][j0 + e], gj = dy_s[tl][j0 + e];
+          const float g = G[e];
+          pr = fmaf(sb[a][e], gj, pr);
+          pk = fmaf(g, vj, pk);
+          pw = fmaf(g, sb[a][e], pw);
+          pv[e] = g * ki;
+          G[e] = fmaf(wi, g, ri * gj);
+        }
+#pragma unroll
+        for (int o = 1; o < NQ; o <<= 1) {
+          pr += __shfl_xor_sync(0xffffffffu, pr, o);
+          pk += __shfl_xor_sync(0xffffffffu, pk, o);
+          pw += __shfl_xor_sync(0xffffffffu, pw, o);
+        }
+        const size_t g = ((static_cast<size_t>(b) * S + t0 + tl) * H + h);
+        if (q == 0 && row_ok) {
+          const float vdy = vdy_s[tl];
+          dr[g * K + i] = fmaf(ui * ki, vdy, pr);
+          dk[g * K + i] = fmaf(ui * ri, vdy, pk);
+          dw[g * K + i] = pw;
+          du_acc = fmaf(ri * ki, vdy, du_acc);
+        }
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) {
+#pragma unroll
+          for (int o = NQ; o < 32; o <<= 1)
+            pv[e] += __shfl_xor_sync(0xffffffffu, pv[e], o);
+        }
+        if (lane < NQ) {
+#pragma unroll
+          for (int e = 0; e < kBwdCols; ++e) dvp[buf][warp][j0 + e] = pv[e];
+        }
+        __syncthreads();
+        for (int jj = tid; jj < V; jj += NT) {
+          float acc = bonus_s[tl] * dy_s[tl][jj];
+          for (int x = 0; x < NW; ++x) acc += dvp[buf][x][jj];
+          dv[g * V + jj] = acc;
+        }
+        buf ^= 1;                        // the next step writes the other
+      }
+    }
+  }
+  if (row_ok) {
+    if (ds0) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        if (j0 + e < V) ds0[st_off + static_cast<size_t>(i) * V + j0 + e] = G[e];
+    }
+    if (q == 0) du_part[static_cast<size_t>(bh) * K + i] = du_acc;
+  }
+}
+
+// du[h][i] = the batch rows' partials, summed in batch order
+__global__ void rwkv6_scan_bwd_du_kernel(const float* __restrict__ du_part,
+                                         float* __restrict__ du, int B,
+                                         int HK) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= HK) return;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) acc += du_part[static_cast<size_t>(b) * HK + e];
+  du[e] = acc;
+}
+
+struct BwdArgs {
+  const void *r, *k, *v;
+  const float *w, *u, *state0, *dy, *dsT;
+  float *dr, *dk, *dv, *dw, *du_part, *du, *ds0, *ws;
+  int B, S, H, V;
+};
+
+template <int K, typename T>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int R = K > 32 / kBwdSegs ? K : 32 / kBwdSegs;
+  rwkv6_scan_bwd_kernel<K, T><<<a.B * a.H, R * kBwdSegs, 0, stream>>>(
+      static_cast<const T*>(a.r), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.w, a.u, a.state0, a.dy, a.dsT, a.dr,
+      a.dk, a.dv, a.dw, a.du_part, a.ds0, a.ws, a.S, a.H, a.V);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int HK = a.H * K;
+  rwkv6_scan_bwd_du_kernel<<<(HK + 255) / 256, 256, 0, stream>>>(
+      a.du_part, a.du, a.B, HK);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_dispatch_k(const BwdArgs& a, int K, cudaStream_t s) {
+  switch (K) {
+    case 8: return launch_bwd<8, T>(a, s);
+    case 16: return launch_bwd<16, T>(a, s);
+    case 32: return launch_bwd<32, T>(a, s);
+    case 64: return launch_bwd<64, T>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// B4's backward: r, k, v (r/k/v dtype), w, u, state0 (null: zeros), dy,
+// dsT (null: zero) float32 in; dr, dk, dw (B, S, H, K), dv (B, S, H, V),
+// du (H, K), ds0 (B, H, K, V; null: not wanted) float32 out; du_part
+// float32 B x H x K and ws float32 B x H x ceil(S / 32) x K x V (each
+// chunk's entry state) as workspace.  K one of 8, 16, 32, 64; 1 <= V <= 64; S >= 1.
+extern "C" int rwkv6_scan_bwd_launch(
+    const void* r, const void* k, const void* v, const void* w,
+    const void* u, const void* state0, const void* dy, const void* dsT,
+    void* dr, void* dk, void* dv, void* dw, void* du_part, void* du,
+    void* ds0, void* ws, int B, int S, int H, int K, int V, int rkv_dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || V <= 0 || V > 64 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const BwdArgs a{r, k, v,
+                  static_cast<const float*>(w), static_cast<const float*>(u),
+                  static_cast<const float*>(state0),
+                  static_cast<const float*>(dy),
+                  static_cast<const float*>(dsT), static_cast<float*>(dr),
+                  static_cast<float*>(dk), static_cast<float*>(dv),
+                  static_cast<float*>(dw), static_cast<float*>(du_part),
+                  static_cast<float*>(du), static_cast<float*>(ds0),
+                  static_cast<float*>(ws), B, S, H, V};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rkv_dtype == kFloat32) return bwd_dispatch_k<float>(a, K, s);
+  if (rkv_dtype == kBFloat16) return bwd_dispatch_k<__nv_bfloat16>(a, K, s);
+  return cudaErrorInvalidValue;
+}

@@ -861,3 +861,312 @@ extern "C" int ssd_scan_tc_smem(int launch) {
   return launch == 1 ? static_cast<int>(kTStateSmem)
                      : launch == 2 ? static_cast<int>(kTOutSmem) : 0;
 }
+
+namespace {
+
+// -- backward ---------------------------------------------------------------
+//
+// The gradients of the scan from y's gradient dy (and the final state's,
+// dsT; null: zero).  y_t reads S_t, so with G_t the gradient that reaches
+// S_t, walking t from the last step down:
+//     G_t += C_t dy_t^T
+//     dxdt_t = G_t^T B_t          dB_t = G_t xdt_t (summed over heads)
+//     dC_t = S_t dy_t (summed over heads)
+//     dla_t = a_t sum(G_t o S_{t-1})
+//     G_{t-1} = a_t G_t,          dstate0 = G_{-1}.
+// Replaces no TPU kernel (the reference trains through jnp, and no Pallas
+// kernel has a VJP); it is B5's backward for training on the card.
+//
+// Design, as B4's backward (csrc/rwkv6_scan.cu): one block per (batch,
+// head) holds the N x P state, a thread a row segment of 16 columns; dB
+// and dC are sums along a row (16 terms, then NQ lanes), dxdt a sum down a
+// column (shuffles over a warp's rows, then the warps' partials through
+// shared memory in warp order), dla a sum over both.  S_{t-1} comes from
+// the chunk entry states the block stores on a forward pass (a float32
+// workspace of B H ceil(S / 32) N P), recomputed forward to each
+// sub-chunk of 8 steps, whose entry states stay in registers; S_t is one
+// more step from S_{t-1}.  B and C are one group shared by the heads, so
+// their gradients sum over H: each block writes its head's terms into a
+// float32 workspace (B S H N, one for each), a second kernel sums them in
+// head order.  No float atomics: two runs give the same bits.
+//
+// Bound on this card: about 12 flops a state element and step (the
+// recompute aside), so at the zamba2-7b training shape (B 4, S 2048, H
+// 112, N = P = 64) 45 GFLOP, 0.67 ms at the 67 TFLOP/s float32 CUDA-core
+// peak, against 0.35 GB of inputs and gradients (0.1 ms): operations.  A
+// simple kernel that is right first, on CUDA cores; the chunked
+// tensor-core form of the forward is the later design (ROADMAP Queue B).
+
+constexpr int kBwdCols = 16;    // state columns a thread holds
+constexpr int kBwdChunk = 32;   // steps staged at once; stored-state interval
+constexpr int kBwdSub = 8;      // entry states a thread keeps in registers
+// column segments a row: 64 columns, zeros past P (one build serves every
+// P <= 64)
+constexpr int kBwdSegs = 4;
+
+template <int N>
+__global__ void __launch_bounds__((N > 32 / kBwdSegs ? N : 32 / kBwdSegs) *
+                                  kBwdSegs)
+ssd_scan_bwd_kernel(const float* __restrict__ xdt,
+                    const float* __restrict__ la,
+                    const void* __restrict__ bm, const void* __restrict__ cm,
+                    int bc_bf16, const float* __restrict__ state0,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ dsT, float* __restrict__ dxdt,
+                    float* __restrict__ dla, float* __restrict__ db_part,
+                    float* __restrict__ dc_part, float* __restrict__ ds0,
+                    float* __restrict__ ws, int S, int H, int P) {
+  constexpr int NQ = kBwdSegs;
+  constexpr int R = N > 32 / NQ ? N : 32 / NQ;   // rows, dummies past N
+  constexpr int PP = NQ * kBwdCols;              // columns, zeros past P
+  constexpr int NT = R * NQ;
+  constexpr int NW = NT / 32;
+  __shared__ float x_s[kBwdChunk][PP];
+  __shared__ float dy_s[kBwdChunk][PP];
+  __shared__ float b_s[kBwdChunk][N];
+  __shared__ float c_s[kBwdChunk][N];
+  __shared__ float a_s[kBwdChunk];
+  __shared__ float dxp[2][NW][PP];       // each warp's dxdt partial
+  __shared__ float dlp[2][NW];           // ... and its dla partial
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = tid / NQ, q = tid - n * NQ;      // row, column segment
+  const int j0 = q * kBwdCols;
+  const bool row_ok = n < N;
+  const int nc = (S + kBwdChunk - 1) / kBwdChunk;
+  const size_t st_off = static_cast<size_t>(bh) * N * P;
+  float* wsb = ws + static_cast<size_t>(bh) * nc * N * P;
+
+  auto stage = [&](int c, bool grads) {
+    const int t0 = c * kBwdChunk;
+    const int m = min(kBwdChunk, S - t0);
+    __syncthreads();                     // the previous chunk is consumed
+    for (int e = tid; e < m * PP; e += NT) {
+      const int t = e / PP, jj = e - t * PP;
+      const size_t g = ((static_cast<size_t>(b) * S + t0 + t) * H + h) * P + jj;
+      x_s[t][jj] = jj < P ? xdt[g] : 0.f;
+      dy_s[t][jj] = grads && jj < P ? dy[g] : 0.f;
+    }
+    for (int e = tid; e < m * N; e += NT) {
+      const int t = e / N, nn = e - t * N;
+      const size_t g = (static_cast<size_t>(b) * S + t0 + t) * N + nn;
+      if (bc_bf16) {
+        b_s[t][nn] = to_f32(static_cast<const __nv_bfloat16*>(bm)[g]);
+        c_s[t][nn] = to_f32(static_cast<const __nv_bfloat16*>(cm)[g]);
+      } else {
+        b_s[t][nn] = static_cast<const float*>(bm)[g];
+        c_s[t][nn] = static_cast<const float*>(cm)[g];
+      }
+    }
+    for (int t = tid; t < m; t += NT)
+      a_s[t] = expf(la[(static_cast<size_t>(b) * S + t0 + t) * H + h]);
+    __syncthreads();
+    return m;
+  };
+  auto advance = [&](float* st, int t) {
+    const float a = a_s[t];
+    const float bn = row_ok ? b_s[t][n] : 0.f;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e)
+      st[e] = fmaf(a, st[e], bn * x_s[t][j0 + e]);
+  };
+  auto ws_at = [&](int c, int e) -> float* {
+    return wsb + (static_cast<size_t>(c) * N + n) * P + j0 + e;
+  };
+
+  // 1. forward: each chunk's entry state into the workspace
+  float st[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e)
+    st[e] = state0 && row_ok && j0 + e < P
+                ? state0[st_off + static_cast<size_t>(n) * P + j0 + e] : 0.f;
+  for (int c = 0; c < nc; ++c) {
+    if (row_ok) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        if (j0 + e < P) *ws_at(c, e) = st[e];
+    }
+    if (c + 1 == nc) break;
+    const int m = stage(c, false);
+    for (int t = 0; t < m; ++t) advance(st, t);
+  }
+
+  // 2. backward, chunk by chunk from the last
+  float G[kBwdCols];
+#pragma unroll
+  for (int e = 0; e < kBwdCols; ++e)
+    G[e] = dsT && row_ok && j0 + e < P
+               ? dsT[st_off + static_cast<size_t>(n) * P + j0 + e] : 0.f;
+  int buf = 0;
+  for (int c = nc - 1; c >= 0; --c) {
+    const int m = stage(c, true);
+    const int t0 = c * kBwdChunk;
+    for (int s0 = ((m - 1) / kBwdSub) * kBwdSub; s0 >= 0; s0 -= kBwdSub) {
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        st[e] = row_ok && j0 + e < P ? *ws_at(c, e) : 0.f;
+      for (int t = 0; t < s0; ++t) advance(st, t);
+      float sb[kBwdSub][kBwdCols];
+#pragma unroll
+      for (int a = 0; a < kBwdSub; ++a) {
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) sb[a][e] = st[e];
+        if (s0 + a < m) advance(st, s0 + a);
+      }
+#pragma unroll
+      for (int a = kBwdSub - 1; a >= 0; --a) {
+        const int tl = s0 + a;
+        if (tl >= m) continue;           // uniform across the block
+        const float at = a_s[tl];
+        const float bn = row_ok ? b_s[tl][n] : 0.f;
+        const float cn = row_ok ? c_s[tl][n] : 0.f;
+        float pc = 0.f, pb = 0.f, pl = 0.f, px[kBwdCols];
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) {
+          const float xj = x_s[tl][j0 + e], gj = dy_s[tl][j0 + e];
+          const float cur = fmaf(at, sb[a][e], bn * xj);      // S_t
+          const float g = fmaf(cn, gj, G[e]);                 // G_t
+          pc = fmaf(cur, gj, pc);
+          pb = fmaf(g, xj, pb);
+          pl = fmaf(g, sb[a][e], pl);
+          px[e] = g * bn;
+          G[e] = at * g;
+        }
+#pragma unroll
+        for (int o = 1; o < NQ; o <<= 1) {
+          pc += __shfl_xor_sync(0xffffffffu, pc, o);
+          pb += __shfl_xor_sync(0xffffffffu, pb, o);
+          pl += __shfl_xor_sync(0xffffffffu, pl, o);
+        }
+        const size_t g = (static_cast<size_t>(b) * S + t0 + tl) * H + h;
+        if (q == 0 && row_ok) {
+          dc_part[g * N + n] = pc;
+          db_part[g * N + n] = pb;
+        }
+#pragma unroll
+        for (int o = NQ; o < 32; o <<= 1) {
+#pragma unroll
+          for (int e = 0; e < kBwdCols; ++e)
+            px[e] += __shfl_xor_sync(0xffffffffu, px[e], o);
+          pl += __shfl_xor_sync(0xffffffffu, pl, o);
+        }
+        if (lane < NQ) {
+#pragma unroll
+          for (int e = 0; e < kBwdCols; ++e) dxp[buf][warp][j0 + e] = px[e];
+        }
+        if (lane == 0) dlp[buf][warp] = pl;
+        __syncthreads();
+        for (int jj = tid; jj < P; jj += NT) {
+          float acc = 0.f;
+          for (int x = 0; x < NW; ++x) acc += dxp[buf][x][jj];
+          dxdt[g * P + jj] = acc;
+        }
+        if (tid == 0) {
+          float acc = 0.f;
+          for (int x = 0; x < NW; ++x) acc += dlp[buf][x];
+          dla[g] = at * acc;
+        }
+        buf ^= 1;
+      }
+    }
+  }
+  if (ds0 && row_ok) {
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e)
+      if (j0 + e < P) ds0[st_off + static_cast<size_t>(n) * P + j0 + e] = G[e];
+  }
+}
+
+// dB and dC: the heads' terms summed in head order, rounded to the dtype
+// of B and C
+template <typename T>
+__global__ void ssd_scan_bwd_bc_kernel(const float* __restrict__ db_part,
+                                       const float* __restrict__ dc_part,
+                                       T* __restrict__ db, T* __restrict__ dc,
+                                       long long rows, int H, int N) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= rows * N) return;
+  const long long row = e / N;
+  const int nn = static_cast<int>(e - row * N);
+  const size_t base = static_cast<size_t>(row) * H * N + nn;
+  float sb = 0.f, sc = 0.f;
+  for (int h = 0; h < H; ++h) {
+    sb += db_part[base + static_cast<size_t>(h) * N];
+    sc += dc_part[base + static_cast<size_t>(h) * N];
+  }
+  db[e] = from_f32<T>(sb);
+  dc[e] = from_f32<T>(sc);
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* xdt, const float* la, const void* bm,
+                       const void* cm, int bc_bf16, const float* state0,
+                       const float* dy, const float* dsT, float* dxdt,
+                       float* dla, float* db_part, float* dc_part, float* ds0,
+                       float* ws, int B, int S, int H, int P,
+                       cudaStream_t stream) {
+  constexpr int R = N > 32 / kBwdSegs ? N : 32 / kBwdSegs;
+  ssd_scan_bwd_kernel<N><<<B * H, R * kBwdSegs, 0, stream>>>(
+      xdt, la, bm, cm, bc_bf16, state0, dy, dsT, dxdt, dla, db_part, dc_part,
+      ds0, ws, S, H, P);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// B5's backward: xdt, la, Bm/Cm (bc dtype), state0 (null: zeros), dy, dsT
+// (null: zero) in; dxdt (B, S, H, P), dla (B, S, H), ds0 (B, H, N, P;
+// null: not wanted) float32 and dB, dC (B, S, N, bc dtype) out; db_part
+// and dc_part float32 B S H N and ws float32 B H ceil(S / 32) N P (each
+// chunk's entry state) as workspace.  N one of 4, 8, 16, 32, 64; 1 <= P <= 64.
+extern "C" int ssd_scan_bwd_launch(
+    const void* xdt, const void* la, const void* bm, const void* cm,
+    const void* state0, const void* dy, const void* dsT, void* dxdt,
+    void* dla, void* db, void* dc, void* ds0, void* db_part, void* dc_part,
+    void* ws, int B, int S, int H, int N, int P, int bc_dtype,
+    void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || P <= 0 || P > 64 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL ||
+      (bc_dtype != kFloat32 && bc_dtype != kBFloat16))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(xdt);
+  const float* lf = static_cast<const float*>(la);
+  const float* s0 = static_cast<const float*>(state0);
+  const float* dyf = static_cast<const float*>(dy);
+  const float* dsf = static_cast<const float*>(dsT);
+  float* dxf = static_cast<float*>(dxdt);
+  float* dlf = static_cast<float*>(dla);
+  float* dbp = static_cast<float*>(db_part);
+  float* dcp = static_cast<float*>(dc_part);
+  float* d0 = static_cast<float*>(ds0);
+  float* wsf = static_cast<float*>(ws);
+  const int bf = bc_dtype == kBFloat16;
+  cudaError_t e;
+  switch (N) {
+    case 4: e = launch_bwd<4>(xf, lf, bm, cm, bf, s0, dyf, dsf, dxf, dlf, dbp, dcp, d0, wsf, B, S, H, P, s); break;
+    case 8: e = launch_bwd<8>(xf, lf, bm, cm, bf, s0, dyf, dsf, dxf, dlf, dbp, dcp, d0, wsf, B, S, H, P, s); break;
+    case 16: e = launch_bwd<16>(xf, lf, bm, cm, bf, s0, dyf, dsf, dxf, dlf, dbp, dcp, d0, wsf, B, S, H, P, s); break;
+    case 32: e = launch_bwd<32>(xf, lf, bm, cm, bf, s0, dyf, dsf, dxf, dlf, dbp, dcp, d0, wsf, B, S, H, P, s); break;
+    case 64: e = launch_bwd<64>(xf, lf, bm, cm, bf, s0, dyf, dsf, dxf, dlf, dbp, dcp, d0, wsf, B, S, H, P, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  const long long rows = static_cast<long long>(B) * S;
+  const long long blocks = (rows * N + 255) / 256;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (bf)
+    ssd_scan_bwd_bc_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), 256,
+                                            0, s>>>(
+        dbp, dcp, static_cast<__nv_bfloat16*>(db),
+        static_cast<__nv_bfloat16*>(dc), rows, H, N);
+  else
+    ssd_scan_bwd_bc_kernel<float><<<static_cast<unsigned>(blocks), 256, 0,
+                                    s>>>(dbp, dcp, static_cast<float*>(db),
+                                         static_cast<float*>(dc), rows, H, N);
+  return cudaGetLastError();
+}

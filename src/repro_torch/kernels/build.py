@@ -69,6 +69,17 @@ _SIGNATURES = {
     # q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk, q_off, Hq, Hkv,
     # D, causal, window, scale, dtype, route (1: tensor cores), stream
     "flash_attention_bwd_launch": [_vp] * 10 + [_i] * 9 + [_f, _i, _i, _vp],
+    # r, k, v, w, u, state0 (null: zeros), dy, dsT (null: zero), dr, dk,
+    # dv, dw, du_part, du, ds0 (null: not wanted), workspace, B, S, H, K, V,
+    # r/k/v dtype, stream
+    "rwkv6_scan_bwd_launch": [_vp] * 16 + [_i] * 6 + [_vp],
+    # xdt, la, Bm, Cm, state0 (null: zeros), dy, dsT (null: zero), dxdt,
+    # dla, dB, dC, ds0 (null: not wanted), dB and dC partials, workspace,
+    # B, S, H, N, P, Bm/Cm dtype, stream
+    "ssd_scan_bwd_launch": [_vp] * 15 + [_i] * 6 + [_vp],
+    # y, z, dout, scale, dy, dz, workspace, dscale, rows, d, eps, z dtype,
+    # scale dtype, stream
+    "gated_rmsnorm_bwd_launch": [_vp] * 8 + [_i64, _i, _f, _i, _i, _vp],
     # the tensor-core routes' dynamic shared memory a launch (bytes), and
     # the norm backward's blocks for (rows, d) (not launches: they return
     # the size, not a cudaError_t)

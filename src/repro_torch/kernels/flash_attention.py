@@ -16,7 +16,14 @@ what bounds it on Hopper and how the design answers that.  Unlike the TPU
 wrapper it takes any sequence length, not only multiples of its tile.  It
 has two routes, chosen from dtype and D before the launch
 (:func:`tensor_core_route`): bf16 at D 64, 128 and 256 on the tensor cores
-(wgmma and TMA), everything else on CUDA cores.
+(wgmma and TMA), everything else on CUDA cores.  A head dim the kernels
+are not built for (zamba2's 112) runs zero-padded to the next one
+(:func:`padded_head_dim`) with the scale of its own: zero columns add
+nothing to a score, and the output's extra columns, zeros, are cut off.
+So bf16 at D 112 takes the tensor-core route at D 128 both ways; a
+CUDA-core instantiation at D 112 would have run its products on CUDA
+cores at 7/8 of the work, where the tensor cores at 8/7 of it are far
+faster.
 
 Training needs the gradients of the forward: the backward
 kernels (``csrc/flash_attention_bwd.cu``, launched by
@@ -88,21 +95,36 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def padded_head_dim(D: int):
+    """The head dim the kernels run ``D`` at: the least of
+    :data:`HEAD_DIMS` not below it (D itself when built for), None past
+    the widest."""
+    return next((h for h in HEAD_DIMS if h >= D), None)
+
+
 def tensor_core_route(q) -> bool:
     """True when the kernel runs ``q``'s call on the tensor cores: bf16 at
-    a head dim in :data:`TENSOR_CORE_HEAD_DIMS`.  Float32 stays on CUDA
-    cores (its 2e-4 limit rules out TF32 and bf16 operands), and so do the
-    other head dims."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in TENSOR_CORE_HEAD_DIMS
+    a (padded) head dim in :data:`TENSOR_CORE_HEAD_DIMS`.  Float32 stays on
+    CUDA cores (its 2e-4 limit rules out TF32 and bf16 operands), and so do
+    the other head dims."""
+    return (q.dtype == torch.bfloat16
+            and padded_head_dim(q.shape[-1]) in TENSOR_CORE_HEAD_DIMS)
 
 
 def backward_tensor_core_route(q) -> bool:
     """True when the backward runs ``q``'s call on the tensor cores: bf16 at
-    a head dim in :data:`BACKWARD_TENSOR_CORE_HEAD_DIMS`.  Float32, D 16 and
-    32, and D 256 (whose dk and dv accumulators alone would take 256
-    registers a thread) stay on CUDA cores."""
-    return (q.dtype == torch.bfloat16
-            and q.shape[-1] in BACKWARD_TENSOR_CORE_HEAD_DIMS)
+    a (padded) head dim in :data:`BACKWARD_TENSOR_CORE_HEAD_DIMS`.
+    Float32, D 16 and 32, and D 256 (whose dk and dv accumulators alone
+    would take 256 registers a thread) stay on CUDA cores."""
+    return (q.dtype == torch.bfloat16 and padded_head_dim(q.shape[-1])
+            in BACKWARD_TENSOR_CORE_HEAD_DIMS)
+
+
+def _padded(D: int, *tensors):
+    """``tensors`` with their last axis zero-padded from D to
+    :func:`padded_head_dim` (D)."""
+    Dp = padded_head_dim(D)
+    return [torch.nn.functional.pad(t, (0, Dp - D)) for t in tensors]
 
 
 def lse_rows(S: int) -> int:
@@ -124,7 +146,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
                          q_offset: int = 0, with_lse: bool = False):
     """Launch the flash-attention kernel on ``q``'s card (current stream).
     Shapes as in :func:`flash_attention_plain`; q, k and v share one dtype
-    (float32 or bfloat16) and D is one of 16, 32, 64, 128, 256.  Raises on
+    (float32 or bfloat16) and D is at most 256 (one of :data:`HEAD_DIMS`,
+    or zero-padded to the next, :func:`padded_head_dim`).  Raises on
     anything else; never falls back.  bf16 at D 64, 128 and 256 runs on the
     tensor cores, everything else on CUDA cores (:func:`tensor_core_route`);
     a call on either route that fails to build or launch raises and never
@@ -153,9 +176,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
             or Hq % Hkv):
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} vs "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+    if padded_head_dim(D) is None:
+        raise ValueError(f"flash_attention_cuda: head dim {D} above every "
+                         f"built one {HEAD_DIMS}")
     if with_lse and not backward_tensor_core_route(q):
         raise ValueError("flash_attention_cuda: with_lse is for the "
                          "tensor-core backward (bf16, D in "
@@ -169,18 +192,27 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
             lse.fill_(float("inf"))
         out = out.zero_()
         return (out, lse) if with_lse else out
-    q, k, v = _strided(q), _strided(k), _strided(v)
+    scale = float(D ** -0.5)
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        q, k, v = _padded(D, q, k, v)
+        wide = torch.empty(B, Sq, Hq, Dp, dtype=q.dtype, device=dev)
+    else:
+        q, k, v = _strided(q), _strided(k), _strided(v)
+        wide = out
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wide.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, D, *q.stride()[:3], *k.stride()[:3],
+            B, Sq, Sk, Hq, Hkv, Dp, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], int(causal), 0 if window is None else int(window),
-            q_offset, float(D ** -0.5), _DTYPE_CODES[q.dtype],
+            q_offset, scale, _DTYPE_CODES[q.dtype],
             int(tensor_core_route(q)), stream),
             "flash_attention")
+    if wide is not out:
+        out.copy_(wide[..., :D])
     return (out, lse) if with_lse else out
 
 
@@ -219,9 +251,9 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd_cuda: dtype {q.dtype}; want "
                         "float32 or bfloat16")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+    if padded_head_dim(D) is None:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} above "
+                         f"every built one {HEAD_DIMS}")
     tc = backward_tensor_core_route(q)
     rows = lse_rows(Sq) if tc else Sq
     if tc and (lse is None or lse.shape != (B, Hq, rows)
@@ -237,10 +269,14 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         raise ValueError("flash_attention_bwd_cuda: the CUDA-core route "
                          f"({q.dtype}, D {D}) recomputes the log-sum-exp; "
                          "pass lse=None")
+    scale = float(D ** -0.5)
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        q, k, v, out, dout = _padded(D, q, k, v, out, dout)
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Sk == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return tuple(t[..., :D].zero_() for t in (dq, dk, dv))
     if not tc:
         lse = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
     delta = torch.empty(B, Hq, rows, dtype=torch.float32, device=dev)
@@ -250,8 +286,9 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         build.check(lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, q_offset, Hq, Hkv, D,
-            int(causal), 0 if window is None else int(window),
-            float(D ** -0.5),
+            lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, q_offset, Hq, Hkv, Dp,
+            int(causal), 0 if window is None else int(window), scale,
             _DTYPE_CODES[q.dtype], int(tc), stream), "flash_attention_bwd")
+    if Dp != D:
+        return tuple(t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

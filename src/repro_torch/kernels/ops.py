@@ -5,8 +5,8 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
-Seven entries are sub-counts of a kernel's calls, not kernels of their
-own (``flash_attention_bwd_tc``, below, the seventh): ``rmsnorm_add`` and
+Nine entries are sub-counts of a kernel's calls, not kernels of their
+own (three of them the backward's, below): ``rmsnorm_add`` and
 ``rmsnorm_gated`` count the RMSNorm calls (each
 one launch, all counted under ``rmsnorm``) of its fused variants, the
 residual add and Mamba-2's SiLU gate, on either route;
@@ -21,20 +21,24 @@ The counts are bumped under a lock: the dense path's prefills run on the
 prefill farm's worker threads.
 
 Training: when autograd needs a gradient through a call (grad mode on and
-an input that requires one), RMSNorm, its fused add and flash attention
-run as ``torch.autograd.Function``s on a card, whose backward is a kernel
-too: ``rmsnorm_bwd`` counts B2's backward launches (``rmsnorm_add_bwd``
-the fused add's among them), ``flash_attention_bwd`` B3's backward calls
-and its sub-count ``flash_attention_bwd_tc`` those on the tensor cores
-(bf16 at D 64 and 128: three launches, delta = rowsum(dO * O), dq, then
-dk and dv, reading the log-sum-exp the forward wrote; the CUDA-core route
-two: dq with the rows' log-sum-exp, then dk and dv).  Their forward
-launches count as serving's do.  On the CPU autograd differentiates the
-plain versions.  A kernel with no backward yet (the gated norm, paged
-attention, the scans) refuses a card call that needs a gradient, naming
-where its backward comes (ROADMAP A13b); no gradient goes through a plain
-version on a card.  Without a gradient to take, the launches, routes and
-counts are those of serving.
+an input that requires one), RMSNorm and its two fused variants, flash
+attention and the two scans run as ``torch.autograd.Function``s on a card,
+whose backward is a kernel too: ``rmsnorm_bwd`` counts B2's backward
+launches (``rmsnorm_add_bwd`` the fused add's among them,
+``rmsnorm_gated_bwd`` the gated norm's), ``flash_attention_bwd`` B3's
+backward calls and its sub-count ``flash_attention_bwd_tc`` those on the
+tensor cores (bf16 at D 64 and 128, and 112 padded to 128: three launches,
+delta = rowsum(dO * O), dq, then dk and dv, reading the log-sum-exp the
+forward wrote; the CUDA-core route two: dq with the rows' log-sum-exp,
+then dk and dv), ``rwkv6_scan_bwd`` B4's (two launches: the gradients,
+then du summed over the batch rows) and ``ssd_scan_bwd`` B5's (two: the
+gradients, then dB and dC summed over the heads).  Their forward launches
+count as serving's do; a scan under autograd takes no ``out_state`` (an
+in-place write into a tensor autograd tracks).  On the CPU autograd
+differentiates the plain versions.  Paged attention, which has no
+backward, refuses a card call that needs a gradient (its caller, serving,
+takes none); no gradient goes through a plain version on a card.  Without
+a gradient to take, the launches, routes and counts are those of serving.
 """
 from __future__ import annotations
 
@@ -67,10 +71,12 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "flash_attention_tc": LaunchCount(),
           "paged_attention_mq_split": LaunchCount(),
           "rwkv6_scan_tc": LaunchCount(), "ssd_scan_tc": LaunchCount(),
-          # the backward kernels, and the fused add's sub-count of B2's
+          # the backward kernels, and the fused variants' sub-counts of B2's
           "rmsnorm_bwd": LaunchCount(), "rmsnorm_add_bwd": LaunchCount(),
+          "rmsnorm_gated_bwd": LaunchCount(),
           "flash_attention_bwd": LaunchCount(),
-          "flash_attention_bwd_tc": LaunchCount()}
+          "flash_attention_bwd_tc": LaunchCount(),
+          "rwkv6_scan_bwd": LaunchCount(), "ssd_scan_bwd": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -107,12 +113,18 @@ def _needs_grad(*tensors) -> bool:
 
 def _no_backward(name: str, *tensors) -> None:
     """Refuse a card call that autograd would differentiate: the kernel
-    has no backward yet."""
+    has no backward (paged attention serves only)."""
     if _needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: the kernel has no backward yet (it comes with its "
-            "family's training, ROADMAP A13b); no gradient goes through a "
-            "plain version on a card")
+            f"{name}: the kernel has no backward (no training path calls "
+            "it); no gradient goes through a plain version on a card")
+
+
+def _no_out_state(name: str, out_state) -> None:
+    """Refuse an in-place final state under autograd."""
+    if out_state is not None:
+        raise ValueError(f"{name}: no out_state under autograd (an in-place "
+                         "write into a tensor autograd tracks)")
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -189,6 +201,78 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _GatedRMSNorm(torch.autograd.Function):
+    """B2's gated variant on a card with its backward kernel (the gate's
+    gradients in the same launch)."""
+
+    @staticmethod
+    def forward(ctx, y, z, scale, eps):
+        out = _rn.gated_rmsnorm_cuda(y, z, scale, eps=eps)
+        _count("rmsnorm", "rmsnorm_gated", kernel=True)
+        ctx.save_for_backward(y, z, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, z, scale = ctx.saved_tensors
+        dy, dz, dscale = _rn.gated_rmsnorm_bwd_cuda(y, z, dout, scale,
+                                                    eps=ctx.eps)
+        _count("rmsnorm_bwd", "rmsnorm_gated_bwd", kernel=True)
+        return dy, dz, dscale, None
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    """B4 on a card with its backward kernel: ``(y, final state)``, both
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        y, st = _rw.rwkv6_scan_cuda(r, k, v, w, u, state0)
+        _count("rwkv6_scan", kernel=True)
+        if _rw.tensor_core_route(r, v):
+            _count("rwkv6_scan_tc", kernel=True)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        dr, dk, dv, dw, du, ds0 = _rw.rwkv6_scan_bwd_cuda(
+            r, k, v, w, u, state0, dy, dsT)
+        _count("rwkv6_scan_bwd", kernel=True)
+        return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, ds0)
+
+
+class _SsdScan(torch.autograd.Function):
+    """B5 on a card with its backward kernel: ``(y, final state)``, both
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, xdt, la, Bm, Cm, state0):
+        y, st = _ssd.ssd_scan_cuda(xdt, la, Bm, Cm, state0)
+        _count("ssd_scan", kernel=True)
+        if _ssd.tensor_core_route(xdt, Bm):
+            _count("ssd_scan_tc", kernel=True)
+        ctx.save_for_backward(xdt, la, Bm, Cm, state0)
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        xdt, la, Bm, Cm, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xdt.shape, dtype=torch.float32,
+                             device=xdt.device)
+        dxdt, dla, dB, dC, ds0 = _ssd.ssd_scan_bwd_cuda(
+            xdt, la, Bm, Cm, state0, dy, dsT)
+        _count("ssd_scan_bwd", kernel=True)
+        return dxdt, dla, dB, dC, ds0
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x`` with a ``(d,)`` scale."""
     if _route(x, "rmsnorm") and _needs_grad(x, scale):
@@ -221,9 +305,11 @@ def add_rmsnorm(x, delta, scale, *, eps: float = 1e-6,
 
 def gated_rmsnorm(y, z, scale, *, eps: float = 1e-6):
     """Mamba-2's gated output norm, ``rmsnorm(y.to(z.dtype) * silu(z))``,
-    in one kernel; y float32, the result in z's dtype."""
+    in one kernel; y float32, the result in z's dtype.  Under autograd on
+    a card the backward is a kernel too."""
+    if _route(y, "rmsnorm") and _needs_grad(y, z, scale):
+        return _GatedRMSNorm.apply(y, z, scale, eps)
     if _route(y, "rmsnorm"):
-        _no_backward("gated_rmsnorm", y, z, scale)
         out = _rn.gated_rmsnorm_cuda(y, z, scale, eps=eps)
         _count("rmsnorm", "rmsnorm_gated", kernel=True)
         return out
@@ -279,9 +365,15 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, out_state=None):
     """The RWKV-6 wkv recurrence, r/k/w (B, S, H, K), v (B, S, H, V) ->
     (y (B, S, H, V) float32, final state (B, H, K, V) float32); with
     ``out_state`` the final state lands there in place (it may be
-    ``state0``); see :mod:`repro_torch.kernels.rwkv6_scan`."""
+    ``state0``; never under autograd); see
+    :mod:`repro_torch.kernels.rwkv6_scan`.  Under autograd on a card the
+    backward is a kernel too."""
+    grad = _needs_grad(r, k, v, w, u, state0)
+    if grad:
+        _no_out_state("rwkv6_scan", out_state)
+    if _route(r, "rwkv6_scan") and grad:
+        return _Rwkv6Scan.apply(r, k, v, w, u, state0)
     if _route(r, "rwkv6_scan"):
-        _no_backward("rwkv6_scan", r, k, v, w, u, state0)
         out = _rw.rwkv6_scan_cuda(r, k, v, w, u, state0, out_state)
         _count("rwkv6_scan", kernel=True)
         if _rw.tensor_core_route(r, v):
@@ -295,9 +387,15 @@ def ssd_scan(xdt, la, Bm, Cm, state0=None, *, out_state=None):
     """The Mamba-2 SSD recurrence, xdt (B, S, H, P), la (B, S, H), Bm/Cm
     (B, S, N) -> (y (B, S, H, P) float32, final state (B, H, N, P)
     float32); with ``out_state`` the final state lands there in place (it
-    may be ``state0``); see :mod:`repro_torch.kernels.ssd_scan`."""
+    may be ``state0``; never under autograd); see
+    :mod:`repro_torch.kernels.ssd_scan`.  Under autograd on a card the
+    backward is a kernel too."""
+    grad = _needs_grad(xdt, la, Bm, Cm, state0)
+    if grad:
+        _no_out_state("ssd_scan", out_state)
+    if _route(xdt, "ssd_scan") and grad:
+        return _SsdScan.apply(xdt, la, Bm, Cm, state0)
     if _route(xdt, "ssd_scan"):
-        _no_backward("ssd_scan", xdt, la, Bm, Cm, state0)
         out = _ssd.ssd_scan_cuda(xdt, la, Bm, Cm, state0, out_state)
         _count("ssd_scan", kernel=True)
         if _ssd.tensor_core_route(xdt, Bm):

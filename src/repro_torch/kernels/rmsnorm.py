@@ -15,11 +15,11 @@ the op that the served models run right before it:
 
 The plain versions below are the same ops in eager PyTorch, in the order
 the models ran them before the fusion: the CPU path and the kernel's
-oracle.  Training differentiates the plain norm and the fused add through
-autograd on the CPU; on a card their backward is a kernel of the same
-source (:func:`rmsnorm_bwd_cuda`, wrapped as autograd Functions in
-:mod:`repro_torch.kernels.ops`), held against autograd through the plain
-versions.
+oracle.  Training differentiates the plain versions through autograd on
+the CPU; on a card the backward of all three is a kernel of the same source
+(:func:`rmsnorm_bwd_cuda`, :func:`gated_rmsnorm_bwd_cuda`, wrapped as
+autograd Functions in :mod:`repro_torch.kernels.ops`), held against
+autograd through the plain versions.
 """
 from __future__ import annotations
 
@@ -190,3 +190,37 @@ def rmsnorm_bwd_cuda(v, dy, ds, scale, *, eps: float = 1e-6):
              dv.data_ptr(), part.data_ptr(), dscale.data_ptr()), v, idx, eps,
             v.dtype, scale)
     return dv, dscale
+
+
+def gated_rmsnorm_bwd_cuda(y, z, dout, scale, *, eps: float = 1e-6):
+    """Launch the gated norm's backward (B2's backward kernel, gated) on
+    ``y``'s card: the gradients ``(dy, dz, dscale)`` of
+    :func:`gated_rmsnorm_cuda` from the output's gradient ``dout`` (in z's
+    dtype): ``dy`` float32 (y's dtype; its values rounded to z's, as
+    autograd through the plain version gives them), ``dz`` in z's dtype,
+    ``dscale`` in scale's, summed over the rows from per-block partials
+    (the same every run)."""
+    if (y.dtype != torch.float32 or z.dtype not in _DTYPE_CODES
+            or dout.dtype != z.dtype):
+        raise TypeError(f"gated_rmsnorm_bwd_cuda: unsupported dtypes "
+                        f"{y.dtype}, {z.dtype}, {dout.dtype} (y float32, z "
+                        "and dout float32 or bfloat16)")
+    idx = _card("gated_rmsnorm_bwd_cuda", y, scale, z, dout)
+    y, z, dout, scale = (_contiguous(t) for t in (y, z, dout, scale))
+    dy, dz = torch.empty_like(y), torch.empty_like(z)
+    dscale = torch.empty_like(scale)
+    d = y.shape[-1]
+    rows = y.numel() // d if d else 0
+    if not rows:
+        return dy, dz, dscale.zero_()
+    lib = _library()
+    blocks = lib.rmsnorm_bwd_blocks(rows, d)
+    if blocks <= 0:
+        raise ValueError(f"gated_rmsnorm_bwd_cuda: d={d} is wider than the "
+                         "backward takes")
+    part = torch.empty(blocks, d, dtype=torch.float32, device=y.device)
+    _launch("gated_rmsnorm_bwd", lib.gated_rmsnorm_bwd_launch,
+            (y.data_ptr(), z.data_ptr(), dout.data_ptr(), scale.data_ptr(),
+             dy.data_ptr(), dz.data_ptr(), part.data_ptr(),
+             dscale.data_ptr()), y, idx, eps, z.dtype, scale)
+    return dy, dz, dscale

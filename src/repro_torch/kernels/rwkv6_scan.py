@@ -157,3 +157,71 @@ def rwkv6_scan_cuda(r, k, v, w, u, state0=None, out_state=None):
             y.data_ptr(), out_state.data_ptr(), B, S, H, K, V,
             _DTYPE_CODES[r.dtype], stream), "rwkv6_scan")
     return y, out_state
+
+
+BWD_CHUNK = 32          # the backward's stored-state interval (steps)
+BWD_MAX_V = 64          # value columns the backward takes
+
+
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dsT=None):
+    """Launch B4's backward on ``r``'s card: the gradients ``(dr, dk, dv,
+    dw, du, dstate0)`` of :func:`rwkv6_scan_cuda`'s call on the same inputs
+    from y's gradient ``dy`` and the final state's ``dsT`` (None: zero),
+    all float32 (``dstate0`` None when ``state0`` is).  K is one of
+    :data:`HEAD_DIMS`, V at most :data:`BWD_MAX_V`; S at least 1.  The kernel
+    stores the state at the start of every :data:`BWD_CHUNK` steps in a
+    float32 workspace the wrapper allocates and recomputes the rest, and
+    ``du``, a sum over the batch rows, sums per-row partials in a second
+    launch: the same bits every run.  Raises on anything else; never
+    falls back."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    dev = r.device
+    if not r.is_cuda:
+        raise ValueError("rwkv6_scan_bwd_cuda: r must lie on a card")
+    for name, t in (("k", k), ("v", v), ("w", w), ("u", u), ("dy", dy),
+                    ("state0", state0), ("dsT", dsT)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"rwkv6_scan_bwd_cuda: {name} on {t.device}, "
+                             f"r on {dev}")
+    if r.dtype not in _DTYPE_CODES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan_bwd_cuda: dtypes r={r.dtype} "
+                        f"k={k.dtype} v={v.dtype}; want one of "
+                        "float32/bfloat16 for all three")
+    for name, t in (("w", w), ("u", u), ("dy", dy), ("state0", state0),
+                    ("dsT", dsT)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"rwkv6_scan_bwd_cuda: {name} is {t.dtype}, "
+                            "want float32")
+    state_shape = (B, H, K, V)
+    if (k.shape != r.shape or w.shape != r.shape or v.shape[:3] != (B, S, H)
+            or u.shape != (H, K) or dy.shape != v.shape
+            or any(t is not None and t.shape != state_shape
+                   for t in (state0, dsT))):
+        raise ValueError(f"rwkv6_scan_bwd_cuda: r/k/w {tuple(r.shape)}, v "
+                         f"{tuple(v.shape)}, u {tuple(u.shape)}, dy "
+                         f"{tuple(dy.shape)}; want (B, S, H, K), (B, S, H, "
+                         f"V), (H, K), y's shape and states {state_shape}")
+    if K not in HEAD_DIMS or not 1 <= V <= BWD_MAX_V:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: K={K} not in {HEAD_DIMS} or "
+                         f"V={V} not in [1, {BWD_MAX_V}]")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dr, dk, dw = (torch.empty(B, S, H, K, **f32) for _ in range(3))
+    dv = torch.empty(B, S, H, V, **f32)
+    du = torch.empty(H, K, **f32)
+    ds0 = None if state0 is None else torch.empty(state_shape, **f32)
+    r, k, v, w, u, dy = (t.contiguous() for t in (r, k, v, w, u, dy))
+    state0, dsT = (None if t is None else t.contiguous()
+                   for t in (state0, dsT))
+    du_part = torch.empty(B, H, K, **f32)
+    ws = torch.empty(B * H * -(-S // BWD_CHUNK) * K * V, **f32)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(build.library().rwkv6_scan_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(dsT),
+            dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+            du_part.data_ptr(), du.data_ptr(), ptr(ds0), ws.data_ptr(), B, S,
+            H, K, V, _DTYPE_CODES[r.dtype], stream), "rwkv6_scan_bwd")
+    return dr, dk, dv, dw, du, ds0

@@ -172,3 +172,73 @@ def ssd_scan_cuda(xdt, la, Bm, Cm, state0=None, out_state=None):
             out_state.data_ptr(), B, S, H, N, P, _DTYPE_CODES[Bm.dtype],
             stream), "ssd_scan")
     return y, out_state
+
+
+BWD_CHUNK = 32          # the backward's stored-state interval (steps)
+BWD_MAX_P = 64          # head columns the backward takes
+
+
+def ssd_scan_bwd_cuda(xdt, la, Bm, Cm, state0, dy, dsT=None):
+    """Launch B5's backward on ``xdt``'s card: the gradients ``(dxdt, dla,
+    dBm, dCm, dstate0)`` of :func:`ssd_scan_cuda`'s call on the same inputs
+    from y's gradient ``dy`` and the final state's ``dsT`` (None: zero):
+    dxdt, dla and dstate0 float32 (``dstate0`` None when ``state0`` is),
+    dBm and dCm in Bm's dtype.  N is one of :data:`STATE_DIMS`, P at most
+    :data:`BWD_MAX_P`; S at least 1.  The kernel stores the state at the
+    start of every :data:`BWD_CHUNK` steps in a float32 workspace and
+    recomputes the rest; dBm and dCm, sums over the heads, are each head's
+    terms summed in head order by a second launch: the same bits every
+    run.  Raises on anything else; never falls back."""
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    dev = xdt.device
+    if not xdt.is_cuda:
+        raise ValueError("ssd_scan_bwd_cuda: xdt must lie on a card")
+    for name, t in (("la", la), ("Bm", Bm), ("Cm", Cm), ("dy", dy),
+                    ("state0", state0), ("dsT", dsT)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"ssd_scan_bwd_cuda: {name} on {t.device}, xdt "
+                             f"on {dev}")
+    for name, t in (("xdt", xdt), ("la", la), ("dy", dy), ("state0", state0),
+                    ("dsT", dsT)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan_bwd_cuda: {name} is {t.dtype}, want "
+                            "float32")
+    if Bm.dtype not in _DTYPE_CODES or Cm.dtype != Bm.dtype:
+        raise TypeError(f"ssd_scan_bwd_cuda: dtypes Bm={Bm.dtype} "
+                        f"Cm={Cm.dtype}; want one of float32/bfloat16 for "
+                        "both")
+    state_shape = (B, H, N, P)
+    if (la.shape != (B, S, H) or Bm.shape != (B, S, N)
+            or Cm.shape != (B, S, N) or dy.shape != xdt.shape
+            or any(t is not None and t.shape != state_shape
+                   for t in (state0, dsT))):
+        raise ValueError(f"ssd_scan_bwd_cuda: xdt {tuple(xdt.shape)}, la "
+                         f"{tuple(la.shape)}, Bm/Cm {tuple(Bm.shape)}/"
+                         f"{tuple(Cm.shape)}, dy {tuple(dy.shape)}; want "
+                         "(B, S, H, P), (B, S, H), (B, S, N), y's shape and "
+                         f"states {state_shape}")
+    if N not in STATE_DIMS or not 1 <= P <= BWD_MAX_P:
+        raise ValueError(f"ssd_scan_bwd_cuda: N={N} not in {STATE_DIMS} or "
+                         f"P={P} not in [1, {BWD_MAX_P}]")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxdt = torch.empty(B, S, H, P, **f32)
+    dla = torch.empty(B, S, H, **f32)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    ds0 = None if state0 is None else torch.empty(state_shape, **f32)
+    xdt, la, Bm, Cm, dy = (t.contiguous() for t in (xdt, la, Bm, Cm, dy))
+    state0, dsT = (None if t is None else t.contiguous()
+                   for t in (state0, dsT))
+    dB, dC = dB.contiguous(), dC.contiguous()
+    db_part, dc_part = (torch.empty(B, S, H, N, **f32) for _ in range(2))
+    ws = torch.empty(B * H * -(-S // BWD_CHUNK) * N * P, **f32)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(build.library().ssd_scan_bwd_launch(
+            xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            ptr(state0), dy.data_ptr(), ptr(dsT), dxdt.data_ptr(),
+            dla.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(ds0),
+            db_part.data_ptr(), dc_part.data_ptr(), ws.data_ptr(), B, S, H, N,
+            P, _DTYPE_CODES[Bm.dtype], stream), "ssd_scan_bwd")
+    return dxdt, dla, dB, dC, ds0

@@ -119,6 +119,31 @@ def _generator(generator_or_seed, dev) -> torch.Generator:
     return gen
 
 
+def _token_batch_specs(shape) -> dict:
+    """``{"tokens", "labels"}`` :class:`ArraySpec` (B, S) int32 at
+    ``shape``'s ``global_batch`` x ``seq_len``."""
+    tok = ArraySpec((shape.global_batch, shape.seq_len), torch.int32,
+                    ("batch", "seq"))
+    return {"tokens": tok, "labels": tok}
+
+
+# the families that train on one device only, and what the reference
+# shards over "model" for each (ROADMAP A13b item 4b)
+_ONE_DEVICE_TRAINING = {"ssm": "the rwkv_v value channels",
+                        "hybrid": "the SSM heads (ssm_heads)"}
+
+
+def refuse_train_mesh(cfg, mesh) -> None:
+    """Raise ``NotImplementedError`` when ``mesh`` is given for a family
+    that trains on one device only (rwkv6, zamba2)."""
+    sharded = _ONE_DEVICE_TRAINING.get(cfg.family)
+    if mesh is not None and sharded:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training over a mesh (the reference "
+            f"shards {sharded} over 'model') comes with ROADMAP A13b item "
+            "4b; train on one device (mesh=None)")
+
+
 def _init_float(model, generator_or_seed, device, dtype, weight_quant,
                 serves: str) -> dict:
     """``init`` of a family that serves off the paged path: random weights
@@ -198,9 +223,7 @@ class DecoderLM:
     def train_batch_specs(self, shape) -> dict:
         """:class:`ArraySpec` of each training-batch key at ``shape``'s
         ``global_batch`` x ``seq_len``."""
-        B, S = shape.global_batch, shape.seq_len
-        tok = ArraySpec((B, S), torch.int32, ("batch", "seq"))
-        return {"tokens": tok, "labels": tok}
+        return _token_batch_specs(shape)
 
     def prefill_batch_specs(self, shape) -> dict:
         """The training specs without ``labels``: what prefill takes."""
@@ -411,17 +434,17 @@ class RwkvLM:
         return RW.rwkv_lm_defs(self.cfg)
 
     def loss(self, params, batch: dict, mesh=None):
-        """Refused: rwkv6 training (B4's backward) comes with ROADMAP A13b
-        item 4."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: rwkv6 training (the wkv scan's backward) "
-            "comes with ROADMAP A13b item 4")
+        """Next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S) ->
+        ``(loss, {"ce", "tokens"})`` (:func:`repro_torch.models.rwkv_lm.
+        lm_loss`), on one device: a ``mesh`` is refused
+        (:func:`refuse_train_mesh`)."""
+        refuse_train_mesh(self.cfg, mesh)
+        return RW.lm_loss(params, self.cfg, batch["tokens"], batch["labels"])
 
     def train_batch_specs(self, shape) -> dict:
-        """Refused with :meth:`loss`."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: rwkv6 training batches come with ROADMAP "
-            "A13b item 4")
+        """:class:`ArraySpec` of each training-batch key at ``shape``'s
+        ``global_batch`` x ``seq_len``: ``{"tokens", "labels"}``."""
+        return _token_batch_specs(shape)
 
     def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
              device=None, dtype: Optional[torch.dtype] = None,
@@ -494,18 +517,17 @@ class HybridLM:
         return Z.zamba_defs(self.cfg)
 
     def loss(self, params, batch: dict, mesh=None):
-        """Refused: zamba2 training (B5's backward, B3 at D 112) comes
-        with ROADMAP A13b item 4."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: zamba2 training (the SSD scan's and the gated "
-            "norm's backward, B3 at head dim 112) comes with ROADMAP A13b "
-            "item 4")
+        """Next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S) ->
+        ``(loss, {"ce", "tokens"})`` (:func:`repro_torch.models.zamba.
+        lm_loss`), on one device: a ``mesh`` is refused
+        (:func:`refuse_train_mesh`)."""
+        refuse_train_mesh(self.cfg, mesh)
+        return Z.lm_loss(params, self.cfg, batch["tokens"], batch["labels"])
 
     def train_batch_specs(self, shape) -> dict:
-        """Refused with :meth:`loss`."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: zamba2 training batches come with ROADMAP "
-            "A13b item 4")
+        """:class:`ArraySpec` of each training-batch key at ``shape``'s
+        ``global_batch`` x ``seq_len``: ``{"tokens", "labels"}``."""
+        return _token_batch_specs(shape)
 
     def init(self, generator_or_seed: Union[torch.Generator, int] = 0, *,
              device=None, dtype: Optional[torch.dtype] = None,

@@ -1,4 +1,4 @@
-"""Mamba-2 (SSD) blocks for serving.
+"""Mamba-2 (SSD) blocks for serving and training.
 
 Counterpart of ``repro.models.mamba2``.  The per-head recurrence
 ``S_t = exp(la_t) S_t-1 + B_t (outer) xdt_t``, ``y_t = C_t . S_t`` runs
@@ -8,7 +8,8 @@ sequence length, prefill and decode alike; the reference's jnp chunked form
 they differ from it by rounding only.  Given states, the kernel writes the
 final SSM state **in place** into the caller's and the block writes the
 conv tails into theirs, so a layer's slice of the decode state is the
-result.
+result.  Training passes no states: the scan starts from zeros, and on a
+card its backward, and the gated norm's, are kernels too.
 
 As in the reference, the projections and the conv output run in the
 compute dtype, while ``A_log``, ``D``, ``dt_bias`` and the conv weights are

@@ -1,5 +1,5 @@
-"""RWKV-6 (Finch) blocks for serving: attention-free token mixing with a
-data-dependent decay.
+"""RWKV-6 (Finch) blocks for serving and training: attention-free token
+mixing with a data-dependent decay.
 
 Counterpart of ``repro.models.rwkv6``.  The per-head recurrence
 ``S_t = diag(w_t) S_t-1 + k_t v_t^T`` runs through the wkv kernel
@@ -8,7 +8,8 @@ prefill and decode alike; the reference's chunked matmul form
 (``_wkv_chunked``) and its ``lax.scan`` are what the kernel replaces, and
 they differ from it by rounding only.  Given a state, the kernel writes
 the final state **in place** into it, so a layer's slice of the decode
-state is the result.
+state is the result.  Training passes no state: the scan starts from zeros
+and its backward is the kernel's.
 
 As in the reference, the projections, the token shift and the channel mix
 run in the compute dtype, while the decay ``w``, the bonus ``u``, the wkv
@@ -79,7 +80,8 @@ def _lerp(x, shifted, mu):
 
 def time_mix(p, x, cfg, *, state=None, x_prev=None):
     """Returns ``(out, state, last_x)``.  ``state``: (B, H, K, V) float32,
-    updated in place (zeros, in a fresh tensor, when None)."""
+    updated in place (zeros, in a fresh tensor, when None: training's
+    case, where autograd differentiates the scan)."""
     B, S, d = x.shape
     H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     sx = _token_shift(x, x_prev)

@@ -1,14 +1,19 @@
-"""RWKV-6 language model for serving: embed -> layernorm -> [rwkv blocks]
--> layernorm -> head.
+"""RWKV-6 language model: embed -> layernorm -> [rwkv blocks] -> layernorm
+-> head.
 
-Counterpart of the serving half of ``repro.models.rwkv_lm``.  The decode
+Counterpart of ``repro.models.rwkv_lm``.  The decode
 state is O(1) in the sequence length: per layer a (B, H, K, V) float32 wkv
 state plus the one-token shift buffers of the time and channel mix, float32
 too.  The reference scans the stacked layers with ``jax.lax.scan`` and
 returns a new state; here a Python loop walks the layers and writes each
 layer's slice of the state **in place** (the kernel writes the wkv state,
 the loop the shift buffers), so the caller's one copy is the result.
-``forward`` and ``lm_loss`` come with the training slice.
+
+Training (:func:`forward`, :func:`lm_loss`) runs the blocks from a zero
+state with no state kept: each block is cast to the compute dtype (its
+float32 leaves kept) and recomputed in the backward pass under
+``cfg.remat``, and the wkv kernel's backward is a kernel too
+(:func:`repro_torch.kernels.ops.rwkv6_scan`).
 """
 from __future__ import annotations
 
@@ -50,6 +55,31 @@ def init_state(cfg, batch: int, *, device) -> dict:
         "tm_prev": torch.zeros(Lh, batch, 1, d, dtype=f32, device=device),
         "cm_prev": torch.zeros(Lh, batch, 1, d, dtype=f32, device=device),
     }
+
+
+def forward(params, cfg, tokens):
+    """Training forward over the ``param_dtype`` weights: tokens (B, S) ->
+    the final hidden states (B, S, d) in the compute dtype."""
+    dtype = torch_dtype(cfg.dtype)
+    x = L.layernorm(params["ln_in"], L.embed(params["embed"], tokens)
+                    .to(dtype))
+    defs = R.rwkv_block_def(cfg)
+    for i in range(cfg.n_layers):
+        def body(x, p=T._layer(params["blocks"], i)):
+            return R.rwkv_block(T.compute_params(p, dtype, defs), x, cfg)[0]
+        x = T._remat(body, cfg.remat)(x)
+    return L.layernorm(params["final_norm"], x)
+
+
+def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8):
+    """``(loss, {"ce", "tokens"})``: the mean next-token cross-entropy of
+    :func:`forward`'s hidden states, the logits taken a sequence chunk at
+    a time in float32 (:func:`repro_torch.models.transformer.
+    loss_from_hidden`)."""
+    hidden = forward(params, cfg, tokens)
+    ce, cnt = T.loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
+                                 loss_chunks)
+    return ce, {"ce": ce, "tokens": cnt}
 
 
 def _embed(params, cfg, tokens):

@@ -532,14 +532,20 @@ def _remat(fn, remat: str):
                                     preserve_rng_state=False, **kw)
 
 
-def compute_params(tree, dtype):
+def compute_params(tree, dtype, defs=None):
     """A block's weights cast to the compute ``dtype`` where they are used,
     the reference's ``astype`` at every call; the norms' scales stay as
-    they are (the reference reads them in float32).  The casts are
-    differentiable: a float32 weight's gradient arrives in float32."""
+    they are (the reference reads them in float32), and so does every leaf
+    whose declaration in ``defs`` (the block's :class:`Param` tree) names
+    a dtype of its own (the leaves the reference reads in float32).  The
+    casts are differentiable: a float32 weight's gradient arrives in
+    float32."""
     if isinstance(tree, dict):
-        return {k: v if k == "scale" else compute_params(v, dtype)
-                for k, v in tree.items()}
+        return {k: v if k == "scale" else compute_params(
+            v, dtype, None if defs is None else defs[k])
+            for k, v in tree.items()}
+    if defs is not None and defs.dtype is not None:
+        return tree
     return tree.to(dtype)
 
 

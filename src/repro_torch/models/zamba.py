@@ -1,9 +1,9 @@
-"""Zamba2-style hybrid LM for serving: a Mamba-2 backbone with one *shared*
-transformer block applied after every ``cfg.shared_attn_every`` layers.
+"""Zamba2-style hybrid LM: a Mamba-2 backbone with one *shared* transformer
+block applied after every ``cfg.shared_attn_every`` layers.
 
-Counterpart of the serving half of ``repro.models.zamba`` (zamba2-7b: 81
-Mamba-2 layers in 3 segments of 27, the shared block after each).  The
-shared block has one parameter copy but one KV cache per application.
+Counterpart of ``repro.models.zamba`` (zamba2-7b: 81 Mamba-2 layers in 3
+segments of 27, the shared block after each).  The shared block has one
+parameter copy but one KV cache per application.
 
 The reference serves this family only as an **aligned batch**: every row
 prefilled from position 0 with prompts of one length, then decoded with
@@ -18,8 +18,18 @@ reference scans each segment with ``jax.lax.scan`` and returns a new state;
 here Python loops walk the segments and layers and advance the state **in
 place** (the SSD kernel writes each layer's SSM state, the block its conv
 tails, and the shared block's K/V rows land by slice assignment), so the
-caller's one copy is the result.  ``forward`` and ``lm_loss`` come with the
-training slice.
+caller's one copy is the result.
+
+Training (:func:`forward`, :func:`lm_loss`, the reference's) keeps no
+state: each Mamba layer is cast to the compute dtype (its float32 leaves
+kept) and recomputed in the backward pass under ``cfg.remat``, as the
+reference's ``_mamba_segment`` is; the shared block attends causally over
+the whole sequence through the flash-attention kernel and is not
+recomputed.  Its weights are cast once a forward, so its one parameter copy
+collects its gradient from every application.  On a card the SSD scan,
+the gated norm, RMSNorm with its fused add and flash attention (at head
+dim 112, padded to 128) each take their gradient through a backward
+kernel.
 """
 from __future__ import annotations
 
@@ -165,6 +175,49 @@ def _forward_with_state(params, cfg, x, state, pos: int):
                                  positions=positions, cache_k=cache["k"][s],
                                  cache_v=cache["v"][s], cache_pos=pos)
     return L.final_rmsnorm(params["final_norm"], x, delta)
+
+
+def _shared_block_train(params, x, delta, cfg, positions):
+    """One application of the shared block without a cache (training):
+    causal attention over the whole sequence; returns ``(x, delta)``, its
+    MLP output pending."""
+    x, h = L.add_rmsnorm(params["ln1"], x, delta)
+    q, k, v = A.qkv_project(params["attn"], h, cfg, positions)
+    o = A.gqa_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+    x, h = L.add_rmsnorm(params["ln2"], x, A.out_project(params["attn"], o))
+    return x, L.mlp(params["mlp"], h)
+
+
+def forward(params, cfg, tokens):
+    """Training forward over the ``param_dtype`` weights: tokens (B, S) ->
+    the final hidden states (B, S, d) in the compute dtype."""
+    dtype = torch_dtype(cfg.dtype)
+    x = L.embed(params["embed"], tokens).to(dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    layer_defs = {"ln": L.rmsnorm_def(cfg.d_model),
+                  "mamba": M2.mamba2_def(cfg)}
+    shared = T.compute_params(params["shared"], dtype)
+    delta = None
+    for s in range(_n_segments(cfg)):
+        seg = T._layer(params["mamba_blocks"], s)
+        for i in range(cfg.shared_attn_every):
+            def body(x, delta, p=T._layer(seg, i)):
+                p = T.compute_params(p, dtype, layer_defs)
+                x, h = L.add_rmsnorm(p["ln"], x, delta)
+                return x, M2.mamba2_block(p["mamba"], h, cfg)[0]
+            x, delta = T._remat(body, cfg.remat)(x, delta)
+        x, delta = _shared_block_train(shared, x, delta, cfg, positions)
+    return L.final_rmsnorm(params["final_norm"], x, delta)
+
+
+def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8):
+    """``(loss, {"ce", "tokens"})``: the mean next-token cross-entropy of
+    :func:`forward`'s hidden states (the logits in float32, a sequence
+    chunk at a time)."""
+    hidden = forward(params, cfg, tokens)
+    ce, cnt = T.loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
+                                 loss_chunks)
+    return ce, {"ce": ce, "tokens": cnt}
 
 
 def _embed(params, cfg, tokens):

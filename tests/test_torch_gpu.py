@@ -1431,10 +1431,14 @@ def test_flash_attention_backward_kernel_matches_autograd(
 
 
 def test_kernels_without_backward_refuse_grad(card):
-    x = torch.ones(2, 3, 8, device=card, requires_grad=True)
-    z = torch.ones(2, 3, 8, device=card)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        ops.gated_rmsnorm(x, z, torch.ones(8, device=card))
+    """Paged attention, the one kernel without a backward, refuses a
+    gradient on a card."""
+    rng = np.random.default_rng(0)
+    q, kp, vp, tb, ln = _paged_case(rng, 2, 1, 4, 2, 16, 8, 6, 3, False)
+    q, kp, vp, tb, ln = (torch.from_numpy(t).to(card)
+                         for t in (q, kp, vp, tb, ln))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.paged_attention_mq(q.requires_grad_(True), kp, vp, tb, ln)
     # flash attention with Sq != Sk (a query offset) has its backward
     # kernel: it runs, it does not refuse
     ops.reset_counts()
@@ -1447,6 +1451,119 @@ def test_kernels_without_backward_refuse_grad(card):
     assert ops.COUNTS["flash_attention_bwd"].kernel == 1
     assert q.grad is not None and torch.isfinite(q.grad).all()
     ops.reset_counts()
+
+
+# -- training of the recurrent families (ROADMAP A13b item 4): the scans'
+# and the gated norm's backward kernels, B3 at head dim 112 --------------
+
+# max |d| over max(1, max |autograd|) against autograd through the plain
+# version in float32 on the same (widened) inputs: float32 differs by
+# summation order only, bf16 by one rounding of the gradient to bf16
+SCAN_BWD_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
+
+
+def _twice(fn, *tensors, cot):
+    """:func:`_grads` twice: the same bits both times; the first."""
+    a, b = (_grads(fn, *tensors, cot=cot) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), "runs differ"
+    return a
+
+
+def _within(got, want, tol, what):
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), \
+            (what, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,V,planted", [(2, 70, 3, 16, 16, 0),
+                                               (1, 65, 2, 64, 64, 8),
+                                               (1, 33, 2, 32, 8, 0)])
+def test_rwkv6_scan_backward_kernel_matches_autograd(card, dtype, B, S, H,
+                                                     K, V, planted):
+    """B4's backward (every input's gradient, the state's too, the final
+    state's cotangent included) against autograd through the plain
+    version; decays at 0 and denormal planted; two runs the same bits."""
+    rng = np.random.default_rng(S + K + V)
+    ins = _rwkv_case(rng, card, dtype, B, S, H, K, V, planted)
+    cot = (torch.randn(B, S, H, V, device=card),
+           torch.randn(B, H, K, V, device=card))
+    ops.reset_counts()
+    got = _twice(ops.rwkv6_scan, *ins, cot=cot)
+    want = _grads(ref.rwkv6_scan, *(t.float() for t in ins), cot=cot)
+    torch.cuda.synchronize()
+    _within(got, want, SCAN_BWD_TOL[dtype], "rwkv6_scan_bwd")
+    assert ops.COUNTS["rwkv6_scan_bwd"].kernel == 2
+    assert ops.COUNTS["rwkv6_scan"].kernel == 2
+    assert ops.COUNTS["rwkv6_scan"].plain == 0
+
+
+@pytest.mark.parametrize("bc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 70, 3, 16, 8), (1, 65, 2, 64, 64),
+                                       (1, 40, 2, 8, 4)])
+def test_ssd_scan_backward_kernel_matches_autograd(card, bc_dtype, B, S, H,
+                                                   P, N):
+    """B5's backward (dB and dC summed over the heads) against autograd
+    through the plain version; two runs the same bits."""
+    rng = np.random.default_rng(S + P + N)
+    ins = _ssd_case(rng, card, bc_dtype, B, S, H, P, N)
+    cot = (torch.randn(B, S, H, P, device=card),
+           torch.randn(B, H, N, P, device=card))
+    ops.reset_counts()
+    got = _twice(ops.ssd_scan, *ins, cot=cot)
+    want = _grads(ref.ssd_scan, *(t.float() for t in ins), cot=cot)
+    torch.cuda.synchronize()
+    _within(got, want, SCAN_BWD_TOL[bc_dtype], "ssd_scan_bwd")
+    assert ops.COUNTS["ssd_scan_bwd"].kernel == 2
+    assert ops.COUNTS["ssd_scan"].kernel == 2
+    assert ops.COUNTS["ssd_scan"].plain == 0
+
+
+@pytest.mark.parametrize("z_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(64, 128), (7, 1001), (300, 7168)])
+def test_gated_rmsnorm_backward_kernel_matches_autograd(card, z_dtype, rows,
+                                                        d):
+    """The gated norm's backward (dy, dz, dscale) against autograd through
+    the plain version in float32; two runs the same bits."""
+    rng = np.random.default_rng(rows + d)
+    y = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32)) \
+        .to(card)
+    z, g = (torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+            .to(card, DTYPES[z_dtype]) for _ in range(2))
+    scale = 1 + 0.1 * torch.randn(d, device=card)
+    ops.reset_counts()
+    got = _twice(ops.gated_rmsnorm, y, z, scale, cot=(g,))
+    want = _grads(ref.gated_rmsnorm, y, z.float(), scale, cot=(g.float(),))
+    torch.cuda.synchronize()
+    _within(got, want, BWD_TOL[z_dtype], "gated_rmsnorm_bwd")
+    assert ops.COUNTS["rmsnorm_gated_bwd"].kernel == 2
+    assert ops.COUNTS["rmsnorm_bwd"].kernel == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_112_zero_padded(card, dtype):
+    """B3 at zamba2's head dim 112, zero-padded to 128 (bf16 on the tensor
+    cores both ways), forward and backward against the plain version."""
+    rng = np.random.default_rng(112)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(2, 130, 4, 112))
+                                   .astype(np.float32)).to(card, DTYPES[dtype])
+                  for _ in range(4))
+    ops.reset_counts()
+    out = ops.flash_attention(q, k, v)
+    want = ref.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    got = _grads(ops.flash_attention, q, k, v, cot=(g,))
+    want_g = _grads(ref.flash_attention, q.float(), k.float(), v.float(),
+                    cot=(g.float(),))
+    _within(got, want_g, BWD_ATTN_REL[dtype], "flash_attention_bwd D 112")
+    tc = int(dtype == "bfloat16")
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == tc
+    assert ops.COUNTS["flash_attention_tc"].kernel == 2 * tc
 
 
 def test_gemma3_aligned_batch_on_card_matches_cpu(card):

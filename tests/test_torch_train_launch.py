@@ -1,7 +1,8 @@
 """The port's training launcher on every registered arch, on the CPU: one
 step of the SMOKE config at batch 2 and 32 tokens ends either in a finite
 loss or in a ``NotImplementedError`` that names ROADMAP A13b (the families
-whose training is not ported yet).  Anything else, an ``AttributeError``
+whose training is not ported yet: llava and whisper; the decoders, the MoE
+models, rwkv6 and zamba2 train).  Anything else, an ``AttributeError``
 from a model class without ``loss`` say, fails."""
 import math
 
