@@ -3377,12 +3377,17 @@ def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
 
 
 def kernel_group(name: str) -> str:
-    """A device kernel's group in a training step's breakdown."""
+    """A device kernel's group in a training step's breakdown.  The scans'
+    chunk passes (``chunk_pass_kernel<reverse, row_decay>``) are B4's
+    with a decay a state row, B5's with one a head."""
     k = name.lower()
+    if "chunk_pass_kernel<" in k:
+        args = k.split("chunk_pass_kernel<", 1)[1].split(">", 1)[0]
+        return "B4" if args.replace(" ", "").endswith(",true") else "B5"
     for group, keys in (("B3", ("fa_bwd", "flash_attention")),
                         ("B2", ("rmsnorm",)),
                         ("B4", ("rwkv6",)),
-                        ("B5", ("ssd_scan", "ssd_seg")),
+                        ("B5", ("ssd_",)),
                         ("GEMM", ("gemm", "xmma", "cutlass", "nvjet")),
                         ("index", ("index", "scatter", "gather")),
                         ("copy/fill", ("memcpy", "memset", "fill")),
@@ -4938,13 +4943,16 @@ GEMMA_BF16_TOL = 0.1
 # autograd through its plain version in float32 on the same (widened)
 # inputs and run twice (the same bits): B4 at (B, S, H, K, V, planted
 # zeros and as many denormals in w): two sequences of 256, a ragged 200 (no
-# multiple of the backward's 32-step chunk) and 256 with decays at 0, from
-# a nonzero state; B5 at (B, S, H, P, N), B and C float32 and bf16; the
-# gated norm at main-train-zamba's (rows, d), bf16 z; B3 at zamba2's head
-# dim 112 (B, S, Hq, Hkv, D; bf16, causal) forward and backward
+# multiple of a chunk) and 256 with decays at 0, from a nonzero state, all
+# on the chunk-parallel tensor-core route in both dtypes; B5 at (B, S, H,
+# P, N), B and C float32 (the CUDA-core route) and bf16 (the tensor-core
+# route): 256 steps, and a ragged 200 over two groups of heads (10: 8 and
+# 2); the gated norm at main-train-zamba's (rows, d), bf16 z; B3 at
+# zamba2's head dim 112 (B, S, Hq, Hkv, D; bf16, causal) forward and
+# backward
 TRAIN_RWKV_CASES = [(2, 256, 4, 64, 64, 0), (2, 200, 4, 64, 64, 0),
                     (2, 256, 4, 64, 64, 64)]
-TRAIN_SSD_CASES = [(2, 256, 8, 64, 64)]
+TRAIN_SSD_CASES = [(2, 256, 8, 64, 64), (1, 200, 10, 64, 64)]
 TRAIN_GATED_CASES = [(8192, 7168)]
 TRAIN_FLASH_Z = (1, 2048, 32, 32, 112)
 # max |d| over max(1, max |autograd|): float32 inputs differ by summation
@@ -5702,10 +5710,12 @@ def phase_parity_train_recurrent(dev) -> dict:
     del q, k, v, g, got, want
     counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
     n_gated = len(TRAIN_GATED_CASES)
+    n_ssd_tc = len(TRAIN_SSD_CASES)        # the bf16 B/C calls
     want_counts = {
         "rwkv6_scan": 2 * n_rwkv, "rwkv6_scan_tc": 2 * n_rwkv,
-        "rwkv6_scan_bwd": 2 * n_rwkv, "ssd_scan": 2 * n_ssd,
-        "ssd_scan_tc": n_ssd, "ssd_scan_bwd": 2 * n_ssd,
+        "rwkv6_scan_bwd": 2 * n_rwkv, "rwkv6_scan_bwd_tc": 2 * n_rwkv,
+        "ssd_scan": 2 * n_ssd, "ssd_scan_tc": 2 * n_ssd_tc,
+        "ssd_scan_bwd": 2 * n_ssd, "ssd_scan_bwd_tc": 2 * n_ssd_tc,
         "rmsnorm": 2 * n_gated, "rmsnorm_gated": 2 * n_gated,
         "rmsnorm_bwd": 2 * n_gated, "rmsnorm_gated_bwd": 2 * n_gated,
         "flash_attention": 3, "flash_attention_tc": 3,
@@ -5738,18 +5748,20 @@ def recurrent_launches_wanted(cfg, steps: int) -> dict:
     """The kernels' launches in ``steps`` training steps of rwkv6 or zamba2
     under remat full: each recomputed block's forward twice, its backward
     once.  rwkv6: the wkv scan a layer (the tensor-core route at K = V =
-    64), nothing else (its norms are LayerNorms, plain in both packages).
-    zamba2: a Mamba layer's norm (the first alone, the rest fused with the
-    residual add), SSD scan (tensor cores: bf16 B/C, N = P = 64) and gated
-    norm; a segment's shared block (its two fused norms and B3 at D 112 on
-    the tensor cores, not recomputed); the final norm, fused."""
+    64, forward and backward), nothing else (its norms are LayerNorms,
+    plain in both packages).  zamba2: a Mamba layer's norm (the first
+    alone, the rest fused with the residual add), SSD scan (tensor cores
+    both ways: bf16 B/C, N = P = 64) and gated norm; a segment's shared
+    block (its two fused norms and B3 at D 112 on the tensor cores, not
+    recomputed); the final norm, fused."""
     L = cfg.n_layers
     if cfg.family != "hybrid":
         return {"rwkv6_scan": 2 * L * steps, "rwkv6_scan_tc": 2 * L * steps,
-                "rwkv6_scan_bwd": L * steps}
+                "rwkv6_scan_bwd": L * steps, "rwkv6_scan_bwd_tc": L * steps}
     seg = L // cfg.shared_attn_every
     per_step = {
         "ssd_scan": 2 * L, "ssd_scan_tc": 2 * L, "ssd_scan_bwd": L,
+        "ssd_scan_bwd_tc": L,
         "rmsnorm": 4 * L + 2 * seg + 1,
         "rmsnorm_add": 2 * (L - 1) + 2 * seg + 1,
         "rmsnorm_gated": 2 * L,
@@ -5881,7 +5893,10 @@ def phase_timing_train_recurrent(dev, smi: str) -> dict:
     bound and its plain version (autograd for the backwards; a scan's plain
     autograd on one batch row, timed by CUDA events around a host-paced
     call: its graph over 2048 steps at 4 rows would hold 21 and 60 GB);
-    B3 also beside SDPA with the same mask and with ``is_causal``.  No
+    B3 also beside SDPA with the same mask and with ``is_causal``.  Each
+    scan's backward on both routes in the same run: ``ms`` the
+    chunk-parallel tensor-core route the training steps take,
+    ``cuda_core_ms`` the CUDA-core route (``tensor_cores=False``).  No
     single PyTorch call computes a scan's or the gated norm's backward:
     their library time is None.  Each scan's backward at these shapes is
     also held against that plain autograd at SCAN_BWD_REL (bf16 inputs):
@@ -5920,58 +5935,74 @@ def phase_timing_train_recurrent(dev, smi: str) -> dict:
 
     rcfg = get_config(TRAIN_RWKV_ARCH)
     B, S, H, K = TRAIN_REC_B, TRAIN_S, rcfg.rwkv_heads, rcfg.rwkv_head_dim
+    routes = {True: "tensor cores", False: "CUDA cores"}
     r, k, v, w, u, _ = rwkv_case(rng, dev, bf16, B, S, H, K, K)
     gy = torch.randn(B, S, H, K, device=dev)
-    ms = queued_ms(lambda: rwkv6_scan_bwd_cuda(r, k, v, w, u, None, gy),
-                   iters=3)
+    ms = {tc: queued_ms(lambda: rwkv6_scan_bwd_cuda(
+        r, k, v, w, u, None, gy, tensor_cores=tc), iters=3) for tc in routes}
     plain, want = plain_autograd(ref.rwkv6_scan,
                                  (r[:1], k[:1], v[:1], w[:1], u), gy[:1])
-    got = rwkv6_scan_bwd_cuda(r, k, v, w, u, None, gy)
-    err = s2048_gap(f"rwkv6_scan_bwd B={B} H={H} K=V={K}, row 0",
-                    ("dr", "dk", "dv", "dw"), [g[:1] for g in got[:4]],
-                    want[:4])
-    got = rwkv6_scan_bwd_cuda(r[:1], k[:1], v[:1], w[:1], u, None, gy[:1])
-    err = max(err, s2048_gap(f"rwkv6_scan_bwd B=1 H={H} K=V={K}", ("du",),
-                             got[4:5], want[4:5]))
-    del got, want
+    err = 0.0
+    for tc, tag in routes.items():
+        got = rwkv6_scan_bwd_cuda(r, k, v, w, u, None, gy, tensor_cores=tc)
+        err = max(err, s2048_gap(
+            f"rwkv6_scan_bwd ({tag}) B={B} H={H} K=V={K}, row 0",
+            ("dr", "dk", "dv", "dw"), [g[:1] for g in got[:4]], want[:4]))
+        got = rwkv6_scan_bwd_cuda(r[:1], k[:1], v[:1], w[:1], u, None,
+                                  gy[:1], tensor_cores=tc)
+        err = max(err, s2048_gap(
+            f"rwkv6_scan_bwd ({tag}) B=1 H={H} K=V={K}", ("du",), got[4:5],
+            want[4:5]))
+        del got
+    del want
     cost = scan_bwd_cost("rwkv6", B, S, H, K, K, 2)
     b, by = bound(*cost, "tf32")
     f32_b, f32_by = bound(*cost, torch.float32)
     out["rwkv6_scan_bwd"] = dict(
-        ms=ms, plain_ms=plain, plain_shape=[1, S, H, K, K], library_ms=None,
-        bound_ms=b, bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
+        ms=ms[True], cuda_core_ms=ms[False], plain_ms=plain,
+        plain_shape=[1, S, H, K, K], library_ms=None, bound_ms=b,
+        bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
         shape=f"B={B} S={S} H={H} K=V={K} r/k/v bf16, no state", card=smi)
     log(f"timing rwkv6_scan_bwd [B={B} S={S} H={H} K=V={K} r/k/v bf16; "
-        f"{smi}]: device kernel {ms:.4f} ms (two launches), plain "
-        f"(autograd, float32, B 1) {plain:.2f} ms, no single PyTorch call, "
-        f"bound {b:.4f} ms ({by}, operations at the TF32 peak; at the "
-        f"float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
+        f"{smi}]: device kernel {ms[True]:.4f} ms (the chunk-parallel "
+        f"tensor-core route, six launches; the CUDA-core route "
+        f"{ms[False]:.4f} ms, two launches, {ms[False] / ms[True]:.2f}x), "
+        f"plain (autograd, float32, B 1) {plain:.2f} ms, no single PyTorch "
+        f"call, bound {b:.4f} ms ({by}, operations at the TF32 peak; at "
+        f"the float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
     del r, k, v, w, u, gy
     zcfg = get_config(TRAIN_ZAMBA_ARCH)
     H, P, N = zcfg.ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
     xdt, la, bm, cm, _ = ssd_case(rng, dev, bf16, B, S, H, P, N)
     gy = torch.randn(B, S, H, P, device=dev)
-    ms = queued_ms(lambda: ssd_scan_bwd_cuda(xdt, la, bm, cm, None, gy),
-                   iters=3)
+    ms = {tc: queued_ms(lambda: ssd_scan_bwd_cuda(
+        xdt, la, bm, cm, None, gy, tensor_cores=tc), iters=3)
+        for tc in routes}
     plain, want = plain_autograd(ref.ssd_scan,
                                  (xdt[:1], la[:1], bm[:1], cm[:1]), gy[:1])
-    got = ssd_scan_bwd_cuda(xdt, la, bm, cm, None, gy)
-    err = s2048_gap(f"ssd_scan_bwd B={B} H={H} P={P} N={N}, row 0",
-                    ("dxdt", "dla", "dB", "dC"), [g[:1] for g in got[:4]],
-                    want)
-    del got, want
+    err = 0.0
+    for tc, tag in routes.items():
+        got = ssd_scan_bwd_cuda(xdt, la, bm, cm, None, gy, tensor_cores=tc)
+        err = max(err, s2048_gap(
+            f"ssd_scan_bwd ({tag}) B={B} H={H} P={P} N={N}, row 0",
+            ("dxdt", "dla", "dB", "dC"), [g[:1] for g in got[:4]], want))
+        del got
+    del want
     cost = scan_bwd_cost("ssd", B, S, H, P, N, 2)
     b, by = bound(*cost, "tf32")
     f32_b, f32_by = bound(*cost, torch.float32)
     out["ssd_scan_bwd"] = dict(
-        ms=ms, plain_ms=plain, plain_shape=[1, S, H, P, N], library_ms=None,
-        bound_ms=b, bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
+        ms=ms[True], cuda_core_ms=ms[False], plain_ms=plain,
+        plain_shape=[1, S, H, P, N], library_ms=None, bound_ms=b,
+        bound_by=by, bound_f32_ms=f32_b, max_abs_err=err,
         shape=f"B={B} S={S} H={H} P={P} N={N} B/C bf16, no state", card=smi)
     log(f"timing ssd_scan_bwd [B={B} S={S} H={H} P={P} N={N} B/C bf16; "
-        f"{smi}]: device kernel {ms:.4f} ms (two launches), plain "
-        f"(autograd, float32, B 1) {plain:.2f} ms, no single PyTorch call, "
-        f"bound {b:.4f} ms ({by}, operations at the TF32 peak; at the "
-        f"float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
+        f"{smi}]: device kernel {ms[True]:.4f} ms (the chunk-parallel "
+        f"tensor-core route, five launches; the CUDA-core route "
+        f"{ms[False]:.4f} ms, two launches, {ms[False] / ms[True]:.2f}x), "
+        f"plain (autograd, float32, B 1) {plain:.2f} ms, no single PyTorch "
+        f"call, bound {b:.4f} ms ({by}, operations at the TF32 peak; at "
+        f"the float32 CUDA-core peak {f32_b:.4f} ms, {f32_by})")
     del xdt, la, bm, cm, gy
     rows, d = TRAIN_GATED_CASES[0]
     y = torch.randn(rows, d, device=dev)
@@ -6511,14 +6542,18 @@ SOURCES = {
 # the CUDA kernels behind each wrapper that has more than one: its routes'
 # kernels, in launch order
 DEVICE_KERNELS = {
-    "rwkv6_scan": ["rwkv6_chunk_state_kernel", "rwkv6_chunk_pass_kernel",
+    "rwkv6_scan": ["rwkv6_chunk_state_kernel", "chunk_pass_kernel",
                    "rwkv6_chunk_out_kernel", "rwkv6_scan_kernel"],
     "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
                  "ssd_scan_kernel"],
     "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
     "rmsnorm_gated_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
-    "rwkv6_scan_bwd": ["rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd_du_kernel"],
-    "ssd_scan_bwd": ["ssd_scan_bwd_kernel", "ssd_scan_bwd_bc_kernel"],
+    "rwkv6_scan_bwd": ["rwkv6_chunk_state_kernel", "chunk_pass_kernel",
+                       "rwkv6_chunk_bwd_kernel", "rwkv6_scan_bwd_du_kernel",
+                       "rwkv6_scan_bwd_kernel"],
+    "ssd_scan_bwd": ["ssd_bwd_chunk_state_kernel", "chunk_pass_kernel",
+                     "ssd_chunk_bwd_kernel", "ssd_scan_bwd_bc_kernel",
+                     "ssd_scan_bwd_kernel"],
     "flash_attention": ["flash_attention_tc_kernel",
                         "flash_attention_kernel"],
     "flash_attention_bwd": ["fa_bwd_delta_kernel", "fa_bwd_dq_tc_kernel",
@@ -6551,15 +6586,16 @@ def main() -> int:
     # route at every D; paged attention's split kernel (float and int8
     # pages) at 4 accumulator columns a lane, D 97-128, and the combine;
     # the wkv kernels: the CUDA-core one at K 64, the tensor-core route's
-    # three; the SSD kernels: the CUDA-core one at N = P = 64, the
-    # tensor-core route's two
+    # three (the pass shared with the SSD's backward); the SSD kernels: the
+    # CUDA-core one at N = P = 64, the tensor-core route's two; the scan
+    # backwards' on both routes
     for line in (ptxas_report("flash_attention_tc_kernel")
                  + ptxas_report("flash_attention_kernel")
                  + ptxas_report("paged_attention_split_kernel", "Li4E")
                  + ptxas_report("paged_attention_combine_kernel")
                  + ptxas_report("rwkv6_scan_kernel", "ILi64E")
                  + ptxas_report("rwkv6_chunk_state_kernel")
-                 + ptxas_report("rwkv6_chunk_pass_kernel")
+                 + ptxas_report("chunk_pass_kernel")
                  + ptxas_report("rwkv6_chunk_out_kernel")
                  + ptxas_report("ssd_scan_kernel", "ILi64ELi64E")
                  + ptxas_report("ssd_seg_state_kernel")
@@ -6569,7 +6605,10 @@ def main() -> int:
                  + ptxas_report("fa_bwd", "Li128E")
                  + ptxas_report("fa_bwd", "Li256E")
                  + ptxas_report("rwkv6_scan_bwd_kernel", "ILi64E")
-                 + ptxas_report("ssd_scan_bwd_kernel", "ILi64E")):
+                 + ptxas_report("ssd_scan_bwd_kernel", "ILi64E")
+                 + ptxas_report("rwkv6_chunk_bwd_kernel")
+                 + ptxas_report("ssd_bwd_chunk_state_kernel")
+                 + ptxas_report("ssd_chunk_bwd_kernel")):
         log(f"ptxas {line}")
     lib = build.library()
     log("dynamic shared memory of the tensor-core routes: wkv launches 1 "
@@ -6784,6 +6823,8 @@ def main() -> int:
                        "train_step_ms": run["host_ms"],
                        "train_device_ms": run["device_ms"]}
         launches[name] = run["launches"][name]
+        if f"{name}_tc" in run["launches"]:
+            launches[f"{name}_tc"] = run["launches"][f"{name}_tc"]
     for name, run in (("rwkv6_scan", train_rwkv), ("ssd_scan", train_zamba)):
         times[name]["train_launches"] = {
             k: run["launches"][k] for k in (name, f"{name}_tc")}
@@ -6878,7 +6919,7 @@ def main() -> int:
                 "offset", "train_mesh_launches", "train_moe_launches",
                 "cores", "with_lse_ms", "s2048_with_lse_ms", "zamba_d112",
                 "train_zamba_launches", "train_step_ms", "train_device_ms",
-                "plain_shape", "card") if k in t}})
+                "plain_shape", "card", "cuda_core_ms") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

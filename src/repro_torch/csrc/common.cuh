@@ -142,3 +142,67 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi,
   mma_tf32_1688(d, a_hi, b_lo[0], b_lo[1]);
   mma_tf32_1688(d, a_hi, b_hi[0], b_hi[1]);
 }
+
+// -- the chunk passes of the scans' tensor-core routes ---------------------
+
+namespace {
+
+constexpr int kPassThreads = 256;
+constexpr int kPassGroup = 4;    // chunks whose loads are in flight at once
+
+// The chunks of a (batch, head) in order, one thread a state element of a
+// 64 x 64 state: slot i of the workspace holds a chunk's own contribution x
+// on entry, and on exit the value s had when the walk reached it, s <- dec
+// s + x from s = init (null: zeros).  The walk goes up the slots; slot i
+// holds chunk i (kReverse false: s is the state entering the chunk) or
+// chunk nc - 1 - i (kReverse true: the chunks walked down, s the gradient
+// that reaches the chunk's last state from later steps, ending as the
+// initial state's), so that both walks read memory upward (walking down
+// the addresses was the slower at the training shapes on an H100).  The
+// last s goes to out (null: not wanted; it may alias init: each element is read
+// before it is written).  dec holds one value a chunk and state row
+// (kRowDecay: B4) or a chunk (B5), by chunk.  No reduction: bound by
+// bytes, the workspace read and written once, the loads of kPassGroup
+// chunks in flight before their updates.
+template <bool kReverse, bool kRowDecay>
+__global__ void __launch_bounds__(kPassThreads)
+chunk_pass_kernel(float* ws, const float* __restrict__ dec, const float* init,
+                  float* out, int heads, int nc) {
+  constexpr int kDim = 64, E = kDim * kDim;
+  constexpr int kDecStride = kRowDecay ? kDim : 1;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kPassThreads +
+                     threadIdx.x;
+  if (idx >= static_cast<size_t>(heads) * E) return;
+  const size_t hd = idx / E;
+  const int e = static_cast<int>(idx - hd * E);
+  float* p = ws + hd * nc * E + e;
+  const float* d = kRowDecay ? dec + hd * nc * kDim + e / kDim : dec + hd * nc;
+  auto dec_at = [&](int slot) {
+    return d[static_cast<size_t>(kReverse ? nc - 1 - slot : slot) *
+             kDecStride];
+  };
+  float s = init ? init[idx] : 0.f;
+  int i = 0;
+  for (; i + kPassGroup <= nc; i += kPassGroup) {
+    float x[kPassGroup], f[kPassGroup];
+#pragma unroll
+    for (int j = 0; j < kPassGroup; ++j) {
+      x[j] = p[static_cast<size_t>(i + j) * E];
+      f[j] = dec_at(i + j);
+    }
+#pragma unroll
+    for (int j = 0; j < kPassGroup; ++j) {
+      p[static_cast<size_t>(i + j) * E] = s;
+      s = fmaf(f[j], s, x[j]);
+    }
+  }
+  for (; i < nc; ++i) {
+    const float x = p[static_cast<size_t>(i) * E];
+    const float f = dec_at(i);
+    p[static_cast<size_t>(i) * E] = s;
+    s = fmaf(f, s, x);
+  }
+  if (out) out[idx] = s;
+}
+
+}  // namespace

@@ -877,7 +877,7 @@ namespace {
 // Replaces no TPU kernel (the reference trains through jnp, and no Pallas
 // kernel has a VJP); it is B5's backward for training on the card.
 //
-// Design, as B4's backward (csrc/rwkv6_scan.cu): one block per (batch,
+// The CUDA-core route, as B4's (csrc/rwkv6_scan.cu): one block per (batch,
 // head) holds the N x P state, a thread a row segment of 16 columns; dB
 // and dC are sums along a row (16 terms, then NQ lanes), dxdt a sum down a
 // column (shuffles over a warp's rows, then the warps' partials through
@@ -890,12 +890,13 @@ namespace {
 // float32 workspace (B S H N, one for each), a second kernel sums them in
 // head order.  No float atomics: two runs give the same bits.
 //
-// Bound on this card: about 12 flops a state element and step (the
-// recompute aside), so at the zamba2-7b training shape (B 4, S 2048, H
-// 112, N = P = 64) 45 GFLOP, 0.67 ms at the 67 TFLOP/s float32 CUDA-core
-// peak, against 0.35 GB of inputs and gradients (0.1 ms): operations.  A
-// simple kernel that is right first, on CUDA cores; the chunked
-// tensor-core form of the forward is the later design (ROADMAP Queue B).
+// Bound on this card at the zamba2-7b training shape (B 4, S 2048, H 112,
+// N = P = 64): bytes, the inputs read once and the gradients written once,
+// 716 MB, 0.2138 ms at 3.35 TB/s (chip_smoke.py's scan_bwd_cost; its 56.4
+// GFLOP take 0.84 ms at the 67 TFLOP/s float32 CUDA-core peak, 0.11 at the
+// TF32 tensor-core peak).  448 blocks walking 2048 dependent steps in 4
+// waves (13.9 ms there): the route for what the tensor-core route below
+// does not take (float32 B and C, other widths, S < 64).
 
 constexpr int kBwdCols = 16;    // state columns a thread holds
 constexpr int kBwdChunk = 32;   // steps staged at once; stored-state interval
@@ -1116,6 +1117,693 @@ cudaError_t launch_bwd(const float* xdt, const float* la, const void* bm,
   return cudaGetLastError();
 }
 
+
+// -- backward, the tensor-core route: chunk-parallel ------------------------
+//
+// N = P = 64, bf16 B and C, S >= 64 (the forward's rule,
+// kernels/ssd_scan.py:backward_tensor_core_route), in the forward's chunks
+// of kTQ steps and decay pieces.  With S_c the state entering chunk c, G_c
+// the gradient that reaches its last state from later steps, cs the
+// chunk's inclusive cumsum of la, e_i = exp(cs_i), w_j = exp(cs_last -
+// cs_j) and dec_c = exp(cs_last):
+//   1. per (batch, chunk, group of kBwdGroup heads): each head's state
+//      contribution dS_c = B^T (w o xdt) and gradient contribution dG_c =
+//      C^T (e o dy) (B, C exact, the other side split: two TF32 products
+//      each) and dec_c;
+//   2-3. two passes, one thread a state element (common.cuh): S_{c+1} =
+//      dec_c S_c + dS_c up the chunks from state0, G_{c-1} = dec_c G_c +
+//      dG_c down them from dsT, ending in dstate0;
+//   4. per (batch, chunk, group), in parallel: CB = C B^T once for the
+//      group (bf16 m16n8k16, exact), then per head, with L_kj = exp(cs_k -
+//      cs_j) for j <= k (0 above, never formed), DX = dy xdt^T, D = DX o L
+//      and M = CB o L:
+//        dxdt = M^T dy + w o (B G_c)
+//        dC  += D B + e o (dy S_c^T),     dB += D^T C + w o (xdt G_c^T)
+//        dla_t = sum_{k>=t, j<t} CB_kj D_kj + sum_{k>=t} alpha_k
+//                + sum_{j<t} beta_j + dec_c <G_c, S_c>,
+//      alpha_k = C_k . (e o dy S_c^T)_k, beta_j = xdt_j . (w o B G_c)_j:
+//      dla as a_t <G_t, S_{t-1}> written out, every term a direct sum (no
+//      difference of two long sums, every exponent <= 0).  dB and dC sum
+//      the group's heads in registers, in head order, into one partial a
+//      group;
+//   5. dB and dC: the groups' partials summed in group order.
+// Products with both sides float32 take three TF32 products, those with a
+// bf16 side two.  So 1792 blocks at the zamba2-7b training shape (B 4, S
+// 2048, H 112) in launches 1 and 4 instead of 448 blocks that each walk
+// 2048 steps, and dB/dC partials of B S (H / 8) N float32 (59 MB there)
+// instead of B S H N (470 MB).  The workspace holds S_c and G_c for every
+// chunk and head, 2 x 4 B x B H ceil(S / 64) N P (470 MB there, as the
+// CUDA-core route's states every 32 steps).  No float atomics: two runs
+// give the same bits.
+//
+// Bound on this card at the training shape: bytes, 0.2138 ms (above).
+// Measured (NVIDIA H100 80GB HBM3 at 700 W, launch/scan_timing.py: CUDA
+// events a call, torch.profiler a launch): 2.79 ms, 13x the bound, the
+// CUDA-core route 13.74 ms in the same run; launch 4 is 1.58 ms of it
+// (one block of 8 warps an SM: 150 KB of shared memory), launch 1 0.38
+// and the two passes 0.78 (the workspace read and written once each way,
+// 0.94 GB).
+
+constexpr int kBwdGroup = 8;            // heads a block: one C B^T, partial
+constexpr int kBwdStateThreads = 128;   // launch 1: 4 warps, 16 state rows
+constexpr int kBwdOutThreads = 256;     // launch 4: 8 warps
+constexpr int kLdT = kTQ + 4;           // row stride of launch 4's float tiles
+
+// e_i = exp(cs_i) of each head's chunk (an exponent of at most 16 terms
+// plus the earlier sub-chunks' sums, all <= 0)
+__device__ __forceinline__ void chunk_eweights(const Decay* dk, int nh,
+                                               float* e_s) {
+  for (int e = threadIdx.x; e < nh * kTQ; e += blockDim.x) {
+    const int hh = e / kTQ, i = e - hh * kTQ;
+    e_s[e] = expf(dk[hh].l[i] + totals(dk[hh], 0, i / kTSub));
+  }
+}
+
+// Copy a chunk's kTQ rows of 64 float32 (row stride src_ld) into dst[row]
+// [ld] by cp.async; rows at or past `rows` are zero-filled.
+__device__ __forceinline__ void copy_rows_ld(float* dst, int ld,
+                                             const float* src, size_t src_ld,
+                                             int rows) {
+  for (int e = threadIdx.x; e < kTQ * kTD / 4; e += blockDim.x) {
+    const int t = e / (kTD / 4), c = (e - t * (kTD / 4)) * 4;
+    const bool live = t < rows;
+    cp_async16(dst + t * ld + c, live ? src + t * src_ld + c : src,
+               live ? 16 : 0);
+  }
+}
+
+// Launch 1: block (b, chunk c, group); warp w takes state rows n 16 w ..
+// + 15, all 64 columns p, of each head's dS_c and dG_c in turn.
+__global__ void __launch_bounds__(kBwdStateThreads)
+ssd_bwd_chunk_state_kernel(const float* __restrict__ xdt,
+                           const float* __restrict__ la,
+                           const __nv_bfloat16* __restrict__ bm,
+                           const __nv_bfloat16* __restrict__ cm,
+                           const float* __restrict__ dy,
+                           float* __restrict__ ws_s, float* __restrict__ ws_g,
+                           float* __restrict__ dec, int S, int H, int nc,
+                           int ngrp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* x_s = reinterpret_cast<float*>(smem_raw);        // [kTQ][kLdF]
+  float* dy_s = x_s + kTQ * kLdF;                          // [kTQ][kLdF]
+  __nv_bfloat16* b_s =
+      reinterpret_cast<__nv_bfloat16*>(dy_s + kTQ * kLdF);  // [kTQ][kLdH]
+  __nv_bfloat16* c_s = b_s + kTQ * kLdH;                   // [kTQ][kLdH]
+  Decay* dk = reinterpret_cast<Decay*>(c_s + kTQ * kLdH);  // [kBwdGroup]
+  float* w_s = reinterpret_cast<float*>(dk + kBwdGroup);   // [group][kTQ]
+  float* e_s = w_s + kBwdGroup * kTQ;                      // [group][kTQ]
+  float* dc_s = e_s + kBwdGroup * kTQ;                     // [group]
+  const int grp = blockIdx.x % ngrp, bc = blockIdx.x / ngrp;
+  const int c = bc % nc, b = bc / nc;
+  const int h0 = grp * kBwdGroup, nh = min(kBwdGroup, H - h0);
+  const int t0 = c * kTQ, rows = min(kTQ, S - t0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3, m0 = warp * 16;
+  const size_t xrow = static_cast<size_t>(H) * kTD;
+  const size_t bc_off = (static_cast<size_t>(b) * S + t0) * kTD;
+
+  copy_bf16_rows(b_s, bm + bc_off, rows);
+  copy_bf16_rows(c_s, cm + bc_off, rows);
+  cp_async_commit();
+  for (int h4 = 0; h4 < nh; h4 += 4)
+    decay_pieces(dk + h4, la, b, t0, S, H, h0 + h4, min(4, nh - h4));
+  __syncthreads();
+  chunk_weights(dk, nh, w_s, dc_s);
+  chunk_eweights(dk, nh, e_s);
+  for (int hh = 0; hh < nh; ++hh) {
+    const size_t off = (static_cast<size_t>(b) * S + t0) * xrow +
+                       static_cast<size_t>(h0 + hh) * kTD;
+    copy_rows(x_s, xdt + off, xrow, rows);
+    copy_rows(dy_s, dy + off, xrow, rows);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // dS = B^T (w o xdt), dG = C^T (e o dy): B, C exact, the rest split
+    float accS[kTD / 8][4] = {}, accG[kTD / 8][4] = {};
+    const float* wj = w_s + hh * kTQ;
+    const float* ej = e_s + hh * kTQ;
+#pragma unroll 2
+    for (int ks = 0; ks < kTQ / 8; ++ks) {
+      const int j0 = ks * 8 + q, j1 = j0 + 4;
+      uint32_t ab[4], ac[4];
+      ab[0] = __float_as_uint(bf16_at(b_s + j0 * kLdH + m0 + g));
+      ab[1] = __float_as_uint(bf16_at(b_s + j0 * kLdH + m0 + g + 8));
+      ab[2] = __float_as_uint(bf16_at(b_s + j1 * kLdH + m0 + g));
+      ab[3] = __float_as_uint(bf16_at(b_s + j1 * kLdH + m0 + g + 8));
+      ac[0] = __float_as_uint(bf16_at(c_s + j0 * kLdH + m0 + g));
+      ac[1] = __float_as_uint(bf16_at(c_s + j0 * kLdH + m0 + g + 8));
+      ac[2] = __float_as_uint(bf16_at(c_s + j1 * kLdH + m0 + g));
+      ac[3] = __float_as_uint(bf16_at(c_s + j1 * kLdH + m0 + g + 8));
+      const float w0 = wj[j0], w1 = wj[j1], e0 = ej[j0], e1 = ej[j1];
+#pragma unroll
+      for (int n4 = 0; n4 < kTD / 8; ++n4) {
+        const int col = n4 * 8 + g;
+        uint32_t hi[2], lo[2];
+        split_tf32(w0 * x_s[j0 * kLdF + col], hi[0], lo[0]);
+        split_tf32(w1 * x_s[j1 * kLdF + col], hi[1], lo[1]);
+        mma_tf32_1688(accS[n4], ab, lo[0], lo[1]);
+        mma_tf32_1688(accS[n4], ab, hi[0], hi[1]);
+        split_tf32(e0 * dy_s[j0 * kLdF + col], hi[0], lo[0]);
+        split_tf32(e1 * dy_s[j1 * kLdF + col], hi[1], lo[1]);
+        mma_tf32_1688(accG[n4], ac, lo[0], lo[1]);
+        mma_tf32_1688(accG[n4], ac, hi[0], hi[1]);
+      }
+    }
+    // the gradient workspace holds a head's chunks last first (common.cuh's
+    // chunk_pass_kernel walks them up the addresses)
+    const size_t head = static_cast<size_t>(b) * H + h0 + hh;
+    const size_t slot = (head * nc + c) * kTD * kTD;
+    const size_t gslot = (head * nc + nc - 1 - c) * kTD * kTD;
+#pragma unroll
+    for (int n4 = 0; n4 < kTD / 8; ++n4) {
+      const int col = n4 * 8 + 2 * q;
+      *reinterpret_cast<float2*>(ws_s + slot + (m0 + g) * kTD + col) =
+          make_float2(accS[n4][0], accS[n4][1]);
+      *reinterpret_cast<float2*>(ws_s + slot + (m0 + g + 8) * kTD + col) =
+          make_float2(accS[n4][2], accS[n4][3]);
+      *reinterpret_cast<float2*>(ws_g + gslot + (m0 + g) * kTD + col) =
+          make_float2(accG[n4][0], accG[n4][1]);
+      *reinterpret_cast<float2*>(ws_g + gslot + (m0 + g + 8) * kTD + col) =
+          make_float2(accG[n4][2], accG[n4][3]);
+    }
+    if (threadIdx.x == 0)
+      dec[(static_cast<size_t>(b) * H + h0 + hh) * nc + c] = dc_s[hh];
+    __syncthreads();                   // x and dy are refilled next
+  }
+}
+
+// A fragment (rows m0 + g, + 8; columns k0 + c, + 4) of a float tile stored
+// [m][k] (kT false) or [k][m] (kT true), split
+template <bool kT>
+__device__ __forceinline__ void tile_a(const float* t, int m0, int k0,
+                                       int lane, uint32_t* hi, uint32_t* lo) {
+  const int g = lane >> 2, c = lane & 3;
+  const int m[4] = {m0 + g, m0 + g + 8, m0 + g, m0 + g + 8};
+  const int k[4] = {k0 + c, k0 + c, k0 + c + 4, k0 + c + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split_tf32(kT ? t[k[e] * kLdT + m[e]] : t[m[e] * kLdT + k[e]], hi[e],
+               lo[e]);
+}
+
+// B fragment (rows k0 + c, + 4; column n0 + g) of a float tile stored
+// [n][k] (kT false) or [k][n] (kT true), split
+template <bool kT>
+__device__ __forceinline__ void tile_b(const float* t, int k0, int n0,
+                                       int lane, uint32_t* hi, uint32_t* lo) {
+  const int g = lane >> 2, c = lane & 3;
+  const int n = n0 + g, k[2] = {k0 + c, k0 + c + 4};
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    split_tf32(kT ? t[k[e] * kLdT + n] : t[n * kLdT + k[e]], hi[e], lo[e]);
+}
+
+// A fragment of a bf16 tile stored [m][k] (exact in TF32)
+__device__ __forceinline__ void bf16_a(const __nv_bfloat16* t, int m0, int k0,
+                                       int lane, uint32_t* a) {
+  const int g = lane >> 2, c = lane & 3;
+  a[0] = __float_as_uint(bf16_at(t + (m0 + g) * kLdH + k0 + c));
+  a[1] = __float_as_uint(bf16_at(t + (m0 + g + 8) * kLdH + k0 + c));
+  a[2] = __float_as_uint(bf16_at(t + (m0 + g) * kLdH + k0 + c + 4));
+  a[3] = __float_as_uint(bf16_at(t + (m0 + g + 8) * kLdH + k0 + c + 4));
+}
+
+// B fragment of a bf16 tile stored [k][n] (exact in TF32)
+__device__ __forceinline__ void bf16_b(const __nv_bfloat16* t, int k0, int n0,
+                                       int lane, uint32_t* b) {
+  const int g = lane >> 2, c = lane & 3;
+  b[0] = __float_as_uint(bf16_at(t + (k0 + c) * kLdH + n0 + g));
+  b[1] = __float_as_uint(bf16_at(t + (k0 + c + 4) * kLdH + n0 + g));
+}
+
+// d += a b, a split (hi, lo) and b exact: two products
+__device__ __forceinline__ void mma_2a(float* d, const uint32_t* a_hi,
+                                       const uint32_t* a_lo,
+                                       const uint32_t* b) {
+  mma_tf32_1688(d, a_lo, b[0], b[1]);
+  mma_tf32_1688(d, a_hi, b[0], b[1]);
+}
+
+// d += a b, a exact and b split (hi, lo): two products
+__device__ __forceinline__ void mma_2b(float* d, const uint32_t* a,
+                                       const uint32_t* b_hi,
+                                       const uint32_t* b_lo) {
+  mma_tf32_1688(d, a, b_lo[0], b_lo[1]);
+  mma_tf32_1688(d, a, b_hi[0], b_hi[1]);
+}
+
+// Launch 4: block (b, chunk c, group), 8 warps; warp (rs, half) = (warp &
+// 3, warp >> 2) owns rows 16 rs .. + 15 of the chunk and columns 32 half ..
+// + 31 (four n-tiles) of dxdt, dB and dC.  Per head: the tiles arrive by
+// cp.async (the next head's during this one's dla; a second buffer that
+// loads it during the whole head measured no faster);
+// phase A forms D and M
+// (the lower column tiles of the warp's rows, interleaved between the
+// halves); phase B the products; phase C dla from row prefix and column
+// suffix sums of CB o D.
+__global__ void __launch_bounds__(kBwdOutThreads, 1)
+ssd_chunk_bwd_kernel(const float* __restrict__ xdt,
+                     const float* __restrict__ la,
+                     const __nv_bfloat16* __restrict__ bm,
+                     const __nv_bfloat16* __restrict__ cm,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ ws_s,
+                     const float* __restrict__ ws_g,
+                     float* __restrict__ dxdt, float* __restrict__ dla,
+                     float* __restrict__ db_part, float* __restrict__ dc_part,
+                     int S, int H, int nc, int ngrp) {
+  constexpr int ld = kLdT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cb_s = reinterpret_cast<float*>(smem_raw);        // [kTQ][ld] C B^T
+  float* x_s = cb_s + kTQ * ld;                             // [kTQ][ld]
+  float* dy_s = x_s + kTQ * ld;                             // [kTQ][ld]
+  float* sc_s = dy_s + kTQ * ld;                            // [kTD][ld] S_c
+  float* gc_s = sc_s + kTD * ld;                            // [kTD][ld] G_c
+  float* d_s = gc_s + kTD * ld;                             // [kTQ][ld] D
+  float* m_s = d_s + kTQ * ld;                              // [kTQ][ld] M
+  __nv_bfloat16* b_s =
+      reinterpret_cast<__nv_bfloat16*>(m_s + kTQ * ld);     // [kTQ][kLdH]
+  __nv_bfloat16* c_s = b_s + kTQ * kLdH;                    // [kTQ][kLdH]
+  Decay* dk = reinterpret_cast<Decay*>(c_s + kTQ * kLdH);   // [kBwdGroup]
+  float* w_s = reinterpret_cast<float*>(dk + kBwdGroup);    // [group][kTQ]
+  float* e_s = w_s + kBwdGroup * kTQ;                       // [group][kTQ]
+  float* dc_s = e_s + kBwdGroup * kTQ;                      // [group]
+  float* al_s = dc_s + kBwdGroup;                           // [2][kTQ]
+  float* be_s = al_s + 2 * kTQ;                             // [2][kTQ]
+  float* rect_s = be_s + 2 * kTQ;                           // [kTQ]
+  float* suf_s = rect_s + kTQ;                              // [kTQ]
+  float* pre_s = suf_s + kTQ;                               // [kTQ]
+  float* gm_s = pre_s + kTQ;                                // [8]
+  const int grp = blockIdx.x % ngrp, bc = blockIdx.x / ngrp;
+  const int c = bc % nc, b = bc / nc;
+  const int h0 = grp * kBwdGroup, nh = min(kBwdGroup, H - h0);
+  const int t0 = c * kTQ, rows = min(kTQ, S - t0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rs = warp & 3, half = warp >> 2;
+  const int g = lane >> 2, q = lane & 3, rb = rs * 16, cb = half * 32;
+  const size_t xrow = static_cast<size_t>(H) * kTD;
+  const size_t bc_off = (static_cast<size_t>(b) * S + t0) * kTD;
+  auto load_head = [&](int hh) {
+    const size_t off = (static_cast<size_t>(b) * S + t0) * xrow +
+                       static_cast<size_t>(h0 + hh) * kTD;
+    const size_t head = static_cast<size_t>(b) * H + h0 + hh;
+    const size_t slot = (head * nc + c) * kTD * kTD;
+    const size_t gslot = (head * nc + nc - 1 - c) * kTD * kTD;  // last first
+    copy_rows_ld(x_s, ld, xdt + off, xrow, rows);
+    copy_rows_ld(dy_s, ld, dy + off, xrow, rows);
+    copy_rows_ld(sc_s, ld, ws_s + slot, kTD, kTD);
+    copy_rows_ld(gc_s, ld, ws_g + gslot, kTD, kTD);
+    cp_async_commit();
+  };
+
+  copy_bf16_rows(b_s, bm + bc_off, rows);
+  copy_bf16_rows(c_s, cm + bc_off, rows);
+  cp_async_commit();
+  load_head(0);
+  for (int h4 = 0; h4 < nh; h4 += 4)
+    decay_pieces(dk + h4, la, b, t0, S, H, h0 + h4, min(4, nh - h4));
+  cp_async_wait<1>();                      // B and C (the first head's next)
+  __syncthreads();
+  chunk_weights(dk, nh, w_s, dc_s);
+  chunk_eweights(dk, nh, e_s);
+  // C B^T, rows of this warp, the column tiles up to its diagonal,
+  // interleaved between the halves: bf16 mma, exact products
+  for (int nt = half; nt < 2 * (rs + 1); nt += 2) {
+    float acc[4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kTD / 16; ++ks) {
+      const int col = ks * 16 + 2 * q;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(c_s + (rb + g) * kLdH + col);
+      a[1] = *reinterpret_cast<const uint32_t*>(c_s + (rb + g + 8) * kLdH +
+                                                col);
+      a[2] = *reinterpret_cast<const uint32_t*>(c_s + (rb + g) * kLdH + col +
+                                                8);
+      a[3] = *reinterpret_cast<const uint32_t*>(c_s + (rb + g + 8) * kLdH +
+                                                col + 8);
+      const __nv_bfloat16* brow = b_s + (nt * 8 + g) * kLdH + col;
+      mma_bf16_16816(acc, a, *reinterpret_cast<const uint32_t*>(brow),
+                     *reinterpret_cast<const uint32_t*>(brow + 8));
+    }
+    const int col = nt * 8 + 2 * q;
+    *reinterpret_cast<float2*>(cb_s + (rb + g) * ld + col) =
+        make_float2(acc[0], acc[1]);
+    *reinterpret_cast<float2*>(cb_s + (rb + g + 8) * ld + col) =
+        make_float2(acc[2], acc[3]);
+  }
+
+  float accB[4][4] = {}, accC[4][4] = {};  // the group's dB, dC
+  for (int hh = 0; hh < nh; ++hh) {
+    const int h = h0 + hh;
+    cp_async_wait<0>();
+    __syncthreads();                       // this head's tiles, C B^T
+    const Decay& d = dk[hh];
+    const float* wj = w_s + hh * kTQ;
+    const float* ej = e_s + hh * kTQ;
+
+    // phase A: D = (dy xdt^T) o L and M = CB o L, 0 above the diagonal
+    for (int nt = half; nt < 2 * (rs + 1); nt += 2) {
+      float acc[4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kTD / 8; ++ks) {
+        uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+        tile_a<false>(dy_s, rb, ks * 8, lane, a_hi, a_lo);
+        tile_b<false>(x_s, ks * 8, nt * 8, lane, b_hi, b_lo);
+        mma_3xtf32(acc, a_hi, a_lo, b_hi, b_lo);
+      }
+      const int bj = nt >> 1;
+      const float mid = bj < rs ? totals(d, bj + 1, rs) : 0.f;
+#pragma unroll
+      for (int hh2 = 0; hh2 < 2; ++hh2) {
+        const int i = rb + g + 8 * hh2;
+        float dv[2], mv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = nt * 8 + 2 * q + e;
+          dv[e] = mv[e] = 0.f;
+          if (j <= i) {
+            const float ex = bj == rs ? d.l[i] - d.l[j]
+                                      : d.l[i] + d.s[j] + mid;
+            const float L = expf(ex);
+            dv[e] = acc[2 * hh2 + e] * L;
+            mv[e] = cb_s[i * ld + j] * L;
+          }
+        }
+        *reinterpret_cast<float2*>(d_s + i * ld + nt * 8 + 2 * q) =
+            make_float2(dv[0], dv[1]);
+        *reinterpret_cast<float2*>(m_s + i * ld + nt * 8 + 2 * q) =
+            make_float2(mv[0], mv[1]);
+      }
+    }
+    __syncthreads();
+
+    // phase B.  dxdt = M^T dy + w o (B G_c); beta's partial sums
+    {
+      float acc1[4][4] = {}, acc2[4][4] = {};
+      for (int ks = 2 * rs; ks < kTQ / 8; ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        tile_a<true>(m_s, rb, ks * 8, lane, a_hi, a_lo);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t b_hi[2], b_lo[2];
+          tile_b<true>(dy_s, ks * 8, cb + nt * 8, lane, b_hi, b_lo);
+          mma_3xtf32(acc1[nt], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+#pragma unroll 2
+      for (int ks = 0; ks < kTD / 8; ++ks) {
+        uint32_t a[4];
+        bf16_a(b_s, rb, ks * 8, lane, a);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t b_hi[2], b_lo[2];
+          tile_b<true>(gc_s, ks * 8, cb + nt * 8, lane, b_hi, b_lo);
+          mma_2b(acc2[nt], a, b_hi, b_lo);
+        }
+      }
+#pragma unroll
+      for (int hh2 = 0; hh2 < 2; ++hh2) {
+        const int j = rb + g + 8 * hh2;
+        const float wv = wj[j];
+        float beta = 0.f;
+        float* row = dxdt + ((static_cast<size_t>(b) * S + t0 + j) * H + h) *
+                                kTD;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int p = cb + nt * 8 + 2 * q;
+          const float x0 = wv * acc2[nt][2 * hh2];
+          const float x1 = wv * acc2[nt][2 * hh2 + 1];
+          beta = fmaf(x_s[j * ld + p], x0, beta);
+          beta = fmaf(x_s[j * ld + p + 1], x1, beta);
+          if (j < rows)
+            *reinterpret_cast<float2*>(row + p) =
+                make_float2(acc1[nt][2 * hh2] + x0,
+                            acc1[nt][2 * hh2 + 1] + x1);
+        }
+        beta += __shfl_xor_sync(0xffffffffu, beta, 1);
+        beta += __shfl_xor_sync(0xffffffffu, beta, 2);
+        if (q == 0) be_s[half * kTQ + j] = beta;
+      }
+    }
+    // dC += D B + e o (dy S_c^T); alpha's partial sums
+    {
+      float E[4][4] = {};
+      for (int ks = 0; ks < 2 * (rs + 1); ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        tile_a<false>(d_s, rb, ks * 8, lane, a_hi, a_lo);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bb[2];
+          bf16_b(b_s, ks * 8, cb + nt * 8, lane, bb);
+          mma_2a(accC[nt], a_hi, a_lo, bb);
+        }
+      }
+#pragma unroll 2
+      for (int ks = 0; ks < kTD / 8; ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        tile_a<false>(dy_s, rb, ks * 8, lane, a_hi, a_lo);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t b_hi[2], b_lo[2];
+          tile_b<false>(sc_s, ks * 8, cb + nt * 8, lane, b_hi, b_lo);
+          mma_3xtf32(E[nt], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+#pragma unroll
+      for (int hh2 = 0; hh2 < 2; ++hh2) {
+        const int k = rb + g + 8 * hh2;
+        const float ev = ej[k];
+        float alpha = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = ev * E[nt][2 * hh2 + e];
+            accC[nt][2 * hh2 + e] += x;
+            alpha = fmaf(bf16_at(c_s + k * kLdH + cb + nt * 8 + 2 * q + e), x,
+                         alpha);
+          }
+        }
+        alpha += __shfl_xor_sync(0xffffffffu, alpha, 1);
+        alpha += __shfl_xor_sync(0xffffffffu, alpha, 2);
+        if (q == 0) al_s[half * kTQ + k] = alpha;
+      }
+    }
+    // dB += D^T C + w o (xdt G_c^T)
+    {
+      float X[4][4] = {};
+      for (int ks = 2 * rs; ks < kTQ / 8; ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        tile_a<true>(d_s, rb, ks * 8, lane, a_hi, a_lo);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bb[2];
+          bf16_b(c_s, ks * 8, cb + nt * 8, lane, bb);
+          mma_2a(accB[nt], a_hi, a_lo, bb);
+        }
+      }
+#pragma unroll 2
+      for (int ks = 0; ks < kTD / 8; ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        tile_a<false>(x_s, rb, ks * 8, lane, a_hi, a_lo);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t b_hi[2], b_lo[2];
+          tile_b<false>(gc_s, ks * 8, cb + nt * 8, lane, b_hi, b_lo);
+          mma_3xtf32(X[nt], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+#pragma unroll
+      for (int hh2 = 0; hh2 < 2; ++hh2) {
+        const float wv = wj[rb + g + 8 * hh2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          accB[nt][2 * hh2] = fmaf(wv, X[nt][2 * hh2], accB[nt][2 * hh2]);
+          accB[nt][2 * hh2 + 1] =
+              fmaf(wv, X[nt][2 * hh2 + 1], accB[nt][2 * hh2 + 1]);
+        }
+      }
+    }
+    {                                      // <G_c, S_c>, a warp's share
+      float x = 0.f;
+      for (int e = tid; e < kTD * kTD; e += kBwdOutThreads) {
+        const int n = e / kTD, p = e - n * kTD;
+        x = fmaf(gc_s[n * ld + p], sc_s[n * ld + p], x);
+      }
+      x = warp_sum(x);
+      if (lane == 0) gm_s[warp] = x;
+    }
+    __syncthreads();                       // x, dy, S_c, G_c are read
+    if (hh + 1 < nh) load_head(hh + 1);
+
+    // phase C: dla.  Row prefixes pre[k][t] = sum_{j<t} CB_kj D_kj (j < k)
+    // into M's tile, four threads a row, 16 columns each
+    {
+      const int k = tid >> 2, sg = tid & 3;
+      float tot = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int j = 16 * sg + jj;
+        if (j < k) tot = fmaf(cb_s[k * ld + j], d_s[k * ld + j], tot);
+      }
+      float incl = tot;
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, incl, o, 4);
+        if (sg >= o) incl += up;
+      }
+      float run = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+      if (sg == 0) run = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int j = 16 * sg + jj;
+        m_s[k * ld + j] = run;
+        if (j < k) run = fmaf(cb_s[k * ld + j], d_s[k * ld + j], run);
+      }
+    }
+    __syncthreads();
+    {                                      // column suffixes: rect_t
+      const int t = tid >> 2, sg = tid & 3;
+      float x = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int k = 16 * sg + kk;
+        if (k >= t) x += m_s[k * ld + t];
+      }
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      if (sg == 0) rect_s[t] = x;
+    }
+    if (warp == 0) {                       // suffix sums of alpha
+      float lo = al_s[lane] + al_s[kTQ + lane];
+      float hi = al_s[lane + 32] + al_s[kTQ + lane + 32];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float a = __shfl_down_sync(0xffffffffu, hi, o);
+        const float z = __shfl_down_sync(0xffffffffu, lo, o);
+        if (lane + o < 32) {
+          hi += a;
+          lo += z;
+        }
+      }
+      suf_s[lane + 32] = hi;
+      suf_s[lane] = lo + __shfl_sync(0xffffffffu, hi, 0);
+    } else if (warp == 1) {                // exclusive prefix sums of beta
+      float lo = be_s[lane] + be_s[kTQ + lane];
+      float hi = be_s[lane + 32] + be_s[kTQ + lane + 32];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float a = __shfl_up_sync(0xffffffffu, hi, o);
+        const float z = __shfl_up_sync(0xffffffffu, lo, o);
+        if (lane >= o) {
+          hi += a;
+          lo += z;
+        }
+      }
+      const float lo_total = __shfl_sync(0xffffffffu, lo, 31);
+      float ex_lo = __shfl_up_sync(0xffffffffu, lo, 1);
+      float ex_hi = __shfl_up_sync(0xffffffffu, hi, 1);
+      if (lane == 0) ex_lo = ex_hi = 0.f;
+      pre_s[lane] = ex_lo;
+      pre_s[lane + 32] = ex_hi + lo_total;
+    }
+    __syncthreads();
+    if (tid < rows) {
+      float gam = 0.f;
+#pragma unroll
+      for (int x = 0; x < kBwdOutThreads / 32; ++x) gam += gm_s[x];
+      dla[(static_cast<size_t>(b) * S + t0 + tid) * H + h] =
+          rect_s[tid] + suf_s[tid] + pre_s[tid] + dc_s[hh] * gam;
+    }
+  }
+  // the group's dB and dC partials
+#pragma unroll
+  for (int hh2 = 0; hh2 < 2; ++hh2) {
+    const int t = rb + g + 8 * hh2;
+    if (t < rows) {
+      const size_t row = ((static_cast<size_t>(b) * S + t0 + t) * ngrp + grp) *
+                         kTD;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = cb + nt * 8 + 2 * q;
+        *reinterpret_cast<float2*>(db_part + row + n) =
+            make_float2(accB[nt][2 * hh2], accB[nt][2 * hh2 + 1]);
+        *reinterpret_cast<float2*>(dc_part + row + n) =
+            make_float2(accC[nt][2 * hh2], accC[nt][2 * hh2 + 1]);
+      }
+    }
+  }
+}
+
+constexpr size_t kBwdStateSmem =
+    2 * kTQ * kLdF * sizeof(float) + 2 * kTQ * kLdH * sizeof(__nv_bfloat16) +
+    kBwdGroup * (sizeof(Decay) + 2 * kTQ * 4 + 4);
+constexpr size_t kBwdOutSmem =
+    (3 * kTQ * kLdT + 2 * kTD * kLdT + 2 * kTQ * kLdT) * sizeof(float) +
+    2 * kTQ * kLdH * sizeof(__nv_bfloat16) +
+    kBwdGroup * (sizeof(Decay) + 2 * kTQ * 4 + 4) +
+    (7 * kTQ + 8) * sizeof(float);
+
+cudaError_t launch_bwd_tc(const float* xdt, const float* la,
+                          const __nv_bfloat16* bm, const __nv_bfloat16* cm,
+                          const float* state0, const float* dy,
+                          const float* dsT, float* dxdt, float* dla,
+                          __nv_bfloat16* db, __nv_bfloat16* dc, float* ds0,
+                          float* db_part, float* dc_part, float* ws, int B,
+                          int S, int H, cudaStream_t stream) {
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_bwd_chunk_state_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kBwdStateSmem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(ssd_chunk_bwd_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kBwdOutSmem));
+  }();
+  if (attr != cudaSuccess) return attr;
+  const int nc = (S + kTQ - 1) / kTQ;
+  const int ngrp = (H + kBwdGroup - 1) / kBwdGroup;
+  const long long blocks = static_cast<long long>(B) * nc * ngrp;
+  const long long pass_blocks =
+      (static_cast<long long>(B) * H * kTD * kTD + kPassThreads - 1) /
+      kPassThreads;
+  const long long rows = static_cast<long long>(B) * S;
+  const long long bc_blocks = (rows * kTD + 255) / 256;
+  if (blocks > 0x7fffffffLL || pass_blocks > 0x7fffffffLL ||
+      bc_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const size_t states = static_cast<size_t>(B) * H * nc * kTD * kTD;
+  float* ws_s = ws;
+  float* ws_g = ws + states;
+  float* dec = ws_g + states;
+  ssd_bwd_chunk_state_kernel<<<static_cast<unsigned>(blocks),
+                               kBwdStateThreads, kBwdStateSmem, stream>>>(
+      xdt, la, bm, cm, dy, ws_s, ws_g, dec, S, H, nc, ngrp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_pass_kernel<false, false><<<static_cast<unsigned>(pass_blocks),
+                                    kPassThreads, 0, stream>>>(
+      ws_s, dec, state0, nullptr, B * H, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_pass_kernel<true, false><<<static_cast<unsigned>(pass_blocks),
+                                   kPassThreads, 0, stream>>>(
+      ws_g, dec, dsT, ds0, B * H, nc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_chunk_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdOutThreads,
+                         kBwdOutSmem, stream>>>(
+      xdt, la, bm, cm, dy, ws_s, ws_g, dxdt, dla, db_part, dc_part, S, H, nc,
+      ngrp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_scan_bwd_bc_kernel<__nv_bfloat16><<<static_cast<unsigned>(bc_blocks),
+                                          256, 0, stream>>>(
+      db_part, dc_part, db, dc, rows, ngrp, kTD);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // B5's backward: xdt, la, Bm/Cm (bc dtype), state0 (null: zeros), dy, dsT
@@ -1169,4 +1857,27 @@ extern "C" int ssd_scan_bwd_launch(
                                     s>>>(dbp, dcp, static_cast<float*>(db),
                                          static_cast<float*>(dc), rows, H, N);
   return cudaGetLastError();
+}
+
+// B5's backward on the tensor-core route: N = P = 64, bf16 B and C, S >=
+// 64.  Arguments as ssd_scan_bwd_launch's, but db_part and dc_part are
+// float32 B S ceil(H / 8) 64 (a partial a group of 8 heads) and ws float32
+// 2 B H ceil(S / 64) 64 64 + B H ceil(S / 64) (every chunk's entry state,
+// the gradient at its end, its decay).
+extern "C" int ssd_scan_bwd_tc_launch(
+    const void* xdt, const void* la, const void* bm, const void* cm,
+    const void* state0, const void* dy, const void* dsT, void* dxdt,
+    void* dla, void* db, void* dc, void* ds0, void* db_part, void* dc_part,
+    void* ws, int B, int S, int H, void* stream) {
+  if (B <= 0 || H <= 0 || S < kTQ) return cudaErrorInvalidValue;
+  return launch_bwd_tc(
+      static_cast<const float*>(xdt), static_cast<const float*>(la),
+      static_cast<const __nv_bfloat16*>(bm),
+      static_cast<const __nv_bfloat16*>(cm),
+      static_cast<const float*>(state0), static_cast<const float*>(dy),
+      static_cast<const float*>(dsT), static_cast<float*>(dxdt),
+      static_cast<float*>(dla), static_cast<__nv_bfloat16*>(db),
+      static_cast<__nv_bfloat16*>(dc), static_cast<float*>(ds0),
+      static_cast<float*>(db_part), static_cast<float*>(dc_part),
+      static_cast<float*>(ws), B, S, H, static_cast<cudaStream_t>(stream));
 }

@@ -77,6 +77,14 @@ _SIGNATURES = {
     # dla, dB, dC, ds0 (null: not wanted), dB and dC partials, workspace,
     # B, S, H, N, P, Bm/Cm dtype, stream
     "ssd_scan_bwd_launch": [_vp] * 15 + [_i] * 6 + [_vp],
+    # the same on the tensor-core route (K = V = 64): du_part a chunk,
+    # workspace the chunks' states, gradients and decays; B, S, H, r/k/v
+    # dtype, stream
+    "rwkv6_scan_bwd_tc_launch": [_vp] * 16 + [_i] * 4 + [_vp],
+    # the same on the tensor-core route (N = P = 64, bf16 Bm/Cm): dB and
+    # dC partials a group of heads, workspace the chunks' states,
+    # gradients and decays; B, S, H, stream
+    "ssd_scan_bwd_tc_launch": [_vp] * 15 + [_i] * 3 + [_vp],
     # y, z, dout, scale, dy, dz, workspace, dscale, rows, d, eps, z dtype,
     # scale dtype, stream
     "gated_rmsnorm_bwd_launch": [_vp] * 8 + [_i64, _i, _f, _i, _i, _vp],

@@ -5,8 +5,8 @@ the hand-written kernel (a build or launch failure raises; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.  Each
 wrapper counts kernel launches and plain calls in :data:`COUNTS`, so a run
 can show which route its main path took; :func:`reset_counts` zeroes them.
-Nine entries are sub-counts of a kernel's calls, not kernels of their
-own (three of them the backward's, below): ``rmsnorm_add`` and
+Eleven entries are sub-counts of a kernel's calls, not kernels of their
+own (five of them the backward's, below): ``rmsnorm_add`` and
 ``rmsnorm_gated`` count the RMSNorm calls (each
 one launch, all counted under ``rmsnorm``) of its fused variants, the
 residual add and Mamba-2's SiLU gate, on either route;
@@ -30,9 +30,15 @@ backward calls and its sub-count ``flash_attention_bwd_tc`` those on the
 tensor cores (bf16 at D 64 and 128, and 112 padded to 128: three launches,
 delta = rowsum(dO * O), dq, then dk and dv, reading the log-sum-exp the
 forward wrote; the CUDA-core route two: dq with the rows' log-sum-exp,
-then dk and dv), ``rwkv6_scan_bwd`` B4's (two launches: the gradients,
-then du summed over the batch rows) and ``ssd_scan_bwd`` B5's (two: the
-gradients, then dB and dC summed over the heads).  Their forward launches
+then dk and dv), ``rwkv6_scan_bwd`` B4's and ``ssd_scan_bwd`` B5's
+calls, and their sub-counts ``rwkv6_scan_bwd_tc`` / ``ssd_scan_bwd_tc``
+those on the chunk-parallel tensor-core route (the forward's rule: six
+launches for the wkv, the chunks' state and gradient contributions, the
+passes up and down the chunks, dr/dk/dv/dw with du's partials, du; five
+for the SSD, the contributions, the two passes, the gradients, dB and dC
+summed over the head groups); the CUDA-core route two each (the
+gradients, then du summed over the batch rows, or dB and dC over the
+heads).  Their forward launches
 count as serving's do; a scan under autograd takes no ``out_state`` (an
 in-place write into a tensor autograd tracks).  On the CPU autograd
 differentiates the plain versions.  Paged attention, which has no
@@ -76,7 +82,10 @@ COUNTS = {"rmsnorm": LaunchCount(), "paged_attention_mq": LaunchCount(),
           "rmsnorm_gated_bwd": LaunchCount(),
           "flash_attention_bwd": LaunchCount(),
           "flash_attention_bwd_tc": LaunchCount(),
-          "rwkv6_scan_bwd": LaunchCount(), "ssd_scan_bwd": LaunchCount()}
+          "rwkv6_scan_bwd": LaunchCount(), "ssd_scan_bwd": LaunchCount(),
+          # the scan backwards' sub-counts
+          "rwkv6_scan_bwd_tc": LaunchCount(),
+          "ssd_scan_bwd_tc": LaunchCount()}
 _count_lock = threading.Lock()
 
 
@@ -244,6 +253,8 @@ class _Rwkv6Scan(torch.autograd.Function):
         dr, dk, dv, dw, du, ds0 = _rw.rwkv6_scan_bwd_cuda(
             r, k, v, w, u, state0, dy, dsT)
         _count("rwkv6_scan_bwd", kernel=True)
+        if _rw.backward_tensor_core_route(r, v):
+            _count("rwkv6_scan_bwd_tc", kernel=True)
         return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du, ds0)
 
 
@@ -270,6 +281,8 @@ class _SsdScan(torch.autograd.Function):
         dxdt, dla, dB, dC, ds0 = _ssd.ssd_scan_bwd_cuda(
             xdt, la, Bm, Cm, state0, dy, dsT)
         _count("ssd_scan_bwd", kernel=True)
+        if _ssd.backward_tensor_core_route(xdt, Bm):
+            _count("ssd_scan_bwd_tc", kernel=True)
         return dxdt, dla, dB, dC, ds0
 
 

@@ -18,7 +18,9 @@ has two routes (:func:`tensor_core_route`, from shapes only): K = V = 64
 and at least one chunk of steps (every rwkv6-3b prefill) run chunk-parallel
 on the tensor cores, three launches over a float32 workspace the wrapper
 allocates; the rest (other widths, short prompts, every decode step) runs
-the time loop of one block per (batch, head) on CUDA cores.
+the time loop of one block per (batch, head) on CUDA cores.  Its backward
+(:func:`rwkv6_scan_bwd_cuda`, training) has the same two routes under the
+same rule (:func:`backward_tensor_core_route`).
 """
 from __future__ import annotations
 
@@ -159,21 +161,46 @@ def rwkv6_scan_cuda(r, k, v, w, u, state0=None, out_state=None):
     return y, out_state
 
 
-BWD_CHUNK = 32          # the backward's stored-state interval (steps)
+BWD_CHUNK = 32          # the CUDA-core backward's stored-state interval
 BWD_MAX_V = 64          # value columns the backward takes
 
 
-def rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dsT=None):
+def backward_tensor_core_route(r, v) -> bool:
+    """True when B4's backward of the call of ``r`` (B, S, H, K) and ``v``
+    (B, S, H, V) runs chunk-parallel on the tensor cores: the forward's
+    rule, K = V = 64 and S at least one chunk, float32 and bf16 r/k/v
+    alike.  Reads shapes only."""
+    return tensor_core_route(r, v)
+
+
+def bwd_workspace_elems(B: int, S: int, H: int) -> int:
+    """float32 elements of the backward's tensor-core workspace: each
+    chunk's 64 x 64 entry state and the 64 x 64 gradient at its end, and
+    its 64 decays, per (batch, head)."""
+    nc = -(-S // TC_CHUNK)
+    return B * H * nc * (2 * TC_WIDTH * TC_WIDTH + TC_WIDTH)
+
+
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dsT=None, *,
+                        tensor_cores=None):
     """Launch B4's backward on ``r``'s card: the gradients ``(dr, dk, dv,
     dw, du, dstate0)`` of :func:`rwkv6_scan_cuda`'s call on the same inputs
     from y's gradient ``dy`` and the final state's ``dsT`` (None: zero),
     all float32 (``dstate0`` None when ``state0`` is).  K is one of
-    :data:`HEAD_DIMS`, V at most :data:`BWD_MAX_V`; S at least 1.  The kernel
-    stores the state at the start of every :data:`BWD_CHUNK` steps in a
-    float32 workspace the wrapper allocates and recomputes the rest, and
-    ``du``, a sum over the batch rows, sums per-row partials in a second
-    launch: the same bits every run.  Raises on anything else; never
-    falls back."""
+    :data:`HEAD_DIMS`, V at most :data:`BWD_MAX_V`; S at least 1.
+
+    Two routes.  :func:`backward_tensor_core_route` (K = V = 64, from one
+    chunk of steps: every rwkv6-3b training call) runs chunk-parallel on
+    the tensor cores over a float32 workspace of every chunk's entry state
+    and end gradient; the rest runs one block per (batch, head) that stores
+    the state every :data:`BWD_CHUNK` steps and recomputes the others, on
+    CUDA cores.  ``tensor_cores`` None follows the rule; False takes the
+    CUDA-core route at any shape (to time the two routes side by side);
+    True raises where the rule does not hold.  ``du``, a sum over the batch
+    rows, sums per-block partials in a fixed order in a last launch: the
+    same bits every run.  A call on either route that fails to build or
+    launch raises and never runs the other.  Raises on anything else;
+    never falls back."""
     B, S, H, K = r.shape
     V = v.shape[-1]
     dev = r.device
@@ -205,6 +232,12 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dsT=None):
     if K not in HEAD_DIMS or not 1 <= V <= BWD_MAX_V:
         raise ValueError(f"rwkv6_scan_bwd_cuda: K={K} not in {HEAD_DIMS} or "
                          f"V={V} not in [1, {BWD_MAX_V}]")
+    tc = backward_tensor_core_route(r, v)
+    if tensor_cores and not tc:
+        raise ValueError(f"rwkv6_scan_bwd_cuda: no tensor-core route at "
+                         f"S={S} K={K} V={V} (want K = V = {TC_WIDTH}, S >= "
+                         f"{TC_CHUNK})")
+    tc = tc if tensor_cores is None else bool(tensor_cores)
     f32 = dict(dtype=torch.float32, device=dev)
     dr, dk, dw = (torch.empty(B, S, H, K, **f32) for _ in range(3))
     dv = torch.empty(B, S, H, V, **f32)
@@ -213,12 +246,27 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, state0, dy, dsT=None):
     r, k, v, w, u, dy = (t.contiguous() for t in (r, k, v, w, u, dy))
     state0, dsT = (None if t is None else t.contiguous()
                    for t in (state0, dsT))
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lib = build.library()
+    if tc:
+        r, k, v, w, dy = (_aligned(t) for t in (r, k, v, w, dy))
+        du_part = torch.empty(B * -(-S // TC_CHUNK) * H * K, **f32)
+        ws = torch.empty(bwd_workspace_elems(B, S, H), **f32)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check(lib.rwkv6_scan_bwd_tc_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(dsT),
+                dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                du_part.data_ptr(), du.data_ptr(), ptr(ds0), ws.data_ptr(),
+                B, S, H, _DTYPE_CODES[r.dtype], stream),
+                "rwkv6_scan_bwd (tensor cores)")
+        return dr, dk, dv, dw, du, ds0
     du_part = torch.empty(B, H, K, **f32)
     ws = torch.empty(B * H * -(-S // BWD_CHUNK) * K * V, **f32)
-    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(build.library().rwkv6_scan_bwd_launch(
+        build.check(lib.rwkv6_scan_bwd_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), ptr(state0), dy.data_ptr(), ptr(dsT),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),

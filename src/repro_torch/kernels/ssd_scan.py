@@ -22,7 +22,9 @@ bf16 B and C and at least one chunk of steps (every zamba2-7b prefill) run
 on the tensor cores, in parallel over segments of TC_SEG chunks, two
 launches over a float32 workspace the wrapper allocates; the rest (float32
 B/C, other widths, short prompts, every decode step) runs one block per
-(batch, head) that loops over the chunks on CUDA cores.
+(batch, head) that loops over the chunks on CUDA cores.  Its backward
+(:func:`ssd_scan_bwd_cuda`, training) has the same two routes under the
+same rule (:func:`backward_tensor_core_route`).
 """
 from __future__ import annotations
 
@@ -174,21 +176,50 @@ def ssd_scan_cuda(xdt, la, Bm, Cm, state0=None, out_state=None):
     return y, out_state
 
 
-BWD_CHUNK = 32          # the backward's stored-state interval (steps)
+BWD_CHUNK = 32          # the CUDA-core backward's stored-state interval
 BWD_MAX_P = 64          # head columns the backward takes
+BWD_TC_GROUP = 8        # heads a block of the backward's tensor-core route
 
 
-def ssd_scan_bwd_cuda(xdt, la, Bm, Cm, state0, dy, dsT=None):
+def backward_tensor_core_route(xdt, Bm) -> bool:
+    """True when B5's backward of the call of ``xdt`` (B, S, H, P) and
+    ``Bm`` (B, S, N) runs chunk-parallel on the tensor cores: the
+    forward's rule, N = P = 64, bf16 B and C, S at least one chunk.  Reads
+    shapes and dtypes only."""
+    return tensor_core_route(xdt, Bm)
+
+
+def bwd_workspace_elems(B: int, S: int, H: int) -> int:
+    """float32 elements of the backward's tensor-core workspace: each
+    chunk's 64 x 64 entry state and the 64 x 64 gradient at its end, and
+    its decay, per (batch, head)."""
+    nc = -(-S // TC_CHUNK)
+    return B * H * nc * (2 * TC_WIDTH * TC_WIDTH + 1)
+
+
+def ssd_scan_bwd_cuda(xdt, la, Bm, Cm, state0, dy, dsT=None, *,
+                      tensor_cores=None):
     """Launch B5's backward on ``xdt``'s card: the gradients ``(dxdt, dla,
     dBm, dCm, dstate0)`` of :func:`ssd_scan_cuda`'s call on the same inputs
     from y's gradient ``dy`` and the final state's ``dsT`` (None: zero):
     dxdt, dla and dstate0 float32 (``dstate0`` None when ``state0`` is),
     dBm and dCm in Bm's dtype.  N is one of :data:`STATE_DIMS`, P at most
-    :data:`BWD_MAX_P`; S at least 1.  The kernel stores the state at the
-    start of every :data:`BWD_CHUNK` steps in a float32 workspace and
-    recomputes the rest; dBm and dCm, sums over the heads, are each head's
-    terms summed in head order by a second launch: the same bits every
-    run.  Raises on anything else; never falls back."""
+    :data:`BWD_MAX_P`; S at least 1.
+
+    Two routes.  :func:`backward_tensor_core_route` (N = P = 64 with bf16
+    B and C, from one chunk of steps: every zamba2-7b training call) runs
+    chunk-parallel on the tensor cores over a float32 workspace of every
+    chunk's entry state and end gradient, a block a group of
+    :data:`BWD_TC_GROUP` heads summing their dBm and dCm terms in
+    registers; the rest runs one block per (batch, head) that stores the
+    state every :data:`BWD_CHUNK` steps and recomputes the others, on CUDA
+    cores, each head's dBm and dCm terms apart.  ``tensor_cores`` None
+    follows the rule; False takes the CUDA-core route at any shape (to
+    time the two routes side by side); True raises where the rule does not
+    hold.  dBm and dCm, sums over the heads, sum the partials in a fixed
+    order in a last launch: the same bits every run.  A call on either
+    route that fails to build or launch raises and never runs the other.
+    Raises on anything else; never falls back."""
     B, S, H, P = xdt.shape
     N = Bm.shape[-1]
     dev = xdt.device
@@ -221,6 +252,12 @@ def ssd_scan_bwd_cuda(xdt, la, Bm, Cm, state0, dy, dsT=None):
     if N not in STATE_DIMS or not 1 <= P <= BWD_MAX_P:
         raise ValueError(f"ssd_scan_bwd_cuda: N={N} not in {STATE_DIMS} or "
                          f"P={P} not in [1, {BWD_MAX_P}]")
+    tc = backward_tensor_core_route(xdt, Bm)
+    if tensor_cores and not tc:
+        raise ValueError(f"ssd_scan_bwd_cuda: no tensor-core route at S={S} "
+                         f"N={N} P={P} Bm {Bm.dtype} (want N = P = "
+                         f"{TC_WIDTH}, bf16 Bm/Cm, S >= {TC_CHUNK})")
+    tc = tc if tensor_cores is None else bool(tensor_cores)
     f32 = dict(dtype=torch.float32, device=dev)
     dxdt = torch.empty(B, S, H, P, **f32)
     dla = torch.empty(B, S, H, **f32)
@@ -230,12 +267,28 @@ def ssd_scan_bwd_cuda(xdt, la, Bm, Cm, state0, dy, dsT=None):
     state0, dsT = (None if t is None else t.contiguous()
                    for t in (state0, dsT))
     dB, dC = dB.contiguous(), dC.contiguous()
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    lib = build.library()
+    if tc:
+        xdt, Bm, Cm, dy = (_aligned(t) for t in (xdt, Bm, Cm, dy))
+        groups = -(-H // BWD_TC_GROUP)
+        db_part, dc_part = (torch.empty(B, S, groups, N, **f32)
+                            for _ in range(2))
+        ws = torch.empty(bwd_workspace_elems(B, S, H), **f32)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            build.check(lib.ssd_scan_bwd_tc_launch(
+                xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                ptr(state0), dy.data_ptr(), ptr(dsT), dxdt.data_ptr(),
+                dla.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(ds0),
+                db_part.data_ptr(), dc_part.data_ptr(), ws.data_ptr(), B, S,
+                H, stream), "ssd_scan_bwd (tensor cores)")
+        return dxdt, dla, dB, dC, ds0
     db_part, dc_part = (torch.empty(B, S, H, N, **f32) for _ in range(2))
     ws = torch.empty(B * H * -(-S // BWD_CHUNK) * N * P, **f32)
-    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check(build.library().ssd_scan_bwd_launch(
+        build.check(lib.ssd_scan_bwd_launch(
             xdt.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             ptr(state0), dy.data_ptr(), ptr(dsT), dxdt.data_ptr(),
             dla.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(ds0),

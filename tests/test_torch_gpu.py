@@ -1476,15 +1476,31 @@ def _within(got, want, tol, what):
             (what, err)
 
 
+# (B, S, H, K, V, planted zeros and denormals in w): the CUDA-core route
+# (other widths, S one short of a chunk) and the chunk-parallel
+# tensor-core route (K = V = 64 from one chunk: a chunk edge, one past it, a
+# ragged length, two whole chunks)
+RWKV_BWD_CASES = [(2, 70, 3, 16, 16, 0), (1, 33, 2, 32, 8, 0),
+                  (1, 63, 2, 64, 64, 4), (2, 64, 2, 64, 64, 8),
+                  (1, 65, 2, 64, 64, 8), (1, 200, 3, 64, 64, 8),
+                  (2, 256, 2, 64, 64, 16)]
+# (B, S, H, P, N): the CUDA-core route (other widths, S one short of a
+# chunk, and every float32 B/C) and the tensor-core route (N = P = 64 with
+# bf16 B/C from one chunk; H 10 and 9: two groups of heads, the last short)
+SSD_BWD_CASES = [(2, 70, 3, 16, 8), (1, 40, 2, 8, 4), (1, 63, 2, 64, 64),
+                 (1, 64, 2, 64, 64), (1, 65, 2, 64, 64),
+                 (2, 200, 10, 64, 64), (1, 256, 9, 64, 64)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,K,V,planted", [(2, 70, 3, 16, 16, 0),
-                                               (1, 65, 2, 64, 64, 8),
-                                               (1, 33, 2, 32, 8, 0)])
+@pytest.mark.parametrize("B,S,H,K,V,planted", RWKV_BWD_CASES)
 def test_rwkv6_scan_backward_kernel_matches_autograd(card, dtype, B, S, H,
                                                      K, V, planted):
     """B4's backward (every input's gradient, the state's too, the final
     state's cotangent included) against autograd through the plain
-    version; decays at 0 and denormal planted; two runs the same bits."""
+    version on either route; decays at 0 and denormal planted; two runs
+    the same bits; the tensor-core route counted as ``rwkv6_scan_bwd_tc``,
+    no plain call."""
     rng = np.random.default_rng(S + K + V)
     ins = _rwkv_case(rng, card, dtype, B, S, H, K, V, planted)
     cot = (torch.randn(B, S, H, V, device=card),
@@ -1494,18 +1510,21 @@ def test_rwkv6_scan_backward_kernel_matches_autograd(card, dtype, B, S, H,
     want = _grads(ref.rwkv6_scan, *(t.float() for t in ins), cot=cot)
     torch.cuda.synchronize()
     _within(got, want, SCAN_BWD_TOL[dtype], "rwkv6_scan_bwd")
+    tc = int(K == V == 64 and S >= 64)
     assert ops.COUNTS["rwkv6_scan_bwd"].kernel == 2
+    assert ops.COUNTS["rwkv6_scan_bwd_tc"].kernel == 2 * tc
     assert ops.COUNTS["rwkv6_scan"].kernel == 2
-    assert ops.COUNTS["rwkv6_scan"].plain == 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
 
 
 @pytest.mark.parametrize("bc_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,P,N", [(2, 70, 3, 16, 8), (1, 65, 2, 64, 64),
-                                       (1, 40, 2, 8, 4)])
+@pytest.mark.parametrize("B,S,H,P,N", SSD_BWD_CASES)
 def test_ssd_scan_backward_kernel_matches_autograd(card, bc_dtype, B, S, H,
                                                    P, N):
     """B5's backward (dB and dC summed over the heads) against autograd
-    through the plain version; two runs the same bits."""
+    through the plain version on either route; two runs the same bits;
+    the tensor-core route counted as ``ssd_scan_bwd_tc``, no plain
+    call."""
     rng = np.random.default_rng(S + P + N)
     ins = _ssd_case(rng, card, bc_dtype, B, S, H, P, N)
     cot = (torch.randn(B, S, H, P, device=card),
@@ -1515,9 +1534,44 @@ def test_ssd_scan_backward_kernel_matches_autograd(card, bc_dtype, B, S, H,
     want = _grads(ref.ssd_scan, *(t.float() for t in ins), cot=cot)
     torch.cuda.synchronize()
     _within(got, want, SCAN_BWD_TOL[bc_dtype], "ssd_scan_bwd")
+    tc = int(P == N == 64 and S >= 64 and bc_dtype == "bfloat16")
     assert ops.COUNTS["ssd_scan_bwd"].kernel == 2
+    assert ops.COUNTS["ssd_scan_bwd_tc"].kernel == 2 * tc
     assert ops.COUNTS["ssd_scan"].kernel == 2
-    assert ops.COUNTS["ssd_scan"].plain == 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+
+
+def test_scan_backward_routes_agree(card):
+    """Both routes of each scan's backward at a shape the tensor-core
+    route takes (``tensor_cores=False`` forces the CUDA-core one, as
+    chip_smoke.py's timing does) against autograd through the plain
+    version; the tensor-core route refuses a shape outside its rule."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    rng = np.random.default_rng(30)
+    r, k, v, w, u, s0 = _rwkv_case(rng, card, "bfloat16", 1, 130, 2, 64, 64,
+                                   4)
+    gy = torch.randn(1, 130, 2, 64, device=card)
+    gs = torch.randn(1, 2, 64, 64, device=card)
+    want = _grads(ref.rwkv6_scan, *(t.float() for t in (r, k, v, w, u, s0)),
+                  cot=(gy, gs))
+    for tc in (True, False):
+        got = rwkv6_scan_bwd_cuda(r, k, v, w, u, s0, gy, gs, tensor_cores=tc)
+        _within(got, want, SCAN_BWD_TOL["bfloat16"], f"rwkv6 tc={tc}")
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        rwkv6_scan_bwd_cuda(r[:, :63], k[:, :63], v[:, :63], w[:, :63], u,
+                            s0, gy[:, :63], gs, tensor_cores=True)
+    xdt, la, bm, cm, s1 = _ssd_case(rng, card, "bfloat16", 1, 130, 9, 64, 64)
+    gy = torch.randn(1, 130, 9, 64, device=card)
+    gs = torch.randn(1, 9, 64, 64, device=card)
+    want = _grads(ref.ssd_scan, *(t.float() for t in (xdt, la, bm, cm, s1)),
+                  cot=(gy, gs))
+    for tc in (True, False):
+        got = ssd_scan_bwd_cuda(xdt, la, bm, cm, s1, gy, gs, tensor_cores=tc)
+        _within(got, want, SCAN_BWD_TOL["bfloat16"], f"ssd tc={tc}")
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        ssd_scan_bwd_cuda(xdt, la, bm.float(), cm.float(), s1, gy, gs,
+                          tensor_cores=True)
 
 
 @pytest.mark.parametrize("z_dtype", ["float32", "bfloat16"])

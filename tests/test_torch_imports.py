@@ -62,6 +62,7 @@ def test_port_runs_without_loading_jax():
             "import repro_torch.train.fault, repro_torch.train.state\n"
             "import repro_torch.train.step, repro_torch.train.trainer\n"
             "import repro_torch.launch.train, repro_torch.launch.mesh\n"
+            "import repro_torch.launch.scan_timing\n"
             "import repro_torch.mesh, repro_torch.mesh.axes\n"
             "import repro_torch.mesh.ring, repro_torch.mesh.pipeline\n"
             "import repro_torch.mesh.grad_comm, repro_torch.train.pod_dp\n"
