@@ -329,25 +329,31 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  (the norm, the fused add with its sum read on and not) at
                  training's (rows, d) (TRAIN_NORM_CASES: qwen3-1.7b's 8192
                  x 2048 and QK-norm rows at d 128, gemma3's d 2560 and
-                 256), bf16 and float32, and B3's backward (bf16 D 128 S
-                 2048 16/8 causal, D 256 S 2048 8/4 window 1024, a ragged
-                 S 1000, D 64 non-causal, D 128 16/4 window 512, float32
+                 256; the edges of its two layouts, a block a row from d
+                 1024 to 1024 vectors, a warp a row elsewhere), bf16 and
+                 float32, and B3's backward (bf16 D 128 S 2048 16/8
+                 causal, D 256 S 2048 8/4 window 1024 and global, D 256
+                 ragged S 1000 window 64 and G 1 non-causal, a ragged S
+                 1000, D 64 non-causal, D 128 16/4 window 512, float32
                  D 16, and qwen3-moe's bf16 D 128 S 2048 64/4 causal at
-                 G 16), each against autograd through the plain version in
-                 float32 on the same inputs, the limits printed with their
-                 reasons; every bf16 D 64/128 call on the backward's
-                 tensor-core route (counted ``flash_attention_bwd_tc``);
+                 G 16), each run twice (the same bits) and against
+                 autograd through the plain version in float32 on the same
+                 inputs, the limits printed with their reasons; every bf16
+                 D 64/128/256 call on the backward's tensor-core route
+                 (counted ``flash_attention_bwd_tc``);
                  then B3 with a query offset (sequence parallelism's
                  blocks: bf16 D 128 Sq 1024 / Sk 2048 at 1024, the same
                  with window 512, float32 D 64 Sq 130 / Sk 260 at 130, Sk
-                 - Sq 133 at D 128), forward under TOL and backward under
-                 the limits above, every call a launch (bf16 D 64/128 on
-                 the tensor cores), counted apart.  Then the recurrent
+                 - Sq 133 at D 128 and at D 256 window 100), forward
+                 under TOL and backward under the limits above, every call
+                 a launch (bf16 D 64/128/256 on the tensor cores), counted
+                 apart.  Then the recurrent
                  families' backward kernels: B4's (B 2, S 256 and a
                  ragged 200, H 4, K = V = 64, a nonzero state, and a case
                  with decays at 0 and denormal), B5's (B 2, S 256, H 8,
                  N = P = 64), r/k/v and B/C float32 and bf16, the gated
-                 norm's at (8192, 7168) bf16 and B3 at head dim 112 (B 1,
+                 norm's at (8192, 7168) and its layouts' edges, bf16, and
+                 B3 at head dim 112 (B 1,
                  S 2048, 32/32, bf16 causal, forward under TOL), each
                  against autograd through its plain version in float32
                  and run twice: the same bits.
@@ -444,13 +450,31 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  argmax equal but at near-ties, and at the first 6 layers
                  in float32 within GEMMA_F32_TOL; a prefill and a decode
                  step host-issued and as profiled device time, idle share.
+34g. main-train-gemma3 — right after main-gemma3: full-width gemma3-4b cut
+                 from 34 to 18 layers (three groups of 6: 15 windowed of
+                 1024, 3 global; 3.04 B params, 48.7 GB of float32 state)
+                 as main-train (4 x 2048, 5 steps, bf16 compute, remat
+                 full, seed 0): every loss finite and the last below the
+                 first; B3 36 launches a step with the log-sum-exp and 18
+                 backward, all on the tensor cores at D 256 (the windowed
+                 and global layers' forward and backward calls counted
+                 apart), B2 as main-train at this depth, no plain version;
+                 every B3 and B2 shape held against the plain versions both
+                 ways (each backward twice, the same bits); losses, a
+                 step's host-issued and profiled device ms by kernel
+                 group, tokens/s, the peak beside the state's bytes; a
+                 checkpoint cut to 2 layers (18.4 GB of .npy) saved and
+                 restored bit for bit.
 36. timing-train — B3 at gemma3's prefill shapes (B 4, S 2048, window 1024
                  and global; a replayed CUDA graph), B3's backward at
                  main-train's, gemma3's and main-train-moe's (B 4, S 2048,
                  64/4 heads of 128: G 16) shapes and B2's backward at
                  main-train's (rows, d) (device time of calls queued
-                 behind a spin, autograd's included), each beside its
-                 plain version,
+                 behind a spin, autograd's included; gemma3's d 2560 and
+                 QK-norm 256 too), each beside its
+                 plain version (B3's backward at D 256, gemma3's B 1 and
+                 main-train-gemma3's B 4, windowed and global, also on its
+                 CUDA-core route, asked for by ``tensor_cores=False``),
                  one PyTorch yardstick (SDPA with the same mask, SDPA's
                  backward, ``F.rms_norm``'s backward with the same float32
                  scale; beside an unwindowed row also SDPA with
@@ -3379,11 +3403,18 @@ def profiled_ms(fn, iters: int = 2) -> tuple[float, float]:
 def kernel_group(name: str) -> str:
     """A device kernel's group in a training step's breakdown.  The scans'
     chunk passes (``chunk_pass_kernel<reverse, row_decay>``) are B4's
-    with a decay a state row, B5's with one a head."""
+    with a decay a state row, B5's with one a head.  B2's backward stands
+    apart from its forward, the gated norm's (``<T, S, gated, ...>``)
+    apart from the rest."""
     k = name.lower()
     if "chunk_pass_kernel<" in k:
         args = k.split("chunk_pass_kernel<", 1)[1].split(">", 1)[0]
         return "B4" if args.replace(" ", "").endswith(",true") else "B5"
+    if "rmsnorm_bwd" in k:
+        if "reduce" in k:
+            return "B2-bwd"
+        args = k.split("kernel<", 1)[1].split(">", 1)[0].replace(" ", "")
+        return "B2-gated-bwd" if args.split(",")[2] == "true" else "B2-bwd"
     for group, keys in (("B3", ("fa_bwd", "flash_attention")),
                         ("B2", ("rmsnorm",)),
                         ("B4", ("rwkv6",)),
@@ -4142,22 +4173,35 @@ class KernelShapes:
     Sk, Hq, Hkv, D, causal, window, dtype, grad), B1 (B, W, Hq, Hkv, D,
     table pages, q dtype, page dtype), B2 (variant, rows, d, dtype, scale
     dtype, keep_sum, eps, grad); ``grad`` says autograd took a gradient
-    through the call.  :meth:`parity` holds each kernel against its plain
-    version at each shape, and under ``grad`` its backward kernel against
-    autograd through the plain version too."""
+    through the call.  B3's backward calls by (windowed, on the tensor
+    cores) in ``flash_bwd``.  :meth:`parity` holds each kernel against its
+    plain version at each shape, and under ``grad`` its backward kernel
+    against autograd through the plain version too."""
 
     def __init__(self):
-        self.flash, self.paged, self.norm = (collections.Counter()
-                                             for _ in range(3))
+        self.flash, self.paged, self.norm, self.flash_bwd = (
+            collections.Counter() for _ in range(4))
         self._lock = threading.Lock()
         self._ops = {name: getattr(ops, name) for name in (
             "flash_attention", "paged_attention_mq", "rmsnorm",
             "add_rmsnorm")}
         fa, pa, rn, arn = self._ops.values()
+        self._fa_bwd = fa_bwd = ops._fa.flash_attention_bwd_cuda
 
         def tally(counter, key):
             with self._lock:
                 counter[key] += 1
+
+        # B3's backward calls by (windowed, the forward's lse given: the
+        # tensor-core route)
+        def flash_bwd(q, k, v, out, dout, *, causal=True, window=None,
+                      q_offset=0, lse=None, tensor_cores=None):
+            tally(self.flash_bwd, (window is not None, lse is not None))
+            return fa_bwd(q, k, v, out, dout, causal=causal, window=window,
+                          q_offset=q_offset, lse=lse,
+                          tensor_cores=tensor_cores)
+
+        ops._fa.flash_attention_bwd_cuda = flash_bwd
 
         def flash(q, k, v, *, causal=True, window=None, q_offset=0):
             tally(self.flash, (*q.shape[:2], k.shape[1], q.shape[2],
@@ -4190,6 +4234,7 @@ class KernelShapes:
     def stop(self):
         for name, fn in self._ops.items():
             setattr(ops, name, fn)
+        ops._fa.flash_attention_bwd_cuda = self._fa_bwd
 
     def flash_calls(self, windowed: bool) -> int:
         """B3 calls with a window (``windowed``) or without."""
@@ -4829,10 +4874,15 @@ def phase_timing_mm(dev) -> dict:
 # B2's backward at training's (rows, d): qwen3-1.7b's main-train (B 4 x S
 # 2048 = 8192 rows at d 2048; its QK-norms over 16 and 8 heads at d 128),
 # gemma3's d 2560 and QK-norm d 256 (4 x 2000 rows, 8 and 4 heads), one row
-# and a width off the vector.  Every variant: the norm, the fused add with
-# its sum read on, and without (a model's final norm)
+# and a width off the vector; the layouts' edges: 1016 (a warp a row) and
+# 1024 (a block a row), 4096 and 8192 (the row layout's widest in float32
+# and bf16) and 8200 (past it: a warp), at row counts no multiple of a
+# block's.  Every variant: the norm, the fused add with its sum read on,
+# and without (a model's final norm)
 TRAIN_NORM_CASES = [(8192, 2048), (131072, 128), (65536, 128), (8000, 2560),
-                    (64000, 256), (32000, 256), (1, 2048), (7, 1001)]
+                    (64000, 256), (32000, 256), (1, 2048), (7, 1001),
+                    (301, 1016), (333, 1024), (97, 4096), (97, 8192),
+                    (97, 8200)]
 # max |d| over max(1, max |autograd|): the kernel's gradients from bf16
 # rows in float32, rounded once to bf16 (2**-8 of a value), against
 # autograd through the plain version in float32 on the same (widened)
@@ -4840,12 +4890,16 @@ TRAIN_NORM_CASES = [(8192, 2048), (131072, 128), (65536, 128), (8000, 2560),
 # summation order only
 TRAIN_NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # B3's backward: (B, S, Hq, Hkv, D, causal, window, dtype): qwen3-1.7b's
-# training shape (two sequences of it), gemma3's windowed layers, a ragged
-# S, D 64 non-causal (whisper's encoder heads), D 128 windowed at G 4,
-# SMOKE's float32 D 16, qwen3-moe's 64/4 heads (G 16, main-train-moe's);
-# bf16 at D 64 and 128 on the tensor cores
+# training shape (two sequences of it), gemma3's windowed and global
+# layers, a ragged S, D 64 non-causal (whisper's encoder heads), D 128
+# windowed at G 4, SMOKE's float32 D 16, qwen3-moe's 64/4 heads (G 16,
+# main-train-moe's); at D 256 also a ragged S under a 64 window and G 1
+# non-causal; bf16 at D 64, 128 and 256 on the tensor cores
 TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
                      (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
+                     (1, 2048, 8, 4, 256, True, None, torch.bfloat16),
+                     (2, 1000, 8, 4, 256, True, 64, torch.bfloat16),
+                     (1, 300, 4, 4, 256, False, None, torch.bfloat16),
                      (2, 1000, 16, 8, 128, True, None, torch.bfloat16),
                      (2, 1500, 6, 6, 64, False, None, torch.bfloat16),
                      (1, 2048, 16, 4, 128, True, 512, torch.bfloat16),
@@ -4861,12 +4915,14 @@ TRAIN_FLASH_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # last one), forward and backward: (B, Sq, Sk, q_offset, Hq, Hkv, D,
 # causal, window, dtype): qwen3-1.7b's second block of a 2048 sequence
 # over 2 ranks on the tensor cores, the same windowed, float32 at D 64 on
-# CUDA cores, and Sk - Sq = 133, no multiple of any tile
+# CUDA cores, and Sk - Sq = 133, no multiple of any tile (also at gemma3's
+# D 256)
 TRAIN_FLASH_OFFSET_CASES = [
     (1, 1024, 2048, 1024, 16, 8, 128, True, None, torch.bfloat16),
     (1, 1024, 2048, 1024, 16, 8, 128, True, 512, torch.bfloat16),
     (2, 130, 260, 130, 4, 2, 64, True, None, torch.float32),
-    (2, 200, 333, 133, 8, 4, 128, True, None, torch.bfloat16)]
+    (2, 200, 333, 133, 8, 4, 128, True, None, torch.bfloat16),
+    (1, 200, 333, 133, 8, 4, 256, True, 100, torch.bfloat16)]
 # main-train: full-width, full-depth qwen3-1.7b, float32 weights and
 # moments, bf16 compute, remat full; the launcher's AdamW for 20 steps
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen3-1.7b", 4, 2048, 20
@@ -4908,6 +4964,17 @@ TRAIN_MOE_LAYERS, TRAIN_MOE_B, TRAIN_MOE_STEPS = 2, 4, 10
 TRAIN_DOTS_STEPS = 3
 TRAIN_DOTS_REL = 1e-6
 CKPT_LAYERS = 2                 # the checkpoint round trip's cut
+# main-train-gemma3: full-width gemma3-4b (d 2560, 8/4 heads of 256, ff
+# 10240, vocab 262144, QK-norm, a 1024 window, every 6th layer global) cut
+# from 34 to TRAIN_GEMMA_LAYERS layers, whole groups of 6 (15 windowed, 3
+# global): 3.04 B params (1.34 B of them the untied embedding and
+# unembedding), 48.7 GB of float32 params, gradients and AdamW moments; 24
+# layers would hold 3.61 B, 57.7 GB before any activation (the peak runs
+# ~18 GB over the state in main-train-rwkv and -zamba), the full 34 4.55
+# B, 72.8 GB.  Through Trainer at TRAIN_B x TRAIN_S for TRAIN_GEMMA_STEPS
+# steps, bf16 compute, remat full, seed 0: B3's backward at D 256 on the
+# tensor cores, windowed and global, in every step
+TRAIN_GEMMA_LAYERS, TRAIN_GEMMA_STEPS = 18, 5
 # small-train: 5 float32 SMOKE steps, card against CPU; the losses within
 # 1e-4 and the gradient norms within 1e-3 relative: float32 on both, sums
 # in other orders; each Adam step moves every weight by about lr whatever
@@ -4947,13 +5014,15 @@ GEMMA_BF16_TOL = 0.1
 # on the chunk-parallel tensor-core route in both dtypes; B5 at (B, S, H,
 # P, N), B and C float32 (the CUDA-core route) and bf16 (the tensor-core
 # route): 256 steps, and a ragged 200 over two groups of heads (10: 8 and
-# 2); the gated norm at main-train-zamba's (rows, d), bf16 z; B3 at
+# 2); the gated norm at main-train-zamba's (rows, d) and the layouts'
+# edges (TRAIN_NORM_CASES'), bf16 z; B3 at
 # zamba2's head dim 112 (B, S, Hq, Hkv, D; bf16, causal) forward and
 # backward
 TRAIN_RWKV_CASES = [(2, 256, 4, 64, 64, 0), (2, 200, 4, 64, 64, 0),
                     (2, 256, 4, 64, 64, 64)]
 TRAIN_SSD_CASES = [(2, 256, 8, 64, 64), (1, 200, 10, 64, 64)]
-TRAIN_GATED_CASES = [(8192, 7168)]
+TRAIN_GATED_CASES = [(8192, 7168), (301, 1016), (333, 1024), (97, 8192),
+                     (97, 8200)]
 TRAIN_FLASH_Z = (1, 2048, 32, 32, 112)
 # max |d| over max(1, max |autograd|): float32 inputs differ by summation
 # order only (the kernel recomputes the states the plain version keeps);
@@ -4994,10 +5063,10 @@ def grad_gap(got, want) -> tuple[float, float]:
 def norm_bwd_gap(dev, variant, rows, d, dtype, keep_sum, what,
                  sdtype=torch.float32, eps=1e-6) -> tuple[float, float]:
     """B2's backward for ``variant`` ("rmsnorm", or "add_rmsnorm" with or
-    without its sum read on) on seeded random rows against autograd
-    through the plain version in float32 on the same (widened) inputs:
-    (max |d|, max |d| over max(1, max |autograd|)) over its gradients;
-    raises past TRAIN_NORM_TOL."""
+    without its sum read on) on seeded random rows, run twice (the same
+    bits: :func:`bwd_twice`), against autograd through the plain version
+    in float32 on the same (widened) inputs: (max |d|, max |d| over max(1,
+    max |autograd|)) over its gradients; raises past TRAIN_NORM_TOL."""
     from repro_torch.kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
     x, dl, gy, gs = (torch.randn(rows, d, device=dev).to(dtype)
                      for _ in range(4))
@@ -5005,13 +5074,13 @@ def norm_bwd_gap(dev, variant, rows, d, dtype, keep_sum, what,
     f32 = [t.float() for t in (x, dl, scale)]
     if variant == "rmsnorm":
         names = ("dx", "dscale")
-        got = grads_of(lambda a, c: ops.rmsnorm(a, c, eps=eps), (x, scale),
-                       (gy,))
+        got = bwd_twice(what, lambda a, c: ops.rmsnorm(a, c, eps=eps),
+                        (x, scale), (gy,))
         want = grads_of(lambda a, c: rmsnorm_plain(a, c, eps=eps),
                         (f32[0], f32[2]), (gy.float(),))
     else:
         names = ("dx", "ddelta", "dscale")
-        got = grads_of(lambda a, b, c: ops.add_rmsnorm(
+        got = bwd_twice(what, lambda a, b, c: ops.add_rmsnorm(
             a, b, c, eps=eps, keep_sum=keep_sum), (x, dl, scale), (gs, gy))
         want = grads_of(lambda a, b, c: add_rmsnorm_plain(
             a, b, c, eps=eps, keep_sum=keep_sum), f32,
@@ -5030,18 +5099,18 @@ def norm_bwd_gap(dev, variant, rows, d, dtype, keep_sum, what,
 def flash_bwd_gap(dev, B, S, Hq, Hkv, D, causal, window, dtype,
                   what, Sk=None, q_offset=0) -> tuple[float, float]:
     """B3's backward (S queries at ``q_offset``, ``Sk`` keys: S unless
-    given) on seeded random inputs against autograd through the plain
-    version in float32 on the same (widened) inputs: (max |d|, max |d|
-    over max(1, max |autograd|)) over dq, dk, dv; raises past
-    TRAIN_FLASH_REL."""
+    given) on seeded random inputs, run twice (the same bits:
+    :func:`bwd_twice`), against autograd through the plain version in
+    float32 on the same (widened) inputs: (max |d|, max |d| over max(1,
+    max |autograd|)) over dq, dk, dv; raises past TRAIN_FLASH_REL."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     Sk = S if Sk is None else Sk
     q, g = (torch.randn(B, S, Hq, D, device=dev).to(dtype) for _ in range(2))
     k, v = (torch.randn(B, Sk, Hkv, D, device=dev).to(dtype)
             for _ in range(2))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    got = grads_of(lambda a, b, c: ops.flash_attention(a, b, c, **kw),
-                   (q, k, v), (g,))
+    got = bwd_twice(what, lambda a, b, c: ops.flash_attention(a, b, c, **kw),
+                    (q, k, v), (g,))
     want = grads_of(lambda a, b, c: flash_attention_plain(a, b, c, **kw),
                     tuple(t.float() for t in (q, k, v)), (g.float(),))
     torch.cuda.synchronize()
@@ -5089,12 +5158,13 @@ def phase_parity_train(dev) -> dict:
             f"D={D} window={window} {dtype}"))
     counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
               if c.kernel or c.plain}
-    want_b2 = 2 * 3 * len(TRAIN_NORM_CASES)
-    want_tc = sum(dt == torch.bfloat16 and D in (64, 128)
-                  for _, _, _, _, D, _, _, dt in TRAIN_FLASH_CASES)
+    # every backward twice (the same bits)
+    want_b2 = 2 * 2 * 3 * len(TRAIN_NORM_CASES)
+    want_tc = 2 * sum(dt == torch.bfloat16 and D in (64, 128, 256)
+                      for _, _, _, _, D, _, _, dt in TRAIN_FLASH_CASES)
     if (counts.get("rmsnorm_bwd", (0, 0))[0] != want_b2
             or counts.get("flash_attention_bwd", (0, 0))[0]
-            != len(TRAIN_FLASH_CASES)
+            != 2 * len(TRAIN_FLASH_CASES)
             or counts.get("flash_attention_bwd_tc", (0, 0))[0] != want_tc):
         raise AssertionError(f"parity-train: backward launches {counts}; "
                              f"want {want_tc} on the tensor cores")
@@ -5121,10 +5191,11 @@ def phase_parity_train(dev) -> dict:
     n_off = len(TRAIN_FLASH_OFFSET_CASES)
     tc_fwd = sum(dt == torch.bfloat16 and c[6] in (64, 128, 256)
                  for *c, dt in TRAIN_FLASH_OFFSET_CASES)
-    tc_bwd = sum(dt == torch.bfloat16 and c[6] in (64, 128)
+    tc_bwd = sum(dt == torch.bfloat16 and c[6] in (64, 128, 256)
                  for *c, dt in TRAIN_FLASH_OFFSET_CASES)
-    want_off = {"flash_attention": 2 * n_off, "flash_attention_tc": 2 * tc_fwd,
-                "flash_attention_bwd": n_off, "flash_attention_bwd_tc": tc_bwd}
+    want_off = {"flash_attention": 3 * n_off, "flash_attention_tc": 3 * tc_fwd,
+                "flash_attention_bwd": 2 * n_off,
+                "flash_attention_bwd_tc": 2 * tc_bwd}
     if off_counts != want_off or any(c.plain for c in ops.COUNTS.values()):
         raise AssertionError(f"parity-train: the offset calls launched "
                              f"{off_counts}; want {want_off}, no plain call")
@@ -5133,9 +5204,10 @@ def phase_parity_train(dev) -> dict:
     log(f"parity-train: B3 with a query offset at "
         f"{[c[:9] for c in TRAIN_FLASH_OFFSET_CASES]}: forward max abs "
         f"{off_err:.3e} (limits {TOL['flash_attention']}), the backward "
-        f"within the limits above; launches {off_counts} (forward twice a "
-        f"case: alone and under autograd; bf16 D 64/128 on the tensor "
-        f"cores both ways)")
+        f"within the limits above; launches {off_counts} (forward three "
+        f"times a case: alone and twice under autograd, the backward run "
+        f"twice the same bits; bf16 D 64/128/256 on the tensor cores both "
+        f"ways)")
     log(f"parity-train: B2's backward (rmsnorm, add_rmsnorm with and "
         f"without its sum) at (rows, d) {TRAIN_NORM_CASES}, bf16 (limit "
         f"{TRAIN_NORM_TOL[torch.bfloat16]}: one bf16 rounding of the "
@@ -5143,10 +5215,10 @@ def phase_parity_train(dev) -> dict:
         f"summation order), and B3's backward at {[c[:7] for c in TRAIN_FLASH_CASES]} "
         f"(bf16 limit {TRAIN_FLASH_REL[torch.bfloat16]}: the bf16 forward "
         f"output and one rounding of the gradient; float32 "
-        f"{TRAIN_FLASH_REL[torch.float32]}; bf16 D 64/128 on the tensor "
-        f"cores, P and dS rounded to bf16 once), each against autograd "
-        f"through the plain version in float32: max |d| over max(1, max "
-        f"|autograd|) "
+        f"{TRAIN_FLASH_REL[torch.float32]}; bf16 D 64/128/256 on the "
+        f"tensor cores, P and dS rounded to bf16 once), each run twice (the "
+        f"same bits) and against autograd through the plain version in "
+        f"float32: max |d| over max(1, max |autograd|) "
         f"{rels}, max |d| {errs}; launches {counts}")
     errs["flash_attention"] = off_err
     return errs, off_counts
@@ -5191,31 +5263,36 @@ def phase_small_train(dev) -> None:
     ops.reset_counts()
 
 
-def phase_main_train(dev) -> dict:
-    """Full-width, full-depth qwen3-1.7b through ``Trainer``: 20 steps of 4
-    x 2048 tokens, float32 weights and AdamW moments, bf16 compute, remat
-    full, counts from 0.  Then one step profiled, B3 and B2 held against
-    their plain versions at every shape the steps called them at (forward
-    and backward: :class:`KernelShapes`), and a checkpoint round trip at
-    full width cut to CKPT_LAYERS layers."""
-    import shutil
+def phase_main_train(dev, label: str = "main-train", cfg=None,
+                     steps: int = TRAIN_STEPS) -> dict:
+    """A dense decoder through ``Trainer``: full-width, full-depth
+    qwen3-1.7b (``cfg`` None), or ``cfg``, for ``steps`` steps of TRAIN_B x
+    TRAIN_S tokens, float32 weights and AdamW moments, bf16 compute, remat
+    full, counts from 0.  Gates: every loss finite and the last below the
+    first; B2's and B3's launches (:func:`train_launches_wanted`: B3 2L
+    forward a step with the log-sum-exp and L backward, all on the tensor
+    cores), no other kernel and no plain version; B3's forward and backward
+    calls of the windowed and the global layers apart, each as many as the
+    config has such layers (:class:`KernelShapes`).  Then one step
+    profiled, B3 and B2 held against their plain versions at every shape
+    the steps called them at (forward and backward), and a checkpoint
+    round trip at full width cut to CKPT_LAYERS layers."""
     from repro_torch.data import SyntheticTask, make_data_iter
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import (Trainer, TrainerConfig,
-                                   create_train_state, restore_checkpoint,
-                                   save_checkpoint)
+    from repro_torch.train import Trainer, TrainerConfig
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH) if cfg is None else cfg
     model = build_model(cfg)
     L = cfg.n_layers
+    glob, loc = T.layer_groups(cfg)
     n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(
         model.param_defs()))
-    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
-                      decay_steps=TRAIN_STEPS)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                      decay_steps=steps)
     task = SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
-    tr = Trainer(model, opt, TrainerConfig(steps=TRAIN_STEPS, log_every=5),
+    tr = Trainer(model, opt, TrainerConfig(steps=steps, log_every=5),
                  make_data_iter(task, device=dev), device=dev, seed=0,
                  log=log)
     ops.reset_counts()
@@ -5229,49 +5306,79 @@ def phase_main_train(dev) -> dict:
     counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in h]
-    log(f"[train] {TRAIN_ARCH}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+    log(f"[train] {cfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"over {len(h)} steps; stragglers={tr.stragglers}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"main-train: losses {losses}")
+        raise AssertionError(f"{label}: losses {losses}")
     alone, add, _ = qwen_norms(cfg)             # one forward's
-    n = TRAIN_STEPS
     # the forward's norms run twice (remat recomputes every block) but the
     # final norm, which lies outside the blocks, once; the backward once
-    want = train_launches_wanted(cfg, n)
-    check_train_launches("main-train", counts, want)
+    want = train_launches_wanted(cfg, steps)
+    check_train_launches(label, counts, want)
+    # B3 by layer kind: forward twice a step (remat), backward once, every
+    # backward with the forward's log-sum-exp (the tensor cores)
+    windows = {"windowed": (shapes.flash_calls(True),
+                            shapes.flash_bwd[(True, True)]),
+               "global": (shapes.flash_calls(False),
+                          shapes.flash_bwd[(False, True)])}
+    want_windows = {"windowed": (2 * len(loc) * steps, len(loc) * steps),
+                    "global": (2 * len(glob) * steps, len(glob) * steps)}
+    if (windows != want_windows
+            or shapes.flash_bwd[(True, False)] + shapes.flash_bwd[
+                (False, False)]):
+        raise AssertionError(f"{label}: B3 (forward, backward) calls by "
+                             f"layer kind {windows}, want {want_windows}; "
+                             f"backward calls {dict(shapes.flash_bwd)}")
     times = [m["step_time"] for m in h[2:]]
     host = float(np.median(times)) * 1e3
     state = tr.final_state
-    batch = next(make_data_iter(task, device=dev, start_step=TRAIN_STEPS))
+    batch = next(make_data_iter(task, device=dev, start_step=steps))
     split = train_step_split(model, opt, state, batch)
     devt = split["device_ms"]
-    log(f"main-train: {TRAIN_ARCH} {L} layers d {cfg.d_model} "
+    state_bytes = n_params * 16
+    log(f"{label}: {cfg.name} {L} layers ({len(loc)} windowed, "
+        f"{len(glob)} global) d {cfg.d_model} "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} vocab "
         f"{cfg.vocab}, float32 weights and moments, {cfg.dtype} compute, "
-        f"remat {cfg.remat}, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps "
+        f"remat {cfg.remat}, batch {TRAIN_B} x {TRAIN_S}, {steps} steps "
         f"in {wall:.1f} s: losses {[round(x, 4) for x in losses]}; grad norms "
         f"{[round(m['grad_norm'], 3) for m in h]}; a step host-issued "
-        f"{host:.1f} ms (median of steps 3-{n}), device {devt:.1f} ms (one "
+        f"{host:.1f} ms (median of steps 3-{steps}), device {devt:.1f} ms (one "
         f"step profiled: card idle {max(0.0, 1 - devt / host):.1%}), "
         f"{TRAIN_B * TRAIN_S / host * 1e3:.0f} tokens/s; "
         f"max_memory_allocated={peak} B against the state's {n_params} "
-        f"params x 16 B = {n_params * 16} B (float32 params, gradients, m, "
+        f"params x 16 B = {state_bytes} B (float32 params, gradients, m, "
         f"v); launches {counts} (B3 {2 * L} a step forward, the blocks' "
         f"recompute included, all on the tensor cores, {L} backward, all on "
-        f"the tensor cores; B2 "
-        f"{alone + add} backward a step, {add} of them the fused add's); "
-        f"a step after them: {split_line(split)}")
+        f"the tensor cores; by layer kind (forward, backward) over the run "
+        f"{windows}; B2 {alone + add} backward a step, {add} of them the "
+        f"fused add's); a step after them: {split_line(split)}")
     del state, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
-    errs = shapes.parity("main-train", dev)
+    errs = shapes.parity(label, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    # the checkpoint round trip, full width cut in depth
+    checkpoint_round_trip(label, cfg, opt, dev)
+    return {"launches": {k: counts[k][0] for k in want},
+            "host_ms": host, "device_ms": devt, "peak": peak,
+            "state_bytes": state_bytes, "losses": losses,
+            "grad_norms": [m["grad_norm"] for m in h], "errs": errs,
+            "split": split, "windows": windows}
+
+
+def checkpoint_round_trip(label: str, cfg, opt, dev) -> None:
+    """A train state of ``cfg`` at full width cut to CKPT_LAYERS layers
+    saved under ``build/ckpt_<label>`` and restored into a state drawn
+    from another seed: bit for bit equal, or raise; the files deleted
+    after."""
+    import shutil
+    from repro_torch.train import (create_train_state, restore_checkpoint,
+                                   save_checkpoint)
     cut = build_model(cfg.replace(n_layers=CKPT_LAYERS))
     st = create_train_state(cut, 1, opt, device=dev)
     ckdir = str(pathlib.Path(__file__).resolve().parent / "build"
-                / "ckpt_main_train")
+                / f"ckpt_{label.replace('-', '_')}")
     shutil.rmtree(ckdir, ignore_errors=True)
     t0 = time.perf_counter()
     save_checkpoint(ckdir, 7, st)
@@ -5285,18 +5392,14 @@ def phase_main_train(dev) -> dict:
     size = sum(f.stat().st_size for f in pathlib.Path(ckdir).rglob("*.npy"))
     shutil.rmtree(ckdir, ignore_errors=True)
     if not equal:
-        raise AssertionError("main-train: the restored checkpoint differs")
-    log(f"main-train checkpoint: {TRAIN_ARCH} at full width cut to "
-        f"{CKPT_LAYERS} of {L} layers, {len(tree_leaves(st))} leaves, {size} "
-        f"B of .npy, saved in {t_save:.1f} s and restored in "
+        raise AssertionError(f"{label}: the restored checkpoint differs")
+    log(f"{label} checkpoint: {cfg.name} at full width cut to "
+        f"{CKPT_LAYERS} of {cfg.n_layers} layers, {len(tree_leaves(st))} "
+        f"leaves, {size} B of .npy, saved in {t_save:.1f} s and restored in "
         f"{t_restore:.1f} s, bit for bit equal")
     del st, like, got
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": {k: counts[k][0] for k in want},
-            "host_ms": host, "device_ms": devt, "peak": peak,
-            "losses": losses, "grad_norms": [m["grad_norm"] for m in h],
-            "errs": errs}
 
 
 def _train_mesh_rank(comm) -> dict:
@@ -6382,11 +6485,17 @@ def phase_timing_train(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     mcfg = get_config(MOE_ARCH)
     zcfg = get_config(TRAIN_ZAMBA_ARCH)
+    # gemma3's D 256 at B 1 and at main-train-gemma3's B 4 (windowed and
+    # global): both routes, the CUDA-core one asked for by tensor_cores=False
     for label, (B, S, Hq, Hkv, D, window) in (
             ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
                        tcfg.head_dim, None)),
             ("gemma3", (1, 2048, gcfg.n_heads, gcfg.n_kv_heads,
                         gcfg.head_dim, gcfg.local_window)),
+            ("gemma3_b4", (TRAIN_B, TRAIN_S, gcfg.n_heads, gcfg.n_kv_heads,
+                           gcfg.head_dim, gcfg.local_window)),
+            ("gemma3_b4_global", (TRAIN_B, TRAIN_S, gcfg.n_heads,
+                                  gcfg.n_kv_heads, gcfg.head_dim, None)),
             ("train_moe", (TRAIN_MOE_B, TRAIN_S, mcfg.n_heads,
                            mcfg.n_kv_heads, mcfg.head_dim, None)),
             ("train_zamba", (TRAIN_REC_B, TRAIN_S, zcfg.n_heads,
@@ -6427,20 +6536,28 @@ def phase_timing_train(dev, smi: str) -> dict:
             t["library_causal"] = queued_ms(lambda: torch.autograd.grad(
                 causal_out, causal_leaves, gt, retain_graph=True))
             del causal_leaves, causal_out
+        if D == 256:
+            t["cuda_core"] = queued_ms(lambda: flash_attention_bwd_cuda(
+                q, k, v, o, g, window=window, tensor_cores=False), iters=3)
         out["flash_attention_bwd"][label] = {
             "shape": [B, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
             "bound_ms": b, "bound_by": by,
-            "cores": "tensor" if tc else "CUDA",
+            "cores": "tensor" if tc else "CUDA", "card": smi,
             **({"library_causal_ms": t["library_causal"]}
-               if window is None else {})}
+               if window is None else {}),
+            **({"cuda_core_ms": t["cuda_core"]} if D == 256 else {})}
         causal_lib = (f", SDPA's backward with is_causal "
                       f"{t['library_causal']:.4f} ms" if window is None
                       else "")
+        cuda_core = (f" (the CUDA-core route, asked for: "
+                     f"{t['cuda_core']:.4f} ms, "
+                     f"{t['cuda_core'] / t['kernel']:.2f}x)"
+                     if D == 256 else "")
         log(f"timing flash_attention_bwd {label} [B={B} S={S} Hq={Hq} "
             f"Hkv={Hkv} D={D} window={window} bf16, "
-            f"{'tensor' if tc else 'CUDA'}-core route]: device kernel "
-            f"{t['kernel']:.4f} ms, plain (autograd, float32) "
+            f"{'tensor' if tc else 'CUDA'}-core route; {smi}]: device kernel "
+            f"{t['kernel']:.4f} ms{cuda_core}, plain (autograd, float32) "
             f"{t['plain']:.4f} ms, SDPA's backward (same mask) "
             f"{t['library']:.4f} ms{causal_lib}, bound {b:.4f} ms ({by}; its "
             f"operations: 5 products of the forward's size)")
@@ -6452,7 +6569,9 @@ def phase_timing_train(dev, smi: str) -> dict:
             ("ln", L_rows, tcfg.d_model, False),
             ("add_ln", L_rows, tcfg.d_model, True),
             ("q_norm", L_rows * tcfg.n_heads, tcfg.head_dim, False),
-            ("k_norm", L_rows * tcfg.n_kv_heads, tcfg.head_dim, False)):
+            ("k_norm", L_rows * tcfg.n_kv_heads, tcfg.head_dim, False),
+            ("gemma3_add_ln", L_rows, gcfg.d_model, True),
+            ("gemma3_q_norm", L_rows * gcfg.n_heads, gcfg.head_dim, False)):
         x, dl, dy, ds = (torch.randn(rows, d, device=dev).to(bf16)
                          for _ in range(4))
         scale = 1 + 0.1 * torch.randn(d, device=dev)
@@ -6492,9 +6611,10 @@ def phase_timing_train(dev, smi: str) -> dict:
             "shape": [rows, d, add], "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
             "library_bf16_scale_ms": t["library_bf16"],
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by, "card": smi}
         log(f"timing rmsnorm_bwd {label} [rows={rows} d={d} bf16, float32 "
-            f"scale, {'with' if add else 'no'} sum gradient]: device kernel "
+            f"scale, {'with' if add else 'no'} sum gradient; {smi}]: device "
+            f"kernel "
             f"{t['kernel']:.4f} ms (two launches), plain (autograd) "
             f"{t['plain']:.4f} ms, F.rms_norm's backward (the same float32 "
             f"scale{', the add before it' if add else ''}) "
@@ -6546,8 +6666,10 @@ DEVICE_KERNELS = {
                    "rwkv6_chunk_out_kernel", "rwkv6_scan_kernel"],
     "ssd_scan": ["ssd_seg_state_kernel", "ssd_seg_out_kernel",
                  "ssd_scan_kernel"],
-    "rmsnorm_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
-    "rmsnorm_gated_bwd": ["rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"],
+    "rmsnorm_bwd": ["rmsnorm_bwd_row_kernel", "rmsnorm_bwd_kernel",
+                    "rmsnorm_bwd_reduce_kernel"],
+    "rmsnorm_gated_bwd": ["rmsnorm_bwd_row_kernel", "rmsnorm_bwd_kernel",
+                          "rmsnorm_bwd_reduce_kernel"],
     "rwkv6_scan_bwd": ["rwkv6_chunk_state_kernel", "chunk_pass_kernel",
                        "rwkv6_chunk_bwd_kernel", "rwkv6_scan_bwd_du_kernel",
                        "rwkv6_scan_bwd_kernel"],
@@ -6765,6 +6887,12 @@ def main() -> int:
     train_moe = phase_main_train_moe(dev)
     t_moe = time.perf_counter() - t_moe
     gemma = phase_main_gemma3(dev)
+    # gemma3-4b training (B3's backward at D 256 on the tensor cores)
+    t_gemma = time.perf_counter()
+    train_gemma = phase_main_train(
+        dev, "main-train-gemma3", get_config(GEMMA_ARCH).replace(
+            n_layers=TRAIN_GEMMA_LAYERS), TRAIN_GEMMA_STEPS)
+    t_gemma = time.perf_counter() - t_gemma
     train_times = phase_timing_train(dev, smi)
     t_rec_timing = time.perf_counter()
     rec_times = phase_timing_train_recurrent(dev, smi)
@@ -6772,12 +6900,14 @@ def main() -> int:
     log(f"the training and gemma3 phases (main-train, main-train-rwkv and "
         f"main-train-zamba with their timing rows ({t_rec:.1f} s), "
         f"main-train-mesh and pod-dp ({t_mesh:.1f} s), main-train-dots and "
-        f"main-train-moe ({t_moe:.1f} s), main-gemma3, timing-train) took "
+        f"main-train-moe ({t_moe:.1f} s), main-gemma3, main-train-gemma3 "
+        f"({t_gemma:.1f} s), timing-train) took "
         f"{time.perf_counter() - t_new:.1f} s")
     # parity at the shapes the phases served and trained at
     for name in ("rwkv6_scan_bwd", "ssd_scan_bwd"):
         errs[name] = max(errs[name], rec_times[name].pop("max_abs_err"))
-    for r in (*mm.values(), train, train_moe, gemma, train_zamba):
+    for r in (*mm.values(), train, train_moe, gemma, train_zamba,
+              train_gemma):
         for name, e in r["errs"].items():
             errs[name] = max(errs.get(name, 0.0), e)
     times["flash_attention"]["gemma3"] = {
@@ -6840,6 +6970,24 @@ def main() -> int:
         k: train_zamba["launches"][k] for k in (
             "rmsnorm_bwd", "rmsnorm_add_bwd", "rmsnorm_gated_bwd")}
     times["rmsnorm_bwd"]["add_launches"] = train["launches"]["rmsnorm_add_bwd"]
+    # main-train-gemma3's: B3 at D 256 both ways by layer kind, B2, and its
+    # step
+    times["flash_attention_bwd"]["train_gemma3_launches"] = {
+        **{k: train_gemma["launches"][k] for k in (
+            "flash_attention_bwd", "flash_attention_bwd_tc")},
+        "by_layer_kind": {kind: n[1] for kind, n in
+                          train_gemma["windows"].items()}}
+    times["flash_attention"]["train_gemma3_launches"] = {
+        **{k: train_gemma["launches"][k] for k in (
+            "flash_attention", "flash_attention_tc")},
+        "by_layer_kind": {kind: n[0] for kind, n in
+                          train_gemma["windows"].items()}}
+    times["rmsnorm_bwd"]["train_gemma3_launches"] = {
+        k: train_gemma["launches"][k] for k in ("rmsnorm_bwd",
+                                                 "rmsnorm_add_bwd")}
+    times["flash_attention_bwd"]["train_gemma3_step"] = {
+        k: train_gemma[k] for k in ("host_ms", "device_ms", "peak",
+                                    "state_bytes", "losses")}
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
     times["paged_attention_mq_int8"]["verify_launches"] = {
@@ -6919,7 +7067,8 @@ def main() -> int:
                 "offset", "train_mesh_launches", "train_moe_launches",
                 "cores", "with_lse_ms", "s2048_with_lse_ms", "zamba_d112",
                 "train_zamba_launches", "train_step_ms", "train_device_ms",
-                "plain_shape", "card", "cuda_core_ms") if k in t}})
+                "plain_shape", "card", "cuda_core_ms",
+                "train_gemma3_launches", "train_gemma3_step") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,42 +29,46 @@
 // before any launch (neither is a fallback of the other; the entry point
 // refuses a route that does not match them):
 //
-// 1. Tensor cores (bf16 at D 64 and 128, training's case: qwen3-1.7b),
-//    FlashAttention-3's backward on the forward's machinery (tma.cuh,
-//    wgmma.cuh): a producer warpgroup keeping a ring of 3 stages full by
-//    TMA (128-byte swizzled tiles, full/empty mbarriers) and two consumer
-//    warpgroups under setmaxnreg (24 / 240 registers), each owning 64 of
-//    the block's 128 rows (wgmma's M).  Three launches:
+// 1. Tensor cores (bf16 at D 64, 128 and 256, training's case: qwen3-1.7b
+//    at 128, gemma3-4b at 256), FlashAttention-3's backward on the
+//    forward's machinery (tma.cuh, wgmma.cuh): a producer warpgroup keeping
+//    a ring of 3 stages full by TMA (128-byte swizzled tiles, full/empty
+//    mbarriers) and two consumer warpgroups under setmaxnreg (24 / 240
+//    registers), each owning 64 of the block's 128 rows (wgmma's M).
+//    Streamed tiles hold kCols rows: 64 at D 64 and 128, 32 at D 256.
+//    Three launches:
 //
 //      fa_bwd_delta_kernel    delta = rowsum(dO * O), one warp a row
 //      fa_bwd_dq_tc_kernel    a block a (128 query rows, query head,
-//                             sequence): q and dO once, 64-key tiles of k
-//                             and v streamed; S = Q K^T and dP = dO V^T
-//                             (wgmma.m64n64k16 from shared memory), P and
-//                             dS on the accumulator fragment, dq += dS K
-//                             (dS from registers: the m64 accumulator
+//                             sequence): q and dO once, kCols-key tiles of
+//                             k and v streamed; S = Q K^T and dP = dO V^T
+//                             (wgmma.m64n{kCols}k16 from shared memory), P
+//                             and dS on the accumulator fragment, dq += dS
+//                             K (dS from registers: the m64 accumulator
 //                             layout is the A-fragment layout; K read
 //                             MN-major).  dq of tile i - 1 and S, dP of
-//                             tile i are in flight together.
+//                             tile i are in flight together (at D 64 and
+//                             128).
 //      fa_bwd_dkdv_tc_kernel  a block a (128 keys, KV head, sequence): k
 //                             and v once; for each of the KV head's G
-//                             query heads the 64-query tiles that see the
-//                             keys, with their 64-row slices of lse and
+//                             query heads the kCols-query tiles that see
+//                             the keys, with their slices of lse and
 //                             delta, streamed; S^T = K Q^T and
 //                             dP^T = V dO^T from shared memory, P^T and
 //                             dS^T on the fragment, dv += P^T dO and
 //                             dk += dS^T Q with A from registers.
 //
 //    * The log-sum-exp comes from the forward (flash_attention.cu writes
-//      it in log2 units when asked), so P = exp2(s scale log2 e - lse)
-//      needs no pass of its own; rows are padded to the forward's 128-row
-//      block, so a stage's slice is one aligned 256-byte bulk copy.
+//      it in log2 units when asked, at D 256 too), so P = exp2(s scale
+//      log2 e - lse) needs no pass of its own; rows are padded to the
+//      forward's 128-row block, so a stage's slice is one aligned bulk
+//      copy.
 //    * S and dP are recomputed in both kernels: 7 products of the forward's
 //      size against the ideal 5, the price of dq without atomics.
 //    * P and dS enter their products as bf16, one rounding each (a CPU
 //      mirror of this arithmetic, tests/test_torch_flash_tc.py, holds it
-//      within half the 2e-2 bf16 limit), where the forward needs the
-//      hi + lo pair for its tighter 4e-3.
+//      within half the 2e-2 bf16 limit at D 64, 128 and 256), where the
+//      forward needs the hi + lo pair for its tighter 4e-3.
 //    * Registers: dk and dv are 64 + 64 float32 a thread at D 128 and S^T
 //      and dP^T 32 + 32, within the consumers' 240, but a second tile's
 //      S^T and dP^T would not fit beside them; so the dk/dv kernel runs
@@ -73,16 +77,36 @@
 //      within a tile on P^T's exp2 running while dP^T is in flight.
 //      (Issuing dv's product before forming dS^T, to overlap the two, ran
 //      no faster on an H100 and spilled more.)
+//    * D 256: the split.  dk and dv alone would be 128 + 128 float32
+//      registers a thread, over setmaxnreg's 240 before S^T and dP^T.  So
+//      the dk/dv grid is twice as deep (its z): z = 0 blocks accumulate dk
+//      (S^T, dP^T, dk: 128 + 16 + 16 + 8 registers of fragments), z = 1
+//      blocks dv (S^T, dv: 128 + 16 + 8; they read no v and form no dP^T),
+//      each over the same tiles: 8 products of the forward's size against
+//      7 at D 128.  One launch holds both halves, so at gemma3's B 1 shape
+//      (4 KV heads x 16 key blocks) 128 blocks fill the card where either
+//      half alone would fill half of it; the dk blocks, the heavier, start
+//      first.  dq is 128 float32 registers a thread with S, dP and dS of a
+//      32-key tile beside it (16 + 16 + 8); its tiles run one after the
+//      other (with dq of one tile in flight beside the next one's S and dP,
+//      ptxas spilled 120 bytes), the two consumer warpgroups overlapping
+//      each other, as the forward does at D 256.  Shared memory sets the
+//      tile: q and dO of 128 rows (or k and v) take 128 KB of the 227, so
+//      the streamed tiles are 32 rows, 3 stages of 32 KB, where 64-row ones
+//      would fit one stage and leave every load exposed.  S and dP are
+//      then wgmma.m64n32k16, which reads three quarters of m64n64k16's
+//      shared-memory bytes for half its work.
 //    * The causal and windowed dead-tile skip of the forward bounds both
 //      loops, and a warpgroup releases unread the tiles none of its rows
 //      sees; blocks start heaviest first (the last query blocks for dq,
 //      the first key blocks for dk/dv).
-//    * ptxas (sm_90a): 168 registers a thread at launch, no spills in the
-//      dq kernel, 8 bytes in the dk/dv kernel at D 128; 166,456 bytes of
-//      dynamic shared memory at D 128, 84,536 at D 64.
+//    * ptxas (sm_90a, CUDA 12.8): 168 registers a thread at launch, no
+//      spills in the dq and dk/dv kernels at D 64, 128 and 256; 166,456
+//      bytes of dynamic shared memory at D 128, 84,536 at D 64, 231,224
+//      at D 256.
 //
-// 2. CUDA cores (float32, and bf16 at D 16, 32 and 256: at D 256 dk and dv
-//    alone would be 256 registers a thread on the tensor-core design), two
+// 2. CUDA cores (float32, and bf16 at D 16 and 32; bf16 at D 256 only when
+//    the wrapper is asked for it by name, to time it beside route 1), two
 //    kernels in float32 with the forward's CUDA-core thread layout (128
 //    threads, 16 row groups x 8 column groups, tiles staged in shared
 //    memory as float32, a row's reductions over 8 lanes by shuffle):
@@ -525,7 +549,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-// -- route 1: tensor cores (wgmma, TMA, mbarriers), bf16 at D 64 and 128 ----
+// -- route 1: tensor cores (wgmma, TMA, mbarriers), bf16 at D 64, 128, 256 --
 
 namespace tc {
 
@@ -533,17 +557,20 @@ using namespace hopper;
 
 constexpr int kThreads = 384;    // producer warpgroup + 2 consumers
 constexpr int kRows = 128;       // a block's rows: 64 a consumer (wgmma's M)
-constexpr int kCols = 64;        // a streamed tile's columns (wgmma's N)
 constexpr int kStages = 3;       // ring depth
 
 // Shared memory of both kernels, from a 1024-aligned base: the block's two
 // operands (dq: q and dO of its 128 query rows; dk/dv: k and v of its 128
-// keys), then kStages stages of two 64-row tiles (dq: k and v; dk/dv: q and
-// dO), then each stage's slices of lse and delta (dk/dv only), then the
+// keys), then kStages stages of two kCols-row tiles (dq: k and v; dk/dv: q
+// and dO), then each stage's slices of lse and delta (dk/dv only), then the
 // barriers.  Every operand is D / 64 swizzle atoms side by side, each
-// [rows][128 bytes], as TMA writes them.
+// [rows][128 bytes], as TMA writes them.  A streamed tile holds 64 rows at
+// D 64 and 128, 32 at D 256: there the block's operands alone take 128 KB,
+// and 3 stages of 32-row tiles (96 KB) fit beside them where 64-row ones
+// would fit in one stage only (231,224 bytes of the 232,448).
 template <int D>
 struct Smem {
+  static constexpr int kCols = D == 256 ? 32 : 64;
   static constexpr int kBlockBytes = kRows * D * 2;
   static constexpr int kTileBytes = kCols * D * 2;
   static constexpr int kVecBytes = kCols * 4;
@@ -554,17 +581,29 @@ struct Smem {
   static constexpr int kBytes = kBarOffset + 8 * (2 * kStages + 1) + 1024;
 };
 
+// one k step of X Y^T: 64 rows of X against a kCols-row tile of Y
+template <int kCols>
+__device__ __forceinline__ void wgmma_xyt(float* d, uint64_t a, uint64_t b,
+                                          int scale_d) {
+  if constexpr (kCols == 32)
+    wgmma_ss_m64n32k16(d, a, b, scale_d);
+  else
+    wgmma_ss_m64n64k16(d, a, b, scale_d);
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_acc(float* d, const uint32_t* a,
                                           uint64_t b) {
-  if constexpr (D == 128)
+  if constexpr (D == 256)
+    wgmma_rs_m64n256k16(d, a, b);
+  else if constexpr (D == 128)
     wgmma_rs_m64n128k16(d, a, b);
   else
     wgmma_rs_m64n64k16(d, a, b);
 }
 
 // X Y^T for one warpgroup: X its 64 rows of a 128-row block operand, Y a
-// 64-row tile, both K-major over D: D / 16 wgmma.m64n64k16, one commit.
+// kCols-row tile, both K-major over D: D / 16 wgmma, one commit.
 // The first k step overwrites acc; kZero zeroes it first, which ends the
 // last tile's values' lives here instead of at the fence (registers for
 // the dk/dv kernel), but only where no wgmma is in flight (ptxas
@@ -573,6 +612,7 @@ __device__ __forceinline__ void wgmma_acc(float* d, const uint32_t* a,
 template <int D, bool kZero>
 __device__ __forceinline__ void issue_xyt(float* acc, uint32_t x_rows,
                                           uint32_t y_tile) {
+  constexpr int kCols = Smem<D>::kCols;
   if constexpr (kZero) {
 #pragma unroll
     for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
@@ -582,7 +622,7 @@ __device__ __forceinline__ void issue_xyt(float* acc, uint32_t x_rows,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_m64n64k16(
+    wgmma_xyt<kCols>(
         acc, gmma_desc(x_rows + (kk / 4) * kRows * kAtomBytes + off, 16, 1024),
         gmma_desc(y_tile + (kk / 4) * kCols * kAtomBytes + off, 16, 1024),
         kk > 0);
@@ -591,11 +631,13 @@ __device__ __forceinline__ void issue_xyt(float* acc, uint32_t x_rows,
   fence_regs<kCols / 2>(acc);
 }
 
-// acc (64 x D) += A (64 x 64, bf16 fragments from registers) * Y, Y a
-// 64-row tile read MN-major: 4 k steps of 16 rows, 2048 bytes apart
+// acc (64 x D) += A (64 x kCols, bf16 fragments from registers) * Y, Y a
+// kCols-row tile read MN-major: kCols / 16 k steps of 16 rows, 2048 bytes
+// apart
 template <int D>
 __device__ __forceinline__ void issue_acc(float* acc, const uint32_t (*a)[4],
                                           uint32_t y_tile) {
+  constexpr int kCols = Smem<D>::kCols;
 #pragma unroll
   for (int kk = 0; kk < kCols / 16; ++kk)
     wgmma_acc<D>(acc, a[kk],
@@ -603,8 +645,9 @@ __device__ __forceinline__ void issue_acc(float* acc, const uint32_t (*a)[4],
                            1024));
 }
 
-// a float32 fragment of a 64 x 64 accumulator as bf16 A fragments, one
+// a float32 fragment of a 64 x kCols accumulator as bf16 A fragments, one
 // rounding: k step kk is registers 8 kk .. 8 kk + 7
+template <int kCols>
 __device__ __forceinline__ void pack_frag(const float* x, uint32_t (*a)[4]) {
 #pragma unroll
   for (int kk = 0; kk < kCols / 16; ++kk)
@@ -660,7 +703,7 @@ fa_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
 }
 
 // dq: a block owns 128 query rows of one (sequence, query head) and walks
-// the 64-key tiles they see: S = Q K^T and dP = dO V^T from shared memory,
+// the kCols-key tiles they see: S = Q K^T and dP = dO V^T from shared memory,
 // P and dS on the fragment, dq += dS K with dS from registers
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -674,7 +717,11 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     int q_off, int Hq, int Hkv, int causal, int window,
                     int stride, float scale_log2, float scale) {
   using L = Smem<D>;
-  constexpr int kAtoms = D / 64;
+  constexpr int kAtoms = D / 64, kCols = L::kCols;
+  // dq of tile i - 1 beside S, dP of tile i: not at D 256, where dq's 128
+  // registers in flight beside them made ptxas spill (the forward's
+  // choice too); there the two consumer warpgroups overlap each other
+  constexpr bool kOverlap = D != 256;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, do_s = base + L::kBlockBytes;
@@ -786,7 +833,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   auto ds_of = [&](int i) {
     wgmma_wait<1>();                       // dq of tile i - 1, S of tile i
     fence_regs<kCols / 2>(s);
-    if (i > i_lo) release(i - 1);
+    if (kOverlap && i > i_lo) release(i - 1);
     const int k0 = kv_begin + i * kCols;
     const bool full_tile = k0 + kCols <= Sk &&
                            (!causal || k0 + kCols - 1 <= plo) &&
@@ -807,7 +854,7 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int x = 0; x < kCols / 2; ++x)
       dp[x] = s[x] * (dp[x] - dl_r[(x >> 1) & 1]);
-    pack_frag(dp, ds);
+    pack_frag<kCols>(dp, ds);
   };
   auto issue_dq = [&](int i) {             // dq += dS K
     fence_regs<D / 2>(acc);
@@ -820,7 +867,16 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 
   for (int i = 0; i < i_lo; ++i) skip(i);
   mbar_wait(blk_bar, 0);
-  if (i_lo < i_hi) {
+  if constexpr (!kOverlap) {
+    for (int i = i_lo; i < i_hi; ++i) {
+      issue_sdp(i);
+      ds_of(i);
+      issue_dq(i);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      release(i);
+    }
+  } else if (i_lo < i_hi) {
     // dq of tile i - 1 and S, dP of tile i run together on the tensor
     // cores, issued and waited for in one iteration (a wait across the
     // loop's back edge makes ptxas serialize the batch); the last tile's
@@ -842,24 +898,24 @@ fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // dk, dv: a block owns 128 keys of one (sequence, KV head) and, for each of
-// the KV head's query heads, walks the 64-query tiles that see them:
-// S^T = K Q^T and dP^T = V dO^T from shared memory, P^T and dS^T on the
-// fragment (lse and delta of the tile's queries from the stage's slices),
-// dv += P^T dO and dk += dS^T Q with P^T and dS^T from registers
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
-                      const __grid_constant__ CUtensorMap do_map,
-                      const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
-                      int q_off, int Hq, int Hkv, int causal, int window,
-                      int stride, float scale_log2, float scale) {
+// the KV head's query heads, walks the kCols-query tiles that see them:
+// S^T = K Q^T (and dP^T = V dO^T) from shared memory, P^T (and dS^T) on
+// the fragment (lse and delta of the tile's queries from the stage's
+// slices), dv += P^T dO and dk += dS^T Q with P^T and dS^T from registers.
+// kDk and kDv say which of the two the block accumulates: both at D 64 and
+// 128; at D 256, where dk and dv would be 128 + 128 float32 registers a
+// thread, one each (the grid's z: dk first, the heavier), so the dv
+// blocks compute no dP^T and read no v.
+template <int D, bool kDk, bool kDv>
+__device__ __forceinline__ void dkdv_body(
+    const CUtensorMap* q_map, const CUtensorMap* do_map,
+    const CUtensorMap* k_map, const CUtensorMap* v_map,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+    int Sk, int q_off, int Hq, int Hkv, int causal, int window, int stride,
+    float scale_log2, float scale) {
   using L = Smem<D>;
-  constexpr int kAtoms = D / 64;
+  constexpr int kAtoms = D / 64, kCols = L::kCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = base, v_s = base + L::kBlockBytes;
@@ -905,12 +961,13 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0) {
-      mbar_expect_tx(blk_bar, 2 * L::kBlockBytes);
+      mbar_expect_tx(blk_bar, (kDk ? 2 : 1) * L::kBlockBytes);
       for (int a = 0; a < kAtoms; ++a) {
-        tma_load(k_s + a * kRows * kAtomBytes, &k_map, 64 * a, hk, k0, b,
+        tma_load(k_s + a * kRows * kAtomBytes, k_map, 64 * a, hk, k0, b,
                  blk_bar);
-        tma_load(v_s + a * kRows * kAtomBytes, &v_map, 64 * a, hk, k0, b,
-                 blk_bar);
+        if constexpr (kDk)
+          tma_load(v_s + a * kRows * kAtomBytes, v_map, 64 * a, hk, k0, b,
+                   blk_bar);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages, h = hk * G + i / n_q;
@@ -918,9 +975,9 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
         if (i >= kStages) mbar_wait(empty(s), ((i / kStages) - 1) & 1);
         mbar_expect_tx(full(s), 2 * L::kTileBytes + 2 * L::kVecBytes);
         for (int a = 0; a < kAtoms; ++a) {
-          tma_load(q_tile(s) + a * kCols * kAtomBytes, &q_map, 64 * a, h, q0,
+          tma_load(q_tile(s) + a * kCols * kAtomBytes, q_map, 64 * a, h, q0,
                    b, full(s));
-          tma_load(do_tile(s) + a * kCols * kAtomBytes, &do_map, 64 * a, h,
+          tma_load(do_tile(s) + a * kCols * kAtomBytes, do_map, 64 * a, h,
                    q0, b, full(s));
         }
         const size_t at = (static_cast<size_t>(b) * Hq + h) * stride + q0;
@@ -939,10 +996,12 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t k_rows = k_s + 64 * c * kAtomBytes;
   const uint32_t v_rows = v_s + 64 * c * kAtomBytes;
 
-  float ak[D / 2], av[D / 2];
+  float ak[kDk ? D / 2 : 1], av[kDv ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
-  float s[kCols / 2], dp[kCols / 2];
+  for (int i = 0; i < (kDk ? D / 2 : 1); ++i) ak[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kDv ? D / 2 : 1); ++i) av[i] = 0.f;
+  float s[kCols / 2], dp[kDk ? kCols / 2 : 1];
   uint32_t pt[kCols / 16][4], dst[kCols / 16][4];
 
   mbar_wait(blk_bar, 0);
@@ -950,7 +1009,7 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     const int st = i % kStages, q0 = q_begin + (i % n_q) * kCols;
     mbar_wait(full(st), (i / kStages) & 1);
     // a tile none of this warpgroup's keys sees is released unread (its
-    // queries at positions p0 .. p0 + 63)
+    // queries at positions p0 .. p0 + kCols - 1)
     const int p0 = q_off + q0;
     if (klo >= Sk || (causal && p0 + kCols - 1 < klo) ||
         (window > 0 && p0 - khi >= window)) {
@@ -958,7 +1017,7 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       continue;
     }
     issue_xyt<D, true>(s, k_rows, q_tile(st));
-    issue_xyt<D, true>(dp, v_rows, do_tile(st));
+    if constexpr (kDk) issue_xyt<D, true>(dp, v_rows, do_tile(st));
     const float* lse_s = vecs + 2 * st * kCols;
     const float* dl_s = lse_s + kCols;
     const bool full_tile = q0 + kCols <= Sq && khi < Sk &&
@@ -966,7 +1025,7 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                            (window <= 0 || p0 + kCols - 1 - klo < window);
     // P^T while dP^T is in flight: s[4 j + e] is key key[e >> 1], query
     // q0 + 8 j + 2 t + (e & 1)
-    wgmma_wait<1>();
+    wgmma_wait<kDk ? 1 : 0>();
     fence_regs<kCols / 2>(s);
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
@@ -983,33 +1042,66 @@ fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
         s[4 * j + e] = ok ? p : 0.f;
       }
     }
-    pack_frag(s, pt);
-    wgmma_wait<0>();
-    fence_regs<kCols / 2>(dp);
+    if constexpr (kDv) pack_frag<kCols>(s, pt);
+    if constexpr (kDk) {
+      wgmma_wait<0>();
+      fence_regs<kCols / 2>(dp);
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-      const float2 d2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
+      for (int j = 0; j < kCols / 8; ++j) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[4 * j + e] =
-            s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      pack_frag<kCols>(dp, dst);
+      fence_regs<D / 2>(ak);
+      fence_regs<kCols / 4>(&dst[0][0]);
     }
-    pack_frag(dp, dst);
-    fence_regs<D / 2>(av);
-    fence_regs<D / 2>(ak);
-    fence_regs<kCols / 4>(&pt[0][0]);
-    fence_regs<kCols / 4>(&dst[0][0]);
+    if constexpr (kDv) {
+      fence_regs<D / 2>(av);
+      fence_regs<kCols / 4>(&pt[0][0]);
+    }
     wgmma_fence();
-    issue_acc<D>(av, pt, do_tile(st));
-    issue_acc<D>(ak, dst, q_tile(st));
+    if constexpr (kDv) issue_acc<D>(av, pt, do_tile(st));
+    if constexpr (kDk) issue_acc<D>(ak, dst, q_tile(st));
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<D / 2>(av);
-    fence_regs<D / 2>(ak);
+    if constexpr (kDv) fence_regs<D / 2>(av);
+    if constexpr (kDk) fence_regs<D / 2>(ak);
     if (lane == 0) mbar_arrive(empty(st));
   }
-  store_rows<D>(dk, ak, key, b, Sk, Hkv, hk, t, scale);
-  store_rows<D>(dv, av, key, b, Sk, Hkv, hk, t, 1.f);
+  if constexpr (kDk) store_rows<D>(dk, ak, key, b, Sk, Hkv, hk, t, scale);
+  if constexpr (kDv) store_rows<D>(dv, av, key, b, Sk, Hkv, hk, t, 1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                      int q_off, int Hq, int Hkv, int causal, int window,
+                      int stride, float scale_log2, float scale) {
+  if constexpr (D == 256) {
+    if (blockIdx.z == 0)
+      dkdv_body<D, true, false>(&q_map, &do_map, &k_map, &v_map, lse, delta,
+                                dk, dv, Sq, Sk, q_off, Hq, Hkv, causal,
+                                window, stride, scale_log2, scale);
+    else
+      dkdv_body<D, false, true>(&q_map, &do_map, &k_map, &v_map, lse, delta,
+                                dk, dv, Sq, Sk, q_off, Hq, Hkv, causal,
+                                window, stride, scale_log2, scale);
+  } else {
+    dkdv_body<D, true, true>(&q_map, &do_map, &k_map, &v_map, lse, delta, dk,
+                             dv, Sq, Sk, q_off, Hq, Hkv, causal, window,
+                             stride, scale_log2, scale);
+  }
 }
 
 template <int D>
@@ -1019,6 +1111,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    int q_off, int Hq, int Hkv, int causal, int window,
                    float scale, cudaStream_t stream) {
   using L = Smem<D>;
+  constexpr int kCols = L::kCols;
   static const cudaError_t attr =
       cudaFuncSetAttribute(fa_bwd_dq_tc_kernel<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1032,15 +1125,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const long long ks = static_cast<long long>(Hkv) * D;
   const int q_blocks = (Sq + kRows - 1) / kRows, stride = q_blocks * kRows;
   const int k_blocks = (Sk + kRows - 1) / kRows;
-  // the dq kernel's q and dO in 128-row boxes, k and v in 64-row tiles;
+  // the dq kernel's q and dO in 128-row boxes, k and v in kCols-row tiles;
   // the dk/dv kernel's the other way round
-  CUtensorMap q128, do128, k64, v64, q64, do64, k128, v128;
+  CUtensorMap q128, do128, kt, vt, qt, dot, k128, v128;
   if (!make_map(&q128, q, B, Sq, Hq, D, Sq * qs, qs, D, kRows) ||
       !make_map(&do128, dout, B, Sq, Hq, D, Sq * qs, qs, D, kRows) ||
-      !make_map(&k64, k, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
-      !make_map(&v64, v, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
-      !make_map(&q64, q, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
-      !make_map(&do64, dout, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
+      !make_map(&kt, k, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
+      !make_map(&vt, v, B, Sk, Hkv, D, Sk * ks, ks, D, kCols) ||
+      !make_map(&qt, q, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
+      !make_map(&dot, dout, B, Sq, Hq, D, Sq * qs, qs, D, kCols) ||
       !make_map(&k128, k, B, Sk, Hkv, D, Sk * ks, ks, D, kRows) ||
       !make_map(&v128, v, B, Sk, Hkv, D, Sk * ks, ks, D, kRows))
     return cudaErrorInvalidValue;
@@ -1055,13 +1148,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   fa_bwd_dq_tc_kernel<D><<<dim3(B * Hq, q_blocks), kThreads, L::kBytes,
                            stream>>>(
-      q128, do128, k64, v64, ls, dl, static_cast<__nv_bfloat16*>(dq), Sq, Sk,
+      q128, do128, kt, vt, ls, dl, static_cast<__nv_bfloat16*>(dq), Sq, Sk,
       q_off, Hq, Hkv, causal, window, stride, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_tc_kernel<D><<<dim3(B * Hkv, k_blocks), kThreads, L::kBytes,
-                             stream>>>(
-      q64, do64, k128, v128, ls, dl, static_cast<__nv_bfloat16*>(dk),
+  // at D 256 z = 0 blocks write dk, z = 1 blocks dv
+  fa_bwd_dkdv_tc_kernel<D><<<dim3(B * Hkv, k_blocks, D == 256 ? 2 : 1),
+                             kThreads, L::kBytes, stream>>>(
+      qt, dot, k128, v128, ls, dl, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Sk, q_off, Hq, Hkv, causal, window,
       stride, scale_log2, scale);
   return cudaGetLastError();
@@ -1074,7 +1168,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, void* dq, void* dk,
                      void* dv, void* lse, void* delta, int B, int D,
                      const Geo& g, cudaStream_t s) {
-  // bf16 at D 64 and 128 is the tensor cores' (route 1), never built here
+  // bf16 at D 64 and 128 is the tensor cores' (route 1) only, never built
+  // here; bf16 at D 256 is theirs too, and here only when asked for
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, g, s);
@@ -1098,10 +1193,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // all in `dtype`; query row i at position q_off + i (q_off >= 0); window <=
 // 0: no window.  route 0 (CUDA cores): lse and delta are float32 (B, Hq, Sq)
 // workspace, written by the first kernel and read by the second.  route 1
-// (tensor cores: bf16 at D 64 or 128): lse is the forward's, float32 (B,
-// Hq, ceil(Sq / 128) * 128) in log2 units, and delta workspace of that
-// shape.  The entry refuses a route that does not
-// match dtype and D.  Returns the last launch's cudaError_t.
+// (tensor cores: bf16 at D 64, 128 or 256): lse is the forward's, float32
+// (B, Hq, ceil(Sq / 128) * 128) in log2 units, and delta workspace of that
+// shape.  The entry refuses route 1 where dtype and D do not take it, and
+// route 0 at bf16 D 64 and 128; route 0 at bf16 D 256 is the CUDA-core
+// kernels asked for by name (the wrapper's tensor_cores=False, to time the
+// two routes side by side).  Returns the last launch's cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
@@ -1110,18 +1207,22 @@ extern "C" int flash_attention_bwd_launch(
   if (B <= 0 || B > 65535 || Sq <= 0 || Sk <= 0 || q_off < 0 || Hkv <= 0 ||
       Hq > 65535 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
-  const bool tensor_cores = dtype == kBFloat16 && (D == 64 || D == 128);
-  if (route != static_cast<int>(tensor_cores)) return cudaErrorInvalidValue;
+  const bool tensor_cores =
+      dtype == kBFloat16 && (D == 64 || D == 128 || D == 256);
+  if (route == 1 ? !tensor_cores : (route != 0 || (tensor_cores && D != 256)))
+    return cudaErrorInvalidValue;
   const Geo g{Sq, Sk, q_off, Hq, Hkv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores)
-    return D == 128
-               ? tc::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B,
-                                 Sq, Sk, q_off, Hq, Hkv, causal, window, scale,
-                                 s)
-               : tc::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B,
-                                Sq, Sk, q_off, Hq, Hkv, causal, window, scale,
-                                s);
+  if (route == 1) {
+    if (D == 256)
+      return tc::launch<256>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq,
+                             Sk, q_off, Hq, Hkv, causal, window, scale, s);
+    if (D == 128)
+      return tc::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq,
+                             Sk, q_off, Hq, Hkv, causal, window, scale, s);
+    return tc::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, Sq, Sk,
+                          q_off, Hq, Hkv, causal, window, scale, s);
+  }
   if (dtype == kFloat32)
     return dispatch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, B, D, g,
                            s);

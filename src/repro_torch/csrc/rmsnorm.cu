@@ -121,11 +121,15 @@ __device__ __forceinline__ Packed<T, N> pack(const float* f) {
   return r;
 }
 
-// store 16 bytes of T
+// store N elements of T: whole 16-byte vectors
 template <typename T, int N>
 __device__ __forceinline__ void store_packed(T* p, const Packed<T, N>& r) {
-  static_assert(Packed<T, N>::kWords == 4, "store_packed: one 16-byte vector");
-  *reinterpret_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+  constexpr int W = Packed<T, N>::kWords;
+  static_assert(W % 4 == 0, "store_packed: whole 16-byte vectors");
+#pragma unroll
+  for (int c = 0; c < W / 4; ++c)
+    reinterpret_cast<uint4*>(p)[c] = make_uint4(r.w[4 * c], r.w[4 * c + 1],
+                                                r.w[4 * c + 2], r.w[4 * c + 3]);
 }
 
 template <typename T>
@@ -369,33 +373,216 @@ namespace {
 // y's dtype) and dz = T(T(dv * T(y)) * silu'(z)), the roundings of
 // autograd through the unfused T expression.
 //
-// Bound on this card: bytes, as the forward (a few flops an element).  One
-// warp a row: the row's two sums by shuffle, then dv, with no barrier.  The
+// Bound on this card: bytes, as the forward (a few flops an element).  The
 // scale's gradient is a sum over every row, which blocks cannot share
-// without atomics, so each block adds its rows' terms into a float32 row
-// of its own in shared memory (a warp each, no two threads on one word,
-// summed in a fixed order) and writes one partial row; a second kernel
-// sums the partials column by column.  The grid and the rows of a warp
-// depend on (rows, d) only, so the result is the same every run.  The row
-// is read twice (the second read from L1/L2): a kernel that is right
-// first; fusing the passes is later work (ROADMAP Queue B).
+// without atomics, so each block sums its rows' terms in float32 and writes
+// one partial row, and a second kernel sums the partials column by column
+// in a fixed order (a block 32 columns, each of its 8 warps a strided
+// eighth of the partial rows, then the eight in warp order), with blocks
+// enough to fill the card at the wide d.  Two layouts, picked from (rows,
+// d, dtype) only, so the result is the same every run:
+//   - rows of kRowMinD elements and more in 16-byte vectors, 2 a thread
+//     (training's d 2048 to 7168): a block a row at a time, striding over
+//     the rows, each thread holding its vectors of the row in registers
+//     between the row's two sums (a block reduction) and its outputs, so
+//     the row is read once; the gate's exp runs once an element (its
+//     sigmoid and silu kept for the outputs); the thread's columns of the
+//     scale and of the dscale partials stay in registers across its rows.
+//     At zamba2's gated (8192, 7168) that is 896 vectors: 448 threads of
+//     2, one block an SM (the registers), 14 bytes an element moved.
+//   - narrow rows (the QK-norms' d 128 and 256), widths off the vector
+//     and rows of more than 1024 vectors: one warp a row, the row's sums
+//     by shuffle with no barrier, the block's dscale partial rows in
+//     shared memory (a warp each, summed in a fixed order), the row read
+//     twice (the second read from L1/L2).
+// The roundings of dv, dy and dz are the same on both; the row sums and
+// dscale are summed in another order.
 
 constexpr int kBwdMaxWarps = 8;
 constexpr int kBwdSmem = 48 * 1024;     // a block's partial rows, no opt-in
 constexpr long long kBwdMaxBlocks = 528;  // 4 blocks an SM of 132
+constexpr int kRowMinD = 1024;          // the row layout's narrowest d
+constexpr int kCardSMs = 132;           // H100 SXM
 
 int bwd_warps(int d) {
   const int w = kBwdSmem / (4 * d);
   return w < kBwdMaxWarps ? w : kBwdMaxWarps;
 }
 
-long long bwd_blocks(long long rows, int d) {
+constexpr int kRowVpt = 2;              // the row layout's vectors a thread
+
+// the row layout's threads and blocks for a row of nvec 16-byte vectors:
+// blocks of about 16 warps an SM, at most 4
+struct RowLayout {
+  int threads;
+  long long blocks;
+};
+
+RowLayout row_layout(long long rows, int nvec) {
+  const int threads = ((nvec + kRowVpt - 1) / kRowVpt + 31) / 32 * 32;
+  int per_sm = 16 / (threads / 32);
+  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  const long long b = static_cast<long long>(kCardSMs) * per_sm;
+  return {threads, rows < b ? rows : b};
+}
+
+// at most kMaxThreads x kRowVpt vectors (bf16 d 8192, float32 4096): 4 a
+// thread would spill under the block's 128 registers a thread
+bool use_rows(int d, int dtype) {
+  const int n = dtype == kFloat32 ? 4 : 8;      // elements a 16-byte vector
+  return d >= kRowMinD && d % n == 0 && d / n <= kRowVpt * kMaxThreads;
+}
+
+long long bwd_blocks(long long rows, int d, int dtype) {
+  if (use_rows(d, dtype))
+    return row_layout(rows, d / (dtype == kFloat32 ? 4 : 8)).blocks;
   const int w = bwd_warps(d);
   if (w < 1) return 0;
   const long long b = (rows + w - 1) / w;
   return b < kBwdMaxBlocks ? b : kBwdMaxBlocks;
 }
 
+// The row layout: a block a row, thread t holding the row's vectors t,
+// t + blockDim.x, ... (at most VPT).
+template <typename T, typename S, bool Gated, int VPT = kRowVpt>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_bwd_row_kernel(const void* __restrict__ v_or_y,
+                       const T* __restrict__ z, const T* __restrict__ dy,
+                       const T* __restrict__ ds, const S* __restrict__ scale,
+                       void* __restrict__ dv_or_dy, T* __restrict__ dz,
+                       float* __restrict__ part, long long rows, int d,
+                       float eps) {
+  constexpr int N = Vec16<T>::N;
+  // a row's two sums by warp, by the row's parity: row r + 2 writes them
+  // only after every thread has passed row r + 1's barrier
+  __shared__ float red[2][kMaxThreads / 32][2];
+  const int nvec = d / N, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  Packed<S, N> sc[VPT];
+  float acc[VPT][N];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec) sc[k] = load_packed<S, N>(scale + i * N);
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[k][j] = 0.f;
+  }
+  int parity = 0;
+  for (long long row = blockIdx.x; row < rows;
+       row += gridDim.x, parity ^= 1) {
+    const size_t base = static_cast<size_t>(row) * d;
+    // the row as loaded: v (plain), or T(y) and z (gated); dy; ds
+    Packed<T, N> xv[VPT], zv[VPT], gv[VPT], sv[VPT];
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i >= nvec) continue;
+      const size_t e = base + static_cast<size_t>(i) * N;
+      if constexpr (Gated) {
+        float y[N];
+        unpack(load_packed<float, N>(static_cast<const float*>(v_or_y) + e),
+               y);
+        xv[k] = pack<T, N>(y);                 // T(y)
+        zv[k] = load_packed<T, N>(z + e);
+      } else {
+        xv[k] = load_packed<T, N>(static_cast<const T*>(v_or_y) + e);
+        if (ds) sv[k] = load_packed<T, N>(ds + e);
+      }
+      gv[k] = load_packed<T, N>(dy + e);
+    }
+    // gated: silu(z) rounded to T, and the sigmoid, once an element
+    Packed<T, N> silu[Gated ? VPT : 1];
+    float sig[Gated ? VPT : 1][Gated ? N : 1];
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i >= nvec) continue;
+      float x[N], g[N], sf[N];
+      unpack(xv[k], x);
+      unpack(gv[k], g);
+      unpack(sc[k], sf);
+      if constexpr (Gated) {
+        float zf[N], sl[N];
+        unpack(zv[k], zf);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float den = 1.f + expf(-zf[j]);
+          sig[k][j] = 1.f / den;
+          sl[j] = zf[j] / den;
+        }
+        silu[k] = pack<T, N>(sl);
+        unpack(silu[k], sl);
+#pragma unroll
+        for (int j = 0; j < N; ++j) x[j] = round_to<T>(x[j] * sl[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ss += x[j] * x[j];
+        dot += g[j] * sf[j] * x[j];
+      }
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) red[parity][warp][0] = ss, red[parity][warp][1] = dot;
+    __syncthreads();
+    ss = dot = 0.f;
+    for (int w = 0; w < nw; ++w)
+      ss += red[parity][w][0], dot += red[parity][w][1];
+    const float r = rsqrtf(ss / d + eps);
+    const float c = r * r * dot / d;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i >= nvec) continue;
+      const size_t e = base + static_cast<size_t>(i) * N;
+      float x[N], g[N], sf[N];
+      unpack(xv[k], x);
+      unpack(gv[k], g);
+      unpack(sc[k], sf);
+      if constexpr (Gated) {
+        // the gate's backward with the roundings of autograd through the
+        // unfused T expression (the warp layout's, below)
+        float sl[N], zf[N], dyo[N], dzo[N];
+        unpack(silu[k], sl);
+        unpack(zv[k], zf);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float yr = x[j];               // T(y)
+          x[j] = round_to<T>(yr * sl[j]);      // the norm's input
+          const float dg = round_to<T>(r * (g[j] * sf[j] - x[j] * c));
+          dyo[j] = round_to<T>(dg * sl[j]);
+          const float dsl = round_to<T>(dg * yr);
+          const float sg = sig[k][j];
+          dzo[j] = dsl * sg * (1.f + zf[j] * (1.f - sg));
+        }
+        store_packed(static_cast<float*>(dv_or_dy) + e,
+                     pack<float, N>(dyo));
+        store_packed(dz + e, pack<T, N>(dzo));
+      } else {
+        float out[N], sd[N];
+        if (ds) unpack(sv[k], sd);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          out[j] = r * (g[j] * sf[j] - x[j] * c);
+          if (ds) out[j] += sd[j];
+        }
+        store_packed(static_cast<T*>(dv_or_dy) + e, pack<T, N>(out));
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[k][j] += g[j] * x[j] * r;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < nvec)
+      store_packed(part + static_cast<size_t>(blockIdx.x) * d + i * N,
+                   pack<float, N>(acc[k]));
+  }
+}
+
+// The warp layout: one warp a row.
 template <typename T, typename S, bool Gated>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32)
 rmsnorm_bwd_kernel(const void* __restrict__ v_or_y, const T* __restrict__ z,
@@ -459,36 +646,66 @@ rmsnorm_bwd_kernel(const void* __restrict__ v_or_y, const T* __restrict__ z,
   }
 }
 
-// dscale[j] = the blocks' partials of column j, summed in block order
+// dscale[j] = the blocks' partials of column j: a block 32 columns, warp w
+// sums partial rows w, w + 8, ... in order, then the 8 sums in warp order
 template <typename S>
-__global__ void rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
-                                          S* __restrict__ dscale, int blocks,
-                                          int d) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
+__global__ void __launch_bounds__(256)
+rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
+                          S* __restrict__ dscale, int blocks, int d) {
+  __shared__ float sums[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
   float t = 0.f;
-  for (int b = 0; b < blocks; ++b) t += part[static_cast<size_t>(b) * d + j];
-  dscale[j] = from_f32<S>(t);
+  if (j < d)
+    for (int b = warp; b < blocks; b += 8)
+      t += part[static_cast<size_t>(b) * d + j];
+  sums[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0 && j < d) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += sums[w][lane];
+    dscale[j] = from_f32<S>(s);
+  }
 }
 
 template <typename T, typename S, bool Gated>
 cudaError_t launch_bwd(const void* v, const void* z, const void* dy,
                        const void* ds, const void* scale, void* dv, void* dz,
                        void* part, void* dscale, long long rows, int d,
-                       float eps, cudaStream_t stream) {
-  const int w = bwd_warps(d);
-  const long long blocks = bwd_blocks(rows, d);
-  rmsnorm_bwd_kernel<T, S, Gated><<<static_cast<unsigned>(blocks), w * 32,
-                                    static_cast<size_t>(w) * d * sizeof(float),
-                                    stream>>>(
-      v, static_cast<const T*>(z), static_cast<const T*>(dy),
-      static_cast<const T*>(ds), static_cast<const S*>(scale), dv,
-      static_cast<T*>(dz), static_cast<float*>(part), rows, d, eps);
+                       float eps, int dtype, cudaStream_t stream) {
+  const T* zt = static_cast<const T*>(z);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* dst = static_cast<const T*>(ds);   // the sum's gradient
+  const S* sct = static_cast<const S*>(scale);
+  T* dzt = static_cast<T*>(dz);
+  float* pt = static_cast<float*>(part);
+  long long blocks;
+  if (use_rows(d, dtype)) {
+    constexpr int N = Vec16<T>::N;
+    const void* ptrs[] = {v, z, dy, ds, dv, dz, part};
+    for (const void* p : ptrs)
+      if (p && !aligned(p, 16)) return cudaErrorMisalignedAddress;
+    if (!aligned(scale, N * sizeof(S) >= 16 ? 16 : 8))
+      return cudaErrorMisalignedAddress;
+    const RowLayout lay = row_layout(rows, d / N);
+    blocks = lay.blocks;
+    rmsnorm_bwd_row_kernel<T, S, Gated>
+        <<<static_cast<unsigned>(blocks), lay.threads, 0, stream>>>(
+            v, zt, dyt, dst, sct, dv, dzt, pt, rows, d, eps);
+  } else {
+    const int w = bwd_warps(d);
+    blocks = bwd_blocks(rows, d, dtype);
+    rmsnorm_bwd_kernel<T, S, Gated><<<static_cast<unsigned>(blocks), w * 32,
+                                      static_cast<size_t>(w) * d *
+                                          sizeof(float),
+                                      stream>>>(v, zt, dyt, dst, sct, dv, dzt,
+                                                pt, rows, d, eps);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rmsnorm_bwd_reduce_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<S*>(dscale),
-      static_cast<int>(blocks), d);
+  rmsnorm_bwd_reduce_kernel<S><<<(d + 31) / 32, 256, 0, stream>>>(
+      pt, static_cast<S*>(dscale), static_cast<int>(blocks), d);
   return cudaGetLastError();
 }
 
@@ -497,36 +714,39 @@ int dispatch_bwd(const void* v, const void* z, const void* dy,
                  const void* ds, const void* scale, void* dv, void* dz,
                  void* part, void* dscale, long long rows, int d, float eps,
                  int x_dtype, int scale_dtype, cudaStream_t s) {
-  if (rows <= 0 || d <= 0 || bwd_blocks(rows, d) == 0)
+  if (rows <= 0 || d <= 0 || bwd_blocks(rows, d, x_dtype) == 0)
     return cudaErrorInvalidValue;
   if (x_dtype == kFloat32 && scale_dtype == kFloat32)
     return launch_bwd<float, float, Gated>(v, z, dy, ds, scale, dv, dz, part,
-                                           dscale, rows, d, eps, s);
+                                           dscale, rows, d, eps, x_dtype, s);
   if (x_dtype == kFloat32 && scale_dtype == kBFloat16)
     return launch_bwd<float, __nv_bfloat16, Gated>(
-        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, x_dtype, s);
   if (x_dtype == kBFloat16 && scale_dtype == kFloat32)
     return launch_bwd<__nv_bfloat16, float, Gated>(
-        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, x_dtype, s);
   if (x_dtype == kBFloat16 && scale_dtype == kBFloat16)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16, Gated>(
-        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, s);
+        v, z, dy, ds, scale, dv, dz, part, dscale, rows, d, eps, x_dtype, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Blocks of the backward's first kernel for (rows, d): its float32
-// partials of dscale take blocks x d floats of workspace.  0: d too wide.
-extern "C" int rmsnorm_bwd_blocks(long long rows, int d) {
-  return d > 0 && rows > 0 ? static_cast<int>(bwd_blocks(rows, d)) : 0;
+// Blocks of the backward's first kernel for (rows, d) in x_dtype (the
+// gated norm's z dtype): its float32 partials of dscale take blocks x d
+// floats of workspace.  0: d too wide.
+extern "C" int rmsnorm_bwd_blocks(long long rows, int d, int x_dtype) {
+  return d > 0 && rows > 0 ? static_cast<int>(bwd_blocks(rows, d, x_dtype))
+                           : 0;
 }
 
 // The norm's backward over rows x d: v the norm's input (x, or the fused
 // add's sum), dy the output's gradient, ds the sum's gradient (null: the
-// plain norm, or a sum no op read), all in x_dtype and contiguous; dv (in
-// x_dtype) and dscale (in scale_dtype) written; part: float32 workspace of
-// rmsnorm_bwd_blocks(rows, d) x d.
+// plain norm, or a sum no op read), all in x_dtype and contiguous (16-byte
+// aligned where d takes the row layout); dv (in x_dtype) and dscale (in
+// scale_dtype) written; part: float32 workspace of
+// rmsnorm_bwd_blocks(rows, d, x_dtype) x d.
 extern "C" int rmsnorm_bwd_launch(const void* v, const void* dy,
                                   const void* ds, const void* scale, void* dv,
                                   void* part, void* dscale, long long rows,

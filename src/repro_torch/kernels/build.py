@@ -89,11 +89,11 @@ _SIGNATURES = {
     # scale dtype, stream
     "gated_rmsnorm_bwd_launch": [_vp] * 8 + [_i64, _i, _f, _i, _i, _vp],
     # the tensor-core routes' dynamic shared memory a launch (bytes), and
-    # the norm backward's blocks for (rows, d) (not launches: they return
-    # the size, not a cudaError_t)
+    # the norm backward's blocks for (rows, d, dtype) (not launches: they
+    # return the size, not a cudaError_t)
     "rwkv6_scan_tc_smem": [_i],
     "ssd_scan_tc_smem": [_i],
-    "rmsnorm_bwd_blocks": [_i64, _i],
+    "rmsnorm_bwd_blocks": [_i64, _i, _i],
 }
 
 

@@ -30,11 +30,13 @@ kernels (``csrc/flash_attention_bwd.cu``, launched by
 :func:`flash_attention_bwd_cuda` from the autograd Function in
 :mod:`repro_torch.kernels.ops`) take the forward's inputs, its output and
 the output's gradient.  They too have two routes
-(:func:`backward_tensor_core_route`): bf16 at D 64 and 128 on the tensor
-cores, which read each row's log-sum-exp from the forward
+(:func:`backward_tensor_core_route`): bf16 at D 64, 128 and 256 on the
+tensor cores, which read each row's log-sum-exp from the forward
 (``flash_attention_cuda(..., with_lse=True)``; serving asks for none, and
-its launches write none); float32 and the other head dims on CUDA cores,
-which recompute it.  On the CPU autograd differentiates the plain version,
+its launches write none); float32 and bf16 D 16 and 32 on CUDA cores,
+which recompute it.  bf16 at D 256 also has CUDA-core kernels, taken only
+when asked for by ``tensor_cores=False`` (to time the two routes side by
+side).  On the CPU autograd differentiates the plain version,
 which is also the backward's oracle on the card.
 """
 from __future__ import annotations
@@ -46,7 +48,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
-BACKWARD_TENSOR_CORE_HEAD_DIMS = (64, 128)
+BACKWARD_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 LSE_ROWS = 128     # the log-sum-exp's rows are padded to the forward's block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,9 +115,9 @@ def tensor_core_route(q) -> bool:
 
 def backward_tensor_core_route(q) -> bool:
     """True when the backward runs ``q``'s call on the tensor cores: bf16 at
-    a (padded) head dim in :data:`BACKWARD_TENSOR_CORE_HEAD_DIMS`.
-    Float32, D 16 and 32, and D 256 (whose dk and dv accumulators alone
-    would take 256 registers a thread) stay on CUDA cores."""
+    a (padded) head dim in :data:`BACKWARD_TENSOR_CORE_HEAD_DIMS` (at D
+    256 dk and dv in blocks of their own: the kernel's note).  Float32 and
+    D 16 and 32 stay on CUDA cores."""
     return (q.dtype == torch.bfloat16 and padded_head_dim(q.shape[-1])
             in BACKWARD_TENSOR_CORE_HEAD_DIMS)
 
@@ -217,7 +219,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
-                             window=None, q_offset: int = 0, lse=None):
+                             window=None, q_offset: int = 0, lse=None,
+                             tensor_cores=None):
     """Launch the flash-attention backward (``csrc/flash_attention_bwd.cu``)
     on ``q``'s card: the gradients ``(dq, dk, dv)`` of the forward of the
     same ``causal``, ``window`` and ``q_offset`` from its inputs, its output
@@ -228,8 +231,13 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
     Where :func:`backward_tensor_core_route` holds the kernels run on the
     tensor cores and need ``lse``, the forward's
     (``flash_attention_cuda(..., with_lse=True)``); elsewhere they run on
-    CUDA cores in float32, recompute it, and ``lse`` must be None.  Raises
-    on anything else; never falls back."""
+    CUDA cores in float32, recompute it, and ``lse`` must be None.
+    ``tensor_cores`` None follows the rule; False takes the CUDA-core
+    kernels at bf16 D 256 (lse None), which exist there to be timed beside
+    the tensor cores (at bf16 D 64 and 128 there are none: it raises);
+    True raises where the rule does not hold.  A call on either route that
+    fails to build or launch raises and never runs the other.  Raises on
+    anything else; never falls back."""
     _check_window(window)
     _check_offset(q_offset)
     B, Sq, Hq, D = q.shape
@@ -255,6 +263,15 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd_cuda: head dim {D} above "
                          f"every built one {HEAD_DIMS}")
     tc = backward_tensor_core_route(q)
+    if tensor_cores is not None and bool(tensor_cores) != tc:
+        if tensor_cores or padded_head_dim(D) != 256:
+            raise ValueError(
+                "flash_attention_bwd_cuda: no "
+                f"{'tensor' if tensor_cores else 'CUDA'}-core route for "
+                f"{q.dtype} at D {D} (the tensor cores take bf16 at D "
+                f"{BACKWARD_TENSOR_CORE_HEAD_DIMS}; CUDA cores the rest, "
+                "and bf16 at D 256 when asked)")
+        tc = False
     rows = lse_rows(Sq) if tc else Sq
     if tc and (lse is None or lse.shape != (B, Hq, rows)
                or lse.dtype != torch.float32 or lse.device != dev

@@ -27,10 +27,11 @@ whose backward is a kernel too: ``rmsnorm_bwd`` counts B2's backward
 launches (``rmsnorm_add_bwd`` the fused add's among them,
 ``rmsnorm_gated_bwd`` the gated norm's), ``flash_attention_bwd`` B3's
 backward calls and its sub-count ``flash_attention_bwd_tc`` those on the
-tensor cores (bf16 at D 64 and 128, and 112 padded to 128: three launches,
-delta = rowsum(dO * O), dq, then dk and dv, reading the log-sum-exp the
-forward wrote; the CUDA-core route two: dq with the rows' log-sum-exp,
-then dk and dv), ``rwkv6_scan_bwd`` B4's and ``ssd_scan_bwd`` B5's
+tensor cores (bf16 at D 64, 128 and 256, and 112 padded to 128: three
+launches, delta = rowsum(dO * O), dq, then dk and dv (at D 256 in blocks of
+their own within the one launch), reading the log-sum-exp the forward
+wrote; the CUDA-core route two: dq with the rows' log-sum-exp, then dk and
+dv), ``rwkv6_scan_bwd`` B4's and ``ssd_scan_bwd`` B5's
 calls, and their sub-counts ``rwkv6_scan_bwd_tc`` / ``ssd_scan_bwd_tc``
 those on the chunk-parallel tensor-core route (the forward's rule: six
 launches for the wkv, the chunks' state and gradient contributions, the

@@ -86,6 +86,14 @@ def _contiguous(t):
     return t if t.is_contiguous() else t.contiguous()
 
 
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (the backward's vector loads),
+    itself where it already is, else a copy: the backward's layout follows
+    (rows, d, dtype) alone, never a pointer."""
+    t = _contiguous(t)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(name, fn, ptrs, x, idx, eps, dtype, scale) -> None:
     """Call the C entry point ``fn`` on ``x``'s rows, on card ``idx``'s
     current stream: ``fn(*ptrs, rows, d, eps, dtype code, scale dtype code,
@@ -162,7 +170,9 @@ def rmsnorm_bwd_cuda(v, dy, ds, scale, *, eps: float = 1e-6):
     the fused add, the sum's own ``ds`` (None: none), computed in float32;
     ``dv`` in ``v``'s dtype (for the fused add, the gradient of both
     addends), ``dscale`` in ``scale``'s, summed over the rows in a second
-    kernel from per-block partials (no atomics: the same every run)."""
+    kernel from per-block partials (no atomics: the same every run).  A
+    block takes a row from d 1024 to 1024 16-byte vectors a row, a warp
+    one elsewhere (the kernel's note)."""
     if v.dtype not in _DTYPE_CODES or dy.dtype != v.dtype or (
             ds is not None and ds.dtype != v.dtype):
         raise TypeError(f"rmsnorm_bwd_cuda: unsupported dtypes {v.dtype}, "
@@ -170,8 +180,8 @@ def rmsnorm_bwd_cuda(v, dy, ds, scale, *, eps: float = 1e-6):
                         "(all float32 or all bfloat16)")
     others = (dy,) if ds is None else (dy, ds)
     idx = _card("rmsnorm_bwd_cuda", v, scale, *others)
-    v, dy, scale = _contiguous(v), _contiguous(dy), _contiguous(scale)
-    ds = None if ds is None else _contiguous(ds)
+    v, dy, scale = _aligned(v), _aligned(dy), _aligned(scale)
+    ds = None if ds is None else _aligned(ds)
     dv = torch.empty_like(v)
     dscale = torch.empty_like(scale)
     d = v.shape[-1]
@@ -179,7 +189,7 @@ def rmsnorm_bwd_cuda(v, dy, ds, scale, *, eps: float = 1e-6):
     if not rows:
         return dv, dscale.zero_()
     lib = _library()
-    blocks = lib.rmsnorm_bwd_blocks(rows, d)
+    blocks = lib.rmsnorm_bwd_blocks(rows, d, _DTYPE_CODES[v.dtype])
     if blocks <= 0:
         raise ValueError(f"rmsnorm_bwd_cuda: d={d} is wider than the "
                          "backward takes")
@@ -206,7 +216,7 @@ def gated_rmsnorm_bwd_cuda(y, z, dout, scale, *, eps: float = 1e-6):
                         f"{y.dtype}, {z.dtype}, {dout.dtype} (y float32, z "
                         "and dout float32 or bfloat16)")
     idx = _card("gated_rmsnorm_bwd_cuda", y, scale, z, dout)
-    y, z, dout, scale = (_contiguous(t) for t in (y, z, dout, scale))
+    y, z, dout, scale = (_aligned(t) for t in (y, z, dout, scale))
     dy, dz = torch.empty_like(y), torch.empty_like(z)
     dscale = torch.empty_like(scale)
     d = y.shape[-1]
@@ -214,7 +224,7 @@ def gated_rmsnorm_bwd_cuda(y, z, dout, scale, *, eps: float = 1e-6):
     if not rows:
         return dy, dz, dscale.zero_()
     lib = _library()
-    blocks = lib.rmsnorm_bwd_blocks(rows, d)
+    blocks = lib.rmsnorm_bwd_blocks(rows, d, _DTYPE_CODES[z.dtype])
     if blocks <= 0:
         raise ValueError(f"gated_rmsnorm_bwd_cuda: d={d} is wider than the "
                          "backward takes")

@@ -14,12 +14,15 @@ sees it:
 * the D 256 forward: 64-key tiles, P entering the PV product as a bf16
   pair hi + lo, against the plain version at the forward's bf16 limit
   (4e-3, ``TOL`` of ``tests/test_torch_gpu.py``);
-* the backward at D 64 and 128: the log-sum-exp from the forward mirror,
-  delta = rowsum(dO * O), 64-key tiles for dq and 64-query tiles over the
-  KV head's query heads for dk and dv, P and dS each rounded to bf16 once
-  before their products, against autograd through the plain version in
-  float32 at the backward's bf16 limit (2e-2 of the largest magnitude,
-  ``BWD_ATTN_REL``).
+* the backward at D 64, 128 and 256: the log-sum-exp from the forward
+  mirror, delta = rowsum(dO * O), key tiles for dq and query tiles over
+  the KV head's query heads for dk and dv (64 rows, 32 at D 256, where the
+  kernel's shared memory holds 3 stages of 32-row tiles), P and dS each
+  rounded to bf16 once before their products, against autograd through
+  the plain version in float32 at the backward's bf16 limit (2e-2 of the
+  largest magnitude, ``BWD_ATTN_REL``).  At D 256 the kernel computes dk
+  and dv in blocks of their own over the same tiles: the mirror's dk and
+  dv sums are already apart, so the split moves no rounding.
 """
 import math
 
@@ -164,19 +167,30 @@ def _plain_grads(q, k, v, g, causal, window):
     return torch.autograd.grad(out, leaves, g.float())
 
 
-# (B, S, Hq, Hkv, D, causal, window)
+def _tiles(D):
+    """The tensor-core kernels' tiles at D: (the forward's keys a tile,
+    the backward's streamed rows a tile)."""
+    return (64, 32) if D == 256 else (128, 64)
+
+
+# (B, S, Hq, Hkv, D, causal, window); D 256: causal at a ragged S, gemma3's
+# window (64 here, several tiles wide), non-causal at G 2
 BWD_MIRROR_CASES = [(1, 512, 2, 1, 128, True, None),
                     (1, 300, 4, 2, 64, True, 100),
-                    (1, 256, 4, 2, 64, False, None)]
+                    (1, 256, 4, 2, 64, False, None),
+                    (1, 300, 2, 1, 256, True, None),
+                    (1, 200, 2, 1, 256, True, 64),
+                    (1, 130, 4, 2, 256, False, None)]
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", BWD_MIRROR_CASES)
 def test_backward_mirror_meets_the_bf16_limit(B, S, Hq, Hkv, D, causal,
                                               window):
     q, k, v, g = _inputs(0, B, S, Hq, Hkv, D)
-    out, lse = forward_mirror(q, k, v, causal=causal, window=window, bn=128)
+    bn, tile = _tiles(D)
+    out, lse = forward_mirror(q, k, v, causal=causal, window=window, bn=bn)
     got = backward_mirror(q, k, v, out, g, lse, causal=causal,
-                          window=window)
+                          window=window, tile=tile)
     want = _plain_grads(q, k, v, g, causal, window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert _rel(a, b) < BWD_REL / 2, (name, _rel(a, b))
@@ -222,7 +236,7 @@ def _t(dtype, D, S=8):
 
 
 @pytest.mark.parametrize("dtype,D,fwd,bwd", [
-    (BF16, 64, True, True), (BF16, 128, True, True), (BF16, 256, True, False),
+    (BF16, 64, True, True), (BF16, 128, True, True), (BF16, 256, True, True),
     (BF16, 16, False, False), (BF16, 32, False, False),
     (F32, 64, False, False), (F32, 128, False, False),
     (F32, 256, False, False)])

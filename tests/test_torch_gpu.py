@@ -1352,7 +1352,7 @@ def test_rmsnorm_backward_kernels_match_autograd(card, dtype, rows, d):
 
 # (B, S, Hq, Hkv, D, causal, window): SMOKE, qwen3-1.7b's heads at D 128,
 # gemma3's 8/4 at D 256 windowed, a ragged S, bidirectional, G 4 windowed
-# at D 128; bf16 at D 64 and 128 takes the tensor cores
+# at D 128; bf16 at D 64, 128 and 256 takes the tensor cores
 BWD_FLASH_CASES = [(2, 64, 4, 2, 16, True, None), (1, 100, 4, 1, 32, True, 8),
                    (1, 257, 16, 8, 128, True, None),
                    (1, 300, 8, 4, 256, True, 64),
@@ -1393,7 +1393,7 @@ def test_flash_attention_backward_kernel_with_offset_matches_autograd(
             (name, err)
     assert ops.COUNTS["flash_attention_bwd"].kernel == 1
     assert ops.COUNTS["flash_attention_bwd_tc"].kernel == int(
-        dtype == "bfloat16" and D in (64, 128))
+        dtype == "bfloat16" and D in (64, 128, 256))
     assert ops.COUNTS["flash_attention"].plain == 0
     ops.reset_counts()
 
@@ -1425,8 +1425,129 @@ def test_flash_attention_backward_kernel_matches_autograd(
             (name, err)
     assert ops.COUNTS["flash_attention_bwd"].kernel == 1
     assert ops.COUNTS["flash_attention_bwd_tc"].kernel == int(
-        dtype == "bfloat16" and D in (64, 128))
+        dtype == "bfloat16" and D in (64, 128, 256))
     assert ops.COUNTS["flash_attention"].plain == 0
+    ops.reset_counts()
+
+
+# B3's backward at bf16 D 256 on the tensor cores (gemma3's heads; dk and
+# dv in blocks of their own): (B, Sq, Sk, q_offset, Hq, Hkv, causal,
+# window): gemma3's windowed and global layers at S 2048, a 64 window at
+# G 1, ragged S at G 2, a query offset, bidirectional
+BWD_D256_CASES = [(1, 2048, 2048, 0, 8, 4, True, 1024),
+                  (1, 2048, 2048, 0, 8, 4, True, None),
+                  (2, 300, 300, 0, 4, 4, True, 64),
+                  (1, 1000, 1000, 0, 8, 4, True, None),
+                  (1, 257, 257, 0, 2, 1, True, 100),
+                  (1, 200, 333, 133, 8, 4, True, None),
+                  (1, 130, 130, 0, 4, 2, False, None)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,off,Hq,Hkv,causal,window", BWD_D256_CASES)
+def test_flash_attention_backward_d256_on_tensor_cores(
+        card, B, Sq, Sk, off, Hq, Hkv, causal, window):
+    """bf16 D 256 through the autograd Function: the forward writes the
+    log-sum-exp, the backward takes the tensor cores; against autograd
+    through the plain version in float32, and two runs the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    rng = np.random.default_rng(Sq + Sk + off)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, torch.bfloat16)
+    q, k, v, g = t(B, Sq, Hq, 256), t(B, Sk, Hkv, 256), \
+        t(B, Sk, Hkv, 256), t(B, Sq, Hq, 256)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    ops.reset_counts()
+    got = _twice(lambda a, b, c: ops.flash_attention(a, b, c, **kw),
+                 q, k, v, cot=(g,))
+    want = _grads(lambda a, b, c: flash_attention_plain(a, b, c, **kw),
+                  q.float(), k.float(), v.float(), cot=(g.float(),))
+    torch.cuda.synchronize()
+    _within(got, want, BWD_ATTN_REL["bfloat16"], "flash_attention_bwd D 256")
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 2
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == 2
+    assert ops.COUNTS["flash_attention"].plain == 0
+    ops.reset_counts()
+
+
+def test_flash_attention_backward_routes_at_d256(card):
+    """At bf16 D 256 the CUDA-core kernels run only when asked for by
+    ``tensor_cores=False``; both routes agree with autograd.  Elsewhere
+    a route the rule does not give is refused."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_plain)
+    rng = np.random.default_rng(256)
+
+    def t(*shape, dt=torch.bfloat16):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, dt)
+    q, k, v, g = t(1, 300, 8, 256), t(1, 300, 4, 256), t(1, 300, 4, 256), \
+        t(1, 300, 8, 256)
+    out, lse = flash_attention_cuda(q, k, v, window=64, with_lse=True)
+    want = _grads(lambda a, b, c: flash_attention_plain(a, b, c, window=64),
+                  q.float(), k.float(), v.float(), cot=(g.float(),))
+    tc = flash_attention_bwd_cuda(q, k, v, out, g, window=64, lse=lse)
+    cuda = flash_attention_bwd_cuda(q, k, v, out, g, window=64,
+                                    tensor_cores=False)
+    torch.cuda.synchronize()
+    _within(tc, want, BWD_ATTN_REL["bfloat16"], "tensor cores")
+    _within(cuda, want, BWD_ATTN_REL["bfloat16"], "CUDA cores")
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, v, out, g, window=64)
+    q2, k2 = t(1, 64, 4, 128), t(1, 64, 2, 128)
+    o2, l2 = flash_attention_cuda(q2, k2, k2, with_lse=True)
+    with pytest.raises(ValueError, match="no CUDA-core route"):
+        flash_attention_bwd_cuda(q2, k2, k2, o2, q2, tensor_cores=False)
+    q3, k3 = t(1, 64, 4, 256, dt=torch.float32), t(1, 64, 2, 256,
+                                                   dt=torch.float32)
+    o3 = flash_attention_cuda(q3, k3, k3)
+    with pytest.raises(ValueError, match="no tensor-core route"):
+        flash_attention_bwd_cuda(q3, k3, k3, o3, q3, tensor_cores=True)
+
+
+# B2's backward on both layouts: a block a row at training's wide d
+# (zamba2's gated 7168, its 3584, qwen3-1.7b's 2048) and a warp a row at
+# the QK-norm's 128, each at a row count no multiple of a block's rows
+NORM_LAYOUT_CASES = [(1000, 7168), (333, 3584), (4097, 2048), (999, 128)]
+
+
+@pytest.mark.parametrize("rows,d", NORM_LAYOUT_CASES)
+def test_norm_backward_layouts_match_autograd_twice(card, rows, d):
+    """The norm, the fused add (its sum read on and not) and the gated
+    norm in bf16 through their backward kernels, each run twice (the same
+    bits), against autograd through the plain versions in float32."""
+    from repro_torch.kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
+    rng = np.random.default_rng(rows * 7 + d)
+
+    def t(*shape, dt=torch.bfloat16):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, dt)
+    x, delta, gy, gs, z = (t(rows, d) for _ in range(5))
+    y = t(rows, d, dt=torch.float32)
+    s = 1 + 0.1 * t(d, dt=torch.float32)
+    tol = BWD_TOL["bfloat16"]
+    ops.reset_counts()
+    got = _twice(ops.rmsnorm, x, s, cot=(gy,))
+    want = _grads(rmsnorm_plain, x.float(), s, cot=(gy.float(),))
+    _within(got, want, tol, "rmsnorm_bwd")
+    for keep in (True, False):
+        got = _twice(lambda a, b, c: ops.add_rmsnorm(a, b, c, keep_sum=keep),
+                     x, delta, s, cot=(gs, gy))
+        want = _grads(lambda a, b, c: add_rmsnorm_plain(a, b, c,
+                                                        keep_sum=keep),
+                      x.float(), delta.float(), s,
+                      cot=(gs.float(), gy.float()))
+        _within(got, want, tol, f"add_rmsnorm_bwd keep_sum={keep}")
+    got = _twice(ops.gated_rmsnorm, y, z, s, cot=(gy,))
+    want = _grads(ref.gated_rmsnorm, y, z.float(), s, cot=(gy.float(),))
+    _within(got, want, tol, "gated_rmsnorm_bwd")
+    torch.cuda.synchronize()
+    assert ops.COUNTS["rmsnorm_bwd"].kernel == 8
+    assert ops.COUNTS["rmsnorm_add_bwd"].kernel == 4
+    assert ops.COUNTS["rmsnorm_gated_bwd"].kernel == 2
+    assert ops.COUNTS["rmsnorm"].plain == 0
     ops.reset_counts()
 
 
