@@ -425,6 +425,16 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  state the same bits.  Prints the losses, a step's
                  host-issued and profiled device ms by kernel group,
                  tokens/s and the peak beside the state's 16 B a param.
+34e'. main-train-rwkv-mesh — right after 34e: its model cut to 24
+                 layers, 3 steps on one device and then through
+                 ``Trainer(mesh=make_debug_mesh(1, 1))`` in a run_ranks
+                 world of one NCCL rank: the wkv scan's inputs swapped
+                 from sequence blocks to head blocks and back, the token
+                 shift's history passed on (copies at world 1).  Losses
+                 and gradient norms bit for bit, the same launches, no
+                 plain call, the meshed peak within TRAIN_MESH_PEAK of
+                 the unmeshed one; a step of each profiled, the meshed
+                 one's NCCL kernels and device-to-device copies apart.
 34f. main-train-zamba — full-width zamba2-7b (d 3584, 112 SSM heads of 64,
                  N 64, 32/32 attention heads of 112, ff 14336) cut from 81
                  to 27 Mamba-2 layers (one segment, one application of the
@@ -435,6 +445,19 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  to 128); B2 and B3 held against their plain versions at
                  every shape the steps called them at, forward and
                  backward.
+34f'. main-train-zamba-mesh — right after 34f, as 34e' at 34f's 27
+                 layers (the SSD scan on
+                 head blocks, B and C gathered whole, the conv's 3 rows of
+                 history passed on, the shared block's K/V gathered and B3
+                 called with the rank's query offset).  Then timing-ranks:
+                 B4 both ways at B 4, S 2048, K = V 64 with H 20 and 10
+                 (a rank of tp 2 and 4), B5 at N = P 64 with H 56 and 28,
+                 B3 both ways as the shared block runs at rank 1 of tp 2
+                 (Sq 1024 at offset 1024, Sk 2048, 32/32 heads of 112):
+                 each against its plain version (the scans' backward on
+                 row 0 at SCAN_BWD_REL), every call on the tensor cores
+                 both ways, then timed beside its bound and plain version
+                 (B3 beside SDPA).
 35. main-gemma3 — full-width, full-depth gemma3-4b (34 layers: 29 windowed
                  of 1024, 5 global; d 2560, 8/4 heads of 256, vocab
                  262144, bf16, seed 0) as aligned batches through its API:
@@ -5041,6 +5064,24 @@ SCAN_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 TRAIN_RWKV_ARCH, TRAIN_ZAMBA_ARCH, TRAIN_ZAMBA_LAYERS = \
     "rwkv6-3b", "zamba2-7b", 27
 TRAIN_REC_B, TRAIN_REC_STEPS = 4, 5
+# main-train-rwkv-mesh and main-train-zamba-mesh: main-train-rwkv's and
+# main-train-zamba's models, TRAIN_REC_MESH_STEPS steps through Trainer on
+# one device and then on a (1, 1) ("data", "model") mesh in a run_ranks
+# world of 1 over NCCL: the scans' inputs swapped from sequence blocks to
+# head blocks and back, the token shift's and the conv's history passed
+# on, B and C gathered, all copies of the one rank's tensors; losses and
+# gradient norms bit for bit, the same launches, the peak within
+# TRAIN_MESH_PEAK.  rwkv6-3b is cut from 32 to TRAIN_RWKV_MESH_LAYERS
+# layers: at 32 its meshed step peaks at 76.9 GB (1.095 x the unmeshed
+# 70.2), and in the whole run's process a step's AdamW found no 2.73 GiB
+# block left (4.77 GiB reserved but free, 79.18 GiB card)
+TRAIN_REC_MESH_STEPS = 3
+TRAIN_RWKV_MESH_LAYERS = 24
+# timing-ranks: the kernels at the shapes one rank gives them when the
+# recurrent families train at tp 2 and 4 (H / tp whole heads over every
+# position; zamba2's shared block at rank 1 of tp 2: its second half of
+# the queries over every key before them)
+RANK_TPS = (2, 4)
 
 
 def grads_of(fn, tensors, cots):
@@ -5966,7 +6007,346 @@ def phase_main_train_recurrent(dev, label: str, cfg, with_shapes: bool):
     torch.cuda.empty_cache()
     return {"launches": {k: counts[k][0] for k in want}, "host_ms": host,
             "device_ms": devt, "peak": peak, "state_bytes": state_bytes,
-            "losses": losses, "split": split, "errs": errs}
+            "losses": losses, "split": split, "errs": errs,
+            "run": {"losses": losses,
+                    "grad_norms": [m["grad_norm"] for m in h],
+                    "step_times": [m["step_time"] for m in h],
+                    "counts": {k: c for k, c in counts.items() if any(c)},
+                    "steps": n, "peak": peak, "device_ms": devt,
+                    "wall": wall}}
+
+
+def _train_rec_run(cfg, mesh_shape=None) -> dict:
+    """``cfg``'s first TRAIN_REC_MESH_STEPS steps of main-train-rwkv or
+    main-train-zamba through ``Trainer`` (seed 0, main-train-rwkv's AdamW
+    schedule): on one device, or on ``make_debug_mesh(*mesh_shape)`` in
+    the caller's process group (the state sharded at birth, a layer's
+    weights gathered inside its block, the scans on the rank's heads over
+    every position); then one more step profiled."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.mesh import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    mesh = rules = specs = None
+    if mesh_shape is not None:
+        mesh = make_debug_mesh(*mesh_shape)
+        rules = rules_for_mesh(mesh)
+        specs = model.train_batch_specs(type("S", (), {
+            "global_batch": TRAIN_REC_B, "seq_len": TRAIN_S})())
+    n = TRAIN_REC_MESH_STEPS
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                      decay_steps=TRAIN_REC_STEPS)
+    task = SyntheticTask(cfg, batch=TRAIN_REC_B, seq_len=TRAIN_S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(model, opt, TrainerConfig(steps=n, log_every=n),
+                 make_data_iter(task, mesh, rules, specs, device=dev),
+                 mesh=mesh, rules=rules, device=dev, seed=0, log=log)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    h = tr.fit()["history"]
+    wall = time.perf_counter() - t0
+    counts = {k: (c.kernel, c.plain) for k, c in ops.COUNTS.items()
+              if c.kernel or c.plain}
+    peak = torch.cuda.max_memory_allocated()
+    state = tr.final_state
+    batch = next(make_data_iter(task, mesh, rules, specs, device=dev,
+                                start_step=n))
+    step = make_train_step(model, opt, mesh, rules)
+    devt, nccl, copies = profiled_parts(lambda: step(state, batch), iters=1)
+    del state, batch, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": [m["loss"] for m in h],
+            "grad_norms": [m["grad_norm"] for m in h],
+            "step_times": [m["step_time"] for m in h], "counts": counts,
+            "steps": n, "peak": peak, "device_ms": devt, "nccl_ms": nccl,
+            "copy_ms": copies, "wall": wall,
+            "groups": None if mesh is None else [
+                mesh.comm(a).size() for a in mesh.axis_names]}
+
+
+def _train_rec_mesh_rank(comm, cfg) -> dict:
+    """:func:`_train_rec_run` of ``cfg`` on a (1, 1) mesh: the world-1
+    rank on the card (NCCL)."""
+    return _train_rec_run(cfg, (1, 1))
+
+
+def phase_main_train_rec_mesh(label: str, cfg, base=None) -> dict:
+    """main-train-rwkv-mesh or main-train-zamba-mesh: ``cfg``'s first
+    TRAIN_REC_MESH_STEPS steps on a (1, 1) mesh in ``run_ranks(world=1)``
+    on the card (:func:`_train_rec_run`), held against ``base``: the
+    unmeshed run of the same model, seed, batches and schedule, main-train-
+    zamba's ``"run"`` (its first steps), or where None the same steps on
+    one device run here (rwkv6, whose meshed run is cut in depth).  Gates:
+    the meshed run's losses and gradient norms bit for bit the unmeshed
+    run's first steps, its launches a step the same (the scans on the
+    tensor-core routes both ways), no plain call, its peak within
+    TRAIN_MESH_PEAK of the unmeshed one.  Logs a profiled step's device
+    time of each, the meshed one's NCCL kernels and device-to-device
+    copies apart."""
+    t0 = time.perf_counter()
+    if base is None:
+        base = _train_rec_run(cfg)
+    r = comm_lib.run_ranks(_train_rec_mesh_rank, (cfg,), world=1,
+                           store_dir=STORE_DIR, device="cuda")[0]
+    if torch.distributed.is_initialized():
+        raise AssertionError(f"{label}: a process group was left")
+    n = TRAIN_REC_MESH_STEPS
+    for k in ("losses", "grad_norms"):
+        if r[k] != base[k][:n]:
+            raise AssertionError(f"{label}: {k} {r[k]}; unmeshed "
+                                 f"{base[k][:n]}: not bit for bit")
+    per_step, base_step = ({k: (c[0] / x["steps"], c[1] / x["steps"])
+                            for k, c in x["counts"].items() if any(c)}
+                           for x in (r, base))
+    if per_step != base_step or any(c[1] for c in r["counts"].values()):
+        raise AssertionError(f"{label}: launches {r['counts']} over "
+                             f"{r['steps']} steps; unmeshed "
+                             f"{base['counts']} over {base['steps']}, no "
+                             "plain call")
+    if r["peak"] > TRAIN_MESH_PEAK * base["peak"]:
+        raise AssertionError(f"{label}: peak {r['peak']} B above "
+                             f"{TRAIN_MESH_PEAK} x the unmeshed "
+                             f"{base['peak']} B")
+    host = {k: float(np.median(x["step_times"][1:])) * 1e3
+            for k, x in (("mesh", r), ("plain", base))}
+    dev_ms = base["device_ms"]
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers) through Trainer(mesh="
+        f"make_debug_mesh(1, 1)) in run_ranks(world=1, NCCL), groups of "
+        f"{r['groups']}, beside the unmeshed run's first {n} steps (of "
+        f"{base['steps']}), steps of {TRAIN_REC_B} x {TRAIN_S} each "
+        f"({r['wall']:.1f} s / {base['wall']:.1f} s): losses {r['losses']}, "
+        f"grad norms {r['grad_norms']}: bit for bit the unmeshed run's; "
+        f"launches a step {per_step} = the unmeshed run's; a "
+        f"step host-issued {host['mesh']:.1f} ms (median of steps 2-{n}; "
+        f"unmeshed {host['plain']:.1f} ms, steps 2-{base['steps']}), device "
+        f"{r['device_ms']:.1f} ms (one step "
+        f"profiled; NCCL's kernels {r['nccl_ms']:.2f} ms and device-to-device "
+        f"copies {r['copy_ms']:.2f} ms of it; unmeshed {dev_ms:.1f} ms, "
+        f"{(r['device_ms'] - dev_ms) / dev_ms:+.2%}); max_memory_allocated "
+        f"{r['peak']} B = {r['peak'] / base['peak']:.4f} x the unmeshed "
+        f"{base['peak']} B (limit {TRAIN_MESH_PEAK}); the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": {k: c[0] for k, c in r["counts"].items()},
+            "steps": n, "peak": r["peak"], "host_ms": host["mesh"],
+            "device_ms": r["device_ms"], "nccl_ms": r["nccl_ms"],
+            "copy_ms": r["copy_ms"]}
+
+
+def per_call(counts: dict, name: str, calls: int) -> dict:
+    """A rank shape's launches a call: ``name``'s count and its
+    tensor-core route's, read after the ``calls`` wrapper calls of its
+    parity check (counted from 0; the timed calls come after the
+    reading), over ``calls``."""
+    return {"launches": counts.get(name, 0) / calls,
+            "tc_launches": counts.get(f"{name}_tc", 0) / calls,
+            "counted_calls": calls}
+
+
+def phase_timing_ranks(dev, smi: str) -> tuple[dict, dict]:
+    """timing-ranks: B4 and B5 both ways at the heads one rank's scan takes
+    when rwkv6-3b and zamba2-7b train at tp RANK_TPS (TRAIN_REC_B x
+    TRAIN_S, K = V = 64 and N = P = 64, bf16 r/k/v and B/C), and B3 both
+    ways as zamba2's shared block runs at rank 1 of tp 2 (TRAIN_REC_B
+    rows, the second half of the queries at their offset over every key
+    before them, 32/32 heads of 112).  Each forward against its plain
+    version on the same inputs (TOL), each backward against autograd
+    through the plain version in float32 (the scans on row 0, B4's du from
+    a call on row 0 alone, at SCAN_BWD_REL; B3 at TRAIN_FLASH_REL), every
+    call on the tensor-core route both ways (the sub-counts); then the
+    kernel, the plain version (the scans' backward on one row, as
+    timing-train) and for B3 SDPA with the same mask timed beside the
+    bound.  Returns (rows by kernel, max abs errors by kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    rng = np.random.default_rng(32)
+    torch.manual_seed(32)
+    bf16 = torch.bfloat16
+    B, S = TRAIN_REC_B, TRAIN_S
+    rows = {k: {} for k in ("rwkv6_scan", "rwkv6_scan_bwd", "ssd_scan",
+                            "ssd_scan_bwd", "flash_attention",
+                            "flash_attention_bwd")}
+    errs = {k: 0.0 for k in rows}
+    rcfg, zcfg = get_config(TRAIN_RWKV_ARCH), get_config(TRAIN_ZAMBA_ARCH)
+    K, P, N = rcfg.rwkv_head_dim, zcfg.ssm_head_dim, zcfg.ssm_state
+
+    def plain_bwd(fn, ins, cot):
+        """(ms, gradients) of autograd through ``fn`` in float32."""
+        leaves = [t.detach().float().requires_grad_(True) for t in ins]
+        y = fn(*leaves)[0]
+        grads = []
+
+        def run():
+            grads[:] = torch.autograd.grad(y, leaves, cot, retain_graph=True)
+        ms = time_ms(run, iters=1, warmup=1)
+        del y, leaves
+        return ms, grads
+
+    def through_ops(fn, ins, cot):
+        """The gradients of ``fn`` (an ``ops`` scan) by autograd."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        return torch.autograd.grad(fn(*leaves)[0], leaves, cot)
+
+    t0 = time.perf_counter()
+    for kind in ("rwkv6", "ssd"):
+        for tp in RANK_TPS:
+            H = (rcfg.rwkv_heads if kind == "rwkv6" else zcfg.ssm_heads) // tp
+            tag = f"tp{tp}_H{H}"
+            if kind == "rwkv6":
+                ins = rwkv_case(rng, dev, bf16, B, S, H, K, K)[:5]
+                fn, plain, bwd = ops.rwkv6_scan, ref.rwkv6_scan, \
+                    rwkv6_scan_bwd_cuda
+                names = ("dr", "dk", "dv", "dw", "du")
+                fwd_cost = wkv_cost(B, S, H, K, K, 2)
+                bwd_cost = scan_bwd_cost("rwkv6", B, S, H, K, K, 2)
+                shape = f"B={B} S={S} H={H} K=V={K} r/k/v bf16"
+            else:
+                ins = ssd_case(rng, dev, bf16, B, S, H, P, N)[:4]
+                fn, plain, bwd = ops.ssd_scan, ref.ssd_scan, ssd_scan_bwd_cuda
+                names = ("dxdt", "dla", "dB", "dC")
+                fwd_cost = ssd_cost(B, S, H, P, N, 2)
+                bwd_cost = scan_bwd_cost("ssd", B, S, H, P, N, 2)
+                shape = f"B={B} S={S} H={H} P={P} N={N} B/C bf16"
+            name = f"{kind}_scan"
+            what = f"timing-ranks {name} {shape} (tp {tp})"
+            gy = torch.randn(ins[0].shape, device=dev)
+            one = [t[:1] if t.dim() > 2 else t for t in ins]
+            ops.reset_counts()
+            fwd_err, fwd_rel = rel_gap(fn(*ins)[0], plain(*ins)[0])
+            limit = RWKV_REL if kind == "rwkv6" else SSD_REL
+            if not fwd_rel <= limit:
+                raise AssertionError(f"{what}: forward max |d| over max(1, "
+                                     f"max |plain|) {fwd_rel} > {limit}")
+            got = through_ops(fn, ins, gy)
+            got_one = through_ops(fn, one, gy[:1])
+            counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
+            want = {name: 3, f"{name}_tc": 3, f"{name}_bwd": 2,
+                    f"{name}_bwd_tc": 2}
+            if counts != want or any(c.plain for c in ops.COUNTS.values()):
+                raise AssertionError(f"{what}: launches {counts}; want "
+                                     f"{want}, no plain call")
+            plain_ms, want_g = plain_bwd(plain, one, gy[:1])
+            gaps = [gaps_within(f"{what} backward, row 0", names[:4],
+                                [g[:1] for g in got[:4]], want_g[:4],
+                                SCAN_BWD_REL[bf16])]
+            if kind == "rwkv6":        # du sums over the rows: row 0 alone
+                gaps.append(gaps_within(f"{what} backward du, B 1", ("du",),
+                                        got_one[4:5], want_g[4:5],
+                                        SCAN_BWD_REL[bf16]))
+            gap = tuple(max(x) for x in zip(*gaps))
+            errs[name] = max(errs[name], fwd_err)
+            errs[f"{name}_bwd"] = max(errs[f"{name}_bwd"], gap[0])
+            del got, got_one, want_g
+            t = {"kernel": device_ms([lambda: fn(*ins)] * 4),
+                 "plain": device_ms([lambda: plain(*ins)], reps=3),
+                 "bwd": queued_ms(lambda: bwd(*ins, None, gy,
+                                              tensor_cores=True), iters=3)}
+            b, by = bound(*fwd_cost, "tf32")
+            bb, bby = bound(*bwd_cost, "tf32")
+            rows[name][tag] = dict(
+                ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+                bound_ms=b, bound_by=by, **per_call(counts, name, 3),
+                max_abs_err=fwd_err, shape=shape, card=smi)
+            rows[f"{name}_bwd"][tag] = dict(
+                ms=t["bwd"], plain_ms=plain_ms, plain_shape=[1, S, H],
+                library_ms=None, bound_ms=bb, bound_by=bby,
+                **per_call(counts, f"{name}_bwd", 2), max_abs_err=gap[0],
+                shape=shape, card=smi)
+            log(f"timing-ranks {name} [{shape}, rank of tp {tp}; {smi}]: "
+                f"forward {t['kernel']:.4f} ms on the tensor cores (plain "
+                f"{t['plain']:.3f} ms, bound {b:.4f} ms, {by}; max |d| "
+                f"{fwd_err:.3e}, over max(1, max |plain|) {fwd_rel:.3e}, "
+                f"limit {limit}), backward "
+                f"{t['bwd']:.4f} ms on the tensor cores (plain autograd "
+                f"float32 at B 1 {plain_ms:.1f} ms, bound {bb:.4f} ms, "
+                f"{bby}; max |d| {gap[0]:.3e}, over max(1, max |autograd|) "
+                f"{gap[1]:.3e}, limit {SCAN_BWD_REL[bf16]}); launches "
+                f"{counts}")
+            del ins, one, gy
+            gc.collect()
+            torch.cuda.empty_cache()
+    # zamba2's shared block at rank 1 of tp 2
+    Hq, Hkv, D = zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim
+    Sq, off = S // 2, S // 2
+    shape = [B, Sq, S, Hq, Hkv, D, True, None, off]
+    what = (f"timing-ranks flash_attention B={B} Sq={Sq} Sk={S} "
+            f"q_offset={off} Hq={Hq} Hkv={Hkv} D={D} bf16")
+    q, g = (torch.randn(B, Sq, Hq, D, device=dev).to(bf16) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16) for _ in range(2))
+    ops.reset_counts()
+    fwd_err = check("flash_attention", what,
+                    ops.flash_attention(q, k, v, q_offset=off),
+                    ref.flash_attention(q, k, v, q_offset=off), bf16)
+    gap = flash_bwd_gap(dev, B, Sq, Hq, Hkv, D, True, None, bf16, what,
+                        Sk=S, q_offset=off)
+    counts = {k_: c.kernel for k_, c in ops.COUNTS.items() if c.kernel}
+    want = {"flash_attention": 3, "flash_attention_tc": 3,
+            "flash_attention_bwd": 2, "flash_attention_bwd_tc": 2}
+    if counts != want or any(c.plain for c in ops.COUNTS.values()):
+        raise AssertionError(f"{what}: launches {counts}; want {want}, no "
+                             "plain call")
+    errs["flash_attention"] = fwd_err
+    errs["flash_attention_bwd"] = gap[0]
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= off + torch.arange(Sq, device=dev)[:, None])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = sp_pairs(Sq, off)
+    b, by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                  4 * D * Hq * B * pairs, bf16)
+    t = {w: device_ms([f]) for w, f in (
+        ("kernel", lambda: ops.flash_attention(q, k, v, q_offset=off)),
+        ("plain", lambda: ref.flash_attention(q, k, v, q_offset=off)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)))}
+    rows["flash_attention"]["tp2_rank1"] = dict(
+        ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+        bound_ms=b, bound_by=by, **per_call(counts, "flash_attention", 3),
+        max_abs_err=fwd_err, shape=shape, card=smi)
+    o, lse = flash_attention_cuda(q, k, v, q_offset=off, with_lse=True)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    plain_out = flash_attention_plain(*leaves, q_offset=off)
+    lib_leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in lib_leaves), attn_mask=mask)
+    gt = g.transpose(1, 2)
+    bb, bby = bound((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                     + 2 * o.numel()) * 2, 10 * D * Hq * B * pairs, bf16)
+    tb = {"kernel": queued_ms(lambda: flash_attention_bwd_cuda(
+              q, k, v, o, g, q_offset=off, lse=lse), iters=5),
+          "plain": queued_ms(lambda: torch.autograd.grad(
+              plain_out, leaves, g, retain_graph=True), iters=3),
+          "library": queued_ms(lambda: torch.autograd.grad(
+              lib_out, lib_leaves, gt, retain_graph=True))}
+    rows["flash_attention_bwd"]["tp2_rank1"] = dict(
+        ms=tb["kernel"], plain_ms=tb["plain"], library_ms=tb["library"],
+        bound_ms=bb, bound_by=bby,
+        **per_call(counts, "flash_attention_bwd", 2), max_abs_err=gap[0],
+        shape=shape, card=smi)
+    log(f"timing-ranks flash_attention [B={B} Sq={Sq} Sk={S} q_offset={off} "
+        f"Hq={Hq} Hkv={Hkv} D={D} bf16, D zero-padded to 128 on the tensor "
+        f"cores, zamba2's shared block at rank 1 of tp 2; {smi}]: forward "
+        f"{t['kernel']:.4f} ms (plain {t['plain']:.4f} ms, SDPA same mask "
+        f"{t['library']:.4f} ms, bound {b:.4f} ms, {by}; max abs "
+        f"{fwd_err:.3e}), backward {tb['kernel']:.4f} ms (plain autograd "
+        f"float32 {tb['plain']:.4f} ms, SDPA's backward {tb['library']:.4f} "
+        f"ms, bound {bb:.4f} ms, {bby}; max |d| {gap[0]:.3e}, over max(1, "
+        f"max |autograd|) {gap[1]:.3e}, limit {TRAIN_FLASH_REL[bf16]}); "
+        f"launches {counts}; timing-ranks took {time.perf_counter() - t0:.1f}"
+        f" s")
+    del (q, k, v, g, o, lse, leaves, plain_out, lib_leaves, lib_out, qt, kt,
+         vt, gt, mask)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, errs
 
 
 def scan_bwd_cost(kind: str, B, S, H, K, V, in_bytes) -> tuple[int, int]:
@@ -6872,12 +7252,25 @@ def main() -> int:
     train = phase_main_train(dev)
     # rwkv6 and zamba2 training on one card (ROADMAP A13b item 4)
     t_rec = time.perf_counter()
+    rwkv_cfg = get_config(TRAIN_RWKV_ARCH)
+    zamba_cfg = get_config(TRAIN_ZAMBA_ARCH).replace(
+        n_layers=TRAIN_ZAMBA_LAYERS)
     train_rwkv = phase_main_train_recurrent(
-        dev, "main-train-rwkv", get_config(TRAIN_RWKV_ARCH), False)
+        dev, "main-train-rwkv", rwkv_cfg, False)
+    # over a (1, 1) mesh (ROADMAP A13b item 4b), right after each
+    t_rec_mesh = time.perf_counter()
+    rec_mesh = {"rwkv6": phase_main_train_rec_mesh(
+        "main-train-rwkv-mesh", rwkv_cfg.replace(
+            n_layers=TRAIN_RWKV_MESH_LAYERS))}
+    t_rec_mesh = time.perf_counter() - t_rec_mesh
     train_zamba = phase_main_train_recurrent(
-        dev, "main-train-zamba", get_config(TRAIN_ZAMBA_ARCH).replace(
-            n_layers=TRAIN_ZAMBA_LAYERS), True)
-    t_rec = time.perf_counter() - t_rec
+        dev, "main-train-zamba", zamba_cfg, True)
+    t0_zm = time.perf_counter()
+    rec_mesh["ssd"] = phase_main_train_rec_mesh(
+        "main-train-zamba-mesh", zamba_cfg, train_zamba["run"])
+    rank_times, rank_errs = phase_timing_ranks(dev, smi)
+    t_rec_mesh += time.perf_counter() - t0_zm
+    t_rec = time.perf_counter() - t_rec - t_rec_mesh
     t_mesh = time.perf_counter()
     train_mesh = phase_main_train_mesh(train)
     t_mesh = time.perf_counter() - t_mesh
@@ -6899,6 +7292,8 @@ def main() -> int:
     t_rec += time.perf_counter() - t_rec_timing
     log(f"the training and gemma3 phases (main-train, main-train-rwkv and "
         f"main-train-zamba with their timing rows ({t_rec:.1f} s), "
+        f"main-train-rwkv-mesh, main-train-zamba-mesh and timing-ranks "
+        f"({t_rec_mesh:.1f} s), "
         f"main-train-mesh and pod-dp ({t_mesh:.1f} s), main-train-dots and "
         f"main-train-moe ({t_moe:.1f} s), main-gemma3, main-train-gemma3 "
         f"({t_gemma:.1f} s), timing-train) took "
@@ -6906,6 +7301,8 @@ def main() -> int:
     # parity at the shapes the phases served and trained at
     for name in ("rwkv6_scan_bwd", "ssd_scan_bwd"):
         errs[name] = max(errs[name], rec_times[name].pop("max_abs_err"))
+    for name, e in rank_errs.items():
+        errs[name] = max(errs.get(name, 0.0), e)
     for r in (*mm.values(), train, train_moe, gemma, train_zamba,
               train_gemma):
         for name, e in r["errs"].items():
@@ -6958,6 +7355,16 @@ def main() -> int:
     for name, run in (("rwkv6_scan", train_rwkv), ("ssd_scan", train_zamba)):
         times[name]["train_launches"] = {
             k: run["launches"][k] for k in (name, f"{name}_tc")}
+    # the ranks' shapes (timing-ranks) and the meshed runs' launches
+    for name, row in rank_times.items():
+        times[name]["rank_shapes"] = row
+    for fam, run in rec_mesh.items():
+        for name in (f"{fam}_scan", f"{fam}_scan_bwd"):
+            times[name]["rec_mesh_launches"] = {
+                k: run["launches"][k] for k in (name, f"{name}_tc")}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        times[name]["rec_mesh_launches"] = {
+            k: rec_mesh["ssd"]["launches"][k] for k in (name, f"{name}_tc")}
     times["flash_attention"]["zamba_d112"] = {
         "timed": rec_times["flash_attention_z"],
         "launches": {k: train_zamba["launches"][k] for k in (
@@ -7068,7 +7475,8 @@ def main() -> int:
                 "cores", "with_lse_ms", "s2048_with_lse_ms", "zamba_d112",
                 "train_zamba_launches", "train_step_ms", "train_device_ms",
                 "plain_shape", "card", "cuda_core_ms",
-                "train_gemma3_launches", "train_gemma3_step") if k in t}})
+                "train_gemma3_launches", "train_gemma3_step",
+                "rank_shapes", "rec_mesh_launches") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,9 @@ autograd Functions over :class:`repro_torch.core.comm.Comm` groups:
   training: its ``all_to_all``'s backward is the all-to-all with the two
   axes swapped, and its ``all_reduce_sum``'s sums the cotangent over the
   axis (psum's transpose: every rank of the axis uses the sum).
+* ``_Permute`` — ``Comm.permute`` whose backward permutes back: the token
+  shift's and the causal conv's history from the sequence block before
+  (:meth:`TrainMesh.prev_rows`).
 
 Every rank must issue the same collectives in the same order.  The forward
 is the same program on every rank, and autograd replays it in reverse on
@@ -188,6 +191,22 @@ class _AllToAll(torch.autograd.Function):
                                     concat_axis=split_axis), None, None, None)
 
 
+class _Permute(torch.autograd.Function):
+    """``comm.permute`` along ``(source, destination)`` pairs; the backward
+    sends each gradient back along the pairs reversed (a rank no pair
+    names receives zeros, and its input's gradient is zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, pairs):
+        ctx.comm, ctx.pairs = comm, pairs
+        return comm.permute(x, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm.permute(g, [(d, s) for s, d in ctx.pairs]), None,
+                None)
+
+
 class _SumOverGroup(torch.autograd.Function):
     """A sum over ``comm`` whose result every rank of it uses: the backward
     sums the cotangent over ``comm`` too."""
@@ -292,6 +311,11 @@ class TrainMesh:
       the norms' scales stay as they are, as the reference reads them),
       :meth:`attention_kv` the K/V of every position before this rank's
       last one;
+    * a recurrence (rwkv6's wkv scan, zamba2's SSD scan) runs on whole
+      heads over every position: :meth:`seq_to_heads` swaps the rank's
+      block of positions for a block of heads around the scan and
+      :meth:`heads_to_seq` swaps back, :meth:`prev_rows` brings the last
+      positions of the block before (the token shift, the conv's history);
     * :meth:`finish_grads` sums each gradient leaf over the axes its leaf
       is replicated on, :meth:`owned` says which rank counts a leaf in the
       global norm."""
@@ -318,22 +342,35 @@ class TrainMesh:
         """:func:`gather` on this mesh."""
         return gather(x, spec, self.mesh, dtype)
 
-    def gather_params(self, tree, specs, dtype):
+    def gather_params(self, tree, specs, dtype, defs=None):
         """A layer's weights whole, each in ``dtype`` (``scale`` leaves, the
-        norms', as they are): one all-gather an axis for the layer's
-        weights split alike (:func:`gather_many`)."""
-        paths, xs, sps = [], [], []
+        norms', as they are, and so is every leaf whose declaration in
+        ``defs``, the layer's :class:`repro_torch.models.module.Param`
+        tree, names a dtype of its own, as :func:`repro_torch.models.
+        transformer.compute_params` keeps them): one all-gather an axis for
+        the layer's weights split alike and cast alike
+        (:func:`gather_many`)."""
+        paths, xs, sps, dts = [], [], [], []
 
-        def walk(t, sp, path):
+        def walk(t, sp, df, path):
             for k, v in t.items():
                 if isinstance(v, dict):
-                    walk(v, sp[k], path + (k,))
+                    walk(v, sp[k], None if df is None else df[k],
+                         path + (k,))
                 elif k != "scale":
                     paths.append(path + (k,))
                     xs.append(v)
                     sps.append(sp[k])
-        walk(tree, specs, ())
-        whole = dict(zip(paths, gather_many(xs, sps, self.mesh, dtype)))
+                    kept = df is not None and df[k].dtype is not None
+                    dts.append(v.dtype if kept else dtype)
+        walk(tree, specs, defs, ())
+        whole = {}
+        for dt in dict.fromkeys(dts):   # one gather_many a result dtype
+            idx = [i for i, d in enumerate(dts) if d == dt]
+            for i, y in zip(idx, gather_many([xs[i] for i in idx],
+                                             [sps[i] for i in idx],
+                                             self.mesh, dt)):
+                whole[paths[i]] = y
 
         def build(t, path):
             return {k: (build(v, path + (k,)) if isinstance(v, dict)
@@ -341,18 +378,126 @@ class TrainMesh:
                     for k, v in t.items()}
         return build(tree, ())
 
+    def gather_seq(self, *xs) -> tuple:
+        """Every position of each (B, S / n, ...) tensor, this rank's block
+        among them: the sequence blocks gathered in one collective an axis
+        for the tensors of one dtype (:func:`gather_many`; the backward sums
+        every rank's gradient and keeps this rank's block)."""
+        seq = self.rules.get("seq")
+        return tuple(gather_many(
+            list(xs), [(None, seq) + (None,) * (x.dim() - 2) for x in xs],
+            self.mesh))
+
     def attention_kv(self, k, v):
         """This rank's K/V (B, S / n, Hkv, D) -> the keys and values of
         every position up to its last one, and its queries' offset: the
-        sequence blocks gathered in one collective an axis (the backward
-        sums their gradients over the ranks), then cut to the prefix
-        ``(i + 1) * S / n``."""
+        sequence blocks gathered (:meth:`gather_seq`), then cut to the
+        prefix ``(i + 1) * S / n``."""
         i, n = self.seq_block()
         s = k.shape[1]
-        spec = (None, self.rules.get("seq"), None, None)
-        k, v = gather_many([k, v], [spec, spec], self.mesh)
+        k, v = self.gather_seq(k, v)
         end = (i + 1) * s
         return k[:, :end], v[:, :end], i * s
+
+    # -- a recurrence across the sequence blocks ------------------------------
+    # rwkv6's and zamba2's scans (models/rwkv6.py, models/mamba2.py) run on
+    # whole heads over every position: the per-token work stays in sequence
+    # blocks, the scan's inputs go to head blocks and its output comes back,
+    # and the token shift and the causal conv read the previous block's
+    # last positions.
+    def _seq_comm(self):
+        """The Comm of the one mesh axis the sequence is split over (None
+        when no axis splits it)."""
+        if len(self.seq_axes) > 1:
+            raise NotImplementedError(
+                f"the sequence split over {self.seq_axes}: a recurrence "
+                "crosses the blocks over one mesh axis")
+        return self.mesh.comm(self.seq_axes[0]) if self.seq_axes else None
+
+    def heads_per_rank(self, n_heads: int, what: str) -> int:
+        """The heads of ``n_heads`` that a rank's scan takes, one block of
+        them for each sequence block; ``ValueError`` where they do not
+        divide (a rank takes whole heads)."""
+        n = self.seq_block()[1]
+        if n_heads % n:
+            raise ValueError(
+                f"{what}: {n_heads} heads do not split over the {n} sequence "
+                f"blocks of {self.seq_axes}: a rank's scan takes whole heads, "
+                "so the heads must be a multiple of the sequence's split")
+        return n_heads // n
+
+    def check_halo(self, block: int, n: int, what: str) -> None:
+        """``ValueError`` where a sequence block of ``block`` positions is
+        shorter than the ``n`` a recurrence reads from the block before."""
+        if block < n:
+            raise ValueError(
+                f"{what}: a sequence block of {block} positions is shorter "
+                f"than the {n} that the next block reads from it (S / tp "
+                f">= {n} wanted)")
+
+    def prev_rows(self, xs, n: int) -> list:
+        """Each tensor of ``xs`` (B, S / tp, C) -> the ``n`` positions
+        before this rank's block (B, n, C): the previous block's last
+        ``n``, sent one rank on over the sequence's axis; zeros on the first
+        block.  The tensors of one dtype move in one permute, packed along
+        C; the backward sends their gradient back."""
+        s = xs[0].shape[1]
+        self.check_halo(s, n, "prev_rows")
+        tails = [x[:, s - n:] for x in xs]
+        comm = self._seq_comm()
+        if comm is None:
+            return [torch.zeros_like(t) for t in tails]
+        pairs = tuple((i, i + 1) for i in range(comm.size() - 1))
+        out = [None] * len(xs)
+        for dt in dict.fromkeys(t.dtype for t in tails):
+            idx = [i for i, t in enumerate(tails) if t.dtype == dt]
+            packed = torch.cat([tails[i] for i in idx], dim=-1)
+            got = _Permute.apply(packed, comm, pairs)
+            for i, part in zip(idx, got.split(
+                    [tails[i].shape[-1] for i in idx], dim=-1)):
+                out[i] = part
+        return out
+
+    def seq_to_heads(self, *xs) -> tuple:
+        """Each (B, S / tp, H, ...) tensor of this rank's block of positions
+        -> (B, S, H / tp, ...), every position of this rank's block of
+        heads (its index that of its sequence block): a tiled all-to-all
+        over the sequence's axis, one for the tensors of one dtype and
+        shape (stacked); the backward is the all-to-all back.
+        ``ValueError`` where H does not divide (:meth:`heads_per_rank`)."""
+        for x in xs:
+            self.heads_per_rank(x.shape[2], "seq_to_heads")
+        return self._exchange(xs, split=2, concat=1)
+
+    def heads_to_seq(self, *xs) -> tuple:
+        """:meth:`seq_to_heads`' inverse: (B, S, H / tp, ...) -> (B, S / tp,
+        H, ...)."""
+        return self._exchange(xs, split=1, concat=2)
+
+    def own_heads(self, x):
+        """This rank's block of ``x``'s leading heads axis: the heads of its
+        scan after :meth:`seq_to_heads`."""
+        h = self.heads_per_rank(x.shape[0], "own_heads")
+        return x.narrow(0, self.seq_block()[0] * h, h)
+
+    def _exchange(self, xs, *, split: int, concat: int) -> tuple:
+        comm = self._seq_comm()
+        if comm is None:
+            return tuple(xs)
+        out = [None] * len(xs)
+        groups: dict = {}
+        for i, x in enumerate(xs):
+            groups.setdefault((x.dtype, tuple(x.shape)), []).append(i)
+        for idx in groups.values():
+            if len(idx) == 1:
+                out[idx[0]] = _AllToAll.apply(xs[idx[0]], comm, split,
+                                              concat)
+                continue
+            y = _AllToAll.apply(torch.stack([xs[i] for i in idx]), comm,
+                                split + 1, concat + 1)
+            for i, part in zip(idx, y.unbind(0)):
+                out[i] = part
+        return tuple(out)
 
     def all_reduce_sum(self, x):
         """The sum over the program's axes; identity backward."""

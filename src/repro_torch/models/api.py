@@ -127,23 +127,6 @@ def _token_batch_specs(shape) -> dict:
     return {"tokens": tok, "labels": tok}
 
 
-# the families that train on one device only, and what the reference
-# shards over "model" for each (ROADMAP A13b item 4b)
-_ONE_DEVICE_TRAINING = {"ssm": "the rwkv_v value channels",
-                        "hybrid": "the SSM heads (ssm_heads)"}
-
-
-def refuse_train_mesh(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` when ``mesh`` is given for a family
-    that trains on one device only (rwkv6, zamba2)."""
-    sharded = _ONE_DEVICE_TRAINING.get(cfg.family)
-    if mesh is not None and sharded:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} training over a mesh (the reference "
-            f"shards {sharded} over 'model') comes with ROADMAP A13b item "
-            "4b; train on one device (mesh=None)")
-
-
 def _init_float(model, generator_or_seed, device, dtype, weight_quant,
                 serves: str) -> dict:
     """``init`` of a family that serves off the paged path: random weights
@@ -436,10 +419,11 @@ class RwkvLM:
     def loss(self, params, batch: dict, mesh=None):
         """Next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S) ->
         ``(loss, {"ce", "tokens"})`` (:func:`repro_torch.models.rwkv_lm.
-        lm_loss`), on one device: a ``mesh`` is refused
-        (:func:`refuse_train_mesh`)."""
-        refuse_train_mesh(self.cfg, mesh)
-        return RW.lm_loss(params, self.cfg, batch["tokens"], batch["labels"])
+        lm_loss`); ``mesh`` (a :class:`repro_torch.mesh.grad_comm.
+        TrainMesh`): this rank's shards and block of the batch, the wkv
+        scan on the rank's heads over every position."""
+        return RW.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                          mesh=mesh)
 
     def train_batch_specs(self, shape) -> dict:
         """:class:`ArraySpec` of each training-batch key at ``shape``'s
@@ -519,10 +503,11 @@ class HybridLM:
     def loss(self, params, batch: dict, mesh=None):
         """Next-token loss of ``batch`` ``{"tokens", "labels"}`` (B, S) ->
         ``(loss, {"ce", "tokens"})`` (:func:`repro_torch.models.zamba.
-        lm_loss`), on one device: a ``mesh`` is refused
-        (:func:`refuse_train_mesh`)."""
-        refuse_train_mesh(self.cfg, mesh)
-        return Z.lm_loss(params, self.cfg, batch["tokens"], batch["labels"])
+        lm_loss`); ``mesh`` (a :class:`repro_torch.mesh.grad_comm.
+        TrainMesh`): this rank's shards and block of the batch, the SSD
+        scan on the rank's heads over every position."""
+        return Z.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                         mesh=mesh)
 
     def train_batch_specs(self, shape) -> dict:
         """:class:`ArraySpec` of each training-batch key at ``shape``'s

@@ -15,6 +15,21 @@ As in the reference, the projections and the conv output run in the
 compute dtype, while ``A_log``, ``D``, ``dt_bias`` and the conv weights are
 read in float32 (declared float32 here), the step sizes, decays and the SSD
 inputs are float32, and the conv tails are kept in float32.
+
+Over a training mesh (``mesh=``, a :class:`repro_torch.mesh.grad_comm.
+TrainMesh`) a rank holds its block of positions and the layer's weights
+whole (gathered by the caller).  The projections, the step sizes, the
+``D`` skip, the gated norm and ``w_out`` run there as on one device.  The
+causal conv reads the last K-1 pre-conv rows of the block before
+(``mesh.prev_rows``, x, B and C in one permute).  The SSD scan runs on
+whole heads over every position: ``xdt`` and the log decays go from
+sequence blocks to head blocks (``mesh.seq_to_heads``), ``B`` and ``C``,
+which every head reads, are gathered whole over the sequence (their
+gradient the sum of every rank's), and ``y`` comes back.  So each rank's
+scan keeps N = P = 64 at full width, the kernel's tensor-core route both
+ways.  That is how the forward computes, not how it stores: the leaves
+are still split at birth by the reference's rules (``inner``,
+``ssm_heads``).
 """
 from __future__ import annotations
 
@@ -66,7 +81,8 @@ def _causal_conv(x, w, conv_state=None):
     return F.silu(out).to(x.dtype)
 
 
-def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None):
+def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None,
+                 mesh=None):
     """x: (B, S, d) -> ``(y (B, S, d), ssm_state, conv_state)``.
 
     With states (prefill into a fresh state, and decode): ``ssm_state``
@@ -74,7 +90,8 @@ def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None):
     ``conv_state`` ``{"x", "B", "C"}`` of (B, K-1, C) float32 receives the
     last K-1 pre-conv rows in place.  Without them (no cache) the SSM state
     starts at zeros and a fresh final state is returned, with no conv
-    tails."""
+    tails.  ``mesh`` (training, no states): ``x`` is this rank's block of
+    positions (the module's docstring)."""
     H, Pd, K = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
     z = x @ params["w_z"]
     xc = x @ params["w_x"]
@@ -84,6 +101,8 @@ def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None):
 
     pre = {"x": xc, "B": Bm, "C": Cm}
     hist = conv_state or {}
+    if mesh is not None:        # the K-1 rows before this rank's block
+        hist = dict(zip("xBC", mesh.prev_rows([xc, Bm, Cm], K - 1)))
     xc = _causal_conv(xc, params["conv_x"], hist.get("x"))
     Bm = _causal_conv(Bm, params["conv_B"], hist.get("B"))
     Cm = _causal_conv(Cm, params["conv_C"], hist.get("C"))
@@ -98,8 +117,13 @@ def mamba2_block(params, x, cfg, *, ssm_state=None, conv_state=None):
     xh = xc.reshape(xc.shape[0], xc.shape[1], H, Pd)
     xdt = (xh * dt[..., None]).to(f32)
     la = torch.log(torch.clamp(a, min=1e-20))
+    if mesh is not None:        # this rank's heads over every position
+        xdt, la = mesh.seq_to_heads(xdt, la)
+        Bm, Cm = mesh.gather_seq(Bm, Cm)
     y, ssm_state = ops.ssd_scan(xdt, la, Bm, Cm, ssm_state,
                                 out_state=ssm_state)
+    if mesh is not None:
+        y, = mesh.heads_to_seq(y)
     y = y.to(xh.dtype) + xh.to(f32) * params["D"].to(f32)[:, None]
     y = y.reshape(xc.shape)
 

@@ -16,6 +16,20 @@ run in the compute dtype, while the decay ``w``, the bonus ``u``, the wkv
 output, ``ln_x``, the ``silu(g)`` gate and ``w_o`` work in float32: those
 leaves are declared float32 (``decay_base``, ``u``, ``ln_x``, ``w_o``,
 and ``ln1`` / ``ln2``).
+
+Over a training mesh (``mesh=``, a :class:`repro_torch.mesh.grad_comm.
+TrainMesh`) a rank holds its block of positions and the layer's weights
+whole (gathered by the caller).  Everything per token runs there as on one
+device: the projections, the gates, ``ln_x``, ``w_o`` and the channel
+mix.  The token shift reads the last position of the block before
+(``mesh.prev_rows``).  The wkv scan runs on whole heads over every
+position: ``r``, ``k``, ``v`` and ``w`` go from sequence blocks to head
+blocks (``mesh.seq_to_heads``, an all-to-all over the sequence's axis),
+the rank takes its heads of ``u``, and ``y`` comes back.  So each rank's
+scan keeps K = V = 64 at full width, the kernel's tensor-core route both
+ways; the reference instead splits ``v`` over its value channels
+(``rwkv_v``).  That is how the forward computes, not how it stores: the
+leaves are still split at birth by the reference's rules.
 """
 from __future__ import annotations
 
@@ -78,12 +92,15 @@ def _lerp(x, shifted, mu):
     return x + (shifted - x) * mu.to(x.dtype)
 
 
-def time_mix(p, x, cfg, *, state=None, x_prev=None):
+def time_mix(p, x, cfg, *, state=None, x_prev=None, mesh=None):
     """Returns ``(out, state, last_x)``.  ``state``: (B, H, K, V) float32,
     updated in place (zeros, in a fresh tensor, when None: training's
-    case, where autograd differentiates the scan)."""
+    case, where autograd differentiates the scan).  ``mesh``: ``x`` is
+    this rank's block of positions (the module's docstring)."""
     B, S, d = x.shape
     H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    if mesh is not None:
+        x_prev = mesh.prev_rows([x], 1)[0]
     sx = _token_shift(x, x_prev)
 
     def project(mu, w):
@@ -98,8 +115,13 @@ def time_mix(p, x, cfg, *, state=None, x_prev=None):
     # data-dependent decay in (0, 1): w = exp(-exp(base + wlog)), float32
     w = torch.exp(-torch.exp(p["decay_base"].to(torch.float32)
                              + wlog.to(torch.float32)))        # (B, S, H, K)
-    y, state = ops.rwkv6_scan(r, k, v, w, p["u"].to(torch.float32), state,
-                              out_state=state)
+    u = p["u"].to(torch.float32)
+    if mesh is not None:        # this rank's heads over every position
+        r, k, v, w = mesh.seq_to_heads(r, k, v, w)
+        u = mesh.own_heads(u)
+    y, state = ops.rwkv6_scan(r, k, v, w, u, state, out_state=state)
+    if mesh is not None:
+        y, = mesh.heads_to_seq(y)
     y = L.layernorm(p["ln_x"], y.reshape(B, S, H * hd))        # float32
     y = y.view(B, S, H, hd) * F.silu(g.to(y.dtype))
     w_o = p["w_o"].reshape(H * hd, d).to(y.dtype)
@@ -107,9 +129,12 @@ def time_mix(p, x, cfg, *, state=None, x_prev=None):
     return out.to(x.dtype), state, x[:, -1:]
 
 
-def channel_mix(p, x, *, x_prev=None):
+def channel_mix(p, x, *, x_prev=None, mesh=None):
     """The squared-ReLU FFN with a sigmoid receptance gate; returns
-    ``(out, last_x)``."""
+    ``(out, last_x)``.  ``mesh``: ``x`` is this rank's block of
+    positions."""
+    if mesh is not None:
+        x_prev = mesh.prev_rows([x], 1)[0]
     sx = _token_shift(x, x_prev)
     k = torch.square(torch.relu(_lerp(x, sx, p["mu_k"]) @ p["w_k"]))
     kv = k @ p["w_v"]
@@ -118,12 +143,15 @@ def channel_mix(p, x, *, x_prev=None):
 
 
 def rwkv_block(params, x, cfg, *, tm_state=None, tm_prev=None,
-               cm_prev=None):
-    """Pre-norm block: returns ``(x, wkv state, tm last_x, cm last_x)``."""
+               cm_prev=None, mesh=None):
+    """Pre-norm block: returns ``(x, wkv state, tm last_x, cm last_x)``;
+    ``mesh``: training over a mesh, ``x`` this rank's block of
+    positions."""
     h = L.layernorm(params["ln1"], x)
     o, new_state, new_tm_prev = time_mix(params["tm"], h, cfg,
-                                         state=tm_state, x_prev=tm_prev)
+                                         state=tm_state, x_prev=tm_prev,
+                                         mesh=mesh)
     x = x + o
     h = L.layernorm(params["ln2"], x)
-    o, new_cm_prev = channel_mix(params["cm"], h, x_prev=cm_prev)
+    o, new_cm_prev = channel_mix(params["cm"], h, x_prev=cm_prev, mesh=mesh)
     return x + o, new_state, new_tm_prev, new_cm_prev

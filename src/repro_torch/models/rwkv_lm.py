@@ -13,7 +13,12 @@ Training (:func:`forward`, :func:`lm_loss`) runs the blocks from a zero
 state with no state kept: each block is cast to the compute dtype (its
 float32 leaves kept) and recomputed in the backward pass under
 ``cfg.remat``, and the wkv kernel's backward is a kernel too
-(:func:`repro_torch.kernels.ops.rwkv6_scan`).
+(:func:`repro_torch.kernels.ops.rwkv6_scan`).  Over a mesh (``mesh=``, a
+:class:`repro_torch.mesh.grad_comm.TrainMesh`) a rank runs its block of
+rows and positions: the embedding table and the unembedding are gathered
+whole in float32, each block's weights inside its recomputed body, and
+the wkv scan runs on the rank's heads over every position
+(:mod:`repro_torch.models.rwkv6`).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
-from repro_torch.models.module import Param, torch_dtype
+from repro_torch.models.module import Param, torch_dtype, tree_map
 
 
 def rwkv_lm_defs(cfg) -> dict:
@@ -57,28 +62,37 @@ def init_state(cfg, batch: int, *, device) -> dict:
     }
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, mesh=None):
     """Training forward over the ``param_dtype`` weights: tokens (B, S) ->
-    the final hidden states (B, S, d) in the compute dtype."""
+    the final hidden states (B, S, d) in the compute dtype.  ``mesh``:
+    ``params`` are this rank's shards and ``tokens`` its block (B / dp
+    rows, S / tp positions); ``ValueError`` where the heads do not split
+    over the sequence's blocks."""
     dtype = torch_dtype(cfg.dtype)
-    x = L.layernorm(params["ln_in"], L.embed(params["embed"], tokens)
-                    .to(dtype))
     defs = R.rwkv_block_def(cfg)
+    specs = None
+    if mesh is not None:
+        mesh.heads_per_rank(cfg.rwkv_heads, cfg.name)
+        specs = tree_map(lambda s: s[1:], mesh.gather_specs["blocks"])
+    x = L.layernorm(params["ln_in"], T.embed_train(params, tokens, dtype,
+                                                   mesh))
     for i in range(cfg.n_layers):
         def body(x, p=T._layer(params["blocks"], i)):
-            return R.rwkv_block(T.compute_params(p, dtype, defs), x, cfg)[0]
+            p = T.block_params(p, dtype, defs, mesh, specs)
+            return R.rwkv_block(p, x, cfg, mesh=mesh)[0]
         x = T._remat(body, cfg.remat)(x)
     return L.layernorm(params["final_norm"], x)
 
 
-def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8):
+def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8, mesh=None):
     """``(loss, {"ce", "tokens"})``: the mean next-token cross-entropy of
     :func:`forward`'s hidden states, the logits taken a sequence chunk at
     a time in float32 (:func:`repro_torch.models.transformer.
-    loss_from_hidden`)."""
-    hidden = forward(params, cfg, tokens)
-    ce, cnt = T.loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
-                                 loss_chunks)
+    loss_from_hidden`); on a ``mesh`` the rank's block scored and the loss
+    the global mean."""
+    hidden = forward(params, cfg, tokens, mesh)
+    ce, cnt = T.loss_from_hidden(T.unembed_train(params, mesh), hidden,
+                                 labels, cfg, loss_chunks, mesh)
     return ce, {"ce": ce, "tokens": cnt}
 
 

@@ -555,7 +555,7 @@ def _blocks_forward(params, cfg, x, *, comm=_SERIAL, ep_comm=None,
     final norm: the shared loop of the scoring forward and the training
     forward.  Returns ``(hidden, aux)``, aux the sum of the MoE blocks'
     auxiliary losses (None for a dense model).  ``dtype``: cast each
-    block's weights to it inside the block (:func:`compute_params`);
+    block's weights to it inside the block (:func:`block_params`);
     ``remat``: :func:`_remat` of each block.  ``mesh`` (a
     :class:`repro_torch.mesh.grad_comm.TrainMesh`): ``x`` is this rank's
     block of rows and positions, and each block gathers its layer's shards
@@ -572,10 +572,8 @@ def _blocks_forward(params, cfg, x, *, comm=_SERIAL, ep_comm=None,
     delta = aux = None
     for i, window in enumerate(layer_windows(cfg)):
         def body(x, delta, p=_layer(params["blocks"], i), window=window):
-            if mesh is not None:
-                p = mesh.gather_params(p, specs, dtype)
-            elif dtype is not None:
-                p = compute_params(p, dtype)
+            if mesh is not None or dtype is not None:
+                p = block_params(p, dtype, None, mesh, specs)
             x, y, a, _, _ = block_apply(p, x, cfg, positions=positions,
                                         window=window, delta=delta,
                                         comm=comm, ep_comm=ep_comm,
@@ -599,6 +597,36 @@ def forward(params, cfg, tokens, comm=None, ep_comm=None):
                            ep_comm=ep_comm)[0]
 
 
+def embed_train(params, tokens, dtype, mesh=None):
+    """The training forward's embeddings of ``tokens`` (B, S) in ``dtype``;
+    on a ``mesh`` (a :class:`repro_torch.mesh.grad_comm.TrainMesh`) the
+    table gathered whole in float32 first, its rows then cast, as on one
+    device."""
+    if mesh is None:
+        return L.embed(params["embed"], tokens).to(dtype)
+    table = mesh.gather(params["embed"]["table"],
+                        mesh.specs["embed"]["table"])
+    return table[tokens.long()].to(dtype)
+
+
+def unembed_train(params, mesh=None):
+    """The unembedding the loss reads: gathered whole in float32 on a
+    ``mesh``."""
+    w = params["unembed"]["w"]
+    return w if mesh is None else mesh.gather(w, mesh.specs["unembed"]["w"])
+
+
+def block_params(p, dtype, defs=None, mesh=None, specs=None):
+    """A block's weights as its body reads them: cast to ``dtype``
+    (:func:`compute_params`), or on a ``mesh`` gathered whole from this
+    rank's shards under their mesh ``specs`` (:meth:`repro_torch.mesh.
+    grad_comm.TrainMesh.gather_params`), the leaves ``defs`` declares a
+    dtype for kept in it either way."""
+    if mesh is None:
+        return compute_params(p, dtype, defs)
+    return mesh.gather_params(p, specs, dtype, defs)
+
+
 def forward_train(params, cfg, tokens=None, inputs_embeds=None, mesh=None):
     """Training forward over the ``param_dtype`` weights: tokens (B, S),
     or their embeddings (B, S, d) -> ``(hidden, aux)``, the final hidden
@@ -614,15 +642,8 @@ def forward_train(params, cfg, tokens=None, inputs_embeds=None, mesh=None):
     (:func:`_blocks_forward`); the aux is the mean over the ranks of each
     rank's (the sum's backward the identity, as the loss's)."""
     dtype = torch_dtype(cfg.dtype)
-    if inputs_embeds is not None:
-        x = inputs_embeds
-    elif mesh is None:
-        x = L.embed(params["embed"], tokens).to(dtype)
-    else:
-        table = mesh.gather(params["embed"]["table"],
-                            mesh.specs["embed"]["table"])
-        x = table[tokens.long()].to(dtype)
-        del table
+    x = inputs_embeds if inputs_embeds is not None else embed_train(
+        params, tokens, dtype, mesh)
     hidden, aux = _blocks_forward(params, cfg, x, dtype=dtype,
                                   remat=cfg.remat, mesh=mesh)
     if aux is None:
@@ -698,10 +719,8 @@ def lm_loss(params, cfg, tokens=None, labels=None, inputs_embeds=None,
     ``tokens`` / ``labels``, the unembedding gathered in float32 and the
     loss the global mean."""
     hidden, aux = forward_train(params, cfg, tokens, inputs_embeds, mesh)
-    w = params["unembed"]["w"]
-    if mesh is not None:
-        w = mesh.gather(w, mesh.specs["unembed"]["w"])
-    ce, cnt = loss_from_hidden(w, hidden, labels, cfg, loss_chunks, mesh)
+    ce, cnt = loss_from_hidden(unembed_train(params, mesh), hidden, labels,
+                               cfg, loss_chunks, mesh)
     loss = ce + cfg.moe_aux_weight * aux if cfg.n_experts else ce
     return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 

@@ -30,6 +30,17 @@ collects its gradient from every application.  On a card the SSD scan,
 the gated norm, RMSNorm with its fused add and flash attention (at head
 dim 112, padded to 128) each take their gradient through a backward
 kernel.
+
+Over a training mesh (``mesh=``, a :class:`repro_torch.mesh.grad_comm.
+TrainMesh`) a rank runs its block of rows and positions: the embedding
+table and the unembedding are gathered whole in float32, each Mamba
+layer's weights inside its recomputed body, and the shared block's once a
+forward, before the segments, so the gather's backward sums every
+application's gradient as the one copy does on one device.  The SSD scan
+runs on the rank's heads over every position
+(:mod:`repro_torch.models.mamba2`); the shared block attends as the
+transformer's blocks do under sequence parallelism (positions offset by
+the rank's block, K/V gathered over the sequence, the queries' offset).
 """
 from __future__ import annotations
 
@@ -177,46 +188,65 @@ def _forward_with_state(params, cfg, x, state, pos: int):
     return L.final_rmsnorm(params["final_norm"], x, delta)
 
 
-def _shared_block_train(params, x, delta, cfg, positions):
+def _shared_block_train(params, x, delta, cfg, positions, mesh=None):
     """One application of the shared block without a cache (training):
-    causal attention over the whole sequence; returns ``(x, delta)``, its
-    MLP output pending."""
+    causal attention over the whole sequence, or on a ``mesh`` this rank's
+    queries over the keys up to its last position; returns ``(x,
+    delta)``, its MLP output pending."""
     x, h = L.add_rmsnorm(params["ln1"], x, delta)
     q, k, v = A.qkv_project(params["attn"], h, cfg, positions)
-    o = A.gqa_attention(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+    off = 0
+    if mesh is not None:
+        k, v, off = mesh.attention_kv(k, v)
+    o = A.gqa_attention(q, k, v, causal=True, q_offset=off,
+                        kv_chunk=cfg.kv_chunk)
     x, h = L.add_rmsnorm(params["ln2"], x, A.out_project(params["attn"], o))
     return x, L.mlp(params["mlp"], h)
 
 
-def forward(params, cfg, tokens):
+def forward(params, cfg, tokens, mesh=None):
     """Training forward over the ``param_dtype`` weights: tokens (B, S) ->
-    the final hidden states (B, S, d) in the compute dtype."""
+    the final hidden states (B, S, d) in the compute dtype.  ``mesh``:
+    ``params`` are this rank's shards and ``tokens`` its block (B / dp
+    rows, S / tp positions); ``ValueError`` where the SSM heads do not
+    split over the sequence's blocks or a block is shorter than the conv's
+    history."""
     dtype = torch_dtype(cfg.dtype)
-    x = L.embed(params["embed"], tokens).to(dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
     layer_defs = {"ln": L.rmsnorm_def(cfg.d_model),
                   "mamba": M2.mamba2_def(cfg)}
-    shared = T.compute_params(params["shared"], dtype)
+    off, specs, shared_specs = 0, None, None
+    if mesh is not None:
+        mesh.heads_per_rank(cfg.ssm_heads, cfg.name)
+        mesh.check_halo(tokens.shape[1], cfg.conv_kernel - 1, cfg.name)
+        off = mesh.seq_block()[0] * tokens.shape[1]
+        specs = tree_map(lambda s: s[2:], mesh.gather_specs["mamba_blocks"])
+        shared_specs = mesh.gather_specs["shared"]
+    x = T.embed_train(params, tokens, dtype, mesh)
+    positions = off + torch.arange(x.shape[1], device=x.device)
+    shared = T.block_params(params["shared"], dtype, None, mesh,
+                            shared_specs)
     delta = None
     for s in range(_n_segments(cfg)):
         seg = T._layer(params["mamba_blocks"], s)
         for i in range(cfg.shared_attn_every):
             def body(x, delta, p=T._layer(seg, i)):
-                p = T.compute_params(p, dtype, layer_defs)
+                p = T.block_params(p, dtype, layer_defs, mesh, specs)
                 x, h = L.add_rmsnorm(p["ln"], x, delta)
-                return x, M2.mamba2_block(p["mamba"], h, cfg)[0]
+                return x, M2.mamba2_block(p["mamba"], h, cfg, mesh=mesh)[0]
             x, delta = T._remat(body, cfg.remat)(x, delta)
-        x, delta = _shared_block_train(shared, x, delta, cfg, positions)
+        x, delta = _shared_block_train(shared, x, delta, cfg, positions,
+                                       mesh)
     return L.final_rmsnorm(params["final_norm"], x, delta)
 
 
-def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8):
+def lm_loss(params, cfg, tokens, labels, loss_chunks: int = 8, mesh=None):
     """``(loss, {"ce", "tokens"})``: the mean next-token cross-entropy of
     :func:`forward`'s hidden states (the logits in float32, a sequence
-    chunk at a time)."""
-    hidden = forward(params, cfg, tokens)
-    ce, cnt = T.loss_from_hidden(params["unembed"]["w"], hidden, labels, cfg,
-                                 loss_chunks)
+    chunk at a time); on a ``mesh`` the rank's block scored and the loss
+    the global mean."""
+    hidden = forward(params, cfg, tokens, mesh)
+    ce, cnt = T.loss_from_hidden(T.unembed_train(params, mesh), hidden,
+                                 labels, cfg, loss_chunks, mesh)
     return ce, {"ce": ce, "tokens": cnt}
 
 

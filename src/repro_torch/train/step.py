@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.mesh.axes import AxisRules
 from repro_torch.mesh.grad_comm import TrainMesh
-from repro_torch.models.api import refuse_train_mesh
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
@@ -84,12 +83,10 @@ def make_grads_fn(model, mesh=None, *, accum_steps: int = 1):
 
 
 def train_mesh(model, mesh, rules: AxisRules, *, axes=None):
-    """The :class:`TrainMesh` of ``model`` on ``mesh`` (None without one);
-    ``NotImplementedError`` for a family that trains on one device only
-    (:func:`repro_torch.models.api.refuse_train_mesh`)."""
+    """The :class:`TrainMesh` of ``model`` on ``mesh`` (None without
+    one)."""
     if mesh is None:
         return None
-    refuse_train_mesh(model.cfg, mesh)
     if rules is None:
         raise ValueError("a mesh needs its rules "
                          "(repro_torch.mesh.rules_for_mesh)")

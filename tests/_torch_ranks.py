@@ -5,6 +5,7 @@ module afresh, so it imports torch and the port only, never JAX.
 Each rank's inputs come from ``numpy.random.default_rng((SEED, rank))``
 (:func:`rank_input`), so the parent test can rebuild every rank's inputs
 and hold the collected results against a numpy model."""
+import contextlib
 import time
 
 import numpy as np
@@ -800,3 +801,184 @@ def moe_train(comm, weights) -> dict:
     torch.set_num_threads(1)
     return {shape: _moe_train_case(make_mesh(shape, DM), weights)
             for shape in MOE_TRAIN_MESHES[comm.size()]}
+
+
+# -- rwkv6 and zamba2 training over a mesh (tests/test_torch_recurrent_mesh.py)
+REC_ARCHS = ("rwkv6-3b", "zamba2-7b")
+REC_MESHES = {2: [(1, 2), (2, 1)], 4: [(2, 2), (1, 4)]}
+# tests/test_torch_recurrent_train.py's batches: 4 x 32 from seed 2, on
+# which the one-device trainers of both families meet the reference's
+# five steps
+REC_B, REC_SEED = 4, 2
+# the exchanges alone: (B, S, H, C) of the tensors each rank blocks over
+# the sequence, and the rows prev_rows sends on
+EXCHANGE = dict(B=2, S=8, H=4, C=3, n=2)
+
+
+def rec_model(arch: str):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(smoke_config(arch))
+
+
+def rec_task(cfg):
+    from repro_torch.data import SyntheticTask
+    return SyntheticTask(cfg, batch=REC_B, seq_len=TRAIN_S, seed=REC_SEED)
+
+
+def _rec_specs(model):
+    return model.train_batch_specs(type("S", (), {
+        "global_batch": REC_B, "seq_len": TRAIN_S})())
+
+
+def exchange_inputs():
+    """The exchanges' whole tensors, the same on every rank: two inputs
+    (B, S, H, C), one float32 and one float64 (two dtypes: two
+    collectives), and the cotangents of what each exchange returns."""
+    rng = np.random.default_rng((SEED, 43))
+    B, S, H, C, n = (EXCHANGE[k] for k in "BSHCn")
+    return {"x": rng.normal(size=(B, S, H, C)).astype(np.float32),
+            "z": rng.normal(size=(B, S, H, C)),
+            "g_heads": rng.normal(size=(B, S, H, C)).astype(np.float32),
+            "g_prev": rng.normal(size=(B, S, H * C)).astype(np.float32)}
+
+
+def _exchanges(tm) -> dict:
+    """prev_rows and seq_to_heads -> heads_to_seq on this rank's block of
+    :func:`exchange_inputs`, forward and gradient: what the test holds
+    against their serial composition."""
+    ins = exchange_inputs()
+    i, nb = tm.seq_block()
+    S, n = EXCHANGE["S"], EXCHANGE["n"]
+    s = S // nb
+    x = torch.from_numpy(ins["x"][:, i * s:(i + 1) * s]).requires_grad_(True)
+    z = torch.from_numpy(ins["z"][:, i * s:(i + 1) * s]).requires_grad_(True)
+    xh, zh = tm.seq_to_heads(x, z)
+    h = xh.shape[2]
+    back, = tm.heads_to_seq(xh)
+    g = torch.from_numpy(ins["g_heads"][:, :, i * h:(i + 1) * h])
+    (xh * g).sum().backward()
+    out = {"heads": xh.detach().clone(), "z_heads": zh.detach().clone(),
+           "back": back.detach().clone(), "d_heads": x.grad.clone()}
+    flat = [t.detach().reshape(t.shape[0], s, -1).requires_grad_(True)
+            for t in (x, z)]
+    prev = tm.prev_rows(flat, n)
+    gp = torch.from_numpy(ins["g_prev"][:, i * n:(i + 1) * n])
+    (prev[0] * gp).sum().backward()
+    out.update({"prev": prev[0].detach().clone(),
+                "z_prev": prev[1].detach().clone(),
+                "d_prev": flat[0].grad.clone()})
+    return out
+
+
+@contextlib.contextmanager
+def first_step_grads(finish):
+    """Within it, the first AdamW update that ``make_train_step``'s steps
+    run records ``finish(grads)`` of the gradients it is handed (on a
+    mesh: after ``finish_grads``) in the yielded dict under ``"grads"``:
+    a trainer's first step gives the one-step check its gradients."""
+    import repro_torch.train.step as S
+    inner, out = S.adamw_update, {}
+
+    def spy(params, grads, *args, **kwargs):
+        if "grads" not in out:
+            out["grads"] = finish(grads)
+        return inner(params, grads, *args, **kwargs)
+    S.adamw_update = spy
+    try:
+        yield out
+    finally:
+        S.adamw_update = inner
+
+
+def _rec_case(mesh, arch, weights) -> dict:
+    """One mesh's checks of ``arch``: five trainer steps, the first
+    step's loss and every gradient leaf gathered whole."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.data import make_data_iter
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.step import train_mesh
+    model = rec_model(arch)
+    rules = rules_for_mesh(mesh)
+    tm = train_mesh(model, mesh, rules)
+    keep = mesh.world.rank() == 0
+    params = params_from_numpy(weights, device="cpu",
+                               defs=model.param_defs())
+    tr = Trainer(model, AdamWConfig(**TRAIN_OPT5),
+                 TrainerConfig(steps=5, log_every=100),
+                 make_data_iter(rec_task(model.cfg), mesh, rules,
+                                _rec_specs(model), device="cpu"),
+                 mesh=mesh, rules=rules, device="cpu", params=params,
+                 log=lambda s: None)
+    with first_step_grads(lambda g: _gathered(g, tm.specs, mesh,
+                                              keep)) as first:
+        history = tr.fit()["history"]
+    return {"history": history, "grads": first["grads"]}
+
+
+def recurrent_mesh(comm, weights) -> dict:
+    """REC_MESHES' cases of this world's size, both families on their
+    bridged SMOKE ``weights`` (by arch), and each mesh's exchanges alone;
+    one thread a rank."""
+    from repro_torch.core.comm import make_mesh
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.train.step import train_mesh
+    torch.set_num_threads(1)
+    out = {}
+    for shape in REC_MESHES[comm.size()]:
+        mesh = make_mesh(shape, DM)
+        tm = train_mesh(rec_model(REC_ARCHS[0]), mesh, rules_for_mesh(mesh))
+        out[shape, "exchange"] = _exchanges(tm)
+        for arch in REC_ARCHS:
+            out[shape, arch] = _rec_case(mesh, arch, weights[arch])
+    return out
+
+
+def recurrent_world_one(comm, weights, arch) -> dict:
+    """``arch`` at bf16 compute (float32 weights), one step's loss and
+    gradients on one device and on a (1, 1) mesh of this one rank, each
+    leaf's bits: the layout the card's world-1 phases run.  One thread
+    (restored after): the caller's process runs it, beside other test
+    processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _recurrent_world_one(weights, arch)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _recurrent_world_one(weights, arch) -> dict:
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core.comm import make_mesh
+    from repro_torch.data import make_batch_fn
+    from repro_torch.mesh.axes import rules_for_mesh
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import create_train_state
+    from repro_torch.train.step import make_grads_fn, train_mesh
+    model = rec_model(arch)
+    model.cfg = model.cfg.replace(dtype="bfloat16")
+    mesh = make_mesh((1, 1), DM)
+    rules = rules_for_mesh(mesh)
+    tm = train_mesh(model, mesh, rules)
+    task = rec_task(model.cfg)
+    specs = _rec_specs(model)
+    out = {}
+    for meshed in (False, True):
+        params = params_from_numpy(weights, device="cpu",
+                                   defs=model.param_defs())
+        if meshed:
+            params = create_train_state(
+                model, 0, AdamWConfig(**TRAIN_OPT5), mesh, rules,
+                device="cpu", params=params)["params"]
+            batch = make_batch_fn(task, mesh, rules, specs)(0)
+            loss, _, grads = make_grads_fn(model, tm)(params, batch)
+            tm.finish_grads(grads)
+        else:
+            params = tree_map(lambda t: t.requires_grad_(True), params)
+            loss, _, grads = make_grads_fn(model)(params, task.batch_at(0))
+        out[meshed] = [loss] + list(tree_leaves(grads))
+    return out

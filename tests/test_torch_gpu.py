@@ -1741,6 +1741,77 @@ def test_flash_attention_head_dim_112_zero_padded(card, dtype):
     assert ops.COUNTS["flash_attention_tc"].kernel == 2 * tc
 
 
+# the heads a rank's scan takes when rwkv6-3b (40 heads) and zamba2-7b
+# (112) train over a mesh of tp 2 and 4: whole heads over every position
+# (zamba2's 28 is not a multiple of B5's backward's groups of 8)
+RANK_SCAN_CASES = [("rwkv6", 20), ("rwkv6", 10), ("ssd", 56), ("ssd", 28)]
+
+
+@pytest.mark.parametrize("kind,H", RANK_SCAN_CASES)
+def test_scans_at_mesh_rank_heads(card, kind, H):
+    """B4 and B5 at the per-rank head counts of training over a mesh, bf16
+    inputs at K = V = 64 and N = P = 64 (S 256, two rows): forward and
+    backward against the plain version (autograd in float32 for the
+    backward), every call on the tensor-core route both ways."""
+    rng = np.random.default_rng(H)
+    B, S = 2, 256
+    if kind == "rwkv6":
+        ins = _rwkv_case(rng, card, "bfloat16", B, S, H, 64, 64, 0)[:5]
+        fn, plain = ops.rwkv6_scan, ref.rwkv6_scan
+    else:
+        ins = _ssd_case(rng, card, "bfloat16", B, S, H, 64, 64)[:4]
+        fn, plain = ops.ssd_scan, ref.ssd_scan
+    cot = (torch.randn(B, S, H, 64, device=card),)
+    ops.reset_counts()
+    y = fn(*ins)[0]
+    want_y = plain(*ins)[0]
+    torch.cuda.synchronize()
+    _within([y], [want_y], RWKV_REL if kind == "rwkv6" else SSD_REL,
+            f"{kind} forward")
+    got = _grads(lambda *a: fn(*a)[0], *ins, cot=cot)
+    want = _grads(lambda *a: plain(*a)[0], *(t.float() for t in ins),
+                  cot=cot)
+    torch.cuda.synchronize()
+    _within(got, want, SCAN_BWD_TOL["bfloat16"], f"{kind}_scan_bwd H={H}")
+    name = f"{kind}_scan"
+    assert ops.COUNTS[name].kernel == ops.COUNTS[f"{name}_tc"].kernel == 2
+    assert ops.COUNTS[f"{name}_bwd"].kernel == 1
+    assert ops.COUNTS[f"{name}_bwd_tc"].kernel == 1
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+
+
+def test_flash_attention_d112_with_offset(card):
+    """B3 as a rank's shared block of zamba2 runs it when the sequence is
+    split over tp 2: the second block's queries (offset 256) over every
+    key before them, 32/32 heads of 112 zero-padded to 128, bf16 on the
+    tensor cores both ways, against the plain version."""
+    rng = np.random.default_rng(1120)
+    B, Sq, Sk, off, H, D = 1, 256, 512, 256, 32, 112
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(card, torch.bfloat16)
+    q, k, v, g = t(B, Sq, H, D), t(B, Sk, H, D), t(B, Sk, H, D), \
+        t(B, Sq, H, D)
+    ops.reset_counts()
+    out = ops.flash_attention(q, k, v, q_offset=off)
+    want = ref.flash_attention(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(),
+                               rtol=ATTN_TOL["bfloat16"],
+                               atol=ATTN_TOL["bfloat16"])
+    got = _grads(lambda a, b, c: ops.flash_attention(a, b, c, q_offset=off),
+                 q, k, v, cot=(g,))
+    want_g = _grads(lambda a, b, c: ref.flash_attention(a, b, c,
+                                                        q_offset=off),
+                    q.float(), k.float(), v.float(), cot=(g.float(),))
+    _within(got, want_g, BWD_ATTN_REL["bfloat16"], "B3 D 112 q_offset")
+    assert ops.COUNTS["flash_attention_tc"].kernel == 2
+    assert ops.COUNTS["flash_attention_bwd"].kernel == 1
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == 1
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+
+
 def test_gemma3_aligned_batch_on_card_matches_cpu(card):
     """SMOKE gemma3-4b (float32): prefill then 12 aligned decode steps past
     the ring's wrap, greedy, card == CPU."""

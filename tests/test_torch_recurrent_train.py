@@ -12,8 +12,9 @@ weights and the same synthetic batches:
 * the plain versions the card's backward kernels are held to
   (``rwkv6_scan_plain``, ``ssd_scan_plain``, ``gated_rmsnorm_plain``)
   differentiated by autograd against ``jax.grad`` of the reference's
-  ``_wkv_chunked``, ``_ssd_chunked`` and gated norm;
-* a mesh refused, naming ROADMAP A13b item 4b.
+  ``_wkv_chunked``, ``_ssd_chunked`` and gated norm.
+
+Training over a mesh (item 4b) is tests/test_torch_recurrent_mesh.py's.
 
 Tolerances are tests/test_torch_train.py's (float32 on both sides,
 summation order only): the loss within 1e-6 of its value, each gradient
@@ -38,8 +39,6 @@ zamba2's five steps are held to losses within 2e-4 and the first step's
 gradient norm within 1e-4 (its leaves' limit; measured 1.1e-5); the later
 gradient norms, which no float32 run reproduces, are held finite only.
 """
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -266,20 +265,6 @@ def test_gated_norm_plain_gradients_match_reference():
     out = gated_rmsnorm_plain(*leaves)
     got = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
     _grads_close(("y", "z", "scale"), got, want)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_over_a_mesh_is_refused(arch):
-    """One device only: ``loss(mesh=)`` and ``Trainer(mesh=)`` raise,
-    naming ROADMAP A13b item 4b."""
-    model = build_model(smoke_config(arch))
-    params = model.init(0, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A13b item 4b"):
-        model.loss(params, _batch(model.cfg, 8), mesh=object())
-    mesh = types.SimpleNamespace(world=types.SimpleNamespace(rank=lambda: 0))
-    with pytest.raises(NotImplementedError, match="A13b item 4b"):
-        Trainer(model, PO.AdamWConfig(), TrainerConfig(steps=1), iter(()),
-                mesh=mesh, rules=object(), device="cpu")
 
 
 def test_scans_under_autograd_take_no_out_state():
