@@ -488,6 +488,31 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  group, tokens/s, the peak beside the state's bytes; a
                  checkpoint cut to 2 layers (18.4 GB of .npy) saved and
                  restored bit for bit.
+34h. main-train-vlm — right after 34g: full-width llava-next-mistral-7b
+                 cut from 32 to 12 layers (2.879 B params, 46.07 GB of
+                 float32 state) as main-train at B 2 x S 4096 (2880 image
+                 rows and 1216 text tokens, the image rows' labels -1), 5
+                 steps: B3 24 a step with the log-sum-exp and 12 backward,
+                 all on the tensor cores (G 4, D 128, causal), B2 as
+                 main-train at this depth both ways, no plain version;
+                 every B3 and B2 shape held against the plain versions;
+                 tokens/s of scored text tokens and of all positions, the
+                 peak beside the state's bytes, a step profiled by kernel
+                 group; a 2-layer checkpoint round trip.  Then
+                 main-train-vlm-mesh: its first 2 steps on a (1, 1) mesh
+                 of one NCCL rank (the image and text blocks gathered, the
+                 rank's block of their concatenation rebuilt): losses and
+                 gradient norms bit for bit, the same launches a step, the
+                 peak within 1.10x.
+34i. main-train-whisper — whisper-tiny whole (4 + 4 layers) as main-train at
+                 64 clips of 1500 frames x 448 decoder tokens, 5 steps: B3
+                 16 a step forward (8 non-causal encoder calls at S 1500, 8
+                 causal decoder calls at S 448, the recompute included)
+                 and 8 backward (4 non-causal, 4 causal), all on the
+                 tensor cores; its LayerNorms and cross read plain, as the
+                 reference's; the same gates, shapes, lines and round trip;
+                 then main-train-whisper-mesh as main-train-vlm-mesh (the
+                 encoder whole on the rank, the decoder's K/V gathered).
 36. timing-train — B3 at gemma3's prefill shapes (B 4, S 2048, window 1024
                  and global; a replayed CUDA graph), B3's backward at
                  main-train's, gemma3's and main-train-moe's (B 4, S 2048,
@@ -517,6 +542,10 @@ One-card training (ROADMAP A13a) and gemma3's window caches (A11):
                  (8192, 7168), B3 at head dim 112 forward and backward at
                  main-train-zamba's shared block (B 4, S 2048, 32/32)
                  beside SDPA with the same mask and with ``is_causal``.
+                 B3's backward at main-train-whisper's encoder (B 64, S
+                 1500, 6/6 heads of 64, non-causal, beside SDPA with no
+                 mask) and decoder (S 448, causal) and main-train-vlm's (B
+                 2, S 4096, 32/8 heads of 128) shapes likewise.
 
 zamba2 has no serving-engine mode, as in the reference: phases 16-18 call
 the model's API (``prefill``, ``lm_head``, ``decode_step``) directly; so
@@ -4197,13 +4226,14 @@ class KernelShapes:
     table pages, q dtype, page dtype), B2 (variant, rows, d, dtype, scale
     dtype, keep_sum, eps, grad); ``grad`` says autograd took a gradient
     through the call.  B3's backward calls by (windowed, on the tensor
-    cores) in ``flash_bwd``.  :meth:`parity` holds each kernel against its
+    cores) in ``flash_bwd``, by (causal, on the tensor cores) in
+    ``flash_bwd_causal``.  :meth:`parity` holds each kernel against its
     plain version at each shape, and under ``grad`` its backward kernel
     against autograd through the plain version too."""
 
     def __init__(self):
-        self.flash, self.paged, self.norm, self.flash_bwd = (
-            collections.Counter() for _ in range(4))
+        (self.flash, self.paged, self.norm, self.flash_bwd,
+         self.flash_bwd_causal) = (collections.Counter() for _ in range(5))
         self._lock = threading.Lock()
         self._ops = {name: getattr(ops, name) for name in (
             "flash_attention", "paged_attention_mq", "rmsnorm",
@@ -4220,6 +4250,7 @@ class KernelShapes:
         def flash_bwd(q, k, v, out, dout, *, causal=True, window=None,
                       q_offset=0, lse=None, tensor_cores=None):
             tally(self.flash_bwd, (window is not None, lse is not None))
+            tally(self.flash_bwd_causal, (causal, lse is not None))
             return fa_bwd(q, k, v, out, dout, causal=causal, window=window,
                           q_offset=q_offset, lse=lse,
                           tensor_cores=tensor_cores)
@@ -4263,6 +4294,10 @@ class KernelShapes:
         """B3 calls with a window (``windowed``) or without."""
         return sum(n for key, n in self.flash.items()
                    if (key[7] is not None) == windowed)
+
+    def flash_causal_calls(self, causal: bool) -> int:
+        """B3 calls causal (``causal``) or not."""
+        return sum(n for key, n in self.flash.items() if key[6] == causal)
 
     def parity(self, label, dev) -> dict:
         """Each recorded shape on seeded random inputs, kernel against plain
@@ -4917,7 +4952,10 @@ TRAIN_NORM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # layers, a ragged S, D 64 non-causal (whisper's encoder heads), D 128
 # windowed at G 4, SMOKE's float32 D 16, qwen3-moe's 64/4 heads (G 16,
 # main-train-moe's); at D 256 also a ragged S under a 64 window and G 1
-# non-causal; bf16 at D 64, 128 and 256 on the tensor cores
+# non-causal; main-train-whisper's encoder (B 64, S 1500 non-causal: 23
+# tiles of 64 and a ragged 28) and decoder (S 448, causal) and
+# main-train-vlm's (B 2, S 4096, 32/8 heads of 128); bf16 at D 64, 128
+# and 256 on the tensor cores
 TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
                      (1, 2048, 8, 4, 256, True, 1024, torch.bfloat16),
                      (1, 2048, 8, 4, 256, True, None, torch.bfloat16),
@@ -4927,7 +4965,10 @@ TRAIN_FLASH_CASES = [(2, 2048, 16, 8, 128, True, None, torch.bfloat16),
                      (2, 1500, 6, 6, 64, False, None, torch.bfloat16),
                      (1, 2048, 16, 4, 128, True, 512, torch.bfloat16),
                      (2, 300, 4, 2, 16, True, None, torch.float32),
-                     (2, 2048, 64, 4, 128, True, None, torch.bfloat16)]
+                     (2, 2048, 64, 4, 128, True, None, torch.bfloat16),
+                     (64, 1500, 6, 6, 64, False, None, torch.bfloat16),
+                     (64, 448, 6, 6, 64, True, None, torch.bfloat16),
+                     (2, 4096, 32, 8, 128, True, None, torch.bfloat16)]
 # dq, dk, dv are sums of O(1) terms over the keys or queries: bf16 within
 # 2e-2 of the largest magnitude (the kernel reads the bf16 forward output
 # O for rowsum(dO * O) and rounds its result to bf16 once, where the
@@ -4998,12 +5039,44 @@ CKPT_LAYERS = 2                 # the checkpoint round trip's cut
 # steps, bf16 compute, remat full, seed 0: B3's backward at D 256 on the
 # tensor cores, windowed and global, in every step
 TRAIN_GEMMA_LAYERS, TRAIN_GEMMA_STEPS = 18, 5
+# main-train-vlm: llava-next-mistral-7b at full width (d 4096, 32/8 heads
+# of 128, ff 14336, vocab 32000) cut from 32 to TRAIN_VLM_LAYERS layers:
+# 2.879 B params, 46.07 GB of float32 params, gradients and AdamW moments
+# (16 layers would hold 60.03 GB before any activation, the full 32 115.9
+# GB); batches of TRAIN_VLM_BATCH, B 2 x S 4096: 2880 image rows (the
+# anyres image's) and 1216 text tokens, LLaVA-NeXT's 4096 context.
+# main-train-whisper: whisper-tiny whole (4 + 4 layers, d 384, 6 heads of
+# 64, vocab 51865), TRAIN_WHISPER_BATCH: 64 clips of 1500 frames with 448
+# decoder tokens each (its decoder's context).  Both TRAIN_MM_STEPS steps
+# through main-train's phase function, bf16 compute, remat full, seed 0;
+# then their (1, 1) mesh twins, main-train-vlm-mesh and
+# main-train-whisper-mesh, TRAIN_MM_MESH_STEPS steps each held bit for bit
+# to the unmeshed phase's first ones
+TRAIN_VLM_ARCH, TRAIN_VLM_LAYERS = "llava-next-mistral-7b", 12
+TRAIN_VLM_BATCH = (2, 4096)
+TRAIN_WHISPER_ARCH, TRAIN_WHISPER_BATCH = "whisper-tiny", (64, 448)
+TRAIN_MM_STEPS, TRAIN_MM_MESH_STEPS = 5, 2
 # small-train: 5 float32 SMOKE steps, card against CPU; the losses within
 # 1e-4 and the gradient norms within 1e-3 relative: float32 on both, sums
 # in other orders; each Adam step moves every weight by about lr whatever
 # its gradient's size, so a near-zero gradient whose sign rounding decides
 # moves the next steps' losses by more than its own size
 SMALL_TRAIN_REL = {"loss": 1e-4, "grad_norm": 1e-3}
+# ... and small-train-mm: float32 SMOKE llava and whisper (B 4 x S 24, seed
+# 2: llava's first 8 positions image rows), SMALL_MM_STEPS steps card
+# against CPU under the same limits, the gradient norm at the first step
+# only: llava SMOKE's later ones are decided by rounding (its text rows,
+# ~0.02, enter an RMSNorm beside image rows of ~0.7; the reference's own
+# float32 drifts 6.4e-3 from a float64 run by step 5, tests/
+# test_torch_multimodal_train.py)
+SMALL_MM_STEPS = 2
+# main-train-whisper's loss gate: random-init whisper-tiny does not learn
+# the bigram task in 5 steps (its token embeddings, ~0.02, sit under
+# sinusoidal positions of ~0.7; the reference at SMOKE and the port at
+# full width on the CPU stay flat over 10 steps), so its losses are held
+# finite and within FLAT_LOSS_REL of the first (no divergence); the other
+# phases' last loss must be below the first
+FLAT_LOSS_REL = 1e-2
 # main-gemma3: full-width, full-depth gemma3-4b (bf16, seed 0) as aligned
 # batches: 4 prompts of 2000 tokens (past the 1024 window: the ring's
 # compression and its wrap) and 4 of 300 (the ring left-padded), greedy to
@@ -5302,22 +5375,133 @@ def phase_small_train(dev) -> None:
         f"relative gaps {gaps} (limits {SMALL_TRAIN_REL}); card launches "
         f"{counts}")
     ops.reset_counts()
+    phase_small_train_mm()
+
+
+def phase_small_train_mm() -> None:
+    """SMALL_MM_STEPS trainer steps of float32 SMOKE llava and whisper on
+    the card (B3's and llava's B2's backward kernels, whisper's plain cross
+    read) against the same on the CPU, from the same seeded weights and
+    batches: every loss within SMALL_TRAIN_REL, the first gradient norm
+    too; B3's backward a layer a step, no plain version on the card."""
+    from repro_torch.data import SyntheticTask, make_data_iter
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    n = SMALL_MM_STEPS
+    for arch in (TRAIN_VLM_ARCH, TRAIN_WHISPER_ARCH):
+        model = build_model(smoke_config(arch))
+        cfg = model.cfg
+        params = model.init(0, device="cpu", dtype=torch.float32)
+        hist = {}
+        for where in ("cpu", "cuda"):
+            ops.reset_counts()
+            tr = Trainer(model, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                            decay_steps=5),
+                         TrainerConfig(steps=n, log_every=100),
+                         make_data_iter(SyntheticTask(cfg, 4, 24, seed=2),
+                                        device=where),
+                         device=where, params=params, log=lambda s: None)
+            hist[where] = tr.fit()["history"]
+        counts = {k: c.kernel for k, c in ops.COUNTS.items() if c.kernel}
+        layers = cfg.n_layers + (cfg.decoder_layers
+                                 if cfg.family == "audio" else 0)
+        if (any(c.plain for c in ops.COUNTS.values())
+                or counts.get("flash_attention_bwd") != n * layers
+                or (cfg.family == "vlm" and not counts.get("rmsnorm_bwd"))):
+            raise AssertionError(f"small-train-mm {arch}: card launches "
+                                 f"{counts}")
+        gaps = {key: [abs(a[key] - b[key]) / abs(a[key]) for a, b in zip(
+            hist["cpu"], hist["cuda"])] for key in SMALL_TRAIN_REL}
+        if (max(gaps["loss"]) > SMALL_TRAIN_REL["loss"]
+                or gaps["grad_norm"][0] > SMALL_TRAIN_REL["grad_norm"]):
+            raise AssertionError(
+                f"small-train-mm {arch}: card vs CPU gaps {gaps} past "
+                f"{SMALL_TRAIN_REL}: {hist}")
+        log(f"small-train-mm: {n} steps of SMOKE {arch} (float32) card == "
+            f"CPU: losses {[h['loss'] for h in hist['cuda']]} (CPU "
+            f"{[h['loss'] for h in hist['cpu']]}), grad norms "
+            f"{[h['grad_norm'] for h in hist['cuda']]} (CPU "
+            f"{[h['grad_norm'] for h in hist['cpu']]}); relative gaps "
+            f"{gaps} (limits {SMALL_TRAIN_REL}, the gradient norm's at step "
+            f"1); card launches {counts}")
+    ops.reset_counts()
+
+
+def train_tokens(cfg, B: int, S: int) -> dict:
+    """A training batch's named token counts: a decoder's tokens; llava's
+    scored text tokens and all its positions (image rows and text);
+    whisper's scored decoder tokens and all its positions (frames and
+    tokens)."""
+    if cfg.family == "vlm":
+        return {"scored text tokens": B * (S - cfg.n_image_tokens),
+                "positions": B * S}
+    if cfg.family == "audio":
+        return {"scored decoder tokens": B * S,
+                "positions (frames and tokens)": B * (cfg.n_audio_frames
+                                                      + S)}
+    return {"tokens": B * S}
+
+
+def whisper_launches_wanted(cfg, steps: int) -> dict:
+    """B3's launches in ``steps`` steps of whisper under remat: each
+    encoder and decoder layer's attention forward twice (the first pass
+    and the backward's recompute) and backward once, all on the tensor
+    cores; its LayerNorms are plain in both packages, so no B2."""
+    n = cfg.n_layers + cfg.decoder_layers
+    return {"flash_attention": 2 * n * steps,
+            "flash_attention_tc": 2 * n * steps,
+            "flash_attention_bwd": n * steps,
+            "flash_attention_bwd_tc": n * steps}
+
+
+def check_b3_kinds(label: str, cfg, shapes, steps: int) -> dict:
+    """B3's (forward, backward) calls over the run by kind, gated on the
+    config's layers: a decoder's windowed and global layers, whisper's
+    non-causal encoder and causal decoder; every backward with the
+    forward's log-sum-exp (the tensor cores).  Returns the calls by
+    kind."""
+    if cfg.family == "audio":
+        got = {"non-causal": (shapes.flash_causal_calls(False),
+                              shapes.flash_bwd_causal[(False, True)]),
+               "causal": (shapes.flash_causal_calls(True),
+                          shapes.flash_bwd_causal[(True, True)])}
+        want = {"non-causal": (2 * cfg.n_layers * steps,
+                               cfg.n_layers * steps),
+                "causal": (2 * cfg.decoder_layers * steps,
+                           cfg.decoder_layers * steps)}
+    else:
+        glob, loc = T.layer_groups(cfg)
+        got = {"windowed": (shapes.flash_calls(True),
+                            shapes.flash_bwd[(True, True)]),
+               "global": (shapes.flash_calls(False),
+                          shapes.flash_bwd[(False, True)])}
+        want = {"windowed": (2 * len(loc) * steps, len(loc) * steps),
+                "global": (2 * len(glob) * steps, len(glob) * steps)}
+    if got != want or shapes.flash_bwd[(True, False)] + shapes.flash_bwd[
+            (False, False)]:
+        raise AssertionError(f"{label}: B3 (forward, backward) calls by "
+                             f"kind {got}, want {want}; backward calls "
+                             f"{dict(shapes.flash_bwd)}")
+    return got
 
 
 def phase_main_train(dev, label: str = "main-train", cfg=None,
-                     steps: int = TRAIN_STEPS) -> dict:
-    """A dense decoder through ``Trainer``: full-width, full-depth
-    qwen3-1.7b (``cfg`` None), or ``cfg``, for ``steps`` steps of TRAIN_B x
-    TRAIN_S tokens, float32 weights and AdamW moments, bf16 compute, remat
-    full, counts from 0.  Gates: every loss finite and the last below the
-    first; B2's and B3's launches (:func:`train_launches_wanted`: B3 2L
-    forward a step with the log-sum-exp and L backward, all on the tensor
-    cores), no other kernel and no plain version; B3's forward and backward
-    calls of the windowed and the global layers apart, each as many as the
-    config has such layers (:class:`KernelShapes`).  Then one step
-    profiled, B3 and B2 held against their plain versions at every shape
-    the steps called them at (forward and backward), and a checkpoint
-    round trip at full width cut to CKPT_LAYERS layers."""
+                     steps: int = TRAIN_STEPS,
+                     batch=(TRAIN_B, TRAIN_S)) -> dict:
+    """A model through ``Trainer``: full-width, full-depth qwen3-1.7b
+    (``cfg`` None), or ``cfg``, for ``steps`` steps of ``batch`` (B, S),
+    float32 weights and AdamW moments, bf16 compute, remat full, counts
+    from 0.  Gates: every loss finite and the last below the first
+    (whisper's within FLAT_LOSS_REL of the first: it does not learn the
+    task in a few steps); B2's
+    and B3's launches (:func:`train_launches_wanted`, whisper's
+    :func:`whisper_launches_wanted`: B3 twice forward a step with the
+    log-sum-exp and once backward a layer, all on the tensor cores), no
+    other kernel and no plain version; B3's forward and backward calls by
+    kind (:func:`check_b3_kinds`).  Then one step profiled, B3 and B2 held
+    against their plain versions at every shape the steps called them at
+    (forward and backward), and a checkpoint round trip at full width cut
+    to CKPT_LAYERS layers."""
     from repro_torch.data import SyntheticTask, make_data_iter
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
@@ -5326,13 +5510,12 @@ def phase_main_train(dev, label: str = "main-train", cfg=None,
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(TRAIN_ARCH) if cfg is None else cfg
     model = build_model(cfg)
-    L = cfg.n_layers
-    glob, loc = T.layer_groups(cfg)
+    B, S = batch
     n_params = sum(int(np.prod(p.shape)) for p in tree_leaves(
         model.param_defs()))
     opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
                       decay_steps=steps)
-    task = SyntheticTask(cfg, batch=TRAIN_B, seq_len=TRAIN_S)
+    task = SyntheticTask(cfg, batch=B, seq_len=S)
     tr = Trainer(model, opt, TrainerConfig(steps=steps, log_every=5),
                  make_data_iter(task, device=dev), device=dev, seed=0,
                  log=log)
@@ -5349,52 +5532,56 @@ def phase_main_train(dev, label: str = "main-train", cfg=None,
     losses = [m["loss"] for m in h]
     log(f"[train] {cfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"over {len(h)} steps; stragglers={tr.stragglers}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{label}: losses {losses}")
-    alone, add, _ = qwen_norms(cfg)             # one forward's
-    # the forward's norms run twice (remat recomputes every block) but the
-    # final norm, which lies outside the blocks, once; the backward once
-    want = train_launches_wanted(cfg, steps)
+    audio = cfg.family == "audio"
+    falls = losses[-1] < losses[0] if not audio else max(
+        abs(x - losses[0]) for x in losses) <= FLAT_LOSS_REL * losses[0]
+    if not all(np.isfinite(losses)) or not falls:
+        raise AssertionError(f"{label}: losses {losses} ("
+                             f"{'flat within ' + str(FLAT_LOSS_REL) if audio else 'falling'}"
+                             " wanted)")
+    want = (whisper_launches_wanted if audio else train_launches_wanted)(
+        cfg, steps)
     check_train_launches(label, counts, want)
-    # B3 by layer kind: forward twice a step (remat), backward once, every
-    # backward with the forward's log-sum-exp (the tensor cores)
-    windows = {"windowed": (shapes.flash_calls(True),
-                            shapes.flash_bwd[(True, True)]),
-               "global": (shapes.flash_calls(False),
-                          shapes.flash_bwd[(False, True)])}
-    want_windows = {"windowed": (2 * len(loc) * steps, len(loc) * steps),
-                    "global": (2 * len(glob) * steps, len(glob) * steps)}
-    if (windows != want_windows
-            or shapes.flash_bwd[(True, False)] + shapes.flash_bwd[
-                (False, False)]):
-        raise AssertionError(f"{label}: B3 (forward, backward) calls by "
-                             f"layer kind {windows}, want {want_windows}; "
-                             f"backward calls {dict(shapes.flash_bwd)}")
+    kinds = check_b3_kinds(label, cfg, shapes, steps)
     times = [m["step_time"] for m in h[2:]]
     host = float(np.median(times)) * 1e3
     state = tr.final_state
-    batch = next(make_data_iter(task, device=dev, start_step=steps))
-    split = train_step_split(model, opt, state, batch)
+    last = next(make_data_iter(task, device=dev, start_step=steps))
+    split = train_step_split(model, opt, state, last)
     devt = split["device_ms"]
     state_bytes = n_params * 16
-    log(f"{label}: {cfg.name} {L} layers ({len(loc)} windowed, "
-        f"{len(glob)} global) d {cfg.d_model} "
+    tokens = train_tokens(cfg, B, S)
+    rates = ", ".join(f"{n / host * 1e3:.0f} {what}/s"
+                      for what, n in tokens.items())
+    n_attn = cfg.n_layers + (cfg.decoder_layers if audio else 0)
+    if audio:
+        layers = (f"{cfg.n_layers} encoder + {cfg.decoder_layers} decoder "
+                  f"layers, {cfg.n_audio_frames} frames a clip")
+        b2 = "no B2 (LayerNorms, plain in both packages)"
+    else:
+        glob, loc = T.layer_groups(cfg)
+        alone, add, _ = qwen_norms(cfg)
+        layers = f"{cfg.n_layers} layers ({len(loc)} windowed, " \
+            f"{len(glob)} global)"
+        b2 = f"B2 {alone + add} backward a step, {add} of them the fused add's"
+    log(f"{label}: {cfg.name} {layers} d {cfg.d_model} "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} vocab "
         f"{cfg.vocab}, float32 weights and moments, {cfg.dtype} compute, "
-        f"remat {cfg.remat}, batch {TRAIN_B} x {TRAIN_S}, {steps} steps "
+        f"remat {cfg.remat}, batch {B} x {S}, {steps} steps "
         f"in {wall:.1f} s: losses {[round(x, 4) for x in losses]}; grad norms "
         f"{[round(m['grad_norm'], 3) for m in h]}; a step host-issued "
-        f"{host:.1f} ms (median of steps 3-{steps}), device {devt:.1f} ms (one "
+        f"{host:.1f} ms (median of steps 3-{steps}, the batch's making on "
+        f"the host included), device {devt:.1f} ms (one "
         f"step profiled: card idle {max(0.0, 1 - devt / host):.1%}), "
-        f"{TRAIN_B * TRAIN_S / host * 1e3:.0f} tokens/s; "
+        f"{rates}; "
         f"max_memory_allocated={peak} B against the state's {n_params} "
         f"params x 16 B = {state_bytes} B (float32 params, gradients, m, "
-        f"v); launches {counts} (B3 {2 * L} a step forward, the blocks' "
-        f"recompute included, all on the tensor cores, {L} backward, all on "
-        f"the tensor cores; by layer kind (forward, backward) over the run "
-        f"{windows}; B2 {alone + add} backward a step, {add} of them the "
-        f"fused add's); a step after them: {split_line(split)}")
-    del state, batch, tr
+        f"v); launches {counts} (B3 {2 * n_attn} a step forward, the "
+        f"blocks' recompute included, all on the tensor cores, {n_attn} "
+        f"backward, all on the tensor cores; by kind (forward, backward) "
+        f"over the run {kinds}; {b2}); a step after them: "
+        f"{split_line(split)}")
+    del state, last, tr
     gc.collect()
     torch.cuda.empty_cache()
     errs = shapes.parity(label, dev)
@@ -5405,7 +5592,13 @@ def phase_main_train(dev, label: str = "main-train", cfg=None,
             "host_ms": host, "device_ms": devt, "peak": peak,
             "state_bytes": state_bytes, "losses": losses,
             "grad_norms": [m["grad_norm"] for m in h], "errs": errs,
-            "split": split, "windows": windows}
+            "split": split, "windows": kinds, "tokens": tokens,
+            "run": {"losses": losses,
+                    "grad_norms": [m["grad_norm"] for m in h],
+                    "step_times": [m["step_time"] for m in h],
+                    "counts": {k: c for k, c in counts.items() if any(c)},
+                    "steps": steps, "peak": peak, "device_ms": devt,
+                    "wall": wall}}
 
 
 def checkpoint_round_trip(label: str, cfg, opt, dev) -> None:
@@ -6016,13 +6209,16 @@ def phase_main_train_recurrent(dev, label: str, cfg, with_shapes: bool):
                     "wall": wall}}
 
 
-def _train_rec_run(cfg, mesh_shape=None) -> dict:
-    """``cfg``'s first TRAIN_REC_MESH_STEPS steps of main-train-rwkv or
-    main-train-zamba through ``Trainer`` (seed 0, main-train-rwkv's AdamW
-    schedule): on one device, or on ``make_debug_mesh(*mesh_shape)`` in
-    the caller's process group (the state sharded at birth, a layer's
-    weights gathered inside its block, the scans on the rank's heads over
-    every position); then one more step profiled."""
+def _train_rec_run(cfg, mesh_shape=None, batch=(TRAIN_REC_B, TRAIN_S),
+                   n: int = TRAIN_REC_MESH_STEPS) -> dict:
+    """``cfg``'s first ``n`` steps of ``batch`` (B, S) through ``Trainer``
+    (seed 0, TRAIN_REC_STEPS steps' AdamW schedule, main-train-rwkv's and
+    main-train-zamba's, and :func:`phase_main_train`'s at as many steps):
+    on one device, or on ``make_debug_mesh(*mesh_shape)`` in the caller's
+    process group (the state sharded at birth, a layer's weights gathered
+    inside its block, the scans on the rank's heads over every position,
+    llava's image-then-text block rebuilt, whisper's clips encoded whole);
+    then one more step profiled."""
     from repro_torch.data import SyntheticTask, make_data_iter
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.mesh import rules_for_mesh
@@ -6035,11 +6231,10 @@ def _train_rec_run(cfg, mesh_shape=None) -> dict:
         mesh = make_debug_mesh(*mesh_shape)
         rules = rules_for_mesh(mesh)
         specs = model.train_batch_specs(type("S", (), {
-            "global_batch": TRAIN_REC_B, "seq_len": TRAIN_S})())
-    n = TRAIN_REC_MESH_STEPS
+            "global_batch": batch[0], "seq_len": batch[1]})())
     opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1,
                       decay_steps=TRAIN_REC_STEPS)
-    task = SyntheticTask(cfg, batch=TRAIN_REC_B, seq_len=TRAIN_S)
+    task = SyntheticTask(cfg, batch=batch[0], seq_len=batch[1])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -6070,19 +6265,22 @@ def _train_rec_run(cfg, mesh_shape=None) -> dict:
                 mesh.comm(a).size() for a in mesh.axis_names]}
 
 
-def _train_rec_mesh_rank(comm, cfg) -> dict:
+def _train_rec_mesh_rank(comm, cfg, batch, n) -> dict:
     """:func:`_train_rec_run` of ``cfg`` on a (1, 1) mesh: the world-1
     rank on the card (NCCL)."""
-    return _train_rec_run(cfg, (1, 1))
+    return _train_rec_run(cfg, (1, 1), batch, n)
 
 
-def phase_main_train_rec_mesh(label: str, cfg, base=None) -> dict:
-    """main-train-rwkv-mesh or main-train-zamba-mesh: ``cfg``'s first
-    TRAIN_REC_MESH_STEPS steps on a (1, 1) mesh in ``run_ranks(world=1)``
-    on the card (:func:`_train_rec_run`), held against ``base``: the
-    unmeshed run of the same model, seed, batches and schedule, main-train-
-    zamba's ``"run"`` (its first steps), or where None the same steps on
-    one device run here (rwkv6, whose meshed run is cut in depth).  Gates:
+def phase_main_train_rec_mesh(label: str, cfg, base=None,
+                              batch=(TRAIN_REC_B, TRAIN_S),
+                              n: int = TRAIN_REC_MESH_STEPS) -> dict:
+    """main-train-rwkv-mesh, main-train-zamba-mesh, main-train-vlm-mesh or
+    main-train-whisper-mesh: ``cfg``'s first ``n`` steps of ``batch`` on a
+    (1, 1) mesh in ``run_ranks(world=1)`` on the card
+    (:func:`_train_rec_run`), held against ``base``: the unmeshed run of
+    the same model, seed, batches and schedule, its phase's ``"run"`` (its
+    first steps), or where None the same steps on one device run here
+    (rwkv6, whose meshed run is cut in depth).  Gates:
     the meshed run's losses and gradient norms bit for bit the unmeshed
     run's first steps, its launches a step the same (the scans on the
     tensor-core routes both ways), no plain call, its peak within
@@ -6091,12 +6289,11 @@ def phase_main_train_rec_mesh(label: str, cfg, base=None) -> dict:
     copies apart."""
     t0 = time.perf_counter()
     if base is None:
-        base = _train_rec_run(cfg)
-    r = comm_lib.run_ranks(_train_rec_mesh_rank, (cfg,), world=1,
+        base = _train_rec_run(cfg, None, batch, n)
+    r = comm_lib.run_ranks(_train_rec_mesh_rank, (cfg, batch, n), world=1,
                            store_dir=STORE_DIR, device="cuda")[0]
     if torch.distributed.is_initialized():
         raise AssertionError(f"{label}: a process group was left")
-    n = TRAIN_REC_MESH_STEPS
     for k in ("losses", "grad_norms"):
         if r[k] != base[k][:n]:
             raise AssertionError(f"{label}: {k} {r[k]}; unmeshed "
@@ -6119,7 +6316,7 @@ def phase_main_train_rec_mesh(label: str, cfg, base=None) -> dict:
     log(f"{label}: {cfg.name} ({cfg.n_layers} layers) through Trainer(mesh="
         f"make_debug_mesh(1, 1)) in run_ranks(world=1, NCCL), groups of "
         f"{r['groups']}, beside the unmeshed run's first {n} steps (of "
-        f"{base['steps']}), steps of {TRAIN_REC_B} x {TRAIN_S} each "
+        f"{base['steps']}), steps of {batch[0]} x {batch[1]} each "
         f"({r['wall']:.1f} s / {base['wall']:.1f} s): losses {r['losses']}, "
         f"grad norms {r['grad_norms']}: bit for bit the unmeshed run's; "
         f"launches a step {per_step} = the unmeshed run's; a "
@@ -6865,80 +7062,95 @@ def phase_timing_train(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     mcfg = get_config(MOE_ARCH)
     zcfg = get_config(TRAIN_ZAMBA_ARCH)
+    vcfg = get_config(TRAIN_VLM_ARCH)
+    wcfg = get_config(TRAIN_WHISPER_ARCH)
+    (vb, vs), (wb, ws) = TRAIN_VLM_BATCH, TRAIN_WHISPER_BATCH
     # gemma3's D 256 at B 1 and at main-train-gemma3's B 4 (windowed and
-    # global): both routes, the CUDA-core one asked for by tensor_cores=False
-    for label, (B, S, Hq, Hkv, D, window) in (
+    # global): both routes, the CUDA-core one asked for by
+    # tensor_cores=False; main-train-whisper's encoder (non-causal: SDPA
+    # with no mask) and decoder, main-train-vlm's
+    for label, (B, S, Hq, Hkv, D, window, causal) in (
             ("train", (TRAIN_B, TRAIN_S, tcfg.n_heads, tcfg.n_kv_heads,
-                       tcfg.head_dim, None)),
+                       tcfg.head_dim, None, True)),
             ("gemma3", (1, 2048, gcfg.n_heads, gcfg.n_kv_heads,
-                        gcfg.head_dim, gcfg.local_window)),
+                        gcfg.head_dim, gcfg.local_window, True)),
             ("gemma3_b4", (TRAIN_B, TRAIN_S, gcfg.n_heads, gcfg.n_kv_heads,
-                           gcfg.head_dim, gcfg.local_window)),
+                           gcfg.head_dim, gcfg.local_window, True)),
             ("gemma3_b4_global", (TRAIN_B, TRAIN_S, gcfg.n_heads,
-                                  gcfg.n_kv_heads, gcfg.head_dim, None)),
+                                  gcfg.n_kv_heads, gcfg.head_dim, None,
+                                  True)),
             ("train_moe", (TRAIN_MOE_B, TRAIN_S, mcfg.n_heads,
-                           mcfg.n_kv_heads, mcfg.head_dim, None)),
+                           mcfg.n_kv_heads, mcfg.head_dim, None, True)),
             ("train_zamba", (TRAIN_REC_B, TRAIN_S, zcfg.n_heads,
-                             zcfg.n_kv_heads, zcfg.head_dim, None))):
+                             zcfg.n_kv_heads, zcfg.head_dim, None, True)),
+            ("train_whisper_enc", (wb, wcfg.n_audio_frames, wcfg.n_heads,
+                                   wcfg.n_kv_heads, wcfg.head_dim, None,
+                                   False)),
+            ("train_whisper_dec", (wb, ws, wcfg.n_heads, wcfg.n_kv_heads,
+                                   wcfg.head_dim, None, True)),
+            ("train_vlm", (vb, vs, vcfg.n_heads, vcfg.n_kv_heads,
+                           vcfg.head_dim, None, True))):
         q, g = (torch.randn(B, S, Hq, D, device=dev).to(bf16)
                 for _ in range(2))
         k, v = (torch.randn(B, S, Hkv, D, device=dev).to(bf16)
                 for _ in range(2))
+        kw = dict(causal=causal, window=window)
         tc = backward_tensor_core_route(q)
-        o, lse = (flash_attention_cuda(q, k, v, window=window, with_lse=True)
-                  if tc else (ops.flash_attention(q, k, v, window=window),
-                              None))
+        o, lse = (flash_attention_cuda(q, k, v, with_lse=True, **kw)
+                  if tc else (ops.flash_attention(q, k, v, **kw), None))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        plain_out = flash_attention_plain(*leaves, window=window)
+        plain_out = flash_attention_plain(*leaves, **kw)
         lib_leaves = [t.detach().clone().requires_grad_(True)
                       for t in (q, k, v)]
-        mask = sdpa_mask(S, window, dev)
+        mask = sdpa_mask(S, window, dev) if causal else None
         lib_out = F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in lib_leaves), attn_mask=mask,
             enable_gqa=True)
         gt = g.transpose(1, 2)
-        pairs = window_pairs(S, window)
+        pairs = window_pairs(S, window) if causal else S * S
         b, by = bound((2 * q.numel() + 2 * k.numel() + 2 * v.numel()
                        + 2 * o.numel()) * 2, 10 * D * Hq * B * pairs, bf16)
-        if window is None:
+        global_causal = causal and window is None
+        if global_causal:
             causal_leaves = [t.detach().clone().requires_grad_(True)
                              for t in (q, k, v)]
             causal_out = F.scaled_dot_product_attention(
                 *(t.transpose(1, 2) for t in causal_leaves), is_causal=True,
                 enable_gqa=True)
         t = {"kernel": queued_ms(lambda: flash_attention_bwd_cuda(
-                 q, k, v, o, g, window=window, lse=lse), iters=5),
+                 q, k, v, o, g, lse=lse, **kw), iters=5),
              "plain": queued_ms(lambda: torch.autograd.grad(
                  plain_out, leaves, g, retain_graph=True), iters=5),
              "library": queued_ms(lambda: torch.autograd.grad(
                  lib_out, lib_leaves, gt, retain_graph=True))}
-        if window is None:
+        if global_causal:
             t["library_causal"] = queued_ms(lambda: torch.autograd.grad(
                 causal_out, causal_leaves, gt, retain_graph=True))
             del causal_leaves, causal_out
         if D == 256:
             t["cuda_core"] = queued_ms(lambda: flash_attention_bwd_cuda(
-                q, k, v, o, g, window=window, tensor_cores=False), iters=3)
+                q, k, v, o, g, tensor_cores=False, **kw), iters=3)
         out["flash_attention_bwd"][label] = {
-            "shape": [B, S, Hq, Hkv, D, True, window], "ms": t["kernel"],
+            "shape": [B, S, Hq, Hkv, D, causal, window], "ms": t["kernel"],
             "plain_ms": t["plain"], "library_ms": t["library"],
             "bound_ms": b, "bound_by": by,
             "cores": "tensor" if tc else "CUDA", "card": smi,
             **({"library_causal_ms": t["library_causal"]}
-               if window is None else {}),
+               if global_causal else {}),
             **({"cuda_core_ms": t["cuda_core"]} if D == 256 else {})}
         causal_lib = (f", SDPA's backward with is_causal "
-                      f"{t['library_causal']:.4f} ms" if window is None
+                      f"{t['library_causal']:.4f} ms" if global_causal
                       else "")
         cuda_core = (f" (the CUDA-core route, asked for: "
                      f"{t['cuda_core']:.4f} ms, "
                      f"{t['cuda_core'] / t['kernel']:.2f}x)"
                      if D == 256 else "")
+        lib = "same mask" if causal else "no mask"
         log(f"timing flash_attention_bwd {label} [B={B} S={S} Hq={Hq} "
-            f"Hkv={Hkv} D={D} window={window} bf16, "
+            f"Hkv={Hkv} D={D} causal={causal} window={window} bf16, "
             f"{'tensor' if tc else 'CUDA'}-core route; {smi}]: device kernel "
             f"{t['kernel']:.4f} ms{cuda_core}, plain (autograd, float32) "
-            f"{t['plain']:.4f} ms, SDPA's backward (same mask) "
+            f"{t['plain']:.4f} ms, SDPA's backward ({lib}) "
             f"{t['library']:.4f} ms{causal_lib}, bound {b:.4f} ms ({by}; its "
             f"operations: 5 products of the forward's size)")
         del q, k, v, g, o, lse, leaves, plain_out, lib_leaves, lib_out
@@ -7286,6 +7498,20 @@ def main() -> int:
         dev, "main-train-gemma3", get_config(GEMMA_ARCH).replace(
             n_layers=TRAIN_GEMMA_LAYERS), TRAIN_GEMMA_STEPS)
     t_gemma = time.perf_counter() - t_gemma
+    # llava and whisper training (ROADMAP A13b item 5), each followed by
+    # its (1, 1) mesh twin
+    t_mm_train = time.perf_counter()
+    mm_train = {}
+    for label, cfg, batch in (
+            ("main-train-vlm", get_config(TRAIN_VLM_ARCH).replace(
+                n_layers=TRAIN_VLM_LAYERS), TRAIN_VLM_BATCH),
+            ("main-train-whisper", get_config(TRAIN_WHISPER_ARCH),
+             TRAIN_WHISPER_BATCH)):
+        run = phase_main_train(dev, label, cfg, TRAIN_MM_STEPS, batch)
+        run["mesh"] = phase_main_train_rec_mesh(
+            f"{label}-mesh", cfg, run["run"], batch, TRAIN_MM_MESH_STEPS)
+        mm_train[label] = run
+    t_mm_train = time.perf_counter() - t_mm_train
     train_times = phase_timing_train(dev, smi)
     t_rec_timing = time.perf_counter()
     rec_times = phase_timing_train_recurrent(dev, smi)
@@ -7296,7 +7522,8 @@ def main() -> int:
         f"({t_rec_mesh:.1f} s), "
         f"main-train-mesh and pod-dp ({t_mesh:.1f} s), main-train-dots and "
         f"main-train-moe ({t_moe:.1f} s), main-gemma3, main-train-gemma3 "
-        f"({t_gemma:.1f} s), timing-train) took "
+        f"({t_gemma:.1f} s), main-train-vlm and main-train-whisper with "
+        f"their mesh twins ({t_mm_train:.1f} s), timing-train) took "
         f"{time.perf_counter() - t_new:.1f} s")
     # parity at the shapes the phases served and trained at
     for name in ("rwkv6_scan_bwd", "ssd_scan_bwd"):
@@ -7304,7 +7531,7 @@ def main() -> int:
     for name, e in rank_errs.items():
         errs[name] = max(errs.get(name, 0.0), e)
     for r in (*mm.values(), train, train_moe, gemma, train_zamba,
-              train_gemma):
+              train_gemma, *mm_train.values()):
         for name, e in r["errs"].items():
             errs[name] = max(errs.get(name, 0.0), e)
     times["flash_attention"]["gemma3"] = {
@@ -7395,6 +7622,30 @@ def main() -> int:
     times["flash_attention_bwd"]["train_gemma3_step"] = {
         k: train_gemma[k] for k in ("host_ms", "device_ms", "peak",
                                     "state_bytes", "losses")}
+    # main-train-vlm's and main-train-whisper's: B3 both ways (and llava's
+    # B2), their steps and their mesh twins' launches
+    for key, label in (("train_vlm", "main-train-vlm"),
+                       ("train_whisper", "main-train-whisper")):
+        run = mm_train[label]
+        for name, keys in (
+                ("flash_attention", ("flash_attention",
+                                     "flash_attention_tc")),
+                ("flash_attention_bwd", ("flash_attention_bwd",
+                                         "flash_attention_bwd_tc")),
+                ("rmsnorm", ("rmsnorm", "rmsnorm_add")),
+                ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_add_bwd"))):
+            got = {k: run["launches"][k] for k in keys
+                   if k in run["launches"]}
+            if got:
+                times[name][f"{key}_launches"] = {
+                    **got, "mesh_twin": {k: run["mesh"]["launches"].get(k, 0)
+                                         for k in got}}
+        times["flash_attention_bwd"][f"{key}_step"] = {
+            **{k: run[k] for k in ("host_ms", "device_ms", "peak",
+                                   "state_bytes", "losses", "tokens")},
+            "by_kind": run["windows"],
+            "mesh_twin": {k: run["mesh"][k] for k in (
+                "host_ms", "device_ms", "peak", "nccl_ms", "copy_ms")}}
     times["paged_attention_mq"]["verify_launches"] = {
         f"W{W}": n for W, n in widths.items()}
     times["paged_attention_mq_int8"]["verify_launches"] = {
@@ -7476,7 +7727,9 @@ def main() -> int:
                 "train_zamba_launches", "train_step_ms", "train_device_ms",
                 "plain_shape", "card", "cuda_core_ms",
                 "train_gemma3_launches", "train_gemma3_step",
-                "rank_shapes", "rec_mesh_launches") if k in t}})
+                "rank_shapes", "rec_mesh_launches", "train_vlm_launches",
+                "train_whisper_launches", "train_vlm_step",
+                "train_whisper_step") if k in t}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

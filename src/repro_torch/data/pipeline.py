@@ -1,5 +1,5 @@
-"""Deterministic synthetic data: the reference's ``repro.data.pipeline``
-for the token families, bit for bit.
+"""Deterministic synthetic data: the reference's ``repro.data.pipeline``,
+bit for bit in its tokens and labels.
 
 Batch ``i`` is a pure function of ``(seed, i)``: restoring a checkpoint at
 step ``i`` reproduces the stream with no loader state to save.  Tokens
@@ -16,8 +16,15 @@ device in one copy.  With a mesh each rank cuts its own block of every
 leaf on the host (the batch specs' ``("batch", "seq")`` through the
 mesh's rules: rows over ``"data"``, or ``("pod", "data")`` on two pods,
 and positions over ``"model"``) and moves only that: the whole batch never
-reaches a device.  The VLM and audio batches (precomputed image and frame
-embeddings) come with those families' training, ROADMAP A13b.
+reaches a device.
+
+The modality frontends are stubs, as in the reference: a VLM batch carries
+precomputed image-patch embeddings in front of its text, an audio batch
+precomputed frame embeddings, each ``sin(cls * 0.1 + i * 0.01 + j *
+0.05)`` of a class id drawn a row (at row ``i``, channel ``j``), so they
+are informative features, not noise.  The float32 sum is the reference's,
+in its order; ``torch.sin`` and ``jnp.sin`` differ by at most one float32
+ulp on the CPU.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.mesh.axes import AxisRules, logical_to_mesh
-from repro_torch.models.module import shard_leaf
+from repro_torch.models.module import shard_leaf, torch_dtype
 from repro_torch.serve import prng
 
 
@@ -54,17 +61,42 @@ class SyntheticTask:
             toks[:, t] = prev
         return toks.to(torch.int32)
 
-    def batch_at(self, step: int) -> dict:
-        """Pure function (seed, step) -> ``{"tokens", "labels"}`` (B, S)
-        int32 on the host."""
+    def _features(self, key, n: int) -> torch.Tensor:
+        """(B, n, d) embeddings of a class id a row drawn from
+        ``fold_in(key, 1)``, in the config's compute dtype."""
         cfg = self.cfg
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.family} training batches come with "
-                "ROADMAP A13b")
+        cls = prng.randint(prng.fold_in(key, 1), (self.batch, 1, 1), 0, 64)
+        x = (cls.to(torch.float32) * 0.1
+             + torch.arange(n)[None, :, None] * 0.01
+             + torch.arange(cfg.d_model)[None, None, :] * 0.05)
+        return torch.sin(x).to(torch_dtype(cfg.dtype))
+
+    def batch_at(self, step: int) -> dict:
+        """Pure function (seed, step) -> the batch on the host: int32
+        ``{"tokens", "labels"}`` (B, S); a VLM's tokens are its S - I
+        text positions after ``"image_embeds"`` (B, I, d), and its labels'
+        first I are -1 (not scored); an audio batch adds ``"frames"`` (B,
+        F, d)."""
+        cfg = self.cfg
         key = prng.fold_in(prng.PRNGKey(self.seed), step)
-        toks = self._chain(key, self.batch, self.seq_len + 1, cfg.vocab)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        B = self.batch
+        if cfg.family == "vlm":
+            I = cfg.n_image_tokens
+            if self.seq_len <= I:
+                raise ValueError(
+                    f"{cfg.name}: seq_len={self.seq_len} counts the {I} "
+                    "image rows and must exceed them (--seq)")
+            toks = self._chain(key, B, self.seq_len - I + 1, cfg.vocab)
+            labels = torch.cat([torch.full((B, I), -1, dtype=torch.int32),
+                                toks[:, 1:]], dim=1)
+            return {"tokens": toks[:, :-1],
+                    "image_embeds": self._features(key, I),
+                    "labels": labels}
+        toks = self._chain(key, B, self.seq_len + 1, cfg.vocab)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "audio":
+            batch["frames"] = self._features(key, cfg.n_audio_frames)
+        return batch
 
 
 def make_batch_fn(task: SyntheticTask, mesh=None,

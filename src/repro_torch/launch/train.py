@@ -9,8 +9,12 @@
 
 ``--smoke`` trains the small config; without it the full-width config
 trains on the card (float32 weights and AdamW moments, the config's
-compute dtype, ``remat`` full).  The synthetic batches are the
-reference's bit for bit (:mod:`repro_torch.data`).
+compute dtype, ``remat`` full).  Every registered arch trains: the dense
+and MoE decoders, llava (``--seq`` counts its image rows: 2880 of them at
+full width, so ``--seq`` must exceed that), rwkv6, zamba2 and whisper
+(each row a clip of ``n_audio_frames`` frames and ``--seq`` decoder
+tokens).  The synthetic batches are the reference's (:mod:`repro_torch.
+data`).
 
 ``--mesh debug|single|multi`` runs the same train body on every rank of a
 ``run_ranks`` world (the ranks meet through a file store in

@@ -355,15 +355,68 @@ class VLM(DecoderLM):
     :meth:`DecoderLM.paged_prefill_chunk` takes from ``embeds``."""
 
     def loss(self, params, batch: dict, mesh=None):
-        """Refused: training with image prefixes comes with ROADMAP A13b."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: VLM training (image-prefix batches) comes "
-            "with ROADMAP A13b")
+        """Next-token loss of ``batch`` ``{"tokens" (B, S - I),
+        "image_embeds" (B, I, d), "labels" (B, S)}`` -> ``(loss, {"ce",
+        "aux", "tokens"})``: the image rows in front of the text's
+        embeddings, then the decoder's loss (:func:`repro_torch.models.
+        transformer.lm_loss`); the labels of the image rows are -1.
+        ``mesh``: a :class:`repro_torch.mesh.grad_comm.TrainMesh`, the
+        batch's leaves this rank's blocks (:meth:`_train_embeds`)."""
+        return T.lm_loss(params, self.cfg, labels=batch["labels"],
+                         inputs_embeds=self._train_embeds(params, batch,
+                                                          mesh),
+                         mesh=mesh)
+
+    def _train_embeds(self, params, batch, mesh=None):
+        """The training input (B, S, d) in the compute dtype: the image rows
+        then the text's embeddings.  On a ``mesh`` each leaf arrives cut by
+        its own spec, so a rank's image block and text block together are
+        not its block of their concatenation: both are gathered over the
+        sequence's axis (inputs, no gradient), the rank's block ``[i S / n,
+        (i + 1) S / n)`` of the image-then-text sequence is cut from them,
+        and only its text rows are embedded (the table gathered, as
+        :func:`repro_torch.models.transformer.embed_train` does on every
+        rank).  ``ValueError`` where the image rows or the text do not
+        split over the sequence's ``n`` blocks."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        img, toks = batch["image_embeds"], batch["tokens"]
+        if mesh is None:
+            return torch.cat([img.to(dtype),
+                              T.embed_train(params, toks, dtype)], dim=1)
+        i, n = mesh.seq_block()
+        I = cfg.n_image_tokens
+        s = batch["labels"].shape[1]
+        bad = [f"{what}={m}" for what, m in (("n_image_tokens", I),
+                                             ("text tokens", s * n - I))
+               if m % n]
+        if bad:
+            raise ValueError(
+                f"{cfg.name}: {', '.join(bad)} do not split over the {n} "
+                "sequence blocks: a rank's block of the image-then-text "
+                "sequence is cut from whole image and text blocks")
+        img, toks = mesh.gather_seq(img, toks)
+        lo, hi = i * s, (i + 1) * s
+        txt = toks[:, max(lo, I) - I:max(hi, I) - I]
+        return torch.cat([img[:, lo:min(hi, I)].to(dtype),
+                          T.embed_train(params, txt, dtype, mesh)], dim=1)
 
     def train_batch_specs(self, shape) -> dict:
-        """Refused with :meth:`loss`."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: VLM training batches come with ROADMAP A13b")
+        """:class:`ArraySpec` of each training-batch key at ``shape``'s
+        ``global_batch`` x ``seq_len`` (the image rows count in the
+        sequence): tokens (B, S - I), image_embeds (B, I, d) in the compute
+        dtype, labels (B, S), the reference's logical specs."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        I = cfg.n_image_tokens
+        assert S > I, (S, I)
+        return {
+            "tokens": ArraySpec((B, S - I), torch.int32, ("batch", "seq")),
+            "image_embeds": ArraySpec((B, I, cfg.d_model),
+                                      torch_dtype(cfg.dtype),
+                                      ("batch", "seq", None)),
+            "labels": ArraySpec((B, S), torch.int32, ("batch", "seq")),
+        }
 
     def _embeds(self, params, batch):
         txt = T.embed_tokens(params, batch["tokens"],
@@ -592,6 +645,29 @@ class Whisper:
     # the decoder-only model's: random weights (the LayerNorms in float32,
     # as declared), int8 ones quantized as they are drawn
     init = DecoderLM.init
+
+    # -- training ---------------------------------------------------------------
+
+    def loss(self, params, batch: dict, mesh=None):
+        """Next-token loss of ``batch`` ``{"frames" (B, F, d), "tokens",
+        "labels" (B, S)}`` -> ``(loss, {"ce", "tokens"})``: the clips
+        encoded, the decoder teacher-forced over them
+        (:func:`repro_torch.models.whisper.loss`).  ``mesh``: a
+        :class:`repro_torch.mesh.grad_comm.TrainMesh` (this rank's shards,
+        its rows' whole clips and its block of the tokens)."""
+        return W.loss(params, self.cfg, batch["frames"], batch["tokens"],
+                      batch["labels"], mesh=mesh)
+
+    def train_batch_specs(self, shape) -> dict:
+        """:class:`ArraySpec` of each training-batch key at ``shape``'s
+        ``global_batch`` x ``seq_len``: frames (B, F, d) in the compute
+        dtype, every frame on every rank of a row (``"frames"`` maps to no
+        mesh axis), tokens and labels (B, S)."""
+        cfg = self.cfg
+        return {"frames": ArraySpec(
+                    (shape.global_batch, cfg.n_audio_frames, cfg.d_model),
+                    torch_dtype(cfg.dtype), ("batch", "frames", None)),
+                **_token_batch_specs(shape)}
 
     def supports_paged_decode(self) -> bool:
         """True: the decoder's self-attention cache pages."""

@@ -145,18 +145,44 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: Optional[int],
     return mask
 
 
+def _bmm_f32(a, b):
+    """The float32 result of the product of a bf16 pair on a card (cuBLAS
+    accumulates in float32), over leading batch axes."""
+    batch = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                    b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+    return out.reshape(*batch, *out.shape[-2:])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_bmm_f32` with a gradient (torch's ``bmm`` with ``out_dtype``
+    has none): the float32 cotangent taken to the operands' dtype, each
+    operand's gradient a product in it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gc = g.to(a.dtype)
+        return gc @ b.transpose(-1, -2), a.transpose(-1, -2) @ gc
+
+
 def _matmul_f32(a, b):
     """``a @ b`` over leading batch axes, accumulated and returned in
     float32: the reference's ``preferred_element_type``.  A bf16 pair on a
-    card asks cuBLAS for the float32 result of the bf16 product; the CPU
-    has no such product, so there both operands are widened first."""
+    card asks cuBLAS for the float32 result of the bf16 product (through
+    :class:`_MatmulF32` where autograd tracks it); the CPU has no such
+    product, so there both operands are widened first."""
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        batch = a.shape[:-2]
-        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
-                        b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
-        return out.reshape(*batch, *out.shape[-2:])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        return _bmm_f32(a, b)
     return a.float() @ b.float()
 
 

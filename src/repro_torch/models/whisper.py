@@ -8,8 +8,27 @@ self-attention, cross-attention over the encoder output, LayerNorm (eps
 1e-5, population variance, float32 scale and bias) and biased tanh-GELU
 MLPs; whisper's attention has q and v biases and no k bias.  Params keep
 the reference's keys and shapes (``enc_blocks`` / ``dec_blocks`` stacked
-on a leading layer axis).  Training's ``decode_train`` and ``loss`` come
-with ROADMAP A13b.
+on a leading layer axis).
+
+Training (:func:`encode_train`, :func:`decode_train`, :func:`loss`, the
+reference's) runs the encoder over whole clips and the decoder
+teacher-forced over whole token sequences, each block cast to the compute
+dtype from the ``param_dtype`` weights (the LayerNorms' float32 leaves
+kept) and recomputed in the backward pass under ``cfg.remat``.  The
+encoder's and the decoder's self-attention go to B3 (non-causal and
+causal), forward and backward; the cross read stays the reference's plain
+route (:func:`cross_attention` over every frame), its gradient autograd's.
+Each decoder layer makes its cross K/V of the encoder output inside its
+recomputed body, as the reference's ``_cross_kv`` does.  Over a training
+mesh (``mesh=``, a :class:`repro_torch.mesh.grad_comm.TrainMesh`) a rank
+runs its rows: the encoder over every frame (``"frames"`` is not split,
+so each rank of ``"model"`` encodes its rows whole), the decoder over its
+block of positions (sinusoidal positions offset by the block, self K/V
+gathered over the sequence's axis, B3 with a query offset), the cross
+read of its queries against the whole encoder output.  A layer's weights
+are gathered inside its body and their gradients reduce-scattered: the
+encoder's gradient on each rank of ``"model"`` carries only its own
+decoder block's cotangent, and their sum is the whole gradient.
 
 Serving runs through the paged engine: the decoder's self-attention K/V
 page like a decoder-only LM's (B1, the paged-attention kernel, at G 1),
@@ -48,7 +67,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.module import Param, torch_dtype
+from repro_torch.models.module import Param, torch_dtype, tree_map
 from repro_torch.optim.compress import int8_decompress
 from repro_torch.serve import pages as PG
 from repro_torch.serve import quant as QZ
@@ -476,3 +495,92 @@ def decode_step(params, cfg, state, tokens, pos):
                        state["cross_k"][i], state["cross_v"][i], cfg)
         x = _layernorm_mlp(p, x)
     return T.lm_logits(params, L.layernorm(params["dec_norm"], x))
+
+
+# ---------------------------------------------------------------------------
+# Training (the reference's encode / decode_train / loss)
+# ---------------------------------------------------------------------------
+
+def _self_attn_train(p, h, mesh=None):
+    """The decoder's causal self-attention over a training block: B3 over
+    every key up to its last query (on a ``mesh`` the keys gathered over the
+    sequence's axis, the queries offset by the block)."""
+    q = _q(p, h)
+    k, v = _kv(p, h)
+    off = 0
+    if mesh is not None:
+        k, v, off = mesh.attention_kv(k, v)
+    return _out(p, ops.flash_attention(q, k, v, causal=True, q_offset=off))
+
+
+def _cross_train(p, h, enc_out):
+    """One decoder layer's cross-attention in training: its cross K/V made
+    of the whole encoder output, then the plain read over every frame."""
+    k, v = _kv(p, enc_out)
+    full = torch.full((enc_out.shape[0],), enc_out.shape[1],
+                      device=enc_out.device)
+    return _out(p, cross_attention(_q(p, h), k, v, full))
+
+
+def _stack_specs(mesh, name: str):
+    """A stacked tree's per-layer mesh specs (None without a mesh)."""
+    if mesh is None:
+        return None
+    return tree_map(lambda s: s[1:], mesh.gather_specs[name])
+
+
+def encode_train(params, cfg, frames, mesh=None):
+    """The training encoder over the ``param_dtype`` weights: frames (B, F,
+    d) -> the encoder output (B, F, d) in the compute dtype, every layer's
+    attention B3 over the whole clip, each block recomputed in the backward
+    pass under ``cfg.remat``.  ``mesh``: the rank's rows, every frame."""
+    dtype = torch_dtype(cfg.dtype)
+    defs, specs = _enc_block_def(cfg), _stack_specs(mesh, "enc_blocks")
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    x = frames.to(dtype) + L.sinusoidal_pos(positions,
+                                            cfg.d_model).to(dtype)
+    for i in range(cfg.n_layers):
+        def body(x, p=T._layer(params["enc_blocks"], i)):
+            p = T.block_params(p, dtype, defs, mesh, specs)
+            x = x + _enc_attn(p["attn"], L.layernorm(p["ln1"], x))
+            return _layernorm_mlp(p, x)
+        x = T._remat(body, cfg.remat)(x)
+    return L.layernorm(params["enc_norm"], x)
+
+
+def decode_train(params, cfg, tokens, enc_out, mesh=None):
+    """The teacher-forced decoder over the ``param_dtype`` weights: tokens
+    (B, S) and the encoder output (B, F, d) -> the final hidden states (B,
+    S, d) in the compute dtype.  ``mesh``: ``tokens`` are the rank's block
+    of positions (B / dp rows, S / tp positions), ``enc_out`` its rows'
+    whole encoder output."""
+    dtype = torch_dtype(cfg.dtype)
+    defs, specs = _dec_block_def(cfg), _stack_specs(mesh, "dec_blocks")
+    off = 0 if mesh is None else mesh.seq_block()[0] * tokens.shape[1]
+    x = T.embed_train(params, tokens, dtype, mesh)
+    positions = off + torch.arange(x.shape[1], device=x.device)
+    x = x + L.sinusoidal_pos(positions, cfg.d_model).to(dtype)
+    for i in range(cfg.decoder_layers):
+        def body(x, enc_out, p=T._layer(params["dec_blocks"], i)):
+            p = T.block_params(p, dtype, defs, mesh, specs)
+            x = x + _self_attn_train(p["self_attn"],
+                                     L.layernorm(p["ln1"], x), mesh)
+            x = x + _cross_train(p["cross_attn"], L.layernorm(p["ln_x"], x),
+                                 enc_out)
+            return _layernorm_mlp(p, x)
+        x = T._remat(body, cfg.remat)(x, enc_out)
+    return L.layernorm(params["dec_norm"], x)
+
+
+def loss(params, cfg, frames, tokens, labels, loss_chunks: int = 8,
+         mesh=None):
+    """``(ce, {"ce", "tokens"})``: the mean next-token cross-entropy of the
+    teacher-forced decoder over the encoded clips (the logits in float32,
+    a sequence chunk at a time: :func:`repro_torch.models.transformer.
+    loss_from_hidden`); on a ``mesh`` the rank's block scored and the loss
+    the global mean."""
+    enc_out = encode_train(params, cfg, frames, mesh)
+    hidden = decode_train(params, cfg, tokens, enc_out, mesh)
+    ce, cnt = T.loss_from_hidden(T.unembed_train(params, mesh), hidden,
+                                 labels, cfg, loss_chunks, mesh)
+    return ce, {"ce": ce, "tokens": cnt}

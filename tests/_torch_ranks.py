@@ -891,31 +891,38 @@ def first_step_grads(finish):
         S.adamw_update = inner
 
 
-def _rec_case(mesh, arch, weights) -> dict:
-    """One mesh's checks of ``arch``: five trainer steps, the first
-    step's loss and every gradient leaf gathered whole."""
+def _trainer_case(mesh, model, task, specs, weights, steps: int) -> dict:
+    """``steps`` trainer steps of ``model`` on ``mesh`` from its bridged
+    ``weights`` and ``task``'s batches cut by ``specs``; the first step's
+    loss and every gradient leaf gathered whole (rank 0 keeps them)."""
     from repro_torch.bridge import params_from_numpy
     from repro_torch.data import make_data_iter
     from repro_torch.mesh.axes import rules_for_mesh
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train.step import train_mesh
-    model = rec_model(arch)
     rules = rules_for_mesh(mesh)
     tm = train_mesh(model, mesh, rules)
     keep = mesh.world.rank() == 0
     params = params_from_numpy(weights, device="cpu",
                                defs=model.param_defs())
     tr = Trainer(model, AdamWConfig(**TRAIN_OPT5),
-                 TrainerConfig(steps=5, log_every=100),
-                 make_data_iter(rec_task(model.cfg), mesh, rules,
-                                _rec_specs(model), device="cpu"),
+                 TrainerConfig(steps=steps, log_every=100),
+                 make_data_iter(task, mesh, rules, specs, device="cpu"),
                  mesh=mesh, rules=rules, device="cpu", params=params,
                  log=lambda s: None)
     with first_step_grads(lambda g: _gathered(g, tm.specs, mesh,
                                               keep)) as first:
         history = tr.fit()["history"]
     return {"history": history, "grads": first["grads"]}
+
+
+def _rec_case(mesh, arch, weights) -> dict:
+    """One mesh's checks of ``arch``: five trainer steps, the first
+    step's loss and every gradient leaf gathered whole."""
+    model = rec_model(arch)
+    return _trainer_case(mesh, model, rec_task(model.cfg), _rec_specs(model),
+                         weights, 5)
 
 
 def recurrent_mesh(comm, weights) -> dict:
@@ -939,18 +946,18 @@ def recurrent_mesh(comm, weights) -> dict:
 def recurrent_world_one(comm, weights, arch) -> dict:
     """``arch`` at bf16 compute (float32 weights), one step's loss and
     gradients on one device and on a (1, 1) mesh of this one rank, each
-    leaf's bits: the layout the card's world-1 phases run.  One thread
-    (restored after): the caller's process runs it, beside other test
-    processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _recurrent_world_one(weights, arch)
-    finally:
-        torch.set_num_threads(threads)
+    leaf's bits: the layout the card's world-1 phases run."""
+    model = rec_model(arch)
+    model.cfg = model.cfg.replace(dtype="bfloat16")
+    return _world_one(model, rec_task(model.cfg), _rec_specs(model), weights)
 
 
-def _recurrent_world_one(weights, arch) -> dict:
+def _world_one(model, task, specs, weights) -> dict:
+    """One step's ``[loss, *gradient leaves]`` of ``model`` on
+    ``task``'s batch 0 from its bridged ``weights``, on one device
+    (``False``) and on a (1, 1) mesh of this one rank (``True``).  One
+    thread (restored after): the caller's process runs it, beside other
+    test processes."""
     from repro_torch.bridge import params_from_numpy
     from repro_torch.core.comm import make_mesh
     from repro_torch.data import make_batch_fn
@@ -959,26 +966,77 @@ def _recurrent_world_one(weights, arch) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import create_train_state
     from repro_torch.train.step import make_grads_fn, train_mesh
-    model = rec_model(arch)
-    model.cfg = model.cfg.replace(dtype="bfloat16")
-    mesh = make_mesh((1, 1), DM)
-    rules = rules_for_mesh(mesh)
-    tm = train_mesh(model, mesh, rules)
-    task = rec_task(model.cfg)
-    specs = _rec_specs(model)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        mesh = make_mesh((1, 1), DM)
+        rules = rules_for_mesh(mesh)
+        tm = train_mesh(model, mesh, rules)
+        out = {}
+        for meshed in (False, True):
+            params = params_from_numpy(weights, device="cpu",
+                                       defs=model.param_defs())
+            if meshed:
+                params = create_train_state(
+                    model, 0, AdamWConfig(**TRAIN_OPT5), mesh, rules,
+                    device="cpu", params=params)["params"]
+                batch = make_batch_fn(task, mesh, rules, specs)(0)
+                loss, _, grads = make_grads_fn(model, tm)(params, batch)
+                tm.finish_grads(grads)
+            else:
+                params = tree_map(lambda t: t.requires_grad_(True), params)
+                loss, _, grads = make_grads_fn(model)(params,
+                                                      task.batch_at(0))
+            out[meshed] = [loss] + list(tree_leaves(grads))
+        return out
+    finally:
+        torch.set_num_threads(threads)
+
+
+# -- llava and whisper training over a mesh
+# (tests/test_torch_multimodal_train.py)
+MM_ARCHS = ("llava-next-mistral-7b", "whisper-tiny")
+MM_MESH = (2, 2)
+# 4 rows of 24 positions from seed 2: llava SMOKE's 8 image rows and 16
+# text tokens, so at tp 2 the first block of 12 is 8 image rows and 4 text
+# rows (it straddles the boundary) and the second 12 text rows
+MM_B, MM_S, MM_SEED, MM_STEPS = 4, 24, 2, 3
+
+
+def mm_model(arch: str):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(smoke_config(arch))
+
+
+def mm_task(cfg):
+    from repro_torch.data import SyntheticTask
+    return SyntheticTask(cfg, batch=MM_B, seq_len=MM_S, seed=MM_SEED)
+
+
+def mm_specs(model):
+    return model.train_batch_specs(type("S", (), {
+        "global_batch": MM_B, "seq_len": MM_S})())
+
+
+def multimodal_mesh(comm, weights) -> dict:
+    """Both families' MM_STEPS trainer steps on a MM_MESH ("data",
+    "model") mesh of this world from their bridged SMOKE ``weights`` (by
+    arch), the first step's gradients gathered whole; one thread a rank."""
+    from repro_torch.core.comm import make_mesh
+    torch.set_num_threads(1)
+    mesh = make_mesh(MM_MESH, DM)
     out = {}
-    for meshed in (False, True):
-        params = params_from_numpy(weights, device="cpu",
-                                   defs=model.param_defs())
-        if meshed:
-            params = create_train_state(
-                model, 0, AdamWConfig(**TRAIN_OPT5), mesh, rules,
-                device="cpu", params=params)["params"]
-            batch = make_batch_fn(task, mesh, rules, specs)(0)
-            loss, _, grads = make_grads_fn(model, tm)(params, batch)
-            tm.finish_grads(grads)
-        else:
-            params = tree_map(lambda t: t.requires_grad_(True), params)
-            loss, _, grads = make_grads_fn(model)(params, task.batch_at(0))
-        out[meshed] = [loss] + list(tree_leaves(grads))
+    for arch in MM_ARCHS:
+        model = mm_model(arch)
+        out[arch] = _trainer_case(mesh, model, mm_task(model.cfg),
+                                  mm_specs(model), weights[arch], MM_STEPS)
     return out
+
+
+def multimodal_world_one(comm, weights, arch) -> dict:
+    """``arch`` at bf16 compute (float32 weights): :func:`_world_one`, the
+    card's world-1 layout."""
+    model = mm_model(arch)
+    model.cfg = model.cfg.replace(dtype="bfloat16")
+    return _world_one(model, mm_task(model.cfg), mm_specs(model), weights)

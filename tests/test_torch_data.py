@@ -87,8 +87,15 @@ def test_data_iter_and_host_shard():
                                  rank, 2)
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), want[k])
-    with pytest.raises(NotImplementedError, match="A13b"):
-        SyntheticTask(smoke_config("whisper-tiny"), 1, 8).batch_at(0)
+    # an audio batch: the frames (B, F, d) in the compute dtype beside the
+    # token chain (tests/test_torch_multimodal_train.py holds them against
+    # the reference's)
+    wcfg = smoke_config("whisper-tiny")
+    audio = SyntheticTask(wcfg, 1, 8).batch_at(0)
+    assert sorted(audio) == ["frames", "labels", "tokens"]
+    assert audio["frames"].shape == (1, wcfg.n_audio_frames, wcfg.d_model)
+    assert audio["frames"].dtype == torch.float32
+    assert torch.equal(audio["tokens"][:, 1:], audio["labels"][:, :-1])
     # on a mesh a rank's batch is its block: rows over "data", positions
     # over "model" (here rank (1, 1) of a (2, 2) mesh)
     rank = _At({"data": 1, "model": 1}, {"data": 2, "model": 2})

@@ -1357,7 +1357,13 @@ BWD_FLASH_CASES = [(2, 64, 4, 2, 16, True, None), (1, 100, 4, 1, 32, True, 8),
                    (1, 257, 16, 8, 128, True, None),
                    (1, 300, 8, 4, 256, True, 64),
                    (2, 77, 2, 2, 64, False, None),
-                   (1, 300, 16, 4, 128, True, 64)]
+                   (1, 300, 16, 4, 128, True, 64),
+                   # whisper's training heads (G 1, D 64): the encoder's
+                   # non-causal S 1500 (23 tiles of 64 and a ragged 28), a
+                   # ragged S 100, the decoder's causal S 448
+                   (2, 1500, 6, 6, 64, False, None),
+                   (3, 100, 6, 6, 64, False, None),
+                   (2, 448, 6, 6, 64, True, None)]
 # dq/dk/dv are sums over keys (queries) of O(1) terms: float32 within
 # 1e-4 of the largest, bf16 within 2e-2 (inputs, output and dO rounded to
 # bf16 on the card's side only)
@@ -1858,3 +1864,74 @@ def test_smoke_trainer_on_card_matches_cpu(card):
     for a, b in zip(hist["cpu"], hist["cuda"]):
         assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-3)
+
+
+
+def _mm_batch(model, B, S, dev):
+    from repro_torch.data import SyntheticTask
+    batch = SyntheticTask(model.cfg, batch=B, seq_len=S, seed=1).batch_at(0)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
+def test_multimodal_loss_and_grads_on_card_match_cpu(card, arch):
+    """float32 SMOKE llava and whisper: the loss and every gradient leaf on
+    the card (B2's and B3's kernels both ways, whisper's plain cross read)
+    against the CPU's plain route, from the same weights and batch."""
+    from repro_torch.models.module import tree_leaves
+    model = build_model(smoke_config(arch))
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", card):
+        ops.reset_counts()
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        loss, _ = model.loss(p, _mm_batch(model, 4, 24, dev))
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        out[str(dev)] = (loss.item(), [g.cpu() for g in grads])
+    assert ops.COUNTS["flash_attention_bwd"].kernel > 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    ops.reset_counts()
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    _within(gg, gc, 1e-4, f"{arch} gradients card vs CPU")
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
+def test_multimodal_bf16_step_on_tensor_cores(card, arch):
+    """One bf16 trainer step of a narrow llava and whisper at head dim 64:
+    B3 on the tensor cores both ways (llava's B2 too), whisper's cross read
+    through the float32-result product with its gradient, no plain
+    version; the loss within bf16 rounding of the CPU's, every gradient
+    finite."""
+    from repro_torch.data import make_data_iter, SyntheticTask
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    cfg = smoke_config(arch).replace(dtype="bfloat16", d_model=256,
+                                     n_heads=4, head_dim=64)
+    if arch.startswith("llava"):
+        cfg = cfg.replace(n_kv_heads=2)
+    else:
+        cfg = cfg.replace(n_kv_heads=4)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu", dtype=torch.float32)
+    hist = {}
+    for dev in ("cpu", card):
+        ops.reset_counts()
+        tr = Trainer(model, AdamWConfig(peak_lr=1e-3, warmup_steps=1,
+                                        decay_steps=2),
+                     TrainerConfig(steps=2, log_every=100),
+                     make_data_iter(SyntheticTask(cfg, 4, 40, seed=1),
+                                    device=dev),
+                     device=dev, params=params, log=lambda s: None)
+        hist[str(dev)] = tr.fit()["history"]
+    layers = cfg.n_layers + (cfg.decoder_layers if arch == "whisper-tiny"
+                             else 0)
+    assert ops.COUNTS["flash_attention_tc"].kernel == 2 * 2 * layers
+    assert ops.COUNTS["flash_attention_bwd_tc"].kernel == 2 * layers
+    if arch.startswith("llava"):
+        assert ops.COUNTS["rmsnorm_bwd"].kernel > 0
+    assert all(c.plain == 0 for c in ops.COUNTS.values())
+    ops.reset_counts()
+    for a, b in zip(hist["cpu"], hist["cuda"]):
+        assert np.isfinite(b["grad_norm"])
+        assert b["loss"] == pytest.approx(a["loss"], rel=2e-2)

@@ -358,9 +358,13 @@ def test_eval_step_and_refusals():
                                    rel=1e-6)
     assert all(torch.isfinite(g).all() for g in torch.autograd.grad(
         loss, tree_leaves(mp)))
+    # llava trains: a finite loss over its image prefix and text
     vlm = build_model(smoke_config("llava-next-mistral-7b"))
-    with pytest.raises(NotImplementedError, match="A13b"):
-        vlm.loss({}, batch)
+    vb = SyntheticTask(vlm.cfg, batch=2, seq_len=16).batch_at(0)
+    vloss, vmet = vlm.loss(vlm.init(0, device="cpu", dtype=torch.float32),
+                           vb)
+    assert torch.isfinite(vloss)
+    assert float(vmet["tokens"]) == 2 * (16 - vlm.cfg.n_image_tokens)
     # a mesh wider than the visible cards: run_ranks refuses, no fallback
     if torch.cuda.device_count() < 8:
         with pytest.raises(RuntimeError, match="8 NCCL ranks need 8 CUDA"):
